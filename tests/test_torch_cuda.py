@@ -2,7 +2,9 @@
 the shapes and types the serving smoke does not reach: K2's byte-wise
 path (N % 16 != 0, misaligned q), K chunks past 512, f32 x, the M > 256
 regime rule; K1 at head rows of 64 to 512 bytes, mixed query and pool
-types, and the wrappers' refusals.
+types; K3 at length 0, full table rows, head widths 32 to 128 and both
+query types; the wrappers' refusals; and prefill attention at 4096
+positions with a head width the flash rule leaves to plain attention.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -15,11 +17,15 @@ JAX):
 import pytest
 import torch
 
-from veles_tpu_torch.ops.paged_attention import (_paged_attend_plain,
-                                                 paged_attend)
+from veles_tpu_torch.ops.attention import attention, plain_attention
+from veles_tpu_torch.ops.paged_attention import (_paged_attend_int8_plain,
+                                                 _paged_attend_plain,
+                                                 paged_attend,
+                                                 paged_attend_int8)
 from veles_tpu_torch.ops.quant import (PALLAS_MAX_ROWS,
                                        _int8_matmul_plain, int8_matmul,
                                        quantize_int8)
+from veles_tpu_torch.parallel.decode import _quantize_kv
 
 pytestmark = pytest.mark.cuda
 
@@ -140,3 +146,82 @@ def test_paged_attend_refuses_what_the_kernel_does_not_take(cuda, case):
         q = q.transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError):
         paged_attend(q, k, v, table, lengths, page_size=ps)
+
+
+def _int8_paged_problem(gen, head_dim, q_dtype, lengths, pb, heads=4,
+                        ps=16):
+    """The pool from ``_quantize_kv`` of random K/V, head-major; q
+    pre-scaled by 1/sqrt(D); rows padded with the scratch page."""
+    table = torch.zeros((len(lengths), pb), dtype=torch.int32)
+    nxt = 1
+    for s, n in enumerate(lengths):
+        for p in range(min(n // ps + 1, pb)):
+            table[s, p] = nxt
+            nxt += 1
+    pool = []
+    for _ in range(2):
+        codes, scale = _quantize_kv(torch.randn(
+            (nxt + 1, ps, heads, head_dim), generator=gen, device="cuda"))
+        pool += [codes.permute(0, 2, 3, 1).contiguous(),
+                 scale.permute(0, 2, 1).contiguous()]
+    q = torch.randn((len(lengths), heads, head_dim), generator=gen,
+                    device="cuda") * head_dim ** -0.5
+    return (q.to(q_dtype), *pool, table.cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"), ps)
+
+
+@pytest.mark.parametrize("head_dim,q_dtype,lengths,pb", [
+    (64, torch.bfloat16, [0, 15, 16, 53, 7], 6),      # length 0, boundary
+    (64, torch.float32, [0, 15, 16, 53, 7], 6),
+    (32, torch.bfloat16, [95, 200, 3], 6),           # full rows: PB cap
+    (128, torch.float32, [0, 95, 40], 6),
+    (128, torch.bfloat16, [1000, 2], 64),             # many quads a thread
+], ids=["bf16-64", "f32-64", "full-rows-32", "f32-128", "long-128"])
+def test_paged_attend_int8_kernel_matches_plain(cuda, head_dim, q_dtype,
+                                                lengths, pb):
+    args = _int8_paged_problem(cuda, head_dim, q_dtype, lengths, pb)
+    before = paged_attend_int8.launches
+    out = paged_attend_int8(*args[:-1], page_size=args[-1])
+    assert paged_attend_int8.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == args[0].shape
+    # f32 from int8 codes and f32 scales both sides widen exactly: only
+    # the order of the sums and of the softmax merge differs
+    torch.testing.assert_close(out, _paged_attend_int8_plain(*args),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["strided_q", "strided_pool",
+                                  "pool_shape", "head_dim", "page_size"])
+def test_paged_attend_int8_refuses_what_the_kernel_does_not_take(cuda,
+                                                                 case):
+    q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
+        cuda, 64, torch.float32, [3, 20], 2)
+    if case == "strided_q":
+        q = q.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "strided_pool":
+        kq = kq.transpose(2, 3).contiguous().transpose(2, 3)
+    elif case == "pool_shape":
+        vq, vs = vq[:, :2], vs[:, :2]
+    elif case == "head_dim":
+        q, kq, vq = q[..., :48].contiguous(), kq[:, :, :48].contiguous(), \
+            vq[:, :, :48].contiguous()
+    else:   # a page size the kernel's 4-position loads cannot walk
+        q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
+            cuda, 64, torch.float32, [3, 20], 2, ps=10)
+    with pytest.raises(ValueError):
+        paged_attend_int8(q, kq, ks, vq, vs, table, lengths, page_size=ps)
+
+
+def test_attention_at_4096_with_head_dim_64_runs(cuda):
+    """The JAX package runs plain XLA attention here (its flash rule
+    wants head_dim % 128 == 0), so the port runs the plain version
+    instead of raising."""
+    q, k, v = (torch.randn((1, 4096, 2, 64), generator=cuda,
+                           device="cuda") for _ in range(3))
+    out = attention(q, k, v, causal=True)
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(out, plain_attention(q, k, v, causal=True),
+                               rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="A3"):
+        attention(*(torch.randn((1, 4096, 1, 128), device="cuda")
+                    for _ in range(3)), causal=True)

@@ -107,6 +107,25 @@ def test_causal_attention_matches_jax():
                                   atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("t_q,t_k", [(4096, 4096), (4095, 4096),
+                                     (4096, 8192), (512, 512)])
+def test_flash_gate_follows_the_jax_rule(monkeypatch, head_dim, t_q, t_k):
+    """The port raises on CUDA exactly where the JAX package would run
+    its flash kernel on a TPU (its backend check left aside: the rule
+    is asked as if on a TPU)."""
+    monkeypatch.setattr(jattention.jax, "default_backend", lambda: "tpu")
+
+    class Shape:
+        def __init__(self, t):
+            self.shape = (1, t, 2, head_dim)
+
+    assert tattention.uses_flash(t_q, t_k, head_dim) \
+        == jattention._use_pallas_flash(Shape(t_q), Shape(t_k))
+    assert tattention.uses_flash(t_q, t_k, head_dim) \
+        == (min(t_q, t_k) >= 4096 and head_dim == 128)
+
+
 @pytest.mark.parametrize("ragged", [False, True], ids=["full", "ragged"])
 def test_prefill_forward_logits_and_kv_match_jax(model, ragged):
     jparams, tparams, table = model
@@ -186,7 +205,7 @@ def test_generate_rejects_bad_arguments(model):
                       max_len=6, device="cpu")
     with pytest.raises(ValueError, match="quantize"):
         tdec.generate(tparams, torch.from_numpy(table), prompt, HEADS, 2,
-                      quantize="int8-kv", device="cpu")
+                      quantize="int4", device="cpu")
 
 
 class TestPagePool:

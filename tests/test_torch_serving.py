@@ -112,12 +112,15 @@ def test_single_steps_eos_and_cancel(model):
     for rid, ref in zip(rids, refs):
         cut = ref[:ref.index(eos) + 1] if eos in ref else ref
         assert dec.results[rid] == cut
-    assert dec.pool.free_pages == dec.pool.capacity
+    # every page not held by a prefix-cache entry is back in the pool
+    cached = len({page for entry in dec.pool.cache.entries.values()
+                  for page in entry["pages"]})
+    assert cached and dec.pool.used_pages == cached
     rid = dec.submit(prompts[0])
     dec.step()
-    assert dec.pool.free_pages < dec.pool.capacity
+    assert dec.pool.used_pages > cached
     assert dec.cancel(rid) and not dec.cancel(rid)
-    assert dec.pool.free_pages == dec.pool.capacity and not dec.busy
+    assert dec.pool.used_pages == cached and not dec.busy
 
 
 def test_decoder_samples_reproducibly_from_its_seed(model):
@@ -145,9 +148,9 @@ def test_decoder_refuses_what_this_slice_does_not_serve(model,
     with pytest.raises(NotImplementedError, match="paged"):
         tserving.ContinuousDecoder(tparams, table, HEADS, paged=False,
                                    device="cpu")
-    with pytest.raises(ValueError, match="int8-KV"):
+    with pytest.raises(ValueError, match="quantize"):
         tserving.ContinuousDecoder(tparams, table, HEADS,
-                                   quantize="int8-kv", device="cpu")
+                                   quantize="int4", device="cpu")
     dec = tserving.ContinuousDecoder(tparams, table, HEADS, max_len=16,
                                      n_tokens=4, page_size=PS,
                                      device="cpu")
@@ -246,7 +249,12 @@ def test_http_round_trip_three_concurrent(model, api_factory):
     assert health["ready"] and health["counters"]["completed"] == 3
     assert health["inflight"] == 0
     assert health["pool"]["reserved_pages"] == 0
-    assert health["pool"]["pages_free"] == health["pool"]["pages_total"]
+    # the prompts' whole pages stay published in the prefix cache; every
+    # other page is back in the pool
+    cached = {page for entry in api.decoder.pool.cache.entries.values()
+              for page in entry["pages"]}
+    assert health["pool"]["pages_used"] == len(cached)
+    assert health["pool"]["prefix_misses"] == 3
 
 
 @pytest.mark.parametrize("payload,match", [

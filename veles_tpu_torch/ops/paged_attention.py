@@ -1,16 +1,18 @@
 """Fused paged decode attention: the page-table walk inside the kernel.
 
-The port of ``veles_tpu/ops/paged_attention.py``'s float tier
-(``paged_attend``, ``:151-198``, ``:287-315``). One query per slot
+The port of ``veles_tpu/ops/paged_attention.py``: the float tier
+(``paged_attend``, ``:151-198``, ``:287-315``) and the int8-KV tier
+(``paged_attend_int8``, ``:201-247``, ``:318-344``). One query per slot
 attends the slot's live KV pages, read through the page table; position
 ``lengths[s]`` (this step's append, which lands before the attend) is
 visible, and only the first ``min(lengths[s] // page_size + 1, PB)``
 pages are walked. Scores and the value product accumulate in f32 and the
 output is f32, whatever the query and pool types.
 
-On a CUDA tensor the hand-written kernel (``csrc/paged_attention.cu``)
-runs; on a CPU tensor the plain version, a page-table gather followed by
-a masked softmax, computes the same function.
+On a CUDA tensor the hand-written kernel (``csrc/paged_attention.cu``,
+``csrc/paged_attention_int8.cu``) runs; on a CPU tensor the plain
+version, a page-table gather followed by a masked softmax, computes the
+same function.
 """
 
 import ctypes
@@ -23,16 +25,23 @@ from veles_tpu_torch.ops import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def gather_pages(pages, page_table):
+    """Float tier: the pages of each row of ``page_table`` (B, NP) from
+    one block's pool leaf ``pages`` (P, ps, H, D), as one
+    (B, NP * ps, H, D) span each, in logical order."""
+    rows, n_pages = page_table.shape
+    return pages[page_table.long()].reshape(
+        (rows, n_pages * pages.shape[1]) + tuple(pages.shape[2:]))
+
+
 def _paged_attend_plain(q, k_pages, v_pages, page_table, lengths,
                         page_size):
     """Gather each slot's PB pages into one (S, PB * ps, H, D) span,
     mask positions past ``lengths`` with -1e30, softmax in f32."""
-    slots, heads, head_dim = q.shape
-    pb = page_table.shape[1]
-    span = pb * page_size
-    idx = page_table.long()
-    kg = k_pages[idx].reshape(slots, span, heads, head_dim).float()
-    vg = v_pages[idx].reshape(slots, span, heads, head_dim).float()
+    head_dim = q.shape[2]
+    span = page_table.shape[1] * page_size
+    kg = gather_pages(k_pages, page_table).float()
+    vg = gather_pages(v_pages, page_table).float()
     visible = (torch.arange(span, device=q.device)[None, :]
                <= lengths[:, None])
     scores = torch.einsum("shd,skhd->shk", q.float(), kg) \
@@ -125,3 +134,135 @@ def paged_attend(q, k_pages, v_pages, page_table, lengths, *, page_size):
 #: kernel launches since the last reset (a plain integer the chip smoke
 #: zeroes before driving the serving path)
 paged_attend.launches = 0
+
+
+def _paged_attend_int8_plain(q, k_q, k_scale, v_q, v_scale, page_table,
+                             lengths, page_size):
+    """Gather each slot's PB pages head-major into (S, H, D, PB * ps)
+    codes and (S, H, PB * ps) scales (``kv_pool._gather_block_int8``),
+    then ``int8_cache_attend``'s math in f32 throughout, as the TPU
+    kernel computes it: scores ``(q . K8) * k_scale``, positions past
+    ``lengths`` masked with -1e30, softmax, then ``p * v_scale``
+    against V8."""
+    slots, heads, head_dim = q.shape
+    pb = page_table.shape[1]
+    span = pb * page_size
+    idx = page_table.long()
+
+    def gather(codes, scale):
+        codes = codes[idx].permute(0, 2, 3, 1, 4).reshape(
+            slots, heads, head_dim, span)
+        scale = scale[idx].permute(0, 2, 1, 3).reshape(slots, heads, span)
+        return codes.float(), scale
+
+    k8, ks = gather(k_q, k_scale)
+    v8, vs = gather(v_q, v_scale)
+    visible = (torch.arange(span, device=q.device)[None, :]
+               <= lengths[:, None])[:, None, :]
+    # selects, as the TPU kernel masks: whatever the scratch page holds
+    # stays out of the max, the sum and the value product
+    scores = torch.einsum("shd,shdt->sht", q.float(), k8) * ks
+    p = torch.softmax(torch.where(visible, scores, -1e30), dim=-1)
+    return torch.einsum("shdt,sht->shd", v8,
+                        torch.where(visible, p * vs, 0.0))
+
+
+def _check_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
+                page_size):
+    if q.dim() != 3 or k_q.dim() != 4:
+        raise ValueError("paged_attend_int8 wants q (S, H, D) and pool "
+                         "codes (P, H, D, page_size), got %s and %s"
+                         % (tuple(q.shape), tuple(k_q.shape)))
+    slots, heads, head_dim = q.shape
+    pages = k_q.shape[0]
+    if tuple(k_q.shape) != (pages, heads, head_dim, page_size) \
+            or v_q.shape != k_q.shape \
+            or tuple(k_scale.shape) != (pages, heads, page_size) \
+            or v_scale.shape != k_scale.shape:
+        raise ValueError(
+            "paged_attend_int8 pool %s / %s with scales %s / %s does not "
+            "match page_size %d and q %s"
+            % (tuple(k_q.shape), tuple(v_q.shape), tuple(k_scale.shape),
+               tuple(v_scale.shape), page_size, tuple(q.shape)))
+    if page_table.dim() != 2 or page_table.shape[0] != slots \
+            or page_table.shape[1] < 1 or tuple(lengths.shape) != (slots,):
+        raise ValueError("paged_attend_int8 wants page_table (S, PB) and "
+                         "lengths (S,), got %s and %s"
+                         % (tuple(page_table.shape), tuple(lengths.shape)))
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("paged_attend_int8 wants int32 page_table and "
+                        "lengths, got %s and %s"
+                        % (page_table.dtype, lengths.dtype))
+    if q.dtype not in _DTYPES or k_q.dtype != torch.int8 \
+            or v_q.dtype != torch.int8 \
+            or k_scale.dtype != torch.float32 \
+            or v_scale.dtype != torch.float32:
+        raise TypeError("paged_attend_int8 takes float32 or bfloat16 q, "
+                        "int8 codes and float32 scales, got %s, %s, %s, "
+                        "%s, %s" % (q.dtype, k_q.dtype, v_q.dtype,
+                                    k_scale.dtype, v_scale.dtype))
+    devices = {t.device for t in (q, k_q, k_scale, v_q, v_scale,
+                                  page_table, lengths)}
+    if len(devices) != 1:
+        raise ValueError("paged_attend_int8 operands on different "
+                         "devices: %s" % sorted(str(d) for d in devices))
+
+
+#: head widths K3 is compiled for (one accumulator register per d)
+INT8_HEAD_DIMS = (32, 64, 128)
+
+
+def paged_attend_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
+                      *, page_size):
+    """Fused paged decode attention, int8-KV tier. ``q`` (S, H, D)
+    float32 or bfloat16, ALREADY multiplied by 1/sqrt(D) (the caller's
+    convention, ``kv_pool.py:415``); ``k_q``/``v_q`` one block's
+    head-major pool leaf (P, H, D, page_size) int8 with ``k_scale``/
+    ``v_scale`` (P, H, page_size) f32; ``page_table`` (S, PB) int32;
+    ``lengths`` (S,) int32 (position ``lengths[s]`` is attended).
+    Returns (S, H, D) float32.
+
+    On CUDA tensors the kernel runs (and
+    :attr:`paged_attend_int8.launches` counts it): the operands must be
+    contiguous, D one of :data:`INT8_HEAD_DIMS`, the page size a
+    multiple of 4 and page ids valid. On CPU tensors the plain version
+    runs."""
+    _check_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
+                page_size)
+    if q.device.type == "cpu":
+        return _paged_attend_int8_plain(q, k_q, k_scale, v_q, v_scale,
+                                        page_table, lengths, page_size)
+    if q.device.type != "cuda":
+        raise ValueError("paged_attend_int8 runs on cuda or cpu tensors, "
+                         "got %s" % q.device)
+    tensors = (q, k_q, k_scale, v_q, v_scale, page_table, lengths)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_attend_int8's kernel wants contiguous "
+                         "operands")
+    slots, heads, head_dim = q.shape
+    if head_dim not in INT8_HEAD_DIMS or page_size % 4:
+        raise ValueError("paged_attend_int8's kernel takes head_dim in %s "
+                         "and a page size that is a multiple of 4, got %d "
+                         "and %d" % (INT8_HEAD_DIMS, head_dim, page_size))
+    if any(t.data_ptr() % 16 for t in (k_q, v_q, k_scale, v_scale)):
+        raise ValueError("paged_attend_int8's kernel wants 16-byte "
+                         "aligned pools")
+    out = torch.empty((slots, heads, head_dim), dtype=torch.float32,
+                      device=q.device)
+    fn = _build.function(
+        "paged_attention_int8", "veles_paged_attend_int8",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    err = fn(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
+             v_q.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), slots, heads, head_dim,
+             page_table.shape[1], page_size, _DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError("paged_attend_int8 kernel launch failed: CUDA "
+                           "error %d" % err)
+    paged_attend_int8.launches += 1
+    return out
+
+
+#: kernel launches since the last reset
+paged_attend_int8.launches = 0

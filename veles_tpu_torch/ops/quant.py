@@ -14,6 +14,9 @@ most :data:`PALLAS_MAX_ROWS` rows (every decode step, short prefills) run
 the kernel on a CUDA tensor; larger ones dequantize and call
 ``torch.matmul``, as the JAX package left them to XLA. On a CPU tensor
 the plain version runs.
+
+:func:`int8_cache_attend` is the int8-KV tier's decode attention in
+torch ops, as the JAX package's default formulation is XLA.
 """
 
 import ctypes
@@ -112,6 +115,35 @@ def int8_matmul(x, q, scale):
 #: kernel launches since the last reset (a plain integer the chip smoke
 #: zeroes before driving the serving path)
 int8_matmul.launches = 0
+
+
+def int8_cache_attend(q, k_q, k_scale, v_q, v_scale, mask_addend,
+                      use_pallas=None):
+    """Decode attention of one query token against an int8 KV cache in
+    the head-major (B, H, D, T) layout (``quant.py:221-259``). ``q``
+    (B, 1, H, D) float, already 1/sqrt(D)-scaled by the caller;
+    per-(position, head) ``k_scale``/``v_scale`` (B, H, T) f32;
+    ``mask_addend`` f32 (0 visible, -1e30 masked), (T,) shared or (B, T)
+    per row. Returns (B, 1, H, D) f32.
+
+    Torch ops, the JAX package's default formulation: the scores and the
+    value product accumulate in f32, and with a bf16 ``q`` the weights
+    ``p * v_scale`` round to bf16 before the value product, as there.
+    ``use_pallas=True`` (the JAX package's opt-in dense attend kernel)
+    raises: that kernel is ported with the dense slot slab."""
+    if use_pallas:
+        raise NotImplementedError(
+            "the dense int8-KV attend kernel (_pallas_cache_attend) is "
+            "not ported yet: it comes with the dense slot slab (ROADMAP "
+            "queue item A2)")
+    s = torch.einsum("bhd,bhdt->bht", q[:, 0].float(), k_q.float())
+    addend = mask_addend if mask_addend.dim() == 1 \
+        else mask_addend[:, None, :]
+    p = torch.softmax(s * k_scale + addend, dim=-1)
+    pv = p * v_scale
+    if q.dtype == torch.bfloat16:
+        pv = pv.to(torch.bfloat16).float()
+    return torch.einsum("bhdt,bht->bhd", v_q.float(), pv)[:, None]
 
 
 def matmul_any(x, w):

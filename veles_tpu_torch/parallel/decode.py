@@ -1,12 +1,15 @@
 """KV-cache autoregressive decoding: the single-request dense reference.
 
-The port of ``veles_tpu/parallel/decode.py`` (``:39-62``, ``:76-148``,
+The port of ``veles_tpu/parallel/decode.py`` (``:39-73``, ``:76-148``,
 ``:151-225``, ``:233-354``): prefill the prompt once, then one token per
-step against a static-shape cache. PyTorch runs eagerly, so the JAX
-package's scan becomes a Python loop and the cache is updated in place.
-The serving engine (``kv_pool.py``) shares ``_prefill_forward`` and the
+step against a static-shape cache — float, or in the int8-KV tier int8
+codes with per-(position, head) scales in the head-major (L, B, H, D, T)
+layout. PyTorch runs eagerly, so the JAX package's scan becomes a Python
+loop and the cache is updated in place. The serving engine
+(``kv_pool.py``) shares ``_prefill_forward``, ``_quantize_kv`` and the
 sublayers; :func:`generate` stays plain PyTorch with no kernel except
-the int8 tier's matvec, and is what the paged engine is held against.
+the int8 weight tiers' matvec, and is what the paged engine is held
+against.
 """
 
 import numpy
@@ -14,20 +17,47 @@ import torch
 
 from veles_tpu_torch.device import resolve_device, tree_to
 from veles_tpu_torch.ops.attention import attention
-from veles_tpu_torch.ops.quant import matmul_any, quantize_int8
+from veles_tpu_torch.ops.quant import (int8_cache_attend, matmul_any,
+                                       quantize_int8)
 from veles_tpu_torch.parallel.transformer_step import (_block_qkv, _head,
                                                        _mlp)
 
+#: the int8-KV tier rounds its cache length up to whole tiles of this
+#: many positions (the JAX package's SLOT_SPAN_TILE)
+KV_TILE = 128
+
 
 def init_kv_cache(n_blocks, batch, max_len, heads, head_dim,
-                  dtype=torch.float32, device=None):
-    """Static-shape float cache: K/V (L, B, T, H, D) per block, plus the
-    filled length (a host integer: the whole batch shares it)."""
+                  dtype=torch.float32, quantized=False, device=None):
+    """Static-shape cache plus the filled length (a host integer: the
+    whole batch shares it). Float: K/V (L, B, T, H, D). ``quantized``:
+    int8 K/V head-major (L, B, H, D, T) with f32 ``k_scale``/``v_scale``
+    (L, B, H, T), one absmax scale per (block, row, position, head)."""
     device = resolve_device(device)
+    if quantized:
+        qshape = (n_blocks, batch, heads, head_dim, max_len)
+        sshape = (n_blocks, batch, heads, max_len)
+        return {"k": torch.zeros(qshape, dtype=torch.int8, device=device),
+                "v": torch.zeros(qshape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, device=device),
+                "v_scale": torch.zeros(sshape, device=device),
+                "length": 0}
     shape = (n_blocks, batch, max_len, heads, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "length": 0}
+
+
+def _quantize_kv(x):
+    """Per-(row, position, head) symmetric int8 over the last axis:
+    (..., D) -> (int8 (..., D), f32 scale (...,)); the absmax over 127,
+    rounded half to even and clipped to +-127, scale 1 where the absmax
+    is 0. One copy for prefills and decode appends."""
+    x = x.float()
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(x / scale), -127, 127)
+    return q.to(torch.int8), scale[..., 0]
 
 
 def _prefill_forward(params, x, heads, length=None):
@@ -65,8 +95,15 @@ def prefill(params, x, heads, cache):
     """Run the prompt (B, T, E) once, writing ``cache`` positions
     [0, T) in place; returns ``(last_logits, cache)``."""
     logits, k_all, v_all, t = _prefill_forward(params, x, heads)
-    cache["k"][:, :, :t] = k_all.to(cache["k"].dtype)
-    cache["v"][:, :, :t] = v_all.to(cache["v"].dtype)
+    if "k_scale" in cache:
+        # the prompt attended exact K/V; only the cached copies round
+        for name, val in (("k", k_all), ("v", v_all)):
+            q8, scale = _quantize_kv(val)     # (L,B,T,H,D), (L,B,T,H)
+            cache[name][..., :t] = q8.permute(0, 1, 3, 4, 2)
+            cache[name + "_scale"][..., :t] = scale.permute(0, 1, 3, 2)
+    else:
+        cache["k"][:, :, :t] = k_all.to(cache["k"].dtype)
+        cache["v"][:, :, :t] = v_all.to(cache["v"].dtype)
     cache["length"] = t
     return logits, cache
 
@@ -90,17 +127,35 @@ def decode_step(params, x_tok, heads, cache):
     """One token (B, 1, E) through every block against the cache; the
     token's K/V are appended in place at ``cache["length"]``, and the
     attend reads positions [0, length] (the JAX package masks the rest
-    of the cache, which contributes exact zeros). Returns ``(logits,
-    cache)``."""
+    of the cache, which contributes exact zeros). The int8-KV cache
+    quantizes the append and attends the whole cache under that mask
+    through :func:`ops.quant.int8_cache_attend`, q pre-scaled by
+    1/sqrt(D) in q's type. Returns ``(logits, cache)``."""
     batch, _, embed = x_tok.shape
     length = cache["length"]
+    quantized = "k_scale" in cache
+    if quantized:
+        max_len = cache["k"].shape[-1]
+        mask_addend = torch.where(
+            torch.arange(max_len, device=x_tok.device) <= length,
+            0.0, -1e30).float()
+        inv_sqrt = (embed // heads) ** -0.5
     x = x_tok
     for i, blk in enumerate(params["blocks"]):
         q, k, v = _block_qkv(blk, x, heads)
-        cache["k"][i, :, length] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][i, :, length] = v[:, 0].to(cache["v"].dtype)
-        att = _cache_attend(q, cache["k"][i, :, :length + 1],
-                            cache["v"][i, :, :length + 1])
+        if quantized:
+            for name, val in (("k", k), ("v", v)):
+                q8, scale = _quantize_kv(val[:, 0])   # (B,H,D), (B,H)
+                cache[name][i, ..., length] = q8
+                cache[name + "_scale"][i, ..., length] = scale
+            att = int8_cache_attend(q * inv_sqrt, cache["k"][i],
+                                    cache["k_scale"][i], cache["v"][i],
+                                    cache["v_scale"][i], mask_addend)
+        else:
+            cache["k"][i, :, length] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][i, :, length] = v[:, 0].to(cache["v"].dtype)
+            att = _cache_attend(q, cache["k"][i, :, :length + 1],
+                                cache["v"][i, :, :length + 1])
         att = att.to(x.dtype)
         x = x + matmul_any(att.reshape(batch, 1, embed),
                            blk["wout"]) + blk["bout"]
@@ -154,19 +209,22 @@ def generate(params, embed_table, prompt_tokens, heads, n_tokens,
     by default; ``temperature > 0`` samples (optionally top-k truncated)
     from ``generator`` (a ``torch.Generator`` on ``device``).
     ``quantize="int8"`` runs the W8A16 tier (weights quantized once up
-    front unless already quantized).
+    front unless already quantized); ``"int8-kv"`` also stores the cache
+    as int8, its length rounded up to whole 128-position tiles as in the
+    JAX package (masking keeps the extra positions inert).
 
     ``embed_table`` (vocab, E) maps tokens to input embeddings; its
     dtype is the cache's. Returns ``(tokens (B, n_tokens), cache)``, and
     with ``return_logits=True`` also the (B, n_tokens, vocab) float32
     logits each emitted token was picked from."""
-    if quantize not in (None, "none", "int8"):
-        raise ValueError("quantize must be None or 'int8' (the int8-KV "
-                         "tier is a later slice), got %r" % (quantize,))
+    if quantize not in (None, "none", "int8", "int8-kv"):
+        raise ValueError("quantize must be None, 'int8' or 'int8-kv', "
+                         "got %r" % (quantize,))
     device = resolve_device(device)
     params = tree_to(params, device)
     embed_table = embed_table.to(device)
-    if quantize == "int8" and not isinstance(params["head"], dict):
+    if quantize in ("int8", "int8-kv") \
+            and not isinstance(params["head"], dict):
         params = quantize_params(params)
     prompt = torch.as_tensor(prompt_tokens, dtype=torch.long).to(device)
     batch, t = prompt.shape
@@ -179,9 +237,11 @@ def generate(params, embed_table, prompt_tokens, heads, n_tokens,
     if top_k < 0:
         raise ValueError("top_k must be >= 0, got %d" % top_k)
     top_k = min(int(top_k), embed_table.shape[0])
+    if quantize == "int8-kv":
+        max_len = -(-max_len // KV_TILE) * KV_TILE
     cache = init_kv_cache(len(params["blocks"]), batch, max_len, heads,
                           embed // heads, dtype=embed_table.dtype,
-                          device=device)
+                          quantized=quantize == "int8-kv", device=device)
     logits, cache = prefill(params, embed_table[prompt], heads, cache)
     toks, seen = [], []
     for _ in range(n_tokens):

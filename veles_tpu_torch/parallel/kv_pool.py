@@ -1,31 +1,51 @@
-"""Paged KV pool for the serving engine.
+"""Paged KV pool with shared-prefix reuse for the serving engine.
 
-The port of ``veles_tpu/parallel/kv_pool.py``'s float tier and cold
-admission path (``:64-104``, ``:162-206``, ``:227-248``, ``:327-476``,
-``:620-820``, ``:1047-1068``):
+The port of ``veles_tpu/parallel/kv_pool.py``'s single-chip engine
+(``:64-330``, ``:327-476``, ``:572-921``, ``:1047-1068``):
 
-- **device side**: one ``(L, pages, page_size, H, D)`` pool plus the
-  slot control tensors. A decode step appends each slot's K/V at its own
-  position through the page table, in place (``index_put_`` into the
-  pool: no copy of the pool is made), then attends with
-  ``ops.paged_attention.paged_attend``, which walks the table itself.
-- **host side**: :class:`PagePool` — free list, per-page refcounts and
-  the page reservations that bound pool-aware admission.
+- **device side**: one ``(L, pages, page_size, H, D)`` pool, or in the
+  int8-KV tier head-major ``(L, pages, H, D, page_size)`` int8 codes
+  with ``(L, pages, H, page_size)`` f32 scales, plus the slot control
+  tensors. A decode step appends each slot's K/V at its own position
+  through the page table, in place (``index_put_`` into the pool: no
+  copy of the pool is made), then attends with
+  ``ops.paged_attention.paged_attend`` / ``paged_attend_int8``, which
+  walk the table themselves. Three admissions write a slot: cold (full
+  prefill scattered into fresh pages), tail (prefill only the unique
+  tail against the pooled prefix pages) and hit (control rows only).
+- **host side**: :class:`PagePool` — free list, per-page refcounts, the
+  LRU :class:`PrefixCache` of page-granular token prefixes, the page
+  reservations that bound pool-aware admission, and the page-release
+  window that prices ``Retry-After``.
 
 Page 0 is the scratch page: never allocated, the target of every
-padding page-table entry and of retired lanes' appends. The prefix
-cache, the int8-KV tier and the tail/hit admissions are later slices.
+padding page-table entry and of retired lanes' appends. Only whole pages
+are shared, and a slot's appends land past its prompt, so a shared page
+is never written. The int8-KV tier reuses exact prompts only: its pool
+holds rounded K/V while a prefill attends exact values, so a tail
+prefilled against rounded prefix pages would not match a cold prefill.
+The breaker-rebuild shadows (``capture_shadows``, ``restore_entries``,
+``_paged_restore``), and with them a prefix cache handed from one pool to
+the next, the mesh functions and AOT are later slices.
 """
 
+import collections
+import hashlib
 import threading
+import time
 
+import numpy
 import torch
 import torch.nn.functional as F
 
 from veles_tpu_torch.device import resolve_device
-from veles_tpu_torch.ops.paged_attention import paged_attend
+from veles_tpu_torch.ops.attention import plain_attention
+from veles_tpu_torch.ops.paged_attention import (gather_pages,
+                                                 paged_attend,
+                                                 paged_attend_int8)
 from veles_tpu_torch.ops.quant import matmul_any
-from veles_tpu_torch.parallel.decode import _pick_token, _prefill_forward
+from veles_tpu_torch.parallel.decode import (_pick_token, _prefill_forward,
+                                             _quantize_kv)
 from veles_tpu_torch.parallel.transformer_step import (_block_qkv, _head,
                                                        _mlp)
 
@@ -33,41 +53,98 @@ from veles_tpu_torch.parallel.transformer_step import (_block_qkv, _head,
 #: entries and retired lanes point at it, and it is always masked
 SCRATCH_PAGE = 0
 
+#: the state leaves whose bytes belong to the page pool
+PAGED_KV_LEAVES = ("k", "v", "k_scale", "v_scale")
+
+#: prefix-cache entries kept before LRU eviction
+PREFIX_CACHE_ENTRIES = 256
+
+#: trailing seconds of page releases that price Retry-After
+RELEASE_WINDOW_S = 60.0
+
+#: Retry-After seconds when no page was released in the window
+RETRY_AFTER_FALLBACK_S = 1.0
+
 
 def init_paged_state(n_blocks, pages, page_size, heads, head_dim, vocab,
-                     slots, dtype=torch.float32, device=None):
+                     slots, dtype=torch.float32, quantized=False,
+                     device=None):
     """Pool + control state for ``slots`` concurrent sequences over
     ``pages`` pages of ``page_size`` positions (page 0 is scratch).
-    K/V ``(L, P, page_size, H, D)``; per-slot ``lengths`` (int32) and
-    ``logits`` (float32, the next token's)."""
+    Float tier: K/V ``(L, P, page_size, H, D)`` in ``dtype``.
+    ``quantized``: int8 K/V ``(L, P, H, D, page_size)`` with f32
+    ``k_scale``/``v_scale`` ``(L, P, H, page_size)``. Per-slot
+    ``lengths`` (int32) and ``logits`` (float32, the next token's)."""
     device = resolve_device(device)
-    shape = (n_blocks, pages, page_size, heads, head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+    state = {
         "lengths": torch.zeros((slots,), dtype=torch.int32, device=device),
         "logits": torch.zeros((slots, vocab), dtype=torch.float32,
                               device=device),
     }
+    if quantized:
+        qshape = (n_blocks, pages, heads, head_dim, page_size)
+        sshape = (n_blocks, pages, heads, page_size)
+        for name in ("k", "v"):
+            state[name] = torch.zeros(qshape, dtype=torch.int8,
+                                      device=device)
+            state[name + "_scale"] = torch.zeros(sshape, device=device)
+    else:
+        shape = (n_blocks, pages, page_size, heads, head_dim)
+        for name in ("k", "v"):
+            state[name] = torch.zeros(shape, dtype=dtype, device=device)
+    return state
+
+
+def _page_size_of(state):
+    """The page size from the pool's shape: the minor axis of the int8
+    head-major layout, axis 2 of the float one."""
+    return (state["k"].shape[-1] if "k_scale" in state
+            else state["k"].shape[2])
+
+
+def paged_kv_bytes(state):
+    """Device bytes of the page arrays of a paged state (both tiers)."""
+    return sum(state[name].numel() * state[name].element_size()
+               for name in PAGED_KV_LEAVES if name in state)
+
+
+def _pad_pages(val, n_pages, ps):
+    """Zero-pad the positions axis (axis 2 of an (L, B, T, ...) stack)
+    to whole pages and split it into (n_pages, ps)."""
+    t = val.shape[2]
+    if t < n_pages * ps:
+        pad = [0, 0] * (val.dim() - 3) + [0, n_pages * ps - t]
+        val = F.pad(val, pad)
+    return val.reshape(val.shape[:2] + (n_pages, ps) + val.shape[3:])
 
 
 def _scatter_pages(state, page_ids, k_all, v_all):
     """Write stacked prefill K/V (L, B, T, H, D) into the pool pages
-    ``page_ids`` (B, NP) in place, positions zero-padded to whole pages.
-    Stale padding positions are rewritten by a sequence's own appends
-    before any mask exposes them; rows padded with the scratch page may
-    race on it, which is harmless by definition."""
+    ``page_ids`` (B, NP) in place, positions zero-padded to whole pages
+    (the int8 tier quantizes first and pads codes and scales with
+    zeros, as the JAX package does). Stale padding positions are
+    rewritten by a sequence's own appends before any mask exposes them;
+    rows padded with the scratch page may race on it, which is harmless
+    by definition."""
     n_pages = page_ids.shape[1]
-    ps = state["k"].shape[2]
+    ps = _page_size_of(state)
     idx = page_ids.long()
     for name, val in (("k", k_all), ("v", v_all)):
-        val = val.to(state[name].dtype)
-        t = val.shape[2]
-        if t < n_pages * ps:
-            val = F.pad(val, (0, 0, 0, 0, 0, n_pages * ps - t))
-        lb = val.shape[:2]
-        state[name][:, idx] = val.reshape(lb + (n_pages, ps)
-                                          + val.shape[3:])
+        if "k_scale" in state:
+            q8, scale = _quantize_kv(val)      # (L,B,T,H,D), (L,B,T,H)
+            state[name][:, idx] = _pad_pages(q8, n_pages, ps).permute(
+                0, 1, 2, 4, 5, 3)
+            state[name + "_scale"][:, idx] = _pad_pages(
+                scale, n_pages, ps).permute(0, 1, 2, 4, 3)
+        else:
+            state[name][:, idx] = _pad_pages(val.to(state[name].dtype),
+                                             n_pages, ps)
+
+
+def _write_control(state, slots, lengths, logits):
+    slots = slots.long()
+    state["lengths"][slots] = lengths.to(torch.int32)
+    state["logits"][slots] = logits.float()
 
 
 def paged_admit_many(params, heads, state, slots, page_ids, prompt_x,
@@ -79,10 +156,54 @@ def paged_admit_many(params, heads, state, slots, page_ids, prompt_x,
     Updates ``state`` in place and returns it."""
     logits, k_all, v_all, lengths = _prefill_forward(params, prompt_x,
                                                      heads, lengths)
-    slots = slots.long()
-    state["lengths"][slots] = lengths.to(torch.int32)
-    state["logits"][slots] = logits.float()
+    _write_control(state, slots, lengths, logits)
     _scatter_pages(state, page_ids, k_all, v_all)
+    return state
+
+
+def paged_admit_tail(params, heads, state, slots, prefix_pages,
+                     tail_pages, tail_x, lengths):
+    """Prefix-hit admission, float tier: prefill ONLY the unique tail.
+    The shared prefix (``prefix_pages`` (B, PP), whole pages) is
+    gathered from the pool as attention context; the tail tokens
+    (``tail_x`` (B, Tt, E), rows right-padded to the group's
+    page-rounded tail width) run the blocks under the prefix-offset
+    causal mask (tail row j sees prefix and tail positions up to
+    ``PP * ps + j``) and scatter their K/V into ``tail_pages`` (B, NT).
+    ``lengths`` (B,) are the true TOTAL lengths. Plain torch attention,
+    as the JAX package runs XLA's here. Updates ``state`` in place and
+    returns it."""
+    if "k_scale" in state:
+        raise ValueError("the int8-KV pool takes exact-prompt hits only; "
+                         "tail admissions are float tier")
+    batch, t_tail, embed = tail_x.shape
+    shared = prefix_pages.shape[1] * _page_size_of(state)
+    x = tail_x
+    ks, vs = [], []
+    for i, blk in enumerate(params["blocks"]):
+        q, k, v = _block_qkv(blk, x, heads)
+        ks.append(k)
+        vs.append(v)
+        kp = gather_pages(state["k"][i], prefix_pages).to(q.dtype)
+        vp = gather_pages(state["v"][i], prefix_pages).to(q.dtype)
+        att = plain_attention(q, torch.cat([kp, k], dim=1),
+                              torch.cat([vp, v], dim=1), causal=True)
+        x = x + matmul_any(att.reshape(batch, t_tail, embed),
+                           blk["wout"]) + blk["bout"]
+        x = _mlp(blk, x)
+    rows = torch.arange(batch, device=x.device)
+    last = x[rows, torch.clamp(lengths.long() - shared - 1, min=0)]
+    _write_control(state, slots, lengths, _head(params, last))
+    _scatter_pages(state, tail_pages, torch.stack(ks), torch.stack(vs))
+    return state
+
+
+def paged_admit_hit(state, slots, lengths, logits):
+    """Full-prompt prefix hit: the prompt's pages are already in the
+    pool, so only the control rows are written, ``logits`` (B, V) being
+    the cold prefill's cached last-position logits. Updates ``state`` in
+    place and returns it."""
+    _write_control(state, slots, lengths, logits)
     return state
 
 
@@ -96,26 +217,42 @@ def paged_slot_step(params, embed_table, heads, state, page_table, active,
     (the first one from the prefill's), as ``generate`` emits. Each
     slot's K/V append lands at position ``lengths[s]`` — page
     ``page_table[s, min(pos // ps, PB - 1)]``, offset ``pos % ps`` —
-    before the attend, which sees it. Updates ``state`` in place;
-    returns ``(state, emitted (S,))`` without a host sync."""
+    before the attend, which sees it. The int8-KV tier quantizes the
+    append per (slot, head) and attends through ``paged_attend_int8``
+    with q pre-scaled by 1/sqrt(D) in q's type. Updates ``state`` in
+    place; returns ``(state, emitted (S,))`` without a host sync."""
     slots = state["lengths"].shape[0]
-    ps = state["k"].shape[2]
+    quantized = "k_scale" in state
+    ps = _page_size_of(state)
     pb = page_table.shape[1]
     lengths = state["lengths"]
     tok_in = _pick_token(state["logits"], generator, temperature, sample,
                          top_k)
     x = embed_table[tok_in][:, None, :]
     embed = x.shape[-1]
+    inv_sqrt = (embed // heads) ** -0.5
     logical = torch.clamp(lengths // ps, max=pb - 1).long()
     page = page_table.gather(1, logical[:, None])[:, 0].long()
     off = (lengths % ps).long()
     for i, blk in enumerate(params["blocks"]):
         q, k, v = _block_qkv(blk, x, heads)
-        state["k"][i, page, off] = k[:, 0].to(state["k"].dtype)
-        state["v"][i, page, off] = v[:, 0].to(state["v"].dtype)
-        att = paged_attend(q[:, 0].contiguous(), state["k"][i],
-                           state["v"][i], page_table, lengths,
-                           page_size=ps)
+        if quantized:
+            # the int index and the two index tensors around the slices
+            # put the slot axis first: the target is (S, H, D)
+            for name, val in (("k", k), ("v", v)):
+                q8, scale = _quantize_kv(val[:, 0])     # (S,H,D), (S,H)
+                state[name][i, page, :, :, off] = q8
+                state[name + "_scale"][i, page, :, off] = scale
+            att = paged_attend_int8(
+                (q * inv_sqrt)[:, 0].contiguous(), state["k"][i],
+                state["k_scale"][i], state["v"][i], state["v_scale"][i],
+                page_table, lengths, page_size=ps)
+        else:
+            state["k"][i, page, off] = k[:, 0].to(state["k"].dtype)
+            state["v"][i, page, off] = v[:, 0].to(state["v"].dtype)
+            att = paged_attend(q[:, 0].contiguous(), state["k"][i],
+                               state["v"][i], page_table, lengths,
+                               page_size=ps)
         att = att.to(x.dtype)
         x = x + matmul_any(att.reshape(slots, 1, embed),
                            blk["wout"]) + blk["bout"]
@@ -141,14 +278,46 @@ def paged_slot_step_many(params, embed_table, heads, state, page_table,
     return state, torch.stack(emitted)
 
 
+def _boundary_keys(tokens, page_size, whole):
+    """The prefix keys of every whole-page boundary (``tokens[:k * ps]``
+    for k = 1..whole) in one O(T) pass: one SHA-1 advanced page by page
+    and copied at each boundary, so each digest is the SHA-1 of the
+    prefix's int32 bytes, the JAX package's key (a hash collision is
+    guarded by an exact token comparison on lookup)."""
+    data = numpy.ascontiguousarray(tokens, numpy.int32)
+    hasher = hashlib.sha1()
+    keys = []
+    for k in range(whole):
+        hasher.update(data[k * page_size:(k + 1) * page_size].tobytes())
+        keys.append(hasher.copy().hexdigest())
+    return keys
+
+
+class PrefixCache:
+    """LRU cache of page-granular token prefixes: each entry holds the
+    prefix tokens, its page ids (one pool ref per page) and, at an
+    admission's exact-prompt boundary, a copy of the prefill's
+    last-position logits; at most :data:`PREFIX_CACHE_ENTRIES` entries.
+    Counters are cumulative."""
+
+    def __init__(self):
+        self.entries = collections.OrderedDict()   # key -> entry
+        self.counters = {"hits": 0, "misses": 0, "evictions": 0}
+
+    def __len__(self):
+        return len(self.entries)
+
+
 class PagePool:
-    """Host-side page table: free list, per-page refcounts and admission
-    reservations.
+    """Host-side page table: free list, per-page refcounts, the prefix
+    cache, admission reservations and the page-release window.
 
     Thread model: the decoder's driver thread allocates and frees; the
     HTTP admission gate reserves from handler threads — every mutation
-    takes the one lock. A live slot holds one ref per mapped page; a
-    page returns to the free list when its count reaches zero."""
+    takes the one re-entrant lock. A live slot holds one ref per mapped
+    page and each prefix-cache entry one ref per page it names; a page
+    returns to the free list when its count reaches zero, and cache
+    entries are evicted LRU-first when an allocation runs short."""
 
     def __init__(self, pages, page_size):
         if pages < 2:
@@ -159,10 +328,14 @@ class PagePool:
                              % page_size)
         self.pages = int(pages)
         self.page_size = int(page_size)
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
         self._free = list(range(self.pages - 1, SCRATCH_PAGE, -1))
         self._refs = {}
         self._reserved = 0
+        #: (monotonic stamp, pages freed): the observed release rate
+        #: that prices Retry-After
+        self._freed_events = collections.deque(maxlen=512)
+        self.cache = PrefixCache()
 
     @property
     def capacity(self):
@@ -181,18 +354,29 @@ class PagePool:
 
     def snapshot(self):
         with self._lock:
+            hits = self.cache.counters["hits"]
+            misses = self.cache.counters["misses"]
             return {"pages_total": self.capacity,
                     "pages_used": self.capacity - len(self._free),
                     "pages_free": len(self._free),
                     "page_size": self.page_size,
-                    "reserved_pages": self._reserved}
+                    "reserved_pages": self._reserved,
+                    "prefix_entries": len(self.cache),
+                    "prefix_hits": hits,
+                    "prefix_misses": misses,
+                    "prefix_evictions": self.cache.counters["evictions"],
+                    "prefix_hit_rate": (round(hits / (hits + misses), 4)
+                                        if hits + misses else None)}
 
     def alloc(self, n):
-        """Allocate ``n`` pages (refcount 1 each); returns the page ids,
-        or None when the free list is too short."""
+        """Allocate ``n`` pages (refcount 1 each), evicting LRU prefix
+        entries under pressure; returns the page ids, or None when the
+        pool cannot serve them even after eviction."""
         if n <= 0:
             return []
         with self._lock:
+            while len(self._free) < n and self._evict_lru():
+                pass
             if len(self._free) < n:
                 return None
             pages = [self._free.pop() for _ in range(n)]
@@ -208,7 +392,8 @@ class PagePool:
 
     def release(self, pages):
         """Drop one ref per page; refcount-0 pages return to the free
-        list."""
+        list and feed the release-rate window."""
+        freed = 0
         with self._lock:
             for page in pages:
                 refs = self._refs.get(page)
@@ -217,14 +402,40 @@ class PagePool:
                 if refs <= 1:
                     del self._refs[page]
                     self._free.append(page)
+                    freed += 1
                 else:
                     self._refs[page] = refs - 1
+            if freed:
+                self._freed_events.append((time.monotonic(), freed))
+
+    def _evict_lru(self):
+        """Drop the least recently used prefix entry and its refs (pages
+        a live slot maps stay until it retires); False when the cache is
+        empty."""
+        with self._lock:
+            if not self.cache.entries:
+                return False
+            _, entry = self.cache.entries.popitem(last=False)
+            self.cache.counters["evictions"] += 1
+            self.release(entry["pages"])
+            return True
+
+    def flush_prefix_cache(self):
+        """Drop every prefix entry and its page refs (what a weight swap
+        must do: cached pages and logits were computed under the old
+        weights). Returns the number of entries dropped."""
+        dropped = 0
+        with self._lock:
+            while self._evict_lru():
+                dropped += 1
+        return dropped
 
     def try_reserve(self, n):
         """Reserve worst-case page demand for one admission: the sum of
         live reservations never exceeds capacity, so an admitted request
-        can always be given its pages (the no-deadlock invariant of the
-        HTTP gate)."""
+        can always be given its pages (prefix sharing and eviction only
+        free pages relative to the worst case) — the no-deadlock
+        invariant of the HTTP gate."""
         with self._lock:
             if self._reserved + n > self.capacity:
                 return False
@@ -234,6 +445,106 @@ class PagePool:
     def unreserve(self, n):
         with self._lock:
             self._reserved = max(0, self._reserved - n)
+
+    def release_rate(self):
+        """Observed page releases per second over the trailing
+        :data:`RELEASE_WINDOW_S` seconds (0.0 when nothing was freed in
+        it)."""
+        now = time.monotonic()
+        with self._lock:
+            events = [(t, n) for t, n in self._freed_events
+                      if now - t <= RELEASE_WINDOW_S]
+        if not events:
+            return 0.0
+        span = max(now - events[0][0], 1e-3)
+        return sum(n for _, n in events) / span
+
+    def retry_after(self, need):
+        """Retry-After for a pool rejection: the seconds the observed
+        release rate needs to free ``need`` pages, clamped to [1, 60];
+        :data:`RETRY_AFTER_FALLBACK_S` when nothing was freed lately."""
+        rate = self.release_rate()
+        if rate <= 0:
+            return RETRY_AFTER_FALLBACK_S
+        return float(min(60.0, max(1.0, need / rate)))
+
+    def lookup(self, tokens, allow_partial=True):
+        """The longest page-granular cached prefix of ``tokens``:
+        returns ``(entry, shared_len)`` with the shared pages RETAINED
+        for the caller's slot, or ``(None, 0)``. A full-prompt match
+        needs stored logits (otherwise the last page counts as tail);
+        ``allow_partial=False`` (the int8-KV tier) takes exact-prompt
+        hits only. No counter moves: the caller books
+        :meth:`book_hit` / :meth:`book_miss` once the admission
+        commits, and :meth:`unlookup` rolls a hit back."""
+        ps = self.page_size
+        tokens = numpy.asarray(tokens, numpy.int32)
+        n = len(tokens)
+        keys = _boundary_keys(tokens, ps, n // ps)   # outside the lock
+        with self._lock:
+            for k in range(n // ps, 0, -1):
+                shared = k * ps
+                if shared != n and not allow_partial:
+                    continue
+                entry = self.cache.entries.get(keys[k - 1])
+                if entry is None or not numpy.array_equal(
+                        entry["tokens"], tokens[:shared]):
+                    continue
+                if shared == n and entry["logits"] is None:
+                    continue
+                self.cache.entries.move_to_end(keys[k - 1])
+                self.retain(entry["pages"])
+                return entry, shared
+            return None, 0
+
+    def book_hit(self):
+        """Count one prefix-cache hit, when the admission commits."""
+        with self._lock:
+            self.cache.counters["hits"] += 1
+
+    def book_miss(self):
+        """Count one miss, when the cold admission commits (a request
+        blocked on pages and scanned again every pass counts once)."""
+        with self._lock:
+            self.cache.counters["misses"] += 1
+
+    def unlookup(self, entry):
+        """Roll a :meth:`lookup` hit back (the caller could not admit):
+        drop the retained refs. The hit was never booked."""
+        self.release(entry["pages"])
+
+    def insert(self, tokens, pages, logits=None):
+        """Publish an admission's whole pages: one entry per page
+        boundary (``tokens[:k * ps]``, its first k ``pages``), each
+        holding refs on its pages, ``logits`` (a copy the caller owns:
+        the slot's row is written again by later admissions) attached
+        at the exact-length boundary."""
+        ps = self.page_size
+        tokens = numpy.asarray(tokens, numpy.int32)
+        whole = len(tokens) // ps
+        if whole == 0:
+            return
+        keys = _boundary_keys(tokens, ps, whole)     # outside the lock
+        with self._lock:
+            for k in range(1, whole + 1):
+                shared = k * ps
+                entry = self.cache.entries.get(keys[k - 1])
+                boundary_logits = logits if shared == len(tokens) else None
+                if entry is not None:
+                    self.cache.entries.move_to_end(keys[k - 1])
+                    if entry["logits"] is None:
+                        entry["logits"] = boundary_logits
+                    continue
+                entry_pages = list(pages[:k])
+                self.retain(entry_pages)
+                self.cache.entries[keys[k - 1]] = {
+                    "tokens": tokens[:shared].copy(),
+                    "pages": entry_pages,
+                    "length": shared,
+                    "logits": boundary_logits,
+                }
+            while len(self.cache.entries) > PREFIX_CACHE_ENTRIES:
+                self._evict_lru()
 
 
 def pages_for(positions, page_size):

@@ -2,20 +2,23 @@
 front.
 
 The port of ``veles_tpu/serving.py``'s ``ContinuousDecoder`` (paged
-branches, cold admissions: ``:761-2115``) and the core of
-``GenerateAPI`` (``:2138-3590``). A fixed set of slots decodes in
-lockstep on the card while new requests prefill into free slots
-mid-flight; each decode step attends through the fused paged-attention
-kernel and, in the ``quantize="int8"`` tier, every projection runs the
-int8 matvec kernel.
+branches: ``:761-2115``) and the core of ``GenerateAPI``
+(``:2138-3590``). A fixed set of slots decodes in lockstep on the card
+while new requests prefill into free slots mid-flight; each decode step
+attends through the fused paged-attention kernel (the int8-KV kernel in
+the ``quantize="int8-kv"`` tier) and, in the ``"int8"`` and
+``"int8-kv"`` tiers, every projection runs the int8 matvec kernel.
 
-PyTorch runs eagerly, so the JAX package's prompt buckets and pow2 group
-padding (which only bound jit caches) are gone: every admission group is
+Every admission is classified against the pool's prefix cache
+(``serving.py:1444-1691``): a hit (the whole prompt cached: control rows
+only), a tail (a page-aligned prefix cached: prefill only the tail
+against the pooled prefix pages) or cold (a full prefill). PyTorch runs
+eagerly, so the JAX package's prompt buckets and pow2 group padding
+(which only bound jit caches) are gone: every cold and tail group is
 ragged — one prefill at the group's page-rounded width, each row
-allocating exactly its prompt's pages, as the JAX kernel path admits
-(``serving.py:1486-1541``). The dense slot slab, the prefix cache, the
-int8-KV tier, the mesh and the observability, breaker, governor and
-deploy planes are later slices.
+allocating exactly its prompt's (or tail's) pages, as the JAX kernel
+path admits. The dense slot slab, the mesh and the observability,
+breaker, governor and deploy planes are later slices.
 """
 
 import collections
@@ -29,11 +32,13 @@ import numpy
 import torch
 
 from veles_tpu_torch.device import resolve_device, tree_to
-from veles_tpu_torch.parallel.decode import quantize_params
+from veles_tpu_torch.parallel.decode import KV_TILE, quantize_params
 from veles_tpu_torch.parallel.kv_pool import (SCRATCH_PAGE, PagePool,
                                               default_pool_pages,
                                               init_paged_state,
+                                              paged_admit_hit,
                                               paged_admit_many,
+                                              paged_admit_tail,
                                               paged_slot_step,
                                               paged_slot_step_many,
                                               pages_for)
@@ -56,9 +61,13 @@ class ContinuousDecoder:
     per-request key streams have no counterpart yet, so a sampled
     stream depends on which requests share its steps).
 
+    ``quantize="int8"`` serves int8 weights; ``"int8-kv"`` also stores
+    the pool as int8 codes with per-(position, head) scales and rounds
+    ``max_len`` up to whole 128-position tiles, as the JAX package does.
+
     Numerical contract: a request's greedy stream equals
     :func:`parallel.decode.generate` for its prompt up to f32
-    round-off — the same sublayers, with the paged kernel attending in
+    round-off — the same sublayers, with the paged kernels attending in
     f32; near-tied argmaxes may break differently."""
 
     def __init__(self, params, embed_table, heads, slots=4, max_len=512,
@@ -69,10 +78,9 @@ class ContinuousDecoder:
             raise NotImplementedError(
                 "the dense slot slab is not ported yet; the port serves "
                 "the paged pool (paged=True)")
-        if quantize not in (None, "none", "int8"):
-            raise ValueError("quantize must be None or 'int8' (the "
-                             "int8-KV tier is not ported yet), got %r"
-                             % (quantize,))
+        if quantize not in (None, "none", "int8", "int8-kv"):
+            raise ValueError("quantize must be None, 'int8' or 'int8-kv', "
+                             "got %r" % (quantize,))
         self.device = resolve_device(device)
         self.quantize = quantize if quantize != "none" else None
         params = tree_to(params, self.device)
@@ -82,6 +90,8 @@ class ContinuousDecoder:
         self.embed_table = embed_table.to(self.device)
         self.heads = heads
         self.slots = slots
+        if self.quantize == "int8-kv":
+            max_len = -(-max_len // KV_TILE) * KV_TILE
         self.max_len = max_len
         self.page_size = int(page_size if page_size is not None
                              else DEFAULT_PAGE_SIZE)
@@ -104,7 +114,8 @@ class ContinuousDecoder:
         self.state = init_paged_state(
             len(params["blocks"]), self.pool_pages, self.page_size, heads,
             embed // heads, self.embed_table.shape[0], slots,
-            dtype=self.embed_table.dtype, device=self.device)
+            dtype=self.embed_table.dtype,
+            quantized=self.quantize == "int8-kv", device=self.device)
         self.pool = PagePool(self.pool_pages, self.page_size)
         self._slot_pages = {}    # slot -> [page id, ...] in logical order
         self._queue = collections.deque()
@@ -114,12 +125,17 @@ class ContinuousDecoder:
         self._budget = {}        # request id -> tokens still wanted
         self.results = {}        # request id -> [token, ...]
         self._next_id = 0
-        #: dispatch tally: one "admit" per admission group, one "chunk"
-        #: per chunked dispatch, one "step" per single step
-        self.dispatch_counts = {"admit": 0, "admit_requests": 0,
+        #: dispatch tally: one "admit" per cold admission group, one
+        #: "admit_tail" per tail group (one per prefix page count), one
+        #: "admit_hit" per hit group, one "chunk" per chunked dispatch,
+        #: one "step" per single step
+        self.dispatch_counts = {"admit": 0, "admit_tail": 0,
+                                "admit_hit": 0, "admit_requests": 0,
                                 "chunk": 0, "step": 0}
-        #: host-blocking wall seconds of chunk enqueues and readbacks
-        self.timings = {"dispatch_s": 0.0, "collect_s": 0.0}
+        #: host-blocking wall seconds of admissions, chunk enqueues and
+        #: readbacks
+        self.timings = {"admit_s": 0.0, "dispatch_s": 0.0,
+                        "collect_s": 0.0}
 
     def _upload(self, array):
         """A host array as a tensor on the decoder's device, without a
@@ -177,43 +193,131 @@ class ContinuousDecoder:
         return True
 
     def _admit_pending(self):
-        """Admit every queued request that has a free slot and pages for
-        its prompt, as ONE ragged prefill: the group's page-rounded max
-        width, each row allocating exactly its prompt's pages (short
-        rows pad their page ids with the scratch page, which the
-        per-row lengths keep invisible). A request the pool cannot
-        serve yet stays at the front of the queue."""
+        """Admit every queued request that has a free slot and pages,
+        classified against the prefix cache: a ``hit`` (the whole prompt
+        cached with its logits) writes control rows only; a ``tail`` (a
+        page-aligned prefix cached) prefills only the tail, allocating
+        exactly its pages; a cold request prefills in full. Cold rows go
+        in ONE ragged prefill, tails in one per prefix page count, hits
+        in one. The int8-KV tier takes exact-prompt hits only. A request
+        the pool cannot serve yet, even after LRU eviction, stays at the
+        front of the queue."""
         ps = self.page_size
-        group = []
+        allow_partial = self.quantize != "int8-kv"
+        cold, tails, hits = [], {}, []
         while self._queue and self._free:
             rid, prompt, _ = self._queue[0]
-            pages = self.pool.alloc(pages_for(len(prompt), ps))
+            entry, shared = self.pool.lookup(prompt,
+                                             allow_partial=allow_partial)
+            if entry is not None and shared == len(prompt):
+                self._queue.popleft()
+                self.pool.book_hit()
+                hits.append((rid, prompt, self._free.pop(), entry))
+                continue
+            pages = self.pool.alloc(pages_for(len(prompt) - shared, ps))
             if pages is None:
+                if entry is not None:
+                    self.pool.unlookup(entry)
                 break
             self._queue.popleft()
-            group.append((rid, prompt, self._free.pop(), pages))
-        if not group:
-            return
+            if entry is None:
+                self.pool.book_miss()
+                cold.append((rid, prompt, self._free.pop(), pages))
+            else:
+                self.pool.book_hit()
+                tails.setdefault(len(entry["pages"]), []).append(
+                    (rid, prompt, self._free.pop(), entry, shared, pages))
+        if cold:
+            self._admit_cold(cold)
+        for group in tails.values():
+            self._admit_tails(group)
+        if hits:
+            self._admit_hits(hits)
+
+    def _book_admit(self, key, started, group):
+        self.timings["admit_s"] += time.perf_counter() - started
+        self.dispatch_counts[key] += 1
+        self.dispatch_counts["admit_requests"] += len(group)
+
+    def _seat(self, slot, rid, prompt, pages):
+        """Give ``slot`` to request ``rid`` and publish its prompt's
+        whole pages (and, for a page-aligned prompt, a copy of its
+        logits row, which a later admission into the slot overwrites)
+        so the next admission of the prefix is a hit."""
+        self._slot_req[slot] = rid
+        self._slot_len[slot] = len(prompt)
+        self._slot_pages[slot] = list(pages)
+        logits = (self.state["logits"][slot].clone()
+                  if len(prompt) % self.page_size == 0 else None)
+        self.pool.insert(prompt, pages, logits=logits)
+
+    def _padded(self, rows, width, fill=0, dtype=numpy.int64):
+        """Rows of unequal length right-padded into one array."""
+        out = numpy.full((len(rows), width), fill, dtype)
+        for j, row in enumerate(rows):
+            out[j, :len(row)] = row
+        return self._upload(out)
+
+    def _admit_cold(self, group):
+        """One ragged prefill at the group's page-rounded max width,
+        short rows padding their page ids with the scratch page, which
+        the per-row lengths keep invisible."""
+        ps = self.page_size
         width = pages_for(max(len(r[1]) for r in group), ps) * ps
-        prompts = numpy.zeros((len(group), width), numpy.int64)
-        page_ids = numpy.full((len(group), max(len(r[3]) for r in group)),
-                              SCRATCH_PAGE, numpy.int32)
-        for j, (_, prompt, _, pages) in enumerate(group):
-            prompts[j, :len(prompt)] = prompt
-            page_ids[j, :len(pages)] = pages
-        x = self.embed_table[self._upload(prompts)]
+        started = time.perf_counter()
         self.state = paged_admit_many(
             self.params, self.heads, self.state,
             self._upload(numpy.asarray([r[2] for r in group], numpy.int64)),
-            self._upload(page_ids), x,
+            self._padded([r[3] for r in group],
+                         max(len(r[3]) for r in group), SCRATCH_PAGE,
+                         numpy.int32),
+            self.embed_table[self._padded([r[1] for r in group], width)],
             self._upload(numpy.asarray([len(r[1]) for r in group],
                                        numpy.int64)))
-        self.dispatch_counts["admit"] += 1
-        self.dispatch_counts["admit_requests"] += len(group)
+        self._book_admit("admit", started, group)
         for rid, prompt, slot, pages in group:
+            self._seat(slot, rid, prompt, pages)
+
+    def _admit_tails(self, group):
+        """One ragged tail prefill for tails sharing a prefix page
+        count: tails at their page-rounded max width against each row's
+        pooled prefix pages. The extended prompt is published too (its
+        pages hold what a cold prefill would), so a repeated one becomes
+        a hit."""
+        ps = self.page_size
+        tails = [r[1][r[4]:] for r in group]
+        width = pages_for(max(len(t) for t in tails), ps) * ps
+        started = time.perf_counter()
+        self.state = paged_admit_tail(
+            self.params, self.heads, self.state,
+            self._upload(numpy.asarray([r[2] for r in group], numpy.int64)),
+            self._upload(numpy.asarray([r[3]["pages"] for r in group],
+                                       numpy.int32)),
+            self._padded([r[5] for r in group],
+                         max(len(r[5]) for r in group), SCRATCH_PAGE,
+                         numpy.int32),
+            self.embed_table[self._padded(tails, width)],
+            self._upload(numpy.asarray([len(r[1]) for r in group],
+                                       numpy.int64)))
+        self._book_admit("admit_tail", started, group)
+        for rid, prompt, slot, entry, _, pages in group:
+            self._seat(slot, rid, prompt, list(entry["pages"]) + pages)
+
+    def _admit_hits(self, group):
+        """Control rows only, from each entry's cached logits; the slot
+        maps the entry's pages (retained by the lookup)."""
+        started = time.perf_counter()
+        self.state = paged_admit_hit(
+            self.state,
+            self._upload(numpy.asarray([r[2] for r in group], numpy.int64)),
+            self._upload(numpy.asarray([len(r[1]) for r in group],
+                                       numpy.int64)),
+            torch.stack([r[3]["logits"] for r in group]))
+        self._book_admit("admit_hit", started, group)
+        for rid, prompt, slot, entry in group:
             self._slot_req[slot] = rid
             self._slot_len[slot] = len(prompt)
-            self._slot_pages[slot] = list(pages)
+            self._slot_pages[slot] = list(entry["pages"])
 
     def _release_slot_pages(self, slot):
         """Return a retired or cancelled slot's pages to the pool."""
@@ -258,7 +362,9 @@ class ContinuousDecoder:
     def worst_case_pages(self, prompt_len, budget, chunk=1):
         """Upper bound on the pages one request can hold at once: its
         prompt grown to the token budget plus the lag-1 pipeline's two
-        chunks of slack — what the HTTP gate reserves."""
+        chunks of slack — what the HTTP gate reserves. Ragged admission
+        makes it the bound of every family: a tail maps the shared whole
+        pages plus exactly its tail's, a hit the prompt's pages."""
         return pages_for(prompt_len + budget + 2 * chunk, self.page_size)
 
     def _active(self):
@@ -363,12 +469,24 @@ class ContinuousDecoder:
                 return self.results
         raise RuntimeError("decoder did not drain in %d steps" % max_steps)
 
-    def run_until_drained(self, max_steps=100000):
-        """Drive :meth:`step` until every submitted request finished."""
+    def step_many(self, n):
+        """Admit what fits and run ``n`` steps as one chunk, then read
+        it back; returns {request_id: [tokens...]}."""
+        dispatched = self.dispatch_chunk(n)
+        if dispatched is None:
+            return {}
+        return self.collect_chunk(dispatched)
+
+    def run_until_drained(self, max_steps=100000, chunk=1):
+        """Drive :meth:`step` (``chunk`` > 1: :meth:`step_many`) until
+        every submitted request finished."""
         for _ in range(max_steps):
             if not self.busy:
                 return self.results
-            self.step()
+            if chunk > 1:
+                self.step_many(chunk)
+            else:
+                self.step()
         raise RuntimeError("decoder did not drain in %d steps" % max_steps)
 
 
@@ -376,12 +494,14 @@ class GenerateAPI:
     """HTTP front for :class:`ContinuousDecoder`. ``POST <path>`` with
     ``{"tokens": [...], "n_tokens": N?, "deadline_s": S?}`` answers
     ``{"tokens": [...]}`` once the request's greedy stream completes;
-    ``GET /healthz`` answers the counters and the pool.
+    ``GET /healthz`` answers the counters and the pool with its
+    ``prefix_*`` cache fields.
 
     Handler threads validate (400, with the JAX package's messages),
     pass the admission gate — at most ``max_queue`` requests in flight
     (429 beyond it; <= 0 disables the bound) and the request's
-    worst-case pages reserved in the pool (429 when they are not there)
+    worst-case pages reserved in the pool (429 when they are not there,
+    its Retry-After priced by the pool's observed page-release rate)
     — then stage the request and wait. ONE driver thread owns the
     decoder: it submits staged requests, cancels expired ones (504),
     and runs lag-1 chunk pipelining (chunk N+1 enqueued before chunk
@@ -613,10 +733,11 @@ class GenerateAPI:
                   code=429, headers={"Retry-After": "1"})
             return
         if verdict == "pool":
+            pool = self.decoder.pool
             reply(handler, {"error": "kv page pool exhausted: need %d "
-                            "pages, %d free"
-                            % (need, self.decoder.pool.free_pages)},
-                  code=429, headers={"Retry-After": "1"})
+                            "pages, %d free" % (need, pool.free_pages)},
+                  code=429, headers={"Retry-After": "%d" % max(
+                      1, round(pool.retry_after(need)))})
             return
         if not holder["event"].wait(deadline_s + self.BACKSTOP_GRACE):
             self._resolve(holder, "errors", error="timed out", code=503)
