@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel of the serving path from veles_tpu_torch/ops/csrc
    with nvcc (sm_90a), all sources at once, then hold each kernel (K1
-   paged attention, K2 int8 matvec, K3 int8-KV paged attention) against
+   paged attention, K2 int8 matvec, K3 int8-KV paged attention, K4
+   dense int8-KV attention, on a slab view cut to a span too) against
    its plain PyTorch version at the serving path's shapes, and time
    kernel, plain version and the nearest PyTorch library call with CUDA
    events (L2 flushed before every timed launch, median of 25);
@@ -20,10 +21,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    tails behind it, the system prompt twice more) through GenerateAPI:
    /healthz must count one cold admission, eight tails and two hits;
    then cold against hit admission time on the same decoder;
-5. the same configurations in float32 stream the same greedy tokens as
+5. the repo's continuous-serving traffic (bench.py:1044-1121: 16
+   prompts of 512 tokens, a budget of 64, chunks of 64, half the
+   requests up front and the rest joining one per lag-1 pass) through
+   ContinuousDecoder on the dense slot slab, the JAX package's default
+   tier, in the float, int8 and int8-KV tiers: a warm run, then a
+   measured one whose counters must show K4 (and K2) in the int8-KV
+   tier, K2 in the int8 tier and no attention kernel in the float tier;
+6. the serving and shared-prompt configurations, and GenerateAPI on the
+   dense slab in each tier, in float32 stream the same greedy tokens as
    the port's dense reference decode (on the card for float weights, on
-   the CPU for the int8 tiers, where the card would run K2), up to the
-   first step where the reference's top-2 logit gap is below 1e-3.
+   the CPU for the int8 tiers, where the card would run K2 and K4), up
+   to the first step where the reference's top-2 logit gap is below
+   1e-3.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -47,14 +57,17 @@ from veles_tpu_torch.ops.paged_attention import (_paged_attend_int8_plain,
                                                  _paged_attend_plain,
                                                  paged_attend,
                                                  paged_attend_int8)
-from veles_tpu_torch.ops.quant import (_int8_matmul_plain, int8_matmul,
+from veles_tpu_torch.ops.quant import (_cache_attend_plain,
+                                       _int8_matmul_plain,
+                                       int8_cache_attend, int8_matmul,
                                        quantize_int8)
 from veles_tpu_torch.parallel.decode import (_quantize_kv, generate,
-                                             quantize_params)
+                                             quantize_params,
+                                             slot_state_bytes)
 from veles_tpu_torch.parallel.kv_pool import paged_kv_bytes
 from veles_tpu_torch.parallel.transformer_step import (
     init_transformer_params)
-from veles_tpu_torch.serving import GenerateAPI
+from veles_tpu_torch.serving import ContinuousDecoder, GenerateAPI
 
 #: the repo's serving model at full width (bench.py:861-862)
 EMBED, HEADS, BLOCKS, VOCAB = 1024, 16, 4, 32768
@@ -74,6 +87,19 @@ K3_ATOL = 1e-4
 #: K2 writes bf16: a one-ulp difference in the final rounding is 2^-8
 #: relative, so the bound is 1e-2 of the output's largest magnitude
 K2_RTOL = 1e-2
+#: K4 writes f32 from int8 codes and f32 scales both versions widen
+#: exactly and the same q; they differ only in summation order and exp
+#: over 768 positions (~1e-6 of outputs of order 1)
+K4_ATOL = 1e-4
+#: the dense phase: bench.py's decode_continuous traffic (:1044-1121)
+DENSE_PROMPT, DENSE_BUDGET, DENSE_REQUESTS, DENSE_CHUNK = 512, 64, 16, 64
+#: two chunks of lag-1 headroom, as there (704; the int8-KV tier rounds
+#: it to 768)
+DENSE_MAX_LEN = DENSE_PROMPT + DENSE_BUDGET + 2 * DENSE_CHUNK
+#: K4 at the dense int8-KV slab's width: ragged lengths (0, a tile
+#: boundary, the last position) and the span a slot step cuts
+K4_WIDTH, K4_SPAN = 768, 640
+K4_LENGTHS = (0, 127, 128, 300, 511, 600, 700, 767)
 #: decode-step weight shapes (K, N) and launches of each per step: the
 #: four block projections per block, then the vocab head
 K2_SHAPES = ((EMBED, 3 * EMBED), (EMBED, EMBED), (EMBED, 4 * EMBED),
@@ -254,6 +280,98 @@ def k3_phase(timer, device, gen):
             "library_ms": library_ms}
 
 
+def k4_problem(device, gen, q_dtype, width=K4_WIDTH):
+    """The dense int8-KV slab of the serving model at the dense phase's
+    width: (8 slots, 16 heads, 64, width) codes and (8, 16, width)
+    scales from ``_quantize_kv`` of random bf16 K/V, q (8, 1, 16, 64)
+    pre-scaled by 1/sqrt(D)."""
+    head_dim = EMBED // HEADS
+    slab = []
+    for _ in range(2):
+        val = torch.randn((SLOTS, width, HEADS, head_dim), generator=gen,
+                          device=device).to(torch.bfloat16)
+        codes, scale = _quantize_kv(val)        # (S,T,H,D), (S,T,H)
+        slab += [codes.permute(0, 2, 3, 1).contiguous(),
+                 scale.permute(0, 2, 1).contiguous()]
+    q = torch.randn((SLOTS, 1, HEADS, head_dim), generator=gen,
+                    device=device) * head_dim ** -0.5
+    return q.to(q_dtype), slab
+
+
+def k4_masks(device, t):
+    """The slot step's per-row mask of K4_LENGTHS (clipped to t) and one
+    shared mask."""
+    pos = torch.arange(t, device=device)
+    lengths = torch.tensor(K4_LENGTHS, device=device)
+    per_row = torch.where(pos[None, :] <= lengths[:, None], 0.0, -1e30)
+    shared = torch.where(pos <= 400, 0.0, -1e30)
+    return {"per-row": per_row.float(), "shared": shared.float()}
+
+
+def k4_phase(timer, device, gen):
+    """K4 against its plain version with f32 and bf16 q, per-row and
+    shared masks, and once on the slab cut to a 640-position span (a
+    strided view, read in place); timed at bf16 q and the per-row mask
+    (the serving path's), beside SDPA over K/V dequantized beforehand
+    (the dequantization not timed)."""
+    err = 0.0
+    for q_dtype in (torch.float32, torch.bfloat16):
+        q, slab = k4_problem(device, gen, q_dtype)
+        for label, mask in k4_masks(device, K4_WIDTH).items():
+            out = int8_cache_attend(q, *slab, mask, use_pallas=True)
+            ref = _cache_attend_plain(q, *slab, mask)
+            torch.cuda.synchronize()
+            e = (out - ref).abs().max().item()
+            print("K4 int8_cache_attend q %s, %s mask: max_abs_err %.3g "
+                  "(tolerance %.0e)" % (str(q_dtype).split(".")[-1], label,
+                                        e, K4_ATOL))
+            err = max(err, e)
+    view = [a[..., :K4_SPAN] for a in slab]
+    mask = k4_masks(device, K4_SPAN)["per-row"]
+    out = int8_cache_attend(q, *view, mask, use_pallas=True)
+    ref = _cache_attend_plain(q, *(a.contiguous() for a in view), mask)
+    torch.cuda.synchronize()
+    e = (out - ref).abs().max().item()
+    print("K4 on a %d-position span of the %d-wide slab (row stride %d): "
+          "max_abs_err %.3g" % (K4_SPAN, K4_WIDTH, view[0].stride(2), e))
+    err = max(err, e)
+    if not err <= K4_ATOL:
+        raise AssertionError("K4 disagrees with its plain version")
+    mask = k4_masks(device, K4_WIDTH)["per-row"]
+
+    def dequantized(codes, scale):
+        full = codes.float() * scale[:, :, None, :]          # (S,H,D,T)
+        return full.transpose(2, 3).to(q.dtype)              # (S,H,T,D)
+
+    kd, vd = dequantized(*slab[:2]), dequantized(*slab[2:])
+    visible = (mask == 0)[:, None, None, :]
+    qs = q.transpose(1, 2)                                   # (S,H,1,D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = timer(lambda: int8_cache_attend(q, *slab, mask, use_pallas=True))
+    plain_ms = timer(lambda: _cache_attend_plain(q, *slab, mask))
+    library_ms = timer(lambda: sdpa(qs, kd, vd, attn_mask=visible,
+                                    scale=1.0))
+    head_dim = EMBED // HEADS
+    nbytes = (q.numel() * q.element_size()
+              + 2 * SLOTS * HEADS * head_dim * K4_WIDTH
+              + 2 * SLOTS * HEADS * K4_WIDTH * 4 + mask.numel() * 4
+              + SLOTS * HEADS * head_dim * 4)
+    ops = 4 * SLOTS * HEADS * head_dim * K4_WIDTH
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S)
+    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
+                >= ops / BF16_OPS_PER_S else "operations")
+    print("K4 ms %.4f plain_ms %.4f sdpa_ms %.4f bound_ms %.4f (%s, %d "
+          "positions a lane, %d bytes)" % (ms, plain_ms, library_ms,
+                                           bound_ms, bound_by, K4_WIDTH,
+                                           nbytes))
+    return {"name": "int8_cache_attend", "route": "cuda",
+            "source": "veles_tpu_torch/ops/csrc/cache_attend_int8.cu",
+            "replaces": "veles_tpu/ops/quant.py:161",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def library_available(x, q_t, scale_t):
     """Whether this PyTorch build runs its W8A16 operator
     (``torch._weight_int8pack_mm``) on the card: the yardstick, never
@@ -343,7 +461,10 @@ def post(port, tokens, n_tokens, timeout=600):
 
 #: every kernel's launch counter, by the name the JSON line gives it
 COUNTERS = {"paged_attend": paged_attend, "int8_matmul": int8_matmul,
-            "paged_attend_int8": paged_attend_int8}
+            "paged_attend_int8": paged_attend_int8,
+            "int8_cache_attend": int8_cache_attend}
+#: the attention kernels among them
+ATTENTION = ("paged_attend", "paged_attend_int8", "int8_cache_attend")
 
 
 def counts():
@@ -376,15 +497,16 @@ def burst(port, prompts):
     return streams
 
 
-def serve(params, table, waves, quantize, device):
-    """Answer ``waves`` of prompts through a fresh GenerateAPI over HTTP,
-    each wave posted at once after the previous one completed. A short
+def serve(params, table, waves, quantize, device, paged=True):
+    """Answer ``waves`` of prompts through a fresh GenerateAPI over HTTP
+    (on the paged pool, or with ``paged=False`` the dense slab), each
+    wave posted at once after the previous one completed. A short
     warm-up request runs first; every launch counter is zeroed after it
     and read after the last wave. Returns the streams, the wall seconds,
     the launches, the chunks, the host-blocking seconds, /healthz before
     and after the waves and the (stopped) API, by name."""
     api = GenerateAPI(params, table, HEADS, slots=SLOTS, max_len=MAX_LEN,
-                      n_tokens=N_TOKENS, chunk=CHUNK, paged=True,
+                      n_tokens=N_TOKENS, chunk=CHUNK, paged=paged,
                       page_size=PAGE, quantize=quantize,
                       device=device).start()
     try:
@@ -450,6 +572,8 @@ def serving_phase(device, prompts):
                                  % (attend, got[attend], BLOCKS, steps))
         if quantize == "int8-kv" and got["paged_attend"]:
             raise AssertionError("the int8-KV run launched K1")
+        if got["int8_cache_attend"]:
+            raise AssertionError("the paged run launched K4")
         if quantize and got["int8_matmul"] == 0:
             raise AssertionError("the %s run never launched K2" % quantize)
         for name, n in got.items():
@@ -530,30 +654,117 @@ def prefix_phase(device, rng):
     return got
 
 
+def dense_run(params, table, prompts, quantize, device):
+    """One drain of ``prompts`` through a fresh ContinuousDecoder on the
+    dense slab with decode_continuous's stagger: the first SLOTS up
+    front, then one more each lag-1 pass. Returns the decoder and the
+    wall seconds of the drain, the card synchronised at both ends."""
+    dec = ContinuousDecoder(params, table, HEADS, slots=SLOTS,
+                            max_len=DENSE_MAX_LEN, n_tokens=DENSE_BUDGET,
+                            quantize=quantize, device=device)
+    pending = list(prompts)
+    for _ in range(min(SLOTS, len(pending))):
+        dec.submit(pending.pop())
+
+    def admit():
+        if pending:
+            dec.submit(pending.pop())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec.drain_pipelined(DENSE_CHUNK, admit=admit)
+    torch.cuda.synchronize()
+    return dec, time.perf_counter() - t0
+
+
+def dense_phase(device):
+    """decode_continuous's traffic on the dense slot slab in the float,
+    int8 and int8-KV tiers: a warm run, then the counters zeroed and a
+    measured run. The int8-KV run must launch K4 once per block and
+    step and neither paged kernel, both int8 runs K2, the float run no
+    attention kernel."""
+    params, table = bf16_model(device)
+    rng = numpy.random.RandomState(0)
+    prompts = [rng.randint(0, VOCAB, DENSE_PROMPT)
+               for _ in range(DENSE_REQUESTS)]
+    launches = dict.fromkeys(COUNTERS, 0)
+    for quantize in (None, "int8", "int8-kv"):
+        dense_run(params, table, prompts, quantize, device)
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        dec, wall = dense_run(params, table, prompts, quantize, device)
+        got = counts()
+        steps = dec.dispatch_counts["chunk"] * DENSE_CHUNK
+        timings = {key: round(1e3 * sec, 3)
+                   for key, sec in dec.timings.items()}
+        print("dense slab %s bf16: %d requests x %d tokens in %.3f s = %.1f "
+              "tokens/s; host-blocking ms %s; dispatch_counts %s; max_len "
+              "%d, slab K/V %d bytes, state %d bytes; launches %s"
+              % (quantize or "float", DENSE_REQUESTS, DENSE_BUDGET, wall,
+                 dec.tokens_out / wall, timings, dec.dispatch_counts,
+                 dec.max_len, paged_kv_bytes(dec.state),
+                 slot_state_bytes(dec.state), got))
+        if dec.tokens_out != DENSE_REQUESTS * DENSE_BUDGET or any(
+                len(stream) != DENSE_BUDGET
+                or not all(0 <= t < VOCAB for t in stream)
+                for stream in dec.results.values()):
+            raise AssertionError("the dense %s run delivered %d tokens"
+                                 % (quantize or "float", dec.tokens_out))
+        if quantize == "int8-kv":
+            if got["int8_cache_attend"] < BLOCKS * steps or steps == 0:
+                raise AssertionError("K4 launched %d < %d blocks x %d "
+                                     "steps" % (got["int8_cache_attend"],
+                                                BLOCKS, steps))
+            if got["paged_attend"] or got["paged_attend_int8"]:
+                raise AssertionError("the dense int8-KV run launched a "
+                                     "paged kernel")
+        elif any(got[name] for name in ATTENTION):
+            raise AssertionError("the dense %s run launched an attention "
+                                 "kernel" % (quantize or "float"))
+        if bool(quantize) != bool(got["int8_matmul"]):
+            raise AssertionError("the dense %s run launched K2 %d times"
+                                 % (quantize or "float",
+                                    got["int8_matmul"]))
+        for name, n in got.items():
+            launches[name] += n
+    return launches
+
+
 def agreement_phase(device, prompts, waves):
-    """float32 serving against the dense reference decode: float
+    """float32 serving against the dense reference decode, on the paged
+    pool and then on the dense slab (GenerateAPI with paged=False): float
     weights against generate() on the card (plain ops: no kernel may
-    launch), int8 and int8-KV against generate() on the CPU (plain ops
-    everywhere), and the shared-prompt traffic against generate() on
-    the card."""
+    launch), int8 and int8-KV against generate() on the CPU (plain
+    versions everywhere), and the shared-prompt traffic against
+    generate() on the card. Each reference is decoded once and compared
+    with every run of its tier."""
     rng = numpy.random.RandomState(0)
     params = init_transformer_params(rng, BLOCKS, EMBED, HEADS, VOCAB,
                                      device="cpu")
     table = torch.from_numpy(
         rng.randn(VOCAB, EMBED).astype(numpy.float32) * 0.02)
-    runs = [("float", None, [prompts]), ("int8", "int8", [prompts]),
-            ("int8-kv", "int8-kv", [prompts]), ("prefix", None, waves)]
-    for label, quantize, run_waves in runs:
-        tier = params if quantize is None else quantize_params(params)
-        run = serve(tier, table, run_waves, quantize, device)
+    runs = [("float", None, [prompts], True),
+            ("int8", "int8", [prompts], True),
+            ("int8-kv", "int8-kv", [prompts], True),
+            ("prefix", None, waves, True),
+            ("dense float", None, [prompts], False),
+            ("dense int8", "int8", [prompts], False),
+            ("dense int8-kv", "int8-kv", [prompts], False)]
+    quantized = quantize_params(params)
+    refs = {}
+    for label, quantize, run_waves, paged in runs:
+        tier = params if quantize is None else quantized
+        run = serve(tier, table, run_waves, quantize, device, paged=paged)
         if label == "prefix":
             check_prefix_counts(run["health0"], run["health"])
+        if paged != ("pool" in run["health"]):
+            raise AssertionError("the %s run served the wrong KV tier"
+                                 % label)
         ref_device = device if quantize is None else "cpu"
         compared = cut = 0
-        refs = {}
         for prompt, stream in zip(
                 [p for wave in run_waves for p in wave], run["streams"]):
-            key = tuple(prompt)
+            key = (quantize, tuple(prompt))
             if key not in refs:
                 before = counts()
                 ref, _, logits = generate(
@@ -602,13 +813,14 @@ def main():
     gen.manual_seed(0)
     timer = Timer(device)
     kernels = [k1_phase(timer, device, gen), k2_phase(timer, device, gen),
-               k3_phase(timer, device, gen)]
+               k3_phase(timer, device, gen), k4_phase(timer, device, gen)]
     prng = numpy.random.RandomState(1)
     prompts = [prng.randint(0, VOCAB, n).tolist()
                for n in numpy.linspace(60, 700, SLOTS).astype(int)]
     launches = serving_phase(device, prompts)
-    for name, n in prefix_phase(device, prng).items():
-        launches[name] += n
+    for phase in (prefix_phase(device, prng), dense_phase(device)):
+        for name, n in phase.items():
+            launches[name] += n
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
     agreement_phase(device, prompts,

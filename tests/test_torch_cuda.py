@@ -3,8 +3,12 @@ the shapes and types the serving smoke does not reach: K2's byte-wise
 path (N % 16 != 0, misaligned q), K chunks past 512, f32 x, the M > 256
 regime rule; K1 at head rows of 64 to 512 bytes, mixed query and pool
 types; K3 at length 0, full table rows, head widths 32 to 128 and both
-query types; the wrappers' refusals; and prefill attention at 4096
-positions with a head width the flash rule leaves to plain attention.
+query types; K4 at head widths 32 to 128, shared and per-row masks,
+lanes of several 8192-position tiles (one fully masked tile first or
+last) and a slab view cut to a span, and the
+dense int8-KV decoder on the card against the CPU; the wrappers'
+refusals; and prefill attention at 4096 positions with a head width the
+flash rule leaves to plain attention.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -14,6 +18,7 @@ JAX):
         tests/test_torch_cuda.py
 """
 
+import numpy
 import pytest
 import torch
 
@@ -23,9 +28,14 @@ from veles_tpu_torch.ops.paged_attention import (_paged_attend_int8_plain,
                                                  paged_attend,
                                                  paged_attend_int8)
 from veles_tpu_torch.ops.quant import (PALLAS_MAX_ROWS,
-                                       _int8_matmul_plain, int8_matmul,
+                                       _cache_attend_plain,
+                                       _int8_matmul_plain,
+                                       int8_cache_attend, int8_matmul,
                                        quantize_int8)
 from veles_tpu_torch.parallel.decode import _quantize_kv
+from veles_tpu_torch.parallel.transformer_step import (
+    init_transformer_params)
+from veles_tpu_torch.serving import ContinuousDecoder
 
 pytestmark = pytest.mark.cuda
 
@@ -210,6 +220,122 @@ def test_paged_attend_int8_refuses_what_the_kernel_does_not_take(cuda,
             cuda, 64, torch.float32, [3, 20], 2, ps=10)
     with pytest.raises(ValueError):
         paged_attend_int8(q, kq, ks, vq, vs, table, lengths, page_size=ps)
+
+
+def _slab_problem(gen, batch, heads, head_dim, width, q_dtype):
+    """A head-major int8 slab (B, H, D, width) with (B, H, width)
+    scales from ``_quantize_kv`` of random K/V, and q pre-scaled by
+    1/sqrt(D)."""
+    slab = []
+    for _ in range(2):
+        codes, scale = _quantize_kv(torch.randn(
+            (batch, width, heads, head_dim), generator=gen, device="cuda"))
+        slab += [codes.permute(0, 2, 3, 1).contiguous(),
+                 scale.permute(0, 2, 1).contiguous()]
+    q = torch.randn((batch, 1, heads, head_dim), generator=gen,
+                    device="cuda") * head_dim ** -0.5
+    return q.to(q_dtype), slab
+
+
+def _slab_mask(kind, batch, t):
+    """Per-row ragged lengths, one shared prefix as (T,) or (1, T), or
+    ("late") only the positions past the first half visible."""
+    if kind == "late":
+        return torch.where(torch.arange(t, device="cuda") > t // 2, 0.0,
+                           -1e30).float()
+    if kind == "per-row":
+        lengths = torch.arange(batch, device="cuda") * (t // batch) + 3
+        return torch.where(torch.arange(t, device="cuda")[None, :]
+                           <= lengths[:, None], 0.0, -1e30).float()
+    mask = torch.where(torch.arange(t, device="cuda") <= t // 3, 0.0,
+                       -1e30).float()
+    return mask if kind == "shared" else mask[None]
+
+
+@pytest.mark.parametrize("batch,heads,head_dim,t,q_dtype,mask_kind", [
+    (8, 16, 64, 768, torch.bfloat16, "per-row"),     # the smoke's shape
+    (3, 4, 32, 128, torch.float32, "shared"),
+    (2, 2, 128, 256, torch.bfloat16, "shared-1xT"),
+    (4, 2, 96, 384, torch.float32, "per-row"),
+    (1, 2, 64, 16384, torch.float32, "per-row"),     # two whole tiles
+    (3, 4, 64, 20480, torch.bfloat16, "per-row"),    # row 0: tile 1 only
+    (2, 2, 32, 20480, torch.float32, "late"),        # tile 1 all masked
+], ids=["smoke", "f32-32", "bf16-128", "f32-96", "long", "tiles",
+        "late"])
+def test_cache_attend_kernel_matches_plain(cuda, batch, heads, head_dim, t,
+                                           q_dtype, mask_kind):
+    q, slab = _slab_problem(cuda, batch, heads, head_dim, t, q_dtype)
+    mask = _slab_mask(mask_kind, batch, t)
+    before = int8_cache_attend.launches
+    out = int8_cache_attend(q, *slab, mask)
+    assert int8_cache_attend.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    # f32 from int8 codes, f32 scales and the same q widened: only the
+    # order of the sums differs
+    torch.testing.assert_close(out, _cache_attend_plain(q, *slab, mask),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_cache_attend_kernel_reads_a_slab_view_in_place(cuda):
+    """The slot step's operands: a 768-wide slab cut to a 640-position
+    span, rows 768 apart, read through the strides."""
+    q, slab = _slab_problem(cuda, 8, 16, 64, 768, torch.bfloat16)
+    view = [a[..., :640] for a in slab]
+    assert not view[0].is_contiguous()
+    mask = _slab_mask("per-row", 8, 640)
+    before = int8_cache_attend.launches
+    out = int8_cache_attend(q, *view, mask)
+    assert int8_cache_attend.launches == before + 1
+    torch.testing.assert_close(
+        out, _cache_attend_plain(q, *(a.contiguous() for a in view), mask),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["t_off_tile", "d_off_tile",
+                                  "misaligned", "strided_q"])
+def test_cache_attend_refuses_what_the_kernel_does_not_take(cuda, case):
+    """use_pallas=True off the gate, and operands the kernel cannot read
+    in place, raise on the card; nothing falls back to torch ops."""
+    q, slab = _slab_problem(cuda, 2, 2, 16 if case == "d_off_tile" else 32,
+                            256, torch.float32)
+    t = 256
+    if case == "t_off_tile":
+        slab, t = [a[..., :200] for a in slab], 200
+    elif case == "misaligned":    # codes one byte off a 4-byte boundary
+        slab = [a[..., 1:129] for a in slab]
+        t = 128
+    elif case == "strided_q":
+        q = q.transpose(0, 2).contiguous().transpose(0, 2)
+    before = int8_cache_attend.launches
+    with pytest.raises(ValueError):
+        int8_cache_attend(q, *slab, torch.zeros(t, device="cuda"),
+                          use_pallas=True)
+    assert int8_cache_attend.launches == before
+
+
+def test_dense_int8_kv_decoder_on_the_card_matches_the_cpu(cuda):
+    """The dense slab's int8-KV tier at a head width the gate admits: K4
+    attends every block of every step on the card, and the greedy
+    streams (f32) equal the decoder's on the CPU, where K4's plain
+    version runs."""
+    params = init_transformer_params(numpy.random.RandomState(0), 2, 128,
+                                     4, 512, device="cpu")
+    table = torch.randn((512, 128), generator=torch.Generator()
+                        .manual_seed(1)) * 0.5
+    prompts = [[(7 * i + j) % 512 for j in range(n)]
+               for i, n in enumerate((9, 40, 3, 17))]
+    streams = {}
+    for device in ("cpu", "cuda"):
+        dec = ContinuousDecoder(params, table, 4, slots=3, max_len=80,
+                                n_tokens=8, quantize="int8-kv",
+                                device=device)
+        rids = [dec.submit(p) for p in prompts]
+        before = int8_cache_attend.launches
+        dec.drain_pipelined(4)
+        launches = int8_cache_attend.launches - before
+        streams[device] = [dec.results[r] for r in rids]
+    assert launches == 2 * 4 * dec.dispatch_counts["chunk"]
+    assert streams["cuda"] == streams["cpu"]
 
 
 def test_attention_at_4096_with_head_dim_64_runs(cuda):

@@ -102,8 +102,10 @@ def test_int8_cache_attend_bf16_rounds_the_value_weights():
 
 
 def test_int8_cache_attend_refuses_the_dense_kernel():
+    """T = 24 fails the dense attend kernel's gate (T % 128): asked for
+    the kernel there, the port raises instead of running torch ops."""
     q, kv = _dense_problem()
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(ValueError, match="T % 128"):
         tquant.int8_cache_attend(torch.from_numpy(q), *map(_t, kv),
                                  torch.zeros(kv[0].shape[-1]),
                                  use_pallas=True)

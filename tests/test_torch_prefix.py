@@ -306,7 +306,7 @@ def test_cached_logits_survive_a_later_admission_into_the_slot(model):
     system = rng.randint(0, VOCAB, 2 * PS)
     dec = tserving.ContinuousDecoder(tparams, torch.from_numpy(table),
                                      HEADS, slots=1, max_len=32,
-                                     n_tokens=5, page_size=PS,
+                                     n_tokens=5, paged=True, page_size=PS,
                                      device="cpu")
     first = dec.submit(system, 5)
     dec._admit_pending()
@@ -351,7 +351,7 @@ def api_factory(model):
 
     def make(**kwargs):
         args = dict(slots=2, max_len=48, n_tokens=6, chunk=2,
-                    page_size=PS, device="cpu")
+                    paged=True, page_size=PS, device="cpu")
         args.update(kwargs)
         api = tserving.GenerateAPI(tparams, torch.from_numpy(table),
                                    HEADS, **args).start()

@@ -106,7 +106,7 @@ def test_single_steps_eos_and_cancel(model):
     eos = refs[1][3]
     dec = tserving.ContinuousDecoder(
         tparams, torch.from_numpy(table), HEADS, slots=2, max_len=MAX_LEN,
-        n_tokens=8, eos=eos, page_size=PS, device="cpu")
+        n_tokens=8, eos=eos, paged=True, page_size=PS, device="cpu")
     rids = [dec.submit(p) for p in prompts]
     dec.run_until_drained()
     for rid, ref in zip(rids, refs):
@@ -132,7 +132,7 @@ def test_decoder_samples_reproducibly_from_its_seed(model):
         dec = tserving.ContinuousDecoder(
             tparams, torch.from_numpy(table), HEADS, slots=2,
             max_len=MAX_LEN, n_tokens=6, temperature=0.9, top_k=8, seed=5,
-            page_size=PS, device="cpu")
+            paged=True, page_size=PS, device="cpu")
         rids = [dec.submit(p) for p in _prompts()[:3]]
         dec.drain_pipelined(2)
         runs.append([dec.results[rid] for rid in rids])
@@ -145,14 +145,14 @@ def test_decoder_refuses_what_this_slice_does_not_serve(model,
                                                         monkeypatch):
     _, tparams, table = model
     table = torch.from_numpy(table)
-    with pytest.raises(NotImplementedError, match="paged"):
-        tserving.ContinuousDecoder(tparams, table, HEADS, paged=False,
-                                   device="cpu")
     with pytest.raises(ValueError, match="quantize"):
         tserving.ContinuousDecoder(tparams, table, HEADS,
                                    quantize="int4", device="cpu")
+    with pytest.raises(ValueError, match="page_size"):
+        tserving.ContinuousDecoder(tparams, table, HEADS, paged=True,
+                                   page_size=0, device="cpu")
     dec = tserving.ContinuousDecoder(tparams, table, HEADS, max_len=16,
-                                     n_tokens=4, page_size=PS,
+                                     n_tokens=4, paged=True, page_size=PS,
                                      device="cpu")
     with pytest.raises(ValueError, match="max_len"):
         dec.submit(numpy.zeros(13, numpy.int32))
@@ -191,7 +191,7 @@ def api_factory(model):
 
     def make(**kwargs):
         args = dict(slots=SLOTS, max_len=MAX_LEN, n_tokens=6, chunk=2,
-                    page_size=PS, device="cpu")
+                    paged=True, page_size=PS, device="cpu")
         args.update(kwargs)
         api = tserving.GenerateAPI(tparams, torch.from_numpy(table), HEADS,
                                    **args).start()

@@ -6,13 +6,14 @@ never ``veles_tpu``. Its module names follow the JAX package, so each
 counterpart is found under the same path:
 
 - ``parallel/transformer_step.py``, ``parallel/decode.py``,
-  ``parallel/kv_pool.py``: the causal-LM tier, dense reference decode
-  and the paged KV pool;
-- ``ops/quant.py`` (W8A16 int8 matvec) and ``ops/paged_attention.py``
-  (fused paged decode attention): each a hand-written sm_90a CUDA
-  kernel (``ops/csrc/``) beside its plain PyTorch version;
+  ``parallel/kv_pool.py``: the causal-LM tier, the dense reference
+  decode with the dense slot slab, and the paged KV pool;
+- ``ops/quant.py`` (W8A16 int8 matvec, dense int8-KV attention) and
+  ``ops/paged_attention.py`` (fused paged decode attention): each a
+  hand-written sm_90a CUDA kernel (``ops/csrc/``) beside its plain
+  PyTorch version;
 - ``serving.py``: ``ContinuousDecoder`` and the ``GenerateAPI`` HTTP
-  front on the paged pool.
+  front on the dense slot slab (the default) or the paged pool.
 
 Entry points take ``device=None``, which means ``"cuda"``; without a
 card they raise unless the caller asks for ``device="cpu"``

@@ -20,7 +20,8 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel source of the port, by stem
-KERNELS = ("int8_matmul", "paged_attention", "paged_attention_int8")
+KERNELS = ("int8_matmul", "paged_attention", "paged_attention_int8",
+           "cache_attend_int8")
 
 _lock = threading.Lock()
 _libs = {}

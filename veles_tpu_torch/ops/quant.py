@@ -15,8 +15,10 @@ the kernel on a CUDA tensor; larger ones dequantize and call
 ``torch.matmul``, as the JAX package left them to XLA. On a CPU tensor
 the plain version runs.
 
-:func:`int8_cache_attend` is the int8-KV tier's decode attention in
-torch ops, as the JAX package's default formulation is XLA.
+:func:`int8_cache_attend` is the dense int8-KV tier's decode attention:
+the dequant-fused kernel (K4, ``csrc/cache_attend_int8.cu``) where the
+JAX kernel's shape gate holds, otherwise (or with ``use_pallas=False``)
+the JAX package's XLA formulation in torch ops.
 """
 
 import ctypes
@@ -117,33 +119,160 @@ def int8_matmul(x, q, scale):
 int8_matmul.launches = 0
 
 
+#: the kernel's shape gate, the JAX kernel's own (``quant.py:245``): T
+#: on whole tiles of this many positions, D a multiple of
+#: :data:`ATTEND_D_TILE`
+ATTEND_T_TILE = 128
+ATTEND_D_TILE = 32
+
+
+def _attend_weights(q, k_q, k_scale, mask_addend):
+    """softmax((q . K8) * k_scale + mask) in f32: (B, H, T)."""
+    s = torch.einsum("bhd,bhdt->bht", q[:, 0].float(), k_q.float())
+    addend = mask_addend if mask_addend.dim() == 1 \
+        else mask_addend[:, None, :]
+    return torch.softmax(s * k_scale + addend, dim=-1)
+
+
+def _cache_attend_plain(q, k_q, k_scale, v_q, v_scale, mask_addend):
+    """K4's plain version, the TPU kernel's numerics (``quant.py:
+    174-183``): q widened to f32 and ``p * v_scale`` kept in f32."""
+    pv = _attend_weights(q, k_q, k_scale, mask_addend) * v_scale
+    return torch.einsum("bhdt,bht->bhd", v_q.float(), pv)[:, None]
+
+
+def _cache_attend_xla(q, k_q, k_scale, v_q, v_scale, mask_addend):
+    """The JAX package's XLA formulation (``quant.py:248-259``): as the
+    plain version, except that with a bf16 ``q`` the weights
+    ``p * v_scale`` round to bf16 before the value product."""
+    pv = _attend_weights(q, k_q, k_scale, mask_addend) * v_scale
+    if q.dtype == torch.bfloat16:
+        pv = pv.to(torch.bfloat16).float()
+    return torch.einsum("bhdt,bht->bhd", v_q.float(), pv)[:, None]
+
+
+def _check_attend(q, k_q, k_scale, v_q, v_scale, mask_addend):
+    if q.dim() != 4 or q.shape[1] != 1 or k_q.dim() != 4:
+        raise ValueError("int8_cache_attend wants q (B, 1, H, D) and codes "
+                         "(B, H, D, T), got %s and %s"
+                         % (tuple(q.shape), tuple(k_q.shape)))
+    batch, _, heads, head_dim = q.shape
+    t = k_q.shape[-1]
+    if tuple(k_q.shape[:3]) != (batch, heads, head_dim) \
+            or v_q.shape != k_q.shape \
+            or tuple(k_scale.shape) != (batch, heads, t) \
+            or v_scale.shape != k_scale.shape:
+        raise ValueError("int8_cache_attend codes %s / %s with scales %s / "
+                         "%s do not match q %s"
+                         % (tuple(k_q.shape), tuple(v_q.shape),
+                            tuple(k_scale.shape), tuple(v_scale.shape),
+                            tuple(q.shape)))
+    if mask_addend.shape[-1:] != (t,) or mask_addend.dim() > 2 \
+            or (mask_addend.dim() == 2
+                and mask_addend.shape[0] not in (1, batch)):
+        raise ValueError("int8_cache_attend wants a (T,), (1, T) or (B, T) "
+                         "mask for B=%d, T=%d, got %s"
+                         % (batch, t, tuple(mask_addend.shape)))
+    if q.dtype not in _DTYPES \
+            or {k_q.dtype, v_q.dtype} != {torch.int8} \
+            or {k_scale.dtype, v_scale.dtype, mask_addend.dtype} \
+            != {torch.float32}:
+        raise TypeError("int8_cache_attend takes float32 or bfloat16 q, "
+                        "int8 codes, float32 scales and mask, got %s, %s, "
+                        "%s, %s, %s, %s"
+                        % (q.dtype, k_q.dtype, v_q.dtype, k_scale.dtype,
+                           v_scale.dtype, mask_addend.dtype))
+    devices = {a.device for a in (q, k_q, k_scale, v_q, v_scale,
+                                  mask_addend)}
+    if len(devices) != 1:
+        raise ValueError("int8_cache_attend operands on different devices: "
+                         "%s" % sorted(str(d) for d in devices))
+
+
+def _launch_cache_attend(q, k_q, k_scale, v_q, v_scale, mask_addend):
+    """K4 on the card, reading the codes, scales and mask in place
+    through their strides (a slab view cut to the attended span)."""
+    batch, _, heads, head_dim = q.shape
+    t = k_q.shape[-1]
+    mask = mask_addend.reshape(-1, t) if mask_addend.dim() == 1 \
+        else mask_addend
+    mask_sb = mask.stride(0) if mask.shape[0] > 1 else 0
+    if not q.is_contiguous():
+        raise ValueError("int8_cache_attend's kernel wants a contiguous q")
+    if k_q.stride() != v_q.stride() or k_scale.stride() != v_scale.stride():
+        raise ValueError("int8_cache_attend's kernel wants K and V (and "
+                         "their scales) laid out alike")
+    strides = k_q.stride()[:3] + k_scale.stride()[:2] + (mask_sb,)
+    if k_q.stride(3) != 1 or k_scale.stride(2) != 1 or mask.stride(1) != 1 \
+            or any(s % 4 for s in strides) \
+            or k_q.data_ptr() % 4 or v_q.data_ptr() % 4 \
+            or any(a.data_ptr() % 16 for a in (k_scale, v_scale, mask)):
+        raise ValueError("int8_cache_attend's kernel wants positions "
+                         "minor, strides in multiples of 4, codes 4-byte "
+                         "and scales and mask 16-byte aligned")
+    out = torch.empty((batch, 1, heads, head_dim), dtype=torch.float32,
+                      device=q.device)
+    fn = _build.function(
+        "cache_attend_int8", "veles_cache_attend_int8",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
+    err = fn(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
+             v_q.data_ptr(), v_scale.data_ptr(), mask.data_ptr(),
+             out.data_ptr(), batch, heads, head_dim, t, _DTYPES[q.dtype],
+             *strides, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError("int8_cache_attend kernel launch failed: CUDA "
+                           "error %d" % err)
+    int8_cache_attend.launches += 1
+    return out
+
+
 def int8_cache_attend(q, k_q, k_scale, v_q, v_scale, mask_addend,
                       use_pallas=None):
     """Decode attention of one query token against an int8 KV cache in
     the head-major (B, H, D, T) layout (``quant.py:221-259``). ``q``
-    (B, 1, H, D) float, already 1/sqrt(D)-scaled by the caller;
-    per-(position, head) ``k_scale``/``v_scale`` (B, H, T) f32;
-    ``mask_addend`` f32 (0 visible, -1e30 masked), (T,) shared or (B, T)
-    per row. Returns (B, 1, H, D) f32.
+    (B, 1, H, D) float32 or bfloat16, already 1/sqrt(D)-scaled by the
+    caller; per-(position, head) ``k_scale``/``v_scale`` (B, H, T) f32;
+    ``mask_addend`` f32 (0 visible, -1e30 masked), (T,) or (1, T) shared
+    or (B, T) per row. Returns (B, 1, H, D) f32.
 
-    Torch ops, the JAX package's default formulation: the scores and the
-    value product accumulate in f32, and with a bf16 ``q`` the weights
-    ``p * v_scale`` round to bf16 before the value product, as there.
-    ``use_pallas=True`` (the JAX package's opt-in dense attend kernel)
-    raises: that kernel is ported with the dense slot slab."""
-    if use_pallas:
-        raise NotImplementedError(
-            "the dense int8-KV attend kernel (_pallas_cache_attend) is "
-            "not ported yet: it comes with the dense slot slab (ROADMAP "
-            "queue item A2)")
-    s = torch.einsum("bhd,bhdt->bht", q[:, 0].float(), k_q.float())
-    addend = mask_addend if mask_addend.dim() == 1 \
-        else mask_addend[:, None, :]
-    p = torch.softmax(s * k_scale + addend, dim=-1)
-    pv = p * v_scale
-    if q.dtype == torch.bfloat16:
-        pv = pv.to(torch.bfloat16).float()
-    return torch.einsum("bhdt,bht->bhd", v_q.float(), pv)[:, None]
+    ``use_pallas`` picks the dequant-fused kernel (K4,
+    ``csrc/cache_attend_int8.cu``): None runs it wherever its shape gate
+    holds (T % 128 == 0 and D % 32 == 0, the JAX kernel's own gate) and
+    the torch formulation elsewhere — unlike the JAX package, whose
+    kernel is opt-in by a choice measured on the TPU; True runs it and
+    raises where the gate fails; False runs the JAX package's XLA
+    formulation in torch ops (the reference ``generate``'s attend, bf16
+    rounding included). On a CUDA tensor the kernel launches
+    (:attr:`int8_cache_attend.launches` counts it); on a CPU tensor its
+    plain version runs. The codes, scales and mask may be views with
+    positions minor (a slab cut to a span): the kernel reads them
+    through their strides, in tiles of 8192 positions with an online
+    softmax, so any length runs."""
+    _check_attend(q, k_q, k_scale, v_q, v_scale, mask_addend)
+    gate = (k_q.shape[-1] % ATTEND_T_TILE == 0 and k_q.shape[-1] > 0
+            and q.shape[-1] % ATTEND_D_TILE == 0)
+    if use_pallas is None:
+        use_pallas = gate
+    if not use_pallas:
+        return _cache_attend_xla(q, k_q, k_scale, v_q, v_scale, mask_addend)
+    if not gate:
+        raise ValueError(
+            "int8_cache_attend's kernel wants T %% %d == 0 and D %% %d == "
+            "0, got T=%d, D=%d (use_pallas=False runs the torch "
+            "formulation)" % (ATTEND_T_TILE, ATTEND_D_TILE,
+                              k_q.shape[-1], q.shape[-1]))
+    if q.device.type == "cpu":
+        return _cache_attend_plain(q, k_q, k_scale, v_q, v_scale,
+                                   mask_addend)
+    if q.device.type != "cuda":
+        raise ValueError("int8_cache_attend runs on cuda or cpu tensors, "
+                         "got %s" % q.device)
+    return _launch_cache_attend(q, k_q, k_scale, v_q, v_scale, mask_addend)
+
+
+#: kernel launches since the last reset
+int8_cache_attend.launches = 0
 
 
 def matmul_any(x, w):

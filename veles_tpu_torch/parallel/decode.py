@@ -1,15 +1,23 @@
-"""KV-cache autoregressive decoding: the single-request dense reference.
+"""KV-cache autoregressive decoding: the single-request dense reference
+and the dense slot slab of continuous batching.
 
 The port of ``veles_tpu/parallel/decode.py`` (``:39-73``, ``:76-148``,
-``:151-225``, ``:233-354``): prefill the prompt once, then one token per
-step against a static-shape cache — float, or in the int8-KV tier int8
-codes with per-(position, head) scales in the head-major (L, B, H, D, T)
-layout. PyTorch runs eagerly, so the JAX package's scan becomes a Python
-loop and the cache is updated in place. The serving engine
+``:151-225``, ``:233-354``, ``:371-664``): prefill the prompt once, then
+one token per step against a static-shape cache — float, or in the
+int8-KV tier int8 codes with per-(position, head) scales in the
+head-major (L, B, H, D, T) layout. PyTorch runs eagerly, so the JAX
+package's scans become Python loops and caches are updated in place.
+
+:func:`generate` is the reference the serving engines are held against:
+torch ops with the JAX package's numerics, except the int8 weight tiers'
+matvec (K2); its int8-KV attend is the JAX package's XLA formulation
+(``int8_cache_attend(use_pallas=False)``), never the dense attend
+kernel (K4) that the slot engine runs. The slot engine
+(:func:`init_slot_state`, :func:`slot_admit_many`, :func:`slot_step`,
+:func:`slot_step_many`) is the dense tier of
+``serving.ContinuousDecoder``; the paged engine
 (``kv_pool.py``) shares ``_prefill_forward``, ``_quantize_kv`` and the
-sublayers; :func:`generate` stays plain PyTorch with no kernel except
-the int8 weight tiers' matvec, and is what the paged engine is held
-against.
+sublayers.
 """
 
 import numpy
@@ -22,9 +30,12 @@ from veles_tpu_torch.ops.quant import (int8_cache_attend, matmul_any,
 from veles_tpu_torch.parallel.transformer_step import (_block_qkv, _head,
                                                        _mlp)
 
-#: the int8-KV tier rounds its cache length up to whole tiles of this
-#: many positions (the JAX package's SLOT_SPAN_TILE)
-KV_TILE = 128
+#: the attended-span tile of the slot engine (positions): each dispatch
+#: attends ceil((longest live sequence + appends) / tile) * tile
+#: positions of the slab instead of max_len. The int8-KV tier also
+#: rounds its cache length up to whole tiles, the granule of the dense
+#: attend kernel's T gate.
+SLOT_SPAN_TILE = 128
 
 
 def init_kv_cache(n_blocks, batch, max_len, heads, head_dim,
@@ -108,16 +119,20 @@ def prefill(params, x, heads, cache):
     return logits, cache
 
 
-def _cache_attend(q, k_all, v_all):
-    """Attention of query tokens against every position of the given
-    cache prefix, f32 softmax: q (B, 1, H, D) against K/V (B, L, H, D).
-    As in the JAX package the scores accumulate in f32 from q's type,
-    and the probabilities are cast to q's type before the value product
-    (which accumulates in f32 again). Returns (B, 1, H, D) float32."""
+def _cache_attend(q, k_all, v_all, mask=None):
+    """Attention of query tokens against the given cache prefix, f32
+    softmax: q (B, 1, H, D) against K/V (B, L, H, D); ``mask`` (bool,
+    broadcast to (B, H, 1, L)) hides positions with a -1e30 score, None
+    shows them all. As in the JAX package the scores accumulate in f32
+    from q's type, and the probabilities are cast to q's type before the
+    value product (which accumulates in f32 again). Returns (B, 1, H, D)
+    float32."""
     d = numpy.float32(q.shape[-1])
     scale = float(numpy.float32(1.0) / numpy.sqrt(d))
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                      k_all.to(q.dtype).float()) * scale
+    if mask is not None:
+        s = torch.where(mask, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(),
                         v_all.to(q.dtype).float())
@@ -129,8 +144,10 @@ def decode_step(params, x_tok, heads, cache):
     attend reads positions [0, length] (the JAX package masks the rest
     of the cache, which contributes exact zeros). The int8-KV cache
     quantizes the append and attends the whole cache under that mask
-    through :func:`ops.quant.int8_cache_attend`, q pre-scaled by
-    1/sqrt(D) in q's type. Returns ``(logits, cache)``."""
+    through the torch formulation of :func:`ops.quant.int8_cache_attend`
+    (``use_pallas=False``: JAX's XLA numerics, no kernel, on any
+    device), q pre-scaled by 1/sqrt(D) in q's type. Returns ``(logits,
+    cache)``."""
     batch, _, embed = x_tok.shape
     length = cache["length"]
     quantized = "k_scale" in cache
@@ -150,7 +167,8 @@ def decode_step(params, x_tok, heads, cache):
                 cache[name + "_scale"][i, ..., length] = scale
             att = int8_cache_attend(q * inv_sqrt, cache["k"][i],
                                     cache["k_scale"][i], cache["v"][i],
-                                    cache["v_scale"][i], mask_addend)
+                                    cache["v_scale"][i], mask_addend,
+                                    use_pallas=False)
         else:
             cache["k"][i, :, length] = k[:, 0].to(cache["k"].dtype)
             cache["v"][i, :, length] = v[:, 0].to(cache["v"].dtype)
@@ -238,7 +256,7 @@ def generate(params, embed_table, prompt_tokens, heads, n_tokens,
         raise ValueError("top_k must be >= 0, got %d" % top_k)
     top_k = min(int(top_k), embed_table.shape[0])
     if quantize == "int8-kv":
-        max_len = -(-max_len // KV_TILE) * KV_TILE
+        max_len = -(-max_len // SLOT_SPAN_TILE) * SLOT_SPAN_TILE
     cache = init_kv_cache(len(params["blocks"]), batch, max_len, heads,
                           embed // heads, dtype=embed_table.dtype,
                           quantized=quantize == "int8-kv", device=device)
@@ -256,3 +274,154 @@ def generate(params, embed_table, prompt_tokens, heads, n_tokens,
     if return_logits:
         return tokens, cache, torch.stack(seen, dim=1)
     return tokens, cache
+
+
+# -- continuous batching: the dense slot slab ---------------------------------
+#
+# The port of decode.py:371-664: a fixed pool of cache SLOTS, each lane
+# holding one in-flight sequence at its own length, decode_step's math with
+# the scalar length generalized to a per-slot vector. PyTorch runs eagerly,
+# so the slab is updated in place (no donated copy), the chunk scan is a
+# Python loop, and the JAX package's per-request sampling keys have no
+# counterpart: a sampling decoder draws from one torch.Generator.
+
+
+def init_slot_state(n_blocks, slots, max_len, heads, head_dim, vocab,
+                    dtype=torch.float32, quantized=False, device=None):
+    """Cache + control state for ``slots`` concurrent sequences
+    (``decode.py:380-441``). Float: the slab K/V (L, S, T, H, D) in
+    ``dtype``. ``quantized``: int8 K/V head-major (L, S, H, D, T) with
+    f32 ``k_scale``/``v_scale`` (L, S, H, T). Control: per-slot
+    ``lengths`` and ``step`` (int32) and ``logits`` (float32, the next
+    token's). The page pool's state is ``kv_pool.init_paged_state``."""
+    device = resolve_device(device)
+    state = {
+        "lengths": torch.zeros((slots,), dtype=torch.int32, device=device),
+        "logits": torch.zeros((slots, vocab), dtype=torch.float32,
+                              device=device),
+        "step": torch.zeros((slots,), dtype=torch.int32, device=device),
+    }
+    if quantized:
+        qshape = (n_blocks, slots, heads, head_dim, max_len)
+        sshape = (n_blocks, slots, heads, max_len)
+        for name in ("k", "v"):
+            state[name] = torch.zeros(qshape, dtype=torch.int8,
+                                      device=device)
+            state[name + "_scale"] = torch.zeros(sshape, device=device)
+    else:
+        shape = (n_blocks, slots, max_len, heads, head_dim)
+        for name in ("k", "v"):
+            state[name] = torch.zeros(shape, dtype=dtype, device=device)
+    return state
+
+
+def slot_state_bytes(state):
+    """Device bytes of a slot (or paged) decode state: the sum of its
+    tensors' bytes."""
+    return sum(t.numel() * t.element_size() for t in state.values())
+
+
+def slot_admit_many(params, heads, state, slots, prompt_x, lengths):
+    """Admit one group in one prefill (``decode.py:461-507``): run
+    ``prompt_x`` (B, T, E) — rows right-padded to the group's bucket T —
+    and write positions [0, T) of the lanes ``slots`` (B,), quantized
+    into the head-major layout in the int8-KV tier, plus their control
+    rows; ``lengths`` (B,) are the true prompt lengths. Positions past T
+    keep a retired occupant's values, which this sequence's own appends
+    rewrite before its mask shows them. Updates ``state`` in place and
+    returns it."""
+    t = prompt_x.shape[1]
+    logits, k_all, v_all, lengths = _prefill_forward(params, prompt_x,
+                                                     heads, lengths)
+    idx = slots.long()
+    state["lengths"][idx] = lengths.to(torch.int32)
+    state["logits"][idx] = logits.float()
+    state["step"][idx] = 0
+    for name, val in (("k", k_all), ("v", v_all)):
+        if "k_scale" in state:
+            q8, scale = _quantize_kv(val)      # (L,B,T,H,D), (L,B,T,H)
+            state[name][:, idx, :, :, :t] = q8.permute(0, 1, 3, 4, 2)
+            state[name + "_scale"][:, idx, :, :t] = scale.permute(0, 1, 3, 2)
+        else:
+            state[name][:, idx, :t] = val.to(state[name].dtype)
+    return state
+
+
+def slot_step(params, embed_table, heads, state, active, temperature=1.0,
+              sample=False, top_k=0, generator=None, span=None):
+    """One decode step across all slots (``decode.py:529-642``);
+    ``active`` (S,) bool gates which lanes advance (inactive lanes are
+    computed, their lengths, logits and step stay, and the host discards
+    their tokens). The token emitted at this step is picked from the
+    PRE-step logits, as ``generate`` emits.
+
+    Each lane's K/V append lands at its own length, clamped to the last
+    position as the JAX package's ``dynamic_update_slice`` clamps it (an
+    inactive lane that reached ``max_len`` rewrites that position
+    harmlessly). The attend reads positions [0, span) only (``span``
+    defaults to ``max_len``; the host passes one past every live length),
+    position p of slot s visible iff p <= lengths[s]: the float tier
+    through :func:`_cache_attend`, the int8-KV tier through
+    :func:`ops.quant.int8_cache_attend` on the slab view (K4 on the
+    card) with q pre-scaled by 1/sqrt(D) in q's type. Updates ``state``
+    in place; returns ``(state, emitted (S,))`` without a host sync."""
+    slots = state["lengths"].shape[0]
+    quantized = "k_scale" in state
+    max_len = state["k"].shape[-1] if quantized else state["k"].shape[2]
+    if span is None or span > max_len:
+        span = max_len
+    lengths = state["lengths"]
+    tok_in = _pick_token(state["logits"], generator, temperature, sample,
+                         top_k)
+    x = embed_table[tok_in][:, None, :]
+    embed = x.shape[-1]
+    visible = (torch.arange(span, device=x.device)[None, :]
+               <= lengths[:, None])
+    if quantized:
+        mask_addend = torch.where(visible, 0.0, -1e30).float()
+        inv_sqrt = (embed // heads) ** -0.5
+    rows = torch.arange(slots, device=x.device)
+    pos = torch.clamp(lengths, max=max_len - 1).long()
+    for i, blk in enumerate(params["blocks"]):
+        q, k, v = _block_qkv(blk, x, heads)
+        if quantized:
+            # the int, the two index tensors and the slices between them
+            # put the slot axis first: the target is (S, H, D)
+            for name, val in (("k", k), ("v", v)):
+                q8, scale = _quantize_kv(val[:, 0])     # (S,H,D), (S,H)
+                state[name][i, rows, :, :, pos] = q8
+                state[name + "_scale"][i, rows, :, pos] = scale
+            att = int8_cache_attend(
+                q * inv_sqrt, state["k"][i, ..., :span],
+                state["k_scale"][i, ..., :span], state["v"][i, ..., :span],
+                state["v_scale"][i, ..., :span], mask_addend)
+        else:
+            state["k"][i, rows, pos] = k[:, 0].to(state["k"].dtype)
+            state["v"][i, rows, pos] = v[:, 0].to(state["v"].dtype)
+            att = _cache_attend(q, state["k"][i, :, :span],
+                                state["v"][i, :, :span],
+                                visible[:, None, None, :])
+        att = att.to(x.dtype)
+        x = x + matmul_any(att.reshape(slots, 1, embed),
+                           blk["wout"]) + blk["bout"]
+        x = _mlp(blk, x)
+    logits = _head(params, x[:, 0]).float()
+    state["lengths"] = torch.where(active, lengths + 1, lengths)
+    state["logits"] = torch.where(active[:, None], logits, state["logits"])
+    state["step"] = torch.where(active, state["step"] + 1, state["step"])
+    return state, tok_in
+
+
+def slot_step_many(params, embed_table, heads, state, active, n,
+                   temperature=1.0, sample=False, top_k=0, generator=None,
+                   span=None):
+    """``n`` lockstep :func:`slot_step`s (``decode.py:645-664``); ``span``
+    must cover the longest live sequence plus the whole chunk. Returns
+    ``(state, emitted (n, S))``, still on the device."""
+    emitted = []
+    for _ in range(n):
+        state, tok = slot_step(params, embed_table, heads, state, active,
+                               temperature, sample, top_k, generator,
+                               span=span)
+        emitted.append(tok)
+    return state, torch.stack(emitted)

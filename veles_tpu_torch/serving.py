@@ -1,24 +1,31 @@
-"""Continuous-batching LLM serving on the paged KV pool, and its HTTP
-front.
+"""Continuous-batching LLM serving on the dense slot slab or the paged
+KV pool, and its HTTP front.
 
-The port of ``veles_tpu/serving.py``'s ``ContinuousDecoder`` (paged
-branches: ``:761-2115``) and the core of ``GenerateAPI``
-(``:2138-3590``). A fixed set of slots decodes in lockstep on the card
-while new requests prefill into free slots mid-flight; each decode step
-attends through the fused paged-attention kernel (the int8-KV kernel in
-the ``quantize="int8-kv"`` tier) and, in the ``"int8"`` and
-``"int8-kv"`` tiers, every projection runs the int8 matvec kernel.
+The port of ``veles_tpu/serving.py``'s ``ContinuousDecoder``
+(``:761-2115``) and the core of ``GenerateAPI`` (``:2138-3590``). A
+fixed set of slots decodes in lockstep on the card while new requests
+prefill into free slots mid-flight. In the ``"int8"`` and ``"int8-kv"``
+tiers every projection runs the int8 matvec kernel (K2).
 
-Every admission is classified against the pool's prefix cache
-(``serving.py:1444-1691``): a hit (the whole prompt cached: control rows
-only), a tail (a page-aligned prefix cached: prefill only the tail
-against the pooled prefix pages) or cold (a full prefill). PyTorch runs
-eagerly, so the JAX package's prompt buckets and pow2 group padding
-(which only bound jit caches) are gone: every cold and tail group is
-ragged — one prefill at the group's page-rounded width, each row
-allocating exactly its prompt's (or tail's) pages, as the JAX kernel
-path admits. The dense slot slab, the mesh and the observability,
-breaker, governor and deploy planes are later slices.
+The default KV tier, as in the JAX package, is the dense slot slab
+(``parallel/decode.py``): each slot owns a ``max_len`` lane, admissions
+go in one prefill per prompt bucket (``serving.py:1309-1389``), and each
+dispatch attends a span tiled to the longest live sequence — torch ops
+in the float tier, the dense int8-KV attend kernel (K4) in the int8-KV
+tier. The JAX package's pow2 duplicate rows (which only bound jit
+caches) are left out; the buckets stay, so the admission count is the
+JAX package's.
+
+``paged=True`` serves from the page pool (``parallel/kv_pool.py``),
+each step attending through the fused paged-attention kernel (K1; K3 in
+the int8-KV tier). Every admission is classified against the pool's
+prefix cache (``serving.py:1444-1691``): a hit (the whole prompt cached:
+control rows only), a tail (a page-aligned prefix cached: prefill only
+the tail against the pooled prefix pages) or cold (a full prefill).
+Cold and tail groups are ragged — one prefill at the group's
+page-rounded width, each row allocating exactly its prompt's (or
+tail's) pages, as the JAX kernel path admits. The mesh and the
+observability, breaker, governor and deploy planes are later slices.
 """
 
 import collections
@@ -32,29 +39,30 @@ import numpy
 import torch
 
 from veles_tpu_torch.device import resolve_device, tree_to
-from veles_tpu_torch.parallel.decode import KV_TILE, quantize_params
+from veles_tpu_torch.parallel.decode import (SLOT_SPAN_TILE,
+                                             init_slot_state,
+                                             quantize_params,
+                                             slot_admit_many,
+                                             slot_step_many)
 from veles_tpu_torch.parallel.kv_pool import (SCRATCH_PAGE, PagePool,
                                               default_pool_pages,
                                               init_paged_state,
                                               paged_admit_hit,
                                               paged_admit_many,
                                               paged_admit_tail,
-                                              paged_slot_step,
                                               paged_slot_step_many,
                                               pages_for)
 
-#: default page size (the JAX package's SLOT_SPAN_TILE)
-DEFAULT_PAGE_SIZE = 128
-
 
 class ContinuousDecoder:
-    """Continuous batching over the paged KV pool. Single-threaded
-    host driver: :meth:`submit` at any time, then :meth:`step` (one
-    token per slot), :meth:`dispatch_chunk` + :meth:`collect_chunk` (a
-    chunk of tokens, split so a driver can enqueue chunk N+1 before
-    reading chunk N back), or :meth:`run_until_drained` /
-    :meth:`drain_pipelined`. Tokens stream into
-    ``results[request_id]``.
+    """Continuous batching over the dense slot slab (the default) or,
+    with ``paged=True``, the paged KV pool. Single-threaded host driver:
+    :meth:`submit` at any time, then :meth:`step` (one token per slot),
+    :meth:`dispatch_chunk` + :meth:`collect_chunk` (a chunk of tokens,
+    split so a driver can enqueue chunk N+1 before reading chunk N
+    back), or :meth:`run_until_drained` / :meth:`drain_pipelined`.
+    Tokens stream into ``results[request_id]``; ``tokens_out`` counts
+    every token delivered.
 
     Greedy by default; ``temperature > 0`` samples from one
     ``torch.Generator`` seeded with ``seed`` (the JAX package's
@@ -62,22 +70,20 @@ class ContinuousDecoder:
     stream depends on which requests share its steps).
 
     ``quantize="int8"`` serves int8 weights; ``"int8-kv"`` also stores
-    the pool as int8 codes with per-(position, head) scales and rounds
-    ``max_len`` up to whole 128-position tiles, as the JAX package does.
+    the slab (or pool) as int8 codes with per-(position, head) scales
+    and rounds ``max_len`` up to whole 128-position tiles, as the JAX
+    package does. ``page_size`` and ``pool_pages`` size the pool and are
+    ignored by the slab.
 
     Numerical contract: a request's greedy stream equals
     :func:`parallel.decode.generate` for its prompt up to f32
-    round-off — the same sublayers, with the paged kernels attending in
-    f32; near-tied argmaxes may break differently."""
+    round-off — the same sublayers, with the kernels attending in f32;
+    near-tied argmaxes may break differently."""
 
     def __init__(self, params, embed_table, heads, slots=4, max_len=512,
                  n_tokens=32, eos=None, temperature=0.0, top_k=0, seed=0,
-                 quantize=None, paged=True, page_size=None,
+                 quantize=None, paged=False, page_size=None,
                  pool_pages=None, device=None):
-        if not paged:
-            raise NotImplementedError(
-                "the dense slot slab is not ported yet; the port serves "
-                "the paged pool (paged=True)")
         if quantize not in (None, "none", "int8", "int8-kv"):
             raise ValueError("quantize must be None, 'int8' or 'int8-kv', "
                              "got %r" % (quantize,))
@@ -91,32 +97,44 @@ class ContinuousDecoder:
         self.heads = heads
         self.slots = slots
         if self.quantize == "int8-kv":
-            max_len = -(-max_len // KV_TILE) * KV_TILE
+            max_len = -(-max_len // SLOT_SPAN_TILE) * SLOT_SPAN_TILE
         self.max_len = max_len
-        self.page_size = int(page_size if page_size is not None
-                             else DEFAULT_PAGE_SIZE)
-        if self.page_size < 1:
-            raise ValueError("page_size must be >= 1, got %d"
-                             % self.page_size)
-        #: default: every slot full to max_len plus the lag-1 pipeline's
-        #: overshoot for chunks up to n_tokens, plus the scratch page
-        self.pool_pages = (int(pool_pages) if pool_pages is not None
-                           else default_pool_pages(slots, max_len,
-                                                   self.page_size,
-                                                   chunk=n_tokens))
+        self.paged = bool(paged)
         self.n_tokens = n_tokens
         self.eos = eos
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
+        n_blocks = len(params["blocks"])
         embed = self.embed_table.shape[1]
-        self.state = init_paged_state(
-            len(params["blocks"]), self.pool_pages, self.page_size, heads,
-            embed // heads, self.embed_table.shape[0], slots,
-            dtype=self.embed_table.dtype,
-            quantized=self.quantize == "int8-kv", device=self.device)
-        self.pool = PagePool(self.pool_pages, self.page_size)
+        vocab = self.embed_table.shape[0]
+        #: the pool (paged) or None (the slab)
+        self.pool = None
+        self.page_size = self.pool_pages = None
+        if self.paged:
+            self.page_size = int(page_size if page_size is not None
+                                 else SLOT_SPAN_TILE)
+            if self.page_size < 1:
+                raise ValueError("page_size must be >= 1, got %d"
+                                 % self.page_size)
+            #: default: every slot full to max_len plus the lag-1
+            #: pipeline's overshoot for chunks up to n_tokens, plus the
+            #: scratch page
+            self.pool_pages = (int(pool_pages) if pool_pages is not None
+                               else default_pool_pages(slots, max_len,
+                                                       self.page_size,
+                                                       chunk=n_tokens))
+            self.pool = PagePool(self.pool_pages, self.page_size)
+            self.state = init_paged_state(
+                n_blocks, self.pool_pages, self.page_size, heads,
+                embed // heads, vocab, slots, dtype=self.embed_table.dtype,
+                quantized=self.quantize == "int8-kv", device=self.device)
+        else:
+            self.state = init_slot_state(
+                n_blocks, slots, max_len, heads, embed // heads, vocab,
+                dtype=self.embed_table.dtype,
+                quantized=self.quantize == "int8-kv", device=self.device)
         self._slot_pages = {}    # slot -> [page id, ...] in logical order
         self._queue = collections.deque()
         self._free = list(range(slots))
@@ -125,13 +143,16 @@ class ContinuousDecoder:
         self._budget = {}        # request id -> tokens still wanted
         self.results = {}        # request id -> [token, ...]
         self._next_id = 0
-        #: dispatch tally: one "admit" per cold admission group, one
-        #: "admit_tail" per tail group (one per prefix page count), one
-        #: "admit_hit" per hit group, one "chunk" per chunked dispatch,
-        #: one "step" per single step
-        self.dispatch_counts = {"admit": 0, "admit_tail": 0,
-                                "admit_hit": 0, "admit_requests": 0,
+        self.tokens_out = 0
+        #: dispatch tally: one "admit" per admission group (the slab: one
+        #: per prompt bucket; the pool: one per cold group), one "chunk"
+        #: per chunked dispatch, one "step" per single step; the pool
+        #: adds one "admit_tail" per tail group (one per prefix page
+        #: count) and one "admit_hit" per hit group
+        self.dispatch_counts = {"admit": 0, "admit_requests": 0,
                                 "chunk": 0, "step": 0}
+        if self.paged:
+            self.dispatch_counts.update(admit_tail=0, admit_hit=0)
         #: host-blocking wall seconds of admissions, chunk enqueues and
         #: readbacks
         self.timings = {"admit_s": 0.0, "dispatch_s": 0.0,
@@ -192,7 +213,48 @@ class ContinuousDecoder:
         self.results.pop(rid, None)
         return True
 
+    def bucket_for(self, n):
+        """The width an ``n``-token prompt prefills at in the slab: the
+        next power of two, at least 16, clamped to ``max_len``
+        (``serving.py:1286-1302``). Eager PyTorch needs no bucket to
+        bound a cache; the slab keeps them so one admission per bucket
+        group is the JAX package's count."""
+        bucket = 16
+        while bucket < n:
+            bucket *= 2
+        return min(bucket, self.max_len)
+
     def _admit_pending(self):
+        if self.paged:
+            self._admit_pending_paged()
+        else:
+            self._admit_pending_dense()
+
+    def _admit_pending_dense(self):
+        """Admit every queued request that fits a free slot, grouped by
+        prompt bucket: one :func:`slot_admit_many` prefill per bucket
+        group, in the order the buckets first appear in the queue."""
+        groups = {}
+        while self._queue and self._free:
+            rid, prompt, _ = self._queue.popleft()
+            groups.setdefault(self.bucket_for(len(prompt)), []).append(
+                (rid, prompt, self._free.pop()))
+        for bucket, group in groups.items():
+            started = time.perf_counter()
+            self.state = slot_admit_many(
+                self.params, self.heads, self.state,
+                self._upload(numpy.asarray([r[2] for r in group],
+                                           numpy.int64)),
+                self.embed_table[self._padded([r[1] for r in group],
+                                              bucket)],
+                self._upload(numpy.asarray([len(r[1]) for r in group],
+                                           numpy.int64)))
+            self._book_admit("admit", started, group)
+            for rid, prompt, slot in group:
+                self._slot_req[slot] = rid
+                self._slot_len[slot] = len(prompt)
+
+    def _admit_pending_paged(self):
         """Admit every queued request that has a free slot and pages,
         classified against the prefix cache: a ``hit`` (the whole prompt
         cached with its logits) writes control rows only; a ``tail`` (a
@@ -380,6 +442,29 @@ class ContinuousDecoder:
             self._free.append(slot)
             self._release_slot_pages(slot)
 
+    def _attended_span(self, extra):
+        """The slab positions the next dispatch attends: the longest live
+        sequence plus the ``extra`` positions it appends, rounded up to
+        :data:`SLOT_SPAN_TILE` and clamped to ``max_len``."""
+        longest = max(self._slot_len[s] for s in self._slot_req)
+        span = -(-(longest + extra) // SLOT_SPAN_TILE) * SLOT_SPAN_TILE
+        return int(min(span, self.max_len))
+
+    def _advance(self, n):
+        """Run ``n`` lockstep steps of every slot (slab or pool); returns
+        the emitted tokens (n, S), still on the device."""
+        sampling = (self.temperature or 1.0, bool(self.temperature),
+                    self.top_k, self.generator)
+        if self.paged:
+            self.state, emitted = paged_slot_step_many(
+                self.params, self.embed_table, self.heads, self.state,
+                self._page_table_array(n), self._active(), n, *sampling)
+        else:
+            self.state, emitted = slot_step_many(
+                self.params, self.embed_table, self.heads, self.state,
+                self._active(), n, *sampling, span=self._attended_span(n))
+        return emitted
+
     def step(self):
         """Admit what fits, advance every active slot one token; returns
         {request_id: token} for the tokens generated this step."""
@@ -387,11 +472,7 @@ class ContinuousDecoder:
         if not self._slot_req:
             return {}
         snapshot = dict(self._slot_req)
-        self.state, emitted = paged_slot_step(
-            self.params, self.embed_table, self.heads, self.state,
-            self._page_table_array(1), self._active(),
-            self.temperature or 1.0, bool(self.temperature), self.top_k,
-            self.generator)
+        emitted = self._advance(1)[0]
         for slot in snapshot:
             self._slot_len[slot] += 1
         self.dispatch_counts["step"] += 1
@@ -401,6 +482,7 @@ class ContinuousDecoder:
             token = int(emitted[slot])
             self.results[rid].append(token)
             out[rid] = token
+            self.tokens_out += 1
             self._budget[rid] -= 1
             if self._budget[rid] <= 0 or token == self.eos:
                 self._retire(slot, rid)
@@ -417,11 +499,7 @@ class ContinuousDecoder:
             return None
         snapshot = dict(self._slot_req)
         t0 = time.perf_counter()
-        self.state, emitted = paged_slot_step_many(
-            self.params, self.embed_table, self.heads, self.state,
-            self._page_table_array(chunk), self._active(), chunk,
-            self.temperature or 1.0, bool(self.temperature), self.top_k,
-            self.generator)
+        emitted = self._advance(chunk)
         self.timings["dispatch_s"] += time.perf_counter() - t0
         for slot in snapshot:
             self._slot_len[slot] += chunk
@@ -446,6 +524,7 @@ class ContinuousDecoder:
                 tokens = tokens[:tokens.index(self.eos) + 1]
             self.results[rid].extend(tokens)
             out[rid] = tokens
+            self.tokens_out += len(tokens)
             self._budget[rid] -= len(tokens)
             if self._budget[rid] <= 0 or (
                     tokens and tokens[-1] == self.eos):
@@ -494,13 +573,14 @@ class GenerateAPI:
     """HTTP front for :class:`ContinuousDecoder`. ``POST <path>`` with
     ``{"tokens": [...], "n_tokens": N?, "deadline_s": S?}`` answers
     ``{"tokens": [...]}`` once the request's greedy stream completes;
-    ``GET /healthz`` answers the counters and the pool with its
-    ``prefix_*`` cache fields.
+    ``GET /healthz`` answers the counters and, with ``paged=True``, the
+    pool with its ``prefix_*`` cache fields. The decoder serves the
+    dense slot slab by default, as the JAX package's does.
 
     Handler threads validate (400, with the JAX package's messages),
     pass the admission gate — at most ``max_queue`` requests in flight
-    (429 beyond it; <= 0 disables the bound) and the request's
-    worst-case pages reserved in the pool (429 when they are not there,
+    (429 beyond it; <= 0 disables the bound) and, on the pool, the
+    request's worst-case pages reserved (429 when they are not there,
     its Retry-After priced by the pool's observed page-release rate)
     — then stage the request and wait. ONE driver thread owns the
     decoder: it submits staged requests, cancels expired ones (504),
@@ -516,7 +596,7 @@ class GenerateAPI:
     def __init__(self, params, embed_table, heads, slots=4, max_len=512,
                  n_tokens=32, port=0, host="127.0.0.1", path="/generate",
                  chunk=8,
-                 max_queue=64, deadline=300.0, quantize=None, paged=True,
+                 max_queue=64, deadline=300.0, quantize=None, paged=False,
                  page_size=None, pool_pages=None, device=None):
         import queue
 
@@ -554,16 +634,18 @@ class GenerateAPI:
     # -- admission (handler threads) ----------------------------------
     def _admit_and_stage(self, prompt, budget, need, holder):
         """Atomic admission: ready, the in-flight bound and the page
-        reservation are checked and the request staged under one lock,
-        so nothing stages after the driver's final drain. Returns
-        "ok", "unready", "full" or "pool"."""
+        reservation (``need`` pages, 0 on the slab) are checked and the
+        request staged under one lock, so nothing stages after the
+        driver's final drain. Returns "ok", "unready", "full" or
+        "pool"."""
+        pool = self.decoder.pool
         with self._lock:
             if not self.ready:
                 return "unready"
             if 0 < self.max_queue <= self._inflight:
                 self.counters["rejected"] += 1
                 return "full"
-            if not self.decoder.pool.try_reserve(need):
+            if pool is not None and not pool.try_reserve(need):
                 self.counters["rejected"] += 1
                 return "pool"
             holder["reserved"] = need
@@ -581,7 +663,8 @@ class GenerateAPI:
             return
         holder.update(fields)
         with self._lock:
-            self.decoder.pool.unreserve(holder.pop("reserved", 0))
+            if self.decoder.pool is not None:
+                self.decoder.pool.unreserve(holder.pop("reserved", 0))
             self._inflight -= 1
             self.counters[outcome] += 1
         holder["event"].set()
@@ -673,7 +756,8 @@ class GenerateAPI:
                     "inflight": self._inflight,
                     "max_queue": self.max_queue,
                     "counters": dict(self.counters)}
-        snap["pool"] = self.decoder.pool.snapshot()
+        if self.decoder.pool is not None:
+            snap["pool"] = self.decoder.pool.snapshot()
         snap["dispatch_counts"] = dict(self.decoder.dispatch_counts)
         snap["device"] = str(self.decoder.device)
         snap["ttft_ms"] = (
@@ -717,8 +801,9 @@ class GenerateAPI:
         from veles_tpu_torch.core.httpd import reply
 
         limit = budget if budget is not None else self.decoder.n_tokens
-        need = self.decoder.worst_case_pages(len(prompt), limit,
-                                             self.chunk)
+        need = (self.decoder.worst_case_pages(len(prompt), limit,
+                                              self.chunk)
+                if self.decoder.pool is not None else 0)
         staged_at = time.monotonic()
         holder = {"event": threading.Event(), "staged_at": staged_at,
                   "deadline": staged_at + deadline_s}
