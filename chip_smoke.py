@@ -5,13 +5,16 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. the card's name and power limit (nvidia-smi);
-2. build every kernel of the serving path from veles_tpu_torch/ops/csrc
-   with nvcc (sm_90a), all sources at once, then hold each kernel (K1
-   paged attention, K2 int8 matvec, K3 int8-KV paged attention, K4
-   dense int8-KV attention, on a slab view cut to a span too) against
-   its plain PyTorch version at the serving path's shapes, and time
-   kernel, plain version and the nearest PyTorch library call with CUDA
-   events (L2 flushed before every timed launch, median of 25);
+2. build every kernel of the serving and training paths from
+   veles_tpu_torch/ops/csrc with nvcc (sm_90a), all sources at once,
+   then hold each kernel (K1 paged attention, K2 int8 matvec, K3 int8-KV
+   paged attention, K4 dense int8-KV attention, on a slab view cut to a
+   span too; K5 the blocked GEMM at the weight-gradient and grad_x
+   shapes of the wide MLP, K6 the fused dense layer at its forward
+   shape, both in bf16 and f32 operands, K6 in each activation) against
+   its plain PyTorch version at the path's shapes, and time kernel,
+   plain version and the nearest PyTorch library call with CUDA events
+   (L2 flushed before every timed launch, median of 25);
 3. GenerateAPI at the full width of the repo's serving model (embed
    1024, 16 heads, 4 blocks, vocab 32768, bf16, paged pool of 128-token
    pages, 8 slots) answers 8 concurrent HTTP requests in the float, int8
@@ -33,7 +36,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the port's dense reference decode (on the card for float weights, on
    the CPU for the int8 tiers, where the card would run K2 and K4), up
    to the first step where the reference's top-2 logit gap is below
-   1e-3.
+   1e-3;
+7. training: MLPWorkflow over the bench's MNIST-shaped data (60000 x
+   784, 10000 valid / 50000 train), 3 epochs at lr 0.03 — the wide MLP
+   (784 -> 4096 tanh -> 10, minibatch 4096) with the engine knobs
+   use_pallas and pallas_epilogue on (the main path: its counters must
+   show K6 once per train and eval minibatch and K5 once per train
+   minibatch), then off, off and on again (both orders on one card),
+   and the reference MNIST784 configuration (784 -> 100 -> 10,
+   minibatch 100); images/s, per-epoch train loss and validation
+   errors;
+8. one epoch of the wide MLP at precision level 2 (K5 and K6 on f32
+   operands) on the card and on the CPU from the same weights: equal
+   index streams, per-minibatch errors and final weights within the
+   stated tolerances.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -52,7 +68,17 @@ import urllib.request
 import numpy
 import torch
 
+from veles_tpu_torch.convert import unit_params_from_jax
+from veles_tpu_torch.core import prng
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.dummy import DummyLauncher
+from veles_tpu_torch.loader.base import TRAIN, VALID
+from veles_tpu_torch.models.mlp import MLPWorkflow
 from veles_tpu_torch.ops import _build
+from veles_tpu_torch.ops import activations as act_lib
+from veles_tpu_torch.ops.gemm import (_blocked_matmul_plain,
+                                      _dense_epilogue_plain, blocked_matmul,
+                                      dense_epilogue)
 from veles_tpu_torch.ops.paged_attention import (_paged_attend_int8_plain,
                                                  _paged_attend_plain,
                                                  paged_attend,
@@ -106,6 +132,40 @@ K2_SHAPES = ((EMBED, 3 * EMBED), (EMBED, EMBED), (EMBED, 4 * EMBED),
              (4 * EMBED, EMBED), (EMBED, VOCAB))
 K2_PER_STEP = (BLOCKS, BLOCKS, BLOCKS, BLOCKS, 1)
 TOP2_GAP = 1e-3
+#: the dense float32 rate outside the tensor cores (NVIDIA data sheet),
+#: operations/s: the peak for K5's and K6's f32-operand runs
+F32_OPS_PER_S = 67e12
+#: K5 and K6 at the training path's shapes (the wide MLP, bench.py:306:
+#: 784 -> 4096 (tanh) -> 10 at minibatch 4096): (m, k, n) of the hidden
+#: layer's forward (K6), its weight gradient x.T @ err (K5) and the input
+#: gradient err @ w.T a deeper eligible layer would take (K5)
+K6_SHAPE = (4096, 784, 4096)
+K5_SHAPE = (784, 4096, 4096)
+K5_GRAD_X_SHAPE = (4096, 4096, 784)
+#: K5/K6 write f32 from operands both versions widen exactly; they differ
+#: in summation order over up to 4096 terms (~1e-6 of outputs of order
+#: 1), far inside this bound relative to the largest output. A bf16
+#: output (K5's grad_x) may differ by one bf16 rounding: 2^-8 relative.
+GEMM_F32_RTOL = 1e-4
+GEMM_BF16_RTOL = 1e-2
+#: the training phase: the wide MLP over the bench's data (bench.py:
+#: 76-81, 306-356), 3 epochs at lr 0.03, and the reference MNIST784
+#: configuration (bench.py:84-98)
+WIDE_LAYERS, WIDE_MINIBATCH = (4096, 10), 4096
+MNIST_LAYERS, MNIST_MINIBATCH = (100, 10), 100
+TRAIN_EPOCHS, TRAIN_LR = 3, 0.03
+BENCH_CLASS_LENGTHS = [0, 10000, 50000]
+#: the training agreement: one epoch of the wide MLP at precision level
+#: 2 (K5 and K6 on f32 operands) on the first 12288 rows of the bench
+#: data, 4096 valid and 8192 train
+AGREE_CLASS_LENGTHS = [0, 4096, 8192]
+#: both sides compute in f32 with other summation orders (~1e-6
+#: relative on the logits): an argmax may flip where two logits are
+#: that close, so a minibatch's n_err may differ by this many samples
+#: of 4096; after two SGD steps at lr 0.03 the weights differed by
+#: 7.45e-9 on an H100
+AGREE_N_ERR_TOL = 2
+AGREE_WEIGHT_ATOL = 1e-4
 
 
 def card_line():
@@ -372,6 +432,133 @@ def k4_phase(timer, device, gen):
             "library_ms": library_ms}
 
 
+def gemm_bound(m, k, n, operand_bytes, out_bytes, ops_per_s, bias=False):
+    """The least time of one (m, k, n) product: each operand read once,
+    the output (and K6's f32 bias) written or read once, 2mkn operations
+    at ``ops_per_s``."""
+    nbytes = ((m * k + k * n) * operand_bytes + m * n * out_bytes
+              + (4 * n if bias else 0))
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, 2 * m * k * n / ops_per_s
+    return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s
+                                       else "operations")
+
+
+def gemm_operands(gen, device, shape, dtype, layout):
+    """(a, b) of the (m, k, n) product laid out as the training path lays
+    them: "forward" x (m, k) @ w (k, n), both row-major (K6);
+    "weight_grad" x.T @ err, x.T a view of a row-major (k, m) x (K5);
+    "grad_x" err @ w.T, w.T a view of a row-major (n, k) w (K5). Values
+    are randn, b scaled by 1/sqrt(k) so outputs are of order 1."""
+    m, k, n = shape
+    if layout == "weight_grad":
+        a = torch.randn((k, m), generator=gen, device=device).to(dtype).t()
+    else:
+        a = torch.randn((m, k), generator=gen, device=device).to(dtype)
+    if layout == "grad_x":
+        b = (torch.randn((n, k), generator=gen, device=device)
+             / math.sqrt(k)).to(dtype).t()
+    else:
+        b = (torch.randn((k, n), generator=gen, device=device)
+             / math.sqrt(k)).to(dtype)
+    return a, b
+
+
+def gemm_error(out, ref, tol):
+    """Max abs error and that error relative to the largest output;
+    raises past ``tol`` (relative)."""
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = err / ref.float().abs().max().item()
+    if not rel <= tol:
+        raise AssertionError("max abs err %.3g is %.3g of the largest "
+                             "output (tolerance %.0e)" % (err, rel, tol))
+    return err, rel
+
+
+def k5_phase(timer, device, gen):
+    """K5 against its plain version at the weight-gradient shape (x.T
+    read in place) and the grad_x shape (w.T read in place, written in
+    x's type), bf16 and f32 operands; each timed against the plain
+    version and cuBLAS through torch.matmul on the same operands (bf16
+    out, widened to f32). The JSON numbers are the weight gradient's in
+    bf16, the training path's."""
+    worst = 0.0
+    entry = None
+    for layout, shape in (("weight_grad", K5_SHAPE),
+                          ("grad_x", K5_GRAD_X_SHAPE)):
+        for dtype in (torch.bfloat16, torch.float32):
+            a, b = gemm_operands(gen, device, shape, dtype, layout)
+            out_dtype = dtype if layout == "grad_x" else torch.float32
+            out = blocked_matmul(a, b, out_dtype=out_dtype)
+            ref = _blocked_matmul_plain(a, b, out_dtype)
+            torch.cuda.synchronize()
+            err, rel = gemm_error(out, ref, GEMM_BF16_RTOL
+                                  if out_dtype == torch.bfloat16
+                                  else GEMM_F32_RTOL)
+            worst = max(worst, err)
+            ms = timer(lambda: blocked_matmul(a, b, out_dtype=out_dtype))
+            plain_ms = timer(lambda: _blocked_matmul_plain(a, b, out_dtype))
+            library_ms = timer(lambda: torch.matmul(a, b).float())
+            bf16 = dtype == torch.bfloat16
+            bound_ms, bound_by = gemm_bound(
+                *shape, a.element_size(), out.element_size(),
+                BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
+            print("K5 blocked_matmul %s (m %d, k %d, n %d) %s -> %s: "
+                  "max_abs_err %.3g (%.3g relative) ms %.4f plain_ms %.4f "
+                  "library_ms %.4f bound_ms %.4f (%s)"
+                  % (layout, *shape, str(dtype).split(".")[-1],
+                     str(out_dtype).split(".")[-1], err, rel, ms, plain_ms,
+                     library_ms, bound_ms, bound_by))
+            if layout == "weight_grad" and bf16:
+                entry = {"ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library_ms}
+    return dict({"name": "blocked_matmul", "route": "cuda",
+                 "source": "veles_tpu_torch/ops/csrc/gemm.cu",
+                 "replaces": "veles_tpu/ops/gemm.py:133",
+                 "max_abs_err": worst}, **entry)
+
+
+def k6_phase(timer, device, gen):
+    """K6 against its plain version at the hidden layer's forward shape,
+    bf16 and f32 operands, each of the five activations; tanh (the
+    path's) timed against the plain version and torch.addmm plus the
+    activation on the same operands. The JSON numbers are bf16's."""
+    worst = 0.0
+    entry = None
+    for dtype in (torch.bfloat16, torch.float32):
+        a, b = gemm_operands(gen, device, K6_SHAPE, dtype, "forward")
+        bias = torch.randn(K6_SHAPE[2], generator=gen, device=device) * 0.1
+        for activation in act_lib.ACTIVATIONS:
+            out = dense_epilogue(a, b, bias, activation)
+            ref = _dense_epilogue_plain(a, b, bias, activation)
+            torch.cuda.synchronize()
+            err, rel = gemm_error(out, ref, GEMM_F32_RTOL)
+            worst = max(worst, err)
+            print("K6 dense_epilogue %s %s: max_abs_err %.3g (%.3g "
+                  "relative)" % (str(dtype).split(".")[-1], activation,
+                                 err, rel))
+        act = act_lib.ACTIVATIONS["tanh"][0]
+        bias_lib = bias.to(dtype)
+        ms = timer(lambda: dense_epilogue(a, b, bias, "tanh"))
+        plain_ms = timer(lambda: _dense_epilogue_plain(a, b, bias, "tanh"))
+        library_ms = timer(lambda: act(torch.addmm(bias_lib, a, b).float()))
+        bf16 = dtype == torch.bfloat16
+        bound_ms, bound_by = gemm_bound(
+            *K6_SHAPE, a.element_size(), 4,
+            BF16_OPS_PER_S if bf16 else F32_OPS_PER_S, bias=True)
+        print("K6 dense_epilogue tanh (m %d, k %d, n %d) %s: ms %.4f "
+              "plain_ms %.4f library_ms %.4f bound_ms %.4f (%s)"
+              % (*K6_SHAPE, str(dtype).split(".")[-1], ms, plain_ms,
+                 library_ms, bound_ms, bound_by))
+        if bf16:
+            entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms}
+    return dict({"name": "dense_epilogue", "route": "cuda",
+                 "source": "veles_tpu_torch/ops/csrc/dense_epilogue.cu",
+                 "replaces": "veles_tpu/ops/gemm.py:199",
+                 "max_abs_err": worst}, **entry)
+
+
 def library_available(x, q_t, scale_t):
     """Whether this PyTorch build runs its W8A16 operator
     (``torch._weight_int8pack_mm``) on the card: the yardstick, never
@@ -462,7 +649,9 @@ def post(port, tokens, n_tokens, timeout=600):
 #: every kernel's launch counter, by the name the JSON line gives it
 COUNTERS = {"paged_attend": paged_attend, "int8_matmul": int8_matmul,
             "paged_attend_int8": paged_attend_int8,
-            "int8_cache_attend": int8_cache_attend}
+            "int8_cache_attend": int8_cache_attend,
+            "blocked_matmul": blocked_matmul,
+            "dense_epilogue": dense_epilogue}
 #: the attention kernels among them
 ATTENTION = ("paged_attend", "paged_attend_int8", "int8_cache_attend")
 
@@ -791,6 +980,201 @@ def agreement_phase(device, prompts, waves):
               % (label, compared, cut, TOP2_GAP))
 
 
+def bench_dataset(n=60000, features=784, classes=10, n_valid=10000):
+    """The bench's MNIST-shaped set (bench.py:61-81): uniform pixels from
+    RandomState(0), class-balanced shuffled labels, valid block first."""
+    rng = numpy.random.RandomState(0)
+    data = rng.rand(n, features).astype(numpy.float32)
+    blocks = []
+    for length in (n_valid, n - n_valid):
+        block = numpy.tile(numpy.arange(classes, dtype=numpy.int32),
+                           length // classes + 1)[:length]
+        rng.shuffle(block)
+        blocks.append(block)
+    return data, numpy.concatenate(blocks)
+
+
+def build_mlp(device, data, labels, layers, minibatch, class_lengths,
+              knobs, epochs, precision_level=0, sweep=True, weights=None):
+    """An MLPWorkflow as bench.py builds it (seeds 1234, linear
+    normalization, lr 0.03) with the engine knobs set; ``weights``
+    (per-layer numpy dicts) are put into the units before
+    initialize()."""
+    root.common.engine.update({"use_pallas": knobs,
+                               "pallas_epilogue": knobs,
+                               "precision_level": precision_level})
+    prng.get("default").seed(1234)
+    prng.get("loader").seed(1234)
+    wf = MLPWorkflow(
+        DummyLauncher(), layers=layers,
+        loader_kwargs=dict(data=data, labels=labels,
+                           class_lengths=class_lengths,
+                           minibatch_size=minibatch,
+                           normalization_type="linear"),
+        learning_rate=TRAIN_LR, max_epochs=epochs, fused_sweep=sweep,
+        device=device, name="mlp")
+    if weights is not None:
+        unit_params_from_jax(wf, weights)
+    return wf
+
+
+def train(wf, device):
+    """initialize() and run() ``wf``; returns the per-epoch records
+    (host clock at the epoch's summary, train loss, validation n_err)
+    and the wall seconds of run(), the card synchronised at both ends."""
+    epochs = []
+    summary = wf.decision._epoch_summary
+
+    def stamped(stats, epoch):
+        epochs.append({"t": time.perf_counter(),
+                       "train_loss": stats[TRAIN][2] / max(stats[TRAIN][1],
+                                                           1),
+                       "valid_n_err": stats[VALID][0]})
+        summary(stats, epoch)
+
+    wf.decision._epoch_summary = stamped
+    wf.initialize()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wf.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return epochs, time.perf_counter() - t0
+
+
+def report_training(label, wf, epochs, wall, n_images):
+    """Print images/s as bench.py:101-128 reads it (the dataset's images
+    over the mean interval between epoch summaries) beside the whole
+    run's, and the per-epoch train loss and validation n_err; fail on a
+    non-finite loss."""
+    stamps = [e["t"] for e in epochs]
+    deltas = [b - a for a, b in zip(stamps, stamps[1:])]
+    rate = n_images / (sum(deltas) / len(deltas)) if deltas else None
+    losses = [e["train_loss"] for e in epochs]
+    print("train %s: %d epochs, images/s %s (bench reading: mean of %d "
+          "epoch intervals), %.1f over the whole run (%.3f s); train loss "
+          "%s; validation n_err %s; minibatches per class (test, valid, "
+          "train) %s" % (label, len(epochs),
+                         "%.1f" % rate if rate else "n/a", len(deltas),
+                         n_images * len(epochs) / wall, wall,
+                         ["%.6f" % v for v in losses],
+                         [e["valid_n_err"] for e in epochs],
+                         wf.fused_tick.minibatch_counts))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("%s: a train loss is not finite" % label)
+    return losses
+
+
+def training_phase(device):
+    """The wide MLP on the bench data, 3 epochs, knobs on — the main
+    path: the counters are zeroed before the run and must show K6 once
+    per train and eval minibatch and K5 once per train minibatch (the
+    first layer needs no input gradient; the 10-wide head is no kernel's)
+    and no serving kernel; then the same with the knobs off (no kernel)
+    twice and on once more (on, off, off, on: both orders, one card), and
+    the reference MNIST784 configuration (no kernel). Returns the main
+    run's launches."""
+    data, labels = bench_dataset()
+    runs = [("wide MLP 784-4096-10 mb 4096, knobs %s"
+             % ("on" if knobs else "off"), WIDE_LAYERS, WIDE_MINIBATCH, knobs)
+            for knobs in (True, False, False, True)]
+    runs.append(("reference MNIST784 784-100-10 mb 100", MNIST_LAYERS,
+                 MNIST_MINIBATCH, False))
+    main = None
+    for label, layers, minibatch, knobs in runs:
+        wf = build_mlp(device, data, labels, layers, minibatch,
+                       BENCH_CLASS_LENGTHS, knobs, TRAIN_EPOCHS)
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        epochs, wall = train(wf, device)
+        got = counts()
+        losses = report_training(label, wf, epochs, wall, len(data))
+        test, valid, train_mb = wf.fused_tick.minibatch_counts
+        want = dict.fromkeys(COUNTERS, 0)
+        if knobs:
+            want.update(dense_epilogue=test + valid + train_mb,
+                        blocked_matmul=train_mb)
+            main = main or got
+            if not losses[-1] < losses[0]:
+                raise AssertionError("the last epoch's train loss %.6f is "
+                                     "not below the first's %.6f"
+                                     % (losses[-1], losses[0]))
+        print("  launches %s (the tick's minibatches require %s)"
+              % (got, {k: v for k, v in want.items() if v}))
+        if got != want or len(epochs) != TRAIN_EPOCHS:
+            raise AssertionError("%s: %d epochs, launches %s, expected %s"
+                                 % (label, len(epochs), got, want))
+        del wf
+    return main
+
+
+def training_agreement_phase(device):
+    """One epoch of the wide MLP at precision level 2 (K5 and K6 on f32
+    operands) on the card and on the CPU (plain versions), per-minibatch
+    serving, from the same weights drawn with numpy: the served index
+    streams must be equal, each minibatch's n_err within
+    AGREE_N_ERR_TOL, the final weights within AGREE_WEIGHT_ATOL."""
+    data, labels = bench_dataset()
+    n = sum(AGREE_CLASS_LENGTHS)
+    data, labels = data[:n], labels[:n]
+    rng = numpy.random.RandomState(5)
+    weights, fan_in = [], data.shape[1]
+    for width in WIDE_LAYERS:
+        bound = 1.0 / math.sqrt(fan_in)
+        weights.append({
+            "weights": rng.uniform(-bound, bound, (fan_in, width)),
+            "bias": rng.uniform(-bound, bound, width)})
+        fan_in = width
+    results = []
+    for dev in (device, torch.device("cpu")):
+        wf = build_mlp(dev, data, labels, WIDE_LAYERS, WIDE_MINIBATCH,
+                       AGREE_CLASS_LENGTHS, True, 1, precision_level=2,
+                       sweep=False, weights=weights)
+        served, n_errs = [], []
+        serve = wf.loader.serve_next_minibatch
+
+        def recorded(serve=serve, served=served):
+            block = serve()
+            served.append(block[1])
+            return block
+
+        wf.loader.serve_next_minibatch = recorded
+        wf.initialize()
+        tick_run = wf.fused_tick.run
+
+        def counted(wf=wf, tick_run=tick_run, n_errs=n_errs):
+            tick_run()
+            n_errs.append(int(wf.evaluator.n_err.data))
+
+        wf.fused_tick.run = counted
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        wf.run()
+        results.append((served, n_errs, [
+            f.weights.data.cpu() for f in wf.forwards], counts()))
+    (served_c, errs_c, w_c, got_c), (served_h, errs_h, w_h, got_h) = results
+    same_stream = len(served_c) == len(served_h) and all(
+        numpy.array_equal(a, b) for a, b in zip(served_c, served_h))
+    n_err_diff = max(abs(a - b) for a, b in zip(errs_c, errs_h))
+    w_diff = max((a - b).abs().max().item() for a, b in zip(w_c, w_h))
+    print("training agreement f32 (level 2), 1 epoch, %d minibatches: "
+          "index streams %s; n_err card %s, CPU %s (max diff %d, tolerance "
+          "%d); weights max abs diff %.3g (tolerance %.0e); card launches "
+          "K5 %d, K6 %d; CPU launches %d"
+          % (len(served_c), "equal" if same_stream else "DIFFER", errs_c,
+             errs_h, n_err_diff, AGREE_N_ERR_TOL, w_diff,
+             AGREE_WEIGHT_ATOL, got_c["blocked_matmul"],
+             got_c["dense_epilogue"], sum(got_h.values())))
+    if not same_stream or len(errs_c) != len(errs_h) \
+            or n_err_diff > AGREE_N_ERR_TOL or not w_diff <= AGREE_WEIGHT_ATOL:
+        raise AssertionError("the card's training disagrees with the CPU's")
+    if not (got_c["blocked_matmul"] and got_c["dense_epilogue"]) \
+            or any(got_h.values()):
+        raise AssertionError("the card run skipped a kernel or the CPU run "
+                             "launched one")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -813,7 +1197,8 @@ def main():
     gen.manual_seed(0)
     timer = Timer(device)
     kernels = [k1_phase(timer, device, gen), k2_phase(timer, device, gen),
-               k3_phase(timer, device, gen), k4_phase(timer, device, gen)]
+               k3_phase(timer, device, gen), k4_phase(timer, device, gen),
+               k5_phase(timer, device, gen), k6_phase(timer, device, gen)]
     prng = numpy.random.RandomState(1)
     prompts = [prng.randint(0, VOCAB, n).tolist()
                for n in numpy.linspace(60, 700, SLOTS).astype(int)]
@@ -821,10 +1206,14 @@ def main():
     for phase in (prefix_phase(device, prng), dense_phase(device)):
         for name, n in phase.items():
             launches[name] += n
-    for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
     agreement_phase(device, prompts,
                     prefix_waves(numpy.random.RandomState(2)))
+    # the training path's kernels count on its main path alone
+    launches.update((name, n) for name, n in training_phase(device).items()
+                    if name in ("blocked_matmul", "dense_epilogue"))
+    training_agreement_phase(device)
+    for entry in kernels:
+        entry["launches"] = launches[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@ query types; K4 at head widths 32 to 128, shared and per-row masks,
 lanes of several 8192-position tiles (one fully masked tile first or
 last) and a slab view cut to a span, and the
 dense int8-KV decoder on the card against the CPU; the wrappers'
-refusals; and prefill attention at 4096 positions with a head width the
-flash rule leaves to plain attention.
+refusals; prefill attention at 4096 positions with a head width the
+flash rule leaves to plain attention; K5 and K6 at odd shapes, both
+operand types, every activation, transposed and strided operands, and
+the dense layer's backward on the card against the plain backward.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -18,11 +20,20 @@ JAX):
         tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy
 import pytest
 import torch
 
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.ops import gemm
+from veles_tpu_torch.ops.activations import ACTIVATIONS
+
 from veles_tpu_torch.ops.attention import attention, plain_attention
+from veles_tpu_torch.ops.gemm import (_blocked_matmul_plain,
+                                      _dense_epilogue_plain, blocked_matmul,
+                                      dense_epilogue)
 from veles_tpu_torch.ops.paged_attention import (_paged_attend_int8_plain,
                                                  _paged_attend_plain,
                                                  paged_attend,
@@ -351,3 +362,114 @@ def test_attention_at_4096_with_head_dim_64_runs(cuda):
     with pytest.raises(NotImplementedError, match="A3"):
         attention(*(torch.randn((1, 4096, 1, 128), device="cuda")
                     for _ in range(3)), causal=True)
+
+
+# -- K5 / K6: the training path's GEMM kernels --------------------------------
+
+#: odd shapes: ragged edges on every axis, a 1 x 1 x 1 product, the
+#: digits MLP's head (k 784, n 10)
+GEMM_SHAPES = [(100, 80, 64), (1, 1, 1), (100, 784, 10), (130, 70, 50),
+               (257, 33, 129)]
+
+
+def _gemm_operands(gen, shape, dtype, layout):
+    """(a, b) with ``layout`` "rr" (both row-major), "cr" (a a transposed
+    view, x.T), "rc" (b a transposed view, w.T) or "strided" (both
+    sliced along both axes: the wrapper copies them)."""
+    m, k, n = shape
+    a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    b = (torch.randn((k, n), generator=gen, device="cuda")
+         / math.sqrt(k)).to(dtype)
+    if layout == "cr":
+        a = a.t().contiguous().t()
+    elif layout == "rc":
+        b = b.t().contiguous().t()
+    elif layout == "strided":
+        a = torch.randn((2 * m, 2 * k), generator=gen,
+                        device="cuda").to(dtype)[::2, ::2]
+    return a, b
+
+
+def _gemm_close(out, ref):
+    """f32 sums of up to 784 terms in another order (~1e-6 of outputs of
+    order 1); a bf16 output may differ by one rounding (2^-8)."""
+    tol = 1e-2 if out.dtype == torch.bfloat16 else 1e-4
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * max(1.0, ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize("layout", ["rr", "cr", "rc", "strided"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", GEMM_SHAPES,
+                         ids=["x".join(map(str, s)) for s in GEMM_SHAPES])
+def test_blocked_matmul_kernel_matches_plain(cuda, shape, dtype, layout):
+    a, b = _gemm_operands(cuda, shape, dtype, layout)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = blocked_matmul.launches
+        out = blocked_matmul(a, b, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert blocked_matmul.launches == before + 1
+        assert out.dtype == out_dtype and out.shape == (shape[0], shape[2])
+        _gemm_close(out, _blocked_matmul_plain(a, b, out_dtype))
+
+
+@pytest.mark.parametrize("activation", sorted(ACTIVATIONS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_dense_epilogue_kernel_matches_plain(cuda, dtype, activation):
+    for shape, layout in zip(GEMM_SHAPES, ("rr", "cr", "rc", "strided",
+                                           "rr")):
+        a, b = _gemm_operands(cuda, shape, dtype, layout)
+        bias = torch.randn(shape[2], generator=cuda, device="cuda")
+        before = dense_epilogue.launches
+        out = dense_epilogue(a, b, bias, activation)
+        torch.cuda.synchronize()
+        assert dense_epilogue.launches == before + 1
+        _gemm_close(out, _dense_epilogue_plain(a, b, bias, activation))
+
+
+@pytest.mark.parametrize("level", [0, 2])
+def test_dense_backward_on_the_card_matches_the_plain_backward(
+        cuda, monkeypatch, level):
+    """The kernel route (K6 forward, K5 for grad_x and grad_w) on the
+    card against the same autograd.Function on the CPU, where both
+    products run their plain versions; level 0 rounds grad_w and grad_x
+    to bf16 (one rounding may differ by an ulp)."""
+    monkeypatch.setattr(root.common.engine, "use_pallas", True)
+    monkeypatch.setattr(root.common.engine, "pallas_epilogue", True)
+    monkeypatch.setattr(root.common.engine, "precision_level", level)
+    rng = numpy.random.RandomState(level)
+    x = rng.randn(600, 520).astype(numpy.float32)
+    w = (rng.randn(520, 530) / 20).astype(numpy.float32)
+    b = rng.randn(530).astype(numpy.float32)
+    g = rng.randn(600, 530).astype(numpy.float32)
+    grads = {}
+    for device in ("cuda", "cpu"):
+        if device == "cpu":
+            monkeypatch.setattr(gemm, "_kernel_eligible",
+                                lambda a, bb: True)
+        tx, tw, tb = (torch.from_numpy(v).to(device).requires_grad_()
+                      for v in (x, w, b))
+        before = (blocked_matmul.launches, dense_epilogue.launches)
+        y = gemm.dense_layer(tx, tw, tb, activation="tanh")
+        y.backward(torch.from_numpy(g).to(device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert (blocked_matmul.launches - before[0],
+                    dense_epilogue.launches - before[1]) == (2, 1)
+        grads[device] = [t.cpu() for t in (y.detach(), tx.grad, tw.grad,
+                                           tb.grad)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        _gemm_close(got.to(torch.bfloat16) if level == 0 else got,
+                    want)
+
+
+def test_gemm_gate_on_the_card(cuda):
+    big = torch.ones((512, 512), device="cuda")
+    assert gemm._kernel_eligible(big, big)
+    assert not gemm._kernel_eligible(big[:511], big)
+    assert not gemm._kernel_eligible(big, big[:, :511])
+    assert not gemm._kernel_eligible(big.cpu(), big.cpu())
+    with pytest.raises(ValueError):
+        blocked_matmul(big, big.cpu())

@@ -13,7 +13,12 @@ counterpart is found under the same path:
   hand-written sm_90a CUDA kernel (``ops/csrc/``) beside its plain
   PyTorch version;
 - ``serving.py``: ``ContinuousDecoder`` and the ``GenerateAPI`` HTTP
-  front on the dense slot slab (the default) or the paged pool.
+  front on the dense slot slab (the default) or the paged pool;
+- the training path: ``models/mlp.py`` and ``models/standard.py`` over
+  the engine of ``core/`` (units, workflow, config, PRNG streams),
+  ``loader/``, ``nn/`` (dense layers, GD state, evaluator, decision)
+  and the fused tick (``parallel/fused.py``), with the blocked GEMM and
+  the fused dense layer (``ops/gemm.py``) as hand-written kernels.
 
 Entry points take ``device=None``, which means ``"cuda"``; without a
 card they raise unless the caller asks for ``device="cpu"``

@@ -1,11 +1,16 @@
-"""Carry parameter trees between the JAX package and the port.
+"""Carry parameters between the JAX package and the port.
 
-A JAX parameter tree (``veles_tpu.parallel.transformer_step.
+Serving: a JAX parameter tree (``veles_tpu.parallel.transformer_step.
 init_transformer_params``, or ``decode.quantize_params``'s int8 tier with
 its ``{"q8", "scale"}`` leaves) has the same nesting as the port's dict
 of tensors, so the conversion is leaf by leaf. Leaves arrive as numpy
 arrays (or anything ``numpy.asarray`` reads, JAX arrays included); this
 module never imports JAX.
+
+Training: :func:`unit_params_from_jax` puts a JAX workflow's unit
+parameters (weights, biases and velocities, as numpy arrays) into the
+port's units before ``initialize()``, which then draws nothing, so both
+packages train from the same state.
 """
 
 import numpy
@@ -52,3 +57,28 @@ def params_to_numpy(params):
     if tensor.dtype == torch.bfloat16:
         tensor = tensor.float()
     return tensor.numpy()
+
+
+#: the per-layer keys :func:`unit_params_from_jax` reads: (key, unit,
+#: attribute); the unit is the forward ("fwd") or its GD twin ("gd")
+UNIT_PARAM_SLOTS = (("weights", "fwd", "weights"), ("bias", "fwd", "bias"),
+                    ("velocity_w", "gd", "_velocity_w"),
+                    ("velocity_b", "gd", "_velocity_b"))
+
+
+def unit_params_from_jax(workflow, layers):
+    """Fill a port ``StandardWorkflow``'s unit slots before
+    ``initialize()``. ``layers`` has one dict per forward layer with
+    numpy (or numpy-readable) ``"weights"``, ``"bias"`` and optionally
+    ``"velocity_w"``/``"velocity_b"``; each becomes an f32 tensor on the
+    workflow's device. A slot left out is drawn (weights) or zeroed
+    (velocities) by ``initialize()`` as usual."""
+    if len(layers) != len(workflow.forwards):
+        raise ValueError("%d layer dicts for %d forward units"
+                         % (len(layers), len(workflow.forwards)))
+    for fwd, gd, layer in zip(workflow.forwards, workflow.gds, layers):
+        units = {"fwd": fwd, "gd": gd}
+        for key, unit, attr in UNIT_PARAM_SLOTS:
+            if key in layer:
+                getattr(units[unit], attr).data = _leaf_from_numpy(
+                    layer[key]).float().to(workflow.device)

@@ -1,0 +1,225 @@
+"""StandardWorkflow: declarative model assembly from a layer-spec list.
+
+The port of ``veles_tpu/models/standard.py`` (the Znicz StandardWorkflow
+pattern): a topology is a list of layer dicts, and the workflow wires
+loader → forwards → evaluator → decision → gds, then splices the fused
+tick (``parallel/fused.py``) in place of the compute chain. Layer types
+of this slice:
+
+    {"type": "all2all_tanh", "output_sample_shape": 100, ...}
+    {"type": "softmax", "output_sample_shape": 10}
+
+(``all2all``, ``all2all_tanh``, ``all2all_relu``,
+``all2all_strict_relu``, ``all2all_sigmoid``, ``softmax``). Per-layer
+trainer kwargs (learning_rate, weights_decay, gradient_moment, l1_vs_l2,
+solver, ...) may be embedded in each spec under "trainer"; workflow-level
+defaults apply otherwise.
+
+``device=None`` means "cuda" and raises without a card unless the caller
+passes ``device="cpu"``. Later slices, which raise
+``NotImplementedError`` here rather than run another path: the conv,
+pooling and attention layer types, graph mode (``fused=False``, or an
+``"auto"`` topology the fused tick does not support), the MSE evaluator,
+a mesh, and the fleet (master/slave) modes.
+"""
+
+from veles_tpu_torch.core.plumbing import Repeater
+from veles_tpu_torch.core.workflow import Workflow
+from veles_tpu_torch.device import resolve_device
+from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+from veles_tpu_torch.nn.all2all import (
+    All2All, All2AllRELU, All2AllSigmoid, All2AllSoftmax,
+    All2AllStrictRELU, All2AllTanh)
+from veles_tpu_torch.nn.decision import DecisionGD
+from veles_tpu_torch.nn.evaluator import EvaluatorSoftmax
+from veles_tpu_torch.nn.gd import (
+    GDRELU, GDSigmoid, GDSoftmax, GDStrictRELU, GDTanh, GradientDescent)
+
+FORWARD_TYPES = {
+    "all2all": (All2All, GradientDescent),
+    "all2all_tanh": (All2AllTanh, GDTanh),
+    "all2all_relu": (All2AllRELU, GDRELU),
+    "all2all_strict_relu": (All2AllStrictRELU, GDStrictRELU),
+    "all2all_sigmoid": (All2AllSigmoid, GDSigmoid),
+    "softmax": (All2AllSoftmax, GDSoftmax),
+}
+
+#: the JAX package's other layer types, each a later slice of the port
+LATER_TYPES = {
+    "self_attention": "attention", "ffn": "attention",
+    "layer_norm": "attention", "conv": "conv and pooling",
+    "conv_tanh": "conv and pooling", "conv_relu": "conv and pooling",
+    "conv_strict_relu": "conv and pooling",
+    "max_pooling": "conv and pooling", "maxabs_pooling": "conv and pooling",
+    "avg_pooling": "conv and pooling",
+}
+
+TRAINER_KEYS = ("learning_rate", "learning_rate_bias", "weights_decay",
+                "l1_vs_l2", "gradient_moment", "solver", "adam_beta1",
+                "adam_beta2", "adam_epsilon")
+
+
+class StandardWorkflow(Workflow):
+    """Declarative topology workflow (the Znicz StandardWorkflow role)."""
+
+    def __init__(self, workflow, layers=(), loader_kwargs=None,
+                 decision_kwargs=None, device=None, **kwargs):
+        self.layer_defaults = {k: kwargs.pop(k) for k in TRAINER_KEYS
+                               if k in kwargs}
+        #: fused tick mode: True or "auto" (both run the fused tick;
+        #: "auto" is the default); False is graph mode, a later slice
+        self.fused = kwargs.pop("fused", "auto")
+        #: sweep serving: one tick per class sweep instead of one per
+        #: minibatch
+        self.fused_sweep = kwargs.pop("fused_sweep", True)
+        #: pipelined epochs (default): metrics are read one epoch late,
+        #: so the per-epoch read overlaps the next epoch's compute;
+        #: outputs are identical, including the stop paths
+        self.fused_pipeline = kwargs.pop("fused_pipeline", True)
+        for key, what in (("mesh", "a mesh"),
+                          ("evaluator", "the MSE evaluator"),
+                          ("loader_cls", "a custom loader class")):
+            value = kwargs.pop(key, None)
+            if value is not None and value != "softmax":
+                raise NotImplementedError(
+                    "%s is a later slice of the port" % what)
+        for spec in layers:
+            if spec["type"] in LATER_TYPES:
+                raise NotImplementedError(
+                    "layer type %r: the %s layers are a later slice of the "
+                    "port" % (spec["type"], LATER_TYPES[spec["type"]]))
+            if spec["type"] not in FORWARD_TYPES:
+                raise ValueError("unknown layer type %r" % spec["type"])
+        self.device = resolve_device(device)
+        self.fused_tick = None
+        super().__init__(workflow, **kwargs)
+        self.repeater = Repeater(self)
+        self.repeater.link_from(self.start_point)
+        self.loader = FullBatchLoader(self, **(loader_kwargs or {}))
+        self.loader.link_from(self.repeater)
+        self.forwards = []
+        self.gds = []
+        self._specs = [dict(spec) for spec in layers]
+        self._build_forwards()
+        self._build_evaluator_and_decision(decision_kwargs or {})
+        self._build_gds()
+        self.repeater.link_from(self.gds[0])
+        self.end_point.link_from(self.decision)
+        self.end_point.link_from(self.gds[0])
+        self.end_point.gate_block = ~self.decision.complete
+        self.loader.gate_block = self.decision.complete
+        self.loader.complete = self.decision.complete
+
+    def initialize(self, **kwargs):
+        if not self.is_standalone:
+            raise NotImplementedError(
+                "fleet (master/slave) mode is a later slice of the port")
+        if not self.fused:
+            raise NotImplementedError(
+                "graph mode (fused=False: the units' own computes and "
+                "backward) is a later slice of the port")
+        self._enable_fused()
+        return super().initialize(**kwargs)
+
+    def _enable_fused(self):
+        """Splice the FusedTick in place of the per-unit compute chain:
+        loader → FusedTick → decision (see parallel/fused.py). The units
+        stay constructed — they own the weights."""
+        from veles_tpu_torch.parallel import fused
+
+        if self.fused_tick is not None:
+            return
+        if not fused.supports(self):
+            raise NotImplementedError(
+                "this topology is not one the fused tick supports (see "
+                "parallel/fused.py supports()); the lower fusion tiers "
+                "and graph mode are later slices of the port")
+        self.fused_tick = fused.FusedTick(
+            self, name="fused_tick",
+            pipelined=bool(self.fused_pipeline and self.fused_sweep))
+        # detach the graph-mode compute chain from the control path
+        self.forwards[0].unlink_from(self.loader)
+        self.decision.unlink_from(self.evaluator)
+        self.gds[-1].unlink_from(self.decision)
+        self.repeater.unlink_from(self.gds[0])
+        # the detached chain can't fire the EndPoint's AND-gate; the
+        # decision link alone finishes the fused run
+        self.end_point.unlink_from(self.gds[0])
+        self.fused_tick.link_from(self.loader)
+        self.decision.link_from(self.fused_tick)
+        self.repeater.link_from(self.decision)
+        self.loader.gate_block = self.decision.complete
+        self.loader.fill_data = False
+        self.loader.sweep_serving = bool(self.fused_sweep)
+        self.info("fused tick mode: %d-layer chain, one step per %s on %s",
+                  len(self.forwards),
+                  "class sweep" if self.loader.sweep_serving
+                  else "minibatch", self.device)
+
+    def run(self):
+        if bool(self.decision.complete):
+            # the loader gate is blocked, so firing the start point would
+            # hang: finish cleanly instead
+            self.warning("workflow is already complete; nothing to run")
+            self._finished = False
+            self.on_workflow_finished()
+            return self
+        return super().run()
+
+    def on_workflow_finished(self):
+        # fused mode writes unit-Array weights back on EVAL ticks (the
+        # evaluated state); the final post-train state lands here
+        if self.fused_tick is not None:
+            try:
+                self.fused_tick.sync_params()
+            except Exception:
+                # also reached via on_error: a raise here would swallow
+                # _sync_event_.set() and hang run() forever, masking the
+                # original failure
+                self.exception("final fused param sync failed")
+        super().on_workflow_finished()
+
+    def _build_forwards(self):
+        src = self.loader
+        for i, spec in enumerate(self._specs):
+            spec = dict(spec)
+            ltype = spec.pop("type")
+            spec.pop("trainer", None)
+            fwd_cls, _ = FORWARD_TYPES[ltype]
+            fwd = fwd_cls(self, name="fwd%d" % i, **spec)
+            fwd.link_from(src)
+            if i == 0:
+                fwd.link_attrs(self.loader, ("input", "minibatch_data"))
+            else:
+                fwd.link_attrs(self.forwards[-1], ("input", "output"))
+            self.forwards.append(fwd)
+            src = fwd
+
+    def _build_evaluator_and_decision(self, decision_kwargs):
+        self.evaluator = EvaluatorSoftmax(self)
+        self.evaluator.link_from(self.forwards[-1])
+        self.evaluator.link_attrs(self.forwards[-1], ("input", "output"))
+        self.evaluator.link_attrs(self.loader,
+                                  ("labels", "minibatch_labels"),
+                                  "sample_mask")
+        self.decision = DecisionGD(self, **decision_kwargs)
+        self.decision.link_from(self.evaluator)
+        self.decision.loader = self.loader
+        self.decision.evaluator = self.evaluator
+
+    def _build_gds(self):
+        self.gds = [None] * len(self.forwards)
+        err_src = self.evaluator
+        prev = self.decision
+        for i in reversed(range(len(self.forwards))):
+            spec = self._specs[i]
+            _, gd_cls = FORWARD_TYPES[spec["type"]]
+            trainer = dict(self.layer_defaults)
+            trainer.update(spec.get("trainer", {}))
+            gd = gd_cls(self, name="gd%d" % i, **trainer)
+            gd.link_forward(self.forwards[i], err_src)
+            gd.link_from(prev)
+            gd.gate_skip = self.decision.gd_skipped
+            self.gds[i] = gd
+            err_src = gd
+            prev = gd

@@ -2,9 +2,10 @@
 
 Each source is one shared library with a plain C interface, compiled by
 ``nvcc`` for ``sm_90a`` into ``veles_tpu_torch/_build/`` on first use and
-loaded with ``ctypes``. The library name carries a hash of the source
-and the flags, so an edited source rebuilds. Nothing here runs at
-import time, and the CPU path never calls it. A failed build raises.
+loaded with ``ctypes``. The library name carries a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source
+rebuilds. Nothing here runs at import time, and the CPU path never calls
+it. A failed build raises.
 """
 
 import ctypes
@@ -21,7 +22,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel source of the port, by stem
 KERNELS = ("int8_matmul", "paged_attention", "paged_attention_int8",
-           "cache_attend_int8")
+           "cache_attend_int8", "gemm", "dense_epilogue")
 
 _lock = threading.Lock()
 _libs = {}
@@ -38,10 +39,14 @@ def _nvcc():
 
 
 def library_path(name):
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = CSRC / (name + ".cu")
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the library built from ``csrc/<name>.cu`` lives. The name's
+    hash covers the source, every shared header in ``csrc/`` and the
+    flags."""
+    digest = hashlib.sha256((CSRC / (name + ".cu")).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest = digest.hexdigest()
     return BUILD_DIR / ("%s-%s.so" % (name, digest[:16]))
 
 

@@ -1,0 +1,454 @@
+"""FusedTick: the product path of a training workflow.
+
+The port of ``veles_tpu/parallel/fused.py`` for a single device and dense
+layers. ``StandardWorkflow`` builds its unit graph (the units are the
+composition API and the weight owners), then splices a :class:`FusedTick`
+in place of the compute chain:
+
+    start → repeater → loader → FusedTick → decision → {repeater, end}
+
+One tick is one train or eval step over the loader's served minibatch —
+or, with sweep serving (the default), over a whole class sweep: a Python
+loop over the rows of the index matrix with the same per-row math as the
+JAX package's ``lax.scan``. Each step gathers from the device-resident
+originals, normalizes, runs the dense chain through
+``ops/gemm.dense_layer`` (K6 forward and K5 weight gradient where the
+engine knobs and the gate allow), computes the masked softmax
+cross-entropy, takes the gradients with ``torch.autograd`` of that loss
+(the JAX package uses ``jax.value_and_grad`` of the same loss), and
+applies each GD unit's exact update (``nn/gd.make_updater``). Metrics
+stay device tensors for the Decision to read at epoch boundaries.
+
+The step never updates a tensor in place: it returns new parameter
+tensors, so the unit Arrays, the tick's state and the pipelined mode's
+one-slot history share tensors without copies (the JAX package copies
+because its step donates its input buffers).
+
+Left out (later slices): conv, pooling, attention, FFN and layer-norm
+specs, the mesh (``shard_map``) and the fleet slave and control-plane
+paths, augmentation, and the MSE loss.
+"""
+
+import torch
+
+from veles_tpu_torch.core.units import Unit
+from veles_tpu_torch.loader.base import TRAIN, VALID
+from veles_tpu_torch.loader.normalization import (normalizer_registry,
+                                                  state_tensors)
+from veles_tpu_torch.nn.gd import make_updater
+from veles_tpu_torch.nn.jit_unit import JitUnit
+from veles_tpu_torch.ops import losses
+from veles_tpu_torch.ops.gather import gather_minibatch
+from veles_tpu_torch.ops.gemm import dense_layer
+
+_DENSE = "dense"
+
+#: per-leaf update policy: (leaf key, forward attr, gd velocity attr,
+#: uses learning_rate_bias, gets l2/l1 decay) — each GD unit's exact
+#: update math (``fused.py:67-68``)
+_WB_LEAVES = (("w", "weights", "_velocity_w", False, True),
+              ("b", "bias", "_velocity_b", True, False))
+
+
+def extract_model_spec(workflow):
+    """Static per-layer config from the workflow's forwards/gds chains.
+    Returns a spec list, or None when a layer is not a dense layer this
+    slice fuses (or a subclass carries math of its own)."""
+    from veles_tpu_torch.nn.all2all import All2All
+
+    def modified(unit):
+        return unit is not None and (
+            hasattr(type(unit), "compute")
+            or type(unit).run is not JitUnit.run)
+
+    specs = []
+    for i, fwd in enumerate(workflow.forwards):
+        gd = workflow.gds[i] if workflow.gds else None
+        if not isinstance(fwd, All2All) or modified(fwd) or modified(gd):
+            return None
+        if gd is None or not hasattr(gd, "learning_rate"):
+            return None
+        specs.append({"kind": _DENSE, "activation": fwd.ACTIVATION,
+                      "leaves": _WB_LEAVES, "has_params": True,
+                      "solver": gd.solver})
+    return specs
+
+
+def get_hypers(workflow):
+    """Per-layer hyperparameter vectors, read fresh from the GD units'
+    ``_hyper`` slots each tick, so ``set_learning_rate()`` anneals."""
+    return [gd._hyper.data for gd in workflow.gds]
+
+
+def get_params(workflow, specs):
+    """The unit chain's weights as the per-layer tree: ``{"p": {leaf:
+    tensor}, "v": {leaf: velocity}}`` per layer, plus ``"s"`` second
+    moments and ``"t"`` the step count for the stateful solvers."""
+    params = []
+    for fwd, gd, spec in zip(workflow.forwards, workflow.gds, specs):
+        p, v = {}, {}
+        entry = {"p": p, "v": v}
+        stateful = spec["solver"] != "momentum"
+        if stateful:
+            entry["s"] = {}
+            entry["t"] = gd._step.data
+        for leaf, fwd_attr, vel_attr, _, _ in spec["leaves"]:
+            p[leaf] = getattr(fwd, fwd_attr).data
+            v[leaf] = getattr(gd, vel_attr).data
+            if stateful:
+                entry["s"][leaf] = getattr(
+                    gd, vel_attr.replace("_velocity", "_second")).data
+        params.append(entry)
+    return params
+
+
+def set_params(workflow, params, specs):
+    """Write the tick's parameters back into the unit Array slots (so
+    results and anything reading the units see them)."""
+    for fwd, gd, p, spec in zip(workflow.forwards, workflow.gds, params,
+                                specs):
+        stateful = spec["solver"] != "momentum"
+        for leaf, fwd_attr, vel_attr, _, _ in spec["leaves"]:
+            getattr(fwd, fwd_attr).data = p["p"][leaf]
+            getattr(gd, vel_attr).data = p["v"][leaf]
+            if stateful:
+                getattr(gd, vel_attr.replace("_velocity", "_second")
+                        ).data = p["s"][leaf]
+        if stateful:
+            gd._step.data = p["t"]
+
+
+def _layer_forward(spec):
+    """Pure forward for one dense layer (the forward unit's compute)."""
+    activation = spec["activation"]
+
+    def fwd(p, x):
+        x = x.reshape(x.shape[0], -1)
+        return dense_layer(x, p["w"], p["b"], activation=activation,
+                           out_dtype=torch.float32)
+    return fwd
+
+
+def build_tick(specs, norm_type="none", with_confusion=True):
+    """The fused engine: ``(train_step, eval_step, train_sweep,
+    eval_sweep)``, as the JAX package's ``build_tick``:
+
+    - ``train_step(params, hypers, norm, data, labels, indices, valid)
+      -> (params, (loss, n_err))`` — one minibatch: gather → normalize →
+      forward → masked softmax xent → gradients → per-layer update;
+    - ``eval_step(params, norm, data, labels, indices, valid) -> (loss,
+      n_err, confusion)``;
+    - ``train_sweep(params, hypers, norm, data, labels, index_matrix,
+      valid_sizes, total_valid) -> (params, (loss, n_err))`` — a whole
+      class sweep, the per-row math of ``train_step``, metrics summed;
+    - ``eval_sweep(...)`` likewise without updates.
+
+    ``indices`` (and each row of ``index_matrix``) is an int64 tensor on
+    the data's device; ``valid`` a float; ``norm`` the normalizer's state
+    with arrays as device tensors."""
+    layer_fwds = [_layer_forward(s) for s in specs]
+    norm_cls = normalizer_registry[norm_type]
+
+    def gather_norm(data, labels, indices, norm):
+        batch, lab = gather_minibatch(data, indices, labels)
+        return norm_cls.apply_state(batch, norm), lab
+
+    def model_forward(wb, x):
+        for fwd, p in zip(layer_fwds, wb):
+            x = fwd(p, x)
+        return x
+
+    def metrics_of(wb, batch, lab, valid):
+        mask = (torch.arange(batch.shape[0], device=batch.device)
+                < valid).float()
+        logits = model_forward(wb, batch)
+        _, loss_sum, n_err, _ = losses.masked_softmax_xent(
+            logits, lab, mask, valid)
+        return loss_sum, n_err, logits, mask
+
+    def core_train(params, hypers, norm, data, labels, indices, valid):
+        batch, lab = gather_norm(data, labels, indices, norm)
+        wb = [{k: t.detach().requires_grad_(True)
+               for k, t in p["p"].items()} for p in params]
+        with torch.enable_grad():
+            loss_sum, n_err, _, _ = metrics_of(wb, batch, lab, valid)
+            leaves = [t for layer in wb for t in layer.values()]
+            flat = torch.autograd.grad(loss_sum / valid, leaves)
+        loss_sum, grads = loss_sum.detach(), iter(flat)
+        new = []
+        with torch.no_grad():
+            for p, layer, hyper, spec in zip(params, wb, hypers, specs):
+                g = {k: next(grads) for k in layer}
+                lr, lr_b, l2, l1 = hyper[0], hyper[1], hyper[2], hyper[3]
+                solver = spec["solver"]
+                step = p["t"] + 1.0 if solver != "momentum" else None
+                upd = make_updater(solver, hyper, step)
+                entry = {"p": {}, "v": {}}
+                if solver != "momentum":
+                    entry["s"], entry["t"] = {}, step
+                for leaf, _, _, use_lr_b, decay in spec["leaves"]:
+                    w, gw, vel = p["p"][leaf], g[leaf], p["v"][leaf]
+                    if decay:
+                        gw = gw + l2 * w + l1 * torch.sign(w)
+                    w2, v2, s2 = upd(w, gw, vel,
+                                     p["s"][leaf] if solver != "momentum"
+                                     else None,
+                                     lr_b if use_lr_b else lr)
+                    entry["p"][leaf] = w2
+                    entry["v"][leaf] = v2
+                    if solver != "momentum":
+                        entry["s"][leaf] = s2
+                new.append(entry)
+        return new, (loss_sum, n_err)
+
+    def core_eval(params, norm, data, labels, indices, valid):
+        with torch.no_grad():
+            batch, lab = gather_norm(data, labels, indices, norm)
+            wb = [p["p"] for p in params]
+            loss_sum, n_err, logits, mask = metrics_of(wb, batch, lab,
+                                                       valid)
+            cm = (losses.confusion_matrix(logits, lab, logits.shape[-1],
+                                          mask)
+                  if with_confusion
+                  else torch.zeros((1, 1), dtype=torch.int32,
+                                   device=logits.device))
+        return loss_sum, n_err, cm
+
+    def train_step(params, hypers, norm, data, labels, indices, valid):
+        new, (loss_sum, n_err) = core_train(params, hypers, norm, data,
+                                            labels, indices, valid)
+        return new, (loss_sum / valid, n_err)
+
+    def eval_step(params, norm, data, labels, indices, valid):
+        loss_sum, n_err, cm = core_eval(params, norm, data, labels,
+                                        indices, valid)
+        return loss_sum / valid, n_err, cm
+
+    def train_sweep(params, hypers, norm, data, labels, index_matrix,
+                    valid_sizes, total_valid):
+        loss_total = n_err_total = 0
+        for indices, valid in zip(index_matrix, valid_sizes):
+            params, (loss_sum, n_err) = core_train(
+                params, hypers, norm, data, labels, indices, float(valid))
+            loss_total = loss_total + loss_sum
+            n_err_total = n_err_total + n_err
+        return params, (loss_total / total_valid, n_err_total)
+
+    def eval_sweep(params, norm, data, labels, index_matrix, valid_sizes,
+                   total_valid):
+        loss_total = n_err_total = cm_total = 0
+        for indices, valid in zip(index_matrix, valid_sizes):
+            loss_sum, n_err, cm = core_eval(params, norm, data, labels,
+                                            indices, float(valid))
+            loss_total = loss_total + loss_sum
+            n_err_total = n_err_total + n_err
+            cm_total = cm_total + cm
+        return loss_total / total_valid, n_err_total, cm_total
+
+    return train_step, eval_step, train_sweep, eval_sweep
+
+
+def chain_of(workflow):
+    """The repeater cycle as an ordered unit list, starting at the unit
+    the loader fires (``parallel/segments.py:41-77``). Returns None when
+    the cycle is not a linear chain."""
+    loader = getattr(workflow, "loader", None)
+    repeater = getattr(workflow, "repeater", None)
+    if loader is None or repeater is None:
+        return None
+    # the units that reach the repeater without passing through the loader
+    reaches = {repeater}
+    frontier = [repeater]
+    while frontier:
+        node = frontier.pop()
+        if node is loader:
+            continue
+        for prev in node.links_from:
+            if prev not in reaches:
+                reaches.add(prev)
+                frontier.append(prev)
+    chain = []
+    current = loader
+    while True:
+        successors = [u for u in current.links_to
+                      if u is not repeater and u in reaches]
+        if current.links_to.get(repeater) and not successors:
+            return chain  # closed the cycle
+        if len(successors) != 1:
+            return None  # fan-out inside the cycle (or a dead end)
+        current = successors[0]
+        if current in chain or current is loader:
+            return None  # inner cycle that is not the repeater loop
+        chain.append(current)
+
+
+def supports(workflow):
+    """True when the workflow's compute chain can run as a fused tick:
+    a full-batch loader, the softmax evaluator, dense layers only, and
+    exactly the standard topology (a custom unit spliced into the cycle
+    would be dropped by the splice)."""
+    from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+    from veles_tpu_torch.nn.evaluator import EvaluatorSoftmax
+
+    if not isinstance(getattr(workflow, "loader", None), FullBatchLoader):
+        return False
+    if not isinstance(getattr(workflow, "evaluator", None),
+                      EvaluatorSoftmax):
+        return False
+    if extract_model_spec(workflow) is None:
+        return False
+    expected = (list(workflow.forwards) + [workflow.evaluator,
+                                           workflow.decision]
+                + list(reversed(workflow.gds)))
+    return chain_of(workflow) == expected
+
+
+class FusedTick(Unit):
+    """One workflow tick as one fused train or eval step.
+
+    Reads the loader's served indices and epoch flags, runs the step for
+    the tick's sample class, writes the metrics into the evaluator's
+    slots (device tensors — the Decision reads them at epoch
+    boundaries), and writes weights back into the unit Arrays at epoch
+    boundaries. ``minibatch_counts`` counts the minibatches stepped per
+    class (TEST, VALID, TRAIN).
+    """
+
+    hide_from_registry = True
+    VIEW_GROUP = "WORKER"
+    #: execution strategy, not topology
+    EPHEMERAL = True
+
+    def __init__(self, workflow, pipelined=False, **kwargs):
+        super().__init__(workflow, **kwargs)
+        #: pipelined epoch mode: the Decision materializes each epoch's
+        #: metrics one epoch late (pipeline_depth=1). The tick then keeps
+        #: a one-slot params history so (a) the unit Arrays always hold
+        #: the weights the CURRENTLY-ATTRIBUTED metrics scored and (b) a
+        #: lagged no-improvement stop can roll back the one
+        #: speculatively-trained epoch — outputs stay identical to the
+        #: unpipelined run.
+        self.pipelined = pipelined
+        self.ticks = 0
+        self.minibatch_counts = [0, 0, 0]
+
+    def init_unpickled(self):
+        super().init_unpickled()
+        self._params_ = None
+        self._steps_ = None
+        self._norm_ = None
+        self._specs_ = None
+        self._wrote_eval_params_ = False
+        self._eval_stash_ = None  # params evaluated one epoch ago
+        self._stashed_this_epoch_ = False
+
+    def initialize(self, **kwargs):
+        wf = self.workflow
+        loader = wf.loader
+        for fwd in wf.forwards:
+            weights = getattr(fwd, "weights", None)
+            if weights is not None and weights.data is None:
+                return True  # retry after the forwards initialize
+        if self.pipelined:
+            if (not getattr(loader, "sweep_serving", False)
+                    or loader.effective_class_lengths[VALID] == 0):
+                # lagged improvement tracking needs a VALID sweep
+                self.warning("pipelined mode needs sweep serving and a "
+                             "validation split: disabling")
+                self.pipelined = False
+            wf.decision.pipeline_depth = 1 if self.pipelined else 0
+        self._specs_ = extract_model_spec(wf)
+        self._norm_ = state_tensors(loader.normalizer.jit_state(),
+                                    loader.device)
+        self._steps_ = build_tick(
+            self._specs_, loader.normalization_type,
+            with_confusion=getattr(wf.evaluator, "compute_confusion", True))
+
+    def run(self):
+        wf = self.workflow
+        loader = wf.loader
+        if self._params_ is None:
+            self._params_ = get_params(wf, self._specs_)
+        train_step, eval_step, train_sweep, eval_sweep = self._steps_
+        norm = self._norm_
+        data = loader.original_data.data
+        labels = loader.labels_for_gather()
+        indices = torch.from_numpy(loader.minibatch_indices.data).to(
+            data.device)
+        valid = float(max(loader.minibatch_valid_size, 1))
+        klass = loader.minibatch_class
+        training = klass == TRAIN
+        if getattr(loader, "sweep_serving", False):
+            sizes = loader.sweep_valid_sizes
+            self.minibatch_counts[klass] += len(sizes)
+            if training:
+                self._params_, (loss, n_err) = train_sweep(
+                    self._params_, get_hypers(wf), norm, data, labels,
+                    indices, sizes, valid)
+            else:
+                loss, n_err, cm = eval_sweep(self._params_, norm, data,
+                                             labels, indices, sizes, valid)
+        else:
+            self.minibatch_counts[klass] += 1
+            if training:
+                self._params_, (loss, n_err) = train_step(
+                    self._params_, get_hypers(wf), norm, data, labels,
+                    indices, valid)
+            else:
+                loss, n_err, cm = eval_step(self._params_, norm, data,
+                                            labels, indices, valid)
+        evaluator = wf.evaluator
+        evaluator.loss.data = loss
+        evaluator.n_err.data = n_err
+        if not training and getattr(evaluator, "compute_confusion", True):
+            evaluator.confusion_matrix.data = cm
+        self.ticks += 1
+        if not training and loader.epoch_ended_for_class:
+            # write the EVALUATED weights into the unit Arrays now — they
+            # stay untouched through the upcoming train sweep
+            if self.pipelined:
+                # metrics are attributed one epoch late: the Arrays lag
+                # the same way. Rotate the one-slot history — write the
+                # params the PREVIOUS epoch evaluated, stash the ones
+                # this epoch's eval sweep is scoring right now.
+                if not self._stashed_this_epoch_:
+                    if self._eval_stash_ is not None:
+                        set_params(wf, self._eval_stash_, self._specs_)
+                    self._eval_stash_ = self._params_
+                    self._stashed_this_epoch_ = True
+            else:
+                set_params(wf, self._params_, self._specs_)
+            self._wrote_eval_params_ = True
+        if loader.epoch_ended:
+            # the eval-tick write stands in for the epoch-end one ONLY
+            # when a VALID class exists — improvement then tracks the
+            # eval metric; otherwise the Arrays follow the post-train
+            # state
+            eval_covers = (self._wrote_eval_params_
+                           and loader.effective_class_lengths[VALID] > 0)
+            if training and not eval_covers:
+                set_params(wf, self._params_, self._specs_)
+            self._wrote_eval_params_ = False
+            self._stashed_this_epoch_ = False
+
+    def advance_eval_params(self):
+        """Write the one-slot history's evaluated params into the unit
+        Arrays — the Decision calls this when a multi-epoch drain is about
+        to attribute an improvement to the NEWER epoch."""
+        if self._eval_stash_ is not None:
+            set_params(self.workflow, self._eval_stash_, self._specs_)
+            self._eval_stash_ = None
+
+    def rollback_speculative(self):
+        """A lagged stop decision arrived AFTER one more epoch was
+        speculatively dispatched: restore the params to the stopping
+        epoch's post-train state (the one-slot stash holds exactly it)."""
+        if self._eval_stash_ is not None:
+            self._params_ = self._eval_stash_
+            self._eval_stash_ = None
+
+    def sync_params(self):
+        """Write the CURRENT (post-train) params into the unit Arrays —
+        called when the workflow finishes."""
+        if self._params_ is not None and self._specs_ is not None:
+            set_params(self.workflow, self._params_, self._specs_)
