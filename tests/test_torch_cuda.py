@@ -10,7 +10,10 @@ dense int8-KV decoder on the card against the CPU; the wrappers'
 refusals; prefill attention at 4096 positions with a head width the
 flash rule leaves to plain attention; K5 and K6 at odd shapes, both
 operand types, every activation, transposed and strided operands, and
-the dense layer's backward on the card against the plain backward.
+the dense layer's backward on the card against the plain backward; K7,
+K8 and K9 at ragged T, at 4096 and 8192 positions, causal and not, on
+the qkv projection's split views, the custom VJP on the card against the
+CPU, the wrappers' refusals and a refused launch.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -30,7 +33,12 @@ from veles_tpu_torch.core.config import root
 from veles_tpu_torch.ops import gemm
 from veles_tpu_torch.ops.activations import ACTIVATIONS
 
-from veles_tpu_torch.ops.attention import attention, plain_attention
+from veles_tpu_torch.ops import attention as attn
+from veles_tpu_torch.ops.attention import (
+    _flash_attention_dkv_plain, _flash_attention_dq_plain,
+    _flash_attention_fwd_plain, attention, flash_attention,
+    flash_attention_dkv, flash_attention_dq, flash_attention_fwd,
+    plain_attention)
 from veles_tpu_torch.ops.gemm import (_blocked_matmul_plain,
                                       _dense_epilogue_plain, blocked_matmul,
                                       dense_epilogue)
@@ -351,17 +359,190 @@ def test_dense_int8_kv_decoder_on_the_card_matches_the_cpu(cuda):
 
 def test_attention_at_4096_with_head_dim_64_runs(cuda):
     """The JAX package runs plain XLA attention here (its flash rule
-    wants head_dim % 128 == 0), so the port runs the plain version
-    instead of raising."""
+    wants head_dim % 128 == 0), so the port runs the plain version, no
+    kernel; with 128-wide heads the same call launches K7 once."""
     q, k, v = (torch.randn((1, 4096, 2, 64), generator=cuda,
                            device="cuda") for _ in range(3))
+    before = flash_attention_fwd.launches
     out = attention(q, k, v, causal=True)
     assert out.shape == q.shape and torch.isfinite(out).all()
     torch.testing.assert_close(out, plain_attention(q, k, v, causal=True),
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="A3"):
-        attention(*(torch.randn((1, 4096, 1, 128), device="cuda")
-                    for _ in range(3)), causal=True)
+    assert flash_attention_fwd.launches == before
+    q, k, v = (torch.randn((1, 4096, 1, 128), generator=cuda, device="cuda")
+               for _ in range(3))
+    out = attention(q, k, v, causal=True)
+    assert flash_attention_fwd.launches == before + 1
+    _flash_close(out, plain_attention(q, k, v, causal=True))
+
+
+# -- K7, K8, K9: the flash-attention kernels ----------------------------------
+
+def _flash_close(out, ref, grad=False):
+    """chip_smoke.py's rule, row by row: every row (the last axis, one
+    position's head_dim values for one head) within a share of its own
+    norm, so late rows, ~sqrt(1/T) of the early ones, are held as tightly.
+    f32: the same f32 math in another order and exp2 for exp -> 1e-5;
+    bf16: both sides round the output and P or dS to bf16, and an
+    element whose f32 value straddles a rounding boundary lands one step
+    (up to 2^-7 of it) away -> 1e-2 for the forward, 2e-2 for the
+    gradients, where a late key's (early query's) row is one or a few
+    such terms. A row below 1e-2 of the median row's norm (the causal
+    first query's dQ, zero in exact arithmetic) is held against that
+    floor."""
+    diff, ref = out.float() - ref.float(), ref.float()
+    norms = ref.norm(dim=-1)
+    rows = diff.norm(dim=-1) / norms.clamp_min(1e-2 * norms.median())
+    tol = 1e-5 if out.dtype == torch.float32 else 2e-2 if grad else 1e-2
+    assert rows.max().item() <= tol
+    assert diff.abs().max().item() <= tol * ref.abs().max().item()
+
+
+def _flash_inputs(gen, batch, t_q, t_k, heads, dim, dtype):
+    """q, k, v as the qkv projection hands them over: split views of one
+    (B, T, 3 H D) tensor (t_q == t_k), else separate tensors."""
+    if t_q == t_k:
+        qkv = torch.randn((batch, t_q, 3 * heads * dim), generator=gen,
+                          device="cuda").to(dtype)
+        return [part.reshape(batch, t_q, heads, dim)
+                for part in qkv.split(heads * dim, dim=-1)]
+    return [torch.randn((batch, t, heads, dim), generator=gen,
+                        device="cuda").to(dtype)
+            for t in (t_q, t_k, t_k)]
+
+
+#: (batch, t_q, t_k, heads, dim, causal): ragged T (not a multiple of the
+#: 64 tiles or of 128), the serving prefill's 4096 and the training 8192,
+#: a short query block against long keys
+FLASH_CASES = [(2, 333, 333, 2, 128, True), (1, 1000, 1000, 3, 128, False),
+               (1, 4096, 4096, 2, 128, True), (1, 4096, 4096, 1, 128, False),
+               (1, 8192, 8192, 1, 128, True), (2, 300, 1000, 2, 128, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "b%d_q%d_k%d_h%d_d%d_%s" % (
+                             *c[:5], "causal" if c[5] else "full"))
+def test_flash_forward_kernel_matches_plain(cuda, case, dtype):
+    batch, t_q, t_k, heads, dim, causal = case
+    q, k, v = _flash_inputs(cuda, batch, t_q, t_k, heads, dim, dtype)
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    ref, ref_lse = _flash_attention_fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    _flash_close(out, ref)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "b%d_q%d_k%d_h%d_d%d_%s" % (
+                             *c[:5], "causal" if c[5] else "full"))
+def test_flash_backward_kernels_match_plain(cuda, case):
+    batch, t_q, t_k, heads, dim, causal = case
+    q, k, v = _flash_inputs(cuda, batch, t_q, t_k, heads, dim,
+                            torch.bfloat16)
+    do = torch.randn(q.shape, generator=cuda,
+                     device="cuda").to(torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    di = attn._row_dot(out, do)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, di, causal)
+    dq = flash_attention_dq(q, k, v, do, lse, di, causal)
+    ref_dk, ref_dv = _flash_attention_dkv_plain(q, k, v, do, lse, di, causal)
+    ref_dq = _flash_attention_dq_plain(q, k, v, do, lse, di, causal)
+    torch.cuda.synchronize()
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        _flash_close(got, ref, grad=True)
+
+
+def test_flash_reads_split_views_in_place(cuda):
+    """The kernels read the qkv projection's split views through their
+    strides: the same results as on contiguous copies, bit for bit."""
+    views = _flash_inputs(cuda, 1, 500, 500, 2, 128, torch.bfloat16)
+    copies = [t.contiguous() for t in views]
+    do = torch.randn(views[0].shape, generator=cuda,
+                     device="cuda").to(torch.bfloat16)
+    results = []
+    for q, k, v in (views, copies):
+        out, lse = flash_attention_fwd(q, k, v, True)
+        di = attn._row_dot(out, do)
+        results.append((out, *flash_attention_dkv(q, k, v, do, lse, di, True),
+                        flash_attention_dq(q, k, v, do, lse, di, True)))
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+
+
+def test_flash_autograd_on_the_card_matches_the_cpu(cuda):
+    """The custom VJP on the card (K7, then K8 and K9, one launch each)
+    against the same function on the CPU (the plain versions)."""
+    shape = (1, 700, 2, 128)
+    base = [torch.randn(shape, generator=cuda, device="cuda").to(
+        torch.bfloat16) for _ in range(4)]
+    counts = (flash_attention_fwd.launches, flash_attention_dkv.launches,
+              flash_attention_dq.launches)
+    grads = {}
+    for device in ("cuda", "cpu"):
+        leaves = [t.detach().to(device).requires_grad_(True)
+                  for t in base[:3]]
+        out = flash_attention(*leaves, True)
+        out.backward(base[3].to(device))
+        grads[device] = [out] + [leaf.grad for leaf in leaves]
+    assert (flash_attention_fwd.launches, flash_attention_dkv.launches,
+            flash_attention_dq.launches) \
+        == tuple(n + 1 for n in counts)
+    for i, (got, ref) in enumerate(zip(grads["cuda"], grads["cpu"])):
+        _flash_close(got.detach().cpu(), ref.detach(), grad=i > 0)
+
+
+@pytest.mark.parametrize("case", ["f16", "f32_backward", "head_64",
+                                  "head_strided", "misaligned", "devices",
+                                  "causal_lengths",
+                                  "attention_causal_lengths"])
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda, case):
+    """``attention_causal_lengths``: where the flash rule holds on the
+    card, ``attention`` hands a causal Tq != Tk call to the kernels, which
+    raise (their mask is key <= query)."""
+    q, k, v = _flash_inputs(cuda, 1, 64, 64, 2, 128, torch.bfloat16)
+    lse = torch.zeros((1, 2, 64), device="cuda")
+    calls = {
+        "f16": lambda: flash_attention_fwd(*(t.half() for t in (q, k, v))),
+        "f32_backward": lambda: flash_attention_dq(
+            q.float(), k.float(), v.float(), q.float(), lse, lse),
+        "head_64": lambda: flash_attention_fwd(q[..., :64], k[..., :64],
+                                               v[..., :64]),
+        "head_strided": lambda: flash_attention_fwd(
+            q.transpose(2, 3).contiguous().transpose(2, 3), k, v),
+        "misaligned": lambda: flash_attention_fwd(
+            *(torch.zeros((1, 64, 2, 130), device="cuda",
+                          dtype=torch.bfloat16)[..., 1:129]
+              for _ in range(3))),
+        "devices": lambda: flash_attention_fwd(q, k.cpu(), v),
+        "causal_lengths": lambda: flash_attention_fwd(q[:, :32], k, v, True),
+        "attention_causal_lengths": lambda: attention(
+            *_flash_inputs(cuda, 1, 4096, 8192, 1, 128, torch.bfloat16),
+            causal=True),
+    }
+    with pytest.raises((ValueError, TypeError)):
+        calls[case]()
+
+
+def test_flash_refused_launch_raises(cuda):
+    """A launch the card refuses (a grid of 65536 rows, past the 65535
+    of a grid's third axis) raises instead of returning unwritten
+    outputs, and counts no launch."""
+    q = torch.zeros((65536, 1, 1, 128), device="cuda",
+                    dtype=torch.bfloat16)
+    stats = torch.zeros((65536, 1, 1), device="cuda")
+    counts = (flash_attention_fwd.launches, flash_attention_dkv.launches,
+              flash_attention_dq.launches)
+    for call in (lambda: flash_attention_fwd(q, q, q),
+                 lambda: flash_attention_dkv(q, q, q, q, stats, stats),
+                 lambda: flash_attention_dq(q, q, q, q, stats, stats)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            call()
+    assert (flash_attention_fwd.launches, flash_attention_dkv.launches,
+            flash_attention_dq.launches) == counts
 
 
 # -- K5 / K6: the training path's GEMM kernels --------------------------------

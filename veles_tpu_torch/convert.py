@@ -60,25 +60,41 @@ def params_to_numpy(params):
 
 
 #: the per-layer keys :func:`unit_params_from_jax` reads: (key, unit,
-#: attribute); the unit is the forward ("fwd") or its GD twin ("gd")
+#: attribute); the unit is the forward ("fwd") or its GD twin ("gd"). The
+#: out_* keys are the self-attention and feed-forward units' second
+#: projection
 UNIT_PARAM_SLOTS = (("weights", "fwd", "weights"), ("bias", "fwd", "bias"),
+                    ("out_weights", "fwd", "out_weights"),
+                    ("out_bias", "fwd", "out_bias"),
                     ("velocity_w", "gd", "_velocity_w"),
-                    ("velocity_b", "gd", "_velocity_b"))
+                    ("velocity_b", "gd", "_velocity_b"),
+                    ("velocity_ow", "gd", "_velocity_ow"),
+                    ("velocity_ob", "gd", "_velocity_ob"))
 
 
 def unit_params_from_jax(workflow, layers):
     """Fill a port ``StandardWorkflow``'s unit slots before
     ``initialize()``. ``layers`` has one dict per forward layer with
     numpy (or numpy-readable) ``"weights"``, ``"bias"`` and optionally
-    ``"velocity_w"``/``"velocity_b"``; each becomes an f32 tensor on the
+    ``"velocity_w"``/``"velocity_b"``; a self-attention or feed-forward
+    layer also ``"out_weights"``/``"out_bias"`` and optionally
+    ``"velocity_ow"``/``"velocity_ob"``. Each becomes an f32 tensor on the
     workflow's device. A slot left out is drawn (weights) or zeroed
-    (velocities) by ``initialize()`` as usual."""
+    (velocities) by ``initialize()`` as usual; a key the layer's units
+    have no slot for raises."""
     if len(layers) != len(workflow.forwards):
         raise ValueError("%d layer dicts for %d forward units"
                          % (len(layers), len(workflow.forwards)))
     for fwd, gd, layer in zip(workflow.forwards, workflow.gds, layers):
         units = {"fwd": fwd, "gd": gd}
-        for key, unit, attr in UNIT_PARAM_SLOTS:
-            if key in layer:
-                getattr(units[unit], attr).data = _leaf_from_numpy(
-                    layer[key]).float().to(workflow.device)
+        slots = {key: (units[unit], attr)
+                 for key, unit, attr in UNIT_PARAM_SLOTS
+                 if hasattr(units[unit], attr)}
+        unknown = set(layer) - set(slots)
+        if unknown:
+            raise ValueError("%s has no slot for %s"
+                             % (fwd.name, sorted(unknown)))
+        for key, value in layer.items():
+            unit, attr = slots[key]
+            getattr(unit, attr).data = _leaf_from_numpy(value).float().to(
+                workflow.device)

@@ -4,23 +4,31 @@ The port of ``veles_tpu/models/standard.py`` (the Znicz StandardWorkflow
 pattern): a topology is a list of layer dicts, and the workflow wires
 loader → forwards → evaluator → decision → gds, then splices the fused
 tick (``parallel/fused.py``) in place of the compute chain. Layer types
-of this slice:
+ported so far:
 
     {"type": "all2all_tanh", "output_sample_shape": 100, ...}
     {"type": "softmax", "output_sample_shape": 10}
+    {"type": "layer_norm"}
+    {"type": "self_attention", "heads": 8, "causal": True,
+     "residual": True}
+    {"type": "ffn", "ratio": 4, "activation": "gelu"}
 
 (``all2all``, ``all2all_tanh``, ``all2all_relu``,
-``all2all_strict_relu``, ``all2all_sigmoid``, ``softmax``). Per-layer
+``all2all_strict_relu``, ``all2all_sigmoid``, ``softmax``, and since
+the long-context slice the sequence-model tier: ``self_attention``,
+``ffn`` and ``layer_norm`` over (N, T, E) samples, whose attention runs
+the flash kernels on the card at T >= 4096 with 128-wide heads). Per-layer
 trainer kwargs (learning_rate, weights_decay, gradient_moment, l1_vs_l2,
 solver, ...) may be embedded in each spec under "trainer"; workflow-level
 defaults apply otherwise.
 
 ``device=None`` means "cuda" and raises without a card unless the caller
 passes ``device="cpu"``. Later slices, which raise
-``NotImplementedError`` here rather than run another path: the conv,
-pooling and attention layer types, graph mode (``fused=False``, or an
-``"auto"`` topology the fused tick does not support), the MSE evaluator,
-a mesh, and the fleet (master/slave) modes.
+``NotImplementedError`` here rather than run another path: the conv and
+pooling layer types, graph mode (``fused=False``, or an ``"auto"``
+topology the fused tick does not support), the MSE evaluator, a mesh
+(ring and Ulysses attention with it), and the fleet (master/slave)
+modes.
 """
 
 from veles_tpu_torch.core.plumbing import Repeater
@@ -30,6 +38,9 @@ from veles_tpu_torch.loader.fullbatch import FullBatchLoader
 from veles_tpu_torch.nn.all2all import (
     All2All, All2AllRELU, All2AllSigmoid, All2AllSoftmax,
     All2AllStrictRELU, All2AllTanh)
+from veles_tpu_torch.nn.attention import (
+    GDLayerNorm, GDSelfAttention, GDTokenFFN, LayerNorm, SelfAttention,
+    TokenFFN)
 from veles_tpu_torch.nn.decision import DecisionGD
 from veles_tpu_torch.nn.evaluator import EvaluatorSoftmax
 from veles_tpu_torch.nn.gd import (
@@ -42,12 +53,14 @@ FORWARD_TYPES = {
     "all2all_strict_relu": (All2AllStrictRELU, GDStrictRELU),
     "all2all_sigmoid": (All2AllSigmoid, GDSigmoid),
     "softmax": (All2AllSoftmax, GDSoftmax),
+    "self_attention": (SelfAttention, GDSelfAttention),
+    "ffn": (TokenFFN, GDTokenFFN),
+    "layer_norm": (LayerNorm, GDLayerNorm),
 }
 
 #: the JAX package's other layer types, each a later slice of the port
 LATER_TYPES = {
-    "self_attention": "attention", "ffn": "attention",
-    "layer_norm": "attention", "conv": "conv and pooling",
+    "conv": "conv and pooling",
     "conv_tanh": "conv and pooling", "conv_relu": "conv and pooling",
     "conv_strict_relu": "conv and pooling",
     "max_pooling": "conv and pooling", "maxabs_pooling": "conv and pooling",

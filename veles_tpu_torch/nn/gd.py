@@ -61,6 +61,10 @@ class GradientDescent(JitUnit):
 
     ACTIVATION = "linear"
     VIEW_GROUP = "TRAINER"
+    #: (parameter slot, velocity slot) of every leaf the unit updates;
+    #: the stateful solvers' second moments sit in ``_second_*`` beside
+    #: each velocity
+    LEAVES = (("weights", "_velocity_w"), ("bias", "_velocity_b"))
 
     INPUTS = ("err_output", "input", "output", "weights", "bias",
               "_velocity_w", "_velocity_b", "_hyper")
@@ -82,39 +86,40 @@ class GradientDescent(JitUnit):
         self.adam_epsilon = kwargs.pop("adam_epsilon", 1e-8)
         super().__init__(workflow, **kwargs)
         if self.solver != "momentum":
-            self._second_w = Array()
-            self._second_b = Array()
             self._step = Array()
         # linked from the paired forward unit:
         self.input = None
         self.output = None
-        self.weights = None
-        self.bias = None
+        for param, velocity in self.LEAVES:
+            setattr(self, param, None)
+            setattr(self, velocity, Array())
+            if self.solver != "momentum":
+                setattr(self, _second(velocity), Array())
         # linked from the next unit up (evaluator or deeper GD):
         self.err_output = None
         self.demand("err_output", "input", "output", "weights", "bias")
-        self._velocity_w = Array()
-        self._velocity_b = Array()
         self._hyper = Array()
 
     def link_forward(self, forward_unit, err_source):
-        """Wire this GD unit to its forward twin + the error source."""
-        self.link_attrs(forward_unit, "input", "output", "weights", "bias")
+        """Wire this GD unit to its forward twin (input, output and every
+        leaf of :attr:`LEAVES`) + the error source."""
+        self.link_attrs(forward_unit, "input", "output",
+                        *(param for param, _ in self.LEAVES))
         link_err_output(self, err_source)
         return self
 
     def initialize(self, **kwargs):
         if self.weights is None or self.weights.data is None:
             return True
-        if self._velocity_w.data is None:
-            self._velocity_w.data = torch.zeros_like(self.weights.data)
-            self._velocity_b.data = torch.zeros_like(self.bias.data)
-        if self.solver != "momentum":
-            for name in ("_second_w", "_second_b"):
+        for param, velocity in self.LEAVES:
+            slots = [velocity]
+            if self.solver != "momentum":
+                slots.append(_second(velocity))
+            for name in slots:
                 slot = getattr(self, name)
                 if slot.data is None:
-                    slot.data = torch.zeros_like(getattr(
-                        self, name.replace("_second", "_velocity")).data)
+                    slot.data = torch.zeros_like(getattr(self, param).data)
+        if self.solver != "momentum":
             if self._step.data is None:
                 self._step.data = torch.zeros(
                     (), device=self.weights.data.device)
@@ -142,6 +147,11 @@ class GradientDescent(JitUnit):
         if self.learning_rate_bias is not None:
             self.learning_rate_bias *= factor
         self._refresh_hyper()
+
+
+def _second(velocity):
+    """The second-moment slot beside a velocity slot."""
+    return velocity.replace("_velocity", "_second")
 
 
 def link_err_output(gd_unit, err_source):

@@ -22,7 +22,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: every kernel source of the port, by stem
 KERNELS = ("int8_matmul", "paged_attention", "paged_attention_int8",
-           "cache_attend_int8", "gemm", "dense_epilogue")
+           "cache_attend_int8", "gemm", "dense_epilogue", "flash_attention",
+           "flash_attention_bwd")
 
 _lock = threading.Lock()
 _libs = {}

@@ -1,7 +1,9 @@
 """FusedTick: the product path of a training workflow.
 
-The port of ``veles_tpu/parallel/fused.py`` for a single device and dense
-layers. ``StandardWorkflow`` builds its unit graph (the units are the
+The port of ``veles_tpu/parallel/fused.py`` for a single device: dense
+layers and, since the long-context slice, the sequence-model tier
+(self-attention, feed-forward and layer-norm blocks, ``fused.py:57-259``).
+``StandardWorkflow`` builds its unit graph (the units are the
 composition API and the weight owners), then splices a :class:`FusedTick`
 in place of the compute chain:
 
@@ -11,22 +13,31 @@ One tick is one train or eval step over the loader's served minibatch —
 or, with sweep serving (the default), over a whole class sweep: a Python
 loop over the rows of the index matrix with the same per-row math as the
 JAX package's ``lax.scan``. Each step gathers from the device-resident
-originals, normalizes, runs the dense chain through
-``ops/gemm.dense_layer`` (K6 forward and K5 weight gradient where the
-engine knobs and the gate allow), computes the masked softmax
-cross-entropy, takes the gradients with ``torch.autograd`` of that loss
-(the JAX package uses ``jax.value_and_grad`` of the same loss), and
-applies each GD unit's exact update (``nn/gd.make_updater``). Metrics
-stay device tensors for the Decision to read at epoch boundaries.
+originals, normalizes, runs the layer chain (dense layers through
+``ops/gemm.dense_layer``, K6 forward and K5 weight gradient where the
+engine knobs and the gate allow; attention and feed-forward blocks
+through ``ops/attention.attention_block`` and ``ffn_block``, whose
+attention runs the flash kernels K7 forward and K8/K9 backward on the
+card at T >= 4096 with 128-wide heads; layer norms in plain torch; a
+dense layer after a block flattens its (B, T, E) input), computes the
+masked softmax cross-entropy, takes the gradients with
+``torch.autograd`` of that loss (the JAX package uses
+``jax.value_and_grad`` of the same loss), and applies each GD unit's
+exact update (``nn/gd.make_updater``) leaf by leaf: the weight decay
+reaches every attention and feed-forward leaf, biases included
+(``_ATTN_LEAVES``), but only the weights of a dense or layer-norm layer
+(``_WB_LEAVES``). Metrics stay device tensors for the Decision to read at
+epoch boundaries.
 
 The step never updates a tensor in place: it returns new parameter
 tensors, so the unit Arrays, the tick's state and the pipelined mode's
 one-slot history share tensors without copies (the JAX package copies
 because its step donates its input buffers).
 
-Left out (later slices): conv, pooling, attention, FFN and layer-norm
-specs, the mesh (``shard_map``) and the fleet slave and control-plane
-paths, augmentation, and the MSE loss.
+Left out (later slices): graph mode (the units' own computes, which the
+tick replaces), conv and pooling specs, the mesh (``shard_map``, ring and
+Ulysses attention over a ``seq`` axis) and the fleet slave and
+control-plane paths, augmentation, and the MSE loss.
 """
 
 import torch
@@ -38,23 +49,35 @@ from veles_tpu_torch.loader.normalization import (normalizer_registry,
 from veles_tpu_torch.nn.gd import make_updater
 from veles_tpu_torch.nn.jit_unit import JitUnit
 from veles_tpu_torch.ops import losses
+from veles_tpu_torch.ops.attention import attention_block, ffn_block
 from veles_tpu_torch.ops.gather import gather_minibatch
 from veles_tpu_torch.ops.gemm import dense_layer
 
 _DENSE = "dense"
+_ATTN = "attention"
+_FFN = "ffn"
+_NORM = "layer_norm"
 
 #: per-leaf update policy: (leaf key, forward attr, gd velocity attr,
 #: uses learning_rate_bias, gets l2/l1 decay) — each GD unit's exact
 #: update math (``fused.py:67-68``)
 _WB_LEAVES = (("w", "weights", "_velocity_w", False, True),
               ("b", "bias", "_velocity_b", True, False))
+#: the attention and feed-forward blocks' leaves (``fused.py:69-72``):
+#: unlike ``_WB_LEAVES``, the biases take the weight decay too
+_ATTN_LEAVES = (("w", "weights", "_velocity_w", False, True),
+                ("b", "bias", "_velocity_b", True, True),
+                ("ow", "out_weights", "_velocity_ow", False, True),
+                ("ob", "out_bias", "_velocity_ob", True, True))
 
 
 def extract_model_spec(workflow):
     """Static per-layer config from the workflow's forwards/gds chains.
-    Returns a spec list, or None when a layer is not a dense layer this
-    slice fuses (or a subclass carries math of its own)."""
+    Returns a spec list, or None when a layer is not one the tick fuses
+    (or a subclass carries math of its own)."""
     from veles_tpu_torch.nn.all2all import All2All
+    from veles_tpu_torch.nn.attention import (LayerNorm, SelfAttention,
+                                              TokenFFN)
 
     def modified(unit):
         return unit is not None and (
@@ -64,13 +87,25 @@ def extract_model_spec(workflow):
     specs = []
     for i, fwd in enumerate(workflow.forwards):
         gd = workflow.gds[i] if workflow.gds else None
-        if not isinstance(fwd, All2All) or modified(fwd) or modified(gd):
+        if modified(fwd) or modified(gd):
+            return None
+        if isinstance(fwd, All2All):
+            spec = {"kind": _DENSE, "activation": fwd.ACTIVATION,
+                    "leaves": _WB_LEAVES}
+        elif isinstance(fwd, SelfAttention):
+            spec = {"kind": _ATTN, "heads": fwd.heads, "causal": fwd.causal,
+                    "residual": fwd.residual, "leaves": _ATTN_LEAVES}
+        elif isinstance(fwd, TokenFFN):
+            spec = {"kind": _FFN, "activation": fwd.activation,
+                    "residual": fwd.residual, "leaves": _ATTN_LEAVES}
+        elif isinstance(fwd, LayerNorm):
+            spec = {"kind": _NORM, "eps": fwd.eps, "leaves": _WB_LEAVES}
+        else:
             return None
         if gd is None or not hasattr(gd, "learning_rate"):
             return None
-        specs.append({"kind": _DENSE, "activation": fwd.ACTIVATION,
-                      "leaves": _WB_LEAVES, "has_params": True,
-                      "solver": gd.solver})
+        spec.update(has_params=True, solver=gd.solver)
+        specs.append(spec)
     return specs
 
 
@@ -119,7 +154,32 @@ def set_params(workflow, params, specs):
 
 
 def _layer_forward(spec):
-    """Pure forward for one dense layer (the forward unit's compute)."""
+    """Pure forward for one layer (``fused.py:190-259``)."""
+    kind = spec["kind"]
+    if kind == _ATTN:
+        heads, causal = spec["heads"], spec["causal"]
+        residual = spec["residual"]
+
+        def fwd(p, x):
+            return attention_block(x, p["w"], p["b"], p["ow"], p["ob"],
+                                   heads, causal, residual)
+        return fwd
+    if kind == _FFN:
+        activation, residual = spec["activation"], spec["residual"]
+
+        def fwd(p, x):
+            return ffn_block(x, p["w"], p["b"], p["ow"], p["ob"],
+                             activation, residual)
+        return fwd
+    if kind == _NORM:
+        eps = spec["eps"]
+
+        def fwd(p, x):
+            # the population variance, as jnp.var
+            mean = x.mean(dim=-1, keepdim=True)
+            var = x.var(dim=-1, keepdim=True, correction=0)
+            return (x - mean) * torch.rsqrt(var + eps) * p["w"] + p["b"]
+        return fwd
     activation = spec["activation"]
 
     def fwd(p, x):
@@ -284,7 +344,8 @@ def chain_of(workflow):
 
 def supports(workflow):
     """True when the workflow's compute chain can run as a fused tick:
-    a full-batch loader, the softmax evaluator, dense layers only, and
+    a full-batch loader, the softmax evaluator, layers of the kinds
+    :func:`extract_model_spec` knows, and
     exactly the standard topology (a custom unit spliced into the cycle
     would be dropped by the splice)."""
     from veles_tpu_torch.loader.fullbatch import FullBatchLoader
