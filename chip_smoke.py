@@ -14,10 +14,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    shape, both in bf16 and f32 operands, K6 in each activation; K7 the
    flash-attention forward at a ragged serving prefill, bf16 and f32,
    and at the long-context training shape (1, 8192, 8, 128) bf16, K8 and
-   K9 its dK/dV and dQ backward there) against its plain PyTorch version
+   K9 its dK/dV and dQ backward there; K7, K8 and K9 also at the wider
+   heads the flash rule admits, (1, 4096, 4, 256) and (1, 4096, 2, 384)
+   causal bf16, and f32 K7 at 256) against its plain PyTorch version
    at the path's shapes, and time kernel, plain version and the nearest
    PyTorch library call with CUDA events (L2 flushed before every timed
-   launch, median of 25);
+   launch, median of 25); then one attention() call at 4096 positions
+   with 256-wide heads, which must launch K7 once;
 3. GenerateAPI at the full width of the repo's serving model (embed
    1024, 16 heads, 4 blocks, vocab 32768, bf16, paged pool of 128-token
    pages, 8 slots) answers 8 concurrent HTTP requests in the float, int8
@@ -39,7 +42,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the port's dense reference decode (on the card for float weights, on
    the CPU for the int8 tiers, where the card would run K2 and K4), up
    to the first step where the reference's top-2 logit gap is below
-   1e-3;
+   1e-3; then per-request sampling: 8 sampled requests (temperature 0.8,
+   top-k 50) to ContinuousDecoder at the serving model's width, in
+   float32, each request's stream served alone (same request id, another
+   slot) equal to its stream in the burst and to generate(batch=1,
+   key=request_key(seed, request id));
 7. training: MLPWorkflow over the bench's MNIST-shaped data (60000 x
    784, 10000 valid / 50000 train), 3 epochs at lr 0.03 — the wide MLP
    (784 -> 4096 tanh -> 10, minibatch 4096) with the engine knobs
@@ -103,7 +110,8 @@ from veles_tpu_torch.ops import activations as act_lib
 from veles_tpu_torch.ops.attention import (_flash_attention_dkv_plain,
                                            _flash_attention_dq_plain,
                                            _flash_attention_fwd_plain,
-                                           _row_dot, flash_attention_dkv,
+                                           _row_dot, attention,
+                                           flash_attention_dkv,
                                            flash_attention_dq,
                                            flash_attention_fwd)
 from veles_tpu_torch.ops.gemm import (_blocked_matmul_plain,
@@ -118,7 +126,7 @@ from veles_tpu_torch.ops.quant import (_cache_attend_plain,
                                        int8_cache_attend, int8_matmul,
                                        quantize_int8)
 from veles_tpu_torch.parallel.decode import (_quantize_kv, generate,
-                                             quantize_params,
+                                             quantize_params, request_key,
                                              slot_state_bytes)
 from veles_tpu_torch.parallel.kv_pool import paged_kv_bytes
 from veles_tpu_torch.parallel.transformer_step import (
@@ -232,6 +240,17 @@ FLASH_ROW_FLOOR = 1e-2
 #: the planted fault each flash check must see: the last 64 positions'
 #: rows (one kernel tile) of the kernel's output scaled by this factor
 FLASH_TILE, FLASH_FAULT = 64, 0.9
+#: the wider heads the flash rule admits (head_dim % 128 == 0): K7's
+#: second wgmma width and the chunked kernels' first, causal bf16, and f32
+#: K7 at 256 (batch, T, heads, head_dim)
+FLASH_WIDE_SHAPES = ((1, 4096, 4, 256), (1, 4096, 2, 384))
+FLASH_WIDE_F32_SHAPE = (1, 4096, 4, 256)
+#: the sampled serving phase: 8 requests at the serving model's width,
+#: float32 weights: a request's prefill runs in a group of another size
+#: alone than in the burst, so its logits differ by the products'
+#: round-off, and a bf16 step (2^-8 of a logit) would flip a near-tied
+#: Gumbel-max draw where f32's (2^-24) does not
+SAMPLE_TEMPERATURE, SAMPLE_TOP_K, SAMPLE_SEED = 0.8, 50, 11
 #: the long-context training main path: transformer_device's pre-LN stack
 #: (bench.py:425-441: 4 x [layer_norm, residual causal self_attention,
 #: layer_norm, residual gelu ffn ratio 4], a softmax head) at
@@ -624,7 +643,7 @@ def k5_phase(timer, device, gen):
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": library_ms}
     return dict({"name": "blocked_matmul", "route": "cuda",
-                 "source": "veles_tpu_torch/ops/csrc/gemm.cu",
+                 "source": "veles_tpu_torch/ops/csrc/gemm_sm90.cuh",
                  "replaces": "veles_tpu/ops/gemm.py:133",
                  "max_abs_err": worst, "library": "torch.matmul"}, **entry)
 
@@ -1102,6 +1121,65 @@ def agreement_phase(device, prompts, waves):
               % (label, compared, cut, TOP2_GAP))
 
 
+def sampling_phase(device, prompts):
+    """Per-request sampling streams on the card: ``prompts`` (8 requests)
+    sampled at once through ContinuousDecoder on the dense slab at the
+    serving model's width (float32 weights, SAMPLE_TEMPERATURE and
+    SAMPLE_TOP_K, seed SAMPLE_SEED); then each request alone (the
+    requests before it submitted and cancelled before any step, so it
+    keeps its id and its key and takes another slot): its stream must
+    equal its stream in the burst, and generate(batch=1,
+    key=request_key(seed, request id)) on the card."""
+    rng = numpy.random.RandomState(0)
+    params = init_transformer_params(rng, BLOCKS, EMBED, HEADS, VOCAB,
+                                     device=device)
+    table = torch.from_numpy(
+        rng.randn(VOCAB, EMBED).astype(numpy.float32) * 0.02).to(device)
+
+    def decoder():
+        return ContinuousDecoder(
+            params, table, HEADS, slots=SLOTS, max_len=MAX_LEN,
+            n_tokens=N_TOKENS, temperature=SAMPLE_TEMPERATURE,
+            top_k=SAMPLE_TOP_K, seed=SAMPLE_SEED, device=device)
+
+    dec = decoder()
+    dec.submit(prompts[0][:16], CHUNK)  # warm-up, its own request id 0
+    dec.drain_pipelined(CHUNK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [dec.submit(p) for p in prompts]
+    dec.drain_pipelined(CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    streams = [dec.results[rid] for rid in rids]
+    if any(len(s) != N_TOKENS or not all(0 <= t < VOCAB for t in s)
+           for s in streams) or len({tuple(s) for s in streams}) < 2:
+        raise AssertionError("bad sampled streams: %r" % (streams,))
+    for rid, prompt, stream in zip(rids, prompts, streams):
+        alone = decoder()
+        for _ in range(rid):
+            alone.cancel(alone.submit(prompt))
+        got = alone.submit(prompt)
+        alone.drain_pipelined(CHUNK)
+        if alone.results[got] != stream:
+            raise AssertionError(
+                "request %d sampled %r alone and %r in the burst"
+                % (rid, alone.results[got], stream))
+        ref, _ = generate(params, table, numpy.asarray(prompt)[None],
+                          HEADS, N_TOKENS, temperature=SAMPLE_TEMPERATURE,
+                          top_k=SAMPLE_TOP_K,
+                          key=request_key(SAMPLE_SEED, rid), device=device)
+        if ref[0].tolist() != stream:
+            raise AssertionError(
+                "request %d sampled %r in the burst, generate(key=) %r"
+                % (rid, stream, ref[0].tolist()))
+    print("sampling: %d requests x %d tokens at temperature %g, top-k %d, "
+          "f32: %.1f tokens/s in the burst; every stream equal alone (its "
+          "own id, another slot) and to generate(batch=1, key=)"
+          % (len(prompts), N_TOKENS, SAMPLE_TEMPERATURE, SAMPLE_TOP_K,
+             len(prompts) * N_TOKENS / wall))
+
+
 def bench_dataset(n=60000, features=784, classes=10, n_valid=10000):
     """The bench's MNIST-shaped set (bench.py:61-81): uniform pixels from
     RandomState(0), class-balanced shuffled labels, valid block first."""
@@ -1475,6 +1553,89 @@ def flash_phase(timer, device, gen):
     return entries
 
 
+def flash_wide_phase(timer, device, gen):
+    """K7, K8 and K9 at the wider heads the flash rule admits
+    (FLASH_WIDE_SHAPES, causal bf16: K7's 256-wide wgmma kernel, the
+    chunked kernels at 384 and for K8 and K9 at both) and f32 K7 at 256,
+    each against its plain version under the row-wise rule with its
+    planted fault, each timed beside its plain version and SDPA; then one
+    attention() call at 4096 positions with 256-wide heads, which must run
+    K7 (one launch). Returns the largest max abs error of each kernel."""
+    worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for shape in FLASH_WIDE_SHAPES:
+        label = "x".join(map(str, shape)) + " bf16"
+        q, k, v, do = flash_problem(gen, device, shape, torch.bfloat16)
+        out, lse = flash_attention_fwd(q, k, v, True)
+        ref, _ = _flash_attention_fwd_plain(q, k, v, True)
+        torch.cuda.synchronize()
+        worst["fwd"] = max(worst["fwd"], flash_error(
+            "K7 flash_attention_fwd " + label, out, ref, K7_RTOL))
+        di = _row_dot(out, do)
+        dk, dv = flash_attention_dkv(q, k, v, do, lse, di, True)
+        ref_dk, ref_dv = _flash_attention_dkv_plain(q, k, v, do, lse, di,
+                                                    True)
+        dq = flash_attention_dq(q, k, v, do, lse, di, True)
+        ref_dq = _flash_attention_dq_plain(q, k, v, do, lse, di, True)
+        torch.cuda.synchronize()
+        worst["dkv"] = max(worst["dkv"],
+                           flash_error("K8 flash_attention_dkv dK " + label,
+                                       dk, ref_dk, FLASH_BWD_RTOL),
+                           flash_error("K8 flash_attention_dkv dV " + label,
+                                       dv, ref_dv, FLASH_BWD_RTOL))
+        worst["dq"] = max(worst["dq"], flash_error(
+            "K9 flash_attention_dq dQ " + label, dq, ref_dq,
+            FLASH_BWD_RTOL))
+        del ref, ref_dk, ref_dv, ref_dq, dk, dv, dq
+        heads_first = [t.transpose(1, 2) for t in (q, k, v)]
+        leaves = [t.detach().requires_grad_(True) for t in heads_first]
+        lib_out = sdpa(*leaves, is_causal=True)
+        lib_do = do.transpose(1, 2)
+        times = {
+            "K7": (lambda: flash_attention_fwd(q, k, v, True),
+                   lambda: _flash_attention_fwd_plain(q, k, v, True),
+                   lambda: sdpa(*heads_first, is_causal=True)),
+            "K8": (lambda: flash_attention_dkv(q, k, v, do, lse, di, True),
+                   lambda: _flash_attention_dkv_plain(q, k, v, do, lse, di,
+                                                      True),
+                   lambda: torch.autograd.grad(lib_out, leaves, lib_do,
+                                               retain_graph=True)),
+            "K9": (lambda: flash_attention_dq(q, k, v, do, lse, di, True),
+                   lambda: _flash_attention_dq_plain(q, k, v, do, lse, di,
+                                                     True), None)}
+        for number, (fn, plain, lib) in times.items():
+            print("%s %s causal: ms %.4f plain_ms %.4f %s"
+                  % (number, label, timer(fn), timer(plain),
+                     "sdpa_ms %.4f" % timer(lib) if lib else
+                     "(SDPA's backward is K8's yardstick)"))
+        del lib_out, leaves
+    q, k, v, _ = flash_problem(gen, device, FLASH_WIDE_F32_SHAPE,
+                               torch.float32)
+    label = "x".join(map(str, FLASH_WIDE_F32_SHAPE)) + " f32"
+    out, _ = flash_attention_fwd(q, k, v, True)
+    ref, _ = _flash_attention_fwd_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    worst["fwd"] = max(worst["fwd"], flash_error(
+        "K7 flash_attention_fwd " + label, out, ref, K7_F32_RTOL))
+    print("K7 %s causal: ms %.4f plain_ms %.4f"
+          % (label, timer(lambda: flash_attention_fwd(q, k, v, True)),
+             timer(lambda: _flash_attention_fwd_plain(q, k, v, True))))
+    # the port's attention() where the flash rule holds at 256-wide heads
+    q, k, v, _ = flash_problem(gen, device, FLASH_WIDE_F32_SHAPE,
+                               torch.bfloat16)
+    before = flash_attention_fwd.launches
+    out = attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    if flash_attention_fwd.launches != before + 1:
+        raise AssertionError("attention() at %s launched K7 %d times, not "
+                             "once" % (FLASH_WIDE_F32_SHAPE,
+                                       flash_attention_fwd.launches - before))
+    flash_error("attention() %s bf16 (K7)" % "x".join(
+        map(str, FLASH_WIDE_F32_SHAPE)), out,
+        _flash_attention_fwd_plain(q, k, v, True)[0], K7_RTOL)
+    return worst
+
+
 def long_serving_phase(device, rng):
     """Three long prompts (8192, 6000 and 4096 tokens, 32 tokens each) at
     once through GenerateAPI on the dense slab, bf16 float tier, at the
@@ -1796,6 +1957,11 @@ def main():
                k3_phase(timer, device, gen), k4_phase(timer, device, gen),
                k5_phase(timer, device, gen), k6_phase(timer, device, gen),
                *flash_phase(timer, device, gen)]
+    wide = flash_wide_phase(timer, device, gen)
+    for entry in kernels:
+        key = entry["name"].replace("flash_attention_", "")
+        if key in wide:
+            entry["max_abs_err"] = max(entry["max_abs_err"], wide[key])
     prng = numpy.random.RandomState(1)
     prompts = [prng.randint(0, VOCAB, n).tolist()
                for n in numpy.linspace(60, 700, SLOTS).astype(int)]
@@ -1805,6 +1971,7 @@ def main():
             launches[name] += n
     agreement_phase(device, prompts,
                     prefix_waves(numpy.random.RandomState(2)))
+    sampling_phase(device, prompts)
     # the training path's kernels count on its main path alone
     launches.update((name, n) for name, n in training_phase(device).items()
                     if name in ("blocked_matmul", "dense_epilogue"))

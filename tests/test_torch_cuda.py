@@ -10,10 +10,13 @@ dense int8-KV decoder on the card against the CPU; the wrappers'
 refusals; prefill attention at 4096 positions with a head width the
 flash rule leaves to plain attention; K5 and K6 at odd shapes, both
 operand types, every activation, transposed and strided operands, and
-the dense layer's backward on the card against the plain backward; K7,
-K8 and K9 at ragged T, at 4096 and 8192 positions, causal and not, on
-the qkv projection's split views, the custom VJP on the card against the
-CPU, the wrappers' refusals and a refused launch.
+the dense layer's backward on the card against the plain backward, and
+K5's bf16 route (TMA and wgmma) at the training path's two layouts and
+at operands TMA refuses (the wrapper copies them); K7, K8 and K9 at
+ragged T, at 4096 and 8192 positions, causal and not, at head widths
+128, 256 and 384, on the qkv projection's split views, attention() at
+4096 positions with 256-wide heads, the custom VJP on the card against
+the CPU, the wrappers' refusals and a refused launch.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -376,6 +379,18 @@ def test_attention_at_4096_with_head_dim_64_runs(cuda):
     _flash_close(out, plain_attention(q, k, v, causal=True))
 
 
+def test_attention_at_4096_with_head_dim_256_runs_k7(cuda):
+    """The flash rule holds at 256-wide heads (a multiple of 128): the
+    port's attention runs K7, one launch, where it used to raise."""
+    q, k, v = _flash_inputs(cuda, 1, 4096, 4096, 2, 256, torch.bfloat16)
+    before = flash_attention_fwd.launches
+    out = attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    _flash_close(out, _flash_attention_fwd_plain(q, k, v, True)[0])
+
+
 # -- K7, K8, K9: the flash-attention kernels ----------------------------------
 
 def _flash_close(out, ref, grad=False):
@@ -416,7 +431,10 @@ def _flash_inputs(gen, batch, t_q, t_k, heads, dim, dtype):
 #: a short query block against long keys
 FLASH_CASES = [(2, 333, 333, 2, 128, True), (1, 1000, 1000, 3, 128, False),
                (1, 4096, 4096, 2, 128, True), (1, 4096, 4096, 1, 128, False),
-               (1, 8192, 8192, 1, 128, True), (2, 300, 1000, 2, 128, False)]
+               (1, 8192, 8192, 1, 128, True), (2, 300, 1000, 2, 128, False),
+               (2, 333, 333, 1, 256, True), (1, 4096, 4096, 2, 256, True),
+               (2, 300, 1000, 1, 256, False), (1, 500, 500, 2, 384, True),
+               (1, 4096, 4096, 1, 384, False), (1, 200, 600, 1, 512, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -456,10 +474,11 @@ def test_flash_backward_kernels_match_plain(cuda, case):
         _flash_close(got, ref, grad=True)
 
 
-def test_flash_reads_split_views_in_place(cuda):
+@pytest.mark.parametrize("dim", [128, 256, 384])
+def test_flash_reads_split_views_in_place(cuda, dim):
     """The kernels read the qkv projection's split views through their
     strides: the same results as on contiguous copies, bit for bit."""
-    views = _flash_inputs(cuda, 1, 500, 500, 2, 128, torch.bfloat16)
+    views = _flash_inputs(cuda, 1, 500, 500, 2, dim, torch.bfloat16)
     copies = [t.contiguous() for t in views]
     do = torch.randn(views[0].shape, generator=cuda,
                      device="cuda").to(torch.bfloat16)
@@ -644,6 +663,50 @@ def test_dense_backward_on_the_card_matches_the_plain_backward(
     for got, want in zip(grads["cuda"], grads["cpu"]):
         _gemm_close(got.to(torch.bfloat16) if level == 0 else got,
                     want)
+
+
+def _bf16_operands(gen, case):
+    """K5's bf16 route: the training path's weight gradient x.T @ err
+    (A m-contiguous, B n-contiguous) and grad_x err @ w.T (B
+    k-contiguous), both read in place through TMA; a ragged M with a
+    bf16 output; and two operands TMA refuses, which the wrapper copies:
+    k = 100 (a 200-byte row is no multiple of 16 bytes) and a view that
+    starts 2 bytes past an aligned base."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    if case == "weight_grad":
+        return rand(4096, 784).to(torch.bfloat16).t(), \
+            (rand(4096, 4096) / 64).to(torch.bfloat16)
+    if case == "grad_x":
+        return rand(4096, 4096).to(torch.bfloat16), \
+            (rand(784, 4096) / 64).to(torch.bfloat16).t()
+    if case == "ragged_m":
+        return rand(130, 512).to(torch.bfloat16), \
+            (rand(512, 320) / 23).to(torch.bfloat16)
+    if case == "k100":
+        return rand(200, 100).to(torch.bfloat16), \
+            (rand(100, 300) / 10).to(torch.bfloat16)
+    a = rand(256, 257).to(torch.bfloat16)[:, 1:]
+    return a, (rand(256, 192) / 16).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["weight_grad", "grad_x", "ragged_m",
+                                  "k100", "offset_view"])
+def test_blocked_matmul_bf16_route_matches_plain(cuda, case):
+    a, b = _bf16_operands(cuda, case)
+    if case == "k100" or case == "offset_view":
+        assert gemm._tma_layout(a)[0].data_ptr() != a.data_ptr()
+    else:
+        assert gemm._tma_layout(a)[0].data_ptr() == a.data_ptr()
+        assert gemm._tma_layout(b)[0].data_ptr() == b.data_ptr()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = blocked_matmul.launches
+        out = blocked_matmul(a, b, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert blocked_matmul.launches == before + 1
+        assert out.dtype == out_dtype
+        assert out.shape == (a.shape[0], b.shape[1])
+        _gemm_close(out, _blocked_matmul_plain(a, b, out_dtype))
 
 
 def test_gemm_gate_on_the_card(cuda):

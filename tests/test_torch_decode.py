@@ -188,10 +188,10 @@ def test_generate_samples_reproducibly_in_vocab(model):
     prompt = numpy.arange(6)[None] % VOCAB
     runs = []
     for _ in range(2):
-        gen = torch.Generator().manual_seed(3)
         toks, _ = tdec.generate(tparams, torch.from_numpy(table), prompt,
                                 HEADS, n_tokens=8, temperature=0.8,
-                                top_k=5, generator=gen, device="cpu")
+                                top_k=5, key=tdec.request_key(3, 0),
+                                device="cpu")
         runs.append(toks.tolist())
     assert runs[0] == runs[1]
     assert all(0 <= t < VOCAB for t in runs[0][0])

@@ -71,7 +71,11 @@ def _relative(got, want):
     return numpy.abs(got - want).max() / numpy.abs(want).max()
 
 
-SHAPES = [(2, 200, 3, 32), (1, 256, 2, 128), (2, 77, 1, 64)]
+#: small widths, the kernels' 128 and the wider multiples of 128 the
+#: flash rule admits (256: K7's second wgmma width; 384: the chunked
+#: kernels)
+SHAPES = [(2, 200, 3, 32), (1, 256, 2, 128), (2, 77, 1, 64),
+          (1, 160, 1, 256), (1, 96, 1, 384)]
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
@@ -298,3 +302,28 @@ def test_ffn_block_matches_jax(engine, level, activation, residual):
                     residual)
     numpy.testing.assert_allclose(got.numpy(), numpy.asarray(want), rtol=0,
                                   atol=BLOCK_ATOL[level])
+
+
+def test_attention_at_the_flash_shape_with_256_wide_heads(engine):
+    """T = 4096 with one 256-wide head, where the flash rule holds (on
+    the card the port runs K7 here): ``attention`` and, at level 0,
+    ``attention_block`` on the CPU against the JAX package's (XLA on the
+    CPU, its flash route being the TPU's)."""
+    assert attn.uses_flash(4096, 4096, 256)
+    shape = (1, 4096, 1, 256)
+    q, k, v = _draw(9, shape, shape, shape)
+    want = jattention.attention(*map(jnp.asarray, (q, k, v)), causal=True)
+    got = attention(*map(torch.from_numpy, (q, k, v)), causal=True)
+    numpy.testing.assert_allclose(got.numpy(), numpy.asarray(want), rtol=0,
+                                  atol=F32_FWD_ATOL)
+    engine(0)
+    embed = 256
+    x, w, b, ow, ob = _draw(10, (1, 4096, embed), (embed, 3 * embed),
+                            (3 * embed,), (embed, embed), (embed,))
+    w, ow = w / math.sqrt(embed), ow / math.sqrt(embed)
+    want = jattention.attention_block(
+        *map(jnp.asarray, (x, w, b, ow, ob)), 1, True, True)
+    got = attention_block(*map(torch.from_numpy, (x, w, b, ow, ob)), 1,
+                          True, True)
+    numpy.testing.assert_allclose(got.numpy(), numpy.asarray(want), rtol=0,
+                                  atol=BLOCK_ATOL[0])

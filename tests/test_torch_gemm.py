@@ -253,6 +253,25 @@ def test_cpu_operands_never_reach_the_kernel_route():
             gemm.dense_epilogue.launches) == launches
 
 
+@pytest.mark.parametrize("case,copied", [
+    ("row_major", False), ("transposed", False), ("k100", True),
+    ("offset_view", True), ("strided", True)])
+def test_tma_layout_copies_only_what_tma_refuses(case, copied):
+    """K5's bf16 route reads an operand in place when its base is 16-byte
+    aligned and its leading stride a multiple of 8 elements (x.T of a
+    784-wide x included); otherwise it reads an aligned row-major copy
+    with the same values."""
+    base = torch.randn(64, 800).to(torch.bfloat16)
+    t = {"row_major": base[:, :784], "transposed": base[:, :784].t(),
+         "k100": base[:, :100].contiguous(), "offset_view": base[:, 1:101],
+         "strided": base[::2, ::2]}[case]
+    got, ld, c_contig = gemm._tma_layout(t)
+    assert (got.data_ptr() != t.data_ptr()) == copied
+    assert torch.equal(got, t)
+    assert ld % 8 == 0 and got.data_ptr() % 16 == 0
+    assert c_contig == (case != "transposed")
+
+
 @pytest.mark.parametrize("call", [
     lambda: gemm.blocked_matmul(torch.ones(3, 4), torch.ones(5, 2)),
     lambda: gemm.blocked_matmul(torch.ones(3, 4),

@@ -124,8 +124,9 @@ def test_single_steps_eos_and_cancel(model):
 
 
 def test_decoder_samples_reproducibly_from_its_seed(model):
-    """temperature > 0 draws from the decoder's own generator: the same
-    seed and submissions give the same in-vocab streams."""
+    """temperature > 0 draws each request from its own key stream, derived
+    from the decoder's seed: the same seed and submissions give the same
+    in-vocab streams."""
     _, tparams, table = model
     runs = []
     for _ in range(2):

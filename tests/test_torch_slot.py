@@ -73,12 +73,11 @@ def _dtype_name(array):
     ("float", "float32"), ("float", "bfloat16"), ("int8-kv", "float32"),
     ("paged", "float32")])
 def test_init_slot_state_matches_jax(layout, dtype):
-    """Every leaf the JAX package creates but the per-slot sampling keys
-    (the port samples from one generator), with its shape and type. The
-    JAX package's ``paged=True`` delegates to its pool; the port's
-    decoder builds the pool with ``kv_pool.init_paged_state`` itself,
-    whose state keeps no per-slot step count (it only feeds those
-    keys)."""
+    """Every leaf the JAX package creates, with its shape and type; the
+    per-slot sampling key is one int64 a slot where the JAX package
+    keeps a typed threefry key of the same shape. The JAX package's
+    ``paged=True`` delegates to its pool; the port's decoder builds the
+    pool with ``kv_pool.init_paged_state`` itself."""
     jstate = jdec.init_slot_state(BLOCKS, SLOTS, MAX_LEN, HEADS, HEAD_DIM,
                                   VOCAB, dtype=jnp.dtype(dtype),
                                   quantized=layout == "int8-kv",
@@ -95,15 +94,16 @@ def test_init_slot_state_matches_jax(layout, dtype):
                                       dtype=getattr(torch, dtype),
                                       quantized=layout == "int8-kv",
                                       device="cpu")
-    left_out = {"req_key"} | ({"step"} if layout == "paged" else set())
+    assert tuple(tstate["req_key"].shape) == tuple(jstate["req_key"].shape)
+    assert tstate["req_key"].dtype == torch.int64
     want = {name: (tuple(a.shape), _dtype_name(a))
-            for name, a in jstate.items() if name not in left_out}
+            for name, a in jstate.items() if name != "req_key"}
     assert {name: (tuple(t.shape), _dtype_name(t))
-            for name, t in tstate.items()} == want
+            for name, t in tstate.items() if name != "req_key"} == want
     assert all(not t.any() for t in tstate.values())
-    assert tdec.slot_state_bytes(tstate) == sum(
+    assert tdec.slot_state_bytes(tstate) == 8 * SLOTS + sum(
         numpy.asarray(a).nbytes for name, a in jstate.items()
-        if name not in left_out)
+        if name != "req_key")
 
 
 def test_slot_state_bytes_of_the_smoke_slab():

@@ -55,12 +55,8 @@ from veles_tpu_torch.ops.gemm import _plain_product, compute_operands
 #: the JAX package's flash-attention threshold (``attention.py:58``)
 FLASH_MIN_T = 4096
 #: the flash kernel tiles head_dim onto 128-wide blocks
-#: (``attention.py:59``)
+#: (``attention.py:59``); the CUDA kernels take every multiple of it
 FLASH_HEAD_MULTIPLE = 128
-#: the head widths the CUDA kernels are built for: the repo's one flash
-#: configuration's (``bench.py:573``, 8 heads of 128); another width the
-#: flash rule admits (256, ...) raises on the card
-KERNEL_HEAD_DIMS = (128,)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -202,13 +198,15 @@ def _check_flash(name, q, k, v, causal):
 
 
 def _check_rows(name, *tensors):
-    """What the kernels read in place: the head width a built one, the
-    last axis contiguous, every other stride and the pointer 16-byte
-    aligned (the kernels load 16 bytes at a time)."""
+    """What the kernels read in place: a head width that is a multiple of
+    :data:`FLASH_HEAD_MULTIPLE`, the last axis contiguous, every other
+    stride and the pointer 16-byte aligned (the kernels load 16 bytes at
+    a time; K7's tensor maps want the same)."""
     for t in tensors:
-        if t.shape[-1] not in KERNEL_HEAD_DIMS:
-            raise ValueError("%s's kernel is built for head widths %s, got "
-                             "%d" % (name, KERNEL_HEAD_DIMS, t.shape[-1]))
+        if t.shape[-1] % FLASH_HEAD_MULTIPLE:
+            raise ValueError("%s's kernels take head widths that are "
+                             "multiples of %d, got %d"
+                             % (name, FLASH_HEAD_MULTIPLE, t.shape[-1]))
         size = t.element_size()
         if t.stride(-1) != 1 or t.data_ptr() % 16 \
                 or any(s * size % 16 for s in t.stride()[:3]):
@@ -309,7 +307,10 @@ def flash_attention_fwd(q, k, v, causal=False):
     contiguous; ``lse`` the f32 logsumexp of each row's scaled scores,
     (B, H, Tq). On a CUDA tensor the kernel launches
     (:attr:`flash_attention_fwd.launches` counts it) and reads q, k, v in
-    place; on a CPU tensor the plain version runs."""
+    place: bf16 at head width 128 or 256 through TMA and wgmma, other
+    multiples of 128 and float32 with a grid axis over 128-wide output
+    chunks (``csrc/flash_attention.cu``). On a CPU tensor the plain
+    version runs."""
     _check_flash("flash_attention_fwd", q, k, v, causal)
     if q.device.type == "cpu":
         return _flash_attention_fwd_plain(q, k, v, causal)
@@ -329,7 +330,8 @@ def flash_attention_fwd(q, k, v, causal=False):
              *_strides(k), *_strides(v), _stream(q))
     if err:
         raise RuntimeError("flash_attention_fwd kernel launch failed: CUDA "
-                           "error %d" % err)
+                           "error %d (negative: a CUresult of a tensor map)"
+                           % err)
     flash_attention_fwd.launches += 1
     return out, lse
 

@@ -14,7 +14,8 @@ using namespace gemm_tiles;
 
 template <int EPI>
 static int run(const Problem& p, bool bf16, cudaStream_t s) {
-  return launch<float, EPI>(p, bf16, s);
+  return bf16 ? launch<float, EPI, true>(p, s)
+              : launch<float, EPI, false>(p, s);
 }
 
 // dtype: 0 float32 operands, 1 bfloat16; activation: the index of

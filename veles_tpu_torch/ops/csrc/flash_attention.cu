@@ -14,97 +14,369 @@
 // TFLOP/s, against 67 MB of q, k, v, O and logsumexp (0.020 ms at 3.35
 // TB/s). The S x S scores never reach device memory.
 //
-// Design (a simple first version: no TMA, no wgmma, no pipelining):
-// - One block of four warps per (64-query tile, head, row); the grid runs
-//   the longest (causal) tiles first. q, k, v are (B, T, H, D) read in
-//   place through their strides (the qkv projection's split views): no
-//   transpose. Ragged T is masked, not padded: rows past T load as zero,
-//   keys past T score -inf, rows past T are not stored.
-// - Each warp keeps its 16 query rows as mma A fragments in registers and
-//   walks the 64-key K/V tiles staged through shared memory; the causal
-//   walk stops at the block's diagonal tile, so tiles above the diagonal
-//   are never loaded or computed.
-// - bf16: S = Q K^T and O += P V on the tensor cores (mma.sync m16n8k16,
-//   f32 accumulator), the FlashAttention-2 arrangement of flash_tiles.cuh:
-//   the score tile becomes P's A fragments in registers. An online softmax
-//   in f32 (log2 units): the running max and sum per row, the accumulator
-//   rescaled when the max grows. P is rounded to V's type before P V, as
-//   the Pallas kernel does (:471, :556); the sum divides the f32
-//   accumulator once at the end.
-// - f32 (the agreement runs): the same walk on the CUDA cores in true f32
-//   FMA, 32-query tiles, eight threads a row.
+// Design of the bf16 kernel at head widths 128 and 256 (fwd_sm90, for
+// Hopper: TMA, mbarriers, wgmma; sm90.cuh):
+// - One block of three warpgroups per (128-query tile, head, row); the
+//   grid runs the longest causal tiles first. Warpgroup 0 is the
+//   producer: one thread loads the block's Q tile once and then walks the
+//   key tiles (BK keys: 128 at D 128, 64 at D 256), keeping a two-stage
+//   ring of K and V tiles filled by TMA, each stage with its own K-full,
+//   V-full and empty mbarrier, so a stage's S product starts before its V
+//   has landed. Warpgroups 1 and 2 own 64 query rows each.
+// - q, k, v are (B, T, H, D) views read in place through rank-4 tensor
+//   maps (D, H, T, B) with the views' strides (the qkv projection's split
+//   views: nothing is transposed or copied). A 256-byte head row is split
+//   into 64-element boxes (the 128-byte swizzle's width), one
+//   [rows][64] box a 64-wide column chunk. TMA fills rows past T with
+//   zeros; keys past T score -inf and rows past T are not stored.
+// - S = Q K^T: wgmma m64nBKk16 with Q (K-major A) and K (K-major B, keys
+//   as rows) from shared memory, over D / 16 steps. The online softmax
+//   (log2 units, running max and sum per row, the accumulator rescaled
+//   when the max grows) runs on the accumulator in registers; P is
+//   rounded to bf16 as the Pallas kernel rounds it (:471) and repacked in
+//   registers as the A fragments of O += P V: wgmma m64nDk16 with A from
+//   registers and V (keys x D, D contiguous) read as an MN-major B
+//   through the transpose bit. The causal walk stops at the block's last
+//   diagonal tile.
+// - The O accumulator is 64 x D f32 a warpgroup (D / 2 registers a
+//   thread); setmaxnreg gives the consumers 240 registers.
+//
+// Other head widths that are multiples of 128 (384, ...) run fwd_wide,
+// the mma.sync kernel of flash_tiles.cuh with a grid axis over 128-wide
+// output chunks; f32 operands (the agreement runs) run fwd_f32, true f32
+// FMA on the CUDA cores with the same chunk axis.
 
 #include "flash_tiles.cuh"
+#include "sm90.cuh"
 
 using namespace flash_tiles;
 
 namespace {
 
-constexpr int kBQ = 64;  // query rows a block, 16 a warp
-constexpr int kBK = 64;  // keys a tile
+// ---- bf16, head width 128 or 256: TMA + wgmma ------------------------------
+
+constexpr int kWgThreads = 384;  // producer warpgroup + two consumers
+constexpr int kWgBQ = 128;       // query rows a block, 64 a consumer
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o,
+struct Sm90Tile {
+  static constexpr int BK = D == 128 ? 128 : 64;  // keys a tile
+  static constexpr int STAGES = 2;
+  static constexpr int CH = D / 64;               // 64-wide column chunks
+  static constexpr size_t SMEM =
+      (static_cast<size_t>(kWgBQ) * D + 2 * STAGES * BK * D) * sizeof(bf16) +
+      (1 + 3 * STAGES) * sizeof(uint64_t) + 1024;  // + alignment slack
+};
+
+template <int BK>
+__device__ __forceinline__ void score_mma(float (&s)[BK / 2], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  if constexpr (BK == 128)
+    sm90::wgmma_ss_n128<0, 0>(s, da, db, scale_d);
+  else
+    sm90::wgmma_ss_n64<0, 0>(s, da, db, scale_d);
+}
+
+template <int D>
+__device__ __forceinline__ void value_mma(float (&o)[D / 2],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  if constexpr (D == 256)
+    sm90::wgmma_rs_n256<1>(o, a, db, 1);
+  else
+    sm90::wgmma_rs_n128<1>(o, a, db, 1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fwd_sm90(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
              float* __restrict__ lse, int H, int Tq, int Tk, int causal,
-             float scale_log2, Strides qs, Strides ks, Strides vs) {
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LD]
-  bf16* sk = sq + kBQ * LD;                      // [kBK][LD]
-  bf16* sv = sk + kBK * LD;                      // [kBK][LD]
+             float scale_log2) {
+  using Tile = Sm90Tile<D>;
+  constexpr int BK = Tile::BK, CH = Tile::CH, STAGES = Tile::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* sk = sq + kWgBQ * D;       // STAGES x CH x [BK][64]
+  bf16* sv = sk + STAGES * BK * D;  // STAGES x CH x [BK][64]
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sv + STAGES * BK * D);
+  uint64_t* kfull = qfull + 1;
+  uint64_t* vfull = kfull + STAGES;
+  uint64_t* empty = vfull + STAGES;
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgBQ;
+  const int k_end = causal ? min(Tk, q0 + kWgBQ) : Tk;
+  const int tiles = (k_end + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&kfull[s], 1);
+      sm90::mbar_init(&vfull[s], 1);
+      sm90::mbar_init(&empty[s], 256);  // every consumer thread arrives
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer ----
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      constexpr uint32_t KV_BYTES = BK * D * sizeof(bf16);
+      sm90::mbar_expect_tx(qfull, kWgBQ * D * sizeof(bf16));
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        sm90::tma_load_4d(sq + c * kWgBQ * 64, &qmap, qfull, 64 * c, h, q0,
+                          b);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % STAGES, k0 = j * BK;
+        if (j >= STAGES) sm90::mbar_wait(&empty[s], ((j / STAGES) - 1) & 1);
+        sm90::mbar_expect_tx(&kfull[s], KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          sm90::tma_load_4d(sk + (s * CH + c) * BK * 64, &kmap, &kfull[s],
+                            64 * c, h, k0, b);
+        sm90::mbar_expect_tx(&vfull[s], KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          sm90::tma_load_4d(sv + (s * CH + c) * BK * 64, &vmap, &vfull[s],
+                            64 * c, h, k0, b);
+      }
+    }
+  } else {
+    // ---- consumers: rows q0 + 64 w .. q0 + 64 w + 63 ----
+    sm90::reg_alloc<240>();
+    const int w = wg - 1;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x & 127) >> 5;
+    const int c4 = lane & 3;
+    const int row0 = q0 + 64 * w + 16 * warp + (lane >> 2), row1 = row0 + 8;
+    float oacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    float sacc[BK / 2];
+    sm90::mbar_wait(qfull, 0);
+    const bf16* qw = sq + w * 64 * 64;  // the warpgroup's rows, chunk 0
+
+    for (int j = 0; j < tiles; ++j) {
+      const int s = j % STAGES, k0 = j * BK;
+      const uint32_t parity = (j / STAGES) & 1;
+      sm90::mbar_wait(&kfull[s], parity);
+      const bf16* kt = sk + s * CH * BK * 64;
+      sm90::fence_acc(sacc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          score_mma<BK>(
+              sacc, sm90::desc_sw128(qw + c * kWgBQ * 64 + kk * 16, 16, 1024),
+              sm90::desc_sw128(kt + c * BK * 64 + kk * 16, 16, 1024),
+              (c | kk) != 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(sacc);
+
+      // scale to log2 units; -inf past T and above the diagonal
+      const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > q0 + 64 * w);
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sacc[4 * jj + e] * scale_log2;
+          if (edge) {
+            const int col = k0 + 8 * jj + 2 * c4 + (e & 1);
+            const int row = e < 2 ? row0 : row1;
+            if (col >= Tk || (causal && col > row)) x = -INFINITY;
+          }
+          sacc[4 * jj + e] = x;
+        }
+        mx0 = fmaxf(mx0, fmaxf(sacc[4 * jj], sacc[4 * jj + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sacc[4 * jj + 2], sacc[4 * jj + 3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      // a row with no visible key yet keeps exp2(-inf) = 0 everywhere
+      const float base0 = mx0 == -INFINITY ? 0.f : mx0;
+      const float base1 = mx1 == -INFINITY ? 0.f : mx1;
+      const float alpha0 = exp2f(m0 - base0), alpha1 = exp2f(m1 - base1);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= alpha0;
+      l1 *= alpha1;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        oacc[4 * n] *= alpha0;
+        oacc[4 * n + 1] *= alpha0;
+        oacc[4 * n + 2] *= alpha1;
+        oacc[4 * n + 3] *= alpha1;
+      }
+      // P = exp2(s - max), rounded to bf16 into the A fragments of P V:
+      // keys 16 t .. 16 t + 15 are the accumulator's column blocks 2 t and
+      // 2 t + 1
+      uint32_t pf[BK / 16][4];
+#pragma unroll
+      for (int t = 0; t < BK / 16; ++t) {
+        float p[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          p[e] = exp2f(sacc[8 * t + e] - ((e & 2) ? base1 : base0));
+        l0 += p[0] + p[1] + p[4] + p[5];
+        l1 += p[2] + p[3] + p[6] + p[7];
+        pf[t][0] = pack(p[0], p[1]);
+        pf[t][1] = pack(p[2], p[3]);
+        pf[t][2] = pack(p[4], p[5]);
+        pf[t][3] = pack(p[6], p[7]);
+      }
+
+      sm90::mbar_wait(&vfull[s], parity);
+      const bf16* vt = sv + s * CH * BK * 64;
+      sm90::fence_acc(oacc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < BK / 16; ++t)
+        value_mma<D>(oacc, pf[t],
+                     sm90::desc_sw128(vt + t * 16 * 64, BK * 64 * 2, 1024));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(oacc);
+      sm90::mbar_arrive(&empty[s]);
+    }
+
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const float f0 = l0 > 0.f ? 1.f / l0 : 0.f, f1 = l1 > 0.f ? 1.f / l1 : 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? row1 : row0;
+      if (row >= Tq) continue;
+      const float f = half ? f1 : f0;
+      bf16* p = o + (((long long)b * Tq + row) * H + h) * D + 2 * c4;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(p + n * 8) =
+            pack(oacc[4 * n + 2 * half] * f, oacc[4 * n + 2 * half + 1] * f);
+    }
+    if (c4 == 0) {
+      float* lrow = lse + ((long long)b * H + h) * Tq;
+      if (row0 < Tq) lrow[row0] = (m0 + log2f(l0)) * kLn2;
+      if (row1 < Tq) lrow[row1] = (m1 + log2f(l1)) * kLn2;
+    }
+  }
+}
+
+// the rank-4 tensor map of a (B, T, H, D) bf16 view with element strides
+// s (batch, position, head), boxes of [rows][64]
+int view_map(CUtensorMap* map, const void* base, int B, int T, int H, int D,
+             const Strides& s, int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D),
+                            static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(T),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(s.h) * 2,
+                               static_cast<uint64_t>(s.t) * 2,
+                               static_cast<uint64_t>(s.b) * 2};
+  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(rows), 1};
+  return sm90::encode_map(map, base, 4, dims, strides, box);
+}
+
+template <int D>
+int run_sm90(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int H, int Tq, int Tk, int causal,
+             float scale_log2, const Strides& qs, const Strides& ks,
+             const Strides& vs, cudaStream_t stream) {
+  using Tile = Sm90Tile<D>;
+  CUtensorMap qmap, kmap, vmap;
+  int err = view_map(&qmap, q, B, Tq, H, D, qs, kWgBQ);
+  if (!err) err = view_map(&kmap, k, B, Tk, H, D, ks, Tile::BK);
+  if (!err) err = view_map(&vmap, v, B, Tk, H, D, vs, Tile::BK);
+  if (err) return err;
+  cudaError_t cerr = allow_smem(fwd_sm90<D>, Tile::SMEM);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  dim3 grid((Tq + kWgBQ - 1) / kWgBQ, H, B);
+  fwd_sm90<D><<<grid, kWgThreads, Tile::SMEM, stream>>>(
+      qmap, kmap, vmap, static_cast<bf16*>(o), lse, H, Tq, Tk, causal,
+      scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- bf16, any other multiple of 128: mma.sync, a chunk axis ----------------
+
+constexpr int kWideBQ = 64;  // query rows a block, 16 a warp
+constexpr int kWideBK = 64;  // keys a tile
+
+__global__ void __launch_bounds__(kThreads)
+    fwd_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ o,
+             float* __restrict__ lse, int H, int Tq, int Tk, int D,
+             int causal, float scale_log2, Strides qs, Strides ks,
+             Strides vs) {
+  constexpr int LD = kChunk + kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [kWideBQ][LD], a chunk
+  bf16* sk = sq + kWideBQ * LD;                  // [kWideBK][LD], a chunk
+  bf16* sv = sk + kWideBK * LD;                  // [kWideBK][LD], chunk oc
+
+  const int chunks = D / kChunk;
+  const int oc = blockIdx.x % chunks;
+  const int q0 = (gridDim.x / chunks - 1 - blockIdx.x / chunks) * kWideBQ;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int w0 = q0 + warp * 16;  // the warp's first row
+  const int w0 = q0 + warp * 16;
   const int row0 = w0 + g, row1 = row0 + 8;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
 
-  load_rows<bf16, D, kBQ, LD>(sq, q + b * qs.b + h * qs.h, qs.t, q0, Tq);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
+  float acc[kChunk / 8][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    load_a(qf[kk], sq, LD, warp * 16, kk * 16);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < kChunk / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  const int k_end = causal ? min(Tk, q0 + kBQ) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile has been read
-    load_rows<bf16, D, kBK, LD>(sk, kb, ks.t, k0, Tk);
-    load_rows<bf16, D, kBK, LD>(sv, vb, vs.t, k0, Tk);
-    __syncthreads();
-    if (causal && k0 > w0 + 15) continue;  // every key past the warp's rows
-
-    float s[kBK / 8][4];
+  const int k_end = causal ? min(Tk, q0 + kWideBQ) : Tk;
+  for (int k0 = 0; k0 < k_end; k0 += kWideBK) {
+    const bool skip = causal && k0 > w0 + 15;  // every key past the rows
+    float s[kWideBK / 8][4];
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
+    for (int j = 0; j < kWideBK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    for (int dc = 0; dc < chunks; ++dc) {
+      __syncthreads();  // the previous chunk (and tile) has been read
+      load_rows<bf16, kChunk, kWideBQ, LD>(sq, qb + dc * kChunk, qs.t, q0,
+                                           Tq);
+      load_rows<bf16, kChunk, kWideBK, LD>(sk, kb + dc * kChunk, ks.t, k0,
+                                           Tk);
+      if (dc == 0)
+        load_rows<bf16, kChunk, kWideBK, LD>(sv, vb + oc * kChunk, vs.t, k0,
+                                             Tk);
+      __syncthreads();
+      if (skip) continue;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        uint32_t a[4];
+        load_a(a, sq, LD, warp * 16, kk * 16);
 #pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        uint32_t b0, b1;
-        load_b_rows(b0, b1, sk, LD, j * 8, kk * 16);
-        mma(s[j], qf[kk], b0, b1);
+        for (int j = 0; j < kWideBK / 8; ++j) {
+          uint32_t b0, b1;
+          load_b_rows(b0, b1, sk, LD, j * 8, kk * 16);
+          mma(s[j], a, b0, b1);
+        }
       }
     }
-    // scale to log2 units; -inf past T and above the diagonal
-    const bool edge = k0 + kBK > Tk || (causal && k0 + kBK - 1 > w0);
+    if (skip) continue;
+    const bool edge = k0 + kWideBK > Tk || (causal && k0 + kWideBK - 1 > w0);
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+    for (int j = 0; j < kWideBK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[j][e] * scale_log2;
@@ -120,7 +392,6 @@ __global__ void __launch_bounds__(kThreads)
     }
     mx0 = quad_max(mx0);
     mx1 = quad_max(mx1);
-    // a row with no visible key yet keeps exp2(-inf) = 0 everywhere
     const float base0 = mx0 == -INFINITY ? 0.f : mx0;
     const float base1 = mx1 == -INFINITY ? 0.f : mx1;
     const float alpha0 = exp2f(m0 - base0), alpha1 = exp2f(m1 - base1);
@@ -129,14 +400,14 @@ __global__ void __launch_bounds__(kThreads)
     l0 *= alpha0;
     l1 *= alpha1;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < kChunk / 8; ++n) {
       acc[n][0] *= alpha0;
       acc[n][1] *= alpha0;
       acc[n][2] *= alpha1;
       acc[n][3] *= alpha1;
     }
 #pragma unroll
-    for (int t = 0; t < kBK / 16; ++t) {
+    for (int t = 0; t < kWideBK / 16; ++t) {
       float p[2][4];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -151,7 +422,7 @@ __global__ void __launch_bounds__(kThreads)
       uint32_t a[4];
       c_to_a(a, p[0], p[1]);  // P rounded to bf16
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < kChunk / 8; ++n) {
         uint32_t b0, b1;
         load_b_cols(b0, b1, sv, LD, t * 16, n * 8);
         mma(acc[n], a, b0, b1);
@@ -160,61 +431,75 @@ __global__ void __launch_bounds__(kThreads)
   }
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
-  store_acc<D>(o, acc, b, h, H, Tq, w0, l0 > 0.f ? 1.f / l0 : 0.f,
-               l1 > 0.f ? 1.f / l1 : 0.f);
-  if (c == 0) {
+  store_chunk<kChunk>(o, acc, b, h, H, Tq, D, oc * kChunk, w0,
+                      l0 > 0.f ? 1.f / l0 : 0.f, l1 > 0.f ? 1.f / l1 : 0.f);
+  if (c == 0 && oc == 0) {
     float* lrow = lse + ((long long)b * H + h) * Tq;
     if (row0 < Tq) lrow[row0] = (m0 + log2f(l0)) * kLn2;
     if (row1 < Tq) lrow[row1] = (m1 + log2f(l1)) * kLn2;
   }
 }
 
+// ---- f32 (the agreement runs), any multiple of 128: FMA, a chunk axis -------
+
 constexpr int kF32Threads = 256;
 constexpr int kF32BQ = 32;  // query rows a block, eight threads a row
 constexpr int kF32BK = 32;  // keys a tile, four a thread
 
-template <int D>
 __global__ void __launch_bounds__(kF32Threads)
     fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ o,
-            float* __restrict__ lse, int H, int Tq, int Tk, int causal,
-            float scale_log2, Strides qs, Strides ks, Strides vs) {
+            float* __restrict__ lse, int H, int Tq, int Tk, int D,
+            int causal, float scale_log2, Strides qs, Strides ks,
+            Strides vs) {
   // rows padded by 4 floats: the eight keys a warp reads at one d fall on
   // eight bank quads
-  constexpr int LD = D + 4;
+  constexpr int LD = kChunk + 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sq = reinterpret_cast<float*>(smem_raw);  // [kF32BQ][LD]
-  float* sk = sq + kF32BQ * LD;                    // [kF32BK][LD]
-  float* sv = sk + kF32BK * LD;                    // [kF32BK][LD]
+  float* sq = reinterpret_cast<float*>(smem_raw);  // [kF32BQ][LD], a chunk
+  float* sk = sq + kF32BQ * LD;                    // [kF32BK][LD], a chunk
+  float* sv = sk + kF32BK * LD;                    // [kF32BK][LD], chunk oc
   float* sp = sv + kF32BK * LD;                    // [kF32BQ][kF32BK + 1]
 
+  const int chunks = D / kChunk;
+  const int oc = blockIdx.x % chunks;
+  const int q0 = (gridDim.x / chunks - 1 - blockIdx.x / chunks) * kF32BQ;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kF32BQ;
   const int r = threadIdx.x >> 3, c8 = threadIdx.x & 7;
   const int row = q0 + r;
-
-  load_rows<float, D, kF32BQ, LD, kF32Threads>(
-      sq, q + b * qs.b + h * qs.h, qs.t, q0, Tq);
-  float acc[D / 8];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
+  const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
+
+  // one chunk: the query tile stays in shared memory for the whole walk
+  if (chunks == 1)
+    load_rows<float, kChunk, kF32BQ, LD, kF32Threads>(sq, qb, qs.t, q0, Tq);
+  float acc[kChunk / 8];
+#pragma unroll
+  for (int i = 0; i < kChunk / 8; ++i) acc[i] = 0.f;
+  float m = -INFINITY, l = 0.f;
+
   const int k_end = causal ? min(Tk, q0 + kF32BQ) : Tk;
   for (int k0 = 0; k0 < k_end; k0 += kF32BK) {
-    __syncthreads();
-    load_rows<float, D, kF32BK, LD, kF32Threads>(sk, kb, ks.t, k0, Tk);
-    load_rows<float, D, kF32BK, LD, kF32Threads>(sv, vb, vs.t, k0, Tk);
-    __syncthreads();
     float s[kF32BK / 8] = {0.f, 0.f, 0.f, 0.f};
+    for (int dc = 0; dc < chunks; ++dc) {
+      __syncthreads();  // the previous chunk (and tile) has been read
+      if (chunks > 1)
+        load_rows<float, kChunk, kF32BQ, LD, kF32Threads>(
+            sq, qb + dc * kChunk, qs.t, q0, Tq);
+      load_rows<float, kChunk, kF32BK, LD, kF32Threads>(
+          sk, kb + dc * kChunk, ks.t, k0, Tk);
+      if (dc == 0)
+        load_rows<float, kChunk, kF32BK, LD, kF32Threads>(
+            sv, vb + oc * kChunk, vs.t, k0, Tk);
+      __syncthreads();
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float qd = sq[r * LD + d];
+      for (int d = 0; d < kChunk; ++d) {
+        const float qd = sq[r * LD + d];
 #pragma unroll
-      for (int j = 0; j < kF32BK / 8; ++j)
-        s[j] = fmaf(qd, sk[(c8 + 8 * j) * LD + d], s[j]);
+        for (int j = 0; j < kF32BK / 8; ++j)
+          s[j] = fmaf(qd, sk[(c8 + 8 * j) * LD + d], s[j]);
+      }
     }
     float mx = m;
 #pragma unroll
@@ -232,7 +517,7 @@ __global__ void __launch_bounds__(kF32Threads)
     m = mx;
     l *= alpha;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) acc[i] *= alpha;
+    for (int i = 0; i < kChunk / 8; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < kF32BK / 8; ++j) {
       const float p = exp2f(s[j] - base);
@@ -244,7 +529,7 @@ __global__ void __launch_bounds__(kF32Threads)
     for (int key = 0; key < kF32BK; ++key) {
       const float p = sp[r * (kF32BK + 1) + key];
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < kChunk / 8; ++i)
         acc[i] = fmaf(p, sv[key * LD + c8 + 8 * i], acc[i]);
     }
   }
@@ -253,39 +538,47 @@ __global__ void __launch_bounds__(kF32Threads)
     l += __shfl_xor_sync(0xffffffffu, l, o8);
   if (row < Tq) {
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    float* out = o + (((long long)b * Tq + row) * H + h) * D;
+    float* out = o + (((long long)b * Tq + row) * H + h) * D + oc * kChunk;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) out[c8 + 8 * i] = acc[i] * inv;
-    if (c8 == 0)
+    for (int i = 0; i < kChunk / 8; ++i) out[c8 + 8 * i] = acc[i] * inv;
+    if (c8 == 0 && oc == 0)
       lse[((long long)b * H + h) * Tq + row] = (m + log2f(l)) * kLn2;
   }
 }
 
-template <int D>
 int run(const void* q, const void* k, const void* v, void* o, float* lse,
-        int B, int H, int Tq, int Tk, int causal, int dtype, float scale,
-        Strides qs, Strides ks, Strides vs, cudaStream_t stream) {
+        int B, int H, int Tq, int Tk, int D, int causal, int dtype,
+        float scale, const Strides& qs, const Strides& ks, const Strides& vs,
+        cudaStream_t stream) {
   const float scale_log2 = scale * kLog2e;
+  const int chunks = D / kChunk;
   cudaError_t err;
   if (dtype == 1) {
-    const size_t smem = (size_t)(kBQ + 2 * kBK) * (D + kPad) * sizeof(bf16);
-    err = allow_smem(fwd_bf16<D>, smem);
+    if (D == 128)
+      return run_sm90<128>(q, k, v, o, lse, B, H, Tq, Tk, causal, scale_log2,
+                           qs, ks, vs, stream);
+    if (D == 256)
+      return run_sm90<256>(q, k, v, o, lse, B, H, Tq, Tk, causal, scale_log2,
+                           qs, ks, vs, stream);
+    const size_t smem =
+        (size_t)(kWideBQ + 2 * kWideBK) * (kChunk + kPad) * sizeof(bf16);
+    err = allow_smem(fwd_wide, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
-    fwd_bf16<D><<<grid, kThreads, smem, stream>>>(
+    dim3 grid((Tq + kWideBQ - 1) / kWideBQ * chunks, H, B);
+    fwd_wide<<<grid, kThreads, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, Tq, Tk,
-        causal, scale_log2, qs, ks, vs);
+        D, causal, scale_log2, qs, ks, vs);
   } else {
-    const size_t smem = ((size_t)(kF32BQ + 2 * kF32BK) * (D + 4)
+    const size_t smem = ((size_t)(kF32BQ + 2 * kF32BK) * (kChunk + 4)
                          + kF32BQ * (kF32BK + 1)) * sizeof(float);
-    err = allow_smem(fwd_f32<D>, smem);
+    err = allow_smem(fwd_f32, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((Tq + kF32BQ - 1) / kF32BQ, H, B);
-    fwd_f32<D><<<grid, kF32Threads, smem, stream>>>(
+    dim3 grid((Tq + kF32BQ - 1) / kF32BQ * chunks, H, B);
+    fwd_f32<<<grid, kF32Threads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, H, Tq, Tk,
-        causal, scale_log2, qs, ks, vs);
+        D, causal, scale_log2, qs, ks, vs);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -293,10 +586,11 @@ int run(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // q (B, Tq, H, D), k and v (B, Tk, H, D) through their element strides
-// (sb, st, sh; the head axis contiguous); o (B, Tq, H, D) contiguous in
-// q's type; lse (B, H, Tq) f32. dtype: 0 float32, 1 bfloat16; D: 128,
-// the head width of the repo's flash configuration. Returns the
-// cudaError_t of the launch (cudaErrorInvalidValue for another D).
+// (sb, st, sh; the head axis contiguous, every stride and pointer 16-byte
+// aligned); o (B, Tq, H, D) contiguous in q's type; lse (B, H, Tq) f32.
+// dtype: 0 float32, 1 bfloat16; D: a multiple of 128. Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for another D), or
+// minus a CUresult when a tensor map is refused.
 extern "C" int veles_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, float* lse, int B, int H, int Tq,
                                int Tk, int D, int causal, int dtype,
@@ -304,9 +598,8 @@ extern "C" int veles_flash_fwd(const void* q, const void* k, const void* v,
                                long long qsh, long long ksb, long long kst,
                                long long ksh, long long vsb, long long vst,
                                long long vsh, void* stream) {
-  Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  return run<128>(q, k, v, o, lse, B, H, Tq, Tk, causal, dtype, scale, qs, ks,
-                  vs, s);
+  const Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh};
+  if (D <= 0 || D % kChunk) return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, o, lse, B, H, Tq, Tk, D, causal, dtype, scale, qs, ks,
+             vs, static_cast<cudaStream_t>(stream));
 }

@@ -20,6 +20,13 @@
 // Tiles live in shared memory row-major with rows padded by 8 elements
 // (16 bytes): the 8 row groups of a fragment load then fall on 8
 // different bank quads, so fragment loads are conflict-free.
+//
+// Head widths: the kernels built for one width hold a whole row of it
+// (K7's wgmma kernel at 128 and 256, K8 and K9 at 128). Every other
+// multiple of 128 runs a "wide" kernel: a grid axis over the output's
+// 128-wide column chunks (kChunk), each block summing its scores over the
+// full width in 128-wide steps through shared memory and writing only
+// its own chunk; the score work repeats once a chunk.
 
 #pragma once
 
@@ -33,6 +40,7 @@ namespace flash_tiles {
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;  // four warps a block
+constexpr int kChunk = 128;    // the wide kernels' output column chunk
 constexpr int kPad = 8;        // row padding of a shared tile, elements
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -149,6 +157,30 @@ __device__ __forceinline__ void store_acc(bf16* __restrict__ out,
     bf16* p = out + (((long long)b * T + row) * H + h) * D + 2 * c;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(p + n * 8) =
+          pack(acc[n][2 * half] * f, acc[n][2 * half + 1] * f);
+  }
+}
+
+// Store a warp's 16 x W f32 accumulator (rows r0 + g scaled by f0, rows
+// r0 + g + 8 by f1) as bf16 into columns [col0, col0 + W) of a contiguous
+// (B, T, H, D) output; rows at or past T are skipped. The wide kernels'
+// store of one 128-wide column chunk.
+template <int W>
+__device__ __forceinline__ void store_chunk(bf16* __restrict__ out,
+                                            const float (&acc)[W / 8][4],
+                                            int b, int h, int H, int T, int D,
+                                            int col0, int r0, float f0,
+                                            float f1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + g + 8 * half;
+    if (row >= T) continue;
+    const float f = half ? f1 : f0;
+    bf16* p = out + (((long long)b * T + row) * H + h) * D + col0 + 2 * c;
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
       *reinterpret_cast<uint32_t*>(p + n * 8) =
           pack(acc[n][2 * half] * f, acc[n][2 * half + 1] * f);
   }

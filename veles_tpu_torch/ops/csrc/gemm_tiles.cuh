@@ -269,28 +269,29 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename OutT, int EPI, bool A_COL, bool B_COL>
-inline void launch_layout(const Problem& p, bool bf16, cudaStream_t stream) {
+template <typename OutT, int EPI, bool BF16, bool A_COL, bool B_COL>
+inline void launch_layout(const Problem& p, cudaStream_t stream) {
   dim3 grid((p.n + BN - 1) / BN, (p.m + BM - 1) / BM);
-  if (bf16)
+  if constexpr (BF16)
     gemm_bf16<OutT, EPI, A_COL, B_COL><<<grid, THREADS, 0, stream>>>(p);
   else
     gemm_f32<OutT, EPI, A_COL, B_COL><<<grid, THREADS, 0, stream>>>(p);
 }
 
-// Launch the instantiation for the operands' layouts; returns the
+// Launch the instantiation for the operand type (BF16: bf16 operands on
+// wmma, else f32 on FMA) and the operands' layouts; returns the
 // cudaError_t of the launch.
-template <typename OutT, int EPI>
-inline int launch(const Problem& p, bool bf16, cudaStream_t stream) {
+template <typename OutT, int EPI, bool BF16>
+inline int launch(const Problem& p, cudaStream_t stream) {
   bool a_col = !p.a_k_contig, b_col = !p.b_n_contig;
   if (a_col && b_col)
-    launch_layout<OutT, EPI, true, true>(p, bf16, stream);
+    launch_layout<OutT, EPI, BF16, true, true>(p, stream);
   else if (a_col)
-    launch_layout<OutT, EPI, true, false>(p, bf16, stream);
+    launch_layout<OutT, EPI, BF16, true, false>(p, stream);
   else if (b_col)
-    launch_layout<OutT, EPI, false, true>(p, bf16, stream);
+    launch_layout<OutT, EPI, BF16, false, true>(p, stream);
   else
-    launch_layout<OutT, EPI, false, false>(p, bf16, stream);
+    launch_layout<OutT, EPI, BF16, false, false>(p, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -138,6 +138,25 @@ def _layout(t):
     return t, ld, c_contig, int(ld % vector == 0 and t.data_ptr() % 16 == 0)
 
 
+def _tma_layout(t):
+    """How K5's bf16 route reads the 2-D operand ``t`` (R, C) in place:
+    ``(tensor, leading stride, C contiguous)``. Its tensor maps (TMA)
+    want the base 16-byte aligned and the leading stride a multiple of 8
+    elements (16 bytes); an operand that breaks either rule, or has no
+    contiguous axis, is copied into a row-major buffer whose rows are
+    padded to a multiple of 8 elements (a bf16 row of k = 100, or a view
+    that starts off a 16-byte boundary)."""
+    t, ld, c_contig, _ = _layout(t)
+    rows, cols = t.shape
+    if ld % 8 == 0 and t.data_ptr() % 16 == 0 \
+            and ld >= (cols if c_contig else rows):
+        return t, ld, c_contig
+    ld = -(-cols // 8) * 8
+    buf = torch.empty((rows, ld), dtype=t.dtype, device=t.device)[:, :cols]
+    buf.copy_(t)
+    return buf, ld, True
+
+
 def _blocked_matmul_plain(a, b, out_dtype=torch.float32):
     """K5's plain version: f32 product of the widened operands."""
     return _plain_product(a, b).to(out_dtype)
@@ -149,8 +168,10 @@ def blocked_matmul(a, b, out_dtype=torch.float32):
     (K, N), both float32 or both bfloat16, any M, N, K. On a CUDA tensor
     K5 launches (:attr:`blocked_matmul.launches` counts it) and reads
     each operand in place when one of its axes is contiguous (``x.T`` and
-    ``w.T`` of row-major tensors included); on a CPU tensor the plain
-    version runs."""
+    ``w.T`` of row-major tensors included): bfloat16 operands through TMA
+    and wgmma (``csrc/gemm_sm90.cuh``), copied first when TMA's alignment
+    rules refuse them (:func:`_tma_layout`), float32 operands on the
+    true-f32 tile. On a CPU tensor the plain version runs."""
     _check_operands("blocked_matmul", a, b)
     if out_dtype not in _DTYPES:
         raise TypeError("blocked_matmul writes float32 or bfloat16, got %s"
@@ -158,8 +179,13 @@ def blocked_matmul(a, b, out_dtype=torch.float32):
     if a.device.type == "cpu":
         return _blocked_matmul_plain(a, b, out_dtype)
     (m, k), n = a.shape, b.shape[1]
-    a, lda, a_k_contig, vec_a = _layout(a)
-    b, ldb, b_n_contig, vec_b = _layout(b)
+    if a.dtype == torch.bfloat16:
+        a, lda, a_k_contig = _tma_layout(a)
+        b, ldb, b_n_contig = _tma_layout(b)
+        vec_a = vec_b = 0
+    else:
+        a, lda, a_k_contig, vec_a = _layout(a)
+        b, ldb, b_n_contig, vec_b = _layout(b)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     fn = _build.function(
         "gemm", "veles_gemm",
@@ -172,7 +198,8 @@ def blocked_matmul(a, b, out_dtype=torch.float32):
              torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError("blocked_matmul kernel launch failed: CUDA error "
-                           "%d" % err)
+                           "%d (negative: a CUresult of the tensor map)"
+                           % err)
     blocked_matmul.launches += 1
     return out
 

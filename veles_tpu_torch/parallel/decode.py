@@ -203,11 +203,67 @@ def quantize_params(params):
     return dict(params, blocks=qblocks, head={"q8": q, "scale": s})
 
 
-def _pick_token(logits, generator, temperature, sample, top_k):
+#: MurmurHash3's 32-bit finalizer constants and the golden-ratio offset
+#: of the counter hash below
+_MIX1, _MIX2, _GOLDEN = 0x85EBCA6B, 0xC2B2AE35, 0x9E3779B9
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    """``x * c`` mod 2^32 for int64 ``x`` in [0, 2^32) and a 32-bit
+    constant, in halves so no int64 product overflows."""
+    return ((x & 0xFFFF) * c + (((x >> 16) * c) & 0xFFFF) * 65536) & _MASK32
+
+
+def _mix32(x):
+    """MurmurHash3's finalizer, a bijection of [0, 2^32), on int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, _MIX1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _MIX2)
+    return x ^ (x >> 16)
+
+
+def fold_in(key, data):
+    """A new 32-bit key from ``key`` and the integer ``data`` (int64
+    tensors, broadcast; values in [0, 2^32)): the port's counterpart of
+    ``jax.random.fold_in``, an integer hash that gives the same bits on
+    the CPU and the card."""
+    return _mix32(key ^ _mix32((data + _GOLDEN) & _MASK32))
+
+
+def request_key(seed, request_id):
+    """The sampling key (an int64 tensor) of request ``request_id`` of a
+    decoder seeded ``seed`` (ints or int64 tensors), as the JAX decoder
+    folds the request id into its base key (``serving.py:912-918``,
+    ``:1345``). A request's stream equals :func:`generate`
+    ``(batch=1, key=...)``'s with this key, whichever slot it lands in
+    and whoever shares it."""
+    seed = torch.as_tensor(seed, dtype=torch.long) & _MASK32
+    return fold_in(_mix32(seed), torch.as_tensor(request_id,
+                                                 dtype=torch.long))
+
+
+def gumbel_noise(keys, steps, vocab):
+    """(B, vocab) float64 standard Gumbel noise for the rows' (key,
+    step) pairs: a uniform from the counter hash of (key, step, vocab
+    index) for each entry, ``-log(-log(u))``. Row b's noise depends on
+    ``keys[b]`` and ``steps[b]`` alone."""
+    step_keys = fold_in(keys.long(), steps.long())
+    index = torch.arange(vocab, dtype=torch.long, device=step_keys.device)
+    bits = fold_in(step_keys[:, None], index[None, :])
+    u = (bits.double() + 0.5) * 2.0 ** -32
+    return -torch.log(-torch.log(u))
+
+
+def _pick_token(logits, keys, steps, temperature, sample, top_k):
     """Greedy (``sample=False``; the first maximal index, as
-    ``jnp.argmax``) or temperature sampling from ``generator``,
-    optionally truncated to the top-k logits. JAX's key streams cannot
-    be reproduced here: sampled tokens agree with the JAX package in
+    ``jnp.argmax``) or temperature sampling, optionally truncated to the
+    top-k logits. Row b samples from its own stream: the Gumbel-max
+    ``argmax(logits / T + g)`` with ``g`` from (``keys[b]``,
+    ``steps[b]``) (:func:`gumbel_noise`), exact in distribution. The JAX
+    package draws from threefry keys of the same (key, step) structure;
+    its bits cannot be reproduced, so sampled tokens agree with it in
     distribution only."""
     if not sample:
         return torch.argmax(logits, dim=-1)
@@ -216,16 +272,19 @@ def _pick_token(logits, generator, temperature, sample, top_k):
         kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
         scaled = torch.where(scaled >= kth, scaled,
                              torch.full_like(scaled, float("-inf")))
-    probs = torch.softmax(scaled, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    noise = gumbel_noise(keys, steps, scaled.shape[-1])
+    return torch.argmax(scaled.double() + noise, dim=-1)
 
 
 def generate(params, embed_table, prompt_tokens, heads, n_tokens,
-             max_len=None, temperature=0.0, top_k=0, generator=None,
+             max_len=None, temperature=0.0, top_k=0, key=None,
              quantize=None, return_logits=False, device=None):
     """Decode ``n_tokens`` after ``prompt_tokens`` (B, T) ints — greedy
     by default; ``temperature > 0`` samples (optionally top-k truncated)
-    from ``generator`` (a ``torch.Generator`` on ``device``).
+    the token of step i from (``key``, i), as the JAX package's
+    ``generate(key=)`` folds the step into its key. ``key`` is an int
+    (every row draws from it) or one per row; None is
+    ``request_key(0, 0)``, the first request of a decoder seeded 0.
     ``quantize="int8"`` runs the W8A16 tier (weights quantized once up
     front unless already quantized); ``"int8-kv"`` also stores the cache
     as int8, its length rounded up to whole 128-position tiles as in the
@@ -261,10 +320,12 @@ def generate(params, embed_table, prompt_tokens, heads, n_tokens,
                           embed // heads, dtype=embed_table.dtype,
                           quantized=quantize == "int8-kv", device=device)
     logits, cache = prefill(params, embed_table[prompt], heads, cache)
+    keys = torch.as_tensor(request_key(0, 0) if key is None else key,
+                           dtype=torch.long).to(device).expand(batch)
     toks, seen = [], []
-    for _ in range(n_tokens):
-        tok = _pick_token(logits, generator, temperature,
-                          bool(temperature), top_k)
+    for i in range(n_tokens):
+        tok = _pick_token(logits, keys, torch.full_like(keys, i),
+                          temperature, bool(temperature), top_k)
         toks.append(tok)
         if return_logits:
             seen.append(logits.float())
@@ -281,9 +342,10 @@ def generate(params, embed_table, prompt_tokens, heads, n_tokens,
 # The port of decode.py:371-664: a fixed pool of cache SLOTS, each lane
 # holding one in-flight sequence at its own length, decode_step's math with
 # the scalar length generalized to a per-slot vector. PyTorch runs eagerly,
-# so the slab is updated in place (no donated copy), the chunk scan is a
-# Python loop, and the JAX package's per-request sampling keys have no
-# counterpart: a sampling decoder draws from one torch.Generator.
+# so the slab is updated in place (no donated copy) and the chunk scan is
+# a Python loop. Each slot carries its request's sampling key and the
+# step it has reached, so its sampled tokens are generate(batch=1,
+# key=...)'s.
 
 
 def init_slot_state(n_blocks, slots, max_len, heads, head_dim, vocab,
@@ -292,15 +354,11 @@ def init_slot_state(n_blocks, slots, max_len, heads, head_dim, vocab,
     (``decode.py:380-441``). Float: the slab K/V (L, S, T, H, D) in
     ``dtype``. ``quantized``: int8 K/V head-major (L, S, H, D, T) with
     f32 ``k_scale``/``v_scale`` (L, S, H, T). Control: per-slot
-    ``lengths`` and ``step`` (int32) and ``logits`` (float32, the next
+    ``lengths`` and ``step`` (int32), ``req_key`` (int64, the sampling
+    key of the slot's request) and ``logits`` (float32, the next
     token's). The page pool's state is ``kv_pool.init_paged_state``."""
     device = resolve_device(device)
-    state = {
-        "lengths": torch.zeros((slots,), dtype=torch.int32, device=device),
-        "logits": torch.zeros((slots, vocab), dtype=torch.float32,
-                              device=device),
-        "step": torch.zeros((slots,), dtype=torch.int32, device=device),
-    }
+    state = control_state(slots, vocab, device)
     if quantized:
         qshape = (n_blocks, slots, heads, head_dim, max_len)
         sshape = (n_blocks, slots, heads, max_len)
@@ -315,28 +373,61 @@ def init_slot_state(n_blocks, slots, max_len, heads, head_dim, vocab,
     return state
 
 
+def control_state(slots, vocab, device):
+    """The per-slot control rows of a slot or paged state: ``lengths``
+    and ``step`` (int32), ``req_key`` (int64) and ``logits`` (float32)."""
+    return {
+        "lengths": torch.zeros((slots,), dtype=torch.int32, device=device),
+        "logits": torch.zeros((slots, vocab), dtype=torch.float32,
+                              device=device),
+        "step": torch.zeros((slots,), dtype=torch.int32, device=device),
+        "req_key": torch.zeros((slots,), dtype=torch.long, device=device),
+    }
+
+
+def write_control(state, slots, lengths, logits, req_keys=None):
+    """Seat admitted rows: the control rows of ``slots`` (B,) get their
+    lengths, next-token logits and request keys (``req_keys`` (B,), 0
+    when None), and their step restarts at 0."""
+    idx = slots.long()
+    state["lengths"][idx] = lengths.to(torch.int32)
+    state["logits"][idx] = logits.float()
+    state["step"][idx] = 0
+    state["req_key"][idx] = (0 if req_keys is None
+                             else req_keys.to(torch.long))
+
+
+def advance_control(state, active, logits):
+    """After a step: the active rows' lengths and steps move on by one
+    and take the new logits."""
+    state["lengths"] = torch.where(active, state["lengths"] + 1,
+                                   state["lengths"])
+    state["logits"] = torch.where(active[:, None], logits, state["logits"])
+    state["step"] = torch.where(active, state["step"] + 1, state["step"])
+
+
 def slot_state_bytes(state):
     """Device bytes of a slot (or paged) decode state: the sum of its
     tensors' bytes."""
     return sum(t.numel() * t.element_size() for t in state.values())
 
 
-def slot_admit_many(params, heads, state, slots, prompt_x, lengths):
+def slot_admit_many(params, heads, state, slots, prompt_x, lengths,
+                    req_keys=None):
     """Admit one group in one prefill (``decode.py:461-507``): run
     ``prompt_x`` (B, T, E) — rows right-padded to the group's bucket T —
     and write positions [0, T) of the lanes ``slots`` (B,), quantized
     into the head-major layout in the int8-KV tier, plus their control
-    rows; ``lengths`` (B,) are the true prompt lengths. Positions past T
+    rows; ``lengths`` (B,) are the true prompt lengths, ``req_keys``
+    (B,) the rows' sampling keys (:func:`request_key`). Positions past T
     keep a retired occupant's values, which this sequence's own appends
     rewrite before its mask shows them. Updates ``state`` in place and
     returns it."""
     t = prompt_x.shape[1]
     logits, k_all, v_all, lengths = _prefill_forward(params, prompt_x,
                                                      heads, lengths)
+    write_control(state, slots, lengths, logits, req_keys)
     idx = slots.long()
-    state["lengths"][idx] = lengths.to(torch.int32)
-    state["logits"][idx] = logits.float()
-    state["step"][idx] = 0
     for name, val in (("k", k_all), ("v", v_all)):
         if "k_scale" in state:
             q8, scale = _quantize_kv(val)      # (L,B,T,H,D), (L,B,T,H)
@@ -348,12 +439,14 @@ def slot_admit_many(params, heads, state, slots, prompt_x, lengths):
 
 
 def slot_step(params, embed_table, heads, state, active, temperature=1.0,
-              sample=False, top_k=0, generator=None, span=None):
+              sample=False, top_k=0, span=None):
     """One decode step across all slots (``decode.py:529-642``);
     ``active`` (S,) bool gates which lanes advance (inactive lanes are
     computed, their lengths, logits and step stay, and the host discards
     their tokens). The token emitted at this step is picked from the
-    PRE-step logits, as ``generate`` emits.
+    PRE-step logits, as ``generate`` emits; a sampled one from the
+    slot's (``req_key``, ``step``), so a slot's stream is
+    ``generate(batch=1, key=req_key)``'s.
 
     Each lane's K/V append lands at its own length, clamped to the last
     position as the JAX package's ``dynamic_update_slice`` clamps it (an
@@ -371,7 +464,10 @@ def slot_step(params, embed_table, heads, state, active, temperature=1.0,
     if span is None or span > max_len:
         span = max_len
     lengths = state["lengths"]
-    tok_in = _pick_token(state["logits"], generator, temperature, sample,
+    # a greedy step reads no key
+    keys, steps = ((state["req_key"], state["step"]) if sample
+                   else (None, None))
+    tok_in = _pick_token(state["logits"], keys, steps, temperature, sample,
                          top_k)
     x = embed_table[tok_in][:, None, :]
     embed = x.shape[-1]
@@ -405,23 +501,18 @@ def slot_step(params, embed_table, heads, state, active, temperature=1.0,
         x = x + matmul_any(att.reshape(slots, 1, embed),
                            blk["wout"]) + blk["bout"]
         x = _mlp(blk, x)
-    logits = _head(params, x[:, 0]).float()
-    state["lengths"] = torch.where(active, lengths + 1, lengths)
-    state["logits"] = torch.where(active[:, None], logits, state["logits"])
-    state["step"] = torch.where(active, state["step"] + 1, state["step"])
+    advance_control(state, active, _head(params, x[:, 0]).float())
     return state, tok_in
 
 
 def slot_step_many(params, embed_table, heads, state, active, n,
-                   temperature=1.0, sample=False, top_k=0, generator=None,
-                   span=None):
+                   temperature=1.0, sample=False, top_k=0, span=None):
     """``n`` lockstep :func:`slot_step`s (``decode.py:645-664``); ``span``
     must cover the longest live sequence plus the whole chunk. Returns
     ``(state, emitted (n, S))``, still on the device."""
     emitted = []
     for _ in range(n):
         state, tok = slot_step(params, embed_table, heads, state, active,
-                               temperature, sample, top_k, generator,
-                               span=span)
+                               temperature, sample, top_k, span=span)
         emitted.append(tok)
     return state, torch.stack(emitted)

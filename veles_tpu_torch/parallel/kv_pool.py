@@ -45,7 +45,8 @@ from veles_tpu_torch.ops.paged_attention import (gather_pages,
                                                  paged_attend_int8)
 from veles_tpu_torch.ops.quant import matmul_any
 from veles_tpu_torch.parallel.decode import (_pick_token, _prefill_forward,
-                                             _quantize_kv)
+                                             _quantize_kv, advance_control,
+                                             control_state, write_control)
 from veles_tpu_torch.parallel.transformer_step import (_block_qkv, _head,
                                                        _mlp)
 
@@ -74,13 +75,10 @@ def init_paged_state(n_blocks, pages, page_size, heads, head_dim, vocab,
     Float tier: K/V ``(L, P, page_size, H, D)`` in ``dtype``.
     ``quantized``: int8 K/V ``(L, P, H, D, page_size)`` with f32
     ``k_scale``/``v_scale`` ``(L, P, H, page_size)``. Per-slot
-    ``lengths`` (int32) and ``logits`` (float32, the next token's)."""
+    control rows as the slab's (``decode.control_state``): ``lengths``,
+    ``step``, ``req_key`` and ``logits``."""
     device = resolve_device(device)
-    state = {
-        "lengths": torch.zeros((slots,), dtype=torch.int32, device=device),
-        "logits": torch.zeros((slots, vocab), dtype=torch.float32,
-                              device=device),
-    }
+    state = control_state(slots, vocab, device)
     if quantized:
         qshape = (n_blocks, pages, heads, head_dim, page_size)
         sshape = (n_blocks, pages, heads, page_size)
@@ -141,28 +139,23 @@ def _scatter_pages(state, page_ids, k_all, v_all):
                                              n_pages, ps)
 
 
-def _write_control(state, slots, lengths, logits):
-    slots = slots.long()
-    state["lengths"][slots] = lengths.to(torch.int32)
-    state["logits"][slots] = logits.float()
-
-
 def paged_admit_many(params, heads, state, slots, page_ids, prompt_x,
-                     lengths):
+                     lengths, req_keys=None):
     """Cold paged admission of one ragged group: prefill ``prompt_x``
     (B, T, E) — rows right-padded to the group's page-rounded width —
     scatter the K/V into ``page_ids`` (B, NP) and write the control rows
-    of ``slots`` (B,). ``lengths`` (B,) are the true prompt lengths.
-    Updates ``state`` in place and returns it."""
+    of ``slots`` (B,). ``lengths`` (B,) are the true prompt lengths,
+    ``req_keys`` (B,) the rows' sampling keys. Updates ``state`` in
+    place and returns it."""
     logits, k_all, v_all, lengths = _prefill_forward(params, prompt_x,
                                                      heads, lengths)
-    _write_control(state, slots, lengths, logits)
+    write_control(state, slots, lengths, logits, req_keys)
     _scatter_pages(state, page_ids, k_all, v_all)
     return state
 
 
 def paged_admit_tail(params, heads, state, slots, prefix_pages,
-                     tail_pages, tail_x, lengths):
+                     tail_pages, tail_x, lengths, req_keys=None):
     """Prefix-hit admission, float tier: prefill ONLY the unique tail.
     The shared prefix (``prefix_pages`` (B, PP), whole pages) is
     gathered from the pool as attention context; the tail tokens
@@ -170,7 +163,8 @@ def paged_admit_tail(params, heads, state, slots, prefix_pages,
     page-rounded tail width) run the blocks under the prefix-offset
     causal mask (tail row j sees prefix and tail positions up to
     ``PP * ps + j``) and scatter their K/V into ``tail_pages`` (B, NT).
-    ``lengths`` (B,) are the true TOTAL lengths. Plain torch attention,
+    ``lengths`` (B,) are the true TOTAL lengths, ``req_keys`` (B,) the
+    rows' sampling keys. Plain torch attention,
     as the JAX package runs XLA's here. Updates ``state`` in place and
     returns it."""
     if "k_scale" in state:
@@ -193,28 +187,29 @@ def paged_admit_tail(params, heads, state, slots, prefix_pages,
         x = _mlp(blk, x)
     rows = torch.arange(batch, device=x.device)
     last = x[rows, torch.clamp(lengths.long() - shared - 1, min=0)]
-    _write_control(state, slots, lengths, _head(params, last))
+    write_control(state, slots, lengths, _head(params, last), req_keys)
     _scatter_pages(state, tail_pages, torch.stack(ks), torch.stack(vs))
     return state
 
 
-def paged_admit_hit(state, slots, lengths, logits):
+def paged_admit_hit(state, slots, lengths, logits, req_keys=None):
     """Full-prompt prefix hit: the prompt's pages are already in the
     pool, so only the control rows are written, ``logits`` (B, V) being
-    the cold prefill's cached last-position logits. Updates ``state`` in
-    place and returns it."""
-    _write_control(state, slots, lengths, logits)
+    the cold prefill's cached last-position logits and ``req_keys`` (B,)
+    the rows' sampling keys. Updates ``state`` in place and returns
+    it."""
+    write_control(state, slots, lengths, logits, req_keys)
     return state
 
 
 def paged_slot_step(params, embed_table, heads, state, page_table, active,
-                    temperature=1.0, sample=False, top_k=0,
-                    generator=None):
+                    temperature=1.0, sample=False, top_k=0):
     """One decode step across all slots. ``page_table`` (S, PB) int32
     lists each slot's pages in logical order (padding and retired rows
     point at scratch); ``active`` (S,) bool gates which slots advance.
     The token emitted at this step is picked from the PRE-step logits
-    (the first one from the prefill's), as ``generate`` emits. Each
+    (the first one from the prefill's), as ``generate`` emits; a sampled
+    one from the slot's (``req_key``, ``step``), as the slab picks. Each
     slot's K/V append lands at position ``lengths[s]`` — page
     ``page_table[s, min(pos // ps, PB - 1)]``, offset ``pos % ps`` —
     before the attend, which sees it. The int8-KV tier quantizes the
@@ -226,7 +221,10 @@ def paged_slot_step(params, embed_table, heads, state, page_table, active,
     ps = _page_size_of(state)
     pb = page_table.shape[1]
     lengths = state["lengths"]
-    tok_in = _pick_token(state["logits"], generator, temperature, sample,
+    # a greedy step reads no key
+    keys, steps = ((state["req_key"], state["step"]) if sample
+                   else (None, None))
+    tok_in = _pick_token(state["logits"], keys, steps, temperature, sample,
                          top_k)
     x = embed_table[tok_in][:, None, :]
     embed = x.shape[-1]
@@ -257,15 +255,13 @@ def paged_slot_step(params, embed_table, heads, state, page_table, active,
         x = x + matmul_any(att.reshape(slots, 1, embed),
                            blk["wout"]) + blk["bout"]
         x = _mlp(blk, x)
-    logits = _head(params, x[:, 0]).float()
-    state["lengths"] = torch.where(active, lengths + 1, lengths)
-    state["logits"] = torch.where(active[:, None], logits, state["logits"])
+    advance_control(state, active, _head(params, x[:, 0]).float())
     return state, tok_in
 
 
 def paged_slot_step_many(params, embed_table, heads, state, page_table,
                          active, n, temperature=1.0, sample=False,
-                         top_k=0, generator=None):
+                         top_k=0):
     """``n`` lockstep paged steps; the page table is constant across the
     chunk (the host pre-maps every page its appends can touch). Returns
     ``(state, emitted (n, S))``, still on the device."""
@@ -273,7 +269,7 @@ def paged_slot_step_many(params, embed_table, heads, state, page_table,
     for _ in range(n):
         state, tok = paged_slot_step(params, embed_table, heads, state,
                                      page_table, active, temperature,
-                                     sample, top_k, generator)
+                                     sample, top_k)
         emitted.append(tok)
     return state, torch.stack(emitted)
 

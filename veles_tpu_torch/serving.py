@@ -42,6 +42,7 @@ from veles_tpu_torch.device import resolve_device, tree_to
 from veles_tpu_torch.parallel.decode import (SLOT_SPAN_TILE,
                                              init_slot_state,
                                              quantize_params,
+                                             request_key,
                                              slot_admit_many,
                                              slot_step_many)
 from veles_tpu_torch.parallel.kv_pool import (SCRATCH_PAGE, PagePool,
@@ -64,10 +65,12 @@ class ContinuousDecoder:
     Tokens stream into ``results[request_id]``; ``tokens_out`` counts
     every token delivered.
 
-    Greedy by default; ``temperature > 0`` samples from one
-    ``torch.Generator`` seeded with ``seed`` (the JAX package's
-    per-request key streams have no counterpart yet, so a sampled
-    stream depends on which requests share its steps).
+    Greedy by default; ``temperature > 0`` samples each request from
+    its own key stream, ``request_key(seed, request_id)`` folded with
+    the step (the JAX package's ``fold_in(base_key, request_id)``,
+    ``serving.py:912-918``): a request's tokens equal
+    ``generate(batch=1, key=request_key(seed, request_id))``'s whichever
+    slot it lands in and whoever shares its steps.
 
     ``quantize="int8"`` serves int8 weights; ``"int8-kv"`` also stores
     the slab (or pool) as int8 codes with per-(position, head) scales
@@ -104,8 +107,7 @@ class ContinuousDecoder:
         self.eos = eos
         self.temperature = float(temperature)
         self.top_k = int(top_k)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(seed))
+        self.seed = int(seed)
         n_blocks = len(params["blocks"])
         embed = self.embed_table.shape[1]
         vocab = self.embed_table.shape[0]
@@ -248,7 +250,8 @@ class ContinuousDecoder:
                 self.embed_table[self._padded([r[1] for r in group],
                                               bucket)],
                 self._upload(numpy.asarray([len(r[1]) for r in group],
-                                           numpy.int64)))
+                                           numpy.int64)),
+                self._req_keys(group))
             self._book_admit("admit", started, group)
             for rid, prompt, slot in group:
                 self._slot_req[slot] = rid
@@ -296,6 +299,12 @@ class ContinuousDecoder:
         if hits:
             self._admit_hits(hits)
 
+    def _req_keys(self, group):
+        """The sampling keys of an admission group's requests (each
+        row's first field is its request id), on the device."""
+        return self._upload(request_key(
+            self.seed, numpy.asarray([r[0] for r in group])).numpy())
+
     def _book_admit(self, key, started, group):
         self.timings["admit_s"] += time.perf_counter() - started
         self.dispatch_counts[key] += 1
@@ -335,7 +344,8 @@ class ContinuousDecoder:
                          numpy.int32),
             self.embed_table[self._padded([r[1] for r in group], width)],
             self._upload(numpy.asarray([len(r[1]) for r in group],
-                                       numpy.int64)))
+                                       numpy.int64)),
+            self._req_keys(group))
         self._book_admit("admit", started, group)
         for rid, prompt, slot, pages in group:
             self._seat(slot, rid, prompt, pages)
@@ -360,7 +370,8 @@ class ContinuousDecoder:
                          numpy.int32),
             self.embed_table[self._padded(tails, width)],
             self._upload(numpy.asarray([len(r[1]) for r in group],
-                                       numpy.int64)))
+                                       numpy.int64)),
+            self._req_keys(group))
         self._book_admit("admit_tail", started, group)
         for rid, prompt, slot, entry, _, pages in group:
             self._seat(slot, rid, prompt, list(entry["pages"]) + pages)
@@ -374,7 +385,8 @@ class ContinuousDecoder:
             self._upload(numpy.asarray([r[2] for r in group], numpy.int64)),
             self._upload(numpy.asarray([len(r[1]) for r in group],
                                        numpy.int64)),
-            torch.stack([r[3]["logits"] for r in group]))
+            torch.stack([r[3]["logits"] for r in group]),
+            self._req_keys(group))
         self._book_admit("admit_hit", started, group)
         for rid, prompt, slot, entry in group:
             self._slot_req[slot] = rid
@@ -454,7 +466,7 @@ class ContinuousDecoder:
         """Run ``n`` lockstep steps of every slot (slab or pool); returns
         the emitted tokens (n, S), still on the device."""
         sampling = (self.temperature or 1.0, bool(self.temperature),
-                    self.top_k, self.generator)
+                    self.top_k)
         if self.paged:
             self.state, emitted = paged_slot_step_many(
                 self.params, self.embed_table, self.heads, self.state,
