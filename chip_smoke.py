@@ -14,9 +14,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    shape, both in bf16 and f32 operands, K6 in each activation; K7 the
    flash-attention forward at a ragged serving prefill, bf16 and f32,
    and at the long-context training shape (1, 8192, 8, 128) bf16, K8 and
-   K9 its dK/dV and dQ backward there; K7, K8 and K9 also at the wider
-   heads the flash rule admits, (1, 4096, 4, 256) and (1, 4096, 2, 384)
-   causal bf16, and f32 K7 at 256) against its plain PyTorch version
+   K9 its dK/dV and dQ backward at both (bf16); K7, K8 and K9 also at the
+   wider heads the flash rule admits, (1, 4096, 4, 256) and (1, 4096, 2,
+   384) causal bf16, and f32 K7 at 256) against its plain PyTorch version
    at the path's shapes, and time kernel, plain version and the nearest
    PyTorch library call with CUDA events (L2 flushed before every timed
    launch, median of 25); then one attention() call at 4096 positions
@@ -86,6 +86,7 @@ The line before the last is {"kernels": [...]}; the last line is
 non-zero before printing either.
 """
 
+import heapq
 import json
 import math
 import statistics
@@ -1439,37 +1440,90 @@ def flash_error(label, out, ref, tol):
     return err
 
 
-def flash_bound(shape, products, nbytes):
-    """The least time of a causal flash call at ``shape``: ``products``
+def flash_ops(shape, products):
+    """The operations of a causal flash call at ``shape``: ``products``
     products of 2 D operations over the T (T + 1) / 2 visible pairs of
-    each (row, head) at the bf16 tensor-core rate, or ``nbytes`` at the
-    memory rate, whichever is larger."""
+    each (row, head)."""
     batch, t, heads, dim = shape
-    ops = products * 2 * dim * batch * heads * t * (t + 1) // 2
-    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return products * 2 * dim * batch * heads * t * (t + 1) // 2
+
+
+def flash_bound(shape, products, nbytes):
+    """The least time of a causal flash call at ``shape``: its
+    operations at the bf16 tensor-core rate, or ``nbytes`` at the memory
+    rate, whichever is larger."""
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = flash_ops(shape, products) / BF16_OPS_PER_S
     return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s
                                        else "operations")
+
+
+def schedule_tail(walks, sms):
+    """A model of a causal kernel's last wave, not a measurement: blocks
+    whose work is ``walks`` (tiles walked), dispatched longest first, each
+    to the SM that frees first (one block an SM). Returns when the last SM
+    ends, as a share of the time a perfect balance would take."""
+    loads = [0] * sms
+    for walk in sorted(walks, reverse=True):
+        heapq.heapreplace(loads, loads[0] + walk)
+    return max(loads) * sms / sum(walks)
+
+
+def flash_schedules(shape):
+    """The 128-wide K8's and K9's walks at a causal ``shape``, in 64-row
+    tiles: K8's block of 128 keys from k0 walks the queries from k0 on, K9's
+    block of 128 queries the keys up to its last query."""
+    batch, t, heads, _ = shape
+    blocks = range(0, t, 128)
+    per_row = batch * heads
+    return {"dkv": [-(-(t - k0) // 64) for k0 in blocks] * per_row,
+            "dq": [-(-min(t, q0 + 128) // 64) for q0 in blocks] * per_row}
+
+
+def check_backward(label, q, k, v, do, out, lse):
+    """K8 and K9 against their plain versions on the forward's ``out``
+    and ``lse`` (flash_error's row-wise rule, FLASH_BWD_RTOL, with its
+    planted fault). Returns (K8's max abs error, K9's, di)."""
+    di = _row_dot(out, do)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, di, True)
+    ref_dk, ref_dv = _flash_attention_dkv_plain(q, k, v, do, lse, di, True)
+    torch.cuda.synchronize()
+    dkv = max(flash_error("K8 flash_attention_dkv dK " + label, dk, ref_dk,
+                          FLASH_BWD_RTOL),
+              flash_error("K8 flash_attention_dkv dV " + label, dv, ref_dv,
+                          FLASH_BWD_RTOL))
+    del dk, dv, ref_dk, ref_dv
+    dq = flash_attention_dq(q, k, v, do, lse, di, True)
+    ref_dq = _flash_attention_dq_plain(q, k, v, do, lse, di, True)
+    torch.cuda.synchronize()
+    return dkv, flash_error("K9 flash_attention_dq dQ " + label, dq, ref_dq,
+                            FLASH_BWD_RTOL), di
 
 
 def flash_phase(timer, device, gen):
     """K7 against its plain version at a ragged serving prefill (2 rows
     of 5000 positions, bf16 and f32) and at the training shape (1, 8192,
-    8, 128) bf16, causal; K8 and K9 at the training shape. Each timed at
-    the training shape beside its plain version and the library
-    yardstick: scaled_dot_product_attention(is_causal=True) forward for
-    K7, its autograd backward (dQ, dK and dV in one call) for K8 and
-    K9."""
+    8, 128) bf16, causal; K8 and K9 at both shapes in bf16 (the serving
+    shape's batch and ragged T reach the tiles' edges, which 8192 hides).
+    Each timed at the training shape beside its plain version and the
+    library yardstick: scaled_dot_product_attention(is_causal=True)
+    forward for K7, its autograd backward (dQ, dK and dV in one call) for
+    K8 and K9; the rates beside the bound, and a model of K8's and K9's
+    last wave."""
     worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, _ = flash_problem(gen, device, FLASH_SERVE_SHAPE, dtype)
-        out, _ = flash_attention_fwd(q, k, v, True)
+        q, k, v, do = flash_problem(gen, device, FLASH_SERVE_SHAPE, dtype)
+        label = "%s %s" % ("x".join(map(str, FLASH_SERVE_SHAPE)),
+                           str(dtype).split(".")[-1])
+        out, lse = flash_attention_fwd(q, k, v, True)
         ref, _ = _flash_attention_fwd_plain(q, k, v, True)
         torch.cuda.synchronize()
         worst["fwd"] = max(worst["fwd"], flash_error(
-            "K7 flash_attention_fwd %s %s" % (
-                "x".join(map(str, FLASH_SERVE_SHAPE)),
-                str(dtype).split(".")[-1]), out, ref,
+            "K7 flash_attention_fwd " + label, out, ref,
             K7_RTOL if dtype == torch.bfloat16 else K7_F32_RTOL))
+        if dtype == torch.bfloat16:
+            worst["dkv"], worst["dq"], _ = check_backward(label, q, k, v, do,
+                                                          out, lse)
     q, k, v, do = flash_problem(gen, device, FLASH_TRAIN_SHAPE,
                                 torch.bfloat16)
     label = "x".join(map(str, FLASH_TRAIN_SHAPE)) + " bf16"
@@ -1478,20 +1532,10 @@ def flash_phase(timer, device, gen):
     torch.cuda.synchronize()
     worst["fwd"] = max(worst["fwd"], flash_error(
         "K7 flash_attention_fwd " + label, out, ref, K7_RTOL))
-    di = _row_dot(out, do)
-    dk, dv = flash_attention_dkv(q, k, v, do, lse, di, True)
-    ref_dk, ref_dv = _flash_attention_dkv_plain(q, k, v, do, lse, di, True)
-    torch.cuda.synchronize()
-    worst["dkv"] = max(flash_error("K8 flash_attention_dkv dK " + label, dk,
-                                   ref_dk, FLASH_BWD_RTOL),
-                       flash_error("K8 flash_attention_dkv dV " + label, dv,
-                                   ref_dv, FLASH_BWD_RTOL))
-    dq = flash_attention_dq(q, k, v, do, lse, di, True)
-    ref_dq = _flash_attention_dq_plain(q, k, v, do, lse, di, True)
-    torch.cuda.synchronize()
-    worst["dq"] = flash_error("K9 flash_attention_dq dQ " + label, dq,
-                              ref_dq, FLASH_BWD_RTOL)
-    del ref, ref_dk, ref_dv, ref_dq, dk, dv, dq
+    del ref
+    dkv_err, dq_err, di = check_backward(label, q, k, v, do, out, lse)
+    worst["dkv"] = max(worst["dkv"], dkv_err)
+    worst["dq"] = max(worst["dq"], dq_err)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     heads_first = [t.transpose(1, 2) for t in (q, k, v)]
     leaves = [t.detach().requires_grad_(True) for t in heads_first]
@@ -1534,11 +1578,12 @@ def flash_phase(timer, device, gen):
     for key, number in (("fwd", "K7"), ("dkv", "K8"), ("dq", "K9")):
         ms, plain_ms, library_ms = times[key]
         bound_ms, bound_by = flash_bound(FLASH_TRAIN_SHAPE, *work[key])
-        print("%s flash_attention_%s %s causal: ms %.4f plain_ms %.4f "
-              "sdpa_%s_ms %.4f bound_ms %.4f (%s)"
-              % (number, key, label, ms, plain_ms,
-                 "fwd" if key == "fwd" else "bwd", library_ms, bound_ms,
-                 bound_by))
+        print("%s flash_attention_%s %s causal: ms %.4f (%.1f TFLOP/s) "
+              "plain_ms %.4f sdpa_%s_ms %.4f bound_ms %.4f (%s, %.0f TFLOP/s)"
+              % (number, key, label, ms,
+                 flash_ops(FLASH_TRAIN_SHAPE, work[key][0]) / ms / 1e9,
+                 plain_ms, "fwd" if key == "fwd" else "bwd", library_ms,
+                 bound_ms, bound_by, BF16_OPS_PER_S / 1e12))
         entries.append({
             "name": "flash_attention_" + key, "route": "cuda",
             "source": "veles_tpu_torch/ops/csrc/" + source[key][0],
@@ -1550,6 +1595,13 @@ def flash_phase(timer, device, gen):
             "library_ms": library_ms, "library": library[key]})
     print("K8 + K9 %.4f ms against sdpa_bwd_ms %.4f (one call computing dQ, "
           "dK and dV)" % (times["dkv"][0] + times["dq"][0], lib_bwd_ms))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for key, walks in flash_schedules(FLASH_TRAIN_SHAPE).items():
+        print("%s schedule model at %s: %d blocks walking %d-%d tiles of 64, "
+              "longest first over %d SMs: the last SM ends at %.4f of a "
+              "perfect balance" % ("K8" if key == "dkv" else "K9", label,
+                                   len(walks), min(walks), max(walks), sms,
+                                   schedule_tail(walks, sms)))
     return entries
 
 
@@ -1571,22 +1623,10 @@ def flash_wide_phase(timer, device, gen):
         torch.cuda.synchronize()
         worst["fwd"] = max(worst["fwd"], flash_error(
             "K7 flash_attention_fwd " + label, out, ref, K7_RTOL))
-        di = _row_dot(out, do)
-        dk, dv = flash_attention_dkv(q, k, v, do, lse, di, True)
-        ref_dk, ref_dv = _flash_attention_dkv_plain(q, k, v, do, lse, di,
-                                                    True)
-        dq = flash_attention_dq(q, k, v, do, lse, di, True)
-        ref_dq = _flash_attention_dq_plain(q, k, v, do, lse, di, True)
-        torch.cuda.synchronize()
-        worst["dkv"] = max(worst["dkv"],
-                           flash_error("K8 flash_attention_dkv dK " + label,
-                                       dk, ref_dk, FLASH_BWD_RTOL),
-                           flash_error("K8 flash_attention_dkv dV " + label,
-                                       dv, ref_dv, FLASH_BWD_RTOL))
-        worst["dq"] = max(worst["dq"], flash_error(
-            "K9 flash_attention_dq dQ " + label, dq, ref_dq,
-            FLASH_BWD_RTOL))
-        del ref, ref_dk, ref_dv, ref_dq, dk, dv, dq
+        del ref
+        dkv_err, dq_err, di = check_backward(label, q, k, v, do, out, lse)
+        worst["dkv"] = max(worst["dkv"], dkv_err)
+        worst["dq"] = max(worst["dq"], dq_err)
         heads_first = [t.transpose(1, 2) for t in (q, k, v)]
         leaves = [t.detach().requires_grad_(True) for t in heads_first]
         lib_out = sdpa(*leaves, is_causal=True)

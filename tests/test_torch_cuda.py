@@ -13,8 +13,9 @@ operand types, every activation, transposed and strided operands, and
 the dense layer's backward on the card against the plain backward, and
 K5's bf16 route (TMA and wgmma) at the training path's two layouts and
 at operands TMA refuses (the wrapper copies them); K7, K8 and K9 at
-ragged T, at 4096 and 8192 positions, causal and not, at head widths
-128, 256 and 384, on the qkv projection's split views, attention() at
+ragged T, at 4096 and 8192 positions, causal and not, at the edges of
+the 128-wide kernels' tiles, at head widths 128, 256 and 384, on the qkv
+projection's split views, K8 and K9 run twice bit for bit, attention() at
 4096 positions with 256-wide heads, the custom VJP on the card against
 the CPU, the wrappers' refusals and a refused launch.
 
@@ -428,10 +429,14 @@ def _flash_inputs(gen, batch, t_q, t_k, heads, dim, dtype):
 
 #: (batch, t_q, t_k, heads, dim, causal): ragged T (not a multiple of the
 #: 64 tiles or of 128), the serving prefill's 4096 and the training 8192,
-#: a short query block against long keys
+#: a short query block against long keys; at width 128 the edges of the
+#: wgmma kernels' tiles: one row past a 128 tile, one 128-query tile
+#: against ragged keys, less than one tile
 FLASH_CASES = [(2, 333, 333, 2, 128, True), (1, 1000, 1000, 3, 128, False),
                (1, 4096, 4096, 2, 128, True), (1, 4096, 4096, 1, 128, False),
                (1, 8192, 8192, 1, 128, True), (2, 300, 1000, 2, 128, False),
+               (1, 4097, 4097, 1, 128, True), (1, 128, 4160, 2, 128, False),
+               (3, 40, 40, 2, 128, True),
                (2, 333, 333, 1, 256, True), (1, 4096, 4096, 2, 256, True),
                (2, 300, 1000, 1, 256, False), (1, 500, 500, 2, 384, True),
                (1, 4096, 4096, 1, 384, False), (1, 200, 600, 1, 512, False)]
@@ -489,6 +494,21 @@ def test_flash_reads_split_views_in_place(cuda, dim):
         results.append((out, *flash_attention_dkv(q, k, v, do, lse, di, True),
                         flash_attention_dq(q, k, v, do, lse, di, True)))
     for a, b in zip(*results):
+        assert torch.equal(a, b)
+
+
+def test_flash_backward_is_deterministic(cuda):
+    """K8 and K9 sum every output element in one block in a fixed order
+    (no atomics): two runs on the same inputs agree bit for bit."""
+    q, k, v = _flash_inputs(cuda, 1, 4096, 4096, 4, 128, torch.bfloat16)
+    do = torch.randn(q.shape, generator=cuda,
+                     device="cuda").to(torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v, True)
+    di = attn._row_dot(out, do)
+    runs = [(*flash_attention_dkv(q, k, v, do, lse, di, True),
+             flash_attention_dq(q, k, v, do, lse, di, True))
+            for _ in range(2)]
+    for a, b in zip(*runs):
         assert torch.equal(a, b)
 
 

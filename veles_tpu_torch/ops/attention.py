@@ -201,7 +201,7 @@ def _check_rows(name, *tensors):
     """What the kernels read in place: a head width that is a multiple of
     :data:`FLASH_HEAD_MULTIPLE`, the last axis contiguous, every other
     stride and the pointer 16-byte aligned (the kernels load 16 bytes at
-    a time; K7's tensor maps want the same)."""
+    a time; the wgmma kernels' tensor maps want the same)."""
     for t in tensors:
         if t.shape[-1] % FLASH_HEAD_MULTIPLE:
             raise ValueError("%s's kernels take head widths that are "
@@ -373,7 +373,10 @@ def flash_attention_dkv(q, k, v, do, lse, di, causal=False):
     gradient ``do`` (like q), the forward's ``lse`` and ``di`` = rowsum(O
     * dO), both f32 (B, H, Tq) contiguous. On a CUDA tensor (bfloat16
     only) the kernel launches (:attr:`flash_attention_dkv.launches`
-    counts it); on a CPU tensor the plain version runs."""
+    counts it) and reads q, k, v and dO in place: at head width 128
+    through TMA and wgmma, at other multiples of 128 with a grid axis over
+    128-wide output chunks (``csrc/flash_attention_bwd.cu``). On a CPU
+    tensor the plain version runs."""
     _check_backward("flash_attention_dkv", q, k, v, do, lse, di, causal)
     if q.device.type == "cpu":
         return _flash_attention_dkv_plain(q, k, v, do, lse, di, causal)
@@ -385,7 +388,8 @@ def flash_attention_dkv(q, k, v, do, lse, di, causal=False):
     err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *rest)
     if err:
         raise RuntimeError("flash_attention_dkv kernel launch failed: CUDA "
-                           "error %d" % err)
+                           "error %d (negative: a CUresult of a tensor map)"
+                           % err)
     flash_attention_dkv.launches += 1
     return dk, dv
 
@@ -397,8 +401,8 @@ flash_attention_dkv.launches = 0
 def flash_attention_dq(q, k, v, do, lse, di, causal=False):
     """K9: ``dq`` of the flash forward, from the arguments K8 takes. On
     a CUDA tensor (bfloat16 only) the kernel launches
-    (:attr:`flash_attention_dq.launches` counts it); on a CPU tensor the
-    plain version runs."""
+    (:attr:`flash_attention_dq.launches` counts it), routed by head width
+    as K8's; on a CPU tensor the plain version runs."""
     _check_backward("flash_attention_dq", q, k, v, do, lse, di, causal)
     if q.device.type == "cpu":
         return _flash_attention_dq_plain(q, k, v, do, lse, di, causal)
@@ -409,7 +413,8 @@ def flash_attention_dq(q, k, v, do, lse, di, causal=False):
     err = fn(*ptrs, dq.data_ptr(), *rest)
     if err:
         raise RuntimeError("flash_attention_dq kernel launch failed: CUDA "
-                           "error %d" % err)
+                           "error %d (negative: a CUresult of a tensor map)"
+                           % err)
     flash_attention_dq.launches += 1
     return dq
 

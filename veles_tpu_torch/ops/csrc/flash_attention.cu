@@ -270,21 +270,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-// the rank-4 tensor map of a (B, T, H, D) bf16 view with element strides
-// s (batch, position, head), boxes of [rows][64]
-int view_map(CUtensorMap* map, const void* base, int B, int T, int H, int D,
-             const Strides& s, int rows) {
-  const uint64_t dims[4] = {static_cast<uint64_t>(D),
-                            static_cast<uint64_t>(H),
-                            static_cast<uint64_t>(T),
-                            static_cast<uint64_t>(B)};
-  const uint64_t strides[3] = {static_cast<uint64_t>(s.h) * 2,
-                               static_cast<uint64_t>(s.t) * 2,
-                               static_cast<uint64_t>(s.b) * 2};
-  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(rows), 1};
-  return sm90::encode_map(map, base, 4, dims, strides, box);
-}
-
 template <int D>
 int run_sm90(const void* q, const void* k, const void* v, void* o,
              float* lse, int B, int H, int Tq, int Tk, int causal,
@@ -292,9 +277,11 @@ int run_sm90(const void* q, const void* k, const void* v, void* o,
              const Strides& vs, cudaStream_t stream) {
   using Tile = Sm90Tile<D>;
   CUtensorMap qmap, kmap, vmap;
-  int err = view_map(&qmap, q, B, Tq, H, D, qs, kWgBQ);
-  if (!err) err = view_map(&kmap, k, B, Tk, H, D, ks, Tile::BK);
-  if (!err) err = view_map(&vmap, v, B, Tk, H, D, vs, Tile::BK);
+  int err = sm90::view_map(&qmap, q, B, Tq, H, D, qs.b, qs.t, qs.h, kWgBQ);
+  if (!err)
+    err = sm90::view_map(&kmap, k, B, Tk, H, D, ks.b, ks.t, ks.h, Tile::BK);
+  if (!err)
+    err = sm90::view_map(&vmap, v, B, Tk, H, D, vs.b, vs.t, vs.h, Tile::BK);
   if (err) return err;
   cudaError_t cerr = allow_smem(fwd_sm90<D>, Tile::SMEM);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);

@@ -1,7 +1,10 @@
-// Tile helpers shared by the flash-attention kernels: K7 (forward,
-// flash_attention.cu), K8 and K9 (backward, flash_attention_bwd.cu).
+// Tile helpers shared by the flash-attention kernels: the mma.sync and FMA
+// kernels of K7 (forward, flash_attention.cu: fwd_wide, fwd_f32), K8 and
+// K9 (backward, flash_attention_bwd.cu: dkv_wide, dq_wide), and the
+// constants and small helpers (Strides, pack, allow_smem) that the wgmma
+// kernels of both files take from here.
 //
-// The bf16 kernels run their products on the tensor cores through
+// The mma.sync kernels run their bf16 products on the tensor cores through
 // mma.sync.m16n8k16 (bf16 operands, f32 accumulator), whose fragment
 // layouts the PTX ISA fixes. With lane = threadIdx.x % 32, g = lane / 4
 // and c = lane % 4, a warp holds:
@@ -21,9 +24,9 @@
 // (16 bytes): the 8 row groups of a fragment load then fall on 8
 // different bank quads, so fragment loads are conflict-free.
 //
-// Head widths: the kernels built for one width hold a whole row of it
-// (K7's wgmma kernel at 128 and 256, K8 and K9 at 128). Every other
-// multiple of 128 runs a "wide" kernel: a grid axis over the output's
+// Head widths: the wgmma kernels (sm90.cuh) hold a whole row of the width
+// they are built for (K7 at 128 and 256, K8 and K9 at 128). Every other
+// multiple of 128 runs a "wide" kernel here: a grid axis over the output's
 // 128-wide column chunks (kChunk), each block summing its scores over the
 // full width in 128-wide steps through shared memory and writing only
 // its own chunk; the score work repeats once a chunk.
@@ -137,28 +140,6 @@ __device__ __forceinline__ void load_rows(T* s, const T* __restrict__ g,
     if (r0 + r < rows)
       val = *reinterpret_cast<const uint4*>(g + (r0 + r) * st + c);
     *reinterpret_cast<uint4*>(s + r * LD + c) = val;
-  }
-}
-
-// Store a warp's 16 x D f32 accumulator (one C tile per 8 columns: rows
-// r0 + g scaled by f0, rows r0 + g + 8 by f1) as bf16 into a contiguous
-// (B, T, H, D) output; rows at or past T are skipped.
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* __restrict__ out,
-                                          const float (&acc)[D / 8][4],
-                                          int b, int h, int H, int T, int r0,
-                                          float f0, float f1) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r0 + g + 8 * half;
-    if (row >= T) continue;
-    const float f = half ? f1 : f0;
-    bf16* p = out + (((long long)b * T + row) * H + h) * D + 2 * c;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(p + n * 8) =
-          pack(acc[n][2 * half] * f, acc[n][2 * half + 1] * f);
   }
 }
 

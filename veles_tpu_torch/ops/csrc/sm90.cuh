@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels: K5's
-// bf16 mainloop (gemm_sm90.cuh) and K7's bf16 forward
-// (flash_attention.cu).
+// bf16 mainloop (gemm_sm90.cuh), K7's bf16 forward (flash_attention.cu)
+// and K8's and K9's bf16 backward at head width 128
+// (flash_attention_bwd.cu).
 //
 // - mbarriers: the full / empty barriers of a ring of shared-memory stages
 //   (a producer's TMA loads complete the full barrier's transaction count;
@@ -379,6 +380,24 @@ inline int encode_map(CUtensorMap* map, const void* base, int rank,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : -static_cast<int>(res);
+}
+
+// The rank-4 tensor map (D, H, T, B) of a (B, T, H, D) bf16 view with
+// element strides sb, st, sh (the head axis contiguous), boxes of
+// [rows][64]: a flash kernel's operand read in place, one 64-wide column
+// chunk of `rows` positions a box. Rows past T fill with zeros.
+inline int view_map(CUtensorMap* map, const void* base, int B, int T, int H,
+                    int D, long long sb, long long st, long long sh,
+                    int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D),
+                            static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(T),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(sh) * 2,
+                               static_cast<uint64_t>(st) * 2,
+                               static_cast<uint64_t>(sb) * 2};
+  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(rows), 1};
+  return encode_map(map, base, 4, dims, strides, box);
 }
 
 }  // namespace sm90
