@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
-the shapes and types the serving smoke does not reach: K2's byte-wise
-path (N % 16 != 0, misaligned q), K chunks past 512, f32 x, the M > 256
-regime rule; K1 at head rows of 64 to 512 bytes, mixed query and pool
+the shapes and types the serving smoke does not reach: K2 at every
+decode-step shape and 1 to 256 rows in both x types, its byte-wise path
+(N % 16 != 0, misaligned q), ragged K and N, two calls bit-equal, calls
+of other shapes in a row (the split counters reset), the M > 256 regime
+rule; K1 at head rows of 64 to 512 bytes, mixed query and pool
 types; K3 at length 0, full table rows, head widths 32 to 128 and both
 query types; K4 at head widths 32 to 128, shared and per-row masks,
 lanes of several 8192-position tiles (one fully masked tile first or
@@ -12,7 +14,8 @@ flash rule leaves to plain attention; K5 and K6 at odd shapes, both
 operand types, every activation, transposed and strided operands, and
 the dense layer's backward on the card against the plain backward, and
 K5's bf16 route (TMA and wgmma) at the training path's two layouts and
-at operands TMA refuses (the wrapper copies them); K7, K8 and K9 at
+at operands TMA refuses (the wrapper copies them), K6's (the same
+mainloop with the epilogue) at k = 784 and a ragged shape; K7, K8 and K9 at
 ragged T, at 4096 and 8192 positions, causal and not, at the edges of
 the 128-wide kernels' tiles, at head widths 128, 256 and 384, on the qkv
 projection's split views, K8 and K9 run twice bit for bit, attention() at
@@ -124,6 +127,77 @@ def test_int8_matmul_large_m_runs_the_plain_product(cuda):
     out = int8_matmul(x, q, scale)
     assert int8_matmul.launches == before
     _close(out, _int8_matmul_plain(x, q, scale), torch.float32)
+
+
+#: the serving model's decode-step weights (K, N): qkv, out, MLP up, MLP
+#: down, the vocab head; and the rows the serving path sends
+K2_DECODE_SHAPES = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024),
+                    (1024, 32768)]
+K2_ROWS = [1, 8, 16, 100, PALLAS_MAX_ROWS]
+
+
+def _close_to_largest(out, ref):
+    """K2 against its plain version, relative to the largest output: f32
+    sums of up to 4096 terms in another order (~1e-6 of it); one bf16
+    rounding of the output may differ by an ulp (2^-8)."""
+    tol = 1e-5 if out.dtype == torch.float32 else 1e-2
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("m", K2_ROWS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("k,n", K2_DECODE_SHAPES,
+                         ids=["%dx%d" % s for s in K2_DECODE_SHAPES])
+def test_int8_matmul_at_the_decode_shapes(cuda, k, n, dtype, m):
+    x, q, scale = _int8_problem(cuda, m, k, n, dtype)
+    before = int8_matmul.launches
+    out = int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    _close_to_largest(out, _int8_matmul_plain(x, q, scale))
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (8, 1000, 1024, torch.bfloat16),  # ragged K split, x rows copied
+    (8, 37, 4096, torch.float32),     # one ragged 16-row step
+    (100, 1000, 130, torch.bfloat16),  # ragged K and N: the byte path
+    (16, 4100, 1040, torch.float32),  # ragged last tile, split
+    (256, 37, 48, torch.bfloat16),
+], ids=["k1000", "k37", "k1000_n130", "n1040", "m256_k37"])
+def test_int8_matmul_ragged_k_and_n(cuda, m, k, n, dtype):
+    x, q, scale = _int8_problem(cuda, m, k, n, dtype)
+    out = int8_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    _close_to_largest(out, _int8_matmul_plain(x, q, scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_int8_matmul_is_deterministic(cuda, dtype):
+    """Split-K partials meet in split order in the tile's last block:
+    two calls are bit-equal at every decode shape."""
+    for k, n in K2_DECODE_SHAPES:
+        x, q, scale = _int8_problem(cuda, 8, k, n, dtype)
+        first = int8_matmul(x, q, scale)
+        second = int8_matmul(x, q, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def test_int8_matmul_counters_reset_between_shapes(cuda):
+    """Calls of other shapes (and splits) in a row on one stream each
+    find their tile counters at zero."""
+    problems = [_int8_problem(cuda, m, k, n, torch.bfloat16)
+                for m, k, n in ((8, 4096, 1024), (8, 1024, 1024),
+                                (8, 1024, 3072), (100, 4096, 1024))]
+    outs = [int8_matmul(*p) for p in problems + problems[:2]]
+    torch.cuda.synchronize()
+    for out, p in zip(outs, problems + problems[:2]):
+        _close_to_largest(out, _int8_matmul_plain(*p))
+    assert torch.equal(outs[0], outs[4]) and torch.equal(outs[1], outs[5])
 
 
 def _paged_problem(gen, head_dim, q_dtype, kv_dtype, heads=4, ps=16):
@@ -647,6 +721,33 @@ def test_dense_epilogue_kernel_matches_plain(cuda, dtype, activation):
         torch.cuda.synchronize()
         assert dense_epilogue.launches == before + 1
         _gemm_close(out, _dense_epilogue_plain(a, b, bias, activation))
+
+
+@pytest.mark.parametrize("activation", sorted(ACTIVATIONS))
+@pytest.mark.parametrize("shape", [(512, 784, 640), (600, 520, 530),
+                                   (600, 520, 544)],
+                         ids=["k784", "ragged", "ragged_m"])
+def test_dense_epilogue_bf16_route_matches_plain(cuda, shape, activation):
+    """K6's bf16 operands on K5's TMA and wgmma mainloop (k = 784 is
+    12.25 K tiles; 600 x 520 x 530 is ragged on every axis, and its b,
+    1060-byte rows, is the one operand the wrapper copies; its output
+    rows, 2120 bytes, take the direct stores, 544's the TMA stores,
+    clipped at row 600), within 1e-4 of the largest output."""
+    m, k, n = shape
+    a = torch.randn((m, k), generator=cuda, device="cuda").to(torch.bfloat16)
+    b = (torch.randn((k, n), generator=cuda, device="cuda")
+         / math.sqrt(k)).to(torch.bfloat16)
+    bias = torch.randn(n, generator=cuda, device="cuda")
+    assert gemm._tma_layout(a)[0].data_ptr() == a.data_ptr()
+    copied = gemm._tma_layout(b)[0].data_ptr() != b.data_ptr()
+    assert copied == (n % 8 != 0)
+    before = dense_epilogue.launches
+    out = dense_epilogue(a, b, bias, activation)
+    torch.cuda.synchronize()
+    assert dense_epilogue.launches == before + 1
+    ref = _dense_epilogue_plain(a, b, bias, activation)
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item()
 
 
 @pytest.mark.parametrize("level", [0, 2])

@@ -5,8 +5,8 @@
 // of every eligible dense layer (m 784, k 4096, n 4096 on the wide MLP,
 // x.T read in place) and the input gradient err @ w.T of deeper ones.
 // bf16 operands run the Hopper mainloop of gemm_sm90.cuh (TMA ring,
-// wgmma); f32 operands the true-f32 FMA tile of gemm_tiles.cuh. Each
-// header states its bound and design.
+// wgmma) with no epilogue; f32 operands the true-f32 FMA tile of
+// gemm_tiles.cuh. Each header states its bound and design.
 
 #include "gemm_sm90.cuh"
 #include "gemm_tiles.cuh"
@@ -34,6 +34,6 @@ extern "C" int veles_gemm(const void* a, const void* b, void* c, int m,
   }
   Problem p{a, b, nullptr, c, m, n, k, lda, ldb, ldc,
             a_k_contig != 0, b_n_contig != 0, vec_a != 0, vec_b != 0};
-  if (out_dtype == 1) return launch<__nv_bfloat16, EPI_NONE, false>(p, s);
-  return launch<float, EPI_NONE, false>(p, s);
+  if (out_dtype == 1) return launch<__nv_bfloat16, EPI_NONE>(p, s);
+  return launch<float, EPI_NONE>(p, s);
 }

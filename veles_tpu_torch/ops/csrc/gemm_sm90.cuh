@@ -1,10 +1,14 @@
-// K5's bf16 mainloop for Hopper: C = A @ B with bf16 operands, an f32
-// accumulator and an f32 or bf16 output (gemm.cu; f32 operands stay on
-// gemm_tiles.cuh's true-f32 tile, K6 on its wmma tile).
+// The bf16 mainloop for Hopper shared by K5 and K6: C = epi(A @ B) with
+// bf16 operands, an f32 accumulator and an f32 or bf16 output. K5
+// (gemm.cu) runs it with EPI_NONE; K6 (dense_epilogue.cu) with a bias and
+// one of the five activations (epilogue.cuh). f32 operands stay on
+// gemm_tiles.cuh's true-f32 tile.
 //
 // What bounds it on the H100: operations. The wide MLP's weight gradient
-// x.T @ err (m 784, k 4096, n 4096) is 26.3 GFLOP, 0.0266 ms at the bf16
-// tensor-core rate, against 43 MB of operands and output (0.013 ms).
+// x.T @ err (m 784, k 4096, n 4096, K5) and its hidden layer's forward x @
+// w (m 4096, k 784, n 4096, K6) are 26.3 GFLOP each, 0.0266 ms at the
+// bf16 tensor-core rate, against 43 MB (K5) or 80 MB (K6: a 67 MB f32
+// output, 0.020 ms of stores) of operands and output.
 //
 // Design:
 // - One block of three warpgroups per BM x BN output tile (BM 128, BN 256
@@ -26,20 +30,25 @@
 //   contiguous (w.T, grad_x) is K-major (one [BN][64] box). All boxes are
 //   128-byte swizzled; sm90.cuh gives the descriptors' offsets.
 // - Ragged edges: TMA fills the rows, columns and K steps past the tensor
-//   with zeros (which add nothing to a sum) and the epilogue masks its
-//   stores past m and n. The epilogue writes each thread's accumulator
-//   pairs straight to device memory (f32 or bf16).
+//   with zeros (which add nothing to a sum: k = 784 is 12.25 K tiles) and
+//   the epilogue masks its stores past m and n. The epilogue writes each
+//   thread's accumulator pairs straight to device memory (f32 or bf16);
+//   K6's adds the pair's two bias values (one float2 read per column
+//   pair, shared by the thread's two rows) and applies the activation
+//   first, so the pre-activation never reaches device memory.
 // - What TMA refuses (a base or leading stride that is not 16-byte
 //   aligned) the wrapper copies into an aligned buffer first
 //   (ops/gemm.py).
 
 #pragma once
 
+#include "epilogue.cuh"
 #include "sm90.cuh"
 
 namespace gemm_sm90 {
 
 using bf16 = __nv_bfloat16;
+using namespace epilogue;
 
 constexpr int BM = 128;
 constexpr int BK = 64;
@@ -82,12 +91,14 @@ __device__ __forceinline__ void mma(float (&acc)[BN / 2], uint64_t da,
 }
 
 // A_MN: A is m-contiguous; B_MN: B is n-contiguous (else each is
-// k-contiguous). map_a / map_b: the operands' tensor maps (see gemm.cu).
-template <int BN, bool A_MN, bool B_MN, typename OutT>
+// k-contiguous). map_a / map_b: the operands' tensor maps (see run).
+// EPI: EPI_NONE, or an activation applied after adding bias[col].
+template <int BN, bool A_MN, bool B_MN, typename OutT, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_bf16_sm90(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_b,
-                   OutT* __restrict__ c, int m, int n, int k, long long ldc) {
+                   OutT* __restrict__ c, const float* __restrict__ bias,
+                   int m, int n, int k, long long ldc) {
   constexpr int A_TILE = BM * BK;  // elements a stage
   constexpr int B_TILE = BK * BN;
   constexpr uint32_t STAGE_BYTES = (A_TILE + B_TILE) * sizeof(bf16);
@@ -179,12 +190,26 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int col = col0 + 8 * j;
       if (col >= n) continue;
       const bool both = col + 1 < n;
+      float b0 = 0.f, b1 = 0.f;
+      if constexpr (EPI != EPI_NONE) {
+        if (both) {
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
+          b0 = bb.x;
+          b1 = bb.y;
+        } else {
+          b0 = __ldg(bias + col);
+        }
+      }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = row0 + 8 * half;
+        float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+        if constexpr (EPI != EPI_NONE) {
+          v0 = activate<EPI>(v0 + b0);
+          v1 = activate<EPI>(v1 + b1);
+        }
         if (row < m)
-          store_pair(c + row * ldc + col, acc[4 * j + 2 * half],
-                     acc[4 * j + 2 * half + 1], both, both && even);
+          store_pair(c + row * ldc + col, v0, v1, both, both && even);
       }
     }
   }
@@ -199,44 +224,52 @@ inline int pick_bn(int m, int n, int sms) {
   return w256 <= w128 ? 256 : 128;
 }
 
-template <int BN, bool A_MN, bool B_MN, typename OutT>
+template <int BN, bool A_MN, bool B_MN, typename OutT, int EPI>
 inline int launch_tile(const CUtensorMap& ma, const CUtensorMap& mb, OutT* c,
-                       int m, int n, int k, long long ldc,
-                       cudaStream_t stream) {
-  auto kernel = gemm_bf16_sm90<BN, A_MN, B_MN, OutT>;
+                       const float* bias, int m, int n, int k, long long ldc,
+                       int device, cudaStream_t stream) {
+  auto kernel = gemm_bf16_sm90<BN, A_MN, B_MN, OutT, EPI>;
   const size_t smem = smem_bytes<BN>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static sm90::SmemOptIn opt_in;  // one per instantiation
+  int err = opt_in.ensure(kernel, static_cast<int>(smem), device);
+  if (err) return err;
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  kernel<<<grid, THREADS, smem, stream>>>(ma, mb, c, m, n, k, ldc);
+  kernel<<<grid, THREADS, smem, stream>>>(ma, mb, c, bias, m, n, k, ldc);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN, typename OutT>
+template <int BN, typename OutT, int EPI>
 inline int launch_bn(bool a_mn, bool b_mn, const CUtensorMap& ma,
-                     const CUtensorMap& mb, OutT* c, int m, int n, int k,
-                     long long ldc, cudaStream_t s) {
+                     const CUtensorMap& mb, OutT* c, const float* bias,
+                     int m, int n, int k, long long ldc, int device,
+                     cudaStream_t s) {
   if (a_mn && b_mn)
-    return launch_tile<BN, true, true>(ma, mb, c, m, n, k, ldc, s);
-  if (a_mn) return launch_tile<BN, true, false>(ma, mb, c, m, n, k, ldc, s);
-  if (b_mn) return launch_tile<BN, false, true>(ma, mb, c, m, n, k, ldc, s);
-  return launch_tile<BN, false, false>(ma, mb, c, m, n, k, ldc, s);
+    return launch_tile<BN, true, true, OutT, EPI>(ma, mb, c, bias, m, n, k,
+                                                  ldc, device, s);
+  if (a_mn)
+    return launch_tile<BN, true, false, OutT, EPI>(ma, mb, c, bias, m, n, k,
+                                                   ldc, device, s);
+  if (b_mn)
+    return launch_tile<BN, false, true, OutT, EPI>(ma, mb, c, bias, m, n, k,
+                                                   ldc, device, s);
+  return launch_tile<BN, false, false, OutT, EPI>(ma, mb, c, bias, m, n, k,
+                                                  ldc, device, s);
 }
 
 // A (m, k) and B (k, n) bf16 at a and b, each read in place through its
 // leading stride (elements; 16-byte aligned, as the pointers): a_mn /
 // b_mn say the m (n) axis is the contiguous one. Returns the cudaError_t
-// of the launch, or minus a CUresult when a tensor map is refused.
-template <typename OutT>
+// of the launch, or minus a CUresult when a tensor map is refused. EPI
+// other than EPI_NONE adds bias (n f32 values) and applies the activation.
+template <typename OutT, int EPI = EPI_NONE>
 inline int run(const void* a, const void* b, OutT* c, int m, int n, int k,
                long long lda, bool a_mn, long long ldb, bool b_mn,
-               long long ldc, cudaStream_t stream) {
-  int device = 0, sms = 132;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int bn = pick_bn(m, n, sms);
+               long long ldc, cudaStream_t stream,
+               const float* bias = nullptr) {
+  int device = 0;
+  cudaError_t dev_err = cudaGetDevice(&device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  const int bn = pick_bn(m, n, sm90::sm_count(device));
   CUtensorMap ma, mb;
   // a tensor map lists its dimensions innermost (contiguous) first
   const uint64_t a_dims[2] = {static_cast<uint64_t>(a_mn ? m : k),
@@ -252,8 +285,10 @@ inline int run(const void* a, const void* b, OutT* c, int m, int n, int k,
   err = sm90::encode_map(&mb, b, 2, b_dims, b_stride, b_box);
   if (err) return err;
   if (bn == 256)
-    return launch_bn<256>(a_mn, b_mn, ma, mb, c, m, n, k, ldc, stream);
-  return launch_bn<128>(a_mn, b_mn, ma, mb, c, m, n, k, ldc, stream);
+    return launch_bn<256, OutT, EPI>(a_mn, b_mn, ma, mb, c, bias, m, n, k,
+                                     ldc, device, stream);
+  return launch_bn<128, OutT, EPI>(a_mn, b_mn, ma, mb, c, bias, m, n, k, ldc,
+                                   device, stream);
 }
 
 }  // namespace gemm_sm90

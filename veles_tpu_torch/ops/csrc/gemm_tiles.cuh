@@ -1,17 +1,20 @@
-// Blocked tile GEMM shared by K5 (gemm.cu, the plain product) and K6
-// (dense_epilogue.cu, the product with a bias + activation epilogue).
+// The true-f32 tile GEMM shared by K5 (gemm.cu, the plain product) and
+// K6 (dense_epilogue.cu, the product with a bias + activation epilogue)
+// for float32 operands (precision levels 1 and 2, the agreement runs);
+// bf16 operands run the Hopper mainloop of gemm_sm90.cuh.
 //
 // Replaces the TPU kernels _mm_kernel and _mm_epilogue_kernel
-// (veles_tpu/ops/gemm.py:133, :199). What they compute: C = A @ B with an
-// f32 accumulator, the epilogue applied to the f32 tile before the single
-// store. What bounds it on the H100: at the training path's shapes
-// (26.3 GFLOP each) the operations at the bf16 tensor-core rate, 0.0266
-// ms, just above the byte time (K6 writes 67 MB of f32 output: 0.0239 ms).
+// (veles_tpu/ops/gemm.py:133, :199) at Precision.HIGHEST. What they
+// compute: C = A @ B with an f32 accumulator, the epilogue applied to the
+// f32 tile before the single store. What bounds it on the H100: at the
+// training path's shapes (26.3 GFLOP each) the operations at the f32
+// rate outside the tensor cores, 0.39 ms at 67 TFLOP/s.
 //
-// Design (a simple first version, no TMA, wgmma or pipelining):
+// Design (simple, no TMA or pipelining):
 // - One 256-thread block per 128 x 128 output tile; a loop over K in
 //   tiles replaces the TPU grid's sequential K dimension, so nothing
-//   carries between blocks.
+//   carries between blocks. Each thread owns 8 x 8 outputs and runs true
+//   f32 FMA (never TF32).
 // - Ragged edges are masked, not padded: a tile element past M, N or K
 //   loads as zero (zero adds nothing to a sum) and a store past M or N is
 //   skipped. No operand is copied.
@@ -19,46 +22,26 @@
 //   A (m, k) with k contiguous or with m contiguous (x.T of a row-major
 //   x), B (k, n) with n contiguous or with k contiguous (w.T). A tile
 //   keeps its global layout in shared memory (the contiguous axis
-//   innermost), so loads and stores are 16 bytes wide along it where the
-//   stride and the pointer allow; the layouts are template arguments and
-//   the compute reads the tile through row- or column-major fragments
-//   (a transposing copy into one fixed layout hit 16-way bank conflicts
-//   on its stores: on an H100 at 700 W, K5's x.T product took 0.51 ms
-//   against 0.29 ms for the same product untransposed).
-// - bf16 operands: tensor cores through nvcuda::wmma (16x16x16, f32
-//   accumulator), 8 warps of 64 x 32 outputs each; the epilogue stages
-//   each 16 x 16 accumulator fragment through a per-warp shared tile.
-// - f32 operands: true f32 FMA on the CUDA cores (never TF32, as the
-//   Pallas kernel runs f32 at Precision.HIGHEST), 8 x 8 outputs a thread.
+//   innermost), so loads are 16 bytes wide along it where the stride and
+//   the pointer allow; the layouts are template arguments (a transposing
+//   copy into one fixed layout hit 16-way bank conflicts on its stores).
+// - The epilogue (epilogue.cuh) adds the bias and applies the activation
+//   to each f32 accumulator before its store.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-#include <type_traits>
+#include "epilogue.cuh"
 
 namespace gemm_tiles {
+
+using namespace epilogue;
 
 constexpr int BM = 128;
 constexpr int BN = 128;
 constexpr int THREADS = 256;
-
-// epilogues: EPI_NONE (K5: no bias) and the five activations of
-// ops/activations.ACTIVATIONS (K6: bias, then the activation)
-constexpr int EPI_NONE = -1;
-constexpr int EPI_LINEAR = 0;
-constexpr int EPI_TANH = 1;
-constexpr int EPI_SIGMOID = 2;
-constexpr int EPI_RELU = 3;         // Znicz "relu" is softplus
-constexpr int EPI_STRICT_RELU = 4;
-
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
 
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
@@ -66,15 +49,10 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
 }
 
 template <int EPI>
-__device__ __forceinline__ float epilogue(float acc, const float* bias,
-                                          int col) {
+__device__ __forceinline__ float apply(float acc, const float* bias,
+                                       int col) {
   if (EPI == EPI_NONE) return acc;
-  float x = acc + bias[col];
-  if (EPI == EPI_TANH) return 1.7159f * tanhf(0.6666f * x);
-  if (EPI == EPI_SIGMOID) return 1.f / (1.f + expf(-x));
-  if (EPI == EPI_RELU) return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-  if (EPI == EPI_STRICT_RELU) return fmaxf(x, 0.f);
-  return x;
+  return activate<EPI>(acc + bias[col]);
 }
 
 // Load the R x C tile at (r0, c0) of a rows x cols matrix whose rows lie
@@ -97,7 +75,7 @@ __device__ __forceinline__ void load_tile(T* s, const T* __restrict__ g,
 #pragma unroll
       for (int v = 0; v < V; ++v)
         dst[v] = (gr < rows && gc + v < cols) ? g[gr * ld + gc + v]
-                                              : zero<T>();
+                                              : T(0);
     }
   }
 }
@@ -131,83 +109,6 @@ __device__ __forceinline__ void load_tiles(T* sa, T* sb, const Problem& p,
     load_tile<T, BN, BK, LDB>(sb, b, p.ldb, p.vec_b, n0, k0, p.n, p.k);
   else
     load_tile<T, BK, BN, LDB>(sb, b, p.ldb, p.vec_b, k0, n0, p.k, p.n);
-}
-
-// ---- bf16 operands: tensor cores (wmma), f32 accumulator ------------------
-constexpr int BK16 = 32;
-// row strides padded by 8 elements: rows stay 16-byte (vector) and
-// 32-byte (wmma) aligned
-constexpr int PAD16 = 8;
-
-template <typename OutT, int EPI, bool A_COL, bool B_COL>
-__global__ void __launch_bounds__(THREADS)
-    gemm_bf16(Problem p) {
-  using namespace nvcuda;
-  constexpr int LDA = (A_COL ? BM : BK16) + PAD16;
-  constexpr int LDB = (B_COL ? BK16 : BN) + PAD16;
-  using LayoutA = std::conditional_t<A_COL, wmma::col_major, wmma::row_major>;
-  using LayoutB = std::conditional_t<B_COL, wmma::col_major, wmma::row_major>;
-  __shared__ __align__(128) __nv_bfloat16 sa[(A_COL ? BK16 : BM) * LDA];
-  __shared__ __align__(128) __nv_bfloat16 sb[(B_COL ? BN : BK16) * LDB];
-  __shared__ __align__(128) float stage[THREADS / 32][16 * 16];
-  int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32 outputs
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < p.k; k0 += BK16) {
-    load_tiles<__nv_bfloat16, BK16, A_COL, B_COL, LDA, LDB>(sa, sb, p, m0,
-                                                            n0, k0);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK16; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LayoutA>
-          fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayoutB>
-          fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int m = wm * 64 + i * 16;
-        wmma::load_matrix_sync(fa[i], A_COL ? sa + kk * LDA + m
-                                            : sa + m * LDA + kk, LDA);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        int n = wn * 32 + j * 16;
-        wmma::load_matrix_sync(fb[j], B_COL ? sb + n * LDB + kk
-                                            : sb + kk * LDB + n, LDB);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  OutT* c = static_cast<OutT*>(p.c);
-  float* st = stage[warp];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      int rb = m0 + wm * 64 + i * 16, cb = n0 + wn * 32 + j * 16;
-      for (int e = lane; e < 256; e += 32) {
-        int r = rb + e / 16, col = cb + e % 16;
-        if (r < p.m && col < p.n)
-          store_out(c + r * p.ldc + col, epilogue<EPI>(st[e], p.bias, col));
-      }
-      __syncwarp();
-    }
-  }
 }
 
 // ---- f32 operands: true f32 FMA --------------------------------------------
@@ -264,34 +165,30 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < 8; ++j) {
       int col = n0 + tx + 16 * j;
       if (col < p.n)
-        store_out(c + r * p.ldc + col, epilogue<EPI>(acc[i][j], p.bias, col));
+        store_out(c + r * p.ldc + col, apply<EPI>(acc[i][j], p.bias, col));
     }
   }
 }
 
-template <typename OutT, int EPI, bool BF16, bool A_COL, bool B_COL>
+template <typename OutT, int EPI, bool A_COL, bool B_COL>
 inline void launch_layout(const Problem& p, cudaStream_t stream) {
   dim3 grid((p.n + BN - 1) / BN, (p.m + BM - 1) / BM);
-  if constexpr (BF16)
-    gemm_bf16<OutT, EPI, A_COL, B_COL><<<grid, THREADS, 0, stream>>>(p);
-  else
-    gemm_f32<OutT, EPI, A_COL, B_COL><<<grid, THREADS, 0, stream>>>(p);
+  gemm_f32<OutT, EPI, A_COL, B_COL><<<grid, THREADS, 0, stream>>>(p);
 }
 
-// Launch the instantiation for the operand type (BF16: bf16 operands on
-// wmma, else f32 on FMA) and the operands' layouts; returns the
-// cudaError_t of the launch.
-template <typename OutT, int EPI, bool BF16>
+// Launch the f32-operand instantiation for the operands' layouts;
+// returns the cudaError_t of the launch.
+template <typename OutT, int EPI>
 inline int launch(const Problem& p, cudaStream_t stream) {
   bool a_col = !p.a_k_contig, b_col = !p.b_n_contig;
   if (a_col && b_col)
-    launch_layout<OutT, EPI, BF16, true, true>(p, stream);
+    launch_layout<OutT, EPI, true, true>(p, stream);
   else if (a_col)
-    launch_layout<OutT, EPI, BF16, true, false>(p, stream);
+    launch_layout<OutT, EPI, true, false>(p, stream);
   else if (b_col)
-    launch_layout<OutT, EPI, BF16, false, true>(p, stream);
+    launch_layout<OutT, EPI, false, true>(p, stream);
   else
-    launch_layout<OutT, EPI, BF16, false, false>(p, stream);
+    launch_layout<OutT, EPI, false, false>(p, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the redesigned kernels: K5's
-// bf16 mainloop (gemm_sm90.cuh), K7's bf16 forward (flash_attention.cu)
-// and K8's and K9's bf16 backward at head width 128
-// (flash_attention_bwd.cu).
+// Hopper (sm_90a) building blocks shared by the redesigned kernels: the
+// bf16 mainloop of K5 and K6 (gemm_sm90.cuh), K7's bf16 forward
+// (flash_attention.cu), K8's and K9's bf16 backward at head width 128
+// (flash_attention_bwd.cu) and K2's launch (int8_matmul.cu: the cached SM
+// count and shared-memory opt-in at the end of this file).
 //
 // - mbarriers: the full / empty barriers of a ring of shared-memory stages
 //   (a producer's TMA loads complete the full barrier's transaction count;
@@ -35,6 +36,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace sm90 {
 
@@ -342,6 +345,45 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
 }
 
 // ---- host ---------------------------------------------------------------
+constexpr int MAX_DEVICES = 64;
+
+// The SM count of `device`, read from the driver once per device.
+inline int sm_count(int device) {
+  static std::atomic<int> counts[MAX_DEVICES];
+  if (device < 0 || device >= MAX_DEVICES) return 132;
+  int sms = counts[device].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               device) != cudaSuccess || sms <= 0)
+      sms = 132;
+    counts[device].store(sms, std::memory_order_relaxed);
+  }
+  return sms;
+}
+
+// A kernel's opt-in to more than 48 KB of dynamic shared memory, set once
+// per device: each launch site keeps one (a function-local static, so one
+// per template instantiation). It remembers which kernel it set, since
+// the loader may give two libraries that instantiate the same launch
+// site one static (the kernels stay distinct). Two threads that race
+// both set it, which is harmless.
+struct SmemOptIn {
+  std::atomic<const void*> done[MAX_DEVICES] = {};  // the kernel set on d
+
+  template <typename Kernel>
+  int ensure(Kernel kernel, int bytes, int device) {
+    const void* key = reinterpret_cast<const void*>(kernel);
+    const bool known = device >= 0 && device < MAX_DEVICES;
+    if (known && done[device].load(std::memory_order_relaxed) == key)
+      return 0;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (known) done[device].store(key, std::memory_order_relaxed);
+    return 0;
+  }
+};
+
 // Encode a bf16 tensor map of `rank` dimensions (innermost first: dims in
 // elements, strides of dimensions 1.. in bytes, box in elements), 128-byte
 // swizzle, zero fill out of bounds. Returns 0, or minus the CUresult of

@@ -20,10 +20,10 @@ Where a product runs:
   ``root.common.engine.use_pallas`` on, where :func:`_kernel_eligible`
   holds;
 - K6, :func:`dense_epilogue` (``csrc/dense_epilogue.cu``, replacing
-  ``_mm_epilogue_kernel`` via ``pallas_dense``, ``gemm.py:199``): the
-  bias and the activation applied to the f32 accumulator before the one
-  store; ``dense_layer`` runs it with ``use_pallas`` and
-  ``pallas_epilogue`` on, where the gate holds, through
+  ``_mm_epilogue_kernel`` via ``pallas_dense``, ``gemm.py:199``): K5's
+  product with the bias and the activation applied to the f32
+  accumulator before the one store; ``dense_layer`` runs it with
+  ``use_pallas`` and ``pallas_epilogue`` on, where the gate holds, through
   :class:`_DenseFunction`, whose backward is ``_dense_with_vjp``'s math
   (``gemm.py:269-302``) with both products through ``matmul``, so K5.
 
@@ -49,7 +49,7 @@ ELIGIBLE_MIN = 512
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the activation index the fused dense kernel takes (EPI_* in
-#: csrc/gemm_tiles.cuh)
+#: csrc/epilogue.cuh)
 _ACTIVATION_IDS = {"linear": 0, "tanh": 1, "sigmoid": 2, "relu": 3,
                    "strict_relu": 4}
 
@@ -220,8 +220,11 @@ def dense_epilogue(a, b, bias, activation="linear"):
     bfloat16; ``bias`` (N,) float32; ``activation`` one of
     :data:`~veles_tpu_torch.ops.activations.ACTIVATIONS`. On a CUDA
     tensor K6 launches (:attr:`dense_epilogue.launches` counts it),
-    reading the operands in place as K5 does; on a CPU tensor the plain
-    version runs."""
+    reading the operands in place as K5 does: bfloat16 operands on K5's
+    TMA and wgmma mainloop (``csrc/gemm_sm90.cuh``), copied first when
+    TMA's alignment rules refuse them (:func:`_tma_layout`), float32
+    operands on the true-f32 tile. On a CPU tensor the plain version
+    runs."""
     _check_operands("dense_epilogue", a, b)
     if activation not in _ACTIVATION_IDS:
         raise ValueError("dense_epilogue: unknown activation %r (known: %s)"
@@ -235,9 +238,16 @@ def dense_epilogue(a, b, bias, activation="linear"):
     if a.device.type == "cpu":
         return _dense_epilogue_plain(a, b, bias, activation)
     (m, k), n = a.shape, b.shape[1]
-    a, lda, a_k_contig, vec_a = _layout(a)
-    b, ldb, b_n_contig, vec_b = _layout(b)
+    if a.dtype == torch.bfloat16:
+        a, lda, a_k_contig = _tma_layout(a)
+        b, ldb, b_n_contig = _tma_layout(b)
+        vec_a = vec_b = 0
+    else:
+        a, lda, a_k_contig, vec_a = _layout(a)
+        b, ldb, b_n_contig, vec_b = _layout(b)
     bias = bias.contiguous()
+    if bias.data_ptr() % 8:  # the bf16 route reads bias pairs as float2
+        bias = bias.clone()
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     fn = _build.function(
         "dense_epilogue", "veles_dense",
@@ -250,7 +260,8 @@ def dense_epilogue(a, b, bias, activation="linear"):
              torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError("dense_epilogue kernel launch failed: CUDA error "
-                           "%d" % err)
+                           "%d (negative: a CUresult of the tensor map)"
+                           % err)
     dense_epilogue.launches += 1
     return out
 

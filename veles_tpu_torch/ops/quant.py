@@ -1,4 +1,4 @@
-"""Int8 weight-only quantization (W8A16) with a dequant-fused CUDA matvec.
+"""Int8 weight-only quantization (W8A16) with a dequant-fused CUDA product.
 
 The port of ``veles_tpu/ops/quant.py``: weights live on the card as int8
 with one f32 scale per output channel, and the kernel
@@ -30,6 +30,13 @@ from veles_tpu_torch.ops import _build
 #: the kernel runs for products of at most this many rows of x (the
 #: decode regime); above it the plain dequantized product runs
 PALLAS_MAX_ROWS = 256
+#: K2's column tile, and the granularity of its split over K (one
+#: ``mma`` step of 16 rows)
+INT8_TILE_N = 128
+INT8_STEP_K = 16
+#: splits x rows of one K2 call at most: the tile's last block sums
+#: that many rows of 128 f32 partials alone
+INT8_MAX_SPLIT_ROWS = 512
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -79,15 +86,72 @@ def _check(x, q, scale):
                                          scale.device))
 
 
+def _int8_plan(m, k, n, sms):
+    """K2's launch plan for ``(m, k) @ (k, n)`` on a card of ``sms``
+    SMs: ``(tiles, splits, slice)``. The kernel runs ``tiles`` x
+    ``splits`` blocks: 128-column tiles, each K cut into ``splits``
+    slices of ``slice`` rows (whole 16-row steps; the last may be
+    ragged, none is empty). Fewer tiles than SMs split K into the fewest
+    slices that give every SM a block (more splits add partials to write
+    and sum, not bytes in flight: a decode product's blocks request all
+    their weight bytes at once), as far as K has steps and two bounds
+    allow: the f32 partials (4 x splits x m x n bytes, written and read
+    back) stay within four times the weight's k x n bytes, and the
+    tile's last block, which sums splits x m x 128 of them alone, reads
+    at most 256 KB (splits x m <= 512), so prefill rows split less."""
+    tiles = -(-n // INT8_TILE_N)
+    steps = -(-k // INT8_STEP_K)
+    cap = max(1, min(steps, k // m, INT8_MAX_SPLIT_ROWS // m))
+    want = min(cap, 1 if tiles >= sms else -(-sms // tiles))
+    per = max(steps // want, -(-steps // cap))
+    return tiles, -(-steps // per), INT8_STEP_K * per
+
+
+_sm_counts = {}
+_scratch = {}
+
+
+def _int8_scratch(device, stream, elements, tiles):
+    """The split-K workspace (at least ``elements`` f32) and the zeroed
+    per-tile counters (at least ``tiles``) of one stream: kept and grown
+    across calls, which the stream orders, so one call's blocks find the
+    counters the last one reset."""
+    key = (device.index, stream)
+    ws, counters = _scratch.get(key, (None, None))
+    if ws is None or ws.numel() < elements:
+        ws = torch.empty(max(elements, 1), dtype=torch.float32,
+                         device=device)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(tiles, dtype=torch.int32, device=device)
+    _scratch[key] = (ws, counters)
+    return ws, counters
+
+
+def _row_aligned(x):
+    """``(x, ldx)``: x's rows 16-byte aligned for the kernel's copies,
+    copied into a zero-padded buffer where K breaks that (K = 37)."""
+    m, k = x.shape
+    vector = 16 // x.element_size()
+    if k % vector == 0 and x.data_ptr() % 16 == 0:
+        return x, k
+    ldx = -(-k // vector) * vector
+    padded = torch.zeros((m, ldx), dtype=x.dtype, device=x.device)
+    padded[:, :k].copy_(x)
+    return padded, ldx
+
+
 def int8_matmul(x, q, scale):
     """``x @ (q * scale)`` with the dequantization fused into the
     product. ``x`` (M, K) float32 or bfloat16; ``q`` (K, N) int8;
     ``scale`` (N,) float32. Returns (M, N) in ``x``'s dtype.
 
     On a CUDA tensor with M <= :data:`PALLAS_MAX_ROWS` the kernel runs
-    (and :attr:`int8_matmul.launches` counts it); a larger M runs the
-    dequantized ``torch.matmul``. On a CPU tensor the plain version
-    runs. The operands must be contiguous."""
+    (and :attr:`int8_matmul.launches` counts it) on the plan of
+    :func:`_int8_plan`; a larger M runs the dequantized
+    ``torch.matmul``. On a CPU tensor the plain version runs. The
+    operands must be contiguous. Two calls on the same inputs give
+    bit-equal outputs. Each stream keeps its own split-K workspace and
+    counters (:func:`_int8_scratch`)."""
     _check(x, q, scale)
     if x.device.type == "cpu" or x.shape[0] > PALLAS_MAX_ROWS:
         return _int8_matmul_plain(x, q, scale)
@@ -99,14 +163,28 @@ def int8_matmul(x, q, scale):
         raise ValueError("int8_matmul's kernel wants contiguous operands")
     m, k = x.shape
     n = q.shape[1]
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    vec_ok = int(n % 16 == 0 and q.data_ptr() % 16 == 0)
+    device = x.device
+    sms = _sm_counts.get(device.index)
+    if sms is None:
+        sms = _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    tiles, splits, slice_rows = _int8_plan(m, k, n, sms)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ws, counters = _int8_scratch(
+        device, stream, splits * m * tiles * INT8_TILE_N if splits > 1
+        else 0, tiles)
+    x, ldx = _row_aligned(x)
+    if scale.data_ptr() % 16:  # the kernel reads the scales as float4
+        scale = scale.clone()
+    out = torch.empty((m, n), dtype=x.dtype, device=device)
+    vec = int(n % 16 == 0 and q.data_ptr() % 16 == 0)
     fn = _build.function(
         "int8_matmul", "veles_int8_matmul",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-             m, k, n, _DTYPES[x.dtype], vec_ok,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             ws.data_ptr(), counters.data_ptr(), m, k, n, ldx,
+             _DTYPES[x.dtype], vec, slice_rows, splits, stream)
     if err:
         raise RuntimeError("int8_matmul kernel launch failed: CUDA error "
                            "%d" % err)
