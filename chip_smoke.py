@@ -6,11 +6,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel of the serving and training paths from
-   veles_tpu_torch/ops/csrc with nvcc (sm_90a), all sources at once,
-   then hold each kernel (K1 paged attention, K2 the W8A16 product at 8,
-   100 and 256 rows, each call twice bit for bit, and one decode step's
-   17 launches replayed from a CUDA graph, K3 int8-KV paged attention,
-   K4 dense int8-KV attention, on a slab view cut to a span too; K5 the
+   veles_tpu_torch/ops/csrc with nvcc (sm_90a), all sources at once
+   (ptxas's spill bytes for K1 and K4 reported),
+   then hold each kernel (K1 paged attention at the burst's lengths and
+   at lopsided ones, one slot of 1100 positions beside seven of 0, each
+   call twice bit for bit, with its plan printed, K2 the W8A16 product at
+   8, 100 and 256 rows, each call twice bit for bit, and one decode
+   step's 17 launches replayed from a CUDA graph, K3 int8-KV paged
+   attention, K4 dense int8-KV attention, on a slab view cut to a span
+   too, twice bit for bit, with its plan printed; K1 and K4 also timed
+   alone by torch.profiler, without the events' launch overhead; K5 the
    blocked GEMM at the weight-gradient and grad_x shapes of the wide
    MLP, K6 the fused dense layer at its forward shape, both in bf16 and
    f32 operands, K6 in each activation; K7 the
@@ -92,6 +97,7 @@ non-zero before printing either.
 import heapq
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -121,11 +127,12 @@ from veles_tpu_torch.ops.attention import (_flash_attention_dkv_plain,
 from veles_tpu_torch.ops.gemm import (_blocked_matmul_plain,
                                       _dense_epilogue_plain, blocked_matmul,
                                       dense_epilogue)
+from veles_tpu_torch.ops._workspace import sm_count
 from veles_tpu_torch.ops.paged_attention import (_paged_attend_int8_plain,
                                                  _paged_attend_plain,
-                                                 paged_attend,
+                                                 _paged_plan, paged_attend,
                                                  paged_attend_int8)
-from veles_tpu_torch.ops.quant import (_cache_attend_plain,
+from veles_tpu_torch.ops.quant import (_attend_plan, _cache_attend_plain,
                                        _int8_matmul_plain,
                                        int8_cache_attend, int8_matmul,
                                        quantize_int8)
@@ -144,6 +151,10 @@ SLOTS, MAX_LEN, N_TOKENS, CHUNK, PAGE = 8, 1024, 32, 8, 128
 #: dense bf16 tensor-core peak, operations/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+#: K1 at the paged burst's lengths, and lopsided: one slot of 1100
+#: positions beside seven of 0
+K1_LENGTHS = (0, 127, 128, 300, 511, 700, 1023, 1100)
+K1_LOPSIDED = (1100,) + (0,) * 7
 #: K1 writes f32 from bf16 inputs that both versions widen exactly;
 #: they differ only in summation order and exp over up to 1101
 #: positions, far inside this bound
@@ -329,13 +340,29 @@ class Timer:
                 times.append(self.start.elapsed_time(self.end))
         return statistics.median(times)
 
+    def kernel_ms(self, fn, name):
+        """The median device time of the kernels whose name holds
+        ``name`` among those ``fn`` launches, from torch.profiler, the L2
+        flushed the same way: the kernel alone, without the launch and
+        event overhead the CUDA-event reading carries."""
+        from torch.profiler import ProfilerActivity, profile
+        for _ in range(self.warmup):
+            fn()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(self.reps):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        times = [e.device_time for e in prof.events()
+                 if e.device_type.name == "CUDA" and name in e.name]
+        return 1e-3 * statistics.median(times)
 
-def k1_problem(device, gen):
+
+def k1_problem(device, gen, lengths=K1_LENGTHS):
     """The serving path's K1 shapes: 8 slots, 16 heads of 64, 128-token
     bf16 pages, ragged lengths from 0 to 1100 (0, a page boundary, a
     full table row), and a page table with one column more than the
     longest row needs, rows padded with the scratch page."""
-    lengths = [0, 127, 128, 300, 511, 700, 1023, 1100]
     pb = 1100 // PAGE + 2
     table = numpy.zeros((SLOTS, pb), numpy.int32)
     nxt = 1
@@ -352,16 +379,44 @@ def k1_problem(device, gen):
             torch.tensor(lengths, dtype=torch.int32, device=device))
 
 
-def k1_phase(timer, device, gen):
-    q, k, v, table, lengths = k1_problem(device, gen)
-    out = paged_attend(q, k, v, table, lengths, page_size=PAGE)
-    ref = _paged_attend_plain(q, k, v, table, lengths, PAGE)
+def k1_plan(table, lengths):
+    """K1's plan at these operands, printed: the split, the grid and the
+    blocks that find live positions."""
+    pb = table.shape[1]
+    pages, splits, _ = _paged_plan(SLOTS, HEADS, EMBED // HEADS, pb, PAGE,
+                                   sm_count(table.device))
+    span = pages * PAGE
+    live = sum(-(-min(n + 1, pb * PAGE) // span) for n in lengths.tolist())
+    print("K1 plan, lengths %s: splits of %d page(s), %d a slot, %d blocks "
+          "launched, %d with live positions"
+          % (lengths.tolist(), pages, splits, HEADS * splits * SLOTS,
+             HEADS * live))
+
+
+def k1_check(args):
+    """K1 against its plain version, and two calls bit for bit."""
+    out = paged_attend(*args, page_size=PAGE)
+    again = paged_attend(*args, page_size=PAGE)
+    ref = _paged_attend_plain(*args, PAGE)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
-    print("K1 paged_attend: max_abs_err %.3g (tolerance %.1g)"
-          % (err, K1_ATOL))
+    equal = torch.equal(out, again)
+    print("K1 paged_attend, lengths %s: max_abs_err %.3g (tolerance %.1g), "
+          "two calls bit-equal: %s" % (args[4].tolist(), err, K1_ATOL,
+                                       equal))
     if not err <= K1_ATOL:
         raise AssertionError("K1 disagrees with its plain version")
+    if not equal:
+        raise AssertionError("K1's two calls differ")
+    return err
+
+
+def k1_phase(timer, device, gen):
+    q, k, v, table, lengths = k1_problem(device, gen)
+    lopsided = k1_problem(device, gen, K1_LOPSIDED)
+    for args in ((q, k, v, table, lengths), lopsided):
+        k1_plan(args[3], args[4])
+    err = max(k1_check((q, k, v, table, lengths)), k1_check(lopsided))
     # the library yardstick: SDPA over K/V already gathered contiguous
     # (the gather itself is not timed), with the same visibility mask
     span = table.shape[1] * PAGE
@@ -374,6 +429,10 @@ def k1_phase(timer, device, gen):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = timer(lambda: paged_attend(q, k, v, table, lengths,
                                     page_size=PAGE))
+    lopsided_ms = timer(lambda: paged_attend(*lopsided, page_size=PAGE))
+    kernel_ms = [timer.kernel_ms(lambda a=a: paged_attend(*a, page_size=PAGE),
+                                 "paged_attend_kernel")
+                 for a in ((q, k, v, table, lengths), lopsided)]
     plain_ms = timer(lambda: _paged_attend_plain(q, k, v, table, lengths,
                                                  PAGE))
     library_ms = timer(lambda: sdpa(qs, kg, vg, attn_mask=mask))
@@ -389,15 +448,17 @@ def k1_phase(timer, device, gen):
     bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                 >= ops / BF16_OPS_PER_S else "operations")
     print("K1 ms %.4f plain_ms %.4f sdpa_ms %.4f bound_ms %.4f (%s, %d "
-          "live positions, %d bytes)" % (ms, plain_ms, library_ms,
-                                         bound_ms, bound_by, live,
-                                         nbytes))
+          "live positions, %d bytes); lopsided lengths %s: %.4f ms; "
+          "kernel alone (torch.profiler) %.4f and %.4f ms"
+          % (ms, plain_ms, library_ms, bound_ms, bound_by, live, nbytes,
+             list(K1_LOPSIDED), lopsided_ms, *kernel_ms))
     return {"name": "paged_attend", "route": "cuda",
             "source": "veles_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "veles_tpu/ops/paged_attention.py:151",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "lopsided_ms": lopsided_ms,
+            "kernel_ms": kernel_ms[0], "lopsided_kernel_ms": kernel_ms[1],
             "library": "scaled_dot_product_attention on the gathered pages"}
 
 
@@ -530,6 +591,16 @@ def k4_phase(timer, device, gen):
     if not err <= K4_ATOL:
         raise AssertionError("K4 disagrees with its plain version")
     mask = k4_masks(device, K4_WIDTH)["per-row"]
+    for t in (K4_WIDTH, K4_SPAN):
+        splits, chunk = _attend_plan(SLOTS, HEADS, t, sm_count(device))
+        print("K4 plan at %d positions: %d splits of %d positions, %d "
+              "blocks" % (t, splits, chunk, SLOTS * HEADS * splits))
+    first = int8_cache_attend(q, *slab, mask, use_pallas=True)
+    again = int8_cache_attend(q, *slab, mask, use_pallas=True)
+    torch.cuda.synchronize()
+    print("K4 two calls bit-equal: %s" % torch.equal(first, again))
+    if not torch.equal(first, again):
+        raise AssertionError("K4's two calls differ")
 
     def dequantized(codes, scale):
         full = codes.float() * scale[:, :, None, :]          # (S,H,D,T)
@@ -540,6 +611,9 @@ def k4_phase(timer, device, gen):
     qs = q.transpose(1, 2)                                   # (S,H,1,D)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = timer(lambda: int8_cache_attend(q, *slab, mask, use_pallas=True))
+    kernel_ms = timer.kernel_ms(
+        lambda: int8_cache_attend(q, *slab, mask, use_pallas=True),
+        "cache_attend_int8_kernel")
     plain_ms = timer(lambda: _cache_attend_plain(q, *slab, mask))
     library_ms = timer(lambda: sdpa(qs, kd, vd, attn_mask=visible,
                                     scale=1.0))
@@ -553,15 +627,15 @@ def k4_phase(timer, device, gen):
     bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                 >= ops / BF16_OPS_PER_S else "operations")
     print("K4 ms %.4f plain_ms %.4f sdpa_ms %.4f bound_ms %.4f (%s, %d "
-          "positions a lane, %d bytes)" % (ms, plain_ms, library_ms,
-                                           bound_ms, bound_by, K4_WIDTH,
-                                           nbytes))
+          "positions a lane, %d bytes); kernel alone (torch.profiler) %.4f "
+          "ms" % (ms, plain_ms, library_ms, bound_ms, bound_by, K4_WIDTH,
+                  nbytes, kernel_ms))
     return {"name": "int8_cache_attend", "route": "cuda",
             "source": "veles_tpu_torch/ops/csrc/cache_attend_int8.cu",
             "replaces": "veles_tpu/ops/quant.py:161",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "kernel_ms": kernel_ms,
             "library": "scaled_dot_product_attention on the dequantized "
                        "slab"}
 
@@ -2037,6 +2111,15 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("  %s: %s" % (name, line.strip()))
+    for label, name in (("K1", "paged_attention"),
+                        ("K4", "cache_attend_int8")):
+        spills = [tuple(map(int, m)) for m in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+            (_build.BUILD_DIR / (name + ".log")).read_text())]
+        print("%s ptxas -v: %d functions, %d bytes of spill stores, %d of "
+              "spill loads" % (label, len(spills),
+                               sum(st for st, _ in spills),
+                               sum(ld for _, ld in spills)))
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     timer = Timer(device)

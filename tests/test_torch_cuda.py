@@ -4,10 +4,13 @@ decode-step shape and 1 to 256 rows in both x types, its byte-wise path
 (N % 16 != 0, misaligned q), ragged K and N, two calls bit-equal, calls
 of other shapes in a row (the split counters reset), the M > 256 regime
 rule; K1 at head rows of 64 to 512 bytes, mixed query and pool
-types; K3 at length 0, full table rows, head widths 32 to 128 and both
-query types; K4 at head widths 32 to 128, shared and per-row masks,
+types, at its splits' boundaries (16- and 128-token pages), twice bit
+for bit; K3 at length 0, full table rows, head widths 32 to 128 and both
+query types; K4 at head widths 32 to 1024, shared and per-row masks,
 lanes of several 8192-position tiles (one fully masked tile first or
-last) and a slab view cut to a span, and the
+last) and a slab view cut to a span, with one split, a ragged last
+split, a fully masked split and a fully masked row, twice bit for bit;
+the split counters K1, K2 and K4 share left at zero; and the
 dense int8-KV decoder on the card against the CPU; the wrappers'
 refusals; prefill attention at 4096 positions with a head width the
 flash rule leaves to plain attention; K5 and K6 at odd shapes, both
@@ -49,11 +52,12 @@ from veles_tpu_torch.ops.attention import (
 from veles_tpu_torch.ops.gemm import (_blocked_matmul_plain,
                                       _dense_epilogue_plain, blocked_matmul,
                                       dense_epilogue)
+from veles_tpu_torch.ops import _workspace
 from veles_tpu_torch.ops.paged_attention import (_paged_attend_int8_plain,
                                                  _paged_attend_plain,
-                                                 paged_attend,
+                                                 _paged_plan, paged_attend,
                                                  paged_attend_int8)
-from veles_tpu_torch.ops.quant import (PALLAS_MAX_ROWS,
+from veles_tpu_torch.ops.quant import (PALLAS_MAX_ROWS, _attend_plan,
                                        _cache_attend_plain,
                                        _int8_matmul_plain,
                                        int8_cache_attend, int8_matmul,
@@ -408,6 +412,172 @@ def test_cache_attend_refuses_what_the_kernel_does_not_take(cuda, case):
         int8_cache_attend(q, *slab, torch.zeros(t, device="cuda"),
                           use_pallas=True)
     assert int8_cache_attend.launches == before
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _paged_lengths_problem(gen, lengths, pb, ps, heads=16, head_dim=64,
+                           dtype=torch.bfloat16):
+    """The serving model's heads on a table of ``pb`` pages of ``ps``,
+    each slot's live pages in logical order, rows padded with the
+    scratch page."""
+    table = torch.zeros((len(lengths), pb), dtype=torch.int32)
+    nxt = 1
+    for s, n in enumerate(lengths):
+        for p in range(min(n // ps + 1, pb)):
+            table[s, p] = nxt
+            nxt += 1
+    shape = (nxt, ps, heads, head_dim)
+    k = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q = torch.randn((len(lengths), heads, head_dim), generator=gen,
+                    device="cuda").to(dtype)
+    return (q, k, v, table.cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("ps", [16, 128])
+def test_paged_attend_at_split_boundaries(cuda, ps):
+    """K1's splits (whole pages of its plan): slots whose visible
+    positions end one before, at and one after a split's end, and a
+    length-0 slot beside a 4000-position one."""
+    pb = 4000 // ps + 2
+    pages, splits, _ = _paged_plan(6, 16, 64, pb, ps, _sms())
+    assert splits > 1
+    span = pages * ps
+    lengths = [span - 2, span - 1, span, 0, 4000, 2 * span]
+    args = _paged_lengths_problem(cuda, lengths, pb, ps)
+    before = paged_attend.launches
+    out = paged_attend(*args, page_size=ps)
+    assert paged_attend.launches == before + 1
+    torch.testing.assert_close(out, _paged_attend_plain(*args, ps),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_paged_attend_is_deterministic(cuda):
+    """The live splits meet in split order in the slot's last block: two
+    calls are bit-equal, at the smoke's lengths and at lopsided ones."""
+    for lengths in ([0, 127, 128, 300, 511, 700, 1023, 1100],
+                    [1100] + [0] * 7):
+        args = _paged_lengths_problem(cuda, lengths, 10, 128)
+        first = paged_attend(*args, page_size=128)
+        second = paged_attend(*args, page_size=128)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        torch.testing.assert_close(first, _paged_attend_plain(*args, 128),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def _split_mask(kind, batch, t):
+    """A fully masked 128-position split in every row (positions 128 to
+    255), or row 1 fully masked beside ragged lengths."""
+    pos = torch.arange(t, device="cuda")
+    if kind == "masked-split":
+        visible = ((pos < 128) | (pos >= 256))[None, :].expand(batch, t)
+    else:
+        lengths = torch.arange(batch, device="cuda") * (t // batch) + 3
+        visible = pos[None, :] <= lengths[:, None]
+        visible[1] = False
+    return torch.where(visible, 0.0, -1e30).float().contiguous()
+
+
+@pytest.mark.parametrize("batch,heads,t,q_dtype,kind", [
+    (2, 2, 128, torch.float32, "per-row"),           # one split
+    (1, 1, 32896, torch.bfloat16, "per-row"),        # a ragged last split
+    (8, 16, 768, torch.bfloat16, "masked-split"),
+    (8, 16, 768, torch.float32, "masked-row"),
+    (3, 4, 20480, torch.bfloat16, "masked-row"),     # several tiles a split
+], ids=["one-split", "ragged-last-split", "masked-split", "masked-row",
+        "masked-row-long"])
+def test_cache_attend_splits(cuda, batch, heads, t, q_dtype, kind):
+    splits, chunk = _attend_plan(batch, heads, t, _sms())
+    if kind == "per-row" and t == 128:
+        assert splits == 1
+    if t == 32896:
+        assert t % chunk and splits > 1
+    q, slab = _slab_problem(cuda, batch, heads, 64, t, q_dtype)
+    mask = (_slab_mask("per-row", batch, t) if kind == "per-row"
+            else _split_mask(kind, batch, t))
+    before = int8_cache_attend.launches
+    out = int8_cache_attend(q, *slab, mask)
+    assert int8_cache_attend.launches == before + 1
+    torch.testing.assert_close(out, _cache_attend_plain(q, *slab, mask),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("head_dim", [256, 512, 1024])
+def test_cache_attend_wide_heads(cuda, head_dim):
+    """Head widths past 128 stage fewer positions at a time (64, 32, 16)
+    in a ring of two stages a split."""
+    q, slab = _slab_problem(cuda, 2, 2, head_dim, 1024, torch.bfloat16)
+    mask = _slab_mask("per-row", 2, 1024)
+    torch.testing.assert_close(int8_cache_attend(q, *slab, mask),
+                               _cache_attend_plain(q, *slab, mask),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_cache_attend_reads_rows_off_16_bytes(cuda):
+    """A slab 772 positions wide cut to 768: code rows 4-byte but not
+    16-byte aligned take the kernel's 4-byte copies."""
+    q, slab = _slab_problem(cuda, 2, 4, 64, 772, torch.float32)
+    view = [a[..., :768] for a in slab]
+    assert view[0].stride(2) % 16
+    mask = _slab_mask("per-row", 2, 768)
+    torch.testing.assert_close(
+        int8_cache_attend(q, *view, mask),
+        _cache_attend_plain(q, *(a.contiguous() for a in view), mask),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_cache_attend_is_deterministic(cuda):
+    """The splits meet in split order in the (row, head)'s last block:
+    two calls are bit-equal, on the slab and on a span view of it."""
+    q, slab = _slab_problem(cuda, 8, 16, 64, 768, torch.bfloat16)
+    for args in (slab, [a[..., :640] for a in slab]):
+        mask = _slab_mask("per-row", 8, args[0].shape[-1])
+        first = int8_cache_attend(q, *args, mask)
+        second = int8_cache_attend(q, *args, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def test_split_counters_reset_between_shapes(cuda):
+    """K1, K4 and K2 share one stream's workspace and counters: calls of
+    other shapes (and splits) in a row each find their counters at zero,
+    repeat bit for bit, and leave the counters at zero."""
+    paged = [_paged_lengths_problem(cuda, lengths, pb, ps)
+             for lengths, pb, ps in (([0, 700, 1100, 5], 10, 128),
+                                     ([4000, 0, 17], 252, 16))]
+    slabs = [_slab_problem(cuda, b, h, 64, t, torch.bfloat16)
+             for b, h, t in ((8, 16, 768), (2, 4, 4096))]
+    masks = [_slab_mask("per-row", q.shape[0], slab[0].shape[-1])
+             for q, slab in slabs]
+    mat = _int8_problem(cuda, 8, 4096, 1024, torch.bfloat16)
+
+    def calls():
+        return [paged_attend(*paged[0], page_size=128),
+                int8_cache_attend(slabs[0][0], *slabs[0][1], masks[0]),
+                int8_matmul(*mat),
+                paged_attend(*paged[1], page_size=16),
+                int8_cache_attend(slabs[1][0], *slabs[1][1], masks[1])]
+
+    first, second = calls(), calls()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(first[0], _paged_attend_plain(*paged[0], 128),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(first[3], _paged_attend_plain(*paged[1], 16),
+                               rtol=1e-5, atol=1e-5)
+    for out, (q, slab), mask in zip((first[1], first[4]), slabs, masks):
+        torch.testing.assert_close(out, _cache_attend_plain(q, *slab, mask),
+                                   rtol=1e-5, atol=1e-5)
+    stream = torch.cuda.current_stream().cuda_stream
+    _, counters = _workspace._workspaces[(torch.cuda.current_device(),
+                                          stream)]
+    assert not counters.any()
 
 
 def test_dense_int8_kv_decoder_on_the_card_matches_the_cpu(cuda):

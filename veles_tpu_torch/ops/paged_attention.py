@@ -21,8 +21,39 @@ import math
 import torch
 
 from veles_tpu_torch.ops import _build
+from veles_tpu_torch.ops._workspace import sm_count, split_workspace
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: K1's plan: the positions a split holds at least (whole pages) where
+#: the grid still fills the card, the blocks an SM it aims at, and the
+#: most splits a slot may have (one block merges them all,
+#: ``csrc/split_softmax.cuh``)
+PAGED_SPLIT_POSITIONS = 128
+PAGED_WAVE = 4
+PAGED_MAX_SPLITS = 128
+
+
+def _paged_plan(slots, heads, head_dim, pb, ps, sms):
+    """K1's launch plan for ``slots`` x ``heads`` queries of width
+    ``head_dim`` against a page table of ``pb`` pages of ``ps`` positions,
+    on a card of ``sms`` SMs: ``(pages, splits, elements)``. The kernel
+    runs heads x splits x slots blocks, split s walking the table's pages
+    [s * pages, (s + 1) * pages) (the last ragged where they do not
+    divide, none empty); a block whose split starts past its slot's
+    visible positions exits at once. A split is the fewest whole pages
+    that hold :data:`PAGED_SPLIT_POSITIONS` positions, fewer (down to one
+    page) where heads x slots x splits would not give every SM
+    :data:`PAGED_WAVE` blocks, more where the table would need more than
+    :data:`PAGED_MAX_SPLITS` splits. ``elements`` is the f32 workspace
+    the split states take (0 with one split). The plan reads shapes only:
+    the lengths are data on the card."""
+    want = -(-PAGED_WAVE * sms // (slots * heads))
+    pages = max(1, min(-(-PAGED_SPLIT_POSITIONS // ps), pb // want),
+                -(-pb // PAGED_MAX_SPLITS))
+    splits = -(-pb // pages)
+    elements = slots * heads * splits * (head_dim + 2) if splits > 1 else 0
+    return pages, splits, elements
 
 
 def gather_pages(pages, page_table):
@@ -93,8 +124,11 @@ def paged_attend(q, k_pages, v_pages, page_table, lengths, *, page_size):
     (S, H, D) float32.
 
     On CUDA tensors the kernel runs (and :attr:`paged_attend.launches`
-    counts it); the operands must be contiguous and page ids valid. On
-    CPU tensors the plain version runs."""
+    counts it); the operands must be contiguous and page ids valid. It
+    cuts the table's positions into splits of whole pages over the card
+    (:func:`_paged_plan`) and merges each slot's live splits in the same
+    launch, in split order: two calls on the same inputs give bit-equal
+    outputs. On CPU tensors the plain version runs."""
     _check(q, k_pages, v_pages, page_table, lengths, page_size)
     if q.device.type == "cpu":
         return _paged_attend_plain(q, k_pages, v_pages, page_table,
@@ -114,16 +148,22 @@ def paged_attend(q, k_pages, v_pages, page_table, lengths, *, page_size):
         raise ValueError("paged_attend's kernel takes head rows of 64, "
                          "128, 256 or 512 bytes, got head_dim %d in %s"
                          % (head_dim, k_pages.dtype))
+    device = q.device
+    pb = page_table.shape[1]
+    pages, _, elements = _paged_plan(slots, heads, head_dim, pb, page_size,
+                                     sm_count(device))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ws, counters = split_workspace(device, stream, elements, slots * heads)
     out = torch.empty((slots, heads, head_dim), dtype=torch.float32,
-                      device=q.device)
+                      device=device)
     fn = _build.function(
         "paged_attention", "veles_paged_attend",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             slots, heads, head_dim, page_table.shape[1], page_size,
-             _DTYPES[q.dtype], _DTYPES[k_pages.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             ws.data_ptr(), counters.data_ptr(), slots, heads, head_dim, pb,
+             page_size, pages, _DTYPES[q.dtype], _DTYPES[k_pages.dtype],
+             stream)
     if err:
         raise RuntimeError("paged_attend kernel launch failed: CUDA error "
                            "%d" % err)

@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from veles_tpu_torch.ops import _build
+from veles_tpu_torch.ops._workspace import sm_count, split_workspace
 
 #: the kernel runs for products of at most this many rows of x (the
 #: decode regime); above it the plain dequantized product runs
@@ -107,26 +108,6 @@ def _int8_plan(m, k, n, sms):
     return tiles, -(-steps // per), INT8_STEP_K * per
 
 
-_sm_counts = {}
-_scratch = {}
-
-
-def _int8_scratch(device, stream, elements, tiles):
-    """The split-K workspace (at least ``elements`` f32) and the zeroed
-    per-tile counters (at least ``tiles``) of one stream: kept and grown
-    across calls, which the stream orders, so one call's blocks find the
-    counters the last one reset."""
-    key = (device.index, stream)
-    ws, counters = _scratch.get(key, (None, None))
-    if ws is None or ws.numel() < elements:
-        ws = torch.empty(max(elements, 1), dtype=torch.float32,
-                         device=device)
-    if counters is None or counters.numel() < tiles:
-        counters = torch.zeros(tiles, dtype=torch.int32, device=device)
-    _scratch[key] = (ws, counters)
-    return ws, counters
-
-
 def _row_aligned(x):
     """``(x, ldx)``: x's rows 16-byte aligned for the kernel's copies,
     copied into a zero-padded buffer where K breaks that (K = 37)."""
@@ -151,7 +132,7 @@ def int8_matmul(x, q, scale):
     ``torch.matmul``. On a CPU tensor the plain version runs. The
     operands must be contiguous. Two calls on the same inputs give
     bit-equal outputs. Each stream keeps its own split-K workspace and
-    counters (:func:`_int8_scratch`)."""
+    counters (:func:`ops._workspace.split_workspace`)."""
     _check(x, q, scale)
     if x.device.type == "cpu" or x.shape[0] > PALLAS_MAX_ROWS:
         return _int8_matmul_plain(x, q, scale)
@@ -164,13 +145,9 @@ def int8_matmul(x, q, scale):
     m, k = x.shape
     n = q.shape[1]
     device = x.device
-    sms = _sm_counts.get(device.index)
-    if sms is None:
-        sms = _sm_counts[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    tiles, splits, slice_rows = _int8_plan(m, k, n, sms)
+    tiles, splits, slice_rows = _int8_plan(m, k, n, sm_count(device))
     stream = torch.cuda.current_stream(device).cuda_stream
-    ws, counters = _int8_scratch(
+    ws, counters = split_workspace(
         device, stream, splits * m * tiles * INT8_TILE_N if splits > 1
         else 0, tiles)
     x, ldx = _row_aligned(x)
@@ -202,6 +179,29 @@ int8_matmul.launches = 0
 #: :data:`ATTEND_D_TILE`
 ATTEND_T_TILE = 128
 ATTEND_D_TILE = 32
+#: K4's plan: the blocks an SM the split of T aims at, and the most
+#: splits a (row, head) may have (one block merges them all,
+#: ``csrc/split_softmax.cuh``)
+ATTEND_WAVE = 4
+ATTEND_MAX_SPLITS = 128
+
+
+def _attend_plan(batch, heads, t, sms):
+    """K4's launch plan for ``batch`` rows x ``heads`` heads x ``t``
+    positions (a multiple of :data:`ATTEND_T_TILE`) on a card of ``sms``
+    SMs: ``(splits, chunk)``. The kernel runs heads x splits x batch
+    blocks, split s reading positions [s * chunk, (s + 1) * chunk): whole
+    128-position tiles, the last split ragged where the tiles do not
+    divide, none empty. T is cut into the fewest splits that give every
+    SM :data:`ATTEND_WAVE` blocks (a block's bytes are all requested as
+    it starts, so blocks, not splits, set the bytes in flight), as far as
+    T has tiles, and into at most :data:`ATTEND_MAX_SPLITS`. The plan
+    reads shapes only: the mask is data, and reading it on the host
+    would cost a sync a step."""
+    tiles = t // ATTEND_T_TILE
+    want = -(-ATTEND_WAVE * sms // (batch * heads))
+    per = max(1, tiles // want, -(-tiles // ATTEND_MAX_SPLITS))
+    return -(-tiles // per), per * ATTEND_T_TILE
 
 
 def _attend_weights(q, k_q, k_scale, mask_addend):
@@ -268,19 +268,23 @@ def _check_attend(q, k_q, k_scale, v_q, v_scale, mask_addend):
 
 
 def _launch_cache_attend(q, k_q, k_scale, v_q, v_scale, mask_addend):
-    """K4 on the card, reading the codes, scales and mask in place
-    through their strides (a slab view cut to the attended span)."""
+    """K4 on the card on the plan of :func:`_attend_plan`, reading the
+    codes, scales and mask in place through their strides (a slab view
+    cut to the attended span)."""
     batch, _, heads, head_dim = q.shape
     t = k_q.shape[-1]
     mask = mask_addend.reshape(-1, t) if mask_addend.dim() == 1 \
         else mask_addend
-    mask_sb = mask.stride(0) if mask.shape[0] > 1 else 0
     if not q.is_contiguous():
         raise ValueError("int8_cache_attend's kernel wants a contiguous q")
-    if k_q.stride() != v_q.stride() or k_scale.stride() != v_scale.stride():
+
+    def live(a):  # a dimension of one element has no stride to read
+        return tuple(s if n > 1 else 0 for s, n in zip(a.stride(), a.shape))
+
+    if live(k_q) != live(v_q) or live(k_scale) != live(v_scale):
         raise ValueError("int8_cache_attend's kernel wants K and V (and "
                          "their scales) laid out alike")
-    strides = k_q.stride()[:3] + k_scale.stride()[:2] + (mask_sb,)
+    strides = live(k_q)[:3] + live(k_scale)[:2] + live(mask)[:1]
     if k_q.stride(3) != 1 or k_scale.stride(2) != 1 or mask.stride(1) != 1 \
             or any(s % 4 for s in strides) \
             or k_q.data_ptr() % 4 or v_q.data_ptr() % 4 \
@@ -288,16 +292,26 @@ def _launch_cache_attend(q, k_q, k_scale, v_q, v_scale, mask_addend):
         raise ValueError("int8_cache_attend's kernel wants positions "
                          "minor, strides in multiples of 4, codes 4-byte "
                          "and scales and mask 16-byte aligned")
+    # 16-byte copies of the code rows where every row starts on 16 bytes
+    code16 = int(all(s % 16 == 0 for s in strides[:3])
+                 and k_q.data_ptr() % 16 == 0 and v_q.data_ptr() % 16 == 0)
+    device = q.device
+    splits, chunk = _attend_plan(batch, heads, t, sm_count(device))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ws, counters = split_workspace(
+        device, stream, batch * heads * splits * (head_dim + 2)
+        if splits > 1 else 0, batch * heads)
     out = torch.empty((batch, 1, heads, head_dim), dtype=torch.float32,
-                      device=q.device)
+                      device=device)
     fn = _build.function(
         "cache_attend_int8", "veles_cache_attend_int8",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
         + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
              v_q.data_ptr(), v_scale.data_ptr(), mask.data_ptr(),
-             out.data_ptr(), batch, heads, head_dim, t, _DTYPES[q.dtype],
-             *strides, torch.cuda.current_stream(q.device).cuda_stream)
+             out.data_ptr(), ws.data_ptr(), counters.data_ptr(), batch,
+             heads, head_dim, t, chunk, _DTYPES[q.dtype], code16, *strides,
+             stream)
     if err:
         raise RuntimeError("int8_cache_attend kernel launch failed: CUDA "
                            "error %d" % err)
@@ -325,8 +339,9 @@ def int8_cache_attend(q, k_q, k_scale, v_q, v_scale, mask_addend,
     (:attr:`int8_cache_attend.launches` counts it); on a CPU tensor its
     plain version runs. The codes, scales and mask may be views with
     positions minor (a slab cut to a span): the kernel reads them
-    through their strides, in tiles of 8192 positions with an online
-    softmax, so any length runs."""
+    through their strides. It cuts T into splits over the card
+    (:func:`_attend_plan`) and merges them in the same launch, in split
+    order: two calls on the same inputs give bit-equal outputs."""
     _check_attend(q, k_q, k_scale, v_q, v_scale, mask_addend)
     gate = (k_q.shape[-1] % ATTEND_T_TILE == 0 and k_q.shape[-1] > 0
             and q.shape[-1] % ATTEND_D_TILE == 0)
