@@ -7,15 +7,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel of the serving and training paths from
    veles_tpu_torch/ops/csrc with nvcc (sm_90a), all sources at once
-   (ptxas's spill bytes for K1 and K4 reported),
+   (ptxas's spill bytes for K1, K3 and K4 reported),
    then hold each kernel (K1 paged attention at the burst's lengths and
    at lopsided ones, one slot of 1100 positions beside seven of 0, each
    call twice bit for bit, with its plan printed, K2 the W8A16 product at
    8, 100 and 256 rows, each call twice bit for bit, and one decode
    step's 17 launches replayed from a CUDA graph, K3 int8-KV paged
-   attention, K4 dense int8-KV attention, on a slab view cut to a span
-   too, twice bit for bit, with its plan printed; K1 and K4 also timed
-   alone by torch.profiler, without the events' launch overhead; K5 the
+   attention at the burst's and the lopsided lengths and in heads of
+   256, each call twice bit for bit, with its plan printed, K4 dense
+   int8-KV attention, on a slab view cut to a span too, twice bit for
+   bit, with its plan printed; K1, K3 and K4 also timed alone by
+   torch.profiler, without the events' launch overhead; K5 the
    blocked GEMM at the weight-gradient and grad_x shapes of the wide
    MLP, K6 the fused dense layer at its forward shape, both in bf16 and
    f32 operands, K6 in each activation; K7 the
@@ -358,11 +360,12 @@ class Timer:
         return 1e-3 * statistics.median(times)
 
 
-def k1_problem(device, gen, lengths=K1_LENGTHS):
-    """The serving path's K1 shapes: 8 slots, 16 heads of 64, 128-token
-    bf16 pages, ragged lengths from 0 to 1100 (0, a page boundary, a
-    full table row), and a page table with one column more than the
-    longest row needs, rows padded with the scratch page."""
+def k1_problem(device, gen, lengths=K1_LENGTHS, heads=HEADS):
+    """The serving path's K1 shapes: 8 slots, 16 heads of 64 (or
+    ``heads`` heads at the same width), 128-token bf16 pages, ragged
+    lengths from 0 to 1100 (0, a page boundary, a full table row), and a
+    page table with one column more than the longest row needs, rows
+    padded with the scratch page."""
     pb = 1100 // PAGE + 2
     table = numpy.zeros((SLOTS, pb), numpy.int32)
     nxt = 1
@@ -370,27 +373,27 @@ def k1_problem(device, gen, lengths=K1_LENGTHS):
         for p in range(n // PAGE + 1):
             table[s, p] = nxt
             nxt += 1
-    shape = (nxt, PAGE, HEADS, EMBED // HEADS)
+    shape = (nxt, PAGE, heads, EMBED // heads)
     k = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
     v = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
-    q = torch.randn((SLOTS, HEADS, EMBED // HEADS), generator=gen,
+    q = torch.randn((SLOTS, heads, EMBED // heads), generator=gen,
                     device=device).to(torch.bfloat16)
     return (q, k, v, torch.from_numpy(table).to(device),
             torch.tensor(lengths, dtype=torch.int32, device=device))
 
 
-def k1_plan(table, lengths):
-    """K1's plan at these operands, printed: the split, the grid and the
-    blocks that find live positions."""
+def paged_plan(label, table, lengths):
+    """K1's plan (K3's too) at these operands, printed: the split, the
+    grid and the blocks that find live positions."""
     pb = table.shape[1]
     pages, splits, _ = _paged_plan(SLOTS, HEADS, EMBED // HEADS, pb, PAGE,
                                    sm_count(table.device))
     span = pages * PAGE
     live = sum(-(-min(n + 1, pb * PAGE) // span) for n in lengths.tolist())
-    print("K1 plan, lengths %s: splits of %d page(s), %d a slot, %d blocks "
+    print("%s plan, lengths %s: splits of %d page(s), %d a slot, %d blocks "
           "launched, %d with live positions"
-          % (lengths.tolist(), pages, splits, HEADS * splits * SLOTS,
-             HEADS * live))
+          % (label, lengths.tolist(), pages, splits,
+             HEADS * splits * SLOTS, HEADS * live))
 
 
 def k1_check(args):
@@ -415,7 +418,7 @@ def k1_phase(timer, device, gen):
     q, k, v, table, lengths = k1_problem(device, gen)
     lopsided = k1_problem(device, gen, K1_LOPSIDED)
     for args in ((q, k, v, table, lengths), lopsided):
-        k1_plan(args[3], args[4])
+        paged_plan("K1", args[3], args[4])
     err = max(k1_check((q, k, v, table, lengths)), k1_check(lopsided))
     # the library yardstick: SDPA over K/V already gathered contiguous
     # (the gather itself is not timed), with the same visibility mask
@@ -462,36 +465,56 @@ def k1_phase(timer, device, gen):
             "library": "scaled_dot_product_attention on the gathered pages"}
 
 
-def k3_problem(device, gen, q_dtype):
+def k3_problem(device, gen, q_dtype, lengths=K1_LENGTHS, heads=HEADS):
     """K1's smoke shapes in the int8-KV tier: the pool from
     ``_quantize_kv`` of random bf16 K/V, re-laid head-major (P, H, D,
     ps) with (P, H, ps) scales, and q pre-scaled by 1/sqrt(D)."""
-    q, k, v, table, lengths = k1_problem(device, gen)
+    q, k, v, table, lengths = k1_problem(device, gen, lengths, heads)
     pool = []
     for val in (k, v):
         codes, scale = _quantize_kv(val)       # (P,ps,H,D), (P,ps,H)
         pool += [codes.permute(0, 2, 3, 1).contiguous(),
                  scale.permute(0, 2, 1).contiguous()]
-    q = (q.float() * (EMBED // HEADS) ** -0.5).to(q_dtype)
+    q = (q.float() * (EMBED // heads) ** -0.5).to(q_dtype)
     return (q, *pool, table, lengths)
 
 
+def k3_check(label, args):
+    """K3 against its plain version, and two calls bit for bit."""
+    out = paged_attend_int8(*args, page_size=PAGE)
+    again = paged_attend_int8(*args, page_size=PAGE)
+    ref = _paged_attend_int8_plain(*args, PAGE)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    equal = torch.equal(out, again)
+    print("K3 paged_attend_int8, %s, lengths %s: max_abs_err %.3g "
+          "(tolerance %.0e), two calls bit-equal: %s"
+          % (label, args[6].tolist(), err, K3_ATOL, equal))
+    if not err <= K3_ATOL:
+        raise AssertionError("K3 disagrees with its plain version (%s)"
+                             % label)
+    if not equal:
+        raise AssertionError("K3's two calls differ (%s)" % label)
+    return err
+
+
 def k3_phase(timer, device, gen):
-    """K3 against its plain version with bf16 and with f32 q; timed at
-    bf16 q (the serving path's), beside SDPA over K/V dequantized and
-    gathered beforehand (the gather and dequantization not timed)."""
+    """K3 against its plain version with bf16 and with f32 q, at the
+    lopsided lengths and at the serving model's width in heads of 256
+    (4 of them), each call twice bit for bit; timed at bf16 q (the
+    serving path's) at the burst's and the lopsided lengths, beside SDPA
+    over K/V dequantized and gathered beforehand (the gather and
+    dequantization not timed)."""
     err = 0.0
     for q_dtype in (torch.float32, torch.bfloat16):
         args = k3_problem(device, gen, q_dtype)
-        out = paged_attend_int8(*args, page_size=PAGE)
-        ref = _paged_attend_int8_plain(*args, PAGE)
-        torch.cuda.synchronize()
-        e = (out - ref).abs().max().item()
-        print("K3 paged_attend_int8 q %s: max_abs_err %.3g (tolerance "
-              "%.0e)" % (str(q_dtype).split(".")[-1], e, K3_ATOL))
-        err = max(err, e)
-    if not err <= K3_ATOL:
-        raise AssertionError("K3 disagrees with its plain version")
+        err = max(err, k3_check("q %s" % str(q_dtype).split(".")[-1], args))
+    lopsided = k3_problem(device, gen, torch.bfloat16, K1_LOPSIDED)
+    err = max(err, k3_check("q bfloat16", lopsided))
+    err = max(err, k3_check("q bfloat16, D = 256", k3_problem(
+        device, gen, torch.bfloat16, heads=EMBED // 256)))
+    for a in (args, lopsided):
+        paged_plan("K3", a[5], a[6])
     q, kq, ks, vq, vs, table, lengths = args
     span = table.shape[1] * PAGE
     idx = table.long()
@@ -507,6 +530,11 @@ def k3_phase(timer, device, gen):
     qs = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = timer(lambda: paged_attend_int8(*args, page_size=PAGE))
+    lopsided_ms = timer(lambda: paged_attend_int8(*lopsided,
+                                                  page_size=PAGE))
+    kernel_ms = [timer.kernel_ms(
+        lambda a=a: paged_attend_int8(*a, page_size=PAGE),
+        "paged_attend_int8_kernel") for a in (args, lopsided)]
     plain_ms = timer(lambda: _paged_attend_int8_plain(*args, PAGE))
     library_ms = timer(lambda: sdpa(qs, kg, vg, attn_mask=mask, scale=1.0))
     live = sum(min(int(n) + 1, span) for n in lengths.tolist())
@@ -520,15 +548,17 @@ def k3_phase(timer, device, gen):
     bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                 >= ops / BF16_OPS_PER_S else "operations")
     print("K3 ms %.4f plain_ms %.4f sdpa_ms %.4f bound_ms %.4f (%s, %d "
-          "live positions, %d bytes)" % (ms, plain_ms, library_ms,
-                                         bound_ms, bound_by, live,
-                                         nbytes))
+          "live positions, %d bytes); lopsided lengths %s: %.4f ms; "
+          "kernel alone (torch.profiler) %.4f and %.4f ms"
+          % (ms, plain_ms, library_ms, bound_ms, bound_by, live, nbytes,
+             list(K1_LOPSIDED), lopsided_ms, *kernel_ms))
     return {"name": "paged_attend_int8", "route": "cuda",
             "source": "veles_tpu_torch/ops/csrc/paged_attention_int8.cu",
             "replaces": "veles_tpu/ops/paged_attention.py:201",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "lopsided_ms": lopsided_ms,
+            "kernel_ms": kernel_ms[0], "lopsided_kernel_ms": kernel_ms[1],
             "library": "scaled_dot_product_attention on the dequantized "
                        "pages"}
 
@@ -2112,6 +2142,7 @@ def main():
             if "registers" in line or "spill" in line:
                 print("  %s: %s" % (name, line.strip()))
     for label, name in (("K1", "paged_attention"),
+                        ("K3", "paged_attention_int8"),
                         ("K4", "cache_attend_int8")):
         spills = [tuple(map(int, m)) for m in re.findall(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads",

@@ -1,10 +1,10 @@
 """The launch plans of K4 (veles_tpu_torch/ops/quant._attend_plan) and
-K1 (veles_tpu_torch/ops/paged_attention._paged_plan), held on the CPU,
-and the split-then-merge formula both kernels compute, emulated in torch
-ops on those plans and held against the JAX package's kernels in
-interpret mode.
+K1 (veles_tpu_torch/ops/paged_attention._paged_plan, K3's too), held on
+the CPU, and the split-then-merge formula the three kernels compute,
+emulated in torch ops on those plans and held against the JAX package's
+kernels in interpret mode.
 
-Both kernels cut each (row, head)'s positions into splits, one block a
+The kernels cut each (row, head)'s positions into splits, one block a
 split, and merge the splits' softmax states (max m, sum l, acc) in the
 same launch: out = sum_s acc_s exp(m_s - M) / sum_s l_s exp(m_s - M).
 The kernels themselves are held against their plain versions on the
@@ -317,3 +317,141 @@ def test_paged_split_formula_matches_the_jax_kernel(lengths, pb, sms):
     numpy.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=0)
     torch.testing.assert_close(tpgatt.paged_attend(*args, page_size=PS), out,
                                rtol=0, atol=ATOL)
+
+
+def _stage_positions(head_dim):
+    """The positions a stage of K3's (and K4's) int8 tile holds at this
+    head width (``csrc/int8_tile.cuh``'s stage_positions)."""
+    for tps, widest in ((128, 128), (64, 256), (32, 512)):
+        if head_dim <= widest:
+            return tps
+    return 16
+
+
+def _paged_int8_problem(lengths, pb, head_dim=32, heads=4, seed=11):
+    """Live pages 1.. per slot in logical order, the rest of each row
+    padded with the scratch page 0; random int8 codes and positive f32
+    scales, head-major (P, H, D, ps) and (P, H, ps); q pre-scaled."""
+    rng = numpy.random.RandomState(seed)
+    table = numpy.zeros((len(lengths), pb), numpy.int32)
+    nxt = 1
+    for s, n in enumerate(lengths):
+        for p in range(min(n // PS + 1, pb)):
+            table[s, p] = nxt
+            nxt += 1
+    q = (rng.randn(len(lengths), heads, head_dim)
+         / math.sqrt(head_dim)).astype(numpy.float32)
+    pool = []
+    for _ in range(2):
+        pool += [rng.randint(-127, 128, (nxt, heads, head_dim, PS))
+                 .astype(numpy.int8),
+                 rng.uniform(0.005, 0.02, (nxt, heads, PS))
+                 .astype(numpy.float32)]
+    return q, pool, table, numpy.asarray(lengths, numpy.int32)
+
+
+def _paged_int8_split_emulation(q, k_q, k_scale, v_q, v_scale, table,
+                                lengths, ps, pages):
+    """K3's formula on a plan: each slot's live splits, each walked in
+    stages of the tile's width. A stage reads every position it holds
+    whose page lies in the table (positions past ``lengths`` included:
+    what the pool holds there is stale) and NaN scales past the table,
+    then selects: an invisible position's score is -inf and its weight
+    0. The stages meet by the online-softmax rescale, the splits by the
+    merge."""
+    slots, heads, head_dim = q.shape
+    pb = table.shape[1]
+    span, tps = pages * ps, _stage_positions(head_dim)
+    outs = []
+    for s in range(slots):
+        visible = min(int(lengths[s]) + 1, pb * ps)
+        states = []
+        for begin in range(0, visible, span):
+            n_pos = min(visible - begin, span)
+            m = torch.full((heads,), -math.inf)
+            l = torch.zeros(heads)
+            acc = torch.zeros(heads, head_dim)
+            for first in range(0, n_pos, tps):
+                pos = begin + first + torch.arange(tps)
+                in_table = pos < pb * ps
+                rows = table[s, torch.clamp(pos // ps, max=pb - 1)].long()
+                off = pos % ps
+
+                def read(codes, scale):
+                    c = codes[rows, :, :, off].float()          # (t, H, D)
+                    sc = torch.where(in_table[:, None], scale[rows, :, off],
+                                     math.nan)               # (t, H)
+                    return c, sc
+
+                kc, ks = read(k_q, k_scale)
+                vc, vs = read(v_q, v_scale)
+                counts = (torch.arange(tps) < n_pos - first)[:, None]
+                sc = torch.where(counts, torch.einsum(
+                    "hd,thd->th", q[s].float(), kc) * ks, -math.inf)
+                m_new = torch.maximum(m, sc.amax(0))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(sc - m_new)
+                w = torch.where(counts, p * vs, 0.0)
+                l = l * alpha + p.sum(0)
+                acc = acc * alpha[:, None] + torch.einsum("th,thd->hd", w, vc)
+                m = m_new
+            states.append((m, l, acc))
+        outs.append(_merge(states))
+    return torch.stack(outs)
+
+
+PAGED_INT8_CASES = pytest.mark.parametrize("lengths,pb,sms,head_dim", [
+    ([0, 3 * PS, 2 * PS - 1, 40], 6, SMS, 32),   # length 0, page boundaries
+    ([0, 3 * PS, 3 * PS - 1, 40], 6, 8, 32),     # 3-page splits: 24 +- 1
+    ([0, 5 * PS + 3], 5, SMS, 32),               # a length past the table
+    ([0, 3 * PS, 3 * PS - 1, 40], 6, 8, 96),
+    # 16-page splits of two 64-position stages at D = 256: one and two
+    # splits, a full table row, a split of one visible position
+    ([0, 130, 16 * PS - 1, 16 * PS, 40 * PS - 1], 40, 1, 256),
+], ids=["one-page-splits", "three-page-splits", "past-the-table", "d96",
+        "d256-two-stages"])
+
+
+@PAGED_INT8_CASES
+def test_paged_int8_split_formula_matches_the_jax_kernel(lengths, pb, sms,
+                                                         head_dim):
+    q, pool, table, lens = _paged_int8_problem(lengths, pb, head_dim)
+    pages, splits, _ = _paged_plan(len(lengths), q.shape[1], head_dim, pb,
+                                   PS, sms)
+    assert splits > 1
+    ref = numpy.asarray(jpgatt.paged_attend_int8(
+        jnp.asarray(q), *map(jnp.asarray, pool), jnp.asarray(table),
+        jnp.asarray(lens), page_size=PS, interpret=True))
+    args = [torch.from_numpy(a) for a in (q, *pool, table, lens)]
+    out = _paged_int8_split_emulation(*args, PS, pages)
+    numpy.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=0)
+    torch.testing.assert_close(
+        tpgatt.paged_attend_int8(*args, page_size=PS), out, rtol=0,
+        atol=ATOL)
+
+
+def test_paged_int8_invisible_nan_scales_change_nothing():
+    """NaN scales (and extreme codes) on the scratch page and past
+    ``lengths`` in every slot's last live page: the emulation and the
+    plain version select them out, so both give the clean pool's output,
+    finite. (The JAX kernel multiplies its zero weights by v_scale, so
+    it is not the reference here.)"""
+    lengths, pb = [0, 3 * PS, 3 * PS - 1, 40], 6
+    q, pool, table, lens = _paged_int8_problem(lengths, pb, 32)
+    pages, _, _ = _paged_plan(len(lengths), q.shape[1], 32, pb, PS, 8)
+    clean = [torch.from_numpy(a) for a in (q, *pool, table, lens)]
+    poisoned = [a.clone() for a in clean]
+    kq, ks, vq, vs = poisoned[1:5]
+    for s, n in enumerate(lengths):
+        last = table[s, min(n // PS, pb - 1)]
+        for codes, scale in ((kq, ks), (vq, vs)):
+            codes[last, :, :, n % PS + 1:] = -128
+            scale[last, :, n % PS + 1:] = math.nan
+    for codes, scale in ((kq, ks), (vq, vs)):
+        codes[0] = 127
+        scale[0] = math.nan
+    for fn in (lambda a: _paged_int8_split_emulation(*a, PS, pages),
+               lambda a: tpgatt.paged_attend_int8(*a, page_size=PS)):
+        want, got = fn(clean), fn(poisoned)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=0, atol=0)

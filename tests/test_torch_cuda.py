@@ -5,12 +5,14 @@ decode-step shape and 1 to 256 rows in both x types, its byte-wise path
 of other shapes in a row (the split counters reset), the M > 256 regime
 rule; K1 at head rows of 64 to 512 bytes, mixed query and pool
 types, at its splits' boundaries (16- and 128-token pages), twice bit
-for bit; K3 at length 0, full table rows, head widths 32 to 128 and both
-query types; K4 at head widths 32 to 1024, shared and per-row masks,
+for bit; K3 at length 0, full table rows, head widths 32 to 1024 (the
+powers of two and 96) in both query types, 8-, 16- and 128-token pages
+at its splits' boundaries, NaN scales on invisible positions, twice bit
+for bit; K4 at head widths 32 to 1024, shared and per-row masks,
 lanes of several 8192-position tiles (one fully masked tile first or
 last) and a slab view cut to a span, with one split, a ragged last
 split, a fully masked split and a fully masked row, twice bit for bit;
-the split counters K1, K2 and K4 share left at zero; and the
+the split counters K1, K2, K3 and K4 share left at zero; and the
 dense int8-KV decoder on the card against the CPU; the wrappers'
 refusals; prefill attention at 4096 positions with a head width the
 flash rule leaves to plain attention; K5 and K6 at odd shapes, both
@@ -302,7 +304,8 @@ def test_paged_attend_int8_kernel_matches_plain(cuda, head_dim, q_dtype,
 
 
 @pytest.mark.parametrize("case", ["strided_q", "strided_pool",
-                                  "pool_shape", "head_dim", "page_size"])
+                                  "pool_shape", "head_dim", "head_dim_wide",
+                                  "page_size"])
 def test_paged_attend_int8_refuses_what_the_kernel_does_not_take(cuda,
                                                                  case):
     q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
@@ -313,14 +316,100 @@ def test_paged_attend_int8_refuses_what_the_kernel_does_not_take(cuda,
         kq = kq.transpose(2, 3).contiguous().transpose(2, 3)
     elif case == "pool_shape":
         vq, vs = vq[:, :2], vs[:, :2]
-    elif case == "head_dim":
+    elif case == "head_dim":   # not a multiple of 32
         q, kq, vq = q[..., :48].contiguous(), kq[:, :, :48].contiguous(), \
             vq[:, :, :48].contiguous()
-    else:   # a page size the kernel's 4-position loads cannot walk
+    elif case == "head_dim_wide":   # past 1024
+        q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
+            cuda, 1056, torch.float32, [3, 20], 2)
+    else:   # a page size the kernel's 4-position copies cannot walk
         q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
             cuda, 64, torch.float32, [3, 20], 2, ps=10)
+    before = paged_attend_int8.launches
     with pytest.raises(ValueError):
         paged_attend_int8(q, kq, ks, vq, vs, table, lengths, page_size=ps)
+    assert paged_attend_int8.launches == before
+
+
+#: every head width of K3's rule the card tests hold: the powers of two,
+#: a width between them, and the widest
+K3_WIDTHS = [32, 64, 96, 128, 256, 512, 1024]
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("head_dim", K3_WIDTHS)
+def test_paged_attend_int8_at_every_width(cuda, head_dim, q_dtype):
+    """128-token pages, one page a split: one stage a split up to D =
+    128, then 2, 4 and 8 sub-page stages in the two-stage ring; a
+    length-0 slot, a page boundary and a 1100-position slot."""
+    args = _int8_paged_problem(cuda, head_dim, q_dtype, [0, 127, 1100], 10,
+                               heads=2, ps=128)
+    before = paged_attend_int8.launches
+    out = paged_attend_int8(*args[:-1], page_size=128)
+    assert paged_attend_int8.launches == before + 1
+    torch.testing.assert_close(out, _paged_attend_int8_plain(*args),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("ps", [8, 16, 128])
+def test_paged_attend_int8_at_split_boundaries(cuda, ps):
+    """K3's splits (K1's plan: 16, 8 and 1 page(s) a split here) at the
+    serving model's heads: slots whose visible positions end one before,
+    at and one after a split's end, a length-0 slot beside a
+    4000-position one, and a full table row; 4-byte copies at 8-token
+    pages, 16-byte ones at 16 and 128."""
+    pb = 4000 // ps + 2
+    pages, splits, _ = _paged_plan(7, 16, 64, pb, ps, _sms())
+    assert splits > 1
+    span = pages * ps
+    lengths = [span - 2, span - 1, span, 0, 4000, 2 * span, pb * ps + 7]
+    args = _int8_paged_problem(cuda, 64, torch.bfloat16, lengths, pb,
+                               heads=16, ps=ps)
+    out = paged_attend_int8(*args[:-1], page_size=ps)
+    torch.testing.assert_close(out, _paged_attend_int8_plain(*args),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_paged_attend_int8_is_deterministic(cuda):
+    """The live splits meet in split order in the slot's last block: two
+    calls are bit-equal, at the smoke's lengths and at lopsided ones."""
+    for lengths in ([0, 127, 128, 300, 511, 700, 1023, 1100],
+                    [1100] + [0] * 7):
+        args = _int8_paged_problem(cuda, 64, torch.bfloat16, lengths, 10,
+                                   heads=16, ps=128)
+        first = paged_attend_int8(*args[:-1], page_size=128)
+        second = paged_attend_int8(*args[:-1], page_size=128)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        torch.testing.assert_close(first, _paged_attend_int8_plain(*args),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("ps", [8, 16, 128])
+def test_paged_attend_int8_ignores_invisible_positions(cuda, ps):
+    """NaN scales and extreme codes on the scratch page and past each
+    slot's length in its last live page change no bit of the output:
+    the kernel selects those positions out (score -inf, weight 0)."""
+    lengths = [0, ps + 2, 2 * ps - 1, 5 * ps + 3]
+    args = list(_int8_paged_problem(cuda, 64, torch.float32, lengths, 6,
+                                    ps=ps))
+    clean = paged_attend_int8(*args[:-1], page_size=ps)
+    ref = _paged_attend_int8_plain(*args)
+    table = args[5].cpu()
+    for s, n in enumerate(lengths):
+        last = int(table[s, n // ps])
+        for codes, scale in ((args[1], args[2]), (args[3], args[4])):
+            codes[last, :, :, n % ps + 1:] = 127
+            scale[last, :, n % ps + 1:] = math.nan
+    for codes, scale in ((args[1], args[2]), (args[3], args[4])):
+        codes[0] = -128
+        scale[0] = math.nan
+    poisoned = paged_attend_int8(*args[:-1], page_size=ps)
+    torch.cuda.synchronize()
+    assert torch.isfinite(poisoned).all()
+    assert torch.equal(poisoned, clean)
+    torch.testing.assert_close(poisoned, ref, rtol=1e-5, atol=1e-5)
 
 
 def _slab_problem(gen, batch, heads, head_dim, width, q_dtype):
@@ -574,6 +663,32 @@ def test_split_counters_reset_between_shapes(cuda):
     for out, (q, slab), mask in zip((first[1], first[4]), slabs, masks):
         torch.testing.assert_close(out, _cache_attend_plain(q, *slab, mask),
                                    rtol=1e-5, atol=1e-5)
+    stream = torch.cuda.current_stream().cuda_stream
+    _, counters = _workspace._workspaces[(torch.cuda.current_device(),
+                                          stream)]
+    assert not counters.any()
+
+
+def test_split_counters_reset_after_k3(cuda):
+    """K3 shares the stream's workspace and counters with K1 and K4: a K3
+    call, then a K1 and a K4 call on the same stream, each agrees with
+    its plain version, and the counters are back at zero."""
+    lengths = [0, 700, 1100, 5]
+    k3 = _int8_paged_problem(cuda, 64, torch.bfloat16, lengths, 10,
+                             heads=16, ps=128)
+    k1 = _paged_lengths_problem(cuda, lengths, 10, 128)
+    q, slab = _slab_problem(cuda, 8, 16, 64, 768, torch.bfloat16)
+    mask = _slab_mask("per-row", 8, 768)
+    outs = [paged_attend_int8(*k3[:-1], page_size=128),
+            paged_attend(*k1, page_size=128),
+            int8_cache_attend(q, *slab, mask)]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0], _paged_attend_int8_plain(*k3),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(outs[1], _paged_attend_plain(*k1, 128),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(outs[2], _cache_attend_plain(q, *slab, mask),
+                               rtol=1e-5, atol=1e-5)
     stream = torch.cuda.current_stream().cuda_stream
     _, counters = _workspace._workspaces[(torch.cuda.current_device(),
                                           stream)]

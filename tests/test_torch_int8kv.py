@@ -155,6 +155,24 @@ def test_paged_int8_plain_matches_jax_kernel(lengths, pb):
                                   atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("head_dim", [96, 256])
+def test_paged_int8_plain_matches_jax_kernel_at_the_wider_kernel_widths(
+        head_dim):
+    """Head widths of the card kernel's rule (every multiple of 32 up to
+    1024) besides the powers of two, and past 128, with length 0, a page
+    boundary and a full table row."""
+    q, pool, table, lens = _paged_problem([0, PS, 3 * PS + 2], 3, heads=2,
+                                          head_dim=head_dim)
+    ref = jpgatt.paged_attend_int8(
+        jnp.asarray(q), *map(jnp.asarray, pool), jnp.asarray(table),
+        jnp.asarray(lens), page_size=PS, interpret=True)
+    out = tpgatt.paged_attend_int8(torch.from_numpy(q), *map(_t, pool),
+                                   torch.from_numpy(table),
+                                   torch.from_numpy(lens), page_size=PS)
+    numpy.testing.assert_allclose(out.numpy(), numpy.asarray(ref),
+                                  atol=ATOL, rtol=0)
+
+
 @PAGED_CASES
 def test_paged_int8_plain_matches_jax_gather_path(lengths, pb):
     """The JAX serving path off the TPU: the page-table gather into the

@@ -1,15 +1,15 @@
 """The per-stream workspace of the kernels that cut one output's work
 over several blocks and merge the partials in the same launch: K2
-(``quant.int8_matmul``, a split of K), K1 (``paged_attention.
-paged_attend``) and K4 (``quant.int8_cache_attend``), both a split of the
-positions.
+(``quant.int8_matmul``, a split of K), K1 and K3 (``paged_attention.
+paged_attend`` and ``paged_attend_int8``) and K4 (``quant.
+int8_cache_attend``), the last three a split of the positions.
 
 Each such launch writes its f32 partials to the workspace, and the last
 block of an output tile or (row, head) to finish, found by a counter,
 merges them and resets the counter to 0. The workspace and the counters
 are kept and grown across calls, one pair per (device, stream): the
 stream orders the calls, so each launch finds the counters the previous
-one reset, and the kernels of all three share them.
+one reset, and the kernels of all four share them.
 """
 
 import torch

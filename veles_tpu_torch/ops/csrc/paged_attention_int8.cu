@@ -1,7 +1,7 @@
 // Fused paged decode attention, int8-KV tier: one query per (slot, head)
 // against the slot's live int8 KV pages, walked through the page table in
-// the kernel, dequantized in registers by the per-position scales, with an
-// online softmax in f32.
+// the kernel, dequantized by the per-position scales inside the dots, with
+// an f32 softmax.
 //
 // Replaces: veles_tpu/ops/paged_attention.py _int8_kernel via
 // paged_attend_int8 (paged_attention.py:201-247, :318-344), which
@@ -10,50 +10,117 @@
 //
 // What bounds it on the H100: bytes. Each live position reads one int8 K
 // and V code per (head, d) and two f32 scales per head (2 * H * (D + 4)
-// bytes) for 4 * D operations per head: far below the compute line.
+// bytes) for 4 * D operations per head: far below the compute line. A
+// decode call is a few MB spread very unevenly over the slots (one slot
+// may hold 1100 positions, its neighbour one), so what sets its time is
+// how many bytes the card has in flight and that every SM has its share.
 //
 // Layout. The pool is head-major with positions minor: one block's codes
-// are (P, H, D, ps), so one position's D-vector of a head lies across D
-// rows, ps bytes apart, and one row holds ps consecutive positions of one
-// d. Reading a position's vector per lane group, as the float kernel does,
-// would touch D rows per position. So positions go on lanes: a lane owns
-// four consecutive positions (a "quad", never split across pages since the
-// page size is a multiple of 4) and reads each d-row's four codes with one
-// 4-byte load; a warp's 32 lanes read 128 consecutive bytes of a row per d.
-// The four scales of a quad are one 16-byte load.
+// are (P, H, D, ps), so a page's (D, ps) block of one head is contiguous,
+// one row holds ps consecutive positions of one d, and the (P, H, ps)
+// scales hold a page's ps scales of one head together.
 //
 // Design. The TPU kernel ran a sequential (slot, page) grid with VMEM
-// accumulators. Here one block of 128 threads owns one (slot, head), and
-// each thread walks quads tid, tid + 128, ... of the slot's visible
-// positions (min(length + 1, PB * ps): position `length`, this step's
-// append, is visible; the walk stops at the table's PB pages as the TPU
-// grid did). Each thread keeps its own online-softmax state: the running
-// max, the running sum and an f32 accumulator per d in registers, so the
-// value product is a per-lane FMA over its own positions and needs no
-// reduction across lanes per page. The threads' states merge once at the
-// end (block max, then one warp-shuffle sum per d and a sum over the four
-// warps in shared memory). Masked positions of a quad are selected out
-// before the max and the sum, an exact zero as the -1e30 sentinel gives
-// in the TPU kernel. q is pre-scaled by 1/sqrt(D) by the caller and is
-// not scaled again. Simple first: no split of positions over blocks, no
-// cp.async/TMA, one wave of S * H blocks.
+// accumulators. Here the work is cut along the positions, as K1 cuts it
+// (paged_attention.cu), and each block runs K4's int8 tile (int8_tile.cuh)
+// on pages read through the page table:
+// - The plan is K1's (ops/paged_attention._paged_plan, in Python so the
+//   CPU tests hold it): splits of whole pages (one 128-token page at the
+//   serving shapes, at least 128 positions where the grid still fills the
+//   card). The grid runs over (head, split, slot). A slot sees
+//   min(length + 1, PB * ps) positions (position `length`, this step's
+//   append, is visible; the walk stops at the table's PB pages, as the TPU
+//   grid did); a block whose split starts past them exits at once.
+// - A block reads the slot's length and its split's page ids in one round
+//   trip, then stages its positions in stages of TPS positions (128 at
+//   D <= 128, fewer at wider heads, whole pages or parts of one): the K
+//   codes with the K and V scales in one cp.async group, the V codes in a
+//   second, all issued as the block starts, so the scores start while the V
+//   codes land; a split of several stages runs a two-stage ring. Code
+//   copies are 16 bytes where the page size is a multiple of 16 (a page's
+//   rows then start on 16 bytes and no copy crosses a page), else 4 bytes
+//   (the page size is a multiple of 4); a stage copies only its visible
+//   positions, rounded up to a copy.
+// - Only visible positions count, by selection: a stage position past the
+//   split's visible ones gets the score -inf and the weight 0 whatever its
+//   shared memory holds (a stale entry of a live page, or bytes never
+//   copied), so a NaN or Inf scale there changes nothing (codes widen to
+//   finite values always). The scratch page (page 0) pads the table past
+//   the live pages and is never read.
+// - The splits meet in the same launch (split_softmax.cuh): the number of
+//   live splits, ceil(seen / split), is what every block of the slot
+//   computes from `lengths[s]` and is the counter's target, so a block that
+//   exits never leaves a counter short. The last block merges in split
+//   order (deterministic) and resets the counter; a slot with one live
+//   split writes its output from that block.
+// q is pre-scaled by 1/sqrt(D) by the caller and is not scaled again.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "int8_tile.cuh"
+#include "sm90.cuh"           // SmemOptIn
+#include "split_softmax.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+using namespace int8_tile;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+constexpr int kVectors = 2;  // k_scale and v_scale a stage
+// the largest dynamic shared memory a block may ask for (the opt-in,
+// below the H100's 227 KB less the static shared memory)
+constexpr int kSmemCap = 192 * 1024;
+
+// The copies of the `count` visible positions of the stage whose first
+// position is the split's `first` (split-local; the stage's positions lie
+// on the split's pages `pages`), as two copy groups: the K codes with
+// k_scale and v_scale, then the V codes. Codes in chunks of CV bytes,
+// scales in 16-byte chunks (4 positions; never across a page). A chunk's
+// column is the same for every chunk a thread copies (TPS / CV divides the
+// block), so a thread finds its page once.
+template <int TPS, int CV>
+__device__ __forceinline__ void load_stage(
+    char* st, const int8_t* k_q, const float* k_scale, const int8_t* v_q,
+    const float* v_scale, const int* pages, int first, int count, int D,
+    int H, int h, int ps) {
+  constexpr int RS = Stage<TPS, kVectors>::RS;
+  constexpr int kRowChunks = TPS / CV;
+  constexpr int kRowStep = kThreads / kRowChunks;  // d-rows a pass
+  const int tid = threadIdx.x;
+  const int off = (tid % kRowChunks) * CV;
+  const bool live = off < count;
+  size_t code0 = 0;
+  if (live) {
+    const int local = first + off;
+    code0 = ((size_t)pages[local / ps] * H + h) * D * ps + local % ps;
+  }
+  // the scale chunks: thread c < TPS / 2 copies 4 positions of k_scale
+  // (c < TPS / 4) or of v_scale
+  constexpr int kFloatChunks = TPS / 4;
+  const int which = tid / kFloatChunks, soff = (tid % kFloatChunks) * 4;
+  float* sf = reinterpret_cast<float*>(st + 2 * D * RS);
+  if (which < kVectors && soff < count) {
+    const int local = first + soff;
+    const float* src = (which == 0 ? k_scale : v_scale) +
+                       ((size_t)pages[local / ps] * H + h) * ps + local % ps;
+    cp_async<16>(sf + which * TPS + soff, src);
+  }
+  if (live) {
+    for (int d = tid / kRowChunks; d < D; d += kRowStep)
+      cp_async<CV>(st + d * RS + off, k_q + code0 + (size_t)d * ps);
+  }
+  cp_async_commit();
+  if (live) {
+    char* sv = st + D * RS;
+    for (int d = tid / kRowChunks; d < D; d += kRowStep)
+      cp_async<CV>(sv + d * RS + off, v_q + code0 + (size_t)d * ps);
+  }
+  cp_async_commit();
 }
 
-template <typename TQ, int D>
+template <typename TQ, int TPS, int CV>
 __global__ void __launch_bounds__(kThreads)
 paged_attend_int8_kernel(const TQ* __restrict__ q,
                          const int8_t* __restrict__ k_q,
@@ -62,139 +129,121 @@ paged_attend_int8_kernel(const TQ* __restrict__ q,
                          const float* __restrict__ v_scale,
                          const int* __restrict__ page_table,
                          const int* __restrict__ lengths,
-                         float* __restrict__ out, int H, int PB, int ps) {
-  __shared__ float sm_q[D];
+                         float* __restrict__ out, float* __restrict__ ws,
+                         int* __restrict__ counters, int H, int D, int PB,
+                         int ps, int pps, int n_buf) {
+  extern __shared__ float4 smem4[];
+  float* sm_q = reinterpret_cast<float*>(smem4);  // D
+  float* sm_acc = sm_q + D;                       // D
+  float* sm_part = sm_acc + D;                    // 4 x kThreads
+  float* sm_w = sm_part + 4 * kThreads;           // TPS
+  char* stages = reinterpret_cast<char*>(sm_w + TPS);
+  const int sbytes = Stage<TPS, kVectors>::bytes(D);
+  int* sm_pages = reinterpret_cast<int*>(stages + n_buf * sbytes);  // pps
   __shared__ float sm_red[kWarps];
-  __shared__ float sm_acc[kWarps][D];
 
-  const int h = blockIdx.x;
-  const int s = blockIdx.y;
+  const int h = blockIdx.x, split = blockIdx.y, s = blockIdx.z;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_vis = min(lengths[s] + 1, PB * ps);
-  const int n_quads = (n_vis + 3) >> 2;
-  const int* pt = page_table + (size_t)s * PB;
+  // the slot's length and the split's page ids (those in the table) in
+  // one round trip: the ids are stored before the length is tested
+  const int length = lengths[s];
+  const int* pt = page_table + (size_t)s * PB + (size_t)split * pps;
+  const int n_tab = min(pps, PB - split * pps);
+  for (int i = tid; i < n_tab; i += kThreads) sm_pages[i] = pt[i];
+  const int span = pps * ps;         // positions of a split
+  const int p0 = split * span;
+  const int n_vis = min(length + 1, PB * ps);
+  if (p0 >= n_vis) return;           // past the slot's live positions
+  const int arrivals = (n_vis + span - 1) / span;
+  const int n_pos = min(n_vis - p0, span);
+  const int n_st = (n_pos + TPS - 1) / TPS;
+  __syncthreads();  // the page ids are in shared memory
 
+  // every stage's bytes are requested before any arithmetic
+  load_stage<TPS, CV>(stages, k_q, k_scale, v_q, v_scale, sm_pages, 0,
+                      min(TPS, n_pos), D, H, h, ps);
+  if (n_st > 1)
+    load_stage<TPS, CV>(stages + sbytes, k_q, k_scale, v_q, v_scale,
+                        sm_pages, TPS, min(TPS, n_pos - TPS), D, H, h, ps);
+  const int item = s * H + h;
   for (int d = tid; d < D; d += kThreads)
-    sm_q[d] = to_f32(q[((size_t)s * H + h) * D + d]);
-  __syncthreads();
+    sm_q[d] = to_f32(q[(size_t)item * D + d]);
 
-  float m = -1e30f;
-  float l = 0.f;
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-
-  for (int g = tid; g < n_quads; g += kThreads) {
-    const int t0 = g << 2;
-    const int off = t0 % ps;
-    const size_t head = (size_t)pt[t0 / ps] * H + h;
-    const int8_t* krow = k_q + head * D * ps + off;
-    const int8_t* vrow = v_q + head * D * ps + off;
-    const float4 ks = __ldg(reinterpret_cast<const float4*>(
-        k_scale + head * ps + off));
-    const float4 vs = __ldg(reinterpret_cast<const float4*>(
-        v_scale + head * ps + off));
-
-    float sc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const char4 c = __ldg(reinterpret_cast<const char4*>(krow + d * ps));
-      const float qd = sm_q[d];
-      sc[0] = fmaf(qd, (float)c.x, sc[0]);
-      sc[1] = fmaf(qd, (float)c.y, sc[1]);
-      sc[2] = fmaf(qd, (float)c.z, sc[2]);
-      sc[3] = fmaf(qd, (float)c.w, sc[3]);
-    }
-    const float kss[4] = {ks.x, ks.y, ks.z, ks.w};
-    const float vss[4] = {vs.x, vs.y, vs.z, vs.w};
-    bool ok[4];
-    float m_new = m;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      ok[j] = t0 + j < n_vis;  // j = 0 always: t0 < n_vis
-      sc[j] *= kss[j];
-      if (ok[j]) m_new = fmaxf(m_new, sc[j]);
-    }
-    const float alpha = expf(m - m_new);
-    float w[4];
-    l *= alpha;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float p = ok[j] ? expf(sc[j] - m_new) : 0.f;
-      l += p;
-      w[j] = ok[j] ? p * vss[j] : 0.f;
-    }
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const char4 c = __ldg(reinterpret_cast<const char4*>(vrow + d * ps));
-      float a = acc[d] * alpha;
-      a = fmaf(w[0], (float)c.x, a);
-      a = fmaf(w[1], (float)c.y, a);
-      a = fmaf(w[2], (float)c.z, a);
-      acc[d] = fmaf(w[3], (float)c.w, a);
-    }
-    m = m_new;
+  Running<TPS> run;
+  for (int j = 0; j < n_st; ++j) {
+    const int count = min(TPS, n_pos - j * TPS);
+    // s = dot * k_scale and w = p * v_scale for a visible position; -inf
+    // and 0 for the others, selected, whatever their scales hold
+    const auto score = [count](const float* vec, int t, float dot) {
+      return t < count ? dot * vec[t] : -INFINITY;
+    };
+    const auto weight = [count](const float* vec, int t, float p) {
+      return t < count ? p * vec[TPS + t] : 0.f;
+    };
+    attend_stage<TPS, kVectors>(stages + (j & 1) * sbytes, sm_q, sm_part,
+                                sm_w, sm_red, D, count, j + 1 < n_st, run,
+                                score, weight);
+    if (j + 2 < n_st)
+      load_stage<TPS, CV>(stages + (j & 1) * sbytes, k_q, k_scale, v_q,
+                          v_scale, sm_pages, (j + 2) * TPS,
+                          min(TPS, n_pos - (j + 2) * TPS), D, H, h, ps);
   }
-
-  // block max: position 0 is always visible, so it is a real score and a
-  // thread that saw no quad (m = -1e30, l = 0) weighs an exact zero
-  float mx = m;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  if (lane == 0) sm_red[warp] = mx;
-  __syncthreads();
-  mx = sm_red[0];
-#pragma unroll
-  for (int i = 1; i < kWarps; ++i) mx = fmaxf(mx, sm_red[i]);
-  const float wt = expf(m - mx);
-  float lw = l * wt;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    lw += __shfl_xor_sync(0xffffffffu, lw, o);
-  __syncthreads();  // every thread has read sm_red
-  if (lane == 0) sm_red[warp] = lw;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    float a = acc[d] * wt;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      a += __shfl_xor_sync(0xffffffffu, a, o);
-    if (lane == 0) sm_acc[warp][d] = a;
-  }
-  __syncthreads();
-  float lsum = 0.f;
-#pragma unroll
-  for (int i = 0; i < kWarps; ++i) lsum += sm_red[i];
-  for (int d = tid; d < D; d += kThreads) {
-    float a = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) a += sm_acc[i][d];
-    out[((size_t)s * H + h) * D + d] = a / lsum;
-  }
+  finish_values(run, sm_acc, D);
+  split_softmax::finish<kThreads>(
+      sm_acc, run.m, run.l, D, item, split, gridDim.y, arrivals,
+      gridDim.z * H, ws, counters, out + (size_t)item * D);
 }
 
-template <typename TQ>
+template <typename TQ, int TPS, int CV>
 int launch(const void* q, const void* kq, const void* ks, const void* vq,
-           const void* vs, const void* pt, const void* len, void* out, int S,
-           int H, int D, int PB, int ps, cudaStream_t stream) {
-  const dim3 grid(H, S);
-#define VELES_INT8_LAUNCH(DIM)                                               \
-  paged_attend_int8_kernel<TQ, DIM><<<grid, kThreads, 0, stream>>>(          \
-      static_cast<const TQ*>(q), static_cast<const int8_t*>(kq),             \
-      static_cast<const float*>(ks), static_cast<const int8_t*>(vq),         \
-      static_cast<const float*>(vs), static_cast<const int*>(pt),            \
-      static_cast<const int*>(len), static_cast<float*>(out), H, PB, ps)
-  switch (D) {
-    case 32: VELES_INT8_LAUNCH(32); break;
-    case 64: VELES_INT8_LAUNCH(64); break;
-    case 128: VELES_INT8_LAUNCH(128); break;
-    default: return (int)cudaErrorInvalidValue;
+           const void* vs, const void* pt, const void* len, void* out,
+           void* ws, void* counters, int S, int H, int D, int PB, int ps,
+           int pps, cudaStream_t stream) {
+  auto kernel = paged_attend_int8_kernel<TQ, TPS, CV>;
+  static sm90::SmemOptIn opt_in;  // one per instantiation
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int refused = opt_in.ensure(kernel, kSmemCap, device);
+  if (refused) return refused;
+  const int splits = (PB + pps - 1) / pps;
+  const int n_buf = (pps * ps + TPS - 1) / TPS > 1 ? 2 : 1;
+  const size_t smem = (size_t)work_floats(D, TPS) * sizeof(float) +
+                      (size_t)n_buf * Stage<TPS, kVectors>::bytes(D) +
+                      (size_t)pps * sizeof(int);
+  if (smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
+  kernel<<<dim3(H, splits, S), kThreads, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const int8_t*>(kq),
+      static_cast<const float*>(ks), static_cast<const int8_t*>(vq),
+      static_cast<const float*>(vs), static_cast<const int*>(pt),
+      static_cast<const int*>(len), static_cast<float*>(out),
+      static_cast<float*>(ws), static_cast<int*>(counters), H, D, PB, ps,
+      pps, n_buf);
+  return (int)cudaGetLastError();
+}
+
+// the stage width for head width D (stage_positions) and the copy width
+// for the page size
+template <typename TQ>
+int launch_width(const void* q, const void* kq, const void* ks,
+                 const void* vq, const void* vs, const void* pt,
+                 const void* len, void* out, void* ws, void* counters, int S,
+                 int H, int D, int PB, int ps, int pps, cudaStream_t st) {
+#define VELES_INT8_LAUNCH(TPS, CV)                                 \
+  launch<TQ, TPS, CV>(q, kq, ks, vq, vs, pt, len, out, ws, counters, S, \
+                      H, D, PB, ps, pps, st)
+  const bool c16 = ps % 16 == 0;
+  switch (stage_positions(D)) {
+    case 128:
+      return c16 ? VELES_INT8_LAUNCH(128, 16) : VELES_INT8_LAUNCH(128, 4);
+    case 64:
+      return c16 ? VELES_INT8_LAUNCH(64, 16) : VELES_INT8_LAUNCH(64, 4);
+    case 32:
+      return c16 ? VELES_INT8_LAUNCH(32, 16) : VELES_INT8_LAUNCH(32, 4);
+    default:
+      return c16 ? VELES_INT8_LAUNCH(16, 16) : VELES_INT8_LAUNCH(16, 4);
   }
 #undef VELES_INT8_LAUNCH
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -202,26 +251,31 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq,
 // q (S, H, D) pre-scaled by 1/sqrt(D); k_q / v_q (P, H, D, ps) int8;
 // k_scale / v_scale (P, H, ps) float32; page_table (S, PB) int32; lengths
 // (S,) int32; out (S, H, D) float32; all contiguous, pools 16-byte aligned.
-// q type: 0 = float32, 1 = bfloat16. D in {32, 64, 128}; ps a multiple of
-// 4. Launches on `stream` and returns the launch's cudaError_t.
+// q type: 0 = float32, 1 = bfloat16. 32 <= D <= 1024 with D % 32 == 0; ps
+// a multiple of 4. The plan: splits of `pps` pages, at most
+// split_softmax::kMaxSplits of them; with more than one, ws holds
+// S * H * splits * (D + 2) floats and counters S * H zeroed ints (left
+// zeroed). Launches on `stream` and returns the launch's cudaError_t.
 extern "C" int veles_paged_attend_int8(const void* q, const void* k_q,
                                        const void* k_scale, const void* v_q,
                                        const void* v_scale,
                                        const void* page_table,
-                                       const void* lengths, void* out, int S,
-                                       int H, int D, int PB, int ps,
+                                       const void* lengths, void* out,
+                                       void* ws, void* counters, int S,
+                                       int H, int D, int PB, int ps, int pps,
                                        int q_dtype, void* stream) {
-  if (S < 1 || H < 1 || PB < 1 || ps < 4 || ps % 4)
+  if (S < 1 || H < 1 || PB < 1 || ps < 4 || ps % 4 || pps < 1 || D < 32 ||
+      D % 32 || D > kMaxHeadDim ||
+      (PB + pps - 1) / pps > split_softmax::kMaxSplits)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VELES_INT8_ARGS                                                      \
+  q, k_q, k_scale, v_q, v_scale, page_table, lengths, out, ws, counters, S, \
+      H, D, PB, ps, pps, st
   switch (q_dtype) {
-    case 0:
-      return launch<float>(q, k_q, k_scale, v_q, v_scale, page_table,
-                           lengths, out, S, H, D, PB, ps, st);
-    case 1:
-      return launch<__nv_bfloat16>(q, k_q, k_scale, v_q, v_scale, page_table,
-                                   lengths, out, S, H, D, PB, ps, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 0: return launch_width<float>(VELES_INT8_ARGS);
+    case 1: return launch_width<__nv_bfloat16>(VELES_INT8_ARGS);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef VELES_INT8_ARGS
 }

@@ -25,9 +25,9 @@ from veles_tpu_torch.ops._workspace import sm_count, split_workspace
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: K1's plan: the positions a split holds at least (whole pages) where
-#: the grid still fills the card, the blocks an SM it aims at, and the
-#: most splits a slot may have (one block merges them all,
+#: K1's (and K3's) plan: the positions a split holds at least (whole
+#: pages) where the grid still fills the card, the blocks an SM it aims
+#: at, and the most splits a slot may have (one block merges them all,
 #: ``csrc/split_softmax.cuh``)
 PAGED_SPLIT_POSITIONS = 128
 PAGED_WAVE = 4
@@ -35,13 +35,13 @@ PAGED_MAX_SPLITS = 128
 
 
 def _paged_plan(slots, heads, head_dim, pb, ps, sms):
-    """K1's launch plan for ``slots`` x ``heads`` queries of width
-    ``head_dim`` against a page table of ``pb`` pages of ``ps`` positions,
-    on a card of ``sms`` SMs: ``(pages, splits, elements)``. The kernel
-    runs heads x splits x slots blocks, split s walking the table's pages
-    [s * pages, (s + 1) * pages) (the last ragged where they do not
-    divide, none empty); a block whose split starts past its slot's
-    visible positions exits at once. A split is the fewest whole pages
+    """K1's (and K3's) launch plan for ``slots`` x ``heads`` queries of
+    width ``head_dim`` against a page table of ``pb`` pages of ``ps``
+    positions, on a card of ``sms`` SMs: ``(pages, splits, elements)``.
+    The kernel runs heads x splits x slots blocks, split s walking the
+    table's pages [s * pages, (s + 1) * pages) (the last ragged where
+    they do not divide, none empty); a block whose split starts past its
+    slot's visible positions exits at once. A split is the fewest whole pages
     that hold :data:`PAGED_SPLIT_POSITIONS` positions, fewer (down to one
     page) where heads x slots x splits would not give every SM
     :data:`PAGED_WAVE` blocks, more where the table would need more than
@@ -248,8 +248,10 @@ def _check_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
                          "devices: %s" % sorted(str(d) for d in devices))
 
 
-#: head widths K3 is compiled for (one accumulator register per d)
-INT8_HEAD_DIMS = (32, 64, 128)
+#: the head widths K3 takes: multiples of this many, from one of them up to
+#: :data:`INT8_MAX_HEAD_DIM` (K4's rule, ``csrc/int8_tile.cuh``)
+INT8_HEAD_DIM_TILE = 32
+INT8_MAX_HEAD_DIM = 1024
 
 
 def paged_attend_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
@@ -264,9 +266,14 @@ def paged_attend_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
 
     On CUDA tensors the kernel runs (and
     :attr:`paged_attend_int8.launches` counts it): the operands must be
-    contiguous, D one of :data:`INT8_HEAD_DIMS`, the page size a
-    multiple of 4 and page ids valid. On CPU tensors the plain version
-    runs."""
+    contiguous, D a multiple of :data:`INT8_HEAD_DIM_TILE` from 32 to
+    :data:`INT8_MAX_HEAD_DIM`, the page size a multiple of 4 and page
+    ids valid; other widths raise ValueError. It cuts the table's
+    positions into splits of whole pages over the card (K1's plan,
+    :func:`_paged_plan`) and merges each slot's live splits in the same
+    launch, in split order: two calls on the same inputs give bit-equal
+    outputs. Positions past ``lengths`` count for nothing whatever the
+    pool holds there. On CPU tensors the plain version runs."""
     _check_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
                 page_size)
     if q.device.type == "cpu":
@@ -280,23 +287,33 @@ def paged_attend_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
         raise ValueError("paged_attend_int8's kernel wants contiguous "
                          "operands")
     slots, heads, head_dim = q.shape
-    if head_dim not in INT8_HEAD_DIMS or page_size % 4:
-        raise ValueError("paged_attend_int8's kernel takes head_dim in %s "
-                         "and a page size that is a multiple of 4, got %d "
-                         "and %d" % (INT8_HEAD_DIMS, head_dim, page_size))
+    if head_dim % INT8_HEAD_DIM_TILE or not (
+            INT8_HEAD_DIM_TILE <= head_dim <= INT8_MAX_HEAD_DIM) \
+            or page_size % 4:
+        raise ValueError(
+            "paged_attend_int8's kernel takes head_dim %% %d == 0 from %d "
+            "to %d and a page size that is a multiple of 4, got %d and %d"
+            % (INT8_HEAD_DIM_TILE, INT8_HEAD_DIM_TILE, INT8_MAX_HEAD_DIM,
+               head_dim, page_size))
     if any(t.data_ptr() % 16 for t in (k_q, v_q, k_scale, v_scale)):
         raise ValueError("paged_attend_int8's kernel wants 16-byte "
                          "aligned pools")
+    device = q.device
+    pb = page_table.shape[1]
+    pages, _, elements = _paged_plan(slots, heads, head_dim, pb, page_size,
+                                     sm_count(device))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ws, counters = split_workspace(device, stream, elements, slots * heads)
     out = torch.empty((slots, heads, head_dim), dtype=torch.float32,
-                      device=q.device)
+                      device=device)
     fn = _build.function(
         "paged_attention_int8", "veles_paged_attend_int8",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
              v_q.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), slots, heads, head_dim,
-             page_table.shape[1], page_size, _DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             counters.data_ptr(), slots, heads, head_dim, pb, page_size,
+             pages, _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError("paged_attend_int8 kernel launch failed: CUDA "
                            "error %d" % err)
