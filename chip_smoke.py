@@ -16,11 +16,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    attention at the burst's and the lopsided lengths and in heads of
    256, each call twice bit for bit, with its plan printed, K4 dense
    int8-KV attention, on a slab view cut to a span too, twice bit for
-   bit, with its plan printed; K1, K3 and K4 also timed alone by
+   bit, with its plan printed; K1 and K3 also at every head width of
+   C4_WIDTHS (8 to 1024, an odd one among them) in 4 heads, K1 in f32
+   and bf16 pools and queries, K3 in both query types, each twice bit
+   for bit; K1, K3 and K4 also timed alone by
    torch.profiler, without the events' launch overhead; K5 the
    blocked GEMM at the weight-gradient and grad_x shapes of the wide
    MLP, K6 the fused dense layer at its forward shape, both in bf16 and
-   f32 operands, K6 in each activation; K7 the
+   f32 operands, K6 in each activation and at AlexNet's 1000-way head
+   with the knobs on, (512, 4096, 1000); K7 the
    flash-attention forward at a ragged serving prefill, bf16 and f32,
    and at the long-context training shape (1, 8192, 8, 128) bf16, K8 and
    K9 its dK/dV and dQ backward at both (bf16); K7, K8 and K9 also at the
@@ -56,7 +60,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    top-k 50) to ContinuousDecoder at the serving model's width, in
    float32, each request's stream served alone (same request id, another
    slot) equal to its stream in the burst and to generate(batch=1,
-   key=request_key(seed, request id));
+   key=request_key(seed, request id)); and, between the two, the paged
+   pool in heads of 48 (embed 768 = 16 x 48, the serving model's depth
+   and vocabulary, f32 weights, float and int8-KV tiers, 8 requests x 16
+   tokens) against the dense reference in every compared step;
 7. training: MLPWorkflow over the bench's MNIST-shaped data (60000 x
    784, 10000 valid / 50000 train), 3 epochs at lr 0.03 — the wide MLP
    (784 -> 4096 tanh -> 10, minibatch 4096) with the engine knobs
@@ -89,7 +96,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 12. one epoch of one such block at 4096 positions (embed 256, 2 heads of
    128) on the card (K7-K9) and on the CPU (plain versions) from the
    same weights: equal index streams and per-minibatch errors, every
-   weight within 1e-2 of its leaf's largest.
+   weight within 1e-2 of its leaf's largest;
+13. (run after phase 8) AlexNet-227 (bench.py:777-817: single tower, 1000
+   classes, 1000 valid / 2000 train RandomState(0) pixels, mean_disp,
+   level 0): minibatch 128 with the engine knobs at their defaults, 3
+   epochs, then minibatch 512 with use_pallas and pallas_epilogue on (the
+   main path of K6 forward and K5 backward at its three dense layers,
+   counters zeroed before it) and off, 2 epochs each; images/s over the
+   run and per epoch, every epoch's loss finite; then one epoch at level
+   2 on the card and on the CPU from the same weights of AlexNet at scale
+   1/8 on 67 x 67 x 3 pixels and of the digits_conv stack (maxabs
+   pooling, shift1 augmentation) on 8 x 8 x 1 pixels: equal index
+   streams and augmentation seeds, per-minibatch n_err within 2, every
+   leaf within 1e-3 of its largest element.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -115,6 +134,7 @@ from veles_tpu_torch.core import prng
 from veles_tpu_torch.core.config import root
 from veles_tpu_torch.dummy import DummyLauncher
 from veles_tpu_torch.loader.base import TRAIN, VALID
+from veles_tpu_torch.models.alexnet import AlexNetWorkflow
 from veles_tpu_torch.models.mlp import MLPWorkflow
 from veles_tpu_torch.models.standard import StandardWorkflow
 from veles_tpu_torch.ops import _build
@@ -161,6 +181,15 @@ K1_LOPSIDED = (1100,) + (0,) * 7
 #: they differ only in summation order and exp over up to 1101
 #: positions, far inside this bound
 K1_ATOL = 2e-3
+#: C4: head widths the JAX package's paged attends serve that K1 and K3
+#: had no route for before (the toy models' 8 and 16, rows of 96 to 200
+#: bf16 bytes, an odd width) and the widest two powers of two, held in
+#: C4_HEADS heads at the burst's lengths, f32 and bf16 pools and queries
+C4_WIDTHS = (8, 16, 33, 48, 80, 96, 100, 512, 1024)
+C4_HEADS = 4
+#: the paged serving run in heads of 48: the serving model's depth and
+#: vocabulary at embed 768 = 16 x 48, f32 weights, 8 requests x 16 tokens
+NARROW_EMBED, NARROW_HEADS, NARROW_TOKENS = 768, 16, 16
 #: K3 writes f32 from int8 codes both versions widen exactly and the
 #: same f32 scales; they differ only in summation order and exp over up
 #: to 1101 positions (~1e-6 of outputs of order 1)
@@ -308,6 +337,39 @@ AGREE_LONG_LR = 0.01
 AGREE_T, AGREE_EMBED, AGREE_HEADS = 4096, 256, 2
 AGREE_LONG_CLASS_LENGTHS = [0, 2, 2]
 AGREE_LONG_RTOL = 2e-2
+#: AlexNet-227 (bench.py:777-817): single tower, 1000 classes, RandomState(0)
+#: pixels in [0, 255), 1000 valid (one a class) and 2000 train (two a
+#: class), mean_disp, precision level 0, the JAX package's lr 0.01, moment
+#: 0.9, decay 5e-4; minibatch 128 with the knobs at their defaults, then
+#: minibatch 512 with use_pallas and pallas_epilogue on (K6 forward and K5
+#: backward at its three dense layers) and off
+ALEX_CLASSES, ALEX_HW = 1000, 227
+ALEX_CLASS_LENGTHS = [0, 1000, 2000]
+ALEX_MINIBATCH, ALEX_EPOCHS = 128, 3
+ALEX_KNOBS_MINIBATCH, ALEX_KNOBS_EPOCHS = 512, 2
+#: K6 at AlexNet's last hidden layer into the 1000-way head with the knobs
+#: on, minibatch 512: (m, k, n)
+K6_ALEX_SHAPE = (512, 4096, 1000)
+#: the conv agreement, card against CPU, precision level 2, one epoch,
+#: per-minibatch serving, from the same weights: AlexNet at scale 1/8 on
+#: 67 x 67 x 3 pixels (10 classes, 128 valid / 256 train, minibatch 64),
+#: and the digits_conv stack (veles_tpu/parity.py:94-101: conv_tanh 32,
+#: maxabs 2x2, conv_tanh 64, tanh 128, softmax) with shift1 on 8 x 8 x 1
+#: pixels (297 valid / 1500 train, minibatch 100, lr 0.02, moment 0.9).
+#: Both sides compute in f32 with other summation orders (cuDNN's conv
+#: algorithms against the CPU's): a near-tied argmax may flip, so a
+#: minibatch's n_err may differ by CONV_N_ERR_TOL, and after one epoch
+#: every leaf must lie within CONV_LEAF_RTOL of its largest element
+CONV_AGREE_SCALE, CONV_AGREE_HW = 1 / 8, 67
+CONV_AGREE_CLASS_LENGTHS = [0, 128, 256]
+DIGITS_CONV_LAYERS = [
+    {"type": "conv_tanh", "n_kernels": 32, "kx": 3, "ky": 3},
+    {"type": "maxabs_pooling", "kx": 2, "ky": 2},
+    {"type": "conv_tanh", "n_kernels": 64, "kx": 3, "ky": 3},
+    {"type": "all2all_tanh", "output_sample_shape": (128,)},
+    {"type": "softmax", "output_sample_shape": (10,)}]
+DIGITS_CLASS_LENGTHS = [0, 297, 1500]
+CONV_N_ERR_TOL, CONV_LEAF_RTOL = 2, 1e-3
 
 
 def card_line():
@@ -360,12 +422,14 @@ class Timer:
         return 1e-3 * statistics.median(times)
 
 
-def k1_problem(device, gen, lengths=K1_LENGTHS, heads=HEADS):
+def k1_problem(device, gen, lengths=K1_LENGTHS, heads=HEADS, head_dim=None,
+               q_dtype=torch.bfloat16, kv_dtype=torch.bfloat16):
     """The serving path's K1 shapes: 8 slots, 16 heads of 64 (or
-    ``heads`` heads at the same width), 128-token bf16 pages, ragged
-    lengths from 0 to 1100 (0, a page boundary, a full table row), and a
-    page table with one column more than the longest row needs, rows
-    padded with the scratch page."""
+    ``heads`` heads of EMBED / heads, or of ``head_dim``), 128-token bf16
+    pages (or ``kv_dtype``), ragged lengths from 0 to 1100 (0, a page
+    boundary, a full table row), and a page table with one column more
+    than the longest row needs, rows padded with the scratch page."""
+    head_dim = head_dim or EMBED // heads
     pb = 1100 // PAGE + 2
     table = numpy.zeros((SLOTS, pb), numpy.int32)
     nxt = 1
@@ -373,11 +437,11 @@ def k1_problem(device, gen, lengths=K1_LENGTHS, heads=HEADS):
         for p in range(n // PAGE + 1):
             table[s, p] = nxt
             nxt += 1
-    shape = (nxt, PAGE, heads, EMBED // heads)
-    k = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
-    v = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
-    q = torch.randn((SLOTS, heads, EMBED // heads), generator=gen,
-                    device=device).to(torch.bfloat16)
+    shape = (nxt, PAGE, heads, head_dim)
+    k = torch.randn(shape, generator=gen, device=device).to(kv_dtype)
+    v = torch.randn(shape, generator=gen, device=device).to(kv_dtype)
+    q = torch.randn((SLOTS, heads, head_dim), generator=gen,
+                    device=device).to(q_dtype)
     return (q, k, v, torch.from_numpy(table).to(device),
             torch.tensor(lengths, dtype=torch.int32, device=device))
 
@@ -396,7 +460,7 @@ def paged_plan(label, table, lengths):
              HEADS * splits * SLOTS, HEADS * live))
 
 
-def k1_check(args):
+def k1_check(args, label=""):
     """K1 against its plain version, and two calls bit for bit."""
     out = paged_attend(*args, page_size=PAGE)
     again = paged_attend(*args, page_size=PAGE)
@@ -404,9 +468,9 @@ def k1_check(args):
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     equal = torch.equal(out, again)
-    print("K1 paged_attend, lengths %s: max_abs_err %.3g (tolerance %.1g), "
-          "two calls bit-equal: %s" % (args[4].tolist(), err, K1_ATOL,
-                                       equal))
+    print("K1 paged_attend%s, lengths %s: max_abs_err %.3g (tolerance "
+          "%.1g), two calls bit-equal: %s" % (label, args[4].tolist(), err,
+                                              K1_ATOL, equal))
     if not err <= K1_ATOL:
         raise AssertionError("K1 disagrees with its plain version")
     if not equal:
@@ -414,12 +478,52 @@ def k1_check(args):
     return err
 
 
+def dtype_name(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def k1_widths(device, gen):
+    """C4: K1 at every width of C4_WIDTHS, f32 and bf16 pools and
+    queries, against its plain version and twice bit for bit; returns
+    the largest error."""
+    t0 = time.perf_counter()
+    err = 0.0
+    for head_dim in C4_WIDTHS:
+        for kv_dtype in (torch.float32, torch.bfloat16):
+            for q_dtype in (torch.float32, torch.bfloat16):
+                args = k1_problem(device, gen, heads=C4_HEADS,
+                                  head_dim=head_dim, q_dtype=q_dtype,
+                                  kv_dtype=kv_dtype)
+                err = max(err, k1_check(args, ", D = %d, q %s, pool %s"
+                                        % (head_dim, dtype_name(q_dtype),
+                                           dtype_name(kv_dtype))))
+    print("K1 C4 widths %s: %d calls checked in %.1f s, max_abs_err %.3g"
+          % (list(C4_WIDTHS), 4 * len(C4_WIDTHS),
+             time.perf_counter() - t0, err))
+    return err
+
+
+def narrow_times(timer, label, fn, plain, name):
+    """A kernel at the 48-wide serving shape (8 slots, 16 heads of 48,
+    the burst's lengths): event timer, alone, and its plain version."""
+    ms = timer(fn)
+    alone = timer.kernel_ms(fn, name)
+    plain_ms = timer(plain)
+    print("%s at 16 heads of 48 (the tile path): ms %.4f, alone %.4f, "
+          "plain_ms %.4f" % (label, ms, alone, plain_ms))
+
+
 def k1_phase(timer, device, gen):
     q, k, v, table, lengths = k1_problem(device, gen)
     lopsided = k1_problem(device, gen, K1_LOPSIDED)
     for args in ((q, k, v, table, lengths), lopsided):
         paged_plan("K1", args[3], args[4])
-    err = max(k1_check((q, k, v, table, lengths)), k1_check(lopsided))
+    err = max(k1_check((q, k, v, table, lengths)), k1_check(lopsided),
+              k1_widths(device, gen))
+    narrow = k1_problem(device, gen, head_dim=NARROW_EMBED // NARROW_HEADS)
+    narrow_times(timer, "K1", lambda: paged_attend(*narrow, page_size=PAGE),
+                 lambda: _paged_attend_plain(*narrow, PAGE),
+                 "paged_attend_kernel")
     # the library yardstick: SDPA over K/V already gathered contiguous
     # (the gather itself is not timed), with the same visibility mask
     span = table.shape[1] * PAGE
@@ -465,17 +569,20 @@ def k1_phase(timer, device, gen):
             "library": "scaled_dot_product_attention on the gathered pages"}
 
 
-def k3_problem(device, gen, q_dtype, lengths=K1_LENGTHS, heads=HEADS):
+def k3_problem(device, gen, q_dtype, lengths=K1_LENGTHS, heads=HEADS,
+               head_dim=None):
     """K1's smoke shapes in the int8-KV tier: the pool from
     ``_quantize_kv`` of random bf16 K/V, re-laid head-major (P, H, D,
     ps) with (P, H, ps) scales, and q pre-scaled by 1/sqrt(D)."""
-    q, k, v, table, lengths = k1_problem(device, gen, lengths, heads)
+    head_dim = head_dim or EMBED // heads
+    q, k, v, table, lengths = k1_problem(device, gen, lengths, heads,
+                                         head_dim)
     pool = []
     for val in (k, v):
         codes, scale = _quantize_kv(val)       # (P,ps,H,D), (P,ps,H)
         pool += [codes.permute(0, 2, 3, 1).contiguous(),
                  scale.permute(0, 2, 1).contiguous()]
-    q = (q.float() * (EMBED // heads) ** -0.5).to(q_dtype)
+    q = (q.float() * head_dim ** -0.5).to(q_dtype)
     return (q, *pool, table, lengths)
 
 
@@ -513,6 +620,21 @@ def k3_phase(timer, device, gen):
     err = max(err, k3_check("q bfloat16", lopsided))
     err = max(err, k3_check("q bfloat16, D = 256", k3_problem(
         device, gen, torch.bfloat16, heads=EMBED // 256)))
+    t0 = time.perf_counter()
+    for head_dim in C4_WIDTHS:     # C4
+        for q_dtype in (torch.float32, torch.bfloat16):
+            err = max(err, k3_check(
+                "q %s, D = %d" % (dtype_name(q_dtype), head_dim),
+                k3_problem(device, gen, q_dtype, heads=C4_HEADS,
+                           head_dim=head_dim)))
+    print("K3 C4 widths %s: %d calls checked in %.1f s"
+          % (list(C4_WIDTHS), 2 * len(C4_WIDTHS), time.perf_counter() - t0))
+    narrow = k3_problem(device, gen, torch.bfloat16,
+                        head_dim=NARROW_EMBED // NARROW_HEADS)
+    narrow_times(timer, "K3",
+                 lambda: paged_attend_int8(*narrow, page_size=PAGE),
+                 lambda: _paged_attend_int8_plain(*narrow, PAGE),
+                 "paged_attend_int8_kernel")
     for a in (args, lopsided):
         paged_plan("K3", a[5], a[6])
     q, kq, ks, vq, vs, table, lengths = args
@@ -791,6 +913,27 @@ def k6_phase(timer, device, gen):
         if bf16:
             entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms}
+    # AlexNet's 1000-way head at minibatch 512 with the knobs on (its
+    # forward runs linear; relu as the issue of this shape asks)
+    a, b = gemm_operands(gen, device, K6_ALEX_SHAPE, torch.bfloat16,
+                         "forward")
+    bias = torch.randn(K6_ALEX_SHAPE[2], generator=gen, device=device) * 0.1
+    for activation in ("relu", "linear"):
+        out = dense_epilogue(a, b, bias, activation)
+        ref = _dense_epilogue_plain(a, b, bias, activation)
+        torch.cuda.synchronize()
+        err, rel = gemm_error(out, ref, GEMM_F32_RTOL)
+        worst = max(worst, err)
+        print("K6 dense_epilogue bfloat16 %s (m %d, k %d, n %d): "
+              "max_abs_err %.3g (%.3g relative)"
+              % (activation, *K6_ALEX_SHAPE, err, rel))
+    ms = timer(lambda: dense_epilogue(a, b, bias, "relu"))
+    plain_ms = timer(lambda: _dense_epilogue_plain(a, b, bias, "relu"))
+    bound_ms, bound_by = gemm_bound(*K6_ALEX_SHAPE, 2, 4, BF16_OPS_PER_S,
+                                    bias=True)
+    print("K6 dense_epilogue relu (m %d, k %d, n %d) bfloat16: ms %.4f "
+          "plain_ms %.4f bound_ms %.4f (%s)"
+          % (*K6_ALEX_SHAPE, ms, plain_ms, bound_ms, bound_by))
     return dict({"name": "dense_epilogue", "route": "cuda",
                  "source": "veles_tpu_torch/ops/csrc/gemm_sm90.cuh",
                  "replaces": "veles_tpu/ops/gemm.py:199",
@@ -947,14 +1090,14 @@ def counts():
     return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
-def burst(port, prompts):
+def burst(port, prompts, n_tokens=N_TOKENS):
     """POST every prompt at once; returns the streams in order."""
     streams = [None] * len(prompts)
     errors = []
 
     def client(i):
         try:
-            streams[i] = post(port, prompts[i], N_TOKENS)
+            streams[i] = post(port, prompts[i], n_tokens)
         except Exception as exc:  # reported below, fails the phase
             errors.append("request %d: %r" % (i, exc))
 
@@ -967,14 +1110,14 @@ def burst(port, prompts):
     if errors or any(thread.is_alive() for thread in threads):
         raise AssertionError("serving failed: %s" % errors)
     for stream in streams:
-        if len(stream) != N_TOKENS or not all(0 <= t < VOCAB
+        if len(stream) != n_tokens or not all(0 <= t < VOCAB
                                               for t in stream):
             raise AssertionError("bad stream: %r" % (stream,))
     return streams
 
 
 def serve(params, table, waves, quantize, device, paged=True, heads=HEADS,
-          max_len=MAX_LEN, slots=SLOTS):
+          max_len=MAX_LEN, slots=SLOTS, n_tokens=N_TOKENS):
     """Answer ``waves`` of prompts through a fresh GenerateAPI over HTTP
     (on the paged pool, or with ``paged=False`` the dense slab), each
     wave posted at once after the previous one completed. A short
@@ -984,7 +1127,7 @@ def serve(params, table, waves, quantize, device, paged=True, heads=HEADS,
     collect, and admission), /healthz before and after the waves and the
     (stopped) API, by name."""
     api = GenerateAPI(params, table, heads, slots=slots, max_len=max_len,
-                      n_tokens=N_TOKENS, chunk=CHUNK, paged=paged,
+                      n_tokens=n_tokens, chunk=CHUNK, paged=paged,
                       page_size=PAGE, quantize=quantize,
                       device=device).start()
     try:
@@ -997,7 +1140,7 @@ def serve(params, table, waves, quantize, device, paged=True, heads=HEADS,
             fn.launches = 0
         t0 = time.perf_counter()
         streams = [stream for wave in waves
-                   for stream in burst(api.port, wave)]
+                   for stream in burst(api.port, wave, n_tokens)]
         wall = time.perf_counter() - t0
         launches = counts()
         health = api.health()
@@ -1242,35 +1385,80 @@ def agreement_phase(device, prompts, waves):
         if paged != ("pool" in run["health"]):
             raise AssertionError("the %s run served the wrong KV tier"
                                  % label)
-        ref_device = device if quantize is None else "cpu"
-        compared = cut = 0
-        for prompt, stream in zip(
-                [p for wave in run_waves for p in wave], run["streams"]):
-            key = (quantize, tuple(prompt))
-            if key not in refs:
-                before = counts()
-                ref, _, logits = generate(
-                    tier, table, numpy.asarray(prompt)[None], HEADS,
-                    N_TOKENS, return_logits=True, quantize=quantize,
-                    device=ref_device)
-                if counts() != before:
-                    raise AssertionError("the reference decode launched "
-                                         "a kernel")
-                top2 = torch.topk(logits[0], 2, dim=-1).values
-                gaps = (top2[:, 0] - top2[:, 1]).tolist()
-                n = next((i for i, g in enumerate(gaps) if g < TOP2_GAP),
-                         len(gaps))
-                refs[key] = (ref[0, :n].tolist(), len(gaps) - n)
-            want, skipped = refs[key]
-            if stream[:len(want)] != want:
-                raise AssertionError(
-                    "%s stream disagrees with the reference: %r vs %r"
-                    % (label, stream[:len(want)], want))
-            compared += len(want)
-            cut += skipped
-        print("agreement %s f32: %d steps compared, %d steps cut off at a "
-              "reference top-2 gap below %.0e"
-              % (label, compared, cut, TOP2_GAP))
+        compare_streams(label, tier, table, HEADS, quantize,
+                        device if quantize is None else "cpu",
+                        [p for wave in run_waves for p in wave],
+                        run["streams"], refs)
+
+
+def compare_streams(label, tier, table, heads, quantize, ref_device,
+                    prompts, streams, refs, n_tokens=N_TOKENS):
+    """Each stream against the dense reference decode (``generate``, which
+    must launch no kernel) of its prompt, up to the first step where the
+    reference's top-2 logit gap is below TOP2_GAP; ``refs`` caches the
+    references by (tier, prompt)."""
+    compared = cut = 0
+    for prompt, stream in zip(prompts, streams):
+        key = (quantize, tuple(prompt))
+        if key not in refs:
+            before = counts()
+            ref, _, logits = generate(
+                tier, table, numpy.asarray(prompt)[None], heads, n_tokens,
+                return_logits=True, quantize=quantize, device=ref_device)
+            if counts() != before:
+                raise AssertionError("the reference decode launched a "
+                                     "kernel")
+            top2 = torch.topk(logits[0], 2, dim=-1).values
+            gaps = (top2[:, 0] - top2[:, 1]).tolist()
+            n = next((i for i, g in enumerate(gaps) if g < TOP2_GAP),
+                     len(gaps))
+            refs[key] = (ref[0, :n].tolist(), len(gaps) - n)
+        want, skipped = refs[key]
+        if stream[:len(want)] != want:
+            raise AssertionError(
+                "%s stream disagrees with the reference: %r vs %r"
+                % (label, stream[:len(want)], want))
+        compared += len(want)
+        cut += skipped
+    print("agreement %s f32: %d steps compared, %d steps cut off at a "
+          "reference top-2 gap below %.0e" % (label, compared, cut,
+                                              TOP2_GAP))
+    return compared
+
+
+def narrow_heads_phase(device, prompts):
+    """C4 on the serving path: the serving model's depth and vocabulary at
+    embed 768 in 16 heads of 48 (head rows of 96 bf16 bytes; f32 here, so
+    192), f32 weights, the paged pool in the float (K1) and int8-KV (K3)
+    tiers, 8 requests x 16 tokens; each stream against the dense
+    reference decode (on the card for float, the CPU for int8-KV) in
+    every compared step."""
+    t0 = time.perf_counter()
+    rng = numpy.random.RandomState(3)
+    params = init_transformer_params(rng, BLOCKS, NARROW_EMBED,
+                                     NARROW_HEADS, VOCAB, device="cpu")
+    table = torch.from_numpy(
+        rng.randn(VOCAB, NARROW_EMBED).astype(numpy.float32) * 0.02)
+    refs = {}
+    for quantize, attend in ((None, "paged_attend"),
+                             ("int8-kv", "paged_attend_int8")):
+        tier = params if quantize is None else quantize_params(params)
+        run = serve(tier, table, [prompts], quantize, device,
+                    heads=NARROW_HEADS, n_tokens=NARROW_TOKENS)
+        got = run["launches"][attend]
+        print("serve %s f32, heads of %d: %d requests x %d tokens in %.3f "
+              "s, %s launches %d" % (quantize or "float",
+                                     NARROW_EMBED // NARROW_HEADS,
+                                     len(prompts), NARROW_TOKENS,
+                                     run["wall"], attend, got))
+        if not got:
+            raise AssertionError("the 48-wide %s run launched no %s"
+                                 % (quantize or "float", attend))
+        compare_streams("heads of 48, %s" % (quantize or "float"), tier,
+                        table, NARROW_HEADS, quantize,
+                        device if quantize is None else "cpu", prompts,
+                        run["streams"], refs, NARROW_TOKENS)
+    print("heads-of-48 serving phase: %.1f s" % (time.perf_counter() - t0))
 
 
 def sampling_phase(device, prompts):
@@ -1372,13 +1560,14 @@ def build_mlp(device, data, labels, layers, minibatch, class_lengths,
 
 def train(wf, device):
     """initialize() and run() ``wf``; returns the per-epoch records
-    (host clock at the epoch's summary, train loss, validation n_err)
-    and the wall seconds of run(), the card synchronised at both ends."""
+    (host clock at the epoch's summary and at run()'s start, train loss,
+    validation n_err) and the wall seconds of run(), the card
+    synchronised at both ends."""
     epochs = []
     summary = wf.decision._epoch_summary
 
     def stamped(stats, epoch):
-        epochs.append({"t": time.perf_counter(),
+        epochs.append({"t": time.perf_counter(), "t0": t0,
                        "train_loss": stats[TRAIN][2] / max(stats[TRAIN][1],
                                                            1),
                        "valid_n_err": stats[VALID][0]})
@@ -1536,6 +1725,227 @@ def training_agreement_phase(device):
             or any(got_h.values()):
         raise AssertionError("the card run skipped a kernel or the CPU run "
                              "launched one")
+
+
+def balanced_labels(rng, classes, *lengths):
+    """Label blocks, each as class-balanced as its length allows and
+    shuffled (bench.py:61-73)."""
+    blocks = []
+    for length in lengths:
+        block = numpy.tile(numpy.arange(classes, dtype=numpy.int32),
+                           length // classes + 1)[:length]
+        rng.shuffle(block)
+        blocks.append(block)
+    return numpy.concatenate(blocks)
+
+
+def alexnet_dataset():
+    """bench.py:786-792's AlexNet data: RandomState(0) pixels in [0, 255)
+    of 227 x 227 x 3 (1.85 GB as f32), 1000 valid then 2000 train,
+    exactly proportional over the 1000 classes."""
+    rng = numpy.random.RandomState(0)
+    n = sum(ALEX_CLASS_LENGTHS)
+    data = (rng.rand(n, ALEX_HW, ALEX_HW, 3) * 255).astype(numpy.float32)
+    return data, balanced_labels(rng, ALEX_CLASSES, *ALEX_CLASS_LENGTHS[1:])
+
+
+def build_standard(device, data, labels, class_lengths, minibatch, epochs,
+                   knobs=False, precision_level=0, sweep=True, layers=None,
+                   scale=1.0, n_classes=ALEX_CLASSES, transform=None,
+                   normalization="mean_disp", **trainer):
+    """AlexNetWorkflow (or, with ``layers``, a StandardWorkflow of them)
+    as bench.py:793-803 builds it (seeds 1, the JAX package's trainer
+    defaults) with the engine knobs and precision level set; unpipelined
+    (each epoch's summary waits for that epoch on the card, so the
+    intervals between summaries are the epochs' times)."""
+    root.common.engine.update({"use_pallas": knobs,
+                               "pallas_epilogue": knobs,
+                               "precision_level": precision_level})
+    prng.get("default").seed(1)
+    prng.get("loader").seed(1)
+    kwargs = dict(loader_kwargs=dict(data=data, labels=labels,
+                                     class_lengths=class_lengths,
+                                     minibatch_size=minibatch,
+                                     normalization_type=normalization,
+                                     train_transform=transform),
+                  decision_kwargs=dict(max_epochs=epochs),
+                  fused_sweep=sweep, fused_pipeline=False, device=device,
+                  **trainer)
+    if layers is None:
+        return AlexNetWorkflow(DummyLauncher(), n_classes=n_classes,
+                               scale=scale, name="alexnet", **kwargs)
+    return StandardWorkflow(DummyLauncher(), layers=layers, name="convnet",
+                            **kwargs)
+
+
+def report_epochs(label, wf, epochs, wall, n_images):
+    """Images/s over the whole run and in each epoch (the interval since
+    the previous epoch's summary; the first from the run's start), the
+    per-epoch train loss and validation n_err; fails on a non-finite
+    loss."""
+    losses = [e["train_loss"] for e in epochs]
+    stamps = [epochs[0]["t0"]] + [e["t"] for e in epochs]
+    per_epoch = [n_images / (b - a) for a, b in zip(stamps, stamps[1:])]
+    print("train %s: %d epochs in %.3f s, %.1f images/s over the run; per "
+          "epoch %s; train loss %s; validation n_err %s; minibatches per "
+          "class (test, valid, train) %s"
+          % (label, len(epochs), wall, n_images * len(epochs) / wall,
+             ["%.1f" % r for r in per_epoch], ["%.6f" % v for v in losses],
+             [e["valid_n_err"] for e in epochs],
+             wf.fused_tick.minibatch_counts))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("%s: a train loss is not finite" % label)
+    return n_images * len(epochs) / wall
+
+
+def alexnet_phase(device):
+    """AlexNet-227 (bench.py:777-817) on the card: minibatch 128, level 0,
+    the knobs at their defaults, ALEX_EPOCHS epochs; then minibatch 512
+    with use_pallas and pallas_epilogue on (the main path of K6 forward
+    and K5 backward at the three dense layers: 9216 -> 4096 -> 4096 ->
+    1000; the counters are zeroed before the run) and off. Images/s and
+    per-epoch losses for each; returns the knobs-on run's launches."""
+    t0 = time.perf_counter()
+    data, labels = alexnet_dataset()
+    n = len(data)
+    print("AlexNet data: %d x %d x %d x 3 f32 (%.2f GB) in %.1f s"
+          % (n, ALEX_HW, ALEX_HW, data.nbytes / 1e9,
+             time.perf_counter() - t0))
+    main = None
+    for minibatch, epochs, knobs in (
+            (ALEX_MINIBATCH, ALEX_EPOCHS, False),
+            (ALEX_KNOBS_MINIBATCH, ALEX_KNOBS_EPOCHS, True),
+            (ALEX_KNOBS_MINIBATCH, ALEX_KNOBS_EPOCHS, False)):
+        wf = build_standard(device, data, labels, ALEX_CLASS_LENGTHS,
+                            minibatch, epochs, knobs=knobs)
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        records, wall = train(wf, device)
+        got = counts()
+        label = "AlexNet-227 mb %d, knobs %s" % (minibatch,
+                                                  "on" if knobs else "off")
+        report_epochs(label, wf, records, wall, n)
+        _, valid, train_mb = wf.fused_tick.minibatch_counts
+        print("  launches K5 %d, K6 %d (%d valid and %d train minibatches)"
+              % (got["blocked_matmul"], got["dense_epilogue"], valid,
+                 train_mb))
+        if len(records) != epochs:
+            raise AssertionError("%s ran %d epochs" % (label, len(records)))
+        others = sum(v for k, v in got.items()
+                     if k not in ("blocked_matmul", "dense_epilogue"))
+        if knobs:
+            # three dense forwards a minibatch; the backward's weight and
+            # input gradients (the first dense layer's input gradient
+            # goes to the last pool, so it is taken too)
+            if got["dense_epilogue"] < 3 * (valid + train_mb) \
+                    or got["blocked_matmul"] < 3 * train_mb or others:
+                raise AssertionError("%s: launches %s" % (label, got))
+            main = got
+        elif any(got.values()):
+            raise AssertionError("%s launched a kernel: %s" % (label, got))
+        del wf
+        torch.cuda.empty_cache()
+    print("AlexNet phase: %.1f s" % (time.perf_counter() - t0))
+    return main
+
+
+def unit_leaves(wf):
+    """Each forward's weights and bias as numpy ({} for a pool): what
+    ``unit_params_from_jax`` takes."""
+    return [{"weights": f.weights.data.cpu().numpy().copy(),
+             "bias": f.bias.data.cpu().numpy().copy()}
+            if getattr(f, "weights", None) is not None else {}
+            for f in wf.forwards]
+
+
+def conv_recorded_run(wf):
+    """initialize() and run() a per-minibatch convnet; returns each tick's
+    served indices with its augmentation seed, each tick's n_err, the
+    initial and the final leaves, and the launches."""
+    served, n_errs = [], []
+    loader_run = wf.loader.run
+
+    def recorded():
+        loader_run()
+        served.append((wf.loader.minibatch_indices.data.copy(),
+                       getattr(wf.loader, "minibatch_transform_seed", 0)))
+
+    wf.loader.run = recorded
+    wf.initialize()
+    initial = unit_leaves(wf)
+    tick_run = wf.fused_tick.run
+
+    def counted():
+        tick_run()
+        n_errs.append(int(wf.evaluator.n_err.data))
+
+    wf.fused_tick.run = counted
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    wf.run()
+    if wf.device.type == "cuda":
+        torch.cuda.synchronize()
+    return served, n_errs, initial, unit_leaves(wf), counts()
+
+
+def conv_agreement_phase(device):
+    """One epoch at precision level 2 on the CPU and on the card from the
+    same weights (the CPU run's initial ones carried across),
+    per-minibatch serving: (a) AlexNet at scale 1/8 on 67 x 67 x 3
+    pixels, (b) the digits_conv stack with maxabs pooling and shift1 on
+    8 x 8 x 1 pixels. The served indices and augmentation seeds must be
+    equal, each minibatch's n_err within CONV_N_ERR_TOL, every leaf
+    within CONV_LEAF_RTOL of its largest element."""
+    t0 = time.perf_counter()
+    rng = numpy.random.RandomState(8)
+    n = sum(CONV_AGREE_CLASS_LENGTHS)
+    alex = dict(data=(rng.rand(n, CONV_AGREE_HW, CONV_AGREE_HW, 3)
+                      * 255).astype(numpy.float32),
+                labels=balanced_labels(rng, 10,
+                                       *CONV_AGREE_CLASS_LENGTHS[1:]),
+                class_lengths=CONV_AGREE_CLASS_LENGTHS, minibatch=64,
+                scale=CONV_AGREE_SCALE, n_classes=10)
+    n = sum(DIGITS_CLASS_LENGTHS)
+    digits = dict(data=(rng.rand(n, 8, 8, 1) * 16).astype(numpy.float32),
+                  labels=balanced_labels(rng, 10, *DIGITS_CLASS_LENGTHS[1:]),
+                  class_lengths=DIGITS_CLASS_LENGTHS, minibatch=100,
+                  layers=DIGITS_CONV_LAYERS, transform="shift1",
+                  normalization="linear", learning_rate=0.02,
+                  gradient_moment=0.9)
+    for label, config in (("AlexNet scale 1/8, 67 x 67", alex),
+                          ("digits_conv maxabs + shift1, 8 x 8", digits)):
+        config = dict(config)
+        args = [config.pop(key) for key in ("data", "labels",
+                                            "class_lengths", "minibatch")]
+        host = build_standard(torch.device("cpu"), *args, 1,
+                              precision_level=2, sweep=False, **config)
+        served_h, errs_h, initial, leaves_h, got_h = conv_recorded_run(host)
+        card = build_standard(device, *args, 1, precision_level=2,
+                              sweep=False, **config)
+        unit_params_from_jax(card, initial)
+        served_c, errs_c, _, leaves_c, got_c = conv_recorded_run(card)
+        same = len(served_c) == len(served_h) and all(
+            numpy.array_equal(a[0], b[0]) and a[1] == b[1]
+            for a, b in zip(served_c, served_h))
+        seeds = sum(1 for _, seed in served_c if seed)
+        n_err_diff = max(abs(a - b) for a, b in zip(errs_c, errs_h))
+        leaf_rel = max(float(numpy.abs(a[k] - b[k]).max()
+                             / numpy.abs(b[k]).max())
+                       for a, b in zip(leaves_c, leaves_h) for k in b)
+        print("conv agreement %s, f32 (level 2), 1 epoch, %d minibatches: "
+              "index streams and %d augmentation seeds %s; n_err card %s, "
+              "CPU %s (max diff %d, tolerance %d); leaves max diff %.3g of "
+              "their largest (tolerance %.0e); launches card %d, CPU %d"
+              % (label, len(served_c), seeds,
+                 "equal" if same else "DIFFER", errs_c, errs_h, n_err_diff,
+                 CONV_N_ERR_TOL, leaf_rel, CONV_LEAF_RTOL,
+                 sum(got_c.values()), sum(got_h.values())))
+        if not same or len(errs_c) != len(errs_h) \
+                or n_err_diff > CONV_N_ERR_TOL \
+                or not leaf_rel <= CONV_LEAF_RTOL:
+            raise AssertionError("the card's %s training disagrees with the "
+                                 "CPU's" % label)
+    print("conv agreement phase: %.1f s" % (time.perf_counter() - t0))
 
 
 def flash_problem(gen, device, shape, dtype):
@@ -2172,11 +2582,17 @@ def main():
             launches[name] += n
     agreement_phase(device, prompts,
                     prefix_waves(numpy.random.RandomState(2)))
+    narrow_heads_phase(device, prompts)
     sampling_phase(device, prompts)
-    # the training path's kernels count on its main path alone
+    # the training path's kernels count on its main paths alone: the
+    # wide MLP and AlexNet with the knobs on
     launches.update((name, n) for name, n in training_phase(device).items()
                     if name in ("blocked_matmul", "dense_epilogue"))
     training_agreement_phase(device)
+    alexnet = alexnet_phase(device)
+    for name in ("blocked_matmul", "dense_epilogue"):
+        launches[name] += alexnet[name]
+    conv_agreement_phase(device)
     # the flash kernels count on their two main paths: the long-prompt
     # serving run (K7) and the long-context training run (K7, K8, K9)
     long_serving = long_serving_phase(device, numpy.random.RandomState(4))

@@ -3,10 +3,12 @@ the shapes and types the serving smoke does not reach: K2 at every
 decode-step shape and 1 to 256 rows in both x types, its byte-wise path
 (N % 16 != 0, misaligned q), ragged K and N, two calls bit-equal, calls
 of other shapes in a row (the split counters reset), the M > 256 regime
-rule; K1 at head rows of 64 to 512 bytes, mixed query and pool
-types, at its splits' boundaries (16- and 128-token pages), twice bit
-for bit; K3 at length 0, full table rows, head widths 32 to 1024 (the
-powers of two and 96) in both query types, 8-, 16- and 128-token pages
+rule; K1 at head widths 8 to 1024 (C4's widths: 8, 16, 33, 48, 80,
+96, 100, 512, 1024, and 32 to 256) in every mix of query and pool types,
+at its splits' boundaries (16- and 128-token pages), NaN rows on
+invisible positions, twice bit for bit; K3 at length 0, full table rows,
+head widths 8 to 1024 (the powers of two, 96 and C4's widths) in both
+query types, 8-, 16- and 128-token pages
 at its splits' boundaries, NaN scales on invisible positions, twice bit
 for bit; K4 at head widths 32 to 1024, shared and per-row masks,
 lanes of several 8192-position tiles (one fully masked tile first or
@@ -20,7 +22,8 @@ operand types, every activation, transposed and strided operands, and
 the dense layer's backward on the card against the plain backward, and
 K5's bf16 route (TMA and wgmma) at the training path's two layouts and
 at operands TMA refuses (the wrapper copies them), K6's (the same
-mainloop with the epilogue) at k = 784 and a ragged shape; K7, K8 and K9 at
+mainloop with the epilogue) at k = 784, a ragged shape and AlexNet's
+head (N = 1000); a level-2 conv2d in full f32 with cuDNN's TF32 flag on; K7, K8 and K9 at
 ragged T, at 4096 and 8192 positions, causal and not, at the edges of
 the 128-wide kernels' tiles, at head widths 128, 256 and 384, on the qkv
 projection's split views, K8 and K9 run twice bit for bit, attention() at
@@ -250,9 +253,9 @@ def test_paged_attend_kernel_matches_plain(cuda, head_dim, q_dtype,
 
 @pytest.mark.parametrize("case", ["head_bytes", "strided_q"])
 def test_paged_attend_refuses_what_the_kernel_does_not_take(cuda, case):
-    if case == "head_bytes":   # 48 bf16 = 96-byte head rows
+    if case == "head_bytes":   # past the widest head the kernel takes
         q, k, v, table, lengths, ps = _paged_problem(
-            cuda, 48, torch.bfloat16, torch.bfloat16)
+            cuda, 1025, torch.bfloat16, torch.bfloat16)
     else:
         q, k, v, table, lengths, ps = _paged_problem(
             cuda, 64, torch.float32, torch.float32)
@@ -316,9 +319,9 @@ def test_paged_attend_int8_refuses_what_the_kernel_does_not_take(cuda,
         kq = kq.transpose(2, 3).contiguous().transpose(2, 3)
     elif case == "pool_shape":
         vq, vs = vq[:, :2], vs[:, :2]
-    elif case == "head_dim":   # not a multiple of 32
-        q, kq, vq = q[..., :48].contiguous(), kq[:, :, :48].contiguous(), \
-            vq[:, :, :48].contiguous()
+    elif case == "head_dim":   # one past the widest head
+        q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
+            cuda, 1025, torch.float32, [3, 20], 2)
     elif case == "head_dim_wide":   # past 1024
         q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
             cuda, 1056, torch.float32, [3, 20], 2)
@@ -543,6 +546,75 @@ def test_paged_attend_at_split_boundaries(cuda, ps):
     assert paged_attend.launches == before + 1
     torch.testing.assert_close(out, _paged_attend_plain(*args, ps),
                                rtol=1e-5, atol=1e-5)
+
+
+#: every head width the JAX package's paged attends serve that K1 and K3
+#: took no route for before (C4): the toy models' 8 and 16, bf16 rows of
+#: 96, 160, 192 and 200 bytes, an odd width (plain 2-byte loads in bf16,
+#: 4-byte copies in f32) and the widest two powers of two
+C4_WIDTHS = [8, 16, 33, 48, 80, 96, 100, 512, 1024]
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
+                         ids=["kv_f32", "kv_bf16"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+@pytest.mark.parametrize("head_dim", C4_WIDTHS)
+def test_paged_attend_at_every_width(cuda, head_dim, q_dtype, kv_dtype):
+    """128-token pages, one page a split: a length-0 slot, a page
+    boundary and a 1100-position slot, sub-page stages past D = 128 in
+    bf16 (64 in f32); two calls bit-equal."""
+    q, k, v, table, lengths = _paged_lengths_problem(
+        cuda, [0, 127, 1100], 10, 128, heads=2, head_dim=head_dim,
+        dtype=kv_dtype)
+    q = q.to(q_dtype)
+    before = paged_attend.launches
+    out = paged_attend(q, k, v, table, lengths, page_size=128)
+    again = paged_attend(q, k, v, table, lengths, page_size=128)
+    torch.cuda.synchronize()
+    assert paged_attend.launches == before + 2
+    assert torch.equal(out, again)
+    torch.testing.assert_close(
+        out, _paged_attend_plain(q, k, v, table, lengths, 128),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("head_dim", C4_WIDTHS)
+def test_paged_attend_int8_at_the_c4_widths(cuda, head_dim, q_dtype):
+    """K3 at the widths off its old D % 32 == 0 rule (and 512, 1024):
+    16- and 128-token pages, two calls bit-equal."""
+    for ps, pb in ((16, 70), (128, 10)):
+        args = _int8_paged_problem(cuda, head_dim, q_dtype,
+                                   [0, ps - 1, 1100], pb, heads=2, ps=ps)
+        before = paged_attend_int8.launches
+        out = paged_attend_int8(*args[:-1], page_size=ps)
+        again = paged_attend_int8(*args[:-1], page_size=ps)
+        torch.cuda.synchronize()
+        assert paged_attend_int8.launches == before + 2
+        assert torch.equal(out, again)
+        torch.testing.assert_close(out, _paged_attend_int8_plain(*args),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_paged_attend_ignores_invisible_positions(cuda):
+    """NaN rows on the scratch page and past each slot's length change no
+    bit of K1's output at a padded width (D = 100 bf16, 8-byte copies)."""
+    lengths = [0, 18, 31, 83]
+    q, k, v, table, lengths_t = _paged_lengths_problem(
+        cuda, lengths, 6, 16, heads=2, head_dim=100)
+    clean = paged_attend(q, k, v, table, lengths_t, page_size=16)
+    tab = table.cpu()
+    for s, n in enumerate(lengths):
+        last = int(tab[s, n // 16])
+        k[last, n % 16 + 1:] = math.nan
+        v[last, n % 16 + 1:] = math.nan
+    k[0], v[0] = math.nan, math.nan
+    poisoned = paged_attend(q, k, v, table, lengths_t, page_size=16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(poisoned).all()
+    assert torch.equal(poisoned, clean)
 
 
 def test_paged_attend_is_deterministic(cuda):
@@ -1033,6 +1105,52 @@ def test_dense_epilogue_bf16_route_matches_plain(cuda, shape, activation):
     ref = _dense_epilogue_plain(a, b, bias, activation)
     err = (out - ref).abs().max().item()
     assert err <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_dense_epilogue_at_alexnet_head(cuda, dtype):
+    """K6 at AlexNet's softmax head with the knobs on, minibatch 512:
+    (512, 4096) x (4096, 1000), N = 1000 (not a multiple of the 128-wide
+    tiles), within 1e-4 of the largest output."""
+    a = torch.randn((512, 4096), generator=cuda, device="cuda").to(dtype)
+    b = (torch.randn((4096, 1000), generator=cuda, device="cuda")
+         / 64.0).to(dtype)
+    bias = torch.randn(1000, generator=cuda, device="cuda")
+    for activation in ("linear", "relu"):
+        before = dense_epilogue.launches
+        out = dense_epilogue(a, b, bias, activation)
+        torch.cuda.synchronize()
+        assert dense_epilogue.launches == before + 1
+        ref = _dense_epilogue_plain(a, b, bias, activation)
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item()
+
+
+def test_conv2d_level2_is_full_f32_on_the_card(cuda, monkeypatch):
+    """With cuDNN's TF32 flag at torch's default (on), a level-2 conv and
+    its gradients on the card stay within 1e-5 of the largest element of
+    a float64 reference (TF32's 10-bit mantissa would miss it by ~100x),
+    and the flag is left as it was."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    x = torch.randn((4, 67, 67, 3), generator=cuda, device="cuda")
+    w = torch.randn((11, 11, 3, 64), generator=cuda, device="cuda") / 20.0
+    g = torch.randn((4, 17, 17, 64), generator=cuda, device="cuda")
+    tx, tw = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = gemm.conv2d(tx, tw, (4, 4), "SAME", precision_level=2)
+    out.backward(g)
+    assert torch.backends.cudnn.allow_tf32
+    dx = x.double().cpu().requires_grad_(True)
+    dw = w.double().cpu().requires_grad_(True)
+    top, bottom = gemm.same_padding(67, 11, 4)
+    ref = torch.nn.functional.conv2d(
+        torch.nn.functional.pad(dx.permute(0, 3, 1, 2),
+                                (top, bottom, top, bottom)),
+        dw.permute(3, 2, 0, 1), stride=4).permute(0, 2, 3, 1)
+    ref.backward(g.double().cpu())
+    for got, want in ((out, ref), (tx.grad, dx.grad), (tw.grad, dw.grad)):
+        err = (got.detach().double().cpu() - want.detach()).abs().max()
+        assert err.item() <= 1e-5 * want.detach().abs().max().item()
 
 
 @pytest.mark.parametrize("level", [0, 2])

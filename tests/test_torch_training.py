@@ -258,15 +258,11 @@ def test_device_none_means_the_card(monkeypatch):
                         **_kwargs(mesh=object())),
     lambda: MLPWorkflow(DummyLauncher(), device="cpu",
                         **_kwargs(evaluator="mse")),
-    lambda: __import__(
-        "veles_tpu_torch.models.standard", fromlist=["x"]).StandardWorkflow(
-            DummyLauncher(), device="cpu",
-            layers=[{"type": "conv_relu", "n_kernels": 4, "kx": 3,
-                     "ky": 3}, {"type": "softmax",
-                                "output_sample_shape": 10}]),
-], ids=["graph-mode", "mesh", "mse", "conv"])
+    lambda: MLPWorkflow(DummyLauncher(), device="cpu",
+                        **_kwargs(loader_cls=object)),
+], ids=["graph-mode", "mesh", "mse", "loader-cls"])
 def test_later_slices_raise(build):
-    """Graph mode, a mesh, the MSE evaluator and the conv layer types are
+    """Graph mode, a mesh, the MSE evaluator and a custom loader class are
     later slices: they raise, they never run another path."""
     with pytest.raises(NotImplementedError, match="later slice"):
         build()
@@ -314,7 +310,8 @@ def test_training_path_imports_neither_jax_nor_veles_tpu():
                 "loader.normalization", "loader.base", "loader.fullbatch",
                 "nn.jit_unit", "nn.all2all", "nn.gd", "nn.evaluator",
                 "nn.decision", "parallel.fused", "models.standard",
-                "models.mlp")]
+                "models.mlp", "ops.augment", "nn.conv", "nn.pooling",
+                "models.alexnet")]
         for name in names:
             importlib.import_module(name)
         from veles_tpu_torch.dummy import DummyLauncher
@@ -340,4 +337,4 @@ def test_training_path_imports_neither_jax_nor_veles_tpu():
                             env=env, capture_output=True, text=True,
                             timeout=120)
     assert result.returncode == 0, result.stderr
-    assert int(result.stdout.split()[-1]) == 32
+    assert int(result.stdout.split()[-1]) == 36

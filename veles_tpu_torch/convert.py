@@ -76,9 +76,11 @@ def unit_params_from_jax(workflow, layers):
     """Fill a port ``StandardWorkflow``'s unit slots before
     ``initialize()``. ``layers`` has one dict per forward layer with
     numpy (or numpy-readable) ``"weights"``, ``"bias"`` and optionally
-    ``"velocity_w"``/``"velocity_b"``; a self-attention or feed-forward
-    layer also ``"out_weights"``/``"out_bias"`` and optionally
-    ``"velocity_ow"``/``"velocity_ob"``. Each becomes an f32 tensor on the
+    ``"velocity_w"``/``"velocity_b"`` (a conv layer's HWIO weights as
+    the JAX package holds them); a self-attention or feed-forward layer
+    also ``"out_weights"``/``"out_bias"`` and optionally
+    ``"velocity_ow"``/``"velocity_ob"``; a pooling layer, which has no
+    parameters, ``{}``. Each becomes an f32 tensor on the
     workflow's device. A slot left out is drawn (weights) or zeroed
     (velocities) by ``initialize()`` as usual; a key the layer's units
     have no slot for raises."""

@@ -89,6 +89,12 @@ class RandomGenerator(Logger):
         with self._lock:
             self._numpy.shuffle(arr)
 
+    def randint(self, low, high=None, size=None):
+        """Integers in [low, high) from the host stream (numpy's
+        ``Generator.integers``, as the JAX package draws them)."""
+        with self._lock:
+            return self._numpy.integers(low, high, size)
+
 
 _registry = {}
 _registry_lock = threading.Lock()

@@ -15,7 +15,12 @@ The port of ``veles_tpu/loader/base.py`` (reference
   ``max_minibatch_size`` rows, padded with index 0, and exposes
   ``minibatch_valid_size``;
 - sweep serving (``serve_next_class_sweep``): a whole class sweep as one
-  (n_batches, minibatch) index matrix, for the fused tick.
+  (n_batches, minibatch) index matrix, for the fused tick;
+- augmentation seeds (``draw_transform_seeds``): with a ``jit_transform``,
+  one seed per TRAIN minibatch from the "loader" stream, drawn where the
+  JAX package draws them (after the sweep's or minibatch's indices, before
+  the next epoch's shuffle), so every later shuffle stays the JAX
+  package's.
 
 Left out: the fleet distribution (master/slave payloads, requeue of a
 dropped slave's minibatches), the metrics bridge (the observe plane is a
@@ -171,6 +176,15 @@ class Loader(Unit):
                     "%s: %s labels missing from the training set: %s"
                     % (self.name, CLASS_NAMES[klass], sorted(unknown)))
 
+    def draw_transform_seeds(self, n):
+        """``n`` augmentation seeds from the loader's stream, one per
+        TRAIN minibatch, in the JAX package's order and range
+        (``loader/base.py:295-302``)."""
+        gen = prng.get(self.prng_key)
+        return numpy.asarray(
+            [int(gen.randint(0, 2 ** 31 - 1)) for _ in range(n)],
+            numpy.int64)
+
     def _shuffle_train(self):
         if self.shuffle_limit is not None \
                 and self.epoch_number >= self.shuffle_limit:
@@ -253,6 +267,13 @@ class Loader(Unit):
                                 last_of_epoch, epoch)
             self.minibatch_indices.data = matrix
             self.sweep_valid_sizes = valid_sizes
+            # one augmentation seed per TRAIN minibatch, drawn in the
+            # order per-minibatch serving draws them
+            if klass == TRAIN and getattr(self, "jit_transform", None):
+                self.sweep_transform_seeds = self.draw_transform_seeds(
+                    len(matrix))
+            else:
+                self.sweep_transform_seeds = None
             self._account_served(total, last_of_epoch)
             return
         (klass, indices, valid, last_of_class,
@@ -266,6 +287,11 @@ class Loader(Unit):
             # fused-tick mode: the tick gathers from the originals; the
             # loader only publishes the served indices (host numpy)
             self.minibatch_indices.data = padded
+            if klass == TRAIN and getattr(self, "jit_transform", None):
+                self.minibatch_transform_seed = int(
+                    self.draw_transform_seeds(1)[0])
+            else:
+                self.minibatch_transform_seed = 0
         self._account_served(valid, last_of_epoch)
 
     def _publish_flags(self, klass, indices, valid, last_of_class,

@@ -11,6 +11,9 @@ instead: a dataset that does not fit is an error, not a quiet host path.
 
 Callers pass the dataset as ``data=``/``labels=`` kwargs; class splits
 come from ``class_lengths`` or the ``validation_ratio`` resplit.
+``train_transform`` names an augmentation of ``ops/augment.TRANSFORMS``
+("mirror", "shift1") applied to TRAIN minibatches after normalization;
+it needs NHWC data.
 """
 
 import numpy
@@ -20,6 +23,7 @@ from veles_tpu_torch.loader.base import Loader, TRAIN, VALID
 from veles_tpu_torch.loader.normalization import (make_normalizer,
                                                   state_tensors)
 from veles_tpu_torch.memory import Array
+from veles_tpu_torch.ops.augment import TRANSFORMS
 from veles_tpu_torch.ops.gather import gather_minibatch
 
 
@@ -27,10 +31,13 @@ class FullBatchLoader(Loader):
     """Device-resident full-batch loader (reference ``fullbatch.py:79``)."""
 
     def __init__(self, workflow, **kwargs):
-        if kwargs.pop("train_transform", None) is not None:
-            raise NotImplementedError(
-                "train_transform (in-tick augmentation) is a later slice "
-                "of the port")
+        #: TRAIN-minibatch augmentation by name (ops/augment.TRANSFORMS)
+        self.train_transform = kwargs.pop("train_transform", None)
+        if self.train_transform is not None \
+                and self.train_transform not in TRANSFORMS:
+            raise ValueError("unknown train_transform %r (known: %s)"
+                             % (self.train_transform,
+                                ", ".join(sorted(TRANSFORMS))))
         self.normalization_type = kwargs.pop("normalization_type", "none")
         self.normalization_parameters = kwargs.pop(
             "normalization_parameters", {})
@@ -58,6 +65,9 @@ class FullBatchLoader(Loader):
             raise NotImplementedError(
                 "%s: override load_data() or pass data=" % self.name)
         data = numpy.asarray(self._provided_data, numpy.float32)
+        if self.train_transform is not None and data.ndim != 4:
+            raise ValueError("train_transform %r needs NHWC data, got "
+                             "shape %s" % (self.train_transform, data.shape))
         self.original_data.reset(data)
         if self._provided_labels is not None:
             self._raw_labels = numpy.asarray(self._provided_labels)
@@ -121,6 +131,16 @@ class FullBatchLoader(Loader):
         self.minibatch_indices.reset(numpy.zeros(size, numpy.int64))
         self.sample_mask.reset(numpy.zeros(size, numpy.float32))
 
+    #: the fused tick's contract: a fill-time transform keeps fusion on
+    #: only where the tick applies it itself (``fullbatch.py:160-165``)
+    @property
+    def has_fill_transforms(self):
+        return self.train_transform is not None
+
+    @property
+    def jit_transform(self):
+        return self.train_transform
+
     def labels_for_gather(self):
         """The label lane the fused tick gathers from: the device labels,
         or a dataset-length zeros placeholder for a label-less set."""
@@ -137,8 +157,12 @@ class FullBatchLoader(Loader):
             device)
         batch, lab = gather_minibatch(self.original_data.data, index,
                                       self.labels_for_gather())
-        self.minibatch_data.data = self.normalizer.apply_state(
+        batch = self.normalizer.apply_state(
             batch, state_tensors(self.normalizer.jit_state(), device))
+        if self.train_transform and self.minibatch_class == TRAIN:
+            batch = TRANSFORMS[self.train_transform](
+                batch, int(self.draw_transform_seeds(1)[0]))
+        self.minibatch_data.data = batch
         self.minibatch_labels.data = lab
         self.sample_mask.data = (torch.arange(len(indices), device=device)
                                  < valid).float()

@@ -12,23 +12,27 @@ ported so far:
     {"type": "self_attention", "heads": 8, "causal": True,
      "residual": True}
     {"type": "ffn", "ratio": 4, "activation": "gelu"}
+    {"type": "conv_relu", "n_kernels": 32, "kx": 3, "ky": 3, ...}
+    {"type": "max_pooling", "kx": 2, "ky": 2}
 
 (``all2all``, ``all2all_tanh``, ``all2all_relu``,
 ``all2all_strict_relu``, ``all2all_sigmoid``, ``softmax``, and since
 the long-context slice the sequence-model tier: ``self_attention``,
 ``ffn`` and ``layer_norm`` over (N, T, E) samples, whose attention runs
-the flash kernels on the card at T >= 4096 with 128-wide heads). Per-layer
-trainer kwargs (learning_rate, weights_decay, gradient_moment, l1_vs_l2,
-solver, ...) may be embedded in each spec under "trainer"; workflow-level
-defaults apply otherwise.
+the flash kernels on the card at T >= 4096 with 128-wide heads, and since
+the conv slice ``conv``, ``conv_tanh``, ``conv_relu``,
+``conv_strict_relu``, ``max_pooling``, ``avg_pooling`` and
+``maxabs_pooling`` over NHWC samples). Per-layer trainer kwargs
+(learning_rate, weights_decay, gradient_moment, l1_vs_l2, solver, ...)
+may be embedded in each spec under "trainer"; workflow-level defaults
+apply otherwise.
 
 ``device=None`` means "cuda" and raises without a card unless the caller
 passes ``device="cpu"``. Later slices, which raise
-``NotImplementedError`` here rather than run another path: the conv and
-pooling layer types, graph mode (``fused=False``, or an ``"auto"``
-topology the fused tick does not support), the MSE evaluator, a mesh
-(ring and Ulysses attention with it), and the fleet (master/slave)
-modes.
+``NotImplementedError`` here rather than run another path: graph mode
+(``fused=False``, or an ``"auto"`` topology the fused tick does not
+support), the MSE evaluator, a mesh (ring and Ulysses attention with
+it), a custom loader class, and the fleet (master/slave) modes.
 """
 
 from veles_tpu_torch.core.plumbing import Repeater
@@ -41,10 +45,15 @@ from veles_tpu_torch.nn.all2all import (
 from veles_tpu_torch.nn.attention import (
     GDLayerNorm, GDSelfAttention, GDTokenFFN, LayerNorm, SelfAttention,
     TokenFFN)
+from veles_tpu_torch.nn.conv import (
+    Conv, ConvRELU, ConvStrictRELU, ConvTanh, GDConv, GDConvRELU,
+    GDConvStrictRELU, GDConvTanh)
 from veles_tpu_torch.nn.decision import DecisionGD
 from veles_tpu_torch.nn.evaluator import EvaluatorSoftmax
 from veles_tpu_torch.nn.gd import (
     GDRELU, GDSigmoid, GDSoftmax, GDStrictRELU, GDTanh, GradientDescent)
+from veles_tpu_torch.nn.pooling import (
+    AvgPooling, GDPooling, MaxAbsPooling, MaxPooling)
 
 FORWARD_TYPES = {
     "all2all": (All2All, GradientDescent),
@@ -56,15 +65,13 @@ FORWARD_TYPES = {
     "self_attention": (SelfAttention, GDSelfAttention),
     "ffn": (TokenFFN, GDTokenFFN),
     "layer_norm": (LayerNorm, GDLayerNorm),
-}
-
-#: the JAX package's other layer types, each a later slice of the port
-LATER_TYPES = {
-    "conv": "conv and pooling",
-    "conv_tanh": "conv and pooling", "conv_relu": "conv and pooling",
-    "conv_strict_relu": "conv and pooling",
-    "max_pooling": "conv and pooling", "maxabs_pooling": "conv and pooling",
-    "avg_pooling": "conv and pooling",
+    "conv": (Conv, GDConv),
+    "conv_tanh": (ConvTanh, GDConvTanh),
+    "conv_relu": (ConvRELU, GDConvRELU),
+    "conv_strict_relu": (ConvStrictRELU, GDConvStrictRELU),
+    "max_pooling": (MaxPooling, GDPooling),
+    "maxabs_pooling": (MaxAbsPooling, GDPooling),
+    "avg_pooling": (AvgPooling, GDPooling),
 }
 
 TRAINER_KEYS = ("learning_rate", "learning_rate_bias", "weights_decay",
@@ -97,10 +104,6 @@ class StandardWorkflow(Workflow):
                 raise NotImplementedError(
                     "%s is a later slice of the port" % what)
         for spec in layers:
-            if spec["type"] in LATER_TYPES:
-                raise NotImplementedError(
-                    "layer type %r: the %s layers are a later slice of the "
-                    "port" % (spec["type"], LATER_TYPES[spec["type"]]))
             if spec["type"] not in FORWARD_TYPES:
                 raise ValueError("unknown layer type %r" % spec["type"])
         self.device = resolve_device(device)
@@ -229,8 +232,15 @@ class StandardWorkflow(Workflow):
             _, gd_cls = FORWARD_TYPES[spec["type"]]
             trainer = dict(self.layer_defaults)
             trainer.update(spec.get("trainer", {}))
-            gd = gd_cls(self, name="gd%d" % i, **trainer)
-            gd.link_forward(self.forwards[i], err_src)
+            if gd_cls is GDPooling:
+                gd = GDPooling(self, name="gd%d" % i)
+                gd.link_pooling(self.forwards[i], err_src)
+            elif issubclass(gd_cls, GDConv):
+                gd = gd_cls(self, name="gd%d" % i, **trainer)
+                gd.link_conv(self.forwards[i], err_src)
+            else:
+                gd = gd_cls(self, name="gd%d" % i, **trainer)
+                gd.link_forward(self.forwards[i], err_src)
             gd.link_from(prev)
             gd.gate_skip = self.decision.gd_skipped
             self.gds[i] = gd

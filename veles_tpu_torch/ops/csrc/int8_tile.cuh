@@ -24,7 +24,7 @@
 //   share of the positions with 16-byte reads into a register; the stages
 //   meet by the online-softmax rescale, the P lanes by shuffles at the end
 //   (finish_values). No thread holds a D-wide accumulator, so D is any
-//   multiple of 32 up to 1024.
+//   width up to 1024 (a row group or lane past D idles).
 // Code rows lie RS = TPS + 16 bytes apart in shared memory, so the eight
 // rows a quarter warp reads at one column hit distinct banks.
 
@@ -51,11 +51,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// a BYTES-byte copy (16 or 4) from global into shared memory
+// a BYTES-byte copy (16, 8 or 4) from global into shared memory
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src) {
   if constexpr (BYTES == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+  else if constexpr (BYTES == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
                  :: "r"(smem_u32(dst)), "l"(src) : "memory");
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
@@ -119,10 +122,15 @@ __host__ __device__ constexpr int stage_positions(int D) {
   return D <= 128 ? 128 : (D <= 256 ? 64 : (D <= 512 ? 32 : 16));
 }
 
+// D rounded up to whole 16-byte groups of floats: q and the split's acc
+// take this many each, so what follows them stays 16-byte aligned at any D
+__host__ __device__ constexpr int padded(int D) { return (D + 3) & ~3; }
+
 // the shared memory a block's tile takes besides its stages: q, the
-// split's acc (D each), the partial dots (RG x TPS = 512) and the weights
+// split's acc (padded(D) each), the partial dots (RG x TPS = 512) and the
+// weights
 __host__ __device__ constexpr int work_floats(int D, int TPS) {
-  return 2 * D + 4 * kThreads + TPS;
+  return 2 * padded(D) + 4 * kThreads + TPS;
 }
 
 // The block's running state over its stages: every thread holds the same

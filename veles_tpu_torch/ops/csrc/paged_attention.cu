@@ -24,27 +24,48 @@
 //   PB pages, as the TPU grid did); a block whose split starts past them
 //   exits at once, so the call costs what the live positions cost, spread
 //   over as many blocks as they fill.
-// - A block reads its split's page ids once, then stages its positions in
-//   stages of TPS positions (32 KB of K and V rows; TPS = 128 at 128-byte
-//   head rows) with 16-byte cp.async copies, all issued as it starts; a
-//   split of several stages runs a two-stage ring. One head a block: a
-//   head row (64-512 bytes) is whole 32-byte sectors, so gathering 16 heads
-//   of a position in one block would read no fewer lines, and one head a
-//   block gives the short slots' blocks to other SMs.
-// - A position's D-vector is LP lanes (16 bytes each) of shared memory; the
-//   q.k dot is summed over the group by shuffles. Each lane group keeps its
-//   own running (max, sum, acc) in registers over its positions, 4 at a
-//   time; the groups of a warp meet
-//   by shuffles, the warps through shared memory, into the split's state.
+// - A block reads its split's page ids, then stages its positions in
+//   stages of TPS positions (up to 128; fewer where a stage's K rows would
+//   pass 16 KB, so stages are sub-page past D = 128 in bf16) with
+//   cp.async, all issued as the block starts; a split of several stages
+//   runs a two-stage ring. (The tile path reads the slot's length with the
+//   page ids in one round trip, and copies K rows and V rows in two
+//   groups, so the scores start while the V rows land.) One head a
+//   block: a head row is whole 32-byte sectors or less, so gathering 16
+//   heads of a position in one block would read no fewer lines, and one
+//   head a block gives the short slots' blocks to other SMs.
+// - Two ways through a stage, chosen by the head row's bytes. At rows of
+//   64, 128, 256 or 512 bytes (bf16 heads of 32-256, f32 of 16-128) the
+//   lane-group path: each position's row is LP lanes of 16 bytes, lane
+//   groups keep their own softmax state in registers and meet at the
+//   end. Every other width from 1 to 1024 takes the tile path, K3's tile
+//   shape (int8_tile.cuh) transposed to this position-major layout; it
+//   reads ~10% slower than the lane-group path at D = 64 (PERF.md), so
+//   the narrow rows keep theirs. In the tile path a position's row sits in
+//   shared memory as C = ceil(D * sizeof(T) / 16) chunks of 16 bytes, the
+//   last one padded with zeros, rows an odd number of chunks apart (so the
+//   eight rows a quarter warp reads at one chunk hit distinct banks). Row
+//   copies are as wide as the row's byte alignment allows: 16 bytes, else 8
+//   or 4 (cp.async), else (a bf16 row of odd width) plain 2-byte loads.
+//   Scores: each position's dot is summed by 128 / TPS row groups over
+//   their share of its chunks, lanes past D selected out (never
+//   multiplied), the groups' partials meeting in shared memory in a fixed
+//   order. Values: each d-chunk is summed over the block's threads, P lanes
+//   a chunk (P = 128 / C, at most 32) each taking every P-th position, the
+//   stages meeting by the online-softmax rescale and the P lanes by shuffles
+//   at the end; no thread holds more than 8 of the split's D sums.
+// - Only visible positions count: a stage copies its visible positions
+//   only; in the tile path a position past them gets the score -inf and
+//   the weight 0 by selection and its row is never read (the lane groups
+//   skip it), so whatever its shared memory holds (a stale row of an
+//   earlier stage, bytes never copied) changes no bit. The scratch page
+//   (page 0) pads the table past the live pages and is never read.
 // - The splits meet in the same launch (split_softmax.cuh): the number of
 //   live splits, ceil(seen / split), is what every block of the slot
 //   computes from `lengths[s]` and is the counter's target, so a block that
 //   exits never leaves a counter short. The last block merges in split
 //   order (deterministic) and resets the counter; a slot with one live
 //   split writes its output from that block.
-// Masked positions are never loaded: the group that owns them adds nothing,
-// which is the -1e30 sentinel's exact zero in the TPU kernel; the scratch
-// page (page 0) pads the table past the live pages and is never read.
 // Both bf16 and f32 pools and queries.
 
 #include <cuda_bf16.h>
@@ -52,40 +73,24 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "int8_tile.cuh"     // cp_async, to_f32
 #include "sm90.cuh"           // SmemOptIn
 #include "split_softmax.cuh"
 
 namespace {
 
+using int8_tile::cp_async;
+using int8_tile::cp_async_commit;
+using int8_tile::cp_async_wait;
+using int8_tile::to_f32;
+
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;            // positions per lane group per step
 constexpr int kStageRows = 16 * 1024;  // bytes of K rows (and of V) a stage
+constexpr int kMaxHeadDim = 1024;
 // the largest dynamic shared memory a block may ask for (the opt-in)
 constexpr int kSmemCap = 96 * 1024;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // 16 bytes of T in shared memory widened to f32
 __device__ __forceinline__ void load16(const float* p, float* f) {
@@ -106,8 +111,17 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
   }
 }
 
+// ---- the lane-group path: head rows of 64, 128, 256 or 512 bytes ----
+// A position's D-vector is LP lanes (16 bytes each) of shared memory; the
+// q.k dot is summed over the group by shuffles. Each lane group keeps its
+// own running (max, sum, acc) in registers over its positions, kUnroll at
+// a time; the groups of a warp meet by shuffles, the warps through shared
+// memory, into the split's state. Positions past the split's visible ones
+// are never loaded. Kept for these widths: it is ~10% faster there than
+// the tile path below (the smoke's A/B at D = 64, PERF.md).
+
 template <int ROW>
-struct Stage {
+struct LaneStage {
   static constexpr int TPS = kStageRows / ROW;  // positions a stage
   static constexpr int BYTES = 2 * kStageRows;  // K rows, then V rows
 };
@@ -115,7 +129,7 @@ struct Stage {
 // the copies of positions [first, first + count) of the split (local
 // indices) into a stage: K rows, then V rows, each ROW bytes
 template <typename TKV, int LP>
-__device__ __forceinline__ void load_stage(
+__device__ __forceinline__ void load_lane_stage(
     char* st, const TKV* k_pages, const TKV* v_pages, const int* pages,
     int first, int count, int ps, int H, int h) {
   constexpr int VEC = 16 / (int)sizeof(TKV);
@@ -130,7 +144,7 @@ __device__ __forceinline__ void load_stage(
     const size_t src =
         (((size_t)pages[local / ps] * ps + local % ps) * H + h) * D +
         part * VEC;
-    cp_async16(st + (v ? kStageRows : 0) + i * ROW + part * 16,
+    cp_async<16>(st + (v ? kStageRows : 0) + i * ROW + part * 16,
                (v ? v_pages : k_pages) + src);
   }
 }
@@ -138,16 +152,18 @@ __device__ __forceinline__ void load_stage(
 // TQ: query type, TKV: pool type, LP: lanes per position (D = LP * VEC)
 template <typename TQ, typename TKV, int LP>
 __global__ void __launch_bounds__(kThreads)
-paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
-                    const TKV* __restrict__ v_pages,
-                    const int* __restrict__ page_table,
-                    const int* __restrict__ lengths, float* __restrict__ out,
-                    float* __restrict__ ws, int* __restrict__ counters, int H,
-                    int PB, int ps, int pps, float scale) {
+paged_attend_kernel_lanes(const TQ* __restrict__ q,
+                          const TKV* __restrict__ k_pages,
+                          const TKV* __restrict__ v_pages,
+                          const int* __restrict__ page_table,
+                          const int* __restrict__ lengths,
+                          float* __restrict__ out, float* __restrict__ ws,
+                          int* __restrict__ counters, int H, int PB, int ps,
+                          int pps, float scale) {
   constexpr int VEC = 16 / (int)sizeof(TKV);
   constexpr int D = LP * VEC;
   constexpr int ROW = D * (int)sizeof(TKV);
-  constexpr int TPS = Stage<ROW>::TPS;
+  constexpr int TPS = LaneStage<ROW>::TPS;
   constexpr int GPW = 32 / LP;      // lane groups per warp
   constexpr int G = kWarps * GPW;   // lane groups per block
   extern __shared__ float4 smem4[];
@@ -165,7 +181,7 @@ paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
 
   char* stages = reinterpret_cast<char*>(smem4);
   float* sm_acc =
-      reinterpret_cast<float*>(stages + n_buf * Stage<ROW>::BYTES);
+      reinterpret_cast<float*>(stages + n_buf * LaneStage<ROW>::BYTES);
   float* sm_blk = sm_acc + kWarps * D;  // the split's acc (D)
   float* sm_m = sm_blk + D;             // kWarps
   float* sm_l = sm_m + kWarps;          // kWarps
@@ -179,11 +195,11 @@ paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
   for (int i = tid; i < n_pages; i += kThreads) sm_pages[i] = pt[i];
   __syncthreads();
   // every stage's bytes are requested before any arithmetic
-  load_stage<TKV, LP>(stages, k_pages, v_pages, sm_pages, 0,
+  load_lane_stage<TKV, LP>(stages, k_pages, v_pages, sm_pages, 0,
                       min(TPS, n_pos), ps, H, h);
   cp_async_commit();
   if (n_st > 1) {
-    load_stage<TKV, LP>(stages + Stage<ROW>::BYTES, k_pages, v_pages,
+    load_lane_stage<TKV, LP>(stages + LaneStage<ROW>::BYTES, k_pages, v_pages,
                         sm_pages, TPS, min(TPS, n_pos - TPS), ps, H, h);
     cp_async_commit();
   }
@@ -205,7 +221,7 @@ paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     else
       cp_async_wait<0>();
     __syncthreads();  // stage st has landed for every thread
-    const char* buf = stages + (st & 1) * Stage<ROW>::BYTES;
+    const char* buf = stages + (st & 1) * LaneStage<ROW>::BYTES;
     const TKV* sk = reinterpret_cast<const TKV*>(buf);
     const TKV* sv = reinterpret_cast<const TKV*>(buf + kStageRows);
     const int count = min(TPS, n_pos - st * TPS);
@@ -254,7 +270,7 @@ paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     }
     __syncthreads();  // stage st's buffer is free
     if (st + 2 < n_st) {
-      load_stage<TKV, LP>(stages + (st & 1) * Stage<ROW>::BYTES, k_pages,
+      load_lane_stage<TKV, LP>(stages + (st & 1) * LaneStage<ROW>::BYTES, k_pages,
                           v_pages, sm_pages, (st + 2) * TPS,
                           min(TPS, n_pos - (st + 2) * TPS), ps, H, h);
       cp_async_commit();
@@ -310,14 +326,15 @@ paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
 }
 
 template <typename TQ, typename TKV, int LP>
-int launch(const void* q, const void* k, const void* v, const void* pt,
-           const void* len, void* out, void* ws, void* counters, int S,
-           int H, int PB, int ps, int pps, cudaStream_t stream) {
+int launch_lanes(const void* q, const void* k, const void* v,
+                 const void* pt, const void* len, void* out, void* ws,
+                 void* counters, int S, int H, int PB, int ps, int pps,
+                 cudaStream_t stream) {
   constexpr int VEC = 16 / (int)sizeof(TKV);
   constexpr int D = LP * VEC;
   constexpr int ROW = D * (int)sizeof(TKV);
-  constexpr int TPS = Stage<ROW>::TPS;
-  auto kernel = paged_attend_kernel<TQ, TKV, LP>;
+  constexpr int TPS = LaneStage<ROW>::TPS;
+  auto kernel = paged_attend_kernel_lanes<TQ, TKV, LP>;
   static sm90::SmemOptIn opt_in;  // one per instantiation
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -326,7 +343,7 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
   if (refused) return refused;
   const int span = pps * ps;
   const int n_buf = (span + TPS - 1) / TPS > 1 ? 2 : 1;
-  const size_t smem = (size_t)n_buf * Stage<ROW>::BYTES +
+  const size_t smem = (size_t)n_buf * LaneStage<ROW>::BYTES +
                       (size_t)(kWarps * D + D + 2 * kWarps + pps) * 4;
   if (smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
   const int splits = (PB + pps - 1) / pps;
@@ -340,41 +357,402 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
   return (int)cudaGetLastError();
 }
 
+// ---- the tile path: every other width from 1 to 1024 ----
+
+// A row's shape in shared memory at head width D: C chunks of 16 bytes,
+// rows RS bytes apart (an odd number of chunks), TPS positions a stage.
+template <typename TKV>
+struct Rows {
+  static constexpr int VEC = 16 / (int)sizeof(TKV);  // elements a chunk
+  int C, RS, TPS;
+  __host__ __device__ explicit Rows(int D) {
+    C = (D + VEC - 1) / VEC;
+    RS = (C | 1) * 16;
+    TPS = 128;
+    while (TPS > 4 && TPS * C * 16 > kStageRows) TPS >>= 1;
+  }
+  __host__ __device__ int stage_bytes() const { return 2 * TPS * RS; }
+};
+
+// the widest copy (16, 8 or 4 bytes; 2 means plain loads) that divides a
+// row of `row_bytes`: every row starts on a multiple of its size
+__host__ __device__ inline int copy_width(int row_bytes) {
+  return row_bytes % 16 == 0 ? 16
+         : (row_bytes % 8 == 0 ? 8 : (row_bytes % 4 == 0 ? 4 : 2));
+}
+
+// the max (or the sum) of `v` over the block in a fixed order, every
+// thread getting it; `scratch` (one float a warp) must not be read by a
+// previous reduction still: one barrier
+__device__ __forceinline__ float block_max(float v, float* scratch) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = scratch[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) v = fmaxf(v, scratch[w]);
+  return v;
+}
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = scratch[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) v += scratch[w];
+  return v;
+}
+
+// lanes a d-chunk in the value pass: 128 / C rounded down to a power of
+// two, at most 32 (one warp's shuffles meet them), 1 past 128 chunks
+__device__ __forceinline__ int lanes_a_chunk(int C) {
+  int p = 1;
+  while (p < 32 && 2 * p * C <= kThreads) p <<= 1;
+  return p;
+}
+
+// one copy of CW bytes (a plain 2-byte load at CW = 2): part `part` of
+// row `i` of a stage, from position `off` of page `page`
+template <typename TKV, int CW>
+__device__ __forceinline__ void copy_part(char* st, const TKV* src_pages,
+                                          int i, int part, int page, int off,
+                                          int ps, int H, int h, int D,
+                                          int RS) {
+  const char* src = reinterpret_cast<const char*>(
+                        src_pages + (((size_t)page * ps + off) * H + h) * D) +
+                    part * CW;
+  char* dst = st + i * RS + part * CW;
+  if constexpr (CW == 2)
+    *reinterpret_cast<uint16_t*>(dst) =
+        __ldg(reinterpret_cast<const unsigned short*>(src));
+  else
+    cp_async<CW>(dst, src);
+}
+
+// The copies of the `count` visible positions of the stage whose first
+// position is the split's `first` (split-local, on the split's pages
+// `pages`) as two copy groups, K rows then V rows, each row in copies of
+// CW bytes (plain loads at CW = 2). Where a row takes at most kThreads
+// copies, a thread keeps one column and steps its position and page.
+template <typename TKV, int CW>
+__device__ __forceinline__ void load_rows(char* st, const TKV* src_pages,
+                                          const int* pages, int first,
+                                          int count, int ps, int H, int h,
+                                          int D, int RS) {
+  const int per_row = D * (int)sizeof(TKV) / CW;
+  if (per_row <= kThreads) {
+    const int step = kThreads / per_row;
+    const int part = threadIdx.x % per_row;
+    int i = threadIdx.x / per_row;
+    if (i < step) {
+      const int local = first + i;
+      int pi = local / ps, off = local - pi * ps;
+      for (; i < count; i += step) {
+        copy_part<TKV, CW>(st, src_pages, i, part, pages[pi], off, ps, H, h,
+                           D, RS);
+        off += step;
+        pi += off / ps;
+        off %= ps;
+      }
+    }
+  } else {
+    for (int c = threadIdx.x; c < count * per_row; c += kThreads) {
+      const int i = c / per_row, local = first + i;
+      copy_part<TKV, CW>(st, src_pages, i, c - i * per_row,
+                         pages[local / ps], local % ps, ps, H, h, D, RS);
+    }
+  }
+  cp_async_commit();
+}
+
+template <typename TKV, int CW>
+__device__ __forceinline__ void load_stage(char* st, const TKV* k_pages,
+                                           const TKV* v_pages,
+                                           const int* pages, int first,
+                                           int count, int ps, int H, int h,
+                                           int D, const Rows<TKV>& rows) {
+  load_rows<TKV, CW>(st, k_pages, pages, first, count, ps, H, h, D, rows.RS);
+  load_rows<TKV, CW>(st + rows.TPS * rows.RS, v_pages, pages, first, count,
+                     ps, H, h, D, rows.RS);
+}
+
+// TQ: query type, TKV: pool type, CW: copy width, CPT: d-chunks a thread
+// holds in the value pass (2 only for f32 rows past 128 chunks)
+template <typename TQ, typename TKV, int CW, int CPT>
+__global__ void __launch_bounds__(kThreads)
+paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
+                    const TKV* __restrict__ v_pages,
+                    const int* __restrict__ page_table,
+                    const int* __restrict__ lengths, float* __restrict__ out,
+                    float* __restrict__ ws, int* __restrict__ counters, int H,
+                    int D, int PB, int ps, int pps, int n_buf, float scale) {
+  constexpr int VEC = Rows<TKV>::VEC;
+  const Rows<TKV> rows(D);
+  const int C = rows.C, RS = rows.RS, TPS = rows.TPS;
+  const int Dp = C * VEC;
+  extern __shared__ float4 smem4[];
+  float* sm_q = reinterpret_cast<float*>(smem4);  // Dp
+  float* sm_acc = sm_q + Dp;                      // Dp
+  float* sm_part = sm_acc + Dp;                   // kThreads
+  float* sm_w = sm_part + kThreads;               // TPS
+  char* stages = reinterpret_cast<char*>(sm_w + TPS);
+  const int sbytes = rows.stage_bytes();
+  int* sm_pages = reinterpret_cast<int*>(stages + n_buf * sbytes);  // pps
+  // the block max's and the block sum's scratch (one float a warp each;
+  // the stage's last barrier frees them for the next stage)
+  __shared__ float sm_red[2][kWarps];
+
+  const int h = blockIdx.x, split = blockIdx.y, s = blockIdx.z;
+  const int tid = threadIdx.x;
+  // the slot's length and the split's page ids (those in the table) in
+  // one round trip: the ids are stored before the length is tested
+  const int length = lengths[s];
+  const int* pt = page_table + (size_t)s * PB + (size_t)split * pps;
+  const int n_tab = min(pps, PB - split * pps);
+  for (int i = tid; i < n_tab; i += kThreads) sm_pages[i] = pt[i];
+  const int span = pps * ps;         // positions of a split
+  const int p0 = split * span;
+  const int n_vis = min(length + 1, PB * ps);
+  if (p0 >= n_vis) return;           // past the slot's live positions
+  const int arrivals = (n_vis + span - 1) / span;
+  const int n_pos = min(n_vis - p0, span);
+  const int n_st = (n_pos + TPS - 1) / TPS;
+  // the zero pad of every row's last chunk (never written by a copy)
+  const int row_bytes = D * (int)sizeof(TKV);
+  const int pad = C * 16 - row_bytes;
+  if (pad)
+    for (int r = tid; r < n_buf * 2 * TPS; r += kThreads)
+      for (int b = 0; b < pad; b += 2)
+        *reinterpret_cast<uint16_t*>(stages + r * RS + row_bytes + b) = 0;
+  __syncthreads();  // the page ids are in shared memory
+
+  // every stage's bytes are requested before any arithmetic
+  load_stage<TKV, CW>(stages, k_pages, v_pages, sm_pages, 0,
+                      min(TPS, n_pos), ps, H, h, D, rows);
+  if (n_st > 1)
+    load_stage<TKV, CW>(stages + sbytes, k_pages, v_pages, sm_pages, TPS,
+                        min(TPS, n_pos - TPS), ps, H, h, D, rows);
+  const int item = s * H + h;
+  for (int d = tid; d < Dp; d += kThreads)
+    sm_q[d] = d < D ? to_f32(q[(size_t)item * D + d]) : 0.f;
+
+  // the score pass: position t of row group rg
+  const int RG = kThreads / TPS;
+  const int t_own = tid % TPS, rg = tid / TPS;
+  // the value pass: lanes `part` of d-chunk tid / P (+ 128 / P)
+  const int P = lanes_a_chunk(C);
+  const int part = tid % P;
+  float m = -INFINITY, l = 0.f;
+  float acc[CPT][VEC] = {};
+
+  for (int j = 0; j < n_st; ++j) {
+    const bool more = j + 1 < n_st;
+    const int count = min(TPS, n_pos - j * TPS);
+    const char* st = stages + (j & 1) * sbytes;
+    const TKV* sk = reinterpret_cast<const TKV*>(st);
+    const TKV* sv = reinterpret_cast<const TKV*>(st + TPS * RS);
+    if (more)  // the stage's K rows (the next stage's groups behind it)
+      cp_async_wait<3>();
+    else
+      cp_async_wait<1>();
+    __syncthreads();  // the K rows (and q) are in shared memory
+
+    // 1. partial dots of the visible positions: each chunk's products
+    // summed apart, then the chunks in order (short dependent chains)
+    float dot = 0.f;
+    if (t_own < count) {
+      const TKV* row = sk + t_own * (RS / (int)sizeof(TKV));
+#pragma unroll 2
+      for (int c = rg; c < C; c += RG) {
+        float kf[VEC], qc[VEC];
+        load16(row + c * VEC, kf);
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4)
+          load16(sm_q + c * VEC + e, qc + e);
+        const int lim = D - c * VEC;
+        float part = 0.f;
+        if (lim >= VEC) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) part = fmaf(qc[e], kf[e], part);
+        } else {  // the last chunk: its padded lanes are selected out
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            if (e < lim) part = fmaf(qc[e], kf[e], part);
+        }
+        dot += part;
+      }
+    }
+    // 2. scores (the row groups' partials meet in shared memory where a
+    // position has several), the block max, p and the weights
+    float sc = -INFINITY;
+    if (RG > 1) {
+      sm_part[rg * TPS + t_own] = dot;
+      __syncthreads();
+      if (tid < TPS && tid < count) {
+        float d = sm_part[tid];
+        for (int r = 1; r < RG; ++r) d += sm_part[r * TPS + tid];
+        sc = d * scale;
+      }
+    } else if (t_own < count) {
+      sc = dot * scale;
+    }
+    // the stage's first position counts, so the max is a real score
+    const float mx = fmaxf(m, block_max(sc, sm_red[0]));
+    const float alpha = expf(m - mx);  // 0 on the first stage
+    float p = 0.f;
+    if (tid < TPS) {
+      p = tid < count ? expf(sc - mx) : 0.f;
+      sm_w[tid] = p;
+    }
+    if (more)  // the stage's V rows
+      cp_async_wait<2>();
+    else
+      cp_async_wait<0>();
+    // the sum's barrier also publishes the weights and the V rows
+    l = l * alpha + block_sum(p, sm_red[1]);
+    m = mx;
+
+    // 3. values: acc = acc * alpha + sum over the lane's positions of w v
+#pragma unroll
+    for (int r = 0; r < CPT; ++r) {
+      const int c = tid / P + r * (kThreads / P);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[r][e] *= alpha;
+      if (c < C) {
+        const TKV* col = sv + c * VEC;
+#pragma unroll 4
+        for (int t = part; t < count; t += P) {
+          float vf[VEC];
+          load16(col + t * (RS / (int)sizeof(TKV)), vf);
+          const float w = sm_w[t];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[r][e] = fmaf(w, vf[e], acc[r][e]);
+        }
+      }
+    }
+    __syncthreads();  // the stage's buffer and the weights are free
+    if (j + 2 < n_st)
+      load_stage<TKV, CW>(stages + (j & 1) * sbytes, k_pages, v_pages,
+                          sm_pages, (j + 2) * TPS,
+                          min(TPS, n_pos - (j + 2) * TPS), ps, H, h, D, rows);
+  }
+
+  // the P lanes of a chunk meet (consecutive lanes, by shuffles), and the
+  // split's acc goes to sm_acc
+#pragma unroll
+  for (int r = 0; r < CPT; ++r) {
+    const int c = tid / P + r * (kThreads / P);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      float a = acc[r][e];
+      for (int o = P / 2; o > 0; o >>= 1)
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+      const int d = c * VEC + e;
+      if (part == 0 && c < C && d < D) sm_acc[d] = a;
+    }
+  }
+  __syncthreads();
+  split_softmax::finish<kThreads>(
+      sm_acc, m, l, D, item, split, gridDim.y, arrivals, gridDim.z * H, ws,
+      counters, out + (size_t)item * D);
+}
+
+template <typename TQ, typename TKV, int CW, int CPT>
+int launch(const void* q, const void* k, const void* v, const void* pt,
+           const void* len, void* out, void* ws, void* counters, int S,
+           int H, int D, int PB, int ps, int pps, cudaStream_t stream) {
+  auto kernel = paged_attend_kernel<TQ, TKV, CW, CPT>;
+  static sm90::SmemOptIn opt_in;  // one per instantiation
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int refused = opt_in.ensure(kernel, kSmemCap, device);
+  if (refused) return refused;
+  const Rows<TKV> rows(D);
+  const int span = pps * ps;
+  const int n_buf = (span + rows.TPS - 1) / rows.TPS > 1 ? 2 : 1;
+  const int Dp = rows.C * Rows<TKV>::VEC;
+  const size_t smem = (size_t)(2 * Dp + kThreads + rows.TPS) * 4 +
+                      (size_t)n_buf * rows.stage_bytes() + (size_t)pps * 4;
+  if (smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
+  const int splits = (PB + pps - 1) / pps;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  kernel<<<dim3(H, splits, S), kThreads, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), static_cast<const int*>(pt),
+      static_cast<const int*>(len), static_cast<float*>(out),
+      static_cast<float*>(ws), static_cast<int*>(counters), H, D, PB, ps,
+      pps, n_buf, scale);
+  return (int)cudaGetLastError();
+}
+
+// the lane-group path at head rows of 64-512 bytes; elsewhere the tile
+// path with the copy width for the row's bytes and the value pass's chunks
+// a thread (f32 rows past 512 elements take two)
 template <typename TQ, typename TKV>
 int launch_width(const void* q, const void* k, const void* v, const void* pt,
                  const void* len, void* out, void* ws, void* counters, int S,
                  int H, int D, int PB, int ps, int pps, cudaStream_t stream) {
-  const int lp = D * (int)sizeof(TKV) / 16;
-  if (D * (int)sizeof(TKV) != lp * 16) return (int)cudaErrorInvalidValue;
-#define VELES_PAGED_LAUNCH(LP)                                              \
-  return launch<TQ, TKV, LP>(q, k, v, pt, len, out, ws, counters, S, H, PB, \
-                             ps, pps, stream)
-  switch (lp) {
-    case 4: VELES_PAGED_LAUNCH(4);
-    case 8: VELES_PAGED_LAUNCH(8);
-    case 16: VELES_PAGED_LAUNCH(16);
-    case 32: VELES_PAGED_LAUNCH(32);
-    default: return (int)cudaErrorInvalidValue;
+#define VELES_LANES_LAUNCH(LP)                                             \
+  return launch_lanes<TQ, TKV, LP>(q, k, v, pt, len, out, ws, counters, S, \
+                                   H, PB, ps, pps, stream)
+#define VELES_TILE_LAUNCH(CW, CPT)                                            \
+  return launch<TQ, TKV, CW, CPT>(q, k, v, pt, len, out, ws, counters, S, H, \
+                                  D, PB, ps, pps, stream)
+  const int row_bytes = D * (int)sizeof(TKV);
+  switch (row_bytes) {
+    case 64: VELES_LANES_LAUNCH(4);
+    case 128: VELES_LANES_LAUNCH(8);
+    case 256: VELES_LANES_LAUNCH(16);
+    case 512: VELES_LANES_LAUNCH(32);
+    default: break;
   }
-#undef VELES_PAGED_LAUNCH
+  const int cw = copy_width(row_bytes);
+  if constexpr (sizeof(TKV) == 4) {
+    if (Rows<TKV>(D).C > kThreads) {  // D > 512
+      switch (cw) {
+        case 16: VELES_TILE_LAUNCH(16, 2);
+        case 8: VELES_TILE_LAUNCH(8, 2);
+        default: VELES_TILE_LAUNCH(4, 2);
+      }
+    }
+    switch (cw) {
+      case 16: VELES_TILE_LAUNCH(16, 1);
+      case 8: VELES_TILE_LAUNCH(8, 1);
+      default: VELES_TILE_LAUNCH(4, 1);
+    }
+  } else {
+    switch (cw) {
+      case 16: VELES_TILE_LAUNCH(16, 1);
+      case 8: VELES_TILE_LAUNCH(8, 1);
+      case 4: VELES_TILE_LAUNCH(4, 1);
+      default: VELES_TILE_LAUNCH(2, 1);
+    }
+  }
+#undef VELES_LANES_LAUNCH
+#undef VELES_TILE_LAUNCH
 }
 
 }  // namespace
 
 // q (S, H, D); k_pages / v_pages (P, ps, H, D); page_table (S, PB) int32;
 // lengths (S,) int32; out (S, H, D) float32; all contiguous, pools 16-byte
-// aligned. Types: 0 = float32, 1 = bfloat16. D * sizeof(pool type) must be
-// 64, 128, 256 or 512 bytes. The plan: splits of `pps` pages, at most
-// split_softmax::kMaxSplits of them; with more than one, ws holds
-// S * H * splits * (D + 2) floats and counters S * H zeroed ints (left
-// zeroed). Launches on `stream` and returns the launch's cudaError_t.
+// aligned. Types: 0 = float32, 1 = bfloat16. 1 <= D <= 1024. The plan:
+// splits of `pps` pages, at most split_softmax::kMaxSplits of them; with
+// more than one, ws holds S * H * splits * (D + 2) floats and counters
+// S * H zeroed ints (left zeroed). Launches on `stream` and returns the
+// launch's cudaError_t.
 extern "C" int veles_paged_attend(const void* q, const void* k_pages,
                                   const void* v_pages, const void* page_table,
                                   const void* lengths, void* out, void* ws,
                                   void* counters, int S, int H, int D, int PB,
                                   int ps, int pps, int q_dtype, int kv_dtype,
                                   void* stream) {
-  if (S < 1 || H < 1 || PB < 1 || ps < 1 || pps < 1 ||
+  if (S < 1 || H < 1 || PB < 1 || ps < 1 || pps < 1 || D < 1 ||
+      D > kMaxHeadDim ||
       (PB + pps - 1) / pps > split_softmax::kMaxSplits)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

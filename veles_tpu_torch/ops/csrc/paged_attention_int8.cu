@@ -133,9 +133,9 @@ paged_attend_int8_kernel(const TQ* __restrict__ q,
                          int* __restrict__ counters, int H, int D, int PB,
                          int ps, int pps, int n_buf) {
   extern __shared__ float4 smem4[];
-  float* sm_q = reinterpret_cast<float*>(smem4);  // D
-  float* sm_acc = sm_q + D;                       // D
-  float* sm_part = sm_acc + D;                    // 4 x kThreads
+  float* sm_q = reinterpret_cast<float*>(smem4);  // D (padded)
+  float* sm_acc = sm_q + padded(D);               // D (padded)
+  float* sm_part = sm_acc + padded(D);            // 4 x kThreads
   float* sm_w = sm_part + 4 * kThreads;           // TPS
   char* stages = reinterpret_cast<char*>(sm_w + TPS);
   const int sbytes = Stage<TPS, kVectors>::bytes(D);
@@ -251,9 +251,9 @@ int launch_width(const void* q, const void* kq, const void* ks,
 // q (S, H, D) pre-scaled by 1/sqrt(D); k_q / v_q (P, H, D, ps) int8;
 // k_scale / v_scale (P, H, ps) float32; page_table (S, PB) int32; lengths
 // (S,) int32; out (S, H, D) float32; all contiguous, pools 16-byte aligned.
-// q type: 0 = float32, 1 = bfloat16. 32 <= D <= 1024 with D % 32 == 0; ps
-// a multiple of 4. The plan: splits of `pps` pages, at most
-// split_softmax::kMaxSplits of them; with more than one, ws holds
+// q type: 0 = float32, 1 = bfloat16. 1 <= D <= 1024; ps a multiple of 4.
+// The plan: splits of `pps` pages, at most split_softmax::kMaxSplits of
+// them; with more than one, ws holds
 // S * H * splits * (D + 2) floats and counters S * H zeroed ints (left
 // zeroed). Launches on `stream` and returns the launch's cudaError_t.
 extern "C" int veles_paged_attend_int8(const void* q, const void* k_q,
@@ -264,8 +264,8 @@ extern "C" int veles_paged_attend_int8(const void* q, const void* k_q,
                                        void* ws, void* counters, int S,
                                        int H, int D, int PB, int ps, int pps,
                                        int q_dtype, void* stream) {
-  if (S < 1 || H < 1 || PB < 1 || ps < 4 || ps % 4 || pps < 1 || D < 32 ||
-      D % 32 || D > kMaxHeadDim ||
+  if (S < 1 || H < 1 || PB < 1 || ps < 4 || ps % 4 || pps < 1 || D < 1 ||
+      D > kMaxHeadDim ||
       (PB + pps - 1) / pps > split_softmax::kMaxSplits)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -52,10 +52,12 @@ __device__ __forceinline__ int arrive(int* counter) {
 // outputs, kBatch splits at a time (one L2 round trip for each batch),
 // rescaling its sums to each batch's max (the online-softmax rule).
 template <int THREADS>
-__device__ void finish(const float* acc, float m, float l, int D, int item,
-                       int split, int splits, int arrivals, int items,
-                       float* __restrict__ ws, int* __restrict__ counters,
-                       float* __restrict__ out) {
+__device__ __forceinline__ void finish(const float* acc, float m, float l,
+                                       int D, int item, int split,
+                                       int splits, int arrivals, int items,
+                                       float* __restrict__ ws,
+                                       int* __restrict__ counters,
+                                       float* __restrict__ out) {
   const int tid = threadIdx.x;
   if (arrivals == 1) {
     const float inv_l = 1.f / l;

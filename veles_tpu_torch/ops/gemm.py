@@ -27,6 +27,11 @@ Where a product runs:
   :class:`_DenseFunction`, whose backward is ``_dense_with_vjp``'s math
   (``gemm.py:269-302``) with both products through ``matmul``, so K5.
 
+Convolutions (:func:`conv2d`) are no TPU kernel in the JAX package
+(XLA's conv emitter runs them): here they run as
+``torch.nn.functional.conv2d``, cuDNN on the card, under the same
+precision policy, with TF32 off at levels 1 and 2.
+
 The gate is the JAX package's (``gemm.py:119-128``) with the device test
 changed: two 2-D CUDA operands, m, n and k all at least 512. Each kernel
 wrapper runs its plain version for CPU tensors only; for CUDA tensors it
@@ -36,9 +41,11 @@ kernel faster) finds no verdict on this card yet and runs the plain
 route; the JAX package's TPU tuning cache is never read.
 """
 
+import contextlib
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from veles_tpu_torch.core.config import root
 from veles_tpu_torch.ops import _build
@@ -66,6 +73,98 @@ def compute_operands(*tensors, precision_level=None):
     else:
         dtype = torch.float32
     return tuple(t.to(dtype) for t in tensors)
+
+
+def same_padding(size, kernel, stride):
+    """XLA's ``padding="SAME"`` along one axis: ``(low, high)`` with
+    ``out = ceil(size / stride)`` and the total pad ``max((out - 1) *
+    stride + kernel - size, 0)`` split low = total // 2, high = the rest
+    (asymmetric where the total is odd)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_output_hw(hw, kernel, sliding, padding):
+    """The (H, W) of a conv's output for an (H, W) input, a (ky, kx)
+    kernel, (sy, sx) strides and ``"SAME"``, ``"VALID"`` or explicit
+    ``((top, bottom), (left, right))`` padding."""
+    pads = _conv_pads(hw, kernel, sliding, padding)
+    return tuple((n + lo + hi - k) // s + 1 for n, k, s, (lo, hi)
+                 in zip(hw, kernel, sliding, pads))
+
+
+def _conv_pads(hw, kernel, sliding, padding):
+    if padding == "SAME":
+        return [same_padding(n, k, s)
+                for n, k, s in zip(hw, kernel, sliding)]
+    if padding == "VALID":
+        return [(0, 0), (0, 0)]
+    return [tuple(pair) for pair in padding]
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """cuDNN's f32 convolutions in full f32: PyTorch lets them run in
+    TF32 by default (``torch.backends.cudnn.allow_tf32``), which keeps
+    about three decimal digits."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+class _F32Conv(torch.autograd.Function):
+    """An NCHW conv whose forward and backward both run with TF32 off
+    (autograd's own backward would read the process-wide flag when it
+    runs, after this call has returned)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        with _full_f32():
+            return F.conv2d(x, w, stride=stride)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        with _full_f32():
+            grad_x, grad_w, _ = torch.ops.aten.convolution_backward(
+                grad, x, w, None, list(ctx.stride), [0, 0], [1, 1], False,
+                [0, 0], 1, [ctx.needs_input_grad[0],
+                            ctx.needs_input_grad[1], False])
+        return grad_x, grad_w, None
+
+
+def conv2d(x, w, sliding, padding, precision_level=None):
+    """NHWC x HWIO convolution under the precision policy, f32 result
+    (the JAX package's ``conv2d``, ``gemm.py:93-116``). Level 0 runs the
+    conv on bf16 operands end to end, so its output rounds through bf16,
+    then widens it; levels 1 and 2 run in true f32 (never TF32).
+    ``padding`` is ``"SAME"`` (XLA's rule, :func:`same_padding`, applied
+    as an explicit pad), ``"VALID"`` or ``((top, bottom), (left,
+    right))``. The conv is ``torch.nn.functional.conv2d`` on the NCHW
+    view of the NHWC tensor, a channels-last layout, so cuDNN runs its
+    NHWC kernels on the card; the result is viewed back as NHWC."""
+    if precision_level is None:
+        precision_level = root.common.engine.get("precision_level", 0)
+    xc, wc = compute_operands(x, w, precision_level=precision_level)
+    stride = tuple(int(s) for s in sliding)
+    pads = _conv_pads(tuple(x.shape[1:3]), tuple(w.shape[:2]), stride,
+                      padding)
+    xn = xc.permute(0, 3, 1, 2)              # NCHW view, channels last
+    if any(lo or hi for lo, hi in pads):
+        (top, bottom), (left, right) = pads
+        xn = F.pad(xn, (left, right, top, bottom))
+    wn = wc.permute(3, 2, 0, 1)              # OIHW
+    if xn.dtype == torch.float32:
+        out = _F32Conv.apply(xn, wn, stride)
+    else:
+        out = F.conv2d(xn, wn, stride=stride)
+    return out.permute(0, 2, 3, 1).float()
 
 
 def _plain_product(a, b):

@@ -10,9 +10,11 @@ pages are walked. Scores and the value product accumulate in f32 and the
 output is f32, whatever the query and pool types.
 
 On a CUDA tensor the hand-written kernel (``csrc/paged_attention.cu``,
-``csrc/paged_attention_int8.cu``) runs; on a CPU tensor the plain
-version, a page-table gather followed by a masked softmax, computes the
-same function.
+``csrc/paged_attention_int8.cu``) runs, at every head width from 1 to
+:data:`MAX_HEAD_DIM`, as the JAX package's paged kernels take the whole
+head row whatever its width; on a CPU tensor the plain version, a
+page-table gather followed by a masked softmax, computes the same
+function.
 """
 
 import ctypes
@@ -24,6 +26,10 @@ from veles_tpu_torch.ops import _build
 from veles_tpu_torch.ops._workspace import sm_count, split_workspace
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the widest head K1 and K3 take (every width from 1 up to it; K4's
+#: limit, ``csrc/int8_tile.cuh``)
+MAX_HEAD_DIM = 1024
 
 #: K1's (and K3's) plan: the positions a split holds at least (whole
 #: pages) where the grid still fills the card, the blocks an SM it aims
@@ -124,11 +130,13 @@ def paged_attend(q, k_pages, v_pages, page_table, lengths, *, page_size):
     (S, H, D) float32.
 
     On CUDA tensors the kernel runs (and :attr:`paged_attend.launches`
-    counts it); the operands must be contiguous and page ids valid. It
-    cuts the table's positions into splits of whole pages over the card
-    (:func:`_paged_plan`) and merges each slot's live splits in the same
-    launch, in split order: two calls on the same inputs give bit-equal
-    outputs. On CPU tensors the plain version runs."""
+    counts it); the operands must be contiguous, D at most
+    :data:`MAX_HEAD_DIM` and page ids valid; wider heads raise
+    ValueError. It cuts the table's positions into splits of whole pages
+    over the card (:func:`_paged_plan`) and merges each slot's live
+    splits in the same launch, in split order: two calls on the same
+    inputs give bit-equal outputs. On CPU tensors the plain version
+    runs."""
     _check(q, k_pages, v_pages, page_table, lengths, page_size)
     if q.device.type == "cpu":
         return _paged_attend_plain(q, k_pages, v_pages, page_table,
@@ -143,11 +151,9 @@ def paged_attend(q, k_pages, v_pages, page_table, lengths, *, page_size):
         raise ValueError("paged_attend's kernel wants 16-byte aligned "
                          "pools")
     slots, heads, head_dim = q.shape
-    row_bytes = head_dim * k_pages.element_size()
-    if row_bytes not in (64, 128, 256, 512):
-        raise ValueError("paged_attend's kernel takes head rows of 64, "
-                         "128, 256 or 512 bytes, got head_dim %d in %s"
-                         % (head_dim, k_pages.dtype))
+    if head_dim > MAX_HEAD_DIM:
+        raise ValueError("paged_attend's kernel takes head_dim up to %d, "
+                         "got %d" % (MAX_HEAD_DIM, head_dim))
     device = q.device
     pb = page_table.shape[1]
     pages, _, elements = _paged_plan(slots, heads, head_dim, pb, page_size,
@@ -248,10 +254,6 @@ def _check_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
                          "devices: %s" % sorted(str(d) for d in devices))
 
 
-#: the head widths K3 takes: multiples of this many, from one of them up to
-#: :data:`INT8_MAX_HEAD_DIM` (K4's rule, ``csrc/int8_tile.cuh``)
-INT8_HEAD_DIM_TILE = 32
-INT8_MAX_HEAD_DIM = 1024
 
 
 def paged_attend_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
@@ -266,9 +268,9 @@ def paged_attend_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
 
     On CUDA tensors the kernel runs (and
     :attr:`paged_attend_int8.launches` counts it): the operands must be
-    contiguous, D a multiple of :data:`INT8_HEAD_DIM_TILE` from 32 to
-    :data:`INT8_MAX_HEAD_DIM`, the page size a multiple of 4 and page
-    ids valid; other widths raise ValueError. It cuts the table's
+    contiguous, D at most :data:`MAX_HEAD_DIM`, the page size a
+    multiple of 4 and page ids valid; other shapes raise ValueError. It
+    cuts the table's
     positions into splits of whole pages over the card (K1's plan,
     :func:`_paged_plan`) and merges each slot's live splits in the same
     launch, in split order: two calls on the same inputs give bit-equal
@@ -287,14 +289,11 @@ def paged_attend_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
         raise ValueError("paged_attend_int8's kernel wants contiguous "
                          "operands")
     slots, heads, head_dim = q.shape
-    if head_dim % INT8_HEAD_DIM_TILE or not (
-            INT8_HEAD_DIM_TILE <= head_dim <= INT8_MAX_HEAD_DIM) \
-            or page_size % 4:
+    if head_dim > MAX_HEAD_DIM or page_size % 4:
         raise ValueError(
-            "paged_attend_int8's kernel takes head_dim %% %d == 0 from %d "
-            "to %d and a page size that is a multiple of 4, got %d and %d"
-            % (INT8_HEAD_DIM_TILE, INT8_HEAD_DIM_TILE, INT8_MAX_HEAD_DIM,
-               head_dim, page_size))
+            "paged_attend_int8's kernel takes head_dim up to %d and a page "
+            "size that is a multiple of 4, got %d and %d"
+            % (MAX_HEAD_DIM, head_dim, page_size))
     if any(t.data_ptr() % 16 for t in (k_q, v_q, k_scale, v_scale)):
         raise ValueError("paged_attend_int8's kernel wants 16-byte "
                          "aligned pools")

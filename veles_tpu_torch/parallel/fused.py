@@ -1,8 +1,11 @@
 """FusedTick: the product path of a training workflow.
 
 The port of ``veles_tpu/parallel/fused.py`` for a single device: dense
-layers and, since the long-context slice, the sequence-model tier
-(self-attention, feed-forward and layer-norm blocks, ``fused.py:57-259``).
+layers, since the long-context slice the sequence-model tier
+(self-attention, feed-forward and layer-norm blocks, ``fused.py:57-259``),
+and since the conv slice convolutions, the max, average and max-abs pools
+(layers with no parameters: an empty parameter dict and no leaves) and
+the loader's in-tick augmentation.
 ``StandardWorkflow`` builds its unit graph (the units are the
 composition API and the weight owners), then splices a :class:`FusedTick`
 in place of the compute chain:
@@ -13,14 +16,18 @@ One tick is one train or eval step over the loader's served minibatch —
 or, with sweep serving (the default), over a whole class sweep: a Python
 loop over the rows of the index matrix with the same per-row math as the
 JAX package's ``lax.scan``. Each step gathers from the device-resident
-originals, normalizes, runs the layer chain (dense layers through
+originals, normalizes, applies the TRAIN augmentation
+(``ops/augment.TRANSFORMS``, keyed by the loader's seed for that
+minibatch), runs the layer chain (dense layers through
 ``ops/gemm.dense_layer``, K6 forward and K5 weight gradient where the
 engine knobs and the gate allow; attention and feed-forward blocks
 through ``ops/attention.attention_block`` and ``ffn_block``, whose
 attention runs the flash kernels K7 forward and K8/K9 backward on the
-card at T >= 4096 with 128-wide heads; layer norms in plain torch; a
-dense layer after a block flattens its (B, T, E) input), computes the
-masked softmax cross-entropy, takes the gradients with
+card at T >= 4096 with 128-wide heads; layer norms in plain torch;
+convolutions through ``ops/gemm.conv2d`` (cuDNN on the card) and pools
+through ``nn/pooling.POOLS``, NHWC throughout; a dense layer after a
+block or a conv flattens its input, in H, W, C order for NHWC), computes
+the masked softmax cross-entropy, takes the gradients with
 ``torch.autograd`` of that loss (the JAX package uses
 ``jax.value_and_grad`` of the same loss), and applies each GD unit's
 exact update (``nn/gd.make_updater``) leaf by leaf: the weight decay
@@ -35,9 +42,9 @@ one-slot history share tensors without copies (the JAX package copies
 because its step donates its input buffers).
 
 Left out (later slices): graph mode (the units' own computes, which the
-tick replaces), conv and pooling specs, the mesh (``shard_map``, ring and
-Ulysses attention over a ``seq`` axis) and the fleet slave and
-control-plane paths, augmentation, and the MSE loss.
+tick replaces), the mesh (``shard_map``, ring and Ulysses attention over a
+``seq`` axis) and the fleet slave and control-plane paths, and the MSE
+loss.
 """
 
 import torch
@@ -48,12 +55,16 @@ from veles_tpu_torch.loader.normalization import (normalizer_registry,
                                                   state_tensors)
 from veles_tpu_torch.nn.gd import make_updater
 from veles_tpu_torch.nn.jit_unit import JitUnit
+from veles_tpu_torch.nn.pooling import POOLS
+from veles_tpu_torch.ops import activations as act_lib
 from veles_tpu_torch.ops import losses
 from veles_tpu_torch.ops.attention import attention_block, ffn_block
+from veles_tpu_torch.ops.augment import TRANSFORMS
 from veles_tpu_torch.ops.gather import gather_minibatch
-from veles_tpu_torch.ops.gemm import dense_layer
+from veles_tpu_torch.ops.gemm import conv2d, dense_layer
 
 _DENSE = "dense"
+_CONV = "conv"
 _ATTN = "attention"
 _FFN = "ffn"
 _NORM = "layer_norm"
@@ -74,10 +85,14 @@ _ATTN_LEAVES = (("w", "weights", "_velocity_w", False, True),
 def extract_model_spec(workflow):
     """Static per-layer config from the workflow's forwards/gds chains.
     Returns a spec list, or None when a layer is not one the tick fuses
-    (or a subclass carries math of its own)."""
+    (or a subclass carries math of its own). A pooling layer's spec has
+    no ``"leaves"``: it has no parameters and its GD unit no optimizer
+    state."""
     from veles_tpu_torch.nn.all2all import All2All
     from veles_tpu_torch.nn.attention import (LayerNorm, SelfAttention,
                                               TokenFFN)
+    from veles_tpu_torch.nn.conv import Conv
+    from veles_tpu_torch.nn.pooling import Pooling
 
     def modified(unit):
         return unit is not None and (
@@ -92,6 +107,14 @@ def extract_model_spec(workflow):
         if isinstance(fwd, All2All):
             spec = {"kind": _DENSE, "activation": fwd.ACTIVATION,
                     "leaves": _WB_LEAVES}
+        elif isinstance(fwd, Conv):
+            spec = {"kind": _CONV, "activation": fwd.ACTIVATION,
+                    "sliding": fwd.sliding, "padding": fwd.padding,
+                    "leaves": _WB_LEAVES}
+        elif isinstance(fwd, Pooling) and fwd.KIND in POOLS:
+            specs.append({"kind": fwd.KIND, "window": fwd.window,
+                          "sliding": fwd.sliding})
+            continue
         elif isinstance(fwd, SelfAttention):
             spec = {"kind": _ATTN, "heads": fwd.heads, "causal": fwd.causal,
                     "residual": fwd.residual, "leaves": _ATTN_LEAVES}
@@ -111,16 +134,22 @@ def extract_model_spec(workflow):
 
 def get_hypers(workflow):
     """Per-layer hyperparameter vectors, read fresh from the GD units'
-    ``_hyper`` slots each tick, so ``set_learning_rate()`` anneals."""
-    return [gd._hyper.data for gd in workflow.gds]
+    ``_hyper`` slots each tick, so ``set_learning_rate()`` anneals (None
+    for a layer without parameters)."""
+    return [gd._hyper.data if hasattr(gd, "_hyper") else None
+            for gd in workflow.gds]
 
 
 def get_params(workflow, specs):
     """The unit chain's weights as the per-layer tree: ``{"p": {leaf:
     tensor}, "v": {leaf: velocity}}`` per layer, plus ``"s"`` second
-    moments and ``"t"`` the step count for the stateful solvers."""
+    moments and ``"t"`` the step count for the stateful solvers; ``{}``
+    for a layer without parameters."""
     params = []
     for fwd, gd, spec in zip(workflow.forwards, workflow.gds, specs):
+        if "leaves" not in spec:
+            params.append({})
+            continue
         p, v = {}, {}
         entry = {"p": p, "v": v}
         stateful = spec["solver"] != "momentum"
@@ -142,6 +171,8 @@ def set_params(workflow, params, specs):
     results and anything reading the units see them)."""
     for fwd, gd, p, spec in zip(workflow.forwards, workflow.gds, params,
                                 specs):
+        if not p:
+            continue
         stateful = spec["solver"] != "momentum"
         for leaf, fwd_attr, vel_attr, _, _ in spec["leaves"]:
             getattr(fwd, fwd_attr).data = p["p"][leaf]
@@ -154,8 +185,18 @@ def set_params(workflow, params, specs):
 
 
 def _layer_forward(spec):
-    """Pure forward for one layer (``fused.py:190-259``)."""
+    """Pure forward for one layer (``fused.py:190-281``)."""
     kind = spec["kind"]
+    if kind in POOLS:
+        pool, window, sliding = POOLS[kind], spec["window"], spec["sliding"]
+        return lambda p, x: pool(x, window, sliding)
+    if kind == _CONV:
+        act = act_lib.ACTIVATIONS[spec["activation"]][0]
+        sliding, padding = spec["sliding"], spec["padding"]
+
+        def fwd(p, x):
+            return act(conv2d(x, p["w"], sliding, padding) + p["b"])
+        return fwd
     if kind == _ATTN:
         heads, causal = spec["heads"], spec["causal"]
         residual = spec["residual"]
@@ -189,18 +230,22 @@ def _layer_forward(spec):
     return fwd
 
 
-def build_tick(specs, norm_type="none", with_confusion=True):
+def build_tick(specs, norm_type="none", with_confusion=True,
+               augment="none"):
     """The fused engine: ``(train_step, eval_step, train_sweep,
     eval_sweep)``, as the JAX package's ``build_tick``:
 
-    - ``train_step(params, hypers, norm, data, labels, indices, valid)
-      -> (params, (loss, n_err))`` — one minibatch: gather → normalize →
-      forward → masked softmax xent → gradients → per-layer update;
+    - ``train_step(params, hypers, norm, data, labels, indices, valid,
+      seed) -> (params, (loss, n_err))`` — one minibatch: gather →
+      normalize → [augment, ``augment`` a name of
+      ``ops/augment.TRANSFORMS``, keyed by ``seed``] → forward → masked
+      softmax xent → gradients → per-layer update;
     - ``eval_step(params, norm, data, labels, indices, valid) -> (loss,
       n_err, confusion)``;
     - ``train_sweep(params, hypers, norm, data, labels, index_matrix,
-      valid_sizes, total_valid) -> (params, (loss, n_err))`` — a whole
-      class sweep, the per-row math of ``train_step``, metrics summed;
+      valid_sizes, total_valid, seeds) -> (params, (loss, n_err))`` — a
+      whole class sweep, the per-row math of ``train_step`` (row i keyed
+      by ``seeds[i]``), metrics summed;
     - ``eval_sweep(...)`` likewise without updates.
 
     ``indices`` (and each row of ``index_matrix``) is an int64 tensor on
@@ -208,6 +253,8 @@ def build_tick(specs, norm_type="none", with_confusion=True):
     with arrays as device tensors."""
     layer_fwds = [_layer_forward(s) for s in specs]
     norm_cls = normalizer_registry[norm_type]
+
+    transform = TRANSFORMS.get(augment)
 
     def gather_norm(data, labels, indices, norm):
         batch, lab = gather_minibatch(data, indices, labels)
@@ -226,10 +273,13 @@ def build_tick(specs, norm_type="none", with_confusion=True):
             logits, lab, mask, valid)
         return loss_sum, n_err, logits, mask
 
-    def core_train(params, hypers, norm, data, labels, indices, valid):
+    def core_train(params, hypers, norm, data, labels, indices, valid,
+                   seed):
         batch, lab = gather_norm(data, labels, indices, norm)
+        if transform is not None:
+            batch = transform(batch, seed)
         wb = [{k: t.detach().requires_grad_(True)
-               for k, t in p["p"].items()} for p in params]
+               for k, t in p["p"].items()} if p else {} for p in params]
         with torch.enable_grad():
             loss_sum, n_err, _, _ = metrics_of(wb, batch, lab, valid)
             leaves = [t for layer in wb for t in layer.values()]
@@ -238,6 +288,9 @@ def build_tick(specs, norm_type="none", with_confusion=True):
         new = []
         with torch.no_grad():
             for p, layer, hyper, spec in zip(params, wb, hypers, specs):
+                if not p:
+                    new.append({})
+                    continue
                 g = {k: next(grads) for k in layer}
                 lr, lr_b, l2, l1 = hyper[0], hyper[1], hyper[2], hyper[3]
                 solver = spec["solver"]
@@ -264,7 +317,7 @@ def build_tick(specs, norm_type="none", with_confusion=True):
     def core_eval(params, norm, data, labels, indices, valid):
         with torch.no_grad():
             batch, lab = gather_norm(data, labels, indices, norm)
-            wb = [p["p"] for p in params]
+            wb = [p["p"] if p else {} for p in params]
             loss_sum, n_err, logits, mask = metrics_of(wb, batch, lab,
                                                        valid)
             cm = (losses.confusion_matrix(logits, lab, logits.shape[-1],
@@ -274,9 +327,10 @@ def build_tick(specs, norm_type="none", with_confusion=True):
                                    device=logits.device))
         return loss_sum, n_err, cm
 
-    def train_step(params, hypers, norm, data, labels, indices, valid):
+    def train_step(params, hypers, norm, data, labels, indices, valid,
+                   seed=0):
         new, (loss_sum, n_err) = core_train(params, hypers, norm, data,
-                                            labels, indices, valid)
+                                            labels, indices, valid, seed)
         return new, (loss_sum / valid, n_err)
 
     def eval_step(params, norm, data, labels, indices, valid):
@@ -285,11 +339,14 @@ def build_tick(specs, norm_type="none", with_confusion=True):
         return loss_sum / valid, n_err, cm
 
     def train_sweep(params, hypers, norm, data, labels, index_matrix,
-                    valid_sizes, total_valid):
+                    valid_sizes, total_valid, seeds=None):
+        if seeds is None:
+            seeds = [0] * len(valid_sizes)
         loss_total = n_err_total = 0
-        for indices, valid in zip(index_matrix, valid_sizes):
+        for indices, valid, seed in zip(index_matrix, valid_sizes, seeds):
             params, (loss_sum, n_err) = core_train(
-                params, hypers, norm, data, labels, indices, float(valid))
+                params, hypers, norm, data, labels, indices, float(valid),
+                int(seed))
             loss_total = loss_total + loss_sum
             n_err_total = n_err_total + n_err
         return params, (loss_total / total_valid, n_err_total)
@@ -344,14 +401,19 @@ def chain_of(workflow):
 
 def supports(workflow):
     """True when the workflow's compute chain can run as a fused tick:
-    a full-batch loader, the softmax evaluator, layers of the kinds
-    :func:`extract_model_spec` knows, and
-    exactly the standard topology (a custom unit spliced into the cycle
-    would be dropped by the splice)."""
+    a full-batch loader (whose fill-time transform, if any, is one the
+    tick applies itself, ``fused.py:567-575``), the softmax evaluator,
+    layers of the kinds :func:`extract_model_spec` knows, and exactly
+    the standard topology (a custom unit spliced into the cycle would be
+    dropped by the splice)."""
     from veles_tpu_torch.loader.fullbatch import FullBatchLoader
     from veles_tpu_torch.nn.evaluator import EvaluatorSoftmax
 
-    if not isinstance(getattr(workflow, "loader", None), FullBatchLoader):
+    loader = getattr(workflow, "loader", None)
+    if not isinstance(loader, FullBatchLoader):
+        return False
+    if loader.has_fill_transforms \
+            and loader.jit_transform not in TRANSFORMS:
         return False
     if not isinstance(getattr(workflow, "evaluator", None),
                       EvaluatorSoftmax):
@@ -423,7 +485,8 @@ class FusedTick(Unit):
                                     loader.device)
         self._steps_ = build_tick(
             self._specs_, loader.normalization_type,
-            with_confusion=getattr(wf.evaluator, "compute_confusion", True))
+            with_confusion=getattr(wf.evaluator, "compute_confusion", True),
+            augment=loader.jit_transform or "none")
 
     def run(self):
         wf = self.workflow
@@ -445,7 +508,8 @@ class FusedTick(Unit):
             if training:
                 self._params_, (loss, n_err) = train_sweep(
                     self._params_, get_hypers(wf), norm, data, labels,
-                    indices, sizes, valid)
+                    indices, sizes, valid,
+                    getattr(loader, "sweep_transform_seeds", None))
             else:
                 loss, n_err, cm = eval_sweep(self._params_, norm, data,
                                              labels, indices, sizes, valid)
@@ -454,7 +518,8 @@ class FusedTick(Unit):
             if training:
                 self._params_, (loss, n_err) = train_step(
                     self._params_, get_hypers(wf), norm, data, labels,
-                    indices, valid)
+                    indices, valid,
+                    getattr(loader, "minibatch_transform_seed", 0))
             else:
                 loss, n_err, cm = eval_step(self._params_, norm, data,
                                             labels, indices, valid)
