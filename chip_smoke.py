@@ -19,7 +19,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    bit, with its plan printed; K1 and K3 also at every head width of
    C4_WIDTHS (8 to 1024, an odd one among them) in 4 heads, K1 in f32
    and bf16 pools and queries, K3 in both query types, each twice bit
-   for bit; K1, K3 and K4 also timed alone by
+   for bit; K1, K3 and K4 at C5_WIDTHS past 1024 (K4 at C5_K4_WIDTHS)
+   alike, each timed at D = 2048 beside its byte bound; K1, K3 and K4
+   also timed alone by
    torch.profiler, without the events' launch overhead; K5 the
    blocked GEMM at the weight-gradient and grad_x shapes of the wide
    MLP, K6 the fused dense layer at its forward shape, both in bf16 and
@@ -60,10 +62,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    top-k 50) to ContinuousDecoder at the serving model's width, in
    float32, each request's stream served alone (same request id, another
    slot) equal to its stream in the burst and to generate(batch=1,
-   key=request_key(seed, request id)); and, between the two, the paged
+   key=request_key(seed, request id)), and the same burst through
+   GenerateAPI's HTTP front with temperature and top-k on the API, each
+   stream equal to the decoder's for its request id; and, between the
+   two, the paged
    pool in heads of 48 (embed 768 = 16 x 48, the serving model's depth
    and vocabulary, f32 weights, float and int8-KV tiers, 8 requests x 16
-   tokens) against the dense reference in every compared step;
+   tokens) against the dense reference in every compared step; then the
+   survival layer at the serving model's width: the circuit breaker in
+   the paged float (K1), paged int8-KV (K3) and dense int8-KV (K4 + K2)
+   tiers (the shared-prompt mix, a chaos monkey failing one step, the
+   mix again with clients retrying: every request 200, /readyz 200, the
+   cached prompts hits over the restored pages, the tier's attend
+   kernel launched by the rebuilt decoder; trip-to-ready ms by part,
+   pages and bytes restored), the paged float tier in f32 after a trip
+   against a fault-free run (every stream equal), and the int8 tier's
+   live weight swap with a burst in flight (no reply but 200, the burst
+   on the old weights, later streams equal a fresh API on the new ones,
+   rollback, a NaN checkpoint refused);
 7. training: MLPWorkflow over the bench's MNIST-shaped data (60000 x
    784, 10000 valid / 50000 train), 3 epochs at lr 0.03 — the wide MLP
    (784 -> 4096 tanh -> 10, minibatch 4096) with the engine knobs
@@ -124,6 +140,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy
@@ -165,6 +182,8 @@ from veles_tpu_torch.parallel.kv_pool import paged_kv_bytes
 from veles_tpu_torch.parallel.transformer_step import (
     init_transformer_params)
 from veles_tpu_torch.serving import ContinuousDecoder, GenerateAPI
+from veles_tpu_torch.serving_chaos import (ServingChaosConfig,
+                                           ServingChaosMonkey)
 
 #: the repo's serving model at full width (bench.py:861-862)
 EMBED, HEADS, BLOCKS, VOCAB = 1024, 16, 4, 32768
@@ -187,6 +206,12 @@ K1_ATOL = 2e-3
 #: C4_HEADS heads at the burst's lengths, f32 and bf16 pools and queries
 C4_WIDTHS = (8, 16, 33, 48, 80, 96, 100, 512, 1024)
 C4_HEADS = 4
+#: C5: head widths past 1024 the JAX package's attends serve (K4's a
+#: multiple of 32: 1056 where K1 and K3 take 1025), held in C4_HEADS heads
+#: in both pools and query types; C5_TIMED is timed beside its byte bound
+C5_WIDTHS = (1025, 1536, 2048, 4096)
+C5_K4_WIDTHS = (1056, 1536, 2048, 4096)
+C5_TIMED = 2048
 #: the paged serving run in heads of 48: the serving model's depth and
 #: vocabulary at embed 768 = 16 x 48, f32 weights, 8 requests x 16 tokens
 NARROW_EMBED, NARROW_HEADS, NARROW_TOKENS = 768, 16, 16
@@ -297,6 +322,17 @@ FLASH_WIDE_F32_SHAPE = (1, 4096, 4, 256)
 #: round-off, and a bf16 step (2^-8 of a logit) would flip a near-tied
 #: Gumbel-max draw where f32's (2^-24) does not
 SAMPLE_TEMPERATURE, SAMPLE_TOP_K, SAMPLE_SEED = 0.8, 50, 11
+#: the breaker phase's tiers: (label, quantize, paged, attend kernel) —
+#: the paged float pool on K1, the paged int8-KV pool on K3, the dense
+#: int8-KV slab on K4 (and K2)
+BREAKER_TIERS = (("paged float", None, True, "paged_attend"),
+                 ("paged int8-kv", "int8-kv", True, "paged_attend_int8"),
+                 ("dense int8-kv", "int8-kv", False, "int8_cache_attend"))
+#: the breaker's first backoff in the smoke (the default is 0.5 s)
+SMOKE_BACKOFF = 0.05
+#: the hot swap's second weights: the serving model's width from
+#: another seed
+SWAP_SEED = 7
 #: the long-context training main path: transformer_device's pre-LN stack
 #: (bench.py:425-441: 4 x [layer_norm, residual causal self_attention,
 #: layer_norm, residual gelu ffn ratio 4], a softmax head) at
@@ -483,12 +519,12 @@ def dtype_name(dtype):
 
 
 def k1_widths(device, gen):
-    """C4: K1 at every width of C4_WIDTHS, f32 and bf16 pools and
-    queries, against its plain version and twice bit for bit; returns
-    the largest error."""
+    """C4 and C5: K1 at every width of C4_WIDTHS and C5_WIDTHS, f32 and
+    bf16 pools and queries, against its plain version and twice bit for
+    bit; returns the largest error."""
     t0 = time.perf_counter()
     err = 0.0
-    for head_dim in C4_WIDTHS:
+    for head_dim in C4_WIDTHS + C5_WIDTHS:
         for kv_dtype in (torch.float32, torch.bfloat16):
             for q_dtype in (torch.float32, torch.bfloat16):
                 args = k1_problem(device, gen, heads=C4_HEADS,
@@ -497,10 +533,28 @@ def k1_widths(device, gen):
                 err = max(err, k1_check(args, ", D = %d, q %s, pool %s"
                                         % (head_dim, dtype_name(q_dtype),
                                            dtype_name(kv_dtype))))
-    print("K1 C4 widths %s: %d calls checked in %.1f s, max_abs_err %.3g"
-          % (list(C4_WIDTHS), 4 * len(C4_WIDTHS),
-             time.perf_counter() - t0, err))
+    print("K1 C4 and C5 widths %s: %d calls checked in %.1f s, "
+          "max_abs_err %.3g" % (list(C4_WIDTHS + C5_WIDTHS),
+                                4 * len(C4_WIDTHS + C5_WIDTHS),
+                                time.perf_counter() - t0, err))
     return err
+
+
+def wide_time(timer, label, fn, name, nbytes):
+    """C5: a kernel at D = C5_TIMED in C4_HEADS heads (the burst's
+    lengths): the event timer and the kernel alone beside the byte
+    bound (each live byte read once, the output written once)."""
+    ms = timer(fn)
+    alone = timer.kernel_ms(fn, name)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    print("%s at D = %d (C5, %d heads, bf16 q): ms %.4f, alone %.4f, "
+          "bound_ms %.4f (bytes, %d)" % (label, C5_TIMED, C4_HEADS, ms,
+                                        alone, bound_ms, nbytes))
+    return {"ms": ms, "kernel_ms": alone, "bound_ms": bound_ms}
+
+
+def live_positions(lengths, pb):
+    return sum(min(int(n) + 1, pb * PAGE) for n in lengths.tolist())
 
 
 def narrow_times(timer, label, fn, plain, name):
@@ -524,6 +578,12 @@ def k1_phase(timer, device, gen):
     narrow_times(timer, "K1", lambda: paged_attend(*narrow, page_size=PAGE),
                  lambda: _paged_attend_plain(*narrow, PAGE),
                  "paged_attend_kernel")
+    wide = k1_problem(device, gen, heads=C4_HEADS, head_dim=C5_TIMED)
+    live = live_positions(wide[4], wide[3].shape[1])
+    c5 = wide_time(timer, "K1", lambda: paged_attend(*wide, page_size=PAGE),
+                   "paged_attend_kernel",
+                   2 * live * C4_HEADS * C5_TIMED * 2
+                   + SLOTS * C4_HEADS * C5_TIMED * (2 + 4))
     # the library yardstick: SDPA over K/V already gathered contiguous
     # (the gather itself is not timed), with the same visibility mask
     span = table.shape[1] * PAGE
@@ -566,6 +626,8 @@ def k1_phase(timer, device, gen):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "lopsided_ms": lopsided_ms,
             "kernel_ms": kernel_ms[0], "lopsided_kernel_ms": kernel_ms[1],
+            "c5_ms": c5["ms"], "c5_kernel_ms": c5["kernel_ms"],
+            "c5_bound_ms": c5["bound_ms"],
             "library": "scaled_dot_product_attention on the gathered pages"}
 
 
@@ -621,14 +683,23 @@ def k3_phase(timer, device, gen):
     err = max(err, k3_check("q bfloat16, D = 256", k3_problem(
         device, gen, torch.bfloat16, heads=EMBED // 256)))
     t0 = time.perf_counter()
-    for head_dim in C4_WIDTHS:     # C4
+    for head_dim in C4_WIDTHS + C5_WIDTHS:     # C4 and C5
         for q_dtype in (torch.float32, torch.bfloat16):
             err = max(err, k3_check(
                 "q %s, D = %d" % (dtype_name(q_dtype), head_dim),
                 k3_problem(device, gen, q_dtype, heads=C4_HEADS,
                            head_dim=head_dim)))
-    print("K3 C4 widths %s: %d calls checked in %.1f s"
-          % (list(C4_WIDTHS), 2 * len(C4_WIDTHS), time.perf_counter() - t0))
+    print("K3 C4 and C5 widths %s: %d calls checked in %.1f s"
+          % (list(C4_WIDTHS + C5_WIDTHS), 2 * len(C4_WIDTHS + C5_WIDTHS),
+             time.perf_counter() - t0))
+    wide = k3_problem(device, gen, torch.bfloat16, heads=C4_HEADS,
+                      head_dim=C5_TIMED)
+    live = live_positions(wide[6], wide[5].shape[1])
+    c5 = wide_time(timer, "K3",
+                   lambda: paged_attend_int8(*wide, page_size=PAGE),
+                   "paged_attend_int8_kernel",
+                   2 * live * C4_HEADS * (C5_TIMED + 4)
+                   + SLOTS * C4_HEADS * C5_TIMED * (2 + 4))
     narrow = k3_problem(device, gen, torch.bfloat16,
                         head_dim=NARROW_EMBED // NARROW_HEADS)
     narrow_times(timer, "K3",
@@ -681,26 +752,67 @@ def k3_phase(timer, device, gen):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "lopsided_ms": lopsided_ms,
             "kernel_ms": kernel_ms[0], "lopsided_kernel_ms": kernel_ms[1],
+            "c5_ms": c5["ms"], "c5_kernel_ms": c5["kernel_ms"],
+            "c5_bound_ms": c5["bound_ms"],
             "library": "scaled_dot_product_attention on the dequantized "
                        "pages"}
 
 
-def k4_problem(device, gen, q_dtype, width=K4_WIDTH):
+def k4_problem(device, gen, q_dtype, width=K4_WIDTH, heads=HEADS,
+               head_dim=None):
     """The dense int8-KV slab of the serving model at the dense phase's
     width: (8 slots, 16 heads, 64, width) codes and (8, 16, width)
     scales from ``_quantize_kv`` of random bf16 K/V, q (8, 1, 16, 64)
-    pre-scaled by 1/sqrt(D)."""
-    head_dim = EMBED // HEADS
+    pre-scaled by 1/sqrt(D) (or ``heads`` heads of ``head_dim``)."""
+    head_dim = head_dim or EMBED // heads
     slab = []
     for _ in range(2):
-        val = torch.randn((SLOTS, width, HEADS, head_dim), generator=gen,
+        val = torch.randn((SLOTS, width, heads, head_dim), generator=gen,
                           device=device).to(torch.bfloat16)
         codes, scale = _quantize_kv(val)        # (S,T,H,D), (S,T,H)
         slab += [codes.permute(0, 2, 3, 1).contiguous(),
                  scale.permute(0, 2, 1).contiguous()]
-    q = torch.randn((SLOTS, 1, HEADS, head_dim), generator=gen,
+    q = torch.randn((SLOTS, 1, heads, head_dim), generator=gen,
                     device=device) * head_dim ** -0.5
     return q.to(q_dtype), slab
+
+
+def k4_widths(timer, device, gen):
+    """C5: K4 at every width of C5_K4_WIDTHS in C4_HEADS heads, f32 and
+    bf16 q, the per-row mask, against its plain version and twice bit
+    for bit; timed at C5_TIMED. Returns the largest error and the
+    timing."""
+    t0 = time.perf_counter()
+    err = 0.0
+    mask = k4_masks(device, K4_WIDTH)["per-row"]
+    for head_dim in C5_K4_WIDTHS:
+        for q_dtype in (torch.float32, torch.bfloat16):
+            q, slab = k4_problem(device, gen, q_dtype, heads=C4_HEADS,
+                                 head_dim=head_dim)
+            out = int8_cache_attend(q, *slab, mask, use_pallas=True)
+            again = int8_cache_attend(q, *slab, mask, use_pallas=True)
+            ref = _cache_attend_plain(q, *slab, mask)
+            torch.cuda.synchronize()
+            e = (out - ref).abs().max().item()
+            equal = torch.equal(out, again)
+            print("K4 int8_cache_attend q %s, D = %d: max_abs_err %.3g "
+                  "(tolerance %.0e), two calls bit-equal: %s"
+                  % (dtype_name(q_dtype), head_dim, e, K4_ATOL, equal))
+            if not e <= K4_ATOL or not equal:
+                raise AssertionError("K4 fails at D = %d" % head_dim)
+            err = max(err, e)
+    print("K4 C5 widths %s: %d calls checked in %.1f s"
+          % (list(C5_K4_WIDTHS), 2 * len(C5_K4_WIDTHS),
+             time.perf_counter() - t0))
+    q, slab = k4_problem(device, gen, torch.bfloat16, heads=C4_HEADS,
+                         head_dim=C5_TIMED)
+    c5 = wide_time(timer, "K4",
+                   lambda: int8_cache_attend(q, *slab, mask,
+                                             use_pallas=True),
+                   "cache_attend_int8_kernel",
+                   2 * SLOTS * C4_HEADS * K4_WIDTH * (C5_TIMED + 4)
+                   + mask.numel() * 4 + SLOTS * C4_HEADS * C5_TIMED * (2 + 4))
+    return err, c5
 
 
 def k4_masks(device, t):
@@ -742,6 +854,8 @@ def k4_phase(timer, device, gen):
     err = max(err, e)
     if not err <= K4_ATOL:
         raise AssertionError("K4 disagrees with its plain version")
+    wide_err, c5 = k4_widths(timer, device, gen)
+    err = max(err, wide_err)
     mask = k4_masks(device, K4_WIDTH)["per-row"]
     for t in (K4_WIDTH, K4_SPAN):
         splits, chunk = _attend_plan(SLOTS, HEADS, t, sm_count(device))
@@ -788,6 +902,8 @@ def k4_phase(timer, device, gen):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "kernel_ms": kernel_ms,
+            "c5_ms": c5["ms"], "c5_kernel_ms": c5["kernel_ms"],
+            "c5_bound_ms": c5["bound_ms"],
             "library": "scaled_dot_product_attention on the dequantized "
                        "slab"}
 
@@ -1134,7 +1250,7 @@ def serve(params, table, waves, quantize, device, paged=True, heads=HEADS,
         # shorter than a page: never published to the prefix cache
         post(api.port, waves[0][0][:min(16, PAGE - 1)], CHUNK)
         torch.cuda.synchronize()
-        health0 = api.health()
+        health0 = api.health.snapshot()
         timings0 = dict(api.decoder.timings)
         for fn in COUNTERS.values():
             fn.launches = 0
@@ -1143,7 +1259,7 @@ def serve(params, table, waves, quantize, device, paged=True, heads=HEADS,
                    for stream in burst(api.port, wave, n_tokens)]
         wall = time.perf_counter() - t0
         launches = counts()
-        health = api.health()
+        health = api.health.snapshot()
         chunks = (health["dispatch_counts"]["chunk"]
                   - health0["dispatch_counts"]["chunk"])
         host_s = sum(api.decoder.timings[key] - timings0[key]
@@ -1518,6 +1634,335 @@ def sampling_phase(device, prompts):
           "own id, another slot) and to generate(batch=1, key=)"
           % (len(prompts), N_TOKENS, SAMPLE_TEMPERATURE, SAMPLE_TOP_K,
              len(prompts) * N_TOKENS / wall))
+    # the same burst through HTTP, temperature and top-k on the API: the
+    # requests are posted in order (each staged before the next is sent,
+    # so request i takes id i + 1 after the warm-up's 0) and all in
+    # flight together; each stream must be the decoder's for its id
+    api = GenerateAPI(params, table, HEADS, slots=SLOTS, max_len=MAX_LEN,
+                      n_tokens=N_TOKENS, chunk=CHUNK,
+                      temperature=SAMPLE_TEMPERATURE, top_k=SAMPLE_TOP_K,
+                      seed=SAMPLE_SEED, paged=False, device=device).start()
+    try:
+        post(api.port, prompts[0][:16], CHUNK)
+        answers = [None] * len(prompts)
+
+        def client(i):
+            answers[i] = post(api.port, prompts[i], N_TOKENS)
+
+        threads = []
+        for i in range(len(prompts)):
+            threads.append(threading.Thread(target=client, args=(i,)))
+            threads[-1].start()
+            while api.decoder._next_id < i + 2:
+                time.sleep(0.001)
+        for thread in threads:
+            thread.join(timeout=600)
+    finally:
+        api.stop()
+    if answers != streams:
+        raise AssertionError("sampled streams through HTTP %r differ from "
+                             "the decoder's %r" % (answers, streams))
+    print("sampling through HTTP (temperature %g, top-k %d on the API): "
+          "%d streams equal the decoder's for the same request ids"
+          % (SAMPLE_TEMPERATURE, SAMPLE_TOP_K, len(prompts)))
+
+
+def post_retrying(port, tokens, n_tokens, codes):
+    """POST until a 200, retrying on 429 and 503 (a client of a
+    rebuilding replica); every reply's code goes to ``codes``."""
+    for attempt in range(600):
+        req = urllib.request.Request(
+            "http://127.0.0.1:%d/generate" % port,
+            data=json.dumps({"tokens": tokens,
+                             "n_tokens": n_tokens}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                codes.append(resp.status)
+                return json.loads(resp.read().decode())["tokens"]
+        except urllib.error.HTTPError as err:
+            codes.append(err.code)
+            if err.code not in (429, 503):
+                raise
+        time.sleep(0.01 * min(attempt + 1, 20))
+    raise AssertionError("no 200 after 600 attempts")
+
+
+def burst_retrying(port, prompts, codes, n_tokens=N_TOKENS):
+    """``burst`` with retries on 429 and 503."""
+    streams = [None] * len(prompts)
+    errors = []
+
+    def client(i):
+        try:
+            streams[i] = post_retrying(port, prompts[i], n_tokens, codes)
+        except Exception as exc:  # reported below, fails the phase
+            errors.append("request %d: %r" % (i, exc))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=900)
+    if errors or any(thread.is_alive() for thread in threads):
+        raise AssertionError("serving failed: %s" % errors)
+    return streams
+
+
+def readyz(port):
+    try:
+        with urllib.request.urlopen("http://127.0.0.1:%d/readyz" % port,
+                                    timeout=60) as resp:
+            return resp.status
+    except urllib.error.HTTPError as err:
+        return err.code
+
+
+def heal_line(label, api):
+    """The last rebuild's trip-to-ready seconds by part, as ms."""
+    rb = api.last_rebuild
+    return ("%s: trip to ready %.1f ms (shadow capture %.1f, decoder build "
+            "%.1f, restore %.1f, probe %.1f); restored %d pages, %d bytes"
+            % (label, 1e3 * rb["trip_to_ready_s"], 1e3 * rb["capture_s"],
+               1e3 * rb["build_s"], 1e3 * rb["restore_s"],
+               1e3 * rb["probe_s"], rb["restored_pages"],
+               rb["restored_bytes"]))
+
+
+def breaker_phase(device):
+    """The circuit breaker at the serving model's width in three tiers
+    (BREAKER_TIERS): the shared-prompt mix served once (the prefix cache
+    fills), then a ServingChaosMonkey failing one step and the same mix
+    again, clients retrying on 503 and 429. Every request must end with
+    200, /readyz answer 200 with the breaker closed, the paged tiers
+    admit the cached system prompt as a hit on the rebuilt decoder (no
+    new prefix miss beyond the probe's and the int8-KV tier's cold
+    tails), and the
+    tier's attend kernel launch at least blocks x steps of the rebuilt
+    decoder. Then the paged float tier in f32, requests one at a time:
+    the streams after the trip equal a fault-free run's."""
+    params, table = bf16_model(device)
+    waves = prefix_waves(numpy.random.RandomState(5))
+    launches = dict.fromkeys(COUNTERS, 0)
+    for label, quantize, paged, attend in BREAKER_TIERS:
+        api = GenerateAPI(params, table, HEADS, slots=SLOTS,
+                          max_len=MAX_LEN, n_tokens=N_TOKENS, chunk=CHUNK,
+                          paged=paged, page_size=PAGE, quantize=quantize,
+                          rebuild_backoff=SMOKE_BACKOFF,
+                          device=device).start()
+        try:
+            codes = []
+            post(api.port, waves[0][0][:min(16, PAGE - 1)], CHUNK)
+            for wave in waves:
+                burst_retrying(api.port, wave, codes)
+            health0 = api.health.snapshot()
+            api.chaos = ServingChaosMonkey(ServingChaosConfig(
+                step_fail=1.0, step_fail_max=1))
+            for fn in COUNTERS.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            streams = [s for wave in waves
+                       for s in burst_retrying(api.port, wave, codes)]
+            wall = time.perf_counter() - t0
+            got = counts()
+            health = api.health.snapshot()
+            ready = readyz(api.port)
+        finally:
+            api.stop()
+        delta = {k: health["counters"][k] - health0["counters"][k]
+                 for k in ("shed", "trips", "rebuilds")}
+        chunks = api.decoder.dispatch_counts["chunk"]
+        steps = chunks * CHUNK
+        print("breaker %s bf16: %d requests x %d tokens over the trip in "
+              "%.3f s = %.1f tokens/s; shed %d, trips %d, rebuilds %d; "
+              "replies %s; %s launches %d (>= %d blocks x %d steps of the "
+              "rebuilt decoder), K2 %d"
+              % (label, len(streams), N_TOKENS, wall,
+                 len(streams) * N_TOKENS / wall, delta["shed"],
+                 delta["trips"], delta["rebuilds"],
+                 {c: codes.count(c) for c in sorted(set(codes))}, attend,
+                 got[attend], BLOCKS, steps, got["int8_matmul"]))
+        print(heal_line("breaker %s" % label, api))
+        if delta["trips"] != 1 or delta["rebuilds"] != 1 \
+                or delta["shed"] < 1:
+            raise AssertionError("the %s breaker did not trip, shed and "
+                                 "rebuild once: %s" % (label, delta))
+        if ready != 200 or health["breaker"] != "closed" \
+                or not health["ready"]:
+            raise AssertionError("the %s front did not heal: /readyz %d, "
+                                 "%s" % (label, ready, health["breaker"]))
+        if set(codes) - {200, 429, 503}:
+            raise AssertionError("the %s run answered %s"
+                                 % (label, sorted(set(codes))))
+        if got[attend] < BLOCKS * steps or steps == 0:
+            raise AssertionError("%s launches %d < %d blocks x %d steps"
+                                 % (attend, got[attend], BLOCKS, steps))
+        if paged:
+            hits = health["dispatch_counts"]["admit_hit"]
+            misses = (health["pool"]["prefix_misses"]
+                      - health0["pool"]["prefix_misses"])
+            # the probe's one-token prompt is the one cold admission the
+            # float pool makes; the int8-KV pool reuses exact prompts
+            # only, so its tails (not page-aligned) go cold too
+            cold = 1 + (len(waves[1]) if quantize == "int8-kv" else 0)
+            print("breaker %s: on the rebuilt decoder admit_hit %d, "
+                  "admit_tail %d, prefix misses +%d (expected +%d)"
+                  % (label, hits, health["dispatch_counts"]["admit_tail"],
+                     misses, cold))
+            if hits < 1 or misses != cold:
+                raise AssertionError("the %s pool did not admit the "
+                                     "cached prompts as hits over the "
+                                     "restored pages" % label)
+        for name, n in got.items():
+            launches[name] += n
+    breaker_agreement(device, waves)
+    return launches
+
+
+def breaker_agreement(device, waves):
+    """The paged float tier in f32 at the serving width, the mix posted
+    one request at a time twice: with a trip at the start of the second
+    pass the second pass's streams equal a fault-free run's, step for
+    step (the restored pages are copies; the hits' cached logits
+    survive)."""
+    rng = numpy.random.RandomState(0)
+    params = init_transformer_params(rng, BLOCKS, EMBED, HEADS, VOCAB,
+                                     device=device)
+    table = torch.from_numpy(
+        rng.randn(VOCAB, EMBED).astype(numpy.float32) * 0.02).to(device)
+    prompts = [p for wave in waves for p in wave]
+    runs = []
+    for chaos in (False, True):
+        api = GenerateAPI(params, table, HEADS, slots=SLOTS,
+                          max_len=MAX_LEN, n_tokens=N_TOKENS, chunk=CHUNK,
+                          paged=True, page_size=PAGE,
+                          rebuild_backoff=SMOKE_BACKOFF,
+                          device=device).start()
+        try:
+            codes = []
+            for prompt in prompts:
+                post_retrying(api.port, prompt, N_TOKENS, codes)
+            if chaos:
+                api.chaos = ServingChaosMonkey(ServingChaosConfig(
+                    step_fail=1.0, step_fail_max=1))
+            runs.append([post_retrying(api.port, p, N_TOKENS, codes)
+                         for p in prompts])
+            trips = api.health.counter("trips")
+        finally:
+            api.stop()
+        if trips != int(chaos):
+            raise AssertionError("f32 breaker run: %d trips" % trips)
+    if runs[0] != runs[1]:
+        raise AssertionError("the f32 streams after the trip differ from "
+                             "the fault-free run's")
+    print("breaker agreement paged float f32: %d streams after the trip "
+          "equal the fault-free run's step for step (%d tokens)"
+          % (len(prompts), sum(len(s) for s in runs[1])))
+
+
+def swap_phase(device, prompts):
+    """The live hot swap in the int8 tier on the paged pool (K2 + K1) at
+    the serving width, f32 activations: weights A serve; a burst holds
+    every slot when swap_params(B) is asked for: no reply but 200, and
+    the burst's streams equal A's (they drain on A); then each prompt
+    equals a fresh GenerateAPI on B, rollback_swap() brings A's streams
+    back, and a checkpoint with one NaN leaf is refused, naming it,
+    while A keeps serving. Requests are posted one at a time where
+    streams are compared across runs, so the batches match."""
+    rng = numpy.random.RandomState(0)
+    params_a = init_transformer_params(rng, BLOCKS, EMBED, HEADS, VOCAB,
+                                       device=device)
+    table = torch.from_numpy(
+        rng.randn(VOCAB, EMBED).astype(numpy.float32) * 0.02).to(device)
+    params_b = init_transformer_params(numpy.random.RandomState(SWAP_SEED),
+                                       BLOCKS, EMBED, HEADS, VOCAB,
+                                       device=device)
+
+    def api_on(params):
+        return GenerateAPI(params, table, HEADS, slots=SLOTS,
+                           max_len=MAX_LEN, n_tokens=N_TOKENS, chunk=CHUNK,
+                           paged=True, page_size=PAGE, quantize="int8",
+                           device=device).start()
+
+    def one_by_one(api):
+        return [post(api.port, p, N_TOKENS) for p in prompts]
+
+    fresh = api_on(params_b)
+    try:
+        want_b = one_by_one(fresh)
+    finally:
+        fresh.stop()
+    api = api_on(params_a)
+    try:
+        want_a = one_by_one(api)
+        answers = [None] * len(prompts)
+        codes = []
+
+        def client(i):
+            answers[i] = post_retrying(api.port, prompts[i], N_TOKENS,
+                                       codes)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        first = api.decoder._next_id
+        for thread in threads:
+            thread.start()
+        # every request submitted to the decoder: it decodes on A
+        while api.decoder._next_id < first + len(prompts):
+            time.sleep(0.001)
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        api.swap_params(params_b, version="B")
+        swap_wall = time.perf_counter() - t0
+        timings = dict(api.last_swap)
+        for thread in threads:
+            thread.join(timeout=600)
+        after = one_by_one(api)
+        got = counts()
+        api.rollback_swap()
+        rolled = one_by_one(api)
+        poisoned = dict(params_b, lnf_w=torch.full_like(params_b["lnf_w"],
+                                                        float("nan")))
+        try:
+            api.swap_params(poisoned, version="poisoned")
+            refused = None
+        except RuntimeError as exc:
+            refused = str(exc)
+        still = one_by_one(api)
+        health = api.health.snapshot()
+    finally:
+        api.stop()
+    print("hot swap int8 f32: swap_params wall %.1f ms (drain %.1f, swap "
+          "and quantize %.1f, probe %.1f); replies %s; launches after the "
+          "swap K1 %d, K2 %d"
+          % (1e3 * swap_wall, 1e3 * timings["drain_s"],
+             1e3 * timings["swap_s"], 1e3 * timings["probe_s"],
+             {c: codes.count(c) for c in sorted(set(codes))},
+             got["paged_attend"], got["int8_matmul"]))
+    if set(codes) != {200}:
+        raise AssertionError("5xx or 429 across the swap: %s" % codes)
+    if answers != want_a:
+        raise AssertionError("the in-flight burst did not finish on A")
+    if after != want_b:
+        raise AssertionError("after the swap the streams differ from a "
+                             "fresh API on B")
+    if rolled != want_a or still != want_a:
+        raise AssertionError("rollback or the refused swap did not leave "
+                             "A serving")
+    if refused is None or "['lnf_w']" not in refused:
+        raise AssertionError("the NaN checkpoint was not refused by "
+                             "name: %r" % refused)
+    if not got["paged_attend"] or not got["int8_matmul"]:
+        raise AssertionError("the swapped weights did not run K1 and K2")
+    if health["counters"]["param_swaps"] != 2 \
+            or health["counters"]["swap_failures"] != 1:
+        raise AssertionError("swap counters %s" % health["counters"])
+    print("hot swap: in-flight burst on A, %d prompts equal a fresh API on "
+          "B, rollback back to A, NaN checkpoint refused (%s)"
+          % (len(prompts), refused))
+    return got
 
 
 def bench_dataset(n=60000, features=784, classes=10, n_valid=10000):
@@ -2584,6 +3029,12 @@ def main():
                     prefix_waves(numpy.random.RandomState(2)))
     narrow_heads_phase(device, prompts)
     sampling_phase(device, prompts)
+    t_survival = time.perf_counter()
+    for phase in (breaker_phase(device), swap_phase(device, prompts)):
+        for name, n in phase.items():
+            launches[name] += n
+    print("survival phases (breaker, f32 agreement, hot swap): %.1f s"
+          % (time.perf_counter() - t_survival))
     # the training path's kernels count on its main paths alone: the
     # wide MLP and AlexNet with the knobs on
     launches.update((name, n) for name, n in training_phase(device).items()

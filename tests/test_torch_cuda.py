@@ -3,20 +3,24 @@ the shapes and types the serving smoke does not reach: K2 at every
 decode-step shape and 1 to 256 rows in both x types, its byte-wise path
 (N % 16 != 0, misaligned q), ragged K and N, two calls bit-equal, calls
 of other shapes in a row (the split counters reset), the M > 256 regime
-rule; K1 at head widths 8 to 1024 (C4's widths: 8, 16, 33, 48, 80,
-96, 100, 512, 1024, and 32 to 256) in every mix of query and pool types,
+rule; K1 at head widths 8 to 4096 (C4's widths: 8, 16, 33, 48, 80,
+96, 100, 512, 1024, and 32 to 256; C5's: 1025, 1536, 2048, 4096) in
+every mix of query and pool types (and 8192, the limit),
 at its splits' boundaries (16- and 128-token pages), NaN rows on
 invisible positions, twice bit for bit; K3 at length 0, full table rows,
-head widths 8 to 1024 (the powers of two, 96 and C4's widths) in both
-query types, 8-, 16- and 128-token pages
+head widths 8 to 4096 (the powers of two, 96, C4's and C5's widths) in
+both query types, 8-, 16- and 128-token pages
 at its splits' boundaries, NaN scales on invisible positions, twice bit
-for bit; K4 at head widths 32 to 1024, shared and per-row masks,
+for bit; K4 at head widths 32 to 4096 (C5's 1056 to 4096 twice bit for
+bit), shared and per-row masks,
 lanes of several 8192-position tiles (one fully masked tile first or
 last) and a slab view cut to a span, with one split, a ragged last
 split, a fully masked split and a fully masked row, twice bit for bit;
-the split counters K1, K2, K3 and K4 share left at zero; and the
+the split counters K1, K2, K3 and K4 share left at zero; the
+breaker's page restore (_paged_restore) on a CUDA pool, the restored
+pages bit-equal to their shadows; and the
 dense int8-KV decoder on the card against the CPU; the wrappers'
-refusals; prefill attention at 4096 positions with a head width the
+refusals (past MAX_HEAD_DIM, 8192, among them); prefill attention at 4096 positions with a head width the
 flash rule leaves to plain attention; K5 and K6 at odd shapes, both
 operand types, every activation, transposed and strided operands, and
 the dense layer's backward on the card against the plain backward, and
@@ -58,7 +62,8 @@ from veles_tpu_torch.ops.gemm import (_blocked_matmul_plain,
                                       _dense_epilogue_plain, blocked_matmul,
                                       dense_epilogue)
 from veles_tpu_torch.ops import _workspace
-from veles_tpu_torch.ops.paged_attention import (_paged_attend_int8_plain,
+from veles_tpu_torch.ops.paged_attention import (MAX_HEAD_DIM,
+                                                 _paged_attend_int8_plain,
                                                  _paged_attend_plain,
                                                  _paged_plan, paged_attend,
                                                  paged_attend_int8)
@@ -67,6 +72,7 @@ from veles_tpu_torch.ops.quant import (PALLAS_MAX_ROWS, _attend_plan,
                                        _int8_matmul_plain,
                                        int8_cache_attend, int8_matmul,
                                        quantize_int8)
+from veles_tpu_torch.parallel import kv_pool
 from veles_tpu_torch.parallel.decode import _quantize_kv
 from veles_tpu_torch.parallel.transformer_step import (
     init_transformer_params)
@@ -255,7 +261,7 @@ def test_paged_attend_kernel_matches_plain(cuda, head_dim, q_dtype,
 def test_paged_attend_refuses_what_the_kernel_does_not_take(cuda, case):
     if case == "head_bytes":   # past the widest head the kernel takes
         q, k, v, table, lengths, ps = _paged_problem(
-            cuda, 1025, torch.bfloat16, torch.bfloat16)
+            cuda, MAX_HEAD_DIM + 1, torch.bfloat16, torch.bfloat16)
     else:
         q, k, v, table, lengths, ps = _paged_problem(
             cuda, 64, torch.float32, torch.float32)
@@ -321,10 +327,10 @@ def test_paged_attend_int8_refuses_what_the_kernel_does_not_take(cuda,
         vq, vs = vq[:, :2], vs[:, :2]
     elif case == "head_dim":   # one past the widest head
         q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
-            cuda, 1025, torch.float32, [3, 20], 2)
-    elif case == "head_dim_wide":   # past 1024
+            cuda, MAX_HEAD_DIM + 1, torch.float32, [3, 20], 2)
+    elif case == "head_dim_wide":   # a multiple of 32 past it
         q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
-            cuda, 1056, torch.float32, [3, 20], 2)
+            cuda, MAX_HEAD_DIM + 32, torch.float32, [3, 20], 2)
     else:   # a page size the kernel's 4-position copies cannot walk
         q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
             cuda, 64, torch.float32, [3, 20], 2, ps=10)
@@ -485,12 +491,14 @@ def test_cache_attend_kernel_reads_a_slab_view_in_place(cuda):
 
 
 @pytest.mark.parametrize("case", ["t_off_tile", "d_off_tile",
-                                  "misaligned", "strided_q"])
+                                  "misaligned", "strided_q", "head_dim"])
 def test_cache_attend_refuses_what_the_kernel_does_not_take(cuda, case):
-    """use_pallas=True off the gate, and operands the kernel cannot read
-    in place, raise on the card; nothing falls back to torch ops."""
-    q, slab = _slab_problem(cuda, 2, 2, 16 if case == "d_off_tile" else 32,
-                            256, torch.float32)
+    """use_pallas=True off the gate, operands the kernel cannot read in
+    place, and heads past MAX_HEAD_DIM raise on the card; nothing falls
+    back to torch ops."""
+    head_dim = {"d_off_tile": 16, "head_dim": MAX_HEAD_DIM + 32}.get(case,
+                                                                     32)
+    q, slab = _slab_problem(cuda, 2, 2, head_dim, 256, torch.float32)
     t = 256
     if case == "t_off_tile":
         slab, t = [a[..., :200] for a in slab], 200
@@ -1241,3 +1249,101 @@ def test_gemm_gate_on_the_card(cuda):
     assert not gemm._kernel_eligible(big.cpu(), big.cpu())
     with pytest.raises(ValueError):
         blocked_matmul(big, big.cpu())
+
+
+#: C5: head widths past 1024 the JAX package's attends serve (K4's a
+#: multiple of 32), up to MAX_HEAD_DIM
+C5_WIDTHS = [1025, 1536, 2048, 4096, MAX_HEAD_DIM]
+C5_K4_WIDTHS = [1056, 1536, 2048, 4096, MAX_HEAD_DIM]
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
+                         ids=["kv_f32", "kv_bf16"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+@pytest.mark.parametrize("head_dim", C5_WIDTHS)
+def test_paged_attend_past_1024(cuda, head_dim, q_dtype, kv_dtype):
+    """C5: K1's accumulator in shared memory, stages of one to a few
+    positions, at 128- and 16-token pages: a length-0 slot, a page
+    boundary and a 1100-position slot; two calls bit-equal."""
+    for ps, pb in ((128, 10), (16, 70)):
+        q, k, v, table, lengths = _paged_lengths_problem(
+            cuda, [0, ps - 1, 1100], pb, ps, heads=2, head_dim=head_dim,
+            dtype=kv_dtype)
+        q = q.to(q_dtype)
+        out = paged_attend(q, k, v, table, lengths, page_size=ps)
+        again = paged_attend(q, k, v, table, lengths, page_size=ps)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        torch.testing.assert_close(
+            out, _paged_attend_plain(q, k, v, table, lengths, ps),
+            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("head_dim", C5_WIDTHS)
+def test_paged_attend_int8_past_1024(cuda, head_dim, q_dtype):
+    """C5: K3's wide tile (8 positions a stage, the accumulator in shared
+    memory, one buffer where two stages do not fit) at 8-, 16- and
+    128-token pages (4- and 8-byte copies); two calls bit-equal."""
+    for ps, pb in ((8, 140), (16, 70), (128, 10)):
+        args = _int8_paged_problem(cuda, head_dim, q_dtype,
+                                   [0, ps - 1, 1100], pb, heads=2, ps=ps)
+        out = paged_attend_int8(*args[:-1], page_size=ps)
+        again = paged_attend_int8(*args[:-1], page_size=ps)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        torch.testing.assert_close(out, _paged_attend_int8_plain(*args),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("head_dim", C5_K4_WIDTHS)
+def test_cache_attend_past_1024(cuda, head_dim, q_dtype):
+    """C5: K4's wide tile at 1024 positions (8 splits of 128) and on a
+    span view of a wider slab (4-byte copies); two calls bit-equal."""
+    q, slab = _slab_problem(cuda, 2, 2, head_dim, 1028, q_dtype)
+    view = [a[..., :1024] for a in slab]
+    mask = _slab_mask("per-row", 2, 1024)
+    out = int8_cache_attend(q, *view, mask)
+    again = int8_cache_attend(q, *view, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(
+        out, _cache_attend_plain(q, *(a.contiguous() for a in view), mask),
+        rtol=1e-5, atol=1e-5)
+    q, slab = _slab_problem(cuda, 2, 2, head_dim, 1024, q_dtype)
+    torch.testing.assert_close(int8_cache_attend(q, *slab, mask),
+                               _cache_attend_plain(q, *slab, mask),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+def test_paged_restore_on_the_card(cuda, quantized):
+    """The breaker's restore on a CUDA pool: shadows captured from one
+    pool copy into another's pages, bit-equal, every leaf; the pages not
+    restored keep their bytes."""
+    src = kv_pool.init_paged_state(2, 9, 16, 4, 64, 100, 3,
+                                   quantized=quantized, device="cuda")
+    for name in kv_pool.PAGED_KV_LEAVES:
+        if name in src:
+            val = torch.randn(src[name].shape, generator=cuda,
+                              device="cuda") * 50
+            src[name].copy_(val.to(src[name].dtype))
+    shadows = kv_pool._shadow_pages(src, [2, 5, 7])
+    dst = kv_pool.init_paged_state(2, 9, 16, 4, 64, 100, 3,
+                                   quantized=quantized, device="cuda")
+    before = {name: dst[name].clone() for name in kv_pool.PAGED_KV_LEAVES
+              if name in dst}
+    values = kv_pool._stack_shadow(shadows, [2, 5, 7])
+    kv_pool._paged_restore(dst, [8, 1, 4], values)
+    torch.cuda.synchronize()
+    for name in before:
+        for old, new in ((2, 8), (5, 1), (7, 4)):
+            assert torch.equal(dst[name][:, new], src[name][:, old])
+            assert torch.equal(dst[name][:, new].cpu(),
+                               shadows[old][name])
+        for page in (0, 2, 3, 5, 6, 7):
+            assert torch.equal(dst[name][:, page], before[name][:, page])

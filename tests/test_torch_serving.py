@@ -318,8 +318,13 @@ def test_http_504_at_the_deadline(api_factory):
     assert health["pool"]["reserved_pages"] == 0
 
 
-def test_http_503_after_a_decoder_failure(api_factory):
-    api = api_factory()
+def test_http_503_after_a_decoder_failure(model, api_factory):
+    """The JAX package's breaker contract: the request in flight when
+    the decoder faults is shed with a retryable 503 naming the fault
+    (Retry-After: 1), and the server heals (rebuild, probe) and answers
+    200 again without a restart."""
+    _, tparams, table = model
+    api = api_factory(rebuild_backoff=0.01)
 
     def broken(chunk):
         raise RuntimeError("injected device fault")
@@ -328,9 +333,19 @@ def test_http_503_after_a_decoder_failure(api_factory):
     code, body, headers = _post(api.port, {"tokens": [1, 2]})
     assert code == 503 and "injected device fault" in body["error"]
     assert headers.get("Retry-After") == "1"
-    assert not _health(api.port)["ready"]
+    for _ in range(3000):
+        if api.health.ready:
+            break
+        time.sleep(0.01)
+    health = _health(api.port)
+    assert health["ready"] and health["breaker"] == "closed"
+    assert health["counters"]["shed"] == 1
+    assert health["counters"]["trips"] == health["counters"]["rebuilds"] == 1
     code, body, _ = _post(api.port, {"tokens": [1, 2]})
-    assert code == 503 and "decoder failed" in body["error"]
+    ref, _ = tdec.generate(tparams, torch.from_numpy(table),
+                           numpy.asarray([[1, 2]]), HEADS, n_tokens=6,
+                           device="cpu")
+    assert code == 200 and body["tokens"] == ref[0].tolist()
 
 
 def test_port_imports_neither_jax_nor_veles_tpu():

@@ -24,10 +24,12 @@ import jax
 import jax.numpy as jnp
 
 from veles_tpu import serving as jserving
+from veles_tpu.core.config import root as jroot
 from veles_tpu.ops import quant as jquant
 from veles_tpu.parallel import decode as jdec
 from veles_tpu.parallel import transformer_step as jts
 from veles_tpu_torch import serving as tserving
+from veles_tpu_torch.core.config import root as troot
 from veles_tpu_torch.ops import quant as tquant
 from veles_tpu_torch.parallel import decode as tdec
 from veles_tpu_torch.parallel import kv_pool as tpool
@@ -615,10 +617,12 @@ def test_defaults_serve_the_dense_slab_as_in_jax():
 
     assert default(tserving.ContinuousDecoder) \
         == default(jserving.ContinuousDecoder) is False
-    assert default(tserving.GenerateAPI) is False
-    # the JAX front resolves its None from the config, whose default is
+    # both fronts resolve their None from the config, whose default is
     # the slab
+    assert default(tserving.GenerateAPI) is None
     assert default(jserving.GenerateAPI) is None
+    assert troot.common.serve.get("paged") is False
+    assert jroot.common.serve.get("paged", False) is False
 
 
 def test_generate_api_defaults_serve_the_slab(model):
@@ -652,7 +656,7 @@ def test_generate_api_defaults_serve_the_slab(model):
                                     jnp.asarray(prompt[None]), HEADS,
                                     n_tokens=6)
             assert answer == numpy.asarray(toks)[0].tolist()
-        health = api.health()
+        health = api.health.snapshot()
         assert health["counters"]["completed"] == 3
         assert health["inflight"] == 0 and "pool" not in health
         assert health["dispatch_counts"]["admit"] >= 1

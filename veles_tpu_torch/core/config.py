@@ -7,9 +7,9 @@ attribute access so workflow config files can write
 Supports nested ``update()``, ``protect()``-ed read-only keys and pretty
 printing.
 
-The port's defaults are the training engine's knobs only. It reads no
-site overrides and keeps no cache directories: nothing here touches a
-file.
+The port's defaults are the training engine's knobs and the serving
+survival layer's (``root.common.serve``). It reads no site overrides and
+keeps no cache directories: nothing here touches a file.
 """
 
 import pprint
@@ -148,4 +148,27 @@ root.common.update({
     },
     "trace": {"run": False},
     "timings": False,
+    # the serving survival layer (the JAX package's config.py:197-208):
+    # the admission bound (max_queue <= 0 disables load shedding), the
+    # default per-request deadline, the breaker's rebuild backoff, the
+    # KV tier GenerateAPI serves (paged pool or dense slab, and the
+    # pool's geometry; None sizes it from the decoder's defaults) and
+    # the serving chaos harness (serving_chaos.py), off by default. The
+    # JAX package's paged_kernel knob has no counterpart: on the card
+    # the paged pool always attends through K1 or K3.
+    "serve": {
+        "max_queue": 64,
+        "deadline": 300.0,
+        "rebuild_backoff": 0.5,
+        "rebuild_backoff_max": 30.0,
+        "paged": False,
+        "page_size": None,
+        "pool_pages": None,
+        # every fault at probability 0 and no profile: from_config()
+        # builds no monkey until a knob is set
+        "chaos": {"seed": 1, "step_fail": 0.0, "step_fail_max": None,
+                  "slow_step": 0.0, "slow_step_ms": 20.0,
+                  "disconnect": 0.0, "garbage_body": 0.0,
+                  "oversize_body": 0.0},
+    },
 })

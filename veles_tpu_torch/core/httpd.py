@@ -1,8 +1,9 @@
 """Stdlib HTTP-server plumbing for the serving front.
 
-The port's own copy of ``veles_tpu/core/httpd.py:31-89, 331-341``: the
-ThreadingHTTPServer-on-a-daemon-thread lifecycle, JSON replies, and a
-request-body cap that answers 413 before buffering anything. Binds
+The port's own copy of ``veles_tpu/core/httpd.py:31-131, 331-341``: the
+ThreadingHTTPServer-on-a-daemon-thread lifecycle, JSON replies, a
+request-body cap that answers 413 before buffering anything, and the
+``/healthz`` + ``/readyz`` routes with their Retry-After pricing. Binds
 loopback by default.
 """
 
@@ -61,6 +62,44 @@ def read_body(handler, limit=MAX_BODY):
         handler.close_connection = True
         raise BodyTooLarge("body %d > cap %d" % (length, limit))
     return handler.rfile.read(length)
+
+
+def retry_after_headers(source, need=1, fallback=1.0):
+    """The ``Retry-After`` header of a 429 or 503 priced by ``source``'s
+    ``retry_after_s(need)`` (a ServingHealth prices by its pool's page
+    release rate), clamped to [1, 60] seconds; a source without one, or
+    one that raises, gives ``fallback``."""
+    seconds = None
+    price = getattr(source, "retry_after_s", None)
+    if price is not None:
+        try:
+            seconds = price(need)
+        except Exception:   # noqa: BLE001 - never break the reply
+            seconds = None
+    if seconds is None:
+        seconds = fallback
+    return {"Retry-After": "%d" % int(min(60, max(1, round(seconds))))}
+
+
+def serve_health(handler, health):
+    """Route ``GET /healthz`` and ``GET /readyz`` against ``health`` (an
+    object with ``snapshot()`` and a ``ready`` bool). ``/healthz``
+    always answers 200 with the snapshot; ``/readyz`` 200 only while the
+    front can serve, else 503 with the snapshot and a Retry-After, so a
+    load balancer drains a rebuilding replica. Returns True when the
+    path was one of the two."""
+    path = handler.path.split("?")[0]
+    if path == "/healthz":
+        reply(handler, health.snapshot())
+        return True
+    if path == "/readyz":
+        if health.ready:
+            reply(handler, {"ready": True})
+        else:
+            reply(handler, {"ready": False, "state": health.snapshot()},
+                  code=503, headers=retry_after_headers(health))
+        return True
+    return False
 
 
 def start_server(handler_cls, host="127.0.0.1", port=0, name="httpd"):

@@ -36,3 +36,48 @@ def tree_to(tree, device, dtype=None):
     if dtype is not None and tree.is_floating_point():
         return tree.to(device=device, dtype=dtype)
     return tree.to(device)
+
+
+def tree_leaves_with_path(tree, path=()):
+    """``(path, leaf)`` for every tensor leaf of a parameter tree, in the
+    order ``jax.tree_util.tree_flatten_with_path`` gives (dict keys
+    sorted, lists and tuples in order); ``path`` is the tuple of keys and
+    indices from the root."""
+    if isinstance(tree, dict):
+        return [item for key in sorted(tree)
+                for item in tree_leaves_with_path(tree[key], path + (key,))]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, val in enumerate(tree)
+                for item in tree_leaves_with_path(val, path + (i,))]
+    return [(path, tree)]
+
+
+def keystr(path):
+    """A leaf path as ``jax.tree_util.keystr`` writes it:
+    ``[0]['blocks'][1]['wqkv']``."""
+    return "".join("[%r]" % (key,) for key in path)
+
+
+def tree_structure(tree):
+    """A tree's structure without its leaves (dict keys sorted), equal
+    for two trees exactly where JAX's treedefs are."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((key, tree_structure(tree[key]))
+                              for key in sorted(tree)))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,
+                tuple(tree_structure(val) for val in tree))
+    return "*"
+
+
+def tree_replace(tree, path, leaf):
+    """A copy of ``tree`` (containers only; leaves shared) with the leaf
+    at ``path`` replaced by ``leaf``."""
+    if not path:
+        return leaf
+    key, rest = path[0], path[1:]
+    if isinstance(tree, dict):
+        return dict(tree, **{key: tree_replace(tree[key], rest, leaf)})
+    items = list(tree)
+    items[key] = tree_replace(items[key], rest, leaf)
+    return type(tree)(items)

@@ -59,8 +59,10 @@ constexpr int kTile = 128;  // the plan's tile: splits are whole tiles
 constexpr int kVectors = 3;  // k_scale, v_scale and the mask a stage
 // the largest dynamic shared memory a block may ask for (the opt-in,
 // below the H100's 227 KB less the static shared memory): two stages at
-// D = 1024 take 142 KB
+// D = 1024 take 142 KB; past D = 1024 the wide tile (8 positions a stage)
+// takes one stage where two do not fit (D = 8192: 194 KB)
 constexpr int kSmemCap = 192 * 1024;
+constexpr int kWideSmemCap = 220 * 1024;
 
 // the copies of one code half of the stage of TPS positions from t0 (the
 // K codes with k_scale, v_scale and the mask, or the V codes), as one copy
@@ -107,9 +109,10 @@ cache_attend_int8_kernel(const TQ* __restrict__ q,
                          const float* __restrict__ mask,
                          float* __restrict__ out, float* __restrict__ ws,
                          int* __restrict__ counters, int H, int D, int T,
-                         int chunk, long long code_sb, long long code_sh,
-                         long long code_sd, long long scale_sb,
-                         long long scale_sh, long long mask_sb) {
+                         int chunk, int n_buf, long long code_sb,
+                         long long code_sh, long long code_sd,
+                         long long scale_sb, long long scale_sh,
+                         long long mask_sb) {
   extern __shared__ float4 smem4[];
   float* sm_q = reinterpret_cast<float*>(smem4);  // D
   float* sm_acc = sm_q + D;                       // D
@@ -132,13 +135,17 @@ cache_attend_int8_kernel(const TQ* __restrict__ q,
   const float* vs = v_scale + scale0;
   const float* mrow = mask + (size_t)b * mask_sb;
 
-  // every stage's bytes are requested before any arithmetic
+  // the first stages' bytes are requested before any arithmetic (every
+  // stage's, in a ring of two; with one buffer each stage's as the last
+  // one's values are done)
+  const bool ring = n_buf > 1;
   load_stage<TPS, CV>(stages, krow, vrow, ks, vs, mrow, D, code_sd, t_begin);
-  if (n_st > 1)
+  if (ring && n_st > 1)
     load_stage<TPS, CV>(stages + sbytes, krow, vrow, ks, vs, mrow, D,
                         code_sd, t_begin + TPS);
   for (int d = tid; d < D; d += kThreads)
     sm_q[d] = to_f32(q[(size_t)item * D + d]);
+  start_values<TPS>(sm_acc, D);
 
   // s = dot * k_scale + mask, w = p * v_scale
   const auto score = [](const float* vec, int t, float dot) {
@@ -149,12 +156,14 @@ cache_attend_int8_kernel(const TQ* __restrict__ q,
   };
   Running<TPS> run;
   for (int j = 0; j < n_st; ++j) {
-    attend_stage<TPS, kVectors>(stages + (j & 1) * sbytes, sm_q, sm_part,
-                                sm_w, sm_red, D, TPS, j + 1 < n_st, run,
-                                score, weight);
-    if (j + 2 < n_st)
-      load_stage<TPS, CV>(stages + (j & 1) * sbytes, krow, vrow, ks, vs,
-                          mrow, D, code_sd, t_begin + (j + 2) * TPS);
+    char* st = stages + (ring ? (j & 1) * sbytes : 0);
+    attend_stage<TPS, kVectors>(st, sm_q, sm_part, sm_w, sm_red, sm_acc, D,
+                                TPS, ring && j + 1 < n_st, run, score,
+                                weight);
+    const int next = j + (ring ? 2 : 1);
+    if (next < n_st)
+      load_stage<TPS, CV>(st, krow, vrow, ks, vs, mrow, D, code_sd,
+                          t_begin + next * TPS);
   }
   finish_values(run, sm_acc, D);
   split_softmax::finish<kThreads>(
@@ -170,28 +179,33 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq,
            long long scale_sb, long long scale_sh, long long mask_sb,
            cudaStream_t stream) {
   auto kernel = cache_attend_int8_kernel<TQ, TPS, CV>;
+  constexpr int cap = Running<TPS>::kWide ? kWideSmemCap : kSmemCap;
   static sm90::SmemOptIn opt_in;  // one per instantiation
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int refused = opt_in.ensure(kernel, kSmemCap, device);
+  const int refused = opt_in.ensure(kernel, cap, device);
   if (refused) return refused;
   const int splits = (T + chunk - 1) / chunk;
-  const int stages = chunk / TPS > 1 ? 2 : 1;
-  const size_t smem = (size_t)work_floats(D, TPS) * sizeof(float) +
-                      (size_t)stages * Stage<TPS, kVectors>::bytes(D);
-  if (smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
+  const size_t work = (size_t)work_floats(D, TPS) * sizeof(float);
+  const size_t sbytes = Stage<TPS, kVectors>::bytes(D);
+  // a ring of two stages where a split has several and two fit
+  const int n_buf =
+      chunk / TPS > 1 && work + 2 * sbytes <= (size_t)cap ? 2 : 1;
+  const size_t smem = work + (size_t)n_buf * sbytes;
+  if (smem > (size_t)cap) return (int)cudaErrorInvalidValue;
   kernel<<<dim3(H, splits, B), kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const int8_t*>(kq),
       static_cast<const float*>(ks), static_cast<const int8_t*>(vq),
       static_cast<const float*>(vs), static_cast<const float*>(mask),
       static_cast<float*>(out), static_cast<float*>(ws),
-      static_cast<int*>(counters), H, D, T, chunk, code_sb, code_sh,
+      static_cast<int*>(counters), H, D, T, chunk, n_buf, code_sb, code_sh,
       code_sd, scale_sb, scale_sh, mask_sb);
   return (int)cudaGetLastError();
 }
 
-// the stage width for head width D (stage_positions)
+// the stage width for head width D (stage_positions); the wide tile's
+// 8-position stages copy 8 bytes a row where CV is 16
 template <typename TQ, int CV>
 int launch_width(const void* q, const void* kq, const void* ks,
                  const void* vq, const void* vs, const void* mask, void* out,
@@ -207,7 +221,11 @@ int launch_width(const void* q, const void* kq, const void* ks,
     case 128: return VELES_ATTEND_LAUNCH(128);
     case 64: return VELES_ATTEND_LAUNCH(64);
     case 32: return VELES_ATTEND_LAUNCH(32);
-    default: return VELES_ATTEND_LAUNCH(16);
+    case 16: return VELES_ATTEND_LAUNCH(16);
+    default:
+      return launch<TQ, 8, CV < 8 ? CV : 8>(
+          q, kq, ks, vq, vs, mask, out, ws, counters, B, H, D, T, chunk,
+          code_sb, code_sh, code_sd, scale_sb, scale_sh, mask_sb, st);
   }
 #undef VELES_ATTEND_LAUNCH
 }

@@ -6,7 +6,8 @@
 //
 // A block of kThreads threads owns one (row, head)'s split of positions and
 // walks it in stages of TPS positions (128 at D <= 128, fewer at wider heads
-// so that a stage stays near 32 KB: stage_positions). The kernel copies each
+// so that a stage stays near 32 KB, 8 past D = 1024: stage_positions). The
+// kernel copies each
 // stage into shared memory in two cp.async groups, the K codes with the
 // per-position vectors (k_scale, v_scale, and K4's mask), then the V codes,
 // so the scores start while the V codes land; a split of several stages runs
@@ -23,10 +24,18 @@
 // - values: P lanes a d-row (P = 128 / D where D <= 64), each summing its
 //   share of the positions with 16-byte reads into a register; the stages
 //   meet by the online-softmax rescale, the P lanes by shuffles at the end
-//   (finish_values). No thread holds a D-wide accumulator, so D is any
-//   width up to 1024 (a row group or lane past D idles).
+//   (finish_values). Up to D = 1024 a thread holds at most 8 d-rows' sums
+//   in registers (a row group or lane past D idles).
+// - Past D = 1024 (the wide tile, TPS = 8) the split's f32 accumulator
+//   lives in shared memory beside q: each thread reads, rescales and
+//   writes back its own d-rows in every stage (8-byte reads of 8 codes a
+//   row), so D is any width up to kMaxHeadDim, the widest at which one
+//   head's f32 q and accumulator (64 KB) and one stage fit the 227 KB a
+//   block may opt in to.
 // Code rows lie RS = TPS + 16 bytes apart in shared memory, so the eight
-// rows a quarter warp reads at one column hit distinct banks.
+// rows a quarter warp reads at one column hit distinct banks; the wide
+// tile's 8-byte rows lie back to back (a warp's reads of one column are
+// then consecutive words).
 
 #pragma once
 
@@ -39,8 +48,10 @@ namespace int8_tile {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-// the widest head a block takes: a thread sums at most 8 d-rows
-constexpr int kMaxHeadDim = 1024;
+// the widest head a block takes, and the widest whose value sums a thread
+// holds in registers (8 d-rows); past it the wide tile
+constexpr int kMaxHeadDim = 8192;
+constexpr int kRegisterHeadDim = 1024;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -111,7 +122,7 @@ __device__ __forceinline__ void widen(uint32_t u, float (&f)[4]) {
 // v_scale and, in K4, the mask).
 template <int TPS, int NV>
 struct Stage {
-  static constexpr int RS = TPS + 16;
+  static constexpr int RS = TPS >= 16 ? TPS + 16 : TPS;
   __host__ __device__ static constexpr int bytes(int D) {
     return 2 * D * RS + NV * TPS * 4;
   }
@@ -119,7 +130,10 @@ struct Stage {
 
 // the stage width (positions) for head width D
 __host__ __device__ constexpr int stage_positions(int D) {
-  return D <= 128 ? 128 : (D <= 256 ? 64 : (D <= 512 ? 32 : 16));
+  return D <= 128
+             ? 128
+             : (D <= 256 ? 64
+                         : (D <= 512 ? 32 : (D <= kRegisterHeadDim ? 16 : 8)));
 }
 
 // D rounded up to whole 16-byte groups of floats: q and the split's acc
@@ -134,13 +148,23 @@ __host__ __device__ constexpr int work_floats(int D, int TPS) {
 }
 
 // The block's running state over its stages: every thread holds the same
-// max and sum of p, and the value sums of its d-rows.
+// max and sum of p, and the value sums of its d-rows (in shared memory in
+// the wide tile, TPS = 8).
 template <int TPS>
 struct Running {
-  static constexpr int RPT = kThreads / TPS;  // d-rows a thread
+  static constexpr bool kWide = TPS < 16;
+  static constexpr int RPT = kWide ? 1 : kThreads / TPS;  // d-rows a thread
   float m = -INFINITY, l = 0.f;
   float acc[RPT] = {};
 };
+
+// the wide tile's accumulator starts at zero (each thread its own d-rows,
+// the ones it rescales and adds to in every stage)
+template <int TPS>
+__device__ __forceinline__ void start_values(float* sm_acc, int D) {
+  if constexpr (Running<TPS>::kWide)
+    for (int d = threadIdx.x; d < D; d += kThreads) sm_acc[d] = 0.f;
+}
 
 // The value pass's split of the d-rows: P lanes share a row (P = 128 / D
 // rounded down to a power of two where D <= 128, else 1).
@@ -158,8 +182,8 @@ __device__ __forceinline__ int lanes_a_row(int D) {
 template <int TPS, int NV, typename Score, typename Weight>
 __device__ __forceinline__ void attend_stage(
     const char* st, const float* sm_q, float* sm_part, float* sm_w,
-    float* sm_red, int D, int count, bool more, Running<TPS>& run,
-    Score score, Weight weight) {
+    float* sm_red, float* sm_acc, int D, int count, bool more,
+    Running<TPS>& run, Score score, Weight weight) {
   constexpr int RS = Stage<TPS, NV>::RS;
   constexpr int Q = TPS / 4;          // lanes of a row in the score pass
   constexpr int RG = kThreads / Q;    // row groups of the score pass
@@ -219,6 +243,21 @@ __device__ __forceinline__ void attend_stage(
   run.m = mx;
 
   // 3. values: acc = acc * alpha + sum over the part's positions of w v
+  if constexpr (Running<TPS>::kWide) {
+    // one lane a d-row, its 8 codes in one read, its sum in shared memory
+    for (int d = tid; d < D; d += kThreads) {
+      const uint2 u = *reinterpret_cast<const uint2*>(sv + d * RS);
+      float c[2][4];
+      widen(u.x, c[0]);
+      widen(u.y, c[1]);
+      float a = 0.f;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) a = fmaf(sm_w[t], c[t / 4][t % 4], a);
+      sm_acc[d] = fmaf(sm_acc[d], alpha, a);
+    }
+    __syncthreads();  // the stage's buffer and the weights are free
+    return;
+  }
   const int P = lanes_a_row(D);
   const int rows_per_pass = kThreads / P;
   const int part = tid % P;
@@ -256,6 +295,7 @@ __device__ __forceinline__ void attend_stage(
 template <int TPS>
 __device__ __forceinline__ void finish_values(const Running<TPS>& run,
                                               float* sm_acc, int D) {
+  if constexpr (Running<TPS>::kWide) return;  // sm_acc holds it already
   const int tid = threadIdx.x;
   const int P = lanes_a_row(D);
   const int rows_per_pass = kThreads / P;

@@ -38,7 +38,7 @@
 //   64, 128, 256 or 512 bytes (bf16 heads of 32-256, f32 of 16-128) the
 //   lane-group path: each position's row is LP lanes of 16 bytes, lane
 //   groups keep their own softmax state in registers and meet at the
-//   end. Every other width from 1 to 1024 takes the tile path, K3's tile
+//   end. Every other width from 1 to 8192 takes the tile path, K3's tile
 //   shape (int8_tile.cuh) transposed to this position-major layout; it
 //   reads ~10% slower than the lane-group path at D = 64 (PERF.md), so
 //   the narrow rows keep theirs. In the tile path a position's row sits in
@@ -53,7 +53,12 @@
 //   order. Values: each d-chunk is summed over the block's threads, P lanes
 //   a chunk (P = 128 / C, at most 32) each taking every P-th position, the
 //   stages meeting by the online-softmax rescale and the P lanes by shuffles
-//   at the end; no thread holds more than 8 of the split's D sums.
+//   at the end; no thread holds more than 8 of the split's D sums in
+//   registers. Past D = 1024 a thread's chunks of the split's sums live in
+//   shared memory beside q (read, rescaled and written back in every
+//   stage) and a stage may hold a single position, so D goes to 8192, the
+//   widest at which one head's f32 q and accumulator (64 KB) and a ring of
+//   two one-position stages fit the 227 KB a block may opt in to.
 // - Only visible positions count: a stage copies its visible positions
 //   only; in the tile path a position past them gets the score -inf and
 //   the weight 0 by selection and its row is never read (the lane groups
@@ -88,9 +93,16 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;            // positions per lane group per step
 constexpr int kStageRows = 16 * 1024;  // bytes of K rows (and of V) a stage
-constexpr int kMaxHeadDim = 1024;
-// the largest dynamic shared memory a block may ask for (the opt-in)
+// the widest head, and the widest whose value sums a thread holds in
+// registers (2 d-chunks); past it the split's accumulator lives in shared
+// memory
+constexpr int kMaxHeadDim = 8192;
+constexpr int kRegisterHeadDim = 1024;
+// the largest dynamic shared memory a block may ask for (the opt-in), and
+// past kRegisterHeadDim, where one head's f32 q and accumulator take up to
+// 64 KB beside stages of one position (D = 8192 f32: 193 KB)
 constexpr int kSmemCap = 96 * 1024;
+constexpr int kWideSmemCap = 220 * 1024;
 
 // 16 bytes of T in shared memory widened to f32
 __device__ __forceinline__ void load16(const float* p, float* f) {
@@ -360,16 +372,20 @@ int launch_lanes(const void* q, const void* k, const void* v,
 // ---- the tile path: every other width from 1 to 1024 ----
 
 // A row's shape in shared memory at head width D: C chunks of 16 bytes,
-// rows RS bytes apart (an odd number of chunks), TPS positions a stage.
+// rows RS bytes apart (an odd number of chunks), TPS positions a stage (as
+// many as keep its K rows within kStageRows, at least one: a stage of one
+// position past D = 4096 f32 or 8192 bf16), WS floats of weights (TPS
+// rounded up to whole 16 bytes, so the stages behind them stay aligned).
 template <typename TKV>
 struct Rows {
   static constexpr int VEC = 16 / (int)sizeof(TKV);  // elements a chunk
-  int C, RS, TPS;
+  int C, RS, TPS, WS;
   __host__ __device__ explicit Rows(int D) {
     C = (D + VEC - 1) / VEC;
     RS = (C | 1) * 16;
     TPS = 128;
-    while (TPS > 4 && TPS * C * 16 > kStageRows) TPS >>= 1;
+    while (TPS > 1 && TPS * C * 16 > kStageRows) TPS >>= 1;
+    WS = (TPS + 3) & ~3;
   }
   __host__ __device__ int stage_bytes() const { return 2 * TPS * RS; }
 };
@@ -480,7 +496,9 @@ __device__ __forceinline__ void load_stage(char* st, const TKV* k_pages,
 }
 
 // TQ: query type, TKV: pool type, CW: copy width, CPT: d-chunks a thread
-// holds in the value pass (2 only for f32 rows past 128 chunks)
+// holds in the value pass (2 only for f32 rows past 128 chunks; 0 past
+// kRegisterHeadDim: each thread's chunks of the accumulator live in sm_acc,
+// read, rescaled and written back in every stage)
 template <typename TQ, typename TKV, int CW, int CPT>
 __global__ void __launch_bounds__(kThreads)
 paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
@@ -497,8 +515,8 @@ paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
   float* sm_q = reinterpret_cast<float*>(smem4);  // Dp
   float* sm_acc = sm_q + Dp;                      // Dp
   float* sm_part = sm_acc + Dp;                   // kThreads
-  float* sm_w = sm_part + kThreads;               // TPS
-  char* stages = reinterpret_cast<char*>(sm_w + TPS);
+  float* sm_w = sm_part + kThreads;               // TPS (WS)
+  char* stages = reinterpret_cast<char*>(sm_w + rows.WS);
   const int sbytes = rows.stage_bytes();
   int* sm_pages = reinterpret_cast<int*>(stages + n_buf * sbytes);  // pps
   // the block max's and the block sum's scratch (one float a warp each;
@@ -538,6 +556,10 @@ paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
   const int item = s * H + h;
   for (int d = tid; d < Dp; d += kThreads)
     sm_q[d] = d < D ? to_f32(q[(size_t)item * D + d]) : 0.f;
+  if constexpr (CPT == 0)  // each thread zeroes the chunks it will sum
+    for (int d = tid * VEC; d < Dp; d += kThreads * VEC)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sm_acc[d + e] = 0.f;
 
   // the score pass: position t of row group rg
   const int RG = kThreads / TPS;
@@ -546,7 +568,7 @@ paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
   const int P = lanes_a_chunk(C);
   const int part = tid % P;
   float m = -INFINITY, l = 0.f;
-  float acc[CPT][VEC] = {};
+  float acc[CPT > 0 ? CPT : 1][VEC] = {};
 
   for (int j = 0; j < n_st; ++j) {
     const bool more = j + 1 < n_st;
@@ -616,6 +638,27 @@ paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     m = mx;
 
     // 3. values: acc = acc * alpha + sum over the lane's positions of w v
+    if constexpr (CPT == 0) {  // P == 1: a thread a chunk, in sm_acc
+      for (int c = tid; c < C; c += kThreads) {
+        float a[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) load16(sm_acc + c * VEC + e, a + e);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) a[e] *= alpha;
+        const TKV* col = sv + c * VEC;
+        for (int t = 0; t < count; ++t) {
+          float vf[VEC];
+          load16(col + t * (RS / (int)sizeof(TKV)), vf);
+          const float w = sm_w[t];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) a[e] = fmaf(w, vf[e], a[e]);
+        }
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4)
+          *reinterpret_cast<float4*>(sm_acc + c * VEC + e) =
+              make_float4(a[e], a[e + 1], a[e + 2], a[e + 3]);
+      }
+    }
 #pragma unroll
     for (int r = 0; r < CPT; ++r) {
       const int c = tid / P + r * (kThreads / P);
@@ -641,7 +684,7 @@ paged_attend_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
   }
 
   // the P lanes of a chunk meet (consecutive lanes, by shuffles), and the
-  // split's acc goes to sm_acc
+  // split's acc goes to sm_acc (where the wide path keeps it already)
 #pragma unroll
   for (int r = 0; r < CPT; ++r) {
     const int c = tid / P + r * (kThreads / P);
@@ -665,19 +708,20 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
            const void* len, void* out, void* ws, void* counters, int S,
            int H, int D, int PB, int ps, int pps, cudaStream_t stream) {
   auto kernel = paged_attend_kernel<TQ, TKV, CW, CPT>;
+  constexpr int cap = CPT == 0 ? kWideSmemCap : kSmemCap;
   static sm90::SmemOptIn opt_in;  // one per instantiation
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int refused = opt_in.ensure(kernel, kSmemCap, device);
+  const int refused = opt_in.ensure(kernel, cap, device);
   if (refused) return refused;
   const Rows<TKV> rows(D);
   const int span = pps * ps;
   const int n_buf = (span + rows.TPS - 1) / rows.TPS > 1 ? 2 : 1;
   const int Dp = rows.C * Rows<TKV>::VEC;
-  const size_t smem = (size_t)(2 * Dp + kThreads + rows.TPS) * 4 +
+  const size_t smem = (size_t)(2 * Dp + kThreads + rows.WS) * 4 +
                       (size_t)n_buf * rows.stage_bytes() + (size_t)pps * 4;
-  if (smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)cap) return (int)cudaErrorInvalidValue;
   const int splits = (PB + pps - 1) / pps;
   const float scale = (float)(1.0 / sqrt((double)D));
   kernel<<<dim3(H, splits, S), kThreads, smem, stream>>>(
@@ -691,7 +735,8 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
 
 // the lane-group path at head rows of 64-512 bytes; elsewhere the tile
 // path with the copy width for the row's bytes and the value pass's chunks
-// a thread (f32 rows past 512 elements take two)
+// a thread (f32 rows past 512 elements take two; past kRegisterHeadDim the
+// accumulator in shared memory)
 template <typename TQ, typename TKV>
 int launch_width(const void* q, const void* k, const void* v, const void* pt,
                  const void* len, void* out, void* ws, void* counters, int S,
@@ -711,6 +756,16 @@ int launch_width(const void* q, const void* k, const void* v, const void* pt,
     default: break;
   }
   const int cw = copy_width(row_bytes);
+  if (D > kRegisterHeadDim) {
+    switch (cw) {
+      case 16: VELES_TILE_LAUNCH(16, 0);
+      case 8: VELES_TILE_LAUNCH(8, 0);
+      case 4: VELES_TILE_LAUNCH(4, 0);
+      default:
+        if constexpr (sizeof(TKV) == 2) VELES_TILE_LAUNCH(2, 0);
+        return (int)cudaErrorInvalidValue;  // f32 rows are 4-byte aligned
+    }
+  }
   if constexpr (sizeof(TKV) == 4) {
     if (Rows<TKV>(D).C > kThreads) {  // D > 512
       switch (cw) {
@@ -740,7 +795,7 @@ int launch_width(const void* q, const void* k, const void* v, const void* pt,
 
 // q (S, H, D); k_pages / v_pages (P, ps, H, D); page_table (S, PB) int32;
 // lengths (S,) int32; out (S, H, D) float32; all contiguous, pools 16-byte
-// aligned. Types: 0 = float32, 1 = bfloat16. 1 <= D <= 1024. The plan:
+// aligned. Types: 0 = float32, 1 = bfloat16. 1 <= D <= 8192. The plan:
 // splits of `pps` pages, at most split_softmax::kMaxSplits of them; with
 // more than one, ws holds S * H * splits * (D + 2) floats and counters
 // S * H zeroed ints (left zeroed). Launches on `stream` and returns the

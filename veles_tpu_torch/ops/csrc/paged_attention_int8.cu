@@ -33,7 +33,8 @@
 //   grid did); a block whose split starts past them exits at once.
 // - A block reads the slot's length and its split's page ids in one round
 //   trip, then stages its positions in stages of TPS positions (128 at
-//   D <= 128, fewer at wider heads, whole pages or parts of one): the K
+//   D <= 128, fewer at wider heads, 8 past D = 1024, whole pages or parts
+//   of one; past D = 1024 one buffer where two stages do not fit): the K
 //   codes with the K and V scales in one cp.async group, the V codes in a
 //   second, all issued as the block starts, so the scores start while the V
 //   codes land; a split of several stages runs a two-stage ring. Code
@@ -70,8 +71,11 @@ using namespace int8_tile;
 
 constexpr int kVectors = 2;  // k_scale and v_scale a stage
 // the largest dynamic shared memory a block may ask for (the opt-in,
-// below the H100's 227 KB less the static shared memory)
+// below the H100's 227 KB less the static shared memory); past D = 1024
+// the wide tile (8 positions a stage) takes one stage where two do not
+// fit (D = 8192: 194 KB)
 constexpr int kSmemCap = 192 * 1024;
+constexpr int kWideSmemCap = 220 * 1024;
 
 // The copies of the `count` visible positions of the stage whose first
 // position is the split's `first` (split-local; the stage's positions lie
@@ -159,19 +163,24 @@ paged_attend_int8_kernel(const TQ* __restrict__ q,
   const int n_st = (n_pos + TPS - 1) / TPS;
   __syncthreads();  // the page ids are in shared memory
 
-  // every stage's bytes are requested before any arithmetic
+  // the first stages' bytes are requested before any arithmetic (every
+  // stage's, in a ring of two; with one buffer each stage's as the last
+  // one's values are done)
+  const bool ring = n_buf > 1;
   load_stage<TPS, CV>(stages, k_q, k_scale, v_q, v_scale, sm_pages, 0,
                       min(TPS, n_pos), D, H, h, ps);
-  if (n_st > 1)
+  if (ring && n_st > 1)
     load_stage<TPS, CV>(stages + sbytes, k_q, k_scale, v_q, v_scale,
                         sm_pages, TPS, min(TPS, n_pos - TPS), D, H, h, ps);
   const int item = s * H + h;
   for (int d = tid; d < D; d += kThreads)
     sm_q[d] = to_f32(q[(size_t)item * D + d]);
+  start_values<TPS>(sm_acc, D);
 
   Running<TPS> run;
   for (int j = 0; j < n_st; ++j) {
     const int count = min(TPS, n_pos - j * TPS);
+    char* st = stages + (ring ? (j & 1) * sbytes : 0);
     // s = dot * k_scale and w = p * v_scale for a visible position; -inf
     // and 0 for the others, selected, whatever their scales hold
     const auto score = [count](const float* vec, int t, float dot) {
@@ -180,13 +189,14 @@ paged_attend_int8_kernel(const TQ* __restrict__ q,
     const auto weight = [count](const float* vec, int t, float p) {
       return t < count ? p * vec[TPS + t] : 0.f;
     };
-    attend_stage<TPS, kVectors>(stages + (j & 1) * sbytes, sm_q, sm_part,
-                                sm_w, sm_red, D, count, j + 1 < n_st, run,
-                                score, weight);
-    if (j + 2 < n_st)
-      load_stage<TPS, CV>(stages + (j & 1) * sbytes, k_q, k_scale, v_q,
-                          v_scale, sm_pages, (j + 2) * TPS,
-                          min(TPS, n_pos - (j + 2) * TPS), D, H, h, ps);
+    attend_stage<TPS, kVectors>(st, sm_q, sm_part, sm_w, sm_red, sm_acc, D,
+                                count, ring && j + 1 < n_st, run, score,
+                                weight);
+    const int next = j + (ring ? 2 : 1);
+    if (next < n_st)
+      load_stage<TPS, CV>(st, k_q, k_scale, v_q, v_scale, sm_pages,
+                          next * TPS, min(TPS, n_pos - next * TPS), D, H, h,
+                          ps);
   }
   finish_values(run, sm_acc, D);
   split_softmax::finish<kThreads>(
@@ -200,18 +210,24 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq,
            void* ws, void* counters, int S, int H, int D, int PB, int ps,
            int pps, cudaStream_t stream) {
   auto kernel = paged_attend_int8_kernel<TQ, TPS, CV>;
+  constexpr int cap = Running<TPS>::kWide ? kWideSmemCap : kSmemCap;
   static sm90::SmemOptIn opt_in;  // one per instantiation
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int refused = opt_in.ensure(kernel, kSmemCap, device);
+  const int refused = opt_in.ensure(kernel, cap, device);
   if (refused) return refused;
   const int splits = (PB + pps - 1) / pps;
-  const int n_buf = (pps * ps + TPS - 1) / TPS > 1 ? 2 : 1;
-  const size_t smem = (size_t)work_floats(D, TPS) * sizeof(float) +
-                      (size_t)n_buf * Stage<TPS, kVectors>::bytes(D) +
-                      (size_t)pps * sizeof(int);
-  if (smem > (size_t)kSmemCap) return (int)cudaErrorInvalidValue;
+  const size_t fixed = (size_t)work_floats(D, TPS) * sizeof(float) +
+                       (size_t)pps * sizeof(int);
+  const size_t sbytes = Stage<TPS, kVectors>::bytes(D);
+  // a ring of two stages where a split has several and two fit
+  const int n_buf = (pps * ps + TPS - 1) / TPS > 1 &&
+                            fixed + 2 * sbytes <= (size_t)cap
+                        ? 2
+                        : 1;
+  const size_t smem = fixed + (size_t)n_buf * sbytes;
+  if (smem > (size_t)cap) return (int)cudaErrorInvalidValue;
   kernel<<<dim3(H, splits, S), kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const int8_t*>(kq),
       static_cast<const float*>(ks), static_cast<const int8_t*>(vq),
@@ -240,8 +256,10 @@ int launch_width(const void* q, const void* kq, const void* ks,
       return c16 ? VELES_INT8_LAUNCH(64, 16) : VELES_INT8_LAUNCH(64, 4);
     case 32:
       return c16 ? VELES_INT8_LAUNCH(32, 16) : VELES_INT8_LAUNCH(32, 4);
-    default:
+    case 16:
       return c16 ? VELES_INT8_LAUNCH(16, 16) : VELES_INT8_LAUNCH(16, 4);
+    default:  // the wide tile: 8 positions, 8-byte copies where ps % 8 == 0
+      return ps % 8 == 0 ? VELES_INT8_LAUNCH(8, 8) : VELES_INT8_LAUNCH(8, 4);
   }
 #undef VELES_INT8_LAUNCH
 }
@@ -251,7 +269,7 @@ int launch_width(const void* q, const void* kq, const void* ks,
 // q (S, H, D) pre-scaled by 1/sqrt(D); k_q / v_q (P, H, D, ps) int8;
 // k_scale / v_scale (P, H, ps) float32; page_table (S, PB) int32; lengths
 // (S,) int32; out (S, H, D) float32; all contiguous, pools 16-byte aligned.
-// q type: 0 = float32, 1 = bfloat16. 1 <= D <= 1024; ps a multiple of 4.
+// q type: 0 = float32, 1 = bfloat16. 1 <= D <= 8192; ps a multiple of 4.
 // The plan: splits of `pps` pages, at most split_softmax::kMaxSplits of
 // them; with more than one, ws holds
 // S * H * splits * (D + 2) floats and counters S * H zeroed ints (left

@@ -12,7 +12,8 @@ output is f32, whatever the query and pool types.
 On a CUDA tensor the hand-written kernel (``csrc/paged_attention.cu``,
 ``csrc/paged_attention_int8.cu``) runs, at every head width from 1 to
 :data:`MAX_HEAD_DIM`, as the JAX package's paged kernels take the whole
-head row whatever its width; on a CPU tensor the plain version, a
+head row whatever its width (past :data:`MAX_HEAD_DIM` a ValueError names
+the limit); on a CPU tensor the plain version, a
 page-table gather followed by a masked softmax, computes the same
 function.
 """
@@ -27,9 +28,13 @@ from veles_tpu_torch.ops._workspace import sm_count, split_workspace
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: the widest head K1 and K3 take (every width from 1 up to it; K4's
-#: limit, ``csrc/int8_tile.cuh``)
-MAX_HEAD_DIM = 1024
+#: the widest head K1, K3 and K4 take (every width from 1 up to it; K4's
+#: widths are multiples of 32): past 1024 the kernels keep the split's f32
+#: accumulator in shared memory beside the f32 query, and at 8192 the two
+#: (64 KB) and the stages of the smallest tile fill the 227 KB of shared
+#: memory a block may opt in to (``csrc/paged_attention.cu``,
+#: ``csrc/int8_tile.cuh``)
+MAX_HEAD_DIM = 8192
 
 #: K1's (and K3's) plan: the positions a split holds at least (whole
 #: pages) where the grid still fills the card, the blocks an SM it aims
@@ -132,8 +137,8 @@ def paged_attend(q, k_pages, v_pages, page_table, lengths, *, page_size):
     On CUDA tensors the kernel runs (and :attr:`paged_attend.launches`
     counts it); the operands must be contiguous, D at most
     :data:`MAX_HEAD_DIM` and page ids valid; wider heads raise
-    ValueError. It cuts the table's positions into splits of whole pages
-    over the card (:func:`_paged_plan`) and merges each slot's live
+    ValueError naming the limit. It cuts the table's positions into splits
+    of whole pages over the card (:func:`_paged_plan`) and merges each slot's live
     splits in the same launch, in split order: two calls on the same
     inputs give bit-equal outputs. On CPU tensors the plain version
     runs."""
@@ -152,8 +157,11 @@ def paged_attend(q, k_pages, v_pages, page_table, lengths, *, page_size):
                          "pools")
     slots, heads, head_dim = q.shape
     if head_dim > MAX_HEAD_DIM:
-        raise ValueError("paged_attend's kernel takes head_dim up to %d, "
-                         "got %d" % (MAX_HEAD_DIM, head_dim))
+        raise ValueError(
+            "paged_attend's kernel takes head_dim up to MAX_HEAD_DIM = %d "
+            "(one head's f32 query and accumulator and its stages fill "
+            "the card's 227 KB of shared memory a block), got %d"
+            % (MAX_HEAD_DIM, head_dim))
     device = q.device
     pb = page_table.shape[1]
     pages, _, elements = _paged_plan(slots, heads, head_dim, pb, page_size,
@@ -291,8 +299,10 @@ def paged_attend_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
     slots, heads, head_dim = q.shape
     if head_dim > MAX_HEAD_DIM or page_size % 4:
         raise ValueError(
-            "paged_attend_int8's kernel takes head_dim up to %d and a page "
-            "size that is a multiple of 4, got %d and %d"
+            "paged_attend_int8's kernel takes head_dim up to MAX_HEAD_DIM = "
+            "%d (one head's f32 query and accumulator and its stages fill "
+            "the card's 227 KB of shared memory a block) and a page size "
+            "that is a multiple of 4, got %d and %d"
             % (MAX_HEAD_DIM, head_dim, page_size))
     if any(t.data_ptr() % 16 for t in (k_q, v_q, k_scale, v_scale)):
         raise ValueError("paged_attend_int8's kernel wants 16-byte "

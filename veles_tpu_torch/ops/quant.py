@@ -27,6 +27,7 @@ import torch
 
 from veles_tpu_torch.ops import _build
 from veles_tpu_torch.ops._workspace import sm_count, split_workspace
+from veles_tpu_torch.ops.paged_attention import MAX_HEAD_DIM
 
 #: the kernel runs for products of at most this many rows of x (the
 #: decode regime); above it the plain dequantized product runs
@@ -275,6 +276,12 @@ def _launch_cache_attend(q, k_q, k_scale, v_q, v_scale, mask_addend):
     t = k_q.shape[-1]
     mask = mask_addend.reshape(-1, t) if mask_addend.dim() == 1 \
         else mask_addend
+    if head_dim > MAX_HEAD_DIM:
+        raise ValueError(
+            "int8_cache_attend's kernel takes head_dim up to MAX_HEAD_DIM = "
+            "%d (one head's f32 query and accumulator and its stage fill "
+            "the card's 227 KB of shared memory a block), got %d"
+            % (MAX_HEAD_DIM, head_dim))
     if not q.is_contiguous():
         raise ValueError("int8_cache_attend's kernel wants a contiguous q")
 

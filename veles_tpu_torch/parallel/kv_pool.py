@@ -24,9 +24,13 @@ are shared, and a slot's appends land past its prompt, so a shared page
 is never written. The int8-KV tier reuses exact prompts only: its pool
 holds rounded K/V while a prefill attends exact values, so a tail
 prefilled against rounded prefix pages would not match a cold prefill.
-The breaker-rebuild shadows (``capture_shadows``, ``restore_entries``,
-``_paged_restore``), and with them a prefix cache handed from one pool to
-the next, the mesh functions and AOT are later slices.
+The prefix cache outlives its pool (``:597-617``, ``:923-1044``,
+``:479-490``): when the serving breaker rebuilds a decoder,
+:meth:`PagePool.capture_shadows` copies every cached page's payload to
+the host from the dying decoder's state, and the fresh pool built with
+``cache=`` adopts the entries by page copy (:meth:`PagePool.
+restore_entries`, :func:`_paged_restore`), never by a new prefill. The
+mesh functions and AOT are later slices.
 """
 
 import collections
@@ -293,11 +297,16 @@ class PrefixCache:
     """LRU cache of page-granular token prefixes: each entry holds the
     prefix tokens, its page ids (one pool ref per page) and, at an
     admission's exact-prompt boundary, a copy of the prefill's
-    last-position logits; at most :data:`PREFIX_CACHE_ENTRIES` entries.
-    Counters are cumulative."""
+    last-position logits; at most ``max_entries`` entries. It lives
+    outside the device state, so a breaker rebuild carries it to the
+    next pool: ``page_shadow`` holds host copies of cached pages'
+    payloads for the restore. Counters are cumulative across
+    rebuilds."""
 
-    def __init__(self):
+    def __init__(self, max_entries=PREFIX_CACHE_ENTRIES):
+        self.max_entries = int(max_entries)
         self.entries = collections.OrderedDict()   # key -> entry
+        self.page_shadow = {}                      # page id -> {leaf: t}
         self.counters = {"hits": 0, "misses": 0, "evictions": 0}
 
     def __len__(self):
@@ -315,7 +324,7 @@ class PagePool:
     returns to the free list when its count reaches zero, and cache
     entries are evicted LRU-first when an allocation runs short."""
 
-    def __init__(self, pages, page_size):
+    def __init__(self, pages, page_size, cache=None):
         if pages < 2:
             raise ValueError("pool needs >= 2 pages (page 0 is "
                              "scratch), got %d" % pages)
@@ -331,7 +340,9 @@ class PagePool:
         #: (monotonic stamp, pages freed): the observed release rate
         #: that prices Retry-After
         self._freed_events = collections.deque(maxlen=512)
-        self.cache = PrefixCache()
+        #: a previous pool's cache (its entries name that pool's pages
+        #: until :meth:`restore_entries` re-maps them), or a fresh one
+        self.cache = cache if cache is not None else PrefixCache()
 
     @property
     def capacity(self):
@@ -398,6 +409,7 @@ class PagePool:
                 if refs <= 1:
                     del self._refs[page]
                     self._free.append(page)
+                    self.cache.page_shadow.pop(page, None)
                     freed += 1
                 else:
                     self._refs[page] = refs - 1
@@ -424,7 +436,14 @@ class PagePool:
         with self._lock:
             while self._evict_lru():
                 dropped += 1
+            self.cache.page_shadow.clear()
         return dropped
+
+    def shadow_bytes(self):
+        """Host bytes the cache's page shadows hold."""
+        return sum(t.numel() * t.element_size()
+                   for leaves in list(self.cache.page_shadow.values())
+                   for t in list(leaves.values()))
 
     def try_reserve(self, n):
         """Reserve worst-case page demand for one admission: the sum of
@@ -539,8 +558,129 @@ class PagePool:
                     "length": shared,
                     "logits": boundary_logits,
                 }
-            while len(self.cache.entries) > PREFIX_CACHE_ENTRIES:
+            while len(self.cache.entries) > self.cache.max_entries:
                 self._evict_lru()
+
+    def capture_shadows(self, state):
+        """Copy every cached page that has no shadow yet to the host, from
+        ``state`` (the dying decoder's, on a breaker trip): cached pages
+        are read-only (appends land past a prompt, a divergence takes
+        fresh pages), so the bytes at the trip are the bytes published.
+        The copy runs outside the lock (entry refs pin the pages); a page
+        evicted meanwhile is not shadowed, since it may already hold
+        another prefix."""
+        with self._lock:
+            named = {page for entry in self.cache.entries.values()
+                     for page in entry["pages"]}
+            missing = sorted(page for page in named
+                             if page not in self.cache.page_shadow)
+        shadows = _shadow_pages(state, missing)
+        with self._lock:
+            still = {page for entry in self.cache.entries.values()
+                     for page in entry["pages"]}
+            for page, shadow in shadows.items():
+                if page in still:
+                    self.cache.page_shadow.setdefault(page, shadow)
+
+    def restore_entries(self, state, restore_fn):
+        """Adopt a previous pool's prefix cache into THIS (fresh) pool:
+        allocate new pages for the union of the cached pages, copy the
+        shadowed payloads into them with ``restore_fn(state, page_ids,
+        values) -> state`` and re-point every entry. Entries naming a
+        page without a shadow, and the oldest entries where the fresh
+        pool is smaller, are dropped and counted as evictions. Returns
+        the updated state."""
+        cache = self.cache
+        with self._lock:
+            old_pages = []
+            for entry in cache.entries.values():
+                for page in entry["pages"]:
+                    if page not in old_pages:
+                        old_pages.append(page)
+            old_pages = [p for p in old_pages if p in cache.page_shadow]
+            for key in [k for k, e in cache.entries.items()
+                        if any(p not in cache.page_shadow
+                               for p in e["pages"])]:
+                del cache.entries[key]
+                cache.counters["evictions"] += 1
+            shadow = dict(cache.page_shadow)
+            cache.page_shadow = {}
+            # sized against the free list: the entries name the OLD
+            # pool's pages, so evicting them frees nothing here
+            while old_pages and len(self._free) < len(old_pages):
+                cache.entries.popitem(last=False)
+                cache.counters["evictions"] += 1
+                still = set()
+                for entry in cache.entries.values():
+                    still.update(entry["pages"])
+                old_pages = [p for p in old_pages if p in still]
+            if not old_pages:
+                cache.entries.clear()
+                return state
+            new_ids = self.alloc(len(old_pages))
+            mapping = dict(zip(old_pages, new_ids))
+            for old, new in mapping.items():
+                cache.page_shadow[new] = shadow[old]
+            # alloc gave each page one ref: add the other entries' refs
+            counts = {}
+            for entry in cache.entries.values():
+                entry["pages"] = [mapping[p] for p in entry["pages"]]
+                for page in entry["pages"]:
+                    counts[page] = counts.get(page, 0) + 1
+            for page, count in counts.items():
+                if count > 1:
+                    self.retain([page] * (count - 1))
+            # shadowed pages no entry names any more (their entries were
+            # dropped for another unshadowed page) go back unrestored
+            orphan = [p for p in new_ids if p not in counts]
+            if orphan:
+                self.release(orphan)
+                for page in orphan:
+                    cache.page_shadow.pop(page, None)
+                new_ids = [p for p in new_ids if p in counts]
+        values = _stack_shadow(cache.page_shadow, new_ids)
+        if values:
+            state = restore_fn(state, new_ids, values)
+        return state
+
+
+def _shadow_pages(state, pages):
+    """Host copies of ``pages``' payloads across every pool leaf, one
+    gather and one device-to-host copy a leaf: ``{page: {leaf: (L,
+    ...page shape)}}``. They survive the decoder; the restore copies them
+    into a fresh pool."""
+    if not pages:
+        return {}
+    idx = torch.tensor(pages, dtype=torch.long, device=state["k"].device)
+    stacked = {name: state[name].index_select(1, idx).cpu()
+               for name in PAGED_KV_LEAVES if name in state}
+    return {page: {name: val[:, i].clone()
+                   for name, val in stacked.items()}
+            for i, page in enumerate(pages)}
+
+
+def _stack_shadow(page_shadow, page_ids):
+    """Per-page shadows stacked into one (L, NP, ...) host tensor per
+    leaf for the restore."""
+    if not page_ids:
+        return {}
+    leaves = page_shadow[page_ids[0]].keys()
+    return {name: torch.stack([page_shadow[p][name] for p in page_ids],
+                              dim=1)
+            for name in leaves}
+
+
+def _paged_restore(state, page_ids, values):
+    """The rebuild's restore: copy the preserved payloads ``values``
+    (one (L, NP, ...) host tensor per pool leaf) into the FRESH pool at
+    the pages ``page_ids`` (NP,), in place, with ``index_copy_`` over the
+    page axis of every leaf (``k``, ``v`` and, in the int8-KV pool,
+    ``k_scale`` and ``v_scale``). Returns ``state``."""
+    idx = torch.tensor(page_ids, dtype=torch.long, device=state["k"].device)
+    for name, val in values.items():
+        state[name].index_copy_(1, idx, val.to(device=state[name].device,
+                                               dtype=state[name].dtype))
+    return state
 
 
 def pages_for(positions, page_size):
