@@ -124,7 +124,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    1/8 on 67 x 67 x 3 pixels and of the digits_conv stack (maxabs
    pooling, shift1 augmentation) on 8 x 8 x 1 pixels: equal index
    streams and augmentation seeds, per-minibatch n_err within 2, every
-   leaf within 1e-3 of its largest element.
+   leaf within 1e-3 of its largest element;
+14. (run after phase 8) graph mode and the lower fusion tiers: the
+   reference MNIST784 on the bench data in graph mode, the segment tier
+   (a host unit spliced between the forwards), the sweep tier (the same
+   unit sweep-transparent) and the fused tick, 2 epochs each: images/s,
+   unit firings and composite calls per epoch, the tier asserted; the wide
+   MLP in graph mode with the knobs on (K5 three times a train minibatch
+   and once an eval one, counted) and off, 2 epochs; one epoch at level 2
+   of graph mode on the card against the fused tick on the card and
+   against graph mode on the CPU (equal index streams, n_err within 2,
+   every leaf within 1e-4 of its largest element);
+15. (run after phase 12) the long-context stack of phase 10 in graph mode,
+   1 epoch: tokens/s, K7 per block on every minibatch and again on every
+   train one (GDSelfAttention's autograd recomputes the forward), K8 and
+   K9 per block per train minibatch; one block at 4096 positions in graph
+   mode against the fused tick on the card (phase 12's limits); then the
+   Kohonen SOM (an (8, 8) grid, minibatch 256, the bench's 60000 x 784
+   pixels, 2 epochs): steps/s and the quantization error per epoch, which
+   must fall, and one epoch on the card against the CPU (equal winners at
+   every step, weights within 1e-4 of the largest).
+
+Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
+8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
+bound.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -149,9 +172,12 @@ import torch
 from veles_tpu_torch.convert import unit_params_from_jax
 from veles_tpu_torch.core import prng
 from veles_tpu_torch.core.config import root
+from veles_tpu_torch.core.units import Unit
 from veles_tpu_torch.dummy import DummyLauncher
 from veles_tpu_torch.loader.base import TRAIN, VALID
 from veles_tpu_torch.models.alexnet import AlexNetWorkflow
+from veles_tpu_torch.models.kohonen import KohonenWorkflow
+from veles_tpu_torch.nn.kohonen import grid_coords, som_step
 from veles_tpu_torch.models.mlp import MLPWorkflow
 from veles_tpu_torch.models.standard import StandardWorkflow
 from veles_tpu_torch.ops import _build
@@ -179,6 +205,8 @@ from veles_tpu_torch.parallel.decode import (_quantize_kv, generate,
                                              quantize_params, request_key,
                                              slot_state_bytes)
 from veles_tpu_torch.parallel.kv_pool import paged_kv_bytes
+from veles_tpu_torch.parallel.segments import FusedSegment
+from veles_tpu_torch.parallel.sweep import FusedSweep
 from veles_tpu_torch.parallel.transformer_step import (
     init_transformer_params)
 from veles_tpu_torch.serving import ContinuousDecoder, GenerateAPI
@@ -212,6 +240,13 @@ C4_HEADS = 4
 C5_WIDTHS = (1025, 1536, 2048, 4096)
 C5_K4_WIDTHS = (1056, 1536, 2048, 4096)
 C5_TIMED = 2048
+#: C6: head widths past 8192 the JAX package's attends serve, on the wide
+#: path (q, K and V read from global memory, the split's sums in its
+#: workspace row; K4's a multiple of 32), held in C4_HEADS heads in both
+#: pools and query types; C6_TIMED is timed beside its byte bound
+C6_WIDTHS = (8200, 12288, 16384)
+C6_K4_WIDTHS = (8224, 12288, 16384)
+C6_TIMED = 16384
 #: the paged serving run in heads of 48: the serving model's depth and
 #: vocabulary at embed 768 = 16 x 48, f32 weights, 8 requests x 16 tokens
 NARROW_EMBED, NARROW_HEADS, NARROW_TOKENS = 768, 16, 16
@@ -406,6 +441,42 @@ DIGITS_CONV_LAYERS = [
     {"type": "softmax", "output_sample_shape": (10,)}]
 DIGITS_CLASS_LENGTHS = [0, 297, 1500]
 CONV_N_ERR_TOL, CONV_LEAF_RTOL = 2, 1e-3
+#: the fusion tiers (bench.py:150-230): the reference MNIST784 on the
+#: bench data in graph mode, the segment tier (a host unit spliced between
+#: the two forwards), the sweep tier (the same unit declared
+#: sweep_transparent) and the fused tick, 2 epochs each
+TIER_EPOCHS = 2
+#: the wide MLP in graph mode (level 0, 2 epochs, knobs on and off): K5
+#: runs the hidden layer's forward (4096 x 784 x 4096) on every minibatch
+#: and its weight gradient (784 x 4096 x 4096) and error product (4096 x
+#: 4096 x 784) on every train minibatch; the 10-wide head is no kernel's
+GRAPH_EPOCHS = 2
+#: the graph agreement: one epoch at level 2 of the wide MLP (the training
+#: agreement's data), graph mode on the card against the fused tick on the
+#: card and against graph mode on the CPU: equal index streams, n_err
+#: within AGREE_N_ERR_TOL, every leaf within this share of its largest
+#: element (the fused tick runs dense_layer/addmm and graph mode matmul:
+#: the sums round in other orders)
+GRAPH_LEAF_RTOL = 1e-4
+#: the long-context stack in graph mode: 1 epoch (its K7 runs twice a
+#: train minibatch a block: the forward unit's and the one GDSelfAttention
+#: recomputes under autograd)
+LONG_GRAPH_EPOCHS = 1
+#: the Kohonen SOM: samples/som_digits.py's defaults (an (8, 8) grid,
+#: minibatch 256) over the bench's 60000 x 784 pixels (uniform in [0, 1)),
+#: 2 epochs. The card-CPU agreement runs one epoch in f32, each step of the
+#: CPU from the card's weights before that step and its minibatch. On
+#: uniform pixels every sample is nearly equidistant from the neurons: the
+#: squared distances are ~100-260 and a sample's two nearest differ by as
+#: little as 1.5e-5 (float64, measured on the CPU), below the f32
+#: resolution of ||x||^2 - 2 x.w + ||w||^2 (~4e-4 over 784 terms), so a
+#: winner may flip between two summation orders. Every winner whose
+#: float64 top-2 gap exceeds SOM_TIE_GAP must be equal, and each step
+#: whose winners all are equal must give new weights within
+#: SOM_WEIGHT_RTOL of the largest
+SOM_SHAPE, SOM_MINIBATCH, SOM_EPOCHS = (8, 8), 256, 2
+SOM_TIE_GAP = 2e-3
+SOM_WEIGHT_RTOL = 1e-4
 
 
 def card_line():
@@ -519,12 +590,12 @@ def dtype_name(dtype):
 
 
 def k1_widths(device, gen):
-    """C4 and C5: K1 at every width of C4_WIDTHS and C5_WIDTHS, f32 and
-    bf16 pools and queries, against its plain version and twice bit for
-    bit; returns the largest error."""
+    """C4, C5 and C6: K1 at every width of C4_WIDTHS, C5_WIDTHS and
+    C6_WIDTHS, f32 and bf16 pools and queries, against its plain version
+    and twice bit for bit; returns the largest error."""
     t0 = time.perf_counter()
     err = 0.0
-    for head_dim in C4_WIDTHS + C5_WIDTHS:
+    for head_dim in C4_WIDTHS + C5_WIDTHS + C6_WIDTHS:
         for kv_dtype in (torch.float32, torch.bfloat16):
             for q_dtype in (torch.float32, torch.bfloat16):
                 args = k1_problem(device, gen, heads=C4_HEADS,
@@ -533,24 +604,34 @@ def k1_widths(device, gen):
                 err = max(err, k1_check(args, ", D = %d, q %s, pool %s"
                                         % (head_dim, dtype_name(q_dtype),
                                            dtype_name(kv_dtype))))
-    print("K1 C4 and C5 widths %s: %d calls checked in %.1f s, "
-          "max_abs_err %.3g" % (list(C4_WIDTHS + C5_WIDTHS),
-                                4 * len(C4_WIDTHS + C5_WIDTHS),
+    widths = C4_WIDTHS + C5_WIDTHS + C6_WIDTHS
+    print("K1 C4, C5 and C6 widths %s: %d calls checked in %.1f s, "
+          "max_abs_err %.3g" % (list(widths), 4 * len(widths),
                                 time.perf_counter() - t0, err))
     return err
 
 
-def wide_time(timer, label, fn, name, nbytes):
-    """C5: a kernel at D = C5_TIMED in C4_HEADS heads (the burst's
-    lengths): the event timer and the kernel alone beside the byte
-    bound (each live byte read once, the output written once)."""
+def wide_time(timer, label, fn, name, nbytes, head_dim=C5_TIMED,
+              tag="C5"):
+    """C5 (C6): a kernel at D = C5_TIMED (C6_TIMED) in C4_HEADS heads (the
+    burst's lengths): the event timer and the kernel alone beside the
+    byte bound (each live byte read once, the output written once)."""
     ms = timer(fn)
     alone = timer.kernel_ms(fn, name)
     bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    print("%s at D = %d (C5, %d heads, bf16 q): ms %.4f, alone %.4f, "
-          "bound_ms %.4f (bytes, %d)" % (label, C5_TIMED, C4_HEADS, ms,
+    print("%s at D = %d (%s, %d heads, bf16 q): ms %.4f, alone %.4f, "
+          "bound_ms %.4f (bytes, %d)" % (label, head_dim, tag, C4_HEADS, ms,
                                         alone, bound_ms, nbytes))
     return {"ms": ms, "kernel_ms": alone, "bound_ms": bound_ms}
+
+
+def k1_wide_time(timer, device, gen, head_dim, tag):
+    """K1 at ``head_dim`` in C4_HEADS heads, bf16 pool and q, timed."""
+    wide = k1_problem(device, gen, heads=C4_HEADS, head_dim=head_dim)
+    live = live_positions(wide[4], wide[3].shape[1])
+    return wide_time(timer, "K1", lambda: paged_attend(*wide, page_size=PAGE),
+                     "paged_attend", 2 * live * C4_HEADS * head_dim * 2
+                     + SLOTS * C4_HEADS * head_dim * (2 + 4), head_dim, tag)
 
 
 def live_positions(lengths, pb):
@@ -578,12 +659,8 @@ def k1_phase(timer, device, gen):
     narrow_times(timer, "K1", lambda: paged_attend(*narrow, page_size=PAGE),
                  lambda: _paged_attend_plain(*narrow, PAGE),
                  "paged_attend_kernel")
-    wide = k1_problem(device, gen, heads=C4_HEADS, head_dim=C5_TIMED)
-    live = live_positions(wide[4], wide[3].shape[1])
-    c5 = wide_time(timer, "K1", lambda: paged_attend(*wide, page_size=PAGE),
-                   "paged_attend_kernel",
-                   2 * live * C4_HEADS * C5_TIMED * 2
-                   + SLOTS * C4_HEADS * C5_TIMED * (2 + 4))
+    c5 = k1_wide_time(timer, device, gen, C5_TIMED, "C5")
+    c6 = k1_wide_time(timer, device, gen, C6_TIMED, "C6")
     # the library yardstick: SDPA over K/V already gathered contiguous
     # (the gather itself is not timed), with the same visibility mask
     span = table.shape[1] * PAGE
@@ -627,7 +704,8 @@ def k1_phase(timer, device, gen):
             "library_ms": library_ms, "lopsided_ms": lopsided_ms,
             "kernel_ms": kernel_ms[0], "lopsided_kernel_ms": kernel_ms[1],
             "c5_ms": c5["ms"], "c5_kernel_ms": c5["kernel_ms"],
-            "c5_bound_ms": c5["bound_ms"],
+            "c5_bound_ms": c5["bound_ms"], "c6_ms": c6["ms"],
+            "c6_kernel_ms": c6["kernel_ms"], "c6_bound_ms": c6["bound_ms"],
             "library": "scaled_dot_product_attention on the gathered pages"}
 
 
@@ -683,23 +761,26 @@ def k3_phase(timer, device, gen):
     err = max(err, k3_check("q bfloat16, D = 256", k3_problem(
         device, gen, torch.bfloat16, heads=EMBED // 256)))
     t0 = time.perf_counter()
-    for head_dim in C4_WIDTHS + C5_WIDTHS:     # C4 and C5
+    widths = C4_WIDTHS + C5_WIDTHS + C6_WIDTHS
+    for head_dim in widths:     # C4, C5 and C6
         for q_dtype in (torch.float32, torch.bfloat16):
             err = max(err, k3_check(
                 "q %s, D = %d" % (dtype_name(q_dtype), head_dim),
                 k3_problem(device, gen, q_dtype, heads=C4_HEADS,
                            head_dim=head_dim)))
-    print("K3 C4 and C5 widths %s: %d calls checked in %.1f s"
-          % (list(C4_WIDTHS + C5_WIDTHS), 2 * len(C4_WIDTHS + C5_WIDTHS),
-             time.perf_counter() - t0))
-    wide = k3_problem(device, gen, torch.bfloat16, heads=C4_HEADS,
-                      head_dim=C5_TIMED)
-    live = live_positions(wide[6], wide[5].shape[1])
-    c5 = wide_time(timer, "K3",
-                   lambda: paged_attend_int8(*wide, page_size=PAGE),
-                   "paged_attend_int8_kernel",
-                   2 * live * C4_HEADS * (C5_TIMED + 4)
-                   + SLOTS * C4_HEADS * C5_TIMED * (2 + 4))
+    print("K3 C4, C5 and C6 widths %s: %d calls checked in %.1f s"
+          % (list(widths), 2 * len(widths), time.perf_counter() - t0))
+    c5, c6 = [], []
+    for head_dim, out in ((C5_TIMED, c5), (C6_TIMED, c6)):
+        wide = k3_problem(device, gen, torch.bfloat16, heads=C4_HEADS,
+                          head_dim=head_dim)
+        live = live_positions(wide[6], wide[5].shape[1])
+        out.append(wide_time(
+            timer, "K3", lambda: paged_attend_int8(*wide, page_size=PAGE),
+            "paged_attend_int8", 2 * live * C4_HEADS * (head_dim + 4)
+            + SLOTS * C4_HEADS * head_dim * (2 + 4), head_dim,
+            "C5" if head_dim == C5_TIMED else "C6"))
+    (c5,), (c6,) = c5, c6
     narrow = k3_problem(device, gen, torch.bfloat16,
                         head_dim=NARROW_EMBED // NARROW_HEADS)
     narrow_times(timer, "K3",
@@ -753,7 +834,8 @@ def k3_phase(timer, device, gen):
             "library_ms": library_ms, "lopsided_ms": lopsided_ms,
             "kernel_ms": kernel_ms[0], "lopsided_kernel_ms": kernel_ms[1],
             "c5_ms": c5["ms"], "c5_kernel_ms": c5["kernel_ms"],
-            "c5_bound_ms": c5["bound_ms"],
+            "c5_bound_ms": c5["bound_ms"], "c6_ms": c6["ms"],
+            "c6_kernel_ms": c6["kernel_ms"], "c6_bound_ms": c6["bound_ms"],
             "library": "scaled_dot_product_attention on the dequantized "
                        "pages"}
 
@@ -778,14 +860,14 @@ def k4_problem(device, gen, q_dtype, width=K4_WIDTH, heads=HEADS,
 
 
 def k4_widths(timer, device, gen):
-    """C5: K4 at every width of C5_K4_WIDTHS in C4_HEADS heads, f32 and
-    bf16 q, the per-row mask, against its plain version and twice bit
-    for bit; timed at C5_TIMED. Returns the largest error and the
-    timing."""
+    """C5 and C6: K4 at every width of C5_K4_WIDTHS and C6_K4_WIDTHS in
+    C4_HEADS heads, f32 and bf16 q, the per-row mask, against its plain
+    version and twice bit for bit; timed at C5_TIMED and C6_TIMED.
+    Returns the largest error and the two timings."""
     t0 = time.perf_counter()
     err = 0.0
     mask = k4_masks(device, K4_WIDTH)["per-row"]
-    for head_dim in C5_K4_WIDTHS:
+    for head_dim in C5_K4_WIDTHS + C6_K4_WIDTHS:
         for q_dtype in (torch.float32, torch.bfloat16):
             q, slab = k4_problem(device, gen, q_dtype, heads=C4_HEADS,
                                  head_dim=head_dim)
@@ -801,18 +883,21 @@ def k4_widths(timer, device, gen):
             if not e <= K4_ATOL or not equal:
                 raise AssertionError("K4 fails at D = %d" % head_dim)
             err = max(err, e)
-    print("K4 C5 widths %s: %d calls checked in %.1f s"
-          % (list(C5_K4_WIDTHS), 2 * len(C5_K4_WIDTHS),
-             time.perf_counter() - t0))
-    q, slab = k4_problem(device, gen, torch.bfloat16, heads=C4_HEADS,
-                         head_dim=C5_TIMED)
-    c5 = wide_time(timer, "K4",
-                   lambda: int8_cache_attend(q, *slab, mask,
-                                             use_pallas=True),
-                   "cache_attend_int8_kernel",
-                   2 * SLOTS * C4_HEADS * K4_WIDTH * (C5_TIMED + 4)
-                   + mask.numel() * 4 + SLOTS * C4_HEADS * C5_TIMED * (2 + 4))
-    return err, c5
+    widths = C5_K4_WIDTHS + C6_K4_WIDTHS
+    print("K4 C5 and C6 widths %s: %d calls checked in %.1f s"
+          % (list(widths), 2 * len(widths), time.perf_counter() - t0))
+    timed = []
+    for head_dim, tag in ((C5_TIMED, "C5"), (C6_TIMED, "C6")):
+        q, slab = k4_problem(device, gen, torch.bfloat16, heads=C4_HEADS,
+                             head_dim=head_dim)
+        timed.append(wide_time(
+            timer, "K4", lambda: int8_cache_attend(q, *slab, mask,
+                                                   use_pallas=True),
+            "cache_attend_int8", 2 * SLOTS * C4_HEADS * K4_WIDTH
+            * (head_dim + 4) + mask.numel() * 4
+            + SLOTS * C4_HEADS * head_dim * (2 + 4), head_dim, tag))
+        del q, slab
+    return err, timed[0], timed[1]
 
 
 def k4_masks(device, t):
@@ -854,7 +939,7 @@ def k4_phase(timer, device, gen):
     err = max(err, e)
     if not err <= K4_ATOL:
         raise AssertionError("K4 disagrees with its plain version")
-    wide_err, c5 = k4_widths(timer, device, gen)
+    wide_err, c5, c6 = k4_widths(timer, device, gen)
     err = max(err, wide_err)
     mask = k4_masks(device, K4_WIDTH)["per-row"]
     for t in (K4_WIDTH, K4_SPAN):
@@ -903,7 +988,8 @@ def k4_phase(timer, device, gen):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "kernel_ms": kernel_ms,
             "c5_ms": c5["ms"], "c5_kernel_ms": c5["kernel_ms"],
-            "c5_bound_ms": c5["bound_ms"],
+            "c5_bound_ms": c5["bound_ms"], "c6_ms": c6["ms"],
+            "c6_kernel_ms": c6["kernel_ms"], "c6_bound_ms": c6["bound_ms"],
             "library": "scaled_dot_product_attention on the dequantized "
                        "slab"}
 
@@ -1980,11 +2066,12 @@ def bench_dataset(n=60000, features=784, classes=10, n_valid=10000):
 
 
 def build_mlp(device, data, labels, layers, minibatch, class_lengths,
-              knobs, epochs, precision_level=0, sweep=True, weights=None):
+              knobs, epochs, precision_level=0, sweep=True, weights=None,
+              fused="auto"):
     """An MLPWorkflow as bench.py builds it (seeds 1234, linear
-    normalization, lr 0.03) with the engine knobs set; ``weights``
-    (per-layer numpy dicts) are put into the units before
-    initialize()."""
+    normalization, lr 0.03) with the engine knobs set, in the fused tick
+    or (``fused=False``) graph mode; ``weights`` (per-layer numpy dicts)
+    are put into the units before initialize()."""
     root.common.engine.update({"use_pallas": knobs,
                                "pallas_epilogue": knobs,
                                "precision_level": precision_level})
@@ -1997,7 +2084,7 @@ def build_mlp(device, data, labels, layers, minibatch, class_lengths,
                            minibatch_size=minibatch,
                            normalization_type="linear"),
         learning_rate=TRAIN_LR, max_epochs=epochs, fused_sweep=sweep,
-        device=device, name="mlp")
+        fused=fused, device=device, name="mlp")
     if weights is not None:
         unit_params_from_jax(wf, weights)
     return wf
@@ -2046,7 +2133,7 @@ def report_training(label, wf, epochs, wall, n_images):
                          n_images * len(epochs) / wall, wall,
                          ["%.6f" % v for v in losses],
                          [e["valid_n_err"] for e in epochs],
-                         wf.fused_tick.minibatch_counts))
+                         minibatch_counts(wf)))
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError("%s: a train loss is not finite" % label)
     return losses
@@ -2095,10 +2182,22 @@ def training_phase(device):
     return main
 
 
+def minibatch_counts(wf):
+    """The (test, valid, train) minibatches the run stepped: the fused
+    tick's count, or in graph mode and the lower tiers the loader's
+    epochs times its minibatches a class."""
+    if wf.fused_tick is not None:
+        return wf.fused_tick.minibatch_counts
+    size = wf.loader.max_minibatch_size
+    return [wf.decision.epochs_done * -(-n // size)
+            for n in wf.loader.class_lengths]
+
+
 def recorded_run(wf):
-    """initialize() and run() a per-minibatch workflow with the counters
-    zeroed first; returns the served index blocks, each tick's n_err, the
-    launches and the wall seconds of run() (the card synchronised)."""
+    """initialize() and run() a per-minibatch workflow (the fused tick, or
+    graph mode: the evaluator's firing) with the counters zeroed first;
+    returns the served index blocks, each tick's n_err, the launches and
+    the wall seconds of run() (the card synchronised)."""
     served, n_errs = [], []
     serve_next = wf.loader.serve_next_minibatch
 
@@ -2109,13 +2208,14 @@ def recorded_run(wf):
 
     wf.loader.serve_next_minibatch = recorded
     wf.initialize()
-    tick_run = wf.fused_tick.run
+    tick = wf.fused_tick or wf.evaluator
+    tick_run = tick.run
 
     def counted():
         tick_run()
         n_errs.append(int(wf.evaluator.n_err.data))
 
-    wf.fused_tick.run = counted
+    tick.run = counted
     for fn in COUNTERS.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2776,11 +2876,13 @@ def transformer_layers(heads, classes, depth):
 
 
 def build_transformer(device, data, labels, layers, class_lengths,
-                      minibatch, epochs, lr, sweep=True, weights=None):
+                      minibatch, epochs, lr, sweep=True, weights=None,
+                      fused="auto"):
     """A StandardWorkflow over (N, T, E) samples at precision level 0
     with the GEMM knobs off (seeds 1234, no normalization, learning rate
-    ``lr``, moment 0.9); ``weights`` (per-layer numpy dicts) are put into
-    the units before initialize()."""
+    ``lr``, moment 0.9), in the fused tick or (``fused=False``) graph
+    mode; ``weights`` (per-layer numpy dicts) are put into the units
+    before initialize()."""
     root.common.engine.update({"use_pallas": False,
                                "pallas_epilogue": False,
                                "precision_level": 0})
@@ -2794,7 +2896,7 @@ def build_transformer(device, data, labels, layers, class_lengths,
                            normalization_type="none"),
         learning_rate=lr, gradient_moment=0.9,
         decision_kwargs=dict(max_epochs=epochs), fused_sweep=sweep,
-        device=device, name="transformer")
+        fused=fused, device=device, name="transformer")
     if weights is not None:
         unit_params_from_jax(wf, weights)
     return wf
@@ -2804,7 +2906,7 @@ def report_tokens(label, wf, epochs, wall, t):
     """Print tokens/s over the whole run (every trained and evaluated
     sequence's positions), the per-epoch train loss and validation
     n_err; fail on a non-finite loss."""
-    _, valid, train_mb = wf.fused_tick.minibatch_counts
+    _, valid, train_mb = minibatch_counts(wf)
     minibatch = wf.loader.max_minibatch_size
     tokens = (valid + train_mb) * minibatch * t
     losses = [e["train_loss"] for e in epochs]
@@ -2813,7 +2915,7 @@ def report_tokens(label, wf, epochs, wall, t):
           "minibatches per class (test, valid, train) %s"
           % (label, len(epochs), wall, tokens / wall, tokens,
              ["%.6f" % v for v in losses], [e["valid_n_err"] for e in epochs],
-             wf.fused_tick.minibatch_counts))
+             minibatch_counts(wf)))
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError("%s: a train loss is not finite" % label)
 
@@ -2978,6 +3080,396 @@ def long_training_agreement_phase(device):
                              "CPU run launched a kernel" % (got_c, want_c))
 
 
+class HostObserver(Unit):
+    """bench.py:170-175's host unit: counts its firings, touches no slot;
+    ``transparent`` says so to the sweep tier."""
+
+    def __init__(self, workflow, transparent, **kwargs):
+        super().__init__(workflow, **kwargs)
+        self.sweep_transparent = transparent
+        self.ticks = 0
+
+    def run(self):
+        self.ticks += 1
+
+
+def splice_observer(wf, transparent):
+    """A HostObserver between the two forwards (control links only), so
+    the fused tick must decline the chain (bench.py:176-181)."""
+    obs = HostObserver(wf, transparent, name="observer")
+    fwd1 = wf.forwards[1]
+    fwd1.unlink_from(wf.forwards[0])
+    obs.link_from(wf.forwards[0])
+    fwd1.link_from(obs)
+    return obs
+
+
+def engaged_tier(wf):
+    """Which execution tier the workflow runs: "fused", "sweep",
+    "segment" or "graph"."""
+    if wf.fused_tick is not None:
+        return "fused"
+    if isinstance(wf.sweep_unit, FusedSweep):
+        return "sweep"
+    if any(isinstance(u, FusedSegment) for u in wf.units):
+        return "segment"
+    return "graph"
+
+
+def composite_calls(wf):
+    """The tier's composite firings: fused-tick steps, sweep chunks or
+    segment calls (0 in graph mode)."""
+    if wf.fused_tick is not None:
+        return wf.fused_tick.ticks
+    if wf.sweep_unit is not None:
+        return wf.sweep_unit.chunk_calls
+    return sum(u.calls for u in wf.units if isinstance(u, FusedSegment))
+
+
+def tiers_phase(device):
+    """The bench's graph-mode cliff (bench.py:150-230): the reference
+    MNIST784 (784 -> 100 tanh -> 10, minibatch 100) on the bench data in
+    graph mode (fused=False), the segment tier (a host unit the chain
+    cannot fuse spliced between the forwards), the sweep tier (the same
+    unit declared sweep_transparent) and the fused tick, TIER_EPOCHS
+    each: images/s, unit firings and composite calls per epoch, and the
+    tier that engaged, asserted as bench.py asserts it. Returns the
+    images/s by tier."""
+    data, labels = bench_dataset()
+    rates = {}
+    for tier in ("graph", "segment", "sweep", "fused"):
+        wf = build_mlp(device, data, labels, MNIST_LAYERS, MNIST_MINIBATCH,
+                       BENCH_CLASS_LENGTHS, False, TIER_EPOCHS,
+                       fused=False if tier == "graph" else "auto")
+        obs = splice_observer(wf, tier == "sweep") \
+            if tier in ("segment", "sweep") else None
+        epochs, wall = train(wf, device)
+        if engaged_tier(wf) != tier:
+            raise AssertionError("the %s run engaged the %s tier"
+                                 % (tier, engaged_tier(wf)))
+        losses = report_training("tiers: %s, reference MNIST784" % tier, wf,
+                                 epochs, wall, len(data))
+        rates[tier] = len(data) * len(epochs) / wall
+        # every unit's firings (Unit.run_calls), the splices' included
+        per_epoch = [sum(u.run_calls for u in wf.units) / len(epochs),
+                     composite_calls(wf) / len(epochs)]
+        print("  tier %s engaged: %.1f images/s over the run, %.1f unit "
+              "firings and %.1f composite calls per epoch%s"
+              % (tier, rates[tier], per_epoch[0], per_epoch[1],
+                 ", observer fired %d times" % obs.ticks if obs else ""))
+        ticks = sum(minibatch_counts(wf))
+        if len(epochs) != TIER_EPOCHS or not losses[-1] < losses[0] \
+                or (obs is not None and obs.ticks != ticks):
+            raise AssertionError("tier %s: %d epochs, losses %s, observer "
+                                 "%s of %d ticks" % (tier, len(epochs),
+                                                     losses, obs and
+                                                     obs.ticks, ticks))
+        del wf
+    print("tiers (images/s over the run): %s" % json.dumps(rates))
+    return rates
+
+
+def graph_mlp_phase(device):
+    """The wide MLP (784 -> 4096 tanh -> 10, minibatch 4096, level 0) in
+    graph mode, GRAPH_EPOCHS epochs, with the kernel knobs on (K5 on the
+    hidden layer's forward on every minibatch and its weight gradient
+    and error product on every train minibatch: counted) and off (no
+    kernel). Returns the knobs-on run's launches."""
+    data, labels = bench_dataset()
+    main = None
+    for knobs in (True, False):
+        wf = build_mlp(device, data, labels, WIDE_LAYERS, WIDE_MINIBATCH,
+                       BENCH_CLASS_LENGTHS, knobs, GRAPH_EPOCHS,
+                       fused=False)
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        epochs, wall = train(wf, device)
+        got = counts()
+        report_training("graph mode wide MLP 784-4096-10 mb 4096, knobs "
+                        "%s" % ("on" if knobs else "off"), wf, epochs, wall,
+                        len(data))
+        _, valid, train_mb = minibatch_counts(wf)
+        want = dict.fromkeys(COUNTERS, 0)
+        if knobs:
+            want["blocked_matmul"] = 3 * train_mb + valid
+            main = got
+        print("  tier %s; launches %s, K5 %.1f per epoch (graph mode's "
+              "minibatches require %s)"
+              % (engaged_tier(wf), {k: v for k, v in got.items() if v},
+                 got["blocked_matmul"] / max(len(epochs), 1),
+                 {k: v for k, v in want.items() if v}))
+        if got != want or len(epochs) != GRAPH_EPOCHS \
+                or engaged_tier(wf) != "graph":
+            raise AssertionError("graph-mode wide MLP: %d epochs, launches "
+                                 "%s, expected %s"
+                                 % (len(epochs), got, want))
+        del wf
+    return main
+
+
+def leaf_rel(a_leaves, b_leaves):
+    """The largest |a - b| of any leaf over that leaf's largest |b|."""
+    return max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+               for a, b in zip(a_leaves, b_leaves))
+
+
+def mlp_leaves(wf):
+    return [getattr(f, name).data.float().cpu() for f in wf.forwards
+            for name in ("weights", "bias")]
+
+
+def graph_agreement_phase(device):
+    """One epoch of the wide MLP at level 2 (f32), per-minibatch serving,
+    from the same numpy weights (the training agreement's data): graph
+    mode on the card against the fused tick on the card (K6 and K5
+    there, K5 in graph mode) and against graph mode on the CPU (plain
+    versions): equal index streams, per-minibatch n_err within
+    AGREE_N_ERR_TOL, every leaf within GRAPH_LEAF_RTOL of its largest
+    element."""
+    data, labels = bench_dataset()
+    n = sum(AGREE_CLASS_LENGTHS)
+    data, labels = data[:n], labels[:n]
+    rng = numpy.random.RandomState(5)
+    weights, fan_in = [], data.shape[1]
+    for width in WIDE_LAYERS:
+        bound = 1.0 / math.sqrt(fan_in)
+        weights.append({
+            "weights": rng.uniform(-bound, bound, (fan_in, width)),
+            "bias": rng.uniform(-bound, bound, width)})
+        fan_in = width
+    runs = {}
+    for label, dev, fused in (("graph card", device, False),
+                              ("fused card", device, True),
+                              ("graph CPU", torch.device("cpu"), False)):
+        wf = build_mlp(dev, data, labels, WIDE_LAYERS, WIDE_MINIBATCH,
+                       AGREE_CLASS_LENGTHS, True, 1, precision_level=2,
+                       sweep=False, weights=weights, fused=fused)
+        served, n_errs, got, wall = recorded_run(wf)
+        runs[label] = (served, n_errs, mlp_leaves(wf), got, wall)
+    base = runs["graph card"]
+    for other in ("fused card", "graph CPU"):
+        ref = runs[other]
+        same = len(base[0]) == len(ref[0]) and all(
+            numpy.array_equal(a, b) for a, b in zip(base[0], ref[0]))
+        diff = max(abs(a - b) for a, b in zip(base[1], ref[1]))
+        rel = leaf_rel(base[2], ref[2])
+        print("graph agreement f32 (level 2), 1 epoch, %d minibatches, "
+              "graph card against %s: index streams %s; n_err %s against "
+              "%s (max diff %d, tolerance %d); largest leaf difference %.3g "
+              "of the leaf's largest element (tolerance %.0e); launches "
+              "%s against %s"
+              % (len(base[0]), other, "equal" if same else "DIFFER",
+                 base[1], ref[1], diff, AGREE_N_ERR_TOL, rel,
+                 GRAPH_LEAF_RTOL, {k: v for k, v in base[3].items() if v},
+                 {k: v for k, v in ref[3].items() if v}))
+        if not same or len(base[1]) != len(ref[1]) \
+                or diff > AGREE_N_ERR_TOL or not rel <= GRAPH_LEAF_RTOL:
+            raise AssertionError("graph mode on the card disagrees with %s"
+                                 % other)
+    if not base[3]["blocked_matmul"] or any(runs["graph CPU"][3].values()):
+        raise AssertionError("the card's graph mode skipped K5 or the CPU "
+                             "run launched a kernel")
+
+
+def longctx_graph_phase(device):
+    """The long-context stack of longctx_training_phase (embed 1024, 8
+    heads of 128, 8192 positions, minibatch 1, 16 samples, LONG_LR) in
+    graph mode, LONG_GRAPH_EPOCHS epoch(s): tokens/s and the flash
+    launches, K7 per block on every minibatch (the forward unit) and
+    again on every train minibatch (GDSelfAttention's autograd recomputes
+    the forward), K8 and K9 per block per train minibatch. Returns the
+    launches."""
+    rng = numpy.random.RandomState(0)
+    data = rng.randn(LONG_SAMPLES, LONG_T, EMBED).astype(numpy.float32)
+    labels = split_labels(rng, LONG_CLASSES, LONG_CLASS_LENGTHS)
+    wf = build_transformer(device, data, labels,
+                           transformer_layers(LONG_HEADS, LONG_CLASSES,
+                                              BLOCKS),
+                           LONG_CLASS_LENGTHS, 1, LONG_GRAPH_EPOCHS,
+                           LONG_LR, fused=False)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    epochs, wall = train(wf, device)
+    got = counts()
+    report_tokens("graph mode long-context 4 x [LN, attention 8x128 causal, "
+                  "LN, ffn gelu x4] + softmax 16, T %d, mb 1" % LONG_T, wf,
+                  epochs, wall, LONG_T)
+    valid, train_mb = (LONG_GRAPH_EPOCHS * n for n in LONG_CLASS_LENGTHS[1:])
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(flash_attention_fwd=(valid + 2 * train_mb) * BLOCKS,
+                flash_attention_dkv=train_mb * BLOCKS,
+                flash_attention_dq=train_mb * BLOCKS)
+    print("  tier %s; launches %s (expected: K7 (%d valid + 2 x %d train) "
+          "x %d blocks, K8 = K9 %d train x %d)"
+          % (engaged_tier(wf), {k: v for k, v in got.items() if v}, valid,
+             train_mb, BLOCKS, train_mb, BLOCKS))
+    if got != want or len(epochs) != LONG_GRAPH_EPOCHS \
+            or engaged_tier(wf) != "graph":
+        raise AssertionError("graph-mode long context: %d epochs, launches "
+                             "%s, expected %s" % (len(epochs), got, want))
+    return got
+
+
+def long_graph_agreement_phase(device):
+    """One epoch of one pre-LN block at 4096 positions (the long-context
+    agreement's shapes, level 0, per-minibatch ticks) on the card in
+    graph mode and in the fused tick, from the same numpy weights: equal
+    index streams and per-minibatch n_err, every leaf's update within
+    AGREE_LONG_RTOL of its largest element; graph mode's launches K7 on
+    every minibatch and again on every train one, K8 and K9 on every
+    train one."""
+    rng = numpy.random.RandomState(7)
+    n = sum(AGREE_LONG_CLASS_LENGTHS)
+    data = rng.randn(n, AGREE_T, AGREE_EMBED).astype(numpy.float32)
+    labels = split_labels(rng, LONG_CLASSES, AGREE_LONG_CLASS_LENGTHS)
+    layers = transformer_layers(AGREE_HEADS, LONG_CLASSES, depth=1)
+    weights = agreement_weights(rng, layers, AGREE_T, AGREE_EMBED)
+    results = []
+    for fused in (False, True):
+        wf = build_transformer(device, data, labels, layers,
+                               AGREE_LONG_CLASS_LENGTHS, 1, 1, AGREE_LONG_LR,
+                               sweep=False, weights=weights, fused=fused)
+        served, n_errs, got, _ = recorded_run(wf)
+        leaves = [{name: getattr(f, name).data.cpu() for name in
+                   ("weights", "bias", "out_weights", "out_bias")
+                   if hasattr(f, name)} for f in wf.forwards]
+        results.append((served, n_errs, leaves, got))
+    (served_g, errs_g, w_g, got_g), (served_f, errs_f, w_f, _) = results
+    same = len(served_g) == len(served_f) and all(
+        numpy.array_equal(a, b) for a, b in zip(served_g, served_f))
+    worst, where = 0.0, None
+    for i, (lg, lf, init) in enumerate(zip(w_g, w_f, weights)):
+        for name, ref in lf.items():
+            moved = (ref - torch.from_numpy(init[name])).abs().max()
+            rel = ((lg[name] - ref).abs().max() / moved).item()
+            if rel >= worst:
+                worst, where = rel, "layer %d %s" % (i, name)
+    train_mb = AGREE_LONG_CLASS_LENGTHS[2]
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(flash_attention_fwd=n + train_mb,
+                flash_attention_dkv=train_mb, flash_attention_dq=train_mb)
+    print("long-context graph agreement (level 0, T %d, embed %d, %d heads "
+          "of %d, 1 epoch, %d minibatches), graph mode against the fused "
+          "tick on the card: index streams %s; n_err %s against %s; largest "
+          "update difference %.3g of the leaf's largest update (%s; "
+          "tolerance %.0e); graph-mode launches %s"
+          % (AGREE_T, AGREE_EMBED, AGREE_HEADS, AGREE_EMBED // AGREE_HEADS,
+             len(served_g), "equal" if same else "DIFFER", errs_g, errs_f,
+             worst, where, AGREE_LONG_RTOL,
+             {k: v for k, v in got_g.items() if v}))
+    if not same or errs_g != errs_f or not worst <= AGREE_LONG_RTOL \
+            or got_g != want:
+        raise AssertionError("graph mode's long-context training disagrees "
+                             "with the fused tick's (launches %s, expected "
+                             "%s)" % (got_g, want))
+
+
+def som_run(device, data, epochs, step_hook=None):
+    """KohonenWorkflow (SOM_SHAPE, minibatch SOM_MINIBATCH) over ``data``
+    for ``epochs`` epochs from the seeded streams; ``step_hook(trainer,
+    weights, batch)`` is called after each step with the weights before
+    it. Returns the workflow, each step's quantization error (a device
+    scalar) and the wall seconds of run() (the card synchronised)."""
+    prng.get("kohonen").seed(1234)
+    prng.get("loader").seed(1234)
+    wf = KohonenWorkflow(
+        DummyLauncher(), shape=SOM_SHAPE, device=device,
+        loader_kwargs=dict(data=data, class_lengths=[0, 0, len(data)],
+                           minibatch_size=SOM_MINIBATCH),
+        max_epochs=epochs, name="som")
+    wf.initialize()
+    trainer = wf.trainer
+    errors = []
+    real = trainer.run
+
+    def recorded():
+        before, batch = trainer.weights.data, trainer.input.data
+        real()
+        errors.append(trainer.quantization_error)
+        if step_hook is not None:
+            step_hook(trainer, before, batch)
+
+    trainer.run = recorded
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wf.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return wf, errors, time.perf_counter() - t0
+
+
+def som_phase(device):
+    """The Kohonen SOM (BASELINE.json config 4) at samples/som_digits.py's
+    defaults over the bench's 60000 x 784 pixels (uniform in [0, 1): the
+    card's machine has no sklearn, and the digits file is not in the
+    repository), SOM_EPOCHS epochs: steps/s and the mean quantization
+    error of each epoch, which must fall; then one epoch on the card, each
+    step also run on the CPU from the card's weights and minibatch (see
+    SOM_TIE_GAP). Returns the steps/s."""
+    data, _ = bench_dataset()
+    wf, errors, wall = som_run(device, data, SOM_EPOCHS)
+    per_epoch = len(errors) // SOM_EPOCHS
+    means = [float(torch.stack(errors[i * per_epoch:(i + 1) * per_epoch])
+                   .mean()) for i in range(SOM_EPOCHS)]
+    print("Kohonen SOM %s grid, mb %d, %d x %d samples, %d epochs: %d steps "
+          "in %.3f s, %.1f steps/s, %.1f samples/s; mean quantization error "
+          "per epoch %s" % (SOM_SHAPE, SOM_MINIBATCH, len(data),
+                            data.shape[1], SOM_EPOCHS, len(errors), wall,
+                            len(errors) / wall, len(data) * SOM_EPOCHS / wall,
+                            ["%.6f" % e for e in means]))
+    if wf.gather_results()["epochs"] != SOM_EPOCHS \
+            or not all(math.isfinite(e) for e in means) \
+            or not means[-1] < means[0]:
+        raise AssertionError("the SOM's quantization error did not fall: "
+                             "%s" % means)
+    tally = {"steps": 0, "winners": 0, "resolved": 0, "ties": 0,
+             "tie_flips": 0, "compared": 0, "rel": 0.0, "bad": 0}
+    coords = None
+
+    def compare(trainer, before, batch):
+        nonlocal coords
+        if coords is None:
+            coords = grid_coords(trainer.shape, torch.device("cpu"))
+        x = batch.reshape(batch.shape[0], -1).cpu()
+        w = before.cpu()
+        lr, sigma = trainer.last_rates
+        new_w, winners, _ = som_step(w, x, lr.cpu(), sigma.cpu(), coords)
+        card = trainer.winners.data.cpu()
+        x64, w64 = x.double(), w.double()
+        d2 = ((x64 * x64).sum(1)[:, None] - 2 * x64 @ w64.T
+              + (w64 * w64).sum(1)[None, :])
+        top2 = d2.topk(2, dim=1, largest=False).values
+        resolved = (top2[:, 1] - top2[:, 0]) > SOM_TIE_GAP
+        equal = card == winners
+        tally["steps"] += 1
+        tally["winners"] += len(card)
+        tally["resolved"] += int(resolved.sum())
+        tally["ties"] += int((~resolved).sum())
+        tally["tie_flips"] += int((~equal & ~resolved).sum())
+        tally["bad"] += int((~equal & resolved).sum())
+        if bool(equal.all()):
+            ref = new_w
+            rel = ((trainer.weights.data.cpu() - ref).abs().max()
+                   / ref.abs().max()).item()
+            tally["compared"] += 1
+            tally["rel"] = max(tally["rel"], rel)
+
+    _, _, wall_c = som_run(device, data, 1, compare)
+    print("Kohonen agreement f32, 1 epoch, each CPU step from the card's "
+          "weights: %d steps; winners: %d, %d with a float64 top-2 gap above "
+          "%.0e, all equal: %s (%d flipped there); %d near ties, %d flipped; "
+          "new weights of the %d steps with every winner equal within %.3g "
+          "of the largest (tolerance %.0e); %.3f s"
+          % (tally["steps"], tally["winners"], tally["resolved"], SOM_TIE_GAP,
+             tally["bad"] == 0, tally["bad"], tally["ties"],
+             tally["tie_flips"], tally["compared"], tally["rel"],
+             SOM_WEIGHT_RTOL, wall_c))
+    if tally["bad"] or not tally["compared"] \
+            or not tally["rel"] <= SOM_WEIGHT_RTOL:
+        raise AssertionError("the card's SOM disagrees with the CPU's")
+    return len(errors) / wall
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3040,6 +3532,11 @@ def main():
     launches.update((name, n) for name, n in training_phase(device).items()
                     if name in ("blocked_matmul", "dense_epilogue"))
     training_agreement_phase(device)
+    # graph mode and the lower fusion tiers: the wide MLP in graph mode
+    # with the knobs on is a main path of K5
+    tiers_phase(device)
+    launches["blocked_matmul"] += graph_mlp_phase(device)["blocked_matmul"]
+    graph_agreement_phase(device)
     alexnet = alexnet_phase(device)
     for name in ("blocked_matmul", "dense_epilogue"):
         launches[name] += alexnet[name]
@@ -3059,8 +3556,13 @@ def main():
                            long_wall - in_kernels))
     transformer_device_phase(device)
     long_training_agreement_phase(device)
+    # graph mode's long-context stack: a main path of K7, K8 and K9 too
+    long_graph = longctx_graph_phase(device)
+    long_graph_agreement_phase(device)
     for name in FLASH:
-        launches[name] = long_serving[name] + long_training[name]
+        launches[name] = (long_serving[name] + long_training[name]
+                          + long_graph[name])
+    som_phase(device)
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -97,9 +97,15 @@ def test_k4_plain_matches_jax_at_1536():
 
 def test_the_limit_is_named():
     """MAX_HEAD_DIM is where one head's f32 query and accumulator and the
-    smallest stages fill a block's 227 KB; the K4 wrapper shares it."""
-    assert tpgatt.MAX_HEAD_DIM == tquant.MAX_HEAD_DIM == 8192
+    smallest stages fill a block's 227 KB: the widest head K1, K3 and K4
+    stage. Past it the wide path keeps each split's sums in the merge
+    workspace, which is then allocated even for one split."""
+    assert tpgatt.MAX_HEAD_DIM == 8192
     assert 2 * 4 * tpgatt.MAX_HEAD_DIM <= 227 * 1024
+    d = tpgatt.MAX_HEAD_DIM
+    assert tpgatt.split_elements(3, 1, d) == 0
+    assert tpgatt.split_elements(3, 1, d + 1) == 3 * (d + 3)
+    assert tpgatt.split_elements(3, 2, d) == 3 * 2 * (d + 2)
 
 
 @pytest.mark.parametrize("wrapper", ["paged_attend", "paged_attend_int8",

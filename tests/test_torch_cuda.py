@@ -5,14 +5,16 @@ decode-step shape and 1 to 256 rows in both x types, its byte-wise path
 of other shapes in a row (the split counters reset), the M > 256 regime
 rule; K1 at head widths 8 to 4096 (C4's widths: 8, 16, 33, 48, 80,
 96, 100, 512, 1024, and 32 to 256; C5's: 1025, 1536, 2048, 4096) in
-every mix of query and pool types (and 8192, the limit),
+every mix of query and pool types (and 8192, the widest staged head),
+past it on the wide path (C6's 8200, 12288 and 16384),
 at its splits' boundaries (16- and 128-token pages), NaN rows on
 invisible positions, twice bit for bit; K3 at length 0, full table rows,
 head widths 8 to 4096 (the powers of two, 96, C4's and C5's widths) in
 both query types, 8-, 16- and 128-token pages
 at its splits' boundaries, NaN scales on invisible positions, twice bit
-for bit; K4 at head widths 32 to 4096 (C5's 1056 to 4096 twice bit for
-bit), shared and per-row masks,
+for bit, and at C6's widths past 8192; K4 at head widths 32 to 4096
+(C5's 1056 to 4096 and C6's 8224 to 16384 twice bit for bit), shared
+and per-row masks,
 lanes of several 8192-position tiles (one fully masked tile first or
 last) and a slab view cut to a span, with one split, a ragged last
 split, a fully masked split and a fully masked row, twice bit for bit;
@@ -20,7 +22,7 @@ the split counters K1, K2, K3 and K4 share left at zero; the
 breaker's page restore (_paged_restore) on a CUDA pool, the restored
 pages bit-equal to their shadows; and the
 dense int8-KV decoder on the card against the CPU; the wrappers'
-refusals (past MAX_HEAD_DIM, 8192, among them); prefill attention at 4096 positions with a head width the
+refusals; prefill attention at 4096 positions with a head width the
 flash rule leaves to plain attention; K5 and K6 at odd shapes, both
 operand types, every activation, transposed and strided operands, and
 the dense layer's backward on the card against the plain backward, and
@@ -257,11 +259,12 @@ def test_paged_attend_kernel_matches_plain(cuda, head_dim, q_dtype,
         rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("case", ["head_bytes", "strided_q"])
+@pytest.mark.parametrize("case", ["misaligned_pool", "strided_q"])
 def test_paged_attend_refuses_what_the_kernel_does_not_take(cuda, case):
-    if case == "head_bytes":   # past the widest head the kernel takes
+    if case == "misaligned_pool":   # pages one element off 16 bytes
         q, k, v, table, lengths, ps = _paged_problem(
-            cuda, MAX_HEAD_DIM + 1, torch.bfloat16, torch.bfloat16)
+            cuda, 64, torch.bfloat16, torch.bfloat16)
+        k = torch.cat([k.new_zeros(1), k.reshape(-1)])[1:].view(k.shape)
     else:
         q, k, v, table, lengths, ps = _paged_problem(
             cuda, 64, torch.float32, torch.float32)
@@ -313,8 +316,8 @@ def test_paged_attend_int8_kernel_matches_plain(cuda, head_dim, q_dtype,
 
 
 @pytest.mark.parametrize("case", ["strided_q", "strided_pool",
-                                  "pool_shape", "head_dim", "head_dim_wide",
-                                  "page_size"])
+                                  "pool_shape", "misaligned_scale",
+                                  "table_rows", "page_size"])
 def test_paged_attend_int8_refuses_what_the_kernel_does_not_take(cuda,
                                                                  case):
     q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
@@ -325,12 +328,10 @@ def test_paged_attend_int8_refuses_what_the_kernel_does_not_take(cuda,
         kq = kq.transpose(2, 3).contiguous().transpose(2, 3)
     elif case == "pool_shape":
         vq, vs = vq[:, :2], vs[:, :2]
-    elif case == "head_dim":   # one past the widest head
-        q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
-            cuda, MAX_HEAD_DIM + 1, torch.float32, [3, 20], 2)
-    elif case == "head_dim_wide":   # a multiple of 32 past it
-        q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
-            cuda, MAX_HEAD_DIM + 32, torch.float32, [3, 20], 2)
+    elif case == "misaligned_scale":   # scales one float off 16 bytes
+        ks = torch.cat([ks.new_zeros(1), ks.reshape(-1)])[1:].view(ks.shape)
+    elif case == "table_rows":   # a page table row short
+        table = table[:1]
     else:   # a page size the kernel's 4-position copies cannot walk
         q, kq, ks, vq, vs, table, lengths, ps = _int8_paged_problem(
             cuda, 64, torch.float32, [3, 20], 2, ps=10)
@@ -491,13 +492,12 @@ def test_cache_attend_kernel_reads_a_slab_view_in_place(cuda):
 
 
 @pytest.mark.parametrize("case", ["t_off_tile", "d_off_tile",
-                                  "misaligned", "strided_q", "head_dim"])
+                                  "misaligned", "strided_q",
+                                  "misaligned_scale"])
 def test_cache_attend_refuses_what_the_kernel_does_not_take(cuda, case):
-    """use_pallas=True off the gate, operands the kernel cannot read in
-    place, and heads past MAX_HEAD_DIM raise on the card; nothing falls
-    back to torch ops."""
-    head_dim = {"d_off_tile": 16, "head_dim": MAX_HEAD_DIM + 32}.get(case,
-                                                                     32)
+    """use_pallas=True off the gate and operands the kernel cannot read
+    in place raise on the card; nothing falls back to torch ops."""
+    head_dim = 16 if case == "d_off_tile" else 32
     q, slab = _slab_problem(cuda, 2, 2, head_dim, 256, torch.float32)
     t = 256
     if case == "t_off_tile":
@@ -507,6 +507,10 @@ def test_cache_attend_refuses_what_the_kernel_does_not_take(cuda, case):
         t = 128
     elif case == "strided_q":
         q = q.transpose(0, 2).contiguous().transpose(0, 2)
+    elif case == "misaligned_scale":   # scales one float off 16 bytes
+        slab = [a[..., 1:129] if a.dtype == torch.float32 else a[..., :128]
+                for a in slab]
+        t = 128
     before = int8_cache_attend.launches
     with pytest.raises(ValueError):
         int8_cache_attend(q, *slab, torch.zeros(t, device="cuda"),
@@ -1320,6 +1324,76 @@ def test_cache_attend_past_1024(cuda, head_dim, q_dtype):
                                rtol=1e-5, atol=1e-5)
 
 
+#: C6: head widths past MAX_HEAD_DIM, the wide path (K4's multiples of 32)
+C6_WIDTHS = [MAX_HEAD_DIM + 8, 12288, 16384]
+C6_K4_WIDTHS = [MAX_HEAD_DIM + 32, 12288, 16384]
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
+                         ids=["kv_f32", "kv_bf16"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+@pytest.mark.parametrize("head_dim", C6_WIDTHS)
+def test_paged_attend_past_8192(cuda, head_dim, q_dtype, kv_dtype):
+    """C6: K1's wide path (q, K and V from global memory, the split's sums
+    in its workspace row) at 128- and 16-token pages: a length-0 slot, a
+    page boundary and a 1100-position slot; two calls bit-equal."""
+    for ps, pb in ((128, 10), (16, 70)):
+        q, k, v, table, lengths = _paged_lengths_problem(
+            cuda, [0, ps - 1, 1100], pb, ps, heads=2, head_dim=head_dim,
+            dtype=kv_dtype)
+        q = q.to(q_dtype)
+        before = paged_attend.launches
+        out = paged_attend(q, k, v, table, lengths, page_size=ps)
+        again = paged_attend(q, k, v, table, lengths, page_size=ps)
+        torch.cuda.synchronize()
+        assert paged_attend.launches == before + 2
+        assert torch.equal(out, again)
+        torch.testing.assert_close(
+            out, _paged_attend_plain(q, k, v, table, lengths, ps),
+            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("head_dim", C6_WIDTHS)
+def test_paged_attend_int8_past_8192(cuda, head_dim, q_dtype):
+    """C6: K3's wide path at 8-, 16- and 128-token pages; two calls
+    bit-equal."""
+    for ps, pb in ((8, 140), (16, 70), (128, 10)):
+        args = _int8_paged_problem(cuda, head_dim, q_dtype,
+                                   [0, ps - 1, 1100], pb, heads=2, ps=ps)
+        out = paged_attend_int8(*args[:-1], page_size=ps)
+        again = paged_attend_int8(*args[:-1], page_size=ps)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        torch.testing.assert_close(out, _paged_attend_int8_plain(*args),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("head_dim", C6_K4_WIDTHS)
+def test_cache_attend_past_8192(cuda, head_dim, q_dtype):
+    """C6: K4's wide path at 1024 positions (8 splits of 128) on a span
+    view of a wider slab, and at one split; two calls bit-equal."""
+    q, slab = _slab_problem(cuda, 2, 2, head_dim, 1028, q_dtype)
+    view = [a[..., :1024] for a in slab]
+    mask = _slab_mask("per-row", 2, 1024)
+    out = int8_cache_attend(q, *view, mask)
+    again = int8_cache_attend(q, *view, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(
+        out, _cache_attend_plain(q, *(a.contiguous() for a in view), mask),
+        rtol=1e-5, atol=1e-5)
+    q, slab = _slab_problem(cuda, 1, 1, head_dim, 128, q_dtype)
+    mask = _slab_mask("per-row", 1, 128)
+    torch.testing.assert_close(int8_cache_attend(q, *slab, mask),
+                               _cache_attend_plain(q, *slab, mask),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
 def test_paged_restore_on_the_card(cuda, quantized):
     """The breaker's restore on a CUDA pool: shadows captured from one
@@ -1347,3 +1421,103 @@ def test_paged_restore_on_the_card(cuda, quantized):
                                shadows[old][name])
         for page in (0, 2, 3, 5, 6, 7):
             assert torch.equal(dst[name][:, page], before[name][:, page])
+
+
+def _graph_mlp(knobs, data, labels, monkeypatch):
+    """The wide MLP (784 -> 4096 tanh -> 10, minibatch 4096) in graph
+    mode at level 2 on the card, one epoch, the kernel knobs set."""
+    from veles_tpu_torch.core import prng
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.models.mlp import MLPWorkflow
+    for key, value in (("use_pallas", knobs), ("pallas_epilogue", knobs),
+                       ("precision_level", 2)):
+        monkeypatch.setattr(root.common.engine, key, value, raising=False)
+    prng.get("default").seed(1234)
+    prng.get("loader").seed(1234)
+    wf = MLPWorkflow(DummyLauncher(), layers=(4096, 10), device="cuda",
+                     loader_kwargs=dict(data=data, labels=labels,
+                                        class_lengths=[0, 4096, 8192],
+                                        minibatch_size=4096,
+                                        normalization_type="linear"),
+                     learning_rate=0.03, max_epochs=1, fused=False)
+    errors = []
+    run = wf.evaluator.run
+
+    def recorded():
+        run()
+        errors.append(int(wf.evaluator.n_err.data))
+
+    wf.evaluator.run = recorded
+    wf.initialize()
+    wf.run()
+    return wf, errors
+
+
+def test_graph_mode_wide_mlp_runs_k5(cuda, monkeypatch):
+    """Graph mode's dense products run K5 with the knobs on: the hidden
+    layer's forward on each of the 3 minibatches and its weight gradient
+    and error product on each of the 2 train ones (7 launches); the
+    result equals the knobs-off run's within the training agreement's
+    limits (n_err within 2 a minibatch, weights within 1e-4)."""
+    rng = numpy.random.RandomState(0)
+    data = rng.rand(12288, 784).astype(numpy.float32)
+    labels = rng.randint(0, 10, 12288).astype(numpy.int32)
+    before = blocked_matmul.launches
+    on, errors_on = _graph_mlp(True, data, labels, monkeypatch)
+    assert blocked_matmul.launches - before == 3 + 2 * 2
+    assert on.fused_tick is None and on.sweep_unit is None
+    before = blocked_matmul.launches
+    off, errors_off = _graph_mlp(False, data, labels, monkeypatch)
+    assert blocked_matmul.launches == before
+    assert len(errors_on) == len(errors_off) == 3
+    assert max(abs(a - b) for a, b in zip(errors_on, errors_off)) <= 2
+    for fa, fb in zip(on.forwards, off.forwards):
+        for name in ("weights", "bias"):
+            a, b = getattr(fa, name).data, getattr(fb, name).data
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def test_gd_self_attention_step_against_its_plain_route(cuda,
+                                                       monkeypatch):
+    """One GDSelfAttention step at (1, 4096, 4, 128), level 0: autograd
+    of the block on the flash route (K7 recomputed, K8 and K9) against
+    the same step on the plain attention route; every returned tensor
+    within 2e-2 of its largest element (the flash route rounds P and dS
+    to bf16, as the long-context agreement allows)."""
+    from veles_tpu_torch.dummy import DummyWorkflow
+    from veles_tpu_torch.nn.attention import GDSelfAttention, SelfAttention
+    monkeypatch.setattr(root.common.engine, "precision_level", 0,
+                        raising=False)
+    embed, heads = 512, 4
+    gen = cuda
+    fwd = SelfAttention(DummyWorkflow(), heads=heads, causal=True,
+                        residual=True)
+    gd = GDSelfAttention(DummyWorkflow(), learning_rate=0.01,
+                         gradient_moment=0.9)
+    gd.forward_unit = fwd
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x = rand(1, 4096, embed)
+    params = [rand(embed, 3 * embed, scale=embed ** -0.5),
+              rand(3 * embed, scale=0.1),
+              rand(embed, embed, scale=embed ** -0.5), rand(embed,
+                                                            scale=0.1)]
+    err = rand(1, 4096, embed, scale=1e-3)
+    velocities = [torch.zeros_like(p) for p in params]
+    hyper = torch.tensor([0.01, 0.01, 0.0, 0.0, 0.9, 0.9, 0.999, 1e-8],
+                         device="cuda")
+    launches = (flash_attention_fwd.launches, flash_attention_dkv.launches,
+                flash_attention_dq.launches)
+    flash = gd.compute(err, x, *params, *velocities, hyper)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches - launches[0],
+            flash_attention_dkv.launches - launches[1],
+            flash_attention_dq.launches - launches[2]) == (1, 1, 1)
+    monkeypatch.setattr(attn, "uses_flash", lambda *a: False)
+    plain = gd.compute(err, x, *params, *velocities, hyper)
+    assert flash_attention_fwd.launches - launches[0] == 1
+    for a, b in zip(flash, plain):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 2e-2 * b.abs().max()

@@ -253,26 +253,17 @@ def test_device_none_means_the_card(monkeypatch):
 
 @pytest.mark.parametrize("build", [
     lambda: MLPWorkflow(DummyLauncher(), device="cpu",
-                        **_kwargs(fused=False)).initialize(),
-    lambda: MLPWorkflow(DummyLauncher(), device="cpu",
                         **_kwargs(mesh=object())),
     lambda: MLPWorkflow(DummyLauncher(), device="cpu",
                         **_kwargs(evaluator="mse")),
     lambda: MLPWorkflow(DummyLauncher(), device="cpu",
                         **_kwargs(loader_cls=object)),
-], ids=["graph-mode", "mesh", "mse", "loader-cls"])
+], ids=["mesh", "mse", "loader-cls"])
 def test_later_slices_raise(build):
-    """Graph mode, a mesh, the MSE evaluator and a custom loader class are
-    later slices: they raise, they never run another path."""
+    """A mesh, the MSE evaluator and a custom loader class are later
+    slices: they raise, they never run another path."""
     with pytest.raises(NotImplementedError, match="later slice"):
         build()
-
-
-def test_unit_run_is_graph_mode():
-    """A compute unit's own run() is graph mode: it raises."""
-    twf = MLPWorkflow(DummyLauncher(), device="cpu", **_kwargs())
-    with pytest.raises(NotImplementedError, match="graph mode"):
-        twf.forwards[0].run()
 
 
 def test_unit_params_from_jax_fills_before_initialize():
@@ -311,7 +302,9 @@ def test_training_path_imports_neither_jax_nor_veles_tpu():
                 "nn.jit_unit", "nn.all2all", "nn.gd", "nn.evaluator",
                 "nn.decision", "parallel.fused", "models.standard",
                 "models.mlp", "ops.augment", "nn.conv", "nn.pooling",
-                "models.alexnet")]
+                "models.alexnet", "nn.attention", "nn.joiner",
+                "nn.kohonen", "models.kohonen", "parallel.segments",
+                "parallel.sweep")]
         for name in names:
             importlib.import_module(name)
         from veles_tpu_torch.dummy import DummyLauncher
@@ -326,6 +319,25 @@ def test_training_path_imports_neither_jax_nor_veles_tpu():
         wf.initialize()
         wf.run()
         assert wf.decision.epochs_done == 2
+        # graph mode and the SOM, with JAX still blocked
+        graph = MLPWorkflow(DummyLauncher(), layers=(8, 3), device="cpu",
+                            loader_kwargs=dict(
+                                data=rng.rand(60, 5).astype(numpy.float32),
+                                labels=rng.randint(0, 3, 60),
+                                class_lengths=[0, 20, 40],
+                                minibatch_size=16),
+                            max_epochs=1, fused=False)
+        graph.initialize()
+        graph.run()
+        assert graph.decision.epochs_done == 1
+        from veles_tpu_torch.models.kohonen import KohonenWorkflow
+        som = KohonenWorkflow(DummyLauncher(), shape=(2, 2), device="cpu",
+                              loader_kwargs=dict(
+                                  data=rng.rand(40, 5).astype(numpy.float32),
+                                  minibatch_size=16), max_epochs=1)
+        som.initialize()
+        som.run()
+        assert som.trainer.steps == 3
         leaked = [m for m in sys.modules if m.split(".")[0] in
                   ("jax", "jaxlib", "veles_tpu")
                   and sys.modules[m] is not None]
@@ -337,4 +349,4 @@ def test_training_path_imports_neither_jax_nor_veles_tpu():
                             env=env, capture_output=True, text=True,
                             timeout=120)
     assert result.returncode == 0, result.stderr
-    assert int(result.stdout.split()[-1]) == 36
+    assert int(result.stdout.split()[-1]) == 42

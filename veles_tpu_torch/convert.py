@@ -8,9 +8,12 @@ arrays (or anything ``numpy.asarray`` reads, JAX arrays included); this
 module never imports JAX.
 
 Training: :func:`unit_params_from_jax` puts a JAX workflow's unit
-parameters (weights, biases and velocities, as numpy arrays) into the
-port's units before ``initialize()``, which then draws nothing, so both
-packages train from the same state.
+parameters (weights, biases, and the GD units' state: velocities, the
+stateful solvers' second moments and step count, as numpy arrays) into
+the port's units before ``initialize()``, which then draws nothing, so
+both packages train from the same state; :func:`unit_state_of` reads
+those dicts off either package's workflow. :func:`som_weights_from_jax`
+does the same for a Kohonen map's weights.
 """
 
 import numpy
@@ -69,7 +72,12 @@ UNIT_PARAM_SLOTS = (("weights", "fwd", "weights"), ("bias", "fwd", "bias"),
                     ("velocity_w", "gd", "_velocity_w"),
                     ("velocity_b", "gd", "_velocity_b"),
                     ("velocity_ow", "gd", "_velocity_ow"),
-                    ("velocity_ob", "gd", "_velocity_ob"))
+                    ("velocity_ob", "gd", "_velocity_ob"),
+                    ("second_w", "gd", "_second_w"),
+                    ("second_b", "gd", "_second_b"),
+                    ("second_ow", "gd", "_second_ow"),
+                    ("second_ob", "gd", "_second_ob"),
+                    ("step", "gd", "_step"))
 
 
 def unit_params_from_jax(workflow, layers):
@@ -79,8 +87,9 @@ def unit_params_from_jax(workflow, layers):
     ``"velocity_w"``/``"velocity_b"`` (a conv layer's HWIO weights as
     the JAX package holds them); a self-attention or feed-forward layer
     also ``"out_weights"``/``"out_bias"`` and optionally
-    ``"velocity_ow"``/``"velocity_ob"``; a pooling layer, which has no
-    parameters, ``{}``. Each becomes an f32 tensor on the
+    ``"velocity_ow"``/``"velocity_ob"``; with the adam or adagrad solver
+    optionally ``"second_*"`` beside each velocity and ``"step"``; a
+    pooling layer, which has no parameters, ``{}``. Each becomes an f32 tensor on the
     workflow's device. A slot left out is drawn (weights) or zeroed
     (velocities) by ``initialize()`` as usual; a key the layer's units
     have no slot for raises."""
@@ -100,3 +109,40 @@ def unit_params_from_jax(workflow, layers):
             unit, attr = slots[key]
             getattr(unit, attr).data = _leaf_from_numpy(value).float().to(
                 workflow.device)
+
+
+def _host(value):
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return numpy.array(value)
+
+
+def unit_state_of(workflow):
+    """The layer dicts :func:`unit_params_from_jax` reads, from either
+    package's ``StandardWorkflow`` (JAX arrays or tensors, read as numpy):
+    every slot of :data:`UNIT_PARAM_SLOTS` the layer's units hold a value
+    in."""
+    layers = []
+    for fwd, gd in zip(workflow.forwards, workflow.gds):
+        units = {"fwd": fwd, "gd": gd}
+        layer = {}
+        for key, unit, attr in UNIT_PARAM_SLOTS:
+            slot = getattr(units[unit], attr, None)
+            value = getattr(slot, "data", None)
+            if value is not None:
+                layer[key] = _host(value)
+        layers.append(layer)
+    return layers
+
+
+def som_weights_from_jax(workflow, weights):
+    """Put a JAX Kohonen map's (gy * gx, D) weights into the port
+    ``KohonenWorkflow``'s trainer before ``initialize()`` (which then
+    draws nothing), as f32 on the workflow's device."""
+    trainer = workflow.trainer
+    expected = trainer.n_neurons
+    value = _leaf_from_numpy(weights).float()
+    if value.dim() != 2 or value.shape[0] != expected:
+        raise ValueError("%s wants (%d, D) weights, got %s"
+                         % (trainer.name, expected, tuple(value.shape)))
+    trainer.weights.data = value.to(workflow.device)

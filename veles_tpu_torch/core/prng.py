@@ -95,6 +95,13 @@ class RandomGenerator(Logger):
         with self._lock:
             return self._numpy.integers(low, high, size)
 
+    def normal(self, loc=0.0, scale=1.0, size=None):
+        """Normal draws from the host stream (numpy's ``Generator.normal``,
+        as the JAX package draws them: the Kohonen map's initial
+        weights)."""
+        with self._lock:
+            return self._numpy.normal(loc, scale, size)
+
 
 _registry = {}
 _registry_lock = threading.Lock()

@@ -1,1 +1,2 @@
-"""Model workflows: StandardWorkflow and the MLP family."""
+"""Model workflows: StandardWorkflow, the MLP family, AlexNet and the
+Kohonen SOM."""

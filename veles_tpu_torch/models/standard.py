@@ -27,12 +27,20 @@ the conv slice ``conv``, ``conv_tanh``, ``conv_relu``,
 may be embedded in each spec under "trainer"; workflow-level defaults
 apply otherwise.
 
+Execution: ``fused="auto"`` (the default) splices the fused tick
+(``parallel/fused.py``) where ``fused.supports()`` holds and otherwise
+the lower fusion tiers: the sweep tier (``parallel/sweep.py``) where every
+host unit in the cycle is sweep-transparent, else the segment tier
+(``parallel/segments.py``), else graph mode, as the JAX package's
+``standard.py:232-307`` does. ``fused=True`` raises ValueError where the
+fused tick does not support the topology; ``fused=False`` is graph mode:
+every unit fires its own compute.
+
 ``device=None`` means "cuda" and raises without a card unless the caller
 passes ``device="cpu"``. Later slices, which raise
-``NotImplementedError`` here rather than run another path: graph mode
-(``fused=False``, or an ``"auto"`` topology the fused tick does not
-support), the MSE evaluator, a mesh (ring and Ulysses attention with
-it), a custom loader class, and the fleet (master/slave) modes.
+``NotImplementedError`` here rather than run another path: the MSE
+evaluator, a mesh (ring and Ulysses attention with it), a custom loader
+class, and the fleet (master/slave) modes.
 """
 
 from veles_tpu_torch.core.plumbing import Repeater
@@ -86,8 +94,8 @@ class StandardWorkflow(Workflow):
                  decision_kwargs=None, device=None, **kwargs):
         self.layer_defaults = {k: kwargs.pop(k) for k in TRAINER_KEYS
                                if k in kwargs}
-        #: fused tick mode: True or "auto" (both run the fused tick;
-        #: "auto" is the default); False is graph mode, a later slice
+        #: fused tick mode: True, False (graph mode) or "auto" (the fused
+        #: tick where the topology supports it, else the lower tiers)
         self.fused = kwargs.pop("fused", "auto")
         #: sweep serving: one tick per class sweep instead of one per
         #: minibatch
@@ -108,6 +116,7 @@ class StandardWorkflow(Workflow):
                 raise ValueError("unknown layer type %r" % spec["type"])
         self.device = resolve_device(device)
         self.fused_tick = None
+        self.sweep_unit = None
         super().__init__(workflow, **kwargs)
         self.repeater = Repeater(self)
         self.repeater.link_from(self.start_point)
@@ -130,26 +139,27 @@ class StandardWorkflow(Workflow):
         if not self.is_standalone:
             raise NotImplementedError(
                 "fleet (master/slave) mode is a later slice of the port")
-        if not self.fused:
-            raise NotImplementedError(
-                "graph mode (fused=False: the units' own computes and "
-                "backward) is a later slice of the port")
-        self._enable_fused()
+        if self.fused:
+            self._enable_fused()
         return super().initialize(**kwargs)
 
     def _enable_fused(self):
         """Splice the FusedTick in place of the per-unit compute chain:
-        loader → FusedTick → decision (see parallel/fused.py). The units
-        stay constructed — they own the weights."""
+        loader → FusedTick → decision (see parallel/fused.py); where the
+        fused tick does not support the topology, ``fused=True`` raises
+        and ``"auto"`` takes the lower tiers (:meth:`_enable_segments`).
+        The units stay constructed: they own the weights."""
         from veles_tpu_torch.parallel import fused
 
         if self.fused_tick is not None:
             return
         if not fused.supports(self):
-            raise NotImplementedError(
-                "this topology is not one the fused tick supports (see "
-                "parallel/fused.py supports()); the lower fusion tiers "
-                "and graph mode are later slices of the port")
+            if self.fused is True:
+                raise ValueError(
+                    "fused=True but the topology/loader is not fusible "
+                    "(see parallel/fused.py supports())")
+            self._enable_segments()
+            return
         self.fused_tick = fused.FusedTick(
             self, name="fused_tick",
             pipelined=bool(self.fused_pipeline and self.fused_sweep))
@@ -172,6 +182,57 @@ class StandardWorkflow(Workflow):
                   "class sweep" if self.loader.sweep_serving
                   else "minibatch", self.device)
 
+    def _enable_segments(self):
+        """The lower fusion tiers for chains the fused tick declines (an
+        unknown or custom layer, a custom unit spliced into the chain):
+
+        - the sweep tier (``parallel/sweep.py``): the whole cycle run over
+          class sweeps where every host unit in the cycle is
+          sweep-transparent (``fused_sweep=False`` opts out);
+        - the segment tier (``parallel/segments.py``): runs of consecutive
+          JitUnits as one composite unit each, where a host unit needs
+          per-tick slot access.
+
+        Where neither applies the chain stays in graph mode."""
+        from veles_tpu_torch.parallel import segments as seg_mod
+        from veles_tpu_torch.parallel import sweep as sweep_mod
+
+        if any(isinstance(u, (seg_mod.FusedSegment, sweep_mod.FusedSweep))
+               for u in self.units):
+            return  # the splice is already in place
+        swept = None
+        if self.fused_sweep:
+            swept = sweep_mod.enable(self,
+                                     pipelined=bool(self.fused_pipeline))
+        if swept is not None:
+            self.info("sweep-tier fusion: %d compute unit(s) run per class "
+                      "sweep (%d host unit(s) fire per tick)",
+                      len(swept.members), len(swept.hosts))
+            return
+        created = seg_mod.enable(self)
+        if created:
+            self.info("partial fusion: %d segment(s): %s", len(created),
+                      ", ".join(s.name for s in created))
+
+    def _disable_fused(self):
+        """Reverse the FusedTick splice: the per-unit chain fires again."""
+        tick = self.fused_tick
+        if tick is None:
+            return
+        self.fused_tick = None
+        tick.unlink_from(self.loader)
+        self.decision.unlink_from(tick)
+        self.repeater.unlink_from(self.decision)
+        self.del_ref(tick)
+        self.forwards[0].link_from(self.loader)
+        self.decision.link_from(self.evaluator)
+        self.gds[-1].link_from(self.decision)
+        self.repeater.link_from(self.gds[0])
+        self.end_point.link_from(self.gds[0])
+        self.loader.gate_block = self.decision.complete
+        self.loader.fill_data = True
+        self.loader.sweep_serving = False
+
     def run(self):
         if bool(self.decision.complete):
             # the loader gate is blocked, so firing the start point would
@@ -183,11 +244,13 @@ class StandardWorkflow(Workflow):
         return super().run()
 
     def on_workflow_finished(self):
-        # fused mode writes unit-Array weights back on EVAL ticks (the
-        # evaluated state); the final post-train state lands here
-        if self.fused_tick is not None:
+        # the fused tick and the sweep tier write unit-Array weights back
+        # on EVAL ticks (the evaluated state); the final post-train state
+        # lands here, from whichever unit owns the params
+        sync_owner = self.fused_tick or self.sweep_unit
+        if sync_owner is not None:
             try:
-                self.fused_tick.sync_params()
+                sync_owner.sync_params()
             except Exception:
                 # also reached via on_error: a raise here would swallow
                 # _sync_event_.set() and hang run() forever, masking the
@@ -235,6 +298,10 @@ class StandardWorkflow(Workflow):
             if gd_cls is GDPooling:
                 gd = GDPooling(self, name="gd%d" % i)
                 gd.link_pooling(self.forwards[i], err_src)
+            elif issubclass(gd_cls, GDSelfAttention):
+                # covers GDTokenFFN too (the same four-leaf slot contract)
+                gd = gd_cls(self, name="gd%d" % i, **trainer)
+                gd.link_attention(self.forwards[i], err_src)
             elif issubclass(gd_cls, GDConv):
                 gd = gd_cls(self, name="gd%d" % i, **trainer)
                 gd.link_conv(self.forwards[i], err_src)

@@ -1,2 +1,2 @@
-"""The training units: forward layers, gradient-descent weight owners,
-the evaluator and the decision."""
+"""The training units: forward layers and their gradient-descent twins,
+the evaluator, the decision, the input joiner and the Kohonen map."""

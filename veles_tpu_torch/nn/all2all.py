@@ -6,10 +6,13 @@ U(-stddev, stddev) on the workflow's device from the unit's named PRNG
 stream, ``1/sqrt(fan_in)`` unless ``weights_stddev`` is given; the
 numbers differ from the JAX package's (torch's generator, not threefry),
 so runs that must agree carry weights across
-(``veles_tpu_torch.convert.workflow_params_from_jax``). The layer math
-(``act(x @ W + b)``) runs in the fused tick through
-``ops/gemm.dense_layer``; the softmax head emits logits and the softmax
-lives in the evaluator's cross-entropy.
+(``veles_tpu_torch.convert.unit_params_from_jax``). The layer math,
+``act(x @ W + b)``, runs in the fused tick through ``ops/gemm.dense_layer``
+and in the unit's own :meth:`All2All.compute` (graph mode and the lower
+fusion tiers, ``all2all.py:97-121``) through ``ops/gemm.matmul``, so an
+eligible product runs K5 with ``root.common.engine.use_pallas`` on, as
+the JAX unit reaches ``pallas_matmul``. The softmax head emits logits (and
+their argmax); the softmax lives in the evaluator's cross-entropy.
 """
 
 import math
@@ -19,6 +22,8 @@ import torch
 from veles_tpu_torch.core.prng import get as get_rng
 from veles_tpu_torch.memory import Array
 from veles_tpu_torch.nn.jit_unit import ForwardUnit
+from veles_tpu_torch.ops import activations
+from veles_tpu_torch.ops.gemm import matmul
 
 
 class All2All(ForwardUnit):
@@ -71,6 +76,14 @@ class All2All(ForwardUnit):
             self.output.data = torch.zeros(
                 (batch,) + self.output_sample_shape, device=device)
 
+    def compute(self, x, weights, bias):
+        x = x.reshape(x.shape[0], -1)
+        pre = matmul(x, weights, out_dtype=torch.float32) + bias
+        out = activations.ACTIVATIONS[self.ACTIVATION][0](pre)
+        if len(self.output_sample_shape) > 1:
+            out = out.reshape((x.shape[0],) + self.output_sample_shape)
+        return out
+
 
 class All2AllTanh(All2All):
     """Scaled-tanh dense layer (Znicz All2AllTanh, 1.7159·tanh(0.6666x))."""
@@ -92,8 +105,13 @@ class All2AllSigmoid(All2All):
 
 
 class All2AllSoftmax(All2All):
-    """Classifier head. Emits **logits**; the softmax lives fused inside
-    the evaluator's cross-entropy."""
+    """Classifier head. Emits **logits** in ``output`` plus their argmax
+    in ``max_idx``; the softmax lives fused inside the evaluator's
+    cross-entropy."""
 
     ACTIVATION = "linear"
     OUTPUTS = ("output", "max_idx")
+
+    def compute(self, x, weights, bias):
+        logits = super().compute(x, weights, bias)
+        return logits, logits.argmax(dim=-1)

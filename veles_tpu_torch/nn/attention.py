@@ -14,11 +14,15 @@ the JAX package's order, the biases are zeros; the numbers are torch's,
 not threefry's, so runs that must agree carry weights across
 (``veles_tpu_torch.convert.unit_params_from_jax``).
 
-The math runs in the fused tick through ``ops/attention.attention_block``
-and ``ffn_block`` (``parallel/fused.py``). The GD units own the
-velocities of all four leaves (two for the layer norm) and the hyper
-slots. Graph mode, the units' own computes and backward, is a later
-slice, as it is for the dense units.
+The math runs through ``ops/attention.attention_block`` and ``ffn_block``
+in the fused tick (``parallel/fused.py``) and in the units' own computes
+(graph mode and the lower fusion tiers, ``attention.py:77-269``): at T >=
+4096 positions with 128-wide heads on the card the attention is the flash
+kernel K7. The GD units own the velocities of all four leaves (two for
+the layer norm) and the hyper slots; their backward is autograd of the
+forward unit's own function (``nn/gd.vjp``, where the JAX package calls
+``jax.vjp``), which recomputes the forward (K7 again) and runs the flash
+backward K8 and K9 through the flash attention's autograd function.
 """
 
 import math
@@ -27,9 +31,10 @@ import torch
 
 from veles_tpu_torch.core.prng import get as get_rng
 from veles_tpu_torch.memory import Array
-from veles_tpu_torch.nn.gd import GradientDescent
+from veles_tpu_torch.nn.gd import GradientDescent, vjp
 from veles_tpu_torch.nn.jit_unit import ForwardUnit
-from veles_tpu_torch.ops.attention import _FFN_ACTIVATIONS
+from veles_tpu_torch.ops.attention import (_FFN_ACTIVATIONS,
+                                           attention_block, ffn_block)
 
 
 def _missing(slot):
@@ -77,6 +82,14 @@ class SelfAttention(ForwardUnit):
         if self.output.data is None:
             self.output.data = torch.zeros(self.input.shape, device=device)
 
+    def _forward(self, x, w_qkv, b_qkv, w_out, b_out):
+        # the fused tick's block math, residual included
+        return attention_block(x, w_qkv, b_qkv, w_out, b_out, self.heads,
+                               self.causal, self.residual)
+
+    def compute(self, x, w_qkv, b_qkv, w_out, b_out):
+        return self._forward(x, w_qkv, b_qkv, w_out, b_out)
+
 
 class TokenFFN(ForwardUnit):
     """Position-wise feed-forward block ``act(x @ w1 + b1) @ w2 + b2``
@@ -120,6 +133,12 @@ class TokenFFN(ForwardUnit):
         if self.output.data is None:
             self.output.data = torch.zeros(self.input.shape, device=device)
 
+    def _forward(self, x, w1, b1, w2, b2):
+        return ffn_block(x, w1, b1, w2, b2, self.activation, self.residual)
+
+    def compute(self, x, w1, b1, w2, b2):
+        return self._forward(x, w1, b1, w2, b2)
+
 
 class LayerNorm(ForwardUnit):
     """Layer normalization over the last axis with a learned scale and
@@ -146,12 +165,21 @@ class LayerNorm(ForwardUnit):
         if self.output.data is None:
             self.output.data = torch.zeros(self.input.shape, device=device)
 
+    def _forward(self, x, scale, shift):
+        # the population variance, as jnp.var
+        mean = x.mean(dim=-1, keepdim=True)
+        var = x.var(dim=-1, keepdim=True, correction=0)
+        return (x - mean) * torch.rsqrt(var + self.eps) * scale + shift
+
+    def compute(self, x, scale, shift):
+        return self._forward(x, scale, shift)
+
 
 class GDSelfAttention(GradientDescent):
-    """The optimizer state of a :class:`SelfAttention`: the velocities
-    (and second moments) of both projections and both biases. In the
-    fused tick every leaf takes the weight decay, the biases at
-    ``learning_rate_bias`` (``parallel/fused._ATTN_LEAVES``)."""
+    """Backward for :class:`SelfAttention` by autograd of its forward:
+    updates both projections and both biases, each leaf with the weight
+    decay, the biases at ``learning_rate_bias`` (the fused tick's
+    ``_ATTN_LEAVES``)."""
 
     LEAVES = (("weights", "_velocity_w"), ("bias", "_velocity_b"),
               ("out_weights", "_velocity_ow"), ("out_bias", "_velocity_ob"))
@@ -164,15 +192,49 @@ class GDSelfAttention(GradientDescent):
     #: the JAX package's name for the wiring of all four leaves
     link_attention = GradientDescent.link_forward
 
+    def compute(self, err_output, x, w_qkv, b_qkv, w_out, b_out,
+                vel_w, vel_b, vel_ow, vel_ob, *rest):
+        solver_upd, hyper, secs, extras = self._unpack_solver(
+            rest, n_leaves=4)
+        lr, lr_b, l2, l1 = hyper[0], hyper[1], hyper[2], hyper[3]
+        err_input, g_qkv, g_bqkv, g_out, g_bout = vjp(
+            self.forward_unit._forward, (x, w_qkv, b_qkv, w_out, b_out),
+            err_output)
+
+        def upd(w, g, v, sec, rate):
+            g = g + l2 * w + l1 * torch.sign(w)
+            return solver_upd(w, g, v, sec, rate)
+
+        w_qkv, vel_w, sec_w = upd(w_qkv, g_qkv, vel_w, secs[0], lr)
+        b_qkv, vel_b, sec_b = upd(b_qkv, g_bqkv, vel_b, secs[1], lr_b)
+        w_out, vel_ow, sec_ow = upd(w_out, g_out, vel_ow, secs[2], lr)
+        b_out, vel_ob, sec_ob = upd(b_out, g_bout, vel_ob, secs[3], lr_b)
+        return (err_input, w_qkv, b_qkv, w_out, b_out,
+                vel_w, vel_b, vel_ow, vel_ob) \
+            + extras((sec_w, sec_b, sec_ow, sec_ob))
+
 
 class GDTokenFFN(GDSelfAttention):
-    """The optimizer state of a :class:`TokenFFN`: the same four-leaf
-    slot contract as :class:`GDSelfAttention`."""
+    """Backward for :class:`TokenFFN`: :class:`GDSelfAttention`'s
+    four-leaf update (the same slot contract)."""
 
     link_ffn = GradientDescent.link_forward
 
 
 class GDLayerNorm(GradientDescent):
-    """The optimizer state of a :class:`LayerNorm`: scale and shift; in
-    the fused tick the scale takes the weight decay and the shift does
-    not (``_WB_LEAVES``)."""
+    """Backward for :class:`LayerNorm` by autograd of its forward: trains
+    the scale (with the weight decay) and the shift (without), and routes
+    the input error."""
+
+    def compute(self, err_output, x, y, scale, shift, vel_w, vel_b,
+                *rest):
+        upd, hyper, (sec_w, sec_b), extras = self._unpack_solver(rest)
+        lr, lr_b, l2, l1 = hyper[0], hyper[1], hyper[2], hyper[3]
+        err_input, g_scale, g_shift = vjp(self.forward_unit._forward,
+                                          (x, scale, shift), err_output)
+        g_scale = g_scale + l2 * scale + l1 * torch.sign(scale)
+        new_w, new_vel_w, new_sec_w = upd(scale, g_scale, vel_w, sec_w, lr)
+        new_b, new_vel_b, new_sec_b = upd(shift, g_shift, vel_b, sec_b,
+                                          lr_b)
+        return (err_input, new_w, new_b, new_vel_w, new_vel_b) \
+            + extras((new_sec_w, new_sec_b))

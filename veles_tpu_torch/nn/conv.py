@@ -10,8 +10,12 @@ threefry's, so runs that must agree carry weights across.
 
 The layer math, ``act(conv2d(x, w) + b)`` through ``ops/gemm.conv2d``
 (the precision policy, XLA's "SAME" padding), runs in the fused tick
-(``parallel/fused.py``); its gradients are autograd's. The GD units own
-the velocities and the hyper slots, as the dense ones do.
+(``parallel/fused.py``) and in the units' own computes (graph mode and
+the lower fusion tiers, ``conv.py:79-128``). The backward is autograd of
+the paired forward's pre-activation (``nn/gd.vjp``), where the JAX
+package calls ``jax.vjp``: the conv's own backward (cuDNN on the card,
+TF32 off at levels 1 and 2). The GD units own the velocities and the
+hyper slots, as the dense ones do.
 """
 
 import math
@@ -20,9 +24,10 @@ import torch
 
 from veles_tpu_torch.core.prng import get as get_rng
 from veles_tpu_torch.memory import Array
-from veles_tpu_torch.nn.gd import GradientDescent
+from veles_tpu_torch.nn.gd import GradientDescent, vjp
 from veles_tpu_torch.nn.jit_unit import ForwardUnit
-from veles_tpu_torch.ops.gemm import conv_output_hw
+from veles_tpu_torch.ops import activations
+from veles_tpu_torch.ops.gemm import conv2d, conv_output_hw
 
 
 class Conv(ForwardUnit):
@@ -71,6 +76,13 @@ class Conv(ForwardUnit):
             self.output.data = torch.zeros(
                 (in_shape[0], oh, ow, self.n_kernels), device=device)
 
+    def _pre_activation(self, x, weights, bias):
+        return conv2d(x, weights, self.sliding, self.padding) + bias
+
+    def compute(self, x, weights, bias):
+        act = activations.ACTIVATIONS[self.ACTIVATION][0]
+        return act(self._pre_activation(x, weights, bias))
+
 
 class ConvTanh(Conv):
     ACTIVATION = "tanh"
@@ -85,13 +97,27 @@ class ConvStrictRELU(Conv):
 
 
 class GDConv(GradientDescent):
-    """The optimizer state of a :class:`Conv`: the weight and bias
-    velocities and the hyper slots."""
+    """Backward unit for :class:`Conv`: the exact adjoint by autograd of
+    the paired forward's pre-activation, and the update."""
 
     def link_conv(self, conv_unit, err_source):
         """Wire this GD unit to its conv twin and the error source."""
-        self.forward_unit = conv_unit
         return self.link_forward(conv_unit, err_source)
+
+    def compute(self, err_output, x, y, weights, bias, vel_w, vel_b,
+                *rest):
+        upd, hyper, (sec_w, sec_b), extras = self._unpack_solver(rest)
+        lr, lr_b, l2, l1 = hyper[0], hyper[1], hyper[2], hyper[3]
+        err_pre = err_output * activations.ACTIVATIONS[self.ACTIVATION][1](y)
+        err_input, grad_w, grad_b = vjp(self.forward_unit._pre_activation,
+                                        (x, weights, bias), err_pre)
+        grad_w = grad_w + l2 * weights + l1 * torch.sign(weights)
+        new_w, new_vel_w, new_sec_w = upd(weights, grad_w, vel_w, sec_w,
+                                          lr)
+        new_b, new_vel_b, new_sec_b = upd(bias, grad_b, vel_b, sec_b,
+                                          lr_b)
+        return (err_input, new_w, new_b, new_vel_w, new_vel_b) \
+            + extras((new_sec_w, new_sec_b))
 
 
 class GDConvTanh(GDConv):

@@ -1,20 +1,37 @@
-"""EvaluatorSoftmax: the loss and metric slots of the softmax path.
+"""Evaluator units: loss, error signal and metrics.
 
-The port of ``veles_tpu/nn/evaluator.py`` as the fused tick uses it: the
-unit links the last forward's ``output`` and the loader's labels and
-mask, and owns the ``loss``, ``n_err`` and ``confusion_matrix`` slots
-that the tick fills and the Decision reads (device tensors, read on the
-host only at epoch boundaries). Its own compute (graph mode) is a later
-slice; the MSE evaluator too.
+The port of ``veles_tpu/nn/evaluator.py:25-61`` (the Znicz
+EvaluatorSoftmax contract): the unit consumes the last forward's
+``output`` and the loader's labels and mask, emits ``err_output`` for the
+gradient chain and the metric slots (``loss``, ``n_err``,
+``confusion_matrix``) the Decision reads at epoch boundaries, as device
+tensors. The softmax, the cross-entropy and its gradient are one masked
+computation over the logits (``ops/losses.masked_softmax_xent``); the
+0/1 ``sample_mask`` zeroes the padded rows of a short final minibatch.
+In the fused tick the tick fills the same slots. The MSE evaluator is a
+later slice.
 """
 
+import torch
+
 from veles_tpu_torch.nn.jit_unit import JitUnit
+from veles_tpu_torch.ops import losses
 
 
-class EvaluatorSoftmax(JitUnit):
-    """Softmax cross-entropy evaluator (Znicz EvaluatorSoftmax)."""
+class EvaluatorBase(JitUnit):
 
+    hide_from_registry = True
     VIEW_GROUP = "EVALUATOR"
+
+    def __init__(self, workflow, **kwargs):
+        super().__init__(workflow, **kwargs)
+        self.input = None          # forward output (linked)
+        self.sample_mask = None    # loader-provided validity mask (linked)
+        self.demand("input")
+
+
+class EvaluatorSoftmax(EvaluatorBase):
+    """Softmax cross-entropy evaluator (Znicz EvaluatorSoftmax)."""
 
     INPUTS = ("input", "labels", "sample_mask")
     OUTPUTS = ("err_output", "loss", "n_err", "max_err_output_sum",
@@ -23,7 +40,17 @@ class EvaluatorSoftmax(JitUnit):
     def __init__(self, workflow, **kwargs):
         self.compute_confusion = kwargs.pop("compute_confusion", True)
         super().__init__(workflow, **kwargs)
-        self.input = None          # forward output (linked)
-        self.sample_mask = None    # loader-provided validity mask (linked)
-        self.labels = None         # linked from loader.minibatch_labels
-        self.demand("input", "labels")
+        self.labels = None  # linked from loader.minibatch_labels
+        self.demand("labels")
+
+    def compute(self, logits, labels, mask):
+        n_classes = logits.shape[-1]
+        valid = mask.sum().clamp(min=1.0)
+        err, loss_sum, n_err, _ = losses.masked_softmax_xent(
+            logits, labels, mask, valid)
+        if self.compute_confusion:
+            cm = losses.confusion_matrix(logits, labels, n_classes, mask)
+        else:
+            cm = torch.zeros((n_classes, n_classes), dtype=torch.int32,
+                             device=logits.device)
+        return err, loss_sum / valid, n_err, err.abs().max(), cm

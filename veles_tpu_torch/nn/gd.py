@@ -1,12 +1,20 @@
-"""Gradient-descent units: the owners of the optimizer state.
+"""Gradient-descent units: the backward chain and the optimizer state.
 
-The port of ``veles_tpu/nn/gd.py`` as the fused tick uses it. Each GD unit
-mirrors one forward unit, links its ``weights``/``bias`` slots, and owns
-the per-leaf velocities, the second moments and step count of the
-stateful solvers, and ``_hyper``, the hyperparameter vector the tick
-reads every step (so ``set_learning_rate`` anneals without rebuilding
-anything). The per-leaf update is :func:`make_updater`, the JAX package's
-``gd.py:44-74``:
+The port of ``veles_tpu/nn/gd.py`` (the Znicz GradientDescent family).
+Each GD unit mirrors one forward unit, links its ``weights``/``bias``
+slots, and owns the per-leaf velocities, the second moments and step
+count of the stateful solvers, and ``_hyper``, the hyperparameter vector
+read every step (so ``set_learning_rate`` anneals without rebuilding
+anything). In graph mode and the lower fusion tiers a unit's own
+:meth:`GradientDescent.compute` runs the layer's whole backward step
+(``gd.py:207-228``): the activation derivative, the weight gradient
+``x.T @ err`` and the error product ``err @ W.T`` through
+``ops/gemm.matmul`` (K5 where the engine knobs and the gate allow), and
+the update; the fused tick runs the same per-leaf math. The units whose
+forward has no hand-written adjoint (conv, the blocks, the layer norm)
+take their gradients from :func:`vjp`, autograd of the forward unit's
+own function, where the JAX package calls ``jax.vjp``. The per-leaf
+update is :func:`make_updater`, the JAX package's ``gd.py:44-74``:
 
     momentum: v ← μ·v − λ·g;  W ← W + v
     adagrad:  s ← s + g²;  W ← W − λ·g / (√s + ε)
@@ -14,14 +22,15 @@ anything). The per-leaf update is :func:`make_updater`, the JAX package's
               W ← W − λ·(m/(1−β₁ᵗ)) / (√(s/(1−β₂ᵗ)) + ε)
 
 with ``g`` already regularized (``+ Λ₂·W + Λ₁·sign(W)`` where the leaf's
-policy says so). The units' own backward (graph mode) and the fleet
-payloads are later slices.
+policy says so). The fleet payloads are a later slice.
 """
 
 import torch
 
 from veles_tpu_torch.memory import Array
 from veles_tpu_torch.nn.jit_unit import JitUnit
+from veles_tpu_torch.ops import activations
+from veles_tpu_torch.ops.gemm import matmul
 
 SOLVERS = ("momentum", "adam", "adagrad")
 
@@ -56,8 +65,17 @@ def make_updater(solver, hyper, step):
     return upd
 
 
+def vjp(fn, primals, cotangent):
+    """The gradients of ``fn(*primals)`` against each primal, pulled back
+    from ``cotangent`` (``jax.vjp``'s pullback): autograd of the forward,
+    which it recomputes, under ``torch.enable_grad()``."""
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_(True) for p in primals]
+        return torch.autograd.grad(fn(*leaves), leaves, cotangent)
+
+
 class GradientDescent(JitUnit):
-    """Optimizer-state owner paired with an All2All (linear activation)."""
+    """Backward unit for All2All (linear activation)."""
 
     ACTIVATION = "linear"
     VIEW_GROUP = "TRAINER"
@@ -86,8 +104,18 @@ class GradientDescent(JitUnit):
         self.adam_epsilon = kwargs.pop("adam_epsilon", 1e-8)
         super().__init__(workflow, **kwargs)
         if self.solver != "momentum":
+            # second moments and the shared step count as extra slots:
+            # instance INPUTS/OUTPUTS extend the class tuples (compute and
+            # the lower fusion tiers read self.INPUTS)
+            self._second_slots_ = tuple(_second(velocity)
+                                        for _, velocity in self.LEAVES)
             self._step = Array()
+            extra = self._second_slots_ + ("_step",)
+            base_in = type(self).INPUTS
+            self.INPUTS = base_in[:-1] + extra + base_in[-1:]
+            self.OUTPUTS = type(self).OUTPUTS + extra
         # linked from the paired forward unit:
+        self.forward_unit = None
         self.input = None
         self.output = None
         for param, velocity in self.LEAVES:
@@ -103,6 +131,7 @@ class GradientDescent(JitUnit):
     def link_forward(self, forward_unit, err_source):
         """Wire this GD unit to its forward twin (input, output and every
         leaf of :attr:`LEAVES`) + the error source."""
+        self.forward_unit = forward_unit
         self.link_attrs(forward_unit, "input", "output",
                         *(param for param, _ in self.LEAVES))
         link_err_output(self, err_source)
@@ -148,6 +177,41 @@ class GradientDescent(JitUnit):
             self.learning_rate_bias *= factor
         self._refresh_hyper()
 
+    def _unpack_solver(self, rest, n_leaves=2):
+        """Split a compute()'s trailing args into (updater, hyper,
+        seconds, extra_outputs_fn): momentum's ``rest`` is ``(hyper,)``
+        and its seconds are Nones; adam's and adagrad's is ``(*seconds,
+        step, hyper)``, the step incremented here."""
+        if self.solver != "momentum":
+            *seconds, step, hyper = rest
+            step = step + 1.0
+            return (make_updater(self.solver, hyper, step), hyper,
+                    tuple(seconds),
+                    lambda new_seconds: tuple(new_seconds) + (step,))
+        (hyper,) = rest
+        return (make_updater("momentum", hyper, None), hyper,
+                (None,) * n_leaves, lambda new_seconds: ())
+
+    def compute(self, err_output, x, y, weights, bias, vel_w, vel_b,
+                *rest):
+        upd, hyper, (sec_w, sec_b), extras = self._unpack_solver(rest)
+        lr, lr_b, l2, l1 = hyper[0], hyper[1], hyper[2], hyper[3]
+        deriv = activations.ACTIVATIONS[self.ACTIVATION][1]
+        n = err_output.shape[0]
+        err_pre = err_output.reshape(n, -1) * deriv(y.reshape(n, -1))
+        x2 = x.reshape(x.shape[0], -1)
+        grad_w = matmul(x2.T, err_pre, out_dtype=torch.float32)
+        grad_w = grad_w + l2 * weights + l1 * torch.sign(weights)
+        err_input = matmul(err_pre, weights.T,
+                           out_dtype=torch.float32).reshape(x.shape)
+        grad_b = err_pre.sum(dim=0)
+        new_w, new_vel_w, new_sec_w = upd(weights, grad_w, vel_w, sec_w,
+                                          lr)
+        new_b, new_vel_b, new_sec_b = upd(bias, grad_b, vel_b, sec_b,
+                                          lr_b)
+        return (err_input, new_w, new_b, new_vel_w, new_vel_b) \
+            + extras((new_sec_w, new_sec_b))
+
 
 def _second(velocity):
     """The second-moment slot beside a velocity slot."""
@@ -181,6 +245,7 @@ class GDSigmoid(GradientDescent):
 
 
 class GDSoftmax(GradientDescent):
-    """Paired with All2AllSoftmax: the evaluator's error is already
-    d(loss)/d(logits)."""
+    """Backward for All2AllSoftmax: the evaluator's error is already
+    d(loss)/d(logits) (the softmax folded into the cross-entropy's
+    gradient), so the activation derivative is the identity."""
     ACTIVATION = "linear"

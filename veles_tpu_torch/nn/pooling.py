@@ -14,17 +14,21 @@ the units and the fused tick (``parallel/fused.py``):
   windows: ``where(|mx| >= |mn|, mx, mn)`` with ``mn = -max_pool(-x)``
   (a +x / -x tie keeps +x).
 
-The gradients are autograd's. On a tie a max pool's gradient goes to the
-first element of the window in row-major order: JAX's select-and-scatter
-rule, and ``max_pool2d``'s. The pools are plain torch ops on either
-device; the JAX package runs XLA's ``reduce_window`` here, no TPU kernel.
+The gradients are autograd's (:class:`GDPooling` pulls the error back
+through the pool, as the JAX unit through ``jax.vjp``). On a tie a max
+pool's gradient goes to the first element of the window in row-major
+order: JAX's select-and-scatter rule, and ``max_pool2d``'s. The pools are
+plain torch ops on either device; the JAX package runs XLA's
+``reduce_window`` here, no TPU kernel.
 """
 
 import torch
 import torch.nn.functional as F
 
-from veles_tpu_torch.nn.jit_unit import ForwardUnit, JitUnit
+from veles_tpu_torch.core.units import Unit
 from veles_tpu_torch.memory import Array
+from veles_tpu_torch.nn.gd import vjp
+from veles_tpu_torch.nn.jit_unit import ForwardUnit
 
 
 def max_pool(x, window, sliding):
@@ -92,6 +96,12 @@ class Pooling(ForwardUnit):
             self.output.data = torch.zeros((n, oh, ow, channels),
                                            device=self.workflow.device)
 
+    def _pool(self, x):
+        return POOLS[self.KIND](x, self.window, self.sliding)
+
+    def compute(self, x):
+        return self._pool(x)
+
 
 class MaxPooling(Pooling):
     KIND = "max"
@@ -106,9 +116,10 @@ class MaxAbsPooling(Pooling):
     KIND = "maxabs"
 
 
-class GDPooling(JitUnit):
+class GDPooling(Unit):
     """The backward twin of any :class:`Pooling`: no parameters, only the
-    error routed back (in the fused tick, by autograd through the pool)."""
+    error routed back through the pool (a host unit to the lower fusion
+    tiers, as in the JAX package: it has no compute of its own)."""
 
     VIEW_GROUP = "TRAINER"
 
@@ -126,3 +137,9 @@ class GDPooling(JitUnit):
         self.link_attrs(pooling_unit, "input")
         link_err_output(self, err_source)
         return self
+
+    def run(self):
+        with torch.no_grad():
+            self.err_input.data, = vjp(self.forward_unit._pool,
+                                       (self.input.data,),
+                                       self.err_output.data)

@@ -40,7 +40,10 @@
 // A masked position's addend (-1e30) makes its exp an exact zero once a
 // visible position has set the max; an all-masked split weighs zero in
 // the merge, and an all-masked row gets the uniform softmax one pass
-// gives. q is pre-scaled by 1/sqrt(D) by the caller.
+// gives. q is pre-scaled by 1/sqrt(D) by the caller. Past D = 8192 the
+// wide path (wide_attend.cuh) reads q, the codes, scales and mask from
+// global memory and keeps the split's sums in its workspace row: no width
+// limit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +53,7 @@
 #include "int8_tile.cuh"
 #include "sm90.cuh"           // SmemOptIn
 #include "split_softmax.cuh"
+#include "wide_attend.cuh"
 
 namespace {
 
@@ -204,6 +208,65 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq,
   return (int)cudaGetLastError();
 }
 
+// ---- past kMaxHeadDim: q, codes, scales and mask read from global
+// memory, the split's accumulator in its workspace row
+// (wide_attend.cuh) ----
+
+// one split's positions from t_begin: row d of the (row, head)'s codes
+// holds consecutive positions, so the group's codes of one d share a
+// sector
+template <typename TQ>
+struct Int8SlabSource {
+  const TQ* qv;
+  const int8_t* krow;  // position t_begin of row d = 0
+  const int8_t* vrow;
+  const float* ks;     // position t_begin
+  const float* vs;
+  const float* mrow;
+  long long code_sd;
+  int t0;
+  __device__ float q(int d) const { return to_f32(qv[d]); }
+  __device__ void group(int first, int) { t0 = first; }
+  __device__ float k(int i, int d) const {
+    return (float)krow[(size_t)d * code_sd + t0 + i];
+  }
+  __device__ float v(int i, int d) const {
+    return (float)vrow[(size_t)d * code_sd + t0 + i];
+  }
+  __device__ float score(int i, float dot) const {
+    return fmaf(dot, ks[t0 + i], mrow[t0 + i]);
+  }
+  __device__ float weight(int i, float p) const { return p * vs[t0 + i]; }
+};
+
+template <typename TQ>
+__global__ void __launch_bounds__(wide_attend::kThreads)
+cache_attend_int8_wide_kernel(
+    const TQ* __restrict__ q, const int8_t* __restrict__ k_q,
+    const float* __restrict__ k_scale, const int8_t* __restrict__ v_q,
+    const float* __restrict__ v_scale, const float* __restrict__ mask,
+    float* __restrict__ out, float* __restrict__ ws,
+    int* __restrict__ counters, int H, int D, int T, int chunk,
+    long long code_sb, long long code_sh, long long code_sd,
+    long long scale_sb, long long scale_sh, long long mask_sb) {
+  const int h = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
+  const int item = b * H + h;
+  const int t_begin = split * chunk;
+  const size_t code0 = (size_t)b * code_sb + (size_t)h * code_sh + t_begin;
+  const size_t scale0 =
+      (size_t)b * scale_sb + (size_t)h * scale_sh + t_begin;
+  float* acc = ws + ((size_t)item * gridDim.y + split) * D;
+  Int8SlabSource<TQ> src{q + (size_t)item * D, k_q + code0, v_q + code0,
+                         k_scale + scale0, v_scale + scale0,
+                         mask + (size_t)b * mask_sb + t_begin, code_sd, 0};
+  float m, l;
+  wide_attend::run(src, min(T, t_begin + chunk) - t_begin, D, acc, m, l);
+  __syncthreads();
+  split_softmax::finish<wide_attend::kThreads>(
+      acc, m, l, D, item, split, gridDim.y, gridDim.y, gridDim.z * H, ws,
+      counters, out + (size_t)item * D);
+}
+
 // the stage width for head width D (stage_positions); the wide tile's
 // 8-position stages copy 8 bytes a row where CV is 16
 template <typename TQ, int CV>
@@ -217,6 +280,19 @@ int launch_width(const void* q, const void* kq, const void* ks,
   launch<TQ, TPS, CV>(q, kq, ks, vq, vs, mask, out, ws, counters, B, H, D, \
                       T, chunk, code_sb, code_sh, code_sd, scale_sb,        \
                       scale_sh, mask_sb, st)
+  if (D > kMaxHeadDim) {
+    cache_attend_int8_wide_kernel<TQ>
+        <<<dim3(H, (T + chunk - 1) / chunk, B), wide_attend::kThreads, 0,
+           st>>>(static_cast<const TQ*>(q), static_cast<const int8_t*>(kq),
+                 static_cast<const float*>(ks),
+                 static_cast<const int8_t*>(vq),
+                 static_cast<const float*>(vs),
+                 static_cast<const float*>(mask), static_cast<float*>(out),
+                 static_cast<float*>(ws), static_cast<int*>(counters), H, D,
+                 T, chunk, code_sb, code_sh, code_sd, scale_sb, scale_sh,
+                 mask_sb);
+    return (int)cudaGetLastError();
+  }
   switch (stage_positions(D)) {
     case 128: return VELES_ATTEND_LAUNCH(128);
     case 64: return VELES_ATTEND_LAUNCH(64);
@@ -239,7 +315,7 @@ extern "C" int veles_cache_attend_int8(
     int code16, long long code_sb, long long code_sh, long long code_sd,
     long long scale_sb, long long scale_sh, long long mask_sb,
     void* stream) {
-  if (B < 1 || H < 1 || D < 32 || D % 32 || D > kMaxHeadDim || T < kTile ||
+  if (B < 1 || H < 1 || D < 32 || D % 32 || T < kTile ||
       T % kTile || chunk < kTile || chunk % kTile ||
       (T + chunk - 1) / chunk > split_softmax::kMaxSplits)
     return (int)cudaErrorInvalidValue;

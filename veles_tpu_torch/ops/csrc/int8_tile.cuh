@@ -31,7 +31,9 @@
 //   writes back its own d-rows in every stage (8-byte reads of 8 codes a
 //   row), so D is any width up to kMaxHeadDim, the widest at which one
 //   head's f32 q and accumulator (64 KB) and one stage fit the 227 KB a
-//   block may opt in to.
+//   block may opt in to. Past it K3 and K4 leave the tile for the wide
+//   path (wide_attend.cuh), which keeps nothing of the width in shared
+//   memory.
 // Code rows lie RS = TPS + 16 bytes apart in shared memory, so the eight
 // rows a quarter warp reads at one column hit distinct banks; the wide
 // tile's 8-byte rows lie back to back (a warp's reads of one column are
@@ -48,8 +50,9 @@ namespace int8_tile {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-// the widest head a block takes, and the widest whose value sums a thread
-// holds in registers (8 d-rows); past it the wide tile
+// the widest head the tile takes (past it the wide path), and the widest
+// whose value sums a thread holds in registers (8 d-rows); past it the
+// wide tile
 constexpr int kMaxHeadDim = 8192;
 constexpr int kRegisterHeadDim = 1024;
 

@@ -58,7 +58,10 @@
 //   shared memory beside q (read, rescaled and written back in every
 //   stage) and a stage may hold a single position, so D goes to 8192, the
 //   widest at which one head's f32 q and accumulator (64 KB) and a ring of
-//   two one-position stages fit the 227 KB a block may opt in to.
+//   two one-position stages fit the 227 KB a block may opt in to. Past
+//   8192 the wide path (wide_attend.cuh) reads q, K and V from global
+//   memory, eight positions a group, and keeps the split's sums in its row
+//   of the merge workspace: no width limit.
 // - Only visible positions count: a stage copies its visible positions
 //   only; in the tile path a position past them gets the score -inf and
 //   the weight 0 by selection and its row is never read (the lane groups
@@ -81,6 +84,7 @@
 #include "int8_tile.cuh"     // cp_async, to_f32
 #include "sm90.cuh"           // SmemOptIn
 #include "split_softmax.cuh"
+#include "wide_attend.cuh"
 
 namespace {
 
@@ -93,9 +97,10 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;            // positions per lane group per step
 constexpr int kStageRows = 16 * 1024;  // bytes of K rows (and of V) a stage
-// the widest head, and the widest whose value sums a thread holds in
-// registers (2 d-chunks); past it the split's accumulator lives in shared
-// memory
+// the widest head the stages take, and the widest whose value sums a
+// thread holds in registers (2 d-chunks); past it the split's accumulator
+// lives in shared memory; past kMaxHeadDim the wide path
+// (wide_attend.cuh) keeps nothing of the width in shared memory
 constexpr int kMaxHeadDim = 8192;
 constexpr int kRegisterHeadDim = 1024;
 // the largest dynamic shared memory a block may ask for (the opt-in), and
@@ -733,6 +738,85 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
   return (int)cudaGetLastError();
 }
 
+// ---- past kMaxHeadDim: q, K and V read from global memory, the
+// split's accumulator in its workspace row (wide_attend.cuh) ----
+
+// one split's positions: split-local position t on the split's page
+// t / ps of the table, at offset t % ps
+template <typename TQ, typename TKV>
+struct PagedSource {
+  const TQ* qv;
+  const TKV* k_pages;
+  const TKV* v_pages;
+  const int* pages;  // the split's page ids in the table
+  int ps, H, h, D;
+  float scale;
+  const TKV* krow[wide_attend::kGroup];
+  const TKV* vrow[wide_attend::kGroup];
+  __device__ float q(int d) const { return to_f32(qv[d]); }
+  __device__ void group(int t0, int n) {
+#pragma unroll
+    for (int i = 0; i < wide_attend::kGroup; ++i) {
+      if (i < n) {
+        const int t = t0 + i;
+        const size_t base =
+            (((size_t)pages[t / ps] * ps + t % ps) * H + h) * D;
+        krow[i] = k_pages + base;
+        vrow[i] = v_pages + base;
+      }
+    }
+  }
+  __device__ float k(int i, int d) const { return to_f32(krow[i][d]); }
+  __device__ float v(int i, int d) const { return to_f32(vrow[i][d]); }
+  __device__ float score(int, float dot) const { return dot * scale; }
+  __device__ float weight(int, float p) const { return p; }
+};
+
+template <typename TQ, typename TKV>
+__global__ void __launch_bounds__(wide_attend::kThreads)
+paged_attend_wide_kernel(const TQ* __restrict__ q,
+                         const TKV* __restrict__ k_pages,
+                         const TKV* __restrict__ v_pages,
+                         const int* __restrict__ page_table,
+                         const int* __restrict__ lengths,
+                         float* __restrict__ out, float* __restrict__ ws,
+                         int* __restrict__ counters, int H, int D, int PB,
+                         int ps, int pps, float scale) {
+  const int h = blockIdx.x, split = blockIdx.y, s = blockIdx.z;
+  const int span = pps * ps;
+  const int p0 = split * span;
+  const int n_vis = min(lengths[s] + 1, PB * ps);
+  if (p0 >= n_vis) return;  // past the slot's live positions
+  const int arrivals = (n_vis + span - 1) / span;
+  const int item = s * H + h;
+  float* acc = ws + ((size_t)item * gridDim.y + split) * D;
+  PagedSource<TQ, TKV> src{q + (size_t)item * D, k_pages, v_pages,
+                           page_table + (size_t)s * PB + (size_t)split * pps,
+                           ps, H, h, D, scale};
+  float m, l;
+  wide_attend::run(src, min(n_vis - p0, span), D, acc, m, l);
+  __syncthreads();
+  split_softmax::finish<wide_attend::kThreads>(
+      acc, m, l, D, item, split, gridDim.y, arrivals, gridDim.z * H, ws,
+      counters, out + (size_t)item * D);
+}
+
+template <typename TQ, typename TKV>
+int launch_wide(const void* q, const void* k, const void* v, const void* pt,
+                const void* len, void* out, void* ws, void* counters, int S,
+                int H, int D, int PB, int ps, int pps, cudaStream_t stream) {
+  const int splits = (PB + pps - 1) / pps;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  paged_attend_wide_kernel<TQ, TKV>
+      <<<dim3(H, splits, S), wide_attend::kThreads, 0, stream>>>(
+          static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+          static_cast<const TKV*>(v), static_cast<const int*>(pt),
+          static_cast<const int*>(len), static_cast<float*>(out),
+          static_cast<float*>(ws), static_cast<int*>(counters), H, D, PB, ps,
+          pps, scale);
+  return (int)cudaGetLastError();
+}
+
 // the lane-group path at head rows of 64-512 bytes; elsewhere the tile
 // path with the copy width for the row's bytes and the value pass's chunks
 // a thread (f32 rows past 512 elements take two; past kRegisterHeadDim the
@@ -747,6 +831,9 @@ int launch_width(const void* q, const void* k, const void* v, const void* pt,
 #define VELES_TILE_LAUNCH(CW, CPT)                                            \
   return launch<TQ, TKV, CW, CPT>(q, k, v, pt, len, out, ws, counters, S, H, \
                                   D, PB, ps, pps, stream)
+  if (D > kMaxHeadDim)
+    return launch_wide<TQ, TKV>(q, k, v, pt, len, out, ws, counters, S, H, D,
+                                PB, ps, pps, stream);
   const int row_bytes = D * (int)sizeof(TKV);
   switch (row_bytes) {
     case 64: VELES_LANES_LAUNCH(4);
@@ -795,10 +882,11 @@ int launch_width(const void* q, const void* k, const void* v, const void* pt,
 
 // q (S, H, D); k_pages / v_pages (P, ps, H, D); page_table (S, PB) int32;
 // lengths (S,) int32; out (S, H, D) float32; all contiguous, pools 16-byte
-// aligned. Types: 0 = float32, 1 = bfloat16. 1 <= D <= 8192. The plan:
-// splits of `pps` pages, at most split_softmax::kMaxSplits of them; with
-// more than one, ws holds S * H * splits * (D + 2) floats and counters
-// S * H zeroed ints (left zeroed). Launches on `stream` and returns the
+// aligned. Types: 0 = float32, 1 = bfloat16. D >= 1. The plan: splits of
+// `pps` pages, at most split_softmax::kMaxSplits of them; with more than
+// one, or past D = 8192 (where each split's accumulator lives there), ws
+// holds S * H * splits * (D + 2) floats; counters hold S * H zeroed ints
+// (left zeroed). Launches on `stream` and returns the
 // launch's cudaError_t.
 extern "C" int veles_paged_attend(const void* q, const void* k_pages,
                                   const void* v_pages, const void* page_table,
@@ -807,7 +895,6 @@ extern "C" int veles_paged_attend(const void* q, const void* k_pages,
                                   int ps, int pps, int q_dtype, int kv_dtype,
                                   void* stream) {
   if (S < 1 || H < 1 || PB < 1 || ps < 1 || pps < 1 || D < 1 ||
-      D > kMaxHeadDim ||
       (PB + pps - 1) / pps > split_softmax::kMaxSplits)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

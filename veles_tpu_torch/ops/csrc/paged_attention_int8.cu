@@ -55,6 +55,9 @@
 //   order (deterministic) and resets the counter; a slot with one live
 //   split writes its output from that block.
 // q is pre-scaled by 1/sqrt(D) by the caller and is not scaled again.
+// Past D = 8192 the wide path (wide_attend.cuh) reads q, the codes and the
+// scales from global memory and keeps the split's sums in its workspace
+// row: no width limit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +67,7 @@
 #include "int8_tile.cuh"
 #include "sm90.cuh"           // SmemOptIn
 #include "split_softmax.cuh"
+#include "wide_attend.cuh"
 
 namespace {
 
@@ -238,8 +242,78 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq,
   return (int)cudaGetLastError();
 }
 
+// ---- past kMaxHeadDim: q, codes and scales read from global memory,
+// the split's accumulator in its workspace row (wide_attend.cuh) ----
+
+// one split's positions: split-local position t on the split's page
+// t / ps of the table, at offset t % ps; a page's (D, ps) codes of one
+// head are contiguous, so the group's codes of one d share a sector
+template <typename TQ>
+struct Int8PagedSource {
+  const TQ* qv;
+  const int8_t* k_q;
+  const float* k_scale;
+  const int8_t* v_q;
+  const float* v_scale;
+  const int* pages;  // the split's page ids in the table
+  int ps, H, h, D;
+  const int8_t* krow[wide_attend::kGroup];
+  const int8_t* vrow[wide_attend::kGroup];
+  float ks[wide_attend::kGroup], vs[wide_attend::kGroup];
+  __device__ float q(int d) const { return to_f32(qv[d]); }
+  __device__ void group(int t0, int n) {
+#pragma unroll
+    for (int i = 0; i < wide_attend::kGroup; ++i) {
+      if (i < n) {
+        const int t = t0 + i;
+        const size_t head = (size_t)pages[t / ps] * H + h;
+        krow[i] = k_q + head * D * ps + t % ps;
+        vrow[i] = v_q + head * D * ps + t % ps;
+        ks[i] = k_scale[head * ps + t % ps];
+        vs[i] = v_scale[head * ps + t % ps];
+      }
+    }
+  }
+  __device__ float k(int i, int d) const {
+    return (float)krow[i][(size_t)d * ps];
+  }
+  __device__ float v(int i, int d) const {
+    return (float)vrow[i][(size_t)d * ps];
+  }
+  __device__ float score(int i, float dot) const { return dot * ks[i]; }
+  __device__ float weight(int i, float p) const { return p * vs[i]; }
+};
+
+template <typename TQ>
+__global__ void __launch_bounds__(wide_attend::kThreads)
+paged_attend_int8_wide_kernel(
+    const TQ* __restrict__ q, const int8_t* __restrict__ k_q,
+    const float* __restrict__ k_scale, const int8_t* __restrict__ v_q,
+    const float* __restrict__ v_scale, const int* __restrict__ page_table,
+    const int* __restrict__ lengths, float* __restrict__ out,
+    float* __restrict__ ws, int* __restrict__ counters, int H, int D, int PB,
+    int ps, int pps) {
+  const int h = blockIdx.x, split = blockIdx.y, s = blockIdx.z;
+  const int span = pps * ps;
+  const int p0 = split * span;
+  const int n_vis = min(lengths[s] + 1, PB * ps);
+  if (p0 >= n_vis) return;  // past the slot's live positions
+  const int arrivals = (n_vis + span - 1) / span;
+  const int item = s * H + h;
+  float* acc = ws + ((size_t)item * gridDim.y + split) * D;
+  Int8PagedSource<TQ> src{q + (size_t)item * D, k_q, k_scale, v_q, v_scale,
+                          page_table + (size_t)s * PB + (size_t)split * pps,
+                          ps, H, h, D};
+  float m, l;
+  wide_attend::run(src, min(n_vis - p0, span), D, acc, m, l);
+  __syncthreads();
+  split_softmax::finish<wide_attend::kThreads>(
+      acc, m, l, D, item, split, gridDim.y, arrivals, gridDim.z * H, ws,
+      counters, out + (size_t)item * D);
+}
+
 // the stage width for head width D (stage_positions) and the copy width
-// for the page size
+// for the page size; past kMaxHeadDim the wide path
 template <typename TQ>
 int launch_width(const void* q, const void* kq, const void* ks,
                  const void* vq, const void* vs, const void* pt,
@@ -248,6 +322,18 @@ int launch_width(const void* q, const void* kq, const void* ks,
 #define VELES_INT8_LAUNCH(TPS, CV)                                 \
   launch<TQ, TPS, CV>(q, kq, ks, vq, vs, pt, len, out, ws, counters, S, \
                       H, D, PB, ps, pps, st)
+  if (D > kMaxHeadDim) {
+    paged_attend_int8_wide_kernel<TQ>
+        <<<dim3(H, (PB + pps - 1) / pps, S), wide_attend::kThreads, 0,
+           st>>>(static_cast<const TQ*>(q), static_cast<const int8_t*>(kq),
+                 static_cast<const float*>(ks),
+                 static_cast<const int8_t*>(vq),
+                 static_cast<const float*>(vs), static_cast<const int*>(pt),
+                 static_cast<const int*>(len), static_cast<float*>(out),
+                 static_cast<float*>(ws), static_cast<int*>(counters), H, D,
+                 PB, ps, pps);
+    return (int)cudaGetLastError();
+  }
   const bool c16 = ps % 16 == 0;
   switch (stage_positions(D)) {
     case 128:
@@ -269,11 +355,11 @@ int launch_width(const void* q, const void* kq, const void* ks,
 // q (S, H, D) pre-scaled by 1/sqrt(D); k_q / v_q (P, H, D, ps) int8;
 // k_scale / v_scale (P, H, ps) float32; page_table (S, PB) int32; lengths
 // (S,) int32; out (S, H, D) float32; all contiguous, pools 16-byte aligned.
-// q type: 0 = float32, 1 = bfloat16. 1 <= D <= 8192; ps a multiple of 4.
-// The plan: splits of `pps` pages, at most split_softmax::kMaxSplits of
-// them; with more than one, ws holds
-// S * H * splits * (D + 2) floats and counters S * H zeroed ints (left
-// zeroed). Launches on `stream` and returns the launch's cudaError_t.
+// q type: 0 = float32, 1 = bfloat16. D >= 1; ps a multiple of 4. The
+// plan: splits of `pps` pages, at most split_softmax::kMaxSplits of them;
+// with more than one, or past D = 8192 (where each split's accumulator
+// lives there), ws holds S * H * splits * (D + 2) floats; counters hold
+// S * H zeroed ints (left zeroed). Launches on `stream` and returns the launch's cudaError_t.
 extern "C" int veles_paged_attend_int8(const void* q, const void* k_q,
                                        const void* k_scale, const void* v_q,
                                        const void* v_scale,
@@ -283,7 +369,6 @@ extern "C" int veles_paged_attend_int8(const void* q, const void* k_q,
                                        int H, int D, int PB, int ps, int pps,
                                        int q_dtype, void* stream) {
   if (S < 1 || H < 1 || PB < 1 || ps < 4 || ps % 4 || pps < 1 || D < 1 ||
-      D > kMaxHeadDim ||
       (PB + pps - 1) / pps > split_softmax::kMaxSplits)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -44,8 +44,9 @@ __device__ __forceinline__ int arrive(int* counter) {
 }
 
 // The end of a block that holds split `split` of item `item`'s state: m
-// and l (the same in every thread) and acc[D] in shared memory (read
-// after a barrier). With one split it writes out[d] = acc[d] / l itself;
+// and l (the same in every thread) and acc[D] in shared memory, or, past
+// the staged widths (wide_attend.cuh), in the split's own row of the
+// workspace already (read after a barrier). With one split it writes out[d] = acc[d] / l itself;
 // otherwise it writes its state, counts itself in counters[item] against
 // `arrivals` (the item's number of splits that reach this point), and the
 // last block merges: each thread walks the splits in order for its
@@ -67,8 +68,9 @@ __device__ __forceinline__ void finish(const float* acc, float m, float l,
   const size_t row = (size_t)item * splits;
   float* ws_acc = ws + row * D;
   float* ws_ml = ws + (size_t)items * splits * D + row * 2;
-  for (int d = tid; d < D; d += THREADS)
-    ws_acc[(size_t)split * D + d] = acc[d];
+  if (acc != ws_acc + (size_t)split * D)
+    for (int d = tid; d < D; d += THREADS)
+      ws_acc[(size_t)split * D + d] = acc[d];
   if (tid == 0) {
     ws_ml[2 * split] = m;
     ws_ml[2 * split + 1] = l;

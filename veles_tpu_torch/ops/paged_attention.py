@@ -10,10 +10,11 @@ pages are walked. Scores and the value product accumulate in f32 and the
 output is f32, whatever the query and pool types.
 
 On a CUDA tensor the hand-written kernel (``csrc/paged_attention.cu``,
-``csrc/paged_attention_int8.cu``) runs, at every head width from 1 to
-:data:`MAX_HEAD_DIM`, as the JAX package's paged kernels take the whole
-head row whatever its width (past :data:`MAX_HEAD_DIM` a ValueError names
-the limit); on a CPU tensor the plain version, a
+``csrc/paged_attention_int8.cu``) runs at every head width, as the JAX
+package's paged kernels take the whole head row whatever its width: up to
+:data:`MAX_HEAD_DIM` from rows staged in shared memory, past it from
+global memory with each split's sums in its workspace row
+(``csrc/wide_attend.cuh``); on a CPU tensor the plain version, a
 page-table gather followed by a masked softmax, computes the same
 function.
 """
@@ -28,12 +29,14 @@ from veles_tpu_torch.ops._workspace import sm_count, split_workspace
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: the widest head K1, K3 and K4 take (every width from 1 up to it; K4's
-#: widths are multiples of 32): past 1024 the kernels keep the split's f32
+#: the widest head K1, K3 and K4 stage in shared memory (K4's widths are
+#: multiples of 32): past 1024 the kernels keep the split's f32
 #: accumulator in shared memory beside the f32 query, and at 8192 the two
 #: (64 KB) and the stages of the smallest tile fill the 227 KB of shared
 #: memory a block may opt in to (``csrc/paged_attention.cu``,
-#: ``csrc/int8_tile.cuh``)
+#: ``csrc/int8_tile.cuh``). Wider heads take the wide path
+#: (``csrc/wide_attend.cuh``), whose split sums live in the workspace even
+#: with one split
 MAX_HEAD_DIM = 8192
 
 #: K1's (and K3's) plan: the positions a split holds at least (whole
@@ -57,14 +60,23 @@ def _paged_plan(slots, heads, head_dim, pb, ps, sms):
     page) where heads x slots x splits would not give every SM
     :data:`PAGED_WAVE` blocks, more where the table would need more than
     :data:`PAGED_MAX_SPLITS` splits. ``elements`` is the f32 workspace
-    the split states take (0 with one split). The plan reads shapes only:
-    the lengths are data on the card."""
+    the split states take (:func:`split_elements`). The plan reads shapes
+    only: the lengths are data on the card."""
     want = -(-PAGED_WAVE * sms // (slots * heads))
     pages = max(1, min(-(-PAGED_SPLIT_POSITIONS // ps), pb // want),
                 -(-pb // PAGED_MAX_SPLITS))
     splits = -(-pb // pages)
-    elements = slots * heads * splits * (head_dim + 2) if splits > 1 else 0
-    return pages, splits, elements
+    return pages, splits, split_elements(slots * heads, splits, head_dim)
+
+
+def split_elements(items, splits, head_dim):
+    """The f32 workspace of ``items`` (row, head) pairs of ``splits``
+    splits at ``head_dim``: each split's (acc, max, sum) where several
+    splits merge, or where the wide path keeps its sums there (past
+    :data:`MAX_HEAD_DIM`); else 0."""
+    if splits > 1 or head_dim > MAX_HEAD_DIM:
+        return items * splits * (head_dim + 2)
+    return 0
 
 
 def gather_pages(pages, page_table):
@@ -135,9 +147,8 @@ def paged_attend(q, k_pages, v_pages, page_table, lengths, *, page_size):
     (S, H, D) float32.
 
     On CUDA tensors the kernel runs (and :attr:`paged_attend.launches`
-    counts it); the operands must be contiguous, D at most
-    :data:`MAX_HEAD_DIM` and page ids valid; wider heads raise
-    ValueError naming the limit. It cuts the table's positions into splits
+    counts it) at any head width; the operands must be contiguous and
+    page ids valid. It cuts the table's positions into splits
     of whole pages over the card (:func:`_paged_plan`) and merges each slot's live
     splits in the same launch, in split order: two calls on the same
     inputs give bit-equal outputs. On CPU tensors the plain version
@@ -156,12 +167,6 @@ def paged_attend(q, k_pages, v_pages, page_table, lengths, *, page_size):
         raise ValueError("paged_attend's kernel wants 16-byte aligned "
                          "pools")
     slots, heads, head_dim = q.shape
-    if head_dim > MAX_HEAD_DIM:
-        raise ValueError(
-            "paged_attend's kernel takes head_dim up to MAX_HEAD_DIM = %d "
-            "(one head's f32 query and accumulator and its stages fill "
-            "the card's 227 KB of shared memory a block), got %d"
-            % (MAX_HEAD_DIM, head_dim))
     device = q.device
     pb = page_table.shape[1]
     pages, _, elements = _paged_plan(slots, heads, head_dim, pb, page_size,
@@ -262,8 +267,6 @@ def _check_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
                          "devices: %s" % sorted(str(d) for d in devices))
 
 
-
-
 def paged_attend_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
                       *, page_size):
     """Fused paged decode attention, int8-KV tier. ``q`` (S, H, D)
@@ -276,8 +279,8 @@ def paged_attend_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
 
     On CUDA tensors the kernel runs (and
     :attr:`paged_attend_int8.launches` counts it): the operands must be
-    contiguous, D at most :data:`MAX_HEAD_DIM`, the page size a
-    multiple of 4 and page ids valid; other shapes raise ValueError. It
+    contiguous (any head width), the page size a multiple of 4 and page
+    ids valid; other shapes raise ValueError. It
     cuts the table's
     positions into splits of whole pages over the card (K1's plan,
     :func:`_paged_plan`) and merges each slot's live splits in the same
@@ -297,13 +300,10 @@ def paged_attend_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
         raise ValueError("paged_attend_int8's kernel wants contiguous "
                          "operands")
     slots, heads, head_dim = q.shape
-    if head_dim > MAX_HEAD_DIM or page_size % 4:
+    if page_size % 4:
         raise ValueError(
-            "paged_attend_int8's kernel takes head_dim up to MAX_HEAD_DIM = "
-            "%d (one head's f32 query and accumulator and its stages fill "
-            "the card's 227 KB of shared memory a block) and a page size "
-            "that is a multiple of 4, got %d and %d"
-            % (MAX_HEAD_DIM, head_dim, page_size))
+            "paged_attend_int8's kernel takes a page size that is a "
+            "multiple of 4, got %d" % page_size)
     if any(t.data_ptr() % 16 for t in (k_q, v_q, k_scale, v_scale)):
         raise ValueError("paged_attend_int8's kernel wants 16-byte "
                          "aligned pools")

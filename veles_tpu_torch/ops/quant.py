@@ -27,7 +27,7 @@ import torch
 
 from veles_tpu_torch.ops import _build
 from veles_tpu_torch.ops._workspace import sm_count, split_workspace
-from veles_tpu_torch.ops.paged_attention import MAX_HEAD_DIM
+from veles_tpu_torch.ops.paged_attention import split_elements
 
 #: the kernel runs for products of at most this many rows of x (the
 #: decode regime); above it the plain dequantized product runs
@@ -276,12 +276,6 @@ def _launch_cache_attend(q, k_q, k_scale, v_q, v_scale, mask_addend):
     t = k_q.shape[-1]
     mask = mask_addend.reshape(-1, t) if mask_addend.dim() == 1 \
         else mask_addend
-    if head_dim > MAX_HEAD_DIM:
-        raise ValueError(
-            "int8_cache_attend's kernel takes head_dim up to MAX_HEAD_DIM = "
-            "%d (one head's f32 query and accumulator and its stage fill "
-            "the card's 227 KB of shared memory a block), got %d"
-            % (MAX_HEAD_DIM, head_dim))
     if not q.is_contiguous():
         raise ValueError("int8_cache_attend's kernel wants a contiguous q")
 
@@ -306,8 +300,8 @@ def _launch_cache_attend(q, k_q, k_scale, v_q, v_scale, mask_addend):
     splits, chunk = _attend_plan(batch, heads, t, sm_count(device))
     stream = torch.cuda.current_stream(device).cuda_stream
     ws, counters = split_workspace(
-        device, stream, batch * heads * splits * (head_dim + 2)
-        if splits > 1 else 0, batch * heads)
+        device, stream, split_elements(batch * heads, splits, head_dim),
+        batch * heads)
     out = torch.empty((batch, 1, heads, head_dim), dtype=torch.float32,
                       device=device)
     fn = _build.function(

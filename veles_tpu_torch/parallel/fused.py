@@ -41,10 +41,11 @@ tensors, so the unit Arrays, the tick's state and the pipelined mode's
 one-slot history share tensors without copies (the JAX package copies
 because its step donates its input buffers).
 
-Left out (later slices): graph mode (the units' own computes, which the
-tick replaces), the mesh (``shard_map``, ring and Ulysses attention over a
-``seq`` axis) and the fleet slave and control-plane paths, and the MSE
-loss.
+A topology the tick does not support falls to the lower fusion tiers
+(``parallel/sweep.py``, ``parallel/segments.py``) or to graph mode, which
+run the units' own computes. Left out (later slices): the mesh
+(``shard_map``, ring and Ulysses attention over a ``seq`` axis), the fleet
+slave and control-plane paths, and the MSE loss.
 """
 
 import torch
@@ -54,7 +55,6 @@ from veles_tpu_torch.loader.base import TRAIN, VALID
 from veles_tpu_torch.loader.normalization import (normalizer_registry,
                                                   state_tensors)
 from veles_tpu_torch.nn.gd import make_updater
-from veles_tpu_torch.nn.jit_unit import JitUnit
 from veles_tpu_torch.nn.pooling import POOLS
 from veles_tpu_torch.ops import activations as act_lib
 from veles_tpu_torch.ops import losses
@@ -62,6 +62,7 @@ from veles_tpu_torch.ops.attention import attention_block, ffn_block
 from veles_tpu_torch.ops.augment import TRANSFORMS
 from veles_tpu_torch.ops.gather import gather_minibatch
 from veles_tpu_torch.ops.gemm import conv2d, dense_layer
+from veles_tpu_torch.parallel.segments import chain_of
 
 _DENSE = "dense"
 _CONV = "conv"
@@ -88,16 +89,27 @@ def extract_model_spec(workflow):
     (or a subclass carries math of its own). A pooling layer's spec has
     no ``"leaves"``: it has no parameters and its GD unit no optimizer
     state."""
-    from veles_tpu_torch.nn.all2all import All2All
-    from veles_tpu_torch.nn.attention import (LayerNorm, SelfAttention,
-                                              TokenFFN)
-    from veles_tpu_torch.nn.conv import Conv
-    from veles_tpu_torch.nn.pooling import Pooling
+    from veles_tpu_torch.nn.all2all import All2All, All2AllSoftmax
+    from veles_tpu_torch.nn.attention import (GDLayerNorm, GDSelfAttention,
+                                              GDTokenFFN, LayerNorm,
+                                              SelfAttention, TokenFFN)
+    from veles_tpu_torch.nn.conv import Conv, GDConv
+    from veles_tpu_torch.nn.gd import GradientDescent
+    from veles_tpu_torch.nn.pooling import GDPooling, Pooling
+
+    known = {(getattr(cls, "compute", None), cls.run) for cls in (
+        All2All, All2AllSoftmax, Conv, SelfAttention, TokenFFN, LayerNorm,
+        Pooling, GradientDescent, GDConv, GDSelfAttention, GDTokenFFN,
+        GDLayerNorm, GDPooling)}
 
     def modified(unit):
+        """A subclass that overrides compute() (or run()) carries math the
+        spec tables cannot express: fusing it by isinstance would run the
+        BASE math. Such chains belong to the sweep and segment tiers,
+        which compose the units' own computes."""
         return unit is not None and (
-            hasattr(type(unit), "compute")
-            or type(unit).run is not JitUnit.run)
+            getattr(type(unit), "compute", None), type(unit).run) \
+            not in known
 
     specs = []
     for i, fwd in enumerate(workflow.forwards):
@@ -363,40 +375,6 @@ def build_tick(specs, norm_type="none", with_confusion=True,
         return loss_total / total_valid, n_err_total, cm_total
 
     return train_step, eval_step, train_sweep, eval_sweep
-
-
-def chain_of(workflow):
-    """The repeater cycle as an ordered unit list, starting at the unit
-    the loader fires (``parallel/segments.py:41-77``). Returns None when
-    the cycle is not a linear chain."""
-    loader = getattr(workflow, "loader", None)
-    repeater = getattr(workflow, "repeater", None)
-    if loader is None or repeater is None:
-        return None
-    # the units that reach the repeater without passing through the loader
-    reaches = {repeater}
-    frontier = [repeater]
-    while frontier:
-        node = frontier.pop()
-        if node is loader:
-            continue
-        for prev in node.links_from:
-            if prev not in reaches:
-                reaches.add(prev)
-                frontier.append(prev)
-    chain = []
-    current = loader
-    while True:
-        successors = [u for u in current.links_to
-                      if u is not repeater and u in reaches]
-        if current.links_to.get(repeater) and not successors:
-            return chain  # closed the cycle
-        if len(successors) != 1:
-            return None  # fan-out inside the cycle (or a dead end)
-        current = successors[0]
-        if current in chain or current is loader:
-            return None  # inner cycle that is not the repeater loop
-        chain.append(current)
 
 
 def supports(workflow):
