@@ -145,6 +145,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    must fall, and one epoch on the card against the CPU (equal winners at
    every step, weights within 1e-4 of the largest).
 
+16. (run after phase 15) the rest of the training surface: MNIST784
+   through its idx loader (four idx files, two gzipped, written from the
+   bench data at MNIST's 10000 test and 60000 train rows, pixels times 255
+   as uint8; samples/mnist784.py's MLPWorkflow(loader_cls=MNISTLoader),
+   784 -> 100 tanh -> 10, minibatch 100, lr 0.03, moment 0.9, 3 epochs
+   in the fused tick): the loader's arrays equal the written bytes, its
+   class lengths [0, 10000, 60000], the train loss falls; the wide MLP
+   regressed (evaluator "mse", FullBatchLoaderMSE, one-hot targets), 3
+   epochs knobs on, off, off and on: K6 once per train and eval minibatch
+   and K5 once per train minibatch with the knobs on (a main path of
+   both), the MSE falls; the same model for one epoch in graph mode, the
+   sweep tier and the segment tier (the tier asserted); one epoch of it
+   at level 2 on the card against the CPU from the same weights (equal
+   index streams, losses within 1e-4 relative, leaves within 1e-4 of
+   their largest); the eight normalizers' analyze and apply_state on the
+   bench's 60000 x 784 pixels on the card against the CPU (within 1e-5 of
+   the largest); the first MNIST epoch recorded by MinibatchesSaver
+   (shuffling off) and replayed through MinibatchesLoader bit for bit,
+   and PicklesLoader and AutoLabelSoundFileLoader on pickles and WAV
+   tones the smoke writes, their arrays equal to what was written.
+
 Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
 8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
 bound.
@@ -154,17 +175,23 @@ The line before the last is {"kernels": [...]}; the last line is
 non-zero before printing either.
 """
 
+import gzip
 import heapq
 import json
 import math
+import os
+import pickle
 import re
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
 import urllib.request
+import wave
 
 import numpy
 import torch
@@ -175,6 +202,13 @@ from veles_tpu_torch.core.config import root
 from veles_tpu_torch.core.units import Unit
 from veles_tpu_torch.dummy import DummyLauncher
 from veles_tpu_torch.loader.base import TRAIN, VALID
+from veles_tpu_torch.loader.mnist import MNISTLoader
+from veles_tpu_torch.loader.normalization import (make_normalizer,
+                                                  normalizer_registry,
+                                                  state_tensors)
+from veles_tpu_torch.loader.pickles import PicklesLoader
+from veles_tpu_torch.loader.saver import MinibatchesLoader, MinibatchesSaver
+from veles_tpu_torch.loader.sound import AutoLabelSoundFileLoader
 from veles_tpu_torch.models.alexnet import AlexNetWorkflow
 from veles_tpu_torch.models.kohonen import KohonenWorkflow
 from veles_tpu_torch.nn.kohonen import grid_coords, som_step
@@ -477,6 +511,27 @@ LONG_GRAPH_EPOCHS = 1
 SOM_SHAPE, SOM_MINIBATCH, SOM_EPOCHS = (8, 8), 256, 2
 SOM_TIE_GAP = 2e-3
 SOM_WEIGHT_RTOL = 1e-4
+#: MNIST784 through its idx loader: the bench data at MNIST's counts
+#: (10000 test rows, the loader's validation, and 60000 train), pixels
+#: times 255 as uint8 in four idx files (two gzipped), samples/
+#: mnist784.py's configuration (784 -> 100 tanh -> 10, minibatch 100, lr
+#: 0.03, moment 0.9), 3 epochs in the fused tick
+MNIST_ROWS, MNIST_TEST, MNIST_EPOCHS, MNIST_MOMENT = 70000, 10000, 3, 0.9
+MNIST_GZIPPED = ("train-labels-idx1-ubyte", "t10k-images-idx3-ubyte")
+#: the wide MLP regressed (evaluator "mse", one-hot targets), 3 epochs;
+#: its card-CPU agreement (level 2, one epoch, the training agreement's
+#: rows): the losses differ in summation order only (~1e-6 relative) and
+#: after three SGD steps every leaf lies within this share of its largest
+MSE_EPOCHS, MSE_AGREE_RTOL = 3, 1e-4
+#: the eight normalizers on the card against the CPU: float64 sums in
+#: other orders, float32 outputs (~1e-7 relative)
+NORMALIZER_NAMES = tuple(sorted(normalizer_registry))
+NORM_RTOL = 1e-5
+#: the file loaders: pickles of the bench data (4096 valid, 8192 train
+#: rows) and 16 one-second 16-bit WAV tones at 16 kHz in two labels, in
+#: windows of 1024 samples
+PICKLE_VALID, PICKLE_TRAIN = 4096, 8192
+SOUND_RATE, SOUND_WINDOW = 16000, 1024
 
 
 def card_line():
@@ -2102,7 +2157,9 @@ def train(wf, device):
         epochs.append({"t": time.perf_counter(), "t0": t0,
                        "train_loss": stats[TRAIN][2] / max(stats[TRAIN][1],
                                                            1),
-                       "valid_n_err": stats[VALID][0]})
+                       "valid_n_err": stats[VALID][0],
+                       "valid_mse": stats[VALID][2] / max(stats[VALID][1],
+                                                          1)})
         summary(stats, epoch)
 
     wf.decision._epoch_summary = stamped
@@ -3470,6 +3527,425 @@ def som_phase(device):
         raise AssertionError("the card's SOM disagrees with the CPU's")
     return len(errors) / wall
 
+def write_idx(path, array):
+    """An idx file of uint8 ``array`` (gzipped where the name ends in
+    .gz): the big-endian header, then the payload."""
+    header = struct.pack(">HBB", 0, 0x08, array.ndim) + struct.pack(
+        ">" + "I" * array.ndim, *array.shape)
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "wb") as fout:
+        fout.write(header + array.astype(numpy.uint8).tobytes())
+
+
+def mnist_files(directory):
+    """MNIST's four idx files from the bench data (70000 rows: its 10000-
+    row valid block the t10k set, the 60000 behind it the train set),
+    pixels times 255 rounded to uint8, two of the files gzipped. Returns
+    the (test, train) pixels and labels as written."""
+    data, labels = bench_dataset(n=MNIST_ROWS, n_valid=MNIST_TEST)
+    pixels = numpy.rint(data * 255).astype(numpy.uint8).reshape(-1, 28, 28)
+    parts = {"t10k": (pixels[:MNIST_TEST], labels[:MNIST_TEST]),
+             "train": (pixels[MNIST_TEST:], labels[MNIST_TEST:])}
+    for prefix, (images, labs) in parts.items():
+        for kind, array in (("images-idx3", images), ("labels-idx1", labs)):
+            name = "%s-%s-ubyte" % (prefix, kind)
+            if name in MNIST_GZIPPED:
+                name += ".gz"
+            write_idx(os.path.join(directory, name), array)
+    return parts
+
+
+def build_mnist(device, directory, epochs, shuffle_limit=None):
+    """samples/mnist784.py's configuration through the port's
+    MLPWorkflow(loader_cls=MNISTLoader): 784 -> 100 tanh -> 10, minibatch
+    100, lr 0.03, moment 0.9, linear normalization, seeds 1234."""
+    root.common.engine.update({"use_pallas": False,
+                               "pallas_epilogue": False,
+                               "precision_level": 0})
+    prng.get("default").seed(1234)
+    prng.get("loader").seed(1234)
+    return MLPWorkflow(
+        DummyLauncher(), layers=MNIST_LAYERS, loader_cls=MNISTLoader,
+        loader_kwargs=dict(directory=directory, minibatch_size=MNIST_MINIBATCH,
+                           normalization_type="linear",
+                           shuffle_limit=shuffle_limit),
+        learning_rate=TRAIN_LR, gradient_moment=MNIST_MOMENT,
+        max_epochs=epochs, device=device, name="MNIST784")
+
+
+def mnist_phase(device, directory):
+    """MNIST784 through its idx loader (samples/mnist784.py's workflow):
+    the loader's arrays must equal the written bytes, its class lengths
+    [0, 10000, 60000], and the train loss must fall over MNIST_EPOCHS
+    epochs in the fused tick. Prints images/s and the validation errors
+    per epoch."""
+    parts = mnist_files(directory)
+    wf = build_mnist(device, directory, MNIST_EPOCHS)
+    epochs, wall = train(wf, device)
+    loader = wf.loader
+    images = numpy.concatenate([parts["t10k"][0], parts["train"][0]])
+    labels = numpy.concatenate([parts["t10k"][1], parts["train"][1]])
+    same = (numpy.array_equal(loader.original_data.data.cpu().numpy(),
+                              images.reshape(len(images), -1).astype(
+                                  numpy.float32))
+            and numpy.array_equal(loader.original_labels.data.cpu().numpy(),
+                                  labels))
+    print("MNIST784 idx files (%s gzipped): class lengths %s, arrays equal "
+          "the written bytes: %s, on %s"
+          % (", ".join(MNIST_GZIPPED), loader.class_lengths, same,
+             loader.original_data.data.device))
+    losses = report_training("MNIST784 via MNISTLoader 784-100-10 mb 100, "
+                             "moment 0.9, fused tick", wf, epochs, wall,
+                             len(images))
+    if not same or loader.class_lengths != [0, MNIST_TEST,
+                                            MNIST_ROWS - MNIST_TEST] \
+            or wf.fused_tick is None or len(epochs) != MNIST_EPOCHS \
+            or not losses[-1] < losses[0]:
+        raise AssertionError("MNIST784 through its loader failed")
+    return len(images) * len(epochs) / wall
+
+
+def build_regression(device, data, targets, class_lengths, knobs, epochs,
+                     precision_level=0, sweep=True, weights=None,
+                     fused="auto"):
+    """The wide MLP regressed: MLPWorkflow(evaluator="mse") over
+    FullBatchLoaderMSE (its default), the targets one-hot float32 with no
+    target normalization, as build_mlp builds the classifier."""
+    root.common.engine.update({"use_pallas": knobs,
+                               "pallas_epilogue": knobs,
+                               "precision_level": precision_level})
+    prng.get("default").seed(1234)
+    prng.get("loader").seed(1234)
+    wf = MLPWorkflow(
+        DummyLauncher(), layers=WIDE_LAYERS, evaluator="mse",
+        loader_kwargs=dict(data=data, targets=targets,
+                           class_lengths=class_lengths,
+                           minibatch_size=WIDE_MINIBATCH,
+                           normalization_type="linear",
+                           target_normalization_type="none"),
+        learning_rate=TRAIN_LR, max_epochs=epochs, fused_sweep=sweep,
+        fused=fused, device=device, name="mse")
+    if weights is not None:
+        unit_params_from_jax(wf, weights)
+    return wf
+
+
+def one_hot(labels, classes=10):
+    return numpy.eye(classes, dtype=numpy.float32)[labels]
+
+
+def report_mse(label, wf, epochs, wall, n_images):
+    """report_training's line for the regression family: train and
+    validation MSE per epoch and the best validation MSE."""
+    losses = report_training(label, wf, epochs, wall, n_images)
+    valid = [e["valid_mse"] for e in epochs]
+    print("  validation MSE per epoch %s; best %.6f (epoch %d)"
+          % (["%.6f" % v for v in valid],
+             wf.decision.best_mse[VALID], wf.decision.best_epoch))
+    if not all(math.isfinite(v) for v in valid):
+        raise AssertionError("%s: a validation MSE is not finite" % label)
+    return losses
+
+
+def mse_phase(device):
+    """The wide MLP regressed on the bench data (one-hot targets),
+    MSE_EPOCHS epochs in the fused tick with the knobs on, off, off and
+    on: with the knobs on the counters (zeroed before each run) must
+    show K6 once per train and eval minibatch and K5 once per train
+    minibatch (the main path), with them off no kernel, and the train
+    MSE must fall. Returns the first knobs-on run's launches."""
+    data, labels = bench_dataset()
+    targets = one_hot(labels)
+    main = None
+    for knobs in (True, False, False, True):
+        wf = build_regression(device, data, targets, BENCH_CLASS_LENGTHS,
+                              knobs, MSE_EPOCHS)
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        epochs, wall = train(wf, device)
+        got = counts()
+        losses = report_mse("wide MLP regressed (MSE) 784-4096-10 mb 4096, "
+                            "knobs %s" % ("on" if knobs else "off"), wf,
+                            epochs, wall, len(data))
+        test, valid, train_mb = wf.fused_tick.minibatch_counts
+        want = dict.fromkeys(COUNTERS, 0)
+        if knobs:
+            want.update(dense_epilogue=test + valid + train_mb,
+                        blocked_matmul=train_mb)
+            main = main or got
+        print("  launches %s (the tick's minibatches require %s)"
+              % ({k: v for k, v in got.items() if v},
+                 {k: v for k, v in want.items() if v}))
+        if got != want or len(epochs) != MSE_EPOCHS \
+                or wf.fused_tick._loss_kind_ != "mse" \
+                or not losses[-1] < losses[0]:
+            raise AssertionError("wide MLP regressed: %d epochs, MSE %s, "
+                                 "launches %s, expected %s"
+                                 % (len(epochs), losses, got, want))
+        del wf
+    return main
+
+
+def mse_tiers_phase(device):
+    """The wide MLP regressed for one epoch each, knobs on, in graph mode
+    (fused=False), in the sweep tier (a sweep-transparent host unit
+    spliced between the forwards) and in the segment tier (the same unit
+    opaque): the tier that engages is asserted; images/s."""
+    data, labels = bench_dataset()
+    targets = one_hot(labels)
+    rates = {}
+    for tier in ("graph", "sweep", "segment"):
+        wf = build_regression(device, data, targets, BENCH_CLASS_LENGTHS,
+                              True, 1,
+                              fused=False if tier == "graph" else "auto")
+        obs = splice_observer(wf, tier == "sweep") \
+            if tier != "graph" else None
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        epochs, wall = train(wf, device)
+        got = counts()
+        if engaged_tier(wf) != tier:
+            raise AssertionError("the MSE %s run engaged the %s tier"
+                                 % (tier, engaged_tier(wf)))
+        report_mse("MSE tiers: %s, wide MLP regressed, knobs on" % tier, wf,
+                   epochs, wall, len(data))
+        rates[tier] = len(data) * len(epochs) / wall
+        print("  tier %s engaged: %.1f images/s over the run, %.1f "
+              "composite calls; launches %s%s"
+              % (tier, rates[tier], composite_calls(wf),
+                 {k: v for k, v in got.items() if v},
+                 ", observer fired %d times" % obs.ticks if obs else ""))
+        if len(epochs) != 1 or not got["blocked_matmul"] \
+                or (obs is not None and obs.ticks != sum(
+                    minibatch_counts(wf))):
+            raise AssertionError("MSE tier %s: %d epochs, launches %s"
+                                 % (tier, len(epochs), got))
+        del wf
+    return rates
+
+
+def mse_agreement_phase(device):
+    """One epoch of the wide MLP regressed at precision level 2 (f32; K5
+    and K6 on f32 operands) on the card and on the CPU, per-minibatch
+    serving, from the same numpy weights (the training agreement's data):
+    equal index streams, each class's loss within MSE_AGREE_RTOL
+    relative, every weight leaf within MSE_AGREE_RTOL of its largest
+    element."""
+    data, labels = bench_dataset()
+    n = sum(AGREE_CLASS_LENGTHS)
+    data, targets = data[:n], one_hot(labels[:n])
+    rng = numpy.random.RandomState(5)
+    weights, fan_in = [], data.shape[1]
+    for width in WIDE_LAYERS:
+        bound = 1.0 / math.sqrt(fan_in)
+        weights.append({
+            "weights": rng.uniform(-bound, bound, (fan_in, width)),
+            "bias": rng.uniform(-bound, bound, width)})
+        fan_in = width
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        wf = build_regression(dev, data, targets, AGREE_CLASS_LENGTHS, True,
+                              1, precision_level=2, sweep=False,
+                              weights=weights)
+        served = []
+        serve_next = wf.loader.serve_next_minibatch
+
+        def recorded(serve_next=serve_next, served=served):
+            block = serve_next()
+            served.append(block[1])
+            return block
+
+        wf.loader.serve_next_minibatch = recorded
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        epochs, _ = train(wf, dev)
+        runs.append((served, [(e["train_loss"], e["valid_mse"])
+                              for e in epochs], mlp_leaves(wf), counts()))
+    (served_c, loss_c, leaves_c, got_c), (served_h, loss_h, leaves_h,
+                                          got_h) = runs
+    same = len(served_c) == len(served_h) and all(
+        numpy.array_equal(a, b) for a, b in zip(served_c, served_h))
+    loss_rel = max(abs(a - b) / abs(b) for pc, ph in zip(loss_c, loss_h)
+                   for a, b in zip(pc, ph))
+    rel = leaf_rel(leaves_c, leaves_h)
+    print("MSE agreement f32 (level 2), 1 epoch, %d minibatches: index "
+          "streams %s; (train, valid) MSE card %s, CPU %s (largest relative "
+          "difference %.3g, tolerance %.0e); largest leaf difference %.3g of "
+          "the leaf's largest element (tolerance %.0e); card launches K5 %d, "
+          "K6 %d; CPU launches %d"
+          % (len(served_c), "equal" if same else "DIFFER", loss_c, loss_h,
+             loss_rel, MSE_AGREE_RTOL, rel, MSE_AGREE_RTOL,
+             got_c["blocked_matmul"], got_c["dense_epilogue"],
+             sum(got_h.values())))
+    if not same or len(loss_c) != 1 or len(loss_h) != 1 \
+            or not loss_rel <= MSE_AGREE_RTOL or not rel <= MSE_AGREE_RTOL:
+        raise AssertionError("the card's MSE training disagrees with the "
+                             "CPU's")
+    if not (got_c["blocked_matmul"] and got_c["dense_epilogue"]) \
+            or any(got_h.values()):
+        raise AssertionError("the card run skipped a kernel or the CPU run "
+                             "launched one")
+
+
+def normalizers_phase(device):
+    """Each of the eight normalizers: analyze and apply_state on the
+    bench's 60000 x 784 pixels on the card and on the CPU; the state and
+    the output within NORM_RTOL of their largest element. Prints the
+    card's and the CPU's seconds."""
+    data, _ = bench_dataset()
+    mean = data[:1000].mean(axis=0)
+    for name in NORMALIZER_NAMES:
+        kwargs = {"mean_source": mean} if name == "external_mean" else {}
+        results = []
+        for dev in (device, torch.device("cpu")):
+            batch = torch.from_numpy(data).to(dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            norm = make_normalizer(name, **kwargs)
+            if not norm.STATELESS:
+                norm.analyze(batch)
+            state = norm.jit_state()
+            out = norm.apply_state(batch, state_tensors(state, dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            results.append((state, out.cpu(), wall))
+        (state_c, out_c, wall_c), (state_h, out_h, wall_h) = results
+        state_err = max([
+            ((torch.as_tensor(state_c[k]).cpu().double()
+              - torch.as_tensor(v).double()).abs().max()
+             / max(torch.as_tensor(v).double().abs().max().item(), 1e-30)
+             ).item() for k, v in state_h.items()] or [0.0])
+        out_err = ((out_c - out_h).abs().max() / out_h.abs().max()).item()
+        print("normalizer %s on %d x %d: state %s within %.3g, output within "
+              "%.3g of its largest (tolerance %.0e); card %.4f s, CPU %.4f s"
+              % (name, data.shape[0], data.shape[1], sorted(state_h),
+                 state_err, out_err, NORM_RTOL, wall_c, wall_h))
+        if sorted(state_c) != sorted(state_h) \
+                or not torch.isfinite(out_c).all() \
+                or not state_err <= NORM_RTOL or not out_err <= NORM_RTOL:
+            raise AssertionError("normalizer %s: the card disagrees with "
+                                 "the CPU" % name)
+
+
+def write_wav(path, freq, rate=SOUND_RATE, seconds=1.0):
+    """A 16-bit mono PCM tone; returns the samples written."""
+    t = numpy.arange(int(rate * seconds)) / rate
+    payload = (numpy.sin(2 * numpy.pi * freq * t) * 32000).astype(
+        numpy.int16)
+    with wave.open(path, "wb") as out:
+        out.setnchannels(1)
+        out.setsampwidth(2)
+        out.setframerate(rate)
+        out.writeframes(payload.tobytes())
+    return payload
+
+
+def loader_files_phase(device, directory):
+    """The loaders' files: the first epoch of mnist_phase's loader with
+    shuffling off (shuffle_limit=0) recorded by MinibatchesSaver and
+    replayed through MinibatchesLoader, every minibatch equal bit for
+    bit; PicklesLoader on pickles of the bench data and
+    AutoLabelSoundFileLoader on WAV tones the smoke writes, their arrays
+    equal to what was written."""
+    wf = build_mnist(device, directory, 1, shuffle_limit=0)
+    loader = wf.loader
+    stream = os.path.join(directory, "minibatches.dat")
+    saver = MinibatchesSaver(wf, file_name=stream, compression="raw")
+    saver.link_attrs(loader, "minibatch_data", "minibatch_labels",
+                     "minibatch_class", "minibatch_valid_size",
+                     "class_lengths", "max_minibatch_size")
+    loader.initialize()
+    saver.initialize()
+    recorded = []
+    t0 = time.perf_counter()
+    while True:
+        loader.run()
+        saver.run()
+        recorded.append((loader.minibatch_data.mem.copy(),
+                         loader.minibatch_labels.mem.copy()))
+        if loader.epoch_ended:
+            break
+    saver.stop()
+    wall_w = time.perf_counter() - t0
+    replay = MinibatchesLoader(wf, file_name=stream,
+                               minibatch_size=MNIST_MINIBATCH)
+    replay.initialize()
+    t0 = time.perf_counter()
+    equal = True
+    for data, labels in recorded:
+        replay.run()
+        equal = equal and (
+            replay.minibatch_data.mem.tobytes() == data.tobytes()
+            and replay.minibatch_labels.mem.tobytes() == labels.tobytes())
+    replay.stop()
+    wall_r = time.perf_counter() - t0
+    print("minibatch stream: %d minibatches of %d (%d MB, raw) recorded in "
+          "%.2f s, replayed through MinibatchesLoader on %s in %.2f s: bit "
+          "for bit %s" % (len(recorded), MNIST_MINIBATCH,
+                          os.path.getsize(stream) >> 20, wall_w,
+                          replay.minibatch_data.data.device, wall_r, equal))
+    if not equal or len(recorded) != (MNIST_ROWS // MNIST_MINIBATCH):
+        raise AssertionError("the replayed minibatch stream differs")
+    data, labels = bench_dataset()
+    rows = {"validation": slice(0, PICKLE_VALID),
+            "train": slice(PICKLE_VALID, PICKLE_VALID + PICKLE_TRAIN)}
+    paths = {}
+    for part, rows_of in rows.items():
+        paths[part] = os.path.join(directory, part + ".pickle")
+        with open(paths[part], "wb") as fout:
+            pickle.dump((data[rows_of], labels[rows_of]), fout, protocol=4)
+    pickles = PicklesLoader(
+        wf, validation_pickles=[paths["validation"]],
+        train_pickles=[paths["train"]], minibatch_size=WIDE_MINIBATCH)
+    pickles.initialize()
+    n = PICKLE_VALID + PICKLE_TRAIN
+    same_pickles = (
+        pickles.class_lengths == [0, PICKLE_VALID, PICKLE_TRAIN]
+        and numpy.array_equal(pickles.original_data.data.cpu().numpy(),
+                              data[:n])
+        and numpy.array_equal(pickles.original_labels.data.cpu().numpy(),
+                              labels[:n]))
+    sound_dir = os.path.join(directory, "sound")
+    written = {}
+    for split, count in (("validation", 2), ("train", 6)):
+        for label, freq in (("high", 1800), ("low", 200)):
+            os.makedirs(os.path.join(sound_dir, split, label))
+            for i in range(count):
+                path = os.path.join(sound_dir, split, label, "%d.wav" % i)
+                written[path] = write_wav(path, freq + 7 * i)
+    sound = AutoLabelSoundFileLoader(
+        wf, validation_paths=[os.path.join(sound_dir, "validation")],
+        train_paths=[os.path.join(sound_dir, "train")],
+        window_size=SOUND_WINDOW, minibatch_size=64)
+    sound.initialize()
+    windows, sound_labels = [], []
+    for split in ("validation", "train"):
+        for path in sorted(p for p in written if os.sep + split + os.sep
+                           in p):
+            samples = (written[path] / 32768.0).astype(numpy.float32)
+            for start in range(0, len(samples) - SOUND_WINDOW + 1,
+                               SOUND_WINDOW):
+                windows.append(samples[start:start + SOUND_WINDOW])
+                sound_labels.append(path.split(os.sep)[-2])
+    mapping = sound.labels_mapping
+    same_sound = (
+        numpy.array_equal(sound.original_data.data.cpu().numpy(),
+                          numpy.stack(windows))
+        and numpy.array_equal(sound.original_labels.data.cpu().numpy(),
+                              [mapping[s] for s in sound_labels]))
+    print("PicklesLoader: %s rows from 2 pickles, arrays equal the written "
+          "ones: %s; AutoLabelSoundFileLoader: %d WAV files, %d windows of "
+          "%d, class lengths %s, labels %s, arrays equal the written "
+          "samples: %s" % (pickles.class_lengths, same_pickles, len(written),
+                           len(windows), SOUND_WINDOW, sound.class_lengths,
+                           mapping, same_sound))
+    if not same_pickles or not same_sound:
+        raise AssertionError("a file loader's arrays differ from the "
+                             "written files")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3563,6 +4039,21 @@ def main():
         launches[name] = (long_serving[name] + long_training[name]
                           + long_graph[name])
     som_phase(device)
+    # the rest of the training surface: MNIST784 through its idx loader,
+    # the regression family (its knobs-on wide MLP a main path of K5 and
+    # K6), the normalizers and the file loaders
+    t_a4 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        mnist_phase(device, directory)
+        mse = mse_phase(device)
+        for name in ("blocked_matmul", "dense_epilogue"):
+            launches[name] += mse[name]
+        mse_tiers_phase(device)
+        mse_agreement_phase(device)
+        normalizers_phase(device)
+        loader_files_phase(device, directory)
+    print("training-surface phases (MNIST784 loader, MSE, normalizers, "
+          "file loaders): %.1f s" % (time.perf_counter() - t_a4))
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -1521,3 +1521,91 @@ def test_gd_self_attention_step_against_its_plain_route(cuda,
     for a, b in zip(flash, plain):
         assert torch.isfinite(a).all()
         assert (a - b).abs().max() <= 2e-2 * b.abs().max()
+
+
+NORMALIZER_CASES = ["none", "mean_disp", "linear", "range_linear", "exp",
+                    "pointwise", "internal_mean", "external_mean"]
+
+
+@pytest.mark.parametrize("name", NORMALIZER_CASES)
+def test_normalizer_on_the_card_matches_the_cpu(cuda, name):
+    """``analyze`` on a CUDA tensor (the loader's train split lives on the
+    card) and ``apply_state`` there against the same on the CPU: the
+    state and the output within 1e-5 of their largest element."""
+    from veles_tpu_torch.loader.normalization import (make_normalizer,
+                                                      state_tensors)
+    rng = numpy.random.RandomState(2)
+    data = rng.rand(8192, 784).astype(numpy.float32)
+    kwargs = ({"mean_source": rng.rand(784).astype(numpy.float32)}
+              if name == "external_mean" else {})
+    results = []
+    for device in ("cuda", "cpu"):
+        norm = make_normalizer(name, **kwargs)
+        batch = torch.from_numpy(data).to(device)
+        if not norm.STATELESS:
+            norm.analyze(batch)
+        state = norm.jit_state()
+        out = norm.apply_state(batch, state_tensors(state, device))
+        results.append((state, out.cpu()))
+    (state_c, out_c), (state_h, out_h) = results
+    assert sorted(state_c) == sorted(state_h)
+    for key, value in state_h.items():
+        got = torch.as_tensor(state_c[key]).cpu().double()
+        want = torch.as_tensor(value).double()
+        assert (got - want).abs().max() <= 1e-5 * max(
+            want.abs().max().item(), 1e-30)
+    assert torch.isfinite(out_c).all()
+    assert (out_c - out_h).abs().max() <= 1e-5 * out_h.abs().max()
+
+
+def test_mse_fused_minibatch_on_the_card_matches_the_cpu(cuda,
+                                                         monkeypatch):
+    """One MSE train step of the fused tick with the knobs on (the wide
+    MLP regressed: 784 -> 4096 tanh -> 10, minibatch 4096, f32) on the
+    card, which launches K6 for the hidden layer's forward and K5 for its
+    weight gradient, against the same step on the CPU (plain versions):
+    the loss within 1e-5 relative, every new leaf within 1e-4 of its
+    largest element."""
+    from veles_tpu_torch.parallel import fused
+    for key, value in (("use_pallas", True), ("pallas_epilogue", True),
+                       ("precision_level", 2)):
+        monkeypatch.setattr(root.common.engine, key, value, raising=False)
+    rng = numpy.random.RandomState(3)
+    data = rng.rand(4096, 784).astype(numpy.float32)
+    targets = numpy.eye(10, dtype=numpy.float32)[rng.randint(0, 10, 4096)]
+    widths, fan_in, host = (4096, 10), 784, []
+    for width in widths:
+        bound = fan_in ** -0.5
+        host.append({k: rng.uniform(-bound, bound, s).astype(numpy.float32)
+                     for k, s in (("w", (fan_in, width)), ("b", (width,)))})
+        fan_in = width
+    specs = [{"kind": "dense", "activation": act, "leaves": fused._WB_LEAVES,
+              "has_params": True, "solver": "momentum"}
+             for act in ("tanh", "linear")]
+    # (lr, lr_bias, l2, l1, moment, beta1, beta2, eps): GradientDescent's
+    # _hyper at lr 0.03, moment 0.9
+    hyper = torch.tensor([0.03, 0.03, 0.0, 0.0, 0.9, 0.9, 0.999, 1e-8])
+    results = []
+    for device in ("cuda", "cpu"):
+        train_step = fused.build_tick(specs, loss_kind="mse")[0]
+        params = [{"p": {k: torch.from_numpy(v).to(device)
+                         for k, v in layer.items()},
+                   "v": {k: torch.zeros(v.shape, device=device)
+                         for k, v in layer.items()}} for layer in host]
+        launches = (dense_epilogue.launches, blocked_matmul.launches)
+        new, (loss, n_err) = train_step(
+            params, [hyper.to(device)] * 2, {},
+            torch.from_numpy(data).to(device),
+            torch.from_numpy(targets).to(device),
+            torch.arange(4096, device=device), 4096.0)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        results.append((float(loss), [t.cpu() for p in new
+                                      for t in p["p"].values()],
+                        (dense_epilogue.launches - launches[0],
+                         blocked_matmul.launches - launches[1])))
+    (loss_c, leaves_c, launched_c), (loss_h, leaves_h, launched_h) = results
+    assert launched_c == (1, 1) and launched_h == (0, 0)
+    assert abs(loss_c - loss_h) <= 1e-5 * abs(loss_h)
+    for a, b in zip(leaves_c, leaves_h):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()

@@ -14,6 +14,13 @@ the port's units before ``initialize()``, which then draws nothing, so
 both packages train from the same state; :func:`unit_state_of` reads
 those dicts off either package's workflow. :func:`som_weights_from_jax`
 does the same for a Kohonen map's weights.
+
+Normalizers: :func:`normalizer_state` reads a normalizer's accumulated
+statistics (its ``state``, the attributes ``jit_state()`` derives from,
+under the JAX package's names) from either package as numpy, and
+:func:`normalizers_from_jax` hands a JAX loader's normalizer and MSE
+target normalizer to a port loader before ``initialize()``, which then
+builds them with ``state=`` instead of analysing.
 """
 
 import numpy
@@ -146,3 +153,26 @@ def som_weights_from_jax(workflow, weights):
         raise ValueError("%s wants (%d, D) weights, got %s"
                          % (trainer.name, expected, tuple(value.shape)))
     trainer.weights.data = value.to(workflow.device)
+
+
+def normalizer_state(normalizer):
+    """The ``state`` dict of either package's normalizer with its arrays
+    (numpy, JAX or torch) as numpy arrays: what ``make_normalizer(name,
+    state=...)`` takes."""
+    return {key: (_host(val) if hasattr(val, "shape") else val)
+            for key, val in normalizer.state.items()}
+
+
+def normalizers_from_jax(loader, normalizer, target_normalizer=None):
+    """Make a port ``FullBatchLoader`` (``FullBatchLoaderMSE`` with
+    ``target_normalizer``) build its normalizers from the JAX loader's
+    ``normalizer`` (and ``target_normalizer``) state at ``initialize()``
+    instead of analysing its train split. Call before
+    ``initialize()``."""
+    for attr, source in (("normalizer_state", normalizer),
+                         ("target_normalizer_state", target_normalizer)):
+        if source is None:
+            continue
+        if not hasattr(loader, attr):
+            raise ValueError("%s has no %s" % (loader.name, attr))
+        setattr(loader, attr, normalizer_state(source))

@@ -22,9 +22,10 @@ The port of ``veles_tpu/loader/base.py`` (reference
   the next epoch's shuffle), so every later shuffle stays the JAX
   package's.
 
-Left out: the fleet distribution (master/slave payloads, requeue of a
-dropped slave's minibatches), the metrics bridge (the observe plane is a
-later slice) and the MSE mixin.
+``register_loader`` keeps the name -> class registry; ``LoaderMSEMixin``
+adds the regression targets (``FullBatchLoaderMSE``). Left out: the
+fleet distribution (master/slave payloads, requeue of a dropped slave's
+minibatches) and the metrics bridge (the observe plane is a later slice).
 """
 
 import collections
@@ -36,10 +37,22 @@ from veles_tpu_torch.core.config import root
 from veles_tpu_torch.core.mutable import Bool
 from veles_tpu_torch.core.units import Unit
 from veles_tpu_torch.core.verified import ILOADER, verify_interface
+from veles_tpu_torch.loader.normalization import normalizer_registry
 from veles_tpu_torch.memory import Array
 
 TEST, VALID, TRAIN = 0, 1, 2
 CLASS_NAMES = ("test", "validation", "train")
+
+#: Name -> loader-class map (reference ``loader/base.py:83``
+#: UserLoaderRegistry); populated by the @register_loader decorator.
+loader_registry = {}
+
+
+def register_loader(name):
+    def wrap(cls):
+        loader_registry[name] = cls
+        return cls
+    return wrap
 
 
 class Loader(Unit):
@@ -324,3 +337,35 @@ class Loader(Unit):
 
     def get_metric_values(self):
         return [self.total_samples]
+
+
+class LoaderMSEMixin:
+    """Adds regression targets to a Loader (reference
+    ``loader/base.py:1034-1155`` LoaderMSEMixin/LoaderMSE).
+
+    Serves ``minibatch_targets`` beside data and labels, normalized by a
+    *separate* target normalizer whose state supports ``denormalize()``:
+    stateless normalizers other than "none" are refused, because the
+    network output could never be mapped back to target units (reference
+    ``base.py:1100-1111``)."""
+
+    def __init__(self, workflow, **kwargs):
+        self.targets_shape = kwargs.pop("targets_shape", ())
+        self.target_normalization_type = kwargs.pop(
+            "target_normalization_type",
+            kwargs.get("normalization_type", "none"))
+        self.target_normalization_parameters = kwargs.pop(
+            "target_normalization_parameters",
+            kwargs.get("normalization_parameters", {}))
+        super().__init__(workflow, **kwargs)
+        cls = normalizer_registry.get(self.target_normalization_type)
+        if cls is None:
+            raise ValueError("unknown target_normalization_type %r"
+                             % self.target_normalization_type)
+        if not cls.INVERTIBLE_FROM_STATE:
+            raise ValueError(
+                "target normalization %r needs per-sample stats to invert: "
+                "test-time forward propagation could not be denormalized"
+                % self.target_normalization_type)
+        self.minibatch_targets = Array()
+        self.target_normalizer = None

@@ -13,13 +13,22 @@ Callers pass the dataset as ``data=``/``labels=`` kwargs; class splits
 come from ``class_lengths`` or the ``validation_ratio`` resplit.
 ``train_transform`` names an augmentation of ``ops/augment.TRANSFORMS``
 ("mirror", "shift1") applied to TRAIN minibatches after normalization;
-it needs NHWC data.
+it needs NHWC data. The normalizer analyses the train split on the
+device, where the originals already are. ``FullBatchLoaderMSE`` keeps
+regression targets beside the data (``original_targets``), normalized by
+their own normalizer and gathered by the same indices.
+
+``normalizer_state`` (and the MSE loader's ``target_normalizer_state``),
+set before ``initialize()``, makes the loader build its normalizer from
+that state instead of analysing: the seam ``convert`` uses to start the
+port from a JAX loader's statistics.
 """
 
 import numpy
 import torch
 
-from veles_tpu_torch.loader.base import Loader, TRAIN, VALID
+from veles_tpu_torch.loader.base import (Loader, LoaderMSEMixin, TRAIN,
+                                        VALID, register_loader)
 from veles_tpu_torch.loader.normalization import (make_normalizer,
                                                   state_tensors)
 from veles_tpu_torch.memory import Array
@@ -53,6 +62,7 @@ class FullBatchLoader(Loader):
         self._provided_lengths = lengths
         self._raw_labels = None
         self.normalizer = None
+        self.normalizer_state = None
 
     @property
     def device(self):
@@ -77,8 +87,10 @@ class FullBatchLoader(Loader):
             self.class_lengths = [0, 0, len(data)]
         if self.validation_ratio:
             self._resplit_validation()
-        self._analyze_normalization()
         self.original_data.to_device(self.device)
+        self.normalizer = self._analyzed_normalizer(
+            self.original_data.data, self.normalization_type,
+            self.normalization_parameters, self.normalizer_state)
 
     def get_raw_labels(self):
         return self._raw_labels
@@ -103,23 +115,27 @@ class FullBatchLoader(Loader):
             numpy.arange(valid_end),
             numpy.arange(total - n_valid, total),
             numpy.arange(valid_end, total - n_valid)])
+        self._apply_resplit(perm)
+
+    def _apply_resplit(self, perm):
+        """Apply the resplit permutation to every per-sample array; the MSE
+        loader extends this to keep the targets row-aligned."""
         self.original_data.reset(self.original_data.mem[perm])
         if self._raw_labels is not None:
             self._raw_labels = self._raw_labels[perm]
 
-    def _analyze_normalization(self):
-        """One host pass over the train set accumulating the normalizer's
-        statistics (reference ``loader/base.py:755-802``)."""
-        self.normalizer = make_normalizer(self.normalization_type,
-                                          **self.normalization_parameters)
-        if self.normalizer.STATELESS:
-            return
-        start = self.class_offset(TRAIN)
-        train = self.original_data.mem[
-            start:start + self.class_lengths[TRAIN]]
-        if not len(train):  # no train split (e.g. pure evaluation runs)
-            train = self.original_data.mem
-        self.normalizer.analyze(train)
+    def _analyzed_normalizer(self, rows, name, parameters, state):
+        """A normalizer built from ``state``, or one pass over the train
+        rows of ``rows`` (all of them without a train split) accumulating
+        its statistics (reference ``loader/base.py:755-802``)."""
+        if state is not None:
+            return make_normalizer(name, state=state)
+        normalizer = make_normalizer(name, **parameters)
+        if not normalizer.STATELESS:
+            start = self.class_offset(TRAIN)
+            train = rows[start:start + self.class_lengths[TRAIN]]
+            normalizer.analyze(train if len(train) else rows)
+        return normalizer
 
     def create_minibatch_data(self):
         size = self.max_minibatch_size
@@ -167,3 +183,62 @@ class FullBatchLoader(Loader):
         self.sample_mask.data = (torch.arange(len(indices), device=device)
                                  < valid).float()
         self.minibatch_indices.data = indices
+
+
+@register_loader("full_batch_mse")
+class FullBatchLoaderMSE(LoaderMSEMixin, FullBatchLoader):
+    """Full-batch loader with regression targets (reference
+    ``loader/fullbatch.py`` FullBatchLoaderMSE + ``base.py:1147``): the
+    targets live beside the data as the device tensor ``original_targets``,
+    normalized by the target normalizer (analysed over the train split),
+    and a minibatch's targets are gathered by its indices."""
+
+    def __init__(self, workflow, **kwargs):
+        targets = kwargs.pop("targets", None)
+        super().__init__(workflow, **kwargs)
+        self.original_targets = Array()
+        self._provided_targets = targets
+        self.target_normalizer_state = None
+
+    def _apply_resplit(self, perm):
+        super()._apply_resplit(perm)
+        # targets must stay row-aligned with the respliced data
+        self._provided_targets = self._provided_targets[perm]
+
+    def load_data(self):
+        if self._provided_targets is None:
+            raise NotImplementedError(
+                "%s: override load_data() or pass targets=" % self.name)
+        self._provided_targets = numpy.asarray(
+            self._provided_targets, numpy.float32)
+        super().load_data()
+        targets = self._provided_targets
+        if len(targets) != self.total_samples:
+            raise ValueError(
+                "targets length %d != total samples %d"
+                % (len(targets), self.total_samples))
+        self.original_targets.reset(targets)
+        self.original_targets.to_device(self.device)
+        raw = self.original_targets.data
+        self.target_normalizer = self._analyzed_normalizer(
+            raw, self.target_normalization_type,
+            self.target_normalization_parameters,
+            self.target_normalizer_state)
+        self.original_targets.data = self.target_normalizer.apply_state(
+            raw, state_tensors(self.target_normalizer.jit_state(),
+                               self.device))
+        if not self.targets_shape:
+            self.targets_shape = targets.shape[1:]
+
+    def create_minibatch_data(self):
+        super().create_minibatch_data()
+        self.minibatch_targets.reset(numpy.zeros(
+            (self.max_minibatch_size,) + tuple(self.targets_shape),
+            numpy.float32))
+
+    def fill_minibatch(self, indices, valid):
+        super().fill_minibatch(indices, valid)
+        targets = self.original_targets.data
+        self.minibatch_targets.data = targets.index_select(
+            0, torch.from_numpy(numpy.asarray(indices, numpy.int64)).to(
+                targets.device))

@@ -15,7 +15,8 @@ class MLPWorkflow(StandardWorkflow):
 
     def __init__(self, workflow, layers=(100, 10), loader_kwargs=None,
                  learning_rate=0.03, weights_decay=0.0, gradient_moment=0.0,
-                 max_epochs=None, fail_iterations=50, **kwargs):
+                 max_epochs=None, fail_iterations=50, loader_cls=None,
+                 **kwargs):
         specs = [{"type": "all2all_tanh", "output_sample_shape": (w,)}
                  for w in layers[:-1]]
         specs.append({"type": "softmax",
@@ -25,6 +26,6 @@ class MLPWorkflow(StandardWorkflow):
         decision_kwargs.setdefault("fail_iterations", fail_iterations)
         super().__init__(
             workflow, layers=specs, loader_kwargs=loader_kwargs,
-            learning_rate=learning_rate, weights_decay=weights_decay,
+            loader_cls=loader_cls, learning_rate=learning_rate, weights_decay=weights_decay,
             gradient_moment=gradient_moment,
             decision_kwargs=decision_kwargs, **kwargs)

@@ -36,17 +36,22 @@ host unit in the cycle is sweep-transparent, else the segment tier
 fused tick does not support the topology; ``fused=False`` is graph mode:
 every unit fires its own compute.
 
+``evaluator="mse"`` builds the regression family (EvaluatorMSE and
+DecisionMSE, ``FullBatchLoaderMSE`` by default); ``loader_cls`` names the
+loader class (a class, as in the JAX package: ``MNISTLoader``, the file
+loaders, ...), which takes ``loader_kwargs``.
+
 ``device=None`` means "cuda" and raises without a card unless the caller
 passes ``device="cpu"``. Later slices, which raise
-``NotImplementedError`` here rather than run another path: the MSE
-evaluator, a mesh (ring and Ulysses attention with it), a custom loader
-class, and the fleet (master/slave) modes.
+``NotImplementedError`` here rather than run another path: a mesh (ring
+and Ulysses attention with it) and the fleet (master/slave) modes.
 """
 
 from veles_tpu_torch.core.plumbing import Repeater
 from veles_tpu_torch.core.workflow import Workflow
 from veles_tpu_torch.device import resolve_device
-from veles_tpu_torch.loader.fullbatch import FullBatchLoader
+from veles_tpu_torch.loader.fullbatch import (FullBatchLoader,
+                                              FullBatchLoaderMSE)
 from veles_tpu_torch.nn.all2all import (
     All2All, All2AllRELU, All2AllSigmoid, All2AllSoftmax,
     All2AllStrictRELU, All2AllTanh)
@@ -56,8 +61,8 @@ from veles_tpu_torch.nn.attention import (
 from veles_tpu_torch.nn.conv import (
     Conv, ConvRELU, ConvStrictRELU, ConvTanh, GDConv, GDConvRELU,
     GDConvStrictRELU, GDConvTanh)
-from veles_tpu_torch.nn.decision import DecisionGD
-from veles_tpu_torch.nn.evaluator import EvaluatorSoftmax
+from veles_tpu_torch.nn.decision import DecisionGD, DecisionMSE
+from veles_tpu_torch.nn.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from veles_tpu_torch.nn.gd import (
     GDRELU, GDSigmoid, GDSoftmax, GDStrictRELU, GDTanh, GradientDescent)
 from veles_tpu_torch.nn.pooling import (
@@ -91,7 +96,8 @@ class StandardWorkflow(Workflow):
     """Declarative topology workflow (the Znicz StandardWorkflow role)."""
 
     def __init__(self, workflow, layers=(), loader_kwargs=None,
-                 decision_kwargs=None, device=None, **kwargs):
+                 loader_cls=None, decision_kwargs=None, device=None,
+                 **kwargs):
         self.layer_defaults = {k: kwargs.pop(k) for k in TRAINER_KEYS
                                if k in kwargs}
         #: fused tick mode: True, False (graph mode) or "auto" (the fused
@@ -104,13 +110,14 @@ class StandardWorkflow(Workflow):
         #: so the per-epoch read overlaps the next epoch's compute;
         #: outputs are identical, including the stop paths
         self.fused_pipeline = kwargs.pop("fused_pipeline", True)
-        for key, what in (("mesh", "a mesh"),
-                          ("evaluator", "the MSE evaluator"),
-                          ("loader_cls", "a custom loader class")):
-            value = kwargs.pop(key, None)
-            if value is not None and value != "softmax":
-                raise NotImplementedError(
-                    "%s is a later slice of the port" % what)
+        if kwargs.pop("mesh", None) is not None:
+            raise NotImplementedError("a mesh is a later slice of the port")
+        #: "softmax" (classification) or "mse" (regression): selects the
+        #: evaluator/decision pair and the default loader
+        self.evaluator_kind = kwargs.pop("evaluator", "softmax")
+        if self.evaluator_kind not in ("softmax", "mse"):
+            raise ValueError("evaluator must be 'softmax' or 'mse', got "
+                             "%r" % self.evaluator_kind)
         for spec in layers:
             if spec["type"] not in FORWARD_TYPES:
                 raise ValueError("unknown layer type %r" % spec["type"])
@@ -120,7 +127,10 @@ class StandardWorkflow(Workflow):
         super().__init__(workflow, **kwargs)
         self.repeater = Repeater(self)
         self.repeater.link_from(self.start_point)
-        self.loader = FullBatchLoader(self, **(loader_kwargs or {}))
+        loader_cls = loader_cls or (
+            FullBatchLoaderMSE if self.evaluator_kind == "mse"
+            else FullBatchLoader)
+        self.loader = loader_cls(self, **(loader_kwargs or {}))
         self.loader.link_from(self.repeater)
         self.forwards = []
         self.gds = []
@@ -275,13 +285,15 @@ class StandardWorkflow(Workflow):
             src = fwd
 
     def _build_evaluator_and_decision(self, decision_kwargs):
-        self.evaluator = EvaluatorSoftmax(self)
+        mse = self.evaluator_kind == "mse"
+        self.evaluator = (EvaluatorMSE if mse else EvaluatorSoftmax)(self)
         self.evaluator.link_from(self.forwards[-1])
         self.evaluator.link_attrs(self.forwards[-1], ("input", "output"))
-        self.evaluator.link_attrs(self.loader,
-                                  ("labels", "minibatch_labels"),
-                                  "sample_mask")
-        self.decision = DecisionGD(self, **decision_kwargs)
+        self.evaluator.link_attrs(
+            self.loader, ("target", "minibatch_targets") if mse
+            else ("labels", "minibatch_labels"), "sample_mask")
+        self.decision = (DecisionMSE if mse else DecisionGD)(
+            self, **decision_kwargs)
         self.decision.link_from(self.evaluator)
         self.decision.loader = self.loader
         self.decision.evaluator = self.evaluator

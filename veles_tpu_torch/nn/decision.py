@@ -11,8 +11,8 @@ the metrics stay device tensors until an epoch (or, per-minibatch, a
 class) ends. In pipelined mode (``pipeline_depth`` 1, the fused tick's
 default) each epoch's metrics are copied to the host asynchronously when
 the epoch ends and read one epoch later, so the read never waits for the
-card. Left out: the fleet epoch buckets and the MSE decision (later
-slices).
+card. ``DecisionMSE`` tracks the best validation MSE in place of the
+error count. Left out: the fleet epoch buckets (a later slice).
 """
 
 import numpy
@@ -376,6 +376,43 @@ class DecisionGD(Unit):
         return [self.best_n_err[VALID] if self.best_n_err[VALID] is not None
                 else self.best_n_err[TRAIN],
                 self.best_epoch, self._epochs_done]
+
+
+class DecisionMSE(DecisionGD):
+    """Decision for regression workflows: improvement tracks the minimum
+    validation MSE instead of the error count (the Znicz DecisionMSE
+    role, ``veles_tpu/nn/decision.py:467-502``). Works with
+    :class:`~veles_tpu_torch.nn.evaluator.EvaluatorMSE`, which publishes
+    ``loss`` and ``max_err`` but no ``n_err``."""
+
+    def _metric(self, n_err, samples, loss_sum):
+        return loss_sum / max(samples, 1)
+
+    def _peek_metric(self, entry):
+        loss_sum = float(_host(entry["loss"][VALID]))
+        return loss_sum / max(entry["samples"][VALID], 1)
+
+    def _improvement_suffix(self, metric, n_err, samples):
+        return "validation_mse_%.6f" % metric
+
+    def _class_summary(self, klass, n_err, samples, loss_sum, epoch):
+        samples = max(samples, 1)
+        self.info("epoch %d %s: avg mse %.6f", epoch,
+                  CLASS_NAMES[klass], loss_sum / samples)
+        if klass == VALID:
+            metric = self._metric(n_err, samples, loss_sum)
+            self._track_improvement(
+                VALID, metric, epoch,
+                self._improvement_suffix(metric, n_err, samples))
+
+    @property
+    def best_mse(self):
+        """Alias: ``best_n_err`` stores the tracked metric, which for
+        this decision is the average MSE."""
+        return self.best_n_err
+
+    def get_metric_names(self):
+        return ["best_validation_mse", "best_epoch", "epochs"]
 
 
 class _Copy:

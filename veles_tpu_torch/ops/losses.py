@@ -1,10 +1,9 @@
-"""Evaluator math: the masked softmax cross-entropy and the confusion
-matrix.
+"""Evaluator math: the masked softmax cross-entropy, the confusion
+matrix and the masked MSE.
 
-The port of ``veles_tpu/ops/losses.py`` as far as the softmax training
-path needs it. ``mask`` zeroes the padded rows of a short final minibatch
-(minibatches keep a static shape); ``valid`` is passed in, so the loss is
-divided by the count of real rows.
+The port of ``veles_tpu/ops/losses.py``. ``mask`` zeroes the padded rows
+of a short final minibatch (minibatches keep a static shape); ``valid``
+is passed in, so the loss is divided by the count of real rows.
 """
 
 import torch
@@ -39,3 +38,22 @@ def confusion_matrix(logits, labels, n_classes, mask=None):
                        device=logits.device)
     flat.index_add_(0, idx, weights)
     return flat.reshape(n_classes, n_classes)
+
+
+def masked_mse(output, target, mask, valid):
+    """Masked MSE: returns (err_output, loss_sum, max_err); ``loss_sum`` is
+    unnormalized, as in :func:`masked_softmax_xent`."""
+    diff = (output - target) * mask.reshape(
+        (-1,) + (1,) * (output.ndim - 1))
+    loss_sum = (diff.reshape(diff.shape[0], -1) ** 2).sum()
+    err = diff * (2.0 / valid)
+    return err, loss_sum, diff.abs().max()
+
+
+def mse(output, target):
+    """Returns (err_output, loss, max_err): the Znicz EvaluatorMSE
+    contract."""
+    batch = output.shape[0]
+    mask = torch.ones(batch, dtype=output.dtype, device=output.device)
+    err, loss_sum, max_err = masked_mse(output, target, mask, float(batch))
+    return err, loss_sum / batch, max_err

@@ -27,7 +27,10 @@ card at T >= 4096 with 128-wide heads; layer norms in plain torch;
 convolutions through ``ops/gemm.conv2d`` (cuDNN on the card) and pools
 through ``nn/pooling.POOLS``, NHWC throughout; a dense layer after a
 block or a conv flattens its input, in H, W, C order for NHWC), computes
-the masked softmax cross-entropy, takes the gradients with
+the masked softmax cross-entropy (or, for the regression family, the
+masked MSE against the targets, which ride the labels lane: gathered
+from the loader's ``original_targets`` by the same indices), takes the
+gradients with
 ``torch.autograd`` of that loss (the JAX package uses
 ``jax.value_and_grad`` of the same loss), and applies each GD unit's
 exact update (``nn/gd.make_updater``) leaf by leaf: the weight decay
@@ -44,8 +47,8 @@ because its step donates its input buffers).
 A topology the tick does not support falls to the lower fusion tiers
 (``parallel/sweep.py``, ``parallel/segments.py``) or to graph mode, which
 run the units' own computes. Left out (later slices): the mesh
-(``shard_map``, ring and Ulysses attention over a ``seq`` axis), the fleet
-slave and control-plane paths, and the MSE loss.
+(``shard_map``, ring and Ulysses attention over a ``seq`` axis) and the
+fleet slave and control-plane paths.
 """
 
 import torch
@@ -243,7 +246,7 @@ def _layer_forward(spec):
 
 
 def build_tick(specs, norm_type="none", with_confusion=True,
-               augment="none"):
+               augment="none", loss_kind="softmax"):
     """The fused engine: ``(train_step, eval_step, train_sweep,
     eval_sweep)``, as the JAX package's ``build_tick``:
 
@@ -251,7 +254,9 @@ def build_tick(specs, norm_type="none", with_confusion=True,
       seed) -> (params, (loss, n_err))`` — one minibatch: gather →
       normalize → [augment, ``augment`` a name of
       ``ops/augment.TRANSFORMS``, keyed by ``seed``] → forward → masked
-      softmax xent → gradients → per-layer update;
+      softmax xent (``loss_kind="mse"``: masked MSE against the float
+      targets ``labels`` then holds, ``n_err`` 0) → gradients → per-layer
+      update;
     - ``eval_step(params, norm, data, labels, indices, valid) -> (loss,
       n_err, confusion)``;
     - ``train_sweep(params, hypers, norm, data, labels, index_matrix,
@@ -265,6 +270,7 @@ def build_tick(specs, norm_type="none", with_confusion=True,
     with arrays as device tensors."""
     layer_fwds = [_layer_forward(s) for s in specs]
     norm_cls = normalizer_registry[norm_type]
+    with_confusion = with_confusion and loss_kind == "softmax"
 
     transform = TRANSFORMS.get(augment)
 
@@ -281,6 +287,11 @@ def build_tick(specs, norm_type="none", with_confusion=True,
         mask = (torch.arange(batch.shape[0], device=batch.device)
                 < valid).float()
         logits = model_forward(wb, batch)
+        if loss_kind == "mse":
+            _, loss_sum, _ = losses.masked_mse(logits, lab, mask, valid)
+            return (loss_sum, torch.zeros((), dtype=torch.int32,
+                                          device=logits.device),
+                    logits, mask)
         _, loss_sum, n_err, _ = losses.masked_softmax_xent(
             logits, lab, mask, valid)
         return loss_sum, n_err, logits, mask
@@ -380,12 +391,14 @@ def build_tick(specs, norm_type="none", with_confusion=True,
 def supports(workflow):
     """True when the workflow's compute chain can run as a fused tick:
     a full-batch loader (whose fill-time transform, if any, is one the
-    tick applies itself, ``fused.py:567-575``), the softmax evaluator,
+    tick applies itself, ``fused.py:567-575``), the softmax evaluator, or
+    the MSE evaluator over ``FullBatchLoaderMSE`` (``fused.py:560-564``),
     layers of the kinds :func:`extract_model_spec` knows, and exactly
     the standard topology (a custom unit spliced into the cycle would be
     dropped by the splice)."""
-    from veles_tpu_torch.loader.fullbatch import FullBatchLoader
-    from veles_tpu_torch.nn.evaluator import EvaluatorSoftmax
+    from veles_tpu_torch.loader.fullbatch import (FullBatchLoader,
+                                                  FullBatchLoaderMSE)
+    from veles_tpu_torch.nn.evaluator import EvaluatorMSE, EvaluatorSoftmax
 
     loader = getattr(workflow, "loader", None)
     if not isinstance(loader, FullBatchLoader):
@@ -393,8 +406,12 @@ def supports(workflow):
     if loader.has_fill_transforms \
             and loader.jit_transform not in TRANSFORMS:
         return False
-    if not isinstance(getattr(workflow, "evaluator", None),
-                      EvaluatorSoftmax):
+    evaluator = getattr(workflow, "evaluator", None)
+    if isinstance(evaluator, EvaluatorMSE):
+        # the regression tick gathers the targets from original_targets
+        if not isinstance(loader, FullBatchLoaderMSE):
+            return False
+    elif not isinstance(evaluator, EvaluatorSoftmax):
         return False
     if extract_model_spec(workflow) is None:
         return False
@@ -439,6 +456,7 @@ class FusedTick(Unit):
         self._steps_ = None
         self._norm_ = None
         self._specs_ = None
+        self._loss_kind_ = "softmax"
         self._wrote_eval_params_ = False
         self._eval_stash_ = None  # params evaluated one epoch ago
         self._stashed_this_epoch_ = False
@@ -458,13 +476,17 @@ class FusedTick(Unit):
                              "validation split: disabling")
                 self.pipelined = False
             wf.decision.pipeline_depth = 1 if self.pipelined else 0
+        from veles_tpu_torch.nn.evaluator import EvaluatorMSE
+        self._loss_kind_ = ("mse" if isinstance(wf.evaluator, EvaluatorMSE)
+                            else "softmax")
         self._specs_ = extract_model_spec(wf)
         self._norm_ = state_tensors(loader.normalizer.jit_state(),
                                     loader.device)
         self._steps_ = build_tick(
             self._specs_, loader.normalization_type,
             with_confusion=getattr(wf.evaluator, "compute_confusion", True),
-            augment=loader.jit_transform or "none")
+            augment=loader.jit_transform or "none",
+            loss_kind=self._loss_kind_)
 
     def run(self):
         wf = self.workflow
@@ -474,7 +496,10 @@ class FusedTick(Unit):
         train_step, eval_step, train_sweep, eval_sweep = self._steps_
         norm = self._norm_
         data = loader.original_data.data
-        labels = loader.labels_for_gather()
+        mse = self._loss_kind_ == "mse"
+        # regression: the labels lane carries the float targets
+        labels = (loader.original_targets.data if mse
+                  else loader.labels_for_gather())
         indices = torch.from_numpy(loader.minibatch_indices.data).to(
             data.device)
         valid = float(max(loader.minibatch_valid_size, 1))
@@ -503,9 +528,11 @@ class FusedTick(Unit):
                                             labels, indices, valid)
         evaluator = wf.evaluator
         evaluator.loss.data = loss
-        evaluator.n_err.data = n_err
-        if not training and getattr(evaluator, "compute_confusion", True):
-            evaluator.confusion_matrix.data = cm
+        if not mse:
+            evaluator.n_err.data = n_err
+            if not training and getattr(evaluator, "compute_confusion",
+                                        True):
+                evaluator.confusion_matrix.data = cm
         self.ticks += 1
         if not training and loader.epoch_ended_for_class:
             # write the EVALUATED weights into the unit Arrays now — they

@@ -54,7 +54,8 @@ from veles_tpu_torch.parallel.segments import (_default_block, _default_skip,
 
 #: loader slot attr -> lane name produced inside the body
 _LANES = (("minibatch_data", "data"), ("minibatch_labels", "labels"),
-          ("sample_mask", "mask"), ("minibatch_indices", "indices"))
+          ("minibatch_targets", "targets"), ("sample_mask", "mask"),
+          ("minibatch_indices", "indices"))
 
 
 def classify(workflow):
@@ -76,6 +77,13 @@ def classify(workflow):
     if loader.has_fill_transforms:
         # the fill's augmentation draws per-minibatch randomness the sweep
         # body does not replicate
+        return None
+    if isinstance(getattr(loader, "minibatch_targets", None), Array) \
+            and not isinstance(getattr(loader, "original_targets", None),
+                               Array):
+        # the body gathers targets from original_targets only; a loader
+        # that fills its target slot otherwise belongs to the segment
+        # tier (the JAX package's body fails on such a lane)
         return None
     chain = chain_of(workflow)
     if not chain or decision not in chain:
@@ -303,11 +311,12 @@ class FusedSweep(Unit):
             "confusion_matrix" in self._metric_slots_
             and getattr(evaluator, "compute_confusion", True))
 
-    def _body(self, plan, writes, consts, data, labels, row, valid,
-              with_cm):
-        """One minibatch: the loader's fill (gather, normalize, mask),
-        then the members' computes in chain order. Returns the updated
-        writes and the minibatch's (loss sum, n_err, confusion)."""
+    def _body(self, plan, writes, consts, data, labels, targets, row,
+              valid, with_cm):
+        """One minibatch: the loader's fill (gather, normalize, mask, and
+        the regression targets where the loader has them), then the
+        members' computes in chain order. Returns the updated writes and
+        the minibatch's (loss sum, n_err, confusion)."""
         loader = self.workflow.loader
         batch, lab = gather_minibatch(data, row, labels)
         batch = loader.normalizer.apply_state(batch, self._norm_)
@@ -315,6 +324,8 @@ class FusedSweep(Unit):
                 < valid).float()
         lane_vals = {"data": batch, "labels": lab, "mask": mask,
                      "indices": row}
+        if targets is not None:
+            lane_vals["targets"] = targets.index_select(0, row)
         env = [None] * plan.n_values
         writes = list(writes)
         for unit, in_refs, outs in plan.steps:
@@ -344,8 +355,8 @@ class FusedSweep(Unit):
         cm = writes[cm_w] if with_cm and cm_w is not None else None
         return writes, (loss_sum, n_err, cm)
 
-    def _run_chunk(self, plan, reads, consts, data, labels, rows, valids,
-                   with_cm):
+    def _run_chunk(self, plan, reads, consts, data, labels, targets, rows,
+                   valids, with_cm):
         """The minibatches of one chunk in order: ``reads`` seed only the
         carried slots; the first minibatch fills the whole write set."""
         writes = [None] * len(plan.writes)
@@ -354,8 +365,8 @@ class FusedSweep(Unit):
         loss = n_err = cm = None
         for row, valid in zip(rows, valids):
             writes, (part, err, c) = self._body(
-                plan, writes, consts, data, labels, row, int(valid),
-                with_cm)
+                plan, writes, consts, data, labels, targets, row,
+                int(valid), with_cm)
             loss = part if loss is None else loss + part
             n_err = err if n_err is None else n_err + err
             if c is not None:
@@ -405,6 +416,8 @@ class FusedSweep(Unit):
         plan = self._plans_[training]
         data = loader.original_data.data
         labels = loader.labels_for_gather()
+        targets = getattr(getattr(loader, "original_targets", None),
+                          "data", None)
         state = self._state_
 
         def current(pairs):
@@ -428,7 +441,7 @@ class FusedSweep(Unit):
         with torch.no_grad():
             for start in range(0, len(matrix), chunk):
                 writes, (loss, err, cm) = self._run_chunk(
-                    plan, reads, consts, data, labels,
+                    plan, reads, consts, data, labels, targets,
                     rows_all[start:start + chunk],
                     valids[start:start + chunk], with_cm)
                 reads = [writes[i] for i in plan.carry_reads]
