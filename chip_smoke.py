@@ -166,6 +166,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and PicklesLoader and AutoLabelSoundFileLoader on pickles and WAV
    tones the smoke writes, their arrays equal to what was written.
 
+17. (run after phase 16, in its directory) snapshots, the CLI, the native
+   export and per-tick REST serving: ``python -m veles_tpu_torch`` runs
+   A5_WORKFLOW (samples/mnist784.py's MLPWorkflow at the wide MLP's width,
+   784 -> 4096 tanh -> 10, minibatch 4096, lr 0.03, moment 0.9, on phase
+   16's idx files) with samples/mnist784_config.py, the knobs on, seed 1,
+   3 epochs, a Snapshotter on every improved epoch and the package
+   exported at 32 and 16 bits at the end: exit 0, epochs 3, the snapshot,
+   its sidecar and its ``_current.lnk``, and K6 once per train and eval
+   minibatch, K5 once per train minibatch (counted in the subprocess, a
+   main path of both); then ``-w <prefix>_current.lnk`` to 5 epochs
+   (exit 0, "resuming from", epochs 5, the same launch rule); images/s
+   and the seconds spent writing and unpickling snapshots; in process,
+   the wide MLP at level 2 (momentum 0.9): 2 epochs, a snapshot, an
+   import onto the card and a resume to 4 against 4 uninterrupted epochs
+   (phase 8's limits, velocities among the leaves); the C++ runtime
+   (native/, built with g++ while nvcc runs) on the exported f32 package
+   against the port's f32 forward on the card over 1000 validation rows
+   (rtol 2e-3, atol 1e-5, equal argmax), the f16 package under 0.65x its
+   size and within 5e-3; and RestfulLoader (derive_from, minibatch 512)
+   -> the restored chain (knobs on) -> RESTfulAPI answering 64 client
+   threads x 20 requests (list and base64 codecs): every reply 200 and
+   within 1e-4 of its row's forward, K6 once per served tick (a main
+   path); requests/s, p50 and p99 latency, rows per tick.
+
 Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
 8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
 bound.
@@ -175,8 +199,11 @@ The line before the last is {"kernels": [...]}; the last line is
 non-zero before printing either.
 """
 
+import base64
 import gzip
 import heapq
+import http.client
+import io
 import json
 import math
 import os
@@ -186,6 +213,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import tarfile
 import tempfile
 import threading
 import time
@@ -200,8 +228,9 @@ from veles_tpu_torch.convert import unit_params_from_jax
 from veles_tpu_torch.core import prng
 from veles_tpu_torch.core.config import root
 from veles_tpu_torch.core.units import Unit
-from veles_tpu_torch.dummy import DummyLauncher
-from veles_tpu_torch.loader.base import TRAIN, VALID
+from veles_tpu_torch.dummy import DummyLauncher, DummyWorkflow
+from veles_tpu_torch.inference import NativeWorkflow, build_native
+from veles_tpu_torch.loader.base import TRAIN, VALID, Loader
 from veles_tpu_torch.loader.mnist import MNISTLoader
 from veles_tpu_torch.loader.normalization import (make_normalizer,
                                                   normalizer_registry,
@@ -214,6 +243,7 @@ from veles_tpu_torch.models.kohonen import KohonenWorkflow
 from veles_tpu_torch.nn.kohonen import grid_coords, som_step
 from veles_tpu_torch.models.mlp import MLPWorkflow
 from veles_tpu_torch.models.standard import StandardWorkflow
+from veles_tpu_torch.nn.decision import DecisionGD
 from veles_tpu_torch.ops import _build
 from veles_tpu_torch.ops import activations as act_lib
 from veles_tpu_torch.ops.attention import (_flash_attention_dkv_plain,
@@ -235,6 +265,7 @@ from veles_tpu_torch.ops.quant import (_attend_plan, _cache_attend_plain,
                                        _int8_matmul_plain,
                                        int8_cache_attend, int8_matmul,
                                        quantize_int8)
+from veles_tpu_torch.parallel.fused import forward_chain
 from veles_tpu_torch.parallel.decode import (_quantize_kv, generate,
                                              quantize_params, request_key,
                                              slot_state_bytes)
@@ -243,9 +274,13 @@ from veles_tpu_torch.parallel.segments import FusedSegment
 from veles_tpu_torch.parallel.sweep import FusedSweep
 from veles_tpu_torch.parallel.transformer_step import (
     init_transformer_params)
-from veles_tpu_torch.serving import ContinuousDecoder, GenerateAPI
+from veles_tpu_torch.serving import (ContinuousDecoder, GenerateAPI,
+                                     RESTfulAPI, RestfulLoader)
 from veles_tpu_torch.serving_chaos import (ServingChaosConfig,
                                            ServingChaosMonkey)
+from veles_tpu_torch.snapshotter import SnapshotterToFile
+
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 
 #: the repo's serving model at full width (bench.py:861-862)
 EMBED, HEADS, BLOCKS, VOCAB = 1024, 16, 4, 32768
@@ -455,6 +490,9 @@ ALEX_KNOBS_MINIBATCH, ALEX_KNOBS_EPOCHS = 512, 2
 #: K6 at AlexNet's last hidden layer into the 1000-way head with the knobs
 #: on, minibatch 512: (m, k, n)
 K6_ALEX_SHAPE = (512, 4096, 1000)
+#: K6 at the wide MLP's hidden layer on one served tick of phase 17's
+#: REST serving (minibatch A5_SERVE_MINIBATCH): (m, k, n), tanh
+K6_SERVE_SHAPE = (512, 784, 4096)
 #: the conv agreement, card against CPU, precision level 2, one epoch,
 #: per-minibatch serving, from the same weights: AlexNet at scale 1/8 on
 #: 67 x 67 x 3 pixels (10 classes, 128 valid / 256 train, minibatch 64),
@@ -532,6 +570,101 @@ NORM_RTOL = 1e-5
 #: windows of 1024 samples
 PICKLE_VALID, PICKLE_TRAIN = 4096, 8192
 SOUND_RATE, SOUND_WINDOW = 16000, 1024
+#: phase 17 (snapshots, the CLI, the export, per-tick REST serving): the
+#: CLI trains the wide MLP (samples/mnist784.py's workflow at bench.py's
+#: width, minibatch 4096, lr 0.03, moment 0.9) on phase 16's idx files
+#: for A5_EPOCHS epochs with a snapshot on every improved epoch, then
+#: resumes from the last to A5_RESUMED_EPOCHS; the in-process resume
+#: agreement runs 2 epochs, a snapshot and a resume to 4 against 4
+#: uninterrupted ones at level 2 (phase 8's limits)
+A5_EPOCHS, A5_RESUMED_EPOCHS = 3, 5
+A5_AGREE_SPLIT, A5_AGREE_EPOCHS = 2, 4
+#: the native runtime on the exported package: validation rows, phase
+#: tests/test_native.py:72-78's bounds against the port's forward (f32,
+#: level 2); the f16 package's size share, its bound against the f32
+#: package's outputs, and the f32 top-2 gap past which its argmax must
+#: hold
+A5_NATIVE_ROWS, NATIVE_RTOL, NATIVE_ATOL = 1000, 2e-3, 1e-5
+F16_SIZE_SHARE, F16_ATOL, F16_TOP2_GAP = 0.65, 5e-3, 1e-2
+#: per-tick REST serving: a minibatch of 512 rows (K6's gate), the loader
+#: flushing after 10 ms; 64 client threads of 20 requests each, half the
+#: list codec and half base64; a reply may differ from the forward on
+#: its own sample by this share of the largest output (its row sits in
+#: another minibatch)
+A5_SERVE_MINIBATCH, A5_FLUSH_S = 512, 0.01
+A5_CLIENTS, A5_REQUESTS, REST_RTOL = 64, 20, 1e-4
+#: the workflow file phase 17 runs through ``python -m veles_tpu_torch``
+#: with samples/mnist784_config.py: it wires a Snapshotter between the
+#: decision and the end point (skipped unless the epoch improved),
+#: exports the trained chain at 32 and 16 bits, and writes its run's
+#: kernel launches and tick minibatches beside the results
+A5_WORKFLOW = '''"""The wide MLP on MNIST idx files (chip_smoke.py phase 17)."""
+
+import json
+import os
+import time
+
+import torch
+
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.export import package_export
+from veles_tpu_torch.loader.mnist import MNISTLoader
+from veles_tpu_torch.models.mlp import MLPWorkflow
+from veles_tpu_torch.ops import gemm
+from veles_tpu_torch.snapshotter import Snapshotter
+
+root.mnist784.update({"layers": [4096, 10], "minibatch_size": 4096,
+                      "learning_rate": 0.03, "gradient_moment": 0.9,
+                      "fail_iterations": 25, "directory": None,
+                      "out": None})
+
+
+def run(load, main):
+    cfg = root.mnist784
+    started = time.perf_counter()
+    wf, resumed = load(
+        MLPWorkflow, name="MNIST784-wide", layers=tuple(cfg.layers),
+        loader_cls=MNISTLoader,
+        loader_kwargs=dict(directory=cfg.directory,
+                           minibatch_size=cfg.minibatch_size,
+                           normalization_type="linear"),
+        learning_rate=cfg.learning_rate,
+        gradient_moment=cfg.gradient_moment, max_epochs=cfg.max_epochs,
+        fail_iterations=cfg.fail_iterations)
+    if wf.device.type == "cuda":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - started
+    if resumed:
+        wf.decision.max_epochs = cfg.max_epochs
+        wf.decision.complete.unset()
+        wf.decision.train_ended.unset()
+        snap = wf.snapshotter
+    else:
+        snap = Snapshotter(wf, directory=cfg.out, prefix="wide",
+                           compression="", interval=1, time_interval=0)
+        snap.link_from(wf.decision)
+        snap.gate_skip = ~wf.decision.improved
+        wf.end_point.unlink_from(wf.decision)
+        wf.end_point.link_from(snap)
+        wf.snapshotter = snap
+    before = list(getattr(wf.fused_tick, "minibatch_counts", [0, 0, 0]))
+    written = snap.export_seconds
+    main()
+    run_name = "resumed" if resumed else "first"
+    for bits in (32, 16):
+        package_export(wf, os.path.join(
+            cfg.out, "wide-%s-%d.tar" % (run_name, bits)), precision=bits)
+    with open(os.path.join(cfg.out, "counters-%s.json" % run_name),
+              "w") as fout:
+        json.dump({"dense_epilogue": gemm.dense_epilogue.launches,
+                   "blocked_matmul": gemm.blocked_matmul.launches,
+                   "minibatches": [a - b for a, b in zip(
+                       wf.fused_tick.minibatch_counts, before)],
+                   "load_s": load_s,
+                   "snapshot_s": snap.export_seconds - written,
+                   "snapshot_bytes": os.path.getsize(snap.destination),
+                   "device": str(wf.device)}, fout)
+'''
 
 
 def card_line():
@@ -1139,7 +1272,9 @@ def k6_phase(timer, device, gen):
     """K6 against its plain version at the hidden layer's forward shape,
     bf16 and f32 operands, each of the five activations; tanh (the
     path's) timed against the plain version and torch.addmm plus the
-    activation on the same operands. The JSON numbers are bf16's."""
+    activation on the same operands; then tanh at one served tick's
+    shape (K6_SERVE_SHAPE) and AlexNet's head (K6_ALEX_SHAPE) against the
+    plain version. The JSON numbers are bf16's."""
     worst = 0.0
     entry = None
     for dtype in (torch.bfloat16, torch.float32):
@@ -1170,6 +1305,20 @@ def k6_phase(timer, device, gen):
         if bf16:
             entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms}
+    # the hidden layer on one served tick of phase 17 (tanh, level 0's
+    # bf16 operands and level 2's f32)
+    for dtype in (torch.bfloat16, torch.float32):
+        a, b = gemm_operands(gen, device, K6_SERVE_SHAPE, dtype, "forward")
+        bias = torch.randn(K6_SERVE_SHAPE[2], generator=gen,
+                           device=device) * 0.1
+        out = dense_epilogue(a, b, bias, "tanh")
+        ref = _dense_epilogue_plain(a, b, bias, "tanh")
+        torch.cuda.synchronize()
+        err, rel = gemm_error(out, ref, GEMM_F32_RTOL)
+        worst = max(worst, err)
+        print("K6 dense_epilogue %s tanh (m %d, k %d, n %d): max_abs_err "
+              "%.3g (%.3g relative)" % (str(dtype).split(".")[-1],
+                                        *K6_SERVE_SHAPE, err, rel))
     # AlexNet's 1000-way head at minibatch 512 with the knobs on (its
     # forward runs linear; relu as the issue of this shape asks)
     a, b = gemm_operands(gen, device, K6_ALEX_SHAPE, torch.bfloat16,
@@ -3946,6 +4095,406 @@ def loader_files_phase(device, directory):
                              "written files")
 
 
+def a5_cli(device, directory, out, epochs, snapshot=None):
+    """One ``python -m veles_tpu_torch`` run of A5_WORKFLOW with
+    samples/mnist784_config.py, the knobs on, seed 1 (``snapshot``: the
+    ``-w`` to resume from). Returns (results, counters, stderr, wall)."""
+    workflow = os.path.join(out, "wide_mnist.py")
+    with open(workflow, "w") as fout:
+        fout.write(A5_WORKFLOW)
+    results = os.path.join(out, "results-%d.json" % epochs)
+    argv = [sys.executable, "-m", "veles_tpu_torch", workflow,
+            os.path.join(REPO_DIR, "samples", "mnist784_config.py"),
+            "root.common.engine.use_pallas=True",
+            "root.common.engine.pallas_epilogue=True",
+            "root.mnist784.directory=%r" % directory,
+            "root.mnist784.out=%r" % out,
+            "root.mnist784.max_epochs=%d" % epochs,
+            "--device", device.type, "--seed", "1",
+            "--result-file", results]
+    if snapshot is not None:
+        argv += ["-w", snapshot]
+    env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=REPO_DIR, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError("the CLI run exited %d:\n%s"
+                             % (proc.returncode, proc.stderr[-4000:]))
+    name = "resumed" if snapshot else "first"
+    with open(results) as fin, \
+            open(os.path.join(out, "counters-%s.json" % name)) as fin2:
+        return json.load(fin), json.load(fin2), proc.stderr, wall
+
+
+def a5_cli_launches(counters):
+    """The launches a CLI run's main path requires: K6 once per train and
+    eval minibatch, K5 once per train minibatch."""
+    test, valid, train_mb = counters["minibatches"]
+    return {"dense_epilogue": test + valid + train_mb,
+            "blocked_matmul": train_mb}
+
+
+def a5_cli_phase(device, directory, out):
+    """The CLI run of A5_WORKFLOW on phase 16's idx files, A5_EPOCHS
+    epochs (a snapshot per improved epoch, the package at 32 and 16 bits
+    at the end), then ``-w <prefix>_current.lnk`` to A5_RESUMED_EPOCHS:
+    exit 0, the epochs in the results, the snapshot, its sidecar and the
+    link, "resuming from" in the log, and each run's K6 and K5 launches
+    (counted in the subprocess) equal to what its tick's minibatches
+    require. Returns the two runs' launches summed."""
+    launches = dict.fromkeys(COUNTERS, 0)
+    link = os.path.join(out, "wide_current.lnk")
+    for epochs, snapshot in ((A5_EPOCHS, None),
+                             (A5_RESUMED_EPOCHS, link)):
+        results, counters, log, wall = a5_cli(device, directory, out,
+                                              epochs, snapshot)
+        want = a5_cli_launches(counters)
+        got = {name: counters[name] for name in want}
+        target = os.path.realpath(link)
+        files_ok = (os.path.islink(link) and os.path.isfile(target)
+                    and os.path.isfile(target + ".sha256"))
+        images = MNIST_ROWS * (epochs - (A5_EPOCHS if snapshot else 0))
+        print("CLI %s: python -m veles_tpu_torch wide_mnist.py "
+              "samples/mnist784_config.py, knobs on, %s: exit 0 in %.1f s; "
+              "results epochs %s, best validation errors %s; run_time %.3f "
+              "s, %.1f images/s over it; snapshots written in %.3f s "
+              "(%d MB each, uncompressed), link %s -> %s with sidecar: %s; "
+              "%sminibatches (test, valid, train) %s, launches %s, required "
+              "%s; run on %s"
+              % ("resume" if snapshot else "run",
+                 "-w %s" % os.path.basename(link) if snapshot
+                 else "%d epochs" % epochs, wall, results["epochs"],
+                 results["best_validation_errors"], results["run_time"],
+                 images / results["run_time"], counters["snapshot_s"],
+                 counters["snapshot_bytes"] >> 20, os.path.basename(link),
+                 os.path.basename(target), files_ok,
+                 "unpickled and placed on the card in %.3f s; "
+                 % counters["load_s"] if snapshot else "",
+                 counters["minibatches"], got, want, counters["device"]))
+        if results["epochs"] != epochs or not files_ok or got != want \
+                or (snapshot and "resuming from" not in log) \
+                or counters["device"] != str(device):
+            raise AssertionError("the CLI %s failed its checks"
+                                 % ("resume" if snapshot else "run"))
+        for name, n in got.items():
+            launches[name] += n
+    return launches
+
+
+def a5_agreement_phase(device, directory):
+    """Snapshot and resume on the card at level 2 (K5 and K6 on f32
+    operands, momentum 0.9): A5_AGREE_SPLIT epochs, a snapshot after the
+    run, import_ onto the card and a resume to A5_AGREE_EPOCHS, against
+    A5_AGREE_EPOCHS uninterrupted epochs from the same seeds and numpy
+    weights (phase 8's rows): equal index streams, per-epoch n_err within
+    AGREE_N_ERR_TOL, every weight, bias and velocity within
+    AGREE_WEIGHT_ATOL of its leaf's largest element."""
+    data, labels = bench_dataset()
+    n = sum(AGREE_CLASS_LENGTHS)
+    data, labels = data[:n], labels[:n]
+    rng = numpy.random.RandomState(5)
+    weights, fan_in = [], data.shape[1]
+    for width in WIDE_LAYERS:
+        bound = 1.0 / math.sqrt(fan_in)
+        weights.append({
+            "weights": rng.uniform(-bound, bound, (fan_in, width)),
+            "bias": rng.uniform(-bound, bound, width)})
+        fan_in = width
+    log = {"sweeps": [], "epochs": []}
+    serve, summary = Loader.serve_next_class_sweep, DecisionGD._epoch_summary
+
+    def served(self):
+        out = serve(self)
+        log["sweeps"].append(numpy.asarray(out[1]).copy())
+        return out
+
+    def summarized(self, stats, epoch):
+        log["epochs"].append(int(stats[VALID][0]))
+        summary(self, stats, epoch)
+
+    def build(epochs):
+        root.common.engine.update({"use_pallas": True,
+                                   "pallas_epilogue": True,
+                                   "precision_level": 2})
+        prng.get("default").seed(1234)
+        prng.get("loader").seed(1234)
+        wf = MLPWorkflow(
+            DummyLauncher(), layers=WIDE_LAYERS,
+            loader_kwargs=dict(data=data, labels=labels,
+                               class_lengths=AGREE_CLASS_LENGTHS,
+                               minibatch_size=WIDE_MINIBATCH,
+                               normalization_type="linear"),
+            learning_rate=TRAIN_LR, gradient_moment=MNIST_MOMENT,
+            max_epochs=epochs, device=device, name="agree")
+        unit_params_from_jax(wf, weights)
+        return wf
+
+    def leaves(wf):
+        return mlp_leaves(wf) + [
+            getattr(gd, name).data.float().cpu() for gd in wf.gds
+            for name in ("_velocity_w", "_velocity_b")]
+
+    # class-level hooks: instance attributes would ride the pickle
+    Loader.serve_next_class_sweep = served
+    DecisionGD._epoch_summary = summarized
+    try:
+        wf = build(A5_AGREE_EPOCHS)
+        wf.initialize()
+        wf.run()
+        whole = (log["sweeps"][:], log["epochs"][:], leaves(wf))
+        del wf
+        log["sweeps"].clear()
+        log["epochs"].clear()
+        wf = build(A5_AGREE_SPLIT)
+        wf.initialize()
+        wf.run()
+        snap = SnapshotterToFile(wf, directory=directory, prefix="agree",
+                                 compression="", interval=1,
+                                 time_interval=0)
+        t0 = time.perf_counter()
+        snap.export()
+        export_s = time.perf_counter() - t0
+        del wf
+        t0 = time.perf_counter()
+        restored = SnapshotterToFile.import_(snap.destination, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        placed = all(t.device.type == device.type for t in (
+            restored.forwards[0].weights.data,
+            restored.forwards[1].bias.data,
+            restored.gds[0]._velocity_w.data,
+            restored.loader.original_data.data,
+            restored.loader.original_labels.data))
+        restored.workflow = DummyLauncher()
+        restored.decision.max_epochs = A5_AGREE_EPOCHS
+        restored.decision.complete.unset()
+        restored.decision.train_ended.unset()
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        restored.initialize()
+        restored.run()
+        got = counts()
+        split = (log["sweeps"][:], log["epochs"][:], leaves(restored))
+    finally:
+        Loader.serve_next_class_sweep = serve
+        DecisionGD._epoch_summary = summary
+    same_stream = len(whole[0]) == len(split[0]) and all(
+        numpy.array_equal(a, b) for a, b in zip(whole[0], split[0]))
+    n_err_diff = max(abs(a - b) for a, b in zip(whole[1], split[1]))
+    rel = leaf_rel(split[2], whole[2])
+    print("resume agreement f32 (level 2), wide MLP, moment 0.9: %d epochs, "
+          "a snapshot (%.3f s to write, %.3f s to unpickle and place on %s, "
+          "every tensor there: %s), a resume to %d, against %d uninterrupted:"
+          " index streams %s (%d sweeps), validation n_err %s vs %s (max "
+          "diff %d, tolerance %d), leaves (weights, biases, velocities) "
+          "within %.3g of their largest (tolerance %.0e); resumed run's "
+          "launches K5 %d, K6 %d"
+          % (A5_AGREE_SPLIT, export_s, load_s, device, placed,
+             A5_AGREE_EPOCHS, A5_AGREE_EPOCHS,
+             "equal" if same_stream else "DIFFER", len(whole[0]), split[1],
+             whole[1], n_err_diff, AGREE_N_ERR_TOL, rel, AGREE_WEIGHT_ATOL,
+             got["blocked_matmul"], got["dense_epilogue"]))
+    if not same_stream or len(split[1]) != A5_AGREE_EPOCHS \
+            or n_err_diff > AGREE_N_ERR_TOL or not rel <= AGREE_WEIGHT_ATOL \
+            or not placed:
+        raise AssertionError("the resumed run disagrees with the "
+                             "uninterrupted one")
+
+
+def a5_native_phase(device, out):
+    """The CLI's last run restored onto the card (``_current.lnk``), its
+    forward units given the exported f32 package's weights; the C++
+    runtime (``native/``, built with g++ on this host) runs that package
+    on A5_NATIVE_ROWS validation rows against the port's forward on the
+    card in f32 (level 2, K6 on f32 operands): NATIVE_RTOL / NATIVE_ATOL
+    and equal argmax. The f16 package must be under F16_SIZE_SHARE of the
+    f32 one, within F16_ATOL of its outputs, and equal in argmax on every
+    row whose f32 top-2 gap exceeds F16_TOP2_GAP. Returns the restored
+    workflow."""
+    t0 = time.perf_counter()
+    restored = SnapshotterToFile.import_(
+        os.path.join(out, "wide_current.lnk"), device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    p32, p16 = (os.path.join(out, "wide-resumed-%d.tar" % bits)
+                for bits in (32, 16))
+    with tarfile.open(p32) as tar:
+        for fwd in restored.forwards:
+            for name in ("weights", "bias"):
+                blob = tar.extractfile("%s_%s.npy" % (fwd.name, name)).read()
+                getattr(fwd, name).data = torch.from_numpy(
+                    numpy.load(io.BytesIO(blob))).to(device)
+    loader = restored.loader
+    rows = loader.original_data.data[:A5_NATIVE_ROWS]
+    batch = loader.normalizer.apply_state(
+        rows, state_tensors(loader.normalizer.jit_state(), device))
+    root.common.engine.update({"use_pallas": True, "pallas_epilogue": True,
+                               "precision_level": 2})
+    dense_before = dense_epilogue.launches
+    ours = torch.softmax(forward_chain(restored)(batch), dim=-1).cpu().numpy()
+    launched = dense_epilogue.launches - dense_before
+    host = batch.cpu().numpy()
+    t0 = time.perf_counter()
+    rt32 = NativeWorkflow(p32)
+    out32 = rt32.run(host)
+    native_s = time.perf_counter() - t0
+    out16 = NativeWorkflow(p16).run(host)
+    err = numpy.abs(out32 - ours)
+    within = bool(numpy.all(err <= NATIVE_ATOL + NATIVE_RTOL
+                            * numpy.abs(ours)))
+    same_argmax = bool(numpy.array_equal(out32.argmax(-1), ours.argmax(-1)))
+    top2 = numpy.sort(out32, axis=-1)
+    clear = (top2[:, -1] - top2[:, -2]) > F16_TOP2_GAP
+    f16_err = float(numpy.abs(out16 - out32).max())
+    f16_argmax = bool(numpy.array_equal(out16.argmax(-1)[clear],
+                                        out32.argmax(-1)[clear]))
+    share = os.path.getsize(p16) / os.path.getsize(p32)
+    print("native export: the CLI's snapshot restored onto %s in %.3f s "
+          "(%d units); C++ runtime (g++ build) on the f32 package, %d rows "
+          "in %.3f s: max abs diff %.3g against the port's f32 forward on "
+          "the card (K6 %d launch), within rtol %.0e / atol %.0e: %s, "
+          "argmax equal: %s; f16 package %d KB = %.3f of the f32 %d KB, "
+          "max abs diff %.3g (tolerance %.0e), argmax equal on %d of %d "
+          "rows with a top-2 gap over %.0e: %s"
+          % (device, load_s, rt32.unit_count, len(host), native_s,
+             float(err.max()), launched, NATIVE_RTOL, NATIVE_ATOL, within,
+             same_argmax, os.path.getsize(p16) >> 10, share,
+             os.path.getsize(p32) >> 10, f16_err, F16_ATOL,
+             int(clear.sum()), len(host), F16_TOP2_GAP, f16_argmax))
+    if not within or not same_argmax or not share < F16_SIZE_SHARE \
+            or not f16_err <= F16_ATOL or not f16_argmax or not clear.any():
+        raise AssertionError("the native runtime disagrees with the port")
+    return restored
+
+
+def a5_rest_phase(device, restored):
+    """Per-tick REST serving of the restored forward chain with the knobs
+    on (level 0): RestfulLoader (derive_from the trained loader,
+    minibatch A5_SERVE_MINIBATCH) -> fused.forward_chain -> RESTfulAPI,
+    wired by hand as tests/test_serving.py:27-60 does; A5_CLIENTS client
+    threads send A5_REQUESTS requests each (a validation row each, half
+    the list codec, half base64). Every reply must be 200 and within
+    REST_RTOL of the largest output of the forward on its own row, and
+    the counters, zeroed just before, must show K6 once per served tick
+    and nothing else: this checks the loader's batching, the codecs and
+    the replies' order (phase 2 holds K6 at this tick's shape,
+    K6_SERVE_SHAPE, against its plain version). Returns the launches."""
+    root.common.engine.update({"use_pallas": True, "pallas_epilogue": True,
+                               "precision_level": 0})
+    forward = forward_chain(restored)
+    loader_src = restored.loader
+    n = A5_CLIENTS * A5_REQUESTS
+    raw = loader_src.original_data.data[:n]
+    state = state_tensors(loader_src.normalizer.jit_state(), device)
+    want = []
+    for start in range(0, n, A5_SERVE_MINIBATCH):
+        block = torch.zeros((A5_SERVE_MINIBATCH, raw.shape[1]),
+                            device=device)
+        part = raw[start:start + A5_SERVE_MINIBATCH]
+        block[:len(part)] = part
+        block = loader_src.normalizer.apply_state(block, state)
+        want.append(forward(block)[:len(part)].cpu().numpy())
+    want = numpy.concatenate(want)
+    samples = raw.cpu().numpy()
+    wf = DummyWorkflow()
+    wf.device = device
+    loader = RestfulLoader(wf, minibatch_size=A5_SERVE_MINIBATCH,
+                           max_response_time=A5_FLUSH_S)
+    loader.derive_from(loader_src)
+    loader.initialize()
+    api = RESTfulAPI(wf, port=0, path="/api")
+    api.feed = loader.feed
+    api.requests = []
+    api.initialize()
+    ticks, rows = [0], [0]
+    stop = threading.Event()
+
+    def serve():
+        while not stop.is_set():
+            loader.run()
+            if loader.complete:
+                return
+            api.results = forward(loader.minibatch_data.data)
+            api.requests = loader.requests
+            api.run()
+            ticks[0] += 1
+            rows[0] += loader.minibatch_valid_size
+
+    replies, latencies, errors = {}, [], []
+
+    def client(c):
+        for r in range(A5_REQUESTS):
+            i = c * A5_REQUESTS + r
+            if r % 2:
+                body = {"input": base64.b64encode(
+                    samples[i].tobytes()).decode(), "codec": "base64",
+                    "shape": [samples.shape[1]], "type": "float32"}
+            else:
+                body = {"input": samples[i].tolist(), "codec": "list"}
+            t0 = time.perf_counter()
+            # a connection a request, as independent clients open them
+            conn = http.client.HTTPConnection("127.0.0.1", api.port,
+                                              timeout=60)
+            try:
+                conn.request("POST", "/api", body=json.dumps(body),
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                replies[i] = (resp.status,
+                              json.loads(resp.read().decode()).get("result"))
+            except Exception as exc:  # reported below, fails the phase
+                errors.append("request %d: %r" % (i, exc))
+            finally:
+                conn.close()
+            latencies.append(time.perf_counter() - t0)
+
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    server = threading.Thread(target=serve, daemon=True)
+    server.start()
+    clients = [threading.Thread(target=client, args=(c,))
+               for c in range(A5_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    stop.set()
+    loader.stop()
+    server.join(timeout=30)
+    api.stop()
+    got = counts()
+    ok = sum(1 for status, _ in replies.values() if status == 200)
+    worst = max((numpy.abs(numpy.asarray(replies[i][1]) - want[i]).max()
+                 / numpy.abs(want[i]).max() for i in replies), default=1.0)
+    latencies.sort()
+    expect = dict.fromkeys(COUNTERS, 0)
+    expect["dense_epilogue"] = ticks[0]
+    print("REST serving of the restored chain (RestfulLoader mb %d, flush "
+          "%.0f ms -> forward_chain, knobs on -> RESTfulAPI): %d clients x "
+          "%d requests (list and base64): %d replies 200 of %d, %d errors; "
+          "%.1f requests/s, latency p50 %.2f ms p99 %.2f ms; %d ticks, %.1f "
+          "rows per tick; worst reply off its row's forward by %.3g of the "
+          "largest output (tolerance %.0e); launches %s, required %s"
+          % (A5_SERVE_MINIBATCH, 1e3 * A5_FLUSH_S, A5_CLIENTS, A5_REQUESTS,
+             ok, n, len(errors), n / wall,
+             1e3 * latencies[len(latencies) // 2],
+             1e3 * latencies[min(len(latencies) - 1,
+                                 int(0.99 * len(latencies)))],
+             ticks[0], rows[0] / max(ticks[0], 1), worst, REST_RTOL,
+             {k: v for k, v in got.items() if v},
+             {k: v for k, v in expect.items() if v}))
+    if errors or ok != n or not worst <= REST_RTOL or got != expect \
+            or not ticks[0]:
+        raise AssertionError("REST serving failed: %s" % errors[:3])
+    return got
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3958,8 +4507,16 @@ def main():
         torch.__version__, torch.version.cuda,
         torch.cuda.get_device_name(0), torch.cuda.device_count()))
     t0 = time.perf_counter()
+    # the native runtime (g++, phase 17) builds while nvcc runs
+    native_done = []
+    native_build = threading.Thread(
+        target=lambda: (build_native(),
+                        native_done.append(time.perf_counter())),
+        name="native-build")
+    native_build.start()
     logs = _build.build()
-    print("kernels built in %.1f s" % (time.perf_counter() - t0))
+    built = time.perf_counter()
+    print("kernels built in %.1f s" % (built - t0))
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -4052,8 +4609,30 @@ def main():
         mse_agreement_phase(device)
         normalizers_phase(device)
         loader_files_phase(device, directory)
-    print("training-surface phases (MNIST784 loader, MSE, normalizers, "
-          "file loaders): %.1f s" % (time.perf_counter() - t_a4))
+        print("training-surface phases (MNIST784 loader, MSE, normalizers, "
+              "file loaders): %.1f s" % (time.perf_counter() - t_a4))
+        # snapshots, the CLI, the native export and per-tick REST
+        # serving: the CLI runs (K6 and K5, counted in the subprocess)
+        # and the served ticks (K6) are main paths
+        t_a5 = time.perf_counter()
+        out = os.path.join(directory, "a5")
+        os.makedirs(out)
+        for name, n in a5_cli_phase(device, directory, out).items():
+            launches[name] += n
+        a5_agreement_phase(device, out)
+        native_build.join()
+        if native_done:
+            # whether the g++ build overlapped any phase after the build
+            print("native runtime built with g++ in %.1f s, %.1f s %s the "
+                  "kernels' build ended" % (
+                      native_done[0] - t0, abs(built - native_done[0]),
+                      "before" if native_done[0] <= built else "after"))
+        restored = a5_native_phase(device, out)
+        for name, n in a5_rest_phase(device, restored).items():
+            launches[name] += n
+        del restored
+        print("snapshot, CLI, export and REST phases: %.1f s"
+              % (time.perf_counter() - t_a5))
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
     print(json.dumps({"kernels": kernels}))

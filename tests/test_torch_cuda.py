@@ -34,7 +34,8 @@ ragged T, at 4096 and 8192 positions, causal and not, at the edges of
 the 128-wide kernels' tiles, at head widths 128, 256 and 384, on the qkv
 projection's split views, K8 and K9 run twice bit for bit, attention() at
 4096 positions with 256-wide heads, the custom VJP on the card against
-the CPU, the wrappers' refusals and a refused launch.
+the CPU, the wrappers' refusals and a refused launch; and a workflow
+trained on the card, snapshotted and resumed on either device.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -1609,3 +1610,62 @@ def test_mse_fused_minibatch_on_the_card_matches_the_cpu(cuda,
     assert abs(loss_c - loss_h) <= 1e-5 * abs(loss_h)
     for a, b in zip(leaves_c, leaves_h):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def _tensors_of(obj, seen=None):
+    """Every tensor reachable from a port object (the snapshot's walk)."""
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if id(obj) in seen or isinstance(obj, (str, bytes, numpy.ndarray)):
+        return []
+    seen.add(id(obj))
+    if isinstance(obj, dict):
+        return [t for v in obj.values() for t in _tensors_of(v, seen)]
+    if isinstance(obj, (list, tuple)):
+        return [t for v in obj for t in _tensors_of(v, seen)]
+    if hasattr(obj, "__dict__") and type(obj).__module__.startswith(
+            "veles_tpu_torch"):
+        return _tensors_of(vars(obj), seen)
+    return []
+
+
+def test_snapshot_of_a_card_workflow_loads_on_either_device(cuda,
+                                                             tmp_path):
+    """A workflow trained on the card snapshots with every tensor on the
+    host (the mean_disp normalizer's statistics, which no Pickleable
+    holds, too) and resumes on the device ``import_`` is given: on the
+    CPU when asked, on the card by default, where it trains on."""
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.models.mlp import MLPWorkflow
+    from veles_tpu_torch.snapshotter import SnapshotterToFile
+    rng = numpy.random.RandomState(4)
+    wf = MLPWorkflow(DummyLauncher(), layers=(32, 10), device="cuda",
+                     loader_kwargs=dict(
+                         data=rng.rand(600, 64).astype(numpy.float32),
+                         labels=rng.randint(0, 10, 600).astype(numpy.int32),
+                         class_lengths=[0, 100, 500], minibatch_size=100,
+                         normalization_type="mean_disp"),
+                     gradient_moment=0.9, max_epochs=1)
+    wf.initialize()
+    wf.run()
+    assert any(t.is_cuda for t in _tensors_of(wf.loader.normalizer))
+    snap = SnapshotterToFile(wf, directory=str(tmp_path), prefix="card",
+                             interval=1, time_interval=0)
+    snap.export()
+    host = SnapshotterToFile.import_(snap.destination, device="cpu")
+    tensors = _tensors_of(host)
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+    assert host.device == torch.device("cpu")
+    assert torch.equal(host.gds[0]._velocity_w.data,
+                       wf.gds[0]._velocity_w.data.cpu())
+    card = SnapshotterToFile.import_(snap.destination)
+    assert all(t.is_cuda for t in _tensors_of(card))
+    card.workflow = DummyLauncher()
+    card.decision.max_epochs = 2
+    card.decision.complete.unset()
+    card.decision.train_ended.unset()
+    card.initialize()
+    card.run()
+    assert card.decision.epochs_done == 2
+    assert card.forwards[0].weights.data.is_cuda

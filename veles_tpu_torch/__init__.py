@@ -20,7 +20,60 @@ counterpart is found under the same path:
   and the fused tick (``parallel/fused.py``), with the blocked GEMM and
   the fused dense layer (``ops/gemm.py``) as hand-written kernels.
 
+- the entry points (``__main__.py``, ``launcher.py``, ``cli.py``):
+  ``python -m veles_tpu_torch <workflow.py> <config.py> [root.x=y ...]``,
+  or the package called as a function, ``veles_tpu_torch("wf.py",
+  "cfg.py", seed=1, device="cpu")``; ``snapshotter.py`` (checkpoint and
+  resume), ``export.py`` and ``inference.py`` (the package that the C++
+  runtime under ``native/`` reads), and the per-tick REST front
+  (``serving.RESTfulAPI`` with ``RestfulLoader``).
+
 Entry points take ``device=None``, which means ``"cuda"``; without a
 card they raise unless the caller asks for ``device="cpu"``
 (``device.resolve_device``).
 """
+
+import sys
+
+
+def __run__(workflow_file, config_file=None, **kwargs):
+    from veles_tpu_torch.cli import run_workflow_file
+    return run_workflow_file(workflow_file, config_file, **kwargs)
+
+
+#: the discovered plugin modules, filled by :func:`scan_plugins`
+__plugins__ = None
+
+
+def scan_plugins():
+    """Import the installed plugins and return them: the entry points of
+    the ``veles_tpu_torch.plugins`` group (reference ``veles.__plugins__``,
+    ``__init__.py:191-215``). Importing a plugin registers its units and
+    loaders by name. A plugin that fails to import is reported on stderr
+    and skipped. The CLI scans once at startup."""
+    global __plugins__
+    if __plugins__ is not None:
+        return __plugins__
+    from importlib.metadata import entry_points
+
+    plugins = []
+    for ep in entry_points(group="veles_tpu_torch.plugins"):
+        try:
+            plugins.append(ep.load())
+        except Exception as exc:  # noqa: BLE001 - one bad plugin only
+            sys.stderr.write("veles_tpu_torch: plugin entry point %s "
+                             "failed: %s\n" % (ep.name, exc))
+    __plugins__ = plugins
+    return plugins
+
+
+class _CallableModule(sys.modules[__name__].__class__):
+    """The package is callable (reference ``VelesModule``,
+    ``__init__.py:126``): ``veles_tpu_torch(...)`` runs a workflow file
+    as the command line does."""
+
+    def __call__(self, workflow_file, config_file=None, **kwargs):
+        return __run__(workflow_file, config_file, **kwargs)
+
+
+sys.modules[__name__].__class__ = _CallableModule

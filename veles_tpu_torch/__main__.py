@@ -1,0 +1,401 @@
+"""Command-line entry point: ``python -m veles_tpu_torch <workflow.py>
+<config.py> [root.x=y ...]``.
+
+The port of ``veles_tpu/__main__.py:31-727`` (reference
+``veles/__main__.py``). The workflow module contract is the JAX
+package's: the module defines ``run(load, main)`` where
+
+    load(WorkflowClass, **kwargs) -> (workflow, snapshot_loaded)
+    main(**kwargs)  # initializes and runs the launcher
+
+The layering is the JAX package's too: the workflow module first (its
+``root`` updates are defaults), then the config file (executable Python
+run with ``root`` injected), then the ``root.a.b=value`` overrides.
+``-w`` resumes from a snapshot: a file, its ``_current.lnk``, a
+``sqlite://db#prefix[/suffix]`` row or an ``http(s)://`` URL downloaded
+first.
+
+``--device {cuda,cpu}`` (default ``cuda``) is the port's counterpart of
+``JAX_PLATFORMS``: ``load`` passes it to the workflow class and to the
+snapshot import. Without a card, ``cuda`` raises; nothing falls back to
+the CPU.
+
+The flags of paths the port does not have yet parse like the JAX
+package's, then exit with code 2 and a message naming the ROADMAP item
+that brings them (:data:`DEFERRED`); so do the JAX package's
+subcommands (:data:`DEFERRED_COMMANDS`).
+"""
+
+import argparse
+import importlib.util
+import json
+import logging
+import os
+import runpy
+import sys
+
+from veles_tpu_torch.core import prng
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.core.logger import Logger, setup_logging
+from veles_tpu_torch.launcher import Launcher
+
+_FLEET = "the fleet, ROADMAP A9"
+_MESH = "the mesh, ROADMAP A8"
+_OBSERVE = "the observe plane, ROADMAP A7"
+_META = "genetics and ensembles, ROADMAP A9"
+
+#: flag -> the ROADMAP item that brings it (by argparse dest)
+DEFERRED = {
+    "listen": _FLEET, "master_address": _FLEET, "nodes": _FLEET,
+    "respawn": _FLEET, "slave_death_probability": _FLEET,
+    "async_slave": _FLEET, "fleet_plane": _FLEET, "fleet_reduce": _FLEET,
+    "chaos_seed": _FLEET, "chaos_frame_drop": _FLEET,
+    "chaos_frame_delay": _FLEET, "chaos_slow_job": _FLEET,
+    "chaos_duplicate_update": _FLEET, "chaos_death": _FLEET,
+    "mesh": _MESH, "coordinator": _MESH, "num_processes": _MESH,
+    "process_id": _MESH, "serve_mesh": _MESH,
+    "optimize": _META, "optimize_fleet": _META,
+    "optimize_representation": _META, "ensemble_train": _META,
+    "ensemble_test": _META,
+    "serve_slo": _OBSERVE, "serve_governor": _OBSERVE,
+    "serve_history": _OBSERVE, "profile": _OBSERVE,
+    "trace_events": _OBSERVE,
+    "serve_aot": "the AOT bundle, ROADMAP A9",
+    "serve_paged_kernel": "not ported, on purpose (ROADMAP A2): on the "
+                          "card the paged pool always attends through "
+                          "its kernels",
+    "manhole": "the debug console, ROADMAP A9",
+    "background": "daemon mode, ROADMAP A9",
+}
+
+#: the JAX package's subcommands -> the ROADMAP item that brings them
+DEFERRED_COMMANDS = {
+    "parity": "ROADMAP A5 (left: it waits for the digits data in the "
+              "repository)",
+    "autotune": "ROADMAP A6",
+    "observe": "ROADMAP A7",
+    "aot": "ROADMAP A9", "analyze": "ROADMAP A9", "route": "ROADMAP A9",
+    "deploy": "ROADMAP A9", "forge": "ROADMAP A9",
+}
+
+
+class Main(Logger):
+    """The command line's entry (reference ``__main__.py:136``)."""
+
+    def __init__(self):
+        super().__init__(logger_name="Main")
+        self.launcher = None
+        self.workflow = None
+        self.snapshot_path = None
+        self.device = "cuda"
+        self.dry_run = None
+        self.visualize = None
+        self.dump_unit_attributes = False
+
+    @staticmethod
+    def init_parser():
+        parser = argparse.ArgumentParser(
+            prog="veles_tpu_torch",
+            description="PyTorch/CUDA dataflow deep-learning framework")
+        parser.add_argument("workflow", help="workflow python file")
+        parser.add_argument("config", nargs="?", default=None,
+                            help="config python file ('-' to skip)")
+        parser.add_argument("overrides", nargs="*", default=[],
+                            help="root.path=value config overrides")
+        parser.add_argument("--device", choices=("cuda", "cpu"),
+                            default="cuda",
+                            help="where the workflow runs (default: the "
+                                 "card; there is no CPU fallback)")
+        parser.add_argument("-w", "--snapshot", default=None,
+                            help="resume from a snapshot: a file, "
+                                 "sqlite://db#prefix or an http(s) URL")
+        parser.add_argument("--result-file", default=None,
+                            help="write IResultProvider metrics JSON here")
+        parser.add_argument("--seed", default=None,
+                            help="seed for the named PRNG streams "
+                                 "(int, or key=int,key=int)")
+        parser.add_argument("--train-ratio", type=float, default=None,
+                            help="use only this fraction of the train set")
+        parser.add_argument("--dry-run", choices=("load", "init"),
+                            default=None,
+                            help="stop after loading/initializing")
+        parser.add_argument("--visualize", default=None, metavar="PATH",
+                            help="write the workflow unit graph as "
+                                 "Graphviz DOT after initialize")
+        parser.add_argument("--dump-unit-attributes", action="store_true",
+                            help="print every unit's post-init state as "
+                                 "JSON lines")
+        parser.add_argument("--dump-config", action="store_true")
+        parser.add_argument("-v", "--verbose", action="count", default=0)
+        serve = parser.add_argument_group(
+            "serving survival", "admission control, deadlines and chaos "
+            "for the serving tier (they write root.common.serve)")
+        serve.add_argument("--serve-max-queue", type=int, default=None,
+                           metavar="N", help="bound on staged + "
+                           "in-flight serving requests (0 disables it)")
+        serve.add_argument("--serve-deadline", type=float, default=None,
+                           metavar="S", help="default per-request "
+                           "serving deadline in seconds")
+        serve.add_argument("--serve-paged", action="store_true",
+                           default=None, help="serve from the paged KV "
+                           "pool instead of the dense slot slab")
+        serve.add_argument("--serve-page-size", type=int, default=None,
+                           metavar="N", help="positions per KV page")
+        serve.add_argument("--serve-pool-pages", type=int, default=None,
+                           metavar="N", help="total pages in the KV pool")
+        serve.add_argument("--chaos-serve-seed", type=int, default=None,
+                           metavar="N", help="serving chaos RNG seed")
+        serve.add_argument("--chaos-serve-step-fail", type=float,
+                           default=None, metavar="P",
+                           help="inject a decoder-step failure with "
+                           "probability P")
+        serve.add_argument("--chaos-serve-step-fail-max", type=int,
+                           default=None, metavar="N",
+                           help="cap on injected step failures")
+        serve.add_argument("--chaos-serve-slow-step", type=float,
+                           default=None, metavar="P",
+                           help="stretch a decode step with "
+                           "probability P")
+        deferred = parser.add_argument_group(
+            "not ported yet", "these parse as in the JAX package, then "
+            "exit with code 2 naming the ROADMAP item that brings them")
+        for flags, kwargs in (
+                (("-l", "--listen"), {"metavar": "HOST:PORT"}),
+                (("-m", "--master-address"), {"metavar": "HOST:PORT"}),
+                (("-n", "--nodes"), {"action": "append",
+                                     "metavar": "HOST[,HOST...]"}),
+                (("--respawn",), {"action": "store_true"}),
+                (("--slave-death-probability",), {"type": float}),
+                (("--async-slave",), {"action": "store_true"}),
+                (("--fleet-plane",), {"choices": ("data", "control")}),
+                (("--fleet-reduce",), {"choices": ("f32", "bf16",
+                                                   "int8")}),
+                (("--chaos-seed",), {"type": int, "metavar": "N"}),
+                (("--chaos-frame-drop",), {"type": float, "metavar": "P"}),
+                (("--chaos-frame-delay",), {"type": float,
+                                            "metavar": "P"}),
+                (("--chaos-slow-job",), {"type": float, "metavar": "P"}),
+                (("--chaos-duplicate-update",), {"type": float,
+                                                 "metavar": "P"}),
+                (("--chaos-death",), {"type": float, "metavar": "P"}),
+                (("--mesh",), {"metavar": "AXIS=N[,AXIS=N...]"}),
+                (("--coordinator",), {"metavar": "HOST:PORT"}),
+                (("--num-processes",), {"type": int}),
+                (("--process-id",), {"type": int}),
+                (("--optimize",), {"metavar": "SIZE:GENERATIONS"}),
+                (("--optimize-fleet",), {"metavar": "HOST:PORT"}),
+                (("--optimize-representation",), {"choices": ("numeric",
+                                                              "gray")}),
+                (("--ensemble-train",), {"metavar": "N:RATIO"}),
+                (("--ensemble-test",), {"metavar": "FILE"}),
+                (("--serve-mesh",), {"metavar": "AXIS=N[,AXIS=N...]"}),
+                (("--serve-paged-kernel",), {"metavar": "on|off"}),
+                (("--serve-aot",), {"metavar": "PATH"}),
+                (("--serve-slo",), {"metavar": "OBJ=TARGET[,...]"}),
+                (("--serve-governor",), {"metavar": "KEY=VALUE[,...]"}),
+                (("--serve-history",), {"metavar": "KEY=VALUE[,...]"}),
+                (("--profile",), {"metavar": "DIR"}),
+                (("--trace-events",), {"metavar": "PATH"}),
+                (("--manhole",), {"action": "store_true"}),
+                (("-b", "--background"), {"action": "store_true"})):
+            kwargs.setdefault("default", None)
+            deferred.add_argument(*flags, **kwargs)
+        return parser
+
+    # -- config handling (reference __main__.py:426-481) ---------------------
+    @staticmethod
+    def apply_config(config_path):
+        if config_path in (None, "-"):
+            return
+        runpy.run_path(config_path, init_globals={"root": root})
+
+    @staticmethod
+    def override_config(overrides):
+        import ast
+        for item in overrides:
+            if "=" not in item:
+                raise ValueError("override %r is not root.path=value" % item)
+            path, value = item.split("=", 1)
+            parts = path.split(".")
+            if parts[0] != "root":
+                raise ValueError("override must start with 'root.': %r"
+                                 % item)
+            node = root
+            for part in parts[1:-1]:
+                node = getattr(node, part)
+            try:
+                value = ast.literal_eval(value)
+            except (ValueError, SyntaxError):
+                pass  # keep as string
+            setattr(node, parts[-1], value)
+
+    @staticmethod
+    def seed_random(spec):
+        """Seed the named streams (reference ``_seed_random``,
+        ``__main__.py:483-537``): ``N`` seeds "default" with N and
+        "loader" with N + 1; ``key=N,key=N`` seeds each stream named."""
+        if spec is None:
+            return
+        if "=" in spec:
+            for part in spec.split(","):
+                key, _, value = part.partition("=")
+                prng.get(key).seed(int(value))
+        else:
+            prng.get("default").seed(int(spec))
+            prng.get("loader").seed(int(spec) + 1)
+
+    # -- workflow module loading (reference _load_model) ---------------------
+    @staticmethod
+    def load_module(path):
+        name = os.path.splitext(os.path.basename(path))[0]
+        spec = importlib.util.spec_from_file_location(name, path)
+        if spec is None:
+            raise ImportError("cannot import workflow from %r" % path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+        if not hasattr(module, "run"):
+            raise ValueError(
+                "workflow module %s lacks run(load, main)" % path)
+        return module
+
+    def _resolve_snapshot(self, path):
+        """``-w http(s)://...``: download to a temporary file first
+        (reference ``__main__.py:572-581``)."""
+        if not path or not path.startswith(("http://", "https://")):
+            return path
+        import shutil
+        import tempfile
+        import urllib.request
+        suffix = os.path.splitext(path)[1] or ".pickle"
+        fd, local = tempfile.mkstemp(suffix=suffix, prefix="snapshot_")
+        self.info("downloading snapshot %s", path)
+        try:
+            with urllib.request.urlopen(path, timeout=60) as resp, \
+                    os.fdopen(fd, "wb") as fout:
+                shutil.copyfileobj(resp, fout)  # stream, don't buffer
+        except Exception:
+            try:
+                os.unlink(local)
+            except OSError:
+                pass
+            raise
+        return local
+
+    # -- the load/main pair handed to the module -----------------------------
+    def _load(self, workflow_class, **kwargs):
+        if self.snapshot_path:
+            from veles_tpu_torch.snapshotter import (SnapshotterToDB,
+                                                     SnapshotterToFile)
+            self.info("resuming from %s", self.snapshot_path)
+            store = (SnapshotterToDB
+                     if self.snapshot_path.startswith("sqlite://")
+                     else SnapshotterToFile)
+            self.workflow = store.import_(self.snapshot_path,
+                                          device=self.device)
+            self.workflow.workflow = self.launcher
+            return self.workflow, True
+        kwargs.setdefault("device", self.device)
+        self.workflow = workflow_class(self.launcher, **kwargs)
+        return self.workflow, False
+
+    def _main(self, **kwargs):
+        if self.dry_run == "load":
+            return
+        self.launcher.initialize(**kwargs)
+        if self.visualize:
+            with open(self.visualize, "w") as fout:
+                fout.write(self.workflow.generate_graph())
+            self.info("workflow graph written to %s (render with "
+                      "`dot -Tsvg`)", self.visualize)
+        if self.dump_unit_attributes:
+            self._dump_unit_attributes()
+        if self.dry_run == "init":
+            return
+        self.launcher.run()
+        self.launcher.stop()
+
+    def _dump_unit_attributes(self):
+        """Post-init unit state dump (reference ``--dump-unit-attributes``,
+        ``__main__.py:663-685``)."""
+        for unit in self.workflow.units:
+            attrs = {}
+            for key, value in sorted(vars(unit).items()):
+                if key.startswith("_") or key.endswith("_"):
+                    continue
+                if isinstance(value, (int, float, str, bool, type(None))):
+                    attrs[key] = value
+                elif isinstance(value, (list, tuple)) and len(value) < 16:
+                    attrs[key] = repr(value)
+                else:
+                    attrs[key] = type(value).__name__
+            print(json.dumps({"unit": unit.name,
+                              "type": type(unit).__name__,
+                              "attrs": attrs}))
+
+    # -- entry ----------------------------------------------------------------
+    def run(self, argv=None):
+        parser = self.init_parser()
+        args = parser.parse_args(argv)
+        for dest, item in DEFERRED.items():
+            if getattr(args, dest) not in (None, False):
+                parser.error("--%s is not ported yet: %s"
+                             % (dest.replace("_", "-"), item))
+        setup_logging(level=logging.DEBUG if args.verbose
+                      else logging.INFO)
+        # plugins BEFORE the workflow module: a plugin registers its units
+        # and loaders by name for the workflow being loaded
+        import veles_tpu_torch
+        plugins = veles_tpu_torch.scan_plugins()
+        if plugins:
+            self.info("plugins: %s",
+                      ", ".join(getattr(p, "__name__", repr(p))
+                                for p in plugins))
+        self.device = args.device
+        self.dry_run = args.dry_run
+        self.snapshot_path = self._resolve_snapshot(args.snapshot)
+        self.visualize = args.visualize
+        self.dump_unit_attributes = args.dump_unit_attributes
+        # module FIRST, then the config file, then the overrides
+        module = self.load_module(args.workflow)
+        self.apply_config(args.config)
+        self.override_config(args.overrides)
+        # the serving flags AFTER the config layering: the CLI wins
+        for flag, node, key in (
+                ("serve_max_queue", root.common.serve, "max_queue"),
+                ("serve_deadline", root.common.serve, "deadline"),
+                ("serve_paged", root.common.serve, "paged"),
+                ("serve_page_size", root.common.serve, "page_size"),
+                ("serve_pool_pages", root.common.serve, "pool_pages"),
+                ("chaos_serve_seed", root.common.serve.chaos, "seed"),
+                ("chaos_serve_step_fail", root.common.serve.chaos,
+                 "step_fail"),
+                ("chaos_serve_step_fail_max", root.common.serve.chaos,
+                 "step_fail_max"),
+                ("chaos_serve_slow_step", root.common.serve.chaos,
+                 "slow_step")):
+            value = getattr(args, flag)
+            if value is not None:
+                setattr(node, key, value)
+        if args.dump_config:
+            root.print_()
+            return 0
+        if args.train_ratio is not None:
+            root.common.train_ratio = args.train_ratio
+        self.seed_random(args.seed)
+        self.launcher = Launcher(result_file=args.result_file)
+        module.run(self._load, self._main)
+        return 0
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in DEFERRED_COMMANDS:
+        sys.stderr.write("veles_tpu_torch: the %r command is not ported "
+                         "yet: %s\n" % (argv[0], DEFERRED_COMMANDS[argv[0]]))
+        return 2
+    return Main().run(argv)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

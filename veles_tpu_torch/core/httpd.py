@@ -9,9 +9,17 @@ loopback by default.
 
 import json
 import threading
+from http.server import ThreadingHTTPServer
 
 #: default request-body cap (bytes)
 MAX_BODY = 32 * 1024 * 1024
+
+
+class _Server(ThreadingHTTPServer):
+    #: the listen backlog: socketserver's default of 5 drops the
+    #: connections of a burst of concurrent clients, whose SYNs are
+    #: retried after 1 s and then 3 s
+    request_queue_size = 128
 
 
 class QuietHandlerMixin:
@@ -106,9 +114,7 @@ def start_server(handler_cls, host="127.0.0.1", port=0, name="httpd"):
     """Start a ThreadingHTTPServer on a daemon thread. Returns
     ``(httpd, resolved_port)``; stop with ``httpd.shutdown()`` and
     ``httpd.server_close()``."""
-    from http.server import ThreadingHTTPServer
-
-    httpd = ThreadingHTTPServer((host, port), handler_cls)
+    httpd = _Server((host, port), handler_cls)
     thread = threading.Thread(target=httpd.serve_forever, name=name,
                               daemon=True)
     thread.start()

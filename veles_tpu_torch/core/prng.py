@@ -16,7 +16,10 @@ Unlike the JAX package, ``seed(None)`` takes fresh entropy and persists
 nothing: the port reads and writes no file outside its checkout.
 
 A global keyed registry (``get(key)``) mirrors reference
-``random_generator.py:289``.
+``random_generator.py:289``. A stream pickles as its seed, its counter
+and its numpy ``PCG64`` state (the lock is rebuilt on load), and
+``streams_state`` / ``restore_streams`` carry every named stream through
+a workflow snapshot, as the JAX package's ``prng.py:146-190`` do.
 """
 
 import hashlib
@@ -102,6 +105,21 @@ class RandomGenerator(Logger):
         with self._lock:
             return self._numpy.normal(loc, scale, size)
 
+    # -- snapshot support -------------------------------------------------------
+    def __getstate__(self):
+        with self._lock:
+            return {"key": self.key, "initial_seed": self.initial_seed,
+                    "counter": self._counter,
+                    "numpy_state": self._numpy.bit_generator.state}
+
+    def __setstate__(self, state):
+        Logger.__init__(self, logger_name="prng.%s" % state["key"])
+        self.key = state["key"]
+        self._lock = threading.Lock()
+        self.seed(state["initial_seed"])
+        self._counter = state["counter"]
+        self._numpy.bit_generator.state = state["numpy_state"]
+
 
 _registry = {}
 _registry_lock = threading.Lock()
@@ -115,3 +133,22 @@ def get(key="default"):
         if rg is None:
             rg = _registry[key] = RandomGenerator(key)
         return rg
+
+
+def streams_state():
+    """Every named stream's state, for a whole-workflow snapshot."""
+    with _registry_lock:
+        return {key: rg.__getstate__() for key, rg in _registry.items()}
+
+
+def restore_streams(state):
+    """Rebind the named streams to ``state`` (``streams_state()``'s
+    output), in place: a holder of ``get(key)`` sees the restored
+    stream."""
+    with _registry_lock:
+        for key, stream_state in state.items():
+            rg = _registry.get(key)
+            if rg is None:
+                rg = _registry[key] = RandomGenerator.__new__(
+                    RandomGenerator)
+            rg.__setstate__(stream_state)

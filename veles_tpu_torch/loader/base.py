@@ -7,7 +7,8 @@ The port of ``veles_tpu/loader/base.py`` (reference
   and a fixed serving order TEST → VALID → TRAIN inside each epoch;
 - train-set reshuffling each epoch from the named "loader" PRNG stream
   (numpy PCG64, bit for bit the JAX package's), bounded by
-  ``shuffle_limit``;
+  ``shuffle_limit``; a loader resumed from a snapshot keeps its pickled
+  order and position (``restored_from_snapshot``);
 - epoch flags consumed by Decision/GD gating: ``minibatch_class``,
   ``last_minibatch``, ``epoch_ended_for_class``, ``epoch_ended``,
   ``epoch_number``;
@@ -106,6 +107,11 @@ class Loader(Unit):
         entries beyond ``valid`` are padding. Abstract."""
         raise NotImplementedError
 
+    @property
+    def device(self):
+        """Where the loader's tensors go: the workflow's device."""
+        return self.workflow.device
+
     # -- derived sizes --------------------------------------------------------
     @property
     def total_samples(self):
@@ -134,11 +140,16 @@ class Loader(Unit):
             raise ValueError("%s loaded an empty dataset" % self.name)
         self.info("dataset: test=%d validation=%d train=%d",
                   *self.class_lengths)
-        for klass in (TEST, VALID, TRAIN):
-            self.shuffled_indices[klass] = (
-                numpy.arange(self.class_lengths[klass], dtype=numpy.int64)
-                + self.class_offset(klass))
-        self._shuffle_train()
+        if not self.restored_from_snapshot():
+            # a resumed loader keeps its pickled order and position: a
+            # reset and reshuffle here would serve other minibatches
+            # than the run it continues
+            for klass in (TEST, VALID, TRAIN):
+                self.shuffled_indices[klass] = (
+                    numpy.arange(self.class_lengths[klass],
+                                 dtype=numpy.int64)
+                    + self.class_offset(klass))
+            self._shuffle_train()
         self.analyze_dataset()
         self.create_minibatch_data()
 
@@ -188,6 +199,13 @@ class Loader(Unit):
                 raise ValueError(
                     "%s: %s labels missing from the training set: %s"
                     % (self.name, CLASS_NAMES[klass], sorted(unknown)))
+
+    def restored_from_snapshot(self):
+        """True when the workflow was resumed from a snapshot that holds
+        this loader's shuffled order (``loader/base.py:290-293``)."""
+        return bool(getattr(self.workflow, "restored_from_snapshot",
+                            False)) \
+            and self.shuffled_indices[TRAIN] is not None
 
     def draw_transform_seeds(self, n):
         """``n`` augmentation seeds from the loader's stream, one per

@@ -64,11 +64,6 @@ class FullBatchLoader(Loader):
         self.normalizer = None
         self.normalizer_state = None
 
-    @property
-    def device(self):
-        """Where the originals live: the workflow's device."""
-        return self.workflow.device
-
     # -- ILoader --------------------------------------------------------------
     def load_data(self):
         if self._provided_data is None:

@@ -130,10 +130,6 @@ class MinibatchesLoader(Loader):
         self._chunk_index_ = None
         self._cache_ = (None, None)
 
-    @property
-    def device(self):
-        return self.workflow.device
-
     def load_data(self):
         self._file_ = open(self.file_name, "rb")
         self._header = pickle.load(self._file_)

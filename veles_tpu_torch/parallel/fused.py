@@ -245,6 +245,33 @@ def _layer_forward(spec):
     return fwd
 
 
+def forward_chain(workflow):
+    """The workflow's trained forward chain as one function of a
+    normalized batch, for serving it: the fused tick's per-layer math
+    (dense layers through ``ops/gemm.dense_layer``, so K6 on the card
+    with the engine knobs on where the gate holds) over the forward
+    units' weights as they are at each call. The function returns what
+    the last forward unit's ``output`` holds: for an ``All2AllSoftmax``
+    head its logits, as the JAX package's head emits them (its softmax
+    lives in the evaluator's cross-entropy). The exported package's head
+    is retagged softmax, so the native runtime gives the softmax of this
+    output. Raises ValueError for a chain the fused tick does not
+    support."""
+    specs = extract_model_spec(workflow)
+    if specs is None:
+        raise ValueError("%s: the forward chain is not one the fused "
+                         "tick runs" % workflow.name)
+    layer_fwds = [_layer_forward(spec) for spec in specs]
+
+    def forward(x):
+        params = get_params(workflow, specs)
+        with torch.no_grad():
+            for fwd, p in zip(layer_fwds, params):
+                x = fwd(p["p"] if p else {}, x)
+        return x
+    return forward
+
+
 def build_tick(specs, norm_type="none", with_confusion=True,
                augment="none", loss_kind="softmax"):
     """The fused engine: ``(train_step, eval_step, train_sweep,

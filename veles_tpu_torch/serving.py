@@ -1,5 +1,7 @@
 """Continuous-batching LLM serving on the dense slot slab or the paged
-KV pool, and its HTTP front with the survival layer.
+KV pool, and its HTTP front with the survival layer; and per-tick
+workflow serving (``RESTfulAPI`` with ``RestfulLoader``, and the REPL's
+``InteractiveLoader``, ``serving.py:66-232`` and ``:522-728``).
 
 The port of ``veles_tpu/serving.py``'s ``ContinuousDecoder``
 (``:761-2115``), ``ServingHealth`` (``:240-521``) and ``GenerateAPI``
@@ -39,6 +41,7 @@ its governor's tier swap, its blue-green rollout, the mesh and AOT wait
 for the port's observe (A7), mesh (A8) and AOT (A9) slices.
 """
 
+import base64
 import collections
 import json
 import math
@@ -51,9 +54,13 @@ import numpy
 import torch
 
 from veles_tpu_torch.core.config import root
+from veles_tpu_torch.core.mutable import Bool
+from veles_tpu_torch.core.units import Unit
 from veles_tpu_torch.device import (keystr, resolve_device,
                                     tree_leaves_with_path, tree_structure,
                                     tree_to)
+from veles_tpu_torch.loader.base import TEST, Loader, register_loader
+from veles_tpu_torch.loader.normalization import state_tensors
 from veles_tpu_torch.parallel.decode import (SLOT_SPAN_TILE,
                                              init_slot_state,
                                              quantize_params,
@@ -1567,3 +1574,358 @@ class GenerateAPI:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
+
+
+# -- per-tick workflow serving (serving.py:66-232, :522-728) -----------------
+
+@register_loader("restful")
+class RestfulLoader(Loader):
+    """Minibatches assembled from live HTTP requests (reference
+    ``RestfulLoader``, ``loader/restful.py:52``): handler threads
+    :meth:`feed` samples into a staged host batch; :meth:`run` publishes it
+    on the workflow's device, normalized by the trained loader's
+    normalizer, once the batch is full or ``max_response_time`` passed
+    with at least one request staged."""
+
+    def __init__(self, workflow, **kwargs):
+        self.sample_shape = tuple(kwargs.pop("sample_shape", ()))
+        self.max_response_time = float(kwargs.pop("max_response_time", 0.1))
+        if self.max_response_time < 0:
+            raise ValueError("max_response_time must be >= 0")
+        super().__init__(workflow, **kwargs)
+        self.complete = Bool(False)
+        self.requests = []
+        self.normalizer = None
+
+    def init_unpickled(self):
+        super().init_unpickled()
+        self._event_ = threading.Event()
+        self._lock_ = threading.Lock()
+        self._staged_data_ = None
+        self._staged_requests_ = []
+        # the normalizer's state on the device, placed on the first tick
+        self._norm_state_ = None
+
+    def derive_from(self, loader):
+        """Adopt the trained loader's sample geometry and normalizer, so
+        served inputs get the training preprocessing (reference
+        ``derive_from``)."""
+        self.sample_shape = tuple(loader.minibatch_data.shape[1:])
+        self.normalizer = getattr(loader, "normalizer", None)
+        self._norm_state_ = None
+
+    # -- ILoader --------------------------------------------------------------
+    def load_data(self):
+        if not self.sample_shape:
+            raise ValueError(
+                "%s: set sample_shape= or derive_from(trained_loader)"
+                % self.name)
+        self.class_lengths = [self.max_minibatch_size, 0, 0]
+        self._staged_data_ = numpy.zeros(
+            (self.max_minibatch_size,) + self.sample_shape, numpy.float32)
+
+    def create_minibatch_data(self):
+        mb = self.max_minibatch_size
+        self.minibatch_data.reset(torch.zeros(
+            (mb,) + self.sample_shape, device=self.device))
+        self.minibatch_indices.reset(numpy.zeros(mb, numpy.int64))
+        self.sample_mask.reset(torch.zeros(mb, device=self.device))
+
+    def fill_minibatch(self, indices, valid):
+        raise NotImplementedError("RestfulLoader overrides run()")
+
+    # -- serving loop ---------------------------------------------------------
+    def run(self):
+        """Block until at least one request is staged (the flush timer or
+        a full batch sets the event), then publish the minibatch."""
+        # max_response_time=0 means "flush as soon as anything is staged":
+        # poll at a small interval rather than waiting forever
+        poll = self.max_response_time if self.max_response_time > 0 \
+            else 0.01
+        while not self._event_.wait(timeout=poll):
+            if self.complete:
+                return
+            with self._lock_:
+                if self._staged_requests_:
+                    break
+        self._event_.clear()
+        if self.complete:
+            return
+        with self._lock_:
+            n = len(self._staged_requests_)
+            batch = torch.from_numpy(self._staged_data_.copy())
+            self.requests = list(self._staged_requests_)
+            self._staged_requests_ = []
+        device = self.device
+        batch = batch.to(device)
+        if self.normalizer is not None:
+            if self._norm_state_ is None:
+                self._norm_state_ = state_tensors(
+                    self.normalizer.jit_state(), device)
+            batch = self.normalizer.apply_state(batch, self._norm_state_)
+        self.minibatch_class = TEST
+        self.minibatch_valid_size = n
+        self.minibatch_data.data = batch
+        self.sample_mask.data = (torch.arange(self.max_minibatch_size,
+                                              device=device) < n).float()
+        self.samples_served += n
+
+    def feed(self, data, request):
+        """Called from HTTP handler threads: stage one sample. Raises
+        OverflowError when the minibatch is full."""
+        data = numpy.asarray(data, numpy.float32)
+        if data.shape != self.sample_shape:
+            data = data.reshape(self.sample_shape)
+        with self._lock_:
+            slot = len(self._staged_requests_)
+            if slot >= self.max_minibatch_size:
+                raise OverflowError("minibatch overflow: retry")
+            self._staged_data_[slot] = data
+            self._staged_requests_.append(request)
+            if slot + 1 == self.max_minibatch_size:
+                self._event_.set()
+
+    def stop(self):
+        self.complete.set(True)
+        self._event_.set()
+
+
+@register_loader("interactive")
+class InteractiveLoader(Loader):
+    """One-sample serving driven from a REPL: ``loader.feed(obj)`` (an
+    array, or a ``.npy``/``.npz``/text file path); ``feed(None)``
+    completes the workflow (reference ``InteractiveLoader``,
+    ``loader/interactive.py:57``)."""
+
+    def __init__(self, workflow, **kwargs):
+        self.sample_shape = tuple(kwargs.pop("sample_shape", ()))
+        self.loadtxt_kwargs = kwargs.pop("loadtxt_kwargs", {})
+        kwargs.setdefault("minibatch_size", 1)
+        super().__init__(workflow, **kwargs)
+        self.complete = Bool(False)
+
+    def init_unpickled(self):
+        super().init_unpickled()
+        self._event_ = threading.Event()
+        self._food_ = None
+
+    def load_data(self):
+        if not self.sample_shape:
+            raise ValueError("%s: set sample_shape=" % self.name)
+        self.class_lengths = [1, 0, 0]
+
+    def create_minibatch_data(self):
+        self.minibatch_data.reset(torch.zeros(
+            (1,) + self.sample_shape, device=self.device))
+        self.minibatch_indices.reset(numpy.zeros(1, numpy.int64))
+        self.sample_mask.reset(torch.ones(1, device=self.device))
+
+    def fill_minibatch(self, indices, valid):
+        raise NotImplementedError("InteractiveLoader overrides run()")
+
+    def run(self):
+        self.info("waiting for feed()...")
+        self._event_.wait()
+        self._event_.clear()
+        if self.complete:
+            return
+        self.minibatch_class = TEST
+        self.minibatch_valid_size = 1
+        self.minibatch_data.data = torch.from_numpy(
+            self._food_.reshape((1,) + self.sample_shape)).to(self.device)
+        self.samples_served += 1
+
+    def feed(self, obj):
+        if obj is None:
+            self.complete.set(True)
+            self._event_.set()
+            return
+        if isinstance(obj, str):
+            obj = self._load_file(obj)
+        self._food_ = numpy.ascontiguousarray(obj, numpy.float32)
+        self._event_.set()
+
+    def _load_file(self, path):
+        try:
+            loaded = numpy.load(path)
+        except ValueError:  # not an .npy/.npz: a text file
+            return numpy.loadtxt(path, **self.loadtxt_kwargs)
+        if hasattr(loaded, "files"):  # npz
+            return loaded[loaded.files[0]]
+        return loaded
+
+
+class RESTfulAPI(Unit):
+    """HTTP inference endpoint (reference ``RESTfulAPI``,
+    ``restful_api.py:78-215``).
+
+    Wiring: ``api.link_attrs(loader, "feed", "requests",
+    "minibatch_valid_size")`` and ``api.results`` = the forward output
+    (an Array or a tensor); place it after the last forward in the
+    control loop. ``POST <path> {"input": ..., "codec": "list"|"base64"
+    [, "shape": [...], "type": "float32"]}`` answers ``{"result": ...}``;
+    400 for a malformed body, 413 past ``max_body`` bytes, 429 with
+    Retry-After while the serving minibatch is full, 503 with
+    Retry-After while not ready or when no tick answers within
+    ``RESPONSE_TIMEOUT``; ``/healthz`` and ``/readyz``. The JAX
+    package's metrics bridge and request-ledger rows wait for the
+    observe plane (ROADMAP A7)."""
+
+    VIEW_GROUP = "SERVICE"
+    #: handler threads give up after this long without a tick
+    RESPONSE_TIMEOUT = 60.0
+
+    def __init__(self, workflow, **kwargs):
+        self.port = int(kwargs.pop("port", root.common.api.get("port",
+                                                               8180)))
+        self.path = kwargs.pop("path", root.common.api.get("path", "/api"))
+        # loopback by default, as the generate front
+        self.host = kwargs.pop("host",
+                               root.common.api.get("host", "127.0.0.1"))
+        if not self.path.startswith("/"):
+            raise ValueError("path must start with '/'")
+        self.max_body = int(kwargs.pop("max_body", 0)) or None
+        super().__init__(workflow, **kwargs)
+        self.results = None
+        self.demand("feed", "requests")
+
+    def init_unpickled(self):
+        super().init_unpickled()
+        self._httpd_ = None
+        # trailing underscore: it holds a lock, so it is rebuilt on load
+        self.health_ = ServingHealth(name="restful-api")
+
+    @property
+    def health(self):
+        """The ``/healthz`` and ``/readyz`` registry."""
+        return self.health_
+
+    def initialize(self, **kwargs):
+        from http.server import BaseHTTPRequestHandler
+        from veles_tpu_torch.core.httpd import (MAX_BODY, BodyTooLarge,
+                                                QuietHandlerMixin,
+                                                read_body, serve_health,
+                                                start_server)
+
+        api = self
+        limit = self.max_body or MAX_BODY
+
+        class Handler(QuietHandlerMixin, BaseHTTPRequestHandler):
+            def do_POST(self):
+                if self.path != api.path:
+                    self.send_error(404)
+                    return
+                try:
+                    raw = read_body(self, limit=limit)
+                except BodyTooLarge:
+                    return  # 413 already sent, nothing buffered
+                api.serve(self, raw)
+
+            def do_GET(self):
+                if not serve_health(self, api.health):
+                    self.send_error(404)
+
+        self._httpd_, self.port = start_server(
+            Handler, self.host, self.port, name="restful-api")
+        self.health.set_ready(True)
+        self.info("listening on %s:%d%s", self.host, self.port, self.path)
+
+    def stop(self):
+        self.health.set_ready(False)
+        if self._httpd_ is not None:
+            self._httpd_.shutdown()
+            self._httpd_.server_close()
+            self._httpd_ = None
+
+    # -- request side (handler threads) ---------------------------------------
+    def _fail(self, handler, message):
+        from veles_tpu_torch.core.httpd import reply
+        self.warning(message)
+        reply(handler, {"error": message}, code=400)
+
+    def _decode(self, handler, payload):
+        codec = payload.get("codec")
+        if codec == "list":
+            try:
+                return numpy.asarray(payload["input"], numpy.float32)
+            except (ValueError, TypeError) as exc:
+                self._fail(handler, "invalid input array: %s" % exc)
+                return None
+        if codec != "base64":
+            self._fail(handler, "codec must be 'list' or 'base64'")
+            return None
+        shape = payload.get("shape")
+        dtype = payload.get("type")
+        if not isinstance(shape, list) or not shape or dtype is None:
+            self._fail(handler, "base64 codec needs 'shape' and 'type'")
+            return None
+        try:
+            buf = base64.b64decode(payload["input"])
+            return numpy.frombuffer(
+                buf, numpy.dtype(dtype)).reshape(shape).astype(
+                numpy.float32)
+        except (ValueError, TypeError) as exc:
+            self._fail(handler, "failed to decode: %s" % exc)
+            return None
+
+    def serve(self, handler, raw):
+        from veles_tpu_torch.core.httpd import reply, retry_after_headers
+        try:
+            payload = json.loads(raw.decode())
+        except ValueError:
+            self._fail(handler, "failed to parse JSON")
+            return
+        if not isinstance(payload, dict) or "input" not in payload \
+                or "codec" not in payload:
+            self._fail(handler, "need 'input' and 'codec' attributes")
+            return
+        data = self._decode(handler, payload)
+        if data is None:
+            return
+        # the same atomic admit/release pair as GenerateAPI, so the
+        # /healthz inflight gauge and counters stay balanced (the queue
+        # bound itself is the minibatch: feed overflows)
+        if self.health.try_admit(None) is not None:
+            reply(handler, {"error": "not ready"}, code=503,
+                  headers=retry_after_headers(self.health))
+            return
+        responder = {"event": threading.Event(), "result": None}
+        try:
+            self.feed(data, responder)
+        except OverflowError:
+            # the serving minibatch is full: shed with a retry hint
+            # instead of queueing without bound
+            self.health.reject_admitted()
+            reply(handler, {"error": "server saturated: retry"},
+                  code=429, headers=retry_after_headers(self.health))
+            return
+        except (ValueError, TypeError) as exc:
+            self.health.release("errors")
+            self._fail(handler, "invalid input: %s" % exc)
+            return
+        if not responder["event"].wait(self.RESPONSE_TIMEOUT):
+            # a server-side stall is retryable: 503, never a 400
+            self.health.release("expired")
+            self.warning("inference timed out")
+            reply(handler, {"error": "inference timed out"}, code=503,
+                  headers=retry_after_headers(self.health))
+            return
+        self.health.release("completed")
+        reply(handler, {"result": responder["result"]})
+
+    # -- response side (workflow thread, after the forward tick) --------------
+    def run(self):
+        if self.results is None:
+            return
+        out = getattr(self.results, "data", self.results)
+        if isinstance(out, torch.Tensor):
+            out = out.detach().cpu().numpy()
+        out = numpy.asarray(out)
+        for i, responder in enumerate(self.requests):
+            if responder is None:
+                continue
+            value = out[i]
+            responder["result"] = (value.tolist()
+                                   if isinstance(value, numpy.ndarray)
+                                   else float(value))
+            responder["event"].set()
