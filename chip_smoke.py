@@ -190,6 +190,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    within 1e-4 of its row's forward, K6 once per served tick (a main
    path); requests/s, p50 and p99 latency, rows per tick.
 
+18. (run after phase 17) accuracy parity, the digits samples and the
+   autotune (the phases before it run with the tuning cache pointed at
+   a fresh empty file, so no verdict moves their launches): the
+   committed digits read without scikit-learn (both layouts' shapes, the
+   canonical split's SHA-256); ``python -m veles_tpu_torch parity`` on
+   the card, exit 0 and each family within its bound (3.0% / 0.7% /
+   0.7%), its error, epochs, best epoch, seconds and images/s printed;
+   digits_mlp, transformer_digits and som_digits through the CLI at
+   once, each exit 0; ``python -m veles_tpu_torch autotune`` for the wide
+   MLP's K6 and K5 products and AlexNet's head (GEMM), the serving
+   model's qkv prefill at M = 256 and its five decode products at M = 8
+   (``--int8``) and its page size and head width (``--paged-attention``)
+   into one cache, every verdict persisted under this card's key and
+   printed with the kernel's and the plain route's ms; the wide MLP for
+   one epoch under ``use_pallas="tuned"`` with that cache (K6 once per
+   minibatch, K5 once per train minibatch exactly where the weight
+   gradient's verdict says ``beats_xla``: a main path of both); the int8
+   burst with no verdicts and under them (every product on the route its
+   ``int8:`` verdict names, K2's launches equal to the products routed to
+   it: a main path of K2; the streams equal, or the prefill logits within
+   K2's bound); and ``device_benchmark``'s power.
+
 Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
 8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
 bound.
@@ -253,9 +275,12 @@ from veles_tpu_torch.ops.attention import (_flash_attention_dkv_plain,
                                            flash_attention_dkv,
                                            flash_attention_dq,
                                            flash_attention_fwd)
+from veles_tpu_torch.ops import quant as quant_ops
+from veles_tpu_torch.ops.benchmark import device_benchmark
 from veles_tpu_torch.ops.gemm import (_blocked_matmul_plain,
-                                      _dense_epilogue_plain, blocked_matmul,
-                                      dense_epilogue)
+                                      _dense_epilogue_plain, _gemm_kind,
+                                      blocked_matmul, dense_epilogue,
+                                      device_tag)
 from veles_tpu_torch.ops._workspace import sm_count
 from veles_tpu_torch.ops.paged_attention import (_paged_attend_int8_plain,
                                                  _paged_attend_plain,
@@ -266,7 +291,9 @@ from veles_tpu_torch.ops.quant import (_attend_plan, _cache_attend_plain,
                                        int8_cache_attend, int8_matmul,
                                        quantize_int8)
 from veles_tpu_torch.parallel.fused import forward_chain
-from veles_tpu_torch.parallel.decode import (_quantize_kv, generate,
+from veles_tpu_torch.parity import digits_dataset
+from veles_tpu_torch.parallel.decode import (_prefill_forward,
+                                             _quantize_kv, generate,
                                              quantize_params, request_key,
                                              slot_state_bytes)
 from veles_tpu_torch.parallel.kv_pool import paged_kv_bytes
@@ -1523,7 +1550,7 @@ def burst(port, prompts, n_tokens=N_TOKENS):
 
 
 def serve(params, table, waves, quantize, device, paged=True, heads=HEADS,
-          max_len=MAX_LEN, slots=SLOTS, n_tokens=N_TOKENS):
+          max_len=MAX_LEN, slots=SLOTS, n_tokens=N_TOKENS, on_zero=None):
     """Answer ``waves`` of prompts through a fresh GenerateAPI over HTTP
     (on the paged pool, or with ``paged=False`` the dense slab), each
     wave posted at once after the previous one completed. A short
@@ -1531,7 +1558,8 @@ def serve(params, table, waves, quantize, device, paged=True, heads=HEADS,
     and read after the last wave. Returns the streams, the wall seconds,
     the launches, the chunks, the host-blocking seconds (dispatch +
     collect, and admission), /healthz before and after the waves and the
-    (stopped) API, by name."""
+    (stopped) API, by name. ``on_zero`` is called right after the
+    counters are zeroed."""
     api = GenerateAPI(params, table, heads, slots=slots, max_len=max_len,
                       n_tokens=n_tokens, chunk=CHUNK, paged=paged,
                       page_size=PAGE, quantize=quantize,
@@ -1544,6 +1572,8 @@ def serve(params, table, waves, quantize, device, paged=True, heads=HEADS,
         timings0 = dict(api.decoder.timings)
         for fn in COUNTERS.values():
             fn.launches = 0
+        if on_zero is not None:
+            on_zero()
         t0 = time.perf_counter()
         streams = [stream for wave in waves
                    for stream in burst(api.port, wave, n_tokens)]
@@ -4095,6 +4125,13 @@ def loader_files_phase(device, directory):
                              "written files")
 
 
+def port_env():
+    """The environment a ``python -m veles_tpu_torch`` subprocess runs
+    in: this one, with the repository on PYTHONPATH."""
+    return dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+
+
 def a5_cli(device, directory, out, epochs, snapshot=None):
     """One ``python -m veles_tpu_torch`` run of A5_WORKFLOW with
     samples/mnist784_config.py, the knobs on, seed 1 (``snapshot``: the
@@ -4110,15 +4147,15 @@ def a5_cli(device, directory, out, epochs, snapshot=None):
             "root.mnist784.directory=%r" % directory,
             "root.mnist784.out=%r" % out,
             "root.mnist784.max_epochs=%d" % epochs,
+            "root.common.engine.pallas_autotune_cache=%r"
+            % root.common.engine.pallas_autotune_cache,
             "--device", device.type, "--seed", "1",
             "--result-file", results]
     if snapshot is not None:
         argv += ["-w", snapshot]
-    env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
-    proc = subprocess.run(argv, cwd=REPO_DIR, env=env, capture_output=True,
-                          text=True, timeout=600)
+    proc = subprocess.run(argv, cwd=REPO_DIR, env=port_env(),
+                          capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if proc.returncode:
         raise AssertionError("the CLI run exited %d:\n%s"
@@ -4495,6 +4532,293 @@ def a5_rest_phase(device, restored):
     return got
 
 
+# -- phase 18: parity on the card, the samples, the autotune and its routes --
+
+#: the canonical digits split's SHA-256 (float32 pixels, int32 labels), as
+#: scikit-learn's load_digits gives them (tests/test_torch_parity.py pins
+#: the same digests against it)
+DIGITS_X_SHA256 = ("b2b3b36b3126b74f5094139fa9c0003e55d3d445c07baad388e96d"
+                   "594dfb658d")
+DIGITS_Y_SHA256 = ("145cd6a20c97931d1ca61b3a4ccd37c02bbc5f3516cf28e868023"
+                   "01870144436")
+#: the images one parity epoch reads: the train and validation splits
+DIGITS_EPOCH_IMAGES = 1500 + 297
+#: the autotuned shapes. GEMM (MxNxK): the wide MLP's K6 forward and K5
+#: weight gradient (one size bucket; the weight gradient, the product
+#: "tuned" routes, last, so its verdict is the bucket's) and AlexNet's
+#: head at minibatch 512
+A6_GEMM_SHAPES = ((K6_SHAPE[0], K6_SHAPE[2], K6_SHAPE[1]),
+                  (K5_SHAPE[0], K5_SHAPE[2], K5_SHAPE[1]), (512, 1000, 4096))
+#: int8 (MxKxN): one prefill product at M = 256 first, then the serving
+#: model's decode products at M = SLOTS (a KxN key keeps the last shape's
+#: verdict, so the decode rows decide)
+A6_INT8_SHAPES = ((256, EMBED, 3 * EMBED),) + tuple(
+    (SLOTS, k, n) for k, n in K2_SHAPES)
+#: the paged pool's page size and head width (PSxD)
+A6_PAGED_SHAPES = ((PAGE, EMBED // HEADS),)
+A6_TUNED_EPOCHS = 1
+
+
+def run_port(argv, timeout=900):
+    """``python -m veles_tpu_torch argv`` from the repository's root;
+    returns (the completed process, its wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "veles_tpu_torch", *argv],
+                          cwd=REPO_DIR, env=port_env(), capture_output=True,
+                          text=True, timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+def digits_phase():
+    """The committed digits without scikit-learn: both layouts' shapes and
+    the digests of the canonical split."""
+    import hashlib
+    import importlib.util
+    for flat, shape in ((True, (1797, 64)), (False, (1797, 8, 8, 1))):
+        x, y = digits_dataset(flat)
+        digests = (hashlib.sha256(x.tobytes()).hexdigest(),
+                   hashlib.sha256(y.tobytes()).hexdigest())
+        print("digits (flat=%s): %s %s, %s %s; SHA-256 %s / %s; "
+              "scikit-learn importable here: %s"
+              % (flat, x.shape, x.dtype, y.shape, y.dtype, digests[0][:16],
+                 digests[1][:16],
+                 importlib.util.find_spec("sklearn") is not None))
+        if x.shape != shape or y.shape != (1797,) \
+                or digests != (DIGITS_X_SHA256, DIGITS_Y_SHA256):
+            raise AssertionError("the committed digits are not the "
+                                 "canonical split")
+
+
+def parity_phase(out):
+    """``python -m veles_tpu_torch parity`` on the card: exit 0 and every
+    family within its bound; then the three digits samples through the
+    CLI, all at once: each exits 0."""
+    path = os.path.join(out, "PARITY.json")
+    proc, wall = run_port(["parity", "--out", path])
+    if proc.returncode:
+        raise AssertionError("parity exited %d:\n%s"
+                             % (proc.returncode, proc.stderr[-4000:]))
+    verdict = json.load(open(path))
+    for entry in verdict["results"]:
+        print("parity %s: validation error %.3f%% (bound %.1f%%), %d "
+              "epochs, best epoch %d, %.1f s, %.1f images/s"
+              % (entry["name"], entry["val_error_pct"], entry["bound_pct"],
+                 entry["epochs"], entry["best_epoch"], entry["seconds"],
+                 entry["epochs"] * DIGITS_EPOCH_IMAGES / entry["seconds"]))
+        if not entry["pass"] or entry["val_error_pct"] > entry["bound_pct"]:
+            raise AssertionError("%s missed its bound" % entry["name"])
+    print("parity: %s (mode %s), exit 0 in %.1f s"
+          % ("PASS" if verdict["pass"] else "FAIL", verdict["mode"], wall))
+    if not verdict["pass"] or len(verdict["results"]) != 3:
+        raise AssertionError("the parity verdict failed")
+    samples = {"digits_mlp": ["samples/digits_config.py"],
+               "transformer_digits": ["-"], "som_digits": ["-"]}
+    running = {}
+    t0 = time.perf_counter()
+    for name, config in samples.items():
+        log = open(os.path.join(out, name + ".log"), "w+")
+        result = os.path.join(out, name + ".json")
+        running[name] = (subprocess.Popen(
+            [sys.executable, "-m", "veles_tpu_torch",
+             os.path.join(REPO_DIR, "veles_tpu_torch", "samples",
+                          name + ".py"), *config, "--result-file", result],
+            cwd=REPO_DIR, env=port_env(), stdout=log,
+            stderr=subprocess.STDOUT),
+            log, result)
+    failed = []
+    for name, (proc, log, result) in running.items():
+        try:
+            code = proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            code = proc.wait()
+        log.seek(0)
+        text = log.read()
+        log.close()
+        results = json.load(open(result)) if os.path.exists(result) else {}
+        print("sample %s through the CLI on the card: exit %d; results %s"
+              % (name, code, json.dumps(results)[:300]))
+        if code:
+            failed.append("%s (exit %d):\n%s" % (name, code, text[-3000:]))
+    print("the three digits samples, run at once: %.1f s"
+          % (time.perf_counter() - t0))
+    if failed:
+        raise AssertionError("samples failed: " + "\n".join(failed))
+
+
+def autotune_phase(device, out):
+    """``python -m veles_tpu_torch autotune`` on the card for the GEMM,
+    int8 and paged-attention shapes into one cache file: every verdict
+    persisted under this card's key, printed with the kernel's and the
+    plain route's milliseconds. Returns (the cache path, its entries)."""
+    cache = os.path.join(out, "pallas_tuning.json")
+
+    def spec(shapes):
+        return ",".join("x".join(map(str, shape)) for shape in shapes)
+
+    lines = []
+    for shapes, extra in ((A6_GEMM_SHAPES, []), (A6_INT8_SHAPES, ["--int8"]),
+                          (A6_PAGED_SHAPES, ["--paged-attention"])):
+        proc, wall = run_port(["autotune", spec(shapes), *extra,
+                               "--cache", cache])
+        if proc.returncode:
+            raise AssertionError("autotune %s exited %d:\n%s"
+                                 % (" ".join(extra), proc.returncode,
+                                    proc.stderr[-4000:]))
+        got = [json.loads(line) for line in proc.stdout.splitlines()
+               if line.startswith("{")]
+        print("autotune %s: %d shapes in %.1f s"
+              % (" ".join(extra) or "(GEMM)", len(got), wall))
+        if len(got) != len(shapes):
+            raise AssertionError("autotune printed %d lines for %d shapes"
+                                 % (len(got), len(shapes)))
+        lines += got
+    stored = json.load(open(cache))
+    tag = device_tag(device)
+    for line in lines:
+        entry = stored.get("%s|%s" % (tag, line["key"]))
+        choice = {key: line[key] for key in ("blocks", "splits", "pages")
+                  if key in line}
+        print("  verdict %s shape %s: kernel %.4f ms, plain route %.4f ms, "
+              "%s, verdict %s; stored for shape %s, candidates %s"
+              % (line["key"], line["shape"], line["kernel_ms"],
+                 line["plain_ms"], choice, line["verdict"],
+                 entry and entry.get("shape"),
+                 entry and json.dumps(entry.get("measured"))))
+        if not line["persisted"] or line["device"] != tag or entry is None:
+            raise AssertionError("the %s verdict is not persisted under "
+                                 "%r" % (line["key"], tag))
+    return cache, stored
+
+
+def tuned_mlp_phase(device, cache, stored):
+    """The wide MLP for A6_TUNED_EPOCHS under ``use_pallas="tuned"`` with
+    the autotuned cache (the knobs "tuned", so K6 runs every dense
+    forward at the tuned tile width): K6 once per minibatch, and K5 once
+    per train minibatch exactly where the weight gradient's bucket says
+    ``beats_xla``, else never. Returns the launches."""
+    kind = _gemm_kind(K5_SHAPE[0], K5_SHAPE[2], K5_SHAPE[1], torch.bfloat16)
+    entry = stored.get("%s|%s" % (device_tag(device), kind)) or {}
+    data, labels = bench_dataset()
+    wf = build_mlp(device, data, labels, WIDE_LAYERS, WIDE_MINIBATCH,
+                   BENCH_CLASS_LENGTHS, "tuned", A6_TUNED_EPOCHS)
+    isolated = root.common.engine.pallas_autotune_cache
+    root.common.engine.pallas_autotune_cache = cache
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    try:
+        epochs, wall = train(wf, device)
+    finally:
+        root.common.engine.pallas_autotune_cache = isolated
+    got = counts()
+    report_training("wide MLP 784-4096-10 mb 4096, use_pallas=\"tuned\"",
+                    wf, epochs, wall, len(data))
+    test, valid, train_mb = wf.fused_tick.minibatch_counts
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(dense_epilogue=test + valid + train_mb,
+                blocked_matmul=train_mb if entry.get("beats_xla") else 0)
+    print("  bucket %s: beats_xla %s, BN %s; launches %s, the verdicts "
+          "imply %s" % (kind, entry.get("beats_xla"), entry.get("blocks"),
+                        {k: v for k, v in got.items() if v},
+                        {k: v for k, v in want.items() if v}))
+    if got != want or len(epochs) != A6_TUNED_EPOCHS:
+        raise AssertionError("the tuned run's launches %s are not what the "
+                             "verdicts imply, %s" % (got, want))
+    del wf
+    return got
+
+
+def tuned_serving_phase(device, prompts, cache, stored):
+    """The int8 burst with no verdicts (K2 wherever M <= 256, the pinned
+    run) and under the autotuned cache: in the tuned run every product
+    takes the route its ``int8:KxN`` verdict names (the kernel at the
+    verdict's split count, or the dequantized product), and K2's
+    launches equal the products routed to it; the streams equal the
+    pinned run's, or the prefill logits of both routes agree within the
+    K2 tolerance. Returns the tuned run's launches."""
+    tag = device_tag(device)
+    params, table = bf16_model(device)
+    calls = {"kernel": [], "plain": []}
+    recording = [False]
+    real_plan, real_plain = quant_ops._int8_plan, quant_ops._int8_matmul_plain
+
+    def plan(m, k, n, sms, splits=None):
+        if recording[0]:
+            calls["kernel"].append((m, k, n, splits))
+        return real_plan(m, k, n, sms, splits)
+
+    def plain(x, q, scale):
+        if recording[0]:
+            calls["plain"].append((x.shape[0], x.shape[1], q.shape[1]))
+        return real_plain(x, q, scale)
+
+    def expected(m, k, n, tuned):
+        entry = stored.get("%s|int8:%dx%d" % (tag, k, n)) if tuned else None
+        if m > quant_ops.PALLAS_MAX_ROWS:
+            return False, None
+        if entry:
+            return bool(entry["use_pallas"]), entry.get("splits")
+        return True, None
+
+    runs = {}
+    isolated = root.common.engine.pallas_autotune_cache
+    quant_ops._int8_plan, quant_ops._int8_matmul_plain = plan, plain
+    try:
+        for label, path in (("pinned", isolated), ("tuned", cache)):
+            root.common.engine.pallas_autotune_cache = path
+            calls = {"kernel": [], "plain": []}
+            run = serve(params, table, [prompts], "int8", device,
+                        on_zero=lambda: recording.__setitem__(0, True))
+            recording[0] = False
+            routed = {"kernel": len(calls["kernel"]),
+                      "plain": len(calls["plain"])}
+            wrong = [c for c in calls["kernel"]
+                     if expected(*c[:3], label == "tuned")
+                     != (True, c[3])]
+            wrong += [c for c in calls["plain"]
+                      if expected(*c, label == "tuned")[0]]
+            shapes = sorted({c[:3] for c in calls["kernel"]})
+            print("serve int8 bf16, %s: %.1f tokens/s; K2 launches %d; "
+                  "products to K2 %d, to the dequantized product %d; K2 "
+                  "shapes (m, k, n) %d distinct; off-verdict %d"
+                  % (label, len(prompts) * N_TOKENS / run["wall"],
+                     run["launches"]["int8_matmul"], routed["kernel"],
+                     routed["plain"], len(shapes), len(wrong)))
+            if wrong or run["launches"]["int8_matmul"] != routed["kernel"]:
+                raise AssertionError("%s: products off their verdicts: %s"
+                                     % (label, wrong[:8]))
+            runs[label] = run
+        qparams = quantize_params(params)
+        x = table[torch.tensor(prompts[0][:SLOTS], device=device)][None]
+        logits = {}
+        for label, path in (("pinned", isolated), ("tuned", cache)):
+            root.common.engine.pallas_autotune_cache = path
+            logits[label] = _prefill_forward(qparams, x, HEADS)[0].float()
+    finally:
+        quant_ops._int8_plan, quant_ops._int8_matmul_plain = real_plan, \
+            real_plain
+        root.common.engine.pallas_autotune_cache = isolated
+    same = runs["tuned"]["streams"] == runs["pinned"]["streams"]
+    err = (logits["tuned"] - logits["pinned"]).abs().max().item()
+    bound = K2_RTOL * logits["pinned"].abs().max().item()
+    print("  streams tuned vs pinned: %s; prefill logits (%d tokens) "
+          "differ by %.3g (K2 bound %.3g)" % (
+              "equal" if same else "differ", x.shape[1], err, bound))
+    if not same and err > bound:
+        raise AssertionError("the tuned routes change the streams and the "
+                             "logits beyond the K2 tolerance")
+    return runs["tuned"]["launches"]
+
+
+def benchmark_phase(device):
+    power = device_benchmark(device=device)
+    print("device_benchmark (1024 x 1024 bf16, depth 4, 3 runs): power "
+          "%.2f (1000/s of a run)" % power)
+    if not (power > 0 and math.isfinite(power)):
+        raise AssertionError("device_benchmark gave %r" % power)
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4531,6 +4855,10 @@ def main():
               "spill loads" % (label, len(spills),
                                sum(st for st, _ in spills),
                                sum(ld for _, ld in spills)))
+    # phases 1-17 run without verdicts: a fresh, empty tuning cache
+    isolated = tempfile.TemporaryDirectory()
+    root.common.engine.pallas_autotune_cache = os.path.join(
+        isolated.name, "empty.json")
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     timer = Timer(device)
@@ -4633,6 +4961,22 @@ def main():
         del restored
         print("snapshot, CLI, export and REST phases: %.1f s"
               % (time.perf_counter() - t_a5))
+    # parity on the card, the digits samples, the autotune and the
+    # routes its verdicts choose: the tuned wide MLP (K6, and K5 where the
+    # verdict says) and the tuned int8 burst (K2) are main paths
+    t_a6 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        digits_phase()
+        parity_phase(out)
+        cache, stored = autotune_phase(device, out)
+        for name, n in tuned_mlp_phase(device, cache, stored).items():
+            launches[name] += n
+        launches["int8_matmul"] += tuned_serving_phase(
+            device, prompts, cache, stored)["int8_matmul"]
+        benchmark_phase(device)
+    print("parity, samples, autotune and tuned-route phases: %.1f s"
+          % (time.perf_counter() - t_a6))
+    isolated.cleanup()
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
     print(json.dumps({"kernels": kernels}))

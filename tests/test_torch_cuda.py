@@ -34,8 +34,12 @@ ragged T, at 4096 and 8192 positions, causal and not, at the edges of
 the 128-wide kernels' tiles, at head widths 128, 256 and 384, on the qkv
 projection's split views, K8 and K9 run twice bit for bit, attention() at
 4096 positions with 256-wide heads, the custom VJP on the card against
-the CPU, the wrappers' refusals and a refused launch; and a workflow
-trained on the card, snapshotted and resumed on either device.
+the CPU, the wrappers' refusals and a refused launch; a workflow
+trained on the card, snapshotted and resumed on either device; and the
+autotuner's candidates: K5 and K6 at both output tile widths (BN 128 and
+256), K2 at every split count, K1 and K3 at every pages-per-split it
+races, a race on the card persisted under this card's key, the routes
+the verdicts choose, and the device benchmark's power.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -82,6 +86,14 @@ from veles_tpu_torch.parallel.transformer_step import (
 from veles_tpu_torch.serving import ContinuousDecoder
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _empty_tuning_cache(tmp_path, monkeypatch):
+    """Every test runs without verdicts (a fresh tuning cache), so the
+    routes and plans are the defaults unless a test writes one."""
+    monkeypatch.setattr(root.common.engine, "pallas_autotune_cache",
+                        str(tmp_path / "pallas_tuning.json"), raising=False)
 
 
 @pytest.fixture
@@ -1669,3 +1681,150 @@ def test_snapshot_of_a_card_workflow_loads_on_either_device(cuda,
     card.run()
     assert card.decision.epochs_done == 2
     assert card.forwards[0].weights.data.is_cuda
+
+
+# -- the autotuner's candidates and routes --------------------------------------
+
+#: the wide MLP's K5/K6 products and AlexNet's head, (m, k, n)
+TUNED_SHAPES = [(784, 4096, 4096), (4096, 784, 4096), (512, 4096, 1000),
+                (100, 784, 10), (257, 33, 129)]
+
+
+@pytest.mark.parametrize("bn", [128, 256])
+@pytest.mark.parametrize("layout", ["rr", "cr", "rc"])
+@pytest.mark.parametrize("shape", TUNED_SHAPES,
+                         ids=["x".join(map(str, s)) for s in TUNED_SHAPES])
+def test_blocked_matmul_at_both_tile_widths(cuda, shape, layout, bn):
+    """K5's bf16 route at the width the autotuner names (a B box that
+    disagreed with the kernel's BN would fill tiles wrongly, silently),
+    within the K5 tolerance of its plain version."""
+    a, b = _gemm_operands(cuda, shape, torch.bfloat16, layout)
+    before = blocked_matmul.launches
+    out = blocked_matmul(a, b, out_dtype=torch.float32, bn=bn)
+    torch.cuda.synchronize()
+    assert blocked_matmul.launches == before + 1
+    _gemm_close(out, _blocked_matmul_plain(a, b, torch.float32))
+
+
+@pytest.mark.parametrize("bn", [128, 256])
+@pytest.mark.parametrize("activation", sorted(ACTIVATIONS))
+def test_dense_epilogue_at_both_tile_widths(cuda, activation, bn):
+    for shape in ((4096, 784, 4096), (512, 4096, 1000), (600, 520, 530)):
+        a, b = _gemm_operands(cuda, shape, torch.bfloat16, "rr")
+        bias = torch.randn(shape[2], generator=cuda, device="cuda")
+        out = dense_epilogue(a, b, bias, activation, bn=bn)
+        torch.cuda.synchronize()
+        ref = _dense_epilogue_plain(a, b, bias, activation)
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-4 * max(1.0, ref.abs().max().item())
+
+
+def test_the_tile_widths_agree(cuda):
+    """Both widths sum every output in the same order (one wgmma K walk),
+    so they agree bit for bit with each other and with the kernel's own
+    pick."""
+    a, b = _gemm_operands(cuda, (784, 4096, 4096), torch.bfloat16, "cr")
+    outs = [blocked_matmul(a, b, bn=bn) for bn in (0, 128, 256)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+
+
+@pytest.mark.parametrize("m", [8, PALLAS_MAX_ROWS])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("k,n", K2_DECODE_SHAPES,
+                         ids=["%dx%d" % s for s in K2_DECODE_SHAPES])
+def test_int8_matmul_at_every_raced_split(cuda, k, n, dtype, m):
+    from veles_tpu_torch.ops import quant
+    x, q, scale = _int8_problem(cuda, m, k, n, dtype)
+    ref = _int8_matmul_plain(x, q, scale)
+    candidates = quant.int8_split_candidates(
+        m, k, n, _workspace.sm_count(x.device))
+    for want in candidates:
+        out = quant._int8_kernel(x, q, scale, want)
+        again = quant._int8_kernel(x, q, scale, want)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), want
+        _close_to_largest(out, ref)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_paged_attends_at_every_raced_split(cuda, head_dim, q_dtype):
+    """K1 and K3 at every pages-per-split the autotuner races (a table
+    of 6 pages: 1, 2, 4 and 6 pages a split)."""
+    from veles_tpu_torch.ops import paged_attention as pa
+    q, k, v, table, lengths, ps = _paged_problem(cuda, head_dim, q_dtype,
+                                                 torch.bfloat16)
+    ref = _paged_attend_plain(q, k, v, table, lengths, ps)
+    args8 = _int8_paged_problem(cuda, head_dim, q_dtype, [0, 15, 16, 53, 7],
+                                6)
+    ref8 = _paged_attend_int8_plain(*args8)
+    candidates = pa.paged_page_candidates(table.shape[1])
+    assert candidates == [1, 2, 4, 6]
+    for pages in candidates:
+        out = pa._paged_launch(q, k, v, table, lengths, ps, pages)
+        out8 = pa._paged_int8_launch(*args8, pages)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(out8, ref8, rtol=1e-5, atol=1e-5)
+
+
+def test_a_race_on_the_card_persists_and_routes(cuda):
+    """autotune_matmul on the card: an entry under this card's key with
+    sane times; then ``matmul(use_pallas="tuned")`` launches K5 exactly
+    where the verdict says ``beats_xla``, with the verdict's width."""
+    import json
+    blocks = gemm.autotune_matmul(784, 4096, 4096, iters=25)
+    assert blocks[0] in (128, 256)
+    kind = gemm._gemm_kind(784, 4096, 4096, torch.bfloat16)
+    entry = json.load(open(gemm._cache_path()))[
+        gemm._key(torch.device("cuda"), kind)]
+    assert gemm.device_tag() == "%s sm_%d%d" % (
+        torch.cuda.get_device_name(0), *torch.cuda.get_device_capability(0))
+    assert entry["seconds"] > 0 and entry["xla_seconds"] > 0
+    x = torch.randn((4096, 784), generator=cuda, device="cuda")
+    err = torch.randn((4096, 4096), generator=cuda, device="cuda")
+    for beats in (True, False):
+        entry["beats_xla"] = beats
+        gemm._persist_cache(dict(gemm._load_cache(), **{
+            gemm._key(torch.device("cuda"), kind): entry}))
+        before = blocked_matmul.launches
+        out = gemm.matmul(x.t(), err, out_dtype=torch.float32,
+                          use_pallas="tuned")
+        torch.cuda.synchronize()
+        assert blocked_matmul.launches == before + int(beats)
+        _gemm_close(out, _blocked_matmul_plain(
+            x.t().to(torch.bfloat16), err.to(torch.bfloat16)))
+
+
+def test_int8_verdicts_choose_the_route(cuda):
+    """An ``int8:KxN`` verdict for the plain route takes K2 off that
+    shape; one for a split count runs K2 at it; True and False pin."""
+    from veles_tpu_torch.ops import quant
+    x, q, scale = _int8_problem(cuda, 8, 1024, 3072, torch.bfloat16)
+    key = gemm._key(x.device, "int8:1024x3072")
+    for use, splits, launched in ((False, None, 0), (True, 4, 1)):
+        gemm._persist_cache({key: {"use_pallas": use, "splits": splits,
+                                   "seconds": 1e-5, "xla_seconds": 2e-5}})
+        assert quant._tuned_decision(8, 1024, 3072, x.device) \
+            == (use, splits)
+        before = int8_matmul.launches
+        out = int8_matmul(x, q, scale)
+        pinned = int8_matmul(x, q, scale, use_pallas=True)
+        plain = int8_matmul(x, q, scale, use_pallas=False)
+        torch.cuda.synchronize()
+        assert int8_matmul.launches == before + launched + 1
+        ref = _int8_matmul_plain(x, q, scale)
+        for got in (out, pinned, plain):
+            _close_to_largest(got, ref)
+    with pytest.raises(ValueError, match="at most"):
+        int8_matmul(*_int8_problem(cuda, PALLAS_MAX_ROWS + 1, 64, 32,
+                                   torch.float32), use_pallas=True)
+
+
+def test_device_benchmark_on_the_card(cuda):
+    from veles_tpu_torch.ops.benchmark import device_benchmark
+    power = device_benchmark()
+    assert power > 0 and math.isfinite(power)

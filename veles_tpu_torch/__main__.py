@@ -23,7 +23,9 @@ the CPU.
 The flags of paths the port does not have yet parse like the JAX
 package's, then exit with code 2 and a message naming the ROADMAP item
 that brings them (:data:`DEFERRED`); so do the JAX package's
-subcommands (:data:`DEFERRED_COMMANDS`).
+subcommands that are not ported yet (:data:`DEFERRED_COMMANDS`). The
+ported subcommands (:data:`COMMANDS`): ``parity`` (``parity.main``) and
+``autotune`` (``ops/gemm.autotune_main``).
 """
 
 import argparse
@@ -70,9 +72,6 @@ DEFERRED = {
 
 #: the JAX package's subcommands -> the ROADMAP item that brings them
 DEFERRED_COMMANDS = {
-    "parity": "ROADMAP A5 (left: it waits for the digits data in the "
-              "repository)",
-    "autotune": "ROADMAP A6",
     "observe": "ROADMAP A7",
     "aot": "ROADMAP A9", "analyze": "ROADMAP A9", "route": "ROADMAP A9",
     "deploy": "ROADMAP A9", "forge": "ROADMAP A9",
@@ -388,8 +387,24 @@ class Main(Logger):
         return 0
 
 
+def _parity(argv):
+    from veles_tpu_torch.parity import main as parity_main
+    return parity_main(argv)
+
+
+def _autotune(argv):
+    from veles_tpu_torch.ops.gemm import autotune_main
+    return autotune_main(argv)
+
+
+#: the JAX package's subcommands the port has -> their entry
+COMMANDS = {"parity": _parity, "autotune": _autotune}
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in COMMANDS:
+        return COMMANDS[argv[0]](argv[1:])
     if argv and argv[0] in DEFERRED_COMMANDS:
         sys.stderr.write("veles_tpu_torch: the %r command is not ported "
                          "yet: %s\n" % (argv[0], DEFERRED_COMMANDS[argv[0]]))

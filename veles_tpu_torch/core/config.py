@@ -12,6 +12,7 @@ survival layer's (``root.common.serve``). It reads no site overrides and
 keeps no cache directories: nothing here touches a file.
 """
 
+import os
 import pprint
 
 from veles_tpu_torch.core.errors import VelesError
@@ -145,6 +146,11 @@ root.common.update({
         # put every eligible dense layer on the fused dense kernel
         "use_pallas": False,
         "pallas_epilogue": False,
+        # the port's own tuning cache (ops/gemm.py): verdicts keyed by
+        # the card, under the git-ignored build directory
+        "pallas_autotune_cache": os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "_build", "pallas_tuning.json"),
     },
     "trace": {"run": False},
     "timings": False,

@@ -4,8 +4,11 @@ The port's copy of ``veles_tpu/core/logger.py`` (reference
 ``veles/logger.py:59-332``): the ``Logger`` mixin giving every object a
 per-class logger, ``setup_logging`` with a colored console formatter,
 duplicating all logging to a file, and the ``event()`` span API writing
-to a local JSONL file. Left out: the MongoDB duplicator and the flight
-recorder note (the observe plane is a later slice).
+to a local JSONL file and to any sink registered on the recorder, and
+the MongoDB duplicator (:class:`MongoLogHandler`,
+:func:`duplicate_all_logging_to_mongo`, reference ``logger.py:210``,
+``:292``), which takes an injected client where pymongo is absent. Left
+out: the flight recorder note (the observe plane is a later slice).
 """
 
 import json
@@ -126,17 +129,168 @@ def duplicate_all_logging_to_file(path, level=logging.DEBUG):
     return handler
 
 
+class MongoLogHandler(logging.Handler):
+    """Duplicate every log record into a MongoDB collection (reference
+    ``MongoLogHandler``, ``logger.py:292``). pymongo is not a dependency:
+    the default ``client_factory`` imports it when called and raises
+    RuntimeError naming it where it is absent; a caller may inject any
+    factory returning an object with
+    ``client[db][collection].insert_one(doc)``."""
+
+    def __init__(self, addr="127.0.0.1:27017", docid=None,
+                 database="veles", collection="logs",
+                 client_factory=None, level=logging.DEBUG):
+        super().__init__(level)
+        if client_factory is None:
+            def client_factory(address):
+                try:
+                    import pymongo
+                except ImportError:
+                    raise RuntimeError(
+                        "MongoDB log duplication needs pymongo installed "
+                        "(the JSONL event recorder needs nothing: see "
+                        "enable_event_recording)") from None
+                return pymongo.MongoClient("mongodb://%s" % address)
+        self.docid = docid or "%d" % os.getpid()
+        self._collection = client_factory(addr)[database][collection]
+        self._emitting = threading.local()
+        self.on_close = None  # duplicate_all_logging_to_mongo's detach
+
+    def close(self):
+        detach = self.on_close
+        self.on_close = None
+        if detach is not None:
+            detach()
+        super().close()
+
+    def emit(self, record):
+        # pymongo logs its own records during insert_one: skip them,
+        # and any record raised while this thread is inserting, or the
+        # mirror recurses
+        if record.name.startswith("pymongo") \
+                or getattr(self._emitting, "active", False):
+            return
+        self._emitting.active = True
+        try:
+            self._collection.insert_one({
+                "session": self.docid,
+                "time": record.created,
+                "level": record.levelname,
+                "logger": record.name,
+                "message": record.getMessage(),
+            })
+        except Exception:
+            self.handleError(record)
+        finally:
+            self._emitting.active = False
+
+
+def duplicate_all_logging_to_mongo(addr, docid=None, client_factory=None,
+                                   background=True):
+    """Mirror the root logger into MongoDB (reference ``logger.py:210``)
+    and the event spans into its ``events`` collection, both under the
+    handler's session ``docid``.
+
+    ``background=True`` inserts from a listener thread (a
+    ``QueueHandler``/``QueueListener`` pair for the records, a worker
+    for the spans), so a slow server never blocks a log call. Tear down
+    with ``close()`` on the returned handler: it detaches the root
+    handler, flushes and stops the listener and the worker, and
+    unregisters the span sink."""
+    handler = MongoLogHandler(addr, docid=docid,
+                              client_factory=client_factory)
+    root_logger = logging.getLogger()
+    listener = queue_handler = event_worker = event_queue = None
+    events = handler._collection.database["events"]
+    if background:
+        import queue as queue_mod
+        from logging.handlers import QueueHandler, QueueListener
+
+        queue_handler = QueueHandler(queue_mod.SimpleQueue())
+        listener = QueueListener(queue_handler.queue, handler)
+        listener.start()
+        root_logger.addHandler(queue_handler)
+        event_queue = queue_mod.SimpleQueue()
+
+        def sink(attrs):
+            event_queue.put(dict(attrs, session=handler.docid))
+
+        def drain():
+            warned = False
+            while True:
+                item = event_queue.get()
+                if item is None:
+                    return
+                try:
+                    events.insert_one(item)
+                except Exception:
+                    # the span is dropped (the JSONL recorder still has
+                    # it); said once
+                    if not warned:
+                        warned = True
+                        logging.getLogger("MongoLogHandler").exception(
+                            "event insert failed (further failures "
+                            "silent; spans remain in the JSONL log)")
+
+        event_worker = threading.Thread(target=drain,
+                                        name="mongo-events", daemon=True)
+        event_worker.start()
+    else:
+        root_logger.addHandler(handler)
+
+        def sink(attrs):
+            events.insert_one(dict(attrs, session=handler.docid))
+
+    get_event_recorder().add_sink(sink)
+
+    def detach():
+        get_event_recorder().remove_sink(sink)
+        if listener is not None:
+            root_logger.removeHandler(queue_handler)
+            listener.stop()
+            event_queue.put(None)  # after the queued spans (FIFO)
+            event_worker.join(timeout=10)
+            if event_worker.is_alive():
+                logging.getLogger("MongoLogHandler").warning(
+                    "mongo event queue not fully flushed within 10s; "
+                    "remaining spans may be lost (daemon worker still "
+                    "inserting)")
+        else:
+            root_logger.removeHandler(handler)
+
+    handler.on_close = detach
+    return handler
+
+
 class EventRecorder:
     """Append-only JSONL event-span log (the reference's MongoDB event
-    store, ``logger.py:210-289``). Records nothing until :meth:`open`
-    gives it a file."""
+    store, ``logger.py:210-289``). Writes nothing to disk until
+    :meth:`open` gives it a file; hands every span to the registered
+    sinks (:meth:`add_sink`) either way."""
 
     def __init__(self, path=None, session=None):
         self.session = session or "%d" % os.getpid()
         self._lock = threading.Lock()
         self._fd = None
+        self._sinks = []
+        self._sink_warned = set()
         if path is not None:
             self.open(path)
+
+    def add_sink(self, sink):
+        """Register an extra span consumer (the Mongo duplicator):
+        ``sink(attrs)`` is called for every recorded span. A sink that
+        raises is kept and reported once: an outage neither stops the
+        run nor ends the duplication."""
+        with self._lock:
+            self._sinks.append(sink)
+            self._sink_warned.discard(id(sink))
+
+    def remove_sink(self, sink):
+        with self._lock:
+            if sink in self._sinks:
+                self._sinks.remove(sink)
+            self._sink_warned.discard(id(sink))
 
     @property
     def enabled(self):
@@ -148,15 +302,28 @@ class EventRecorder:
             self._fd = open(path, "a", buffering=1)
 
     def record(self, **attrs):
-        if self._fd is None:
+        with self._lock:
+            sinks = list(self._sinks)
+        if self._fd is None and not sinks:
             return
         attrs.setdefault("time", time.time())
         attrs.setdefault("mono", time.monotonic())
         attrs.setdefault("session", self.session)
-        line = json.dumps(attrs, default=str) + "\n"
-        with self._lock:
-            if self._fd is not None:
-                self._fd.write(line)
+        if self._fd is not None:
+            line = json.dumps(attrs, default=str) + "\n"
+            with self._lock:
+                if self._fd is not None:
+                    self._fd.write(line)
+        for sink in sinks:
+            try:
+                sink(attrs)
+            except Exception:
+                with self._lock:
+                    warn = id(sink) not in self._sink_warned
+                    self._sink_warned.add(id(sink))
+                if warn:
+                    logging.getLogger("EventRecorder").exception(
+                        "event sink failed (kept; reported once)")
 
     def close(self):
         with self._lock:

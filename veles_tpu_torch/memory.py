@@ -6,9 +6,12 @@ or a torch tensor, which carries its own device. Units treat it as a
 *slot*: producers assign ``.data`` each tick, consumers read it, so a data
 link always sees the current value. ``to_device(device)`` moves the value
 to an explicit device (``veles_tpu_torch.device.resolve_device`` names
-it); ``mem`` is a host numpy view. The reference's map/unmap coherency
-protocol and the JAX package's device-bytes watcher have no caller in the
-port and are left out.
+it); ``mem`` is a host numpy view. :class:`Watcher` keeps the
+high-water mark of the tensor bytes live Arrays hold (the JAX package's
+``memory.py:41-73``, reference ``memory.py:56-107``): a torch tensor
+counts, on whatever device it lies, as a ``jax.Array`` counts in the JAX
+package; a numpy value does not. The reference's map/unmap coherency
+protocol has no caller in the port and is left out.
 """
 
 import threading
@@ -17,6 +20,46 @@ import numpy
 import torch
 
 from veles_tpu_torch.core.pickling import Pickleable
+
+
+class Watcher:
+    """The process-wide count of tensor bytes held by live Arrays and its
+    high-water mark (the JAX package's ``Watcher``)."""
+
+    _lock = threading.Lock()
+    _current = 0
+    _peak = 0
+
+    @classmethod
+    def add(cls, nbytes):
+        with cls._lock:
+            cls._current += nbytes
+            cls._peak = max(cls._peak, cls._current)
+
+    @classmethod
+    def remove(cls, nbytes):
+        with cls._lock:
+            cls._current -= nbytes
+
+    @classmethod
+    def max_mem_in_use(cls):
+        return cls._peak
+
+    @classmethod
+    def mem_in_use(cls):
+        return cls._current
+
+    @classmethod
+    def reset(cls):
+        with cls._lock:
+            cls._current = 0
+            cls._peak = 0
+
+
+def _tensor_bytes(value):
+    if isinstance(value, torch.Tensor):
+        return value.numel() * value.element_size()
+    return 0
 
 
 class Array(Pickleable):
@@ -31,6 +74,25 @@ class Array(Pickleable):
     def init_unpickled(self):
         super().init_unpickled()
         self._lock_ = threading.RLock()
+        self._device_bytes_ = 0
+        # an unpickled Array holds its tensor again: count it
+        self._account(self.__dict__.get("_data"))
+
+    def _account(self, value):
+        """Move this Array's share of :class:`Watcher`'s count to
+        ``value``'s tensor bytes."""
+        nbytes = _tensor_bytes(value)
+        if nbytes != self._device_bytes_:
+            if self._device_bytes_:
+                Watcher.remove(self._device_bytes_)
+            if nbytes:
+                Watcher.add(nbytes)
+            self._device_bytes_ = nbytes
+
+    def __del__(self):
+        nbytes = self.__dict__.get("_device_bytes_")
+        if nbytes:
+            Watcher.remove(nbytes)
 
     # -- value access ---------------------------------------------------------
     @property
@@ -41,6 +103,7 @@ class Array(Pickleable):
     @data.setter
     def data(self, value):
         with self._lock_:
+            self._account(value)
             self._data = value
 
     @property
@@ -62,6 +125,7 @@ class Array(Pickleable):
                 value = value.data
             if value is not None and not isinstance(value, torch.Tensor):
                 value = numpy.asarray(value, dtype=dtype)
+            self._account(value)
             self._data = value
             return self
 
@@ -100,5 +164,17 @@ class Array(Pickleable):
             value = self._data
             if not isinstance(value, torch.Tensor):
                 value = torch.from_numpy(numpy.ascontiguousarray(value))
-            self._data = value.to(device)
+            value = value.to(device)
+            self._account(value)
+            self._data = value
         return self
+
+
+def assert_addr(*arrays):
+    """Raise ValueError unless every Array holds the same value object
+    (the JAX package's ``assert_addr``, reference ``memory.py``: the
+    arrays share one buffer)."""
+    first = arrays[0]
+    for array in arrays[1:]:
+        if array.data is not first.data:
+            raise ValueError("Arrays do not share the same backing value")

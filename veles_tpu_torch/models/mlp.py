@@ -29,3 +29,19 @@ class MLPWorkflow(StandardWorkflow):
             loader_cls=loader_cls, learning_rate=learning_rate, weights_decay=weights_decay,
             gradient_moment=gradient_moment,
             decision_kwargs=decision_kwargs, **kwargs)
+
+
+def create_mnist784(launcher, data, labels, class_lengths,
+                    minibatch_size=100, learning_rate=0.03,
+                    max_epochs=None, **kwargs):
+    """The reference MNIST784 topology over a provided dataset
+    (``mlp.py:38-49``); ``device`` and the other workflow options ride
+    ``kwargs``."""
+    return MLPWorkflow(
+        launcher, layers=(100, 10),
+        loader_kwargs=dict(data=data, labels=labels,
+                           class_lengths=class_lengths,
+                           minibatch_size=minibatch_size,
+                           normalization_type="linear"),
+        learning_rate=learning_rate, max_epochs=max_epochs,
+        name="MNIST784", **kwargs)

@@ -59,6 +59,11 @@ def strict_relu_deriv(y):
     return (y > 0).to(y.dtype)
 
 
+def softmax(x):
+    """Softmax over the last axis (the JAX package's ``softmax``)."""
+    return torch.softmax(x, dim=-1)
+
+
 ACTIVATIONS = {
     "linear": (linear, linear_deriv),
     "tanh": (tanh, tanh_deriv),

@@ -1,7 +1,9 @@
 """In-tick data augmentation: per-sample mirrors and shifts of an NHWC
 batch.
 
-The port of ``veles_tpu/ops/augment.py:1-53``. The JAX package draws each
+The port of ``veles_tpu/ops/augment.py:1-53``, under the JAX names
+(``mirror_batch``, ``shift_batch``, ``shift1_batch``) and the port's
+earlier ones (``mirror``, ``shift1``). The JAX package draws each
 sample's flip or shift inside the jitted tick with threefry, keyed by a
 scalar seed the loader draws; no torch generator repeats those bits (and
 torch's CPU and CUDA generators disagree with each other). So each
@@ -39,10 +41,16 @@ def mirror_draw(seed, n, device):
     return (_sample_bits(seed, n, device, 0) & 1).bool()
 
 
+def shift_draw(seed, n, device, max_shift=1):
+    """(n,) int64 row and column shifts in [-max_shift, max_shift]."""
+    span = 2 * int(max_shift) + 1
+    return tuple(_sample_bits(seed, n, device, stream) % span
+                 - int(max_shift) for stream in (1, 2))
+
+
 def shift1_draw(seed, n, device):
     """(n,) int64 row and column shifts in {-1, 0, 1}."""
-    return tuple(_sample_bits(seed, n, device, stream) % 3 - 1
-                 for stream in (1, 2))
+    return shift_draw(seed, n, device, 1)
 
 
 def mirror_apply(batch, flip):
@@ -68,19 +76,31 @@ def shift_apply(batch, dh, dw):
                                               device=device))
 
 
-def mirror(batch, seed):
+def mirror_batch(batch, seed):
     """Per-sample random horizontal mirror of NHWC ``batch`` for the
-    loader's ``seed``."""
+    loader's ``seed`` (``augment.py:13-22``)."""
     return mirror_apply(batch, mirror_draw(seed, batch.shape[0],
                                            batch.device))
 
 
-def shift1(batch, seed):
-    """Per-sample random translation by up to one pixel in H and W."""
+def shift_batch(batch, seed, max_shift=1):
+    """Per-sample random translation of NHWC ``batch`` by up to
+    ``max_shift`` pixels in H and W, zero-filled (``augment.py:25-47``)."""
+    dh, dw = shift_draw(seed, batch.shape[0], batch.device, max_shift)
+    return shift_apply(batch, dh, dw)
+
+
+def shift1_batch(batch, seed):
+    """Per-sample random translation by up to one pixel in H and W (the
+    "shift1" transform; draws through :func:`shift1_draw`)."""
     dh, dw = shift1_draw(seed, batch.shape[0], batch.device)
     return shift_apply(batch, dh, dw)
 
 
+#: the transforms under the port's earlier names
+mirror = mirror_batch
+shift1 = shift1_batch
+
 #: transform name -> (batch, seed) fn: the loaders' ``train_transform``
 #: names resolve here (``augment.py:50-53``)
-TRANSFORMS = {"mirror": mirror, "shift1": shift1}
+TRANSFORMS = {"mirror": mirror_batch, "shift1": shift1_batch}

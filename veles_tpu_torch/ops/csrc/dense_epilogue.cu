@@ -18,10 +18,10 @@ template <int EPI>
 static int run(const void* a, const void* b, const float* bias, float* c,
                int m, int n, int k, long long lda, int a_k_contig,
                long long ldb, int b_n_contig, long long ldc, bool bf16,
-               int vec_a, int vec_b, cudaStream_t s) {
+               int vec_a, int vec_b, int bn, cudaStream_t s) {
   if (bf16)
     return gemm_sm90::run<float, EPI>(a, b, c, m, n, k, lda, a_k_contig == 0,
-                                      ldb, b_n_contig != 0, ldc, s, bias);
+                                      ldb, b_n_contig != 0, ldc, s, bn, bias);
   gemm_tiles::Problem p{a, b, bias, c, m, n, k, lda, ldb, ldc,
                         a_k_contig != 0, b_n_contig != 0, vec_a != 0,
                         vec_b != 0};
@@ -32,7 +32,8 @@ static int run(const void* a, const void* b, const float* bias, float* c,
 // EPI_LINEAR .. EPI_STRICT_RELU (linear, tanh, sigmoid, relu,
 // strict_relu). bf16 operands must be 16-byte aligned with a leading
 // stride that is a multiple of 8 elements (TMA's rule; the wrapper copies
-// what is not); vec_a / vec_b (16-byte loads) are read for f32 only.
+// what is not); vec_a / vec_b (16-byte loads) are read for f32 only; bn
+// is the bf16 route's tile width (128, 256, or 0 for gemm_sm90::pick_bn's).
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for an
 // unknown activation), or minus a CUresult when a TMA tensor map is
 // refused.
@@ -40,27 +41,27 @@ extern "C" int veles_dense(const void* a, const void* b, const float* bias,
                            float* c, int m, int n, int k, long long lda,
                            int a_k_contig, long long ldb, int b_n_contig,
                            long long ldc, int dtype, int activation,
-                           int vec_a, int vec_b, void* stream) {
+                           int vec_a, int vec_b, int bn, void* stream) {
   using namespace epilogue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == 1;
   switch (activation) {
     case EPI_LINEAR:
       return run<EPI_LINEAR>(a, b, bias, c, m, n, k, lda, a_k_contig, ldb,
-                             b_n_contig, ldc, bf16, vec_a, vec_b, s);
+                             b_n_contig, ldc, bf16, vec_a, vec_b, bn, s);
     case EPI_TANH:
       return run<EPI_TANH>(a, b, bias, c, m, n, k, lda, a_k_contig, ldb,
-                           b_n_contig, ldc, bf16, vec_a, vec_b, s);
+                           b_n_contig, ldc, bf16, vec_a, vec_b, bn, s);
     case EPI_SIGMOID:
       return run<EPI_SIGMOID>(a, b, bias, c, m, n, k, lda, a_k_contig, ldb,
-                              b_n_contig, ldc, bf16, vec_a, vec_b, s);
+                              b_n_contig, ldc, bf16, vec_a, vec_b, bn, s);
     case EPI_RELU:
       return run<EPI_RELU>(a, b, bias, c, m, n, k, lda, a_k_contig, ldb,
-                           b_n_contig, ldc, bf16, vec_a, vec_b, s);
+                           b_n_contig, ldc, bf16, vec_a, vec_b, bn, s);
     case EPI_STRICT_RELU:
       return run<EPI_STRICT_RELU>(a, b, bias, c, m, n, k, lda, a_k_contig,
                                   ldb, b_n_contig, ldc, bf16, vec_a, vec_b,
-                                  s);
+                                  bn, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -16,21 +16,24 @@ using namespace gemm_tiles;
 // dtype: 0 float32 operands, 1 bfloat16; out_dtype: 0 float32, 1 bfloat16.
 // bf16 operands must be 16-byte aligned with a leading stride that is a
 // multiple of 8 elements (TMA's rule; the wrapper copies what is not).
-// Returns the cudaError_t of the launch, or minus a CUresult when a TMA
-// tensor map is refused.
+// bn: the bf16 route's output tile width, 128 or 256, or 0 for the
+// kernel's own pick (gemm_sm90::pick_bn); the f32 tile has one shape and
+// reads it not. Returns the cudaError_t of the launch, or minus a
+// CUresult when a TMA tensor map is refused.
 extern "C" int veles_gemm(const void* a, const void* b, void* c, int m,
                           int n, int k, long long lda, int a_k_contig,
                           long long ldb, int b_n_contig, long long ldc,
                           int dtype, int out_dtype, int vec_a, int vec_b,
-                          void* stream) {
+                          int bn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (out_dtype == 1)
       return gemm_sm90::run(a, b, static_cast<__nv_bfloat16*>(c), m, n, k,
                             lda, a_k_contig == 0, ldb, b_n_contig != 0, ldc,
-                            s);
+                            s, bn);
     return gemm_sm90::run(a, b, static_cast<float*>(c), m, n, k, lda,
-                          a_k_contig == 0, ldb, b_n_contig != 0, ldc, s);
+                          a_k_contig == 0, ldb, b_n_contig != 0, ldc, s,
+                          bn);
   }
   Problem p{a, b, nullptr, c, m, n, k, lda, ldb, ldc,
             a_k_contig != 0, b_n_contig != 0, vec_a != 0, vec_b != 0};

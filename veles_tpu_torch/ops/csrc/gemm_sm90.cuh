@@ -215,8 +215,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// The output tile width: the fewer waves over the card's SMs times the
-// tile's width (the time a wave takes grows with it), BN 256 on a tie.
+// The output tile width when the caller names none (bn 0): the fewer
+// waves over the card's SMs times the tile's width (the time a wave takes
+// grows with it), BN 256 on a tie. The autotuner (ops/gemm.py) races 128
+// against 256 per shape bucket and passes its verdict instead.
 inline int pick_bn(int m, int n, int sms) {
   const long long rows = (m + BM - 1) / BM;
   const long long w256 = (rows * ((n + 255) / 256) + sms - 1) / sms * 256;
@@ -261,15 +263,20 @@ inline int launch_bn(bool a_mn, bool b_mn, const CUtensorMap& ma,
 // b_mn say the m (n) axis is the contiguous one. Returns the cudaError_t
 // of the launch, or minus a CUresult when a tensor map is refused. EPI
 // other than EPI_NONE adds bias (n f32 values) and applies the activation.
+// bn is the output tile's width, 128 or 256, or 0 for pick_bn's; any other
+// value returns cudaErrorInvalidValue before a map is encoded (the B box
+// and the kernel's BN must agree, or TMA fills the tile wrongly).
 template <typename OutT, int EPI = EPI_NONE>
 inline int run(const void* a, const void* b, OutT* c, int m, int n, int k,
                long long lda, bool a_mn, long long ldb, bool b_mn,
-               long long ldc, cudaStream_t stream,
+               long long ldc, cudaStream_t stream, int bn,
                const float* bias = nullptr) {
+  if (bn != 0 && bn != 128 && bn != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
   int device = 0;
   cudaError_t dev_err = cudaGetDevice(&device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  const int bn = pick_bn(m, n, sm90::sm_count(device));
+  if (bn == 0) bn = pick_bn(m, n, sm90::sm_count(device));
   CUtensorMap ma, mb;
   // a tensor map lists its dimensions innermost (contiguous) first
   const uint64_t a_dims[2] = {static_cast<uint64_t>(a_mn ? m : k),

@@ -27,6 +27,20 @@ def masked_softmax_xent(logits, labels, mask, valid):
     return err, loss_sum, n_err, pred
 
 
+def softmax_cross_entropy(logits, labels, n_classes=None, mask=None):
+    """Single-host convenience wrapper (``losses.py:38-47``): returns
+    ``(err_logits, loss, n_err, max_confidence)``, the loss divided by
+    the count of real rows. ``n_classes`` is read off ``logits``."""
+    if mask is None:
+        mask = torch.ones(logits.shape[0], dtype=logits.dtype,
+                          device=logits.device)
+    valid = mask.sum().clamp(min=1.0)
+    err, loss_sum, n_err, _ = masked_softmax_xent(logits, labels, mask,
+                                                  valid)
+    max_conf = torch.softmax(logits, dim=-1).max()
+    return err, loss_sum / valid, n_err, max_conf
+
+
 def confusion_matrix(logits, labels, n_classes, mask=None):
     """Dense confusion-matrix increment, rows = label, cols = prediction
     (Znicz evaluator option)."""

@@ -20,11 +20,12 @@ function.
 """
 
 import ctypes
+import logging
 import math
 
 import torch
 
-from veles_tpu_torch.ops import _build
+from veles_tpu_torch.ops import _build, gemm
 from veles_tpu_torch.ops._workspace import sm_count, split_workspace
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,7 +49,7 @@ PAGED_WAVE = 4
 PAGED_MAX_SPLITS = 128
 
 
-def _paged_plan(slots, heads, head_dim, pb, ps, sms):
+def _paged_plan(slots, heads, head_dim, pb, ps, sms, pages=None):
     """K1's (and K3's) launch plan for ``slots`` x ``heads`` queries of
     width ``head_dim`` against a page table of ``pb`` pages of ``ps``
     positions, on a card of ``sms`` SMs: ``(pages, splits, elements)``.
@@ -61,12 +62,90 @@ def _paged_plan(slots, heads, head_dim, pb, ps, sms):
     :data:`PAGED_WAVE` blocks, more where the table would need more than
     :data:`PAGED_MAX_SPLITS` splits. ``elements`` is the f32 workspace
     the split states take (:func:`split_elements`). The plan reads shapes
-    only: the lengths are data on the card."""
-    want = -(-PAGED_WAVE * sms // (slots * heads))
-    pages = max(1, min(-(-PAGED_SPLIT_POSITIONS // ps), pb // want),
-                -(-pb // PAGED_MAX_SPLITS))
+    only: the lengths are data on the card. ``pages`` (the autotuner's
+    verdict, :func:`_tuned_pages`) replaces the pages a split holds,
+    within [1, pb] and the split bound."""
+    if pages is None:
+        want = -(-PAGED_WAVE * sms // (slots * heads))
+        pages = min(-(-PAGED_SPLIT_POSITIONS // ps), pb // want)
+    pages = max(1, min(int(pages), pb), -(-pb // PAGED_MAX_SPLITS))
     splits = -(-pb // pages)
     return pages, splits, split_elements(slots * heads, splits, head_dim)
+
+
+def _tuned_pages(page_size, head_dim, device):
+    """The pages a split holds that this card's ``pgatt:PSxD`` verdict
+    names (:func:`autotune_paged_attention`), or None for the plan's
+    own. The verdict picks the plan, never the route: the paged pool
+    attends through K1 or K3 on the card either way."""
+    entry = gemm._tuned_entry(device, "pgatt:%dx%d" % (int(page_size),
+                                                       int(head_dim)))
+    if entry and entry.get("blocks"):
+        return int(entry["blocks"][0])
+    return None
+
+
+def paged_page_candidates(pb):
+    """The pages a split holds that :func:`autotune_paged_attention`
+    races for a table of ``pb`` pages: every power of two up to ``pb``,
+    and ``pb``."""
+    return sorted({1 << i for i in range(pb.bit_length())} | {pb})
+
+
+def autotune_paged_attention(page_size, head_dim, heads=8, slots=8,
+                             pages_per_slot=4, iters=None, device=None):
+    """Race K1's pages per split (:func:`paged_page_candidates`) for this
+    ``(page_size, head_dim)`` bucket against the plain gather attend on
+    the card (f32 pool and queries, ``slots`` slots of ``pages_per_slot``
+    pages, lengths ``arange(slots) % span`` as in the JAX package's race,
+    ``paged_attention.py:349-423``) and persist the verdict under this
+    card's ``pgatt:PSxD`` key in the tuning cache of ``ops/gemm.py``:
+    ``{"blocks": [pages], "seconds", "xla_seconds", "beats_xla",
+    "measured" (us by candidate)}``. K1 and K3 both take the tuned
+    plan. Returns the winning pages. Raises without a card."""
+    import numpy
+
+    device = gemm._autotune_device(device)
+    pool_pages = slots * pages_per_slot + 1
+    pb = pages_per_slot
+    rng = numpy.random.RandomState(0)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(
+            numpy.float32)).to(device)
+
+    q = normal(slots, heads, head_dim)
+    k_pages = normal(pool_pages, page_size, heads, head_dim)
+    v_pages = normal(pool_pages, page_size, heads, head_dim)
+    table = torch.from_numpy(rng.randint(1, pool_pages, (slots, pb)).astype(
+        numpy.int32)).to(device)
+    lengths = (torch.arange(slots, dtype=torch.int32, device=device)
+               % (pb * page_size))
+    candidates = paged_page_candidates(pb)
+    times, plain = gemm._race(
+        {pages: (lambda pages=pages: _paged_launch(
+            q, k_pages, v_pages, table, lengths, page_size, pages))
+         for pages in candidates},
+        lambda: _paged_attend_plain(q, k_pages, v_pages, table, lengths,
+                                    page_size), iters)
+    best = min(times, key=times.get)
+    entry = {"blocks": [int(best)], "seconds": times[best],
+             "xla_seconds": plain,
+             "beats_xla": times[best] < gemm.BEATS_MARGIN * plain,
+             "shape": [page_size, head_dim, heads, slots, pb],
+             "measured": {str(p): round(t * 1e6, 3)
+                          for p, t in times.items()}}
+    if not gemm._sane_entry(entry):
+        logging.getLogger("paged_attention.autotune").warning(
+            "autotune pgatt:%dx%d measured an impossible timing (kernel "
+            "%.3g s, plain %.3g s); verdict NOT persisted", page_size,
+            head_dim, times[best], plain)
+        return best
+    cache = gemm._load_cache()
+    cache[gemm._key(device, "pgatt:%dx%d" % (int(page_size),
+                                             int(head_dim)))] = entry
+    gemm._persist_cache(cache)
+    return best
 
 
 def split_elements(items, splits, head_dim):
@@ -166,11 +245,20 @@ def paged_attend(q, k_pages, v_pages, page_table, lengths, *, page_size):
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_attend's kernel wants 16-byte aligned "
                          "pools")
+    return _paged_launch(q, k_pages, v_pages, page_table, lengths,
+                         page_size, _tuned_pages(page_size, q.shape[2],
+                                                 q.device))
+
+
+def _paged_launch(q, k_pages, v_pages, page_table, lengths, page_size,
+                  pages=None):
+    """Launch K1 on operands :func:`paged_attend` checked, ``pages`` a
+    split passed to :func:`_paged_plan`; counts the launch."""
     slots, heads, head_dim = q.shape
     device = q.device
     pb = page_table.shape[1]
     pages, _, elements = _paged_plan(slots, heads, head_dim, pb, page_size,
-                                     sm_count(device))
+                                     sm_count(device), pages)
     stream = torch.cuda.current_stream(device).cuda_stream
     ws, counters = split_workspace(device, stream, elements, slots * heads)
     out = torch.empty((slots, heads, head_dim), dtype=torch.float32,
@@ -307,10 +395,20 @@ def paged_attend_int8(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
     if any(t.data_ptr() % 16 for t in (k_q, v_q, k_scale, v_scale)):
         raise ValueError("paged_attend_int8's kernel wants 16-byte "
                          "aligned pools")
+    return _paged_int8_launch(q, k_q, k_scale, v_q, v_scale, page_table,
+                              lengths, page_size,
+                              _tuned_pages(page_size, head_dim, q.device))
+
+
+def _paged_int8_launch(q, k_q, k_scale, v_q, v_scale, page_table, lengths,
+                       page_size, pages=None):
+    """Launch K3 on operands :func:`paged_attend_int8` checked, ``pages``
+    a split passed to :func:`_paged_plan`; counts the launch."""
+    slots, heads, head_dim = q.shape
     device = q.device
     pb = page_table.shape[1]
     pages, _, elements = _paged_plan(slots, heads, head_dim, pb, page_size,
-                                     sm_count(device))
+                                     sm_count(device), pages)
     stream = torch.cuda.current_stream(device).cuda_stream
     ws, counters = split_workspace(device, stream, elements, slots * heads)
     out = torch.empty((slots, heads, head_dim), dtype=torch.float32,

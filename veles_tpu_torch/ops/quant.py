@@ -12,8 +12,11 @@ activation type (``quant.py:52-60``, ``:69-71``, ``:150-153``).
 Regime rule, as in the JAX package (``quant.py:104-111``): products of at
 most :data:`PALLAS_MAX_ROWS` rows (every decode step, short prefills) run
 the kernel on a CUDA tensor; larger ones dequantize and call
-``torch.matmul``, as the JAX package left them to XLA. On a CPU tensor
-the plain version runs.
+``torch.matmul``, as the JAX package left them to XLA. Where this card
+has a persisted ``int8:KxN`` verdict (:func:`autotune_int8`, the cache of
+``ops/gemm.py``) it decides instead, inside the same row bound: the
+kernel with the tuned split count, or the dequantized product. On a CPU
+tensor the plain version runs.
 
 :func:`int8_cache_attend` is the dense int8-KV tier's decode attention:
 the dequant-fused kernel (K4, ``csrc/cache_attend_int8.cu``) where the
@@ -25,7 +28,7 @@ import ctypes
 
 import torch
 
-from veles_tpu_torch.ops import _build
+from veles_tpu_torch.ops import _build, gemm
 from veles_tpu_torch.ops._workspace import sm_count, split_workspace
 from veles_tpu_torch.ops.paged_attention import split_elements
 
@@ -88,7 +91,7 @@ def _check(x, q, scale):
                                          scale.device))
 
 
-def _int8_plan(m, k, n, sms):
+def _int8_plan(m, k, n, sms, splits=None):
     """K2's launch plan for ``(m, k) @ (k, n)`` on a card of ``sms``
     SMs: ``(tiles, splits, slice)``. The kernel runs ``tiles`` x
     ``splits`` blocks: 128-column tiles, each K cut into ``splits``
@@ -100,11 +103,15 @@ def _int8_plan(m, k, n, sms):
     allow: the f32 partials (4 x splits x m x n bytes, written and read
     back) stay within four times the weight's k x n bytes, and the
     tile's last block, which sums splits x m x 128 of them alone, reads
-    at most 256 KB (splits x m <= 512), so prefill rows split less."""
+    at most 256 KB (splits x m <= 512), so prefill rows split less.
+    ``splits`` (the autotuner's verdict) replaces the count the plan
+    wants, inside the same bounds."""
     tiles = -(-n // INT8_TILE_N)
     steps = -(-k // INT8_STEP_K)
     cap = max(1, min(steps, k // m, INT8_MAX_SPLIT_ROWS // m))
-    want = min(cap, 1 if tiles >= sms else -(-sms // tiles))
+    if splits is None:
+        splits = 1 if tiles >= sms else -(-sms // tiles)
+    want = max(1, min(cap, int(splits)))
     per = max(steps // want, -(-steps // cap))
     return tiles, -(-steps // per), INT8_STEP_K * per
 
@@ -122,31 +129,68 @@ def _row_aligned(x):
     return padded, ldx
 
 
-def int8_matmul(x, q, scale):
+def _tuned_decision(m, k, n, device):
+    """``(use the kernel, split count or None)`` for an (m, k) @ (k, n)
+    product on the card ``device``: this card's persisted ``int8:KxN``
+    verdict where one exists, else the kernel with the plan's own split;
+    either way only for m <= :data:`PALLAS_MAX_ROWS` (verdicts are
+    measured at decode rows, ``quant.py:104-124``)."""
+    if m > PALLAS_MAX_ROWS:
+        return False, None
+    entry = gemm._tuned_entry(device, "int8:%dx%d" % (k, n))
+    if entry:
+        return bool(entry.get("use_pallas")), entry.get("splits")
+    return True, None
+
+
+def int8_matmul(x, q, scale, use_pallas=None):
     """``x @ (q * scale)`` with the dequantization fused into the
     product. ``x`` (M, K) float32 or bfloat16; ``q`` (K, N) int8;
     ``scale`` (N,) float32. Returns (M, N) in ``x``'s dtype.
 
-    On a CUDA tensor with M <= :data:`PALLAS_MAX_ROWS` the kernel runs
-    (and :attr:`int8_matmul.launches` counts it) on the plan of
-    :func:`_int8_plan`; a larger M runs the dequantized
-    ``torch.matmul``. On a CPU tensor the plain version runs. The
-    operands must be contiguous. Two calls on the same inputs give
-    bit-equal outputs. Each stream keeps its own split-K workspace and
-    counters (:func:`ops._workspace.split_workspace`)."""
+    On a CUDA tensor ``use_pallas`` None follows :func:`_tuned_decision`:
+    the kernel (and :attr:`int8_matmul.launches` counts it) for M <=
+    :data:`PALLAS_MAX_ROWS` on the plan of :func:`_int8_plan`, with this
+    card's tuned split count where a verdict names one, or the
+    dequantized ``torch.matmul`` where a verdict says so and for larger
+    M. True pins the kernel (M > :data:`PALLAS_MAX_ROWS` raises
+    ValueError), False the dequantized product. On a CPU tensor the
+    plain version runs whatever ``use_pallas`` says. The operands must
+    be contiguous. Two calls on the same inputs give bit-equal outputs.
+    Each stream keeps its own split-K workspace and counters
+    (:func:`ops._workspace.split_workspace`)."""
     _check(x, q, scale)
-    if x.device.type == "cpu" or x.shape[0] > PALLAS_MAX_ROWS:
+    if x.device.type == "cpu":
         return _int8_matmul_plain(x, q, scale)
     if x.device.type != "cuda":
         raise ValueError("int8_matmul runs on cuda or cpu tensors, got %s"
                          % x.device)
-    if not (x.is_contiguous() and q.is_contiguous()
-            and scale.is_contiguous()):
-        raise ValueError("int8_matmul's kernel wants contiguous operands")
     m, k = x.shape
     n = q.shape[1]
     device = x.device
-    tiles, splits, slice_rows = _int8_plan(m, k, n, sm_count(device))
+    splits = None
+    if use_pallas is None:
+        use_pallas, splits = _tuned_decision(m, k, n, device)
+    if not use_pallas:
+        return _int8_matmul_plain(x, q, scale)
+    return _int8_kernel(x, q, scale, splits)
+
+
+def _int8_kernel(x, q, scale, splits=None):
+    """Launch K2 on the CUDA operands of :func:`int8_matmul` (checked
+    there), ``splits`` passed to :func:`_int8_plan`; counts the launch in
+    :attr:`int8_matmul.launches`."""
+    m, k = x.shape
+    n = q.shape[1]
+    device = x.device
+    if m > PALLAS_MAX_ROWS:
+        raise ValueError("int8_matmul's kernel takes at most %d rows, got "
+                         "%d" % (PALLAS_MAX_ROWS, m))
+    if not (x.is_contiguous() and q.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError("int8_matmul's kernel wants contiguous operands")
+    tiles, splits, slice_rows = _int8_plan(m, k, n, sm_count(device),
+                                           splits)
     stream = torch.cuda.current_stream(device).cuda_stream
     ws, counters = split_workspace(
         device, stream, splits * m * tiles * INT8_TILE_N if splits > 1
@@ -173,6 +217,64 @@ def int8_matmul(x, q, scale):
 #: kernel launches since the last reset (a plain integer the chip smoke
 #: zeroes before driving the serving path)
 int8_matmul.launches = 0
+
+
+def int8_split_candidates(m, k, n, sms):
+    """The split counts :func:`autotune_int8` races for an (m, k) @
+    (k, n) product on a card of ``sms`` SMs: the plan's own request and
+    every power of two up to the plan's cap, one each for every distinct
+    plan they give (``_int8_plan``'s ``splits``, in ascending order of
+    the splits the plan realizes)."""
+    tiles = -(-n // INT8_TILE_N)
+    steps = -(-k // INT8_STEP_K)
+    cap = max(1, min(steps, k // m, INT8_MAX_SPLIT_ROWS // m))
+    wants = [1 if tiles >= sms else -(-sms // tiles)]
+    wants += [1 << i for i in range(cap.bit_length())]
+    plans = {}
+    for want in wants:
+        plans.setdefault(_int8_plan(m, k, n, sms, want)[1], want)
+    return [plans[realized] for realized in sorted(plans)]
+
+
+def autotune_int8(m, k, n, dtype=torch.bfloat16, repeats=None,
+                  device=None):
+    """Race K2 at each of :func:`int8_split_candidates` against the
+    dequantized ``torch.matmul`` (the plain route: the counterpart of
+    JAX's XLA formulation, with the weights widened to f32 where JAX
+    widens them to x's type) for one (m, k, n) product on the card,
+    persist the decision under this card's ``int8:KxN`` key in the
+    tuning cache of ``ops/gemm.py`` and return it: ``{"use_pallas",
+    "splits" (None where the plain route wins), "seconds" (the best
+    split's), "xla_seconds" (the plain route's), "shape", "measured" (us
+    by candidate)}``. The faster side wins, as in the JAX package
+    (``quant.py:275-320``). Raises without a card."""
+    import numpy
+
+    device = gemm._autotune_device(device)
+    rng = numpy.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(m, k).astype(numpy.float32)).to(
+        device=device, dtype=dtype)
+    q = torch.from_numpy(rng.randint(-127, 128, (k, n)).astype(
+        numpy.int8)).to(device)
+    scale = torch.from_numpy(rng.rand(n).astype(numpy.float32)).to(device)
+    candidates = int8_split_candidates(m, k, n, sm_count(device))
+    times, plain = gemm._race(
+        {want: (lambda want=want: _int8_kernel(x, q, scale, want))
+         for want in candidates},
+        lambda: _int8_matmul_plain(x, q, scale), repeats)
+    best = min(times, key=times.get)
+    use = times[best] < plain
+    decision = {
+        "use_pallas": use, "splits": int(best) if use else None,
+        "seconds": times[best], "xla_seconds": plain, "shape": [m, k, n],
+        "measured": dict({"split_%d" % _int8_plan(
+            m, k, n, sm_count(device), want)[1]: round(t * 1e6, 3)
+            for want, t in times.items()}, plain=round(plain * 1e6, 3))}
+    if gemm._sane_entry(decision):
+        cache = gemm._load_cache()
+        cache[gemm._key(device, "int8:%dx%d" % (k, n))] = decision
+        gemm._persist_cache(cache)
+    return decision
 
 
 #: the kernel's shape gate, the JAX kernel's own (``quant.py:245``): T

@@ -438,6 +438,26 @@ def slot_admit_many(params, heads, state, slots, prompt_x, lengths,
     return state
 
 
+def slot_admit(params, heads, state, slot, prompt_x, req_key=None,
+               length=None):
+    """Prefill ``prompt_x`` (1, T, E) into lane ``slot``: the B = 1 case
+    of :func:`slot_admit_many` (``decode.py:510-527``), with the port's
+    argument order (no embedding table). ``req_key`` is the lane's
+    sampling key (:func:`request_key`; 0 when None), ``length`` the true
+    prompt length of a right-padded ``prompt_x`` (T when None). Updates
+    ``state`` in place and returns it."""
+    device = state["lengths"].device
+    if length is None:
+        length = prompt_x.shape[1]
+    keys = None if req_key is None else torch.as_tensor(
+        req_key, dtype=torch.long, device=device).reshape(1)
+    return slot_admit_many(
+        params, heads, state,
+        torch.tensor([int(slot)], dtype=torch.int32, device=device),
+        prompt_x, torch.tensor([int(length)], dtype=torch.int32,
+                               device=device), keys)
+
+
 def slot_step(params, embed_table, heads, state, active, temperature=1.0,
               sample=False, top_k=0, span=None):
     """One decode step across all slots (``decode.py:529-642``);

@@ -1,4 +1,4 @@
-"""Sample workflow: MNIST784-topology MLP on sklearn digits.
+"""Sample workflow: MNIST784-topology MLP on the 8x8 UCI digits.
 
 Run:  python -m veles_tpu_torch veles_tpu_torch/samples/digits_mlp.py \
       samples/digits_config.py  [--device cpu]
@@ -8,14 +8,13 @@ The module follows the reference workflow contract
 the framework calls ``load`` to build (or resume) the workflow and ``main``
 to initialize + run it.
 
-The port's copy of ``samples/digits_mlp.py``; it needs sklearn's
-digits data.
+The port's copy of ``samples/digits_mlp.py``; it reads the committed
+digits (``parity.digits_dataset``, the canonical permutation).
 """
-
-import numpy
 
 from veles_tpu_torch.core.config import root
 from veles_tpu_torch.models.mlp import MLPWorkflow
+from veles_tpu_torch.parity import digits_dataset
 
 root.digits.update({
     "layers": [64, 10],
@@ -26,17 +25,8 @@ root.digits.update({
 })
 
 
-def _dataset():
-    from sklearn.datasets import load_digits
-    d = load_digits()
-    X = d.data.astype(numpy.float32)
-    y = d.target.astype(numpy.int32)
-    perm = numpy.random.RandomState(0).permutation(len(X))
-    return X[perm], y[perm]
-
-
 def run(load, main):
-    X, y = _dataset()
+    X, y = digits_dataset(flat=True)
     n_valid = root.digits.validation_samples
     load(MLPWorkflow,
          name="digits-mlp",

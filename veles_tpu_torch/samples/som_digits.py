@@ -1,24 +1,24 @@
-"""Kohonen SOM over sklearn digits — self-contained sample.
+"""Kohonen SOM over the 8x8 UCI digits — self-contained sample.
 
 Run: ``python -m veles_tpu_torch veles_tpu_torch/samples/som_digits.py
 [--device cpu]``
 Optional config values: ``root.som.shape`` (grid), ``root.som.epochs``.
 
-The port's copy of ``samples/som_digits.py``; it needs sklearn's
-digits data.
+The port's copy of ``samples/som_digits.py``; it reads the committed
+digits (``parity.read_digits``) in the file's own order, as
+``load_digits`` gives them.
 """
 
 import numpy
 
 from veles_tpu_torch.core.config import root
 from veles_tpu_torch.models.kohonen import KohonenWorkflow
+from veles_tpu_torch.parity import read_digits
 
 
 def run(load, main):
-    from sklearn.datasets import load_digits
-
-    digits = load_digits()
-    data = (digits.data / 16.0).astype(numpy.float32)
+    pixels, _ = read_digits()
+    data = (pixels / 16.0).astype(numpy.float32)
     shape = tuple(root.som.get("shape", (8, 8)))
     load(KohonenWorkflow,
          shape=shape,

@@ -1,4 +1,4 @@
-"""Transformer classifier over sklearn digits — self-contained sample.
+"""Transformer classifier over the 8x8 UCI digits — self-contained sample.
 
 Treats each 8x8 digit as a sequence of 8 rows (T=8, E=8 features per
 row) through a complete pre-LN transformer block — layer_norm ->
@@ -14,14 +14,15 @@ Optional: ``root.transformer.heads``, ``root.transformer.epochs``,
 ``root.transformer.export`` (a .tar path to package the model after
 training).
 
-The port's copy of ``samples/transformer_digits.py``; it needs sklearn's
-digits data.
+The port's copy of ``samples/transformer_digits.py``; it reads the
+committed digits (``parity.digits_dataset``, the canonical permutation).
 """
 
 import numpy
 
 from veles_tpu_torch.core.config import root
 from veles_tpu_torch.models.standard import StandardWorkflow
+from veles_tpu_torch.parity import digits_dataset
 
 root.transformer.update({
     "heads": 4,
@@ -32,13 +33,8 @@ root.transformer.update({
 
 
 def run(load, main):
-    from sklearn.datasets import load_digits
-
-    digits = load_digits()
-    X = (digits.images / 16.0).astype(numpy.float32)  # (N, 8, 8): T=8, E=8
-    y = digits.target.astype(numpy.int32)
-    perm = numpy.random.RandomState(0).permutation(len(X))
-    X, y = X[perm], y[perm]
+    X, y = digits_dataset(flat=True)
+    X = (X.reshape(-1, 8, 8) / 16.0).astype(numpy.float32)  # T=8, E=8
     cfg = root.transformer
     wf, _ = load(
         StandardWorkflow,
