@@ -212,6 +212,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    it: a main path of K2; the streams equal, or the prefill logits within
    K2's bound); and ``device_benchmark``'s power.
 
+19. (run after phase 18; phases 2-18 run with every observe plane off:
+   the serving fronts' ``enable_metrics`` is held off and the flight ring
+   is off) the observe plane at the serving model's width: the paged
+   int8 (K1 + K2) and int8-KV (K3 + K2) bursts, 8 x 32 tokens, every
+   POST carrying ``X-Veles-Trace``, with metrics, tracing (events to a
+   JSONL file) and the flight ring on; ``/metrics`` as text and as
+   OpenMetrics: the request and token counters exact, the device memory
+   in use at least the weights plus the KV pool, the bf16 peak the card's
+   (989 TFLOP/s on an H100 SXM), the dispatch's MFU in (0, 1.05], the
+   kernel builds of K1's, K2's and K3's sources, the TTFT exemplars among
+   the trace ids sent; the JSONL exported by ``python -m veles_tpu_torch
+   observe export-trace``, every request one tree from ``serve.request``
+   through its admission to a ``paged.dispatch`` and a
+   ``decode.collect``, with the median host ms per span name; an int8
+   burst in ``profile_window``, K1's and K2's kernels under
+   ``paged.dispatch`` in its Chrome trace; the breaker phase's fault, a
+   ``breaker_trip`` black box that ``observe blackbox`` reads (exit 0)
+   with the trip note, the dispatch notes and spans; the int8 burst with
+   every plane on and off (on, off, on, off: tokens/s printed, K1 and K2
+   launches a decode step equal); and the wide MLP through the CLI with
+   ``--trace-events`` (knobs on, 1 epoch: a ``unit.run`` span for every
+   firing of every unit) and again killed by SIGTERM after its first
+   span (a ``sigterm`` black box, the previous handler ran).
+
 Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
 8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
 bound.
@@ -222,6 +246,8 @@ non-zero before printing either.
 """
 
 import base64
+import contextlib
+import gc
 import gzip
 import heapq
 import http.client
@@ -231,6 +257,7 @@ import math
 import os
 import pickle
 import re
+import signal
 import statistics
 import struct
 import subprocess
@@ -247,8 +274,11 @@ import numpy
 import torch
 
 from veles_tpu_torch.convert import unit_params_from_jax
-from veles_tpu_torch.core import prng
+from veles_tpu_torch import serving as serving_mod
+from veles_tpu_torch.core import httpd, prng
 from veles_tpu_torch.core.config import root
+from veles_tpu_torch.core.logger import (enable_event_recording,
+                                         get_event_recorder)
 from veles_tpu_torch.core.units import Unit
 from veles_tpu_torch.dummy import DummyLauncher, DummyWorkflow
 from veles_tpu_torch.inference import NativeWorkflow, build_native
@@ -266,6 +296,13 @@ from veles_tpu_torch.nn.kohonen import grid_coords, som_step
 from veles_tpu_torch.models.mlp import MLPWorkflow
 from veles_tpu_torch.models.standard import StandardWorkflow
 from veles_tpu_torch.nn.decision import DecisionGD
+from veles_tpu_torch.observe.flight import get_flight_recorder, load_dump
+from veles_tpu_torch.observe.metrics import get_metrics_registry
+from veles_tpu_torch.observe.profile import profile_window
+from veles_tpu_torch.observe.trace_export import span_tree
+from veles_tpu_torch.observe.tracing import get_tracer
+from veles_tpu_torch.observe.xla_stats import (get_compile_tracker,
+                                               peak_tflops)
 from veles_tpu_torch.ops import _build
 from veles_tpu_torch.ops import activations as act_lib
 from veles_tpu_torch.ops.attention import (_flash_attention_dkv_plain,
@@ -302,7 +339,7 @@ from veles_tpu_torch.parallel.sweep import FusedSweep
 from veles_tpu_torch.parallel.transformer_step import (
     init_transformer_params)
 from veles_tpu_torch.serving import (ContinuousDecoder, GenerateAPI,
-                                     RESTfulAPI, RestfulLoader)
+                                     RESTfulAPI, RestfulLoader, _tree_bytes)
 from veles_tpu_torch.serving_chaos import (ServingChaosConfig,
                                            ServingChaosMonkey)
 from veles_tpu_torch.snapshotter import SnapshotterToFile
@@ -692,6 +729,70 @@ def run(load, main):
                    "snapshot_bytes": os.path.getsize(snap.destination),
                    "device": str(wf.device)}, fout)
 '''
+
+
+#: phase 19 (the observe plane): the paged bursts observed, each tier with
+#: its attend kernel (K2 in both); the client span every request's header
+#: names as its parent; an MFU past OBSERVE_MFU_MAX means the FLOP count
+#: is wrong
+OBSERVE_TIERS = (("int8", "paged_attend"), ("int8-kv", "paged_attend_int8"))
+CLIENT_SPAN = "c11e"
+OBSERVE_MFU_MAX = 1.05
+#: the admission spans a request's tree must reach one of
+ADMIT_SPANS = ("paged.admit", "paged.admit_tail", "paged.admit_hit")
+#: phase 19's CLI workflow: phase 17's wide MLP on the idx files, knobs
+#: on, without the snapshotter and the export; it writes its kernel
+#: launches, tick minibatches and every unit's firings
+OBSERVE_WORKFLOW = """\"\"\"The wide MLP on MNIST idx files (chip_smoke.py phase 19).\"\"\"
+
+import json
+import os
+
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.loader.mnist import MNISTLoader
+from veles_tpu_torch.models.mlp import MLPWorkflow
+from veles_tpu_torch.ops import gemm
+
+root.mnist784.update({"layers": [4096, 10], "minibatch_size": 4096,
+                      "learning_rate": 0.03, "gradient_moment": 0.9,
+                      "fail_iterations": 25, "directory": None,
+                      "out": None})
+
+
+def run(load, main):
+    cfg = root.mnist784
+    wf, _ = load(
+        MLPWorkflow, name="MNIST784-wide", layers=tuple(cfg.layers),
+        loader_cls=MNISTLoader,
+        loader_kwargs=dict(directory=cfg.directory,
+                           minibatch_size=cfg.minibatch_size,
+                           normalization_type="linear"),
+        learning_rate=cfg.learning_rate,
+        gradient_moment=cfg.gradient_moment, max_epochs=cfg.max_epochs,
+        fail_iterations=cfg.fail_iterations)
+    main()
+    with open(os.path.join(cfg.out, "counters.json"), "w") as fout:
+        json.dump({"dense_epilogue": gemm.dense_epilogue.launches,
+                   "blocked_matmul": gemm.blocked_matmul.launches,
+                   "minibatches": list(wf.fused_tick.minibatch_counts),
+                   "run_calls": {u.name: u.run_calls for u in wf.units
+                                 if u.run_calls}}, fout)
+"""
+#: a CLI run behind a SIGTERM handler of its own, which the CLI's black
+#: box handler must chain to: it leaves a marker and ends the process
+CHAINED_SIGTERM = """
+import os, signal, sys
+marker = sys.argv[1]
+
+def previous(signum, frame):
+    with open(marker, "w") as fout:
+        fout.write("previous ran")
+    os._exit(9)
+
+signal.signal(signal.SIGTERM, previous)
+from veles_tpu_torch.__main__ import main
+sys.exit(main(sys.argv[2:]))
+"""
 
 
 def card_line():
@@ -1494,13 +1595,23 @@ def k2_phase(timer, device, gen):
             "step_graph_ms": graph_ms}
 
 
-def post(port, tokens, n_tokens, timeout=600):
+def post(port, tokens, n_tokens, timeout=600, trace_id=None):
+    """One POST to /generate; with ``trace_id`` it carries
+    ``X-Veles-Trace: <trace_id>/CLIENT_SPAN`` and the reply must echo the
+    trace id. Returns the tokens."""
+    headers = {"Content-Type": "application/json"}
+    if trace_id is not None:
+        headers["X-Veles-Trace"] = "%s/%s" % (trace_id, CLIENT_SPAN)
     req = urllib.request.Request(
         "http://127.0.0.1:%d/generate" % port,
         data=json.dumps({"tokens": tokens, "n_tokens": n_tokens}).encode(),
-        headers={"Content-Type": "application/json"})
+        headers=headers)
     with urllib.request.urlopen(req, timeout=timeout) as resp:
-        return json.loads(resp.read().decode())["tokens"]
+        echoed = resp.headers.get("X-Veles-Trace") or ""
+        tokens = json.loads(resp.read().decode())["tokens"]
+    if trace_id is not None and not echoed.startswith(trace_id + "/"):
+        raise AssertionError("request %s echoed %r" % (trace_id, echoed))
+    return tokens
 
 
 #: every kernel's launch counter, by the name the JSON line gives it
@@ -1523,14 +1634,16 @@ def counts():
     return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
-def burst(port, prompts, n_tokens=N_TOKENS):
-    """POST every prompt at once; returns the streams in order."""
+def burst(port, prompts, n_tokens=N_TOKENS, trace_ids=None):
+    """POST every prompt at once (request i with ``trace_ids[i]``, when
+    given); returns the streams in order."""
     streams = [None] * len(prompts)
     errors = []
 
     def client(i):
         try:
-            streams[i] = post(port, prompts[i], n_tokens)
+            streams[i] = post(port, prompts[i], n_tokens, trace_id=(
+                trace_ids[i] if trace_ids is not None else None))
         except Exception as exc:  # reported below, fails the phase
             errors.append("request %d: %r" % (i, exc))
 
@@ -4819,6 +4932,578 @@ def benchmark_phase(device):
 
 
 
+# -- phase 19: the observe plane ----------------------------------------------
+
+def planes(on):
+    """Every observe plane on or off: the metrics registry, the
+    device-truth tracker, the tracer and the flight ring."""
+    for plane in (get_metrics_registry(), get_compile_tracker(),
+                  get_tracer(), get_flight_recorder()):
+        plane.enabled = on
+
+
+def hold_planes_off():
+    """Phases 1-18 run with every observe plane off, as they ran before
+    phase 19: the serving fronts' ``enable_metrics`` (core/httpd.py) hands
+    back the registry without enabling it or the device truth, and the
+    flight ring is off. Returns what :func:`release_planes` restores."""
+    real = httpd.enable_metrics
+    httpd.enable_metrics = get_metrics_registry
+    planes(False)
+    return real
+
+
+def release_planes(real):
+    httpd.enable_metrics = real
+    get_flight_recorder().enabled = True
+
+
+def scrape(port, openmetrics=False):
+    headers = ({"Accept": "application/openmetrics-text"} if openmetrics
+               else {})
+    req = urllib.request.Request("http://127.0.0.1:%d/metrics" % port,
+                                 headers=headers)
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.read().decode()
+
+
+_SAMPLE = re.compile(r'^([a-zA-Z_:][\w:]*)(?:\{(.*?)\})? (\S+)'
+                     r'(?: # \{(.*?)\} .*)?$')
+_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def samples(text, name):
+    """The samples of family member ``name`` in an exposition:
+    ``[(labels, value, exemplar labels or None)]``."""
+    out = []
+    for line in text.splitlines():
+        match = _SAMPLE.match(line)
+        if match is None or match.group(1) != name:
+            continue
+        labels = dict(_LABEL.findall(match.group(2) or ""))
+        exemplar = (dict(_LABEL.findall(match.group(4)))
+                    if match.group(4) else None)
+        out.append((labels, float(match.group(3)), exemplar))
+    return out
+
+
+def sample(text, name, **labels):
+    """The one value of ``name`` whose labels include ``labels``."""
+    found = [v for got, v, _ in samples(text, name)
+             if all(got.get(k) == v for k, v in labels.items())]
+    if len(found) != 1:
+        raise AssertionError("%s%s: %d samples" % (name, labels,
+                                                   len(found)))
+    return found[0]
+
+
+def observed_burst(params, table, prompts, quantize, attend, device, tier):
+    """The paged ``quantize`` burst with every plane on and a trace
+    header on each request (a short warm-up first), then ``/metrics`` as
+    text and as OpenMetrics: the request and token counters exact, the
+    device memory above what was live before the API at least its int8
+    weights and pool, the bf16 peak, the dispatch's FLOPs within an
+    independent count from the model's widths and its MFU in (0,
+    OBSERVE_MFU_MAX], the kernel builds of K1, K2 and K3, and the latency
+    exemplars among the trace ids sent. The registry starts empty (the
+    fronts before bridged it too). Returns the launches after the warm-up
+    and the trace ids sent."""
+    get_metrics_registry().reset()
+    # the bytes the earlier phases left live: the API's own allocations
+    # are what /metrics reads above this
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocated_bytes.all.current"]
+    api = GenerateAPI(params, table, HEADS, slots=SLOTS, max_len=MAX_LEN,
+                      n_tokens=N_TOKENS, chunk=CHUNK, paged=True,
+                      page_size=PAGE, quantize=quantize,
+                      device=device).start()
+    ids = ["%04x%04x" % (0xc0de, tier * 256 + i)
+           for i in range(len(prompts) + 1)]
+    try:
+        warm = post(api.port, prompts[0][:min(16, PAGE - 1)], CHUNK,
+                    trace_id=ids[0])
+        torch.cuda.synchronize()
+        chunks = api.decoder.dispatch_counts["chunk"]
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        streams = burst(api.port, prompts, trace_ids=ids[1:])
+        wall = time.perf_counter() - t0
+        got = counts()
+        steps = (api.decoder.dispatch_counts["chunk"] - chunks) * CHUNK
+        text, om = scrape(api.port), scrape(api.port, openmetrics=True)
+        # the int8 weights the decoder quantized (the embedding table is
+        # the caller's tensor, allocated before)
+        held = _tree_bytes(api.decoder.params)
+        pool = paged_kv_bytes(api.decoder.state)
+    finally:
+        api.stop()
+    sent, tokens = len(prompts) + 1, len(warm) + sum(map(len, streams))
+    outcomes = {labels["outcome"]: value for labels, value, _ in
+                samples(text, "veles_serving_requests_total")
+                if labels.get("api") == "generate-api"}
+    in_use = sample(text, "veles_device_memory_bytes", device="0",
+                    kind="bytes_in_use")
+    peak = sample(text, "veles_device_peak_bf16_tflops")
+    mfu = sample(text, "veles_mfu_ratio", program="paged.dispatch")
+    flops = sample(text, "veles_program_flops", program="paged.dispatch")
+    # an independent count of the last dispatch from the model's widths:
+    # every lane's weight products each step (qkv + out 4 E^2, the MLP
+    # 8 E^2 a block, the head E V), plus attention between none and
+    # every lane attending MAX_LEN positions in every block each step
+    products = 2.0 * SLOTS * CHUNK * (BLOCKS * 12 * EMBED ** 2
+                                      + EMBED * VOCAB)
+    flops_range = (products,
+                   products + 4.0 * EMBED * BLOCKS * SLOTS * CHUNK * MAX_LEN)
+    builds = {labels["kernel"]: value for labels, value, _ in
+              samples(text, "veles_kernel_builds_total")}
+    exemplars = [ex["trace_id"] for _, _, ex in
+                 samples(om, "veles_request_ttft_seconds_bucket") if ex]
+    print("observe %s bf16: %d traced requests x %d tokens in %.3f s = "
+          "%.1f tokens/s; /metrics: requests %s, tokens %d; device memory "
+          "%d bytes in use, %d above the %d before the API >= int8 "
+          "weights %d + pool %d; peak %.1f TFLOP/s; paged.dispatch %.6g "
+          "FLOPs (independent count %.6g-%.6g), MFU %.6g; builds %s; %d "
+          "exemplars on the TTFT buckets" % (
+              quantize, len(prompts), N_TOKENS, wall,
+              len(prompts) * N_TOKENS / wall, outcomes,
+              sample(text, "veles_decode_tokens_total"), in_use,
+              in_use - before, before, held, pool, peak, flops,
+              flops_range[0], flops_range[1], mfu, builds,
+              len(exemplars)))
+    want = dict.fromkeys(("rejected", "expired", "shed", "errors", "trips",
+                          "rebuilds"), 0.0)
+    want.update(admitted=sent, completed=sent)
+    if {k: outcomes.get(k) for k in want} != want:
+        raise AssertionError("requests_total %s, sent %d" % (outcomes,
+                                                             sent))
+    if sample(text, "veles_decode_tokens_total") != tokens:
+        raise AssertionError("decode_tokens_total != %d returned" % tokens)
+    if in_use - before < held + pool:
+        raise AssertionError("bytes_in_use %d - %d before the API < int8 "
+                             "weights + pool %d"
+                             % (in_use, before, held + pool))
+    if not flops_range[0] <= flops <= flops_range[1]:
+        raise AssertionError("paged.dispatch FLOPs %r outside the "
+                             "independent count %r" % (flops, flops_range))
+    if peak != peak_tflops(torch.cuda.get_device_name(0)):
+        raise AssertionError("peak %r is not the card's" % peak)
+    if not 0 < mfu <= OBSERVE_MFU_MAX:
+        raise AssertionError("paged.dispatch MFU %r outside (0, %g]: the "
+                             "FLOP count is wrong" % (mfu, OBSERVE_MFU_MAX))
+    missing = {"paged_attention.cu", "int8_matmul.cu",
+               "paged_attention_int8.cu"} - {k for k, v in builds.items()
+                                             if v >= 1}
+    if missing:
+        raise AssertionError("no kernel build booked for %s" % missing)
+    if not exemplars or set(exemplars) - set(ids):
+        raise AssertionError("TTFT exemplars %s, sent %s" % (exemplars,
+                                                             ids))
+    if got[attend] < BLOCKS * steps or got["int8_matmul"] \
+            < sum(K2_PER_STEP) * steps:
+        raise AssertionError("the observed %s burst launched %s over %d "
+                             "steps" % (quantize, got, steps))
+    return got, ids
+
+
+def check_span_trees(events, trace_ids, out):
+    """Export the events through ``python -m veles_tpu_torch observe
+    export-trace``; every request's own spans must form one tree from its
+    ``serve.request`` (the client span's child) through ``serve.submit``
+    to ``serve.complete``, and its request id must ride the ``rids`` of
+    an admission, a ``paged.dispatch`` and a ``decode.collect`` span,
+    each of which hangs off its owner request's tree. Prints the median
+    host ms of each span name."""
+    trace_path = os.path.join(out, "serve.trace.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "veles_tpu_torch", "observe",
+         "export-trace", events, "-o", trace_path], cwd=REPO_DIR,
+        env=port_env(), capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise AssertionError("export-trace exited %d: %s"
+                             % (proc.returncode, proc.stderr[-2000:]))
+    with open(trace_path) as fin:
+        trace = json.load(fin)
+    trees = span_tree(trace)
+    names = {e["args"]["span_id"]: e["name"] for e in trace["traceEvents"]
+             if e.get("args", {}).get("span_id")}
+    batch = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+             and e["name"] in ADMIT_SPANS + ("paged.dispatch",
+                                             "decode.collect")]
+    for trace_id in trace_ids:
+        tree = trees.get(trace_id, {})
+        roots = [s for s, p in tree.items() if p == CLIENT_SPAN]
+        if [names[s] for s in roots] != ["serve.request"]:
+            raise AssertionError("trace %s: roots %s" % (
+                trace_id, [names[s] for s in roots]))
+        for span_id in tree:
+            seen, node = set(), span_id
+            while tree.get(node) != CLIENT_SPAN:
+                if node in seen or tree.get(node) not in tree:
+                    raise AssertionError("trace %s: span %s (%s) is not "
+                                         "connected" % (trace_id, span_id,
+                                                        names[span_id]))
+                seen.add(node)
+                node = tree[node]
+        got = {names[s] for s in tree}
+        rids = [e["args"]["rid"] for e in trace["traceEvents"]
+                if e["name"] == "serve.submit"
+                and e["args"].get("trace_id") == trace_id]
+        # a batch call's span is owned by its first traced request; the
+        # others join it through its rids attribute
+        joined = {e["name"] for e in batch
+                  if rids and rids[0] in e["args"].get("rids", ())}
+        if not ({"serve.request", "serve.submit", "serve.complete"} <= got
+                and len(rids) == 1 and joined & set(ADMIT_SPANS)
+                and {"paged.dispatch", "decode.collect"} <= joined):
+            raise AssertionError("trace %s: own spans %s, request ids %s, "
+                                 "joined through rids %s" % (
+                                     trace_id, sorted(got), rids,
+                                     sorted(joined)))
+    for event in batch:
+        tree = trees.get(event["args"]["trace_id"], {})
+        if tree.get(event["args"]["span_id"]) not in tree:
+            raise AssertionError("%s span %s hangs off no request's tree"
+                                 % (event["name"],
+                                    event["args"]["span_id"]))
+    by_name = {}
+    for event in trace["traceEvents"]:
+        if event.get("ph") == "X":
+            by_name.setdefault(event["name"], []).append(event["dur"])
+    print("span trees: %d requests, each one tree from serve.request "
+          "through serve.submit to serve.complete, joined through rids to "
+          "an admission, paged.dispatch and decode.collect; "
+          "median host ms per span: %s" % (len(trace_ids), ", ".join(
+              "%s %.3f (%d)" % (name, statistics.median(durs) / 1e3,
+                                len(durs))
+              for name, durs in sorted(by_name.items()))))
+
+
+def profiled_burst(params, table, prompts, device, out):
+    """One int8 burst inside ``profile_window``: the Chrome trace must
+    hold K1's and K2's kernels, every K1 and at least one K2 under a
+    ``paged.dispatch`` range (on the card's timeline, or launched inside
+    the host range)."""
+    api = GenerateAPI(params, table, HEADS, slots=SLOTS, max_len=MAX_LEN,
+                      n_tokens=N_TOKENS, chunk=CHUNK, paged=True,
+                      page_size=PAGE, quantize="int8", device=device).start()
+    ids = ["%04x%04x" % (0xfeed, i) for i in range(len(prompts))]
+    try:
+        post(api.port, prompts[0][:min(16, PAGE - 1)], CHUNK)
+        with profile_window(os.path.join(out, "profile")) as path:
+            burst(api.port, prompts, trace_ids=ids)
+            torch.cuda.synchronize()
+    finally:
+        api.stop()
+    if path is None or not os.path.isfile(path):
+        raise AssertionError("the profile window wrote no trace")
+    with open(path) as fin:
+        events = json.load(fin)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "paged_attend" in e["name"]
+          and "int8" not in e["name"]]
+    k2 = [e for e in kernels if "int8_matmul" in e["name"]]
+    gpu_ranges = [e for e in events if e.get("name") == "paged.dispatch"
+                  and e.get("cat") == "gpu_user_annotation"]
+    cpu_ranges = [e for e in events if e.get("name") == "paged.dispatch"
+                  and e.get("cat") == "user_annotation"]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+
+    def on_card(kernel):
+        return any(r["ts"] <= kernel["ts"] and kernel["ts"] + kernel["dur"]
+                   <= r["ts"] + r["dur"] + 1e-3 for r in gpu_ranges)
+
+    def from_host(kernel):
+        src = launch.get(kernel.get("args", {}).get("correlation"))
+        return src is not None and any(
+            r["tid"] == src["tid"] and r["ts"] <= src["ts"]
+            <= r["ts"] + r["dur"] for r in cpu_ranges)
+
+    under = {label: [k for k in found if on_card(k) or from_host(k)]
+             for label, found in (("K1", k1), ("K2", k2))}
+    cats = {}
+    for event in events:
+        cats[event.get("cat")] = cats.get(event.get("cat"), 0) + 1
+    print("profile window: %s (%d events; by category %s); K1 %d kernels, "
+          "%d under paged.dispatch (%d on the card's timeline); K2 %d, %d "
+          "under paged.dispatch; paged.dispatch ranges %d host, %d card"
+          % (os.path.basename(path), len(events), cats, len(k1),
+             len(under["K1"]), sum(map(on_card, k1)), len(k2),
+             len(under["K2"]), len(cpu_ranges), len(gpu_ranges)))
+    if not k1 or not k2:
+        raise AssertionError("K1 or K2 missing from the profile")
+    if len(under["K1"]) != len(k1) or not under["K2"]:
+        raise AssertionError("K1/K2 kernels outside paged.dispatch")
+
+
+def breaker_black_box(params, table, prompts, device, out):
+    """The breaker phase's fault (a ServingChaosMonkey failing one step)
+    with every plane on: a ``breaker_trip`` black box that ``python -m
+    veles_tpu_torch observe blackbox`` reads with exit 0, holding the
+    ``breaker.trip`` note last, the dispatch notes before it and span
+    entries."""
+    flight = get_flight_recorder()
+    dumps = flight.dumps
+    api = GenerateAPI(params, table, HEADS, slots=SLOTS, max_len=MAX_LEN,
+                      n_tokens=N_TOKENS, chunk=CHUNK, paged=True,
+                      page_size=PAGE, quantize="int8",
+                      rebuild_backoff=SMOKE_BACKOFF, device=device).start()
+    codes = []
+    try:
+        post(api.port, prompts[0][:min(16, PAGE - 1)], CHUNK)
+        burst_retrying(api.port, prompts, codes)
+        api.chaos = ServingChaosMonkey(ServingChaosConfig(
+            step_fail=1.0, step_fail_max=1))
+        burst_retrying(api.port, prompts, codes)
+        trips = api.health.counter("trips")
+    finally:
+        api.stop()
+    if trips != 1 or flight.dumps != dumps + 1:
+        raise AssertionError("trips %d, dumps %d" % (trips,
+                                                     flight.dumps - dumps))
+    path = flight.last_dump_path
+    proc = subprocess.run(
+        [sys.executable, "-m", "veles_tpu_torch", "observe", "blackbox",
+         path], cwd=REPO_DIR, env=port_env(), capture_output=True,
+        text=True, timeout=300)
+    doc = load_dump(path)
+    kinds = [e.get("kind") for e in doc["entries"]]
+    print("breaker black box: %s, %d entries (%s), %d bytes; blackbox "
+          "exit %d; replies %s" % (
+              os.path.basename(path), len(kinds), ", ".join(
+                  "%s=%d" % (k, kinds.count(k)) for k in sorted(set(kinds))),
+              os.path.getsize(path), proc.returncode,
+              {c: codes.count(c) for c in sorted(set(codes))}))
+    if proc.returncode or "reason: breaker_trip" not in proc.stdout:
+        raise AssertionError("blackbox: %s %s" % (proc.stdout[-1000:],
+                                                  proc.stderr[-1000:]))
+    if doc["reason"] != "breaker_trip" or kinds[-1] != "breaker.trip" \
+            or "dispatch" not in kinds or "span" not in kinds:
+        raise AssertionError("the black box holds %s" % sorted(set(kinds)))
+
+
+def observe_cli(device, directory, out):
+    """The wide MLP through the CLI with ``--trace-events``, knobs on, one
+    epoch: a ``unit.run`` span for every firing of every unit, and K6/K5
+    launches as the minibatches require. Then the same run behind a
+    SIGTERM handler of its own, killed once its first ``unit.run`` span
+    is on disk: a ``sigterm`` black box holding unit spans, and the
+    previous handler ran. Returns the first run's launches."""
+    workflow = os.path.join(out, "observe_wide.py")
+    with open(workflow, "w") as fout:
+        fout.write(OBSERVE_WORKFLOW)
+
+    def args(epochs, events):
+        return [workflow, os.path.join(REPO_DIR, "samples",
+                                       "mnist784_config.py"),
+                "root.common.engine.use_pallas=True",
+                "root.common.engine.pallas_epilogue=True",
+                "root.mnist784.directory=%r" % directory,
+                "root.mnist784.out=%r" % out,
+                "root.mnist784.max_epochs=%d" % epochs,
+                "root.common.engine.pallas_autotune_cache=%r"
+                % root.common.engine.pallas_autotune_cache,
+                "--device", device.type, "--seed", "1",
+                "--trace-events", events]
+
+    events = os.path.join(out, "cli.jsonl")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "veles_tpu_torch"] + args(1, events),
+        cwd=REPO_DIR, env=port_env(), capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError("the traced CLI run exited %d:\n%s"
+                             % (proc.returncode, proc.stderr[-4000:]))
+    with open(os.path.join(out, "counters.json")) as fin:
+        counters = json.load(fin)
+    spans = {}
+    for line in open(events):
+        event = json.loads(line)
+        if event.get("name") == "unit.run" and event["etype"] == "end":
+            spans[event["unit"]] = spans.get(event["unit"], 0) + 1
+    want = a5_cli_launches(counters)
+    got = {name: counters[name] for name in want}
+    print("traced CLI: the wide MLP, knobs on, 1 epoch, exit 0 in %.1f s; "
+          "unit.run spans %s, firings %s; launches %s, required %s"
+          % (wall, spans, counters["run_calls"], got, want))
+    if spans != counters["run_calls"] or got != want:
+        raise AssertionError("the traced CLI run failed its checks")
+    home = os.path.join(out, "home")
+    killed = os.path.join(out, "killed.jsonl")
+    marker = os.path.join(out, "marker")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CHAINED_SIGTERM, marker]
+        + args(1000, killed),
+        cwd=REPO_DIR, env=dict(port_env(), VELES_TPU_HOME=home),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        while time.perf_counter() - t0 < 300 and proc.poll() is None:
+            if os.path.exists(killed) and "unit.run" in open(killed).read():
+                break
+            time.sleep(0.1)
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=120)
+    finally:
+        proc.kill()
+    run_dir = os.path.join(home, "run")
+    dumps = sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else []
+    doc = load_dump(os.path.join(run_dir, dumps[0])) if dumps else {}
+    entries = doc.get("entries", [])
+    print("SIGTERM after the first unit.run span (%.1f s): exit %d, "
+          "previous handler %s, black boxes %s (reason %s, %d entries, "
+          "unit.run spans %d)" % (
+              time.perf_counter() - t0, proc.returncode,
+              os.path.exists(marker), dumps, doc.get("reason"),
+              len(entries), sum(e.get("name") == "unit.run"
+                                for e in entries)))
+    if proc.returncode != 9 or not os.path.exists(marker) \
+            or len(dumps) != 1 or doc["reason"] != "sigterm" \
+            or not any(e.get("name") == "unit.run" for e in entries):
+        raise AssertionError("the SIGTERM black box failed its checks: %s"
+                             % err[-3000:])
+    return got
+
+
+class StepLaunches:
+    """Counts the K1 and K2 launches inside the paged decode steps (the
+    serving module's ``paged_slot_step_many``) and the steps they ran;
+    installed by :meth:`install`, zeroed by :meth:`zero`."""
+
+    def __init__(self):
+        self.real = serving_mod.paged_slot_step_many
+        self.zero()
+
+    def zero(self):
+        self.k1 = self.k2 = self.steps = 0
+
+    def __call__(self, *args, **kwargs):
+        k1, k2 = paged_attend.launches, int8_matmul.launches
+        out = self.real(*args, **kwargs)
+        self.k1 += paged_attend.launches - k1
+        self.k2 += int8_matmul.launches - k2
+        self.steps += args[6]
+        return out
+
+    @contextlib.contextmanager
+    def install(self):
+        serving_mod.paged_slot_step_many = self
+        try:
+            yield self
+        finally:
+            serving_mod.paged_slot_step_many = self.real
+
+
+#: the cost runs after one discarded warm-up run, in ABBA order so that
+#: no setting always runs first, four each of ``default`` (GenerateAPI.
+#: start() as a user runs it: the flight ring on, the registry and the
+#: device truth enabled by start(), the tracer off) and ``off`` (every
+#: plane off), two of ``traced`` (the default with the tracer writing
+#: spans to the events file): single bursts spread 1.3-1.5x, medians less
+COST_ORDER = ("default", "off", "off", "default", "traced", "traced",
+              "default", "off", "off", "default")
+
+
+def cost_planes(setting):
+    """A fresh process's planes before a cost run's ``start()``: the
+    flight ring on, the rest off until ``start()`` turns the registry and
+    the device truth on; the tracer on for ``traced``."""
+    planes(False)
+    get_flight_recorder().enabled = True
+    get_tracer().enabled = setting == "traced"
+
+
+def observe_cost(params, table, prompts, device):
+    """The int8 burst under each setting of :data:`COST_ORDER`, after a
+    warm-up run: tokens/s, host ms a chunk and admission ms printed with
+    each setting's median, without a gate (host noise); the default runs
+    must have left the registry and the device truth on with nothing
+    patched, and K1's and K2's launches per decode step must be equal in
+    every setting. Returns the runs' launches."""
+    launches = dict.fromkeys(COUNTERS, 0)
+    rows = []
+    steps = StepLaunches()
+    with steps.install():
+        for setting in ("warm-up",) + COST_ORDER:
+            cost_planes(setting)
+            # each timed burst starts from a collected heap: a full
+            # collection after the profile's and the breaker's big
+            # objects otherwise lands in whichever run comes first
+            run = serve(params, table, [prompts], "int8", device,
+                        on_zero=lambda: (
+                            planes(False) if setting == "off" else None,
+                            steps.zero(), gc.collect()))
+            if setting == "default" and not (
+                    get_metrics_registry().enabled
+                    and get_compile_tracker().enabled):
+                raise AssertionError("start() left the registry or the "
+                                     "device truth off")
+            for name, n in run["launches"].items():
+                launches[name] += n
+            if setting == "warm-up":
+                continue
+            rows.append((setting, len(prompts) * N_TOKENS / run["wall"],
+                         1e3 * run["host_s"] / max(run["chunks"], 1),
+                         1e3 * run["admit_s"], steps.k1 / steps.steps,
+                         steps.k2 / steps.steps))
+    planes(True)
+    print("observe cost, int8 burst (%s, after a warm-up run): %s" % (
+        ", ".join(COST_ORDER), "; ".join(
+            "%s %.1f tokens/s, %.3f host ms a chunk, %.3f admission ms, "
+            "K1 %.2f and K2 %.2f a decode step" % row for row in rows)))
+    print("observe cost medians: %s" % ", ".join(
+        "%s %.1f tokens/s" % (setting, statistics.median(
+            row[1] for row in rows if row[0] == setting))
+        for setting in dict.fromkeys(COST_ORDER)))
+    per_step = {row[-2:] for row in rows}
+    if per_step != {(float(BLOCKS), float(sum(K2_PER_STEP)))}:
+        raise AssertionError("K1/K2 launches a decode step differ between "
+                             "the settings: %s" % per_step)
+    return launches
+
+
+def observe_phase(device, prompts):
+    """Phase 19: the observe plane on the serving model at full width.
+    The paged int8 and int8-KV bursts observed (metrics, spans to a JSONL
+    file, exemplars), their span trees exported and checked, an int8
+    burst in the profiler window, the breaker's black box, the wide MLP
+    traced through the CLI and killed by SIGTERM, and the cost of the
+    planes. Returns the launches of its main paths."""
+    t0 = time.perf_counter()
+    params, table = bf16_model(device)
+    launches = dict.fromkeys(COUNTERS, 0)
+    with tempfile.TemporaryDirectory() as out:
+        root.common.dirs.run = os.path.join(out, "run")
+        events = os.path.join(out, "events.jsonl")
+        enable_event_recording(events)
+        planes(True)
+        sent = []
+        for tier, (quantize, attend) in enumerate(OBSERVE_TIERS):
+            got, ids = observed_burst(params, table, prompts, quantize,
+                                      attend, device, tier)
+            sent += ids
+            for name, n in got.items():
+                launches[name] += n
+        check_span_trees(events, sent, out)
+        profiled_burst(params, table, prompts, device, out)
+        breaker_black_box(params, table, prompts, device, out)
+        for name, n in observe_cost(params, table, prompts,
+                                    device).items():
+            launches[name] += n
+        with tempfile.TemporaryDirectory() as directory:
+            mnist_files(directory)
+            for name, n in observe_cli(device, directory, out).items():
+                launches[name] += n
+        get_event_recorder().close()
+    print("observe phase: %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4855,6 +5540,8 @@ def main():
               "spill loads" % (label, len(spills),
                                sum(st for st, _ in spills),
                                sum(ld for _, ld in spills)))
+    # phases 1-18 run with every observe plane off, as before phase 19
+    real_enable_metrics = hold_planes_off()
     # phases 1-17 run without verdicts: a fresh, empty tuning cache
     isolated = tempfile.TemporaryDirectory()
     root.common.engine.pallas_autotune_cache = os.path.join(
@@ -4976,6 +5663,12 @@ def main():
         benchmark_phase(device)
     print("parity, samples, autotune and tuned-route phases: %.1f s"
           % (time.perf_counter() - t_a6))
+    # the observe plane: the observed bursts and the cost runs are main
+    # paths of K1, K2 and K3, the traced CLI run of K6 and K5 (the
+    # profiled and the breaker bursts are not counted)
+    release_planes(real_enable_metrics)
+    for name, n in observe_phase(device, prompts).items():
+        launches[name] += n
     isolated.cleanup()
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]

@@ -39,7 +39,9 @@ trained on the card, snapshotted and resumed on either device; and the
 autotuner's candidates: K5 and K6 at both output tile widths (BN 128 and
 256), K2 at every split count, K1 and K3 at every pages-per-split it
 races, a race on the card persisted under this card's key, the routes
-the verdicts choose, and the device benchmark's power.
+the verdicts choose, and the device benchmark's power; and the observe
+plane: the device families of ``/metrics`` on a front on the card, K1's
+kernels under ``paged.dispatch`` in a profile, the card's bf16 peak.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -1828,3 +1830,112 @@ def test_device_benchmark_on_the_card(cuda):
     from veles_tpu_torch.ops.benchmark import device_benchmark
     power = device_benchmark()
     assert power > 0 and math.isfinite(power)
+
+
+# -- the observe plane on the card (port slice 17) -----------------------------
+
+def _observed_api(paged=True):
+    """A toy GenerateAPI on the card (the paged pool: K1), started."""
+    from veles_tpu_torch.serving import GenerateAPI
+
+    params = init_transformer_params(numpy.random.RandomState(0), 2, 64,
+                                     4, 97, device="cpu")
+    table = torch.randn((97, 64), generator=torch.Generator()
+                        .manual_seed(1)) * 0.5
+    return GenerateAPI(params, table, 4, slots=2, max_len=64, n_tokens=6,
+                       chunk=2, paged=paged, page_size=16,
+                       device="cuda").start()
+
+
+def test_metrics_device_families_on_the_card(cuda):
+    """``/metrics`` on a serving front on the card: the allocator's
+    counters for device 0 (in use at least the weights plus the pool,
+    the limit the card's memory), the card's bf16 peak, and the library
+    loads of K1's source."""
+    import json as json_mod
+    import urllib.request
+
+    from veles_tpu_torch.observe.xla_stats import peak_tflops
+    from veles_tpu_torch.parallel.kv_pool import paged_kv_bytes
+    from veles_tpu_torch.serving import _tree_bytes
+
+    api = _observed_api()
+    try:
+        url = "http://127.0.0.1:%d" % api.port
+        req = urllib.request.Request(
+            url + "/generate", data=json_mod.dumps(
+                {"tokens": [1, 2, 3]}).encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert len(json_mod.loads(resp.read())["tokens"]) == 6
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as resp:
+            text = resp.read().decode()
+        held = _tree_bytes((api.decoder.params, api.decoder.embed_table)) \
+            + paged_kv_bytes(api.decoder.state)
+    finally:
+        api.stop()
+
+    def value(prefix):
+        (line,) = [l for l in text.splitlines() if l.startswith(prefix)]
+        return float(line.rsplit(" ", 1)[1])
+
+    assert value('veles_device_memory_bytes{device="0",kind="bytes_in_use"}'
+                 ) >= held
+    assert value('veles_device_memory_bytes{device="0",kind="bytes_limit"}'
+                 ) == torch.cuda.mem_get_info(0)[1]
+    peak = peak_tflops(torch.cuda.get_device_name(0))
+    if peak is not None:
+        assert value("veles_device_peak_bf16_tflops") == peak
+    assert value('veles_kernel_loads_total{kernel="paged_attention.cu"}') \
+        >= 1
+    assert 0 < value('veles_mfu_ratio{program="paged.dispatch"}') <= 1.05
+
+
+def test_profile_ranges_stand_over_k1(cuda, tmp_path):
+    """A paged decode dispatch inside the profiler window: K1's kernels
+    are in the Chrome trace, each under a ``paged.dispatch`` range, on
+    the card's timeline or launched inside the host range."""
+    import json as json_mod
+
+    from veles_tpu_torch.observe.profile import profile_window
+
+    params = init_transformer_params(numpy.random.RandomState(0), 2, 64,
+                                     4, 97, device="cpu")
+    table = torch.randn((97, 64), generator=torch.Generator()
+                        .manual_seed(1)) * 0.5
+    dec = ContinuousDecoder(params, table, 4, slots=2, max_len=64,
+                            n_tokens=6, paged=True, page_size=16,
+                            device="cuda")
+    dec.submit([1, 2, 3])
+    with profile_window(str(tmp_path)) as path:
+        dec.run_until_drained(chunk=2)
+        torch.cuda.synchronize()
+    events = json_mod.load(open(path))["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "paged_attend" in e["name"]]
+    card = [e for e in events if e.get("cat") == "gpu_user_annotation"
+            and e["name"] == "paged.dispatch"]
+    host = [e for e in events if e.get("cat") == "user_annotation"
+            and e["name"] == "paged.dispatch"]
+    launch = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    assert k1 and host
+    for kernel in k1:
+        src = launch.get(kernel["args"].get("correlation"))
+        assert any(r["ts"] <= kernel["ts"]
+                   and kernel["ts"] + kernel["dur"] <= r["ts"] + r["dur"]
+                   + 1e-3 for r in card) or (
+            src is not None and any(r["tid"] == src["tid"] and r["ts"]
+                                    <= src["ts"] <= r["ts"] + r["dur"]
+                                    for r in host))
+
+
+def test_peak_tflops_names_this_card(cuda, monkeypatch):
+    from veles_tpu_torch.observe.xla_stats import peak_tflops
+
+    monkeypatch.setattr(root.common.observe, "peak_tflops", None,
+                        raising=False)
+    name = torch.cuda.get_device_name(0)
+    assert peak_tflops() == peak_tflops(name)
+    if "H100" in name and "PCIe" not in name and "NVL" not in name:
+        assert peak_tflops() == 989.0

@@ -1,0 +1,209 @@
+"""The observe plane through the port's command line, on the CPU:
+``--trace-events`` (a ``unit.run`` span for every unit of the workflow,
+framed by ``workflow.run``, exported by ``observe export-trace``),
+``--profile`` (the torch.profiler window with CPU activities, the spans
+named in it), SIGTERM during a CLI run (a black box, and the handler it
+replaced still runs), and the flags and subcommands still deferred
+(exit 2 naming their ROADMAP item). The runs are subprocesses started
+together by one module fixture."""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import numpy
+import pytest
+import torch
+
+from veles_tpu_torch.__main__ import COMMANDS, DEFERRED, DEFERRED_COMMANDS
+from veles_tpu_torch.observe.flight import load_dump
+from veles_tpu_torch.observe.trace_export import load_events
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: the six-feature toy of tests/test_torch_cli.py, with a knob for
+#: epochs
+TINY_WF = '''
+import numpy
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.models.mlp import MLPWorkflow
+
+root.tiny.update({"epochs": 1})
+
+
+def run(load, main):
+    rng = numpy.random.RandomState(0)
+    x = rng.rand(120, 6).astype(numpy.float32)
+    y = (x[:, 0] > 0.5).astype(numpy.int32)
+    wf, _ = load(MLPWorkflow, layers=(6, 2),
+                 loader_kwargs=dict(data=x, labels=y,
+                                    class_lengths=[0, 40, 80],
+                                    minibatch_size=20),
+                 learning_rate=0.3, max_epochs=root.tiny.epochs,
+                 name="tiny")
+    main()
+'''
+
+#: a CLI run behind a SIGTERM handler of its own: the CLI chains it
+CHAINED = '''
+import signal, sys
+marker = sys.argv[1]
+
+def previous(signum, frame):
+    with open(marker, "w") as fout:
+        fout.write("previous ran")
+    sys.exit(9)
+
+signal.signal(signal.SIGTERM, previous)
+from veles_tpu_torch.__main__ import main
+sys.exit(main(sys.argv[2:]))
+'''
+
+
+def _env(tmp):
+    return dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+                VELES_TPU_HOME=str(tmp),
+                PYTHONPATH=REPO + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("observe_cli")
+    tiny = tmp / "tiny_wf.py"
+    tiny.write_text(TINY_WF)
+    base = [sys.executable, "-m", "veles_tpu_torch", str(tiny), "-",
+            "--device", "cpu"]
+    procs = {
+        "traced": subprocess.Popen(
+            base + ["--trace-events", str(tmp / "events.jsonl")],
+            env=_env(tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True),
+        "profiled": subprocess.Popen(
+            base + ["--profile", str(tmp / "profile")], env=_env(tmp),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        # a long run, killed once its first unit.run span is on disk
+        "killed": subprocess.Popen(
+            [sys.executable, "-c", CHAINED, str(tmp / "marker"),
+             str(tiny), "-", "--device", "cpu", "root.tiny.epochs=100000",
+             "--trace-events", str(tmp / "killed.jsonl")],
+            env=_env(tmp / "home"), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True),
+    }
+    deadline = time.monotonic() + 240
+    killed = tmp / "killed.jsonl"
+    while time.monotonic() < deadline:
+        if killed.exists() and "unit.run" in killed.read_text():
+            break
+        time.sleep(0.1)
+    procs["killed"].send_signal(signal.SIGTERM)
+    out = {}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        out[name] = (proc.returncode, stdout, stderr)
+    return out, tmp
+
+
+def test_trace_events_give_a_unit_run_span_for_every_unit(runs):
+    out, tmp = runs
+    code, _, err = out["traced"]
+    assert code == 0, err[-3000:]
+    assert "span tracing to" in err
+    events = load_events(str(tmp / "events.jsonl"))
+    ran = {e.get("unit") for e in events
+           if e.get("name") == "unit.run" and e.get("etype") == "end"}
+    assert {"FullBatchLoader", "fused_tick", "DecisionGD", "End"} <= ran
+    assert [e for e in events if e.get("name") == "workflow.run"]
+    # every unit.run span has its begin and end
+    begins = {e["span_id"] for e in events
+              if e.get("name") == "unit.run" and e["etype"] == "begin"}
+    ends = {e["span_id"] for e in events
+            if e.get("name") == "unit.run" and e["etype"] == "end"}
+    assert begins == ends
+
+
+def test_every_unit_that_runs_runs_under_a_span(tmp_path, monkeypatch):
+    """In process, the toy workflow traced: the units that fired (their
+    ``run_calls``; the fused tick stands in for the forwards and the
+    gradient units) are exactly the units the ``unit.run`` spans name,
+    once a firing each."""
+    from veles_tpu_torch.core import logger as logger_mod
+    from veles_tpu_torch.core.logger import EventRecorder
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.models.mlp import MLPWorkflow
+    from veles_tpu_torch.observe.tracing import get_tracer
+
+    path = str(tmp_path / "events.jsonl")
+    recorder = EventRecorder()
+    recorder.open(path)
+    monkeypatch.setattr(logger_mod, "_event_recorder", recorder)
+    monkeypatch.setattr(get_tracer(), "enabled", True)
+    rng = numpy.random.RandomState(0)
+    x = rng.rand(120, 6).astype(numpy.float32)
+    y = (x[:, 0] > 0.5).astype(numpy.int32)
+    wf = MLPWorkflow(DummyLauncher(), layers=(6, 2), device="cpu",
+                     loader_kwargs=dict(data=x, labels=y,
+                                        class_lengths=[0, 40, 80],
+                                        minibatch_size=20),
+                     learning_rate=0.3, max_epochs=2)
+    wf.initialize()
+    wf.run()
+    recorder.close()
+    spans = {}
+    for event in load_events(path):
+        if event.get("name") == "unit.run" and event["etype"] == "end":
+            spans[event["unit"]] = spans.get(event["unit"], 0) + 1
+    fired = {u.name: u.run_calls for u in wf.units if u.run_calls}
+    assert spans == fired
+
+
+def test_the_exported_trace_holds_the_unit_spans(runs):
+    out, tmp = runs
+    trace = str(tmp / "trace.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "veles_tpu_torch", "observe",
+         "export-trace", str(tmp / "events.jsonl"), "-o", trace],
+        env=_env(tmp), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    spans = [e for e in json.load(open(trace))["traceEvents"]
+             if e["ph"] == "X"]
+    assert {"unit.run", "workflow.run"} <= {e["name"] for e in spans}
+
+
+def test_profile_writes_a_trace_with_the_span_names(runs):
+    out, tmp = runs
+    code, _, err = out["profiled"]
+    assert code == 0, err[-3000:]
+    (name,) = os.listdir(tmp / "profile")
+    events = json.load(open(tmp / "profile" / name))["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "unit.run" in names and "workflow.run" in names
+
+
+def test_sigterm_dumps_a_black_box_and_chains(runs):
+    out, tmp = runs
+    code, _, err = out["killed"]
+    assert code == 9, err[-3000:]
+    assert (tmp / "marker").read_text() == "previous ran"
+    run_dir = tmp / "home" / "run"
+    (name,) = os.listdir(run_dir)
+    doc = load_dump(str(run_dir / name))
+    assert doc["reason"] == "sigterm"
+    assert doc["entries"][-1]["kind"] == "signal"
+    assert "unit.run" in {e.get("name") for e in doc["entries"]}
+
+
+def test_the_observe_entries_left_the_deferred_maps():
+    assert not {"profile", "trace_events"} & set(DEFERRED)
+    assert "observe" in COMMANDS and "observe" not in DEFERRED_COMMANDS
+    assert DEFERRED["serve_slo"].endswith("ROADMAP A7 (b)")
+    assert DEFERRED["serve_history"].endswith("ROADMAP A7 (b)")
+    assert DEFERRED["serve_governor"].endswith("ROADMAP A7 (c)")

@@ -20,12 +20,20 @@ first.
 snapshot import. Without a card, ``cuda`` raises; nothing falls back to
 the CPU.
 
+``--trace-events PATH`` turns the tracer on and appends the span events
+(``unit.run``, ``workflow.run``, ...) to a JSONL file, which ``python -m
+veles_tpu_torch observe export-trace PATH`` turns into a Chrome trace;
+``--profile DIR`` runs the workflow inside the ``torch.profiler`` window
+(``observe/profile.py``). SIGTERM dumps the flight recorder's black box
+before the previous handler runs (``observe/flight.py``).
+
 The flags of paths the port does not have yet parse like the JAX
 package's, then exit with code 2 and a message naming the ROADMAP item
 that brings them (:data:`DEFERRED`); so do the JAX package's
 subcommands that are not ported yet (:data:`DEFERRED_COMMANDS`). The
-ported subcommands (:data:`COMMANDS`): ``parity`` (``parity.main``) and
-``autotune`` (``ops/gemm.autotune_main``).
+ported subcommands (:data:`COMMANDS`): ``parity`` (``parity.main``),
+``autotune`` (``ops/gemm.autotune_main``) and ``observe``
+(``observe/trace_export.main``: ``export-trace`` and ``blackbox``).
 """
 
 import argparse
@@ -43,7 +51,8 @@ from veles_tpu_torch.launcher import Launcher
 
 _FLEET = "the fleet, ROADMAP A9"
 _MESH = "the mesh, ROADMAP A8"
-_OBSERVE = "the observe plane, ROADMAP A7"
+_SERVE_HOOKS = "the observe plane's serving hooks, ROADMAP A7 (b)"
+_GOVERNOR = "the serving governor, ROADMAP A7 (c)"
 _META = "genetics and ensembles, ROADMAP A9"
 
 #: flag -> the ROADMAP item that brings it (by argparse dest)
@@ -59,9 +68,8 @@ DEFERRED = {
     "optimize": _META, "optimize_fleet": _META,
     "optimize_representation": _META, "ensemble_train": _META,
     "ensemble_test": _META,
-    "serve_slo": _OBSERVE, "serve_governor": _OBSERVE,
-    "serve_history": _OBSERVE, "profile": _OBSERVE,
-    "trace_events": _OBSERVE,
+    "serve_slo": _SERVE_HOOKS, "serve_governor": _GOVERNOR,
+    "serve_history": _SERVE_HOOKS,
     "serve_aot": "the AOT bundle, ROADMAP A9",
     "serve_paged_kernel": "not ported, on purpose (ROADMAP A2): on the "
                           "card the paged pool always attends through "
@@ -72,7 +80,6 @@ DEFERRED = {
 
 #: the JAX package's subcommands -> the ROADMAP item that brings them
 DEFERRED_COMMANDS = {
-    "observe": "ROADMAP A7",
     "aot": "ROADMAP A9", "analyze": "ROADMAP A9", "route": "ROADMAP A9",
     "deploy": "ROADMAP A9", "forge": "ROADMAP A9",
 }
@@ -90,6 +97,7 @@ class Main(Logger):
         self.dry_run = None
         self.visualize = None
         self.dump_unit_attributes = False
+        self.profile_dir = None
 
     @staticmethod
     def init_parser():
@@ -126,6 +134,16 @@ class Main(Logger):
                                  "JSON lines")
         parser.add_argument("--dump-config", action="store_true")
         parser.add_argument("-v", "--verbose", action="count", default=0)
+        observe = parser.add_argument_group(
+            "observability", "span tracing and the profiler window")
+        observe.add_argument("--trace-events", default=None,
+                             metavar="PATH",
+                             help="turn tracing on and append the span "
+                                  "events to this JSONL file (export "
+                                  "with `observe export-trace`)")
+        observe.add_argument("--profile", default=None, metavar="DIR",
+                             help="run inside the torch.profiler window "
+                                  "and write its Chrome trace into DIR")
         serve = parser.add_argument_group(
             "serving survival", "admission control, deadlines and chaos "
             "for the serving tier (they write root.common.serve)")
@@ -193,8 +211,6 @@ class Main(Logger):
                 (("--serve-slo",), {"metavar": "OBJ=TARGET[,...]"}),
                 (("--serve-governor",), {"metavar": "KEY=VALUE[,...]"}),
                 (("--serve-history",), {"metavar": "KEY=VALUE[,...]"}),
-                (("--profile",), {"metavar": "DIR"}),
-                (("--trace-events",), {"metavar": "PATH"}),
                 (("--manhole",), {"action": "store_true"}),
                 (("-b", "--background"), {"action": "store_true"})):
             kwargs.setdefault("default", None)
@@ -311,7 +327,14 @@ class Main(Logger):
             self._dump_unit_attributes()
         if self.dry_run == "init":
             return
-        self.launcher.run()
+        if self.profile_dir:
+            from veles_tpu_torch.observe.profile import profile_window
+            self.info("profiling to %s (open the trace in "
+                      "ui.perfetto.dev)", self.profile_dir)
+            with profile_window(self.profile_dir):
+                self.launcher.run()
+        else:
+            self.launcher.run()
         self.launcher.stop()
 
     def _dump_unit_attributes(self):
@@ -342,6 +365,18 @@ class Main(Logger):
                              % (dest.replace("_", "-"), item))
         setup_logging(level=logging.DEBUG if args.verbose
                       else logging.INFO)
+        # a black box on SIGTERM: an orchestrator killing this run leaves
+        # the last spans and dispatches on disk (CLI runs only; library
+        # embedders keep their own signal policy)
+        from veles_tpu_torch.observe.flight import install_signal_handlers
+        install_signal_handlers()
+        if args.trace_events:
+            from veles_tpu_torch.core.logger import enable_event_recording
+            from veles_tpu_torch.observe.tracing import get_tracer
+            enable_event_recording(args.trace_events)
+            get_tracer().enable()
+            self.info("span tracing to %s", args.trace_events)
+        self.profile_dir = args.profile
         # plugins BEFORE the workflow module: a plugin registers its units
         # and loaders by name for the workflow being loaded
         import veles_tpu_torch
@@ -397,8 +432,13 @@ def _autotune(argv):
     return autotune_main(argv)
 
 
+def _observe(argv):
+    from veles_tpu_torch.observe.trace_export import main as observe_main
+    return observe_main(argv)
+
+
 #: the JAX package's subcommands the port has -> their entry
-COMMANDS = {"parity": _parity, "autotune": _autotune}
+COMMANDS = {"parity": _parity, "autotune": _autotune, "observe": _observe}
 
 
 def main(argv=None):

@@ -152,6 +152,17 @@ root.common.update({
             os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
             "_build", "pallas_tuning.json"),
     },
+    # where run-time files go: the flight recorder's black boxes under
+    # "run" (observe/flight.py). VELES_TPU_HOME relocates it, as in the
+    # JAX package (its run dir is $VELES_TPU_HOME/run); without it the
+    # port keeps them in its git-ignored build directory
+    "dirs": {
+        "run": os.path.join(
+            os.path.expanduser(os.environ["VELES_TPU_HOME"])
+            if os.environ.get("VELES_TPU_HOME")
+            else os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "_build"), "run"),
+    },
     "trace": {"run": False},
     "timings": False,
     # the serving survival layer (the JAX package's config.py:197-208):

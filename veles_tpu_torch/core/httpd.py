@@ -1,10 +1,15 @@
 """Stdlib HTTP-server plumbing for the serving front.
 
-The port's own copy of ``veles_tpu/core/httpd.py:31-131, 331-341``: the
+The port's own copy of ``veles_tpu/core/httpd.py:31-211, 313-341``: the
 ThreadingHTTPServer-on-a-daemon-thread lifecycle, JSON replies, a
-request-body cap that answers 413 before buffering anything, and the
-``/healthz`` + ``/readyz`` routes with their Retry-After pricing. Binds
-loopback by default.
+request-body cap that answers 413 before buffering anything, the
+``/healthz`` + ``/readyz`` routes with their Retry-After pricing, and
+the observe plane's routes: ``GET /metrics`` (:func:`serve_metrics`,
+Prometheus text or OpenMetrics by ``Accept``) and the ``GET /debug/``
+index (:func:`serve_debug_index`). The debug surfaces themselves
+(``/debug/requests``, ``/debug/history``, ``/debug/serve``,
+``/debug/memory``) arrive with ROADMAP A7 (b), so the index lists none
+yet. Binds loopback by default.
 """
 
 import json
@@ -108,6 +113,68 @@ def serve_health(handler, health):
                   code=503, headers=retry_after_headers(health))
         return True
     return False
+
+
+def serve_metrics(handler, registry=None):
+    """Route ``GET /metrics``: the exposition of ``registry`` (default:
+    the process-global one). Returns True when the path was handled.
+    The first mount enables the registry and the device-truth plane
+    (``observe/xla_stats.ensure_registered``).
+
+    Content negotiation: a scraper advertising
+    ``application/openmetrics-text`` in ``Accept`` gets the OpenMetrics
+    rendering (histogram bucket exemplars, the ``# EOF`` terminator);
+    everyone else gets the plain 0.0.4 text, so exemplars never break a
+    legacy scraper."""
+    path = handler.path.split("?")[0]
+    if path != "/metrics":
+        return False
+    if registry is None:
+        from veles_tpu_torch.observe.metrics import get_metrics_registry
+        registry = get_metrics_registry()
+    registry.enable()  # scrapeable == enabled
+    from veles_tpu_torch.observe.xla_stats import ensure_registered
+    ensure_registered(registry)
+    accept = str(getattr(handler, "headers", {}).get("Accept") or "")
+    if "application/openmetrics-text" in accept:
+        reply(handler, registry.expose(openmetrics=True),
+              content_type="application/openmetrics-text; "
+                           "version=1.0.0; charset=utf-8")
+    else:
+        reply(handler, registry.expose(),
+              content_type="text/plain; version=0.0.4; charset=utf-8")
+    return True
+
+
+#: the debug surfaces mounted on the serving HTTP fronts, path -> one-line
+#: description: what ``GET /debug/`` answers. The JAX package's four
+#: (``/debug/requests``, ``/debug/history``, ``/debug/serve``,
+#: ``/debug/memory``) arrive with ROADMAP A7 (b); none is mounted yet
+DEBUG_SURFACES = {}
+
+
+def serve_debug_index(handler, surfaces=None):
+    """Route ``GET /debug`` / ``GET /debug/``: the debug surfaces mounted
+    on this server (path -> description). Returns True when the path was
+    handled."""
+    path = handler.path.split("?")[0]
+    if path not in ("/debug", "/debug/"):
+        return False
+    reply(handler, {"surfaces": dict(DEBUG_SURFACES
+                                     if surfaces is None
+                                     else surfaces)})
+    return True
+
+
+def enable_metrics():
+    """Turn the process-global registry on (idempotent) with the
+    device-truth plane attached; every HTTP surface calls this at start,
+    so its counters accumulate from the first request, not the first
+    scrape. Returns the registry. (The JAX package's history sampler and
+    serve scope start here too; they arrive with ROADMAP A7 (b).)"""
+    from veles_tpu_torch.observe.metrics import get_metrics_registry
+    from veles_tpu_torch.observe.xla_stats import ensure_registered
+    return ensure_registered(get_metrics_registry().enable())
 
 
 def start_server(handler_cls, host="127.0.0.1", port=0, name="httpd"):

@@ -7,8 +7,9 @@ duplicating all logging to a file, and the ``event()`` span API writing
 to a local JSONL file and to any sink registered on the recorder, and
 the MongoDB duplicator (:class:`MongoLogHandler`,
 :func:`duplicate_all_logging_to_mongo`, reference ``logger.py:210``,
-``:292``), which takes an injected client where pymongo is absent. Left
-out: the flight recorder note (the observe plane is a later slice).
+``:292``), which takes an injected client where pymongo is absent. Every
+``event()`` also notes itself in the flight recorder's ring
+(``observe/flight.py``).
 """
 
 import json
@@ -96,6 +97,11 @@ class Logger:
                              "got %r" % (etype,))
         get_event_recorder().record(
             name=name, etype=etype, source=type(self).__name__, **attrs)
+        # the always-on black box keeps the last events too; lazy
+        # import: observe.tracing imports this module at its top
+        from veles_tpu_torch.observe.flight import get_flight_recorder
+        get_flight_recorder().note("event", name=name, etype=etype,
+                                   source=type(self).__name__)
 
 
 _setup_done = False

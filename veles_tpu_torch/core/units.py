@@ -1,8 +1,8 @@
 """Unit: the node of the workflow dataflow graph.
 
 The port's copy of ``veles_tpu/core/units.py`` (reference
-``veles/units.py``), without the tracing span around ``run()`` (the
-observe plane is a later slice). A Unit:
+``veles/units.py``), with the ``unit.run`` span around ``run()`` while
+the tracer is on (``observe/tracing.py``). A Unit:
 
 - fires successors through **control links** (``link_from``) guarded by the
   **gate protocol**: a unit runs when *all* incoming links have fired since
@@ -34,6 +34,7 @@ from veles_tpu_torch.core.errors import AttributeMissingError
 from veles_tpu_torch.core.mutable import Bool, link as link_attr
 from veles_tpu_torch.core.registry import UnitCommandLineArgumentsRegistry
 from veles_tpu_torch.core.timing import Timer
+from veles_tpu_torch.observe.tracing import get_tracer
 
 
 class Unit(Distributable, metaclass=UnitCommandLineArgumentsRegistry):
@@ -279,8 +280,17 @@ class Unit(Distributable, metaclass=UnitCommandLineArgumentsRegistry):
                     self.debug("-> run (from %s)",
                                src.name if src else "start")
                 timer = self.timers.setdefault("run", Timer())
-                with timer:
-                    self.run()
+                tracer = get_tracer()
+                if tracer.enabled:
+                    # a span a tick only while tracing is ON (the check
+                    # is the whole disabled-path cost): unit runs are
+                    # the training loop's hot path
+                    with tracer.span("unit.run", unit=self.name,
+                                     cls=type(self).__name__), timer:
+                        self.run()
+                else:
+                    with timer:
+                        self.run()
                 self.run_calls += 1
                 if self.timings:
                     self.info("%s run: %.3f ms", self.name,

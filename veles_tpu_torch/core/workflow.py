@@ -1,8 +1,10 @@
 """Workflow: a container Unit holding the dataflow graph.
 
 The port's copy of ``veles_tpu/core/workflow.py`` (reference
-``veles/workflow.py``), without the tracing span and the flight recorder
-(the observe plane is a later slice). A Workflow owns the
+``veles/workflow.py``), with the ``workflow.run`` span framing the
+units' ``unit.run`` spans while the tracer is on, and the flight
+recorder's ``unit_exception`` dump in :meth:`Workflow.on_error`
+(``observe/``). A Workflow owns the
 unit graph between its auto-created StartPoint and EndPoint, initializes
 units in dependency order with partial-init retry, runs the event-driven hot
 loop, aggregates fleet-mode job/update payloads across units in dependency
@@ -27,6 +29,7 @@ from veles_tpu_torch.core.errors import NoMoreJobsError, VelesError
 from veles_tpu_torch.core.executor import ThreadPool
 from veles_tpu_torch.core.plumbing import EndPoint, StartPoint
 from veles_tpu_torch.core.units import Container, Unit
+from veles_tpu_torch.observe.tracing import get_tracer
 
 
 class Workflow(Container):
@@ -215,16 +218,19 @@ class Workflow(Container):
         self.stopped = False
         self._run_start = time.perf_counter()
         self.event("workflow run", "begin", workflow=self.name)
-        self.start_point.run_dependent()
-        self._sync_event_.wait()
-        # quiesce: finish is signalled by the EndPoint, but sibling units
-        # may still be running on pool threads — don't return to the
-        # caller until every run() is out of flight
-        for unit in self._units:
-            lock = getattr(unit, "_run_lock_", None)
-            if lock is not None:
-                with lock:
-                    pass
+        # the traced twin of the begin/end pair: trace ids and monotonic
+        # stamps, so the run frames the unit.run spans in a Chrome trace
+        with get_tracer().span("workflow.run", workflow=self.name):
+            self.start_point.run_dependent()
+            self._sync_event_.wait()
+            # quiesce: finish is signalled by the EndPoint, but sibling
+            # units may still be running on pool threads — don't return
+            # to the caller until every run() is out of flight
+            for unit in self._units:
+                lock = getattr(unit, "_run_lock_", None)
+                if lock is not None:
+                    with lock:
+                        pass
         self.event("workflow run", "end", workflow=self.name)
         if self._sync_error_ is not None:
             exc, tb = self._sync_error_
@@ -235,8 +241,14 @@ class Workflow(Container):
 
     def on_error(self, exc, tb):
         """Worker exception: stop everything (reference thread-pool errback
-        semantics, ``thread_pool.py:59-68``)."""
+        semantics, ``thread_pool.py:59-68``). The flight recorder dumps
+        its black box first: an unhandled unit exception is the moment
+        the last spans and dispatches are worth keeping."""
         self._sync_error_ = (exc, tb)
+        from veles_tpu_torch.observe.flight import get_flight_recorder
+        get_flight_recorder().dump(
+            "unit_exception",
+            extra={"error": repr(exc), "workflow": self.name})
         self.on_workflow_finished()
 
     def on_workflow_finished(self):

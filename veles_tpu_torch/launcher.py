@@ -7,7 +7,7 @@ writes the ``--result-file`` and shuts the pool down. The master and
 slave modes, their node spawning and ``discover_yarn_nodes`` belong to
 the fleet, a later slice of the port (ROADMAP A9): asking for them
 raises ``NotImplementedError``. The plotting server and the web status
-notifier wait for the observe plane (ROADMAP A7).
+notifier wait for the observe plane's dashboards (ROADMAP A7 (d)).
 """
 
 import json

@@ -24,9 +24,10 @@ The port of ``veles_tpu/loader/base.py`` (reference
   package's.
 
 ``register_loader`` keeps the name -> class registry; ``LoaderMSEMixin``
-adds the regression targets (``FullBatchLoaderMSE``). Left out: the
-fleet distribution (master/slave payloads, requeue of a dropped slave's
-minibatches) and the metrics bridge (the observe plane is a later slice).
+adds the regression targets (``FullBatchLoaderMSE``). ``initialize``
+bridges the epoch progress onto ``/metrics`` (``observe/metrics.
+publish_loader``). Left out: the fleet distribution (master/slave
+payloads, requeue of a dropped slave's minibatches; ROADMAP A9).
 """
 
 import collections
@@ -152,6 +153,12 @@ class Loader(Unit):
             self._shuffle_train()
         self.analyze_dataset()
         self.create_minibatch_data()
+        # epoch progress on /metrics: weakly referenced (a loader that
+        # goes away unregisters itself), read at scrape time only
+        from veles_tpu_torch.observe.metrics import (bridge,
+                                                     get_metrics_registry,
+                                                     publish_loader)
+        bridge(get_metrics_registry(), self, publish_loader)
 
     # -- label analysis (reference loader/base.py:925-1018) ------------------
     def get_raw_labels(self):

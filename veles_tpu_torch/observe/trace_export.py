@@ -1,0 +1,220 @@
+"""Chrome ``trace_event`` exporter for the JSONL span stream.
+
+The port's copy of ``veles_tpu/observe/trace_export.py:26-400``.
+``python -m veles_tpu_torch observe export-trace events.jsonl -o
+trace.json`` converts the EventRecorder's span events (begin/end/single
+with trace ids and monotonic stamps, ``observe/tracing.py``) into the
+Chrome trace-event JSON that ``ui.perfetto.dev`` and
+``chrome://tracing`` load. Spans become complete ("X") events with their
+trace identity in ``args`` (:func:`span_tree` walks those parent links);
+unpaired begins become "B" events, so a crashed run's half-open spans
+stay visible; events without trace ids (``Logger.event`` marks) still
+export, keyed by name and source. Every source pid gets a stable small
+Chrome pid with ``process_name``/``thread_name`` metadata rows. For the
+same events file the JSON equals the JAX exporter's key for key.
+
+``observe blackbox`` reads flight-recorder dumps (``observe/flight.py``).
+The JAX package's other ``observe`` subcommands exit with code 2 naming
+the ROADMAP item that brings them (:data:`DEFERRED`).
+"""
+
+import json
+
+
+def load_events(path):
+    """Read the JSONL event stream, skipping undecodable lines (a
+    crashed writer can truncate the last one)."""
+    events = []
+    with open(path, "r") as fin:
+        for line in fin:
+            try:
+                event = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(event, dict):
+                events.append(event)
+    return events
+
+
+def _stamp_us(event, t0):
+    """Microsecond timestamp: prefer the monotonic field (immune to
+    wall-clock steps), fall back to wall time for legacy events."""
+    stamp = event.get("mono")
+    if stamp is None:
+        stamp = event.get("time", 0.0)
+    return (float(stamp) - t0) * 1e6
+
+
+def _args(event):
+    out = {key: value for key, value in event.items()
+           if key not in ("name", "etype", "mono", "tid", "pid")}
+    return out
+
+
+def chrome_trace(events, process_names=None):
+    """Span events -> the ``{"traceEvents": [...]}`` dict.
+
+    ``process_names`` optionally maps a source pid (whatever the
+    events carry in their ``pid`` field — an OS pid, or a fleet
+    process key like ``"mid:pid"``) to a display name for its
+    ``process_name`` metadata row; unnamed processes render as
+    ``pid <value>``."""
+    stamps = [float(e["mono"]) for e in events if "mono" in e] or \
+        [float(e.get("time", 0.0)) for e in events]
+    t0 = min(stamps) if stamps else 0.0
+    procs = {}    # source pid -> stable small Chrome pid
+    threads = set()  # (chrome pid, tid) seen
+
+    def _pid_of(event):
+        key = event.get("pid", event.get("session", 0))
+        try:
+            hash(key)
+        except TypeError:
+            key = str(key)
+        index = procs.get(key)
+        if index is None:
+            index = procs[key] = len(procs) + 1
+        return index
+
+    open_spans = {}
+    trace_events = []
+    for event in events:
+        etype = event.get("etype")
+        if etype not in ("begin", "end", "single"):
+            continue
+        key = event.get("span_id") or (
+            "%s/%s" % (event.get("name"), event.get("source")))
+        tid = event.get("tid", 0)
+        if isinstance(tid, bool) or not isinstance(tid, int):
+            tid = 0
+        pid = _pid_of(event)
+        threads.add((pid, tid))
+        base = {
+            "name": str(event.get("name", "?")),
+            "cat": str(event.get("trace_id") or "events"),
+            "pid": pid,
+            "tid": tid,
+            "args": _args(event),
+        }
+        if etype == "single":
+            trace_events.append(dict(base, ph="i", s="t",
+                                     ts=_stamp_us(event, t0)))
+        elif etype == "begin":
+            open_spans[key] = (event, base)
+        else:  # end
+            begun = open_spans.pop(key, None)
+            if begun is None:
+                # end without begin (rotated file): emit instant
+                trace_events.append(dict(base, ph="i", s="t",
+                                         ts=_stamp_us(event, t0)))
+                continue
+            begin_event, begin_base = begun
+            ts = _stamp_us(begin_event, t0)
+            dur = max(0.0, _stamp_us(event, t0) - ts)
+            merged_args = dict(begin_base["args"])
+            merged_args.update(base["args"])
+            trace_events.append(dict(begin_base, ph="X", ts=ts,
+                                     dur=dur, args=merged_args))
+    # half-open spans (crash mid-span): visible as B events
+    for event, base in open_spans.values():
+        trace_events.append(dict(base, ph="B",
+                                 ts=_stamp_us(event, t0)))
+    trace_events.sort(key=lambda e: e["ts"])
+    # process/thread metadata rows: stable per-process pids so a
+    # merged multi-process trace renders one row per process
+    metadata = []
+    for key, index in procs.items():
+        label = (process_names or {}).get(key)
+        if label is None:
+            label = "pid %s" % (key,)
+        metadata.append({"name": "process_name", "ph": "M",
+                         "pid": index, "tid": 0, "ts": 0,
+                         "args": {"name": str(label)}})
+    for pid, tid in sorted(threads, key=str):
+        metadata.append({"name": "thread_name", "ph": "M",
+                         "pid": pid, "tid": tid, "ts": 0,
+                         "args": {"name": "tid %s" % (tid,)}})
+    return {"traceEvents": metadata + trace_events,
+            "displayTimeUnit": "ms"}
+
+
+def export_chrome_trace(events_path, out_path):
+    """JSONL span file -> Chrome trace JSON file; returns the event
+    count written."""
+    trace = chrome_trace(load_events(events_path))
+    with open(out_path, "w") as fout:
+        json.dump(trace, fout)
+    return len(trace["traceEvents"])
+
+
+def span_tree(trace):
+    """Walk a Chrome trace dict into ``{trace_id: {span_id: parent_id}}``
+    — the verification view the tests (and quick scripts) use to assert
+    one request yields ONE connected tree."""
+    trees = {}
+    for event in trace.get("traceEvents", []):
+        args = event.get("args", {})
+        trace_id = args.get("trace_id")
+        span_id = args.get("span_id")
+        if not trace_id or not span_id:
+            continue
+        trees.setdefault(trace_id, {})[span_id] = args.get("parent_id")
+    return trees
+
+
+#: the JAX package's ``observe`` subcommands not ported yet -> the
+#: ROADMAP item that brings them
+DEFERRED = {
+    "fleet-trace": "the fleet, ROADMAP A9",
+    "serve-trace": "the serving hooks, ROADMAP A7 (b)",
+    "slo": "the serving hooks, ROADMAP A7 (b)",
+    "incident": "the serving hooks, ROADMAP A7 (b)",
+    "record": "what acts on the hooks, ROADMAP A7 (c)",
+    "replay": "what acts on the hooks, ROADMAP A7 (c)",
+    "capacity": "what acts on the hooks, ROADMAP A7 (c)",
+    "regress": "what acts on the hooks, ROADMAP A7 (c)",
+}
+
+
+def main(argv=None):
+    """``python -m veles_tpu_torch observe``: ``export-trace`` (Chrome
+    trace) and ``blackbox`` (flight-recorder dumps). Returns the exit
+    code; a subcommand of :data:`DEFERRED` returns 2."""
+    import argparse
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in DEFERRED:
+        sys.stderr.write("veles_tpu_torch observe: the %r command is not "
+                         "ported yet: %s\n" % (argv[0], DEFERRED[argv[0]]))
+        return 2
+    parser = argparse.ArgumentParser(
+        prog="veles_tpu_torch observe",
+        description="observability tooling: trace export and black boxes")
+    sub = parser.add_subparsers(dest="command", required=True)
+    export = sub.add_parser(
+        "export-trace",
+        help="convert a span JSONL file to Chrome trace JSON "
+             "(load in ui.perfetto.dev)")
+    export.add_argument("events", help="events JSONL path (see "
+                                       "--trace-events)")
+    export.add_argument("-o", "--output", default=None,
+                        help="output path (default: <events>.trace.json)")
+    blackbox = sub.add_parser(
+        "blackbox",
+        help="inspect flight-recorder black-box dumps: a dump file, or "
+             "a directory to list (default: the run dir)")
+    blackbox.add_argument("path", nargs="?", default=None,
+                          help="dump file or directory")
+    blackbox.add_argument("--tail", type=int, default=20,
+                          help="ring entries to show from the newest "
+                               "dump (default 20)")
+    args = parser.parse_args(argv)
+    if args.command == "blackbox":
+        from veles_tpu_torch.observe.flight import blackbox_main
+        return blackbox_main(args.path, tail=args.tail)
+    out = args.output or args.events + ".trace.json"
+    count = export_chrome_trace(args.events, out)
+    print("wrote %d trace events to %s (open in ui.perfetto.dev)"
+          % (count, out))
+    return 0

@@ -5,7 +5,10 @@ Each source is one shared library with a plain C interface, compiled by
 loaded with ``ctypes``. The library name carries a hash of the source,
 the shared headers (``csrc/*.cuh``) and the flags, so an edited source
 rebuilds. Nothing here runs at import time, and the CPU path never calls
-it. A failed build raises.
+it. A failed build raises. Each build (with its wall seconds) and each
+library load is reported to the device-truth plane's tracker
+(``observe/xla_stats.py``), labelled by the kernel's source: the port's
+compile events.
 """
 
 import ctypes
@@ -14,7 +17,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from veles_tpu_torch.observe.xla_stats import get_compile_tracker
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -66,13 +72,23 @@ def build(names=KERNELS):
                 continue
             tmp = out.with_name("%s.tmp%d" % (out.name, os.getpid()))
             log = open(BUILD_DIR / (name + ".log"), "w+")
+            started = time.perf_counter()
             proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                  str(CSRC / (name + ".cu"))],
                 stdout=log, stderr=subprocess.STDOUT)
-            running.append((name, out, tmp, log, proc))
+            running.append((name, out, tmp, log, proc, started))
+        # each source's build seconds run from its start to its exit,
+        # polled, since the sources finish in any order
+        ended = {}
+        while len(ended) < len(running):
+            for name, _, _, _, proc, started in running:
+                if name not in ended and proc.poll() is not None:
+                    ended[name] = time.perf_counter() - started
+            if len(ended) < len(running):
+                time.sleep(0.05)
         logs, failed = {}, []
-        for name, out, tmp, log, proc in running:
+        for name, out, tmp, log, proc, _ in running:
             code = proc.wait()
             log.seek(0)
             logs[name] = log.read()
@@ -83,6 +99,8 @@ def build(names=KERNELS):
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, out)
+                get_compile_tracker().record_compile(name + ".cu",
+                                                     ended[name])
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         return logs
@@ -102,6 +120,7 @@ def function(name, symbol, argtypes):
         lib = _libs.get(name)
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+            get_compile_tracker().record_hit(name + ".cu")
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

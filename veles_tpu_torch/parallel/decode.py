@@ -18,12 +18,19 @@ kernel (K4) that the slot engine runs. The slot engine
 ``serving.ContinuousDecoder``; the paged engine
 (``kv_pool.py``) shares ``_prefill_forward``, ``_quantize_kv`` and the
 sublayers.
+
+The programs carry the JAX package's names (``observe/xla_stats.
+instrument``: ``decode.generate``, ``decode.admit``, ``decode.step``,
+``decode.dispatch``), and :func:`dispatch_flops` / :func:`prefill_flops`
+count their FLOPs from shapes for the online MFU gauge (torch has no
+``cost_analysis``).
 """
 
 import numpy
 import torch
 
 from veles_tpu_torch.device import resolve_device, tree_to
+from veles_tpu_torch.observe.xla_stats import instrument
 from veles_tpu_torch.ops.attention import attention
 from veles_tpu_torch.ops.quant import (int8_cache_attend, matmul_any,
                                        quantize_int8)
@@ -536,3 +543,52 @@ def slot_step_many(params, embed_table, heads, state, active, n,
                                temperature, sample, top_k, span=span)
         emitted.append(tok)
     return state, torch.stack(emitted)
+
+
+# -- program names and FLOPs (observe/xla_stats.py) ---------------------------
+
+def _product_elements(params):
+    """``(blocks, head)``: K * N summed over the weight products one token
+    passes through, each block's qkv, output and two MLP products, and
+    the vocabulary head."""
+    def kn(w):
+        w = w["q8"] if isinstance(w, dict) else w
+        return int(w.shape[0]) * int(w.shape[1])
+
+    blocks = sum(kn(blk[name]) for blk in params["blocks"]
+                 for name in _QUANT_BLOCK_MATS)
+    return blocks, kn(params["head"])
+
+
+def dispatch_flops(params, slots, lengths, n):
+    """Analytic FLOPs of one dispatch of ``n`` lockstep steps over
+    ``slots`` lanes: every lane runs each weight product every step (2 K
+    N; the lanes of free slots are computed too), and each live lane
+    attends its visible positions in every block (q.k and p.v, 4 E a
+    position). ``lengths`` are the live lanes' lengths before the
+    dispatch; step j appends and then attends ``length + j + 1``
+    positions."""
+    blocks, head = _product_elements(params)
+    embed = params["blocks"][0]["ln1_w"].shape[0]
+    positions = sum(n * (int(length) + 1) + n * (n - 1) // 2
+                    for length in lengths)
+    return (2.0 * slots * n * (blocks + head)
+            + 4.0 * embed * len(params["blocks"]) * positions)
+
+
+def prefill_flops(params, rows, width):
+    """Analytic FLOPs of an admission's prefill products: ``rows``
+    prompts padded to ``width`` positions through every block's
+    products, the head once a row (attention not counted)."""
+    blocks, head = _product_elements(params)
+    return 2.0 * rows * (width * blocks + head)
+
+
+# the serving programs' names, the JAX package's (decode.py:687-690): each
+# matches its host span, so the call counters, the profile and the trace
+# share one vocabulary; a disabled tracker's wrapper delegates after one
+# attribute check
+generate = instrument("decode.generate", generate)
+slot_admit_many = instrument("decode.admit", slot_admit_many)
+slot_step = instrument("decode.step", slot_step)
+slot_step_many = instrument("decode.dispatch", slot_step_many)

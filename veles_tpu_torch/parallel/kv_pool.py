@@ -30,7 +30,10 @@ The prefix cache outlives its pool (``:597-617``, ``:923-1044``,
 the host from the dying decoder's state, and the fresh pool built with
 ``cache=`` adopts the entries by page copy (:meth:`PagePool.
 restore_entries`, :func:`_paged_restore`), never by a new prefill. The
-mesh functions and AOT are later slices.
+programs carry the JAX package's names (``paged.admit``,
+``paged.admit_tail``, ``paged.admit_hit``, ``paged.step``,
+``paged.dispatch``, ``paged.restore``; ``observe/xla_stats.
+instrument``). The mesh functions and AOT are later slices.
 """
 
 import collections
@@ -43,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from veles_tpu_torch.device import resolve_device
+from veles_tpu_torch.observe.xla_stats import instrument
 from veles_tpu_torch.ops.attention import plain_attention
 from veles_tpu_torch.ops.paged_attention import (gather_pages,
                                                  paged_attend,
@@ -694,3 +698,12 @@ def default_pool_pages(slots, max_len, page_size, chunk=1):
     scratch page (``kv_pool.py:1052-1068``)."""
     return int(slots) * pages_for(int(max_len) + 2 * int(chunk),
                                   page_size) + 1
+
+
+# the paged programs' names, the JAX package's (kv_pool.py:494-511)
+paged_admit_many = instrument("paged.admit", paged_admit_many)
+paged_admit_tail = instrument("paged.admit_tail", paged_admit_tail)
+paged_admit_hit = instrument("paged.admit_hit", paged_admit_hit)
+paged_slot_step = instrument("paged.step", paged_slot_step)
+paged_slot_step_many = instrument("paged.dispatch", paged_slot_step_many)
+_paged_restore = instrument("paged.restore", _paged_restore)

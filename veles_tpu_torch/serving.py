@@ -35,10 +35,21 @@ retryable 503 on a decoder fault, rebuilds the decoder from the held
 weights with exponential backoff (the paged pool's prefix cache restored
 into the new pool by page copy), probes it with a real decode and closes
 again, and a live weight hot-swap behind a drain-then-swap seam with a
-one-slot rollback stash. The JAX package's flight recorder, request
-ledger, SLO engine, serve scope and memory scope notes along these paths,
-its governor's tier swap, its blue-green rollout, the mesh and AOT wait
-for the port's observe (A7), mesh (A8) and AOT (A9) slices.
+one-slot rollback stash.
+
+The observe plane's base (``observe/``) rides these paths as in the JAX
+package: ``/metrics`` and ``/debug/`` on both HTTP fronts, the health and
+decoder bridges, the ``X-Veles-Trace`` header continued into the
+``serve.request`` span and echoed, the decoder's ``decode.admit``,
+``paged.admit``, ``paged.admit_tail``, ``paged.admit_hit``,
+``decode.dispatch``/``paged.dispatch`` and ``decode.collect`` spans and
+``veles_decode_{admit,dispatch,collect}_seconds`` histograms, the flight
+notes (``admit``, ``step``, ``dispatch``, ``collect``, ``breaker``,
+``breaker.trip``, ``deploy.swap``) with a black box dumped on a breaker
+trip, the exemplar-linked ``veles_request_{ttft,tpot}_seconds`` and the
+dispatch's online MFU. The request ledger, SLO engine, serve scope and
+memory scope notes wait for ROADMAP A7 (b), the governor's tier swap and
+the blue-green rollout for A7 (c), the mesh for A8 and AOT for A9.
 """
 
 import base64
@@ -61,11 +72,23 @@ from veles_tpu_torch.device import (keystr, resolve_device,
                                     tree_to)
 from veles_tpu_torch.loader.base import TEST, Loader, register_loader
 from veles_tpu_torch.loader.normalization import state_tensors
+from veles_tpu_torch.observe.flight import get_flight_recorder
+from veles_tpu_torch.observe.metrics import (bridge, get_metrics_registry,
+                                             publish_decoder,
+                                             publish_serving_health)
+from veles_tpu_torch.observe.tracing import (NULL_SPAN, TRACE_HEADER,
+                                             format_trace_header,
+                                             get_tracer, parse_trace_header)
+from veles_tpu_torch.observe.xla_stats import (get_compile_tracker,
+                                               track_owner)
 from veles_tpu_torch.parallel.decode import (SLOT_SPAN_TILE,
+                                             dispatch_flops,
                                              init_slot_state,
+                                             prefill_flops,
                                              quantize_params,
                                              request_key,
                                              slot_admit_many,
+                                             slot_state_bytes,
                                              slot_step_many)
 from veles_tpu_torch.parallel.kv_pool import (SCRATCH_PAGE, PagePool,
                                               _paged_restore,
@@ -76,6 +99,24 @@ from veles_tpu_torch.parallel.kv_pool import (SCRATCH_PAGE, PagePool,
                                               paged_admit_tail,
                                               paged_slot_step_many,
                                               pages_for)
+
+
+#: histogram buckets (seconds) of the decoder's host-blocking calls
+#: (``serving.py:61-62``)
+DECODE_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                  0.1, 0.25, 0.5, 1.0, 2.5, 10.0)
+
+#: histogram buckets (seconds) of the per-request latencies
+#: (``observe/slo.py:59-60``)
+LATENCY_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                   0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+
+
+def _tree_bytes(tree):
+    """Bytes of every tensor leaf of ``tree``."""
+    return sum(leaf.numel() * leaf.element_size()
+               for _, leaf in tree_leaves_with_path(tree)
+               if isinstance(leaf, torch.Tensor))
 
 
 def _dtype_name(dtype):
@@ -113,7 +154,17 @@ class ContinuousDecoder:
     Numerical contract: a request's greedy stream equals
     :func:`parallel.decode.generate` for its prompt up to f32
     round-off — the same sublayers, with the kernels attending in f32;
-    near-tied argmaxes may break differently."""
+    near-tied argmaxes may break differently.
+
+    Observability (``observe/``): each admission, dispatch and collect
+    opens a span parented to the first traced request it serves (the
+    ``trace=`` of :meth:`submit`), observes its
+    ``veles_decode_*_seconds`` histogram and notes itself in the flight
+    ring; a disabled tracer or registry costs one attribute check, and
+    the spans' writes stay outside the timed windows. While the device
+    truth is on, each dispatch pins its analytic FLOPs
+    (``decode.dispatch_flops``) and the wall time between chunk
+    completions of a busy decoder is its step for the MFU gauge."""
 
     def __init__(self, params, embed_table, heads, slots=4, max_len=512,
                  n_tokens=32, eos=None, temperature=0.0, top_k=0, seed=0,
@@ -217,6 +268,25 @@ class ContinuousDecoder:
         #: readbacks
         self.timings = {"admit_s": 0.0, "dispatch_s": 0.0,
                         "collect_s": 0.0}
+        #: requests cancelled before completion
+        self.cancelled = 0
+        #: the observe plane: the registry and tracer stay structural
+        #: no-ops until a /metrics mount or a tracer turns them on; the
+        #: flight ring is on (one flag check and an append a dispatch)
+        self.metrics = get_metrics_registry()
+        self._tracer = get_tracer()
+        self.flight = get_flight_recorder()
+        self._xla = get_compile_tracker()
+        self._last_chunk_done = None
+        self._trace = {}    # request id -> (trace_id, span_id)
+        #: recently retired trace contexts, bounded: the lag-1 pipeline
+        #: collects a request's last chunk one pass after it retires,
+        #: and that collect's span must still join the request's trace
+        self._done_trace = collections.OrderedDict()
+        # without a card, /metrics counts the bytes this decoder holds
+        track_owner(self, lambda dec: (
+            _tree_bytes((dec.params, dec.embed_table))
+            + slot_state_bytes(dec.state)))
 
     def _upload(self, array):
         """A host array as a tensor on the decoder's device, without a
@@ -270,9 +340,34 @@ class ContinuousDecoder:
             self.pool.flush_prefix_cache()
         return old
 
-    def submit(self, prompt_tokens, n_tokens=None):
+    def _span(self, name, rids, **attrs):
+        """A span parented to the first TRACED request among ``rids`` (a
+        batch dispatch serves many; one owns the span, all ride its
+        ``rids`` attribute, which is how a checker joins every other
+        request of the batch to it). Disabled: the shared null span, the
+        parent lookup skipped."""
+        if not self._tracer.enabled:
+            return NULL_SPAN
+        parent = next((self._trace[r] for r in rids if r in self._trace),
+                      None)
+        if parent is None:
+            parent = next((self._done_trace[r] for r in rids
+                           if r in self._done_trace), None)
+        return self._tracer.span(name, parent=parent, rids=list(rids),
+                                 **attrs)
+
+    def _retire_trace(self, rid):
+        trace = self._trace.pop(rid, None)
+        if trace is not None:
+            self._done_trace[rid] = trace
+            while len(self._done_trace) > 4 * self.slots + 8:
+                self._done_trace.popitem(last=False)
+
+    def submit(self, prompt_tokens, n_tokens=None, trace=None):
         """Queue one prompt (1-D int sequence); returns the request id.
-        It is admitted into a slot on a later step when one is free."""
+        It is admitted into a slot on a later step when one is free.
+        ``trace`` optionally carries the submitting request's
+        (trace_id, span_id), so the dispatch spans join its trace."""
         prompt = numpy.asarray(prompt_tokens, numpy.int64).reshape(-1)
         budget = n_tokens if n_tokens is not None else self.n_tokens
         if len(prompt) < 1:
@@ -285,6 +380,8 @@ class ContinuousDecoder:
         self._queue.append((rid, prompt, budget))
         self.results[rid] = []
         self._budget[rid] = budget
+        if trace is not None:
+            self._trace[rid] = trace
         return rid
 
     @property
@@ -316,6 +413,8 @@ class ContinuousDecoder:
         del self._budget[rid]
         self.results.pop(rid, None)
         self.admitted_at.pop(rid, None)
+        self._retire_trace(rid)
+        self.cancelled += 1
         return True
 
     def bucket_for(self, n):
@@ -345,17 +444,25 @@ class ContinuousDecoder:
             groups.setdefault(self.bucket_for(len(prompt)), []).append(
                 (rid, prompt, self._free.pop()))
         for bucket, group in groups.items():
-            started = time.perf_counter()
-            self.state = slot_admit_many(
-                self.params, self.heads, self.state,
-                self._upload(numpy.asarray([r[2] for r in group],
-                                           numpy.int64)),
-                self.embed_table[self._padded([r[1] for r in group],
-                                              bucket)],
-                self._upload(numpy.asarray([len(r[1]) for r in group],
-                                           numpy.int64)),
-                self._req_keys(group))
-            self._book_admit("admit", started, group)
+            # the host time booked is the inputs' upload and the call,
+            # as before the spans; the span's own writes stay outside it
+            t0 = time.perf_counter()
+            slots = self._upload(numpy.asarray([r[2] for r in group],
+                                               numpy.int64))
+            x = self.embed_table[self._padded([r[1] for r in group],
+                                              bucket)]
+            lengths = self._upload(numpy.asarray(
+                [len(r[1]) for r in group], numpy.int64))
+            keys = self._req_keys(group)
+            elapsed = time.perf_counter() - t0
+            with self._span("decode.admit", [r[0] for r in group],
+                            bucket=bucket, group=len(group)):
+                t0 = time.perf_counter()
+                self.state = slot_admit_many(self.params, self.heads,
+                                             self.state, slots, x,
+                                             lengths, keys)
+                elapsed += time.perf_counter() - t0
+            self._book_admit("admit", elapsed, group, bucket)
             now = time.monotonic()
             for rid, prompt, slot in group:
                 self._slot_req[slot] = rid
@@ -410,10 +517,37 @@ class ContinuousDecoder:
         return self._upload(request_key(
             self.seed, numpy.asarray([r[0] for r in group])).numpy())
 
-    def _book_admit(self, key, started, group):
-        self.timings["admit_s"] += time.perf_counter() - started
+    def _book_admit(self, kind, elapsed, group, bucket):
+        """The bookkeeping of one admission: timings, the dispatch tally,
+        the ``veles_decode_admit_seconds`` histogram, the flight ring and,
+        while the device truth is on, the prefill's FLOPs. ``kind`` is
+        the slab's ``"admit"`` (the JAX package books it unlabelled) or
+        the pool's ``"cold"``, ``"tail"`` or ``"hit"``; ``bucket`` the
+        prefill's width (0 for hits, which prefill nothing)."""
+        self.timings["admit_s"] += elapsed
+        key = "admit" if kind in ("admit", "cold") else "admit_" + kind
         self.dispatch_counts[key] += 1
         self.dispatch_counts["admit_requests"] += len(group)
+        ms = round(elapsed * 1000, 3)
+        if kind == "admit":
+            self.metrics.observe(
+                "veles_decode_admit_seconds", elapsed,
+                buckets=DECODE_BUCKETS,
+                help="host-blocking bucket-prefill dispatch time")
+            self.flight.note("admit", bucket=bucket, group=len(group),
+                             ms=ms)
+        else:
+            self.metrics.observe(
+                "veles_decode_admit_seconds", elapsed,
+                buckets=DECODE_BUCKETS, labels={"kind": kind},
+                help="host-blocking admission dispatch time")
+            self.flight.note("admit", family=kind, bucket=bucket,
+                             group=len(group), ms=ms)
+        if self._xla.enabled and bucket:
+            self._xla.set_program_flops(
+                {"admit": "decode.admit", "cold": "paged.admit",
+                 "tail": "paged.admit_tail"}[kind],
+                prefill_flops(self.params, len(group), bucket))
 
     def _seat(self, slot, rid, prompt, pages):
         """Give ``slot`` to request ``rid`` and publish its prompt's
@@ -441,18 +575,25 @@ class ContinuousDecoder:
         the per-row lengths keep invisible."""
         ps = self.page_size
         width = pages_for(max(len(r[1]) for r in group), ps) * ps
-        started = time.perf_counter()
-        self.state = paged_admit_many(
-            self.params, self.heads, self.state,
-            self._upload(numpy.asarray([r[2] for r in group], numpy.int64)),
-            self._padded([r[3] for r in group],
-                         max(len(r[3]) for r in group), SCRATCH_PAGE,
-                         numpy.int32),
-            self.embed_table[self._padded([r[1] for r in group], width)],
-            self._upload(numpy.asarray([len(r[1]) for r in group],
-                                       numpy.int64)),
-            self._req_keys(group))
-        self._book_admit("admit", started, group)
+        t0 = time.perf_counter()
+        args = (self._upload(numpy.asarray([r[2] for r in group],
+                                           numpy.int64)),
+                self._padded([r[3] for r in group],
+                             max(len(r[3]) for r in group), SCRATCH_PAGE,
+                             numpy.int32),
+                self.embed_table[self._padded([r[1] for r in group],
+                                              width)],
+                self._upload(numpy.asarray([len(r[1]) for r in group],
+                                           numpy.int64)),
+                self._req_keys(group))
+        elapsed = time.perf_counter() - t0
+        with self._span("paged.admit", [r[0] for r in group],
+                        bucket=width, group=len(group)):
+            t0 = time.perf_counter()
+            self.state = paged_admit_many(self.params, self.heads,
+                                          self.state, *args)
+            elapsed += time.perf_counter() - t0
+        self._book_admit("cold", elapsed, group, width)
         for rid, prompt, slot, pages in group:
             self._seat(slot, rid, prompt, pages)
 
@@ -465,35 +606,47 @@ class ContinuousDecoder:
         ps = self.page_size
         tails = [r[1][r[4]:] for r in group]
         width = pages_for(max(len(t) for t in tails), ps) * ps
-        started = time.perf_counter()
-        self.state = paged_admit_tail(
-            self.params, self.heads, self.state,
-            self._upload(numpy.asarray([r[2] for r in group], numpy.int64)),
-            self._upload(numpy.asarray([r[3]["pages"] for r in group],
-                                       numpy.int32)),
-            self._padded([r[5] for r in group],
-                         max(len(r[5]) for r in group), SCRATCH_PAGE,
-                         numpy.int32),
-            self.embed_table[self._padded(tails, width)],
-            self._upload(numpy.asarray([len(r[1]) for r in group],
-                                       numpy.int64)),
-            self._req_keys(group))
-        self._book_admit("admit_tail", started, group)
+        t0 = time.perf_counter()
+        args = (self._upload(numpy.asarray([r[2] for r in group],
+                                           numpy.int64)),
+                self._upload(numpy.asarray([r[3]["pages"] for r in group],
+                                           numpy.int32)),
+                self._padded([r[5] for r in group],
+                             max(len(r[5]) for r in group), SCRATCH_PAGE,
+                             numpy.int32),
+                self.embed_table[self._padded(tails, width)],
+                self._upload(numpy.asarray([len(r[1]) for r in group],
+                                           numpy.int64)),
+                self._req_keys(group))
+        elapsed = time.perf_counter() - t0
+        with self._span("paged.admit_tail", [r[0] for r in group],
+                        bucket=width, group=len(group),
+                        prefix_pages=len(group[0][3]["pages"])):
+            t0 = time.perf_counter()
+            self.state = paged_admit_tail(self.params, self.heads,
+                                          self.state, *args)
+            elapsed += time.perf_counter() - t0
+        self._book_admit("tail", elapsed, group, width)
         for rid, prompt, slot, entry, _, pages in group:
             self._seat(slot, rid, prompt, list(entry["pages"]) + pages)
 
     def _admit_hits(self, group):
         """Control rows only, from each entry's cached logits; the slot
         maps the entry's pages (retained by the lookup)."""
-        started = time.perf_counter()
-        self.state = paged_admit_hit(
-            self.state,
-            self._upload(numpy.asarray([r[2] for r in group], numpy.int64)),
-            self._upload(numpy.asarray([len(r[1]) for r in group],
-                                       numpy.int64)),
-            torch.stack([r[3]["logits"] for r in group]),
-            self._req_keys(group))
-        self._book_admit("admit_hit", started, group)
+        t0 = time.perf_counter()
+        args = (self._upload(numpy.asarray([r[2] for r in group],
+                                           numpy.int64)),
+                self._upload(numpy.asarray([len(r[1]) for r in group],
+                                           numpy.int64)),
+                torch.stack([r[3]["logits"] for r in group]),
+                self._req_keys(group))
+        elapsed = time.perf_counter() - t0
+        with self._span("paged.admit_hit", [r[0] for r in group],
+                        group=len(group)):
+            t0 = time.perf_counter()
+            self.state = paged_admit_hit(self.state, *args)
+            elapsed += time.perf_counter() - t0
+        self._book_admit("hit", elapsed, group, 0)
         now = time.monotonic()
         for rid, prompt, slot, entry in group:
             self._slot_req[slot] = rid
@@ -558,6 +711,7 @@ class ContinuousDecoder:
     def _retire(self, slot, rid):
         del self._budget[rid]
         self.admitted_at.pop(rid, None)
+        self._retire_trace(rid)
         if self._slot_req.get(slot) == rid:
             del self._slot_req[slot]
             self._free.append(slot)
@@ -597,6 +751,7 @@ class ContinuousDecoder:
         for slot in snapshot:
             self._slot_len[slot] += 1
         self.dispatch_counts["step"] += 1
+        self.flight.note("step", rids=list(snapshot.values()))
         emitted = emitted.cpu().numpy()
         out = {}
         for slot, rid in snapshot.items():
@@ -619,12 +774,26 @@ class ContinuousDecoder:
         if not self._slot_req:
             return None
         snapshot = dict(self._slot_req)
-        t0 = time.perf_counter()
-        emitted = self._advance(chunk)
-        self.timings["dispatch_s"] += time.perf_counter() - t0
+        program = "paged.dispatch" if self.paged else "decode.dispatch"
+        with self._span(program, list(snapshot.values()), chunk=chunk):
+            t0 = time.perf_counter()
+            emitted = self._advance(chunk)
+            elapsed = time.perf_counter() - t0
+        self.timings["dispatch_s"] += elapsed
+        self.metrics.observe(
+            "veles_decode_dispatch_seconds", elapsed,
+            buckets=DECODE_BUCKETS,
+            help="chunk enqueue (host-blocking dispatch) time")
+        if self._xla.enabled:
+            self._xla.set_program_flops(program, dispatch_flops(
+                self.params, self.slots,
+                [self._slot_len[s] for s in snapshot], chunk))
         for slot in snapshot:
             self._slot_len[slot] += chunk
         self.dispatch_counts["chunk"] += 1
+        self.flight.note("dispatch", chunk=chunk,
+                         rids=list(snapshot.values()),
+                         ms=round(elapsed * 1000, 3))
         return emitted, snapshot
 
     def collect_chunk(self, dispatched):
@@ -633,9 +802,27 @@ class ContinuousDecoder:
         requests retired or cancelled meanwhile are skipped, and tokens
         past a budget or ``eos`` are discarded."""
         emitted, snapshot = dispatched
-        t0 = time.perf_counter()
-        emitted = emitted.cpu().numpy()   # (chunk, slots)
-        self.timings["collect_s"] += time.perf_counter() - t0
+        with self._span("decode.collect", list(snapshot.values())):
+            t0 = time.perf_counter()
+            emitted = emitted.cpu().numpy()   # (chunk, slots)
+            elapsed = time.perf_counter() - t0
+        self.timings["collect_s"] += elapsed
+        self.metrics.observe(
+            "veles_decode_collect_seconds", elapsed,
+            buckets=DECODE_BUCKETS,
+            help="chunk readback (device sync) time")
+        self.flight.note("collect", chunk=int(emitted.shape[0]),
+                         ms=round(elapsed * 1000, 3))
+        if self._xla.enabled:
+            # online MFU: under the lag-1 pipeline the wall time between
+            # chunk completions is the steady per-chunk step time
+            done = time.monotonic()
+            if self._last_chunk_done is not None:
+                self._xla.observe_step(
+                    "paged.dispatch" if self.paged
+                    else "decode.dispatch",
+                    done - self._last_chunk_done)
+            self._last_chunk_done = done
         out = {}
         for slot, rid in snapshot.items():
             if rid not in self._budget:
@@ -650,6 +837,9 @@ class ContinuousDecoder:
             if self._budget[rid] <= 0 or (
                     tokens and tokens[-1] == self.eos):
                 self._retire(slot, rid)
+        if not self.busy:
+            # idle: the gap to the next burst's first chunk is no step
+            self._last_chunk_done = None
         return out
 
     def drain_pipelined(self, chunk, max_steps=100000, admit=None):
@@ -719,8 +909,10 @@ class ServingHealth:
     Latency windows (:meth:`record_latency`): ``ttft`` (staged to the
     first token on the host), ``tpot`` (time per output token after the
     first) and ``queue_wait`` (staged to admitted into a slot), exposed
-    as p50/p95 in milliseconds. The JAX package's SLO, governor and
-    serve-scope mirrors wait for the observe plane (A7)."""
+    as p50/p95 in milliseconds, published on ``/metrics`` by
+    ``observe/metrics.publish_serving_health``; each breaker transition
+    is noted in the flight ring. The JAX package's SLO and serve-scope
+    mirrors wait for ROADMAP A7 (b), its governor for A7 (c)."""
 
     COUNTERS = ("admitted", "completed", "rejected", "expired", "shed",
                 "trips", "rebuilds", "errors")
@@ -754,6 +946,9 @@ class ServingHealth:
     def set_breaker(self, state):
         with self._lock:
             self._breaker = state
+        # breaker transitions are what a post-mortem wants in the black
+        # box (a bounded, lock-free append)
+        get_flight_recorder().note("breaker", state=state, api=self.name)
 
     def incr(self, key, n=1):
         with self._lock:
@@ -931,7 +1126,15 @@ class GenerateAPI:
 
     Every knob left None reads its default from ``root.common.serve``
     (``serving.py:2215-2325``); a bad server deadline is refused before
-    the decoder is built."""
+    the decoder is built.
+
+    Observability: ``GET /metrics`` (the health and decoder bridges and
+    the device truth) and ``GET /debug/``; an ``X-Veles-Trace`` request
+    header continues into the ``serve.request`` span, whose context rides
+    the request to the driver (``serve.submit``, ``serve.expire``,
+    ``serve.complete`` events, the decoder's spans) and is echoed in the
+    reply's header; a breaker trip notes ``breaker.trip`` and dumps the
+    black box before it sheds."""
 
     #: extra handler-side wait beyond a request's deadline before the
     #: handler gives up on the driver (a wedged driver's backstop)
@@ -1036,6 +1239,27 @@ class GenerateAPI:
         if reserved:
             holder["pool"].unreserve(reserved)
         self.health.release(outcome)
+        registry = get_metrics_registry()
+        if registry.enabled and "first_token" in holder:
+            # once per request, never on the token path: the latency
+            # histograms with the request's trace id as the exemplar
+            trace = holder.get("trace")
+            exemplar = ({"trace_id": trace[0]} if trace and trace[0]
+                        else None)
+            labels = {"api": self.health.name}
+            registry.observe(
+                "veles_request_ttft_seconds",
+                max(0.0, holder["first_token"] - holder["staged_at"]),
+                labels=labels, buckets=LATENCY_BUCKETS, exemplar=exemplar,
+                help="per-request time to first token (exemplars link "
+                     "buckets to trace ids on openmetrics scrapes)")
+            if holder.get("tpot") is not None:
+                registry.observe(
+                    "veles_request_tpot_seconds", holder["tpot"],
+                    labels=labels, buckets=LATENCY_BUCKETS,
+                    exemplar=exemplar,
+                    help="per-request time per output token from the "
+                         "chunk collect cadence")
         holder["event"].set()
 
     def _stage(self, prompt, budget, holder):
@@ -1084,10 +1308,13 @@ class GenerateAPI:
                     # and found nothing to release: release it here
                     holder["pool"].unreserve(reserved)
             try:
-                rid = self.decoder.submit(prompt, budget)
+                rid = self.decoder.submit(prompt, budget,
+                                          trace=holder.get("trace"))
             except ValueError as exc:
                 self._resolve(holder, "errors", error=str(exc), code=400)
                 continue
+            get_tracer().event("serve.submit",
+                               parent=holder.get("trace"), rid=rid)
             waiting[rid] = holder
         return waiting
 
@@ -1114,14 +1341,24 @@ class GenerateAPI:
                     if now >= h["deadline"]]:
             holder = waiting.pop(rid)
             self.decoder.cancel(rid)
+            get_tracer().event("serve.expire",
+                               parent=holder.get("trace"), rid=rid)
             self._resolve(holder, "expired", error="deadline exceeded",
                           code=504)
 
     def _trip(self, exc, waiting):
         """Open the circuit: the decoder's state is not trusted after a
-        fault. Everyone staged and in flight is shed now with a
-        retryable 503, and a pending swap resolves with the trip. (The
-        JAX package's flight-recorder dump here waits for A7.)"""
+        fault. The flight recorder notes ``breaker.trip`` and dumps its
+        black box FIRST, while the ring still holds the dispatches and
+        spans that led here; then everyone staged and in flight is shed
+        with a retryable 503, and a pending swap resolves with the
+        trip."""
+        flight = get_flight_recorder()
+        flight.note("breaker.trip", error=str(exc)[:500],
+                    inflight=len(waiting))
+        flight.dump("breaker_trip",
+                    extra={"error": str(exc)[:2000],
+                           "health": self.health.snapshot()})
         self.health.incr("trips")
         self.health.set_breaker("open")
         self.health.set_ready(False)
@@ -1137,7 +1374,7 @@ class GenerateAPI:
         """The decoder's construction kwargs at the tier in effect: the
         configured one, as the governor that would pick another (and
         with it a rebuild that leaves the prefix cache behind) waits for
-        A7."""
+        ROADMAP A7 (c)."""
         return dict(self._decoder_kwargs)
 
     def _build_probed_decoder(self, kwargs):
@@ -1182,7 +1419,7 @@ class GenerateAPI:
         decoder: its page shadows are captured here, from the dying
         decoder, and handed on, so the new pool restores them by copy.
         Returns True on success. (The JAX package's memory-scope edge
-        around this seam waits for A7.)"""
+        around this seam waits for ROADMAP A7 (b).)"""
         capture_s = 0.0
         try:
             kwargs = self._governed_kwargs()
@@ -1257,9 +1494,10 @@ class GenerateAPI:
         poisoned checkpoint, swap, probe the new weights end to end, and
         on any failure put the old pair back from the one-slot stash.
         Nothing is shed on either path: the staged queue held while the
-        swap was pending and drains into whichever weights won. (The
-        JAX package's flight-recorder and memory-scope notes wait for
-        A7.)"""
+        swap was pending and drains into whichever weights won. Both
+        outcomes are noted in the flight ring (``deploy.swap_refused``,
+        ``deploy.swap``); the JAX package's memory-scope edge waits for
+        ROADMAP A7 (b)."""
         started = time.perf_counter()
         new_params = holder["params"]
         new_table = holder.get("embed_table")
@@ -1301,6 +1539,9 @@ class GenerateAPI:
                     self.request_trip("weight-swap rollback failed: %s"
                                       % restore_exc)
             self.health.incr("swap_failures")
+            get_flight_recorder().note(
+                "deploy.swap_refused", error=str(exc)[:200],
+                version=str(holder.get("version")))
             holder["error"] = ("swap refused, old weights serving: %s"
                                % exc)
             holder["event"].set()
@@ -1320,6 +1561,7 @@ class GenerateAPI:
         self.version = holder.get("version")
         self.decoder.version = self.version
         self.health.incr("param_swaps")
+        get_flight_recorder().note("deploy.swap", version=str(self.version))
         holder["event"].set()
         return True
 
@@ -1345,9 +1587,12 @@ class GenerateAPI:
             if decoder.done(rid):
                 tokens = decoder.results.pop(rid)
                 if len(tokens) > 1:
-                    self.health.record_latency(
-                        "tpot", (now - holder["first_token"])
-                        / (len(tokens) - 1))
+                    holder["tpot"] = ((now - holder["first_token"])
+                                      / (len(tokens) - 1))
+                    self.health.record_latency("tpot", holder["tpot"])
+                get_tracer().event("serve.complete",
+                                   parent=holder.get("trace"), rid=rid,
+                                   tokens=len(tokens))
                 self._resolve(waiting.pop(rid), "completed",
                               tokens=tokens)
 
@@ -1458,8 +1703,13 @@ class GenerateAPI:
                              % (len(prompt), limit, self.decoder.max_len))
         return prompt, budget, float(deadline_s)
 
-    def _serve(self, handler, prompt, budget, deadline_s):
-        """Admission, staging and the reply of one validated request."""
+    def _serve(self, handler, prompt, budget, deadline_s, span=NULL_SPAN,
+               trace_hint=None):
+        """Admission, staging and the reply of one validated request.
+        ``span`` is its ``serve.request`` span: its context rides the
+        holder to the driver and is echoed in ``X-Veles-Trace``; with
+        tracing off the client's trace id (``trace_hint``) still rides
+        the holder, so the latency exemplars link to it."""
         from veles_tpu_torch.core.httpd import reply, retry_after_headers
 
         booked = {}
@@ -1496,8 +1746,11 @@ class GenerateAPI:
                       1, round(verdict[1]))})
             return
         staged_at = time.monotonic()
+        trace = span.context()
+        if trace is None and trace_hint:
+            trace = (trace_hint, None)
         holder = {"event": threading.Event(), "staged_at": staged_at,
-                  "deadline": staged_at + deadline_s}
+                  "deadline": staged_at + deadline_s, "trace": trace}
         if booked.get("reserved"):
             holder["pool"] = booked["pool"]
             holder["pool_reserved"] = booked["need"]
@@ -1509,13 +1762,21 @@ class GenerateAPI:
         # in-flight gauge up to max_queue
         if not holder["event"].wait(deadline_s + self.BACKSTOP_GRACE):
             self._resolve(holder, "errors", error="timed out", code=503)
+        headers = {}
+        echoed = format_trace_header(span.context())
+        if echoed:
+            # the client finds its request in the exported timeline
+            headers[TRACE_HEADER] = echoed
         if "error" in holder:
             code = holder.get("code", 400)
+            span.annotate(outcome="error", code=code)
+            if code in (429, 503):
+                headers.update(retry_after_headers(self.health))
             reply(handler, {"error": holder["error"]}, code=code,
-                  headers=(retry_after_headers(self.health)
-                           if code in (429, 503) else None))
+                  headers=headers)
             return
-        reply(handler, {"tokens": holder["tokens"]})
+        span.annotate(outcome="completed", tokens=len(holder["tokens"]))
+        reply(handler, {"tokens": holder["tokens"]}, headers=headers)
 
     def start(self):
         """Start the HTTP server and the driver thread; returns self
@@ -1524,13 +1785,24 @@ class GenerateAPI:
 
         from veles_tpu_torch.core.httpd import (BodyTooLarge,
                                                 QuietHandlerMixin,
-                                                read_body, reply,
-                                                serve_health, start_server)
+                                                enable_metrics, read_body,
+                                                reply, serve_debug_index,
+                                                serve_health, serve_metrics,
+                                                start_server)
 
         api = self
+        # /metrics: the health counters and the decoder's dispatch and
+        # timing state through weak scrape-time bridges; the decoder is
+        # read THROUGH the api, so a breaker rebuild swaps the source
+        registry = enable_metrics()
+        bridge(registry, self.health, publish_serving_health)
+        bridge(registry, self,
+               lambda reg, live: publish_decoder(reg, live.decoder))
 
         class Handler(QuietHandlerMixin, BaseHTTPRequestHandler):
             def do_GET(self):
+                if serve_metrics(self) or serve_debug_index(self):
+                    return
                 if not serve_health(self, api.health):
                     self.send_error(404)
 
@@ -1547,7 +1819,13 @@ class GenerateAPI:
                 except (ValueError, TypeError, KeyError) as exc:
                     reply(self, {"error": str(exc)}, code=400)
                     return
-                api._serve(self, prompt, budget, deadline_s)
+                # continue the caller's trace (or root a new one); the
+                # span covers admission, staging and the reply
+                parent = parse_trace_header(self.headers.get(TRACE_HEADER))
+                with get_tracer().span("serve.request",
+                                       parent=parent) as span:
+                    api._serve(self, prompt, budget, deadline_s, span,
+                               parent[0] if parent else None)
 
         self._stop.clear()
         with self._stage_lock:
@@ -1767,9 +2045,11 @@ class RESTfulAPI(Unit):
     400 for a malformed body, 413 past ``max_body`` bytes, 429 with
     Retry-After while the serving minibatch is full, 503 with
     Retry-After while not ready or when no tick answers within
-    ``RESPONSE_TIMEOUT``; ``/healthz`` and ``/readyz``. The JAX
-    package's metrics bridge and request-ledger rows wait for the
-    observe plane (ROADMAP A7)."""
+    ``RESPONSE_TIMEOUT``; ``/healthz``, ``/readyz``, ``/metrics`` (the
+    health bridge) and ``/debug/``; each POST runs in a
+    ``restful.request`` span that continues an ``X-Veles-Trace``
+    header. The JAX package's request-ledger rows wait for ROADMAP A7
+    (b)."""
 
     VIEW_GROUP = "SERVICE"
     #: handler threads give up after this long without a tick
@@ -1804,11 +2084,14 @@ class RESTfulAPI(Unit):
         from http.server import BaseHTTPRequestHandler
         from veles_tpu_torch.core.httpd import (MAX_BODY, BodyTooLarge,
                                                 QuietHandlerMixin,
-                                                read_body, serve_health,
+                                                enable_metrics, read_body,
+                                                serve_debug_index,
+                                                serve_health, serve_metrics,
                                                 start_server)
 
         api = self
         limit = self.max_body or MAX_BODY
+        bridge(enable_metrics(), self.health, publish_serving_health)
 
         class Handler(QuietHandlerMixin, BaseHTTPRequestHandler):
             def do_POST(self):
@@ -1819,9 +2102,15 @@ class RESTfulAPI(Unit):
                     raw = read_body(self, limit=limit)
                 except BodyTooLarge:
                     return  # 413 already sent, nothing buffered
-                api.serve(self, raw)
+                with get_tracer().span(
+                        "restful.request",
+                        parent=parse_trace_header(
+                            self.headers.get(TRACE_HEADER))):
+                    api.serve(self, raw)
 
             def do_GET(self):
+                if serve_metrics(self) or serve_debug_index(self):
+                    return
                 if not serve_health(self, api.health):
                     self.send_error(404)
 

@@ -36,9 +36,10 @@ never advances a stream, and ``before_step`` rolls ``slow_step`` before
 ``step_fail``.
 
 The JAX package's compile-storm, waste, green-ramp and pool-leak
-profiles feed its observe plane (compile tracker, serve scope, memory
-scope) and its blue-green rollout, which the port does not have yet: a
-knob of one of them raises ValueError naming the profile.
+profiles feed what acts on the observe plane's hooks (the serve and
+memory scopes, the governor's storm sensing) and its blue-green rollout,
+which arrive with ROADMAP A7 (c): a knob of one of them raises
+ValueError naming the profile.
 
 Configuration: ``root.common.serve.chaos.*`` (:meth:`from_config`).
 """
@@ -99,8 +100,8 @@ class ServingChaosConfig(ChaosConfigBase):
             if set_:
                 raise ValueError(
                     "the %s chaos profile is not yet ported: it feeds "
-                    "the observe plane or the blue-green rollout, which "
-                    "the port does not have" % profile)
+                    "the observe plane's scopes or the blue-green "
+                    "rollout (ROADMAP A7 (c))" % profile)
         self._set_probabilities(
             step_fail=step_fail, slow_step=slow_step,
             disconnect=disconnect, garbage_body=garbage_body,
