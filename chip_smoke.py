@@ -234,7 +234,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    launches a decode step equal); and the wide MLP through the CLI with
    ``--trace-events`` (knobs on, 1 epoch: a ``unit.run`` span for every
    firing of every unit) and again killed by SIGTERM after its first
-   span (a ``sigterm`` black box, the previous handler ran).
+   span (a ``sigterm`` black box, the previous handler ran). Phases 2-18
+   also hold the serving hooks off (the request ledger, the serve scope,
+   memscope's edges), and phase 19 runs without a metric history.
+
+20. (run after phase 19) the observe plane's serving hooks at the serving
+   model's width: the paged int8 burst (K1 + K2, 8 x 32 tokens) through
+   HTTP inside the profiler window, every POST with a trace id and one
+   of two tenants, the objectives ttft_p95_ms, tpot_p95_ms=0.5 (out of
+   reach on this host-bound path) and availability=0.999, the metric
+   history sampling every 0.2 s with a tight rule pair: every
+   ``/debug/requests`` row holds the whole waterfall, its tenant and
+   trace, live dispatches equal to the decoder's count for its request
+   and 32 chunk tokens; ``veles_slo_*`` carry both tenants, tpot burns,
+   availability holds at 1.0; the serve scope's ``tile_pad``,
+   ``dead_slot``, ``discard`` and useful decode tokens equal counts from
+   the request lengths (``group_dup`` and ``page_overshoot`` 0); the
+   wall decomposition printed beside the card's kernel time in the
+   profile (the busy share); ``/debug/history`` serves the latency
+   series and an incident names ``veles_serving_latency_ms`` leading
+   ``slo_burn``; ``observe slo --live``, ``observe serve-trace`` (one row
+   per slot used) and ``observe incident`` exit 0. The dense int8-KV
+   slab (K4 + K2) driven directly: ``span_overshoot`` against its count
+   from the lengths. memscope in a fresh process (the parent's allocator
+   holds the earlier phases): ``params``, ``kv_pool`` and
+   ``decode_state`` equal counts from the widths, the untagged residue
+   printed; a trip and rebuild and a hot swap give no verdict, a second
+   trip while a reference holds the old pool and its state gives one
+   naming ``kv_pool`` and a black box ``observe blackbox`` reads. Then
+   the int8 burst in ``scripts/observe_cost.py``'s ``default``,
+   ``ledger_off`` and ``history`` settings, ABBA, four each after a
+   warm-up: medians printed, no gate; K1 4 and K2 17 launches a decode
+   step in every run.
 
 Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
 8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
@@ -248,6 +279,7 @@ non-zero before printing either.
 import base64
 import contextlib
 import gc
+import glob
 import gzip
 import heapq
 import http.client
@@ -296,9 +328,18 @@ from veles_tpu_torch.nn.kohonen import grid_coords, som_step
 from veles_tpu_torch.models.mlp import MLPWorkflow
 from veles_tpu_torch.models.standard import StandardWorkflow
 from veles_tpu_torch.nn.decision import DecisionGD
+from veles_tpu_torch.observe import servescope as servescope_mod
 from veles_tpu_torch.observe.flight import get_flight_recorder, load_dump
+from veles_tpu_torch.observe.history import (AnomalyRule, IncidentRecorder,
+                                             MetricHistory,
+                                             set_metric_history)
+from veles_tpu_torch.observe.memscope import get_memscope
 from veles_tpu_torch.observe.metrics import get_metrics_registry
 from veles_tpu_torch.observe.profile import profile_window
+from veles_tpu_torch.observe.reqledger import (RequestLedger,
+                                               get_request_ledger)
+from veles_tpu_torch.observe.servescope import ServeScope, get_serve_scope
+from veles_tpu_torch.observe.slo import SLOEngine
 from veles_tpu_torch.observe.trace_export import span_tree
 from veles_tpu_torch.observe.tracing import get_tracer
 from veles_tpu_torch.observe.xla_stats import (get_compile_tracker,
@@ -333,7 +374,8 @@ from veles_tpu_torch.parallel.decode import (_prefill_forward,
                                              _quantize_kv, generate,
                                              quantize_params, request_key,
                                              slot_state_bytes)
-from veles_tpu_torch.parallel.kv_pool import paged_kv_bytes
+from veles_tpu_torch.parallel.kv_pool import (default_pool_pages,
+                                              paged_kv_bytes)
 from veles_tpu_torch.parallel.segments import FusedSegment
 from veles_tpu_torch.parallel.sweep import FusedSweep
 from veles_tpu_torch.parallel.transformer_step import (
@@ -4942,20 +4984,35 @@ def planes(on):
         plane.enabled = on
 
 
+def serving_hooks(on):
+    """The serving hooks that are on by default: the request ledger, the
+    serve scope and memscope's lifecycle edges."""
+    for plane in (get_request_ledger(), get_serve_scope(), get_memscope()):
+        plane.enabled = on
+
+
 def hold_planes_off():
     """Phases 1-18 run with every observe plane off, as they ran before
     phase 19: the serving fronts' ``enable_metrics`` (core/httpd.py) hands
-    back the registry without enabling it or the device truth, and the
-    flight ring is off. Returns what :func:`release_planes` restores."""
+    back the registry without enabling it, the device truth or the
+    history's sampler, and the flight ring, the request ledger, the serve
+    scope and memscope's edges are off. Returns what
+    :func:`release_planes` restores."""
     real = httpd.enable_metrics
-    httpd.enable_metrics = get_metrics_registry
+    httpd.enable_metrics = lambda holder=None: get_metrics_registry()
     planes(False)
+    serving_hooks(False)
     return real
 
 
 def release_planes(real):
+    """Phase 19 as before phase 20: the planes back, the serving hooks
+    on (their defaults), and no metric history (phase 19's readings stay
+    those of the planes it measures)."""
     httpd.enable_metrics = real
     get_flight_recorder().enabled = True
+    serving_hooks(True)
+    set_metric_history(None)
 
 
 def scrape(port, openmetrics=False):
@@ -5504,6 +5561,608 @@ def observe_phase(device, prompts):
     return launches
 
 
+# -- phase 20: the observe plane's serving hooks -------------------------------
+
+#: phase 20's objectives: a ttft the burst meets, a tpot it cannot meet on
+#: this host-bound path (0.5 ms a token), and availability
+HOOKS_SLO = "ttft_p95_ms=10000,tpot_p95_ms=0.5,availability=0.999"
+HOOKS_TENANTS = ("tenant-a", "tenant-b")
+#: the metric history's cadence in phase 20 (seconds)
+HOOKS_INTERVAL_S = 0.2
+#: the waterfall of a paged request, in order
+PAGED_WATERFALL = ["staged", "pool_gated", "admitted", "first_token",
+                   "resolved"]
+#: phase 20's cost runs (``scripts/observe_cost.py``'s settings), after a
+#: discarded warm-up run, ABBA around ``default`` (the planes as
+#: ``start()`` leaves them, the history's sampler off): ``ledger_off``
+#: (the ledger and the scope off) and ``history`` (the sampler at its 1 s
+#: default), four runs each
+HOOKS_COST_ORDER = ("default", "ledger_off", "history", "history",
+                    "ledger_off", "default", "default", "ledger_off",
+                    "history", "history", "ledger_off", "default")
+
+
+def lane_positions(lengths):
+    """The live positions each request's lanes reach on the lag-1 path: a
+    request admitted at prompt length L rides N_TOKENS / CHUNK chunks and
+    the one more dispatched before its last chunk is collected, so its
+    lane is live to L + m at its m-th step, m = 1 .. N_TOKENS + CHUNK."""
+    return [[n + m for m in range(1, N_TOKENS + CHUNK + 1)]
+            for n in lengths]
+
+
+def tile_pad_count(lengths, page):
+    """The paged kernels' last-page residual from the request lengths
+    alone: ``ceil(p / page) * page - p`` for every live position p."""
+    return sum(-(-p // page) * page - p
+               for lane in lane_positions(lengths) for p in lane)
+
+
+def span_overshoot_count(lengths, tile, max_len):
+    """The slab's span overshoot of a burst admitted in one dispatch,
+    from the request lengths alone: dispatch j attends the tile-rounded
+    longest live sequence plus its CHUNK appends; every live lane-step
+    attends that span past its own position."""
+    total = 0
+    for j in range(N_TOKENS // CHUNK + 1):
+        top = max(lengths) + CHUNK * j + CHUNK
+        span = min(-(-top // tile) * tile, max_len)
+        total += sum(max(0, span - (n + CHUNK * j + i)) for n in lengths
+                     for i in range(1, CHUNK + 1))
+    return total
+
+
+def kernel_busy_ms(path):
+    """The card's busy time in a profile: the union of the kernels'
+    intervals, in ms, and the kernel count."""
+    with open(path) as fin:
+        events = json.load(fin)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "kernel")
+    busy, end = 0.0, None
+    for start, stop in spans:
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy / 1e3, len(spans)
+
+
+def hooks_burst(params, table, prompts, device, out):
+    """The paged int8 burst (K1 + K2) through HTTP with the serving hooks
+    checked: every POST with a trace id and one of two tenants, the SLO
+    objectives of :data:`HOOKS_SLO`, a fresh serve scope, the metric
+    history at :data:`HOOKS_INTERVAL_S` with a tight rule pair, the burst
+    inside the profiler window. Returns the launches, the /debug/serve
+    and /debug/history payloads' paths, the slowest incident and the
+    processes of the CLI checks it started (still running)."""
+    run_dir = os.path.join(out, "run")
+    scope = ServeScope()
+    real_scope, servescope_mod._serve_scope = (servescope_mod._serve_scope,
+                                               scope)
+    history = MetricHistory(
+        registry=get_metrics_registry(), interval_s=HOOKS_INTERVAL_S,
+        incidents=IncidentRecorder(cooldown_s=0.0, directory=run_dir))
+    history.rules = [
+        # the fault's own series: the ttft window is fed at the first
+        # token, the burn only at each resolve
+        AnomalyRule("ttft_p95_high", "veles_serving_latency_ms",
+                    match={"kind": "ttft", "quantile": "p95"},
+                    kind="threshold", op=">=", threshold=1.0,
+                    for_samples=1, cooldown_s=600.0),
+        AnomalyRule("slo_burn", "veles_slo_burn_rate", kind="threshold",
+                    op=">=", threshold=2.0, for_samples=2,
+                    cooldown_s=600.0)]
+    set_metric_history(history)
+    # the waste autopsy's own rules stay out of the pair: their first
+    # evaluation waits for more dispatched tokens than a run sends
+    min_eval, servescope_mod.MIN_EVAL_TOKENS = (
+        servescope_mod.MIN_EVAL_TOKENS, 1 << 62)
+    ledger = RequestLedger()
+    try:
+        api = GenerateAPI(params, table, HEADS, slots=SLOTS,
+                          max_len=MAX_LEN, n_tokens=N_TOKENS, chunk=CHUNK,
+                          paged=True, page_size=PAGE, quantize="int8",
+                          slo=SLOEngine(HOOKS_SLO), ledger=ledger,
+                          device=device).start()
+    finally:
+        servescope_mod._serve_scope = real_scope
+    delivered = {}
+    collect = api.decoder.collect_chunk
+
+    def counted(dispatched):
+        got = collect(dispatched)
+        for rid, tokens in got.items():
+            if tokens:
+                delivered[rid] = delivered.get(rid, 0) + 1
+        return got
+    api.decoder.collect_chunk = counted
+    url = "http://127.0.0.1:%d" % api.port
+    ids = ["%04x%04x" % (0x5e1f, i) for i in range(len(prompts))]
+    try:
+        post(api.port, prompts[0][:min(16, PAGE - 1)], CHUNK)
+        torch.cuda.synchronize()
+        chunks0 = api.decoder.dispatch_counts["chunk"]
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        streams = [None] * len(prompts)
+
+        def client(i):
+            req = urllib.request.Request(
+                url + "/generate", data=json.dumps(
+                    {"tokens": prompts[i], "n_tokens": N_TOKENS}).encode(),
+                headers={"X-Veles-Trace": "%s/%s" % (ids[i], CLIENT_SPAN),
+                         "X-Veles-Tenant":
+                             HOOKS_TENANTS[i % len(HOOKS_TENANTS)]})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                streams[i] = json.loads(resp.read().decode())["tokens"]
+
+        with profile_window(os.path.join(out, "hooks_profile")) as trace:
+            # the scope's wall from here: the profiler's start-up is no
+            # part of the burst
+            scope.reset()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(prompts))]
+            for thread in threads:
+                thread.start()
+            for thread in threads:
+                thread.join(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            # the burst's wall: the profiler's export is no part of it
+            seconds = dict(scope.seconds)
+        launches = counts()
+        chunks = api.decoder.dispatch_counts["chunk"] - chunks0
+        # the history samples on its own thread: give the burn rule its
+        # second breaching sample
+        deadline = time.monotonic() + 20 * HOOKS_INTERVAL_S
+        while time.monotonic() < deadline and not any(
+                r.name == "slo_burn" and r.fired_total for r in
+                history.rules):
+            time.sleep(HOOKS_INTERVAL_S / 2)
+
+        def fetch(path):
+            with urllib.request.urlopen(url + path, timeout=60) as resp:
+                return resp.read().decode()
+        requests = json.loads(fetch("/debug/requests?n=64"))
+        serve_payload = fetch("/debug/serve")
+        series = json.loads(fetch("/debug/history?series="
+                                  "veles_serving_latency_ms"))
+        metrics = fetch("/metrics")
+        health = json.loads(fetch("/healthz"))
+        serve_path = os.path.join(out, "serve.json")
+        with open(serve_path, "w") as fout:
+            fout.write(serve_payload)
+        incident = next((path for path in sorted(glob.glob(os.path.join(
+            run_dir, "incident-*-slo_burn-*.json")))), None)
+        clis = {"slo --live": ["slo", "--live", url, "--slowest", "3"],
+                "serve-trace": ["serve-trace", serve_path, "-o",
+                                os.path.join(out, "serve.trace.json")],
+                "incident": ["incident", incident or run_dir]}
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "veles_tpu_torch", "observe"] + argv,
+            cwd=REPO_DIR, env=port_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for name, argv in clis.items()}
+        for proc in procs.values():
+            proc.wait(timeout=300)
+    finally:
+        api.stop()
+        set_metric_history(None)
+        servescope_mod.MIN_EVAL_TOKENS = min_eval
+    if any(s is None or len(s) != N_TOKENS for s in streams):
+        raise AssertionError("the hooks burst answered %s" % (streams,))
+    busy_ms, kernels = kernel_busy_ms(trace)
+    print("hooks burst (paged int8, %d requests x %d tokens, traced "
+          "tenants %s, in the profiler window): %.3f s, %d chunks; wall by "
+          "the serve scope: prefill %.1f ms, decode %.1f ms, host %.1f ms, "
+          "idle %.1f ms; the card's kernels %d, busy %.1f ms = %.1f%% of "
+          "the burst" % (
+              len(prompts), N_TOKENS, "/".join(HOOKS_TENANTS), wall, chunks,
+              1e3 * seconds["prefill_compute"],
+              1e3 * seconds["decode_compute"], 1e3 * seconds["host"],
+              1e3 * seconds["idle"], kernels, busy_ms,
+              100.0 * busy_ms / (1e3 * wall)))
+    check_hooks_rows(requests, ids, delivered)
+    check_slo(metrics, health)
+    lengths = [len(p) for p in prompts]
+    check_scope(scope, lengths, chunks, paged=True,
+                tile_pad=tile_pad_count(lengths, PAGE))
+    check_history(history, series, incident)
+    check_hooks_clis(procs, json.loads(serve_payload),
+                     os.path.join(out, "serve.trace.json"))
+    steps = chunks * CHUNK
+    if launches["paged_attend"] < BLOCKS * steps \
+            or launches["int8_matmul"] < sum(K2_PER_STEP) * steps:
+        raise AssertionError("the hooks burst launched %s over %d steps"
+                             % (launches, steps))
+    return launches
+
+
+def check_hooks_rows(requests, ids, delivered):
+    """Every row of the burst: the whole paged waterfall, its tenant and
+    trace id, live dispatches equal to the decoder's count for its
+    request (its admission and each chunk collected with its tokens),
+    chunk tokens adding up to N_TOKENS."""
+    rows = {row["trace"]: row for row in requests["slowest"]
+            if row.get("trace") in ids}
+    if sorted(rows) != sorted(ids) or requests["inflight"]:
+        raise AssertionError("/debug/requests rows %s, in flight %d"
+                             % (sorted(rows), len(requests["inflight"])))
+    for i, trace in enumerate(ids):
+        row = rows[trace]
+        stages = [stage for stage, _ in row["stages"]]
+        want = {"stages": PAGED_WATERFALL,
+                "tenant": HOOKS_TENANTS[i % len(HOOKS_TENANTS)],
+                "live": 1 + delivered.get(row["rid"], -1),
+                "tokens": N_TOKENS, "aot": 0, "outcome": "completed"}
+        got = {"stages": stages, "tenant": row["tenant"],
+               "live": row["dispatches"]["live"],
+               "tokens": sum(chunk[1] for chunk in row["chunks"]),
+               "aot": row["dispatches"]["aot"], "outcome": row["outcome"]}
+        if got != want:
+            raise AssertionError("row %s: %s, want %s" % (trace, got, want))
+    walls = sorted(row["wall_ms"] for row in rows.values())
+    print("ledger: %d rows, each %s, tenants %s, live dispatches %s, wall "
+          "%.1f-%.1f ms" % (
+              len(rows), "->".join(PAGED_WATERFALL),
+              sorted({row["tenant"] for row in rows.values()}),
+              sorted(row["dispatches"]["live"] for row in rows.values()),
+              walls[0], walls[-1]))
+
+
+def check_slo(metrics, health):
+    """The SLO gauges carry both tenants' slices, the unmeetable tpot
+    objective burns, availability holds at 1.0."""
+    def aggregate(name, objective):
+        (value,) = [v for labels, v, _ in samples(metrics, name)
+                    if labels == {"objective": objective, "window": "60s"}]
+        return value
+
+    burn = aggregate("veles_slo_burn_rate", "tpot_p95_ms")
+    available = [v for labels, v, _ in samples(metrics,
+                                              "veles_slo_objective_ratio")
+                 if labels.get("objective") == "availability"]
+    tenants = {labels.get("tenant") for labels, _, _ in
+               samples(metrics, "veles_slo_burn_rate")} - {None}
+    ttft = aggregate("veles_slo_objective_ratio", "ttft_p95_ms")
+    print("SLO: tpot burn %.3f (60s), ttft ratio %.3f, availability %s, "
+          "tenant slices %s; /healthz slo %s" % (
+              burn, ttft, sorted(set(available)), sorted(tenants),
+              health.get("slo")))
+    if not burn > 0 or set(available) != {1.0} \
+            or tenants != set(HOOKS_TENANTS):
+        raise AssertionError("SLO gauges: burn %r, availability %r, "
+                             "tenants %r" % (burn, available, tenants))
+
+
+def check_scope(scope, lengths, chunks, paged, tile_pad=0, overshoot=0):
+    """The scope's tallies against the independent counts: ``tile_pad``
+    (pool) or ``span_overshoot`` (slab) from the request lengths,
+    ``dead_slot`` the empty lane-steps of the chunks dispatched, useful
+    decode tokens the tokens delivered, ``discard`` the lag-1 tails, no
+    ``group_dup`` and no page overshoot."""
+    live = len(lengths) * (N_TOKENS + CHUNK)
+    want = {"tile_pad": tile_pad, "span_overshoot": overshoot,
+            "dead_slot": chunks * SLOTS * CHUNK - live,
+            "discard": live - len(lengths) * N_TOKENS,
+            "group_dup": 0, "page_overshoot": 0}
+    got = {cause: scope.waste[cause] for cause in want}
+    useful = scope.useful["decode"]
+    print("serve scope (%s): waste %s, useful %s, goodput %.4f, occupancy "
+          "%.4f; independent counts %s" % (
+              "paged" if paged else "dense", dict(scope.waste),
+              dict(scope.useful), scope.goodput_summary()["fraction"],
+              scope.occupancy()["fraction"], want))
+    if got != want or useful != len(lengths) * N_TOKENS:
+        raise AssertionError("scope %s, useful %d; want %s, %d" % (
+            got, useful, want, len(lengths) * N_TOKENS))
+
+
+def check_history(history, series, incident):
+    """The history's latency series served on ``/debug/history``, and an
+    incident whose leading indicator is ``veles_serving_latency_ms``
+    against the ``slo_burn`` reference."""
+    if not series["series"] or {row["name"] for row in series["series"]} \
+            != {"veles_serving_latency_ms"}:
+        raise AssertionError("/debug/history?series=: %s"
+                             % [row["name"] for row in series["series"]])
+    if incident is None:
+        raise AssertionError("no slo_burn incident: rules %s"
+                             % [r.state() for r in history.rules])
+    with open(incident) as fin:
+        doc = json.load(fin)
+    lead = doc["leading_indicator"]
+    print("history: %d samples at %.1f s, %d series, %d anomalies; "
+          "incident %s: leading %s (%s) led %s by %.0f ms" % (
+              history.samples_total, history.interval_s,
+              series["series_count"], history.anomalies_total,
+              os.path.basename(incident), lead["rule"], lead["series"],
+              lead["reference"], lead["lead_ms"]))
+    if lead["series"] != "veles_serving_latency_ms" \
+            or lead["reference"] != "slo_burn":
+        raise AssertionError("the leading indicator is %s" % lead)
+
+
+def check_hooks_clis(procs, payload, trace_path):
+    """``observe slo --live``, ``observe serve-trace`` and ``observe
+    incident`` exit 0; the serve trace holds one thread row per slot the
+    burst used."""
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate()
+        print("observe %s: exit %d, %d lines" % (
+            name, proc.returncode, len(stdout.splitlines())))
+        if proc.returncode:
+            raise AssertionError("observe %s: %s %s" % (
+                name, stdout[-1000:], stderr[-1000:]))
+    with open(trace_path) as fin:
+        events = json.load(fin)["traceEvents"]
+    (slots_pid,) = [e["pid"] for e in events if e.get("ph") == "M"
+                    and e["name"] == "process_name"
+                    and e["args"]["name"].startswith("slots")]
+    rows = {e["tid"] for e in events if e.get("ph") == "M"
+            and e["name"] == "thread_name" and e["pid"] == slots_pid}
+    used = {entry["slot"] for entry in payload["slots"]}
+    print("serve trace: %d events, %d slot rows (slots used %s)"
+          % (len(events), len(rows), sorted(used)))
+    if rows != used:
+        raise AssertionError("slot rows %s, slots used %s" % (rows, used))
+
+
+def dense_hooks(params, table, prompts, device):
+    """The dense int8-KV slab (K4 + K2) driven directly: every prompt
+    submitted, so one dispatch admits them all; the scope's span
+    overshoot and the rest against the independent counts. Returns the
+    launches."""
+    scope = ServeScope()
+    real_scope, servescope_mod._serve_scope = (servescope_mod._serve_scope,
+                                               scope)
+    try:
+        dec = ContinuousDecoder(params, table, HEADS, slots=SLOTS,
+                                max_len=MAX_LEN, n_tokens=N_TOKENS,
+                                quantize="int8-kv", device=device)
+    finally:
+        servescope_mod._serve_scope = real_scope
+    dec.submit(prompts[0][:min(16, PAGE - 1)], CHUNK)
+    dec.drain_pipelined(CHUNK)
+    torch.cuda.synchronize()
+    scope.reset()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    chunks0 = dec.dispatch_counts["chunk"]
+    for prompt in prompts:
+        dec.submit(prompt)
+    dec.drain_pipelined(CHUNK)
+    torch.cuda.synchronize()
+    launches = counts()
+    chunks = dec.dispatch_counts["chunk"] - chunks0
+    lengths = [len(p) for p in prompts]
+    check_scope(scope, lengths, chunks, paged=False,
+                overshoot=span_overshoot_count(lengths, dec.tile,
+                                               dec.max_len))
+    steps = chunks * CHUNK
+    if launches["int8_cache_attend"] < BLOCKS * steps \
+            or launches["int8_matmul"] < sum(K2_PER_STEP) * steps:
+        raise AssertionError("the dense hooks run launched %s over %d "
+                             "steps" % (launches, steps))
+    return launches
+
+
+def int8_param_bytes():
+    """The int8 serving weights from the widths: each block's four int8
+    products (12 E^2 bytes) with their f32 column scales (9 E), its bf16
+    biases and norms (13 E); the int8 head (E V) with its scales (V);
+    the final norm (2 E, bf16) and the bf16 embedding table (V E)."""
+    e, v = EMBED, VOCAB
+    return (BLOCKS * (12 * e * e + 4 * 9 * e + 2 * 13 * e)
+            + e * v + 4 * v + 2 * 2 * e + 2 * v * e)
+
+
+def memscope_child(out):
+    """Phase 20's memscope checks, run in a fresh process so that the
+    allocator holds only this server: the paged int8 server's owners
+    against counts from the widths, the untagged residue, a breaker trip
+    and rebuild and a hot swap with no verdict, and a second trip while a
+    reference holds the old pool and its state: a verdict naming
+    ``kv_pool`` and a black box that ``observe blackbox`` reads (the
+    kernels load from the parent's build). Prints one JSON line; returns
+    the exit code."""
+    device = torch.device("cuda")
+    root.common.dirs.run = os.path.join(out, "run")
+    params, table = bf16_model(device)
+    params_b = init_transformer_params(numpy.random.RandomState(SWAP_SEED),
+                                       BLOCKS, EMBED, HEADS, VOCAB,
+                                       dtype=torch.bfloat16, device=device)
+    with open(os.path.join(out, "prompts.json")) as fin:
+        prompts = json.load(fin)
+    scope = get_memscope()
+    api = GenerateAPI(params, table, HEADS, slots=SLOTS, max_len=MAX_LEN,
+                      n_tokens=N_TOKENS, chunk=CHUNK, paged=True,
+                      page_size=PAGE, quantize="int8",
+                      rebuild_backoff=SMOKE_BACKOFF, device=device).start()
+
+    def trip():
+        rebuilds = api.health.counter("rebuilds")
+        api.request_trip("memscope drill")
+        deadline = time.monotonic() + 120
+        while api.health.counter("rebuilds") == rebuilds:
+            if time.monotonic() > deadline:
+                raise AssertionError("no rebuild after the trip")
+            time.sleep(0.01)
+        return scope.edges[-1]
+
+    try:
+        post(api.port, prompts[0][:min(16, PAGE - 1)], CHUNK)
+        burst(api.port, prompts)
+        torch.cuda.synchronize()
+        owners = scope.attribute()
+        snap = scope.snapshot()
+        pages = default_pool_pages(SLOTS, MAX_LEN, PAGE, chunk=N_TOKENS)
+        want = {"params": int8_param_bytes(),
+                "kv_pool": 2 * BLOCKS * pages * PAGE * EMBED * 2,
+                "decode_state": SLOTS * (4 + 4 * VOCAB + 4 + 8)}
+        clean = trip()
+        api.swap_params(params_b, version="b")
+        # the swap answers its caller before its edge closes
+        deadline = time.monotonic() + 60
+        while scope.edges[-1]["edge"] != "swap_params":
+            if time.monotonic() > deadline:
+                raise AssertionError("the swap's edge never closed")
+            time.sleep(0.01)
+        swap = scope.edges[-1]
+        burst(api.port, prompts)
+        planted = (api.decoder.pool, api.decoder.state)
+        leak = trip()
+        deadline = time.monotonic() + 60
+        while not any(v.get("artifact") for v in scope.incidents):
+            if time.monotonic() > deadline:
+                raise AssertionError("no leak artifact")
+            time.sleep(0.05)
+        artifact = next(v["artifact"] for v in scope.incidents
+                        if v.get("artifact"))
+        planted_bytes = paged_kv_bytes(planted[1])
+        del planted
+    finally:
+        api.stop()
+    proc = subprocess.run(
+        [sys.executable, "-m", "veles_tpu_torch", "observe", "blackbox",
+         artifact], cwd=REPO_DIR, env=port_env(), capture_output=True,
+        text=True, timeout=300)
+    doc = load_dump(artifact)
+    result = {
+        "owners": {k: owners.get(k, 0) for k in want},
+        "want": want, "device_bytes": snap["device_bytes"],
+        "tagged_bytes": snap["tagged_bytes"],
+        "untagged": snap["owners"]["untagged"],
+        "all_owners": snap["owners"],
+        "edges": [(v["edge"], v["leak"], v["owner"]) for v in
+                  (clean, swap, leak)],
+        "leak_grew": leak["grew_bytes"], "planted_bytes": planted_bytes,
+        "artifact": os.path.basename(artifact),
+        "artifact_memscope": "memscope" in doc,
+        "blackbox_exit": proc.returncode,
+        "blackbox_named": "memscope_leak_kv_pool" in proc.stdout}
+    print(json.dumps(result))
+    return 0
+
+
+def memscope_phase(out, prompts):
+    """Run :func:`memscope_child` in a fresh process on ``prompts`` and
+    check its reading."""
+    with open(os.path.join(out, "prompts.json"), "w") as fout:
+        json.dump(prompts, fout)
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.memscope_child(sys.argv[1]))", out],
+        cwd=REPO_DIR, env=port_env(), capture_output=True, text=True,
+        timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode or not lines:
+        raise AssertionError("memscope child: exit %d\n%s\n%s" % (
+            proc.returncode, proc.stdout[-3000:], proc.stderr[-3000:]))
+    got = json.loads(lines[-1])
+    print("memscope (a fresh process): owners %s, from the widths %s; "
+          "device %d bytes in use, tagged %d, untagged %d (%.1f MB); "
+          "edges %s; the planted pool grew kv_pool by %d bytes (its pages "
+          "%d); black box %s (memscope section %s), blackbox exit %d" % (
+              got["owners"], got["want"], got["device_bytes"],
+              got["tagged_bytes"], got["untagged"], got["untagged"] / 1e6,
+              got["edges"], got["leak_grew"], got["planted_bytes"],
+              got["artifact"], got["artifact_memscope"],
+              got["blackbox_exit"]))
+    print("memscope owners: %s" % got["all_owners"])
+    if got["owners"] != got["want"]:
+        raise AssertionError("owners %s != the widths' %s"
+                             % (got["owners"], got["want"]))
+    if got["untagged"] != max(0, got["device_bytes"] - got["tagged_bytes"]):
+        raise AssertionError("untagged is not the residue")
+    if [e[1] for e in got["edges"]] != [False, False, True] \
+            or got["edges"][2][2] != "kv_pool" \
+            or got["leak_grew"] != got["planted_bytes"]:
+        raise AssertionError("edges %s" % got["edges"])
+    if got["blackbox_exit"] or not got["blackbox_named"] \
+            or not got["artifact_memscope"]:
+        raise AssertionError("the leak's black box: %s" % got)
+
+
+def hooks_cost_planes(setting):
+    """A cost run's planes before its ``start()``: as
+    ``scripts/observe_cost.py`` sets them (the flight ring, the ledger and
+    the scope on, the registry and the device truth turned on by
+    ``start()``, the tracer off), the ledger and scope off for
+    ``ledger_off``, and the metric history at its 1 s default for
+    ``history`` (None otherwise: the front starts no sampler)."""
+    planes(False)
+    get_flight_recorder().enabled = True
+    serving_hooks(setting != "ledger_off")
+    set_metric_history(MetricHistory.from_config(
+        registry=get_metrics_registry()) if setting == "history" else None)
+
+
+def hooks_cost(params, table, prompts, device):
+    """The int8 burst under each setting of :data:`HOOKS_COST_ORDER`
+    after a warm-up run: tokens/s and host ms a chunk with each setting's
+    median, no gate; K1 4 and K2 17 launches a decode step in every run.
+    Returns the runs' launches."""
+    launches = dict.fromkeys(COUNTERS, 0)
+    rows = []
+    steps = StepLaunches()
+    with steps.install():
+        for setting in ("warm-up",) + HOOKS_COST_ORDER:
+            hooks_cost_planes("default" if setting == "warm-up"
+                              else setting)
+            run = serve(params, table, [prompts], "int8", device,
+                        on_zero=lambda: (steps.zero(), gc.collect()))
+            for name, n in run["launches"].items():
+                launches[name] += n
+            if setting == "warm-up":
+                continue
+            rows.append((setting, len(prompts) * N_TOKENS / run["wall"],
+                         1e3 * run["host_s"] / max(run["chunks"], 1),
+                         steps.k1 / steps.steps, steps.k2 / steps.steps))
+    planes(True)
+    serving_hooks(True)
+    set_metric_history(None)
+    print("hooks cost, int8 burst (%s, after a warm-up run): %s" % (
+        ", ".join(HOOKS_COST_ORDER), "; ".join(
+            "%s %.1f tokens/s, %.3f host ms a chunk, K1 %.2f and K2 %.2f "
+            "a decode step" % row for row in rows)))
+    print("hooks cost medians: %s" % ", ".join(
+        "%s %.1f tokens/s" % (setting, statistics.median(
+            row[1] for row in rows if row[0] == setting))
+        for setting in dict.fromkeys(HOOKS_COST_ORDER)))
+    per_step = {row[-2:] for row in rows}
+    if per_step != {(float(BLOCKS), float(sum(K2_PER_STEP)))}:
+        raise AssertionError("K1/K2 launches a decode step differ between "
+                             "the settings: %s" % per_step)
+    return launches
+
+
+def hooks_phase(device, prompts):
+    """Phase 20: the observe plane's serving hooks on the serving model
+    at full width: the request ledger, the SLO engine, the serve scope,
+    the metric history and their CLIs on the paged int8 burst; the scope
+    on the dense int8-KV slab; memscope in a fresh process; the hooks'
+    cost. Returns the launches of its main paths."""
+    t0 = time.perf_counter()
+    params, table = bf16_model(device)
+    launches = dict.fromkeys(COUNTERS, 0)
+    with tempfile.TemporaryDirectory() as out:
+        root.common.dirs.run = os.path.join(out, "run")
+        for phase in (hooks_burst(params, table, prompts, device, out),
+                      dense_hooks(params, table, prompts, device)):
+            for name, n in phase.items():
+                launches[name] += n
+        memscope_phase(out, prompts)
+        for name, n in hooks_cost(params, table, prompts, device).items():
+            launches[name] += n
+    print("hooks phase: %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5668,6 +6327,10 @@ def main():
     # profiled and the breaker bursts are not counted)
     release_planes(real_enable_metrics)
     for name, n in observe_phase(device, prompts).items():
+        launches[name] += n
+    # the serving hooks: the hooks burst (K1, K2), the dense int8-KV run
+    # (K4, K2) and the cost runs (K1, K2) are main paths
+    for name, n in hooks_phase(device, prompts).items():
         launches[name] += n
     isolated.cleanup()
     for entry in kernels:

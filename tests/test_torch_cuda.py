@@ -41,7 +41,9 @@ autotuner's candidates: K5 and K6 at both output tile widths (BN 128 and
 races, a race on the card persisted under this card's key, the routes
 the verdicts choose, and the device benchmark's power; and the observe
 plane: the device families of ``/metrics`` on a front on the card, K1's
-kernels under ``paged.dispatch`` in a profile, the card's bf16 peak.
+kernels under ``paged.dispatch`` in a profile, the card's bf16 peak,
+memscope's owners against the caching allocator and a ledger row per
+request served on the card.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -1939,3 +1941,92 @@ def test_peak_tflops_names_this_card(cuda, monkeypatch):
     assert peak_tflops() == peak_tflops(name)
     if "H100" in name and "PCIe" not in name and "NVL" not in name:
         assert peak_tflops() == 989.0
+
+
+def test_memscope_owners_against_the_allocator(cuda, monkeypatch):
+    """memscope on the card: the decoder's owners equal the bytes of its
+    tensors, the device total is the caching allocator's
+    ``allocated_bytes.all.current`` (never the reserved bytes), the
+    decoder's build allocated at least what its owners report, and the
+    residue is ``max(0, device - tagged)``."""
+    from veles_tpu_torch.observe import memscope as memscope_mod
+    from veles_tpu_torch.observe.memscope import MemScope
+    from veles_tpu_torch.parallel.decode import (param_tree_bytes,
+                                                 slot_state_bytes)
+
+    scope = MemScope()
+    monkeypatch.setattr(memscope_mod, "_memscope", scope)
+    params = init_transformer_params(numpy.random.RandomState(0), 2, 64,
+                                     4, 97, device="cpu")
+    table = torch.randn((97, 64), generator=torch.Generator()
+                        .manual_seed(1)) * 0.5
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocated_bytes.all.current"]
+    dec = ContinuousDecoder(params, table, 4, slots=2, max_len=64,
+                            n_tokens=6, paged=True, page_size=16,
+                            quantize="int8", device="cuda")
+    torch.cuda.synchronize()
+    owners = scope.attribute()
+    allocated = torch.cuda.memory_stats()["allocated_bytes.all.current"]
+    snap = scope.snapshot()
+    pool = kv_pool.paged_kv_bytes(dec.state)
+    assert owners["params"] == param_tree_bytes(dec.params, dec.embed_table)
+    assert owners["kv_pool"] == pool
+    assert owners["decode_state"] == slot_state_bytes(dec.state) - pool
+    assert allocated - before >= owners["params"] + pool \
+        + owners["decode_state"]
+    assert snap["device_bytes"] == allocated
+    assert snap["owners"]["untagged"] == max(
+        0, snap["device_bytes"] - snap["tagged_bytes"])
+    assert snap["limit_bytes"] == torch.cuda.mem_get_info(0)[1]
+
+
+def test_a_ledger_row_per_request_on_the_card(cuda):
+    """Each request served on the card leaves one complete ledger row:
+    the waterfall, its tenant and trace, live dispatches equal to its
+    admission and its collected chunks, chunk tokens adding up to its
+    budget; the serve scope books ``tile_pad`` and no overshoot."""
+    import json as json_mod
+    import urllib.request
+
+    from veles_tpu_torch.observe import servescope as scope_mod
+    from veles_tpu_torch.observe.reqledger import RequestLedger
+    from veles_tpu_torch.observe.servescope import ServeScope
+    from veles_tpu_torch.serving import GenerateAPI
+
+    ledger, scope = RequestLedger(), ServeScope()
+    real, scope_mod._serve_scope = scope_mod._serve_scope, scope
+    params = init_transformer_params(numpy.random.RandomState(0), 2, 64,
+                                     4, 97, device="cpu")
+    table = torch.randn((97, 64), generator=torch.Generator()
+                        .manual_seed(1)) * 0.5
+    try:
+        api = GenerateAPI(params, table, 4, slots=2, max_len=64,
+                          n_tokens=6, chunk=2, paged=True, page_size=16,
+                          ledger=ledger, device="cuda").start()
+    finally:
+        scope_mod._serve_scope = real
+    try:
+        for i in range(3):
+            req = urllib.request.Request(
+                "http://127.0.0.1:%d/generate" % api.port,
+                data=json_mod.dumps({"tokens": [1, 2, 3 + i]}).encode(),
+                headers={"X-Veles-Trace": "c0de%02d/01" % i,
+                         "X-Veles-Tenant": "t%d" % i})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                assert len(json_mod.loads(resp.read())["tokens"]) == 6
+    finally:
+        api.stop()
+    rows = ledger.resolved()
+    assert [r["trace"] for r in rows] == ["c0de00", "c0de01", "c0de02"]
+    for i, row in enumerate(rows):
+        assert [s for s, _ in row["stages"]] == [
+            "staged", "pool_gated", "admitted", "first_token", "resolved"]
+        assert row["tenant"] == "t%d" % i and row["outcome"] == "completed"
+        assert sum(c[1] for c in row["chunks"]) == 6
+        assert row["dispatches"] == {"aot": 0,
+                                     "live": 1 + len(row["chunks"])}
+    assert scope.waste["tile_pad"] > 0
+    assert scope.waste["page_overshoot"] == scope.waste["span_overshoot"] \
+        == scope.waste["group_dup"] == 0
+    assert scope.useful["decode"] == 18

@@ -90,10 +90,15 @@ def test_spans_and_events_land_in_the_ring(flight_home, monkeypatch):
 def test_dump_is_atomic_and_both_packages_load_it(flight_home,
                                                   monkeypatch):
     from veles_tpu.observe.flight import load_dump as jax_load_dump
+    from veles_tpu_torch.observe import memscope as memscope_mod
     from veles_tpu_torch.observe import metrics as metrics_mod
-    from veles_tpu_torch.observe import xla_stats
+    from veles_tpu_torch.observe import reqledger, xla_stats
 
     recorder, run_dir = flight_home
+    # an empty request ledger and memscope: the process ones hold what
+    # earlier serving tests left
+    monkeypatch.setattr(reqledger, "_ledger", reqledger.RequestLedger())
+    monkeypatch.setattr(memscope_mod, "_memscope", memscope_mod.MemScope())
     registry = MetricsRegistry(enabled=True)
     registry.incr("veles_boxed_total", 3)
     monkeypatch.setattr(metrics_mod, "_registry", registry)
@@ -111,8 +116,8 @@ def test_dump_is_atomic_and_both_packages_load_it(flight_home,
         assert doc["entries"][-1]["kind"] == "dispatch"
         assert ["veles_boxed_total", "counter", [], 3] in doc["metrics"]
         assert doc["xla"]["compiles"] == {"paged_attention.cu": 1}
-        # the request ledger's tail arrives with ROADMAP A7 (b): the key
-        # is there, with no rows
+        # the request ledger's tail: the key is there even when the
+        # ledger holds no row
         assert doc["requests"] == {"inflight": [], "slowest": []}
     assert set(doc) == {"schema", "reason", "time", "mono", "pid",
                         "entries", "extra", "metrics", "xla", "requests"}

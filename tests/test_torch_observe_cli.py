@@ -4,8 +4,11 @@ framed by ``workflow.run``, exported by ``observe export-trace``),
 ``--profile`` (the torch.profiler window with CPU activities, the spans
 named in it), SIGTERM during a CLI run (a black box, and the handler it
 replaced still runs), and the flags and subcommands still deferred
-(exit 2 naming their ROADMAP item). The runs are subprocesses started
-together by one module fixture."""
+(exit 2 naming their ROADMAP item); ``--serve-slo`` and
+``--serve-history`` landing in ``root.common.observe`` or refused with the
+JAX package's message, and ``observe slo|serve-trace|incident`` on saved
+artifacts. The runs are subprocesses started together by one module
+fixture."""
 
 import json
 import os
@@ -202,8 +205,127 @@ def test_sigterm_dumps_a_black_box_and_chains(runs):
 
 
 def test_the_observe_entries_left_the_deferred_maps():
-    assert not {"profile", "trace_events"} & set(DEFERRED)
+    from veles_tpu_torch.observe.trace_export import DEFERRED as OBSERVE
+
+    assert not {"profile", "trace_events", "serve_slo",
+                "serve_history"} & set(DEFERRED)
     assert "observe" in COMMANDS and "observe" not in DEFERRED_COMMANDS
-    assert DEFERRED["serve_slo"].endswith("ROADMAP A7 (b)")
-    assert DEFERRED["serve_history"].endswith("ROADMAP A7 (b)")
     assert DEFERRED["serve_governor"].endswith("ROADMAP A7 (c)")
+    assert not {"slo", "serve-trace", "incident"} & set(OBSERVE)
+
+
+@pytest.mark.parametrize("flag,key,value,parsed", [
+    ("--serve-slo", "slo", "ttft_p95_ms=250,availability=0.999",
+     ["availability", "ttft_p95_ms"]),
+    ("--serve-history", "history", "interval_s=0.2,capacity=32",
+     (0.2, 32))])
+def test_observe_flags_land_in_root_common_observe(flag, key, value, parsed,
+                                                   tmp_path, monkeypatch,
+                                                   capsys):
+    """``--serve-slo`` and ``--serve-history`` parse, pass the early
+    validation and land in ``root.common.observe``, where the SLO engine
+    and the history read them."""
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.core.config import root
+    from veles_tpu_torch.observe.history import MetricHistory
+    from veles_tpu_torch.observe.slo import SLOEngine
+
+    monkeypatch.setattr(root.common.observe, key, None)
+    tiny = tmp_path / "tiny_wf.py"
+    tiny.write_text(TINY_WF)
+    assert Main().run([str(tiny), "-", "--device", "cpu", flag, value,
+                       "--dump-config"]) == 0
+    assert getattr(root.common.observe, key) == value
+    assert "'%s': '%s'" % (key, value) in capsys.readouterr().out
+    if key == "slo":
+        engine = SLOEngine.from_config()
+        assert [o.name for o in engine.objectives] == parsed
+    else:
+        history = MetricHistory.from_config(registry=object())
+        assert (history.interval_s, history.capacity) == parsed
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--serve-slo", "ttft_p95_ms=250,latency=3"),
+    ("--serve-slo", "availability=2"),
+    ("--serve-history", "interval_s=0"),
+    ("--serve-history", "bogus=1")])
+def test_bad_observe_flags_fail_with_the_jax_message(flag, value, tmp_path,
+                                                    monkeypatch, capsys):
+    """A bad spec exits 2 before the workflow runs, with the JAX
+    package's message naming the flag."""
+    from veles_tpu.observe.history import parse_history_spec
+    from veles_tpu.observe.slo import parse_objectives
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.core.config import root
+
+    monkeypatch.setattr(root.common.observe, "slo", None)
+    monkeypatch.setattr(root.common.observe, "history", None)
+    tiny = tmp_path / "tiny_wf.py"
+    tiny.write_text(TINY_WF)
+    with pytest.raises(SystemExit) as exit_:
+        Main().run([str(tiny), "-", "--device", "cpu", flag, value])
+    assert exit_.value.code == 2
+    parse = parse_objectives if flag == "--serve-slo" \
+        else parse_history_spec
+    with pytest.raises(ValueError) as jax:
+        parse(value, flag=flag)
+    assert str(jax.value) in capsys.readouterr().err
+    assert root.common.observe.slo is None
+    assert root.common.observe.history is None
+
+
+def _artifacts(tmp):
+    """A saved /debug/requests payload, a /debug/serve payload and an
+    incident artifact, written by the port's planes."""
+    from veles_tpu_torch.observe.history import (AnomalyRule,
+                                                 IncidentRecorder,
+                                                 MetricHistory)
+    from veles_tpu_torch.observe.metrics import MetricsRegistry
+    from veles_tpu_torch.observe.reqledger import RequestLedger
+    from veles_tpu_torch.observe.servescope import ServeScope
+
+    ledger, scope = RequestLedger(), ServeScope()
+    for rid in range(3):
+        row = ledger.stage(api="generate-api", tenant="t", prompt_len=4)
+        ledger.link(row, rid)
+        scope.note_slot_admit(rid % 2, rid, "cold", bucket=8,
+                              trace=("ab%d" % rid, None))
+        ledger.note_admit(row, "cold", bucket=8, program="paged.admit")
+        scope.note_admit("cold", 8, 1, 1, 4, 4, 0, 0.001)
+        scope.note_dispatch(2, 2, 1, 10, 0.002, paged=True, pages=1,
+                            kernel=True)
+        ledger.note_tokens(row, 2)
+        scope.note_slot_first(rid)
+        scope.note_collect(2, 2, 0.0001)
+        scope.note_slot_retire(rid)
+        ledger.resolve(row, "completed")
+    paths = {"slo": tmp / "requests.json",
+             "serve-trace": tmp / "serve.json"}
+    paths["slo"].write_text(json.dumps(ledger.debug_snapshot()))
+    paths["serve-trace"].write_text(json.dumps(
+        scope.debug_snapshot(ledger=ledger)))
+    history = MetricHistory(
+        registry=MetricsRegistry(), rules=[AnomalyRule(
+            "burn", "veles_slo_burn_rate", for_samples=1, threshold=1.0)],
+        incidents=IncidentRecorder(directory=str(tmp / "incidents")))
+    for step in range(3):
+        history.sample(now=10.0 + step, rows=[
+            ("veles_slo_burn_rate", "gauge", (("window", "60s"),),
+             2.0 * step)])
+    paths["incident"] = history.incidents.last_path
+    return paths
+
+
+@pytest.mark.parametrize("command,needle", [
+    ("slo", "3 slowest resolved:"),
+    ("serve-trace", "serve trace: "),
+    ("incident", "leading indicator: burn")])
+def test_observe_subcommands_read_saved_artifacts(command, needle, tmp_path,
+                                                  capsys):
+    from veles_tpu_torch.__main__ import main
+
+    path = _artifacts(tmp_path)[command]
+    assert main(["observe", command, str(path)]) == 0
+    assert needle in capsys.readouterr().out
+    assert main(["observe", command, str(tmp_path / "missing")]) == 1

@@ -33,7 +33,10 @@ that brings them (:data:`DEFERRED`); so do the JAX package's
 subcommands that are not ported yet (:data:`DEFERRED_COMMANDS`). The
 ported subcommands (:data:`COMMANDS`): ``parity`` (``parity.main``),
 ``autotune`` (``ops/gemm.autotune_main``) and ``observe``
-(``observe/trace_export.main``: ``export-trace`` and ``blackbox``).
+(``observe/trace_export.main``: ``export-trace``, ``blackbox``, ``slo``,
+``serve-trace`` and ``incident``). ``--serve-slo`` and ``--serve-history``
+are validated before the workflow loads and land in
+``root.common.observe``.
 """
 
 import argparse
@@ -51,7 +54,6 @@ from veles_tpu_torch.launcher import Launcher
 
 _FLEET = "the fleet, ROADMAP A9"
 _MESH = "the mesh, ROADMAP A8"
-_SERVE_HOOKS = "the observe plane's serving hooks, ROADMAP A7 (b)"
 _GOVERNOR = "the serving governor, ROADMAP A7 (c)"
 _META = "genetics and ensembles, ROADMAP A9"
 
@@ -68,8 +70,7 @@ DEFERRED = {
     "optimize": _META, "optimize_fleet": _META,
     "optimize_representation": _META, "ensemble_train": _META,
     "ensemble_test": _META,
-    "serve_slo": _SERVE_HOOKS, "serve_governor": _GOVERNOR,
-    "serve_history": _SERVE_HOOKS,
+    "serve_governor": _GOVERNOR,
     "serve_aot": "the AOT bundle, ROADMAP A9",
     "serve_paged_kernel": "not ported, on purpose (ROADMAP A2): on the "
                           "card the paged pool always attends through "
@@ -160,6 +161,17 @@ class Main(Logger):
                            metavar="N", help="positions per KV page")
         serve.add_argument("--serve-pool-pages", type=int, default=None,
                            metavar="N", help="total pages in the KV pool")
+        serve.add_argument("--serve-slo", default=None,
+                           metavar="OBJ=TARGET[,...]",
+                           help="SLO objectives, e.g. ttft_p95_ms=250,"
+                           "tpot_p95_ms=50,availability=0.999 (writes "
+                           "root.common.observe.slo)")
+        serve.add_argument("--serve-history", default=None,
+                           metavar="KEY=VALUE[,...]",
+                           help="metric history knobs (interval_s, "
+                           "capacity, series_cap, seed_rules, "
+                           "incident_cooldown_s) or 'off' (writes "
+                           "root.common.observe.history)")
         serve.add_argument("--chaos-serve-seed", type=int, default=None,
                            metavar="N", help="serving chaos RNG seed")
         serve.add_argument("--chaos-serve-step-fail", type=float,
@@ -208,9 +220,7 @@ class Main(Logger):
                 (("--serve-mesh",), {"metavar": "AXIS=N[,AXIS=N...]"}),
                 (("--serve-paged-kernel",), {"metavar": "on|off"}),
                 (("--serve-aot",), {"metavar": "PATH"}),
-                (("--serve-slo",), {"metavar": "OBJ=TARGET[,...]"}),
                 (("--serve-governor",), {"metavar": "KEY=VALUE[,...]"}),
-                (("--serve-history",), {"metavar": "KEY=VALUE[,...]"}),
                 (("--manhole",), {"action": "store_true"}),
                 (("-b", "--background"), {"action": "store_true"})):
             kwargs.setdefault("default", None)
@@ -394,6 +404,19 @@ class Main(Logger):
         module = self.load_module(args.workflow)
         self.apply_config(args.config)
         self.override_config(args.overrides)
+        # the observe flags are validated NOW (``__main__.py:543-570``):
+        # the strings land in root.common.observe below, and the SLO
+        # engine and the history parse them again when a front starts
+        from veles_tpu_torch.observe.history import parse_history_spec
+        from veles_tpu_torch.observe.slo import parse_objectives
+        for flag, parse in (("serve_slo", parse_objectives),
+                            ("serve_history", parse_history_spec)):
+            value = getattr(args, flag)
+            if value:
+                try:
+                    parse(value, flag="--" + flag.replace("_", "-"))
+                except ValueError as exc:
+                    parser.error(str(exc))
         # the serving flags AFTER the config layering: the CLI wins
         for flag, node, key in (
                 ("serve_max_queue", root.common.serve, "max_queue"),
@@ -401,6 +424,8 @@ class Main(Logger):
                 ("serve_paged", root.common.serve, "paged"),
                 ("serve_page_size", root.common.serve, "page_size"),
                 ("serve_pool_pages", root.common.serve, "pool_pages"),
+                ("serve_slo", root.common.observe, "slo"),
+                ("serve_history", root.common.observe, "history"),
                 ("chaos_serve_seed", root.common.serve.chaos, "seed"),
                 ("chaos_serve_step_fail", root.common.serve.chaos,
                  "step_fail"),

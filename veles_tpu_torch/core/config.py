@@ -7,8 +7,9 @@ attribute access so workflow config files can write
 Supports nested ``update()``, ``protect()``-ed read-only keys and pretty
 printing.
 
-The port's defaults are the training engine's knobs and the serving
-survival layer's (``root.common.serve``). It reads no site overrides and
+The port's defaults are the training engine's knobs, the serving
+survival layer's (``root.common.serve``) and the observe plane's serving
+hooks' (``root.common.observe``). It reads no site overrides and
 keeps no cache directories: nothing here touches a file.
 """
 
@@ -165,6 +166,17 @@ root.common.update({
     },
     "trace": {"run": False},
     "timings": False,
+    # the observe plane's serving hooks: SLO objectives (None: no engine;
+    # a dict or the --serve-slo "name=value,..." string), the metric
+    # history (None: on at its defaults wherever /metrics is mounted;
+    # "off" disables it; the --serve-history "key=value,..." string tunes
+    # it) and memscope's leak threshold and byte budget (the budget is
+    # read only where the device reports no limit)
+    "observe": {
+        "slo": None,
+        "history": None,
+        "memscope": {"leak_min_bytes": 1 << 20, "limit_bytes": None},
+    },
     # the serving survival layer (the JAX package's config.py:197-208):
     # the admission bound (max_queue <= 0 disables load shedding), the
     # default per-request deadline, the breaker's rebuild backoff, the

@@ -1,15 +1,15 @@
 """Stdlib HTTP-server plumbing for the serving front.
 
-The port's own copy of ``veles_tpu/core/httpd.py:31-211, 313-341``: the
+The port's own copy of ``veles_tpu/core/httpd.py:31-341``: the
 ThreadingHTTPServer-on-a-daemon-thread lifecycle, JSON replies, a
 request-body cap that answers 413 before buffering anything, the
 ``/healthz`` + ``/readyz`` routes with their Retry-After pricing, and
 the observe plane's routes: ``GET /metrics`` (:func:`serve_metrics`,
-Prometheus text or OpenMetrics by ``Accept``) and the ``GET /debug/``
-index (:func:`serve_debug_index`). The debug surfaces themselves
-(``/debug/requests``, ``/debug/history``, ``/debug/serve``,
-``/debug/memory``) arrive with ROADMAP A7 (b), so the index lists none
-yet. Binds loopback by default.
+Prometheus text or OpenMetrics by ``Accept``), the ``GET /debug/`` index
+(:func:`serve_debug_index`) and its four surfaces: ``/debug/requests``
+(the request ledger), ``/debug/history`` (the metric history),
+``/debug/serve`` (the serve scope) and ``/debug/memory`` (memscope).
+Binds loopback by default.
 """
 
 import json
@@ -135,6 +135,12 @@ def serve_metrics(handler, registry=None):
     registry.enable()  # scrapeable == enabled
     from veles_tpu_torch.observe.xla_stats import ensure_registered
     ensure_registered(registry)
+    # the metric history is on wherever /metrics is (idempotent), and
+    # the serving goodput families ride every mount, gated on traffic
+    from veles_tpu_torch.observe.history import start_history_sampler
+    start_history_sampler()
+    from veles_tpu_torch.observe.servescope import ensure_serve_registered
+    ensure_serve_registered(registry)
     accept = str(getattr(handler, "headers", {}).get("Accept") or "")
     if "application/openmetrics-text" in accept:
         reply(handler, registry.expose(openmetrics=True),
@@ -147,10 +153,21 @@ def serve_metrics(handler, registry=None):
 
 
 #: the debug surfaces mounted on the serving HTTP fronts, path -> one-line
-#: description: what ``GET /debug/`` answers. The JAX package's four
-#: (``/debug/requests``, ``/debug/history``, ``/debug/serve``,
-#: ``/debug/memory``) arrive with ROADMAP A7 (b); none is mounted yet
-DEBUG_SURFACES = {}
+#: description: what ``GET /debug/`` answers
+DEBUG_SURFACES = {
+    "/debug/requests": "request-truth ledger: in-flight + slowest "
+                       "resolved request rows (observe/reqledger.py)",
+    "/debug/history": "metric flight recorder: windowed series tails "
+                      "+ anomaly-rule states (observe/history.py)",
+    "/debug/serve": "serving goodput observatory: per-slot occupancy "
+                    "timeline + token-waste decomposition "
+                    "(observe/servescope.py; assemble with `python -m "
+                    "veles_tpu_torch observe serve-trace`)",
+    "/debug/memory": "per-owner device-memory attribution: reconciled "
+                     "owner bytes + untagged residue, lifecycle-edge "
+                     "leak verdicts and the pool headroom forecast "
+                     "(observe/memscope.py)",
+}
 
 
 def serve_debug_index(handler, surfaces=None):
@@ -166,15 +183,117 @@ def serve_debug_index(handler, surfaces=None):
     return True
 
 
-def enable_metrics():
+def _query(handler):
+    """``(path, {key: value})`` of the request's URL."""
+    path, _, query = handler.path.partition("?")
+    params = {}
+    for part in query.split("&"):
+        key, sep, value = part.partition("=")
+        if sep:
+            params[key] = value
+    return path, params
+
+
+def serve_debug_serve(handler, scope=None, ledger=None):
+    """Route ``GET /debug/serve``: the serve scope's payload
+    (``observe/servescope.py``): the goodput and waste decomposition,
+    the per-slot occupancy timeline and the ledger rows it merges with,
+    which ``observe serve-trace`` assembles into a Perfetto trace.
+    Returns True when handled."""
+    if _query(handler)[0] != "/debug/serve":
+        return False
+    if scope is None:
+        from veles_tpu_torch.observe.servescope import get_serve_scope
+        scope = get_serve_scope()
+    if ledger is None:
+        from veles_tpu_torch.observe.reqledger import get_request_ledger
+        ledger = get_request_ledger()
+    reply(handler, scope.debug_snapshot(ledger=ledger))
+    return True
+
+
+def serve_debug_requests(handler, ledger=None):
+    """Route ``GET /debug/requests``: the request ledger's in-flight rows
+    and the N slowest resolved (``?n=``, default 8, capped 64)
+    (``observe/reqledger.py``). Returns True when handled."""
+    path, params = _query(handler)
+    if path != "/debug/requests":
+        return False
+    if ledger is None:
+        from veles_tpu_torch.observe.reqledger import get_request_ledger
+        ledger = get_request_ledger()
+    n = 8
+    try:
+        n = max(1, min(64, int(params.get("n", n))))
+    except ValueError:
+        pass
+    reply(handler, ledger.debug_snapshot(slowest=n))
+    return True
+
+
+def serve_debug_history(handler, history=None):
+    """Route ``GET /debug/history``: the metric history's windowed series
+    tails and anomaly-rule states (``observe/history.py``); ``series=``
+    filters by name substring, ``window=`` keeps the trailing seconds.
+    404 while the history is disabled. Returns True when handled."""
+    path, params = _query(handler)
+    if path != "/debug/history":
+        return False
+    if history is None:
+        from veles_tpu_torch.observe.history import get_metric_history
+        history = get_metric_history()
+    if history is None:
+        reply(handler, {"error": "metric history disabled "
+                                 "(root.common.observe.history)"},
+              code=404)
+        return True
+    window = None
+    try:
+        if "window" in params:
+            window = max(0.0, float(params["window"]))
+    except ValueError:
+        pass
+    reply(handler, history.debug_snapshot(
+        series=params.get("series") or None, window=window))
+    return True
+
+
+def serve_debug_memory(handler, scope=None):
+    """Route ``GET /debug/memory``: memscope's reconciled per-owner
+    attribution, the trailing lifecycle-edge verdicts (``edges=``,
+    default 16, capped 64) and the pool headroom forecast
+    (``observe/memscope.py``). Returns True when handled."""
+    path, params = _query(handler)
+    if path != "/debug/memory":
+        return False
+    if scope is None:
+        from veles_tpu_torch.observe.memscope import get_memscope
+        scope = get_memscope()
+    edges = 16
+    try:
+        edges = max(1, min(64, int(params.get("edges", edges))))
+    except ValueError:
+        pass
+    reply(handler, scope.debug_snapshot(edges=edges))
+    return True
+
+
+def enable_metrics(holder=None):
     """Turn the process-global registry on (idempotent) with the
-    device-truth plane attached; every HTTP surface calls this at start,
-    so its counters accumulate from the first request, not the first
-    scrape. Returns the registry. (The JAX package's history sampler and
-    serve scope start here too; they arrive with ROADMAP A7 (b).)"""
+    device-truth plane and the serving goodput families attached, and
+    start the metric history's sampler; every HTTP surface calls this at
+    start, so its counters accumulate from the first request, not the
+    first scrape. ``holder`` (the front) keeps the sampler running until
+    it releases it (``history.release_history_sampler``). Returns the
+    registry."""
+    from veles_tpu_torch.observe.history import start_history_sampler
     from veles_tpu_torch.observe.metrics import get_metrics_registry
+    from veles_tpu_torch.observe.servescope import ensure_serve_registered
     from veles_tpu_torch.observe.xla_stats import ensure_registered
-    return ensure_registered(get_metrics_registry().enable())
+    registry = ensure_registered(get_metrics_registry().enable())
+    ensure_serve_registered(registry)
+    start_history_sampler(holder)
+    return registry
 
 
 def start_server(handler_cls, host="127.0.0.1", port=0, name="httpd"):

@@ -20,16 +20,31 @@ The port of ``veles_tpu/observe/`` part (a) (ROADMAP A7), with
 - :mod:`~veles_tpu_torch.observe.profile`: the ``torch.profiler``
   window with span-named ranges.
 
-The request ledger, SLO engine, serve scope, memory scope and metric
-history wait for ROADMAP A7 (b); the governor, rollout, replay, capacity
-and regress for (c); plotting and web status for (d); the fleet scope
-for A9.
+and the serving hooks (ROADMAP A7 (b)):
+
+- :mod:`~veles_tpu_torch.observe.reqledger`: one row per serving request
+  with its stage waterfall and attribution (``/debug/requests``,
+  ``observe slo``);
+- :mod:`~veles_tpu_torch.observe.slo`: objectives over multi-window
+  burn rates, fed once per resolved row;
+- :mod:`~veles_tpu_torch.observe.servescope`: the serving wall and
+  token-waste decomposition and the per-slot timeline (``/debug/serve``,
+  ``observe serve-trace``);
+- :mod:`~veles_tpu_torch.observe.memscope`: per-owner device-memory
+  attribution, lifecycle-edge leak verdicts, the pool's headroom
+  (``/debug/memory``);
+- :mod:`~veles_tpu_torch.observe.history`: the metric history, anomaly
+  rules and incident bundles (``/debug/history``, ``observe incident``).
+
+The governor, rollout, replay, capacity and regress wait for ROADMAP A7
+(c); plotting and web status for (d); the fleet scope for A9.
 
 Everything is off by default with a structural no-op fast path (the
 disabled tracer hands out one shared null span, the disabled registry
-returns before its lock), except the flight recorder, which is on and
-records with a bounded lock-free append at the millisecond-scale
-dispatch sites.
+returns before its lock), except the flight recorder, the request ledger
+and the serve scope, which are on and record with bounded lock-free
+appends at the millisecond-scale dispatch sites; the history samples
+while a serving front runs.
 """
 
 from veles_tpu_torch.observe.flight import (  # noqa: F401
@@ -45,3 +60,19 @@ from veles_tpu_torch.observe.tracing import (  # noqa: F401
 from veles_tpu_torch.observe.xla_stats import (  # noqa: F401
     CompileTracker, ensure_registered, get_compile_tracker,
     instrument)
+from veles_tpu_torch.observe.history import (  # noqa: F401
+    AnomalyRule, HistoryConfig, IncidentRecorder, MetricHistory,
+    default_rules, ensure_metric_history, get_metric_history,
+    parse_history_spec, set_metric_history, start_history_sampler,
+    stop_history_sampler)
+from veles_tpu_torch.observe.memscope import (  # noqa: F401
+    MemScope, get_memscope, pytree_nbytes, set_memscope)
+from veles_tpu_torch.observe.reqledger import (  # noqa: F401
+    RequestLedger, autopsy, format_waterfall, get_request_ledger,
+    publish_request_ledger, widest_gap)
+from veles_tpu_torch.observe.servescope import (  # noqa: F401
+    ServeScope, ensure_serve_registered, get_serve_scope,
+    publish_serve_scope)
+from veles_tpu_torch.observe.slo import (  # noqa: F401
+    SLOEngine, get_slo_engine, observe_request, parse_objectives,
+    row_latencies, set_slo_engine)

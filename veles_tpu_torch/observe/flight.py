@@ -13,9 +13,10 @@ entries, breaker transitions, weight swaps) and dumps a timestamped JSON
 - SIGTERM (:func:`install_signal_handlers`, installed by the CLI).
 
 The dump keeps the JAX package's ``SCHEMA_VERSION`` 1 and key set, so
-its ``load_dump`` and ``blackbox_main`` read what the port writes. The
-request ledger's tail (``requests``) arrives with ROADMAP A7 (b); until
-then the key is present with no rows. Dumps go to
+its ``load_dump`` and ``blackbox_main`` read what the port writes: the
+request ledger's in-flight and slowest rows (``requests``: a breaker
+trip ships the requests it shed, ``observe slo`` autopsies them) and
+memscope's per-owner decomposition (``memscope``). Dumps go to
 ``root.common.dirs.run`` (``$VELES_TPU_HOME/run`` when that is set).
 Inspect them with ``python -m veles_tpu_torch observe blackbox
 [PATH]``.
@@ -122,9 +123,28 @@ class FlightRecorder:
                 doc["xla"] = tracker.snapshot()
         except Exception:   # noqa: BLE001
             pass
-        # the request-truth tail: the request ledger arrives with
-        # ROADMAP A7 (b); until then the key is there and empty
+        # the request-truth tail (observe/reqledger.py): a breaker trip
+        # dumps BEFORE it sheds, so the in-flight rows are the requests
+        # it is about to shed; empty where the ledger holds nothing
         doc["requests"] = {"inflight": [], "slowest": []}
+        try:
+            from veles_tpu_torch.observe.reqledger import (
+                get_request_ledger)
+            ledger = get_request_ledger()
+            if ledger.enabled and (ledger.staged_total
+                                   or ledger.resolved_total):
+                doc["requests"] = ledger.debug_snapshot(slowest=16)
+        except Exception:   # noqa: BLE001
+            pass
+        # who held the device memory when the box dumped: memscope's
+        # owner decomposition (observe/memscope.py)
+        try:
+            from veles_tpu_torch.observe.memscope import get_memscope
+            summary = get_memscope().summary()
+            if summary.get("tagged_bytes"):
+                doc["memscope"] = summary
+        except Exception:   # noqa: BLE001
+            pass
         with self._dump_lock:
             try:
                 if path is None:

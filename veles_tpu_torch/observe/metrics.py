@@ -313,7 +313,7 @@ class MetricsRegistry:
         Collector-backed series (``veles_kernel_*``,
         ``veles_device_*``), which otherwise materialize only inside a
         scrape, are refreshed first — the feed of the metric-history
-        sampler (``observe/history.py``, ROADMAP A7 (b)). Disabled:
+        sampler (``observe/history.py``). Disabled:
         returns an empty tuple before touching the lock or the
         collectors, so the no-scrape fast path stays allocation-free."""
         if not self.enabled:

@@ -166,9 +166,6 @@ def span_tree(trace):
 #: ROADMAP item that brings them
 DEFERRED = {
     "fleet-trace": "the fleet, ROADMAP A9",
-    "serve-trace": "the serving hooks, ROADMAP A7 (b)",
-    "slo": "the serving hooks, ROADMAP A7 (b)",
-    "incident": "the serving hooks, ROADMAP A7 (b)",
     "record": "what acts on the hooks, ROADMAP A7 (c)",
     "replay": "what acts on the hooks, ROADMAP A7 (c)",
     "capacity": "what acts on the hooks, ROADMAP A7 (c)",
@@ -178,8 +175,10 @@ DEFERRED = {
 
 def main(argv=None):
     """``python -m veles_tpu_torch observe``: ``export-trace`` (Chrome
-    trace) and ``blackbox`` (flight-recorder dumps). Returns the exit
-    code; a subcommand of :data:`DEFERRED` returns 2."""
+    trace), ``blackbox`` (flight-recorder dumps), ``slo`` (the request
+    waterfalls' autopsy), ``serve-trace`` (the per-slot Perfetto trace)
+    and ``incident`` (a metric-history incident's timeline). Returns the
+    exit code; a subcommand of :data:`DEFERRED` returns 2."""
     import argparse
     import sys
 
@@ -190,7 +189,8 @@ def main(argv=None):
         return 2
     parser = argparse.ArgumentParser(
         prog="veles_tpu_torch observe",
-        description="observability tooling: trace export and black boxes")
+        description="observability tooling: trace export, black boxes, "
+                    "request autopsies, serving traces and incidents")
     sub = parser.add_subparsers(dest="command", required=True)
     export = sub.add_parser(
         "export-trace",
@@ -209,10 +209,64 @@ def main(argv=None):
     blackbox.add_argument("--tail", type=int, default=20,
                           help="ring entries to show from the newest "
                                "dump (default 20)")
+    serve = sub.add_parser(
+        "serve-trace",
+        help="assemble the per-slot occupancy timeline and the request "
+             "waterfalls into a Perfetto-loadable Chrome trace: a saved "
+             "GET /debug/serve payload, or --live URL")
+    serve.add_argument("artifact", nargs="?", default=None,
+                       help="saved /debug/serve JSON (or an artifact "
+                            "embedding one under 'servescope')")
+    serve.add_argument("--live", default=None, metavar="URL",
+                       help="fetch <URL>/debug/serve instead of a file")
+    serve.add_argument("-o", "--output", default=None,
+                       help="trace output path (default: "
+                            "<artifact>.trace.json / serve.trace.json)")
+    slo = sub.add_parser(
+        "slo",
+        help="waterfall autopsy of the slowest requests from a black box "
+             "or a saved /debug/requests JSON, or --live URL")
+    slo.add_argument("artifact", nargs="?", default=None,
+                     help="black-box dump or /debug/requests JSON")
+    slo.add_argument("--live", default=None, metavar="URL",
+                     help="fetch <URL>/debug/requests (and the SLO "
+                          "gauges of <URL>/metrics) instead of a file")
+    slo.add_argument("--slowest", type=int, default=8,
+                     help="resolved requests to autopsy (default 8)")
+    incident = sub.add_parser(
+        "incident",
+        help="render a metric-history incident's timeline and its "
+             "leading indicator, or a live server's (--live URL)")
+    incident.add_argument("artifact", nargs="?", default=None,
+                          help="incident JSON, or a directory to list "
+                               "(default: the run dir)")
+    incident.add_argument("--live", default=None, metavar="URL",
+                          help="fetch <URL>/debug/history instead of a "
+                               "saved artifact")
+    incident.add_argument("--slowest", type=int, default=4,
+                          help="request waterfalls to include "
+                               "(default 4)")
     args = parser.parse_args(argv)
     if args.command == "blackbox":
         from veles_tpu_torch.observe.flight import blackbox_main
         return blackbox_main(args.path, tail=args.tail)
+    if args.command == "serve-trace":
+        if not args.artifact and not args.live:
+            parser.error("observe serve-trace needs an ARTIFACT or "
+                         "--live URL")
+        from veles_tpu_torch.observe.servescope import serve_trace_main
+        return serve_trace_main(args.artifact, live=args.live,
+                                output=args.output)
+    if args.command == "slo":
+        if not args.artifact and not args.live:
+            parser.error("observe slo needs an ARTIFACT or --live URL")
+        from veles_tpu_torch.observe.slo import slo_main
+        return slo_main(args.artifact, live=args.live,
+                        slowest=args.slowest)
+    if args.command == "incident":
+        from veles_tpu_torch.observe.history import incident_main
+        return incident_main(args.artifact, live=args.live,
+                             slowest=args.slowest)
     out = args.output or args.events + ".trace.json"
     count = export_chrome_trace(args.events, out)
     print("wrote %d trace events to %s (open in ui.perfetto.dev)"

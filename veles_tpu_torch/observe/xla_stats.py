@@ -13,7 +13,9 @@ parts:
   each library it loads (:meth:`CompileTracker.record_hit`). They
   happen once per process, usually before any ``/metrics`` surface
   mounts, so the tracker keeps them even while it is disabled (no hot
-  path reaches them). ``STORM_THRESHOLD`` builds of one source inside
+  path reaches them). Each keeps its wall window, so the request ledger
+  names a build or load that stalled a request
+  (:meth:`CompileTracker.compiles_overlapping`). ``STORM_THRESHOLD`` builds of one source inside
   ``STORM_WINDOW`` seconds is a rebuild storm, warned once and counted;
 - **program calls**: :func:`instrument` stamps ``program_name`` on the
   serving programs (``parallel/decode.py``, ``parallel/kv_pool.py``:
@@ -147,6 +149,9 @@ class CompileTracker:
         self._call_seconds = {}     # program -> host wall seconds
         self._flops = {}            # program -> latest FLOPs
         self._step_ema = {}         # program -> EMA of step seconds
+        #: recent build and load windows (kernel, start_mono, end_mono):
+        #: the request ledger names the ones that overlapped a request
+        self._windows = deque(maxlen=256)
 
     def enable(self):
         self.enabled = True
@@ -171,6 +176,7 @@ class CompileTracker:
                 stamps = self._stamps[name] = deque(
                     maxlen=self.STORM_THRESHOLD)
             now = time.monotonic()
+            self._windows.append((name, now - float(seconds), now))
             stamps.append(now)
             if len(stamps) == self.STORM_THRESHOLD \
                     and now - stamps[0] <= self.STORM_WINDOW:
@@ -185,11 +191,28 @@ class CompileTracker:
                 "veles_kernel_rebuild_storms_total keeps counting)",
                 name, self.STORM_THRESHOLD, self.STORM_WINDOW)
 
-    def record_hit(self, name):
-        """One library load of kernel source ``name`` (booked whether or
-        not the tracker is enabled)."""
+    def record_hit(self, name, seconds=0.0):
+        """One library load of kernel source ``name`` that took
+        ``seconds`` of wall time (booked whether or not the tracker is
+        enabled)."""
+        now = time.monotonic()
         with self._lock:
             self._hits[name] = self._hits.get(name, 0) + 1
+            if seconds > 0:
+                self._windows.append((name, now - float(seconds), now))
+
+    def compiles_overlapping(self, t0, t1):
+        """Build and load windows intersecting the monotonic interval
+        ``[t0, t1]`` as ``[(kernel source, overlap_seconds)]``: how the
+        request ledger names the stall that stretched a request
+        (``observe/reqledger.py``). Lock-free: one GIL-atomic copy of the
+        bounded ring."""
+        out = []
+        for name, start, end in list(self._windows):
+            overlap = min(end, t1) - max(start, t0)
+            if overlap > 0:
+                out.append((name, overlap))
+        return out
 
     def record_call(self, name, seconds):
         """One call of program ``name`` that held the host ``seconds``
@@ -415,10 +438,13 @@ def publish_device_stats(registry):
 
 def publish_xla_stats(registry):
     """The device-truth collector: build, load and call counters, FLOPs
-    and MFU, and the memory gauges (the JAX package's reduce, AOT and
-    memscope families wait for ROADMAP A8, A9 and A7 (b))."""
+    and MFU, the memory gauges and memscope's per-owner attribution
+    (``observe/memscope.py``; the JAX package's reduce and AOT families
+    wait for ROADMAP A8 and A9)."""
     get_compile_tracker().publish(registry)
     publish_device_stats(registry)
+    from veles_tpu_torch.observe.memscope import publish_memscope
+    publish_memscope(registry)
 
 
 def ensure_registered(registry=None):

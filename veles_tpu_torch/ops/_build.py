@@ -119,8 +119,10 @@ def function(name, symbol, argtypes):
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            started = time.perf_counter()
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
-            get_compile_tracker().record_hit(name + ".cu")
+            get_compile_tracker().record_hit(
+                name + ".cu", time.perf_counter() - started)
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

@@ -576,6 +576,69 @@ def dispatch_flops(params, slots, lengths, n):
             + 4.0 * embed * len(params["blocks"]) * positions)
 
 
+def param_tree_bytes(params, embed_table=None):
+    """Bytes of a parameter tree (plus the embedding table when it is a
+    separate leaf): the ``params`` and ``param_stash`` memscope owners'
+    sizing primitive (``decode.py:453``)."""
+    from veles_tpu_torch.observe.memscope import pytree_nbytes
+    return pytree_nbytes(params) + pytree_nbytes(embed_table)
+
+
+# -- dispatched-work accounting (observe/servescope.py, decode.py:705-763) ----
+
+def admit_waste(bucket, lens, rows):
+    """Token decomposition of ONE admission dispatch: ``lens`` live
+    prompt/tail lengths prefilled into ``bucket``-position rows, the
+    group padded to ``rows`` rows with duplicates. Returns ``(live,
+    bucket_pad, group_dup)`` token counts. The port's admissions add no
+    duplicate rows (``rows == len(lens)``), so its ``group_dup`` is 0."""
+    lens = [int(n) for n in lens]
+    live = sum(lens)
+    pad = sum(int(bucket) - n for n in lens)
+    dup = (int(rows) - len(lens)) * int(bucket)
+    return live, pad, dup
+
+
+def span_overshoot_tokens(lens, span, chunk):
+    """Masked attended positions PAST each live slot's sequence across
+    one chunked slab dispatch: every lane-step attends ``span``
+    positions, a slot at length ``n`` is live to ``n + i`` at step ``i``.
+    The sum of ``max(0, span - (n + i))`` over ``i in 1..chunk`` per
+    slot, in closed form."""
+    span = int(span)
+    chunk = int(chunk)
+    total = 0
+    for n in lens:
+        d = span - int(n)
+        k = min(chunk, max(0, d - 1))
+        total += k * d - k * (k + 1) // 2
+    return total
+
+
+def page_overshoot_tokens(lens, pages, page_size, chunk):
+    """The gathered-page twin of :func:`span_overshoot_tokens`: each live
+    slot gathers ``pages`` pages a step. The port's pool attends through
+    K1 or K3 and never books it; kept for the JAX package's accounting."""
+    return span_overshoot_tokens(lens, int(pages) * int(page_size),
+                                 chunk)
+
+
+def tile_pad_tokens(lens, page_size, chunk):
+    """The paged kernels' residual: K1 and K3 walk only each slot's live
+    pages, so what remains is the dead tail of the last partial page,
+    ``ceil((n + 1) / page_size) * page_size - (n + 1)`` lanes a
+    slot-step for a slot live to ``n``, summed over ``i in 1..chunk``
+    with the slot live to ``n + i - 1`` at step ``i``."""
+    ps = int(page_size)
+    chunk = int(chunk)
+    total = 0
+    for n in lens:
+        for i in range(1, chunk + 1):
+            live = int(n) + i
+            total += -(-live // ps) * ps - live
+    return total
+
+
 def prefill_flops(params, rows, width):
     """Analytic FLOPs of an admission's prefill products: ``rows``
     prompts padded to ``width`` positions through every block's

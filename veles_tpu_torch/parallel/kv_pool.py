@@ -347,6 +347,11 @@ class PagePool:
         #: a previous pool's cache (its entries name that pool's pages
         #: until :meth:`restore_entries` re-maps them), or a fresh one
         self.cache = cache if cache is not None else PrefixCache()
+        #: device bytes of one page across every block's page arrays,
+        #: stamped by the decoder that builds the pool
+        #: (``paged_kv_bytes(state) // pages``): memscope's ``kv_pool``
+        #: owner splits the state with ``decode_state`` through it
+        self.page_bytes = 0
 
     @property
     def capacity(self):
@@ -442,6 +447,11 @@ class PagePool:
                 dropped += 1
             self.cache.page_shadow.clear()
         return dropped
+
+    def hbm_bytes(self):
+        """Device bytes of the page arrays this pool tables: pages x
+        page_bytes (memscope's ``kv_pool`` accountant; no lock)."""
+        return self.pages * self.page_bytes
 
     def shadow_bytes(self):
         """Host bytes the cache's page shadows hold."""

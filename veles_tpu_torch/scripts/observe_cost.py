@@ -5,12 +5,17 @@ over loopback HTTP, in the paged ``int8`` tier, under plane settings
 taken in turn (ABBA order within each repetition):
 
 - ``default``: ``start()`` as a user runs it, nothing patched: the flight
-  ring on, the registry and the device truth enabled by ``start()``, the
-  tracer off;
+  ring, the request ledger and the serve scope on, the registry and the
+  device truth enabled by ``start()``, the tracer off, and the metric
+  history's sampler off (``history`` adds it);
 - ``off``: every plane off after ``start()``;
 - ``flight``: the flight ring alone;
 - ``metrics``: the registry and the device truth alone;
-- ``traced``: ``default`` plus the tracer writing spans to a JSONL file.
+- ``traced``: ``default`` plus the tracer writing spans to a JSONL file;
+- ``ledger_off``: ``default`` with the request ledger and the serve scope
+  off;
+- ``history``: ``default`` with the metric history's sampler running at
+  its 1 s default.
 
 Each run prints its tokens/s and a timeline from stamps taken around the
 driver's calls (identical in every setting): when the burst's requests
@@ -49,7 +54,11 @@ import torch
 from veles_tpu_torch.core.logger import (enable_event_recording,
                                          get_event_recorder)
 from veles_tpu_torch.observe.flight import get_flight_recorder
+from veles_tpu_torch.observe.history import (MetricHistory,
+                                             set_metric_history)
 from veles_tpu_torch.observe.metrics import get_metrics_registry
+from veles_tpu_torch.observe.reqledger import get_request_ledger
+from veles_tpu_torch.observe.servescope import get_serve_scope
 from veles_tpu_torch.observe.tracing import get_tracer
 from veles_tpu_torch.observe.xla_stats import get_compile_tracker
 from veles_tpu_torch.parallel.transformer_step import init_transformer_params
@@ -63,21 +72,36 @@ FULL = dict(embed=1024, heads=16, blocks=4, vocab=32768, slots=8,
 SMALL = dict(embed=64, heads=4, blocks=2, vocab=512, slots=8, max_len=256,
              n_tokens=32, chunk=8, page=16, prompts=(20, 120))
 
-SETTINGS = ("default", "off", "flight", "metrics", "traced")
+SETTINGS = ("default", "off", "flight", "metrics", "traced", "ledger_off",
+            "history")
+
+#: the planes as ``start()`` leaves them
+DEFAULT = ("flight", "registry", "tracker", "ledger", "scope")
+
+
+def set_history(setting):
+    """Before ``start()``: the process metric history at its 1 s default
+    for ``history`` (the front starts its sampler), else none."""
+    set_metric_history(MetricHistory.from_config(
+        registry=get_metrics_registry()) if setting == "history" else None)
 
 
 def set_planes(setting):
     """Turn the planes of ``setting`` on and the others off (called
     after ``start()``, which enabled the registry and device truth)."""
-    on = {"default": ("flight", "registry", "tracker"),
+    on = {"default": DEFAULT,
           "off": (),
           "flight": ("flight",),
           "metrics": ("registry", "tracker"),
-          "traced": ("flight", "registry", "tracker", "tracer")}[setting]
+          "traced": DEFAULT + ("tracer",),
+          "ledger_off": ("flight", "registry", "tracker"),
+          "history": DEFAULT}[setting]
     get_flight_recorder().enabled = "flight" in on
     get_metrics_registry().enabled = "registry" in on
     get_compile_tracker().enabled = "tracker" in on
     get_tracer().enabled = "tracer" in on
+    get_request_ledger().enabled = "ledger" in on
+    get_serve_scope().enabled = "scope" in on
 
 
 class GcClock:
@@ -160,6 +184,7 @@ def one_run(params, table, prompts, cfg, setting, device, profile=False):
             finally:
                 prof.disable()
         api._drive = profiled
+    set_history(setting)
     api.start()
     try:
         # a warm-up request shorter than a page, then the setting
@@ -195,6 +220,7 @@ def one_run(params, table, prompts, cfg, setting, device, profile=False):
     finally:
         set_planes("default")
         api.stop()
+        set_history(None)
     rows = sorted(stamps.rows, key=lambda row: row[1])
     staged = [t0_ - t0 for name, t0_, _ in rows if name == "_stage"]
     driver_rows = [row for row in rows if row[0] != "_stage"]

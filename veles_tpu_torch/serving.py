@@ -47,9 +47,20 @@ decoder bridges, the ``X-Veles-Trace`` header continued into the
 notes (``admit``, ``step``, ``dispatch``, ``collect``, ``breaker``,
 ``breaker.trip``, ``deploy.swap``) with a black box dumped on a breaker
 trip, the exemplar-linked ``veles_request_{ttft,tpot}_seconds`` and the
-dispatch's online MFU. The request ledger, SLO engine, serve scope and
-memory scope notes wait for ROADMAP A7 (b), the governor's tier swap and
-the blue-green rollout for A7 (c), the mesh for A8 and AOT for A9.
+dispatch's online MFU. The serving hooks (``observe/``, ROADMAP A7 (b))
+ride them too: every request's ledger row (``reqledger.py``: staged,
+pool-gated, admitted with its admission kind and group, each chunk's
+tokens, resolved), read once at resolve time by the SLO engine, the
+health windows and the latency histograms (``slo.observe_request``); the
+serve scope's waste and wall accounting at every admission, dispatch,
+collect and idle wait (``servescope.py``); memscope's owners (the
+decoder's ``params``, ``decode_state``, ``kv_pool`` and
+``prefix_shadows``, the front's ``param_stash`` and per-request
+``admission_scratch``), with the breaker's rebuild and the hot swap
+bracketed as lifecycle edges (``memscope.py``); and the metric history's
+sampler, held by the fronts while they run (``history.py``). The
+governor's tier swap and the blue-green rollout wait for ROADMAP A7 (c),
+the mesh for A8 and AOT for A9.
 """
 
 import base64
@@ -73,23 +84,34 @@ from veles_tpu_torch.device import (keystr, resolve_device,
 from veles_tpu_torch.loader.base import TEST, Loader, register_loader
 from veles_tpu_torch.loader.normalization import state_tensors
 from veles_tpu_torch.observe.flight import get_flight_recorder
+from veles_tpu_torch.observe.history import (get_metric_history,
+                                             release_history_sampler)
+from veles_tpu_torch.observe.memscope import get_memscope, pytree_nbytes
 from veles_tpu_torch.observe.metrics import (bridge, get_metrics_registry,
                                              publish_decoder,
                                              publish_serving_health)
+from veles_tpu_torch.observe.reqledger import (get_request_ledger,
+                                               publish_request_ledger)
+from veles_tpu_torch.observe.servescope import get_serve_scope
+from veles_tpu_torch.observe.slo import get_slo_engine, observe_request
 from veles_tpu_torch.observe.tracing import (NULL_SPAN, TRACE_HEADER,
+                                             current_context,
                                              format_trace_header,
                                              get_tracer, parse_trace_header)
 from veles_tpu_torch.observe.xla_stats import (get_compile_tracker,
                                                track_owner)
-from veles_tpu_torch.parallel.decode import (SLOT_SPAN_TILE,
+from veles_tpu_torch.parallel.decode import (SLOT_SPAN_TILE, admit_waste,
                                              dispatch_flops,
                                              init_slot_state,
+                                             param_tree_bytes,
                                              prefill_flops,
                                              quantize_params,
                                              request_key,
                                              slot_admit_many,
                                              slot_state_bytes,
-                                             slot_step_many)
+                                             slot_step_many,
+                                             span_overshoot_tokens,
+                                             tile_pad_tokens)
 from veles_tpu_torch.parallel.kv_pool import (SCRATCH_PAGE, PagePool,
                                               _paged_restore,
                                               default_pool_pages,
@@ -97,6 +119,7 @@ from veles_tpu_torch.parallel.kv_pool import (SCRATCH_PAGE, PagePool,
                                               paged_admit_hit,
                                               paged_admit_many,
                                               paged_admit_tail,
+                                              paged_kv_bytes,
                                               paged_slot_step_many,
                                               pages_for)
 
@@ -106,10 +129,9 @@ from veles_tpu_torch.parallel.kv_pool import (SCRATCH_PAGE, PagePool,
 DECODE_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                   0.1, 0.25, 0.5, 1.0, 2.5, 10.0)
 
-#: histogram buckets (seconds) of the per-request latencies
-#: (``observe/slo.py:59-60``)
-LATENCY_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
-                   0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+#: the ``X-Veles-Tenant`` request header: a client's tenant id, bounded,
+#: rides the ledger row and slices the SLO gauges
+TENANT_HEADER = "X-Veles-Tenant"
 
 
 def _tree_bytes(tree):
@@ -164,12 +186,23 @@ class ContinuousDecoder:
     the spans' writes stay outside the timed windows. While the device
     truth is on, each dispatch pins its analytic FLOPs
     (``decode.dispatch_flops``) and the wall time between chunk
-    completions of a busy decoder is its step for the MFU gauge."""
+    completions of a busy decoder is its step for the MFU gauge.
+
+    The serving hooks: ``ledger`` (a ``RequestLedger``; ``GenerateAPI``
+    passes the process ledger) receives each linked request's admission
+    (kind ``dense``/``cold``/``tail``/``hit``, group, bucket, program,
+    pages) and each chunk's tokens (:meth:`ledger_link` binds a row to a
+    request id); the process serve scope (``observe/servescope.py``)
+    books every admission, dispatch and collect; memscope registers the
+    decoder's ``params`` and ``decode_state`` and the pool's ``kv_pool``
+    and ``prefix_shadows``. All of them run between enqueues: no lock,
+    no I/O, no device sync."""
 
     def __init__(self, params, embed_table, heads, slots=4, max_len=512,
                  n_tokens=32, eos=None, temperature=0.0, top_k=0, seed=0,
                  quantize=None, tile=None, paged=False, page_size=None,
-                 pool_pages=None, prefix_cache=None, device=None):
+                 pool_pages=None, prefix_cache=None, ledger=None,
+                 device=None):
         if quantize not in (None, "none", "int8", "int8-kv"):
             raise ValueError("quantize must be None, 'int8' or 'int8-kv', "
                              "got %r" % (quantize,))
@@ -287,6 +320,43 @@ class ContinuousDecoder:
         track_owner(self, lambda dec: (
             _tree_bytes((dec.params, dec.embed_table))
             + slot_state_bytes(dec.state)))
+        #: the request ledger (None: one attribute check a dispatch) and
+        #: this decoder's request id -> row map, popped at retirement
+        self.ledger = ledger
+        self._ledger_rows = {}
+        #: the serving goodput observatory, fed at every dispatch
+        self.scope = get_serve_scope()
+        self._register_memscope()
+
+    def _register_memscope(self):
+        """memscope's owners (``serving.py:1059-1095``): the weights, the
+        pool's pages and shadows, and the rest of the state. The pool's
+        page arrays live in ``self.state`` but belong to ``kv_pool``
+        (``page_bytes`` stamped here), so ``decode_state`` subtracts
+        them. Registration is weak: a decoder the breaker replaces drops
+        out when it is collected, and one that is retained keeps
+        reporting, which is how an edge's diff names a leaked owner."""
+        scope = get_memscope()
+        scope.register("params", self, lambda dec: param_tree_bytes(
+            dec.params, dec.embed_table))
+        if self.pool is None:
+            scope.register("decode_state", self,
+                           lambda dec: slot_state_bytes(dec.state))
+            return
+        self.pool.page_bytes = paged_kv_bytes(self.state) // self.pool.pages
+        scope.register("kv_pool", self.pool, lambda pool: pool.hbm_bytes())
+        scope.register("prefix_shadows", self.pool,
+                       lambda pool: pool.shadow_bytes())
+        scope.register("decode_state", self, lambda dec: max(
+            0, slot_state_bytes(dec.state) - dec.pool.hbm_bytes()))
+
+    def ledger_link(self, rid, row):
+        """Bind a staged ledger row to request ``rid`` for the dispatch
+        hooks (``GenerateAPI`` calls this right after :meth:`submit`)."""
+        if self.ledger is None or row is None:
+            return
+        self.ledger.link(row, rid)
+        self._ledger_rows[rid] = row
 
     def _upload(self, array):
         """A host array as a tensor on the decoder's device, without a
@@ -409,10 +479,12 @@ class ContinuousDecoder:
                     del self._slot_req[slot]
                     self._free.append(slot)
                     self._release_slot_pages(slot)
+                    self.scope.note_slot_retire(rid, reason="cancelled")
                     break
         del self._budget[rid]
         self.results.pop(rid, None)
         self.admitted_at.pop(rid, None)
+        self._ledger_rows.pop(rid, None)
         self._retire_trace(rid)
         self.cancelled += 1
         return True
@@ -462,12 +534,15 @@ class ContinuousDecoder:
                                              self.state, slots, x,
                                              lengths, keys)
                 elapsed += time.perf_counter() - t0
-            self._book_admit("admit", elapsed, group, bucket)
+            self._book_admit("admit", elapsed, group, bucket,
+                             [len(r[1]) for r in group])
             now = time.monotonic()
             for rid, prompt, slot in group:
                 self._slot_req[slot] = rid
                 self._slot_len[slot] = len(prompt)
                 self.admitted_at[rid] = now
+                self._note_seated(slot, rid, "dense", len(group), bucket,
+                                  slot_admit_many)
 
     def _admit_pending_paged(self):
         """Admit every queued request that has a free slot and pages,
@@ -517,13 +592,21 @@ class ContinuousDecoder:
         return self._upload(request_key(
             self.seed, numpy.asarray([r[0] for r in group])).numpy())
 
-    def _book_admit(self, kind, elapsed, group, bucket):
+    def _book_admit(self, kind, elapsed, group, bucket, lens=()):
         """The bookkeeping of one admission: timings, the dispatch tally,
-        the ``veles_decode_admit_seconds`` histogram, the flight ring and,
-        while the device truth is on, the prefill's FLOPs. ``kind`` is
-        the slab's ``"admit"`` (the JAX package books it unlabelled) or
-        the pool's ``"cold"``, ``"tail"`` or ``"hit"``; ``bucket`` the
-        prefill's width (0 for hits, which prefill nothing)."""
+        the ``veles_decode_admit_seconds`` histogram, the flight ring, the
+        serve scope's prefill accounting (``lens`` the live prompt or
+        tail lengths; a hit prefills nothing) and, while the device truth
+        is on, the prefill's FLOPs. ``kind`` is the slab's ``"admit"``
+        (the JAX package books it unlabelled, and its scope and ledger
+        ``"dense"``) or the pool's ``"cold"``, ``"tail"`` or ``"hit"``;
+        ``bucket`` the prefill's width (0 for hits). The groups carry no
+        duplicate rows, so ``group_dup`` books 0."""
+        if self.scope.enabled:
+            live, pad, dup = admit_waste(bucket, lens, len(group))
+            self.scope.note_admit("dense" if kind == "admit" else kind,
+                                  bucket, len(group), len(group), live,
+                                  pad, dup, elapsed)
         self.timings["admit_s"] += elapsed
         key = "admit" if kind in ("admit", "cold") else "admit_" + kind
         self.dispatch_counts[key] += 1
@@ -548,6 +631,20 @@ class ContinuousDecoder:
                 {"admit": "decode.admit", "cold": "paged.admit",
                  "tail": "paged.admit_tail"}[kind],
                 prefill_flops(self.params, len(group), bucket))
+
+    def _note_seated(self, slot, rid, kind, group, bucket, program):
+        """The slot timeline and the request's ledger row for one seated
+        request (``serving.py:1375-1387``); ``program`` is the admission
+        function (its ``program_name``). AOT waits for ROADMAP A9: every
+        admission is live."""
+        self.scope.note_slot_admit(slot, rid, kind, bucket=bucket,
+                                   trace=self._trace.get(rid))
+        if self.ledger is not None:
+            self.ledger.note_admit(
+                self._ledger_rows.get(rid), kind, group=group,
+                bucket=bucket, aot=False,
+                program=getattr(program, "program_name", None),
+                pages=len(self._slot_pages.get(slot) or ()))
 
     def _seat(self, slot, rid, prompt, pages):
         """Give ``slot`` to request ``rid`` and publish its prompt's
@@ -593,9 +690,12 @@ class ContinuousDecoder:
             self.state = paged_admit_many(self.params, self.heads,
                                           self.state, *args)
             elapsed += time.perf_counter() - t0
-        self._book_admit("cold", elapsed, group, width)
+        self._book_admit("cold", elapsed, group, width,
+                         [len(r[1]) for r in group])
         for rid, prompt, slot, pages in group:
             self._seat(slot, rid, prompt, pages)
+            self._note_seated(slot, rid, "cold", len(group), width,
+                              paged_admit_many)
 
     def _admit_tails(self, group):
         """One ragged tail prefill for tails sharing a prefix page
@@ -626,9 +726,12 @@ class ContinuousDecoder:
             self.state = paged_admit_tail(self.params, self.heads,
                                           self.state, *args)
             elapsed += time.perf_counter() - t0
-        self._book_admit("tail", elapsed, group, width)
+        self._book_admit("tail", elapsed, group, width,
+                         [len(t) for t in tails])
         for rid, prompt, slot, entry, _, pages in group:
             self._seat(slot, rid, prompt, list(entry["pages"]) + pages)
+            self._note_seated(slot, rid, "tail", len(group), width,
+                              paged_admit_tail)
 
     def _admit_hits(self, group):
         """Control rows only, from each entry's cached logits; the slot
@@ -653,6 +756,8 @@ class ContinuousDecoder:
             self._slot_len[slot] = len(prompt)
             self._slot_pages[slot] = list(entry["pages"])
             self.admitted_at[rid] = now
+            self._note_seated(slot, rid, "hit", len(group), 0,
+                              paged_admit_hit)
 
     def _release_slot_pages(self, slot):
         """Return a retired or cancelled slot's pages to the pool."""
@@ -711,7 +816,9 @@ class ContinuousDecoder:
     def _retire(self, slot, rid):
         del self._budget[rid]
         self.admitted_at.pop(rid, None)
+        self._ledger_rows.pop(rid, None)
         self._retire_trace(rid)
+        self.scope.note_slot_retire(rid)
         if self._slot_req.get(slot) == rid:
             del self._slot_req[slot]
             self._free.append(slot)
@@ -740,6 +847,25 @@ class ContinuousDecoder:
                 self._active(), n, *sampling, span=self._attended_span(n))
         return emitted
 
+    def _note_dispatch(self, n, lens, elapsed):
+        """The serve scope's booking of one ``n``-step dispatch over the
+        live lanes of lengths ``lens`` (before the dispatch): dead-slot
+        lane-steps, and the slab's span-tile overshoot or the pool's
+        last-page residual (K1 and K3 attend live pages only: the JAX
+        package's ``paged_kernel`` route, ``serving.py:2025-2042``)."""
+        if self.paged:
+            overshoot = tile_pad_tokens(lens, self.page_size, n)
+            span, pages = 0, max(pages_for(length + n, self.page_size)
+                                 for length in lens)
+        else:
+            span = min(-(-(max(lens) + n) // self.tile) * self.tile,
+                       self.max_len)
+            overshoot = span_overshoot_tokens(lens, span, n)
+            pages = 0
+        self.scope.note_dispatch(n, self.slots, len(lens), overshoot,
+                                 elapsed, paged=self.paged, span=span,
+                                 pages=pages, kernel=self.paged)
+
     def step(self):
         """Admit what fits, advance every active slot one token; returns
         {request_id: token} for the tokens generated this step."""
@@ -747,16 +873,27 @@ class ContinuousDecoder:
         if not self._slot_req:
             return {}
         snapshot = dict(self._slot_req)
+        lens = [self._slot_len[s] for s in snapshot]
+        t0 = time.perf_counter()
         emitted = self._advance(1)[0]
         for slot in snapshot:
             self._slot_len[slot] += 1
         self.dispatch_counts["step"] += 1
         self.flight.note("step", rids=list(snapshot.values()))
         emitted = emitted.cpu().numpy()
+        if self.scope.enabled:
+            # the step syncs inline: the whole call is one decode window,
+            # and every live lane keeps its token
+            self._note_dispatch(1, lens, time.perf_counter() - t0)
+            self.scope.note_collect(len(snapshot), len(snapshot), 0.0)
         out = {}
         for slot, rid in snapshot.items():
             token = int(emitted[slot])
+            if not self.results[rid]:
+                self.scope.note_slot_first(rid)
             self.results[rid].append(token)
+            if self.ledger is not None:
+                self.ledger.note_tokens(self._ledger_rows.get(rid), 1)
             out[rid] = token
             self.tokens_out += 1
             self._budget[rid] -= 1
@@ -779,6 +916,9 @@ class ContinuousDecoder:
             t0 = time.perf_counter()
             emitted = self._advance(chunk)
             elapsed = time.perf_counter() - t0
+        if self.scope.enabled:
+            self._note_dispatch(chunk, [self._slot_len[s] for s in snapshot],
+                                elapsed)
         self.timings["dispatch_s"] += elapsed
         self.metrics.observe(
             "veles_decode_dispatch_seconds", elapsed,
@@ -824,19 +964,33 @@ class ContinuousDecoder:
                     done - self._last_chunk_done)
             self._last_chunk_done = done
         out = {}
+        kept = 0
         for slot, rid in snapshot.items():
             if rid not in self._budget:
                 continue
             tokens = emitted[:, slot].tolist()[:self._budget[rid]]
             if self.eos is not None and self.eos in tokens:
                 tokens = tokens[:tokens.index(self.eos) + 1]
+            kept += len(tokens)
+            if tokens and not self.results[rid]:
+                self.scope.note_slot_first(rid)
             self.results[rid].extend(tokens)
+            if self.ledger is not None and tokens:
+                # one cadence stamp a collected chunk a request
+                self.ledger.note_tokens(self._ledger_rows.get(rid),
+                                        len(tokens))
             out[rid] = tokens
             self.tokens_out += len(tokens)
             self._budget[rid] -= len(tokens)
             if self._budget[rid] <= 0 or (
                     tokens and tokens[-1] == self.eos):
                 self._retire(slot, rid)
+        if self.scope.enabled:
+            # live lane-steps dispatched against tokens delivered: the
+            # rest is the lag-1 tails, budget clamps and post-eos
+            # positions, cause "discard"
+            self.scope.note_collect(len(snapshot) * int(emitted.shape[0]),
+                                    kept, elapsed)
         if not self.busy:
             # idle: the gap to the next burst's first chunk is no step
             self._last_chunk_done = None
@@ -911,8 +1065,13 @@ class ServingHealth:
     first) and ``queue_wait`` (staged to admitted into a slot), exposed
     as p50/p95 in milliseconds, published on ``/metrics`` by
     ``observe/metrics.publish_serving_health``; each breaker transition
-    is noted in the flight ring. The JAX package's SLO and serve-scope
-    mirrors wait for ROADMAP A7 (b), its governor for A7 (c)."""
+    is noted in the flight ring. ``ttft`` and ``queue_wait`` come from the
+    driver's progress, ``tpot`` from each resolved request's ledger row
+    (``observe/slo.observe_request``). The snapshot mirrors an attached
+    SLO engine's worst short-window burn (``slo``), the serve scope's
+    occupancy and goodput (``servescope``) and memscope's light summary
+    (``memscope``); the JAX package's governor cell waits for ROADMAP A7
+    (c)."""
 
     COUNTERS = ("admitted", "completed", "rejected", "expired", "shed",
                 "trips", "rebuilds", "errors")
@@ -930,6 +1089,8 @@ class ServingHealth:
         self._counters = {key: 0 for key in self.COUNTERS}
         self._pool_ref = None
         self._deploy_ref = None
+        self._slo_ref = None
+        self._scope_ref = None
         self._latencies = {
             kind: collections.deque(maxlen=self.LATENCY_WINDOW)
             for kind in self.LATENCY_KINDS}
@@ -965,6 +1126,20 @@ class ServingHealth:
         attaches again, a dead one drops out)."""
         with self._lock:
             self._pool_ref = weakref.ref(pool) if pool is not None \
+                else None
+
+    def attach_slo(self, engine):
+        """Mirror an SLO engine's worst short-window burn rate into the
+        snapshot (weakly referenced, like the pool)."""
+        with self._lock:
+            self._slo_ref = weakref.ref(engine) if engine is not None \
+                else None
+
+    def attach_servescope(self, scope):
+        """Mirror the serve scope's occupancy, goodput and waste share
+        into the snapshot (weakly referenced)."""
+        with self._lock:
+            self._scope_ref = weakref.ref(scope) if scope is not None \
                 else None
 
     def attach_deploy(self, api):
@@ -1064,6 +1239,9 @@ class ServingHealth:
                 else None
             deploy = self._deploy_ref() \
                 if self._deploy_ref is not None else None
+            slo = self._slo_ref() if self._slo_ref is not None else None
+            scope = self._scope_ref() if self._scope_ref is not None \
+                else None
         if deploy is not None:
             snap["version"] = deploy.version
             decoder = deploy.decoder
@@ -1071,6 +1249,19 @@ class ServingHealth:
             snap["device"] = str(decoder.device)
         if pool is not None:
             snap["pool"] = pool.snapshot()
+        if scope is not None:
+            summary = scope.summary()
+            if summary is not None:
+                snap["servescope"] = summary
+        if slo is not None:
+            summary = slo.summary()
+            if summary is not None:
+                snap["slo"] = summary
+        # memscope's light summary (top owners, headroom, leaks): the
+        # reconciled device read stays on /metrics and /debug/memory
+        memscope = get_memscope().summary()
+        if memscope.get("tagged_bytes"):
+            snap["memscope"] = memscope
         return snap
 
 
@@ -1134,7 +1325,14 @@ class GenerateAPI:
     the request to the driver (``serve.submit``, ``serve.expire``,
     ``serve.complete`` events, the decoder's spans) and is echoed in the
     reply's header; a breaker trip notes ``breaker.trip`` and dumps the
-    black box before it sheds."""
+    black box before it sheds. The serving hooks: each request opens a
+    row in ``ledger`` (default: the process ledger) at staging, with its
+    ``X-Veles-Tenant`` header and trace id, and resolves it once;
+    ``slo`` (default: the engine built from ``root.common.observe.slo``,
+    None without objectives) reads every resolved row; ``GET
+    /debug/requests``, ``/debug/serve``, ``/debug/history`` and
+    ``/debug/memory`` serve the ledger, the serve scope, the metric
+    history and memscope."""
 
     #: extra handler-side wait beyond a request's deadline before the
     #: handler gives up on the driver (a wedged driver's backstop)
@@ -1146,7 +1344,8 @@ class GenerateAPI:
                  request_timeout=None, max_queue=None, deadline=None,
                  rebuild_backoff=None, rebuild_backoff_max=None,
                  chaos=None, quantize=None, tile=None, paged=None,
-                 page_size=None, pool_pages=None, device=None):
+                 page_size=None, pool_pages=None, slo=None, ledger=None,
+                 device=None):
         import queue
 
         serve_cfg = root.common.serve
@@ -1169,6 +1368,12 @@ class GenerateAPI:
             page_size = serve_cfg.get("page_size", None)
         if pool_pages is None:
             pool_pages = serve_cfg.get("pool_pages", None)
+        #: the request ledger (every request's row; the process ledger by
+        #: default, so /debug/requests, the autopsy CLI and the black box
+        #: see one view) and the SLO engine (None without objectives)
+        self.ledger = ledger if ledger is not None \
+            else get_request_ledger()
+        self.slo = slo if slo is not None else get_slo_engine()
         #: what every decoder this front builds (the first and each
         #: rebuild) is built from; a successful swap replaces the weights
         self._decoder_kwargs = dict(
@@ -1176,7 +1381,8 @@ class GenerateAPI:
             slots=slots, max_len=max_len, n_tokens=n_tokens,
             temperature=temperature, top_k=top_k, eos=eos, seed=seed,
             quantize=quantize, tile=tile, paged=bool(paged),
-            page_size=page_size, pool_pages=pool_pages, device=device)
+            page_size=page_size, pool_pages=pool_pages, ledger=self.ledger,
+            device=device)
         self.decoder = ContinuousDecoder(**self._decoder_kwargs)
         self.vocab = embed_table.shape[0]
         self.port = port
@@ -1198,6 +1404,12 @@ class GenerateAPI:
         self.health = ServingHealth(name="generate-api")
         if self.decoder.pool is not None:
             self.health.attach_pool(self.decoder.pool)
+        if self.slo is not None:
+            self.health.attach_slo(self.slo)
+        #: the serve scope the decoders feed (the process one); the
+        #: driver books its idle and runs the waste autopsy
+        self.scope = get_serve_scope()
+        self.health.attach_servescope(self.scope)
         self.health.attach_deploy(self)
         #: the proactive trip request (request_trip), read by the driver
         self._trip_request = None
@@ -1224,42 +1436,38 @@ class GenerateAPI:
         #: collected); dropped uncollected when the breaker trips or the
         #: server stops
         self._pending = None
+        # the rollback stash is retention on purpose: memscope's exempt
+        # owner, so an edge's diff never takes it for a leak
+        get_memscope().register(
+            "param_stash", self,
+            lambda api: (pytree_nbytes(api._param_stash[0])
+                         + pytree_nbytes(api._param_stash[1])
+                         if api._param_stash is not None else 0))
 
     # -- driver thread (sole owner of the decoder) ----------------------
     def _resolve(self, holder, outcome, **fields):
         """Resolve one admitted request exactly once (the driver and a
         backstop-timing-out handler may race): stamp the reply fields,
-        release its pages and its in-flight slot under ``outcome``, wake
-        its handler."""
+        release its pages, its scratch tag and its in-flight slot under
+        ``outcome``, close its ledger row and feed the row to the SLO
+        engine, the ``tpot`` health window and the latency histograms
+        (``observe_request``: once per request, never on the token
+        path), wake its handler."""
         token = object()
         if holder.setdefault("resolved", token) is not token:
             return
         holder.update(fields)
+        get_memscope().scratch_drop(holder.pop("memscope_key", None))
         reserved = holder.pop("pool_reserved", 0)
         if reserved:
             holder["pool"].unreserve(reserved)
         self.health.release(outcome)
-        registry = get_metrics_registry()
-        if registry.enabled and "first_token" in holder:
-            # once per request, never on the token path: the latency
-            # histograms with the request's trace id as the exemplar
-            trace = holder.get("trace")
-            exemplar = ({"trace_id": trace[0]} if trace and trace[0]
-                        else None)
-            labels = {"api": self.health.name}
-            registry.observe(
-                "veles_request_ttft_seconds",
-                max(0.0, holder["first_token"] - holder["staged_at"]),
-                labels=labels, buckets=LATENCY_BUCKETS, exemplar=exemplar,
-                help="per-request time to first token (exemplars link "
-                     "buckets to trace ids on openmetrics scrapes)")
-            if holder.get("tpot") is not None:
-                registry.observe(
-                    "veles_request_tpot_seconds", holder["tpot"],
-                    labels=labels, buckets=LATENCY_BUCKETS,
-                    exemplar=exemplar,
-                    help="per-request time per output token from the "
-                         "chunk collect cadence")
+        row = holder.get("ledger_row")
+        if row is not None:
+            self.ledger.resolve(row, outcome, error=holder.get("error"))
+            observe_request(row, engine=self.slo,
+                            registry=get_metrics_registry(),
+                            health=self.health)
         holder["event"].set()
 
     def _stage(self, prompt, budget, holder):
@@ -1313,6 +1521,12 @@ class GenerateAPI:
             except ValueError as exc:
                 self._resolve(holder, "errors", error=str(exc), code=400)
                 continue
+            row = holder.get("ledger_row")
+            if row is not None:
+                # the tier is stamped at submit, on the decoder that
+                # serves the request (``serving.py:2510-2544``)
+                row["quant"] = self.decoder.quantize or "bf16"
+            self.decoder.ledger_link(rid, row)
             get_tracer().event("serve.submit",
                                parent=holder.get("trace"), rid=rid)
             waiting[rid] = holder
@@ -1418,8 +1632,11 @@ class GenerateAPI:
         traffic. In the paged tier the prefix cache outlives the
         decoder: its page shadows are captured here, from the dying
         decoder, and handed on, so the new pool restores them by copy.
-        Returns True on success. (The JAX package's memory-scope edge
-        around this seam waits for ROADMAP A7 (b).)"""
+        Returns True on success. The seam is a memscope lifecycle edge:
+        its per-owner diff names what outlived the trip (the old pool
+        retained past the rebuild)."""
+        memscope = get_memscope()
+        memscope.edge_begin("breaker_rebuild")
         capture_s = 0.0
         try:
             kwargs = self._governed_kwargs()
@@ -1436,9 +1653,16 @@ class GenerateAPI:
             decoder = self._build_probed_decoder(kwargs)
         except Exception:   # noqa: BLE001 - the breaker retries
             traceback.print_exc()
+            # close the edge either way: a retry opens its own
+            memscope.edge_end("breaker_rebuild", gc_collect=True)
             return False
         self.last_rebuild["capture_s"] = capture_s
         self._install_decoder(decoder)
+        # the old decoder is unbound now; the seam already pays a build,
+        # so a collection before the diff costs nothing that matters
+        verdict = memscope.edge_end("breaker_rebuild", gc_collect=True)
+        if verdict is not None and verdict["leak"]:
+            memscope.flush_incidents()
         return True
 
     def request_trip(self, reason):
@@ -1496,8 +1720,10 @@ class GenerateAPI:
         Nothing is shed on either path: the staged queue held while the
         swap was pending and drains into whichever weights won. Both
         outcomes are noted in the flight ring (``deploy.swap_refused``,
-        ``deploy.swap``); the JAX package's memory-scope edge waits for
-        ROADMAP A7 (b)."""
+        ``deploy.swap``), and the seam is a memscope lifecycle edge (the
+        stash grows on purpose under its exempt owner)."""
+        memscope = get_memscope()
+        memscope.edge_begin("swap_params")
         started = time.perf_counter()
         new_params = holder["params"]
         new_table = holder.get("embed_table")
@@ -1545,6 +1771,7 @@ class GenerateAPI:
             holder["error"] = ("swap refused, old weights serving: %s"
                                % exc)
             holder["event"].set()
+            memscope.edge_end("swap_params", gc_collect=True)
             return False
         done = time.perf_counter()
         self.last_swap = {"drain_s": started - holder["requested_at"],
@@ -1563,12 +1790,16 @@ class GenerateAPI:
         self.health.incr("param_swaps")
         get_flight_recorder().note("deploy.swap", version=str(self.version))
         holder["event"].set()
+        verdict = memscope.edge_end("swap_params", gc_collect=True)
+        if verdict is not None and verdict["leak"]:
+            memscope.flush_incidents()
         return True
 
     def _note_progress(self, waiting):
-        """After a collect: book queue waits (staged to admitted), times
-        to the first token and, at completion, times per output token
-        into the health windows, and resolve every finished request."""
+        """After a collect: book queue waits (staged to admitted) and
+        times to the first token into the health windows, and resolve
+        every finished request (its time per output token comes from its
+        ledger row, in :meth:`_resolve`)."""
         decoder = self.decoder
         now = time.monotonic()
         for rid in list(waiting):
@@ -1581,15 +1812,11 @@ class GenerateAPI:
                     self.health.record_latency(
                         "queue_wait", max(0.0, admitted - staged_at))
             if "first_token" not in holder and decoder.results.get(rid):
-                holder["first_token"] = now
+                holder["first_token"] = True
                 self.health.record_latency("ttft",
                                            max(0.0, now - staged_at))
             if decoder.done(rid):
                 tokens = decoder.results.pop(rid)
-                if len(tokens) > 1:
-                    holder["tpot"] = ((now - holder["first_token"])
-                                      / (len(tokens) - 1))
-                    self.health.record_latency("tpot", holder["tpot"])
                 get_tracer().event("serve.complete",
                                    parent=holder.get("trace"), rid=rid,
                                    tokens=len(tokens))
@@ -1598,7 +1825,7 @@ class GenerateAPI:
 
     def _drive(self):
         """The lag-1 loop (``serving.py:3099-3268``, without the
-        governor, the rollout and the serve scope): each pass drains the
+        governor and the rollout): each pass drains the
         staged queue, expires deadlines, DISPATCHES chunk N+1 and only
         then collects chunk N, so the card computes the next chunk while
         the host reads the last one back. The breaker opens on any
@@ -1645,7 +1872,11 @@ class GenerateAPI:
                             self._swap_request, None
                         self._apply_swap(holder)
                         continue
-                    if self._wake.wait(timeout=0.05):
+                    idle_from = time.monotonic()
+                    woke = self._wake.wait(timeout=0.05)
+                    # the queue-empty wall is the scope's idle, not host
+                    self.scope.note_idle(time.monotonic() - idle_from)
+                    if woke:
                         self._wake.clear()
                     continue
                 try:
@@ -1656,6 +1887,12 @@ class GenerateAPI:
                         self.decoder.collect_chunk(self._pending)
                     self._pending = current
                     self._note_progress(waiting)
+                    # the waste and occupancy autopsy, off the record
+                    # path: a broken autopsy never takes the driver down
+                    try:
+                        self.scope.autopsy_tick(get_metric_history())
+                    except Exception:   # noqa: BLE001
+                        traceback.print_exc()
                 except Exception as exc:   # noqa: BLE001 - device fault
                     traceback.print_exc()
                     self._pending = None
@@ -1704,19 +1941,27 @@ class GenerateAPI:
         return prompt, budget, float(deadline_s)
 
     def _serve(self, handler, prompt, budget, deadline_s, span=NULL_SPAN,
-               trace_hint=None):
+               trace_hint=None, tenant=""):
         """Admission, staging and the reply of one validated request.
         ``span`` is its ``serve.request`` span: its context rides the
         holder to the driver and is echoed in ``X-Veles-Trace``; with
         tracing off the client's trace id (``trace_hint``) still rides
-        the holder, so the latency exemplars link to it."""
+        the holder and the ledger row, so the latency exemplars and the
+        autopsy link to it. The row opens before the admission verdict,
+        so a rejected request leaves one too (``serving.py:3405-3530``)."""
         from veles_tpu_torch.core.httpd import reply, retry_after_headers
 
+        ctx = span.context()
+        decoder = self.decoder
+        limit = budget if budget is not None else decoder.n_tokens
+        row = self.ledger.stage(
+            api=self.health.name, trace=ctx[0] if ctx else trace_hint,
+            tenant=tenant, prompt_len=len(prompt), budget=limit,
+            bucket=decoder.bucket_for(len(prompt)), quant=decoder.quantize,
+            breaker_gen=self.health.counter("rebuilds"), deadline=deadline_s)
         booked = {}
         pool_gate = None
-        if self.decoder.pool is not None:
-            limit = budget if budget is not None else self.decoder.n_tokens
-
+        if decoder.pool is not None:
             def pool_gate():
                 # the decoder is read INSIDE the gate (under the
                 # admission lock): a rebuild swaps it concurrently
@@ -1724,21 +1969,25 @@ class GenerateAPI:
                 pool = booked["pool"] = decoder.pool
                 need = booked["need"] = decoder.worst_case_pages(
                     len(prompt), limit, self.chunk)
+                self.ledger.mark(row, "pool_gated", pages_reserved=need)
                 if pool.try_reserve(need):
                     booked["reserved"] = True
                     return None
                 return pool.retry_after(need)
         verdict = self.health.try_admit(self.max_queue, pool_gate=pool_gate)
         if verdict == "unready":
+            self.ledger.resolve(row, "rejected", error="unready")
             reply(handler, {"error": self._tripped or "not ready"},
                   code=503, headers=retry_after_headers(self.health))
             return
         if verdict == "full":
+            self.ledger.resolve(row, "rejected", error="queue full")
             reply(handler, {"error": "saturated: %d requests in flight"
                             % self.max_queue},
                   code=429, headers=retry_after_headers(self.health))
             return
         if isinstance(verdict, tuple):
+            self.ledger.resolve(row, "rejected", error="kv page pool full")
             reply(handler, {"error": "kv page pool exhausted: need %d "
                             "pages, %d free" % (booked["need"],
                                                 booked["pool"].free_pages)},
@@ -1746,14 +1995,19 @@ class GenerateAPI:
                       1, round(verdict[1]))})
             return
         staged_at = time.monotonic()
-        trace = span.context()
+        trace = ctx
         if trace is None and trace_hint:
             trace = (trace_hint, None)
         holder = {"event": threading.Event(), "staged_at": staged_at,
-                  "deadline": staged_at + deadline_s, "trace": trace}
+                  "deadline": staged_at + deadline_s, "trace": trace,
+                  "tenant": tenant, "ledger_row": row}
         if booked.get("reserved"):
             holder["pool"] = booked["pool"]
             holder["pool_reserved"] = booked["need"]
+        # the staged request's host scratch (prompt and budget, int32)
+        # under memscope's admission_scratch owner; _resolve drops it
+        holder["memscope_key"] = id(holder)
+        get_memscope().scratch_note(id(holder), (len(prompt) + limit) * 4)
         if not self._stage(prompt, budget, holder):
             self._resolve(holder, "errors", error="server stopped",
                           code=503)
@@ -1786,22 +2040,35 @@ class GenerateAPI:
         from veles_tpu_torch.core.httpd import (BodyTooLarge,
                                                 QuietHandlerMixin,
                                                 enable_metrics, read_body,
-                                                reply, serve_debug_index,
+                                                reply, serve_debug_history,
+                                                serve_debug_index,
+                                                serve_debug_memory,
+                                                serve_debug_requests,
+                                                serve_debug_serve,
                                                 serve_health, serve_metrics,
                                                 start_server)
 
         api = self
         # /metrics: the health counters and the decoder's dispatch and
         # timing state through weak scrape-time bridges; the decoder is
-        # read THROUGH the api, so a breaker rebuild swaps the source
-        registry = enable_metrics()
+        # read THROUGH the api, so a breaker rebuild swaps the source.
+        # This front holds the metric history's sampler until stop()
+        registry = enable_metrics(self)
         bridge(registry, self.health, publish_serving_health)
         bridge(registry, self,
                lambda reg, live: publish_decoder(reg, live.decoder))
+        bridge(registry, self.ledger, publish_request_ledger)
+        if self.slo is not None:
+            bridge(registry, self.slo, lambda reg, live: live.publish(reg))
 
         class Handler(QuietHandlerMixin, BaseHTTPRequestHandler):
             def do_GET(self):
-                if serve_metrics(self) or serve_debug_index(self):
+                if serve_metrics(self) \
+                        or serve_debug_requests(self, api.ledger) \
+                        or serve_debug_history(self) \
+                        or serve_debug_serve(self, api.scope, api.ledger) \
+                        or serve_debug_memory(self) \
+                        or serve_debug_index(self):
                     return
                 if not serve_health(self, api.health):
                     self.send_error(404)
@@ -1822,10 +2089,14 @@ class GenerateAPI:
                 # continue the caller's trace (or root a new one); the
                 # span covers admission, staging and the reply
                 parent = parse_trace_header(self.headers.get(TRACE_HEADER))
+                # the tenant, bounded, rides the ledger row and slices
+                # the SLO gauges
+                tenant = str(self.headers.get(TENANT_HEADER)
+                             or "").strip()[:64]
                 with get_tracer().span("serve.request",
                                        parent=parent) as span:
                     api._serve(self, prompt, budget, deadline_s, span,
-                               parent[0] if parent else None)
+                               parent[0] if parent else None, tenant)
 
         self._stop.clear()
         with self._stage_lock:
@@ -1852,6 +2123,7 @@ class GenerateAPI:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
+        release_history_sampler(self)
 
 
 # -- per-tick workflow serving (serving.py:66-232, :522-728) -----------------
@@ -2046,10 +2318,10 @@ class RESTfulAPI(Unit):
     Retry-After while the serving minibatch is full, 503 with
     Retry-After while not ready or when no tick answers within
     ``RESPONSE_TIMEOUT``; ``/healthz``, ``/readyz``, ``/metrics`` (the
-    health bridge) and ``/debug/``; each POST runs in a
-    ``restful.request`` span that continues an ``X-Veles-Trace``
-    header. The JAX package's request-ledger rows wait for ROADMAP A7
-    (b)."""
+    health bridge), ``/debug/`` and its four surfaces; each POST runs in
+    a ``restful.request`` span that continues an ``X-Veles-Trace``
+    header, and opens a request-ledger row (staged to resolved, with its
+    outcome: this front has no slot waterfall)."""
 
     VIEW_GROUP = "SERVICE"
     #: handler threads give up after this long without a tick
@@ -2085,13 +2357,17 @@ class RESTfulAPI(Unit):
         from veles_tpu_torch.core.httpd import (MAX_BODY, BodyTooLarge,
                                                 QuietHandlerMixin,
                                                 enable_metrics, read_body,
+                                                serve_debug_history,
                                                 serve_debug_index,
+                                                serve_debug_memory,
+                                                serve_debug_requests,
+                                                serve_debug_serve,
                                                 serve_health, serve_metrics,
                                                 start_server)
 
         api = self
         limit = self.max_body or MAX_BODY
-        bridge(enable_metrics(), self.health, publish_serving_health)
+        bridge(enable_metrics(self), self.health, publish_serving_health)
 
         class Handler(QuietHandlerMixin, BaseHTTPRequestHandler):
             def do_POST(self):
@@ -2109,7 +2385,11 @@ class RESTfulAPI(Unit):
                     api.serve(self, raw)
 
             def do_GET(self):
-                if serve_metrics(self) or serve_debug_index(self):
+                if serve_metrics(self) or serve_debug_requests(self) \
+                        or serve_debug_history(self) \
+                        or serve_debug_serve(self) \
+                        or serve_debug_memory(self) \
+                        or serve_debug_index(self):
                     return
                 if not serve_health(self, api.health):
                     self.send_error(404)
@@ -2125,6 +2405,7 @@ class RESTfulAPI(Unit):
             self._httpd_.shutdown()
             self._httpd_.server_close()
             self._httpd_ = None
+        release_history_sampler(self)
 
     # -- request side (handler threads) ---------------------------------------
     def _fail(self, handler, message):
@@ -2171,10 +2452,18 @@ class RESTfulAPI(Unit):
         data = self._decode(handler, payload)
         if data is None:
             return
+        # the request-truth row (``serving.py:665-711``): staged and
+        # resolved stamps and an outcome
+        ctx = current_context()
+        ledger = get_request_ledger()
+        row = ledger.stage(api=self.health.name,
+                           trace=ctx[0] if ctx else None,
+                           prompt_len=int(getattr(data, "size", 0)))
         # the same atomic admit/release pair as GenerateAPI, so the
         # /healthz inflight gauge and counters stay balanced (the queue
         # bound itself is the minibatch: feed overflows)
         if self.health.try_admit(None) is not None:
+            ledger.resolve(row, "rejected", error="not ready")
             reply(handler, {"error": "not ready"}, code=503,
                   headers=retry_after_headers(self.health))
             return
@@ -2185,21 +2474,25 @@ class RESTfulAPI(Unit):
             # the serving minibatch is full: shed with a retry hint
             # instead of queueing without bound
             self.health.reject_admitted()
+            ledger.resolve(row, "rejected", error="saturated")
             reply(handler, {"error": "server saturated: retry"},
                   code=429, headers=retry_after_headers(self.health))
             return
         except (ValueError, TypeError) as exc:
             self.health.release("errors")
+            ledger.resolve(row, "errors", error=str(exc))
             self._fail(handler, "invalid input: %s" % exc)
             return
         if not responder["event"].wait(self.RESPONSE_TIMEOUT):
             # a server-side stall is retryable: 503, never a 400
             self.health.release("expired")
+            ledger.resolve(row, "expired", error="inference timed out")
             self.warning("inference timed out")
             reply(handler, {"error": "inference timed out"}, code=503,
                   headers=retry_after_headers(self.health))
             return
         self.health.release("completed")
+        ledger.resolve(row, "completed")
         reply(handler, {"result": responder["result"]})
 
     # -- response side (workflow thread, after the forward tick) --------------
