@@ -267,6 +267,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    warm-up: medians printed, no gate; K1 4 and K2 17 launches a decode
    step in every run.
 
+21. (run after phase 20) what acts on the hooks at the serving model's
+   width, requests one at a time with prompts shorter than a page: the
+   tier ladder (the paged front at bf16, ``ttft_p95_ms`` 250 over 2 s /
+   8 s windows, a held 300 ms latency ramp, the governor's ladder
+   int8+int8-kv with a 3 s cooldown): demote, demote, promote, promote
+   and no more, one move a cooldown at most, every reply 200, every
+   ledger row's quant the tier that served it (the demoted ones with
+   their stage), every stream equal to a fixed-tier decoder's on the
+   card, each rung's launches on its kernels (bf16 K1, int8 K1 + K2,
+   int8-kv K3 + K2); the time from the first demotion to the last
+   promotion and each swap's drain, build and probe printed, and any
+   kernel build inside the ladder. Pressure: a pool flood past
+   ``pool_high`` halves the admission bound, every 429 carries an
+   integer Retry-After in [1, 60]. The breaker guard: the device-memory
+   fraction below ``guard_memory_frac``, a compile storm trips the
+   breaker once, the front heals with the same streams. Blue-green on the
+   dense slab at int8-kv (K4 + K2), candidate weights from
+   ``SWAP_SEED``, tenants picked by hash point: a clean rollout promotes
+   (blue bit-equal to no deploy, green equal to the new weights, no
+   ``rollout_promote`` verdict); a green ramp rolls back with nothing
+   shed and an incident led by ``veles_ctrl_deploy_ttft_ms``; both walls
+   printed. Record, replay, capacity and regress on the paged int8 front
+   with two tenants, through ``observe``'s CLI: a trace without the
+   tenants' bytes and a sidecar that verifies, a replay at x1 that
+   delivers every token, a capacity report (sustained tokens/s and the
+   first breaching series printed), regress 0 on itself and 1 at -15%.
+
 Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
 8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
 bound.
@@ -277,6 +304,7 @@ non-zero before printing either.
 """
 
 import base64
+import collections
 import contextlib
 import gc
 import glob
@@ -301,6 +329,7 @@ import time
 import urllib.error
 import urllib.request
 import wave
+import zlib
 
 import numpy
 import torch
@@ -330,6 +359,7 @@ from veles_tpu_torch.models.standard import StandardWorkflow
 from veles_tpu_torch.nn.decision import DecisionGD
 from veles_tpu_torch.observe import servescope as servescope_mod
 from veles_tpu_torch.observe.flight import get_flight_recorder, load_dump
+from veles_tpu_torch.observe.governor import GovernorConfig, ServingGovernor
 from veles_tpu_torch.observe.history import (AnomalyRule, IncidentRecorder,
                                              MetricHistory,
                                              set_metric_history)
@@ -380,6 +410,7 @@ from veles_tpu_torch.parallel.segments import FusedSegment
 from veles_tpu_torch.parallel.sweep import FusedSweep
 from veles_tpu_torch.parallel.transformer_step import (
     init_transformer_params)
+from veles_tpu_torch.rollout import RolloutConfig
 from veles_tpu_torch.serving import (ContinuousDecoder, GenerateAPI,
                                      RESTfulAPI, RestfulLoader, _tree_bytes)
 from veles_tpu_torch.serving_chaos import (ServingChaosConfig,
@@ -6163,6 +6194,656 @@ def hooks_phase(device, prompts):
     return launches
 
 
+# -- phase 21: what acts on the hooks (ROADMAP A7 (c)) -----------------------
+
+#: phase 21's prompts: shorter than a page, so no admission is a prefix
+#: hit or tail and every stream compares with a single cold admission
+ACT_PROMPT_LENS = (48, 80, 112)
+#: the tier ladder: a ttft objective the fronts meet (single requests,
+#: 50-100 ms on this host-bound path) and a held latency ramp well above
+#: the host's noise (a chunk's enqueue reads 23-45 ms) that breaks it;
+#: the cooldown at least the short window, or a swap's own stall burns
+#: the objective again and the ladder oscillates
+LADDER_SLO = {"ttft_p95_ms": 250.0}
+LADDER_WINDOWS, LADDER_BUCKET_S = (2.0, 8.0), 0.25
+LADDER_COOLDOWN_S = 3.0
+LADDER_RAMP_MS = 300.0
+LADDER_MOVES = [("demote", "int8"), ("demote", "int8-kv"),
+                ("promote", "int8"), ("promote", "bf16")]
+#: the kernels each rung must launch, and must not
+RUNG_KERNELS = {"bf16": ({"paged_attend"},
+                         {"int8_matmul", "paged_attend_int8"}),
+                "int8": ({"paged_attend", "int8_matmul"},
+                         {"paged_attend_int8"}),
+                "int8-kv": ({"paged_attend_int8", "int8_matmul"},
+                            {"paged_attend"})}
+#: the pressure front: a flood of nine tenths of the pool past pool_high
+#: and a bound the flood halves; a prompt of 990 tokens wants more pages
+#: than the flood leaves
+PRESSURE_MAX_QUEUE, PRESSURE_FLOOD, PRESSURE_BIG = 8, 0.9, 990
+#: the rollout: the first rung's fraction, and the green ramp's peak (a
+#: green TTFT of two stalled passes against blue's 50-100 ms)
+ROLLOUT_STEPS = (0.3, 1.0)
+GREEN_RAMP_MS = 400.0
+#: record, replay, capacity: the recorded requests (four times the slots,
+#: so a high warp queues them: 16 did not breach up to x64), the front's
+#: objective, and the escalation (x1, x4, x16, x64 at most, then two
+#: bisections of the cliff)
+CAPACITY_REQUESTS = 32
+CAPACITY_SLO = "ttft_p95_ms=300"
+CAPACITY_WARPS = ("1", "4", "64", "2")
+ACT_TENANTS = ("tenant-alpha", "tenant-beta")
+
+
+def hash_point(tenant):
+    """A tenant's fixed point in [0, 1) (``rollout.routes_green``)."""
+    return (zlib.crc32(tenant.encode()) % 10000) / 10000.0
+
+
+def act_post(port, tokens, trace=None, tenant=None):
+    """One POST that returns (code, tokens or None, headers) for any
+    status."""
+    headers = {"Content-Type": "application/json"}
+    if trace is not None:
+        headers["X-Veles-Trace"] = "%s/%s" % (trace, CLIENT_SPAN)
+    if tenant is not None:
+        headers["X-Veles-Tenant"] = tenant
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/generate" % port, data=json.dumps(
+            {"tokens": tokens, "n_tokens": N_TOKENS}).encode(),
+        headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return (resp.status, json.loads(resp.read().decode())["tokens"],
+                    dict(resp.headers))
+    except urllib.error.HTTPError as err:
+        err.read()
+        return err.code, None, dict(err.headers)
+
+
+def fixed_tier_streams(params, table, prompts, quantize, paged, device):
+    """Each prompt alone through a decoder fixed at ``quantize`` (the
+    served requests are admitted one at a time too, so the batches
+    match); the launches are not counted."""
+    before = counts()
+    decoder = ContinuousDecoder(params, table, HEADS, slots=SLOTS,
+                                max_len=MAX_LEN, n_tokens=N_TOKENS,
+                                quantize=quantize, paged=paged,
+                                page_size=PAGE, device=device)
+    streams = []
+    for prompt in prompts:
+        rid = decoder.submit(prompt)
+        decoder.run_until_drained(chunk=CHUNK)
+        streams.append(decoder.results.pop(rid))
+    for name, fn in COUNTERS.items():
+        fn.launches = before[name]
+    return streams
+
+
+def wait_for(predicate, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError("timed out waiting for %s" % what)
+        time.sleep(0.01)
+
+
+def ladder_phase(device, params, table, prompts):
+    """The tier ladder on the paged front at bf16: a held latency ramp
+    burns ``ttft_p95_ms``; the governor demotes bf16 -> int8 -> int8-kv
+    while it holds, and after ``clear_ramp`` and a trickle of requests
+    promotes back, one move per cooldown window at most. Requests go one
+    at a time: every answer 200, every ledger row's quant the tier that
+    served it (the demoted ones with their stage), every stream equal to
+    a fixed-tier decoder's, each rung's launches on its kernels. Returns
+    the launches."""
+    governor = ServingGovernor(GovernorConfig(
+        demote_burn=2.0, recover_burn=1.0, cooldown_s=LADDER_COOLDOWN_S,
+        interval_s=0.05, ladder=("int8", "int8-kv"), breaker_guard=False,
+        prewarm=False))
+    monkey = ServingChaosMonkey(ServingChaosConfig(
+        latency_ramp_ms=LADDER_RAMP_MS, latency_ramp_steps=2,
+        latency_ramp_hold=1 << 30))
+    ledger = RequestLedger()
+    tracker = get_compile_tracker()
+    builds0 = dict(tracker.snapshot()["compiles"])
+    api = GenerateAPI(params, table, HEADS, slots=SLOTS, max_len=MAX_LEN,
+                      n_tokens=N_TOKENS, chunk=CHUNK, paged=True,
+                      page_size=PAGE, ledger=ledger, governor=governor,
+                      chaos=monkey, slo=SLOEngine(
+                          LADDER_SLO, windows=LADDER_WINDOWS,
+                          bucket_seconds=LADDER_BUCKET_S),
+                      device=device).start()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    rungs = [("bf16", counts())]
+    apply_tier = api._apply_tier
+
+    def counted_apply(tier):
+        # the old decoder drained: what launches from here on (the new
+        # decoder's probe first) is the new rung's
+        rungs.append((tier, counts()))
+        return apply_tier(tier)
+    api._apply_tier = counted_apply
+    sent = []
+
+    def send():
+        index = len(sent)
+        trace = "%016x" % (0xac7000 + index)
+        code, tokens, _ = act_post(api.port, prompts[index % len(prompts)],
+                                   trace=trace)
+        sent.append((trace, index % len(prompts), code, tokens))
+    t0 = time.perf_counter()
+    try:
+        deadline = time.monotonic() + 90
+        while api.decoder.quantize != "int8-kv" \
+                and time.monotonic() < deadline:
+            send()
+        if api.decoder.quantize != "int8-kv":
+            raise AssertionError("the ladder never reached int8-kv: %s"
+                                 % governor.snapshot())
+        for _ in range(2):   # the bottom rung holds under the ramp
+            send()
+        monkey.clear_ramp()
+        cleared = time.monotonic()
+        while (governor.level or api.decoder.quantize is not None) \
+                and time.monotonic() < deadline + 60:
+            send()
+            time.sleep(0.05)
+        send()
+    finally:
+        api.stop()
+    wall = time.perf_counter() - t0
+    rungs.append(("end", counts()))
+    builds = dict(tracker.snapshot()["compiles"])
+    if builds != builds0:
+        print("kernel builds during the ladder: before %s, after %s"
+              % (builds0, builds))
+    moves = [t for t in governor.transitions
+             if t["action"] in ("demote", "promote")]
+    if [(t["action"], t["tier"]) for t in moves] != LADDER_MOVES:
+        raise AssertionError("the ladder moved %s" % [
+            (t["action"], t["tier"], t["reason"]) for t in moves])
+    for a, b in zip(moves, moves[1:]):
+        if b["mono"] - a["mono"] < LADDER_COOLDOWN_S:
+            raise AssertionError("two moves inside one cooldown: %s, %s"
+                                 % (a, b))
+    codes = [code for _, _, code, _ in sent]
+    if set(codes) != {200}:
+        raise AssertionError("the ladder answered %s" % codes)
+    want = {tier: fixed_tier_streams(
+        params, table, prompts, None if tier == "bf16" else tier, True,
+        device) for tier in ("bf16", "int8", "int8-kv")}
+    rows = {row["trace"]: row for row in ledger.slowest(1024)}
+    served = collections.Counter()
+    for trace, index, _, tokens in sent:
+        row = rows[trace]
+        tier = row["quant"]
+        served[tier] += 1
+        if tokens != want[tier][index]:
+            raise AssertionError("request %s at %s: %s != the fixed-tier "
+                                 "decoder's %s" % (trace, tier, tokens,
+                                                   want[tier][index]))
+        stages = [stage for stage, _ in row["stages"]]
+        if tier != "bf16" and ("demoted" not in stages
+                               or row.get("tier") != tier):
+            raise AssertionError("demoted row %s: %s" % (trace, row))
+    if set(served) != set(RUNG_KERNELS):
+        raise AssertionError("tiers served: %s" % dict(served))
+    launches = dict.fromkeys(COUNTERS, 0)
+    segments = []
+    for (tier, start), (_, end) in zip(rungs, rungs[1:]):
+        got = {name: end[name] - start[name] for name in COUNTERS}
+        must, must_not = RUNG_KERNELS[tier]
+        if any(got[name] <= 0 for name in must) \
+                or any(got[name] for name in must_not) \
+                or got["int8_cache_attend"]:
+            raise AssertionError("the %s rung launched %s" % (tier, got))
+        segments.append("%s K1 %d K2 %d K3 %d" % (
+            tier, got["paged_attend"], got["int8_matmul"],
+            got["paged_attend_int8"]))
+        for name, n in got.items():
+            launches[name] += n
+    first, last = moves[0], moves[-1]
+    print("tier ladder (paged front, bf16 base, ramp %.0f ms held, "
+          "ttft_p95_ms %.0f over %s s windows, cooldown %.1f s): %d "
+          "requests in %.1f s, all 200, served %s; demote to recover %.3f "
+          "s (first demotion to last promotion; the ramp cleared %.3f s "
+          "before the last promotion); moves %s" % (
+              LADDER_RAMP_MS, LADDER_SLO["ttft_p95_ms"], LADDER_WINDOWS,
+              LADDER_COOLDOWN_S, len(sent), wall, dict(served),
+              last["mono"] - first["mono"], last["mono"] - cleared,
+              ["%s %s burn %.3g" % (t["action"], t["tier"], t["burn"])
+               for t in moves]))
+    print("tier swaps (drained, built and probed at the new tier): %s" % (
+        "; ".join("%s: drain %.3f s, build %.3f s, probe %.3f s, swap "
+                  "%.3f s" % (swap["tier"], swap["drain_s"],
+                              swap["build_s"], swap["probe_s"],
+                              swap["swap_s"]) for swap in api.tier_swaps)))
+    print("ladder launches by rung: %s" % "; ".join(segments))
+    return launches
+
+
+def pressure_phase(device, params, table, prompts):
+    """Pressure and price on the paged front at bf16: a flood of
+    :data:`PRESSURE_FLOOD` of the pool past ``pool_high`` halves the
+    admission limit; a prompt wanting more pages than the flood leaves,
+    and a burst past the halved bound, get 429s, each with an integer
+    Retry-After in [1, 60] (the pool's page-release price and the
+    governor's); nothing answers 5xx; the release brings the bound back.
+    Returns the launches."""
+    governor = ServingGovernor(GovernorConfig(
+        demote_burn=1e9, cooldown_s=0.5, interval_s=0.02, pool_high=0.85,
+        min_admit=2, breaker_guard=False, prewarm=False))
+    pages = default_pool_pages(SLOTS, MAX_LEN, PAGE, chunk=N_TOKENS)
+    flood = int(PRESSURE_FLOOD * pages)
+    monkey = ServingChaosMonkey(ServingChaosConfig(
+        pool_flood_pages=flood, pool_flood_at=2, pool_flood_steps=1 << 30))
+    api = GenerateAPI(params, table, HEADS, slots=SLOTS, max_len=MAX_LEN,
+                      n_tokens=N_TOKENS, chunk=CHUNK, paged=True,
+                      page_size=PAGE, max_queue=PRESSURE_MAX_QUEUE,
+                      ledger=RequestLedger(), governor=governor,
+                      chaos=monkey, device=device).start()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    replies = []
+    try:
+        deadline = time.monotonic() + 60
+        while "flood_start" not in monkey.stamps \
+                and time.monotonic() < deadline:
+            replies.append(act_post(api.port, prompts[0]))
+        wait_for(lambda: (replies.append(act_post(api.port, prompts[1])),
+                          api.effective_max_queue
+                          == PRESSURE_MAX_QUEUE // 2)[1], 30,
+                 "the halved admission bound")
+        big = numpy.random.RandomState(5).randint(
+            0, VOCAB, PRESSURE_BIG).tolist()
+        big_reply = act_post(api.port, big)
+        replies.append(big_reply)
+        burst_replies = [None] * (2 * SLOTS)
+
+        def client(i):
+            burst_replies[i] = act_post(api.port, prompts[i % len(prompts)])
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(burst_replies))]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(600)
+        replies.extend(burst_replies)
+        price, health_price = governor.retry_price, \
+            api.health.retry_after_s()
+        monkey.release_flood()
+        wait_for(lambda: (replies.append(act_post(api.port, prompts[2])),
+                          api.effective_max_queue == PRESSURE_MAX_QUEUE)[1],
+                 30, "the bound back")
+        launches = counts()
+    finally:
+        monkey.release_flood()
+        api.stop()
+    codes = collections.Counter(code for code, _, _ in replies)
+    rejected = [headers for code, _, headers in replies if code == 429]
+    if big_reply[0] != 429 or len(rejected) < 2 \
+            or set(codes) - {200, 429}:
+        raise AssertionError("pressure replies %s (the big prompt %d)"
+                             % (dict(codes), big_reply[0]))
+    prices = [headers.get("Retry-After") for headers in rejected]
+    if not all(p is not None and p.isdigit() and 1 <= int(p) <= 60
+               for p in prices):
+        raise AssertionError("Retry-After headers %s" % prices)
+    if health_price != price:
+        raise AssertionError("the health prices %s, the governor %s"
+                             % (health_price, price))
+    if governor.counters["admit_resizes"] < 2:
+        raise AssertionError("admission resizes %s" % governor.counters)
+    print("pressure (paged front, %d pages, flood %d = %.1f%% past "
+          "pool_high 0.85): admission bound %d -> %d -> %d, %d replies "
+          "%s, Retry-After %s s (governor price %.3f s)" % (
+              pages, flood, 100.0 * flood / pages, PRESSURE_MAX_QUEUE,
+              PRESSURE_MAX_QUEUE // 2, PRESSURE_MAX_QUEUE, len(replies),
+              dict(codes), sorted(set(prices), key=int), price))
+    return launches
+
+
+def guard_phase(device, params, table, prompts):
+    """The breaker guard on the paged front at bf16: the device-memory
+    fraction the guard reads is below ``guard_memory_frac`` before the
+    storm (so the guard cannot trip on its own), then ``compile_storm_at``
+    books a rebuild storm; the governor trips the breaker once, the
+    front rebuilds and is ready again, and the streams after the heal
+    equal those before it. Returns the launches."""
+    governor = ServingGovernor(GovernorConfig(
+        demote_burn=1e9, cooldown_s=5.0, interval_s=0.02,
+        breaker_guard=True, prewarm=False))
+    monkey = ServingChaosMonkey(ServingChaosConfig(compile_storm_at=30))
+    api = GenerateAPI(params, table, HEADS, slots=SLOTS, max_len=MAX_LEN,
+                      n_tokens=N_TOKENS, chunk=CHUNK, paged=True,
+                      page_size=PAGE, ledger=RequestLedger(),
+                      governor=governor, chaos=monkey,
+                      rebuild_backoff=SMOKE_BACKOFF, device=device).start()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    codes = collections.Counter()
+    try:
+        frac = ServingGovernor._device_memory_frac()
+        if frac is None or frac >= governor.config.guard_memory_frac:
+            raise AssertionError("device memory fraction %s" % frac)
+        before = []
+        for prompt in prompts:
+            code, tokens, _ = act_post(api.port, prompt)
+            codes[code] += 1
+            before.append(tokens)
+        deadline = time.monotonic() + 60
+        while not governor.counters["guard_trips"] \
+                and time.monotonic() < deadline:
+            codes[act_post(api.port, prompts[0])[0]] += 1
+        trip_at = time.monotonic()
+        wait_for(lambda: api.health.counter("rebuilds") >= 1, 60,
+                 "the rebuild")
+        wait_for(lambda: api.health.ready, 60, "ready")
+        healed = time.monotonic() - trip_at
+        after = []
+        for prompt in prompts:
+            code, tokens, _ = act_post(api.port, prompt)
+            codes[code] += 1
+            after.append(tokens)
+        launches = counts()
+    finally:
+        api.stop()
+    if governor.counters["guard_trips"] != 1 \
+            or monkey.counters["compile_storms"] != 1 \
+            or not any(t["action"] == "guard_trip" and "storm" in t["reason"]
+                       for t in governor.transitions):
+        raise AssertionError("the guard: %s, chaos %s" % (
+            governor.snapshot(), monkey.counters))
+    if after != before or any(t is None for t in before):
+        raise AssertionError("streams after the heal differ: %s vs %s"
+                             % (after, before))
+    if set(codes) - {200, 503}:
+        raise AssertionError("guard replies %s" % dict(codes))
+    print("breaker guard (paged front): device memory at %.4f of the "
+          "card before the storm (guard at %.2f); the storm tripped the "
+          "breaker once, ready again %.3f s after the trip (rebuild %s), "
+          "replies %s, streams after the heal equal" % (
+              frac, governor.config.guard_memory_frac, healed,
+              {k: round(v, 4) for k, v in api.last_rebuild.items()},
+              dict(codes)))
+    return launches
+
+
+def rollout_phase(device, params, table, prompts, run_dir):
+    """Blue-green on the dense slab at int8-kv (K4 + K2), candidate
+    weights from :data:`SWAP_SEED`, a blue and a green tenant picked by
+    hash point, requests one at a time: a clean rollout reaches
+    ``promoted`` with every blue stream bit-equal to a run with no deploy
+    and every green stream equal to a decoder's on the new weights, and
+    the ``rollout_promote`` memscope edge gives no verdict; a green ramp
+    reaches ``rolled_back`` with nothing shed and an incident led by
+    ``veles_ctrl_deploy_ttft_ms``. Returns the launches."""
+    rng = numpy.random.RandomState(SWAP_SEED)
+    params2 = init_transformer_params(rng, BLOCKS, EMBED, HEADS, VOCAB,
+                                      dtype=torch.bfloat16, device=device)
+    tenants = ["tenant-%d" % i for i in range(1000)]
+    green_t = next(t for t in tenants if hash_point(t) < ROLLOUT_STEPS[0])
+    blue_t = next(t for t in tenants if hash_point(t) >= ROLLOUT_STEPS[0])
+    want = {"blue": fixed_tier_streams(params, table, prompts, "int8-kv",
+                                       False, device),
+            "green": fixed_tier_streams(params2, table, prompts,
+                                        "int8-kv", False, device)}
+    launches = dict.fromkeys(COUNTERS, 0)
+    walls = {}
+    for label in ("clean", "bad"):
+        bad = label == "bad"
+        history = None
+        if bad:
+            history = MetricHistory(
+                registry=get_metrics_registry(), interval_s=0.2,
+                incidents=IncidentRecorder(cooldown_s=0.0,
+                                           directory=run_dir))
+            set_metric_history(history)
+            min_eval, servescope_mod.MIN_EVAL_TOKENS = (
+                servescope_mod.MIN_EVAL_TOKENS, 1 << 62)
+        chaos = ServingChaosMonkey(ServingChaosConfig(
+            deploy_green_ramp_ms=GREEN_RAMP_MS,
+            deploy_green_ramp_steps=2)) if bad else None
+        ledger = RequestLedger()
+        api = GenerateAPI(params, table, HEADS, slots=SLOTS,
+                          max_len=MAX_LEN, n_tokens=N_TOKENS, chunk=CHUNK,
+                          quantize="int8-kv", ledger=ledger, chaos=chaos,
+                          device=device).start()
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        sent = []
+        ends = {}
+        try:
+            act_post(api.port, prompts[0][:16])
+            config = RolloutConfig(
+                steps=ROLLOUT_STEPS, hold_s=30.0 if bad else 0.5,
+                cooldown_s=30.0 if bad else 0.5, window_s=20.0,
+                min_requests=2, interval_s=0.05,
+                ttft_ratio=1.5 if bad else 5.0)
+            began = time.perf_counter()
+            rollout = api.begin_rollout(params2, version="v2",
+                                        config=config)
+            for name in ("finish_promote", "finish_rollback"):
+                real = getattr(rollout, name)
+                setattr(rollout, name, lambda api, real=real, name=name: (
+                    ends.__setitem__(name, time.perf_counter()),
+                    real(api=api))[1])
+            terminal = "rolled_back" if bad else "promoted"
+            deadline = time.monotonic() + 90
+            while rollout.state != terminal \
+                    and time.monotonic() < deadline:
+                for tenant in (blue_t, green_t):
+                    index = len(sent) % len(prompts)
+                    trace = "%016x" % (0x9e11 + len(sent))
+                    code, tokens, _ = act_post(api.port, prompts[index],
+                                               trace=trace, tenant=tenant)
+                    sent.append((trace, index, code, tokens))
+            if rollout.state != terminal:
+                raise AssertionError("the %s rollout stayed %s: %s" % (
+                    label, rollout.state, rollout.snapshot()))
+            if not bad:
+                wait_for(lambda: any(v["edge"] == "rollout_promote"
+                                     for v in get_memscope().edges), 30,
+                         "the rollout_promote edge")
+                verdict = [v for v in get_memscope().edges
+                           if v["edge"] == "rollout_promote"][-1]
+                if verdict["leak"]:
+                    raise AssertionError("rollout_promote verdict %s"
+                                         % verdict)
+                for index in range(len(prompts)):
+                    trace = "%016x" % (0x9e11 + len(sent))
+                    code, tokens, _ = act_post(api.port, prompts[index],
+                                               trace=trace, tenant=blue_t)
+                    sent.append((trace, index, code, tokens))
+            health = api.health.snapshot()
+        finally:
+            api.stop()
+            if bad:
+                set_metric_history(None)
+                servescope_mod.MIN_EVAL_TOKENS = min_eval
+        got = counts()
+        if got["int8_cache_attend"] <= 0 or got["int8_matmul"] <= 0 \
+                or got["paged_attend"] or got["paged_attend_int8"]:
+            raise AssertionError("the %s rollout launched %s"
+                                 % (label, got))
+        for name, n in got.items():
+            launches[name] += n
+        rows = {row["trace"]: row for row in ledger.slowest(1024)}
+        roles = collections.Counter()
+        for trace, index, code, tokens in sent:
+            row = rows[trace]
+            # without a role: served after the rollback (blue's weights)
+            # or after the promotion (green's)
+            role = row.get("deploy") or ("rolled_back" if bad
+                                         else "promoted")
+            roles[role] += 1
+            expect = want["blue" if role in ("blue", "rolled_back")
+                          else "green"][index]
+            if code != 200 or tokens != expect:
+                raise AssertionError("%s rollout, %s request %s: %s %s, "
+                                     "want %s" % (label, role, trace,
+                                                  code, tokens, expect))
+        if health["counters"].get("shed", 0) \
+                or not roles["blue"] or not roles["green"]:
+            raise AssertionError("%s rollout: roles %s, counters %s" % (
+                label, dict(roles), health["counters"]))
+        end = ends.get("finish_rollback" if bad else "finish_promote")
+        walls[label] = end - began
+        if bad:
+            incidents = sorted(glob.glob(os.path.join(
+                run_dir, "incident-*-deploy_green_ttft-*.json")))
+            if not incidents:
+                raise AssertionError("no deploy_green_ttft incident in %s"
+                                     % os.listdir(run_dir))
+            with open(incidents[-1]) as fin:
+                leading = json.load(fin)["leading_indicator"]
+            if leading.get("series") != "veles_ctrl_deploy_ttft_ms":
+                raise AssertionError("the incident led with %s" % leading)
+            print("bad green (ramp %.0f ms on green steps, ttft_ratio 1.5): "
+                  "begin to rolled_back %.3f s, %s; requests %s, nothing "
+                  "shed; incident led by %s" % (
+                      GREEN_RAMP_MS, walls[label], rollout.reason,
+                      dict(roles), leading["series"]))
+        else:
+            print("clean rollout (dense slab int8-kv, steps %s, blue %s at "
+                  "%.4f, green %s at %.4f): begin to promoted %.3f s (the "
+                  "green build and probe %.3f s of it); requests %s, blue "
+                  "streams bit-equal to no deploy, green equal to the new "
+                  "weights; rollout_promote edge: no verdict" % (
+                      ROLLOUT_STEPS, blue_t, hash_point(blue_t), green_t,
+                      hash_point(green_t), walls[label],
+                      api.last_rebuild["build_s"]
+                      + api.last_rebuild["probe_s"], dict(roles)))
+    return launches
+
+
+def capacity_phase(device, params, table, prompts, out):
+    """Record, replay, capacity and regress on the paged int8 front (K1 +
+    K2) with two tenants: ``observe record --live`` writes a trace with no
+    raw tenant bytes and a sidecar that verifies; ``observe replay`` at
+    warp 1 delivers every token; ``observe capacity`` writes a
+    ``veles-capacity-report``; ``observe regress`` passes it against
+    itself and fails a copy with ``capacity_sustained_tokens_per_sec``
+    cut by 15%, naming the key. Returns the launches."""
+    from veles_tpu_torch.observe.capacity import write_capacity_report
+    from veles_tpu_torch.observe.regress import sha256_of
+    from veles_tpu_torch.observe.replay import load_trace
+    from veles_tpu_torch.observe.trace_export import main as observe_main
+
+    api = GenerateAPI(params, table, HEADS, slots=SLOTS, max_len=MAX_LEN,
+                      n_tokens=N_TOKENS, chunk=CHUNK, paged=True,
+                      page_size=PAGE, quantize="int8",
+                      ledger=RequestLedger(), slo=SLOEngine(CAPACITY_SLO),
+                      device=device).start()
+    base = "http://127.0.0.1:%d" % api.port
+    trace = os.path.join(out, "act.trace.jsonl")
+    report = os.path.join(out, "act.capacity.json")
+
+    def cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            code = observe_main(argv)
+        return code, buf.getvalue()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    try:
+        for i in range(CAPACITY_REQUESTS):
+            code, _, _ = act_post(api.port, prompts[i % len(prompts)],
+                                  tenant=ACT_TENANTS[i % 2])
+            if code != 200:
+                raise AssertionError("recording request %d: %d" % (i, code))
+        code, text = cli(["record", "--live", base, "-o", trace])
+        raw = open(trace, "rb").read()
+        if code or any(t.encode() in raw for t in ACT_TENANTS) \
+                or open(trace + ".sha256").read().split()[0] \
+                != sha256_of(trace):
+            raise AssertionError("record: %d %s" % (code, text))
+        header, rows = load_trace(trace)
+        code, text = cli(["replay", trace, "--live", base, "--warp", "1",
+                          "--vocab", str(VOCAB), "--workers", "16"])
+        summary = json.loads(text[text.index("{"):])
+        if code or summary["delivered_ratio"] != 1.0:
+            raise AssertionError("replay: %d %s" % (code, summary))
+        t0 = time.perf_counter()
+        code, text = cli(["capacity", trace, "--live", base, "-o", report,
+                          "--start-warp", CAPACITY_WARPS[0], "--warp-step",
+                          CAPACITY_WARPS[1], "--max-warp", CAPACITY_WARPS[2],
+                          "--refine-steps", CAPACITY_WARPS[3],
+                          "--vocab", str(VOCAB),
+                          "--workers", "16"])
+        capacity_s = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        api.stop()
+    doc = json.loads(open(report).read())
+    if code or doc["kind"] != "veles-capacity-report" \
+            or open(report + ".sha256").read().split()[0] \
+            != sha256_of(report):
+        raise AssertionError("capacity: %d %s" % (code, text))
+    keys = doc["keys"]
+    sustained = keys["capacity_sustained_tokens_per_sec"]
+    if sustained <= 0:
+        raise AssertionError("nothing sustained: %s" % doc["escalation"])
+    code_same, _ = cli(["regress", report, report])
+    cut = dict(doc, keys=dict(keys, capacity_sustained_tokens_per_sec=(
+        0.85 * sustained)))
+    worse = os.path.join(out, "act.capacity.cut.json")
+    write_capacity_report(cut, worse)
+    code_cut, text_cut = cli(["regress", report, worse])
+    if code_same != 0 or code_cut != 1 \
+            or "capacity_sustained_tokens_per_sec" not in text_cut:
+        raise AssertionError("regress: %d, %d %s" % (code_same, code_cut,
+                                                     text_cut))
+    breach = doc.get("breach") or {}
+    print("record, replay, capacity (paged int8 front, %s, %d requests of "
+          "2 tenants): trace of %d rows over %.3f s, lossy %s; replay at "
+          "x1 delivered %.3f, schedule skew p95 %.3f ms, %.1f tokens/s; "
+          "capacity in %.1f s over warps %s: sustains %.1f tokens/s at "
+          "x%.2f, cliff at x%.2f, first breaching series %s (%s), dominant "
+          "waste %s; regress exits 0 on itself and 1 at -15%%" % (
+              CAPACITY_SLO, CAPACITY_REQUESTS, header["count"],
+              header["span_s"], header["lossy"],
+              summary["delivered_ratio"], summary["schedule_skew_ms_p95"],
+              summary["tokens_per_sec"], capacity_s,
+              [e["warp"] for e in doc["escalation"]], sustained,
+              keys["capacity_sustained_warp_x"],
+              keys["capacity_cliff_warp_x"],
+              breach.get("first_breaching_series"),
+              (breach.get("detail") or {}).get("objective"),
+              breach.get("dominant_waste_cause")))
+    return launches
+
+
+def act_phase(device, prompts):
+    """Phase 21: what acts on the observe plane's hooks on the serving
+    model at full width: the tier ladder, pressure and price, the
+    rollout, the breaker guard, and record, replay, capacity and
+    regress. Returns the launches of its main paths."""
+    t0 = time.perf_counter()
+    params, table = bf16_model(device)
+    short = [prompt[:n] for prompt, n in zip(prompts, ACT_PROMPT_LENS)]
+    launches = dict.fromkeys(COUNTERS, 0)
+    with tempfile.TemporaryDirectory() as out:
+        run_dir = os.path.join(out, "run")
+        os.makedirs(run_dir)
+        root.common.dirs.run = run_dir
+        for phase in (
+                lambda: ladder_phase(device, params, table, short),
+                lambda: pressure_phase(device, params, table, short),
+                lambda: rollout_phase(device, params, table, short,
+                                      run_dir),
+                lambda: guard_phase(device, params, table, short),
+                lambda: capacity_phase(device, params, table, short, out)):
+            started = time.perf_counter()
+            for name, n in phase().items():
+                launches[name] += n
+            print("  (%.1f s)" % (time.perf_counter() - started))
+    print("act phase: %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6331,6 +7012,11 @@ def main():
     # the serving hooks: the hooks burst (K1, K2), the dense int8-KV run
     # (K4, K2) and the cost runs (K1, K2) are main paths
     for name, n in hooks_phase(device, prompts).items():
+        launches[name] += n
+    # what acts on the hooks: the ladder (K1, K2, K3), the pressure and
+    # guard fronts (K1), the rollouts (K4, K2) and the capacity front (K1,
+    # K2) are main paths
+    for name, n in act_phase(device, prompts).items():
         launches[name] += n
     isolated.cleanup()
     for entry in kernels:

@@ -43,7 +43,9 @@ the verdicts choose, and the device benchmark's power; and the observe
 plane: the device families of ``/metrics`` on a front on the card, K1's
 kernels under ``paged.dispatch`` in a profile, the card's bf16 peak,
 memscope's owners against the caching allocator and a ledger row per
-request served on the card.
+request served on the card; and what acts on it: a governed demotion to
+int8 whose requests launch K2, and a rollout's green engine streaming
+the new weights.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -2030,3 +2032,101 @@ def test_a_ledger_row_per_request_on_the_card(cuda):
     assert scope.waste["page_overshoot"] == scope.waste["span_overshoot"] \
         == scope.waste["group_dup"] == 0
     assert scope.useful["decode"] == 18
+
+
+def _act_model():
+    params = init_transformer_params(numpy.random.RandomState(0), 2, 64,
+                                     4, 97, device="cpu")
+    table = torch.randn((97, 64), generator=torch.Generator()
+                        .manual_seed(1)) * 0.5
+    return params, table
+
+
+def _act_post(port, tokens, tenant=""):
+    import json as json_mod
+    import urllib.request
+
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/generate" % port,
+        data=json_mod.dumps({"tokens": tokens}).encode(),
+        headers={"X-Veles-Tenant": tenant})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json_mod.loads(resp.read())["tokens"]
+
+
+def _act_stream(params, table, prompt, **kwargs):
+    decoder = ContinuousDecoder(params, table, 4, slots=2, max_len=64,
+                                n_tokens=6, device="cuda", **kwargs)
+    rid = decoder.submit(prompt)
+    decoder.run_until_drained(chunk=2)
+    return decoder.results[rid]
+
+
+def test_a_governed_demotion_launches_k2(cuda):
+    """The governor demotes a paged front on the card to int8: the swap
+    builds and probes the int8 decoder, whose requests launch K2 (and
+    K1, never K3), and every stream equals a fixed-tier decoder's on the
+    card."""
+    import time
+
+    from veles_tpu_torch.observe.governor import (GovernorConfig,
+                                                  ServingGovernor)
+    from veles_tpu_torch.serving import GenerateAPI
+
+    params, table = _act_model()
+    governor = ServingGovernor(GovernorConfig(
+        prewarm=False, breaker_guard=False, interval_s=1e6))
+    api = GenerateAPI(params, table, 4, slots=2, max_len=64, n_tokens=6,
+                      chunk=2, paged=True, page_size=16, governor=governor,
+                      device="cuda").start()
+    try:
+        before = _act_post(api.port, [1, 2, 3])
+        governor.level = 1
+        api.request_tier("int8")
+        deadline = time.monotonic() + 60
+        while api.decoder.quantize != "int8" \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert api.decoder.quantize == "int8"
+        k1, k2, k3 = (paged_attend.launches, int8_matmul.launches,
+                      paged_attend_int8.launches)
+        after = _act_post(api.port, [1, 2, 3])
+        assert int8_matmul.launches > k2 and paged_attend.launches > k1
+        assert paged_attend_int8.launches == k3
+    finally:
+        api.stop()
+    assert api.tier_swaps[0]["tier"] == "int8"
+    assert before == _act_stream(params, table, [1, 2, 3], paged=True,
+                                 page_size=16)
+    assert after == _act_stream(params, table, [1, 2, 3], paged=True,
+                                page_size=16, quantize="int8")
+
+
+def test_a_green_engine_streams_the_new_weights(cuda):
+    """A rollout's green engine on the card: a green tenant's stream
+    equals a decoder's on the new weights, a blue tenant's the old
+    weights'."""
+    import zlib
+
+    from veles_tpu_torch.rollout import RolloutConfig
+    from veles_tpu_torch.serving import GenerateAPI
+
+    params, table = _act_model()
+    params2 = init_transformer_params(numpy.random.RandomState(7), 2, 64,
+                                      4, 97, device="cpu")
+    tenants = ["t%d" % i for i in range(200)]
+    point = [(zlib.crc32(t.encode()) % 10000) / 10000.0 for t in tenants]
+    green = next(t for t, p in zip(tenants, point) if p < 0.5)
+    blue = next(t for t, p in zip(tenants, point) if p >= 0.5)
+    api = GenerateAPI(params, table, 4, slots=2, max_len=64, n_tokens=6,
+                      chunk=2, device="cuda").start()
+    try:
+        rollout = api.begin_rollout(params2, version="v2", config=(
+            RolloutConfig(steps=(0.5, 1.0), hold_s=100, cooldown_s=100)))
+        green_stream = _act_post(api.port, [4, 5], green)
+        blue_stream = _act_post(api.port, [4, 5], blue)
+        assert rollout.state == "shifting"
+    finally:
+        api.stop()
+    assert green_stream == _act_stream(params2, table, [4, 5])
+    assert blue_stream == _act_stream(params, table, [4, 5])

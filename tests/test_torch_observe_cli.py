@@ -210,8 +210,10 @@ def test_the_observe_entries_left_the_deferred_maps():
     assert not {"profile", "trace_events", "serve_slo",
                 "serve_history"} & set(DEFERRED)
     assert "observe" in COMMANDS and "observe" not in DEFERRED_COMMANDS
-    assert DEFERRED["serve_governor"].endswith("ROADMAP A7 (c)")
-    assert not {"slo", "serve-trace", "incident"} & set(OBSERVE)
+    assert "serve_governor" not in DEFERRED
+    assert not {"slo", "serve-trace", "incident", "record", "replay",
+                "capacity", "regress"} & set(OBSERVE)
+    assert set(OBSERVE) == {"fleet-trace"}
 
 
 @pytest.mark.parametrize("flag,key,value,parsed", [
@@ -273,6 +275,47 @@ def test_bad_observe_flags_fail_with_the_jax_message(flag, value, tmp_path,
     assert str(jax.value) in capsys.readouterr().err
     assert root.common.observe.slo is None
     assert root.common.observe.history is None
+
+
+@pytest.mark.parametrize("value,error", [
+    ("demote_burn=3,cooldown_s=5,ladder=int8+int8-kv", None),
+    ("enabled=0", None),
+    ("ladder=bf16", "not a degraded tier"),
+    ("recover_burn=5,demote_burn=2", "hysteresis band"),
+    ("bogus=1", "unknown key")])
+def test_serve_governor_parses_into_root_common_serve(value, error,
+                                                      tmp_path, monkeypatch,
+                                                      capsys):
+    """``--serve-governor`` parses, passes the early validation and lands
+    in ``root.common.serve.governor``, where the front's governor reads
+    it; a bad spec exits 2 with the JAX package's message naming the
+    flag."""
+    from veles_tpu.observe.governor import parse_governor_spec
+    from veles_tpu_torch.__main__ import Main
+    from veles_tpu_torch.core.config import root
+    from veles_tpu_torch.observe.governor import ServingGovernor
+
+    monkeypatch.setattr(root.common.serve, "governor", None, raising=False)
+    tiny = tmp_path / "tiny_wf.py"
+    tiny.write_text(TINY_WF)
+    argv = [str(tiny), "-", "--device", "cpu", "--serve-governor", value,
+            "--dump-config"]
+    if error is None:
+        assert Main().run(argv) == 0
+        assert root.common.serve.governor == value
+        governor = ServingGovernor.from_config()
+        assert (governor is None) == (value == "enabled=0")
+        if governor is not None:
+            assert governor.config.ladder == ("int8", "int8-kv")
+        return
+    with pytest.raises(SystemExit) as exit_:
+        Main().run(argv)
+    assert exit_.value.code == 2
+    with pytest.raises(ValueError) as jax:
+        parse_governor_spec(value, flag="--serve-governor")
+    err = capsys.readouterr().err
+    assert str(jax.value) in err and error in err
+    assert root.common.serve.governor is None
 
 
 def _artifacts(tmp):

@@ -145,8 +145,38 @@ def test_roll_is_the_jax_roll():
     ("deploy_green_ramp_steps", 2), ("leak_retain_pool_at", 1),
 ])
 def test_unported_profile_knobs_raise(knob, value):
-    with pytest.raises(ValueError, match="not yet ported"):
-        tchaos.ServingChaosConfig(**{knob: value})
+    """Each knob of the compile-storm, waste, green-ramp and pool-leak
+    profiles (the profiles this test once found refused) now builds a
+    config whose attributes and ``any_profile`` equal the JAX package's,
+    and the knob's invalid values raise the JAX package's message."""
+    companions = {"waste_cause": {"waste_tokens": 4, "waste_steps": 2},
+                  "waste_tokens": {"waste_cause": "tile_pad",
+                                   "waste_steps": 2},
+                  "deploy_green_ramp_ms": {"deploy_green_ramp_steps": 2},
+                  "deploy_green_ramp_steps": {"deploy_green_ramp_ms": 1.0}}
+    built = []
+    for kwargs in ({knob: value}, dict(companions.get(knob, {}),
+                                       **{knob: value})):
+        try:
+            theirs = jchaos.ServingChaosConfig(**kwargs)
+        except ValueError as exc:
+            # "padding" is no waste cause of the JAX package's either
+            with pytest.raises(ValueError) as err:
+                tchaos.ServingChaosConfig(**kwargs)
+            assert str(err.value) == str(exc)
+            continue
+        ours = tchaos.ServingChaosConfig(**kwargs)
+        assert vars(ours) == vars(theirs)
+        assert ours.any_profile == theirs.any_profile
+        built.append(ours.any_profile)
+    assert built and built[-1] or knob == "waste_cause"
+    bad = "noise" if knob == "waste_cause" else -1
+    messages = []
+    for module in (tchaos, jchaos):
+        with pytest.raises(ValueError) as err:
+            module.ServingChaosConfig(**{knob: bad})
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
 
 
 def test_config_validation_matches_jax():
@@ -164,7 +194,7 @@ def test_config_validation_matches_jax():
 
 def test_from_config_reads_serve_chaos():
     """The default subtree builds no monkey; a knob set there builds one
-    with it, and a knob of an unported profile raises."""
+    with it, a profile knob included (``compile_storm_at``)."""
     chaos = troot.common.serve.chaos
     saved = chaos.__content__()
     try:
@@ -175,8 +205,9 @@ def test_from_config_reads_serve_chaos():
         chaos.update({"enabled": False})
         assert tchaos.ServingChaosMonkey.from_config() is None
         chaos.update({"enabled": True, "compile_storm_at": 2})
-        with pytest.raises(ValueError, match="not yet ported"):
-            tchaos.ServingChaosMonkey.from_config()
+        monkey = tchaos.ServingChaosMonkey.from_config()
+        assert monkey.config.compile_storm_at == 2
+        assert monkey.config.any_profile
     finally:
         troot.common.serve.update({"chaos": saved})
         for key in ("enabled", "compile_storm_at"):
@@ -211,6 +242,171 @@ def test_latency_ramp_and_pool_flood_profiles():
             "flood_clear"} <= set(monkey.stamps)
     monkey.clear_ramp()
     monkey.release_flood()
+
+
+class _StubTracker:
+    """A compile tracker that records the builds booked into it."""
+
+    STORM_THRESHOLD = 5
+
+    def __init__(self):
+        self.enabled = True
+        self.builds = []
+
+    def record_compile(self, name, seconds):
+        self.builds.append((name, seconds))
+
+
+class _StubScope:
+    def __init__(self):
+        self.injected = []
+
+    def inject_waste(self, cause, tokens):
+        self.injected.append((cause, tokens))
+
+
+class _StubPoolDecoder:
+    def __init__(self, pool=None, role=None):
+        self.pool = pool
+        self.rollout_role = role
+
+
+class _StubPool:
+    def __init__(self):
+        self.reserved = 0
+
+    def try_reserve(self, n):
+        self.reserved += n
+        return True
+
+    def unreserve(self, n):
+        self.reserved -= n
+
+
+def _profile_run(module, config, decoders, monkeypatch, tracker, scope):
+    """Step a monkey of ``module`` through ``decoders`` (None for a
+    probe's step) with the tracker and the scope stubbed; returns the
+    step schedule (what each step raised), the counters, the stamp
+    names, the builds and the injections."""
+    import importlib
+
+    xla = importlib.import_module(module.__name__.split(".")[0]
+                                  + ".observe.xla_stats")
+    servescope = importlib.import_module(module.__name__.split(".")[0]
+                                         + ".observe.servescope")
+    monkeypatch.setattr(xla, "get_compile_tracker", lambda: tracker)
+    monkeypatch.setattr(servescope, "get_serve_scope", lambda: scope)
+    monkey = module.ServingChaosMonkey(module.ServingChaosConfig(**config))
+    schedule = []
+    for decoder in decoders:
+        try:
+            monkey.before_step(decoder)
+            schedule.append("ok")
+        except module.ChaosStepError as exc:
+            schedule.append(str(exc))
+    leaked = monkey._leaked_pool is not None
+    monkey.release_leak()
+    return (schedule, dict(monkey.counters), sorted(monkey.stamps),
+            list(tracker.builds), list(scope.injected), leaked)
+
+
+@pytest.mark.parametrize("config,kinds", [
+    ({"compile_storm_at": 2}, [None, "d", "d", "d"]),
+    ({"waste_cause": "tile_pad", "waste_tokens": 7, "waste_at": 1,
+      "waste_steps": 2}, ["d"] * 5),
+    ({"deploy_green_ramp_ms": 0.5, "deploy_green_ramp_steps": 2},
+     ["d", "g", "g", "d", "g"]),
+    ({"leak_retain_pool_at": 1}, [None, "d", "d", "d"]),
+    ({"compile_storm_at": 0, "latency_ramp_ms": 0.5,
+      "latency_ramp_steps": 1, "waste_cause": "discard",
+      "waste_tokens": 3, "waste_steps": 1}, ["d", "g", "d"]),
+], ids=["storm", "waste", "green_ramp", "leak", "mixed"])
+def test_profile_schedules_match_jax(config, kinds, monkeypatch):
+    """The compile-storm, waste, green-ramp and pool-leak profiles give
+    the JAX package's step schedule, counters, stamps, booked builds
+    (``STORM_THRESHOLD`` of ``chaos.compile_storm``) and injected
+    waste."""
+    runs = []
+    for module in (tchaos, jchaos):
+        decoders = [None if kind is None else _StubPoolDecoder(
+            _StubPool(), "green" if kind == "g" else None)
+            for kind in kinds]
+        runs.append(_profile_run(module, config, decoders, monkeypatch,
+                                 _StubTracker(), _StubScope()))
+    assert runs[0] == runs[1]
+    schedule, counters, _, builds, injected, leaked = runs[0]
+    if "compile_storm_at" in config:
+        assert builds == [("chaos.compile_storm", 0.001)] * 5
+        assert counters["compile_storms"] == 1
+    if "leak_retain_pool_at" in config:
+        assert leaked and counters["pool_leaks"] == 1
+        assert schedule.count("ok") == len(kinds) - 1
+    if config.get("waste_steps") == 2:
+        assert injected == [("tile_pad", 7)] * 2
+    if "deploy_green_ramp_ms" in config:
+        assert counters["green_ramp_stalls"] == 3
+
+
+def test_expected_leading_series_match_jax():
+    """Each profile names the series its incident must lead with: the
+    JAX package's, mapped to the port's family name where the two
+    differ (``history.port_series``)."""
+    from veles_tpu_torch.observe.history import port_series
+
+    config = dict(latency_ramp_ms=1.0, latency_ramp_steps=1,
+                  pool_flood_pages=1, compile_storm_at=1,
+                  waste_cause="tile_pad", waste_tokens=1, waste_steps=1,
+                  deploy_green_ramp_ms=1.0, deploy_green_ramp_steps=1,
+                  deploy_poison_nan=True, leak_retain_pool_at=1)
+    ours = tchaos.ServingChaosConfig(**config)
+    theirs = jchaos.ServingChaosConfig(**config)
+    assert ours.expected_leading_series() == {
+        key: port_series(value)
+        for key, value in theirs.expected_leading_series().items()}
+    assert len(ours.expected_leading_series()) == 7
+    assert ours.expected_leading_cause() == theirs.expected_leading_cause() \
+        == "tile_pad"
+    bare = (tchaos.ServingChaosConfig(), jchaos.ServingChaosConfig())
+    assert bare[0].expected_leading_series() \
+        == bare[1].expected_leading_series() == {}
+    assert bare[0].expected_leading_cause() is None
+
+
+@pytest.mark.parametrize("config", [
+    {"kill_at": 3, "kill_index": 1},
+    {"slow_at": 2, "slow_ticks": 3, "slow_index": 2},
+    {"flap_period": 2, "flap_index": 1},
+    {"poison_healthz_at": 4, "poison_index": 0},
+    {"kill_at": 0, "slow_at": 0, "slow_ticks": 1, "flap_period": 3,
+     "poison_healthz_at": 0}])
+def test_replica_monkey_matches_jax(config):
+    ours = tchaos.ReplicaChaosMonkey(tchaos.ReplicaChaosConfig(**config))
+    theirs = jchaos.ReplicaChaosMonkey(jchaos.ReplicaChaosConfig(**config))
+    for tick in range(10):
+        assert ours.actions(tick) == theirs.actions(tick)
+    assert ours.counters == theirs.counters
+    assert sorted(ours.stamps) == sorted(theirs.stamps)
+    assert ours.config.any_profile and theirs.config.any_profile
+    assert ours.config.expected_leading_series() \
+        == theirs.config.expected_leading_series()
+    for bad in ("kill_at", "slow_at", "slow_ticks", "flap_period",
+                "poison_healthz_at"):
+        messages = []
+        for module in (tchaos, jchaos):
+            with pytest.raises(ValueError) as err:
+                module.ReplicaChaosConfig(**{bad: -1})
+            messages.append(str(err.value))
+        assert messages[0] == messages[1]
+
+
+def test_tear_file_matches_jax(tmp_path):
+    for module in (tchaos, jchaos):
+        path = tmp_path / ("%s.bin" % module.__name__)
+        path.write_bytes(b"x" * 101)
+        sidecar = tmp_path / (path.name + ".sha256")
+        sidecar.write_text("keep")
+        assert module.tear_file(str(path), 0.3) == 30
+        assert path.stat().st_size == 30 and sidecar.read_text() == "keep"
 
 
 def test_poisoned_swap_names_the_jax_leaf(model):

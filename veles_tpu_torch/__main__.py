@@ -34,9 +34,10 @@ subcommands that are not ported yet (:data:`DEFERRED_COMMANDS`). The
 ported subcommands (:data:`COMMANDS`): ``parity`` (``parity.main``),
 ``autotune`` (``ops/gemm.autotune_main``) and ``observe``
 (``observe/trace_export.main``: ``export-trace``, ``blackbox``, ``slo``,
-``serve-trace`` and ``incident``). ``--serve-slo`` and ``--serve-history``
-are validated before the workflow loads and land in
-``root.common.observe``.
+``serve-trace``, ``incident``, ``record``, ``replay``, ``capacity`` and
+``regress``). ``--serve-slo`` and ``--serve-history`` are validated
+before the workflow loads and land in ``root.common.observe``;
+``--serve-governor`` likewise lands in ``root.common.serve.governor``.
 """
 
 import argparse
@@ -54,7 +55,6 @@ from veles_tpu_torch.launcher import Launcher
 
 _FLEET = "the fleet, ROADMAP A9"
 _MESH = "the mesh, ROADMAP A8"
-_GOVERNOR = "the serving governor, ROADMAP A7 (c)"
 _META = "genetics and ensembles, ROADMAP A9"
 
 #: flag -> the ROADMAP item that brings it (by argparse dest)
@@ -70,7 +70,6 @@ DEFERRED = {
     "optimize": _META, "optimize_fleet": _META,
     "optimize_representation": _META, "ensemble_train": _META,
     "ensemble_test": _META,
-    "serve_governor": _GOVERNOR,
     "serve_aot": "the AOT bundle, ROADMAP A9",
     "serve_paged_kernel": "not ported, on purpose (ROADMAP A2): on the "
                           "card the paged pool always attends through "
@@ -172,6 +171,15 @@ class Main(Logger):
                            "capacity, series_cap, seed_rules, "
                            "incident_cooldown_s) or 'off' (writes "
                            "root.common.observe.history)")
+        serve.add_argument("--serve-governor", default=None,
+                           metavar="KEY=VALUE[,...]",
+                           help="the closed-loop serving governor: "
+                           "SLO-burn-driven degradation down the "
+                           "bf16->int8->int8-kv ladder, admission resize "
+                           "and Retry-After priced from the KV pool, a "
+                           "proactive breaker guard, e.g. demote_burn=2,"
+                           "recover_burn=1,cooldown_s=10,ladder=int8+"
+                           "int8-kv (writes root.common.serve.governor)")
         serve.add_argument("--chaos-serve-seed", type=int, default=None,
                            metavar="N", help="serving chaos RNG seed")
         serve.add_argument("--chaos-serve-step-fail", type=float,
@@ -220,7 +228,6 @@ class Main(Logger):
                 (("--serve-mesh",), {"metavar": "AXIS=N[,AXIS=N...]"}),
                 (("--serve-paged-kernel",), {"metavar": "on|off"}),
                 (("--serve-aot",), {"metavar": "PATH"}),
-                (("--serve-governor",), {"metavar": "KEY=VALUE[,...]"}),
                 (("--manhole",), {"action": "store_true"}),
                 (("-b", "--background"), {"action": "store_true"})):
             kwargs.setdefault("default", None)
@@ -405,11 +412,14 @@ class Main(Logger):
         self.apply_config(args.config)
         self.override_config(args.overrides)
         # the observe flags are validated NOW (``__main__.py:543-570``):
-        # the strings land in root.common.observe below, and the SLO
-        # engine and the history parse them again when a front starts
+        # the strings land in root.common.observe and .serve below, and
+        # the SLO engine, the governor and the history parse them again
+        # when a front starts
+        from veles_tpu_torch.observe.governor import parse_governor_spec
         from veles_tpu_torch.observe.history import parse_history_spec
         from veles_tpu_torch.observe.slo import parse_objectives
         for flag, parse in (("serve_slo", parse_objectives),
+                            ("serve_governor", parse_governor_spec),
                             ("serve_history", parse_history_spec)):
             value = getattr(args, flag)
             if value:
@@ -425,6 +435,7 @@ class Main(Logger):
                 ("serve_page_size", root.common.serve, "page_size"),
                 ("serve_pool_pages", root.common.serve, "pool_pages"),
                 ("serve_slo", root.common.observe, "slo"),
+                ("serve_governor", root.common.serve, "governor"),
                 ("serve_history", root.common.observe, "history"),
                 ("chaos_serve_seed", root.common.serve.chaos, "seed"),
                 ("chaos_serve_step_fail", root.common.serve.chaos,

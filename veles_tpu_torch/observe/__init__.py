@@ -36,8 +36,23 @@ and the serving hooks (ROADMAP A7 (b)):
 - :mod:`~veles_tpu_torch.observe.history`: the metric history, anomaly
   rules and incident bundles (``/debug/history``, ``observe incident``).
 
-The governor, rollout, replay, capacity and regress wait for ROADMAP A7
-(c); plotting and web status for (d); the fleet scope for A9.
+and what acts on those hooks (ROADMAP A7 (c)):
+
+- :mod:`~veles_tpu_torch.observe.governor`: the serving governor, the
+  tier ladder, the admission limit, the Retry-After price and the
+  proactive breaker guard, ticked by the serving driver;
+- :mod:`~veles_tpu_torch.observe.replay`: anonymised traffic traces from
+  the request ledger and their open-loop, seeded replay (``observe
+  record``, ``observe replay``);
+- :mod:`~veles_tpu_torch.observe.capacity`: the capacity search over a
+  replayed trace, its report naming the first-breaching series and the
+  dominant waste cause (``observe capacity``);
+- :mod:`~veles_tpu_torch.observe.regress`: bench artifacts with atomic
+  writes and sidecars, and the direction-aware regression gate
+  (``observe regress``).
+
+The blue-green rollout is ``veles_tpu_torch/rollout.py``. Plotting and
+web status wait for ROADMAP A7 (d); the fleet scope for A9.
 
 Everything is off by default with a structural no-op fast path (the
 disabled tracer hands out one shared null span, the disabled registry
@@ -76,3 +91,13 @@ from veles_tpu_torch.observe.servescope import (  # noqa: F401
 from veles_tpu_torch.observe.slo import (  # noqa: F401
     SLOEngine, get_slo_engine, observe_request, parse_objectives,
     row_latencies, set_slo_engine)
+from veles_tpu_torch.observe.governor import (  # noqa: F401
+    GovernorConfig, ServingGovernor, format_governor_transitions,
+    parse_governor_spec, publish_governor)
+from veles_tpu_torch.observe.capacity import (  # noqa: F401
+    CapacityFinder, render_capacity_report, write_capacity_report)
+from veles_tpu_torch.observe.replay import (  # noqa: F401
+    hash_tenant, load_trace, plan_fingerprint, record_trace, replay,
+    warp_plan, write_trace)
+from veles_tpu_torch.observe.regress import (  # noqa: F401
+    BenchArtifact, compare, load_bench, regressions)

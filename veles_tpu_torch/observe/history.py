@@ -1213,7 +1213,7 @@ def render_incident(doc, slowest=4):
                             values[-1] if values else "-"))
     governor = doc.get("governor") or []
     if governor:
-        from veles_tpu_torch.observe.slo import \
+        from veles_tpu_torch.observe.governor import \
             format_governor_transitions
         lines.append("governor actuations:")
         lines.append(format_governor_transitions(governor))

@@ -27,8 +27,8 @@ how long the KV pool lasts at the current admission rate.
   ROADMAP A9.
 
 - **Leak forensics.** Lifecycle edges where an old subsystem must die
-  (the breaker's rebuild, the weight hot-swap; the rollout's promotion
-  waits for ROADMAP A7 (c)) bracket themselves with
+  (the breaker's rebuild, the weight hot-swap, the rollout's promotion)
+  bracket themselves with
   :meth:`MemScope.edge_begin` / :meth:`MemScope.edge_end`. The end diff
   names any owner that grew by ``leak_min_bytes`` or more across the
   edge in a leak verdict (but the owners retained on purpose,
@@ -373,9 +373,8 @@ class MemScope:
     # -- headroom forecasting ---------------------------------------------
     def note_pool(self, pool):
         """Feed one pool occupancy point into the forecast ring (one
-        GIL-atomic append). The JAX package's governor tick calls it;
-        the port's governor waits for ROADMAP A7 (c), so until then only
-        a caller that reads the pool feeds the forecast."""
+        GIL-atomic append). The serving governor's tick calls it
+        (``observe/governor.py``), where it reads the pool anyway."""
         if not self.enabled or pool is None:
             return
         try:

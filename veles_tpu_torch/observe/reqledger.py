@@ -68,7 +68,7 @@ class RequestLedger:
         self.staged_total = 0
         self.resolved_total = 0
         self.dropped_total = 0
-        # loss truth for the trace recorder (ROADMAP A7 (c)): every
+        # loss truth for the trace recorder (``observe/replay.py``): every
         # way a bounded ring under-records is tallied here so an
         # exported trace can be stamped "lossy" WITH the amount —
         # chunk stamps past the per-row cap, and resolved rows pushed
@@ -240,8 +240,8 @@ class RequestLedger:
 
     def resolved(self, n=None):
         """Copies of the resolved rows in ring order (oldest first) —
-        the trace recorder's export seam (ROADMAP A7 (c) records
-        arrival cadence from these rows' ``staged`` stamps). ``n``
+        the trace recorder's export seam (``observe/replay.py`` reads
+        the arrival cadence from these rows' ``staged`` stamps). ``n``
         keeps only the newest n."""
         rows = list(self._resolved)
         if n is not None:

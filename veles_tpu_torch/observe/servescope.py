@@ -248,7 +248,7 @@ class ServeScope:
         self.waste["discard"] += max(0, int(live_steps) - int(kept))
 
     def inject_waste(self, cause, tokens, now=None):
-        """The chaos seam (the waste profiles, ROADMAP A7 (c)): book
+        """The chaos seam (the waste profile, ``serving_chaos.py``): book
         ``tokens`` of synthetic ``cause`` waste — the compile-storm
         injection idiom pointed at the waste plane, so a seeded
         profile deterministically dominates the decomposition (record

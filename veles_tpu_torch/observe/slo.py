@@ -188,7 +188,7 @@ class SLOEngine:
         """Book one resolved request into the current bucket (the
         aggregate series plus, when ``tenant`` is set, its slice, and
         when ``version`` is set, the deploy-version slice the
-        blue-green rollback predicate compares, ROADMAP A7 (c))."""
+        blue-green rollback predicate compares, ``rollout.py``)."""
         if now is None:
             now = time.monotonic()
         start = now - now % self.bucket_seconds
@@ -518,25 +518,6 @@ def _rows_from_doc(doc):
     raise ValueError("not a black-box dump or /debug/requests payload")
 
 
-def format_governor_transitions(entries):
-    """Governor flight entries (kind ``governor``) as the autopsy's
-    actuation lines (``veles_tpu/observe/governor.py:771-785``): the
-    port's governor waits for ROADMAP A7 (c), and the JAX package's
-    black boxes carry them."""
-    lines = []
-    for entry in entries:
-        parts = ["%-12s" % entry.get("action", "?"),
-                 "tier=%s" % entry.get("tier")]
-        burn = entry.get("burn")
-        if burn is not None:
-            parts.append("burn=%.3g" % float(burn))
-        reason = entry.get("reason")
-        if reason:
-            parts.append(str(reason))
-        lines.append("  " + "  ".join(parts))
-    return "\n".join(lines)
-
-
 def slo_main(target=None, live=None, slowest=8):
     """``python -m veles_tpu_torch observe slo ARTIFACT | --live URL``: print the
     waterfall autopsy of the slowest requests (+ any SLO burn-rate
@@ -579,6 +560,8 @@ def slo_main(target=None, live=None, slowest=8):
             print("  " + line)
         print()
     if governor_entries:
+        from veles_tpu_torch.observe.governor import \
+            format_governor_transitions
         # the actuation replay: what the governor DID during the
         # window the black box covers, in order
         print("governor actuations:")

@@ -166,19 +166,17 @@ def span_tree(trace):
 #: ROADMAP item that brings them
 DEFERRED = {
     "fleet-trace": "the fleet, ROADMAP A9",
-    "record": "what acts on the hooks, ROADMAP A7 (c)",
-    "replay": "what acts on the hooks, ROADMAP A7 (c)",
-    "capacity": "what acts on the hooks, ROADMAP A7 (c)",
-    "regress": "what acts on the hooks, ROADMAP A7 (c)",
 }
 
 
 def main(argv=None):
     """``python -m veles_tpu_torch observe``: ``export-trace`` (Chrome
     trace), ``blackbox`` (flight-recorder dumps), ``slo`` (the request
-    waterfalls' autopsy), ``serve-trace`` (the per-slot Perfetto trace)
-    and ``incident`` (a metric-history incident's timeline). Returns the
-    exit code; a subcommand of :data:`DEFERRED` returns 2."""
+    waterfalls' autopsy), ``serve-trace`` (the per-slot Perfetto trace),
+    ``incident`` (a metric-history incident's timeline), ``record`` and
+    ``replay`` (traffic traces, ``observe/replay.py``), ``capacity``
+    (``observe/capacity.py``) and ``regress`` (``observe/regress.py``).
+    Returns the exit code; a subcommand of :data:`DEFERRED` returns 2."""
     import argparse
     import sys
 
@@ -190,7 +188,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="veles_tpu_torch observe",
         description="observability tooling: trace export, black boxes, "
-                    "request autopsies, serving traces and incidents")
+                    "request autopsies, serving traces, incidents, "
+                    "traffic record and replay, capacity and regress")
     sub = parser.add_subparsers(dest="command", required=True)
     export = sub.add_parser(
         "export-trace",
@@ -246,6 +245,84 @@ def main(argv=None):
     incident.add_argument("--slowest", type=int, default=4,
                           help="request waterfalls to include "
                                "(default 4)")
+    record = sub.add_parser(
+        "record",
+        help="export a replayable anonymized traffic trace from the "
+             "request-truth ledger (observe/replay.py): a saved "
+             "/debug/requests JSON, "
+             "or --live URL of a serving surface")
+    record.add_argument("artifact", nargs="?", default=None,
+                        help="saved /debug/requests JSON")
+    record.add_argument("--live", default=None, metavar="URL",
+                        help="fetch <URL>/debug/requests instead of "
+                             "a file")
+    record.add_argument("-o", "--output", default=None,
+                        help="trace output path (default: "
+                             "veles.trace.jsonl)")
+    record.add_argument("--salt", default="veles",
+                        help="tenant-hash salt (pass a secret to make "
+                             "tenant ids unrecoverable; default "
+                             "'veles')")
+    replay_p = sub.add_parser(
+        "replay",
+        help="replay a recorded trace open-loop against a live "
+             "endpoint at a fixed warp (observe/replay.py)")
+    replay_p.add_argument("trace", help="trace JSONL path")
+    replay_p.add_argument("--live", required=True, metavar="URL",
+                          help="serving surface to replay against")
+    replay_p.add_argument("--warp", type=float, default=1.0,
+                          help="arrival-rate warp factor (default 1)")
+    replay_p.add_argument("--seed", type=int, default=0,
+                          help="warp-plan seed (default 0)")
+    replay_p.add_argument("--vocab", type=int, default=8,
+                          help="synthesized prompt token-id bound "
+                               "(default 8)")
+    replay_p.add_argument("--workers", type=int, default=16,
+                          help="client concurrency cap (default 16)")
+    replay_p.add_argument("--burst-compress", type=float, default=0.0,
+                          help="squeeze above-median arrival gaps by "
+                               "this fraction (default 0)")
+    replay_p.add_argument("--long-context-skew", type=float,
+                          default=0.0,
+                          help="probability a prompt is stretched to "
+                               "the trace max (default 0)")
+    capacity = sub.add_parser(
+        "capacity",
+        help="the capacity-cliff finder (observe/capacity.py): replay "
+             "a trace at escalating warps until an SLO objective "
+             "breaches, emit a capacity report naming the "
+             "first-breaching series + dominant waste cause")
+    capacity.add_argument("trace", help="trace JSONL path")
+    capacity.add_argument("--live", required=True, metavar="URL",
+                          help="serving surface to escalate against")
+    capacity.add_argument("-o", "--output", default=None,
+                          help="report path (default: "
+                               "<trace>.capacity.json)")
+    capacity.add_argument("--start-warp", type=float, default=1.0)
+    capacity.add_argument("--warp-step", type=float, default=1.5)
+    capacity.add_argument("--max-warp", type=float, default=16.0)
+    capacity.add_argument("--refine-steps", type=int, default=2,
+                          help="geometric bisection probes after the "
+                               "first breach (default 2)")
+    capacity.add_argument("--seed", type=int, default=0)
+    capacity.add_argument("--availability", type=float, default=0.99,
+                          help="client-side availability floor "
+                               "(default 0.99)")
+    capacity.add_argument("--p95-ms", type=float, default=None,
+                          help="client-side request p95 wall bound")
+    capacity.add_argument("--vocab", type=int, default=8)
+    capacity.add_argument("--workers", type=int, default=16)
+    regress = sub.add_parser(
+        "regress",
+        help="compare two BENCH artifacts with spread-aware per-key "
+             "tolerances; exit 1 on regression (observe/regress.py)")
+    regress.add_argument("old", help="previous-round BENCH json")
+    regress.add_argument("new", help="candidate BENCH json")
+    regress.add_argument("--tolerance", type=float, default=0.1,
+                         help="base relative tolerance before the "
+                              "per-key spread allowance (default 0.1)")
+    regress.add_argument("--json", action="store_true",
+                         help="machine-readable findings")
     args = parser.parse_args(argv)
     if args.command == "blackbox":
         from veles_tpu_torch.observe.flight import blackbox_main
@@ -267,6 +344,37 @@ def main(argv=None):
         from veles_tpu_torch.observe.history import incident_main
         return incident_main(args.artifact, live=args.live,
                              slowest=args.slowest)
+    if args.command == "record":
+        if not args.artifact and not args.live:
+            parser.error("observe record needs an ARTIFACT or "
+                         "--live URL")
+        from veles_tpu_torch.observe.replay import record_main
+        return record_main(args.artifact, live=args.live,
+                           output=args.output, salt=args.salt)
+    if args.command == "replay":
+        from veles_tpu_torch.observe.replay import replay_main
+        return replay_main(args.trace, live=args.live, warp=args.warp,
+                           seed=args.seed, vocab=args.vocab,
+                           workers=args.workers,
+                           burst_compress=args.burst_compress,
+                           long_context_skew=args.long_context_skew)
+    if args.command == "capacity":
+        from veles_tpu_torch.observe.capacity import capacity_main
+        return capacity_main(args.trace, live=args.live,
+                             output=args.output,
+                             start_warp=args.start_warp,
+                             warp_step=args.warp_step,
+                             max_warp=args.max_warp,
+                             refine_steps=args.refine_steps,
+                             seed=args.seed,
+                             availability=args.availability,
+                             p95_ms=args.p95_ms, vocab=args.vocab,
+                             workers=args.workers)
+    if args.command == "regress":
+        from veles_tpu_torch.observe.regress import compare_main
+        return compare_main(args.old, args.new,
+                            tolerance=args.tolerance,
+                            as_json=args.json)
     out = args.output or args.events + ".trace.json"
     count = export_chrome_trace(args.events, out)
     print("wrote %d trace events to %s (open in ui.perfetto.dev)"

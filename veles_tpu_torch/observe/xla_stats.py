@@ -242,6 +242,13 @@ class CompileTracker:
                 self._flops[name] = float(flops)
 
     # -- views ------------------------------------------------------------
+    def storm_total(self):
+        """The rebuild storms of every kernel source together: the
+        serving governor's stall predictor (``observe/governor.py``), one
+        lock, cheap enough for a read every control tick."""
+        with self._lock:
+            return sum(self._storms.values())
+
     def snapshot(self):
         """Plain-dict view for black-box dumps: the JAX package's keys
         (``compiles``, ``compile_seconds``, ``hits``, ``storms`` keyed by

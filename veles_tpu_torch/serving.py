@@ -58,9 +58,16 @@ decoder's ``params``, ``decode_state``, ``kv_pool`` and
 ``prefix_shadows``, the front's ``param_stash`` and per-request
 ``admission_scratch``), with the breaker's rebuild and the hot swap
 bracketed as lifecycle edges (``memscope.py``); and the metric history's
-sampler, held by the fronts while they run (``history.py``). The
-governor's tier swap and the blue-green rollout wait for ROADMAP A7 (c),
-the mesh for A8 and AOT for A9.
+sampler, held by the fronts while they run (``history.py``).
+
+What acts on those hooks (ROADMAP A7 (c)) rides the driver thread too:
+the serving governor (``observe/governor.py``: the tier ladder bf16 ->
+int8 -> int8-kv behind a drain-then-swap seam, the admission limit and
+the Retry-After price, the proactive breaker guard) and the blue-green
+rollout (``rollout.py``: a second, green engine on candidate weights
+driven beside the primary in the same pass, tenants routed by their
+fixed hash point, promoted or rolled back by the rollout predicate). The
+mesh waits for ROADMAP A8 and AOT for A9.
 """
 
 import base64
@@ -287,6 +294,12 @@ class ContinuousDecoder:
         self._next_id = 0
         #: the version tag of the weights served (a hot swap stamps it)
         self.version = None
+        #: "green" while this decoder is a rollout's candidate engine
+        #: (the green-ramp chaos profile stalls only such steps)
+        self.rollout_role = None
+        #: the AOT bundle the governor's prewarm builds from: none in the
+        #: port (ROADMAP A9), so the prewarm actuator returns at once
+        self.aot = None
         self.tokens_out = 0
         #: dispatch tally: one "admit" per admission group (the slab: one
         #: per prompt bucket; the pool: one per cold group), one "chunk"
@@ -1070,8 +1083,8 @@ class ServingHealth:
     (``observe/slo.observe_request``). The snapshot mirrors an attached
     SLO engine's worst short-window burn (``slo``), the serve scope's
     occupancy and goodput (``servescope``) and memscope's light summary
-    (``memscope``); the JAX package's governor cell waits for ROADMAP A7
-    (c)."""
+    (``memscope``), an attached governor's tier and actuations
+    (``governor``) and a live rollout's state (``rollout``)."""
 
     COUNTERS = ("admitted", "completed", "rejected", "expired", "shed",
                 "trips", "rebuilds", "errors")
@@ -1090,6 +1103,7 @@ class ServingHealth:
         self._pool_ref = None
         self._deploy_ref = None
         self._slo_ref = None
+        self._governor_ref = None
         self._scope_ref = None
         self._latencies = {
             kind: collections.deque(maxlen=self.LATENCY_WINDOW)
@@ -1135,6 +1149,14 @@ class ServingHealth:
             self._slo_ref = weakref.ref(engine) if engine is not None \
                 else None
 
+    def attach_governor(self, governor):
+        """Mirror the serving governor's tier and actuations into the
+        snapshot and let it price this front's Retry-After (weakly
+        referenced, like the pool)."""
+        with self._lock:
+            self._governor_ref = weakref.ref(governor) \
+                if governor is not None else None
+
     def attach_servescope(self, scope):
         """Mirror the serve scope's occupancy, goodput and waste share
         into the snapshot (weakly referenced)."""
@@ -1152,10 +1174,16 @@ class ServingHealth:
 
     def retry_after_s(self, need=1):
         """The Retry-After price of this front's 429 and 503 replies, in
-        seconds: the attached pool's page-release pricing, else 1."""
+        seconds: the attached governor's price first (it watches the
+        pool's release rate and the degradation state), else the pool's
+        page-release pricing, else 1."""
         with self._lock:
+            governor = self._governor_ref() \
+                if self._governor_ref is not None else None
             pool = self._pool_ref() if self._pool_ref is not None \
                 else None
+        if governor is not None:
+            return governor.retry_after_s(need)
         if pool is not None:
             return pool.retry_after(need)
         return 1.0
@@ -1240,10 +1268,15 @@ class ServingHealth:
             deploy = self._deploy_ref() \
                 if self._deploy_ref is not None else None
             slo = self._slo_ref() if self._slo_ref is not None else None
+            governor = self._governor_ref() \
+                if self._governor_ref is not None else None
             scope = self._scope_ref() if self._scope_ref is not None \
                 else None
         if deploy is not None:
             snap["version"] = deploy.version
+            rollout = getattr(deploy, "_rollout", None)
+            if rollout is not None:
+                snap["rollout"] = rollout.snapshot()
             decoder = deploy.decoder
             snap["dispatch_counts"] = dict(decoder.dispatch_counts)
             snap["device"] = str(decoder.device)
@@ -1257,6 +1290,8 @@ class ServingHealth:
             summary = slo.summary()
             if summary is not None:
                 snap["slo"] = summary
+        if governor is not None:
+            snap["governor"] = governor.snapshot()
         # memscope's light summary (top owners, headroom, leaks): the
         # reconciled device read stays on /metrics and /debug/memory
         memscope = get_memscope().summary()
@@ -1332,7 +1367,24 @@ class GenerateAPI:
     None without objectives) reads every resolved row; ``GET
     /debug/requests``, ``/debug/serve``, ``/debug/history`` and
     ``/debug/memory`` serve the ledger, the serve scope, the metric
-    history and memscope."""
+    history and memscope.
+
+    What acts on the hooks: ``governor`` (a
+    :class:`~veles_tpu_torch.observe.governor.ServingGovernor`; default:
+    built from ``root.common.serve.governor``, None without one, and then
+    the hot path is unchanged) ticks once per drive pass. It moves new
+    admissions down and up the tier ladder through :meth:`request_tier`
+    (the staged queue holds, the requests in flight finish at their
+    admitted tier, then a decoder built and probed at the new tier takes
+    over; a swap whose probe fails keeps the old decoder serving and arms
+    a backoff), shrinks :attr:`effective_max_queue`, prices Retry-After
+    and trips the breaker ahead of a predicted stall
+    (:meth:`request_trip`). :meth:`begin_rollout` builds and probes a
+    green engine on candidate weights; the driver steps it beside the
+    primary, routes each staged request by its tenant's hash point, and
+    promotes it or rolls it back as the rollout's predicate says. The
+    prefix cache never crosses a tier: its pages hold the tier's KV
+    bytes."""
 
     #: extra handler-side wait beyond a request's deadline before the
     #: handler gives up on the driver (a wedged driver's backstop)
@@ -1345,7 +1397,7 @@ class GenerateAPI:
                  rebuild_backoff=None, rebuild_backoff_max=None,
                  chaos=None, quantize=None, tile=None, paged=None,
                  page_size=None, pool_pages=None, slo=None, ledger=None,
-                 device=None):
+                 governor=None, device=None):
         import queue
 
         serve_cfg = root.common.serve
@@ -1411,6 +1463,27 @@ class GenerateAPI:
         self.scope = get_serve_scope()
         self.health.attach_servescope(self.scope)
         self.health.attach_deploy(self)
+        #: the serving governor (``observe/governor.py``): None without
+        #: config, and then the driver pays one attribute check a pass
+        self._base_tier = self.decoder.quantize or "bf16"
+        if governor is None:
+            from veles_tpu_torch.observe.governor import ServingGovernor
+            governor = ServingGovernor.from_config()
+        self.governor = governor
+        if governor is not None:
+            governor.set_base_tier(self._base_tier)
+            self.health.attach_governor(governor)
+            # burn and pressure sensing run through the metric history,
+            # so an incident replays the trends the demotions read
+            from veles_tpu_torch.observe.history import \
+                ensure_metric_history
+            governor.attach_history(ensure_metric_history())
+        #: the governor's graceful tier-swap request and the backoff a
+        #: failed swap arms; each landed swap's seconds by part
+        self._tier_request = None
+        self._tier_requested_at = None
+        self._tier_block_until = 0.0
+        self.tier_swaps = []
         #: the proactive trip request (request_trip), read by the driver
         self._trip_request = None
         #: the pending hot swap (request_swap), the one-slot rollback
@@ -1419,6 +1492,13 @@ class GenerateAPI:
         self._swap_request = None
         self._param_stash = None
         self.version = None
+        #: the blue-green rollout (``rollout.py``): the staged
+        #: begin_rollout holder, the live controller, and the green
+        #: engine {"decoder", "waiting", "pending", "params",
+        #: "embed_table"}, all owned by the driver thread
+        self._rollout_request = None
+        self._rollout = None
+        self._green = None
         #: the last rebuild's and the last swap's seconds by part (the
         #: chip smoke prints them)
         self.last_rebuild = None
@@ -1468,6 +1548,10 @@ class GenerateAPI:
             observe_request(row, engine=self.slo,
                             registry=get_metrics_registry(),
                             health=self.health)
+        rollout = self._rollout
+        if rollout is not None and "deploy" in holder:
+            # the rollback predicate's per-role feed (a bounded append)
+            rollout.note_resolved(holder["deploy"], outcome == "completed")
         holder["event"].set()
 
     def _stage(self, prompt, budget, holder):
@@ -1482,10 +1566,13 @@ class GenerateAPI:
 
     def _drain_staged(self):
         """Submit every staged request to the decoder; returns {request
-        id: holder}. A request admitted against a previous decoder's pool
-        (a rebuild raced its staging) moves its page reservation to the
-        pool it will decode on, or is shed when that pool is promised to
-        capacity (``serving.py:2482-2507``)."""
+        id: holder} of the primary engine's. While a rollout is live the
+        tenant's fixed hash point picks the engine: green tenants submit
+        into the green decoder and its own waiting map, blue ones stay on
+        the primary path unchanged (``serving.py:2450-2544``). A request
+        admitted against a previous decoder's pool (a rebuild raced its
+        staging) moves its page reservation to the pool it will decode
+        on, or is shed when that pool is promised to capacity."""
         import queue
 
         waiting = {}
@@ -1494,11 +1581,20 @@ class GenerateAPI:
                 prompt, budget, holder = self._staged.get_nowait()
             except queue.Empty:
                 break
+            rollout = self._rollout
+            green = self._green
+            target, bucket, role = self.decoder, waiting, None
+            if green is not None and rollout is not None:
+                role = ("green" if rollout.routes_green(
+                    holder.get("tenant") or "") else "blue")
+                if role == "green":
+                    target = green["decoder"]
+                    bucket = green["waiting"]
             # the pop is the claim: _resolve pops the same key, so
             # exactly one side ever releases the reservation
             reserved = holder.pop("pool_reserved", 0)
             if reserved:
-                pool = self.decoder.pool
+                pool = target.pool
                 if pool is not None and holder.get("pool") is not pool:
                     holder["pool"].unreserve(reserved)
                     if pool.try_reserve(reserved):
@@ -1516,20 +1612,37 @@ class GenerateAPI:
                     # and found nothing to release: release it here
                     holder["pool"].unreserve(reserved)
             try:
-                rid = self.decoder.submit(prompt, budget,
-                                          trace=holder.get("trace"))
+                rid = target.submit(prompt, budget,
+                                    trace=holder.get("trace"))
             except ValueError as exc:
                 self._resolve(holder, "errors", error=str(exc), code=400)
                 continue
             row = holder.get("ledger_row")
             if row is not None:
                 # the tier is stamped at submit, on the decoder that
-                # serves the request (``serving.py:2510-2544``)
-                row["quant"] = self.decoder.quantize or "bf16"
-            self.decoder.ledger_link(rid, row)
+                # serves the request: a request staged while a tier swap
+                # was pending carries the handler's view, so a demoted
+                # row gets its stage here and a promote-raced row drops
+                # back to the base tier
+                served_tier = target.quantize or "bf16"
+                row["quant"] = served_tier
+                if served_tier != self._base_tier:
+                    if row.get("tier") != served_tier:
+                        self.ledger.mark(row, "demoted", tier=served_tier)
+                elif row.get("tier"):
+                    row["tier"] = served_tier
+            if role is not None:
+                # the role feeds the per-version SLO slices and the
+                # rollback predicate; the version names the weights
+                holder["deploy"] = role
+                if row is not None:
+                    row["deploy"] = role
+                    row["version"] = (rollout.version if role == "green"
+                                      else self.version or "blue")
+            target.ledger_link(rid, row)
             get_tracer().event("serve.submit",
                                parent=holder.get("trace"), rid=rid)
-            waiting[rid] = holder
+            bucket[rid] = holder
         return waiting
 
     def _fail_all(self, waiting, message, outcome="errors", code=503):
@@ -1547,14 +1660,17 @@ class GenerateAPI:
                 return
             self._resolve(holder, outcome, error=message, code=code)
 
-    def _expire_deadlines(self, waiting):
+    def _expire_deadlines(self, waiting, decoder=None):
         """Cancel every request whose deadline passed: its slot frees at
-        once and the client gets a 504."""
+        once and the client gets a 504. ``decoder`` defaults to the
+        primary engine; a rollout's green engine passes its own."""
+        if decoder is None:
+            decoder = self.decoder
         now = time.monotonic()
         for rid in [r for r, h in waiting.items()
                     if now >= h["deadline"]]:
             holder = waiting.pop(rid)
-            self.decoder.cancel(rid)
+            decoder.cancel(rid)
             get_tracer().event("serve.expire",
                                parent=holder.get("trace"), rid=rid)
             self._resolve(holder, "expired", error="deadline exceeded",
@@ -1565,8 +1681,9 @@ class GenerateAPI:
         fault. The flight recorder notes ``breaker.trip`` and dumps its
         black box FIRST, while the ring still holds the dispatches and
         spans that led here; then everyone staged and in flight is shed
-        with a retryable 503, and a pending swap resolves with the
-        trip."""
+        with a retryable 503, and a pending swap or rollout resolves with
+        the trip; a live rollout aborts (the rebuild makes only the
+        primary engine), its green requests shed."""
         flight = get_flight_recorder()
         flight.note("breaker.trip", error=str(exc)[:500],
                     inflight=len(waiting))
@@ -1577,19 +1694,30 @@ class GenerateAPI:
         self.health.set_breaker("open")
         self.health.set_ready(False)
         self._tripped_at = time.monotonic()
-        pending, self._swap_request = self._swap_request, None
-        if pending is not None:
-            pending["error"] = "breaker tripped: %s" % exc
-            pending["event"].set()
+        # a pending tier swap is moot: the rebuild lands on the governed
+        # tier directly (_governed_kwargs)
+        self._tier_request = None
+        for pending in (self._swap_request, self._rollout_request):
+            if pending is not None:
+                pending["error"] = "breaker tripped: %s" % exc
+                pending["event"].set()
+        self._swap_request = None
+        self._rollout_request = None
+        if self._green is not None:
+            self._abort_green("blue breaker tripped during rollout: %s"
+                              % exc)
         self._tripped = "decode driver failed: %s; rebuilding" % exc
         self._fail_all(waiting, self._tripped, outcome="shed", code=503)
 
     def _governed_kwargs(self):
-        """The decoder's construction kwargs at the tier in effect: the
-        configured one, as the governor that would pick another (and
-        with it a rebuild that leaves the prefix cache behind) waits for
-        ROADMAP A7 (c)."""
-        return dict(self._decoder_kwargs)
+        """The decoder's construction kwargs at the tier the governor
+        wants (the configured one without a governor), and that tier: a
+        rebuild lands on the governed rung directly."""
+        kwargs = dict(self._decoder_kwargs)
+        tier = (self.governor.tier_name() if self.governor is not None
+                else self._base_tier)
+        kwargs["quantize"] = None if tier == "bf16" else tier
+        return kwargs, tier
 
     def _build_probed_decoder(self, kwargs):
         """Build a decoder, carry the request-id counter over (sampling
@@ -1639,8 +1767,11 @@ class GenerateAPI:
         memscope.edge_begin("breaker_rebuild")
         capture_s = 0.0
         try:
-            kwargs = self._governed_kwargs()
-            if self.decoder.pool is not None:
+            kwargs, tier = self._governed_kwargs()
+            # the prefix cache crosses a rebuild at the same tier only:
+            # its pages hold the tier's KV bytes
+            if self.decoder.pool is not None \
+                    and tier == (self.decoder.quantize or "bf16"):
                 started = time.perf_counter()
                 try:
                     self.decoder.pool.capture_shadows(self.decoder.state)
@@ -1665,9 +1796,45 @@ class GenerateAPI:
             memscope.flush_incidents()
         return True
 
+    # -- the governor's seams (serving.py:2711-2750) ---------------------
+    @property
+    def effective_max_queue(self):
+        """The admission bound in force: the governor's resized limit
+        while it sets one, else ``max_queue``."""
+        governor = self.governor
+        if governor is not None:
+            # one read: the driver's tick rebinds admit_limit, and a
+            # check-then-read pair could return None (no bound at all)
+            override = governor.admit_limit
+            if override is not None:
+                return override
+        return self.max_queue
+
+    def request_tier(self, tier):
+        """The governor's actuator (a): ask the driver for a graceful
+        swap to ``tier``: stop admitting, let the requests in flight
+        finish at their admitted tier, then build and probe a decoder at
+        the new tier (:meth:`_apply_tier`). Ignored while a failed swap's
+        backoff is armed or a rollout is live, and idempotent at the
+        live tier."""
+        if time.monotonic() < self._tier_block_until:
+            return
+        if self._green is not None or self._rollout_request is not None:
+            # one deploy-plane operation at a time; the governor asks
+            # again after the rollout lands
+            return
+        if tier == (self.decoder.quantize or "bf16"):
+            self._tier_request = None
+            return
+        if self._tier_request != tier:
+            self._tier_requested_at = time.perf_counter()
+        self._tier_request = tier
+        self._wake.set()
+
     def request_trip(self, reason):
         """Trip the breaker at the top of the next driver pass: shed
-        retryably, rebuild behind the probe, as after a real fault."""
+        retryably, rebuild behind the probe, as after a real fault (the
+        governor's actuator (d) calls this)."""
         self._trip_request = reason
         self._wake.set()
 
@@ -1679,7 +1846,15 @@ class GenerateAPI:
         shed), then swaps and probes (:meth:`_apply_swap`). Returns the
         holder: its ``event`` sets when the swap landed or was refused,
         ``error`` carries the refusal. A newer request supersedes an
-        unapplied one (which resolves with an error)."""
+        unapplied one (which resolves with an error). Refused while a
+        blue-green rollout is live: one deploy-plane operation at a
+        time."""
+        if self._green is not None or self._rollout_request is not None:
+            holder = {"event": threading.Event(),
+                      "error": "refused: a blue-green rollout is in "
+                               "progress"}
+            holder["event"].set()
+            return holder
         holder = {"event": threading.Event(), "params": new_params,
                   "embed_table": new_embed_table, "version": version,
                   "requested_at": time.perf_counter()}
@@ -1712,6 +1887,31 @@ class GenerateAPI:
         params, embed_table, version = self._param_stash
         return self.swap_params(params, embed_table, version=version,
                                 timeout=timeout)
+
+    def begin_rollout(self, new_params, new_embed_table=None,
+                      version="green", config=None, timeout=120.0):
+        """Start a blue-green rollout (``serving.py:2803-2828``): build
+        and probe a second engine on the new weights, shift tenant slices
+        onto it along the configured ladder, and roll back on the green
+        slice's burn or TTFT against blue's (``rollout.py``). Blocks until
+        the green engine passed (or failed) its probe; returns the
+        :class:`~veles_tpu_torch.rollout.BlueGreenRollout`."""
+        if self._swap_request is not None:
+            raise RuntimeError("refused: a weight hot-swap is pending")
+        holder = {"event": threading.Event(), "params": new_params,
+                  "embed_table": new_embed_table, "version": version,
+                  "config": config}
+        previous, self._rollout_request = self._rollout_request, holder
+        if previous is not None:
+            previous["error"] = "superseded by a newer rollout request"
+            previous["event"].set()
+        self._wake.set()
+        if not holder["event"].wait(timeout):
+            raise RuntimeError("rollout start timed out after %.0fs"
+                               % timeout)
+        if "error" in holder:
+            raise RuntimeError(holder["error"])
+        return holder["rollout"]
 
     def _apply_swap(self, holder):
         """The swap itself (driver thread, decoder idle): refuse a
@@ -1768,6 +1968,8 @@ class GenerateAPI:
             get_flight_recorder().note(
                 "deploy.swap_refused", error=str(exc)[:200],
                 version=str(holder.get("version")))
+            from veles_tpu_torch.rollout import note_swap_failure
+            note_swap_failure(str(exc), version=holder.get("version"))
             holder["error"] = ("swap refused, old weights serving: %s"
                                % exc)
             holder["event"].set()
@@ -1795,12 +1997,153 @@ class GenerateAPI:
             memscope.flush_incidents()
         return True
 
-    def _note_progress(self, waiting):
+    def _start_green(self, holder):
+        """Build and probe the green engine of a blue-green rollout
+        (driver thread, ``serving.py:2919-2975``). It shares nothing
+        with the primary's pool or prefix cache (old-weight KV must never
+        serve green streams); its request ids sit 2^20 above blue's, so
+        ledger rows and slot timelines never collide."""
+        from veles_tpu_torch.rollout import BlueGreenRollout, RolloutConfig
+
+        if self._green is not None:
+            holder["error"] = "a rollout is already in progress"
+            holder["event"].set()
+            return
+        kwargs = dict(self._decoder_kwargs)
+        kwargs["params"] = holder["params"]
+        if holder.get("embed_table") is not None:
+            kwargs["embed_table"] = holder["embed_table"]
+        try:
+            bad = _non_finite_leaf((kwargs["params"],
+                                    kwargs["embed_table"]))
+            if bad is not None:
+                raise ValueError("non-finite weights at %s — the "
+                                 "checkpoint is poisoned" % bad)
+            decoder = self._build_probed_decoder(kwargs)
+        except Exception as exc:   # noqa: BLE001 - refused, blue serves
+            traceback.print_exc()
+            self.health.incr("rollout_failures")
+            get_flight_recorder().note("deploy.green_refused",
+                                       error=str(exc)[:200])
+            holder["error"] = "green build/probe refused: %s" % exc
+            holder["event"].set()
+            return
+        decoder._next_id = self.decoder._next_id + (1 << 20)
+        decoder.rollout_role = "green"
+        decoder.version = holder.get("version") or "green"
+        config = holder.get("config")
+        if config is None:
+            config = RolloutConfig.from_config()
+        self._green = {"decoder": decoder, "waiting": {},
+                       "pending": None, "params": holder["params"],
+                       "embed_table": holder.get("embed_table")}
+        self._rollout = BlueGreenRollout(decoder.version, config=config)
+        self._rollout.start(api=self)
+        self.health.incr("rollouts")
+        holder["rollout"] = self._rollout
+        holder["event"].set()
+
+    def _abort_green(self, reason):
+        """Tear the green engine down now (its failure, or blue's
+        breaker trip): green's requests in flight shed retryably, and the
+        rollout lands in ``rolled_back`` with the reason."""
+        green, self._green = self._green, None
+        if green is None:
+            return
+        for holder in list(green["waiting"].values()):
+            self._resolve(holder, "shed", error=str(reason), code=503)
+        green["waiting"].clear()
+        if self._rollout is not None:
+            self._rollout.abort(reason, api=self)
+        self.health.incr("rollout_aborts")
+        get_flight_recorder().note("deploy.abort", reason=str(reason)[:200])
+
+    def _rollout_step(self, waiting):
+        """The rollout's engine surgery (driver thread,
+        ``serving.py:2995-3034``): finish a rollback once green drained
+        (nothing shed), and promote once the ladder reached full traffic
+        and blue drained: the green decoder becomes the primary, and the
+        replaced weights go to the rollback stash. The promotion is a
+        memscope lifecycle edge (the blue decoder's pool must die with
+        it)."""
+        rollout, green = self._rollout, self._green
+        if rollout is None or green is None:
+            return
+        gdec = green["decoder"]
+        if rollout.state == "rolling_back":
+            if not gdec.busy and green["pending"] is None \
+                    and not green["waiting"]:
+                self._green = None
+                rollout.finish_rollback(api=self)
+                self.health.incr("rollbacks")
+            return
+        if rollout.state != "promote_ready":
+            return
+        if self.decoder.busy or self._pending is not None or waiting:
+            return
+        memscope = get_memscope()
+        memscope.edge_begin("rollout_promote")
+        self._param_stash = (self._decoder_kwargs["params"],
+                             self._decoder_kwargs["embed_table"],
+                             self.version)
+        self._decoder_kwargs["params"] = green["params"]
+        if green["embed_table"] is not None:
+            self._decoder_kwargs["embed_table"] = green["embed_table"]
+        gdec.rollout_role = None
+        self._install_decoder(gdec)
+        self.version = rollout.version
+        # green's work in flight rides over: its waiting map and lag-1
+        # chunk belong to the (new) primary now
+        waiting.update(green["waiting"])
+        self._pending = green["pending"]
+        self._green = None
+        rollout.finish_promote(api=self)
+        self.health.incr("promotes")
+        verdict = memscope.edge_end("rollout_promote", gc_collect=True)
+        if verdict is not None and verdict["leak"]:
+            memscope.flush_incidents()
+
+    def _apply_tier(self, tier):
+        """The graceful tier swap (``serving.py:3035-3058``): the decoder
+        is idle (the driver held the staged queue and drained the
+        requests in flight), so nobody is shed. Build the decoder at the
+        new tier, probe it, put it in service. The prefix cache does not
+        cross tiers. A failed build or probe keeps the old decoder
+        serving, arms a backoff and notes ``governor.tier_failed``; it
+        never serves the new tier any other way. Returns True on
+        success."""
+        kwargs = dict(self._decoder_kwargs)
+        kwargs["quantize"] = None if tier == "bf16" else tier
+        started = time.perf_counter()
+        try:
+            decoder = self._build_probed_decoder(kwargs)
+        except Exception:   # noqa: BLE001 - the old decoder serves
+            traceback.print_exc()
+            self._tier_block_until = time.monotonic() \
+                + 4 * self.rebuild_backoff
+            get_flight_recorder().note("governor.tier_failed", tier=tier)
+            return False
+        self._install_decoder(decoder)
+        self.health.incr("tier_swaps")
+        get_flight_recorder().note("governor.tier", tier=tier,
+                                   base=self._base_tier)
+        requested = self._tier_requested_at
+        self.tier_swaps.append(dict(
+            self.last_rebuild, tier=tier,
+            swap_s=time.perf_counter() - started,
+            drain_s=(started - requested) if requested is not None
+            else None))
+        return True
+
+    def _note_progress(self, waiting, decoder=None):
         """After a collect: book queue waits (staged to admitted) and
-        times to the first token into the health windows, and resolve
-        every finished request (its time per output token comes from its
-        ledger row, in :meth:`_resolve`)."""
-        decoder = self.decoder
+        times to the first token into the health windows (and, during a
+        rollout, into the role's TTFT feed), and resolve every finished
+        request (its time per output token comes from its ledger row, in
+        :meth:`_resolve`). ``decoder`` defaults to the primary engine;
+        the green engine passes its own."""
+        if decoder is None:
+            decoder = self.decoder
         now = time.monotonic()
         for rid in list(waiting):
             holder = waiting[rid]
@@ -1813,8 +2156,11 @@ class GenerateAPI:
                         "queue_wait", max(0.0, admitted - staged_at))
             if "first_token" not in holder and decoder.results.get(rid):
                 holder["first_token"] = True
-                self.health.record_latency("ttft",
-                                           max(0.0, now - staged_at))
+                waited = max(0.0, now - staged_at)
+                self.health.record_latency("ttft", waited)
+                if self._rollout is not None and "deploy" in holder:
+                    self._rollout.note_ttft(holder["deploy"], waited,
+                                            now=now)
             if decoder.done(rid):
                 tokens = decoder.results.pop(rid)
                 get_tracer().event("serve.complete",
@@ -1824,15 +2170,19 @@ class GenerateAPI:
                               tokens=tokens)
 
     def _drive(self):
-        """The lag-1 loop (``serving.py:3099-3268``, without the
-        governor and the rollout): each pass drains the
-        staged queue, expires deadlines, DISPATCHES chunk N+1 and only
-        then collects chunk N, so the card computes the next chunk while
-        the host reads the last one back. The breaker opens on any
-        fault of the pass and rebuilds with exponential backoff; the
-        chunk in flight is dropped, never collected into shed requests'
-        results. While a swap is pending the staged queue holds; the
-        idle decoder swaps."""
+        """The lag-1 loop (``serving.py:3099-3268``): each pass ticks the
+        governor, drains the staged queue, expires deadlines, DISPATCHES
+        chunk N+1 and only then collects chunk N, so the card computes
+        the next chunk while the host reads the last one back. The
+        breaker opens on any fault of the pass and rebuilds with
+        exponential backoff; the chunk in flight is dropped, never
+        collected into shed requests' results. While a tier swap or a
+        weight swap is pending the staged queue holds; the idle decoder
+        swaps. During a rollout the green engine steps in the same pass,
+        lag-1 on its own chunk in flight: each engine collects its chunk
+        before it dispatches again, and both enqueue on one stream, so
+        their kernels serialise. A green fault aborts the rollout, never
+        the primary."""
         waiting = {}
         backoff = self.rebuild_backoff
         try:
@@ -1857,15 +2207,49 @@ class GenerateAPI:
                         backoff = min(backoff * 2,
                                       self.rebuild_backoff_max)
                     continue
+                if self.governor is not None:
+                    # one rate-limited pass; a broken governor never
+                    # takes the driver down
+                    try:
+                        self.governor.tick(self)
+                    except Exception:   # noqa: BLE001
+                        traceback.print_exc()
                 if self._trip_request is not None:
                     reason, self._trip_request = self._trip_request, None
                     self._pending = None
                     self._trip(RuntimeError(reason), waiting)
                     continue
-                if self._swap_request is None:
+                if self._rollout_request is not None:
+                    holder, self._rollout_request = \
+                        self._rollout_request, None
+                    self._start_green(holder)
+                if self._tier_request is None \
+                        and self._swap_request is None:
                     waiting.update(self._drain_staged())
                 self._expire_deadlines(waiting)
-                if not self.decoder.busy and self._pending is None:
+                green = self._green
+                if green is not None:
+                    self._expire_deadlines(green["waiting"],
+                                           decoder=green["decoder"])
+                    # the rollout's control loop rides the driver like
+                    # the governor's; a broken one never takes it down
+                    if self._rollout is not None:
+                        try:
+                            self._rollout.tick(self)
+                        except Exception:   # noqa: BLE001
+                            traceback.print_exc()
+                    self._rollout_step(waiting)
+                    green = self._green   # _rollout_step may clear it
+                blue_idle = not self.decoder.busy and self._pending is None
+                green_idle = green is None or (
+                    not green["decoder"].busy and green["pending"] is None)
+                if blue_idle and green_idle:
+                    if self._tier_request is not None:
+                        # drained at the admitted tier: the tier seam
+                        tier, self._tier_request = self._tier_request, None
+                        if tier != (self.decoder.quantize or "bf16"):
+                            self._apply_tier(tier)
+                        continue
                     if self._swap_request is not None:
                         # drained on the old weights: the swap seam
                         holder, self._swap_request = \
@@ -1880,13 +2264,14 @@ class GenerateAPI:
                         self._wake.clear()
                     continue
                 try:
-                    if self.chaos is not None:
-                        self.chaos.before_step(self.decoder)
-                    current = self.decoder.dispatch_chunk(self.chunk)
-                    if self._pending is not None:
-                        self.decoder.collect_chunk(self._pending)
-                    self._pending = current
-                    self._note_progress(waiting)
+                    if not blue_idle:
+                        if self.chaos is not None:
+                            self.chaos.before_step(self.decoder)
+                        current = self.decoder.dispatch_chunk(self.chunk)
+                        if self._pending is not None:
+                            self.decoder.collect_chunk(self._pending)
+                        self._pending = current
+                        self._note_progress(waiting)
                     # the waste and occupancy autopsy, off the record
                     # path: a broken autopsy never takes the driver down
                     try:
@@ -1898,16 +2283,37 @@ class GenerateAPI:
                     self._pending = None
                     self._trip(exc, waiting)
                     continue
+                if green is not None and self._green is green \
+                        and not green_idle:
+                    gdec = green["decoder"]
+                    try:
+                        if self.chaos is not None:
+                            self.chaos.before_step(gdec)
+                        current = gdec.dispatch_chunk(self.chunk)
+                        if green["pending"] is not None:
+                            gdec.collect_chunk(green["pending"])
+                        green["pending"] = current
+                        self._note_progress(green["waiting"],
+                                            decoder=gdec)
+                    except Exception as exc:   # noqa: BLE001
+                        traceback.print_exc()
+                        green["pending"] = None
+                        self._abort_green("green engine failed: %s" % exc)
         finally:
             self.health.set_ready(False)
             with self._stage_lock:
                 self._accepting = False
             self._pending = None
             self._fail_all(waiting, "server stopped")
-            holder, self._swap_request = self._swap_request, None
-            if holder is not None and not holder["event"].is_set():
-                holder["error"] = "server stopped"
-                holder["event"].set()
+            green, self._green = self._green, None
+            if green is not None:
+                self._fail_all(green["waiting"], "server stopped")
+            for attr in ("_swap_request", "_rollout_request"):
+                holder = getattr(self, attr)
+                setattr(self, attr, None)
+                if holder is not None and not holder["event"].is_set():
+                    holder["error"] = "server stopped"
+                    holder["event"].set()
 
     # -- HTTP ----------------------------------------------------------
     def _validate(self, raw):
@@ -1959,6 +2365,11 @@ class GenerateAPI:
             tenant=tenant, prompt_len=len(prompt), budget=limit,
             bucket=decoder.bucket_for(len(prompt)), quant=decoder.quantize,
             breaker_gen=self.health.counter("rebuilds"), deadline=deadline_s)
+        serving_tier = decoder.quantize or "bf16"
+        if serving_tier != self._base_tier:
+            # the governed tier in effect: the demoted row names it; the
+            # driver stamps it again at submit if a swap lands between
+            self.ledger.mark(row, "demoted", tier=serving_tier)
         booked = {}
         pool_gate = None
         if decoder.pool is not None:
@@ -1974,7 +2385,8 @@ class GenerateAPI:
                     booked["reserved"] = True
                     return None
                 return pool.retry_after(need)
-        verdict = self.health.try_admit(self.max_queue, pool_gate=pool_gate)
+        admit_limit = self.effective_max_queue
+        verdict = self.health.try_admit(admit_limit, pool_gate=pool_gate)
         if verdict == "unready":
             self.ledger.resolve(row, "rejected", error="unready")
             reply(handler, {"error": self._tripped or "not ready"},
@@ -1983,7 +2395,7 @@ class GenerateAPI:
         if verdict == "full":
             self.ledger.resolve(row, "rejected", error="queue full")
             reply(handler, {"error": "saturated: %d requests in flight"
-                            % self.max_queue},
+                            % admit_limit},
                   code=429, headers=retry_after_headers(self.health))
             return
         if isinstance(verdict, tuple):
@@ -1994,6 +2406,9 @@ class GenerateAPI:
                   code=429, headers={"Retry-After": "%d" % max(
                       1, round(verdict[1]))})
             return
+        if self.governor is not None:
+            # the prewarm trend: admitted requests only
+            self.governor.observe_bucket(decoder.bucket_for(len(prompt)))
         staged_at = time.monotonic()
         trace = ctx
         if trace is None and trace_hint:
@@ -2060,6 +2475,9 @@ class GenerateAPI:
         bridge(registry, self.ledger, publish_request_ledger)
         if self.slo is not None:
             bridge(registry, self.slo, lambda reg, live: live.publish(reg))
+        if self.governor is not None:
+            from veles_tpu_torch.observe.governor import publish_governor
+            bridge(registry, self.governor, publish_governor)
 
         class Handler(QuietHandlerMixin, BaseHTTPRequestHandler):
             def do_GET(self):
@@ -2119,6 +2537,10 @@ class GenerateAPI:
         if self._driver is not None:
             self._driver.join(timeout=30)
             self._driver = None
+        if self.governor is not None:
+            # after the driver, so its last pass cannot start a prewarm
+            # this join misses
+            self.governor.drain_prewarm()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
