@@ -294,6 +294,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    delivers every token, a capacity report (sustained tokens/s and the
    first breaching series printed), regress 0 on itself and 1 at -15%.
 
+22. (run after phase 21) the data-parallel mesh and the dashboards: (a)
+   the wide MLP (784 -> 4096 tanh -> 10, minibatch 4096, knobs on,
+   precision level 2) through ``python -m veles_tpu_torch --mesh data=2
+   --coordinator ...``, two ranks on the one card over gloo (NCCL takes
+   one rank per device), 2048 rows a rank, against one process stepping
+   the same global minibatches from the same numpy weights: every
+   epoch's validation n_err equal, every weight within DP_ATOL, each
+   rank's K6 and K5 launches equal to the single run's; images/s and the
+   all-reduce's share of the run printed, and which reduce tiers gloo
+   ran on a CUDA tensor; (b) a world of one over NCCL in this process:
+   reduce_sum's three tiers on CUDA tensors at the wide MLP's gradient
+   shapes against their plain versions; (c) rank 0's WebStatusServer,
+   pushed to by its launcher's StatusNotifier: the page, the state and
+   /metrics with the mesh gauges and the reduce plane; (d) plotting
+   without matplotlib raises naming it.
+
 Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
 8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
 bound.
@@ -318,6 +334,7 @@ import os
 import pickle
 import re
 import signal
+import socket
 import statistics
 import struct
 import subprocess
@@ -6844,6 +6861,414 @@ def act_phase(device, prompts):
     return launches
 
 
+# -- phase 22: the data-parallel mesh and the dashboards ---------------------
+
+#: phase 22: the wide MLP (784 -> 4096 tanh -> 10) over the bench data,
+#: minibatch 4096, knobs on, at precision level 2 (K5 and K6 on f32
+#: operands, so that two runs differ only by the order of the gradient
+#: sum), DP_EPOCHS epochs; DP_RANKS processes share the one card over
+#: gloo (NCCL takes one rank per device), 2048 rows a rank. The single
+#: run steps the same global minibatches from the same weights: its
+#: per-epoch n_err must be the world's, each weight within DP_ATOL
+DP_RANKS, DP_EPOCHS, DP_ATOL = 2, 3, 1e-4
+#: the world's deadline, seconds
+DP_DEADLINE = 300
+#: the reduce tiers on the card at world size 1 over NCCL: f32 and bf16
+#: are a sum of one term (the input and its bf16 rounding, bit for bit);
+#: int8 quantizes twice, and the codes may move by one where a quotient
+#: rounds otherwise on the card, so the bound is one second-stage step
+DP_TIERS = ("f32", "bf16", "int8")
+#: the workflow each rank runs through ``python -m veles_tpu_torch
+#: --mesh data=2 --coordinator ...``: JAX-free numpy weights put into the
+#: units, every epoch's validation errors recorded, the reduces timed; it
+#: writes its weights, launches, minibatches and timings, and rank 0 hosts
+#: a WebStatusServer its launcher's StatusNotifier pushes to, whose page,
+#: state and /metrics it saves; then each rank tries the three reduce
+#: tiers on a CUDA tensor over gloo and says which ran
+DP_WORKFLOW = '''"""The data-parallel wide MLP (chip_smoke.py phase 22)."""
+
+import json
+import os
+import time
+import urllib.request
+
+import numpy
+import torch
+
+from veles_tpu_torch.convert import unit_params_from_jax
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.models.mlp import MLPWorkflow
+from veles_tpu_torch.ops import gemm
+from veles_tpu_torch.parallel import mapreduce
+from veles_tpu_torch.web_status import WebStatusServer
+
+root.dp.update({"out": None, "epochs": 3, "lr": 0.03,
+               "lengths": [0, 10000, 50000]})
+
+
+def synchronize(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run(load, main):
+    cfg = root.dp
+    rank = torch.distributed.get_rank()
+    data = numpy.load(os.path.join(cfg.out, "data.npy"), mmap_mode="r")
+    labels = numpy.load(os.path.join(cfg.out, "labels.npy"))
+    wf, _ = load(MLPWorkflow, name="wide-dp", layers=(4096, 10),
+                 loader_kwargs=dict(data=numpy.asarray(data), labels=labels,
+                                    class_lengths=list(cfg.lengths),
+                                    minibatch_size=4096,
+                                    normalization_type="linear"),
+                 learning_rate=cfg.lr, max_epochs=cfg.epochs)
+    unit_params_from_jax(wf, list(numpy.load(
+        os.path.join(cfg.out, "init.npy"), allow_pickle=True)))
+    epochs = []
+    summary = wf.decision._epoch_summary
+
+    def stamped(stats, epoch):
+        epochs.append((time.perf_counter(), int(stats[1][0])))
+        summary(stats, epoch)
+    wf.decision._epoch_summary = stamped
+    real, spent = mapreduce.reduce_sum, [0.0, 0]
+
+    def timed(*args, **kwargs):
+        synchronize(wf.device)
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        synchronize(wf.device)
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return out
+    mapreduce.reduce_sum = timed
+    server = None
+    if rank == 0:
+        server = WebStatusServer(port=0, host="127.0.0.1").start()
+        root.common.web.update({"enabled": True, "host": "127.0.0.1",
+                                "port": server.port,
+                                "notification_interval": 0.2})
+    t0 = time.perf_counter()
+    main()
+    synchronize(wf.device)
+    wall = time.perf_counter() - t0
+    mapreduce.reduce_sum = real
+    out = {"rank": rank, "epochs": [n for _, n in epochs],
+           "stamps": [t for t, _ in epochs], "wall": wall,
+           "reduce_s": spent[0], "reduces": spent[1],
+           "dense_epilogue": gemm.dense_epilogue.launches,
+           "blocked_matmul": gemm.blocked_matmul.launches,
+           "minibatches": list(wf.fused_tick.minibatch_counts),
+           "sharded": wf.fused_tick.mesh is not None,
+           "device": str(wf.device)}
+    numpy.save(os.path.join(cfg.out, "weights%d.npy" % rank),
+               numpy.array([(f.weights.data.cpu().numpy(),
+                             f.bias.data.cpu().numpy())
+                            for f in wf.forwards], dtype=object))
+    if server is not None:
+        base = "http://127.0.0.1:%d" % server.port
+        for _ in range(100):
+            if server.statuses():
+                break
+            time.sleep(0.1)
+        for name, path in (("page", "/"), ("state", "/service"),
+                           ("metrics", "/metrics")):
+            with urllib.request.urlopen(base + path, timeout=30) as resp:
+                out[name] = resp.read().decode()
+        server.stop()
+    tiers = {}
+    x = torch.randn(4099, device=wf.device, generator=torch.Generator(
+        device=wf.device).manual_seed(rank))
+    for precision in ("f32", "bf16", "int8"):
+        try:
+            got = mapreduce.reduce_sum({"x": x}, precision=precision)["x"]
+            tiers[precision] = "ran (%s)" % got.device
+        except Exception as exc:
+            tiers[precision] = "raised %s: %s" % (type(exc).__name__,
+                                                   str(exc)[:200])
+    out["tiers"] = tiers
+    with open(os.path.join(cfg.out, "rank%d.json" % rank), "w") as fout:
+        json.dump(out, fout)
+'''
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_weights(rng):
+    """The wide MLP's initial weights drawn with numpy (phase 8's
+    rule)."""
+    weights, fan_in = [], 784
+    for width in WIDE_LAYERS:
+        bound = 1.0 / math.sqrt(fan_in)
+        weights.append({
+            "weights": rng.uniform(-bound, bound, (fan_in, width)),
+            "bias": rng.uniform(-bound, bound, width)})
+        fan_in = width
+    return weights
+
+
+def dp_world(device, out):
+    """Start DP_RANKS ``python -m veles_tpu_torch --mesh data=2`` ranks
+    on DP_WORKFLOW over gloo on the one card; wait DP_DEADLINE at most,
+    killing them all on expiry. Returns each rank's record and the
+    world's wall seconds."""
+    workflow = os.path.join(out, "wide_dp.py")
+    with open(workflow, "w") as fout:
+        fout.write(DP_WORKFLOW)
+    coordinator = "127.0.0.1:%d" % free_port()
+    # the overrides follow the config file, the flags come after them
+    argv = [sys.executable, "-m", "veles_tpu_torch", workflow, "-",
+            "root.common.mesh.backend=gloo",
+            "root.common.engine.use_pallas=True",
+            "root.common.engine.pallas_epilogue=True",
+            "root.common.engine.precision_level=2",
+            "root.common.engine.pallas_autotune_cache=%r"
+            % root.common.engine.pallas_autotune_cache,
+            "root.dp.out=%r" % out, "root.dp.epochs=%d" % DP_EPOCHS,
+            "root.dp.lr=%r" % TRAIN_LR,
+            "root.dp.lengths=%r" % list(BENCH_CLASS_LENGTHS),
+            "--device", device.type, "--mesh", "data=%d" % DP_RANKS,
+            "--coordinator", coordinator, "--num-processes",
+            str(DP_RANKS), "--seed", "default=1234,loader=1234"]
+    logs = [open(os.path.join(out, "rank%d.log" % rank), "w+")
+            for rank in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv + ["--process-id", str(rank)],
+                              cwd=REPO_DIR, env=port_env(), stdout=log,
+                              stderr=subprocess.STDOUT)
+             for rank, log in enumerate(logs)]
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(DP_DEADLINE - (time.perf_counter() - t0),
+                                  1))
+    except subprocess.TimeoutExpired:
+        raise AssertionError("the %d-rank world passed its %d s deadline"
+                             % (DP_RANKS, DP_DEADLINE))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for rank, (proc, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if proc.returncode:
+            raise AssertionError("rank %d exited %d:\n%s"
+                                 % (rank, proc.returncode, text[-4000:]))
+    ranks = []
+    for rank in range(DP_RANKS):
+        with open(os.path.join(out, "rank%d.json" % rank)) as fin:
+            record = json.load(fin)
+        record["weights"] = numpy.load(
+            os.path.join(out, "weights%d.npy" % rank), allow_pickle=True)
+        ranks.append(record)
+    return ranks, wall
+
+
+def dp_single(device, data, labels, weights):
+    """The single-process run of the same global minibatches from the
+    same weights and seeds: (per-epoch n_err, weights, launches, images/s
+    as bench.py reads it)."""
+    wf = build_mlp(device, data, labels, WIDE_LAYERS, WIDE_MINIBATCH,
+                   BENCH_CLASS_LENGTHS, True, DP_EPOCHS, precision_level=2,
+                   weights=weights)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    epochs, wall = train(wf, device)
+    got = counts()
+    stamps = [e["t"] for e in epochs]
+    rate = len(data) * (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    return ([e["valid_n_err"] for e in epochs],
+            [(f.weights.data.cpu().numpy(), f.bias.data.cpu().numpy())
+             for f in wf.forwards], got, rate, wall)
+
+
+def dp_web_checks(record):
+    """Phase 22 (c): the page, the state and /metrics of rank 0's
+    WebStatusServer, pushed to by its launcher's StatusNotifier."""
+    state = json.loads(record["state"])
+    status = next(iter(state.values()), {})
+    metrics = record["metrics"]
+    steps = re.search(r'veles_fleet_reduce_steps_total\{precision="f32"\} '
+                      r'(\S+)', metrics)
+    wire = re.search(r'veles_fleet_reduce_bytes_total\{precision="f32"\} '
+                     r'(\S+)', metrics)
+    checks = {
+        "page names the run": "wide-dp" in record["page"],
+        "page shows the mesh": "mesh data2" in record["page"],
+        "state: standalone": status.get("mode") == "standalone",
+        "state: mesh data2": (status.get("device") or {}).get("mesh")
+        == "data2",
+        "state: graph": bool((status.get("graph") or {}).get("nodes")),
+        "metrics: data axis 2":
+            'veles_mesh_axis_size{axis="data"} 2' in metrics,
+        "metrics: 2 devices": "veles_mesh_devices 2" in metrics,
+        "metrics: reduce steps": bool(steps and float(steps.group(1)) > 0),
+        "metrics: reduce bytes": bool(wire and float(wire.group(1)) > 0)}
+    print("  web status over rank 0: %s; reduce plane %s steps, %s bytes"
+          % (", ".join("%s %s" % (k, "ok" if v else "FAILED")
+                       for k, v in checks.items()),
+             steps.group(1) if steps else "-", wire.group(1) if wire
+             else "-"))
+    if not all(checks.values()):
+        raise AssertionError("the web status over the world failed")
+
+
+def dp_nccl_tiers(device):
+    """Phase 22 (b): a world of one over NCCL in this process: the three
+    reduce tiers on CUDA tensors at the wide MLP's gradient shapes
+    against their plain versions on the same inputs (DP_TIERS)."""
+    from veles_tpu_torch.parallel import mapreduce
+    from veles_tpu_torch.parallel.mesh import (build_mesh,
+                                               finalize_distributed,
+                                               initialize_distributed)
+    initialize_distributed("127.0.0.1:%d" % free_port(), 1, 0,
+                           device="cuda", timeout=120)
+    try:
+        mesh = build_mesh()
+        assert torch.distributed.get_backend() == "nccl"
+        gen = torch.Generator(device=device).manual_seed(22)
+        tree = [{"w": torch.randn((784, 4096), generator=gen,
+                                  device=device) * 1e-3,
+                 "b": torch.randn(4096, generator=gen, device=device)},
+                {"w": torch.randn((4096, 10), generator=gen,
+                                  device=device),
+                 "b": torch.randn(10, generator=gen, device=device)},
+                torch.tensor(9, dtype=torch.int32, device=device)]
+        leaves = [tree[0]["w"], tree[0]["b"], tree[1]["w"], tree[1]["b"]]
+        report = []
+        for precision in DP_TIERS:
+            got = mapreduce.reduce_sum(tree, precision=precision,
+                                       group=mesh.group)
+            outs = [got[0]["w"], got[0]["b"], got[1]["w"], got[1]["b"]]
+            worst = 0.0
+            for x, y in zip(leaves, outs):
+                ref = x.cpu()
+                if precision == "bf16":
+                    ref = ref.bfloat16().float()
+                elif precision == "int8":
+                    scale = ref.abs().max().clamp(min=1e-30) / 127.0
+                    ref = torch.clamp(torch.round(ref / scale), -127,
+                                      127).to(torch.int32).float() * scale
+                    scale2 = ref.abs().max().clamp(min=1e-30) / 127.0
+                    step = scale2.item()
+                    ref = torch.clamp(torch.round(ref / scale2), -127,
+                                      127).float() * scale2
+                err = (y.cpu() - ref).abs().max().item()
+                bound = step if precision == "int8" else 0.0
+                if not (y.is_cuda and err <= bound):
+                    raise AssertionError(
+                        "reduce_sum %s over NCCL: max abs err %g past %g"
+                        % (precision, err, bound))
+                worst = max(worst, err)
+            if int(got[2].item()) != 9:
+                raise AssertionError("the integer leaf changed")
+            report.append("%s max abs err %.3g" % (precision, worst))
+        print("  NCCL world of 1 (%s): reduce_sum on CUDA tensors at the "
+              "wide MLP's gradient shapes: %s"
+              % (mesh, "; ".join(report)))
+    finally:
+        finalize_distributed()
+
+
+def dp_plotting():
+    """Phase 22 (d): where matplotlib is missing a plotter and a
+    rendering GraphicsServer raise naming it; where it is present a plot
+    renders."""
+    import importlib.util
+    from veles_tpu_torch import plotting
+    if importlib.util.find_spec("matplotlib") is None:
+        for make in (lambda: plotting.AccumulatingPlotter(DummyWorkflow()),
+                     lambda: plotting.GraphicsServer()):
+            try:
+                make()
+            except ImportError as exc:
+                if "matplotlib" not in str(exc):
+                    raise
+                message = str(exc)
+            else:
+                raise AssertionError("a plotter was made without "
+                                     "matplotlib")
+        print("  plotting without matplotlib raises: %s" % message)
+        return
+    with tempfile.TemporaryDirectory() as out:
+        server = plotting.GraphicsServer(directory=out)
+        plot = plotting.AccumulatingPlotter(DummyWorkflow(), name="dp")
+        plot.values = [3.0, 2.0, 1.0]
+        server.enqueue(plot)
+        done = server.flush(timeout=120)
+        server.shutdown()
+        if not done or "dp" not in server.rendered:
+            raise AssertionError("matplotlib is here but nothing rendered")
+        print("  matplotlib present: a plot rendered to %s"
+              % os.path.basename(server.rendered["dp"]))
+
+
+def mesh_phase(device):
+    """Phase 22: (a) the data-parallel tick of the wide MLP at full width
+    through the CLI's --mesh, DP_RANKS ranks on the card over gloo,
+    against the single run; (b) the reduce tiers over NCCL; (c) the web
+    status over (a); (d) plotting. Returns (a)'s launches, both ranks'."""
+    t0 = time.perf_counter()
+    data, labels = bench_dataset()
+    weights = dp_weights(numpy.random.RandomState(22))
+    with tempfile.TemporaryDirectory() as out:
+        numpy.save(os.path.join(out, "data.npy"), data)
+        numpy.save(os.path.join(out, "labels.npy"), labels)
+        numpy.save(os.path.join(out, "init.npy"),
+                   numpy.array(weights, dtype=object))
+        ranks, world_wall = dp_world(device, out)
+    n_err, single_w, single_got, single_rate, _ = dp_single(
+        device, data, labels, weights)
+    launches = dict.fromkeys(COUNTERS, 0)
+    w_diff = 0.0
+    for record in ranks:
+        got = {name: record[name] for name in ("dense_epilogue",
+                                                "blocked_matmul")}
+        for name, n in got.items():
+            launches[name] += n
+        stamps = record["stamps"]
+        rate = len(data) * (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        for (tw, tb), (sw, sb) in zip(record["weights"], single_w):
+            w_diff = max(w_diff, numpy.abs(tw - sw).max(),
+                         numpy.abs(tb - sb).max())
+        print("  rank %d of %d (%s, gloo): validation n_err %s (single "
+              "run %s); images/s %.1f (the single run %.1f; bench reading, "
+              "mean of %d epoch intervals); all-reduce %.3f s of the run's "
+              "%.3f s (%.1f%%, %d reduces, the card synchronised around "
+              "each); minibatches (test, valid, train) %s; launches %s "
+              "(the single run %s); reduce tiers on a CUDA tensor over "
+              "gloo: %s"
+              % (record["rank"], DP_RANKS, record["device"],
+                 record["epochs"], n_err, rate, single_rate,
+                 len(stamps) - 1, record["reduce_s"], record["wall"],
+                 100 * record["reduce_s"] / record["wall"],
+                 record["reduces"], record["minibatches"], got,
+                 {k: single_got[k] for k in got}, record["tiers"]))
+        if record["epochs"] != n_err or not record["sharded"] \
+                or any(got[k] != single_got[k] for k in got) \
+                or not all(got.values()) \
+                or not record["tiers"]["f32"].startswith("ran"):
+            raise AssertionError("rank %d disagrees with the single run"
+                                 % record["rank"])
+    print("  the world's weights against the single run's: max abs diff "
+          "%.3g (tolerance %.0e); world wall %.1f s"
+          % (w_diff, DP_ATOL, world_wall))
+    if not w_diff <= DP_ATOL:
+        raise AssertionError("the world's weights left the single run's")
+    dp_web_checks(ranks[0])
+    dp_nccl_tiers(device)
+    dp_plotting()
+    print("mesh phase: %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7017,6 +7442,10 @@ def main():
     # guard fronts (K1), the rollouts (K4, K2) and the capacity front (K1,
     # K2) are main paths
     for name, n in act_phase(device, prompts).items():
+        launches[name] += n
+    # the data-parallel mesh and the dashboards: both ranks' K6 and K5
+    # are a main path
+    for name, n in mesh_phase(device).items():
         launches[name] += n
     isolated.cleanup()
     for entry in kernels:

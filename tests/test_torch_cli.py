@@ -11,6 +11,7 @@ import functools
 import http.server
 import json
 import os
+import signal
 import subprocess
 import sys
 import tarfile
@@ -28,6 +29,18 @@ from veles_tpu_torch.models.mlp import MLPWorkflow
 from veles_tpu_torch.snapshotter import Snapshotter
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _restore_sigterm():
+    """A CLI run in this process installs the flight recorder's SIGTERM
+    handler (``observe/flight.install_signal_handlers``), chained to the
+    one before it: put that one back after every test, so the handlers
+    do not pile up in the worker that runs this file."""
+    previous = signal.getsignal(signal.SIGTERM)
+    yield
+    signal.signal(signal.SIGTERM, previous)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAMPLES = os.path.join(REPO, "veles_tpu_torch", "samples")

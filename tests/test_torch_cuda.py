@@ -45,7 +45,9 @@ kernels under ``paged.dispatch`` in a profile, the card's bf16 peak,
 memscope's owners against the caching allocator and a ledger row per
 request served on the card; and what acts on it: a governed demotion to
 int8 whose requests launch K2, and a rollout's green engine streaming
-the new weights.
+the new weights; and the data-parallel mesh: the three reduce tiers on
+CUDA tensors in a world of one over NCCL, and two ranks sharing the card
+over gloo against one process stepping the whole minibatches.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -2130,3 +2132,159 @@ def test_a_green_engine_streams_the_new_weights(cuda):
         api.stop()
     assert green_stream == _act_stream(params2, table, [4, 5])
     assert blue_stream == _act_stream(params, table, [4, 5])
+
+
+# -- the data-parallel mesh (parallel/mesh.py, mapreduce.py) ---------------
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_reduce_sum_over_nccl_at_world_one(cuda, precision):
+    """A world of one over NCCL: each tier on CUDA tensors equals its
+    plain version (f32 the input, bf16 its rounding, int8 the two
+    quantization stages), the integer leaf untouched, nothing on the
+    host."""
+    from veles_tpu_torch.parallel import mapreduce
+    from veles_tpu_torch.parallel.mesh import (build_mesh,
+                                               finalize_distributed,
+                                               initialize_distributed)
+    initialize_distributed("127.0.0.1:%d" % _free_port(), 1, 0,
+                           device="cuda", timeout=60)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = build_mesh()
+        x = torch.randn((37, 5), generator=cuda, device="cuda") * 3
+        n = torch.tensor(7, dtype=torch.int32, device="cuda")
+        got = mapreduce.reduce_sum({"x": x, "n": n}, precision=precision,
+                                   group=mesh.group)
+    finally:
+        finalize_distributed()
+    assert got["x"].is_cuda and got["n"].item() == 7
+    ref = x.cpu()
+    bound = 0.0
+    if precision == "bf16":
+        ref = ref.bfloat16().float()
+    elif precision == "int8":
+        scale = ref.abs().max() / 127.0
+        ref = torch.round(ref / scale).clamp(-127, 127) * scale
+        scale2 = ref.abs().max() / 127.0
+        ref = torch.round(ref / scale2).clamp(-127, 127) * scale2
+        # a quotient the card rounds otherwise may move a code by one
+        bound = scale2.item()
+    assert (got["x"].cpu() - ref).abs().max().item() <= bound
+
+
+#: one rank of a world on the card: ``python -c`` with the config path
+#: and the rank
+_MESH_RANK = r'''
+import json, sys
+import numpy, torch
+from veles_tpu_torch.convert import unit_params_from_jax
+from veles_tpu_torch.core import prng
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.dummy import DummyLauncher
+from veles_tpu_torch.models.mlp import MLPWorkflow
+from veles_tpu_torch.parallel.mesh import (build_mesh,
+                                           finalize_distributed,
+                                           initialize_distributed)
+root.common.engine.precision_level = 2
+cfg = json.load(open(sys.argv[1]))
+rank = int(sys.argv[2])
+initialize_distributed(cfg["coordinator"], 2, rank, device="cuda",
+                       backend="gloo", timeout=120)
+data = numpy.load(cfg["data"], allow_pickle=True)
+prng.get("loader").seed(5)
+wf = MLPWorkflow(DummyLauncher(), device="cuda", mesh=build_mesh(data=2),
+                 **json.loads(cfg["kwargs"]),
+                 loader_kwargs=dict(data=data["x"], labels=data["y"],
+                                    class_lengths=[0, 256, 1024],
+                                    minibatch_size=128))
+unit_params_from_jax(wf, list(data["init"]))
+wf.initialize()
+seen = []
+summary = wf.decision._epoch_summary
+def recorded(stats, epoch):
+    seen.append(int(stats[1][0]))
+    summary(stats, epoch)
+wf.decision._epoch_summary = recorded
+wf.run()
+numpy.save(cfg["out"] % rank, numpy.array(
+    [seen, wf.fused_tick.mesh is not None]
+    + [f.weights.data.cpu().numpy() for f in wf.forwards], dtype=object))
+finalize_distributed()
+'''
+
+
+def test_mesh_tick_on_the_card_matches_a_single_run(cuda, tmp_path,
+                                                    monkeypatch):
+    """Two ranks share the card over gloo (NCCL takes one rank per
+    device), each stepping its half of every minibatch: per-epoch
+    validation errors equal to one process stepping the whole
+    minibatches from the same weights, weights within 1e-5 (level 2:
+    f32 sums in another order)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from veles_tpu_torch.convert import unit_params_from_jax
+    from veles_tpu_torch.core import prng
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.models.mlp import MLPWorkflow
+
+    rng = numpy.random.RandomState(3)
+    x = rng.rand(1280, 32).astype(numpy.float32)
+    y = ((x[:, :4].sum(axis=1) * 2.5).astype(numpy.int32) % 10)
+    init = numpy.array([{"weights": rng.uniform(-0.2, 0.2, (32, 64)),
+                         "bias": numpy.zeros(64)},
+                        {"weights": rng.uniform(-0.2, 0.2, (64, 10)),
+                         "bias": numpy.zeros(10)}], dtype=object)
+    numpy.savez(tmp_path / "data.npz", x=x, y=y, init=init)
+    kwargs = dict(layers=[64, 10], learning_rate=0.1, max_epochs=3)
+    cfg = {"coordinator": "127.0.0.1:%d" % _free_port(),
+           "data": str(tmp_path / "data.npz"),
+           "out": str(tmp_path / "rank%d.npy"), "kwargs": json.dumps(kwargs)}
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    monkeypatch.setattr(root.common.engine, "precision_level", 2)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MESH_RANK, str(tmp_path / "cfg.json"),
+         str(rank)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    try:
+        logs = [proc.communicate(timeout=240)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, log in zip(procs, logs):
+        assert proc.returncode == 0, log[-3000:]
+    prng.get("loader").seed(5)
+    wf = MLPWorkflow(DummyLauncher(), device="cuda", **kwargs,
+                     loader_kwargs=dict(data=x, labels=y,
+                                        class_lengths=[0, 256, 1024],
+                                        minibatch_size=128))
+    unit_params_from_jax(wf, list(init))
+    wf.initialize()
+    seen = []
+    summary = wf.decision._epoch_summary
+
+    def recorded(stats, epoch):
+        seen.append(int(stats[1][0]))
+        summary(stats, epoch)
+    wf.decision._epoch_summary = recorded
+    wf.run()
+    for rank in range(2):
+        got = numpy.load(cfg["out"] % rank, allow_pickle=True)
+        assert got[1] and list(got[0]) == seen and len(seen) == 3
+        for tw, f in zip(got[2:], wf.forwards):
+            numpy.testing.assert_allclose(tw, f.weights.data.cpu().numpy(),
+                                          atol=1e-5, rtol=0)

@@ -260,15 +260,18 @@ def test_the_families_that_differ_from_jax_are_pinned():
         "veles_xla_cache_hits_total": "veles_kernel_loads_total",
         "veles_xla_recompile_storms_total":
             "veles_kernel_rebuild_storms_total",
-        "veles_xla_program_flops": "veles_program_flops",
-        "veles_mesh_axis_size": None, "veles_mesh_devices": None}
+        "veles_xla_program_flops": "veles_program_flops"}
     assert set(xla_stats.DIFFERING_FAMILIES) <= jax_names
     assert not set(xla_stats.DIFFERING_FAMILIES) & port
     kept = {"veles_device_memory_bytes", "veles_device_memory_limit_bytes",
             "veles_device_peak_bf16_tflops", "veles_mfu_ratio",
             "veles_program_flops_per_second",
             "veles_serving_requests_total", "veles_decode_tokens_total",
-            "veles_decode_dispatch_seconds", "veles_request_ttft_seconds"}
+            "veles_decode_dispatch_seconds", "veles_request_ttft_seconds",
+            "veles_mesh_axis_size", "veles_mesh_devices",
+            "veles_fleet_reduce_steps_total",
+            "veles_fleet_reduce_bytes_total", "veles_fleet_reduce_seconds",
+            "veles_fleet_chip_idle_fraction"}
     assert kept <= port & jax_names
 
 

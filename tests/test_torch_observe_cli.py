@@ -27,6 +27,18 @@ from veles_tpu_torch.observe.trace_export import load_events
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _restore_sigterm():
+    """A CLI run in this process installs the flight recorder's SIGTERM
+    handler (``observe/flight.install_signal_handlers``), chained to the
+    one before it: put that one back after every test, so the handlers
+    do not pile up in the worker that runs this file."""
+    previous = signal.getsignal(signal.SIGTERM)
+    yield
+    signal.signal(signal.SIGTERM, previous)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: the six-feature toy of tests/test_torch_cli.py, with a knob for

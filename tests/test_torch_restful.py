@@ -21,6 +21,7 @@ from veles_tpu.core.config import root as jroot
 from veles_tpu.dummy import DummyLauncher as JDummyLauncher
 from veles_tpu.dummy import DummyWorkflow as JDummyWorkflow
 from veles_tpu.models.mlp import MLPWorkflow as JMLPWorkflow
+from veles_tpu.observe.history import stop_history_sampler as jstop_history
 from veles_tpu.serving import InteractiveLoader as JInteractiveLoader
 from veles_tpu.serving import RESTfulAPI as JRESTfulAPI
 from veles_tpu.serving import RestfulLoader as JRestfulLoader
@@ -34,6 +35,15 @@ from veles_tpu_torch.serving import (InteractiveLoader, RESTfulAPI,
                                      RestfulLoader)
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _stop_jax_history_sampler():
+    """The JAX package's RESTfulAPI starts its metric-history sampler, a
+    non-daemon thread, and no stop() releases it: stop it when this file
+    is done, so it does not outlive the file in its worker."""
+    yield
+    jstop_history()
 
 
 def _workflow(pkg):

@@ -34,6 +34,7 @@ from veles_tpu_torch.dummy import DummyLauncher
 from veles_tpu_torch.loader.base import TRAIN, VALID
 from veles_tpu_torch.models.mlp import MLPWorkflow
 from veles_tpu_torch.ops import gemm
+from veles_tpu_torch.parallel.mesh import Mesh
 
 torch.set_num_threads(1)
 
@@ -253,13 +254,14 @@ def test_device_none_means_the_card(monkeypatch):
 
 @pytest.mark.parametrize("build", [
     lambda: MLPWorkflow(DummyLauncher(), device="cpu",
-                        **_kwargs(mesh=object())),
+                        **_kwargs(mesh=Mesh({"data": 2, "model": 2}))),
 ], ids=["mesh"])
 def test_later_slices_raise(build):
-    """A mesh is a later slice: it raises, it never runs another path
-    (the MSE evaluator and the loader class are ported:
-    tests/test_torch_mse.py, test_torch_loaders.py)."""
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """A mesh axis other than data is a later slice (ROADMAP A8 (b)): it
+    raises, it never runs another path (the data axis is ported,
+    tests/test_torch_mesh.py, as are the MSE evaluator and the loader
+    class: tests/test_torch_mse.py, test_torch_loaders.py)."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A8 \(b\)"):
         build()
 
 

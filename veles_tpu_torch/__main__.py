@@ -27,6 +27,14 @@ veles_tpu_torch observe export-trace PATH`` turns into a Chrome trace;
 (``observe/profile.py``). SIGTERM dumps the flight recorder's black box
 before the previous handler runs (``observe/flight.py``).
 
+``--mesh data=N`` runs the fused tick data-parallel over a
+``torch.distributed`` world of N processes, one per device
+(``parallel/mesh.py``): start the same command once per process with
+``--coordinator HOST:PORT --num-processes N --process-id I`` (rank 0
+serves the rendezvous and alone writes snapshots, plots, web status and
+the result file); ``--fleet-reduce {f32,bf16,int8}`` picks the gradient
+reduce's wire tier (``parallel/mapreduce.py``).
+
 The flags of paths the port does not have yet parse like the JAX
 package's, then exit with code 2 and a message naming the ROADMAP item
 that brings them (:data:`DEFERRED`); so do the JAX package's
@@ -54,19 +62,17 @@ from veles_tpu_torch.core.logger import Logger, setup_logging
 from veles_tpu_torch.launcher import Launcher
 
 _FLEET = "the fleet, ROADMAP A9"
-_MESH = "the mesh, ROADMAP A8"
 _META = "genetics and ensembles, ROADMAP A9"
 
 #: flag -> the ROADMAP item that brings it (by argparse dest)
 DEFERRED = {
     "listen": _FLEET, "master_address": _FLEET, "nodes": _FLEET,
     "respawn": _FLEET, "slave_death_probability": _FLEET,
-    "async_slave": _FLEET, "fleet_plane": _FLEET, "fleet_reduce": _FLEET,
+    "async_slave": _FLEET, "fleet_plane": _FLEET,
     "chaos_seed": _FLEET, "chaos_frame_drop": _FLEET,
     "chaos_frame_delay": _FLEET, "chaos_slow_job": _FLEET,
     "chaos_duplicate_update": _FLEET, "chaos_death": _FLEET,
-    "mesh": _MESH, "coordinator": _MESH, "num_processes": _MESH,
-    "process_id": _MESH, "serve_mesh": _MESH,
+    "serve_mesh": "the sharded serving mesh, ROADMAP A8 (c)",
     "optimize": _META, "optimize_fleet": _META,
     "optimize_representation": _META, "ensemble_train": _META,
     "ensemble_test": _META,
@@ -134,6 +140,32 @@ class Main(Logger):
                                  "JSON lines")
         parser.add_argument("--dump-config", action="store_true")
         parser.add_argument("-v", "--verbose", action="count", default=0)
+        mesh = parser.add_argument_group(
+            "mesh", "the data-parallel fused tick over a torch.distributed "
+            "world, one process per device")
+        mesh.add_argument("--mesh", default=None,
+                          metavar="AXIS=N[,AXIS=N...]",
+                          help="pod mode: shard the workflow tick over a "
+                               "device mesh, e.g. --mesh data=2 (axes: "
+                               "pipe, data, expert, seq, model; -1 "
+                               "absorbs the remaining devices; only the "
+                               "data axis is ported)")
+        mesh.add_argument("--coordinator", default=None,
+                          metavar="HOST:PORT",
+                          help="multi-process pod: the rendezvous that "
+                               "rank 0 serves (run the same command in "
+                               "every process)")
+        mesh.add_argument("--num-processes", type=int, default=None,
+                          help="multi-process pod: total process count")
+        mesh.add_argument("--process-id", type=int, default=None,
+                          help="multi-process pod: this process's rank "
+                               "(0 owns snapshots/plots/results)")
+        mesh.add_argument("--fleet-reduce", default=None,
+                          choices=("f32", "bf16", "int8"),
+                          help="the gradient all-reduce's wire tier for "
+                               "meshed ticks: f32 (exact, default), bf16 "
+                               "(half the bytes) or int8 (quantized with "
+                               "per-leaf scales, ~4x fewer bytes)")
         observe = parser.add_argument_group(
             "observability", "span tracing and the profiler window")
         observe.add_argument("--trace-events", default=None,
@@ -205,8 +237,6 @@ class Main(Logger):
                 (("--slave-death-probability",), {"type": float}),
                 (("--async-slave",), {"action": "store_true"}),
                 (("--fleet-plane",), {"choices": ("data", "control")}),
-                (("--fleet-reduce",), {"choices": ("f32", "bf16",
-                                                   "int8")}),
                 (("--chaos-seed",), {"type": int, "metavar": "N"}),
                 (("--chaos-frame-drop",), {"type": float, "metavar": "P"}),
                 (("--chaos-frame-delay",), {"type": float,
@@ -215,10 +245,6 @@ class Main(Logger):
                 (("--chaos-duplicate-update",), {"type": float,
                                                  "metavar": "P"}),
                 (("--chaos-death",), {"type": float, "metavar": "P"}),
-                (("--mesh",), {"metavar": "AXIS=N[,AXIS=N...]"}),
-                (("--coordinator",), {"metavar": "HOST:PORT"}),
-                (("--num-processes",), {"type": int}),
-                (("--process-id",), {"type": int}),
                 (("--optimize",), {"metavar": "SIZE:GENERATIONS"}),
                 (("--optimize-fleet",), {"metavar": "HOST:PORT"}),
                 (("--optimize-representation",), {"choices": ("numeric",
@@ -387,6 +413,30 @@ class Main(Logger):
         # embedders keep their own signal policy)
         from veles_tpu_torch.observe.flight import install_signal_handlers
         install_signal_handlers()
+        if args.coordinator and (args.num_processes is None
+                                 or args.process_id is None):
+            parser.error("--coordinator requires --num-processes and "
+                         "--process-id")
+        self.joined = False
+        try:
+            return self._run(parser, args)
+        finally:
+            if self.joined:
+                from veles_tpu_torch.parallel.mesh import (
+                    finalize_distributed)
+                finalize_distributed()
+
+    def _join(self, args):
+        """Join the world (``--coordinator``) after the config layering,
+        so ``root.common.mesh.backend`` may name the backend."""
+        from veles_tpu_torch.parallel.mesh import initialize_distributed
+        self.info("joining the world: coordinator %s, process %d/%d",
+                  args.coordinator, args.process_id, args.num_processes)
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device)
+        self.joined = True
+
+    def _run(self, parser, args):
         if args.trace_events:
             from veles_tpu_torch.core.logger import enable_event_recording
             from veles_tpu_torch.observe.tracing import get_tracer
@@ -411,6 +461,15 @@ class Main(Logger):
         module = self.load_module(args.workflow)
         self.apply_config(args.config)
         self.override_config(args.overrides)
+        if args.mesh:
+            # after the config layering: the flag wins over config files
+            from veles_tpu_torch.parallel.mesh import parse_axes
+            try:
+                overrides = parse_axes(args.mesh, flag="--mesh")
+            except ValueError as exc:
+                parser.error(str(exc))
+            for axis, size in overrides.items():
+                setattr(root.common.mesh.axes, axis, size)
         # the observe flags are validated NOW (``__main__.py:543-570``):
         # the strings land in root.common.observe and .serve below, and
         # the SLO engine, the governor and the history parse them again
@@ -437,6 +496,7 @@ class Main(Logger):
                 ("serve_slo", root.common.observe, "slo"),
                 ("serve_governor", root.common.serve, "governor"),
                 ("serve_history", root.common.observe, "history"),
+                ("fleet_reduce", root.common.fleet, "reduce"),
                 ("chaos_serve_seed", root.common.serve.chaos, "seed"),
                 ("chaos_serve_step_fail", root.common.serve.chaos,
                  "step_fail"),
@@ -450,6 +510,8 @@ class Main(Logger):
         if args.dump_config:
             root.print_()
             return 0
+        if args.coordinator:
+            self._join(args)
         if args.train_ratio is not None:
             root.common.train_ratio = args.train_ratio
         self.seed_random(args.seed)

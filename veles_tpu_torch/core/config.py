@@ -7,9 +7,10 @@ attribute access so workflow config files can write
 Supports nested ``update()``, ``protect()``-ed read-only keys and pretty
 printing.
 
-The port's defaults are the training engine's knobs, the serving
-survival layer's (``root.common.serve``) and the observe plane's serving
-hooks' (``root.common.observe``). It reads no site overrides and
+The port's defaults are the training engine's knobs, the mesh's axes
+and the reduce tier, the dashboards' switches, the serving survival
+layer's (``root.common.serve``) and the observe plane's serving hooks'
+(``root.common.observe``). It reads no site overrides and
 keeps no cache directories: nothing here touches a file.
 """
 
@@ -164,6 +165,24 @@ root.common.update({
             else os.path.join(os.path.dirname(os.path.dirname(
                 os.path.abspath(__file__))), "_build"), "run"),
     },
+    # the logical mesh's axes (parallel/mesh.py): all ones is one
+    # process on one device; any other size (--mesh data=2) makes the
+    # launcher build the mesh into the workflow. Only the data axis is
+    # ported (ROADMAP A8 (b) brings the others). The world's backend:
+    # None is NCCL on a card and gloo on the CPU; ranks that share one
+    # card name "gloo" (NCCL takes one rank per device)
+    "mesh": {
+        "axes": {"data": 1, "model": 1, "seq": 1, "expert": 1, "pipe": 1},
+        "backend": None,
+    },
+    # the data-parallel gradient reduce's wire tier (parallel/mapreduce.py,
+    # --fleet-reduce): "f32", "bf16" or "int8"
+    "fleet": {"reduce": "f32"},
+    # the dashboards: plotting (plotting/) and the web status notifier
+    # (web_status.py, off until enabled)
+    "disable": {"plotting": False, "snapshotting": False},
+    "web": {"enabled": False, "host": "localhost", "port": 8090,
+            "notification_interval": 1.0},
     "trace": {"run": False},
     "timings": False,
     # the observe plane's serving hooks: SLO objectives (None: no engine;

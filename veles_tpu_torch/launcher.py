@@ -2,19 +2,29 @@
 
 The port of ``veles_tpu/launcher.py:33-290`` (reference
 ``veles/launcher.py``) in standalone mode: the launcher owns the thread
-pool the workflow's units run on, initializes and runs the workflow,
-writes the ``--result-file`` and shuts the pool down. The master and
-slave modes, their node spawning and ``discover_yarn_nodes`` belong to
-the fleet, a later slice of the port (ROADMAP A9): asking for them
-raises ``NotImplementedError``. The plotting server and the web status
-notifier wait for the observe plane's dashboards (ROADMAP A7 (d)).
+pool the workflow's units run on, builds the configured mesh into the
+workflow (``--mesh`` / ``root.common.mesh.axes``, ``parallel/mesh.py``:
+the data-parallel fused tick, one process per device), starts the
+dashboards — the GraphicsServer that renders the workflow's plotters
+(``plotting/``) and the StatusNotifier that pushes to a WebStatusServer
+(``web_status.py``, ``root.common.web.enabled``) — on the primary process
+(rank 0) only, initializes and runs the workflow, writes the
+``--result-file`` (rank 0 only) and shuts it all down. The JAX launcher
+starts its GraphicsServer for every run; this one starts it where the
+workflow holds a plotter, because the card's host has no matplotlib.
+The master and slave modes, their node spawning and
+``discover_yarn_nodes`` belong to the fleet, a later slice of the port
+(ROADMAP A9): asking for them raises ``NotImplementedError``.
 """
 
 import json
 import threading
 
+from veles_tpu_torch.core.config import root
 from veles_tpu_torch.core.executor import ThreadPool
 from veles_tpu_torch.core.logger import Logger
+from veles_tpu_torch.parallel.mesh import (build_mesh, is_primary,
+                                           mesh_configured)
 
 _FLEET = "the fleet (master and slave modes) is a later slice of the " \
     "port (ROADMAP A9)"
@@ -38,6 +48,8 @@ class Launcher(Logger):
         self.result_file = result_file
         self.thread_pool = ThreadPool(name="launcher")
         self.workflow = None
+        self.graphics_server = None
+        self.status_notifier = None
         self._units = []
         self._finished = threading.Event()
         self.stopped = False
@@ -62,8 +74,43 @@ class Launcher(Logger):
         if self.workflow is None:
             raise ValueError("no workflow attached to the launcher")
         self.info("launcher mode: %s", self.mode)
+        primary = is_primary()
+        if not root.common.disable.get("plotting", False) and primary \
+                and self._has_plotters():
+            from veles_tpu_torch.plotting.server import GraphicsServer
+            self.graphics_server = GraphicsServer()
+        if root.common.web.get("enabled", False) and primary:
+            from veles_tpu_torch.web_status import StatusNotifier
+            self.status_notifier = StatusNotifier(self).start()
+        if mesh_configured():
+            self._build_mesh()
         self.workflow.initialize(**kwargs)
         return self
+
+    def _has_plotters(self):
+        from veles_tpu_torch.plotting.units import Plotter
+        return any(isinstance(unit, Plotter)
+                   for unit in getattr(self.workflow, "units", ()))
+
+    def _build_mesh(self):
+        """Build the configured mesh into the workflow before it
+        initializes (the fused-tick splice reads it there). A workflow
+        supports a mesh when it carries the ``mesh_`` slot — or, after a
+        snapshot resume, a fused tick (``mesh_`` is not pickled)."""
+        wf = self.workflow
+        if not (hasattr(wf, "mesh_") or hasattr(wf, "fused_tick")):
+            self.warning("a device mesh is configured but %s has no mesh "
+                         "support — the mesh is ignored", type(wf).__name__)
+            return
+        if getattr(wf, "mesh_", None) is not None:
+            return
+        mesh = build_mesh()
+        wf.mesh_ = mesh
+        tick = getattr(wf, "fused_tick", None)
+        if tick is not None:
+            # resumed snapshot: the tick builds its steps at initialize
+            tick.mesh_ = mesh
+        self.info("pod mode: %s, rank %d", mesh, mesh.rank)
 
     def run(self):
         """Run the workflow to its end, then write the results."""
@@ -79,13 +126,18 @@ class Launcher(Logger):
         if self.stopped:
             return
         self.stopped = True
+        if self.status_notifier is not None:
+            self.status_notifier.stop()
+        if self.graphics_server is not None:
+            self.graphics_server.flush()
+            self.graphics_server.shutdown()
         self.thread_pool.shutdown()
         self._finished.set()
 
     # -- results (reference --result-file) ------------------------------------
     def _write_results(self):
-        if not self.result_file:
-            return
+        if not self.result_file or not is_primary():
+            return  # one result file per world, owned by rank 0
         results = self.workflow.gather_results()
         with open(self.result_file, "w") as fout:
             json.dump(results, fout, indent=1, default=str)

@@ -41,10 +41,19 @@ DecisionMSE, ``FullBatchLoaderMSE`` by default); ``loader_cls`` names the
 loader class (a class, as in the JAX package: ``MNISTLoader``, the file
 loaders, ...), which takes ``loader_kwargs``.
 
+``mesh=`` (``parallel/mesh.build_mesh``; the launcher builds it from
+``--mesh``) runs the fused tick data-parallel over the mesh's ``data``
+axis, as the JAX package's pod mode does (``standard.py:233-251``): where
+the fused tick declines the topology under the mesh (a minibatch that
+does not divide by the data axis, a fill-time transform) the run warns
+and takes the lower tiers on one device. :meth:`add_standard_plotters`
+attaches the stock plotters (``plotting/``).
+
 ``device=None`` means "cuda" and raises without a card unless the caller
 passes ``device="cpu"``. Later slices, which raise
-``NotImplementedError`` here rather than run another path: a mesh (ring
-and Ulysses attention with it) and the fleet (master/slave) modes.
+``NotImplementedError`` here rather than run another path: a mesh axis
+other than ``data`` (ROADMAP A8 (b)) and the fleet's master and slave
+modes, the slave's fused tick among them (A9).
 """
 
 from veles_tpu_torch.core.plumbing import Repeater
@@ -67,6 +76,7 @@ from veles_tpu_torch.nn.gd import (
     GDRELU, GDSigmoid, GDSoftmax, GDStrictRELU, GDTanh, GradientDescent)
 from veles_tpu_torch.nn.pooling import (
     AvgPooling, GDPooling, MaxAbsPooling, MaxPooling)
+from veles_tpu_torch.parallel.mesh import check_ported
 
 FORWARD_TYPES = {
     "all2all": (All2All, GradientDescent),
@@ -110,8 +120,11 @@ class StandardWorkflow(Workflow):
         #: so the per-epoch read overlaps the next epoch's compute;
         #: outputs are identical, including the stop paths
         self.fused_pipeline = kwargs.pop("fused_pipeline", True)
-        if kwargs.pop("mesh", None) is not None:
-            raise NotImplementedError("a mesh is a later slice of the port")
+        #: the data-parallel mesh; the trailing underscore keeps it out
+        #: of snapshots (the launcher builds it again on resume)
+        self.mesh_ = kwargs.pop("mesh", None)
+        if self.mesh_ is not None:
+            check_ported(self.mesh_)
         #: "softmax" (classification) or "mse" (regression): selects the
         #: evaluator/decision pair and the default loader
         self.evaluator_kind = kwargs.pop("evaluator", "softmax")
@@ -148,7 +161,8 @@ class StandardWorkflow(Workflow):
     def initialize(self, **kwargs):
         if not self.is_standalone:
             raise NotImplementedError(
-                "fleet (master/slave) mode is a later slice of the port")
+                "the fleet's master and slave modes (the slave's fused "
+                "tick among them) wait for ROADMAP A9")
         if self.fused:
             self._enable_fused()
         return super().initialize(**kwargs)
@@ -163,15 +177,25 @@ class StandardWorkflow(Workflow):
 
         if self.fused_tick is not None:
             return
-        if not fused.supports(self):
+        mesh = getattr(self, "mesh_", None)
+        if not fused.supports(self, mesh):
             if self.fused is True:
                 raise ValueError(
                     "fused=True but the topology/loader is not fusible "
                     "(see parallel/fused.py supports())")
+            if mesh is not None:
+                # the user asked for a mesh: say so rather than run on
+                # one device at 1/Nth of the speed unannounced
+                self.warning(
+                    "a device mesh is configured but this topology/"
+                    "loader cannot run the sharded fused tick "
+                    "(minibatch size must divide by the data axis; see "
+                    "parallel/fused.py supports()) — falling back to "
+                    "partial fusion on one device")
             self._enable_segments()
             return
         self.fused_tick = fused.FusedTick(
-            self, name="fused_tick",
+            self, mesh=mesh, name="fused_tick",
             pipelined=bool(self.fused_pipeline and self.fused_sweep))
         # detach the graph-mode compute chain from the control path
         self.forwards[0].unlink_from(self.loader)
@@ -187,10 +211,11 @@ class StandardWorkflow(Workflow):
         self.loader.gate_block = self.decision.complete
         self.loader.fill_data = False
         self.loader.sweep_serving = bool(self.fused_sweep)
-        self.info("fused tick mode: %d-layer chain, one step per %s on %s",
+        self.info("fused tick mode: %d-layer chain, one step per %s on %s%s",
                   len(self.forwards),
                   "class sweep" if self.loader.sweep_serving
-                  else "minibatch", self.device)
+                  else "minibatch", self.device,
+                  "" if mesh is None else " over mesh %s" % mesh)
 
     def _enable_segments(self):
         """The lower fusion tiers for chains the fused tick declines (an
@@ -242,6 +267,43 @@ class StandardWorkflow(Workflow):
         self.loader.gate_block = self.decision.complete
         self.loader.fill_data = True
         self.loader.sweep_serving = False
+
+    def add_standard_plotters(self, confusion=True, weights=False):
+        """Attach the stock live-training plotters (``standard.py:309-
+        330``): the validation error curve, optionally the confusion
+        matrix and a weights multi-histogram, each firing at epoch ends.
+        Call BEFORE initialize(); the launcher's GraphicsServer renders
+        them. Raises ImportError naming matplotlib where it is missing
+        (the card's host), unless ``root.common.disable.plotting``."""
+        from veles_tpu_torch.plotting import (AccumulatingPlotter,
+                                              MatrixPlotter, MultiHistogram)
+
+        self.plotters = []
+        err = AccumulatingPlotter(self, name="%s: validation errors"
+                                  % self.name, last=0)
+        # last_epoch_* are per-epoch snapshots: the live accumulators
+        # are zeroed when a plotter fires
+        err.link_attrs(self.decision, ("input", "last_epoch_n_err"))
+        err.input_field = 1  # VALID class
+        err.gate_skip = ~self.decision.epoch_ended
+        err.link_from(self.decision)
+        self.plotters.append(err)
+        if confusion:
+            cm = MatrixPlotter(self, name="%s: confusion" % self.name)
+            cm.link_attrs(self.decision, ("input", "last_epoch_confusion"))
+            cm.link_attrs(self.loader, "reversed_labels_mapping")
+            cm.gate_skip = ~self.decision.epoch_ended
+            cm.link_from(self.decision)
+            self.plotters.append(cm)
+        if weights:
+            # at the epoch tick the unit Arrays hold the weights the
+            # epoch's metrics were measured on
+            wh = MultiHistogram(self, name="%s: weights" % self.name)
+            wh.link_attrs(self.forwards[0], ("input", "weights"))
+            wh.gate_skip = ~self.decision.epoch_ended
+            wh.link_from(self.decision)
+            self.plotters.append(wh)
+        return self.plotters
 
     def run(self):
         if bool(self.decision.complete):

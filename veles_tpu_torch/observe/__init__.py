@@ -51,8 +51,13 @@ and what acts on those hooks (ROADMAP A7 (c)):
   writes and sidecars, and the direction-aware regression gate
   (``observe regress``).
 
-The blue-green rollout is ``veles_tpu_torch/rollout.py``. Plotting and
-web status wait for ROADMAP A7 (d); the fleet scope for A9.
+The blue-green rollout is ``veles_tpu_torch/rollout.py``. The
+dashboards (ROADMAP A7 (d)) are ``veles_tpu_torch/plotting/`` (the
+GraphicsServer and the stock plotters) and ``veles_tpu_torch/web_status.py``
+(the WebStatusServer with its ``/metrics`` mount, and the launcher's
+StatusNotifier); ``xla_stats`` publishes the active mesh's gauges and the
+data-parallel reduce plane (``parallel/mesh.py``, ``mapreduce.py``). The
+fleet scope waits for A9.
 
 Everything is off by default with a structural no-op fast path (the
 disabled tracer hands out one shared null span, the disabled registry

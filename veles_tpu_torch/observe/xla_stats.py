@@ -51,13 +51,15 @@ maps each JAX name to the port's, None where the port has none):
 ``veles_kernel_loads_total``, ``veles_xla_recompile_storms_total`` is
 ``veles_kernel_rebuild_storms_total``, ``veles_xla_program_flops`` is
 ``veles_program_flops``; the port adds ``veles_program_calls_total`` and
-``veles_program_seconds_total`` (:data:`PORT_FAMILIES`); the mesh gauges
-(``veles_mesh_axis_size``, ``veles_mesh_devices``) wait for the mesh
-(ROADMAP A8). Kept as in JAX: ``veles_device_memory_bytes{device,kind}``,
+``veles_program_seconds_total`` (:data:`PORT_FAMILIES`). Kept as in
+JAX: ``veles_device_memory_bytes{device,kind}``,
 ``veles_device_memory_limit_bytes{device}``,
 ``veles_device_peak_bf16_tflops``,
-``veles_program_flops_per_second{program}`` and
-``veles_mfu_ratio{program}``.
+``veles_program_flops_per_second{program}``, ``veles_mfu_ratio{program}``,
+the active mesh's gauges ``veles_mesh_axis_size{axis}`` and
+``veles_mesh_devices`` (``parallel/mesh.py``) and the reduce plane
+(``parallel/mapreduce.publish_reduce_stats``). The AOT families wait for
+ROADMAP A9.
 
 Everything but the build records is disabled by default: an instrumented
 program costs one attribute check until a ``/metrics`` surface mounts
@@ -84,8 +86,7 @@ PEAK_BF16_TFLOPS = (
     ("A100", 312.0),
 )
 
-#: the JAX package's device-truth families the port names otherwise, and
-#: the mesh gauges it does not publish yet (None)
+#: the JAX package's device-truth families the port names otherwise
 DIFFERING_FAMILIES = {
     "veles_xla_compiles_total": "veles_kernel_builds_total",
     "veles_xla_compile_seconds_total": "veles_kernel_build_seconds_total",
@@ -93,8 +94,6 @@ DIFFERING_FAMILIES = {
     "veles_xla_recompile_storms_total":
         "veles_kernel_rebuild_storms_total",
     "veles_xla_program_flops": "veles_program_flops",
-    "veles_mesh_axis_size": None,
-    "veles_mesh_devices": None,
 }
 
 #: families the port publishes that the JAX package has no counterpart of
@@ -441,15 +440,30 @@ def publish_device_stats(registry):
     if peak:
         registry.set("veles_device_peak_bf16_tflops", peak,
                      help="published bf16 peak of the bench device")
+    # the active mesh shape (parallel/mesh.py): which layout this process
+    # computes under, scraped beside the memory gauges
+    from veles_tpu_torch.parallel.mesh import active_mesh_info
+    mesh = active_mesh_info()
+    if mesh:
+        for axis, size in mesh["axes"].items():
+            registry.set("veles_mesh_axis_size", size,
+                         labels={"axis": axis},
+                         help="active device-mesh axis sizes")
+        registry.set("veles_mesh_devices", mesh["devices"],
+                     help="devices spanned by the active mesh")
 
 
 def publish_xla_stats(registry):
     """The device-truth collector: build, load and call counters, FLOPs
-    and MFU, the memory gauges and memscope's per-owner attribution
-    (``observe/memscope.py``; the JAX package's reduce and AOT families
-    wait for ROADMAP A8 and A9)."""
+    and MFU, the memory and mesh gauges, the data-parallel reduce plane
+    (``parallel/mapreduce.py``: reduce steps and bytes per precision tier
+    and the idle-fraction gauge) and memscope's per-owner attribution
+    (``observe/memscope.py``; the JAX package's AOT families wait for
+    ROADMAP A9)."""
     get_compile_tracker().publish(registry)
     publish_device_stats(registry)
+    from veles_tpu_torch.parallel.mapreduce import publish_reduce_stats
+    publish_reduce_stats(registry)
     from veles_tpu_torch.observe.memscope import publish_memscope
     publish_memscope(registry)
 
@@ -478,8 +492,9 @@ def ensure_registered(registry=None):
 
 
 def device_summary():
-    """One compact dict: memory per device, build totals, storms, the
-    best live MFU (``mesh`` None: the mesh is ROADMAP A8)."""
+    """One compact dict for the web-status dashboard: memory per device,
+    build totals, storms, the active mesh's label, the best live MFU."""
+    from veles_tpu_torch.parallel.mesh import mesh_shape_label
     snap = get_compile_tracker().snapshot()
     memory = {}
     for dev_id, stats in _sample_device_memory().items():
@@ -497,6 +512,40 @@ def device_summary():
             "compile_seconds": round(
                 sum(snap["compile_seconds"].values()), 3),
             "storms": sum(snap["storms"].values()),
-            "mesh": None,
+            "mesh": mesh_shape_label(),
             "mfu": round(mfu, 4) if mfu is not None else None}
+
+
+def format_device_stats(device):
+    """A ``device_summary()`` dict as one dashboard table cell (the
+    device twin of ``web_status.format_serving_health``); empty for
+    masters that report none. ``compiles`` counts kernel builds here."""
+    if not isinstance(device, dict):
+        return ""
+    parts = []
+    memory = device.get("memory")
+    if isinstance(memory, dict) and memory:
+        used = sum(m.get("bytes_in_use") or 0 for m in memory.values()
+                   if isinstance(m, dict))
+        limit = sum(m.get("bytes_limit") or 0 for m in memory.values()
+                    if isinstance(m, dict))
+        if limit:
+            parts.append("hbm %.1f/%.1f GiB"
+                         % (used / 2 ** 30, limit / 2 ** 30))
+        elif used:
+            parts.append("hbm %.1f GiB" % (used / 2 ** 30))
+    mesh = device.get("mesh")
+    if mesh:
+        parts.append("mesh %s" % mesh)
+    compiles = device.get("compiles")
+    if compiles:
+        parts.append("%d compiles (%.1fs)"
+                     % (compiles, device.get("compile_seconds") or 0.0))
+    storms = device.get("storms")
+    if storms:
+        parts.append("%d RECOMPILE STORMS" % storms)
+    mfu = device.get("mfu")
+    if mfu is not None:
+        parts.append("mfu %.2f" % mfu)
+    return " · ".join(parts)
 

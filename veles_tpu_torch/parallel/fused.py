@@ -46,9 +46,16 @@ because its step donates its input buffers).
 
 A topology the tick does not support falls to the lower fusion tiers
 (``parallel/sweep.py``, ``parallel/segments.py``) or to graph mode, which
-run the units' own computes. Left out (later slices): the mesh
-(``shard_map``, ring and Ulysses attention over a ``seq`` axis) and the
-fleet slave and control-plane paths.
+run the units' own computes.
+
+With a mesh (``parallel/mesh.py``, the JAX package's pod mode) the tick
+runs data-parallel: every rank of the ``torch.distributed`` world holds
+the whole dataset and the same weights, steps on its block of each
+minibatch, and merges gradients and metrics through
+``parallel/mapreduce.reduce_sum`` (:func:`build_tick`), so every rank
+applies the same update. Left out (later slices): the mesh's other axes
+(ROADMAP A8 (b): the model axis, ring and Ulysses attention over a
+``seq`` axis) and the fleet slave and control-plane paths (A9).
 """
 
 import torch
@@ -273,7 +280,8 @@ def forward_chain(workflow):
 
 
 def build_tick(specs, norm_type="none", with_confusion=True,
-               augment="none", loss_kind="softmax"):
+               augment="none", loss_kind="softmax", mesh=None,
+               grad_reduce="f32"):
     """The fused engine: ``(train_step, eval_step, train_sweep,
     eval_sweep)``, as the JAX package's ``build_tick``:
 
@@ -294,10 +302,31 @@ def build_tick(specs, norm_type="none", with_confusion=True,
 
     ``indices`` (and each row of ``index_matrix``) is an int64 tensor on
     the data's device; ``valid`` a float; ``norm`` the normalizer's state
-    with arrays as device tensors."""
+    with arrays as device tensors.
+
+    With a ``mesh`` whose ``data`` axis is above 1 (``parallel/mesh.py``)
+    every rank takes its block of each minibatch's indices, the rows
+    JAX's ``P("data")`` gives its device (``fused.py:529-545``), masks by
+    the global position, and merges gradients, ``loss_sum``, ``n_err``
+    and the confusion matrix through ``mapreduce.reduce_sum`` over the
+    mesh's group before the update: the gradients at ``grad_reduce``, the
+    metrics exact. At a data axis of 1 the steps are the unsharded
+    ones."""
     layer_fwds = [_layer_forward(s) for s in specs]
     norm_cls = normalizer_registry[norm_type]
     with_confusion = with_confusion and loss_kind == "softmax"
+    data_ax = int(mesh.shape.get("data", 1)) if mesh is not None else 1
+    if data_ax > 1:
+        from veles_tpu_torch.parallel.mapreduce import reduce_sum
+        shard, group = mesh.axis_index("data"), mesh.group
+
+    def local_rows(indices):
+        """This rank's block of a minibatch's indices and the global
+        position of its first row."""
+        if data_ax == 1:
+            return indices, 0
+        rows = indices.shape[0] // data_ax
+        return indices[shard * rows:(shard + 1) * rows], shard * rows
 
     transform = TRANSFORMS.get(augment)
 
@@ -310,9 +339,9 @@ def build_tick(specs, norm_type="none", with_confusion=True,
             x = fwd(p, x)
         return x
 
-    def metrics_of(wb, batch, lab, valid):
-        mask = (torch.arange(batch.shape[0], device=batch.device)
-                < valid).float()
+    def metrics_of(wb, batch, lab, valid, offset=0):
+        mask = (torch.arange(offset, offset + batch.shape[0],
+                             device=batch.device) < valid).float()
         logits = model_forward(wb, batch)
         if loss_kind == "mse":
             _, loss_sum, _ = losses.masked_mse(logits, lab, mask, valid)
@@ -325,16 +354,31 @@ def build_tick(specs, norm_type="none", with_confusion=True,
 
     def core_train(params, hypers, norm, data, labels, indices, valid,
                    seed):
+        indices, offset = local_rows(indices)
         batch, lab = gather_norm(data, labels, indices, norm)
         if transform is not None:
             batch = transform(batch, seed)
         wb = [{k: t.detach().requires_grad_(True)
                for k, t in p["p"].items()} if p else {} for p in params]
         with torch.enable_grad():
-            loss_sum, n_err, _, _ = metrics_of(wb, batch, lab, valid)
+            loss_sum, n_err, _, _ = metrics_of(wb, batch, lab, valid,
+                                               offset)
             leaves = [t for layer in wb for t in layer.values()]
             flat = torch.autograd.grad(loss_sum / valid, leaves)
-        loss_sum, grads = loss_sum.detach(), iter(flat)
+        loss_sum = loss_sum.detach()
+        if data_ax > 1:
+            # the data-parallel merge (fused.py:428-436): the gradients
+            # at the configured wire tier, the metrics exact; at f32 all
+            # of it rides one reduce
+            if grad_reduce == "f32":
+                flat, loss_sum, n_err = reduce_sum(
+                    (list(flat), loss_sum, n_err), group=group)
+            else:
+                flat = reduce_sum(list(flat), precision=grad_reduce,
+                                  group=group)
+                loss_sum, n_err = reduce_sum((loss_sum, n_err),
+                                             group=group)
+        grads = iter(flat)
         new = []
         with torch.no_grad():
             for p, layer, hyper, spec in zip(params, wb, hypers, specs):
@@ -366,15 +410,20 @@ def build_tick(specs, norm_type="none", with_confusion=True,
 
     def core_eval(params, norm, data, labels, indices, valid):
         with torch.no_grad():
+            indices, offset = local_rows(indices)
             batch, lab = gather_norm(data, labels, indices, norm)
             wb = [p["p"] if p else {} for p in params]
             loss_sum, n_err, logits, mask = metrics_of(wb, batch, lab,
-                                                       valid)
+                                                       valid, offset)
             cm = (losses.confusion_matrix(logits, lab, logits.shape[-1],
                                           mask)
                   if with_confusion
                   else torch.zeros((1, 1), dtype=torch.int32,
                                    device=logits.device))
+        if data_ax > 1:
+            # fused.py:478-481: the eval metrics merge exact
+            loss_sum, n_err, cm = reduce_sum((loss_sum, n_err, cm),
+                                             group=group)
         return loss_sum, n_err, cm
 
     def train_step(params, hypers, norm, data, labels, indices, valid,
@@ -415,14 +464,16 @@ def build_tick(specs, norm_type="none", with_confusion=True,
     return train_step, eval_step, train_sweep, eval_sweep
 
 
-def supports(workflow):
+def supports(workflow, mesh=None):
     """True when the workflow's compute chain can run as a fused tick:
     a full-batch loader (whose fill-time transform, if any, is one the
-    tick applies itself, ``fused.py:567-575``), the softmax evaluator, or
-    the MSE evaluator over ``FullBatchLoaderMSE`` (``fused.py:560-564``),
-    layers of the kinds :func:`extract_model_spec` knows, and exactly
-    the standard topology (a custom unit spliced into the cycle would be
-    dropped by the splice)."""
+    tick applies itself, and none under a ``mesh``: its per-sample draws
+    span the global minibatch, ``fused.py:567-575``), the softmax
+    evaluator, or the MSE evaluator over ``FullBatchLoaderMSE``
+    (``fused.py:560-564``), layers of the kinds :func:`extract_model_spec`
+    knows, exactly the standard topology (a custom unit spliced into the
+    cycle would be dropped by the splice), and under a ``mesh`` a
+    minibatch that divides by its data axis."""
     from veles_tpu_torch.loader.fullbatch import (FullBatchLoader,
                                                   FullBatchLoaderMSE)
     from veles_tpu_torch.nn.evaluator import EvaluatorMSE, EvaluatorSoftmax
@@ -431,7 +482,8 @@ def supports(workflow):
     if not isinstance(loader, FullBatchLoader):
         return False
     if loader.has_fill_transforms \
-            and loader.jit_transform not in TRANSFORMS:
+            and (loader.jit_transform not in TRANSFORMS
+                 or mesh is not None):
         return False
     evaluator = getattr(workflow, "evaluator", None)
     if isinstance(evaluator, EvaluatorMSE):
@@ -445,7 +497,10 @@ def supports(workflow):
     expected = (list(workflow.forwards) + [workflow.evaluator,
                                            workflow.decision]
                 + list(reversed(workflow.gds)))
-    return chain_of(workflow) == expected
+    if chain_of(workflow) != expected:
+        return False
+    return mesh is None \
+        or loader.max_minibatch_size % mesh.shape.get("data", 1) == 0
 
 
 class FusedTick(Unit):
@@ -464,8 +519,12 @@ class FusedTick(Unit):
     #: execution strategy, not topology
     EPHEMERAL = True
 
-    def __init__(self, workflow, pipelined=False, **kwargs):
+    def __init__(self, workflow, mesh=None, pipelined=False, **kwargs):
         super().__init__(workflow, **kwargs)
+        #: the data-parallel mesh (``parallel/mesh.py``); the trailing
+        #: underscore keeps it out of snapshots (a process group does not
+        #: pickle): a resumed run gets it from the launcher again
+        self.mesh_ = mesh
         #: pipelined epoch mode: the Decision materializes each epoch's
         #: metrics one epoch late (pipeline_depth=1). The tick then keeps
         #: a one-slot params history so (a) the unit Arrays always hold
@@ -477,8 +536,14 @@ class FusedTick(Unit):
         self.ticks = 0
         self.minibatch_counts = [0, 0, 0]
 
+    @property
+    def mesh(self):
+        return self.mesh_
+
     def init_unpickled(self):
         super().init_unpickled()
+        if not hasattr(self, "mesh_"):
+            self.mesh_ = None
         self._params_ = None
         self._steps_ = None
         self._norm_ = None
@@ -491,6 +556,17 @@ class FusedTick(Unit):
     def initialize(self, **kwargs):
         wf = self.workflow
         loader = wf.loader
+        if self.mesh_ is not None:
+            # a resumed snapshot can acquire a mesh the build never
+            # validated (supports() runs before the splice only):
+            # fused.py:664-673
+            data_ax = self.mesh_.shape.get("data", 1)
+            if loader.max_minibatch_size % data_ax:
+                self.warning(
+                    "minibatch size %d does not divide by the mesh data "
+                    "axis %d — running the fused tick single-device",
+                    loader.max_minibatch_size, data_ax)
+                self.mesh_ = None
         for fwd in wf.forwards:
             weights = getattr(fwd, "weights", None)
             if weights is not None and weights.data is None:
@@ -509,11 +585,20 @@ class FusedTick(Unit):
         self._specs_ = extract_model_spec(wf)
         self._norm_ = state_tensors(loader.normalizer.jit_state(),
                                     loader.device)
-        self._steps_ = build_tick(
-            self._specs_, loader.normalization_type,
+        kwargs = dict(
             with_confusion=getattr(wf.evaluator, "compute_confusion", True),
             augment=loader.jit_transform or "none",
             loss_kind=self._loss_kind_)
+        if self.mesh_ is not None:
+            # the data-parallel steps, instrumented and reduced at the
+            # configured wire tier (parallel/mapreduce.py)
+            from veles_tpu_torch.parallel.mapreduce import fleet_train_step
+            self._steps_ = fleet_train_step(
+                self.mesh_, self._specs_, loader.normalization_type,
+                **kwargs)
+        else:
+            self._steps_ = build_tick(self._specs_,
+                                      loader.normalization_type, **kwargs)
 
     def run(self):
         wf = self.workflow

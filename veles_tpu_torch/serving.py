@@ -67,7 +67,8 @@ the Retry-After price, the proactive breaker guard) and the blue-green
 rollout (``rollout.py``: a second, green engine on candidate weights
 driven beside the primary in the same pass, tenants routed by their
 fixed hash point, promoted or rolled back by the rollout predicate). The
-mesh waits for ROADMAP A8 and AOT for A9.
+sharded serving mesh (``build_serve_mesh``, ``--serve-mesh``) waits for
+ROADMAP A8 (c) and AOT for A9.
 """
 
 import base64
@@ -390,8 +391,8 @@ class ContinuousDecoder:
         weights. The caller (``GenerateAPI._apply_swap``) swaps on an
         idle decoder and keeps the returned ``(old_params,
         old_embed_table)`` as its rollback stash. The JAX package's
-        mesh reshard has no counterpart here (the mesh is a later
-        slice)."""
+        mesh reshard waits for the sharded serving mesh (ROADMAP A8
+        (c))."""
         new_params = tree_to(new_params, self.device)
         if self.quantize and not isinstance(new_params["head"], dict):
             new_params = quantize_params(new_params)

@@ -23,8 +23,9 @@ tensor the workflow holds, and every ``torch.device`` it names, on the
 device it is given (``None`` means the card, and raises without one):
 the unit Arrays, the loader's originals, the normalizer's statistics and
 the GD units' solver state, which the fused tick reads back at
-``initialize``. Left out: the fleet's master-only rule and the pod's
-process-0 rule (later slices of the port).
+``initialize``. In a data-parallel world (``parallel/mesh.py``) rank 0
+alone writes snapshots. Left out: the fleet's master-only rule (ROADMAP
+A9).
 """
 
 import bz2
@@ -199,6 +200,9 @@ class SnapshotterBase(Unit):
         if bool(self.skip) or root.common.disable.get("snapshotting",
                                                       False):
             return
+        from veles_tpu_torch.parallel.mesh import is_primary
+        if not is_primary():
+            return  # one snapshot per world, written by rank 0
         self._counter += 1
         if self._counter < self.interval:
             return
