@@ -309,6 +309,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    pushed to by its launcher's StatusNotifier: the page, the state and
    /metrics with the mesh gauges and the reduce plane; (d) plotting
    without matplotlib raises naming it.
+23. (run after phase 22) the training fleet, every process sharing the
+   card: (a) phase 22's wide MLP, data and epochs through ``python -m
+   veles_tpu_torch -l`` and one ``-m`` slave on the data plane, against
+   one process from the same numpy weights: every epoch's validation
+   n_err equal, every weight (the master's) and velocity (the slave's)
+   within FLEET_ATOL, the slave's K6 and K5 launches equal to the single
+   run's, the master's none; (b) the digits of tests/test_fleet.py's
+   ``_kw(max_epochs=4)`` through a master that spawns two slaves with
+   ``-n localhost,localhost``: both take jobs, every lease done or
+   requeued, the best validation n_err within the JAX test's 80 of 297;
+   (c) the same digits with ``--respawn``, the slave SIGKILLed mid-run:
+   its lease requeued, the master respawns it (``python -m
+   veles_tpu_torch -b``) and exits 0; (d) (a) on the control plane:
+   (a)'s checks, per-job frames under 64 KiB and a fence sync each
+   epoch. Printed: images/s a slave, each frame type's bytes both ways
+   and whether they went through /dev/shm, the share of a slave's wall
+   encoding, sending, waiting, decoding and in its jobs, and the
+   master's merge ms per update.
 
 Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
 8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
@@ -7269,6 +7287,531 @@ def mesh_phase(device):
     return launches
 
 
+# -- phase 23: the training fleet (ROADMAP A9 (a)) ----------------------------
+
+#: phase 23 (a) and (d): the wide MLP of phase 22 (784 -> 4096 tanh -> 10,
+#: minibatch 4096, knobs on, level 2) on its data and epochs, through a
+#: ``python -m veles_tpu_torch -l`` master and one ``-m`` slave sharing
+#: the card, against one process from the same numpy weights: every
+#: epoch's validation n_err equal, every weight and velocity within
+#: FLEET_ATOL (phase 22's DP_ATOL)
+FLEET_ATOL = DP_ATOL
+#: (b) and (c): the digits of tests/test_fleet.py's ``_kw(max_epochs=4)``
+#: (layers (16, 10), 297 valid / 1500 train, minibatch 300, lr 0.5,
+#: seeds 42 and 43). (b)'s master serves no job before both its slaves
+#: are connected (the stream is shorter than the spread of two
+#: processes' start-up), its bound the JAX test's
+#: (tests/test_fleet.py:356-358); (c)'s jobs are stretched by
+#: FLEET_SLOW_MS (the chaos slow-job fault at probability 1), so that
+#: the run has a middle to kill its slave in
+FLEET_DIGITS = {"layers": [16, 10], "lengths": [0, 297, 1500],
+                "minibatch": 300, "lr": 0.5, "epochs": 4}
+FLEET_SLOW_MS, FLEET_DIGITS_BOUND = 300, 80
+#: (c): the slave is killed once the master has taken this many of its
+#: updates
+FLEET_KILL_AFTER = 3
+#: each part's deadline, seconds: every process it started is killed
+FLEET_DEADLINE = 240
+#: a per-job frame with no weights is far under this (the wide MLP's
+#: weights are ~13 MB)
+FLEET_SMALL_FRAME = 64 << 10
+#: the workflow every fleet process runs (master and slaves alike, so the
+#: checksum, the fleet's default secret, agrees). It records what its
+#: role sees and writes it to ``<out>/<tag>-<role>-<pid>.json`` at the
+#: end: the master its per-epoch validation n_err, each update's merge
+#: time on the card, the updates per slave (also appended to
+#: ``<out>/<tag>-progress.jsonl`` as they land), its ledger, respawns and
+#: final weights; a slave its jobs' images and wall, its kernel launches,
+#: its frames' bytes by type, whether they went through /dev/shm, the
+#: seconds spent encoding, sending, waiting and decoding, and its final
+#: weights and velocities
+FLEET_WORKFLOW = '''"""The training fleet (chip_smoke.py phase 23)."""
+
+import asyncio
+import collections
+import json
+import os
+import time
+
+import numpy
+import torch
+
+from veles_tpu_torch.convert import unit_params_from_jax
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.fleet import client as fleet_client
+from veles_tpu_torch.fleet import protocol
+from veles_tpu_torch.fleet.respawn import RespawnManager
+from veles_tpu_torch.fleet.server import Server
+from veles_tpu_torch.models.mlp import MLPWorkflow
+from veles_tpu_torch.ops import gemm
+from veles_tpu_torch.parity import read_digits
+
+root.fl.update({"out": None, "tag": "a", "data": "bench", "hold_for": 1})
+
+
+def synchronize(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed(record, key, fn):
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            record[key] += time.perf_counter() - t0
+    return wrapper
+
+
+def timed_async(record, key, fn):
+    async def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return await fn(*args, **kwargs)
+        finally:
+            record[key] += time.perf_counter() - t0
+    return wrapper
+
+
+def hold_first_job(count):
+    """Serve no job before ``count`` slaves are connected."""
+    serve = Server._serve_job
+
+    async def held(self, slave, writer):
+        while len(self.slaves) < count and not self._stopped.is_set():
+            await asyncio.sleep(0.02)
+        await serve(self, slave, writer)
+    Server._serve_job = held
+
+
+def instrument_master(wf, cfg, record):
+    if cfg.hold_for > 1:
+        hold_first_job(cfg.hold_for)
+    progress = os.path.join(cfg.out, "%s-progress.jsonl" % cfg.tag)
+    apply = wf.apply_data_from_slave
+    jobs = collections.Counter()
+
+    def merged(data, slave=None):
+        t0 = time.perf_counter()
+        out = apply(data, slave)
+        synchronize(wf.device)
+        record["merge_ms"].append((time.perf_counter() - t0) * 1e3)
+        jobs[slave.id] += 1
+        record["slaves"][slave.id] = {"pid": slave.pid,
+                                      "updates": jobs[slave.id]}
+        with open(progress, "a") as fout:
+            fout.write(json.dumps({"sid": slave.id, "pid": slave.pid,
+                                   "n": jobs[slave.id]}) + "\\n")
+        return out
+    wf.apply_data_from_slave = merged
+    spawn = RespawnManager._spawn
+
+    def spawned(self, *args):
+        record["respawns"] += 1
+        return spawn(self, *args)
+    RespawnManager._spawn = spawned
+    summary = wf.decision._epoch_summary
+
+    def stamped(stats, epoch):
+        record["epochs"].append(int(stats[1][0]))
+        summary(stats, epoch)
+    wf.decision._epoch_summary = stamped
+
+
+def instrument_slave(wf, record):
+    sent, got = record["sent"], record["got"]
+    serialize, deserialize = protocol._serialize, protocol._deserialize
+
+    def measured_out(message):
+        payload, codec = serialize(message)
+        if "type" in message:
+            sent.setdefault(message["type"], []).append(len(payload))
+        return payload, codec
+
+    def measured_in(payload, codec):
+        message = deserialize(payload, codec)
+        if isinstance(message, dict) and "type" in message:
+            got.setdefault(message["type"], []).append(len(payload))
+        return message
+    protocol._serialize, protocol._deserialize = measured_out, measured_in
+    protocol.encode_frame = timed(record, "encode_s", protocol.encode_frame)
+    fleet_client.write_frame = timed_async(record, "write_s",
+                                           fleet_client.write_frame)
+    fleet_client.read_frame = timed_async(record, "read_s",
+                                          fleet_client.read_frame)
+    asyncio.StreamReader.readexactly = timed_async(
+        record, "wait_s", asyncio.StreamReader.readexactly)
+    do_job = wf.do_job
+
+    def job(data, callback):
+        t0 = time.perf_counter()
+
+        def done(update):
+            synchronize(wf.device)
+            t1 = time.perf_counter()
+            record["job_s"] += t1 - t0
+            record["first"] = record["first"] or t0
+            record["last"] = t1
+            record["images"] += int(wf.loader.minibatch_valid_size)
+            callback(update)
+        do_job(data, done)
+    wf.do_job = job
+
+
+def run(load, main):
+    cfg = root.fl
+    if cfg.data == "digits":
+        data, labels = read_digits()
+        data, labels = data.astype(numpy.float32), labels.astype(numpy.int32)
+    else:
+        data = numpy.load(os.path.join(cfg.out, "data.npy"))
+        labels = numpy.load(os.path.join(cfg.out, "labels.npy"))
+    wf, _ = load(MLPWorkflow, name="fleet-" + cfg.tag,
+                 layers=tuple(cfg.layers),
+                 loader_kwargs=dict(data=data, labels=labels,
+                                    class_lengths=list(cfg.lengths),
+                                    minibatch_size=cfg.minibatch,
+                                    normalization_type="linear"),
+                 learning_rate=cfg.lr, max_epochs=cfg.epochs)
+    init = os.path.join(cfg.out, "init.npy")
+    if os.path.exists(init):
+        unit_params_from_jax(wf, list(numpy.load(init, allow_pickle=True)))
+    launcher = wf.workflow
+    role = launcher.mode
+    record = {"role": role, "pid": os.getpid(), "epochs": [],
+              "merge_ms": [], "slaves": {}, "respawns": 0, "sent": {},
+              "got": {}, "encode_s": 0.0, "write_s": 0.0, "read_s": 0.0,
+              "wait_s": 0.0, "job_s": 0.0, "images": 0, "first": None,
+              "last": None}
+    if role == "master":
+        instrument_master(wf, cfg, record)
+    else:
+        instrument_slave(wf, record)
+    gemm.dense_epilogue.launches = gemm.blocked_matmul.launches = 0
+    t0 = time.perf_counter()
+    main()
+    synchronize(wf.device)
+    record["wall"] = time.perf_counter() - t0
+    record["dense_epilogue"] = gemm.dense_epilogue.launches
+    record["blocked_matmul"] = gemm.blocked_matmul.launches
+    record["device"] = str(wf.device)
+    agent = launcher.agent
+    if role == "master":
+        record["ledger"] = agent.ledger.snapshot()
+        record["best"] = wf.decision.best_n_err[1]
+        record["plane"] = agent.plane
+        record["sync"] = agent.fleet_status().get("sync")
+    else:
+        record["jobs"] = agent.jobs_done
+        record["shm"] = agent._shm_thr_ is not None
+        record["fused"] = wf.fused_tick is not None
+    name = "%s-%s-%d" % (cfg.tag, role, os.getpid())
+    leaves = [(f.weights.data.cpu().numpy(), f.bias.data.cpu().numpy(),
+               g._velocity_w.data.cpu().numpy(),
+               g._velocity_b.data.cpu().numpy())
+              for f, g in zip(wf.forwards, wf.gds)]
+    numpy.save(os.path.join(cfg.out, name + ".npy"),
+               numpy.array(leaves, dtype=object))
+    with open(os.path.join(cfg.out, name + ".json"), "w") as fout:
+        json.dump(record, fout)
+'''
+
+
+def fleet_argv(device, workflow, out, tag, overrides=(), flags=(),
+               reconnects=12):
+    """A ``python -m veles_tpu_torch`` command line of FLEET_WORKFLOW on
+    ``device``: the engine knobs on at level 2, the empty tuning cache,
+    ``root.fl``; a slave tries ``reconnects`` connections (a slave
+    started beside its master waits while the master loads)."""
+    return ([sys.executable, "-m", "veles_tpu_torch", workflow, "-",
+             "root.common.engine.use_pallas=True",
+             "root.common.engine.pallas_epilogue=True",
+             "root.common.engine.precision_level=2",
+             "root.common.engine.pallas_autotune_cache=%r"
+             % root.common.engine.pallas_autotune_cache,
+             "root.common.fleet.max_reconnect_attempts=%d" % reconnects,
+             "root.fl.out=%r" % out, "root.fl.tag=%r" % tag]
+            + list(overrides) + ["--device", device.type] + list(flags))
+
+
+def alive(pid):
+    """True while ``pid`` runs (a zombie waiting for its reaper counts
+    as ended)."""
+    try:
+        with open("/proc/%d/stat" % pid) as fin:
+            return fin.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def progress_rows(out, tag):
+    path = os.path.join(out, "%s-progress.jsonl" % tag)
+    if not os.path.exists(path):
+        return []
+    with open(path) as fin:
+        return [json.loads(line) for line in fin if line.strip()]
+
+
+def fleet_run(out, tag, master_argv, slave_argvs=(), kill_after=None):
+    """Start the master (and the slaves given), wait for the master to
+    exit and every slave it names to end, within FLEET_DEADLINE: every
+    process this part started or the master spawned is killed past it.
+    ``kill_after``: SIGKILL the first slave once the master has taken
+    that many of its updates. Returns (master record, slave records,
+    the killed pid, wall seconds)."""
+    logs = [open(os.path.join(out, "%s-%d.log" % (tag, i)), "w+")
+            for i in range(1 + len(slave_argvs))]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv, cwd=REPO_DIR, env=port_env(),
+                              stdout=log, stderr=subprocess.STDOUT)
+             for argv, log in zip([master_argv] + list(slave_argvs), logs)]
+    master, killed = procs[0], None
+    try:
+        while master.poll() is None:
+            if time.perf_counter() - t0 > FLEET_DEADLINE:
+                raise AssertionError("phase 23 (%s) passed its %d s "
+                                     "deadline" % (tag, FLEET_DEADLINE))
+            if kill_after is not None and killed is None:
+                rows = progress_rows(out, tag)
+                if rows and rows[-1]["n"] >= kill_after:
+                    killed = rows[-1]["pid"]
+                    os.kill(killed, signal.SIGKILL)
+            time.sleep(0.05)
+        pids = {row["pid"] for row in progress_rows(out, tag)}
+        pids |= {proc.pid for proc in procs[1:]}
+        while any(alive(pid) for pid in pids) \
+                and time.perf_counter() - t0 < FLEET_DEADLINE:
+            for proc in procs[1:]:
+                proc.poll()  # reap the slaves this part started
+            time.sleep(0.05)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        for row in progress_rows(out, tag):
+            if alive(row["pid"]):
+                os.kill(row["pid"], signal.SIGKILL)
+    wall = time.perf_counter() - t0
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    if master.returncode:
+        raise AssertionError("the %s master exited %d:\n%s"
+                             % (tag, master.returncode, texts[0][-4000:]))
+    for proc, text in zip(procs[1:], texts[1:]):
+        if proc.returncode and proc.pid != killed:
+            raise AssertionError("a %s slave exited %d:\n%s"
+                                 % (tag, proc.returncode, text[-4000:]))
+    records = {}
+    for path in glob.glob(os.path.join(out, "%s-*.json" % tag)):
+        with open(path) as fin:
+            record = json.load(fin)
+        record["leaves"] = numpy.load(path[:-5] + ".npy",
+                                      allow_pickle=True)
+        records.setdefault(record["role"], []).append(record)
+    (record,) = records["master"]
+    return record, records.get("slave", []), killed, wall
+
+
+def fleet_single(device, data, labels, weights):
+    """One process stepping the same minibatches from the same weights:
+    (per-epoch validation n_err, leaves, launches)."""
+    wf = build_mlp(device, data, labels, WIDE_LAYERS, WIDE_MINIBATCH,
+                   BENCH_CLASS_LENGTHS, True, DP_EPOCHS, precision_level=2,
+                   weights=weights)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    epochs, _ = train(wf, device)
+    got = counts()
+    leaves = [(f.weights.data.cpu().numpy(), f.bias.data.cpu().numpy(),
+               g._velocity_w.data.cpu().numpy(),
+               g._velocity_b.data.cpu().numpy())
+              for f, g in zip(wf.forwards, wf.gds)]
+    return [e["valid_n_err"] for e in epochs], leaves, got
+
+
+def leaves_diff(got, want, velocities=True):
+    """Max abs difference over weights, biases and (optionally) the
+    velocities of two leaf lists."""
+    count = 4 if velocities else 2
+    return max(float(numpy.abs(numpy.asarray(a, numpy.float64)
+                               - numpy.asarray(b, numpy.float64)).max())
+               for x, y in zip(got, want)
+               for a, b in zip(x[:count], y[:count]))
+
+
+def frame_sizes(record, key):
+    """Mean bytes of the frames of each message type one way."""
+    return {kind: sum(sizes) / len(sizes)
+            for kind, sizes in sorted(record[key].items())}
+
+
+def slave_reading(label, slave, master):
+    """Phase 23's readings of one slave: images/s, bytes per job each
+    way, /dev/shm, and the share of its wall encoding, sending, waiting,
+    decoding and in jobs; the master's merge ms per update."""
+    span = slave["last"] - slave["first"]
+    wall = slave["wall"]
+    shares = {"encode": slave["encode_s"],
+              "send": slave["write_s"] - slave["encode_s"],
+              "wait": slave["wait_s"],
+              "decode": slave["read_s"] - slave["wait_s"],
+              "jobs": slave["job_s"]}
+    merge = master["merge_ms"]
+    print("  %s slave pid %d: %d jobs, %d images in %.3f s from the first "
+          "job's start to the last one's end: %.1f images/s; frames "
+          "received (mean bytes) %s, sent %s, through /dev/shm: %s; of "
+          "its %.3f s: %s; the master's merge %.3f ms mean, %.3f median "
+          "per update (%d updates, the card synchronised)"
+          % (label, slave["pid"], slave["jobs"], slave["images"], span,
+             slave["images"] / span, frame_sizes(slave, "got"),
+             frame_sizes(slave, "sent"), slave["shm"], wall,
+             ", ".join("%s %.3f s (%.1f%%)" % (k, v, 100 * v / wall)
+                       for k, v in shares.items()),
+             statistics.mean(merge), statistics.median(merge),
+             len(merge)))
+
+
+def fleet_wide(device, out, workflow, tag, plane, single):
+    """Phase 23 (a) or (d): the wide MLP through a master and one slave
+    on the wire plane ``plane``, held to the single run."""
+    n_err, single_leaves, single_got = single
+    overrides = ["root.fl.%s=%r" % item for item in (
+        ("layers", list(WIDE_LAYERS)), ("minibatch", WIDE_MINIBATCH),
+        ("lengths", list(BENCH_CLASS_LENGTHS)), ("epochs", DP_EPOCHS),
+        ("lr", TRAIN_LR))]
+    base = fleet_argv(device, workflow, out, tag, overrides,
+                      ("--seed", "default=1234,loader=1234",
+                       "--fleet-plane", plane))
+    address = "127.0.0.1:%d" % free_port()
+    master, slaves, _, wall = fleet_run(
+        out, tag, base + ["-l", address], [base + ["-m", address]])
+    (slave,) = slaves
+    got = {name: slave[name] for name in ("dense_epilogue",
+                                          "blocked_matmul")}
+    w_diff = leaves_diff(master["leaves"], single_leaves,
+                         velocities=False)
+    v_diff = leaves_diff(slave["leaves"], single_leaves)
+    print("  (%s) %s plane: validation n_err %s (the single run %s); the "
+          "master's weights %.3g, the slave's weights and velocities %.3g "
+          "from the single run's (tolerance %.0e); slave launches %s (the "
+          "single run %s), the master's %s; ledger %s; wall %.1f s"
+          % (tag, plane, master["epochs"], n_err, w_diff, v_diff,
+             FLEET_ATOL, got, {k: single_got[k] for k in got},
+             {k: master[k] for k in got}, master["ledger"], wall))
+    slave_reading(tag, slave, master)
+    checks = {
+        "n_err": master["epochs"] == n_err,
+        "weights": w_diff <= FLEET_ATOL and v_diff <= FLEET_ATOL,
+        "slave launches": all(got[k] == single_got[k] and got[k]
+                              for k in got),
+        "master launches none": not (master["dense_epilogue"]
+                                     or master["blocked_matmul"]),
+        "a fused slave on the card": slave["fused"]
+        and slave["device"] == str(device),
+        "plane": master["plane"] == plane}
+    if plane == "control":
+        small = max(max(slave["got"].get("job", [0])),
+                    max(slave["sent"].get("update", [0])))
+        checks["per-job frames carry no weights"] = \
+            small < FLEET_SMALL_FRAME
+        checks["a fence sync per epoch"] = \
+            (master["sync"] or {}).get("applied") == DP_EPOCHS
+        print("  (%s) the largest job or update frame %d bytes (bound %d); "
+              "fence syncs %s" % (tag, small, FLEET_SMALL_FRAME,
+                                  master["sync"]))
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("phase 23 (%s) failed: %s" % (tag, failed))
+    return master, slave
+
+
+def fleet_digits(device, out, workflow, tag, flags, hold_for=1, slow_ms=0,
+                 kill_after=None):
+    """Phase 23 (b) or (c): the digits through a master that spawns its
+    slaves with ``--nodes``: its first job held until ``hold_for`` slaves
+    are connected, each job stretched by ``slow_ms`` (the chaos slow-job
+    fault at probability 1)."""
+    overrides = ["root.fl.data='digits'", "root.fl.hold_for=%d" % hold_for,
+                 "root.common.fleet.chaos.slow_job_ms=%d" % slow_ms]
+    overrides += ["root.fl.%s=%r" % item for item in FLEET_DIGITS.items()]
+    flags = ("--seed", "default=42,loader=43", "-l",
+             "127.0.0.1:%d" % free_port()) + tuple(flags)
+    if slow_ms:
+        flags += ("--chaos-seed", "23", "--chaos-slow-job", "1")
+    master, slaves, killed, wall = fleet_run(
+        out, tag, fleet_argv(device, workflow, out, tag, overrides, flags,
+                             reconnects=2), kill_after=kill_after)
+    ledger = master["ledger"]
+    print("  (%s) %s: validation n_err by epoch %s, best %d of 297; "
+          "updates by slave %s; ledger %s; respawns %d; killed %s; slave "
+          "records %d; wall %.1f s"
+          % (tag, " ".join(flags), master["epochs"], master["best"],
+             master["slaves"], ledger, master["respawns"], killed,
+             len(slaves), wall))
+    checks = {
+        "every lease done or requeued": ledger["outstanding"] == 0
+        and ledger["issued"] == ledger["done"] + ledger["requeued"],
+        "epochs": len(master["epochs"]) == FLEET_DIGITS["epochs"]}
+    return master, slaves, killed, checks
+
+
+def fleet_phase(device):
+    """Phase 23: (a) the data plane with one sync slave, (b) two slaves
+    spawned through --nodes, (c) a slave killed mid-run and respawned,
+    (d) the control plane with one slave; every process shares the
+    card. Returns every slave's K6 and K5 launches."""
+    t0 = time.perf_counter()
+    data, labels = bench_dataset()
+    weights = dp_weights(numpy.random.RandomState(23))
+    single = fleet_single(device, data, labels, weights)
+    launches = dict.fromkeys(COUNTERS, 0)
+    with tempfile.TemporaryDirectory() as out:
+        workflow = os.path.join(out, "fleet_wf.py")
+        with open(workflow, "w") as fout:
+            fout.write(FLEET_WORKFLOW)
+        numpy.save(os.path.join(out, "data.npy"), data)
+        numpy.save(os.path.join(out, "labels.npy"), labels)
+        numpy.save(os.path.join(out, "init.npy"),
+                   numpy.array(weights, dtype=object))
+        slaves = []
+        for tag, plane in (("a", "data"), ("d", "control")):
+            slaves.append(fleet_wide(device, out, workflow, tag, plane,
+                                     single)[1])
+        os.remove(os.path.join(out, "init.npy"))
+        master, spawned, _, checks = fleet_digits(
+            device, out, workflow, "b", ("-n", "localhost,localhost"),
+            hold_for=2)
+        checks["both slaves took jobs"] = len(spawned) == 2 \
+            and all(s["jobs"] for s in spawned)
+        checks["best n_err <= %d" % FLEET_DIGITS_BOUND] = \
+            master["best"] <= FLEET_DIGITS_BOUND
+        if not all(checks.values()):
+            raise AssertionError("phase 23 (b) failed: %s" % checks)
+        slaves += spawned
+        master, spawned, killed, checks = fleet_digits(
+            device, out, workflow, "c", ("-n", "localhost", "--respawn"),
+            slow_ms=FLEET_SLOW_MS, kill_after=FLEET_KILL_AFTER)
+        checks["a slave was killed"] = killed is not None
+        checks["its leases requeued"] = \
+            master["ledger"]["requeued_dropped"] >= 1
+        checks["respawned"] = master["respawns"] >= 1
+        checks["the respawned slave ended the run"] = any(
+            s["pid"] != killed and s["jobs"] for s in spawned)
+        if not all(checks.values()):
+            raise AssertionError("phase 23 (c) failed: %s" % checks)
+        slaves += spawned
+    for slave in slaves:
+        for name in ("dense_epilogue", "blocked_matmul"):
+            launches[name] += slave[name]
+    print("fleet phase: %.1f s" % (time.perf_counter() - t0))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7446,6 +7989,9 @@ def main():
     # the data-parallel mesh and the dashboards: both ranks' K6 and K5
     # are a main path
     for name, n in mesh_phase(device).items():
+        launches[name] += n
+    # the training fleet: every slave's K6 and K5 are a main path
+    for name, n in fleet_phase(device).items():
         launches[name] += n
     isolated.cleanup()
     for entry in kernels:

@@ -22,7 +22,8 @@ import pytest
 import torch
 
 import veles_tpu_torch
-from veles_tpu_torch.__main__ import DEFERRED, DEFERRED_COMMANDS, Main, main
+from veles_tpu_torch.__main__ import (DEFERRED, DEFERRED_COMMANDS,
+                                      FLEET_FLAGS, Main, main)
 from veles_tpu_torch.core import prng
 from veles_tpu_torch.dummy import DummyLauncher
 from veles_tpu_torch.models.mlp import MLPWorkflow
@@ -378,6 +379,70 @@ def test_deferred_flag_exits_2_naming_its_roadmap_item(dest, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and DEFERRED[dest] in err
+
+
+#: the fleet's flags -> the mode each is given with and what it must set
+#: (a launcher attribute, or a root.common.fleet key)
+FLEET_CASES = {
+    "listen": ("master", {"mode": "master"}),
+    "master_address": ("slave", {"mode": "slave"}),
+    "nodes": ("master", {"nodes": ["x=1"]}),
+    "respawn": ("master", {"respawn": True}),
+    "slave_death_probability": ("slave", {"slave_death_probability": 0.5}),
+    "async_slave": ("slave", {"async_slave": True}),
+    "fleet_plane": ("slave", {"plane": "data"}),
+    "chaos_seed": ("slave", {"chaos.seed": 2}),
+    "chaos_frame_drop": ("slave", {"chaos.frame_drop": 0.5}),
+    "chaos_frame_delay": ("slave", {"chaos.frame_delay": 0.5}),
+    "chaos_slow_job": ("slave", {"chaos.slow_job": 0.5}),
+    "chaos_duplicate_update": ("slave", {"chaos.duplicate_update": 0.5}),
+    "chaos_death": ("slave", {"chaos.death": 0.5}),
+    "background": ("slave", {"daemonized": True}),
+}
+
+
+@pytest.mark.parametrize("dest", sorted(FLEET_CASES))
+def test_fleet_flag_reaches_the_launchers_fleet_mode(dest, tmp_path,
+                                                     monkeypatch):
+    """Each of the fleet's flags (and ``-b``) parses, is refused by
+    nothing, and reaches the launcher's master or slave mode with its
+    value (``--dry-run load`` stops before the fleet starts)."""
+    from veles_tpu_torch.core.config import Config, root
+
+    assert set(FLEET_CASES) == set(FLEET_FLAGS) | {"background"}
+    assert not set(FLEET_CASES) & set(DEFERRED)
+    daemonized = []
+    monkeypatch.setattr(Main, "_daemonize",
+                        lambda self: daemonized.append(True))
+    # the flags write root.common.fleet: a fresh chaos subtree and the
+    # plane's old value come back after the test
+    monkeypatch.setattr(root.common.fleet, "chaos",
+                        Config("root.common.fleet.chaos"), raising=False)
+    monkeypatch.setattr(root.common.fleet, "plane",
+                        root.common.fleet.get("plane", "data"),
+                        raising=False)
+    wf_file = tmp_path / "tiny_wf.py"
+    wf_file.write_text(TINY_WF)
+    mode, want = FLEET_CASES[dest]
+    argv = _flag_argv(dest)
+    argv[0] = str(wf_file)
+    if dest not in ("listen", "master_address"):
+        argv += (["-l", "127.0.0.1:0"] if mode == "master"
+                 else ["-m", "127.0.0.1:1"])
+    cli = Main()
+    assert cli.run(argv + ["--device", "cpu", "--dry-run", "load"]) == 0
+    launcher = cli.launcher
+    assert launcher.mode == mode and cli.workflow.workflow is launcher
+    for key, value in want.items():
+        if key == "daemonized":
+            got = bool(daemonized)
+        elif key.startswith("chaos."):
+            got = getattr(root.common.fleet.chaos, key[6:])
+        elif key == "plane":
+            got = root.common.fleet.plane
+        else:
+            got = getattr(launcher, key)
+        assert got == value, (key, got)
 
 
 @pytest.mark.parametrize("command", sorted(DEFERRED_COMMANDS))

@@ -47,7 +47,10 @@ request served on the card; and what acts on it: a governed demotion to
 int8 whose requests launch K2, and a rollout's green engine streaming
 the new weights; and the data-parallel mesh: the three reduce tiers on
 CUDA tensors in a world of one over NCCL, and two ranks sharing the card
-over gloo against one process stepping the whole minibatches.
+over gloo against one process stepping the whole minibatches; and the
+training fleet: a master and a slave on the card, the slave's data-plane
+tick launching K6 on every minibatch and K5 on every train one, its
+frames holding numpy arrays only.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -2288,3 +2291,92 @@ def test_mesh_tick_on_the_card_matches_a_single_run(cuda, tmp_path,
         for tw, f in zip(got[2:], wf.forwards):
             numpy.testing.assert_allclose(tw, f.weights.data.cpu().numpy(),
                                           atol=1e-5, rtol=0)
+
+
+def test_a_fleet_slave_tick_on_the_card_runs_k6_and_k5(cuda, monkeypatch):
+    """A master and one sync slave on the card over loopback, the engine
+    knobs on at level 2: the slave's fused tick launches K6 once per
+    minibatch (784 -> 512, every train and valid one) and K5 once per
+    train minibatch (the weight gradient); every frame either side
+    sends holds numpy arrays, never a tensor; the master's weights end
+    within 1e-5 of one process stepping the same minibatches."""
+    import threading
+
+    from veles_tpu_torch.convert import unit_params_from_jax
+    from veles_tpu_torch.core import prng
+    from veles_tpu_torch.dummy import DummyLauncher
+    from veles_tpu_torch.fleet import protocol
+    from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.models.mlp import MLPWorkflow
+
+    for key, value in (("use_pallas", True), ("pallas_epilogue", True),
+                       ("precision_level", 2)):
+        monkeypatch.setattr(root.common.engine, key, value)
+    rng = numpy.random.RandomState(21)
+    x = rng.rand(1536, 784).astype(numpy.float32)
+    y = rng.randint(0, 10, 1536).astype(numpy.int32)
+    init = [{"weights": rng.uniform(-0.05, 0.05, (784, 512)),
+             "bias": numpy.zeros(512)},
+            {"weights": rng.uniform(-0.05, 0.05, (512, 10)),
+             "bias": numpy.zeros(10)}]
+    kwargs = dict(layers=(512, 10), learning_rate=0.05, max_epochs=1,
+                  device="cuda", name="fleet-card",
+                  loader_kwargs=dict(data=x, labels=y,
+                                     class_lengths=[0, 512, 1024],
+                                     minibatch_size=512))
+    tensors = []
+    serialize = protocol._serialize
+
+    def checked(message):
+        def walk(value):
+            if isinstance(value, torch.Tensor):
+                tensors.append(type(value))
+            elif isinstance(value, dict):
+                for item in value.values():
+                    walk(item)
+            elif isinstance(value, (list, tuple)):
+                for item in value:
+                    walk(item)
+        walk(message)
+        return serialize(message)
+    monkeypatch.setattr(protocol, "_serialize", checked)
+
+    def build(launcher):
+        prng.get("default").seed(1)
+        prng.get("loader").seed(2)
+        wf = MLPWorkflow(launcher, **kwargs)
+        unit_params_from_jax(wf, init)
+        return wf
+
+    master = Launcher(listen_address="127.0.0.1:0")
+    wf = build(master)
+    master.initialize()
+    slave = Launcher(master_address="127.0.0.1:%d" % master.agent.port)
+    try:
+        build(slave)
+        slave.initialize()
+        gemm.dense_epilogue.launches = gemm.blocked_matmul.launches = 0
+        threads = [threading.Thread(target=launcher.run, daemon=True)
+                   for launcher in (master, slave)]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(120)
+        assert not any(thread.is_alive() for thread in threads)
+        launches = (gemm.dense_epilogue.launches,
+                    gemm.blocked_matmul.launches)
+    finally:
+        slave.stop()
+        master.stop()
+    assert slave.agent.jobs_done == 3
+    assert launches == (3, 2)
+    assert not tensors
+    alone = build(DummyLauncher())
+    alone.initialize()
+    alone.run()
+    for fwd, ref in zip(wf.forwards, alone.forwards):
+        assert fwd.weights.data.is_cuda
+        numpy.testing.assert_allclose(fwd.weights.data.cpu().numpy(),
+                                      ref.weights.data.cpu().numpy(),
+                                      atol=1e-5, rtol=0)
+

@@ -24,6 +24,7 @@ import torch
 import jax
 from veles_tpu import web_status as jweb
 from veles_tpu.observe.history import stop_history_sampler as jstop_history
+from veles_tpu.observe.metrics import get_metrics_registry as jregistry
 from veles_tpu.dummy import DummyWorkflow as JDummyWorkflow
 from veles_tpu.observe import xla_stats as jxla
 from veles_tpu.parallel import mapreduce as jmr
@@ -31,6 +32,7 @@ from veles_tpu.parallel import mesh as jmesh
 from veles_tpu_torch import web_status as web
 from veles_tpu_torch.dummy import DummyWorkflow
 from veles_tpu_torch.observe import xla_stats
+from veles_tpu_torch.observe.metrics import get_metrics_registry
 from veles_tpu_torch.parallel import mapreduce as mr
 from veles_tpu_torch.parallel import mesh
 
@@ -215,12 +217,29 @@ def test_server_answers_as_jax(tmp_path):
     assert servers[1]._httpd is None
 
 
+@pytest.fixture
+def fresh_registries():
+    """Both packages' process-wide metric registries, emptied before the
+    test and after it, their enabled flags restored: the tests that ran
+    earlier in this process (a JAX fleet master's ``publish_fleet``, a
+    reduce plane's ``counter_set`` rows) must not reach ``/metrics``."""
+    registries = (jregistry(), get_metrics_registry())
+    was = [registry.enabled for registry in registries]
+    for registry in registries:
+        registry.reset()
+    yield
+    for registry, enabled in zip(registries, was):
+        registry.reset()
+        registry.enabled = enabled
+
+
 def _family_rows(text, prefixes=("veles_mesh", "veles_fleet")):
     return sorted(line for line in text.decode().splitlines()
                   if line.startswith(prefixes))
 
 
-def test_metrics_carry_the_mesh_and_the_reduce_plane_as_jax():
+def test_metrics_carry_the_mesh_and_the_reduce_plane_as_jax(
+        fresh_registries):
     """``/metrics`` on both dashboards after the same data mesh and the
     same reduce notes: equal ``veles_mesh_*`` and ``veles_fleet_*`` rows."""
     jmesh.build_mesh(devices=jax.devices()[:4], data=4)

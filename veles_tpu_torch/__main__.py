@@ -27,6 +27,16 @@ veles_tpu_torch observe export-trace PATH`` turns into a Chrome trace;
 (``observe/profile.py``). SIGTERM dumps the flight recorder's black box
 before the previous handler runs (``observe/flight.py``).
 
+``-l/--listen HOST:PORT`` makes the run a fleet master and
+``-m/--master-address HOST:PORT`` a slave (``fleet/``,
+``launcher.py``); ``-n/--nodes`` spawns slaves from the master,
+``--respawn`` relaunches dead ones, ``--async-slave`` pipelines a
+slave's requests, ``--fleet-plane`` picks the wire plane,
+``--slave-death-probability`` and the ``--chaos-*`` flags inject faults
+(they land in ``root.common.fleet``, ``__main__.py:583-646``), and
+``-b`` re-executes the command detached, its output in
+``<root.common.dirs.cache>/daemon.log``.
+
 ``--mesh data=N`` runs the fused tick data-parallel over a
 ``torch.distributed`` world of N processes, one per device
 (``parallel/mesh.py``): start the same command once per process with
@@ -61,17 +71,16 @@ from veles_tpu_torch.core.config import root
 from veles_tpu_torch.core.logger import Logger, setup_logging
 from veles_tpu_torch.launcher import Launcher
 
-_FLEET = "the fleet, ROADMAP A9"
 _META = "genetics and ensembles, ROADMAP A9"
+
+#: the fleet's flags (by argparse dest), ported with the fleet
+FLEET_FLAGS = ("listen", "master_address", "nodes", "respawn",
+               "slave_death_probability", "async_slave", "fleet_plane",
+               "chaos_seed", "chaos_frame_drop", "chaos_frame_delay",
+               "chaos_slow_job", "chaos_duplicate_update", "chaos_death")
 
 #: flag -> the ROADMAP item that brings it (by argparse dest)
 DEFERRED = {
-    "listen": _FLEET, "master_address": _FLEET, "nodes": _FLEET,
-    "respawn": _FLEET, "slave_death_probability": _FLEET,
-    "async_slave": _FLEET, "fleet_plane": _FLEET,
-    "chaos_seed": _FLEET, "chaos_frame_drop": _FLEET,
-    "chaos_frame_delay": _FLEET, "chaos_slow_job": _FLEET,
-    "chaos_duplicate_update": _FLEET, "chaos_death": _FLEET,
     "serve_mesh": "the sharded serving mesh, ROADMAP A8 (c)",
     "optimize": _META, "optimize_fleet": _META,
     "optimize_representation": _META, "ensemble_train": _META,
@@ -81,7 +90,6 @@ DEFERRED = {
                           "card the paged pool always attends through "
                           "its kernels",
     "manhole": "the debug console, ROADMAP A9",
-    "background": "daemon mode, ROADMAP A9",
 }
 
 #: the JAX package's subcommands -> the ROADMAP item that brings them
@@ -225,26 +233,54 @@ class Main(Logger):
                            default=None, metavar="P",
                            help="stretch a decode step with "
                            "probability P")
+        fleet = parser.add_argument_group(
+            "fleet", "master/slave data parallelism over the fleet wire "
+            "(fleet/)")
+        fleet.add_argument("-l", "--listen", default=None,
+                           metavar="HOST:PORT",
+                           help="run as the fleet master on this address")
+        fleet.add_argument("-m", "--master-address", default=None,
+                           metavar="HOST:PORT",
+                           help="run as a fleet slave of this master")
+        fleet.add_argument("-n", "--nodes", action="append", default=None,
+                           metavar="HOST[,HOST...]",
+                           help="master: spawn a slave on each host "
+                                "(localhost: a local process; yarn://RM "
+                                "expands to the cluster's nodes)")
+        fleet.add_argument("--respawn", action="store_true",
+                           help="relaunch dead slaves on their hosts")
+        fleet.add_argument("--slave-death-probability", type=float,
+                           default=None, metavar="P",
+                           help="fault injection: a slave dies mid-job "
+                                "with probability P")
+        fleet.add_argument("--async-slave", action="store_true",
+                           help="slave: request the next job before the "
+                                "update is acknowledged")
+        fleet.add_argument("--fleet-plane", default=None,
+                           choices=("data", "control"),
+                           help="the wire plane: data (weights ride "
+                                "every job) or control (weights in the "
+                                "handshake and at epoch fences)")
+        for flag, kind, what in (
+                ("--chaos-seed", int, "the chaos RNG seed"),
+                ("--chaos-frame-drop", float, "drop a frame"),
+                ("--chaos-frame-delay", float, "delay a frame"),
+                ("--chaos-slow-job", float, "stretch a job"),
+                ("--chaos-duplicate-update", float,
+                 "replay an update"),
+                ("--chaos-death", float, "die mid-job")):
+            fleet.add_argument(
+                flag, type=kind, default=None,
+                metavar="N" if kind is int else "P",
+                help=what if kind is int
+                else "slave chaos: %s with probability P" % what)
+        parser.add_argument("-b", "--background", action="store_true",
+                            help="daemonize: re-run this command detached, "
+                                 "its output in <cache>/daemon.log")
         deferred = parser.add_argument_group(
             "not ported yet", "these parse as in the JAX package, then "
             "exit with code 2 naming the ROADMAP item that brings them")
         for flags, kwargs in (
-                (("-l", "--listen"), {"metavar": "HOST:PORT"}),
-                (("-m", "--master-address"), {"metavar": "HOST:PORT"}),
-                (("-n", "--nodes"), {"action": "append",
-                                     "metavar": "HOST[,HOST...]"}),
-                (("--respawn",), {"action": "store_true"}),
-                (("--slave-death-probability",), {"type": float}),
-                (("--async-slave",), {"action": "store_true"}),
-                (("--fleet-plane",), {"choices": ("data", "control")}),
-                (("--chaos-seed",), {"type": int, "metavar": "N"}),
-                (("--chaos-frame-drop",), {"type": float, "metavar": "P"}),
-                (("--chaos-frame-delay",), {"type": float,
-                                            "metavar": "P"}),
-                (("--chaos-slow-job",), {"type": float, "metavar": "P"}),
-                (("--chaos-duplicate-update",), {"type": float,
-                                                 "metavar": "P"}),
-                (("--chaos-death",), {"type": float, "metavar": "P"}),
                 (("--optimize",), {"metavar": "SIZE:GENERATIONS"}),
                 (("--optimize-fleet",), {"metavar": "HOST:PORT"}),
                 (("--optimize-representation",), {"choices": ("numeric",
@@ -254,8 +290,7 @@ class Main(Logger):
                 (("--serve-mesh",), {"metavar": "AXIS=N[,AXIS=N...]"}),
                 (("--serve-paged-kernel",), {"metavar": "on|off"}),
                 (("--serve-aot",), {"metavar": "PATH"}),
-                (("--manhole",), {"action": "store_true"}),
-                (("-b", "--background"), {"action": "store_true"})):
+                (("--manhole",), {"action": "store_true"})):
             kwargs.setdefault("default", None)
             deferred.add_argument(*flags, **kwargs)
         return parser
@@ -507,6 +542,22 @@ class Main(Logger):
             value = getattr(args, flag)
             if value is not None:
                 setattr(node, key, value)
+        # the fleet flags, same layering rule (``__main__.py:583-606``)
+        for flag, key in (("chaos_seed", "seed"),
+                          ("chaos_frame_drop", "frame_drop"),
+                          ("chaos_frame_delay", "frame_delay"),
+                          ("chaos_slow_job", "slow_job"),
+                          ("chaos_duplicate_update", "duplicate_update"),
+                          ("chaos_death", "death")):
+            value = getattr(args, flag)
+            if value is not None:
+                setattr(root.common.fleet.chaos, key, value)
+        if args.fleet_plane is not None:
+            root.common.fleet.plane = args.fleet_plane
+        if args.background:
+            # after the config layering: daemon.log honours a cache dir
+            # set by the config file or the overrides
+            self._daemonize()
         if args.dump_config:
             root.print_()
             return 0
@@ -515,9 +566,37 @@ class Main(Logger):
         if args.train_ratio is not None:
             root.common.train_ratio = args.train_ratio
         self.seed_random(args.seed)
-        self.launcher = Launcher(result_file=args.result_file)
+        self.launcher = Launcher(
+            listen_address=args.listen,
+            master_address=args.master_address,
+            result_file=args.result_file,
+            async_slave=args.async_slave,
+            respawn=args.respawn,
+            nodes=[h for spec in (args.nodes or [])
+                   for h in spec.split(",") if h],
+            slave_death_probability=args.slave_death_probability or 0.0)
         module.run(self._load, self._main)
         return 0
+
+    def _daemonize(self):
+        """Detach by re-exec (``__main__.py:299-319``): a fresh process
+        of the same command without ``-b``, its stdio in
+        ``<cache>/daemon.log``; this one exits."""
+        import subprocess
+        log_path = os.path.join(root.common.dirs.get("cache", "."),
+                                "daemon.log")
+        os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
+        argv = [a for a in sys.argv[1:]
+                if a not in ("-b", "--background")]
+        with open(log_path, "ab") as log, \
+                open(os.devnull, "rb") as devnull:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "veles_tpu_torch"] + argv,
+                stdin=devnull, stdout=log, stderr=log,
+                start_new_session=True)
+        self.info("daemonized as pid %d, logging to %s", proc.pid,
+                  log_path)
+        os._exit(0)
 
 
 def _parity(argv):

@@ -133,6 +133,13 @@ def validate_kwargs(caller, **kwargs):
 #: The global configuration root, like reference ``config.py:151``.
 root = Config("root")
 
+#: the run-time files' home: $VELES_TPU_HOME, else the port's git-ignored
+#: build directory
+_HOME = (os.path.expanduser(os.environ["VELES_TPU_HOME"])
+         if os.environ.get("VELES_TPU_HOME")
+         else os.path.join(os.path.dirname(os.path.dirname(
+             os.path.abspath(__file__))), "_build"))
+
 # -- engine defaults (the JAX package's, config.py:160-176) -----------------
 root.common.update({
     "engine": {
@@ -155,15 +162,13 @@ root.common.update({
             "_build", "pallas_tuning.json"),
     },
     # where run-time files go: the flight recorder's black boxes under
-    # "run" (observe/flight.py). VELES_TPU_HOME relocates it, as in the
-    # JAX package (its run dir is $VELES_TPU_HOME/run); without it the
-    # port keeps them in its git-ignored build directory
+    # "run" (observe/flight.py), a daemonized run's daemon.log under
+    # "cache" (-b). VELES_TPU_HOME relocates them, as in the JAX package
+    # (its run dir is $VELES_TPU_HOME/run); without it the port keeps
+    # them in its git-ignored build directory
     "dirs": {
-        "run": os.path.join(
-            os.path.expanduser(os.environ["VELES_TPU_HOME"])
-            if os.environ.get("VELES_TPU_HOME")
-            else os.path.join(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__))), "_build"), "run"),
+        "run": os.path.join(_HOME, "run"),
+        "cache": os.path.join(_HOME, "cache"),
     },
     # the logical mesh's axes (parallel/mesh.py): all ones is one
     # process on one device; any other size (--mesh data=2) makes the

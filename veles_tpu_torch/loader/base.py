@@ -26,8 +26,13 @@ The port of ``veles_tpu/loader/base.py`` (reference
 ``register_loader`` keeps the name -> class registry; ``LoaderMSEMixin``
 adds the regression targets (``FullBatchLoaderMSE``). ``initialize``
 bridges the epoch progress onto ``/metrics`` (``observe/metrics.
-publish_loader``). Left out: the fleet distribution (master/slave
-payloads, requeue of a dropped slave's minibatches; ROADMAP A9).
+publish_loader``).
+
+In a fleet (``loader/base.py:470-495``) the master serves only (class,
+indices, valid size, epoch flags, epoch) payloads and records each one
+pending for its slave; the slave publishes them and gathers locally. A
+dropped slave's pending minibatches are requeued and served first, with
+their original flags.
 """
 
 import collections
@@ -36,6 +41,7 @@ import numpy
 
 from veles_tpu_torch.core import prng
 from veles_tpu_torch.core.config import root
+from veles_tpu_torch.core.errors import NoMoreJobsError
 from veles_tpu_torch.core.mutable import Bool
 from veles_tpu_torch.core.units import Unit
 from veles_tpu_torch.core.verified import ILOADER, verify_interface
@@ -93,6 +99,16 @@ class Loader(Unit):
         self.sample_mask = Array()
         self.shuffled_indices = [None, None, None]
         self._position = [0, 0, 0]
+        # fleet mode: minibatches handed to slaves but not yet acked, and
+        # dropped slaves' work queued for re-serving
+        self.pending_minibatches_ = collections.defaultdict(list)
+        self.failed_minibatches = []
+
+    def init_unpickled(self):
+        super().init_unpickled()
+        self.pending_minibatches_ = collections.defaultdict(list)
+        if not hasattr(self, "failed_minibatches"):
+            self.failed_minibatches = []
 
     # -- the ILoader contract (reference loader/base.py:100-115) -------------
     def load_data(self):
@@ -247,23 +263,34 @@ class Loader(Unit):
         self._position = [0, 0, 0]
         self._shuffle_train()
 
-    def serve_next_minibatch(self):
-        """Pick the next minibatch: returns (klass, indices, valid_size,
-        last_of_class, last_of_epoch, epoch)."""
-        block = self._next_block()
-        if block is None:
-            self._roll_epoch()
+    def serve_next_minibatch(self, slave_id=None):
+        """Pick the next minibatch (a dropped slave's requeued ones first)
+        and, for a slave, record it pending: returns (klass, indices,
+        valid_size, last_of_class, last_of_epoch, epoch)."""
+        if self.failed_minibatches:
+            # re-served with the ORIGINAL flags: a requeued job is the
+            # one the dead slave held, epoch-end semantics included
+            (klass, indices, valid, last_of_class, last_of_epoch,
+             epoch) = self.failed_minibatches.pop()
+        else:
             block = self._next_block()
-        klass, pos, valid = block
-        # copy, not view: the epoch reshuffle mutates shuffled_indices
-        indices = self.shuffled_indices[klass][pos:pos + valid].copy()
-        lengths = self.effective_class_lengths
-        last_of_class = self._position[klass] >= lengths[klass]
-        last_of_epoch = last_of_class and all(
-            self._position[k] >= lengths[k] or lengths[k] == 0
-            for k in (TEST, VALID, TRAIN))
-        return (klass, indices, valid, last_of_class, last_of_epoch,
-                self.epoch_number)
+            if block is None:
+                self._roll_epoch()
+                block = self._next_block()
+            klass, pos, valid = block
+            epoch = self.epoch_number
+            # copy, not view: the epoch reshuffle mutates shuffled_indices
+            indices = self.shuffled_indices[klass][pos:pos + valid].copy()
+            lengths = self.effective_class_lengths
+            last_of_class = self._position[klass] >= lengths[klass]
+            last_of_epoch = last_of_class and all(
+                self._position[k] >= lengths[k] or lengths[k] == 0
+                for k in (TEST, VALID, TRAIN))
+        if slave_id is not None:
+            self.pending_minibatches_[slave_id].append(
+                (klass, indices, valid, last_of_class, last_of_epoch,
+                 epoch))
+        return klass, indices, valid, last_of_class, last_of_epoch, epoch
 
     def serve_next_class_sweep(self):
         """Serve one ENTIRE sample-class sweep at once (the fused tick
@@ -297,7 +324,11 @@ class Loader(Unit):
     def run(self):
         """Pick the next indices (a minibatch, or with ``sweep_serving`` a
         class sweep) and publish them, filling the minibatch slots unless
-        the fused tick gathers itself (``fill_data`` False)."""
+        the fused tick gathers itself (``fill_data`` False). On a slave
+        the minibatch came with the job (``apply_data_from_master``):
+        serving here would train on other data."""
+        if self.is_slave:
+            return
         if getattr(self, "sweep_serving", False):
             (klass, matrix, valid_sizes, total, last_of_epoch,
              epoch) = self.serve_next_class_sweep()
@@ -314,8 +345,10 @@ class Loader(Unit):
                 self.sweep_transform_seeds = None
             self._account_served(total, last_of_epoch)
             return
-        (klass, indices, valid, last_of_class,
-         last_of_epoch, epoch) = self.serve_next_minibatch()
+        self._apply_minibatch(*self.serve_next_minibatch())
+
+    def _apply_minibatch(self, klass, indices, valid, last_of_class,
+                         last_of_epoch, epoch=0):
         self._publish_flags(klass, indices, valid, last_of_class,
                             last_of_epoch, epoch)
         padded = self._pad_indices(indices)
@@ -355,6 +388,42 @@ class Loader(Unit):
         padded = numpy.zeros(self.max_minibatch_size, dtype=numpy.int64)
         padded[:len(indices)] = indices
         return padded
+
+    # -- fleet-mode distribution (reference loader/base.py:631-687) ----------
+    def generate_data_for_slave(self, slave=None):
+        slave_id = getattr(slave, "id", slave)
+        if self.complete:
+            raise NoMoreJobsError()
+        return self.serve_next_minibatch(slave_id)
+
+    def apply_data_from_master(self, data):
+        klass, indices, valid, last_of_class, last_of_epoch, epoch = data
+        self._apply_minibatch(klass, numpy.asarray(indices), valid,
+                              last_of_class, last_of_epoch, epoch)
+
+    def generate_data_for_master(self):
+        return {"samples_served": self.samples_served}
+
+    def apply_data_from_slave(self, data, slave=None):
+        slave_id = getattr(slave, "id", slave)
+        if self.pending_minibatches_.get(slave_id):
+            self.pending_minibatches_[slave_id].pop(0)
+
+    def drop_slave(self, slave=None):
+        """Requeue the dropped slave's un-acked minibatches so no sample
+        is lost (reference ``loader/base.py:679-687``)."""
+        slave_id = getattr(slave, "id", slave)
+        pending = self.pending_minibatches_.pop(slave_id, [])
+        self.failed_minibatches.extend(pending)
+        if pending:
+            self.warning("requeued %d minibatches from dropped slave %s",
+                         len(pending), slave_id)
+
+    @property
+    def has_data_for_slave(self):
+        # backpressure means "not ready YET"; exhaustion is signalled by
+        # NoMoreJobsError from generate_data_for_slave
+        return True
 
     # -- results --------------------------------------------------------------
     def get_metric_names(self):

@@ -49,11 +49,20 @@ does not divide by the data axis, a fill-time transform) the run warns
 and takes the lower tiers on one device. :meth:`add_standard_plotters`
 attaches the stock plotters (``plotting/``).
 
+In a fleet (``fleet/``) the master serves jobs and merges updates and
+never runs the chain; a slave runs ONE tick per job
+(``standard.py:123-222``): the repeater's loop-back is cut and the
+EndPoint fires after the tick. Where the fused tick supports the
+topology, a slave's tick is the fused tick (:meth:`_enable_fused_slave`,
+K6 forward and K5 backward with the engine knobs on); the control plane
+requires it, since its parameters stay resident on the device between
+epoch fences with a one-job rollback.
+
 ``device=None`` means "cuda" and raises without a card unless the caller
 passes ``device="cpu"``. Later slices, which raise
 ``NotImplementedError`` here rather than run another path: a mesh axis
-other than ``data`` (ROADMAP A8 (b)) and the fleet's master and slave
-modes, the slave's fused tick among them (A9).
+other than ``data`` (ROADMAP A8 (b)) and a fleet slave whose own mesh
+spans more than one rank, the fleet x pod composition (A9 (e)).
 """
 
 from veles_tpu_torch.core.plumbing import Repeater
@@ -159,13 +168,83 @@ class StandardWorkflow(Workflow):
         self.loader.complete = self.decision.complete
 
     def initialize(self, **kwargs):
-        if not self.is_standalone:
-            raise NotImplementedError(
-                "the fleet's master and slave modes (the slave's fused "
-                "tick among them) wait for ROADMAP A9")
-        if self.fused:
+        if self.is_slave:
+            self._splice_slave()
+        elif self.fused and self.is_standalone:
             self._enable_fused()
         return super().initialize(**kwargs)
+
+    def _splice_slave(self):
+        """Rewire the graph for one tick per job (``standard.py:123-170``):
+        fusibility is decided on the INTACT graph (the chain check needs
+        the repeater cycle), then the loop-back is cut and the EndPoint
+        fires right after the backward chain, or after the fused tick."""
+        from veles_tpu_torch.parallel import fused
+
+        mesh = getattr(self, "mesh_", None)
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                "a fleet slave whose own mesh spans %d ranks is the fleet "
+                "x pod composition, ROADMAP A9 (e)" % mesh.size)
+        if self.fused_tick is not None:
+            return  # already spliced (a re-initialize)
+        use_fused = bool(self.fused) and fused.supports(self, mesh)
+        if self.fused is True and not use_fused:
+            raise ValueError("fused=True but the topology/loader is not "
+                             "fusible on this slave")
+        from veles_tpu_torch.fleet import fleet_control_plane
+        if fleet_control_plane() and not use_fused:
+            # the control-plane wire carries no weights: they live in the
+            # fused tick with its one-job rollback; graph-mode units
+            # would double-apply a re-issued job
+            raise ValueError(
+                "control-plane fleet mode (root.common.fleet.plane="
+                "control) requires the fused tick on the slave, but this "
+                "topology/loader is not fusible (see parallel/fused.py "
+                "supports()): use the data plane")
+        self.repeater.unlink_from(self.gds[0])
+        self.end_point.unlink_from(self.decision)
+        self.end_point.link_from(self.gds[0])
+        from veles_tpu_torch.core.mutable import Bool
+        self.end_point.gate_block = Bool(False)
+        if use_fused:
+            self._enable_fused_slave()
+
+    def apply_initial_data_from_master(self, data):
+        """Handshake application: on the control plane a (re)handshake
+        with initial weights makes the next tick read its parameters
+        from the unit Arrays again instead of its resident replica."""
+        super().apply_initial_data_from_master(data)
+        tick = self.fused_tick
+        if data and tick is not None:
+            tick.reset_residency()
+
+    def _enable_fused_slave(self):
+        """The slave's one-tick job as the fused tick (``standard.py:
+        190-209``): loader → FusedTick → EndPoint."""
+        from veles_tpu_torch.parallel import fused
+
+        self.fused_tick = fused.FusedTick(self, name="fused_tick",
+                                          pipelined=False)
+        self.forwards[0].unlink_from(self.loader)
+        self.end_point.unlink_from(self.gds[0])
+        self.fused_tick.link_from(self.loader)
+        self.end_point.link_from(self.fused_tick)
+        self.loader.fill_data = False
+        self.info("slave fused tick on %s", self.device)
+
+    def _disable_fused_slave(self):
+        """Reverse the slave splice: the per-unit chain fires again."""
+        tick = self.fused_tick
+        if tick is None:
+            return
+        self.fused_tick = None
+        tick.unlink_from(self.loader)
+        self.end_point.unlink_from(tick)
+        self.del_ref(tick)
+        self.forwards[0].link_from(self.loader)
+        self.end_point.link_from(self.gds[0])
+        self.loader.fill_data = True
 
     def _enable_fused(self):
         """Splice the FusedTick in place of the per-unit compute chain:

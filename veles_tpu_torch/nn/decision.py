@@ -12,7 +12,10 @@ class) ends. In pipelined mode (``pipeline_depth`` 1, the fused tick's
 default) each epoch's metrics are copied to the host asynchronously when
 the epoch ends and read one epoch later, so the read never waits for the
 card. ``DecisionMSE`` tracks the best validation MSE in place of the
-error count. Left out: the fleet epoch buckets (a later slice).
+error count. In a fleet (``decision.py:400-456``) a slave reports each
+job's metrics tagged with the serving epoch and the master buckets them
+per epoch, so updates that arrive across an epoch boundary out of order
+fire each class and epoch summary once.
 """
 
 import numpy
@@ -355,8 +358,50 @@ class DecisionGD(Unit):
             self.epoch_samples[klass] = 0
             self.epoch_loss[klass] = 0.0
 
+    # -- fleet-mode distribution ---------------------------------------------
+    # The slave reports its job's metrics tagged with the serving epoch; the
+    # master buckets them PER EPOCH, because with >=2 slaves (or async
+    # pipelining) next-epoch updates arrive before the current epoch's last
+    # ones — flat accumulators would re-fire class boundaries and drop
+    # samples at the reset (the Znicz Decision's distributed contract).
+    def generate_data_for_master(self):
+        if not self.is_slave:
+            return None
+        return {
+            "klass": self.loader.minibatch_class,
+            "epoch": self.loader.minibatch_epoch,
+            "valid": int(self.loader.minibatch_valid_size),
+            "n_err": (int(self.evaluator.n_err.data)
+                      if getattr(self.evaluator, "n_err", None)
+                      is not None else 0),
+            "loss": float(self.evaluator.loss.data),
+        }
+
+    def apply_data_from_slave(self, data, slave=None):
+        klass = data["klass"]
+        epoch = data.get("epoch", 0)
+        bucket = self._epoch_buckets.setdefault(
+            epoch, {"stats": [[0, 0, 0.0] for _ in range(3)],
+                    "fired": set()})
+        entry = bucket["stats"][klass]
+        entry[0] += data["n_err"]
+        entry[1] += data["valid"]
+        entry[2] += data["loss"] * data["valid"]
+        lengths = self.loader.effective_class_lengths
+        if klass not in bucket["fired"] \
+                and 0 < lengths[klass] <= entry[1]:
+            bucket["fired"].add(klass)
+            self._class_summary(klass, entry[0], entry[1], entry[2], epoch)
+            if all(bucket["stats"][k][1] >= lengths[k]
+                   for k in (TEST, VALID, TRAIN) if lengths[k]):
+                stats = [tuple(s) for s in bucket["stats"]]
+                del self._epoch_buckets[epoch]
+                self._epoch_summary(stats, epoch)
+
     def init_unpickled(self):
         super().init_unpickled()
+        if not hasattr(self, "_epoch_buckets"):
+            self._epoch_buckets = {}
         if not hasattr(self, "_pending_classes"):
             self._pending_classes = []
         if not hasattr(self, "pipeline_depth"):

@@ -22,9 +22,20 @@ update is :func:`make_updater`, the JAX package's ``gd.py:44-74``:
               W ← W − λ·(m/(1−β₁ᵗ)) / (√(s/(1−β₂ᵗ)) + ε)
 
 with ``g`` already regularized (``+ Λ₂·W + Λ₁·sign(W)`` where the leaf's
-policy says so). The fleet payloads are a later slice.
+policy says so).
+
+Fleet payloads (``gd.py:268-400``): a data-plane job carries the
+master's parameters and rates, an update the slave's trained
+parameters, which the master takes as they are (``overwrite``) or
+averages with its own on the device (``average``,
+:func:`fleet_merge_mode`). Momentum velocities stay on each slave; the
+stateful solvers ship their moments and step count too. On the control
+plane the weights travel in the handshake and at epoch fences only.
+Payloads hold numpy arrays: a tensor leaves its device in
+:func:`_wire_array` alone, and comes back on the unit's device.
 """
 
+import numpy
 import torch
 
 from veles_tpu_torch.memory import Array
@@ -72,6 +83,35 @@ def vjp(fn, primals, cotangent):
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_(True) for p in primals]
         return torch.autograd.grad(fn(*leaves), leaves, cotangent)
+
+
+def fleet_merge_mode():
+    """Validated ``root.common.fleet.merge``. The launcher checks it at
+    startup too: a typo must fail fast, not on the first update."""
+    from veles_tpu_torch.core.config import root
+    mode = root.common.fleet.get("merge", "overwrite")
+    if mode not in ("overwrite", "average"):
+        raise ValueError("unknown fleet merge mode %r (use 'overwrite' "
+                         "or 'average')" % mode)
+    return mode
+
+
+def _wire_array(slot):
+    """The one place a unit's tensor leaves its device for the fleet wire:
+    a numpy copy (a copy on the CPU too, so the frame never aliases a
+    tensor the trainer replaces)."""
+    value = slot.data
+    if isinstance(value, numpy.ndarray):
+        return value.copy()
+    return value.detach().to("cpu", copy=True).numpy()
+
+
+def _from_wire(value, slot, device):
+    """A payload array as a tensor on ``device``, in the slot's dtype."""
+    tensor = torch.as_tensor(numpy.asarray(value))
+    if isinstance(slot.data, torch.Tensor):
+        tensor = tensor.to(slot.data.dtype)
+    return tensor.to(device)
 
 
 class GradientDescent(JitUnit):
@@ -211,6 +251,118 @@ class GradientDescent(JitUnit):
                                           lr_b)
         return (err_input, new_w, new_b, new_vel_w, new_vel_b) \
             + extras((new_sec_w, new_sec_b))
+
+
+    # -- fleet payloads (gd.py:236-400) --------------------------------------
+    def _param_attrs(self):
+        """Trainable parameter slots, from the unit's I/O contract (in
+        both INPUTS and OUTPUTS, not solver state or the error lane), so
+        a subclass with extra leaves ships them too."""
+        return [name for name in self.OUTPUTS
+                if name in self.INPUTS and not name.startswith("_")
+                and name != "err_input"]
+
+    def _solver_state_attrs(self):
+        """Optimizer state on the wire: momentum velocities stay on the
+        slave (the reference's wire never carried them); adam and adagrad
+        ship both moments and the step count."""
+        if self.solver == "momentum":
+            return []
+        return [n for n in self.OUTPUTS if n.startswith("_velocity")] \
+            + list(self._second_slots_) + ["_step"]
+
+    @staticmethod
+    def _control_plane():
+        from veles_tpu_torch.fleet import fleet_control_plane
+        return fleet_control_plane()
+
+    @property
+    def negotiates_on_connect(self):
+        """Control plane: the initial weights travel once in the
+        handshake, so the per-job wire stays weight-free."""
+        return self._control_plane()
+
+    def _device(self):
+        return self.weights.data.device
+
+    def _state_payload(self):
+        """Parameters and (stateful solvers) moments as numpy arrays."""
+        data = {attr: _wire_array(getattr(self, attr))
+                for attr in self._param_attrs()}
+        for attr in self._solver_state_attrs():
+            if getattr(self, attr).data is not None:
+                data[attr] = _wire_array(getattr(self, attr))
+        return data
+
+    def _overwrite(self, data):
+        device = self._device()
+        for attr in self._param_attrs() + self._solver_state_attrs():
+            if attr in data:
+                slot = getattr(self, attr)
+                slot.data = _from_wire(data[attr], slot, device)
+
+    def generate_data_for_master(self):
+        if self._control_plane():
+            # the control plane's updates carry no weights
+            return None
+        return self._state_payload()
+
+    def apply_data_from_slave(self, data, slave=None):
+        """Merge a slave's trained parameters: ``overwrite`` takes them,
+        ``average`` keeps the mean of the master's and the slave's (on
+        the device). Solver moments are always overwritten."""
+        mode = fleet_merge_mode()
+        device = self._device()
+        for attr in self._param_attrs():
+            if attr not in data:
+                continue
+            slot = getattr(self, attr)
+            value = _from_wire(data[attr], slot, device)
+            if mode == "average" and slot.data is not None:
+                value = (slot.data + value) * 0.5
+            slot.data = value
+        for attr in self._solver_state_attrs():
+            if attr in data:
+                slot = getattr(self, attr)
+                slot.data = _from_wire(data[attr], slot, device)
+
+    def generate_data_for_slave(self, slave=None):
+        # the rates ride every job, so the master's annealing (lr_decay,
+        # set_learning_rate) reaches the slaves
+        if self._control_plane():
+            return {"lr": self.learning_rate,
+                    "lr_bias": self.learning_rate_bias}
+        data = self._state_payload()
+        data["lr"] = self.learning_rate
+        data["lr_bias"] = self.learning_rate_bias
+        return data
+
+    def generate_handshake_data(self, slave=None):
+        """Control plane: the full state and the rates, shipped once at
+        connect."""
+        data = self._state_payload()
+        data["lr"] = self.learning_rate
+        data["lr_bias"] = self.learning_rate_bias
+        return data
+
+    def generate_sync_for_master(self):
+        """The control plane's epoch-fence sync: the unit Arrays the
+        fused tick wrote at the fence."""
+        return self._state_payload()
+
+    def apply_sync_from_slave(self, data, slave=None):
+        """Fence sync: overwrite (the slave's replica is canonical
+        between fences)."""
+        self._overwrite(data)
+
+    def apply_data_from_master(self, data):
+        self._overwrite(data)
+        if "lr" in data and (data["lr"] != self.learning_rate
+                             or data["lr_bias"]
+                             != self.learning_rate_bias):
+            self.learning_rate = data["lr"]
+            self.learning_rate_bias = data["lr_bias"]
+            self._refresh_hyper()
 
 
 def _second(velocity):

@@ -57,7 +57,8 @@ GraphicsServer and the stock plotters) and ``veles_tpu_torch/web_status.py``
 (the WebStatusServer with its ``/metrics`` mount, and the launcher's
 StatusNotifier); ``xla_stats`` publishes the active mesh's gauges and the
 data-parallel reduce plane (``parallel/mesh.py``, ``mapreduce.py``). The
-fleet scope waits for A9.
+fleet scope is ``observe/fleetscope.py``: span rings, clock estimates,
+step windows, straggler verdicts, goodput, ``observe fleet-trace``.
 
 Everything is off by default with a structural no-op fast path (the
 disabled tracer hands out one shared null span, the disabled registry
@@ -71,7 +72,7 @@ from veles_tpu_torch.observe.flight import (  # noqa: F401
     FlightRecorder, get_flight_recorder)
 from veles_tpu_torch.observe.metrics import (  # noqa: F401
     DEFAULT_BUCKETS, MetricsRegistry, bridge, get_metrics_registry,
-    publish_decoder, publish_kv_pool, publish_loader,
+    publish_decoder, publish_fleet, publish_kv_pool, publish_loader,
     publish_serving_health)
 from veles_tpu_torch.observe.tracing import (  # noqa: F401
     NULL_SPAN, TRACE_HEADER, Tracer, current_context,

@@ -28,8 +28,10 @@ collectors) into per-series rings, and the layers on top:
 - surfaces: ``GET /debug/history`` (``core/httpd.serve_debug_history``,
   ``?series=&window=``) and ``python -m veles_tpu_torch observe incident
   PATH | --live URL`` (:func:`incident_main`). :meth:`MetricHistory.
-  fleet_summary` and :meth:`MetricHistory.ingest_summary` are ported; the
-  fleet that carries them waits for ROADMAP A9.
+  fleet_summary` and :meth:`MetricHistory.ingest_summary` are ported, and
+  the fleet (``fleet/client.py``, ``server.py``) carries the rows; their
+  parity with the JAX package's fleet is not held yet (ROADMAP A7's
+  rest).
 
 Configuration: ``root.common.observe.history`` (a config subtree or a
 ``key=value,...`` string: the ``--serve-history`` flag). Unset means on

@@ -21,7 +21,8 @@ progress and the device truth (``observe/xla_stats.py``).
   exemplars with ``# EOF`` when the scraper asks for them. For the same
   writes the text is the JAX package's byte for byte.
 
-``publish_fleet`` waits for the port's fleet (ROADMAP A9).
+``publish_fleet`` re-publishes a fleet master's ``fleet_status()`` and
+its slaves' piggybacked rows (``fleet/server.py``).
 """
 
 import logging
@@ -545,3 +546,101 @@ def publish_loader(registry, loader):
     registry.set("veles_loader_total_samples", loader.total_samples,
                  labels={"loader": loader.name},
                  help="dataset size across the three splits")
+
+
+def publish_fleet(registry, server):
+    """Server.fleet_status() + per-slave piggybacked metric snapshots
+    -> veles_fleet_* (the master's /metrics aggregates the fleet)."""
+    status = server.fleet_status()
+    registry.set("veles_fleet_slaves", len(status.get("slaves", [])),
+                 help="slaves currently connected")
+    registry.set("veles_fleet_queued_jobs", status.get("queued_jobs", 0),
+                 help="backpressured job requests waiting")
+    ledger = status.get("ledger") or {}
+    for key in ("issued", "done", "requeued"):
+        if key in ledger:
+            registry.counter_set("veles_fleet_jobs_total", ledger[key],
+                                 labels={"state": key},
+                                 help="job-ledger lifecycle tallies")
+    fenced = ledger.get("fenced")
+    if isinstance(fenced, dict):
+        for verdict, count in fenced.items():
+            registry.counter_set("veles_fleet_fenced_total", count,
+                                 labels={"verdict": str(verdict)},
+                                 help="updates rejected by the fence")
+    elif ledger.get("fenced_total") is not None:
+        registry.counter_set("veles_fleet_fenced_total",
+                             ledger["fenced_total"],
+                             labels={"verdict": "all"},
+                             help="updates rejected by the fence")
+    for row in status.get("slaves", []):
+        sid = str(row.get("id"))
+        registry.counter_set("veles_fleet_slave_jobs_done_total",
+                             row.get("jobs_done", 0),
+                             labels={"slave": sid},
+                             help="jobs completed per connected slave")
+        registry.set("veles_fleet_slave_power", row.get("power", 0.0),
+                     labels={"slave": sid},
+                     help="reported computing power per slave")
+        if isinstance(row.get("step_ms"), (int, float)):
+            registry.set("veles_fleet_slave_step_ms", row["step_ms"],
+                         labels={"slave": sid},
+                         help="median per-job step time per slave "
+                              "(observe/fleetscope.py StepWindow)")
+        if isinstance(row.get("straggler_score"), (int, float)):
+            registry.set("veles_fleet_straggler_score",
+                         row["straggler_score"],
+                         labels={"slave": sid},
+                         help="per-slave median step time over the "
+                              "fleet median (persistent straggler at "
+                              ">= 1.75x for 3 windows — "
+                              "observe/fleetscope.py)")
+    # fleet goodput decomposition + clock alignment
+    # (observe/fleetscope.py; docs/observability.md "Fleet timeline +
+    # goodput")
+    goodput = status.get("goodput")
+    if isinstance(goodput, dict):
+        registry.set("veles_fleet_goodput_fraction",
+                     goodput.get("fraction", 1.0),
+                     help="share of accounted fleet wall time spent "
+                          "in slave compute (higher is better)")
+        for component in ("compute", "wire", "host", "idle", "wasted"):
+            value = goodput.get(component + "_s")
+            if isinstance(value, (int, float)):
+                registry.counter_set(
+                    "veles_fleet_goodput_seconds_total", value,
+                    labels={"component": component},
+                    help="fleet wall-time decomposition by component "
+                         "(compute/wire/host/idle/wasted)")
+    for proc, row in sorted((status.get("clock") or {}).items()):
+        if not isinstance(row, dict):
+            continue
+        sid = str(row.get("slave", proc))
+        if isinstance(row.get("offset_ms"), (int, float)):
+            registry.set("veles_fleet_clock_offset_ms",
+                         row["offset_ms"], labels={"slave": sid},
+                         help="estimated slave-clock offset vs the "
+                              "master timeline (NTP-style from "
+                              "job/update stamp pairs)")
+        if isinstance(row.get("uncertainty_ms"), (int, float)):
+            registry.set("veles_fleet_clock_uncertainty_ms",
+                         row["uncertainty_ms"], labels={"slave": sid},
+                         help="clock-offset uncertainty bound (half "
+                              "the best filtered wire round trip)")
+    # re-export each slave's piggybacked counter/gauge snapshot under
+    # its slave id — one scrape of the master sees the whole fleet
+    slave_rows = server.slave_metrics()
+    for sid, rows in slave_rows.items():
+        for name, kind, labels, value in rows:
+            merged = dict(labels)
+            merged["slave"] = sid
+            if kind == COUNTER:
+                registry.counter_set(name, value, labels=merged)
+            else:
+                registry.set(name, value, labels=merged)
+    # retire series of slaves no longer in the roster: a departed or
+    # respawned-under-a-new-sid slave must not advertise its last
+    # counters forever, and churn must not grow the exposition
+    live = set(slave_rows) | {str(row.get("id"))
+                              for row in status.get("slaves", [])}
+    registry.prune_label("slave", live)

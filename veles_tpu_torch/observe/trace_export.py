@@ -13,9 +13,9 @@ export, keyed by name and source. Every source pid gets a stable small
 Chrome pid with ``process_name``/``thread_name`` metadata rows. For the
 same events file the JSON equals the JAX exporter's key for key.
 
-``observe blackbox`` reads flight-recorder dumps (``observe/flight.py``).
-The JAX package's other ``observe`` subcommands exit with code 2 naming
-the ROADMAP item that brings them (:data:`DEFERRED`).
+``observe blackbox`` reads flight-recorder dumps (``observe/flight.py``);
+``observe fleet-trace`` assembles a fleet master's ``/debug/fleet``
+payload into one clock-aligned Chrome trace (``observe/fleetscope.py``).
 """
 
 import json
@@ -162,29 +162,19 @@ def span_tree(trace):
     return trees
 
 
-#: the JAX package's ``observe`` subcommands not ported yet -> the
-#: ROADMAP item that brings them
-DEFERRED = {
-    "fleet-trace": "the fleet, ROADMAP A9",
-}
-
-
 def main(argv=None):
     """``python -m veles_tpu_torch observe``: ``export-trace`` (Chrome
     trace), ``blackbox`` (flight-recorder dumps), ``slo`` (the request
     waterfalls' autopsy), ``serve-trace`` (the per-slot Perfetto trace),
     ``incident`` (a metric-history incident's timeline), ``record`` and
     ``replay`` (traffic traces, ``observe/replay.py``), ``capacity``
-    (``observe/capacity.py``) and ``regress`` (``observe/regress.py``).
-    Returns the exit code; a subcommand of :data:`DEFERRED` returns 2."""
+    (``observe/capacity.py``), ``regress`` (``observe/regress.py``) and
+    ``fleet-trace`` (``observe/fleetscope.py``). Returns the exit
+    code."""
     import argparse
     import sys
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in DEFERRED:
-        sys.stderr.write("veles_tpu_torch observe: the %r command is not "
-                         "ported yet: %s\n" % (argv[0], DEFERRED[argv[0]]))
-        return 2
     parser = argparse.ArgumentParser(
         prog="veles_tpu_torch observe",
         description="observability tooling: trace export, black boxes, "
@@ -197,6 +187,21 @@ def main(argv=None):
              "(load in ui.perfetto.dev)")
     export.add_argument("events", help="events JSONL path (see "
                                        "--trace-events)")
+    fleet = sub.add_parser(
+        "fleet-trace",
+        help="assemble the merged master+slave fleet timeline into a "
+             "Perfetto-loadable Chrome trace (observe/fleetscope.py): "
+             "a saved GET /debug/fleet payload, or --live URL of the "
+             "fleet metrics sidecar")
+    fleet.add_argument("artifact", nargs="?", default=None,
+                       help="saved /debug/fleet JSON (or an artifact "
+                            "embedding one under 'fleetscope')")
+    fleet.add_argument("--live", default=None, metavar="URL",
+                       help="fetch <URL>/debug/fleet instead of a "
+                            "file")
+    fleet.add_argument("-o", "--output", default=None,
+                       help="trace output path (default: "
+                            "<artifact>.trace.json / fleet.trace.json)")
     export.add_argument("-o", "--output", default=None,
                         help="output path (default: <events>.trace.json)")
     blackbox = sub.add_parser(
@@ -324,6 +329,13 @@ def main(argv=None):
     regress.add_argument("--json", action="store_true",
                          help="machine-readable findings")
     args = parser.parse_args(argv)
+    if args.command == "fleet-trace":
+        if not args.artifact and not args.live:
+            parser.error("observe fleet-trace needs an ARTIFACT or "
+                         "--live URL")
+        from veles_tpu_torch.observe.fleetscope import fleet_trace_main
+        return fleet_trace_main(args.artifact, live=args.live,
+                                output=args.output)
     if args.command == "blackbox":
         from veles_tpu_torch.observe.flight import blackbox_main
         return blackbox_main(args.path, tail=args.tail)

@@ -8,8 +8,10 @@ observe export-trace`` turns the JSONL into a Chrome ``trace_event``
 JSON that ``ui.perfetto.dev`` loads: one serving request is followable
 from admission through its prefill and decode chunks to the collect
 across threads. Each span event goes to the port's
-``core/logger.EventRecorder`` and to the flight recorder's ring. The
-JAX package's fleet span ring waits for the fleet (ROADMAP A9).
+``core/logger.EventRecorder`` and to the flight recorder's ring; a
+completed span also feeds the fleet span ring
+(``observe/fleetscope.py``, ``tracing.py:120-135``), whose summaries a
+fleet slave ships on its update frames.
 
 Fast path (the overhead-guard tests pin it): a DISABLED tracer returns
 one shared null span from ``span()``: no allocation, no id, no recorder
@@ -35,6 +37,7 @@ import uuid
 import torch
 
 from veles_tpu_torch.core.logger import get_event_recorder
+from veles_tpu_torch.observe.fleetscope import get_span_ring
 from veles_tpu_torch.observe.flight import get_flight_recorder
 
 #: the serving trace header: "<trace_id>/<span_id>" (hex)
@@ -109,7 +112,8 @@ class Span:
     (``tid``) and process (``pid``)."""
 
     __slots__ = ("tracer", "name", "trace_id", "span_id", "parent_id",
-                 "attrs", "_token", "_finished", "_annotation")
+                 "attrs", "_token", "_finished", "_annotation",
+                 "_t0_mono")
 
     def __init__(self, tracer, name, trace_id, parent_id, **attrs):
         self.tracer = tracer
@@ -121,6 +125,7 @@ class Span:
         self._token = None
         self._finished = False
         self._annotation = None
+        self._t0_mono = None
 
     def context(self):
         """The (trace_id, span_id) pair to hand across threads or
@@ -134,15 +139,30 @@ class Span:
         return self
 
     def _record(self, etype):
+        mono = time.monotonic()
         payload = dict(
             name=self.name, etype=etype, trace_id=self.trace_id,
             span_id=self.span_id, parent_id=self.parent_id,
-            mono=time.monotonic(), tid=threading.get_ident(),
+            mono=mono, tid=threading.get_ident(),
             pid=os.getpid(), **self.attrs)
         get_event_recorder().record(**payload)
         # the black box holds the last spans whichever EventRecorder is
         # active (flight.py; a bounded append)
         get_flight_recorder().note_span(payload)
+        if etype == "begin":
+            self._t0_mono = mono
+            return
+        # COMPLETED spans (end/single) feed the fleet span ring: a fleet
+        # slave piggybacks their summaries on its update frames. A
+        # disabled ring costs one attribute check.
+        ring = get_span_ring()
+        if ring.enabled:
+            t0 = self._t0_mono if etype == "end" \
+                and self._t0_mono is not None else mono
+            ring.note_span(self.name, self.trace_id, self.span_id,
+                           self.parent_id, t0,
+                           max(0.0, (mono - t0) * 1000.0),
+                           threading.get_ident())
 
     def __enter__(self):
         self._token = _current.set(self)

@@ -53,9 +53,18 @@ runs data-parallel: every rank of the ``torch.distributed`` world holds
 the whole dataset and the same weights, steps on its block of each
 minibatch, and merges gradients and metrics through
 ``parallel/mapreduce.reduce_sum`` (:func:`build_tick`), so every rank
-applies the same update. Left out (later slices): the mesh's other axes
+applies the same update. Left out (a later slice): the mesh's other axes
 (ROADMAP A8 (b): the model axis, ring and Ulysses attention over a
-``seq`` axis) and the fleet slave and control-plane paths (A9).
+``seq`` axis).
+
+On a fleet slave (``fused.py:29-38``, ``:720-790``) the tick runs one
+step per job. Data plane: it reads the parameters the master's job
+wrote into the unit Arrays and writes the trained ones back for the
+update. Control plane: the parameters stay resident between jobs, the
+tick keeps the pre-job parameters as a one-slot rollback for a
+re-issued job (:meth:`FusedTick.rollback_job`), and it writes the unit
+Arrays only at epoch fences, which feed the fence sync. No copy is
+needed for the stash: the step never updates a tensor in place.
 """
 
 import torch
@@ -549,6 +558,9 @@ class FusedTick(Unit):
         self._norm_ = None
         self._specs_ = None
         self._loss_kind_ = "softmax"
+        #: control-plane fleet: the parameters before the last TRAIN
+        #: tick; a re-issued job (lost update) rolls back to them
+        self._rollback_ = None
         self._wrote_eval_params_ = False
         self._eval_stash_ = None  # params evaluated one epoch ago
         self._stashed_this_epoch_ = False
@@ -603,7 +615,10 @@ class FusedTick(Unit):
     def run(self):
         wf = self.workflow
         loader = wf.loader
-        if self._params_ is None:
+        control = wf.is_slave and self._control_plane()
+        if self._params_ is None or (wf.is_slave and not control):
+            # a data-plane SLAVE reads the unit Arrays every tick: the
+            # master's job overwrote them (apply_data_from_master)
             self._params_ = get_params(wf, self._specs_)
         train_step, eval_step, train_sweep, eval_sweep = self._steps_
         norm = self._norm_
@@ -617,6 +632,10 @@ class FusedTick(Unit):
         valid = float(max(loader.minibatch_valid_size, 1))
         klass = loader.minibatch_class
         training = klass == TRAIN
+        if control:
+            # one-slot rollback: a re-issued job replays from exactly the
+            # pre-job parameters; eval ticks change nothing
+            self._rollback_ = self._params_ if training else None
         if getattr(loader, "sweep_serving", False):
             sizes = loader.sweep_valid_sizes
             self.minibatch_counts[klass] += len(sizes)
@@ -646,6 +665,17 @@ class FusedTick(Unit):
                                         True):
                 evaluator.confusion_matrix.data = cm
         self.ticks += 1
+        if wf.is_slave:
+            if control:
+                # the unit Arrays change only at EPOCH FENCES: they feed
+                # the fence sync; per-job updates carry scalars only
+                if bool(loader.epoch_ended):
+                    set_params(wf, self._params_, self._specs_)
+            elif training:
+                # data plane: the update ships the trained parameters;
+                # the epoch accounting lives on the master
+                set_params(wf, self._params_, self._specs_)
+            return
         if not training and loader.epoch_ended_for_class:
             # write the EVALUATED weights into the unit Arrays now — they
             # stay untouched through the upcoming train sweep
@@ -673,6 +703,30 @@ class FusedTick(Unit):
                 set_params(wf, self._params_, self._specs_)
             self._wrote_eval_params_ = False
             self._stashed_this_epoch_ = False
+
+    @staticmethod
+    def _control_plane():
+        from veles_tpu_torch.fleet import fleet_control_plane
+        return fleet_control_plane()
+
+    def rollback_job(self):
+        """Control-plane fleet: undo the LAST job's local application.
+        True when parameters were restored (the last job trained); False
+        when there was nothing to undo (an eval tick). The fleet client
+        calls it when the master re-issues work whose update never
+        arrived."""
+        if self._rollback_ is None:
+            return False
+        self._params_ = self._rollback_
+        self._rollback_ = None
+        return True
+
+    def reset_residency(self):
+        """Drop the resident parameters so the next tick reads the unit
+        Arrays: after a handshake applied the master's weights (first
+        join, or a master restart)."""
+        self._params_ = None
+        self._rollback_ = None
 
     def advance_eval_params(self):
         """Write the one-slot history's evaluated params into the unit

@@ -268,3 +268,15 @@ def mesh_shape_label(info=None):
              for size in [info["axes"].get(name, 1)] if size != 1]
     return ".".join(parts) or None
 
+
+def mesh_coordinate_labels():
+    """``{"process": rank, "mesh": "data2"}`` of this process: merged into
+    the metric rows a fleet slave piggybacks on its update frames, so a
+    master scrape tells a meshed slave's ranks apart
+    (``mesh.py:253-266``). Empty when no mesh is active."""
+    label = mesh_shape_label()
+    if label is None:
+        return {}
+    rank = torch.distributed.get_rank() if _distributed() else 0
+    return {"process": str(rank), "mesh": label}
+

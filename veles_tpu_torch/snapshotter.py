@@ -24,8 +24,7 @@ device it is given (``None`` means the card, and raises without one):
 the unit Arrays, the loader's originals, the normalizer's statistics and
 the GD units' solver state, which the fused tick reads back at
 ``initialize``. In a data-parallel world (``parallel/mesh.py``) rank 0
-alone writes snapshots. Left out: the fleet's master-only rule (ROADMAP
-A9).
+alone writes snapshots; in a fleet, the master (a slave never does).
 """
 
 import bz2
@@ -197,9 +196,9 @@ class SnapshotterBase(Unit):
     def run(self):
         """Gated by the interval count AND the minimum wall-time window
         (reference ``snapshotter.py:159-174``)."""
-        if bool(self.skip) or root.common.disable.get("snapshotting",
-                                                      False):
-            return
+        if self.is_slave or bool(self.skip) \
+                or root.common.disable.get("snapshotting", False):
+            return  # a fleet's snapshots are the master's
         from veles_tpu_torch.parallel.mesh import is_primary
         if not is_primary():
             return  # one snapshot per world, written by rank 0

@@ -20,7 +20,9 @@ veles_tpu_torch.web_status``:
 status snapshot every ``notification_interval``. The device column reads
 ``observe/xla_stats.device_summary``: the card's memory, the kernel
 builds and the active mesh (``data2``). The fleet column formats what a
-fleet master reports; the fleet that fills it is ROADMAP A9.
+fleet master reports (``fleet/server.Server.fleet_status``); a master's
+status reaching the column through the launcher is not held against the
+JAX package yet (ROADMAP A7's rest).
 """
 
 import glob
