@@ -197,8 +197,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    canonical split's SHA-256); ``python -m veles_tpu_torch parity`` on
    the card, exit 0 and each family within its bound (3.0% / 0.7% /
    0.7%), its error, epochs, best epoch, seconds and images/s printed;
-   digits_mlp, transformer_digits and som_digits through the CLI at
-   once, each exit 0; ``python -m veles_tpu_torch autotune`` for the wide
+   beside it, digits_mlp, transformer_digits and som_digits through the
+   CLI at once, each exit 0; ``python -m veles_tpu_torch autotune`` for the wide
    MLP's K6 and K5 products and AlexNet's head (GEMM), the serving
    model's qkv prefill at M = 256 and its five decode products at M = 8
    (``--int8``) and its page size and head width (``--paged-attention``)
@@ -233,8 +233,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    every plane on and off (on, off, on, off: tokens/s printed, K1 and K2
    launches a decode step equal); and the wide MLP through the CLI with
    ``--trace-events`` (knobs on, 1 epoch: a ``unit.run`` span for every
-   firing of every unit) and again killed by SIGTERM after its first
-   span (a ``sigterm`` black box, the previous handler ran). Phases 2-18
+   firing of every unit) and, started beside it, again killed by SIGTERM
+   after its first span (a ``sigterm`` black box, the previous handler
+   ran). Phases 2-18
    also hold the serving hooks off (the request ledger, the serve scope,
    memscope's edges), and phase 19 runs without a metric history.
 
@@ -263,7 +264,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    trip while a reference holds the old pool and its state gives one
    naming ``kv_pool`` and a black box ``observe blackbox`` reads. Then
    the int8 burst in ``scripts/observe_cost.py``'s ``default``,
-   ``ledger_off`` and ``history`` settings, ABBA, four each after a
+   ``ledger_off`` and ``history`` settings, ABBA, two each after a
    warm-up: medians printed, no gate; K1 4 and K2 17 launches a decode
    step in every run.
 
@@ -317,16 +318,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    within FLEET_ATOL, the slave's K6 and K5 launches equal to the single
    run's, the master's none; (b) the digits of tests/test_fleet.py's
    ``_kw(max_epochs=4)`` through a master that spawns two slaves with
-   ``-n localhost,localhost``: both take jobs, every lease done or
-   requeued, the best validation n_err within the JAX test's 80 of 297;
-   (c) the same digits with ``--respawn``, the slave SIGKILLed mid-run:
-   its lease requeued, the master respawns it (``python -m
-   veles_tpu_torch -b``) and exits 0; (d) (a) on the control plane:
-   (a)'s checks, per-job frames under 64 KiB and a fence sync each
-   epoch. Printed: images/s a slave, each frame type's bytes both ways
-   and whether they went through /dev/shm, the share of a slave's wall
-   encoding, sending, waiting, decoding and in its jobs, and the
-   master's merge ms per update.
+   ``-n localhost,localhost`` (the second one's first job held for one
+   epoch of the first's, the first then held for its first two answers):
+   both take jobs, every lease done or requeued,
+   the best validation n_err within the JAX test's 80 of 297;
+   (c) the same digits for 2 epochs with ``--respawn``, the slave
+   SIGKILLed mid-run: its lease requeued, the master respawns it
+   (``python -m veles_tpu_torch -b``) and exits 0 (started before phase
+   24's (a)); (d) (a) on the control plane, run beside phase 24's (b)
+   and (c): (a)'s checks, per-job frames under 64 KiB and a fence sync
+   each epoch. Printed: images/s a slave, each frame type's bytes both ways and whether they
+   went through /dev/shm, the share of a slave's wall encoding, sending,
+   waiting, decoding and in its jobs, and the master's merge ms per
+   update.
+24. (run after phase 23) the fleet x pod composition: phase 22's wide
+   MLP, data, weights and epochs through a ``-l`` master and a pod
+   slave, a world of two ``-m ... --mesh data=2 --coordinator ...``
+   ranks sharing the card over gloo (rank 0 on the wire, rank 1 following
+   its jobs): (a) on the data plane against phase 23's single run: every
+   epoch's validation n_err equal, the weights and every rank's
+   velocities within DP_ATOL, each rank's K6 and K5 launches the single
+   run's, the master's none, every job handed on, the master's ignored
+   ``--mesh`` warned of; then together: (b) on the control plane,
+   fault-free and under tests/test_fleet_chaos.py's chaos profile on
+   rank 0, the master's weights and both ranks' leaves bit-equal to a
+   standalone two-rank world at the fleet's cadence (a step a minibatch,
+   no sweep, no pipeline), its n_err, a fence sync an epoch, under chaos
+   at least one death, duplicated update, requeue, fenced duplicate and
+   rollback, every rollback handed on; (c) a pod's rank 0 SIGKILLed
+   mid-run beside a single-rank slave: its lease requeued, the run
+   finished on the single-rank slave, the follower out non-zero within
+   the world's timeout. Printed: images/s a rank, the wire's share of
+   rank 0's wall, the follower's waiting share, the bytes handed on a
+   job, the phase's seconds.
 
 Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
 8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
@@ -351,6 +375,7 @@ import math
 import os
 import pickle
 import re
+import shutil
 import signal
 import socket
 import statistics
@@ -4812,8 +4837,50 @@ def digits_phase():
 
 def parity_phase(out):
     """``python -m veles_tpu_torch parity`` on the card: exit 0 and every
-    family within its bound; then the three digits samples through the
-    CLI, all at once: each exits 0."""
+    family within its bound; beside it, the three digits samples through
+    the CLI, all at once: each exits 0."""
+    samples = {"digits_mlp": ["samples/digits_config.py"],
+               "transformer_digits": ["-"], "som_digits": ["-"]}
+    running = {}
+    t0 = time.perf_counter()
+    for name, config in samples.items():
+        log = open(os.path.join(out, name + ".log"), "w+")
+        result = os.path.join(out, name + ".json")
+        running[name] = (subprocess.Popen(
+            [sys.executable, "-m", "veles_tpu_torch",
+             os.path.join(REPO_DIR, "veles_tpu_torch", "samples",
+                          name + ".py"), *config, "--result-file", result],
+            cwd=REPO_DIR, env=port_env(), stdout=log,
+            stderr=subprocess.STDOUT),
+            log, result)
+    try:
+        parity_run(out)
+    finally:
+        failed = []
+        for name, (proc, log, result) in running.items():
+            try:
+                code = proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                code = proc.wait()
+            log.seek(0)
+            text = log.read()
+            log.close()
+            results = json.load(open(result)) if os.path.exists(result) \
+                else {}
+            print("sample %s through the CLI on the card: exit %d; results "
+                  "%s" % (name, code, json.dumps(results)[:300]))
+            if code:
+                failed.append("%s (exit %d):\n%s" % (name, code,
+                                                      text[-3000:]))
+    print("the three digits samples, run at once beside parity: %.1f s"
+          % (time.perf_counter() - t0))
+    if failed:
+        raise AssertionError("samples failed: " + "\n".join(failed))
+
+
+def parity_run(out):
+    """``python -m veles_tpu_torch parity`` and its verdict's checks."""
     path = os.path.join(out, "PARITY.json")
     proc, wall = run_port(["parity", "--out", path])
     if proc.returncode:
@@ -4832,39 +4899,6 @@ def parity_phase(out):
           % ("PASS" if verdict["pass"] else "FAIL", verdict["mode"], wall))
     if not verdict["pass"] or len(verdict["results"]) != 3:
         raise AssertionError("the parity verdict failed")
-    samples = {"digits_mlp": ["samples/digits_config.py"],
-               "transformer_digits": ["-"], "som_digits": ["-"]}
-    running = {}
-    t0 = time.perf_counter()
-    for name, config in samples.items():
-        log = open(os.path.join(out, name + ".log"), "w+")
-        result = os.path.join(out, name + ".json")
-        running[name] = (subprocess.Popen(
-            [sys.executable, "-m", "veles_tpu_torch",
-             os.path.join(REPO_DIR, "veles_tpu_torch", "samples",
-                          name + ".py"), *config, "--result-file", result],
-            cwd=REPO_DIR, env=port_env(), stdout=log,
-            stderr=subprocess.STDOUT),
-            log, result)
-    failed = []
-    for name, (proc, log, result) in running.items():
-        try:
-            code = proc.wait(timeout=600)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            code = proc.wait()
-        log.seek(0)
-        text = log.read()
-        log.close()
-        results = json.load(open(result)) if os.path.exists(result) else {}
-        print("sample %s through the CLI on the card: exit %d; results %s"
-              % (name, code, json.dumps(results)[:300]))
-        if code:
-            failed.append("%s (exit %d):\n%s" % (name, code, text[-3000:]))
-    print("the three digits samples, run at once: %.1f s"
-          % (time.perf_counter() - t0))
-    if failed:
-        raise AssertionError("samples failed: " + "\n".join(failed))
 
 
 def autotune_phase(device, out):
@@ -5411,10 +5445,10 @@ def breaker_black_box(params, table, prompts, device, out):
 def observe_cli(device, directory, out):
     """The wide MLP through the CLI with ``--trace-events``, knobs on, one
     epoch: a ``unit.run`` span for every firing of every unit, and K6/K5
-    launches as the minibatches require. Then the same run behind a
+    launches as the minibatches require. Beside it, the same run behind a
     SIGTERM handler of its own, killed once its first ``unit.run`` span
     is on disk: a ``sigterm`` black box holding unit spans, and the
-    previous handler ran. Returns the first run's launches."""
+    previous handler ran. Returns the traced run's launches."""
     workflow = os.path.join(out, "observe_wide.py")
     with open(workflow, "w") as fout:
         fout.write(OBSERVE_WORKFLOW)
@@ -5433,15 +5467,37 @@ def observe_cli(device, directory, out):
                 "--trace-events", events]
 
     events = os.path.join(out, "cli.jsonl")
+    home = os.path.join(out, "home")
+    killed = os.path.join(out, "killed.jsonl")
+    marker = os.path.join(out, "marker")
+    # the run SIGTERM kills starts beside the traced one: it ends after
+    # its first span, so the two share only their start-up
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    victim = subprocess.Popen(
+        [sys.executable, "-c", CHAINED_SIGTERM, marker]
+        + args(1000, killed),
+        cwd=REPO_DIR, env=dict(port_env(), VELES_TPU_HOME=home),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    traced = subprocess.Popen(
         [sys.executable, "-m", "veles_tpu_torch"] + args(1, events),
-        cwd=REPO_DIR, env=port_env(), capture_output=True, text=True,
-        timeout=600)
+        cwd=REPO_DIR, env=port_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        while time.perf_counter() - t0 < 300 and victim.poll() is None:
+            if os.path.exists(killed) and "unit.run" in open(killed).read():
+                break
+            time.sleep(0.1)
+        victim.send_signal(signal.SIGTERM)
+        sigterm_s = time.perf_counter() - t0
+        _, err = victim.communicate(timeout=120)
+        _, traced_err = traced.communicate(timeout=600)
+    finally:
+        victim.kill()
+        traced.kill()
     wall = time.perf_counter() - t0
-    if proc.returncode:
+    if traced.returncode:
         raise AssertionError("the traced CLI run exited %d:\n%s"
-                             % (proc.returncode, proc.stderr[-4000:]))
+                             % (traced.returncode, traced_err[-4000:]))
     with open(os.path.join(out, "counters.json")) as fin:
         counters = json.load(fin)
     spans = {}
@@ -5456,24 +5512,7 @@ def observe_cli(device, directory, out):
           % (wall, spans, counters["run_calls"], got, want))
     if spans != counters["run_calls"] or got != want:
         raise AssertionError("the traced CLI run failed its checks")
-    home = os.path.join(out, "home")
-    killed = os.path.join(out, "killed.jsonl")
-    marker = os.path.join(out, "marker")
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-c", CHAINED_SIGTERM, marker]
-        + args(1000, killed),
-        cwd=REPO_DIR, env=dict(port_env(), VELES_TPU_HOME=home),
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-    try:
-        while time.perf_counter() - t0 < 300 and proc.poll() is None:
-            if os.path.exists(killed) and "unit.run" in open(killed).read():
-                break
-            time.sleep(0.1)
-        proc.send_signal(signal.SIGTERM)
-        _, err = proc.communicate(timeout=120)
-    finally:
-        proc.kill()
+    proc = victim
     run_dir = os.path.join(home, "run")
     dumps = sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else []
     doc = load_dump(os.path.join(run_dir, dumps[0])) if dumps else {}
@@ -5481,7 +5520,7 @@ def observe_cli(device, directory, out):
     print("SIGTERM after the first unit.run span (%.1f s): exit %d, "
           "previous handler %s, black boxes %s (reason %s, %d entries, "
           "unit.run spans %d)" % (
-              time.perf_counter() - t0, proc.returncode,
+              sigterm_s, proc.returncode,
               os.path.exists(marker), dumps, doc.get("reason"),
               len(entries), sum(e.get("name") == "unit.run"
                                 for e in entries)))
@@ -5523,13 +5562,13 @@ class StepLaunches:
 
 
 #: the cost runs after one discarded warm-up run, in ABBA order so that
-#: no setting always runs first, four each of ``default`` (GenerateAPI.
+#: no setting always runs first, two each of ``default`` (GenerateAPI.
 #: start() as a user runs it: the flight ring on, the registry and the
-#: device truth enabled by start(), the tracer off) and ``off`` (every
-#: plane off), two of ``traced`` (the default with the tracer writing
-#: spans to the events file): single bursts spread 1.3-1.5x, medians less
-COST_ORDER = ("default", "off", "off", "default", "traced", "traced",
-              "default", "off", "off", "default")
+#: device truth enabled by start(), the tracer off), ``off`` (every plane
+#: off) and ``traced`` (the default with the tracer writing spans to the
+#: events file): single bursts spread 1.3-1.5x, medians less (four of
+#: ``default`` and ``off`` until the smoke had to make room for phase 24)
+COST_ORDER = ("default", "off", "traced", "traced", "off", "default")
 
 
 def cost_planes(setting):
@@ -5642,10 +5681,9 @@ PAGED_WATERFALL = ["staged", "pool_gated", "admitted", "first_token",
 #: discarded warm-up run, ABBA around ``default`` (the planes as
 #: ``start()`` leaves them, the history's sampler off): ``ledger_off``
 #: (the ledger and the scope off) and ``history`` (the sampler at its 1 s
-#: default), four runs each
+#: default), two runs each (four until the smoke made room for phase 24)
 HOOKS_COST_ORDER = ("default", "ledger_off", "history", "history",
-                    "ledger_off", "default", "default", "ledger_off",
-                    "history", "history", "ledger_off", "default")
+                    "ledger_off", "default")
 
 
 def lane_positions(lengths):
@@ -6262,11 +6300,12 @@ ROLLOUT_STEPS = (0.3, 1.0)
 GREEN_RAMP_MS = 400.0
 #: record, replay, capacity: the recorded requests (four times the slots,
 #: so a high warp queues them: 16 did not breach up to x64), the front's
-#: objective, and the escalation (x1, x4, x16, x64 at most, then two
-#: bisections of the cliff)
+#: objective, and the escalation (x2, x8, x32, x64 at most, then two
+#: bisections of the cliff; x1 until the smoke made room for phase 24:
+#: the replay above runs the trace at x1 already)
 CAPACITY_REQUESTS = 32
 CAPACITY_SLO = "ttft_p95_ms=300"
-CAPACITY_WARPS = ("1", "4", "64", "2")
+CAPACITY_WARPS = ("2", "4", "64", "2")
 ACT_TENANTS = ("tenant-alpha", "tenant-beta")
 
 
@@ -7300,15 +7339,24 @@ FLEET_ATOL = DP_ATOL
 #: (layers (16, 10), 297 valid / 1500 train, minibatch 300, lr 0.5,
 #: seeds 42 and 43). (b)'s master serves no job before both its slaves
 #: are connected (the stream is shorter than the spread of two
-#: processes' start-up), its bound the JAX test's
-#: (tests/test_fleet.py:356-358); (c)'s jobs are stretched by
-#: FLEET_SLOW_MS (the chaos slow-job fault at probability 1), so that
-#: the run has a middle to kill its slave in
+#: processes' start-up), the second slave's first job waits for
+#: FLEET_STAGGER updates of the first (one epoch), and the first then
+#: waits for the second's first two answers. An even interleaving from
+#: the first job loses every other update to the overwrite merge: from
+#: the port's initial weights its best n_err passed the bound in 4 of 8
+#: CPU trials and read 83 once on the card (from the JAX package's
+#: weights the port reads JAX's 44-75); staggered, 16 CPU trials read
+#: 41-75. Its bound is the JAX test's (tests/test_fleet.py:356-358).
+#: (c)'s jobs are stretched by FLEET_SLOW_MS (the chaos slow-job fault at
+#: probability 1), so that the run has a middle to kill its slave in
 FLEET_DIGITS = {"layers": [16, 10], "lengths": [0, 297, 1500],
                 "minibatch": 300, "lr": 0.5, "epochs": 4}
-FLEET_SLOW_MS, FLEET_DIGITS_BOUND = 300, 80
-#: (c): the slave is killed once the master has taken this many of its
-#: updates
+FLEET_SLOW_MS, FLEET_DIGITS_BOUND, FLEET_STAGGER = 100, 80, 6
+#: (c)'s epochs: 2 (4, and jobs stretched by 300 ms, until the smoke made
+#: room for phase 24; it now runs beside phase 24's (b) and (c))
+FLEET_RESPAWN_EPOCHS = 2
+#: (c): the slave is killed in the job after this many (it then holds
+#: the job's lease)
 FLEET_KILL_AFTER = 3
 #: each part's deadline, seconds: every process it started is killed
 FLEET_DEADLINE = 240
@@ -7346,7 +7394,8 @@ from veles_tpu_torch.models.mlp import MLPWorkflow
 from veles_tpu_torch.ops import gemm
 from veles_tpu_torch.parity import read_digits
 
-root.fl.update({"out": None, "tag": "a", "data": "bench", "hold_for": 1})
+root.fl.update({"out": None, "tag": "a", "data": "bench", "init": None,
+               "hold_for": 1, "stagger": 0, "cadence": "sweep"})
 
 
 def synchronize(device):
@@ -7374,20 +7423,43 @@ def timed_async(record, key, fn):
     return wrapper
 
 
-def hold_first_job(count):
-    """Serve no job before ``count`` slaves are connected."""
-    serve = Server._serve_job
+def hold_first_job(count, stagger=0):
+    """Serve no job before ``count`` slaves are connected (once they
+    were, serve on whoever stays). With ``stagger``, the first slave
+    served runs alone until the master has taken ``stagger`` updates (or
+    it left); then the others get their jobs and the first slave waits
+    until each has answered two (or left): a fresh process's first eval job and first train
+    job load their kernels (3.6 s on the card, where a digits job takes
+    milliseconds), and the first slave must not run epochs ahead
+    meanwhile."""
+    serve, released, seen = Server._serve_job, [], []
+
+    def waiting(self, slave):
+        if not stagger or self._stopped.is_set():
+            return False
+        if slave.id != seen[0]:
+            return seen[0] in self.slaves \
+                and self.ledger.snapshot()["done"] < stagger
+        return self.ledger.snapshot()["done"] >= stagger and any(
+            getattr(self.slaves.get(sid), "jobs_done", 2) < 2
+            for sid in seen[1:])
 
     async def held(self, slave, writer):
-        while len(self.slaves) < count and not self._stopped.is_set():
+        while not released and len(self.slaves) < count \
+                and not self._stopped.is_set():
             await asyncio.sleep(0.02)
+        released.append(True)
+        if slave.id not in seen:
+            seen.append(slave.id)
+        while waiting(self, slave):
+            await asyncio.sleep(0.005)
         await serve(self, slave, writer)
     Server._serve_job = held
 
 
 def instrument_master(wf, cfg, record):
     if cfg.hold_for > 1:
-        hold_first_job(cfg.hold_for)
+        hold_first_job(cfg.hold_for, cfg.stagger)
     progress = os.path.join(cfg.out, "%s-progress.jsonl" % cfg.tag)
     apply = wf.apply_data_from_slave
     jobs = collections.Counter()
@@ -7419,7 +7491,7 @@ def instrument_master(wf, cfg, record):
     wf.decision._epoch_summary = stamped
 
 
-def instrument_slave(wf, record):
+def instrument_slave(wf, cfg, record):
     sent, got = record["sent"], record["got"]
     serialize, deserialize = protocol._serialize, protocol._deserialize
 
@@ -7444,8 +7516,20 @@ def instrument_slave(wf, record):
         record, "wait_s", asyncio.StreamReader.readexactly)
     do_job = wf.do_job
 
-    def job(data, callback):
+    started = os.path.join(cfg.out, "%s-started.jsonl" % cfg.tag)
+    jobs = []
+
+    def job(data, callback=None):
+        if callback is None:
+            # a pod follower: its waits and jobs are in its own stats
+            return do_job(data)
         t0 = time.perf_counter()
+        # this slave holds the job's lease until its update: a kill rule
+        # reading these rows kills it while it holds one
+        jobs.append(t0)
+        with open(started, "a") as fout:
+            fout.write(json.dumps({"pid": os.getpid(),
+                                   "n": len(jobs)}) + "\\n")
 
         def done(update):
             synchronize(wf.device)
@@ -7467,27 +7551,33 @@ def run(load, main):
     else:
         data = numpy.load(os.path.join(cfg.out, "data.npy"))
         labels = numpy.load(os.path.join(cfg.out, "labels.npy"))
+    # the fleet's cadence, for a standalone world to be held to a fleet:
+    # one step a minibatch, no sweep, no pipeline
+    cadence = ({} if cfg.cadence == "sweep"
+               else {"fused_sweep": False, "fused_pipeline": False})
     wf, _ = load(MLPWorkflow, name="fleet-" + cfg.tag,
                  layers=tuple(cfg.layers),
                  loader_kwargs=dict(data=data, labels=labels,
                                     class_lengths=list(cfg.lengths),
                                     minibatch_size=cfg.minibatch,
                                     normalization_type="linear"),
-                 learning_rate=cfg.lr, max_epochs=cfg.epochs)
-    init = os.path.join(cfg.out, "init.npy")
-    if os.path.exists(init):
-        unit_params_from_jax(wf, list(numpy.load(init, allow_pickle=True)))
+                 learning_rate=cfg.lr, max_epochs=cfg.epochs, **cadence)
+    if cfg.init:
+        unit_params_from_jax(wf, list(numpy.load(cfg.init,
+                                                 allow_pickle=True)))
     launcher = wf.workflow
     role = launcher.mode
-    record = {"role": role, "pid": os.getpid(), "epochs": [],
+    rank = (torch.distributed.get_rank()
+            if torch.distributed.is_initialized() else 0)
+    record = {"role": role, "rank": rank, "pid": os.getpid(), "epochs": [],
               "merge_ms": [], "slaves": {}, "respawns": 0, "sent": {},
               "got": {}, "encode_s": 0.0, "write_s": 0.0, "read_s": 0.0,
               "wait_s": 0.0, "job_s": 0.0, "images": 0, "first": None,
               "last": None}
-    if role == "master":
-        instrument_master(wf, cfg, record)
+    if role == "slave":
+        instrument_slave(wf, cfg, record)
     else:
-        instrument_slave(wf, record)
+        instrument_master(wf, cfg, record)
     gemm.dense_epilogue.launches = gemm.blocked_matmul.launches = 0
     t0 = time.perf_counter()
     main()
@@ -7501,11 +7591,27 @@ def run(load, main):
         record["ledger"] = agent.ledger.snapshot()
         record["best"] = wf.decision.best_n_err[1]
         record["plane"] = agent.plane
-        record["sync"] = agent.fleet_status().get("sync")
-    else:
+        status = agent.fleet_status()
+        record["sync"] = status.get("sync")
+        record["payload_rejects"] = status.get("payload_rejects", 0)
+    elif role == "slave":
+        # a pod slave's rank 0 runs the Client, its other ranks a Follower
+        record["kind"] = type(agent).__name__
         record["jobs"] = agent.jobs_done
-        record["shm"] = agent._shm_thr_ is not None
+        record["shm"] = getattr(agent, "_shm_thr_", None) is not None
         record["fused"] = wf.fused_tick is not None
+        record["meshed"] = wf.fused_tick is not None \
+            and wf.fused_tick.mesh is not None
+        pod = getattr(agent, "pod", None)
+        record["pod"] = pod.stats if pod is not None \
+            else getattr(agent, "stats", None)
+        chaos = getattr(agent, "chaos", None)
+        record["chaos"] = dict(chaos.counters) if chaos else {}
+        record["rollbacks"] = agent.rollbacks
+    else:
+        record["best"] = wf.decision.best_n_err[1]
+        record["meshed"] = wf.fused_tick is not None \
+            and wf.fused_tick.mesh is not None
     name = "%s-%s-%d" % (cfg.tag, role, os.getpid())
     leaves = [(f.weights.data.cpu().numpy(), f.bias.data.cpu().numpy(),
                g._velocity_w.data.cpu().numpy(),
@@ -7545,76 +7651,126 @@ def alive(pid):
         return False
 
 
-def progress_rows(out, tag):
-    path = os.path.join(out, "%s-progress.jsonl" % tag)
+def progress_rows(out, tag, kind="progress"):
+    """The rows of ``<tag>-progress.jsonl`` (an update the master took)
+    or, with ``kind="started"``, of ``<tag>-started.jsonl`` (a job a
+    slave started)."""
+    path = os.path.join(out, "%s-%s.jsonl" % (tag, kind))
     if not os.path.exists(path):
         return []
     with open(path) as fin:
         return [json.loads(line) for line in fin if line.strip()]
 
 
-def fleet_run(out, tag, master_argv, slave_argvs=(), kill_after=None):
-    """Start the master (and the slaves given), wait for the master to
-    exit and every slave it names to end, within FLEET_DEADLINE: every
-    process this part started or the master spawned is killed past it.
-    ``kill_after``: SIGKILL the first slave once the master has taken
-    that many of its updates. Returns (master record, slave records,
-    the killed pid, wall seconds)."""
-    logs = [open(os.path.join(out, "%s-%d.log" % (tag, i)), "w+")
-            for i in range(1 + len(slave_argvs))]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(argv, cwd=REPO_DIR, env=port_env(),
-                              stdout=log, stderr=subprocess.STDOUT)
-             for argv, log in zip([master_argv] + list(slave_argvs), logs)]
-    master, killed = procs[0], None
-    try:
-        while master.poll() is None:
-            if time.perf_counter() - t0 > FLEET_DEADLINE:
-                raise AssertionError("phase 23 (%s) passed its %d s "
-                                     "deadline" % (tag, FLEET_DEADLINE))
-            if kill_after is not None and killed is None:
-                rows = progress_rows(out, tag)
-                if rows and rows[-1]["n"] >= kill_after:
-                    killed = rows[-1]["pid"]
-                    os.kill(killed, signal.SIGKILL)
-            time.sleep(0.05)
-        pids = {row["pid"] for row in progress_rows(out, tag)}
-        pids |= {proc.pid for proc in procs[1:]}
-        while any(alive(pid) for pid in pids) \
-                and time.perf_counter() - t0 < FLEET_DEADLINE:
-            for proc in procs[1:]:
-                proc.poll()  # reap the slaves this part started
-            time.sleep(0.05)
-    finally:
-        for proc in procs:
+class FleetPart:
+    """One fleet run of phases 23 and 24: its processes, started together,
+    each with a log under ``out``. ``kill = (name, n)`` SIGKILLs process
+    ``name`` once it has started job ``n + 1``, so that it dies holding a
+    lease; with ``name`` None, the first slave to start job ``n + 1`` (one
+    the master spawned). With ``spawned``, the part runs until every slave
+    the master spawned has ended too. :func:`run_fleet_parts` waits for
+    parts."""
+
+    def __init__(self, out, tag, argvs, kill=None, spawned=False):
+        self.out, self.tag, self.kill, self.spawned = out, tag, kill, spawned
+        self.names = [name for name, _ in argvs]
+        self.logs = [open(os.path.join(out, "%s-%s.log" % (tag, name)),
+                          "w+") for name in self.names]
+        self.t0 = time.perf_counter()
+        self.procs = [subprocess.Popen(argv, cwd=REPO_DIR, env=port_env(),
+                                       stdout=log, stderr=subprocess.STDOUT)
+                      for (_, argv), log in zip(argvs, self.logs)]
+        self.killed = self.killed_at = self.done_at = None
+        self.ended = {}
+
+    def proc(self, name):
+        return self.procs[self.names.index(name)]
+
+    def poll(self):
+        """Apply the kill rule, note the ended processes; True while the
+        part runs."""
+        now = time.perf_counter()
+        rows = progress_rows(self.out, self.tag) if self.spawned else []
+        if self.kill is not None and self.killed is None:
+            name, after = self.kill
+            victim = None
+            for row in progress_rows(self.out, self.tag, "started"):
+                if row["n"] > after and (name is None or row["pid"]
+                                         == self.proc(name).pid):
+                    victim = row["pid"]
+                    break
+            if victim is not None:
+                os.kill(victim, signal.SIGKILL)
+                self.killed, self.killed_at = victim, now
+        running = False
+        for name, proc in zip(self.names, self.procs):
+            if proc.poll() is None:
+                running = True
+            else:
+                self.ended.setdefault(name, now)
+        if self.spawned and not running:
+            running = any(alive(row["pid"]) for row in rows)
+        if not running and self.done_at is None:
+            self.done_at = now
+        return running
+
+    def finish(self, failing=()):
+        """Kill what still runs; every process but the killed one and
+        ``failing`` must have exited 0. Returns the records by role (a
+        pod's ranks in rank order)."""
+        self.texts = {}
+        for name, proc, log in zip(self.names, self.procs, self.logs):
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
-        for row in progress_rows(out, tag):
+            log.seek(0)
+            self.texts[name] = log.read()
+            log.close()
+        for row in progress_rows(self.out, self.tag):
             if alive(row["pid"]):
                 os.kill(row["pid"], signal.SIGKILL)
-    wall = time.perf_counter() - t0
-    texts = []
-    for log in logs:
-        log.seek(0)
-        texts.append(log.read())
-        log.close()
-    if master.returncode:
-        raise AssertionError("the %s master exited %d:\n%s"
-                             % (tag, master.returncode, texts[0][-4000:]))
-    for proc, text in zip(procs[1:], texts[1:]):
-        if proc.returncode and proc.pid != killed:
-            raise AssertionError("a %s slave exited %d:\n%s"
-                                 % (tag, proc.returncode, text[-4000:]))
-    records = {}
-    for path in glob.glob(os.path.join(out, "%s-*.json" % tag)):
-        with open(path) as fin:
-            record = json.load(fin)
-        record["leaves"] = numpy.load(path[:-5] + ".npy",
-                                      allow_pickle=True)
-        records.setdefault(record["role"], []).append(record)
-    (record,) = records["master"]
-    return record, records.get("slave", []), killed, wall
+        self.wall = (self.done_at or time.perf_counter()) - self.t0
+        for name, proc in zip(self.names, self.procs):
+            if proc.returncode and proc.pid != self.killed \
+                    and name not in failing:
+                raise AssertionError("(%s) the %s exited %d:\n%s" % (
+                    self.tag, name, proc.returncode,
+                    self.texts[name][-4000:]))
+        records = {}
+        for path in glob.glob(os.path.join(self.out, "%s-*.json"
+                                           % self.tag)):
+            with open(path) as fin:
+                record = json.load(fin)
+            record["leaves"] = numpy.load(path[:-5] + ".npy",
+                                          allow_pickle=True)
+            records.setdefault(record["role"], []).append(record)
+        for role in records.values():
+            role.sort(key=lambda r: (r["rank"], r.get("kind") != "Client"))
+        return records
+
+
+def run_fleet_parts(parts, deadline=FLEET_DEADLINE, until=None):
+    """Poll ``parts`` until each of ``until`` (default: every part) has
+    ended, within ``deadline`` seconds; the others run on. Past the
+    deadline, or on an error, every process of every part is killed."""
+    until = parts if until is None else until
+    t0 = time.perf_counter()
+    try:
+        while True:
+            running = {part: part.poll() for part in parts}
+            if not any(running[part] for part in until):
+                return
+            if time.perf_counter() - t0 > deadline:
+                raise AssertionError("fleet parts %s passed their %d s "
+                                     "deadline" % ([p.tag for p in until],
+                                                   deadline))
+            time.sleep(0.05)
+    except BaseException:
+        for part in parts:
+            for proc in part.procs:
+                if proc.poll() is None:
+                    proc.kill()
+        raise
 
 
 def fleet_single(device, data, labels, weights):
@@ -7678,19 +7834,30 @@ def slave_reading(label, slave, master):
 
 def fleet_wide(device, out, workflow, tag, plane, single):
     """Phase 23 (a) or (d): the wide MLP through a master and one slave
-    on the wire plane ``plane``, held to the single run."""
+    on the wire plane ``plane``, held to the single run. Returns the
+    started part and the function that checks it once it ended and
+    returns (master, slave)."""
     n_err, single_leaves, single_got = single
     overrides = ["root.fl.%s=%r" % item for item in (
         ("layers", list(WIDE_LAYERS)), ("minibatch", WIDE_MINIBATCH),
         ("lengths", list(BENCH_CLASS_LENGTHS)), ("epochs", DP_EPOCHS),
-        ("lr", TRAIN_LR))]
+        ("lr", TRAIN_LR), ("init", os.path.join(out, "init.npy")))]
     base = fleet_argv(device, workflow, out, tag, overrides,
                       ("--seed", "default=1234,loader=1234",
                        "--fleet-plane", plane))
     address = "127.0.0.1:%d" % free_port()
-    master, slaves, _, wall = fleet_run(
-        out, tag, base + ["-l", address], [base + ["-m", address]])
-    (slave,) = slaves
+    part = FleetPart(out, tag, [("master", base + ["-l", address]),
+                                ("slave", base + ["-m", address])])
+    return part, lambda: fleet_wide_checks(device, tag, plane, single,
+                                           part)
+
+
+def fleet_wide_checks(device, tag, plane, single, part):
+    """Phase 23 (a) or (d)'s checks and readings on its ended part."""
+    n_err, single_leaves, single_got = single
+    records = part.finish()
+    ((master,), (slave,)), wall = (records["master"], records["slave"]), \
+        part.wall
     got = {name: slave[name] for name in ("dense_epilogue",
                                           "blocked_matmul")}
     w_diff = leaves_diff(master["leaves"], single_leaves,
@@ -7731,45 +7898,419 @@ def fleet_wide(device, out, workflow, tag, plane, single):
 
 
 def fleet_digits(device, out, workflow, tag, flags, hold_for=1, slow_ms=0,
-                 kill_after=None):
+                 kill_after=None, epochs=FLEET_DIGITS["epochs"], stagger=0):
     """Phase 23 (b) or (c): the digits through a master that spawns its
     slaves with ``--nodes``: its first job held until ``hold_for`` slaves
-    are connected, each job stretched by ``slow_ms`` (the chaos slow-job
-    fault at probability 1)."""
+    are connected, the second slave's first until ``stagger`` updates are
+    in, each job stretched by ``slow_ms`` (the chaos slow-job fault at
+    probability 1), for ``epochs``. Returns the started part and
+    the function that reads it once it ended: (master, slave records, the
+    killed pid, checks)."""
     overrides = ["root.fl.data='digits'", "root.fl.hold_for=%d" % hold_for,
+                 "root.fl.stagger=%d" % stagger,
                  "root.common.fleet.chaos.slow_job_ms=%d" % slow_ms]
-    overrides += ["root.fl.%s=%r" % item for item in FLEET_DIGITS.items()]
+    overrides += ["root.fl.%s=%r" % item for item in dict(
+        FLEET_DIGITS, epochs=epochs).items()]
     flags = ("--seed", "default=42,loader=43", "-l",
              "127.0.0.1:%d" % free_port()) + tuple(flags)
     if slow_ms:
         flags += ("--chaos-seed", "23", "--chaos-slow-job", "1")
-    master, slaves, killed, wall = fleet_run(
-        out, tag, fleet_argv(device, workflow, out, tag, overrides, flags,
-                             reconnects=2), kill_after=kill_after)
-    ledger = master["ledger"]
-    print("  (%s) %s: validation n_err by epoch %s, best %d of 297; "
-          "updates by slave %s; ledger %s; respawns %d; killed %s; slave "
-          "records %d; wall %.1f s"
-          % (tag, " ".join(flags), master["epochs"], master["best"],
-             master["slaves"], ledger, master["respawns"], killed,
-             len(slaves), wall))
-    checks = {
-        "every lease done or requeued": ledger["outstanding"] == 0
-        and ledger["issued"] == ledger["done"] + ledger["requeued"],
-        "epochs": len(master["epochs"]) == FLEET_DIGITS["epochs"]}
-    return master, slaves, killed, checks
+    part = FleetPart(out, tag, [("master", fleet_argv(
+        device, workflow, out, tag, overrides, flags, reconnects=2))],
+        kill=(None, kill_after) if kill_after is not None else None,
+        spawned=True)
+
+    def result():
+        records = part.finish()
+        (master,), slaves = records["master"], records.get("slave", [])
+        ledger = master["ledger"]
+        print("  (%s) %s: validation n_err by epoch %s, best %d of 297; "
+              "updates by slave %s; ledger %s; respawns %d; killed %s; "
+              "slave records %d; wall %.1f s"
+              % (tag, " ".join(flags), master["epochs"], master["best"],
+                 master["slaves"], ledger, master["respawns"], part.killed,
+                 len(slaves), part.wall))
+        checks = {
+            "every lease done or requeued": ledger["outstanding"] == 0
+            and ledger["issued"] == ledger["done"] + ledger["requeued"],
+            "epochs": len(master["epochs"]) == epochs}
+        return master, slaves, part.killed, checks
+    return part, result
 
 
-def fleet_phase(device):
+def fleet_phase(device, beside=None):
     """Phase 23: (a) the data plane with one sync slave, (b) two slaves
-    spawned through --nodes, (c) a slave killed mid-run and respawned,
-    (d) the control plane with one slave; every process shares the
-    card. Returns every slave's K6 and K5 launches."""
+    spawned through --nodes, (d) the control plane with one slave and (c)
+    a slave killed mid-run and respawned, (d) and (c) together; every
+    process shares the card. With a list ``beside``, (d) and (c) are not
+    run here: ``("with", start)`` for (d) and ``("before", start)`` for
+    (c) go into it, for phase 24 to start (c) before its (a) and (d)
+    with its (b) and (c); each ``start`` returns the parts it started and
+    the function that checks them once they ended and returns their
+    slaves' launches. Returns the slaves' K6 and K5 launches (all of
+    them when run here) and the single run (phase 24 holds its pod to
+    it)."""
     t0 = time.perf_counter()
     data, labels = bench_dataset()
     weights = dp_weights(numpy.random.RandomState(23))
     single = fleet_single(device, data, labels, weights)
+    out = tempfile.mkdtemp()
+    workflow = os.path.join(out, "fleet_wf.py")
+    with open(workflow, "w") as fout:
+        fout.write(FLEET_WORKFLOW)
+    numpy.save(os.path.join(out, "data.npy"), data)
+    numpy.save(os.path.join(out, "labels.npy"), labels)
+    numpy.save(os.path.join(out, "init.npy"),
+               numpy.array(weights, dtype=object))
+    del data
+    try:
+        part, check = fleet_wide(device, out, workflow, "a", "data", single)
+        run_fleet_parts([part])
+        slave = check()[1]
+        part, read = fleet_digits(device, out, workflow, "b",
+                                  ("-n", "localhost,localhost"), hold_for=2,
+                                  stagger=FLEET_STAGGER)
+        run_fleet_parts([part])
+        master, spawned, _, checks = read()
+        checks["both slaves took jobs"] = len(spawned) == 2 \
+            and all(s["jobs"] for s in spawned)
+        checks["best n_err <= %d" % FLEET_DIGITS_BOUND] = \
+            master["best"] <= FLEET_DIGITS_BOUND
+        if not all(checks.values()):
+            raise AssertionError("phase 23 (b) failed: %s" % checks)
+    except BaseException:
+        shutil.rmtree(out, ignore_errors=True)
+        raise
+    launches = slave_launches([slave] + spawned)
+    ended = []
+
+    def cleanup():
+        # the second of (c) and (d) to end removes the directory
+        ended.append(True)
+        if len(ended) == 2:
+            shutil.rmtree(out, ignore_errors=True)
+
+    def start_d():
+        part, check = fleet_wide(device, out, workflow, "d", "control",
+                                 single)
+
+        def finished():
+            try:
+                return slave_launches([check()[1]])
+            finally:
+                cleanup()
+        return [part], finished
+
+    def start_c():
+        part, read = fleet_digits(
+            device, out, workflow, "c", ("-n", "localhost", "--respawn"),
+            slow_ms=FLEET_SLOW_MS, kill_after=FLEET_KILL_AFTER,
+            epochs=FLEET_RESPAWN_EPOCHS)
+
+        def finished():
+            try:
+                master, respawned, killed, checks = read()
+            finally:
+                cleanup()
+            checks["a slave was killed"] = killed is not None
+            checks["its leases requeued"] = \
+                master["ledger"]["requeued_dropped"] >= 1
+            checks["respawned"] = master["respawns"] >= 1
+            checks["the respawned slave ended the run"] = any(
+                s["pid"] != killed and s["jobs"] for s in respawned)
+            if not all(checks.values()):
+                raise AssertionError("phase 23 (c) failed: %s" % checks)
+            return slave_launches(respawned)
+        return [part], finished
+    print("fleet phase (a) and (b): %.1f s" % (time.perf_counter() - t0))
+    if beside is not None:
+        beside += [("with", start_d), ("before", start_c)]
+        return launches, single
+    started = [start_d(), start_c()]
+    run_fleet_parts([p for parts, _ in started for p in parts])
+    for _, finished in started:
+        for name, n in finished().items():
+            launches[name] += n
+    print("fleet phase: %.1f s" % (time.perf_counter() - t0))
+    return launches, single
+
+
+def slave_launches(slaves):
+    """The K6 and K5 launches of ``slaves``' records, summed."""
     launches = dict.fromkeys(COUNTERS, 0)
+    for slave in slaves:
+        for name in ("dense_epilogue", "blocked_matmul"):
+            launches[name] += slave[name]
+    return launches
+
+
+# -- phase 24: the fleet x pod composition (ROADMAP A9 (e)) -------------------
+
+#: phase 24: phase 22's wide MLP, data, weights and epochs through a
+#: ``-l`` master and a pod slave: a world of POD_RANKS ranks sharing the
+#: card over gloo, rank 0 on the fleet wire, rank 1 following its jobs
+POD_RANKS = 2
+#: the pod worlds' timeout (``root.common.mesh.timeout``, seconds): a
+#: follower whose rank 0 is gone exits within it
+POD_TIMEOUT = 60
+#: (b)'s chaos on the pod's rank 0: tests/test_fleet_chaos.py:578-583
+POD_CHAOS = ("--chaos-seed", "1", "--chaos-death", "0.18",
+             "--chaos-frame-drop", "0.04", "--chaos-frame-delay", "0.10",
+             "--chaos-duplicate-update", "0.25", "--chaos-slow-job", "0.25")
+POD_CHAOS_SETTINGS = ("root.common.fleet.chaos.frame_delay_ms=5.0",
+                      "root.common.fleet.chaos.slow_job_ms=20.0",
+                      "root.common.fleet.chaos.death_mode='disconnect'")
+#: (c): 2 epochs, the pod's rank 0 killed in the job after this many
+#: (holding its lease; its jobs stretched by POD_SLOW_MS, the chaos
+#: slow-job fault at probability 1). The master serves whichever slave
+#: asks first alone for POD_STAGGER updates, then holds it until the other
+#: has answered two, so the pod reaches that job whatever the order (a
+#: fresh pod's first job takes seconds on the card: the single-rank
+#: slave could otherwise run the stream dry first)
+POD_DROP_EPOCHS, POD_KILL_AFTER, POD_SLOW_MS, POD_STAGGER = 2, 1, 100, 2
+#: each group of parts' deadline, seconds: every process is killed past it
+POD_DEADLINE = 300
+#: the master's warning of an ignored mesh (veles_tpu/launcher.py:105-110)
+POD_MASTER_WARNING = "the mesh is ignored here; configure it on the slaves"
+
+
+def pod_argvs(base, master, tag_flags=()):
+    """The pod's ranks: ``base`` with ``-m master --mesh data=2
+    --coordinator ... --num-processes 2 --process-id i``."""
+    coordinator = "127.0.0.1:%d" % free_port()
+    return [("rank%d" % rank, base + list(tag_flags) + [
+        "-m", master, "--mesh", "data=%d" % POD_RANKS, "--coordinator",
+        coordinator, "--num-processes", str(POD_RANKS), "--process-id",
+        str(rank)]) for rank in range(POD_RANKS)]
+
+
+def pod_base(device, workflow, out, tag, plane, epochs=DP_EPOCHS,
+             cadence="sweep", settings=(), flags=()):
+    """A fleet process's command line for phase 24: the wide MLP on the
+    bench data from the numpy weights, the engine knobs on at level 2,
+    gloo for the world, POD_TIMEOUT."""
+    overrides = ["root.fl.%s=%r" % item for item in (
+        ("layers", list(WIDE_LAYERS)), ("minibatch", WIDE_MINIBATCH),
+        ("lengths", list(BENCH_CLASS_LENGTHS)), ("epochs", epochs),
+        ("lr", TRAIN_LR), ("cadence", cadence),
+        ("init", os.path.join(out, "init.npy")))]
+    overrides += ["root.common.mesh.backend='gloo'",
+                  "root.common.mesh.timeout=%d" % POD_TIMEOUT]
+    overrides += list(settings)
+    return fleet_argv(device, workflow, out, tag, overrides,
+                      ("--seed", "default=1234,loader=1234",
+                       "--fleet-plane", plane) + tuple(flags))
+
+
+def pod_leaves_equal(got, want, count=4):
+    return all(numpy.array_equal(a, b) for x, y in zip(got, want)
+               for a, b in zip(x[:count], y[:count]))
+
+
+def pod_data_plane(device, out, workflow, single, background=()):
+    """Phase 24 (a): a data-plane master (``--mesh`` given: it warns and
+    ignores it) and one pod slave, held to the single run; the readings:
+    images/s a rank, the wire's share of rank 0's wall, the follower's
+    waiting share and the bytes handed on per job. The ``background``
+    parts are polled meanwhile."""
+    n_err, single_leaves, single_got = single
+    address = "127.0.0.1:%d" % free_port()
+    base = pod_base(device, workflow, out, "pa", "data")
+    part = FleetPart(out, "pa", [("master", base + [
+        "-l", address, "--mesh", "data=%d" % POD_RANKS])]
+        + pod_argvs(base, address))
+    run_fleet_parts([part] + list(background), POD_DEADLINE, until=[part])
+    records = part.finish()
+    (master,) = records["master"]
+    ranks = records["slave"]
+    leader, follower = ranks
+    launches = {name: [r[name] for r in ranks]
+                for name in ("dense_epilogue", "blocked_matmul")}
+    w_diff = leaves_diff(master["leaves"], single_leaves, velocities=False)
+    v_diff = max(leaves_diff(r["leaves"], single_leaves) for r in ranks)
+    print("  (a) data plane, a pod of %d ranks (gloo, one card): validation "
+          "n_err %s (the single run %s); the master's weights %.3g, the "
+          "ranks' weights and velocities %.3g from the single run's "
+          "(tolerance %.0e); launches by rank %s (the single run %s), the "
+          "master's %s; ledger %s; wall %.1f s"
+          % (POD_RANKS, master["epochs"], n_err, w_diff, v_diff, DP_ATOL,
+             launches, {k: single_got[k] for k in launches},
+             {k: master[k] for k in launches}, master["ledger"], part.wall))
+    slave_reading("pa rank 0", leader, master)
+    span = leader["last"] - leader["first"]
+    wire = (leader["write_s"] + leader["read_s"]) / leader["wall"]
+    stats = leader["pod"]
+    per_job = stats["bytes"]["job"] / stats["events"]["job"]
+    wait = follower["pod"]["wait_s"] / follower["wall"]
+    print("  (a) images/s a rank (each steps every job, its %d rows of "
+          "each minibatch): %.1f; the wire %.1f%% of rank 0's %.3f s "
+          "(encode, send, wait and decode); rank 0 hands on %s events "
+          "(%s bytes by kind) in %.3f s: %.0f bytes a job; the follower "
+          "waits %.3f s of its %.3f s (%.1f%%), applies %.3f s, %d jobs"
+          % (WIDE_MINIBATCH // POD_RANKS, leader["images"] / span,
+             100 * wire, leader["wall"], stats["events"], stats["bytes"],
+             stats["seconds"], per_job, follower["pod"]["wait_s"],
+             follower["wall"], 100 * wait, follower["pod"]["apply_s"],
+             follower["jobs"]))
+    checks = {
+        "n_err": master["epochs"] == n_err,
+        "weights": w_diff <= DP_ATOL and v_diff <= DP_ATOL,
+        "rank launches": all(n == single_got[k] and n
+                             for k, ns in launches.items() for n in ns),
+        "master launches none": not (master["dense_epilogue"]
+                                     or master["blocked_matmul"]),
+        "a meshed tick on every rank on the card": all(
+            r["meshed"] and r["device"] == str(device) for r in ranks),
+        "rank 0 the client, rank 1 the follower":
+            (leader["kind"], follower["kind"]) == ("Client", "Follower"),
+        "every job handed on": stats["events"].get("job")
+        == leader["jobs"] == follower["jobs"] and stats["events"].get(
+            "end") == 1,
+        "the master warned of its mesh":
+            POD_MASTER_WARNING in part.texts["master"]}
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("phase 24 (a) failed: %s" % failed)
+    return ranks
+
+
+def pod_parts(device, out, workflow):
+    """Phase 24 (b) and (c)'s processes, started together: the
+    standalone world at the fleet's cadence, the control-plane master
+    and pod fault-free and under chaos, and (c)'s master, pod and
+    single-rank slave."""
+    parts = []
+    base = pod_base(device, workflow, out, "pw", "control", cadence="fleet")
+    coordinator = "127.0.0.1:%d" % free_port()
+    parts.append(FleetPart(out, "pw", [("rank%d" % rank, base + [
+        "--mesh", "data=%d" % POD_RANKS, "--coordinator", coordinator,
+        "--num-processes", str(POD_RANKS), "--process-id", str(rank)])
+        for rank in range(POD_RANKS)]))
+    for tag, chaos in (("pb", False), ("pc", True)):
+        address = "127.0.0.1:%d" % free_port()
+        settings = POD_CHAOS_SETTINGS if chaos else ()
+        base = pod_base(device, workflow, out, tag, "control",
+                        settings=settings)
+        parts.append(FleetPart(out, tag, [("master", base + ["-l", address])]
+                             + pod_argvs(base, address,
+                                         POD_CHAOS if chaos else ())))
+    address = "127.0.0.1:%d" % free_port()
+    base = pod_base(device, workflow, out, "pd", "data",
+                    epochs=POD_DROP_EPOCHS,
+                    settings=("root.fl.hold_for=2",
+                              "root.fl.stagger=%d" % POD_STAGGER,
+                              "root.common.fleet.chaos.slow_job_ms=%d"
+                              % POD_SLOW_MS))
+    ranks = pod_argvs(base, address, ("--chaos-seed", "24",
+                                      "--chaos-slow-job", "1"))
+    parts.append(FleetPart(out, "pd", [("master", base + ["-l", address])]
+                         + ranks + [("single", base + ["-m", address])],
+                         kill=("rank0", POD_KILL_AFTER)))
+    return parts
+
+
+def pod_control_checks(anchor, part, records, chaos):
+    """Phase 24 (b): the control-plane master's and the pod's weights
+    bit-equal to the standalone world's, its n_err; the fences synced;
+    under chaos every fault fired and every rollback reached the
+    follower."""
+    (master,) = records["master"]
+    leader, follower = records["slave"]
+    ledger = master["ledger"]
+    counters = leader["chaos"]
+    print("  (b) control plane%s: validation n_err %s (the standalone "
+          "world %s); bit-equal to the world: the master's weights %s, "
+          "rank 0's leaves %s, rank 1's %s; fence syncs %s; ledger %s; "
+          "rank 0's chaos %s, rollbacks %d (the follower's %d); events "
+          "handed on %s; launches by rank %s; wall %.1f s"
+          % (" under chaos" if chaos else ", fault-free", master["epochs"],
+             anchor["epochs"], pod_leaves_equal(master["leaves"],
+                                                anchor["leaves"], 2),
+             pod_leaves_equal(leader["leaves"], anchor["leaves"]),
+             pod_leaves_equal(follower["leaves"], anchor["leaves"]),
+             master["sync"], ledger, counters, leader["rollbacks"],
+             follower["rollbacks"], leader["pod"]["events"],
+             [(r["dense_epilogue"], r["blocked_matmul"])
+              for r in (leader, follower)], part.wall))
+    checks = {
+        "n_err": master["epochs"] == anchor["epochs"],
+        "the master bit-equal": pod_leaves_equal(master["leaves"],
+                                                 anchor["leaves"], 2),
+        "the ranks bit-equal": all(pod_leaves_equal(
+            r["leaves"], anchor["leaves"]) for r in (leader, follower)),
+        "a fence sync per epoch": (master["sync"] or {}).get("applied")
+        == DP_EPOCHS if not chaos
+        else (master["sync"] or {}).get("applied", 0) >= DP_EPOCHS,
+        "every fence handed on": leader["pod"]["events"].get("fence", 0)
+        >= DP_EPOCHS,
+        "no weight payload on the wire": master["payload_rejects"] == 0,
+        "every rollback handed on":
+            leader["rollbacks"] == follower["rollbacks"],
+        "master launches none": not (master["dense_epilogue"]
+                                     or master["blocked_matmul"])}
+    if chaos:
+        checks.update({
+            "deaths": counters.get("deaths", 0) >= 1,
+            "duplicated updates": counters.get("updates_duplicated", 0) >= 1,
+            "requeued": ledger["requeued"] >= 1,
+            "fenced duplicates": ledger["fenced"]["duplicate"] >= 1,
+            "rollbacks": leader["rollbacks"] >= 1})
+    else:
+        checks["nothing fenced"] = ledger["fenced_total"] == 0
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("phase 24 (b%s) failed: %s"
+                             % (" under chaos" if chaos else "", failed))
+    return [leader, follower]
+
+
+def pod_drop_checks(part, records):
+    """Phase 24 (c): the killed rank 0's lease requeued, the run finished
+    on the single-rank slave, the follower out within POD_TIMEOUT."""
+    (master,) = records["master"]
+    singles = [r for r in records.get("slave", []) if not r["meshed"]]
+    follower_s = part.ended.get("rank1", float("inf")) - part.killed_at \
+        if part.killed is not None else None
+    ledger = master["ledger"]
+    code = part.proc("rank1").returncode
+    print("  (c) drop: the pod's rank 0 SIGKILLed in its job %d; "
+          "its follower exited %s %.1f s later (timeout %d s): %s; the "
+          "master's ledger %s, updates by slave %s, validation n_err %s; "
+          "wall %.1f s" % (POD_KILL_AFTER + 1, code, follower_s or -1,
+                           POD_TIMEOUT, (part.texts["rank1"].strip()
+                                         .splitlines() or ["-"])[-1][:200],
+                           ledger, master["slaves"], master["epochs"],
+                           part.wall))
+    checks = {
+        "killed": part.killed == part.proc("rank0").pid,
+        "the follower failed": code not in (0, None),
+        "within its timeout": follower_s is not None
+        and follower_s < POD_TIMEOUT,
+        "the lease requeued": ledger["requeued_dropped"] >= 1,
+        "every lease done or requeued": ledger["outstanding"] == 0
+        and ledger["issued"] == ledger["done"] + ledger["requeued"],
+        "the single-rank slave finished it": len(singles) == 1
+        and singles[0]["jobs"] > 0,
+        "epochs": len(master["epochs"]) == POD_DROP_EPOCHS}
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("phase 24 (c) failed: %s" % failed)
+    return singles
+
+
+def pod_phase(device, single=None, beside=()):
+    """Phase 24: (a) a data-plane master and a pod slave of two ranks
+    against the single run; then together (b) the control plane
+    fault-free and under chaos against the standalone two-rank world at
+    the fleet's cadence and (c) a pod's rank 0 killed mid-run, and beside
+    them the parts ``beside``'s functions start: phase 23's (c), started
+    before (a), and its (d).
+    Returns every slave rank's K6 and K5 launches, those beside too."""
+    t0 = time.perf_counter()
+    data, labels = bench_dataset()
+    weights = dp_weights(numpy.random.RandomState(23))
+    if single is None:
+        single = fleet_single(device, data, labels, weights)
     with tempfile.TemporaryDirectory() as out:
         workflow = os.path.join(out, "fleet_wf.py")
         with open(workflow, "w") as fout:
@@ -7778,37 +8319,40 @@ def fleet_phase(device):
         numpy.save(os.path.join(out, "labels.npy"), labels)
         numpy.save(os.path.join(out, "init.npy"),
                    numpy.array(weights, dtype=object))
-        slaves = []
-        for tag, plane in (("a", "data"), ("d", "control")):
-            slaves.append(fleet_wide(device, out, workflow, tag, plane,
-                                     single)[1])
-        os.remove(os.path.join(out, "init.npy"))
-        master, spawned, _, checks = fleet_digits(
-            device, out, workflow, "b", ("-n", "localhost,localhost"),
-            hold_for=2)
-        checks["both slaves took jobs"] = len(spawned) == 2 \
-            and all(s["jobs"] for s in spawned)
-        checks["best n_err <= %d" % FLEET_DIGITS_BOUND] = \
-            master["best"] <= FLEET_DIGITS_BOUND
-        if not all(checks.values()):
-            raise AssertionError("phase 23 (b) failed: %s" % checks)
-        slaves += spawned
-        master, spawned, killed, checks = fleet_digits(
-            device, out, workflow, "c", ("-n", "localhost", "--respawn"),
-            slow_ms=FLEET_SLOW_MS, kill_after=FLEET_KILL_AFTER)
-        checks["a slave was killed"] = killed is not None
-        checks["its leases requeued"] = \
-            master["ledger"]["requeued_dropped"] >= 1
-        checks["respawned"] = master["respawns"] >= 1
-        checks["the respawned slave ended the run"] = any(
-            s["pid"] != killed and s["jobs"] for s in spawned)
-        if not all(checks.values()):
-            raise AssertionError("phase 23 (c) failed: %s" % checks)
-        slaves += spawned
-    for slave in slaves:
-        for name in ("dense_epilogue", "blocked_matmul"):
-            launches[name] += slave[name]
-    print("fleet phase: %.1f s" % (time.perf_counter() - t0))
+        del data
+        # phase 23's (c), mostly waiting on its processes' start-ups,
+        # starts now and runs beside (a); its (d) starts with (b) and (c)
+        early = [start() for when, start in beside if when == "before"]
+        background = [p for parts, _ in early for p in parts]
+        slaves = pod_data_plane(device, out, workflow, single, background)
+        t1 = time.perf_counter()
+        parts = pod_parts(device, out, workflow)
+        started = early + [start() for when, start in beside
+                           if when == "with"]
+        run_fleet_parts(parts + [p for more, _ in started for p in more
+                                 if p not in parts], POD_DEADLINE)
+        print("  (b) and (c)%s ran together: %.1f s"
+              % (" and phase 23's (c) and (d)" if started else "",
+                 time.perf_counter() - t1))
+        world, clean, chaos, drop = parts
+        ranks = world.finish()["standalone"]
+        anchor = ranks[0]
+        if not (pod_leaves_equal(ranks[0]["leaves"], ranks[1]["leaves"])
+                and all(r["meshed"] for r in ranks)):
+            raise AssertionError("phase 24: the standalone world's ranks "
+                                 "disagree")
+        print("  (b) the standalone world at the fleet's cadence: "
+              "validation n_err %s (the single run %s), its ranks "
+              "bit-equal; wall %.1f s" % (anchor["epochs"], single[0],
+                                          world.wall))
+        slaves += pod_control_checks(anchor, clean, clean.finish(), False)
+        slaves += pod_control_checks(anchor, chaos, chaos.finish(), True)
+        slaves += pod_drop_checks(drop, drop.finish(failing=("rank1",)))
+        launches = slave_launches(slaves)
+        for _, finished in started:
+            for name, n in finished().items():
+                launches[name] += n
+    print("pod phase: %.1f s" % (time.perf_counter() - t0))
     return launches
 
 
@@ -7862,6 +8406,12 @@ def main():
                k5_phase(timer, device, gen), k6_phase(timer, device, gen),
                *flash_phase(timer, device, gen)]
     wide = flash_wide_phase(timer, device, gen)
+
+    def clock(label):
+        # where the smoke's time goes: seconds since its start
+        print("smoke clock: %.1f s after %s" % (time.perf_counter() - t0,
+                                                label))
+    clock("the kernel phases")
     for entry in kernels:
         key = entry["name"].replace("flash_attention_", "")
         if key in wide:
@@ -7873,10 +8423,12 @@ def main():
     for phase in (prefix_phase(device, prng), dense_phase(device)):
         for name, n in phase.items():
             launches[name] += n
+    clock("the serving, prefix and dense phases")
     agreement_phase(device, prompts,
                     prefix_waves(numpy.random.RandomState(2)))
     narrow_heads_phase(device, prompts)
     sampling_phase(device, prompts)
+    clock("the agreement, heads-of-48 and sampling phases")
     t_survival = time.perf_counter()
     for phase in (breaker_phase(device), swap_phase(device, prompts)):
         for name, n in phase.items():
@@ -7888,6 +8440,7 @@ def main():
     launches.update((name, n) for name, n in training_phase(device).items()
                     if name in ("blocked_matmul", "dense_epilogue"))
     training_agreement_phase(device)
+    clock("the training phases")
     # graph mode and the lower fusion tiers: the wide MLP in graph mode
     # with the knobs on is a main path of K5
     tiers_phase(device)
@@ -7897,6 +8450,7 @@ def main():
     for name in ("blocked_matmul", "dense_epilogue"):
         launches[name] += alexnet[name]
     conv_agreement_phase(device)
+    clock("the tiers, graph, AlexNet and conv phases")
     # the flash kernels count on their two main paths: the long-prompt
     # serving run (K7) and the long-context training run (K7, K8, K9)
     long_serving = long_serving_phase(device, numpy.random.RandomState(4))
@@ -7919,6 +8473,7 @@ def main():
         launches[name] = (long_serving[name] + long_training[name]
                           + long_graph[name])
     som_phase(device)
+    clock("the long-context and SOM phases")
     # the rest of the training surface: MNIST784 through its idx loader,
     # the regression family (its knobs-on wide MLP a main path of K5 and
     # K6), the normalizers and the file loaders
@@ -7990,10 +8545,20 @@ def main():
     # are a main path
     for name, n in mesh_phase(device).items():
         launches[name] += n
-    # the training fleet: every slave's K6 and K5 are a main path
-    for name, n in fleet_phase(device).items():
+    # the training fleet: every slave's K6 and K5 are a main path; its
+    # (c), the respawn on the digits, starts before phase 24's (a) and
+    # its (d) with phase 24's (b) and (c)
+    beside = []
+    fleet_launches, single = fleet_phase(device, beside)
+    for name, n in fleet_launches.items():
+        launches[name] += n
+    # the fleet x pod composition: every pod rank's K6 and K5 are a main
+    # path, and the single-rank slave's of (c)
+    for name, n in pod_phase(device, single, beside).items():
         launches[name] += n
     isolated.cleanup()
+    print("the smoke's phases and build: %.1f s" % (time.perf_counter()
+                                                     - t0))
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -161,3 +161,37 @@ def test_nodes_argv_transform_matches_jax(form):
     assert slave_argv(["wf.py"] + argv, "m:1")[-2:] == ["-m", "m:1"]
     if form == "kept":
         assert "--respawn" in mine and "--chaos-death 0.1" in mine
+
+
+@pytest.mark.parametrize("plane", ["data", "control"])
+def test_cli_pod_slave(tmp_path, wf_file, plane):
+    """A pod slave from the command line: ``-m HOST:PORT --mesh data=2
+    --coordinator H:P --num-processes 2 --process-id i``, one process a
+    rank. Rank 0 connects, rank 1 follows its jobs; every process exits
+    0 and the master writes the results. The master's ``--mesh`` is
+    ignored with the JAX package's warning."""
+    result_file = tmp_path / "res.json"
+    port, coordinator = _free_port(), "127.0.0.1:%d" % _free_port()
+    flags = ["--fleet-plane", plane, "--mesh", "data=2"]
+    logs = [tmp_path / ("%s.log" % name)
+            for name in ("master", "rank0", "rank1")]
+    argvs = [_argv(wf_file, "-l", "127.0.0.1:%d" % port, "--result-file",
+                   str(result_file), *flags)]
+    argvs += [_argv(wf_file, "-m", "127.0.0.1:%d" % port, *flags,
+                    "--coordinator", coordinator, "--num-processes", "2",
+                    "--process-id", str(rank)) for rank in range(2)]
+    procs = []
+    for argv, log in zip(argvs, logs):
+        with open(log, "w") as out:
+            procs.append(subprocess.Popen(argv, env=_env(), stdout=out,
+                                          stderr=subprocess.STDOUT))
+    assert _wait_all(procs) == [0, 0, 0], [log.read_text()[-2000:]
+                                           for log in logs]
+    results = json.loads(result_file.read_text())
+    assert results["epochs"] == 2
+    master, rank0, rank1 = (log.read_text() for log in logs)
+    assert "the mesh is ignored here; configure it on the slaves" in master
+    assert "connected as slave-1" in rank0 and "pod follower" not in rank0
+    assert "pod follower, rank 1 of 2" in rank1
+    assert "rank 0 ended the job stream after" in rank1
+    assert "over local mesh Mesh(pipe=1, data=2" in rank0 + rank1

@@ -34,7 +34,6 @@ from veles_tpu_torch.loader.base import VALID
 from veles_tpu_torch.memory import Array
 from veles_tpu_torch.models.mlp import MLPWorkflow
 from veles_tpu_torch.nn.gd import GradientDescent
-from veles_tpu_torch.parallel.mesh import Mesh
 from veles_tpu_torch.parity import read_digits
 
 torch.set_num_threads(1)
@@ -449,19 +448,6 @@ def test_checksum_mismatch_rejected(fleet):
     slave.run()
     assert slave.agent.jobs_done == 0
     assert slave.agent.refusal == "workflow checksum mismatch"
-
-
-def test_a_slave_over_a_multi_rank_mesh_raises():
-    """The fleet x pod composition waits for ROADMAP A9 (e): a slave
-    whose own mesh spans more than one rank refuses at initialize."""
-    slave = Launcher(master_address="127.0.0.1:1")
-    try:
-        wf = MLPWorkflow(slave, name="fleet-t", mesh=Mesh({"data": 2}),
-                         **_kw())
-        with pytest.raises(NotImplementedError, match=r"A9 \(e\)"):
-            wf.initialize()
-    finally:
-        slave.stop()
 
 
 def test_slave_splice_and_its_reversal():

@@ -17,6 +17,7 @@ into different runs; ``lr_decay`` for ten epochs, long enough for epochs
 without improvement to halve the rate."""
 
 import gc
+import os
 import pickle
 import sys
 
@@ -430,6 +431,42 @@ def test_watcher_accounting():
     a.reset(None)
     assert Watcher.mem_in_use() - base == 0
     assert Watcher.max_mem_in_use() - base == 2 * 8 * 8 * 4 + 8
+
+
+#: an Array in a reference cycle, collected while the Watcher's lock is
+#: held, as a collection that starts inside ``Watcher.add`` runs it
+_FINALIZER_UNDER_THE_LOCK = r"""
+import gc, torch
+from veles_tpu_torch.memory import Array, Watcher
+gc.disable()
+base = Watcher.mem_in_use()
+held = Array(torch.zeros(16))
+cyclic = Array(torch.zeros(64))
+cyclic.self_ = cyclic
+del cyclic
+with Watcher._lock:
+    gc.collect()
+assert Watcher.mem_in_use() - base == 16 * 4, Watcher.mem_in_use() - base
+print("released")
+"""
+
+
+def test_watcher_finalizer_under_its_lock_does_not_deadlock():
+    """C10: an Array's finalizer that a garbage collection runs on a
+    thread holding the Watcher's lock (a collection inside
+    ``Watcher.add``) deadlocked that thread; it now defers its bytes,
+    taken off the count by the next call."""
+    import subprocess
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    try:
+        done = subprocess.run([sys.executable, "-c",
+                               _FINALIZER_UNDER_THE_LOCK], env=env,
+                              capture_output=True, text=True, timeout=60)
+    except subprocess.TimeoutExpired:
+        pytest.fail("the finalizer deadlocked under the Watcher's lock")
+    assert done.returncode == 0 and "released" in done.stdout, done.stderr
 
 
 def test_assert_addr():

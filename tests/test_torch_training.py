@@ -253,12 +253,13 @@ def test_device_none_means_the_card(monkeypatch):
 
 
 def _fleet_pod_slave():
-    """A fleet slave whose own mesh spans two ranks, initialized."""
+    """A fleet slave whose own mesh sizes the model axis, initialized."""
     from veles_tpu_torch.launcher import Launcher
     slave = Launcher(master_address="127.0.0.1:1")
     try:
         MLPWorkflow(slave, device="cpu",
-                    **_kwargs(mesh=Mesh({"data": 2}))).initialize()
+                    **_kwargs(mesh=Mesh({"data": 2, "model": 2}))
+                    ).initialize()
     finally:
         slave.stop()
 
@@ -267,15 +268,16 @@ def _fleet_pod_slave():
     (lambda: MLPWorkflow(DummyLauncher(), device="cpu",
                          **_kwargs(mesh=Mesh({"data": 2, "model": 2}))),
      r"ROADMAP A8 \(b\)"),
-    (_fleet_pod_slave, r"ROADMAP A9 \(e\)"),
+    (_fleet_pod_slave, r"ROADMAP A8 \(b\)"),
 ], ids=["mesh", "fleet-pod"])
 def test_later_slices_raise(build, item):
-    """A mesh axis other than data (ROADMAP A8 (b)) and a fleet slave
-    whose own mesh spans more than one rank (the fleet x pod
-    composition, A9 (e)) are later slices: they raise, they never run
-    another path (the data axis is ported, tests/test_torch_mesh.py, as
-    are the fleet, tests/test_torch_fleet.py, the MSE evaluator and the
-    loader class: tests/test_torch_mse.py, test_torch_loaders.py)."""
+    """A mesh axis other than data (ROADMAP A8 (b)) is a later slice, on a
+    standalone run and on a fleet slave alike: it raises, it never runs
+    another path (the data axis is ported, tests/test_torch_mesh.py, and
+    a fleet slave over it, the fleet x pod composition,
+    tests/test_torch_fleet_pod.py; so are the fleet,
+    tests/test_torch_fleet.py, the MSE evaluator and the loader class:
+    tests/test_torch_mse.py, test_torch_loaders.py)."""
     with pytest.raises(NotImplementedError, match=item):
         build()
 

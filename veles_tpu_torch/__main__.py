@@ -43,7 +43,11 @@ slave's requests, ``--fleet-plane`` picks the wire plane,
 ``--coordinator HOST:PORT --num-processes N --process-id I`` (rank 0
 serves the rendezvous and alone writes snapshots, plots, web status and
 the result file); ``--fleet-reduce {f32,bf16,int8}`` picks the gradient
-reduce's wire tier (``parallel/mapreduce.py``).
+reduce's wire tier (``parallel/mapreduce.py``). With ``-m HOST:PORT`` the
+same flags start a pod slave, a fleet slave over that world
+(``fleet/pod.py``): rank 0 connects to the master, the other ranks follow
+its jobs. ``root.common.mesh.timeout`` (seconds) bounds every wait in the
+world.
 
 The flags of paths the port does not have yet parse like the JAX
 package's, then exit with code 2 and a message naming the ROADMAP item

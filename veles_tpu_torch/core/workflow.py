@@ -54,6 +54,7 @@ class Workflow(Container):
         super().init_unpickled()
         self._sync_event_ = threading.Event()
         self._job_callback_ = None
+        self._job_in_flight_ = False
         self._restored_from_snapshot_ = False
         # a mid-run snapshot pickles a live _run_start; that stamp is
         # another process's perf_counter epoch — meaningless after resume
@@ -267,6 +268,7 @@ class Workflow(Container):
                 self.exception("%s.stop() failed", unit.name)
         self.stopped = True
         callback = self._job_callback_
+        in_job, self._job_in_flight_ = self._job_in_flight_, False
         if callback is not None and self._sync_error_ is None:
             # slave: one JOB finished, not the training — ship the update
             # and do NOT tell the launcher to shut down (that made a CLI
@@ -276,6 +278,8 @@ class Workflow(Container):
             # the shutdown path instead.
             self._job_callback_ = None
             callback(self.generate_data_for_master())
+        elif in_job and self._sync_error_ is None:
+            pass  # a pod follower's job: no update and no shutdown
         else:
             parent = self.workflow
             if parent is not None and hasattr(parent,
@@ -414,11 +418,14 @@ class Workflow(Container):
             return bool(tick.rollback_job())
         return False
 
-    def do_job(self, data, callback):
+    def do_job(self, data, callback=None):
         """Slave side: apply the job, run the whole graph locally, then call
-        back with the update (reference ``workflow.py:554-569``)."""
+        back with the update (reference ``workflow.py:554-569``). Without
+        a callback (a pod follower, ``fleet/pod.py``) the job finishes
+        without producing an update; ``_sync_event_`` marks its end."""
         self.apply_data_from_master(data)
         self._job_callback_ = callback
+        self._job_in_flight_ = True
         for unit in self._units:
             unit.stopped = False
             unit._pending_runs_ = 0

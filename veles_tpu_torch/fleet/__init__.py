@@ -7,8 +7,10 @@ task farm. Its frames are the JAX package's byte for byte. On the port
 the slave's job runs the fused tick on its device (K6 forward and K5
 backward where the engine knobs allow, ``models/standard.py``); the
 payloads hold numpy arrays, which the units turn back into tensors on
-their device. A slave whose own mesh spans more than one rank (the
-fleet x pod composition) is ROADMAP A9 (e).
+their device. A slave whose own mesh spans several ranks (the fleet x
+pod composition, ``pod.py``) is a ``torch.distributed`` world: its rank 0
+speaks the wire and hands each event on to the other ranks, which step
+the same meshed tick.
 
 The reference's distributed runtime (SURVEY §2.5) is a master/slave
 data-parallel protocol: the master owns canonical state and serves *jobs*

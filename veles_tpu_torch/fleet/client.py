@@ -42,6 +42,14 @@ Weights cross the wire only at epoch fences (``sync`` frames, resent
 until acked) and in the handshake's initial payload — which a
 REJOINING client (same master epoch, local ticks applied) skips, since
 its device-resident replica is ahead of the master's fence copy.
+
+On a pod slave (``fleet/pod.py``: a slave whose own mesh spans several
+ranks of a ``torch.distributed`` world) this client runs on rank 0 and
+hands each event it applies on to the other ranks through its
+``pod`` leader, in the order it applies them: the handshake's initial
+data, each job, each rollback, each epoch fence (a digest of the weights
+it ships) and, on every way out of the session, the end of the job
+stream.
 """
 
 import asyncio
@@ -51,6 +59,7 @@ import threading
 import time
 
 from veles_tpu_torch.core.logger import Logger
+from veles_tpu_torch.fleet import pod as pod_events
 from veles_tpu_torch.fleet.protocol import (
     ProtocolError, machine_id, read_frame, resolve_secret, write_frame)
 from veles_tpu_torch.observe.fleetscope import get_span_ring
@@ -70,8 +79,10 @@ class Client(Logger):
     def __init__(self, address, workflow, power=1.0, async_mode=False,
                  death_probability=0.0, max_reconnect_attempts=7,
                  secret=None, enable_respawn=False, chaos=None,
-                 plane=None):
+                 plane=None, pod=None):
         super().__init__(logger_name="fleet.Client")
+        #: a pod slave's rank 0: the followers' leader (fleet/pod.py)
+        self.pod = pod
         self.enable_respawn = enable_respawn
         host, _, port = address.rpartition(":")
         self.host = host or "127.0.0.1"
@@ -150,6 +161,10 @@ class Client(Logger):
             self._loop.run_until_complete(self._session())
         finally:
             self._loop.close()
+            if self.pod is not None:
+                # every way out of the session: a follower must never
+                # wait in a collective for a job that will not come
+                self.pod.end()
         if self.on_finished is not None:
             self.on_finished()
 
@@ -295,6 +310,7 @@ class Client(Logger):
                           else None)
         initial = welcome.get("initial")
         if initial and not rejoining:
+            self._hand_on(pod_events.INITIAL, initial)
             self.workflow.apply_initial_data_from_master(initial)
         elif initial and rejoining:
             self.info("rejoining the same master epoch with %d local "
@@ -450,6 +466,8 @@ class Client(Logger):
                                    None)
                     payload = take() if callable(take) else None
                     if payload is not None:
+                        self._hand_on(pod_events.FENCE,
+                                      pod_events.digest(payload))
                         self._pending_sync_ = {
                             "job_id": job_id, "sync": payload,
                             "tick": self._applied_ticks_}
@@ -496,6 +514,7 @@ class Client(Logger):
                 "re-handshake with a fresh master to re-seed", behind)
             return
         rollback = getattr(self.workflow, "rollback_job", None)
+        self._hand_on(pod_events.ROLLBACK)
         rolled = bool(rollback()) if callable(rollback) else False
         if rolled:
             # the discarded application's compute is re-done on the
@@ -525,6 +544,11 @@ class Client(Logger):
                           shm_threshold=getattr(self, "_shm_thr_",
                                                 None))
 
+    def _hand_on(self, kind, payload=None):
+        """Hand an event on to a pod slave's followers (rank 0 only)."""
+        if self.pod is not None:
+            self.pod.hand_on(kind, payload)
+
     async def _read(self, reader):
         if self.chaos is not None:
             return await self.chaos.read_frame(reader, self._secret)
@@ -548,6 +572,7 @@ class Client(Logger):
             loop.call_soon_threadsafe(future.set_result, update)
 
         def launch():
+            self._hand_on(pod_events.JOB, job)
             self.workflow.do_job(job, callback)
 
         started = time.monotonic()

@@ -21,8 +21,15 @@ spawns a slave on every ``--nodes`` host (``yarn://`` specs resolve
 through :func:`discover_yarn_nodes`) through the respawn spawner, its
 own argv turned into the slave's; a slave starts its ``Client`` in
 :meth:`Launcher.run`. Either waits until the agent reports the job
-stream done. A slave whose own mesh spans more than one rank (the fleet
-x pod composition) raises ``NotImplementedError`` naming ROADMAP A9 (e).
+stream done. A master with a mesh configured warns and ignores it
+(``launcher.py:105-110``). A slave with a mesh builds it into its
+workflow, as a standalone run does: the fleet x pod composition
+(``launcher.py:111-140``, ``fleet/pod.py``). Its rank 0 alone starts the
+``Client``, which hands each event on to the other ranks, and every other
+rank starts a ``Follower``; where the slave's topology cannot run the
+meshed fused tick, rank 0 runs a per-unit graph slave on its device and
+the other ranks are released (exit 0). A follower that lost its world
+makes :meth:`Launcher.run` raise.
 """
 
 import json
@@ -33,11 +40,6 @@ from veles_tpu_torch.core.executor import ThreadPool
 from veles_tpu_torch.core.logger import Logger
 from veles_tpu_torch.parallel.mesh import (build_mesh, is_primary,
                                            mesh_configured)
-
-#: the refusal of a slave that meshes more than one rank
-FLEET_POD = ("a fleet slave over a mesh of more than one rank is the "
-             "fleet x pod composition, ROADMAP A9 (e)")
-
 
 def discover_yarn_nodes(rm_address, timeout=10.0):
     """Resolve a Hadoop/YARN ResourceManager address to the cluster's
@@ -125,9 +127,8 @@ class Launcher(Logger):
             self.warning(
                 "a device mesh is configured (--mesh / "
                 "root.common.mesh.axes) but the master does not run the "
-                "tick: the mesh is ignored here")
-        elif mesh_configured() and self.is_slave:
-            raise NotImplementedError(FLEET_POD)
+                "compute tick — the mesh is ignored here; configure it "
+                "on the slaves (fleet x pod composition)")
         elif mesh_configured():
             self._build_mesh()
         self.workflow.initialize(**kwargs)
@@ -151,18 +152,37 @@ class Launcher(Logger):
             self._launch_nodes()
 
     def _start_slave(self):
+        mesh = getattr(self.workflow, "mesh_", None)
+        pod = mesh is not None and mesh.size > 1
+        fused = getattr(self.workflow, "fused_tick", None) is not None
+        if pod and mesh.rank != 0:
+            if not fused:
+                # rank 0 runs the per-unit graph slave on its own device
+                self.info("rank %d released: this slave's topology runs "
+                          "no meshed tick", mesh.rank)
+                self._finished.set()
+                return
+            from veles_tpu_torch.fleet.pod import Follower
+            self.agent = Follower(self.workflow, group=mesh.group)
+            self.agent.on_finished = self._on_agent_finished
+            self.info("pod follower, rank %d of %d", mesh.rank, mesh.size)
+            return
         if self.chaos:
             # launcher-level chaos knobs land in the config tree the
             # Client builds its ChaosMonkey from
             root.common.fleet.chaos.update(self.chaos)
         from veles_tpu_torch.fleet.client import Client
+        leader = None
+        if pod and fused:
+            from veles_tpu_torch.fleet.pod import PodLeader
+            leader = PodLeader(group=mesh.group)
         self.agent = Client(
             self.master_address, self.workflow,
             power=self.slave_power, async_mode=self.async_slave,
             death_probability=self.slave_death_probability,
             enable_respawn=self.respawn,
             max_reconnect_attempts=root.common.fleet.get(
-                "max_reconnect_attempts", 7))
+                "max_reconnect_attempts", 7), pod=leader)
         self.agent.on_finished = self._on_agent_finished
 
     def _launch_nodes(self):
@@ -244,9 +264,15 @@ class Launcher(Logger):
             self.workflow.run()
             self._write_results()
             return self
-        if self.is_slave:
+        if self.is_slave and self.agent is not None:
             self.agent.start()
         self._finished.wait()
+        if hasattr(self.agent, "failure"):  # a pod follower
+            self.agent.join()
+            failure = self.agent.failure
+            if failure is not None:
+                raise RuntimeError("the pod follower stopped: %s: %s"
+                                   % (type(failure).__name__, failure))
         self._write_results()
         return self
 

@@ -24,22 +24,49 @@ from veles_tpu_torch.core.pickling import Pickleable
 
 class Watcher:
     """The process-wide count of tensor bytes held by live Arrays and its
-    high-water mark (the JAX package's ``Watcher``)."""
+    high-water mark (the JAX package's ``Watcher``).
+
+    An Array's finalizer releases its bytes through :meth:`release`, which
+    never blocks: a garbage collection may run the finalizer on a thread
+    that holds the lock (inside :meth:`add`), where waiting for it would
+    deadlock that thread. Bytes released while the lock is held wait in
+    ``_deferred`` and are taken off under the lock by the next call."""
 
     _lock = threading.Lock()
     _current = 0
     _peak = 0
+    _deferred = []
+
+    @classmethod
+    def _drain(cls):
+        """Take the deferred releases off the count (under the lock)."""
+        while cls._deferred:
+            cls._current -= cls._deferred.pop()
 
     @classmethod
     def add(cls, nbytes):
         with cls._lock:
+            cls._drain()
             cls._current += nbytes
             cls._peak = max(cls._peak, cls._current)
 
     @classmethod
     def remove(cls, nbytes):
         with cls._lock:
+            cls._drain()
             cls._current -= nbytes
+
+    @classmethod
+    def release(cls, nbytes):
+        """:meth:`remove` for a finalizer: defers where the lock is held."""
+        if not cls._lock.acquire(blocking=False):
+            cls._deferred.append(nbytes)
+            return
+        try:
+            cls._drain()
+            cls._current -= nbytes
+        finally:
+            cls._lock.release()
 
     @classmethod
     def max_mem_in_use(cls):
@@ -47,11 +74,14 @@ class Watcher:
 
     @classmethod
     def mem_in_use(cls):
-        return cls._current
+        with cls._lock:
+            cls._drain()
+            return cls._current
 
     @classmethod
     def reset(cls):
         with cls._lock:
+            del cls._deferred[:]
             cls._current = 0
             cls._peak = 0
 
@@ -92,7 +122,7 @@ class Array(Pickleable):
     def __del__(self):
         nbytes = self.__dict__.get("_device_bytes_")
         if nbytes:
-            Watcher.remove(nbytes)
+            Watcher.release(nbytes)
 
     # -- value access ---------------------------------------------------------
     @property

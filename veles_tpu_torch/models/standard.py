@@ -56,13 +56,16 @@ EndPoint fires after the tick. Where the fused tick supports the
 topology, a slave's tick is the fused tick (:meth:`_enable_fused_slave`,
 K6 forward and K5 backward with the engine knobs on); the control plane
 requires it, since its parameters stay resident on the device between
-epoch fences with a one-job rollback.
+epoch fences with a one-job rollback. A slave with a mesh (the fleet x
+pod composition, ``standard.py:124-208``) runs the fused tick over it,
+data-parallel across the ranks of its world (``fleet/pod.py``); where
+the topology cannot run the meshed tick it warns, as the JAX package
+does, and takes the per-unit graph on one device.
 
 ``device=None`` means "cuda" and raises without a card unless the caller
-passes ``device="cpu"``. Later slices, which raise
+passes ``device="cpu"``. A later slice, which raises
 ``NotImplementedError`` here rather than run another path: a mesh axis
-other than ``data`` (ROADMAP A8 (b)) and a fleet slave whose own mesh
-spans more than one rank, the fleet x pod composition (A9 (e)).
+other than ``data`` (ROADMAP A8 (b)).
 """
 
 from veles_tpu_torch.core.plumbing import Repeater
@@ -178,20 +181,24 @@ class StandardWorkflow(Workflow):
         """Rewire the graph for one tick per job (``standard.py:123-170``):
         fusibility is decided on the INTACT graph (the chain check needs
         the repeater cycle), then the loop-back is cut and the EndPoint
-        fires right after the backward chain, or after the fused tick."""
+        fires right after the backward chain, or after the fused tick
+        (over the slave's mesh, if it has one)."""
         from veles_tpu_torch.parallel import fused
 
-        mesh = getattr(self, "mesh_", None)
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                "a fleet slave whose own mesh spans %d ranks is the fleet "
-                "x pod composition, ROADMAP A9 (e)" % mesh.size)
         if self.fused_tick is not None:
             return  # already spliced (a re-initialize)
+        mesh = getattr(self, "mesh_", None)
         use_fused = bool(self.fused) and fused.supports(self, mesh)
-        if self.fused is True and not use_fused:
-            raise ValueError("fused=True but the topology/loader is not "
-                             "fusible on this slave")
+        if bool(self.fused) and not use_fused:
+            if self.fused is True:
+                raise ValueError("fused=True but the topology/loader is "
+                                 "not fusible on this slave")
+            if mesh is not None:
+                self.warning(
+                    "a device mesh is configured but this slave's "
+                    "topology/loader cannot run the sharded fused tick "
+                    "(see parallel/fused.py supports()) — falling back "
+                    "to per-unit graph mode on one device")
         from veles_tpu_torch.fleet import fleet_control_plane
         if fleet_control_plane() and not use_fused:
             # the control-plane wire carries no weights: they live in the
@@ -208,7 +215,7 @@ class StandardWorkflow(Workflow):
         from veles_tpu_torch.core.mutable import Bool
         self.end_point.gate_block = Bool(False)
         if use_fused:
-            self._enable_fused_slave()
+            self._enable_fused_slave(mesh)
 
     def apply_initial_data_from_master(self, data):
         """Handshake application: on the control plane a (re)handshake
@@ -219,19 +226,22 @@ class StandardWorkflow(Workflow):
         if data and tick is not None:
             tick.reset_residency()
 
-    def _enable_fused_slave(self):
+    def _enable_fused_slave(self, mesh=None):
         """The slave's one-tick job as the fused tick (``standard.py:
-        190-209``): loader → FusedTick → EndPoint."""
+        190-209``): loader → FusedTick → EndPoint, data-parallel over the
+        slave's own ``mesh`` when it has one."""
         from veles_tpu_torch.parallel import fused
 
-        self.fused_tick = fused.FusedTick(self, name="fused_tick",
+        self.fused_tick = fused.FusedTick(self, mesh=mesh,
+                                          name="fused_tick",
                                           pipelined=False)
         self.forwards[0].unlink_from(self.loader)
         self.end_point.unlink_from(self.gds[0])
         self.fused_tick.link_from(self.loader)
         self.end_point.link_from(self.fused_tick)
         self.loader.fill_data = False
-        self.info("slave fused tick on %s", self.device)
+        self.info("slave fused tick on %s%s", self.device,
+                  "" if mesh is None else " over local mesh %s" % mesh)
 
     def _disable_fused_slave(self):
         """Reverse the slave splice: the per-unit chain fires again."""

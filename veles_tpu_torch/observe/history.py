@@ -29,9 +29,9 @@ collectors) into per-series rings, and the layers on top:
   ``?series=&window=``) and ``python -m veles_tpu_torch observe incident
   PATH | --live URL`` (:func:`incident_main`). :meth:`MetricHistory.
   fleet_summary` and :meth:`MetricHistory.ingest_summary` are ported, and
-  the fleet (``fleet/client.py``, ``server.py``) carries the rows; their
-  parity with the JAX package's fleet is not held yet (ROADMAP A7's
-  rest).
+  the fleet carries the rows as the JAX package's does: a slave's update
+  frames (``fleet/client.py``) and the master's slave-labelled series
+  (``fleet/server.py``).
 
 Configuration: ``root.common.observe.history`` (a config subtree or a
 ``key=value,...`` string: the ``--serve-history`` flag). Unset means on

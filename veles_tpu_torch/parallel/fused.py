@@ -64,7 +64,10 @@ update. Control plane: the parameters stay resident between jobs, the
 tick keeps the pre-job parameters as a one-slot rollback for a
 re-issued job (:meth:`FusedTick.rollback_job`), and it writes the unit
 Arrays only at epoch fences, which feed the fence sync. No copy is
-needed for the stash: the step never updates a tensor in place.
+needed for the stash: the step never updates a tensor in place. On a pod
+slave (a slave with a mesh, ``fleet/pod.py``) these rules hold on every
+rank: each applies the job rank 0 hands on, steps its block of the
+minibatch and reduces over the slave's world.
 """
 
 import torch

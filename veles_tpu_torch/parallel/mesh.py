@@ -30,6 +30,12 @@ from veles_tpu_torch.core.config import root
 
 AXIS_ORDER = ("pipe", "data", "expert", "seq", "model")
 
+#: seconds a rank waits in the rendezvous or a collective before it fails
+#: (``root.common.mesh.timeout`` overrides it): a rank whose peer died
+#: must not wait out gloo's 30-minute default; a fleet pod's follower
+#: waits this long at most for rank 0's next event (``fleet/pod.py``)
+DEFAULT_TIMEOUT = 300.0
+
 #: the refusal of every axis but ``data``
 _LATER = ("only the data axis of the mesh is ported; the pipe, expert, "
           "seq and model axes wait for ROADMAP A8 (b)")
@@ -66,19 +72,21 @@ def initialize_distributed(coordinator, num_processes, process_id,
     device ``process_id`` modulo the host's device count (one process
     per device). NCCL takes one rank per device; ranks that share a card
     name gloo, which then moves CUDA tensors itself. ``timeout``
-    (seconds) bounds the rendezvous and every collective."""
+    (seconds; default ``root.common.mesh.timeout``, else
+    :data:`DEFAULT_TIMEOUT`) bounds the rendezvous and every
+    collective."""
     kind = torch.device(device).type
     if backend is None:
         backend = root.common.mesh.get("backend") \
             or ("nccl" if kind == "cuda" else "gloo")
     if kind == "cuda":
         torch.cuda.set_device(int(process_id) % torch.cuda.device_count())
-    kwargs = {}
-    if timeout is not None:
-        kwargs["timeout"] = datetime.timedelta(seconds=float(timeout))
+    if timeout is None:
+        timeout = root.common.mesh.get("timeout") or DEFAULT_TIMEOUT
     torch.distributed.init_process_group(
         backend, init_method="tcp://%s" % coordinator,
-        world_size=int(num_processes), rank=int(process_id), **kwargs)
+        world_size=int(num_processes), rank=int(process_id),
+        timeout=datetime.timedelta(seconds=float(timeout)))
 
 
 def finalize_distributed():

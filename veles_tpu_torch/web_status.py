@@ -20,9 +20,10 @@ veles_tpu_torch.web_status``:
 status snapshot every ``notification_interval``. The device column reads
 ``observe/xla_stats.device_summary``: the card's memory, the kernel
 builds and the active mesh (``data2``). The fleet column formats what a
-fleet master reports (``fleet/server.Server.fleet_status``); a master's
-status reaching the column through the launcher is not held against the
-JAX package yet (ROADMAP A7's rest).
+fleet master reports (``fleet/server.Server.fleet_status``), which reaches
+it through the master's launcher and its notifier (``status["fleet"]``,
+``web_status.py:728-745``) and reads as the JAX package's
+(tests/test_torch_fleet_observe.py).
 """
 
 import glob
