@@ -230,8 +230,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``paged.dispatch`` in its Chrome trace; the breaker phase's fault, a
    ``breaker_trip`` black box that ``observe blackbox`` reads (exit 0)
    with the trip note, the dispatch notes and spans; the int8 burst with
-   every plane on and off (on, off, on, off: tokens/s printed, K1 and K2
-   launches a decode step equal); and the wide MLP through the CLI with
+   the planes as ``start()`` leaves them, all off and traced (one run
+   each: tokens/s printed, K1 and K2 launches a decode step equal); and the wide MLP through the CLI with
    ``--trace-events`` (knobs on, 1 epoch: a ``unit.run`` span for every
    firing of every unit) and, started beside it, again killed by SIGTERM
    after its first span (a ``sigterm`` black box, the previous handler
@@ -264,9 +264,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    trip while a reference holds the old pool and its state gives one
    naming ``kv_pool`` and a black box ``observe blackbox`` reads. Then
    the int8 burst in ``scripts/observe_cost.py``'s ``default``,
-   ``ledger_off`` and ``history`` settings, ABBA, two each after a
-   warm-up: medians printed, no gate; K1 4 and K2 17 launches a decode
-   step in every run.
+   ``ledger_off`` and ``history`` settings, one each after a warm-up:
+   tokens/s printed, no gate; K1 4 and K2 17 launches a decode step in
+   every run.
 
 21. (run after phase 20) what acts on the hooks at the serving model's
    width, requests one at a time with prompts shorter than a page: the
@@ -351,6 +351,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the world's timeout. Printed: images/s a rank, the wire's share of
    rank 0's wall, the follower's waiting share, the bytes handed on a
    job, the phase's seconds.
+
+25. (run after phase 24) the AOT bundle: (a) in this process, whose
+   libraries are built by then, three serving bundles at the serving
+   model's full width (paged int8, paged int8-KV, dense int8-KV; bytes,
+   sha and build ms printed, the paged int8 one built twice to the same
+   sha) and one of phase 22's wide-MLP tick (a 16384-row cut of its data,
+   a step a minibatch); (b) fresh processes, each from a copy of the
+   package with no ``_build/``, timed from Popen to the first token
+   against ``time.time()`` stamps: cold-live (the paged int8 tier, no
+   bundle: nvcc builds K1 and K2), aot in each tier (``root.common.serve.
+   aot``: zero builds, every dispatch an AOT hit in the ledger and the
+   bundle's stats, no miss, the tier's kernels launched, the streams of a
+   first token and a warm-up of 100, 250 and 700-token prompts bit-equal
+   to this process's live decoder), the tick (zero builds, three train and
+   one eval step hits, the live run's n_err, K6 and K5 launched) and
+   warm-live (a copy holding the built libraries: the boot's floor); each
+   reading printed beside the card's name and power limit. The cold-live
+   child starts before phase 23 and runs beside phases 23 and 24; the
+   int8-KV tiers' children and the tick's run together.
 
 Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
 8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
@@ -5561,14 +5580,14 @@ class StepLaunches:
             serving_mod.paged_slot_step_many = self.real
 
 
-#: the cost runs after one discarded warm-up run, in ABBA order so that
-#: no setting always runs first, two each of ``default`` (GenerateAPI.
-#: start() as a user runs it: the flight ring on, the registry and the
-#: device truth enabled by start(), the tracer off), ``off`` (every plane
-#: off) and ``traced`` (the default with the tracer writing spans to the
-#: events file): single bursts spread 1.3-1.5x, medians less (four of
-#: ``default`` and ``off`` until the smoke had to make room for phase 24)
-COST_ORDER = ("default", "off", "traced", "traced", "off", "default")
+#: the cost runs after one discarded warm-up run, one each of
+#: ``default`` (GenerateAPI.start() as a user runs it: the flight ring
+#: on, the registry and the device truth enabled by start(), the tracer
+#: off), ``off`` (every plane off) and ``traced`` (the default with the
+#: tracer writing spans to the events file): single bursts spread
+#: 1.3-1.5x (two each, in ABBA order, until the smoke made room for phase
+#: 25; four of ``default`` and ``off`` until phase 24)
+COST_ORDER = ("default", "off", "traced")
 
 
 def cost_planes(setting):
@@ -5678,12 +5697,12 @@ HOOKS_INTERVAL_S = 0.2
 PAGED_WATERFALL = ["staged", "pool_gated", "admitted", "first_token",
                    "resolved"]
 #: phase 20's cost runs (``scripts/observe_cost.py``'s settings), after a
-#: discarded warm-up run, ABBA around ``default`` (the planes as
-#: ``start()`` leaves them, the history's sampler off): ``ledger_off``
-#: (the ledger and the scope off) and ``history`` (the sampler at its 1 s
-#: default), two runs each (four until the smoke made room for phase 24)
-HOOKS_COST_ORDER = ("default", "ledger_off", "history", "history",
-                    "ledger_off", "default")
+#: discarded warm-up run: ``default`` (the planes as ``start()`` leaves
+#: them, the history's sampler off), ``ledger_off`` (the ledger and the
+#: scope off) and ``history`` (the sampler at its 1 s default), one run
+#: each (two in ABBA order until the smoke made room for phase 25, four
+#: until phase 24)
+HOOKS_COST_ORDER = ("default", "ledger_off", "history")
 
 
 def lane_positions(lengths):
@@ -8356,6 +8375,453 @@ def pod_phase(device, single=None, beside=()):
     return launches
 
 
+# -- phase 25: the AOT bundle ------------------------------------------------
+
+#: phase 25's serving bundles, each tier at the serving model's full width:
+#: (label, quantize, paged, the kernels its dispatches launch, by counter)
+AOT_TIERS = (("paged int8", "int8", True, ("paged_attend", "int8_matmul")),
+             ("paged int8-kv", "int8-kv", True,
+              ("paged_attend_int8", "int8_matmul")),
+             ("dense int8-kv", "int8-kv", False,
+              ("int8_cache_attend", "int8_matmul")))
+#: the first request's prompt (its one token is the cold start's reading)
+#: and the warm-up's: 1, 2 and 6 pages of the pool, three slab buckets
+AOT_FIRST_LEN, AOT_WARMUP_LENS = 40, (100, 250, 700)
+#: phase 25's tick: phase 22's wide MLP on a cut of the bench set, one
+#: validation and three train minibatches of 4096 an epoch, one epoch
+AOT_TICK_N, AOT_TICK_CLASS_LENGTHS = 16384, [0, 4096, 12288]
+AOT_CHILD_TIMEOUT = 300
+#: the kernels' launch counters a child reads, by the JSON line's names
+AOT_COUNTERS = ("paged_attend", "paged_attend_int8", "int8_cache_attend",
+                "int8_matmul", "blocked_matmul", "dense_epilogue")
+
+#: a fresh serving replica: the serving model's weights loaded from the
+#: checkpoint the parent saved (bf16_model's draws from seed 0), a
+#: GenerateAPI booted with or without the bundle (``root.common.serve.
+#: aot``), one request's first token, then the warm-up's prompts one at a
+#: time; stamps on time.time() for the parent
+AOT_SERVE_CHILD = r'''
+import json, sys, time
+stamps = {"start": time.time()}
+args = json.loads(sys.argv[1])
+import urllib.request
+import torch
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.observe.xla_stats import get_compile_tracker
+from veles_tpu_torch.ops.paged_attention import (paged_attend,
+                                                 paged_attend_int8)
+from veles_tpu_torch.ops.quant import int8_cache_attend, int8_matmul
+from veles_tpu_torch.serving import GenerateAPI
+stamps["imported"] = time.time()
+if args["bundle"]:
+    root.common.serve.aot = args["bundle"]
+device = torch.device("cuda")
+params, table = torch.load(args["model"], map_location=device)
+torch.cuda.synchronize()
+stamps["model"] = time.time()
+api = GenerateAPI(params, table, args["heads"], device=device,
+                  **args["serve"]).start()
+stamps["booted"] = time.time()
+
+
+def post(tokens, n_tokens):
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/generate" % api.port,
+        data=json.dumps({"tokens": tokens, "n_tokens": n_tokens}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read().decode())["tokens"]
+
+
+try:
+    streams = [post(args["first"], 1)]
+    stamps["first_token"] = time.time()
+    streams += [post(prompt, args["n_tokens"]) for prompt in args["warmup"]]
+    stamps["warm"] = time.time()
+    aot = api.decoder.aot
+    out = {"stamps": stamps, "streams": streams,
+           "builds": {name: n for name, n in
+                      get_compile_tracker().snapshot()["compiles"].items()
+                      if name.endswith(".cu")},
+           "launches": {"paged_attend": paged_attend.launches,
+                        "paged_attend_int8": paged_attend_int8.launches,
+                        "int8_cache_attend": int8_cache_attend.launches,
+                        "int8_matmul": int8_matmul.launches},
+           "aot": None if aot is None else aot.stats(),
+           "dispatches": [row["dispatches"] for row in
+                          api.ledger.resolved(len(streams))]}
+finally:
+    api.stop()
+print("AOT_CHILD " + json.dumps(out))
+'''
+
+#: a fresh trainer: phase 22's wide MLP (bench.py's seeds, knobs on, a
+#: step a minibatch) on the data the parent saved, its fused tick
+#: installed from the bundle before initialize(), one epoch
+AOT_TICK_CHILD = r'''
+import json, sys, time
+stamps = {"start": time.time()}
+args = json.loads(sys.argv[1])
+import numpy
+import torch
+from veles_tpu_torch.aot.loader import install_workflow_tick, load_bundle
+from veles_tpu_torch.core import prng
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.dummy import DummyLauncher
+from veles_tpu_torch.loader.base import VALID
+from veles_tpu_torch.models.mlp import MLPWorkflow
+from veles_tpu_torch.observe.xla_stats import get_compile_tracker
+from veles_tpu_torch.ops.gemm import blocked_matmul, dense_epilogue
+stamps["imported"] = time.time()
+root.common.engine.update({"use_pallas": True, "pallas_epilogue": True,
+                           "precision_level": 0})
+prng.get("default").seed(1234)
+prng.get("loader").seed(1234)
+wf = MLPWorkflow(
+    DummyLauncher(), layers=tuple(args["layers"]),
+    loader_kwargs=dict(data=numpy.load(args["data"]),
+                       labels=numpy.load(args["labels"]),
+                       class_lengths=args["class_lengths"],
+                       minibatch_size=args["minibatch"],
+                       normalization_type="linear"),
+    learning_rate=args["lr"], max_epochs=1, fused_sweep=False,
+    device="cuda", name="mlp")
+aot = load_bundle(args["bundle"])
+install_workflow_tick(aot, wf)
+n_err = []
+summary = wf.decision._epoch_summary
+
+
+def recorded(stats, epoch):
+    n_err.append(int(stats[VALID][0]))
+    summary(stats, epoch)
+
+
+wf.decision._epoch_summary = recorded
+wf.initialize()
+wf.run()
+torch.cuda.synchronize()
+stamps["trained"] = time.time()
+print("AOT_CHILD " + json.dumps({
+    "stamps": stamps, "n_err": n_err, "aot": aot.stats(),
+    "builds": {name: n for name, n in
+               get_compile_tracker().snapshot()["compiles"].items()
+               if name.endswith(".cu")},
+    "launches": {"blocked_matmul": blocked_matmul.launches,
+                 "dense_epilogue": dense_epilogue.launches}}))
+'''
+
+
+def package_copy(directory, warm=False):
+    """A copy of the package in ``directory`` as ``git archive`` gives it:
+    no ``_build/`` (``warm``: one holding this process's built
+    libraries) and no byte-compiled files. Returns ``directory``."""
+    dest = os.path.join(directory, "veles_tpu_torch")
+    shutil.copytree(os.path.join(REPO_DIR, "veles_tpu_torch"), dest,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    if warm:
+        os.makedirs(os.path.join(dest, "_build"))
+        for name in _build.KERNELS:
+            shutil.copy(_build.library_path(name),
+                        os.path.join(dest, "_build"))
+    return directory
+
+
+class AotChild:
+    """A phase-25 child run from the package copy in ``directory`` (only
+    it on the path), its output in files there; the parent stamps
+    time.time() just before the Popen."""
+
+    def __init__(self, script, args, directory):
+        self.out = open(os.path.join(directory, "child.out"), "w+")
+        self.err = open(os.path.join(directory, "child.err"), "w+")
+        self.popen = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", script, json.dumps(args)],
+            cwd=directory, env=dict(os.environ, PYTHONPATH=directory),
+            stdout=self.out, stderr=self.err, text=True)
+
+    def result(self, deadline):
+        """The child's JSON with ``popen`` set; fails on a non-zero exit
+        or a child still running at ``deadline`` (time.time())."""
+        try:
+            code = self.proc.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise AssertionError("a phase 25 child was past its deadline")
+        self.out.seek(0)
+        self.err.seek(0)
+        out, err = self.out.read(), self.err.read()
+        self.out.close()
+        self.err.close()
+        lines = [line for line in out.splitlines()
+                 if line.startswith("AOT_CHILD ")]
+        if code or not lines:
+            raise AssertionError("phase 25 child exited %d:\n%s"
+                                 % (code, err[-4000:]))
+        result = json.loads(lines[-1][len("AOT_CHILD "):])
+        result["popen"] = self.popen
+        return result
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def aot_serve_kwargs(quantize, paged):
+    return {"slots": SLOTS, "max_len": MAX_LEN, "n_tokens": N_TOKENS,
+            "chunk": CHUNK, "paged": paged,
+            "page_size": PAGE if paged else None, "quantize": quantize}
+
+
+def aot_traffic():
+    """The first request's prompt and the warm-up's, from seed 5."""
+    rng = numpy.random.RandomState(5)
+    return (rng.randint(0, VOCAB, AOT_FIRST_LEN).tolist(),
+            [rng.randint(0, VOCAB, n).tolist() for n in AOT_WARMUP_LENS])
+
+
+def aot_live_streams(params, table, quantize, paged, device):
+    """This process's live decoder on the children's traffic, in their
+    order: the first request's one token, then each warm-up prompt."""
+    first, warmup = aot_traffic()
+    api = GenerateAPI(params, table, HEADS, device=device,
+                      **aot_serve_kwargs(quantize, paged)).start()
+    try:
+        return ([post(api.port, first, 1)]
+                + [post(api.port, prompt, N_TOKENS) for prompt in warmup])
+    finally:
+        api.stop()
+
+
+def aot_reading(label, child):
+    """One child's cold start, printed beside the card: Popen to the first
+    token, split into start-up and imports, the weights' load (a warm
+    read of the checkpoint), the boot (decoder build, bundle load) and the
+    first request."""
+    stamps = child["stamps"]
+    total = stamps.get("first_token", stamps.get("trained")) - child["popen"]
+    parts = [("imports", stamps["imported"] - child["popen"])]
+    if "model" in stamps:
+        parts += [("weights", stamps["model"] - stamps["imported"]),
+                  ("boot", stamps["booted"] - stamps["model"]),
+                  ("first request", stamps["first_token"] - stamps["booted"]),
+                  ("warm-up", stamps["warm"] - stamps["first_token"])]
+    print("phase 25 %s: %.3f s from Popen to the %s (%s), %s builds: %s; "
+          "%s" % (label, total,
+                  "first token" if "first_token" in stamps else "trained epoch",
+                  ", ".join("%s %.3f" % part for part in parts),
+                  sum(child["builds"].values()),
+                  json.dumps(child["builds"], sort_keys=True), card_line()))
+    return total
+
+
+def aot_check_tier(label, kernels, child, live, launches):
+    """An aot child's checks: no build, no miss, every dispatch an AOT hit
+    in the bundle's stats and the ledger, the libraries staged from the
+    bundle, the tier's kernels (and only they) launched, the streams
+    bit-equal to this process's live decoder."""
+    stats = child["aot"]
+    assert not child["builds"], (label, child["builds"])
+    assert stats is not None and not stats["misses"], (label, stats)
+    assert sum(stats["hits"].values()) > 0, (label, stats)
+    assert set(stats["libraries"].values()) == {"bundle"}, (label, stats)
+    assert all(row["live"] == 0 and row["aot"] > 0
+               for row in child["dispatches"]), child["dispatches"]
+    assert child["streams"] == live, \
+        "%s: the AOT-served streams differ from the live ones" % label
+    for name in AOT_COUNTERS:
+        got = child["launches"].get(name, 0)
+        assert (got > 0) == (name in kernels), (label, name, got)
+        launches[name] += got
+    print("phase 25 %s: %d dispatches AOT hits (%s), no miss, streams "
+          "bit-equal to live, launches %s" % (
+              label, sum(stats["hits"].values()),
+              json.dumps(stats["hits"], sort_keys=True),
+              json.dumps({k: v for k, v in child["launches"].items() if v},
+                         sort_keys=True)))
+
+
+def aot_serve_args(model):
+    """A serving child's arguments but its bundle and tier."""
+    first, warmup = aot_traffic()
+    return {"model": model, "heads": HEADS, "first": first,
+            "warmup": warmup, "n_tokens": N_TOKENS}
+
+
+def aot_cold_start(device):
+    """Phase 25's cold-live child, started before phase 23 so that its
+    ``nvcc`` builds run beside phases 23 and 24 (the phase took 197.6 s
+    with its children one at a time): a directory with the serving
+    model's checkpoint and a package copy with no ``_build/``. Returns
+    (the directory, the checkpoint, the child)."""
+    from veles_tpu_torch.device import tree_to
+    tmp = tempfile.mkdtemp(prefix="aot-phase-")
+    params, table = bf16_model(device)
+    model = os.path.join(tmp, "model.pt")
+    torch.save(tree_to((params, table), "cpu"), model)
+    cold = AotChild(AOT_SERVE_CHILD, dict(
+        aot_serve_args(model), bundle=None,
+        serve=aot_serve_kwargs("int8", True)),
+        package_copy(os.path.join(tmp, "cold")))
+    return tmp, model, cold
+
+
+def aot_phase(device, early):
+    """Phase 25: the AOT bundle, in the directory ``early`` made
+    (:func:`aot_cold_start`). (a) In this process (every library built by
+    now) three serving bundles at full width (paged int8, paged int8-KV,
+    dense int8-KV) and one of phase 22's wide-MLP tick; one built twice,
+    the same sha. (b) Fresh processes, each from a copy of the package
+    with no ``_build/`` (as the card gets the tree from ``git archive``),
+    the serving ones loading the weights saved in ``early``, timed from
+    Popen to the first token: cold-live (``early``'s child: the paged
+    int8 tier, no bundle, nvcc builds K2 and K1, beside phases 23 and
+    24); aot paged int8, then warm-live (a copy holding the built
+    libraries, no bundle: the boot's floor), one at a time; then aot
+    paged int8-KV, aot dense int8-KV and the tick together. The aot
+    children: zero builds, every dispatch a hit, no miss, the streams
+    bit-equal to this process's live decoder, each tier's kernels
+    launched; the tick: zero builds, its steps hits, the live run's
+    n_err, K6 and K5 launched. Returns the children's launches."""
+    from veles_tpu_torch.aot.artifact import (BundleBuilder,
+                                              build_serving_bundle,
+                                              capture_tick_programs,
+                                              inspect_bundle, workflow_tick)
+    t_phase = time.perf_counter()
+    deadline = time.time() + AOT_CHILD_TIMEOUT
+    tmp, model, cold = early
+    params, table = bf16_model(device)
+    launches = dict.fromkeys(COUNTERS, 0)
+    root.common.serve.aot = None
+    children = []
+    serve_args = aot_serve_args(model)
+
+    def start(script, args, name, warm=False):
+        child = AotChild(script, args, package_copy(
+            os.path.join(tmp, name), warm=warm))
+        children.append(child)
+        return child
+
+    try:
+        bundles, live = {}, {}
+        for label, quantize, paged, _ in AOT_TIERS:
+            path = os.path.join(tmp, label.replace(" ", "-")
+                                + ".aot.tar")
+            t0 = time.perf_counter()
+            build_serving_bundle(params, table, HEADS, path,
+                                 device=device,
+                                 **aot_serve_kwargs(quantize, paged))
+            ms = 1e3 * (time.perf_counter() - t0)
+            info = inspect_bundle(path)
+            with open(path + ".sha256") as fin:
+                sha = fin.read().split()[0]
+            print("phase 25 (a) %s bundle: %d bytes, sha256 %s, built "
+                  "in %.1f ms; %d programs, libraries %s, %d verdicts"
+                  % (label, os.path.getsize(path), sha, ms,
+                     info["programs"],
+                     json.dumps(info["libraries"], sort_keys=True),
+                     info["verdicts"]))
+            bundles[label] = (path, sha)
+            live[label] = aot_live_streams(params, table, quantize,
+                                           paged, device)
+        again = os.path.join(tmp, "again.aot.tar")
+        build_serving_bundle(params, table, HEADS, again, device=device,
+                             **aot_serve_kwargs("int8", True))
+        with open(again + ".sha256") as fin:
+            assert fin.read().split()[0] == bundles["paged int8"][1], \
+                "two builds of the paged int8 bundle differ"
+        # the tick: phase 22's wide MLP, its live run the reference
+        data, labels = bench_dataset(n=AOT_TICK_N,
+                                     n_valid=AOT_TICK_CLASS_LENGTHS[1])
+        numpy.save(os.path.join(tmp, "data.npy"), data)
+        numpy.save(os.path.join(tmp, "labels.npy"), labels)
+        wf = build_mlp(device, data, labels, WIDE_LAYERS,
+                       WIDE_MINIBATCH, AOT_TICK_CLASS_LENGTHS, True, 1,
+                       sweep=False)
+        epochs, _ = train(wf, device)
+        live_n_err = [int(epoch["valid_n_err"]) for epoch in epochs]
+        specs, train_args, eval_args, _ = workflow_tick(wf)
+        bundle = BundleBuilder(device=device)
+        capture_tick_programs(bundle, wf.fused_tick._steps_,
+                              train_args, eval_args, specs=specs)
+        tick = bundle.write(os.path.join(tmp, "tick.aot.tar"))
+        print("phase 25 (a) wide-MLP tick bundle: %d bytes, libraries "
+              "%s" % (os.path.getsize(tick), json.dumps(
+                  inspect_bundle(tick)["libraries"], sort_keys=True)))
+        del wf
+        # (b) the paged int8 tier's aot and warm-live boots, one at a
+        # time beside the cold one's build
+        readings = {}
+        label, quantize, paged, kernels = AOT_TIERS[0]
+        child = start(AOT_SERVE_CHILD, dict(
+            serve_args, bundle=bundles[label][0],
+            serve=aot_serve_kwargs(quantize, paged)),
+            "aot-paged-int8").result(deadline)
+        readings["aot " + label] = aot_reading("aot " + label, child)
+        aot_check_tier(label, kernels, child, live[label], launches)
+        warm = start(AOT_SERVE_CHILD, dict(
+            serve_args, bundle=None,
+            serve=aot_serve_kwargs("int8", True)), "warm",
+            warm=True).result(deadline)
+        readings["warm-live"] = aot_reading("warm-live (paged int8)",
+                                            warm)
+        assert not warm["builds"] and warm["aot"] is None, warm["builds"]
+        assert warm["streams"] == live["paged int8"]
+        # the int8-KV tiers' boots and the tick's, together
+        rest = {label: start(AOT_SERVE_CHILD, dict(
+            serve_args, bundle=bundles[label][0],
+            serve=aot_serve_kwargs(quantize, paged)),
+            "aot-" + label.replace(" ", "-"))
+            for label, quantize, paged, _ in AOT_TIERS[1:]}
+        ticked = start(AOT_TICK_CHILD, {
+            "bundle": tick, "layers": list(WIDE_LAYERS),
+            "minibatch": WIDE_MINIBATCH, "lr": TRAIN_LR,
+            "class_lengths": AOT_TICK_CLASS_LENGTHS,
+            "data": os.path.join(tmp, "data.npy"),
+            "labels": os.path.join(tmp, "labels.npy")}, "aot-tick")
+        for label, _, _, kernels in AOT_TIERS[1:]:
+            child = rest[label].result(deadline)
+            readings["aot " + label] = aot_reading(
+                "aot " + label + " (beside the other)", child)
+            aot_check_tier(label, kernels, child, live[label], launches)
+        child = ticked.result(deadline)
+        readings["aot tick"] = aot_reading("aot tick", child)
+        stats = child["aot"]
+        assert not child["builds"], child["builds"]
+        assert not stats["misses"] and stats["hits"] == {
+            "fused.train_step": 3, "fused.eval_step": 1}, stats
+        assert set(stats["libraries"].values()) == {"bundle"}, stats
+        assert child["n_err"] == live_n_err, (child["n_err"],
+                                              live_n_err)
+        assert child["launches"]["blocked_matmul"] > 0 \
+            and child["launches"]["dense_epilogue"] > 0, \
+            child["launches"]
+        for name, n in child["launches"].items():
+            launches[name] += n
+        print("phase 25 aot tick: n_err %s (live %s), hits %s, launches "
+              "%s" % (child["n_err"], live_n_err,
+                      json.dumps(stats["hits"], sort_keys=True),
+                      json.dumps(child["launches"], sort_keys=True)))
+        cold = cold.result(deadline)
+        readings["cold-live"] = aot_reading(
+            "cold-live (paged int8, beside phases 23 and 24)", cold)
+        assert cold["builds"].get("paged_attention.cu") \
+            and cold["builds"].get("int8_matmul.cu"), cold["builds"]
+        assert cold["aot"] is None and cold["streams"] == live[
+            "paged int8"]
+    finally:
+        for child in children:
+            child.kill()
+    print("phase 25 readings (s from Popen to the first token): %s; "
+          "phase 25 %.1f s; %s" % (json.dumps(readings, sort_keys=True),
+                                   time.perf_counter() - t_phase,
+                                   card_line()))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -8545,17 +9011,29 @@ def main():
     # are a main path
     for name, n in mesh_phase(device).items():
         launches[name] += n
-    # the training fleet: every slave's K6 and K5 are a main path; its
-    # (c), the respawn on the digits, starts before phase 24's (a) and
-    # its (d) with phase 24's (b) and (c)
-    beside = []
-    fleet_launches, single = fleet_phase(device, beside)
-    for name, n in fleet_launches.items():
-        launches[name] += n
-    # the fleet x pod composition: every pod rank's K6 and K5 are a main
-    # path, and the single-rank slave's of (c)
-    for name, n in pod_phase(device, single, beside).items():
-        launches[name] += n
+    # phase 25's cold-live replica starts here: its nvcc builds run
+    # beside phases 23 and 24
+    early = aot_cold_start(device)
+    try:
+        # the training fleet: every slave's K6 and K5 are a main path;
+        # its (c), the respawn on the digits, starts before phase 24's (a)
+        # and its (d) with phase 24's (b) and (c)
+        beside = []
+        fleet_launches, single = fleet_phase(device, beside)
+        for name, n in fleet_launches.items():
+            launches[name] += n
+        # the fleet x pod composition: every pod rank's K6 and K5 are a
+        # main path, and the single-rank slave's of (c)
+        for name, n in pod_phase(device, single, beside).items():
+            launches[name] += n
+        clock("the mesh, fleet and pod phases")
+        # the AOT bundle: each fresh replica's K1, K3, K4 and K2 and the
+        # fresh trainer's K6 and K5 are a main path
+        for name, n in aot_phase(device, early).items():
+            launches[name] += n
+    finally:
+        early[2].kill()
+        shutil.rmtree(early[0], ignore_errors=True)
     isolated.cleanup()
     print("the smoke's phases and build: %.1f s" % (time.perf_counter()
                                                      - t0))

@@ -81,7 +81,8 @@ for name in ("jax", "jaxlib", "veles_tpu", "PIL"):
     sys.modules[name] = None
 for name in ("__main__", "launcher", "cli", "snapshotter", "export",
              "inference", "serving", "scripts.compare_snapshots",
-             "samples.mnist784", "samples.mnist_conv"):
+             "samples.mnist784", "samples.mnist_conv", "aot.artifact",
+             "aot.loader", "aot.exec_cache", "aot.cli"):
     importlib.import_module("veles_tpu_torch." + name)
 from veles_tpu_torch.__main__ import main
 tiny, link = sys.argv[1:3]
@@ -449,6 +450,34 @@ def test_fleet_flag_reaches_the_launchers_fleet_mode(dest, tmp_path,
 def test_deferred_command_exits_2(command, capsys):
     assert main([command, "x"]) == 2
     assert DEFERRED_COMMANDS[command] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("case", ["aot", "serve_aot"])
+def test_aot_command_and_serve_aot_flag_run(case, tmp_path, capsys,
+                                            monkeypatch):
+    """What the deferred ``aot`` command and ``--serve-aot`` flag did
+    before the AOT slice now runs: ``aot`` builds and verifies a bundle
+    (``aot/cli.py``), ``--serve-aot`` lands in ``root.common.serve.aot``
+    after the config layering, as the JAX package's does."""
+    from veles_tpu_torch.core.config import root
+
+    assert case not in DEFERRED and case not in DEFERRED_COMMANDS
+    bundle = str(tmp_path / "b.aot.tar")
+    if case == "aot":
+        assert main(["aot", "build", "--out", bundle, "--device", "cpu",
+                     "--blocks", "1", "--embed", "16", "--heads", "4",
+                     "--vocab", "32", "--max-len", "32"]) == 0
+        assert json.loads(capsys.readouterr().out)["programs"] > 0
+        assert main(["aot", "verify", bundle]) == 0
+        assert "loadable" in capsys.readouterr().out
+        return
+    monkeypatch.setattr(root.common.serve, "aot",
+                        root.common.serve.get("aot"), raising=False)
+    wf_file = tmp_path / "tiny_wf.py"
+    wf_file.write_text(TINY_WF)
+    assert Main().run([str(wf_file), "-", "root.common.serve.aot=x",
+                       "--serve-aot", bundle, "--dump-config"]) == 0
+    assert root.common.serve.aot == bundle
 
 
 def test_callable_module(tmp_path):

@@ -50,7 +50,10 @@ CUDA tensors in a world of one over NCCL, and two ranks sharing the card
 over gloo against one process stepping the whole minibatches; and the
 training fleet: a master and a slave on the card, the slave's data-plane
 tick launching K6 on every minibatch and K5 on every train one, its
-frames holding numpy arrays only.
+frames holding numpy arrays only; and the AOT bundle: a process booted
+from a bundle of this card's libraries, from a copy of the package with
+an empty build directory, building no kernel and streaming the live
+decoder's tokens.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -2380,3 +2383,83 @@ def test_a_fleet_slave_tick_on_the_card_runs_k6_and_k5(cuda, monkeypatch):
                                       ref.weights.data.cpu().numpy(),
                                       atol=1e-5, rtol=0)
 
+
+
+# -- the AOT bundle ------------------------------------------------------------
+
+#: a process booted from a bundle, from a copy of the package with no
+#: ``_build/``: the toy model from its seed, the bundle's decoder on the
+#: prompts, its streams, kernel builds and bundle stats printed
+AOT_CARD_CHILD = r"""
+import json, sys
+import numpy, torch
+from veles_tpu_torch.aot.loader import load_bundle
+from veles_tpu_torch.observe.xla_stats import get_compile_tracker
+from veles_tpu_torch.parallel.transformer_step import (
+    init_transformer_params)
+from veles_tpu_torch.serving import ContinuousDecoder
+args = json.loads(sys.argv[1])
+rng = numpy.random.RandomState(0)
+params = init_transformer_params(rng, 2, 64, 4, 256, dtype=torch.bfloat16,
+                                 device="cuda")
+table = torch.from_numpy(rng.randn(256, 64).astype(numpy.float32)).to(
+    device="cuda", dtype=torch.bfloat16)
+aot = load_bundle(args["bundle"], prefetch=False)
+dec = ContinuousDecoder(params, table, 4, aot=aot, **args["kw"])
+for prompt in args["prompts"]:
+    dec.submit(prompt)
+dec.run_until_drained(chunk=args["chunk"])
+print(json.dumps({"results": [dec.results[i] for i in sorted(dec.results)],
+                  "builds": {k: v for k, v in get_compile_tracker()
+                             .snapshot()["compiles"].items()
+                             if k.endswith(".cu")},
+                  "stats": aot.stats(), "active": dec.aot_active}))
+"""
+
+
+def test_aot_bundle_boots_a_process_without_nvcc(cuda, tmp_path):
+    """A paged int8 bundle of this process's built libraries (K1, K2)
+    boots a process whose package copy has an empty build directory: no
+    kernel is built there, every dispatch is a hit, and its streams equal
+    this process's live decoder's."""
+    import json
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from veles_tpu_torch.aot.artifact import build_serving_bundle
+
+    rng = numpy.random.RandomState(0)
+    params = init_transformer_params(rng, 2, 64, 4, 256,
+                                     dtype=torch.bfloat16, device="cuda")
+    table = torch.from_numpy(rng.randn(256, 64).astype(numpy.float32)).to(
+        device="cuda", dtype=torch.bfloat16)
+    kw = dict(slots=4, max_len=256, n_tokens=8, paged=True, page_size=16,
+              quantize="int8")
+    path = build_serving_bundle(params, table, 4, str(tmp_path / "b.tar"),
+                                chunk=4, device="cuda", **kw)
+    prompts = [numpy.random.RandomState(n).randint(0, 256, n).tolist()
+               for n in (5, 17, 40, 100)]
+    live = ContinuousDecoder(params, table, 4, device="cuda", **kw)
+    for prompt in prompts:
+        live.submit(prompt)
+    live.run_until_drained(chunk=4)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shutil.copytree(os.path.join(repo, "veles_tpu_torch"),
+                    str(tmp_path / "copy" / "veles_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    proc = subprocess.run(
+        [sys.executable, "-c", AOT_CARD_CHILD,
+         json.dumps({"bundle": path, "kw": kw, "prompts": prompts,
+                     "chunk": 4})],
+        cwd=str(tmp_path / "copy"), capture_output=True, text=True,
+        timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(tmp_path / "copy")))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["active"] and out["builds"] == {}
+    assert not out["stats"]["misses"] and out["stats"]["hits"]
+    assert out["stats"]["libraries"] == {"int8_matmul": "bundle",
+                                         "paged_attention": "bundle"}
+    assert out["results"] == [live.results[i] for i in sorted(live.results)]

@@ -492,6 +492,68 @@ def test_prewarm_trend_and_decay_match_jax():
     assert after == {16: 2} and state["counters"]["prewarms"] == 1
 
 
+def test_prewarm_with_real_bundles_matches_jax(tmp_path):
+    """The prewarm actuator on real CPU bundles (the port's from
+    ``veles_tpu_torch.aot``, JAX's from ``veles_tpu.aot``): the same
+    trend, counters and snapshot as JAX's, and the hot bucket's
+    admission rows readied in each, no other bucket's."""
+    import jax.numpy as jnp
+
+    from veles_tpu.aot.artifact import build_serving_bundle as jbuild
+    from veles_tpu.aot.loader import load_bundle as jload
+    from veles_tpu.parallel.transformer_step import \
+        init_transformer_params as jinit
+    from veles_tpu_torch.aot.artifact import build_serving_bundle
+    from veles_tpu_torch.aot.loader import load_bundle
+    from veles_tpu_torch.convert import params_from_jax
+
+    kw = dict(slots=2, max_len=32, n_tokens=4, tile=16)
+    jparams = jinit(numpy.random.RandomState(0), 1, EMBED, HEADS, VOCAB)
+    table = numpy.random.RandomState(1).randn(VOCAB, EMBED).astype(
+        numpy.float32)
+    jbuild(jparams, jnp.asarray(table), HEADS, str(tmp_path / "j.tar"),
+           chunk=2, **kw)
+    build_serving_bundle(params_from_jax(jparams, device="cpu"),
+                         torch.from_numpy(table), HEADS,
+                         str(tmp_path / "t.tar"), chunk=2, device="cpu",
+                         **kw)
+    bundles = {"jax": jload(str(tmp_path / "j.tar"), prefetch=False),
+               "torch": load_bundle(str(tmp_path / "t.tar"),
+                                    prefetch=False, device="cpu")}
+
+    def run(module, programs):
+        governor = module.ServingGovernor(module.GovernorConfig(
+            prewarm=True, prewarm_hot=3, breaker_guard=False,
+            cooldown_s=2.0), clock=lambda: 0.0)
+        api = StubApi([0.0] * 8)
+        governor.observe_bucket(16)
+        governor.tick(api, now=0.0)
+        api.decoder.aot = programs
+        for _ in range(3):
+            governor.observe_bucket(16)
+        governor.observe_bucket(32)
+        governor.tick(api, now=1.0)
+        governor.drain_prewarm()
+        counts = dict(governor._bucket_counts)
+        governor.tick(api, now=3.0)
+        governor.drain_prewarm()
+        return counts, dict(governor._bucket_counts), _state(governor,
+                                                             api)
+    out = {name: run(module, bundles[name])
+           for name, module in PACKAGES.items()}
+    assert out["torch"] == out["jax"]
+    before, after, state = out["torch"]
+    assert before == {16: 4, 32: 1} and after == {16: 2}
+    assert state["counters"]["prewarms"] == 1
+    ours = bundles["torch"].stats()
+    assert ours["compiled"] == 1
+    assert bundles["torch"].program("decode.admit", ("admit", 16))
+    theirs = bundles["jax"]._entries
+    assert all((entry.compiled is not None) == (key[0] == "decode.admit"
+                                                and key[1][1] == 16)
+               for key, entry in theirs.items())
+
+
 def test_port_decoders_carry_no_aot_bundle():
     params = tts.init_transformer_params(numpy.random.RandomState(0),
                                          BLOCKS, EMBED, HEADS, VOCAB,

@@ -54,7 +54,8 @@ package's, then exit with code 2 and a message naming the ROADMAP item
 that brings them (:data:`DEFERRED`); so do the JAX package's
 subcommands that are not ported yet (:data:`DEFERRED_COMMANDS`). The
 ported subcommands (:data:`COMMANDS`): ``parity`` (``parity.main``),
-``autotune`` (``ops/gemm.autotune_main``) and ``observe``
+``autotune`` (``ops/gemm.autotune_main``), ``aot`` (``aot/cli.main``:
+``build``, ``inspect``, ``verify``, ``warm-cache``) and ``observe``
 (``observe/trace_export.main``: ``export-trace``, ``blackbox``, ``slo``,
 ``serve-trace``, ``incident``, ``record``, ``replay``, ``capacity`` and
 ``regress``). ``--serve-slo`` and ``--serve-history`` are validated
@@ -89,7 +90,6 @@ DEFERRED = {
     "optimize": _META, "optimize_fleet": _META,
     "optimize_representation": _META, "ensemble_train": _META,
     "ensemble_test": _META,
-    "serve_aot": "the AOT bundle, ROADMAP A9",
     "serve_paged_kernel": "not ported, on purpose (ROADMAP A2): on the "
                           "card the paged pool always attends through "
                           "its kernels",
@@ -98,7 +98,7 @@ DEFERRED = {
 
 #: the JAX package's subcommands -> the ROADMAP item that brings them
 DEFERRED_COMMANDS = {
-    "aot": "ROADMAP A9", "analyze": "ROADMAP A9", "route": "ROADMAP A9",
+    "analyze": "ROADMAP A9", "route": "ROADMAP A9",
     "deploy": "ROADMAP A9", "forge": "ROADMAP A9",
 }
 
@@ -224,6 +224,13 @@ class Main(Logger):
                            "proactive breaker guard, e.g. demote_burn=2,"
                            "recover_burn=1,cooldown_s=10,ladder=int8+"
                            "int8-kv (writes root.common.serve.governor)")
+        serve.add_argument("--serve-aot", default=None, metavar="PATH",
+                           help="boot serving from an AOT bundle (python "
+                           "-m veles_tpu_torch aot build): its kernel "
+                           "libraries load instead of nvcc building them; "
+                           "a stale or tampered bundle is refused with "
+                           "the field named and serving boots live "
+                           "(writes root.common.serve.aot)")
         serve.add_argument("--chaos-serve-seed", type=int, default=None,
                            metavar="N", help="serving chaos RNG seed")
         serve.add_argument("--chaos-serve-step-fail", type=float,
@@ -293,7 +300,6 @@ class Main(Logger):
                 (("--ensemble-test",), {"metavar": "FILE"}),
                 (("--serve-mesh",), {"metavar": "AXIS=N[,AXIS=N...]"}),
                 (("--serve-paged-kernel",), {"metavar": "on|off"}),
-                (("--serve-aot",), {"metavar": "PATH"}),
                 (("--manhole",), {"action": "store_true"})):
             kwargs.setdefault("default", None)
             deferred.add_argument(*flags, **kwargs)
@@ -534,6 +540,7 @@ class Main(Logger):
                 ("serve_pool_pages", root.common.serve, "pool_pages"),
                 ("serve_slo", root.common.observe, "slo"),
                 ("serve_governor", root.common.serve, "governor"),
+                ("serve_aot", root.common.serve, "aot"),
                 ("serve_history", root.common.observe, "history"),
                 ("fleet_reduce", root.common.fleet, "reduce"),
                 ("chaos_serve_seed", root.common.serve.chaos, "seed"),
@@ -613,13 +620,19 @@ def _autotune(argv):
     return autotune_main(argv)
 
 
+def _aot(argv):
+    from veles_tpu_torch.aot.cli import main as aot_main
+    return aot_main(argv)
+
+
 def _observe(argv):
     from veles_tpu_torch.observe.trace_export import main as observe_main
     return observe_main(argv)
 
 
 #: the JAX package's subcommands the port has -> their entry
-COMMANDS = {"parity": _parity, "autotune": _autotune, "observe": _observe}
+COMMANDS = {"parity": _parity, "autotune": _autotune, "aot": _aot,
+            "observe": _observe}
 
 
 def main(argv=None):

@@ -1,0 +1,224 @@
+"""``python -m veles_tpu_torch aot build|inspect|verify|warm-cache``.
+
+The port of ``veles_tpu/aot/cli.py``:
+
+- ``build``: record a serving configuration's programs and pack the
+  kernel libraries they launch into a bundle (the shapes and the built
+  code are the artifact; the weights travel apart, and ``--seed`` only
+  draws the shapes' stand-ins);
+- ``inspect``: print a bundle's manifest summary;
+- ``verify``: check the sidecar, the content-addressed members and the
+  compatibility gate against THIS machine: exit 0 loadable, 1 refused
+  (the stale field named), 2 unreadable or tampered;
+- ``warm-cache``: stage every library NOW into the persistent cache
+  beside the bundle (``<bundle>.xcache/``, ``aot/exec_cache.py``) and
+  load it, so the next boot on this machine takes verified entries.
+
+``--mesh`` on ``build`` raises: a mesh bundle waits for the sharded
+serving mesh (ROADMAP A8 (c)); on ``verify`` and ``warm-cache`` it gives
+the JAX package's verdict (a single-device bundle is not loadable for a
+mesh boot). ``--forge-dir`` exits 2: the forge is ROADMAP A9 (c).
+"""
+
+import argparse
+import json
+import sys
+
+#: what the JAX package's ``--forge-dir`` waits for in the port
+FORGE_ITEM = "the forge and its packages, ROADMAP A9 (c)"
+
+
+class _AxesMesh:
+    """A requested mesh's axes (all the gate reads of a mesh): the port
+    builds no serving mesh yet (ROADMAP A8 (c))."""
+
+    def __init__(self, spec):
+        axes = {}
+        for part in str(spec).split(","):
+            name, sep, size = part.partition("=")
+            if not sep or not name.strip() or not size.strip().isdigit():
+                raise ValueError("mesh spec %r is not AXIS=N[,AXIS=N...]"
+                                 % (spec,))
+            axes[name.strip()] = int(size)
+        self.shape = axes
+
+
+def _build(args):
+    import numpy
+    import torch
+
+    from veles_tpu_torch.aot.artifact import (build_serving_bundle,
+                                              inspect_bundle)
+    from veles_tpu_torch.parallel.transformer_step import \
+        init_transformer_params
+
+    if args.forge_dir:
+        sys.stderr.write("veles_tpu_torch aot build: --forge-dir is not "
+                         "ported yet: %s\n" % FORGE_ITEM)
+        return 2
+    if args.mesh:
+        raise NotImplementedError(
+            "aot build --mesh: a mesh bundle waits for the sharded "
+            "serving mesh, ROADMAP A8 (c)")
+    rng = numpy.random.RandomState(args.seed)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    params = init_transformer_params(rng, args.blocks, args.embed,
+                                     args.heads, args.vocab, dtype=dtype,
+                                     device=args.device)
+    table = torch.from_numpy(
+        rng.randn(args.vocab, args.embed).astype("float32") * 0.3
+    ).to(dtype=dtype, device=args.device)
+
+    def progress(name, key):
+        if args.verbose:
+            print("  recording %s %s" % (name, list(key)))
+
+    path = build_serving_bundle(
+        params, table, args.heads, args.out, slots=args.slots,
+        max_len=args.max_len, n_tokens=args.n_tokens, chunk=args.chunk,
+        temperature=args.temperature, top_k=args.top_k,
+        quantize=args.quantize if args.quantize != "none" else None,
+        tile=args.tile, paged=args.paged, page_size=args.page_size,
+        pool_pages=args.pool_pages, progress=progress,
+        device=args.device)
+    print(json.dumps(inspect_bundle(path), indent=1))
+    return 0
+
+
+def _inspect(args):
+    from veles_tpu_torch.aot.artifact import inspect_bundle
+    print(json.dumps(inspect_bundle(args.bundle), indent=1))
+    return 0
+
+
+def _mesh_of(args, manifest):
+    """The mesh the verdict is given for: the operator's ``--mesh``, else
+    the bundle's own axes."""
+    if args.mesh:
+        return _AxesMesh(args.mesh)
+    if manifest.get("mesh") is not None:
+        return _AxesMesh(",".join(
+            "%s=%d" % item
+            for item in sorted((manifest["mesh"].get("axes")
+                                or {}).items())))
+    return None
+
+
+def _verify(args):
+    from veles_tpu_torch.aot.artifact import read_bundle
+    from veles_tpu_torch.aot.loader import AotCompatError, check_compat
+
+    try:
+        manifest, _ = read_bundle(args.bundle)
+    except (OSError, ValueError) as exc:
+        print("UNREADABLE: %s" % exc)
+        return 2
+    try:
+        mesh = _mesh_of(args, manifest)
+    except ValueError as exc:
+        print("REFUSED: mesh: %s" % exc)
+        return 1
+    try:
+        check_compat(manifest, mesh=mesh)
+    except AotCompatError as exc:
+        print("REFUSED: %s: %s" % (exc.field, exc))
+        return 1
+    print("OK: %d programs, loadable on this machine"
+          % len(manifest.get("programs", ())))
+    return 0
+
+
+def _warm_cache(args):
+    from veles_tpu_torch.aot.artifact import read_bundle
+    from veles_tpu_torch.aot.loader import (AotCompatError, _device_of,
+                                            check_compat, load_bundle)
+
+    try:
+        manifest, _ = read_bundle(args.bundle)
+    except (OSError, ValueError) as exc:
+        print("UNREADABLE: %s" % exc)
+        return 2
+    try:
+        mesh = _mesh_of(args, manifest)
+    except ValueError as exc:
+        print("REFUSED: mesh: %s" % exc)
+        return 1
+    device = _device_of(manifest)
+    try:
+        check_compat(manifest, mesh=mesh, device=device)
+        programs = load_bundle(args.bundle, mesh=mesh, eager=True,
+                               prefetch=False,
+                               exec_cache=args.cache or True,
+                               device=device)
+    except AotCompatError as exc:
+        print("REFUSED: %s: %s" % (exc.field, exc))
+        return 1
+    print(json.dumps(programs.stats(), indent=1, sort_keys=True))
+    return 0
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="veles_tpu_torch aot")
+    sub = parser.add_subparsers(dest="action", required=True)
+
+    build = sub.add_parser("build", help="record a serving "
+                           "configuration's programs and pack the kernel "
+                           "libraries they launch into a bundle")
+    build.add_argument("--out", required=True, help="bundle path")
+    build.add_argument("--blocks", type=int, default=2)
+    build.add_argument("--embed", type=int, default=256)
+    build.add_argument("--heads", type=int, default=8)
+    build.add_argument("--vocab", type=int, default=2048)
+    build.add_argument("--dtype", choices=("float32", "bfloat16"),
+                       default="float32")
+    build.add_argument("--slots", type=int, default=4)
+    build.add_argument("--max-len", type=int, default=512)
+    build.add_argument("--n-tokens", type=int, default=32)
+    build.add_argument("--chunk", type=int, default=8)
+    build.add_argument("--temperature", type=float, default=0.0)
+    build.add_argument("--top-k", type=int, default=0)
+    build.add_argument("--quantize", choices=("none", "int8", "int8-kv"),
+                       default="none")
+    build.add_argument("--tile", type=int, default=None)
+    build.add_argument("--paged", action="store_true")
+    build.add_argument("--page-size", type=int, default=None)
+    build.add_argument("--pool-pages", type=int, default=None)
+    build.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N...]",
+                       help="not ported yet: the sharded serving mesh, "
+                            "ROADMAP A8 (c)")
+    build.add_argument("--forge-dir", default=None, metavar="DIR",
+                       help="not ported yet: %s (exits 2)" % FORGE_ITEM)
+    build.add_argument("--seed", type=int, default=0,
+                       help="params init seed (shapes only: serve real "
+                            "weights apart)")
+    build.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                       help="the device the bundle is for (default: the "
+                            "card; a CPU bundle holds no library)")
+    build.add_argument("-v", "--verbose", action="store_true")
+    build.set_defaults(func=_build)
+
+    inspect_p = sub.add_parser("inspect", help="print a bundle's "
+                               "manifest summary")
+    inspect_p.add_argument("bundle")
+    inspect_p.set_defaults(func=_inspect)
+
+    verify = sub.add_parser("verify", help="integrity + compatibility "
+                            "check against this machine")
+    verify.add_argument("bundle")
+    verify.add_argument("--mesh", default=None,
+                        metavar="AXIS=N[,AXIS=N...]")
+    verify.set_defaults(func=_verify)
+
+    warm = sub.add_parser("warm-cache", help="stage every library into "
+                          "the persistent cache beside the bundle and "
+                          "load it")
+    warm.add_argument("bundle")
+    warm.add_argument("--mesh", default=None,
+                      metavar="AXIS=N[,AXIS=N...]")
+    warm.add_argument("--cache", default=None, metavar="DIR",
+                      help="cache directory (default: <bundle>.xcache "
+                           "beside the bundle)")
+    warm.set_defaults(func=_warm_cache)
+
+    args = parser.parse_args(argv)
+    return args.func(args)

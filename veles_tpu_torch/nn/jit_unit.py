@@ -13,7 +13,8 @@ PyTorch runs eagerly, so there is nothing to trace or compile: the
 program is ``compute`` itself, run under ``torch.no_grad()`` (a unit that
 needs gradients, a GD unit of a block, turns them on inside its own
 compute). ``install_program`` is the seam where a caller puts another
-program in its place (the JAX package's AOT loader fills it).
+program in its place. The port's AOT bundles (``aot/``) ship kernel
+libraries, not programs, so its loader leaves this seam alone.
 
 Contract:
 

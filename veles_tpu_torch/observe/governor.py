@@ -22,12 +22,12 @@ actuators. It rides the ``GenerateAPI`` driver thread: one rate-limited
   pool's page-release rate, clamped to [1, 60] s like the pool gate.
 - **prewarm** (actuator *c*): prompt buckets trending hot
   (``prewarm_hot`` admitted requests within a window whose counts halve
-  once per cooldown) get their admission programs built ahead of need
-  from an AOT bundle. The port has no AOT bundle (ROADMAP A9): its
-  decoders carry ``aot = None``, so the trend is kept (the snapshots
-  equal the JAX package's) and :meth:`ServingGovernor._maybe_prewarm`
-  returns at once. The kernels' ``nvcc`` build on first use is not AOT
-  and the governor does not trigger it.
+  once per cooldown) get their admission programs readied ahead of need
+  from the decoder's AOT bundle (``aot/loader.AotPrograms.
+  prewarm_bucket``: the rows' kernel libraries loaded on a background
+  thread). A decoder without a bundle (``aot`` None) keeps the trend and
+  :meth:`ServingGovernor._maybe_prewarm` returns at once: the governor
+  never triggers an ``nvcc`` build.
 - **proactive breaker guard** (actuator *d*): a fresh rebuild storm
   (``CompileTracker.storm_total``), device memory above
   ``guard_memory_frac`` or a pool headroom forecast under
@@ -639,11 +639,10 @@ class ServingGovernor(Logger):
             return None
 
     def _maybe_prewarm(self, api):
-        """Actuator (c): build the admission programs of buckets
-        trending hot on a background thread, from the decoder's AOT
-        bundle. The port's decoders have none (``aot`` is None, ROADMAP
-        A9), so this returns at once, as the JAX package does without a
-        bundle."""
+        """Actuator (c): ready the admission programs of buckets trending
+        hot on a background thread, from the decoder's AOT bundle; a
+        decoder without one (``aot`` None) returns at once, as the JAX
+        package does."""
         programs = api.decoder.aot
         if programs is None:
             return

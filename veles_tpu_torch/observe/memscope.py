@@ -23,8 +23,10 @@ how long the KV pool lasts at the current admission rate.
   no accountant explains: on the card the kernels' split workspaces
   (``ops/_workspace.py``), cuBLAS's workspace and the caller's own
   tensors (the raw weights a front keeps for rebuilds), which belong to
-  no owner of the JAX package's taxonomy. ``aot_executables`` waits for
-  ROADMAP A9.
+  no owner of the JAX package's taxonomy. ``aot_executables`` is the
+  bytes of the kernel libraries a live AOT bundle staged
+  (``aot/loader.AotPrograms.footprint_bytes``): loaded code, not
+  allocator bytes.
 
 - **Leak forensics.** Lifecycle edges where an old subsystem must die
   (the breaker's rebuild, the weight hot-swap, the rollout's promotion)

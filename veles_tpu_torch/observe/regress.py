@@ -31,7 +31,10 @@ SCHEMA_VERSION = 1
 #: requests and the untagged memory share (the JAX package's comments at
 #: ``veles_tpu/observe/regress.py:43-146`` give each family's reason).
 #: NOT "_sec" alone (throughput keys end in "tokens_per_sec") and not the
-#: bare "_fraction" (goodput and occupancy are higher-better)
+#: bare "_fraction" (goodput and occupancy are higher-better). The AOT
+#: cold start's keys are lower-better: ``coldstart_*_ms`` by "_ms", and
+#: ``coldstart_compiles`` (the builds an AOT-booted warm-up books: flat
+#: zero is the bundle's proof) by "_compiles"
 _LOWER_BETTER = ("_ms", "_seconds", "_sec_mean", "_overhead_fraction",
                  "_overhead_pct", "_std", "_bytes", "_hit_fraction",
                  "_flatness", "_compiles", "burn_rate", "_transitions",

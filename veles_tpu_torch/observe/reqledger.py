@@ -9,8 +9,8 @@ facts the driver knows at each hop: prompt bucket, admission kind
 used, AOT-served against live dispatches, the kernel builds and loads
 that overlapped the request (``observe/xla_stats.py``'s windows: a
 request that waited on an ``nvcc`` build carries the stall), breaker
-generation and trace id. AOT waits for ROADMAP A9, so every dispatch of
-the port books ``live``.
+generation and trace id. A dispatch the decoder's AOT bundle covered
+books ``aot`` (``aot/loader.py``), every other ``live``.
 
 Surfaces: ``GET /debug/requests`` on both serving fronts
 (``core/httpd.serve_debug_requests``), ``python -m veles_tpu_torch

@@ -58,8 +58,10 @@ JAX: ``veles_device_memory_bytes{device,kind}``,
 ``veles_program_flops_per_second{program}``, ``veles_mfu_ratio{program}``,
 the active mesh's gauges ``veles_mesh_axis_size{axis}`` and
 ``veles_mesh_devices`` (``parallel/mesh.py``) and the reduce plane
-(``parallel/mapreduce.publish_reduce_stats``). The AOT families wait for
-ROADMAP A9.
+(``parallel/mapreduce.publish_reduce_stats``) and the AOT families
+(``veles_aot_*``, ``aot/loader.publish_aot_stats``). An AOT-booted
+replica's proof is the flat ``veles_kernel_builds_total`` across its
+warm-up while ``veles_aot_hits_total`` grows.
 
 Everything but the build records is disabled by default: an instrumented
 program costs one attribute check until a ``/metrics`` surface mounts
@@ -458,14 +460,16 @@ def publish_xla_stats(registry):
     and MFU, the memory and mesh gauges, the data-parallel reduce plane
     (``parallel/mapreduce.py``: reduce steps and bytes per precision tier
     and the idle-fraction gauge) and memscope's per-owner attribution
-    (``observe/memscope.py``; the JAX package's AOT families wait for
-    ROADMAP A9)."""
+    (``observe/memscope.py``) and the AOT bundles' hits, misses and
+    loads (``aot/loader.publish_aot_stats``, ``xla_stats.py:473-483``)."""
     get_compile_tracker().publish(registry)
     publish_device_stats(registry)
     from veles_tpu_torch.parallel.mapreduce import publish_reduce_stats
     publish_reduce_stats(registry)
     from veles_tpu_torch.observe.memscope import publish_memscope
     publish_memscope(registry)
+    from veles_tpu_torch.aot.loader import publish_aot_stats
+    publish_aot_stats(registry)
 
 
 def ensure_registered(registry=None):

@@ -9,6 +9,12 @@ it. A failed build raises. Each build (with its wall seconds) and each
 library load is reported to the device-truth plane's tracker
 (``observe/xla_stats.py``), labelled by the kernel's source: the port's
 compile events.
+
+An AOT bundle (``aot/``) ships built libraries: :func:`stage` registers
+one for a source whose digest it was built from equals the tree's
+(:func:`source_digest`), and :func:`build` and :func:`function` then
+take it and never run ``nvcc`` for that source. A library whose digest
+differs is refused, never loaded.
 """
 
 import ctypes
@@ -34,6 +40,8 @@ KERNELS = ("int8_matmul", "paged_attention", "paged_attention_int8",
 _lock = threading.Lock()
 _libs = {}
 _functions = {}
+#: source stem -> path of a library an AOT bundle staged (:func:`stage`)
+_staged = {}
 
 
 def _nvcc():
@@ -45,16 +53,53 @@ def _nvcc():
     return path
 
 
-def library_path(name):
-    """Where the library built from ``csrc/<name>.cu`` lives. The name's
-    hash covers the source, every shared header in ``csrc/`` and the
-    flags."""
+def source_digest(name):
+    """The sha256 a library of ``csrc/<name>.cu`` is built from: the
+    source, every shared header in ``csrc/`` and the flags."""
     digest = hashlib.sha256((CSRC / (name + ".cu")).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    digest = digest.hexdigest()
-    return BUILD_DIR / ("%s-%s.so" % (name, digest[:16]))
+    return digest.hexdigest()
+
+
+def library_path(name):
+    """Where the library built from ``csrc/<name>.cu`` lives; its name
+    carries the head of :func:`source_digest`."""
+    return BUILD_DIR / ("%s-%s.so" % (name, source_digest(name)[:16]))
+
+
+def stage(name, path, digest):
+    """Serve ``csrc/<name>.cu`` from the built library at ``path`` (an
+    AOT bundle's, ``aot/loader.py``) instead of building it: a later
+    :func:`function` loads it and never runs ``nvcc`` for ``name``.
+    ``digest`` is the :func:`source_digest` the library was built from;
+    one that differs from the tree's raises ValueError and nothing is
+    staged. A library already loaded in this process stays."""
+    if name not in KERNELS:
+        raise ValueError("no kernel source %r in ops/csrc" % (name,))
+    current = source_digest(name)
+    if digest != current:
+        raise ValueError(
+            "library for %s.cu refused: built from sources %s..., the "
+            "tree's are %s..." % (name, str(digest)[:16], current[:16]))
+    with _lock:
+        _staged[name] = str(path)
+
+
+def staged_path(name):
+    """The path :func:`stage` registered for ``name``, or None."""
+    return _staged.get(name)
+
+
+def unstage(name=None):
+    """Forget the staged library of ``name`` (every one by default); a
+    library already loaded stays loaded."""
+    with _lock:
+        if name is None:
+            _staged.clear()
+        else:
+            _staged.pop(name, None)
 
 
 def build(names=KERNELS):
@@ -67,6 +112,8 @@ def build(names=KERNELS):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         running = []
         for name in names:
+            if name in _staged:
+                continue
             out = library_path(name)
             if out.exists():
                 continue
@@ -106,23 +153,36 @@ def build(names=KERNELS):
         return logs
 
 
-def function(name, symbol, argtypes):
-    """The C function ``symbol`` of the library built from
-    ``csrc/<name>.cu``, with its ctypes signature set (every function
-    returns the ``cudaError_t`` of its launch as an int). Builds the
-    library first when it is missing."""
-    key = (name, symbol)
-    fn = _functions.get(key)
-    if fn is not None:
-        return fn
+def load(name):
+    """The loaded library of ``csrc/<name>.cu``: the one :func:`stage`
+    registered, else the built one (built first when it is missing).
+    Each process loads a library once."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     build((name,))
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             started = time.perf_counter()
-            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+            lib = _libs[name] = ctypes.CDLL(
+                _staged.get(name) or str(library_path(name)))
             get_compile_tracker().record_hit(
                 name + ".cu", time.perf_counter() - started)
+    return lib
+
+
+def function(name, symbol, argtypes):
+    """The C function ``symbol`` of the library built from
+    ``csrc/<name>.cu`` (:func:`load`), with its ctypes signature set
+    (every function returns the ``cudaError_t`` of its launch as an
+    int)."""
+    key = (name, symbol)
+    fn = _functions.get(key)
+    if fn is not None:
+        return fn
+    lib = load(name)
+    with _lock:
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

@@ -291,11 +291,75 @@ def forward_chain(workflow):
     return forward
 
 
+def tick_config(workflow):
+    """What the fused tick of ``workflow`` is built from: ``(specs,
+    norm_type, kwargs)``, ``kwargs`` the ``with_confusion``, ``augment``
+    and ``loss_kind`` knobs. ONE copy for :class:`FusedTick` and the AOT
+    seam (``aot/loader.install_workflow_tick``), which keys installed
+    steps by them; readable before ``initialize()``."""
+    from veles_tpu_torch.nn.evaluator import EvaluatorMSE
+
+    loader = workflow.loader
+    loss_kind = ("mse" if isinstance(workflow.evaluator, EvaluatorMSE)
+                 else "softmax")
+    return extract_model_spec(workflow), loader.normalization_type, dict(
+        with_confusion=getattr(workflow.evaluator, "compute_confusion",
+                               True),
+        augment=loader.jit_transform or "none", loss_kind=loss_kind)
+
+
+def _freeze(obj):
+    if isinstance(obj, dict):
+        return tuple(sorted((k, _freeze(v)) for k, v in obj.items()))
+    if isinstance(obj, (list, tuple)):
+        return tuple(_freeze(v) for v in obj)
+    return obj
+
+
+#: (frozen specs, knobs, mesh id) -> an installed step tuple: the AOT
+#: seam (``install_tick_steps``). Eager steps cost nothing to build, so
+#: :func:`build_tick` stores nothing here itself; it only consults it.
+_TICK_CACHE = {}
+
+
+def _tick_key(specs, norm_type, with_confusion, augment, loss_kind,
+              grad_reduce, mesh):
+    """The tick cache key: the topology and every engine knob the steps
+    read (``fused.py:297-309``). ONE copy: :func:`build_tick` and
+    :func:`install_tick_steps` must agree on it exactly, or installed
+    steps would shadow (or miss) the live ones."""
+    from veles_tpu_torch.core.config import root
+    return (_freeze(specs), norm_type, with_confusion, augment,
+            loss_kind, grad_reduce, None if mesh is None else id(mesh),
+            root.common.engine.get("precision_level", 0),
+            str(root.common.engine.get("compute_dtype", "bfloat16")),
+            str(root.common.engine.get("use_pallas", "tuned")),
+            bool(root.common.engine.get("pallas_epilogue", False)))
+
+
+def install_tick_steps(steps, specs, norm_type="none", mesh=None,
+                       with_confusion=True, augment="none",
+                       loss_kind="softmax", grad_reduce="f32"):
+    """Seed the tick cache for this topology with caller-provided steps
+    (``fused.py:312-325``), the seam the AOT loader
+    (``aot/loader.install_fused_tick``) slots a bundle's steps into: a
+    later :func:`build_tick` with the same key returns THESE, so
+    ``FusedTick`` runs them unchanged. Returns the previous entry (None
+    when none was installed)."""
+    key = _tick_key(specs, norm_type, with_confusion, augment,
+                    loss_kind, grad_reduce, mesh)
+    previous = _TICK_CACHE.get(key)
+    _TICK_CACHE[key] = tuple(steps)
+    return previous
+
+
 def build_tick(specs, norm_type="none", with_confusion=True,
                augment="none", loss_kind="softmax", mesh=None,
-               grad_reduce="f32"):
+               grad_reduce="f32", cached=True):
     """The fused engine: ``(train_step, eval_step, train_sweep,
-    eval_sweep)``, as the JAX package's ``build_tick``:
+    eval_sweep)``, as the JAX package's ``build_tick``. With ``cached``
+    the steps :func:`install_tick_steps` installed for this key are
+    returned instead of new ones:
 
     - ``train_step(params, hypers, norm, data, labels, indices, valid,
       seed) -> (params, (loss, n_err))`` — one minibatch: gather →
@@ -324,6 +388,12 @@ def build_tick(specs, norm_type="none", with_confusion=True,
     mesh's group before the update: the gradients at ``grad_reduce``, the
     metrics exact. At a data axis of 1 the steps are the unsharded
     ones."""
+    if cached:
+        installed = _TICK_CACHE.get(_tick_key(
+            specs, norm_type, with_confusion, augment, loss_kind,
+            grad_reduce, mesh))
+        if installed is not None:
+            return installed
     layer_fwds = [_layer_forward(s) for s in specs]
     norm_cls = normalizer_registry[norm_type]
     with_confusion = with_confusion and loss_kind == "softmax"
@@ -594,16 +664,10 @@ class FusedTick(Unit):
                              "validation split: disabling")
                 self.pipelined = False
             wf.decision.pipeline_depth = 1 if self.pipelined else 0
-        from veles_tpu_torch.nn.evaluator import EvaluatorMSE
-        self._loss_kind_ = ("mse" if isinstance(wf.evaluator, EvaluatorMSE)
-                            else "softmax")
-        self._specs_ = extract_model_spec(wf)
+        self._specs_, _, kwargs = tick_config(wf)
+        self._loss_kind_ = kwargs["loss_kind"]
         self._norm_ = state_tensors(loader.normalizer.jit_state(),
                                     loader.device)
-        kwargs = dict(
-            with_confusion=getattr(wf.evaluator, "compute_confusion", True),
-            augment=loader.jit_transform or "none",
-            loss_kind=self._loss_kind_)
         if self.mesh_ is not None:
             # the data-parallel steps, instrumented and reduced at the
             # configured wire tier (parallel/mapreduce.py)

@@ -33,7 +33,8 @@ restore_entries`, :func:`_paged_restore`), never by a new prefill. The
 programs carry the JAX package's names (``paged.admit``,
 ``paged.admit_tail``, ``paged.admit_hit``, ``paged.step``,
 ``paged.dispatch``, ``paged.restore``; ``observe/xla_stats.
-instrument``). The mesh functions and AOT are later slices.
+instrument``), under which an AOT bundle's rows name them
+(``aot/artifact.serving_rows``). The mesh functions are a later slice.
 """
 
 import collections

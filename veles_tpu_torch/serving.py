@@ -67,8 +67,11 @@ the Retry-After price, the proactive breaker guard) and the blue-green
 rollout (``rollout.py``: a second, green engine on candidate weights
 driven beside the primary in the same pass, tenants routed by their
 fixed hash point, promoted or rolled back by the rollout predicate). The
-sharded serving mesh (``build_serve_mesh``, ``--serve-mesh``) waits for
-ROADMAP A8 (c) and AOT for A9.
+AOT bundle (``aot/``, ``--serve-aot`` / ``root.common.serve.aot``) boots
+a replica whose kernel libraries load from the bundle instead of
+``nvcc``; every dispatch is looked up in it and booked as an AOT hit or
+miss. The sharded serving mesh (``build_serve_mesh``, ``--serve-mesh``)
+waits for ROADMAP A8 (c).
 """
 
 import base64
@@ -209,7 +212,7 @@ class ContinuousDecoder:
     def __init__(self, params, embed_table, heads, slots=4, max_len=512,
                  n_tokens=32, eos=None, temperature=0.0, top_k=0, seed=0,
                  quantize=None, tile=None, paged=False, page_size=None,
-                 pool_pages=None, prefix_cache=None, ledger=None,
+                 pool_pages=None, prefix_cache=None, aot=None, ledger=None,
                  device=None):
         if quantize not in (None, "none", "int8", "int8-kv"):
             raise ValueError("quantize must be None, 'int8' or 'int8-kv', "
@@ -298,9 +301,24 @@ class ContinuousDecoder:
         #: "green" while this decoder is a rollout's candidate engine
         #: (the green-ramp chaos profile stalls only such steps)
         self.rollout_role = None
-        #: the AOT bundle the governor's prewarm builds from: none in the
-        #: port (ROADMAP A9), so the prewarm actuator returns at once
+        #: the AOT bundle (``aot/loader.AotPrograms``) whose libraries
+        #: this decoder's dispatches launch, and its bound facade: every
+        #: dispatch is looked up by program and key and booked as a hit
+        #: or a miss (``serving.py:961-975``). A geometry mismatch refuses
+        #: the bundle with the field named, and the decoder serves live
+        #: (the kernels built by nvcc, never a plain version on the card)
         self.aot = None
+        self._aot = None
+        if aot is not None:
+            from veles_tpu_torch.aot.loader import AotCompatError
+            try:
+                self._aot = aot.bind(self)
+                self.aot = aot
+            except AotCompatError as exc:
+                import logging
+                logging.getLogger("ContinuousDecoder").warning(
+                    "AOT bundle refused (stale field %r): %s - serving "
+                    "continues with live kernel builds", exc.field, exc)
         self.tokens_out = 0
         #: dispatch tally: one "admit" per admission group (the slab: one
         #: per prompt bucket; the pool: one per cold group), one "chunk"
@@ -472,6 +490,29 @@ class ContinuousDecoder:
     def busy(self):
         return bool(self._queue or self._slot_req)
 
+    @property
+    def aot_active(self):
+        """True when an AOT bundle is bound (its geometry matched)."""
+        return self._aot is not None
+
+    def _aot_dispatch(self, name, key):
+        """Look a dispatch up in the bound bundle before it runs: True
+        when the bundle covers it (a hit, its libraries readied), False
+        for a miss or without a bundle."""
+        if self._aot is None:
+            return False
+        return self._aot.dispatch(name, key)
+
+    def _dispatch_attribution(self, program):
+        """``(program_name, aot_served)`` of the dispatch that just ran
+        (the request ledger's per-dispatch attribution)."""
+        name = getattr(program, "program_name", program)
+        if self._aot is not None:
+            last = self._aot.last_dispatch
+            if last is not None and last[0] == name:
+                return last
+        return name, False
+
     def done(self, rid):
         """True once request ``rid``'s stream is complete."""
         return rid in self.results and rid not in self._budget
@@ -541,6 +582,7 @@ class ContinuousDecoder:
                 [len(r[1]) for r in group], numpy.int64))
             keys = self._req_keys(group)
             elapsed = time.perf_counter() - t0
+            self._aot_dispatch("decode.admit", ("admit", bucket))
             with self._span("decode.admit", [r[0] for r in group],
                             bucket=bucket, group=len(group)):
                 t0 = time.perf_counter()
@@ -649,15 +691,15 @@ class ContinuousDecoder:
     def _note_seated(self, slot, rid, kind, group, bucket, program):
         """The slot timeline and the request's ledger row for one seated
         request (``serving.py:1375-1387``); ``program`` is the admission
-        function (its ``program_name``). AOT waits for ROADMAP A9: every
-        admission is live."""
+        function (its ``program_name``), attributed AOT or live as the
+        bundle served it (:meth:`_dispatch_attribution`)."""
         self.scope.note_slot_admit(slot, rid, kind, bucket=bucket,
                                    trace=self._trace.get(rid))
         if self.ledger is not None:
+            name, served = self._dispatch_attribution(program)
             self.ledger.note_admit(
                 self._ledger_rows.get(rid), kind, group=group,
-                bucket=bucket, aot=False,
-                program=getattr(program, "program_name", None),
+                bucket=bucket, aot=served, program=name,
                 pages=len(self._slot_pages.get(slot) or ()))
 
     def _seat(self, slot, rid, prompt, pages):
@@ -698,6 +740,7 @@ class ContinuousDecoder:
                                            numpy.int64)),
                 self._req_keys(group))
         elapsed = time.perf_counter() - t0
+        self._aot_dispatch("paged.admit", ("paged_admit", width))
         with self._span("paged.admit", [r[0] for r in group],
                         bucket=width, group=len(group)):
             t0 = time.perf_counter()
@@ -733,6 +776,8 @@ class ContinuousDecoder:
                                            numpy.int64)),
                 self._req_keys(group))
         elapsed = time.perf_counter() - t0
+        self._aot_dispatch("paged.admit_tail", (
+            "paged_tail", width, len(group[0][3]["pages"])))
         with self._span("paged.admit_tail", [r[0] for r in group],
                         bucket=width, group=len(group),
                         prefix_pages=len(group[0][3]["pages"])):
@@ -758,6 +803,7 @@ class ContinuousDecoder:
                 torch.stack([r[3]["logits"] for r in group]),
                 self._req_keys(group))
         elapsed = time.perf_counter() - t0
+        self._aot_dispatch("paged.admit_hit", ("paged_hit",))
         with self._span("paged.admit_hit", [r[0] for r in group],
                         group=len(group)):
             t0 = time.perf_counter()
@@ -847,19 +893,26 @@ class ContinuousDecoder:
         return int(min(span, self.max_len))
 
     def _advance(self, n):
-        """Run ``n`` lockstep steps of every slot (slab or pool); returns
-        the emitted tokens (n, S), still on the device."""
+        """Run ``n`` lockstep steps of every slot (slab or pool), looked
+        up in the bundle first; returns the emitted tokens (n, S), still
+        on the device, and whether the bundle served the dispatch."""
         sampling = (self.temperature or 1.0, bool(self.temperature),
                     self.top_k)
         if self.paged:
+            table = self._page_table_array(n)
+            served = self._aot_dispatch(
+                "paged.dispatch", ("paged_dispatch", n, table.shape[1]))
             self.state, emitted = paged_slot_step_many(
                 self.params, self.embed_table, self.heads, self.state,
-                self._page_table_array(n), self._active(), n, *sampling)
+                table, self._active(), n, *sampling)
         else:
+            span = self._attended_span(n)
+            served = self._aot_dispatch("decode.dispatch",
+                                        ("dispatch", n, span))
             self.state, emitted = slot_step_many(
                 self.params, self.embed_table, self.heads, self.state,
-                self._active(), n, *sampling, span=self._attended_span(n))
-        return emitted
+                self._active(), n, *sampling, span=span)
+        return emitted, served
 
     def _note_dispatch(self, n, lens, elapsed):
         """The serve scope's booking of one ``n``-step dispatch over the
@@ -889,7 +942,8 @@ class ContinuousDecoder:
         snapshot = dict(self._slot_req)
         lens = [self._slot_len[s] for s in snapshot]
         t0 = time.perf_counter()
-        emitted = self._advance(1)[0]
+        emitted, served = self._advance(1)
+        emitted = emitted[0]
         for slot in snapshot:
             self._slot_len[slot] += 1
         self.dispatch_counts["step"] += 1
@@ -907,7 +961,8 @@ class ContinuousDecoder:
                 self.scope.note_slot_first(rid)
             self.results[rid].append(token)
             if self.ledger is not None:
-                self.ledger.note_tokens(self._ledger_rows.get(rid), 1)
+                self.ledger.note_tokens(self._ledger_rows.get(rid), 1,
+                                        aot=served)
             out[rid] = token
             self.tokens_out += 1
             self._budget[rid] -= 1
@@ -928,7 +983,7 @@ class ContinuousDecoder:
         program = "paged.dispatch" if self.paged else "decode.dispatch"
         with self._span(program, list(snapshot.values()), chunk=chunk):
             t0 = time.perf_counter()
-            emitted = self._advance(chunk)
+            emitted, served = self._advance(chunk)
             elapsed = time.perf_counter() - t0
         if self.scope.enabled:
             self._note_dispatch(chunk, [self._slot_len[s] for s in snapshot],
@@ -948,14 +1003,14 @@ class ContinuousDecoder:
         self.flight.note("dispatch", chunk=chunk,
                          rids=list(snapshot.values()),
                          ms=round(elapsed * 1000, 3))
-        return emitted, snapshot
+        return emitted, snapshot, served
 
     def collect_chunk(self, dispatched):
         """Read one dispatched chunk back (the device sync) and account
         its tokens to the requests assigned when it was dispatched;
         requests retired or cancelled meanwhile are skipped, and tokens
         past a budget or ``eos`` are discarded."""
-        emitted, snapshot = dispatched
+        emitted, snapshot, served = dispatched
         with self._span("decode.collect", list(snapshot.values())):
             t0 = time.perf_counter()
             emitted = emitted.cpu().numpy()   # (chunk, slots)
@@ -992,7 +1047,7 @@ class ContinuousDecoder:
             if self.ledger is not None and tokens:
                 # one cadence stamp a collected chunk a request
                 self.ledger.note_tokens(self._ledger_rows.get(rid),
-                                        len(tokens))
+                                        len(tokens), aot=served)
             out[rid] = tokens
             self.tokens_out += len(tokens)
             self._budget[rid] -= len(tokens)
@@ -1398,7 +1453,7 @@ class GenerateAPI:
                  rebuild_backoff=None, rebuild_backoff_max=None,
                  chaos=None, quantize=None, tile=None, paged=None,
                  page_size=None, pool_pages=None, slo=None, ledger=None,
-                 governor=None, device=None):
+                 governor=None, aot=None, device=None):
         import queue
 
         serve_cfg = root.common.serve
@@ -1421,6 +1476,38 @@ class GenerateAPI:
             page_size = serve_cfg.get("page_size", None)
         if pool_pages is None:
             pool_pages = serve_cfg.get("pool_pages", None)
+        #: the AOT boot (``--serve-aot PATH`` / ``root.common.serve.aot``,
+        #: ``serving.py:2249-2282``): the bundle loads ONCE here, so the
+        #: decoder and every rebuild reuse the same staged libraries. A
+        #: stale, tampered or missing bundle is refused with the field
+        #: named and the server boots live: its kernels built by nvcc
+        if aot is None:
+            aot_path = serve_cfg.get("aot", None)
+            if aot_path:
+                from veles_tpu_torch.aot.loader import (AotCompatError,
+                                                        load_bundle)
+                try:
+                    aot = load_bundle(aot_path, device=device)
+                except (AotCompatError, ValueError, OSError) as exc:
+                    import logging
+                    logging.getLogger("GenerateAPI").warning(
+                        "AOT bundle %s refused (%s): %s - serving boots "
+                        "with live kernel builds instead", aot_path,
+                        getattr(exc, "field", "unreadable"), exc)
+                    aot = None
+        if aot is not None and aot.chunk is not None \
+                and int(aot.chunk) != int(chunk):
+            # not a refusal: admissions still hit, but every chunked
+            # dispatch would miss, which defeats the boot
+            import logging
+            logging.getLogger("GenerateAPI").warning(
+                "AOT bundle was built for dispatch chunk %d but this "
+                "server drives chunk %d: every chunked dispatch will miss "
+                "the bundle (veles_aot_misses_total) - rebuild with "
+                "--chunk %d or pass chunk=%d", aot.chunk, chunk, chunk,
+                aot.chunk)
+        #: the bundle every decoder this front builds binds (None: live)
+        self.aot = aot
         #: the request ledger (every request's row; the process ledger by
         #: default, so /debug/requests, the autopsy CLI and the black box
         #: see one view) and the SLO engine (None without objectives)
@@ -1434,8 +1521,8 @@ class GenerateAPI:
             slots=slots, max_len=max_len, n_tokens=n_tokens,
             temperature=temperature, top_k=top_k, eos=eos, seed=seed,
             quantize=quantize, tile=tile, paged=bool(paged),
-            page_size=page_size, pool_pages=pool_pages, ledger=self.ledger,
-            device=device)
+            page_size=page_size, pool_pages=pool_pages, aot=aot,
+            ledger=self.ledger, device=device)
         self.decoder = ContinuousDecoder(**self._decoder_kwargs)
         self.vocab = embed_table.shape[0]
         self.port = port

@@ -639,8 +639,8 @@ def tear_file(path, frac=0.5):
     """Truncate ``path`` to ``frac`` of its bytes (a torn write / a
     crashed copy) WITHOUT touching any sidecar — the persistent
     executable cache's sha256 check must refuse the entry and fall
-    back to live compilation (aot/exec_cache.py,
-    ROADMAP A9). Returns the new size."""
+    back to a live nvcc build (aot/exec_cache.py). Returns the new
+    size."""
     import os
 
     size = os.path.getsize(path)
