@@ -386,6 +386,7 @@ import contextlib
 import gc
 import glob
 import gzip
+import hashlib
 import heapq
 import http.client
 import io
@@ -8422,6 +8423,14 @@ stamps["model"] = time.time()
 api = GenerateAPI(params, table, args["heads"], device=device,
                   **args["serve"]).start()
 stamps["booted"] = time.time()
+# one short request through its own front: the card's first launches
+# (library loads, handles) are paid here, not by the router's baseline
+req = urllib.request.Request(
+    "http://127.0.0.1:%d/generate" % api.port, data=json.dumps(
+        {"tokens": list(range(1, 9)), "n_tokens": 2}).encode(),
+    headers={"Content-Type": "application/json"})
+urllib.request.urlopen(req, timeout=300).read()
+stamps["warm"] = time.time()
 
 
 def post(tokens, n_tokens):
@@ -8822,6 +8831,661 @@ def aot_phase(device, early):
     return launches
 
 
+# -- phase 26: the serving fleet and deploys ---------------------------------
+
+#: the forge package every replica boots from (its bundle and the serving
+#: checkpoint), and the rollout's: one name, two versions
+SERVE_FLEET_PACKAGE = "serving-fleet"
+SERVE_FLEET_REPLICAS = 3
+#: the router's settings (tests/test_router.py::TestElasticChaosAcceptance
+#: at the serving model's page of 128 tokens)
+ROUTER_SPEC = ("poll_interval_s=0.2,fail_threshold=2,cooldown_s=0.0,"
+               "hedge_after_s=2.0,backoff_s=0.01,page_size=%d" % PAGE)
+SERVE_FLEET_CLIENTS, SERVE_FLEET_ROUNDS, SERVE_FLEET_N_TOKENS = 6, 6, 16
+#: a replica child's own deadline, and the forge child's (started before
+#: phase 23): each exits at it whatever happens
+SERVE_FLEET_CHILD_DEADLINE, SERVE_FLEET_FORGE_DEADLINE = 600, 1200
+#: the replicas' tier: the paged float tier on f32 weights. A replica's
+#: greedy stream in the paged int8 tier (bf16 weights) is not the same
+#: alone and inside a burst of six clients (ROADMAP C: 5 of 72 burst
+#: streams differed on the card, ``scripts/batch_composition.py``); the
+#: f32 float tier's are (0 of 72), so failover can be held bit-equal. The
+#: rollout (c) keeps the int8 tier.
+SERVE_FLEET_TIER = (None, True)
+#: the rollout's other weights, and its ladder (ROLLOUT_STEPS, fast)
+SERVE_FLEET_GREEN_SEED = 1
+SERVE_FLEET_ROLLOUT = {"steps": ROLLOUT_STEPS, "hold_s": 0.5,
+                       "cooldown_s": 0.5, "window_s": 20.0,
+                       "min_requests": 2, "interval_s": 0.05}
+
+#: a replica: fetch the package from the forge, load its bundle and its
+#: serving checkpoint (bf16 leaves, widened exactly to f32), boot a
+#: GenerateAPI from the bundle, print its port, serve until killed or
+#: told "report" on stdin (then print its builds, AOT stats and launches)
+SERVE_FLEET_REPLICA_CHILD = r"""
+import json, os, sys, threading, time, urllib.request
+stamps = {"start": time.time()}
+args = json.loads(sys.argv[1])
+threading.Timer(args["deadline_s"], lambda: os._exit(3)).start()
+import numpy
+import torch
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.deploy_cli import load_serving_checkpoint
+from veles_tpu_torch.device import tree_to
+from veles_tpu_torch.forge.client import ForgeClient
+from veles_tpu_torch.observe.xla_stats import get_compile_tracker
+from veles_tpu_torch.ops.paged_attention import paged_attend
+from veles_tpu_torch.ops.quant import int8_matmul
+from veles_tpu_torch.parallel.transformer_step import (
+    init_transformer_params)
+from veles_tpu_torch.serving import GenerateAPI
+stamps["imported"] = time.time()
+dest, manifest = ForgeClient(args["forge"]).fetch(
+    args["name"], version=args["version"], dest=args["dest"])
+stamps["fetched"] = time.time()
+root.common.serve.aot = os.path.join(dest, next(
+    name for name in manifest["artifacts"] if name.endswith(".aot.tar")))
+# the checkpoint is assembled against a tree of the model's structure:
+# its depth and dtype, not its widths
+like = init_transformer_params(numpy.random.RandomState(0), args["blocks"],
+                               8, 2, 8, dtype=torch.bfloat16, device="cpu")
+with open(os.path.join(dest, manifest.get("weights", "weights.npz")),
+          "rb") as fin:
+    params, table = load_serving_checkpoint(
+        fin.read(), like, torch.empty(8, 8, dtype=torch.bfloat16))
+device = torch.device(args["device"])
+params = tree_to(params, device, torch.float32)
+table = table.to(device=device, dtype=torch.float32)
+if device.type == "cuda":
+    torch.cuda.synchronize()
+stamps["weights"] = time.time()
+api = GenerateAPI(params, table, args["heads"], device=device,
+                  **args["serve"]).start()
+stamps["booted"] = time.time()
+# one short request through its own front: the card's first launches
+# (library loads, handles) are paid here, not by the router's baseline
+req = urllib.request.Request(
+    "http://127.0.0.1:%d/generate" % api.port, data=json.dumps(
+        {"tokens": list(range(1, 9)), "n_tokens": 2}).encode(),
+    headers={"Content-Type": "application/json"})
+urllib.request.urlopen(req, timeout=300).read()
+stamps["warm"] = time.time()
+print("REPLICA " + json.dumps({"port": api.port, "stamps": stamps}),
+      flush=True)
+for line in sys.stdin:
+    if line.strip() == "report":
+        aot = api.decoder.aot
+        print("REPLICA " + json.dumps({
+            "builds": {name: n for name, n in get_compile_tracker()
+                       .snapshot()["compiles"].items()
+                       if name.endswith(".cu")},
+            "aot": None if aot is None else aot.stats(),
+            "launches": {"paged_attend": paged_attend.launches,
+                         "int8_matmul": int8_matmul.launches}}),
+              flush=True)
+        break
+api.stop()
+os._exit(0)
+"""
+
+
+#: phase 26's forge: a ForgeServer on 127.0.0.1, and the packages packed
+#: and uploaded over HTTP beside phases 23-25, at a lower CPU priority
+#: (os.nice) so their gzip takes from those phases as little as it can:
+#: version 1.0 (the replicas' bundle and phase 25's checkpoint, bf16
+#: leaves), 1.1 (the int8 tier's weights drawn from seed 1 and quantized,
+#: for the rollout) and a tampered package (1.0's bundle with one byte
+#: flipped after its sidecar was written). Serves until stdin closes.
+SERVE_FLEET_FORGE_CHILD = r"""
+import hashlib, json, os, shutil, sys, threading, time
+args = json.loads(sys.argv[1])
+os.nice(10)
+threading.Timer(args["deadline_s"], lambda: os._exit(3)).start()
+import numpy
+import torch
+from veles_tpu_torch.aot.cli import stage_into_package
+from veles_tpu_torch.deploy_cli import save_serving_checkpoint
+from veles_tpu_torch.forge import ForgeClient, ForgeServer
+from veles_tpu_torch.forge.package import MANIFEST, pack
+from veles_tpu_torch.parallel.decode import quantize_params
+from veles_tpu_torch.parallel.transformer_step import (
+    init_transformer_params)
+top = args["dir"]
+server = ForgeServer(os.path.join(top, "store"),
+                     token=args["token"]).start()
+print("FORGE " + json.dumps({"port": server.port}), flush=True)
+client = ForgeClient("http://127.0.0.1:%d" % server.port,
+                     token=args["token"])
+
+
+def package(version, params, table, bundle=None):
+    directory = os.path.join(top, "pkg-" + version)
+    os.makedirs(directory)
+    with open(os.path.join(directory, "serve.py"), "w") as fout:
+        fout.write("# the serving model's checkpoint and programs\n")
+    weights = os.path.join(directory, "weights.npz")
+    with open(weights, "wb") as fout:
+        save_serving_checkpoint(fout, params, table)
+    with open(weights, "rb") as fin:
+        digest = hashlib.sha256(fin.read()).hexdigest()
+    with open(weights + ".sha256", "w") as fout:
+        fout.write("%s  weights.npz\n" % digest)
+    with open(os.path.join(directory, MANIFEST), "w") as fout:
+        json.dump({"name": args["name"], "version": version,
+                   "workflow": "serve.py",
+                   "short_description": "the serving model at full width",
+                   "artifacts": ["weights.npz"]}, fout)
+    if bundle is not None:
+        stage_into_package(bundle, directory)
+    return directory
+
+
+def tampered():
+    directory = os.path.join(top, "tampered")
+    os.makedirs(directory)
+    name = os.path.basename(args["bundle"])
+    for member in (MANIFEST, "serve.py", name, name + ".sha256"):
+        shutil.copy(os.path.join(top, "pkg-1.0", member), directory)
+    with open(os.path.join(directory, MANIFEST)) as fin:
+        manifest = json.load(fin)
+    manifest.update(version="1.9", artifacts=[name])
+    with open(os.path.join(directory, MANIFEST), "w") as fout:
+        json.dump(manifest, fout)
+    with open(os.path.join(directory, name), "r+b") as fout:
+        fout.seek(-1, os.SEEK_END)
+        last = fout.read(1)
+        fout.seek(-1, os.SEEK_END)
+        fout.write(bytes([last[0] ^ 1]))
+    return pack(directory, os.path.join(top, "tampered.tgz"))[0]
+
+
+params, table = torch.load(args["model"], map_location="cpu")
+t0 = time.time()
+client.upload(package("1.0", params, table, bundle=args["bundle"]))
+done = {"upload_s_1.0": time.time() - t0}
+print("FORGE " + json.dumps({"stored": "1.0"}), flush=True)
+t0 = time.time()
+w = args["widths"]
+green = init_transformer_params(
+    numpy.random.RandomState(args["green_seed"]), w["blocks"], w["embed"],
+    w["heads"], w["vocab"], dtype=torch.bfloat16, device="cpu")
+client.upload(package("1.1", quantize_params(green), table))
+done.update({"upload_s_1.1": time.time() - t0, "stored": "1.1",
+             "tampered": tampered()})
+print("FORGE " + json.dumps(done), flush=True)
+sys.stdin.read()
+server.stop()
+os._exit(0)
+"""
+
+
+class FleetChild:
+    """A phase-26 child (a replica, or the forge) running ``script`` from
+    the package copy in ``directory`` (only it on the path); stdin is its
+    control pipe, its stdout lines starting with ``prefix`` are JSON
+    (a reader thread queues them), its stderr a file there."""
+
+    def __init__(self, script, args, directory, prefix="REPLICA "):
+        import queue
+
+        self.err = open(os.path.join(directory, "child.err"), "w+")
+        self.popen = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", script, json.dumps(args)],
+            cwd=directory, env=dict(os.environ, PYTHONPATH=directory),
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=self.err, text=True)
+        self.lines = queue.Queue()
+
+        def read():
+            for text in self.proc.stdout:
+                if text.startswith(prefix):
+                    self.lines.put(json.loads(text[len(prefix):]))
+            self.lines.put(None)   # the child closed its stdout
+
+        threading.Thread(target=read, name="phase-26-reader",
+                         daemon=True).start()
+
+    def line(self, deadline):
+        """The child's next JSON line; fails at ``deadline``
+        (time.time()) or once the child closed its stdout."""
+        import queue
+
+        try:
+            got = self.lines.get(timeout=max(0.0, deadline - time.time()))
+        except queue.Empty:
+            got = None
+        if got is None:
+            self.err.seek(0)
+            raise AssertionError("a phase 26 child gave no line (exit "
+                                 "%s):\n%s" % (self.proc.poll(),
+                                               self.err.read()[-4000:]))
+        return got
+
+    def report(self, deadline):
+        self.proc.stdin.write("report\n")
+        self.proc.stdin.flush()
+        return self.line(deadline)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.err.close()
+
+
+def serve_fleet_prompts():
+    """Phase 4's shared-prompt traffic (a two-page system prompt, eight
+    tails behind it, the system prompt twice more) and six distinct
+    prompts, one list."""
+    shared = [prompt for wave in prefix_waves(numpy.random.RandomState(2))
+              for prompt in wave]
+    rng = numpy.random.RandomState(26)
+    return shared, [rng.randint(0, VOCAB, n).tolist()
+                    for n in (40, 100, 180, 300, 450, 700)]
+
+
+def serve_fleet_prepare(device, early):
+    """Phase 26's forge and packages, made before phase 23 so that their
+    gzip runs beside phases 23-25: in this process the replicas' bundle
+    (the paged float tier on f32 weights, this process's libraries), then
+    the forge child (:data:`SERVE_FLEET_FORGE_CHILD`) in ``early``'s
+    directory. Returns the state :func:`serve_fleet_start` and
+    :func:`serve_fleet_phase` take."""
+    from veles_tpu_torch.aot.artifact import build_serving_bundle
+    from veles_tpu_torch.device import tree_to
+
+    t0 = time.perf_counter()
+    tmp, model, _ = early
+    state = {"dir": os.path.join(tmp, "fleet")}
+    os.makedirs(state["dir"])
+    params, table = torch.load(model, map_location="cpu")
+    bundle = os.path.join(state["dir"], "replica.aot.tar")
+    build_serving_bundle(tree_to(params, device, torch.float32),
+                         table.to(device=device, dtype=torch.float32),
+                         HEADS, bundle, device=device,
+                         **aot_serve_kwargs(*SERVE_FLEET_TIER))
+    del params, table
+    state["forge"] = FleetChild(SERVE_FLEET_FORGE_CHILD, {
+        "dir": state["dir"], "token": "phase-26", "model": model,
+        "bundle": bundle, "name": SERVE_FLEET_PACKAGE,
+        "green_seed": SERVE_FLEET_GREEN_SEED,
+        "widths": {"blocks": BLOCKS, "embed": EMBED, "heads": HEADS,
+                   "vocab": VOCAB},
+        "deadline_s": SERVE_FLEET_FORGE_DEADLINE},
+        package_copy(os.path.join(state["dir"], "forge")), prefix="FORGE ")
+    print("phase 26 prepared in %.1f s; its packages pack beside phases "
+          "23-25" % (time.perf_counter() - t0))
+    return state
+
+
+def serve_fleet_start(state, device):
+    """Phase 26 (a)'s replicas, started beside phase 25's children once
+    version 1.0 is in the forge: each fetches and unpacks the package
+    into its own directory and boots from its bundle."""
+    deadline = time.time() + 600
+    state["url"] = "http://127.0.0.1:%d" % state["forge"].line(
+        deadline)["port"]
+    assert state["forge"].line(deadline) == {"stored": "1.0"}
+    state["replicas"] = []
+    for i in range(SERVE_FLEET_REPLICAS):
+        directory = package_copy(os.path.join(state["dir"],
+                                              "replica-%d" % i))
+        state["replicas"].append(FleetChild(SERVE_FLEET_REPLICA_CHILD, {
+            "forge": state["url"], "name": SERVE_FLEET_PACKAGE,
+            "version": "1.0", "dest": os.path.join(directory, "pkg"),
+            "blocks": BLOCKS, "heads": HEADS,
+            "serve": aot_serve_kwargs(*SERVE_FLEET_TIER),
+            "device": device.type, "deadline_s": SERVE_FLEET_CHILD_DEADLINE},
+            directory))
+
+
+def serve_fleet_tamper_upload(state):
+    """(a): the tampered package is refused at upload with 422, and
+    nothing is stored."""
+    with open(state["tampered"], "rb") as fin:
+        blob = fin.read()
+    req = urllib.request.Request(
+        state["url"] + "/upload", data=blob,
+        headers={"X-Forge-Token": "phase-26",
+                 "Content-Type": "application/octet-stream"})
+    try:
+        urllib.request.urlopen(req, timeout=60)
+        raise AssertionError("the tampered package was stored")
+    except urllib.error.HTTPError as err:
+        err.read()
+        assert err.code == 422, err.code
+    from veles_tpu_torch.forge import ForgeClient
+
+    versions = ForgeClient(state["url"]).details(
+        SERVE_FLEET_PACKAGE)["versions"]
+    assert sorted(versions) == ["1.0", "1.1"], sorted(versions)
+
+
+def route_post(url, tokens):
+    """POST through the router: (status, body, the serving replica)."""
+    req = urllib.request.Request(
+        url + "/generate", data=json.dumps(
+            {"tokens": tokens, "n_tokens": SERVE_FLEET_N_TOKENS}).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read().decode()), \
+                resp.headers.get("X-Veles-Replica")
+    except urllib.error.HTTPError as err:
+        with err:
+            return err.code, json.loads(err.read().decode() or "{}"), None
+
+
+def serve_fleet_route(state, run_dir):
+    """(b): the router over the three replicas, its replica 0 the shared
+    prompt's affinity owner; a fault-free baseline; six clients of six
+    rounds with replica 0 SIGKILLed (``ReplicaChaosMonkey``) while it
+    holds a lease. Every reply 200 and its tokens the baseline's; the
+    plane's transitions and the incident name replica 0; the router's
+    /metrics count a failover and affinity hits; a request after the
+    death answers its baseline. Returns the readings."""
+    from veles_tpu_torch.router import HashRing, build_router, prefix_key
+    from veles_tpu_torch.serving_chaos import (REPLICA_GOODPUT_SERIES,
+                                               ReplicaChaosConfig,
+                                               ReplicaChaosMonkey)
+
+    shared, distinct = serve_fleet_prompts()
+    prompts = shared + distinct
+    urls = ["127.0.0.1:%d" % ready["port"] for ready in state["ready"]]
+    owner = HashRing(urls).owners(prefix_key(shared[0], PAGE))[0]
+    order = sorted(range(len(urls)), key=lambda i: urls[i] != owner)
+    replicas = [state["replicas"][i] for i in order]
+    history = MetricHistory(
+        registry=get_metrics_registry(), interval_s=0.2,
+        incidents=IncidentRecorder(cooldown_s=0.0, directory=run_dir))
+    set_metric_history(history)
+    min_eval, servescope_mod.MIN_EVAL_TOKENS = (
+        servescope_mod.MIN_EVAL_TOKENS, 1 << 62)
+    router = None
+    readings = {}
+    try:
+        plane, router = build_router(["http://" + urls[i] for i in order],
+                                     spec=ROUTER_SPEC)
+        router.start()
+        front = "http://127.0.0.1:%d" % router.port
+        baseline = {}
+        t0 = time.perf_counter()
+        for prompt in prompts:
+            status, body, _ = route_post(front, prompt)
+            assert status == 200, body
+            baseline[tuple(prompt)] = body["tokens"]
+        readings["fault_free_rps"] = len(prompts) / (time.perf_counter()
+                                                     - t0)
+        monkey = ReplicaChaosMonkey(ReplicaChaosConfig(kill_at=1,
+                                                       kill_index=0))
+        results, errors, lock = [], [], threading.Lock()
+
+        def pound(k):
+            for r in range(SERVE_FLEET_ROUNDS):
+                prompt = prompts[(k * SERVE_FLEET_ROUNDS + r) % len(prompts)]
+                try:
+                    got = route_post(front, prompt)
+                except Exception as exc:   # noqa: BLE001 - counted
+                    with lock:
+                        errors.append(repr(exc))
+                    continue
+                with lock:
+                    results.append((tuple(prompt),) + got)
+
+        threads = [threading.Thread(target=pound, args=(k,))
+                   for k in range(SERVE_FLEET_CLIENTS)]
+        t0 = time.perf_counter()
+        for thread in threads:
+            thread.start()
+        for tick in range(2):
+            for action, index in monkey.actions(tick):
+                assert action == "kill"
+                wait_for(lambda: plane.replicas[index].leases > 0, 60,
+                         "a lease on replica %d" % index)
+                replicas[index].proc.send_signal(signal.SIGKILL)
+        for thread in threads:
+            thread.join(300)
+        readings["under_kill_rps"] = len(results) / (time.perf_counter()
+                                                     - t0)
+        assert not any(thread.is_alive() for thread in threads)
+        assert errors == [], errors
+        assert len(results) == SERVE_FLEET_CLIENTS * SERVE_FLEET_ROUNDS
+        for prompt, status, body, _ in results:
+            assert status == 200, (status, body)
+            assert body["tokens"] == baseline[prompt], \
+                "a failover reply differs from the baseline"
+        assert monkey.counters["kills"] == 1
+        dead = plane.replicas[0].name
+        wait_for(lambda: plane.find(dead).state == "dead", 30,
+                 "the plane to name the dead replica")
+        entry = next(t for t in plane.transitions
+                     if t["action"] == "replica_dead")
+        assert entry["replica"] == dead, entry
+        wait_for(lambda: history.incidents.last_doc is not None, 30,
+                 "the incident")
+        leading = history.incidents.last_doc["leading_indicator"]
+        assert leading["series"] == REPLICA_GOODPUT_SERIES, leading
+        assert ["replica", dead] in leading["labels"], leading
+        status, body, served = route_post(front, shared[0])
+        assert status == 200 and served != dead
+        assert body["tokens"] == baseline[tuple(shared[0])]
+        text = scrape(router.port)
+        failovers = sample(text, "veles_router_failovers_total")
+        hits = sample(text, "veles_router_affinity_hits_total")
+        assert failovers and failovers >= 1, failovers
+        assert hits and hits > 0, hits
+        failover_ms = router.failover_ms_samples()
+        readings.update(
+            failovers=failovers, affinity_hits=hits,
+            affinity_misses=sample(text,
+                                   "veles_router_affinity_misses_total"),
+            failover_ms_p50=statistics.median(failover_ms)
+            if failover_ms else None,
+            failover_ms_max=max(failover_ms) if failover_ms else None,
+            dead=dead, transitions=[(t["action"], t["replica"])
+                                    for t in plane.transitions])
+    finally:
+        if router is not None:
+            router.stop()
+        set_metric_history(None)
+        servescope_mod.MIN_EVAL_TOKENS = min_eval
+    return replicas, readings
+
+
+def serve_fleet_rollout(device, state, tampered):
+    """(c): ``python -m veles_tpu_torch deploy rollout serving-fleet@1.1
+    --forge-url URL`` into a GenerateAPI of this process (the paged int8
+    tier, K1 and K2): exit 0 and promoted, every stream after it equal to
+    a fresh api's on the new weights; a second rollout while one is in
+    flight exits 4 and the tampered package 3, the live streams
+    unchanged by both. Returns (the launches, the readings)."""
+    from veles_tpu_torch.__main__ import main as cli_main
+    from veles_tpu_torch.deploy_cli import load_serving_checkpoint
+
+    params, table = bf16_model(device)
+    shared, distinct = serve_fleet_prompts()
+    prompts = [shared[0], shared[3]] + distinct[:3]
+    kwargs = dict(aot_serve_kwargs("int8", True),
+                  n_tokens=SERVE_FLEET_N_TOKENS)
+    saved = {key: root.common.serve.rollout.get(key, None)
+             for key in SERVE_FLEET_ROLLOUT}
+    for key, value in SERVE_FLEET_ROLLOUT.items():
+        setattr(root.common.serve.rollout, key, value)
+    tenants = ["tenant-%d" % i for i in range(1000)]
+    green_t = next(t for t in tenants if hash_point(t) < ROLLOUT_STEPS[0])
+    blue_t = next(t for t in tenants if hash_point(t) >= ROLLOUT_STEPS[0])
+    api = GenerateAPI(params, table, HEADS, device=device, **kwargs).start()
+    readings = {}
+    try:
+        # the second pass: every prompt's pages in the prefix cache, as
+        # they stay for the checks below (a tail or hit admission need
+        # not be bit-equal to a cold one)
+        before = [post(api.port, p, SERVE_FLEET_N_TOKENS)
+                  for p in prompts + prompts][len(prompts):]
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        code = cli_main(["deploy", "rollout", SERVE_FLEET_PACKAGE + "@1.1",
+                         "--forge-url", state["url"]])
+        readings["deploy_s"] = time.perf_counter() - t0
+        assert code == 0, code
+        rollout = api._rollout
+        assert rollout is not None and rollout.state == "shifting"
+        assert rollout.version == SERVE_FLEET_PACKAGE + "@1.1"
+        t1 = time.perf_counter()
+        refusals = (cli_main(["deploy", "rollout",
+                              SERVE_FLEET_PACKAGE + "@1.1",
+                              "--forge-url", state["url"]]),
+                    cli_main(["deploy", "rollout", tampered]))
+        readings["refusals_s"] = time.perf_counter() - t1
+        assert refusals == (4, 3), refusals
+        assert [tenant_post(api.port, p, blue_t) for p in prompts] \
+            == before, "a refusal changed the live streams"
+        deadline = time.monotonic() + 90
+        while rollout.state not in ("promoted", "rolled_back") \
+                and time.monotonic() < deadline:
+            for tenant in (green_t, blue_t):
+                tenant_post(api.port, prompts[0], tenant)
+        readings["promoted_s"] = time.perf_counter() - t0
+        readings["ramp_s"] = time.perf_counter() - t1 \
+            - readings["refusals_s"]
+        assert rollout.state == "promoted", rollout.snapshot()
+        assert api.version == SERVE_FLEET_PACKAGE + "@1.1"
+        got = [post(api.port, p, SERVE_FLEET_N_TOKENS)
+               for p in prompts + prompts][len(prompts):]
+        launches = counts()
+        like = (api.decoder.params, api.decoder.embed_table)
+    finally:
+        api.stop()
+        for key, value in saved.items():
+            setattr(root.common.serve.rollout, key, value)
+    # a fresh api on the package's weights (the file the forge packed)
+    with open(os.path.join(state["dir"], "pkg-1.1", "weights.npz"),
+              "rb") as fin:
+        green, table = load_serving_checkpoint(fin.read(), *like)
+    del like
+    after = fixed_streams(green, table, prompts, kwargs, device)
+    assert got == after, "the promoted streams differ from a fresh api's " \
+                         "on the new weights"
+    assert launches["paged_attend"] > 0 and launches["int8_matmul"] > 0, \
+        launches
+    return launches, readings
+
+
+def tenant_post(port, tokens, tenant):
+    """One POST of SERVE_FLEET_N_TOKENS tokens as ``tenant``; returns
+    them."""
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/generate" % port, data=json.dumps(
+            {"tokens": tokens, "n_tokens": SERVE_FLEET_N_TOKENS}).encode(),
+        headers={"Content-Type": "application/json",
+                 "X-Veles-Tenant": tenant})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read().decode())["tokens"]
+
+
+def fixed_streams(params, table, prompts, kwargs, device):
+    """Each prompt alone through a fresh api, twice: the second pass's
+    streams (every prompt's pages cached); launches not counted."""
+    saved = counts()
+    api = GenerateAPI(params, table, HEADS, device=device, **kwargs).start()
+    try:
+        return [post(api.port, p, kwargs["n_tokens"])
+                for p in prompts + prompts][len(prompts):]
+    finally:
+        api.stop()
+        for name, fn in COUNTERS.items():
+            fn.launches = saved[name]
+
+
+def serve_fleet_phase(device, state):
+    """Phase 26: the serving fleet and deploys at the serving model's full
+    width. (a) The replicas (started by :func:`serve_fleet_start` beside phase
+    25) booted from the forge package with no kernel build and no AOT
+    miss; a tampered upload refused with 422. (b) The router and a kill
+    -9 (:func:`serve_fleet_route`). (c) ``deploy rollout`` into a live api
+    (:func:`serve_fleet_rollout`). Returns the launches: the surviving
+    replicas' K1 (and K2) and (c)'s K1 and K2."""
+    t_phase = time.perf_counter()
+    deadline = time.time() + 300
+    launches = dict.fromkeys(COUNTERS, 0)
+    replicas = state["replicas"]
+    try:
+        state["ready"] = [rep.line(deadline) for rep in replicas]
+        boots = []
+        for rep, ready in zip(replicas, state["ready"]):
+            stamps = ready["stamps"]
+            boots.append(stamps["booted"] - rep.popen)
+            print("phase 26 (a) replica on port %d: %.3f s from Popen to "
+                  "serving (imports %.3f, fetch and unpack %.3f, weights "
+                  "%.3f, boot %.3f), then a warm-up request %.3f" % (
+                      ready["port"], boots[-1],
+                      stamps["imported"] - rep.popen,
+                      stamps["fetched"] - stamps["imported"],
+                      stamps["weights"] - stamps["fetched"],
+                      stamps["booted"] - stamps["weights"],
+                      stamps["warm"] - stamps["booted"]))
+        state.update(state["forge"].line(deadline))
+        assert state["stored"] == "1.1", state
+        serve_fleet_tamper_upload(state)
+        with tempfile.TemporaryDirectory() as run_dir:
+            ordered, readings = serve_fleet_route(state, run_dir)
+        survivors = [rep for rep in ordered[1:]]
+        for rep in survivors:
+            report = rep.report(deadline)
+            stats = report["aot"]
+            assert not report["builds"], report["builds"]
+            assert stats is not None and not stats["misses"], stats
+            assert sum(stats["hits"].values()) > 0, stats
+            assert set(stats["libraries"].values()) == {"bundle"}, stats
+            assert report["launches"]["paged_attend"] > 0, report
+            for name, n in report["launches"].items():
+                launches[name] += n
+        print("phase 26 (a) replicas: %d booted from %s@1.0, the survivors "
+              "0 builds and no AOT miss, launches %s; the tampered upload "
+              "422, nothing stored" % (
+                  len(replicas), SERVE_FLEET_PACKAGE,
+                  json.dumps({k: v for k, v in launches.items() if v},
+                             sort_keys=True)))
+        print("phase 26 (b) the router over %d replicas, %s killed: %d "
+              "replies 200 and bit-equal to the baseline; transitions %s; "
+              "%s failovers, %s affinity hits, %s misses" % (
+                  len(replicas), readings["dead"],
+                  SERVE_FLEET_CLIENTS * SERVE_FLEET_ROUNDS,
+                  json.dumps(readings["transitions"]),
+                  readings["failovers"], readings["affinity_hits"],
+                  readings["affinity_misses"]))
+        got, rollout = serve_fleet_rollout(device, state, state["tampered"])
+        for name, n in got.items():
+            launches[name] += n
+        print("phase 26 (c) deploy rollout %s@1.1: exit 0 in %.3f s "
+              "(fetch, verify, load, green build and probe), promoted "
+              "%.3f s after it began (the ramp %.3f s), streams equal to a "
+              "fresh api's on the new weights; refusals 4 (in flight) and "
+              "3 (tampered) in %.3f s left the live streams unchanged; "
+              "launches K1 %d, K2 %d" % (
+                  SERVE_FLEET_PACKAGE, rollout["deploy_s"],
+                  rollout["promoted_s"],
+                  rollout["ramp_s"], rollout["refusals_s"],
+                  got["paged_attend"], got["int8_matmul"]))
+        print("phase 26 readings (no gate): replica boot s %s; requests/s "
+              "through the router %.3f fault-free, %.3f under the kill; "
+              "failover ms p50 %s, max %s; upload s %s; %s" % (
+                  json.dumps([round(b, 3) for b in boots]),
+                  readings["fault_free_rps"], readings["under_kill_rps"],
+                  readings["failover_ms_p50"], readings["failover_ms_max"],
+                  json.dumps({k: round(v, 3) for k, v in state.items()
+                              if k.startswith("upload_s_")},
+                             sort_keys=True), card_line()))
+    finally:
+        for child in replicas + [state["forge"]]:
+            child.kill()
+    print("phase 26: %.1f s; %s" % (time.perf_counter() - t_phase,
+                                    card_line()))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -9014,7 +9678,11 @@ def main():
     # phase 25's cold-live replica starts here: its nvcc builds run
     # beside phases 23 and 24
     early = aot_cold_start(device)
+    serve_fleet = None
     try:
+        # phase 26's bundle and forge server; its packages pack on a
+        # thread beside phases 23-25
+        serve_fleet = serve_fleet_prepare(device, early)
         # the training fleet: every slave's K6 and K5 are a main path;
         # its (c), the respawn on the digits, starts before phase 24's (a)
         # and its (d) with phase 24's (b) and (c)
@@ -9027,11 +9695,23 @@ def main():
         for name, n in pod_phase(device, single, beside).items():
             launches[name] += n
         clock("the mesh, fleet and pod phases")
+        # phase 26's replicas start beside phase 25's children once its
+        # packages (packed on a thread beside phases 23-24) are uploaded
+        serve_fleet_start(serve_fleet, device)
         # the AOT bundle: each fresh replica's K1, K3, K4 and K2 and the
         # fresh trainer's K6 and K5 are a main path
         for name, n in aot_phase(device, early).items():
             launches[name] += n
+        clock("the AOT phase")
+        # the serving fleet and deploys: the surviving replicas' K1 and
+        # the rolled-out api's K1 and K2 are a main path
+        for name, n in serve_fleet_phase(device, serve_fleet).items():
+            launches[name] += n
     finally:
+        if serve_fleet is not None:
+            for child in serve_fleet.get("replicas", []) \
+                    + [serve_fleet["forge"]]:
+                child.kill()
         early[2].kill()
         shutil.rmtree(early[0], ignore_errors=True)
     isolated.cleanup()

@@ -28,6 +28,7 @@ import json
 import logging
 import os
 import tarfile
+import urllib.error
 import urllib.request
 
 import numpy
@@ -640,11 +641,119 @@ def test_cli_exit_codes_match_jax(tmp_path, capsys):
 def test_cli_refusals_name_their_roadmap_items(tmp_path, capsys):
     out = str(tmp_path / "b.aot.tar")
     base = ["build", "--out", out, "--device", "cpu"]
-    assert tcli.main(base + ["--forge-dir", str(tmp_path)]) == 2
-    assert "ROADMAP A9 (c)" in capsys.readouterr().err
     with pytest.raises(NotImplementedError, match=r"ROADMAP A8 \(c\)"):
         tcli.main(base + ["--mesh", "model=8"])
     assert not os.path.exists(out)
+
+
+def _package_dir(directory):
+    """tests/test_forge.py's package directory: a manifest naming a
+    workflow and a config file."""
+    os.makedirs(directory)
+    with open(os.path.join(directory, "manifest.json"), "w") as fout:
+        json.dump({"name": "toy-model", "version": "1.0",
+                   "short_description": "toy model", "workflow": "wf.py",
+                   "config": "cfg.py", "requires": ["numpy"]}, fout)
+    for name, text in (("wf.py", "# the workflow\n"),
+                       ("cfg.py", "root.toy.x = 1\n")):
+        with open(os.path.join(directory, name), "w") as fout:
+            fout.write(text)
+    return directory
+
+
+def test_stage_into_package_gives_jax_manifest(tmp_path, capsys,
+                                               dense_bundle):
+    """``stage_into_package`` (and ``aot build --forge-dir``) copies the
+    bundle and its sidecar and rewrites the manifest as the JAX
+    package's does, byte for byte; staging twice lists the bundle
+    once."""
+    ours = _package_dir(str(tmp_path / "port"))
+    theirs = _package_dir(str(tmp_path / "jax"))
+    name = os.path.basename(dense_bundle)
+    assert tcli.stage_into_package(dense_bundle, ours) == name
+    assert jcli.stage_into_package(dense_bundle, theirs) == name
+    tcli.stage_into_package(dense_bundle, ours)
+    jcli.stage_into_package(dense_bundle, theirs)
+    for member in ("manifest.json", name, name + ".sha256"):
+        with open(os.path.join(ours, member), "rb") as fin, \
+                open(os.path.join(theirs, member), "rb") as fjax:
+            assert fin.read() == fjax.read(), member
+    with open(os.path.join(ours, "manifest.json")) as fin:
+        assert json.load(fin)["artifacts"] == [name]
+    out = str(tmp_path / "cli.aot.tar")
+    assert tcli.main(["build", "--out", out, "--device", "cpu",
+                      "--blocks", "1", "--embed", "16", "--heads", "4",
+                      "--vocab", "32", "--max-len", "32",
+                      "--forge-dir", ours]) == 0
+    capsys.readouterr()
+    with open(os.path.join(ours, "manifest.json")) as fin:
+        assert json.load(fin)["artifacts"] == [name, "cli.aot.tar"]
+    assert os.path.isfile(os.path.join(ours, "cli.aot.tar.sha256"))
+
+
+class TestForgeArtifactDistribution:
+    """tests/test_aot.py::TestForgeArtifactDistribution on the port:
+    bundles ride forge packages; the server verifies the sidecar on
+    receipt, 422s a tampered upload, and a fetched bundle boots a
+    decoder from its programs."""
+
+    def _package(self, tmp_path, bundle, tamper=False):
+        from veles_tpu_torch.forge import package as pkg
+
+        directory = _package_dir(str(tmp_path / "pkg"))
+        tcli.stage_into_package(bundle, directory)
+        if tamper:
+            victim = os.path.join(directory, os.path.basename(bundle))
+            with open(victim, "r+b") as fout:
+                fout.seek(-1, os.SEEK_END)
+                last = fout.read(1)
+                fout.seek(-1, os.SEEK_END)
+                fout.write(bytes([last[0] ^ 1]))
+        path, manifest = pkg.pack(directory,
+                                  out_path=str(tmp_path / "pkg.tar.gz"))
+        assert manifest["artifacts"] == [os.path.basename(bundle)]
+        with open(path, "rb") as fin:
+            return fin.read()
+
+    def test_upload_verifies_and_rejects_tamper(self, tmp_path,
+                                                dense_bundle):
+        from veles_tpu_torch.forge import ForgeServer, package as pkg
+
+        server = ForgeServer(str(tmp_path / "store"))
+        blob = self._package(tmp_path, dense_bundle)
+        assert server.upload(blob, version="1.0")["name"] == "toy-model"
+        bad = self._package(tmp_path / "t2", dense_bundle, tamper=True)
+        with pytest.raises(pkg.TamperedPackageError):
+            server.upload(bad, version="1.1")
+        server.start()
+        try:
+            req = urllib.request.Request(
+                "http://127.0.0.1:%d/upload?version=2.0" % server.port,
+                data=bad,
+                headers={"Content-Type": "application/octet-stream"})
+            with pytest.raises(urllib.error.HTTPError) as err:
+                urllib.request.urlopen(req, timeout=30)
+            assert err.value.code == 422
+            assert "2.0" not in server.details("toy-model")["versions"]
+        finally:
+            server.stop()
+
+    def test_fetched_bundle_loads(self, tmp_path, dense_bundle, model):
+        """pack -> upload -> fetch -> unpack -> load_bundle -> a decoder
+        serving from the bundle's programs."""
+        from veles_tpu_torch.forge import ForgeServer, package as pkg
+
+        server = ForgeServer(str(tmp_path / "store"))
+        server.upload(self._package(tmp_path, dense_bundle),
+                      version="1.0")
+        dest = str(tmp_path / "fetched")
+        manifest = pkg.unpack(server.fetch("toy-model"), dest)
+        aot = load_bundle(os.path.join(dest, manifest["artifacts"][0]),
+                          prefetch=False, device="cpu")
+        _, _, params, table = model
+        dec = ContinuousDecoder(params, table, HEADS, aot=aot,
+                                device="cpu", **DENSE_KW)
+        assert dec.aot_active
 
 
 def test_cli_warm_cache(model, tmp_path, capsys):

@@ -82,7 +82,9 @@ for name in ("jax", "jaxlib", "veles_tpu", "PIL"):
 for name in ("__main__", "launcher", "cli", "snapshotter", "export",
              "inference", "serving", "scripts.compare_snapshots",
              "samples.mnist784", "samples.mnist_conv", "aot.artifact",
-             "aot.loader", "aot.exec_cache", "aot.cli"):
+             "aot.loader", "aot.exec_cache", "aot.cli", "forge",
+             "forge.package", "forge.server", "forge.client",
+             "fleet.serve_plane", "router", "deploy_cli"):
     importlib.import_module("veles_tpu_torch." + name)
 from veles_tpu_torch.__main__ import main
 tiny, link = sys.argv[1:3]
@@ -450,6 +452,67 @@ def test_fleet_flag_reaches_the_launchers_fleet_mode(dest, tmp_path,
 def test_deferred_command_exits_2(command, capsys):
     assert main([command, "x"]) == 2
     assert DEFERRED_COMMANDS[command] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("command", ["deploy", "forge", "route"])
+def test_route_deploy_forge_commands_run(command, tmp_path, capsys,
+                                         monkeypatch):
+    """What the deferred ``route``, ``deploy`` and ``forge`` commands did
+    before the serving-fleet slice now runs under ``main``: ``forge``
+    uploads and lists against a forge server, ``deploy rollout`` resolves
+    a package and exits with the JAX package's code (4: no live api in
+    this process), ``route`` binds the elastic router over its replicas
+    and stops on an interrupt."""
+    from veles_tpu_torch import serving
+    from veles_tpu_torch.forge import ForgeServer
+
+    assert command not in DEFERRED_COMMANDS
+    package = tmp_path / "pkg"
+    package.mkdir()
+    (package / "wf.py").write_text("# a workflow\n")
+    (package / "manifest.json").write_text(json.dumps(
+        {"name": "toy", "version": "1.0", "workflow": "wf.py"}))
+    if command == "forge":
+        server = ForgeServer(str(tmp_path / "store")).start()
+        try:
+            url = "http://127.0.0.1:%d" % server.port
+            assert main(["forge", "upload", "-s", url, "-d",
+                         str(package)]) == 0
+            assert main(["forge", "list", "-s", url]) == 0
+        finally:
+            server.stop()
+        out = capsys.readouterr().out
+        assert '"toy"' in out and '"latest": "1.0"' in out
+    elif command == "deploy":
+        from veles_tpu_torch.forge.package import pack
+        path, _ = pack(str(package), str(tmp_path / "toy.tar.gz"))
+        monkeypatch.setattr(serving, "_CURRENT_API", None)
+        # a package without a serving checkpoint: 2 before any api is
+        # looked up
+        assert main(["deploy", "rollout", path]) == 2
+        assert "weights.npz" in capsys.readouterr().err
+        with pytest.raises(SystemExit):
+            main(["deploy"])
+    else:
+        import time
+        import types
+
+        from veles_tpu_torch import router as router_mod
+
+        started = []
+
+        def stop_at_once(seconds):
+            started.append(seconds)
+            raise KeyboardInterrupt
+
+        # the router module's own clock: its foreground wait ends at once
+        monkeypatch.setattr(router_mod, "time", types.SimpleNamespace(
+            sleep=stop_at_once, monotonic=time.monotonic,
+            time=time.time))
+        assert main(["route", "--replicas", "127.0.0.1:9", "--port",
+                     "0", "--spec", "poll_interval_s=30"]) == 0
+        assert started and "router listening on" in \
+            capsys.readouterr().out
 
 
 @pytest.mark.parametrize("case", ["aot", "serve_aot"])

@@ -2463,3 +2463,104 @@ def test_aot_bundle_boots_a_process_without_nvcc(cuda, tmp_path):
     assert out["stats"]["libraries"] == {"int8_matmul": "bundle",
                                          "paged_attention": "bundle"}
     assert out["results"] == [live.results[i] for i in sorted(live.results)]
+
+
+#: a replica of the serving fleet test: the serving model at full width
+#: (embed 1024, 16 heads, 4 blocks, vocab 32768, seed 0, bf16) in the
+#: paged int8 tier (K1, K2), its port printed, serving until killed
+ROUTER_CARD_CHILD = r"""
+import json, os, sys, threading, time
+threading.Timer(300, lambda: os._exit(3)).start()
+import numpy
+import torch
+from veles_tpu_torch.parallel.transformer_step import (
+    init_transformer_params)
+from veles_tpu_torch.serving import GenerateAPI
+rng = numpy.random.RandomState(0)
+params = init_transformer_params(rng, 4, 1024, 16, 32768,
+                                 dtype=torch.bfloat16, device="cuda")
+table = torch.from_numpy(rng.randn(32768, 1024).astype(numpy.float32)
+                         * 0.02).to(device="cuda", dtype=torch.bfloat16)
+api = GenerateAPI(params, table, 16, slots=8, max_len=1024, n_tokens=16,
+                  chunk=8, paged=True, page_size=128, quantize="int8",
+                  device="cuda").start()
+print(json.dumps({"port": api.port}), flush=True)
+sys.stdin.read()
+os._exit(0)
+"""
+
+
+@pytest.mark.slow
+def test_router_kill9_failover_on_the_card(cuda):
+    """Two full-width paged int8 replicas behind the port's router, one
+    client posting one request at a time (a paged int8 replica's greedy
+    stream is the same alone on either replica, not inside a burst:
+    ROADMAP C): replica 0 SIGKILLed while it holds a lease, every reply
+    200 and equal to the fault-free baseline, the plane naming it dead."""
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    import threading
+    import time
+    import urllib.request
+
+    from veles_tpu_torch.router import build_router
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", ROUTER_CARD_CHILD], cwd=repo,
+        env=dict(os.environ, PYTHONPATH=repo), stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, text=True) for _ in range(2)]
+    router = None
+
+    def post(url, tokens):
+        req = urllib.request.Request(
+            url + "/generate", data=json.dumps({"tokens": tokens}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read().decode())["tokens"]
+
+    try:
+        urls = ["http://127.0.0.1:%d" % json.loads(
+            proc.stdout.readline())["port"] for proc in procs]
+        plane, router = build_router(
+            urls, spec="poll_interval_s=0.2,fail_threshold=2,"
+                       "cooldown_s=0.0,hedge_after_s=2.0,backoff_s=0.01,"
+                       "page_size=128")
+        router.start()
+        front = "http://127.0.0.1:%d" % router.port
+        rng = numpy.random.RandomState(3)
+        prompts = [rng.randint(0, 32768, n).tolist()
+                   for n in (40, 130, 260, 300, 500, 700)]
+        baseline = [post(front, p) for p in prompts]
+        assert all(status == 200 for status, _ in baseline)
+
+        def kill_in_flight():
+            # at replica 0's next lease (or after 30 s without one)
+            deadline = time.monotonic() + 30
+            while not plane.replicas[0].leases \
+                    and time.monotonic() < deadline:
+                time.sleep(0.001)
+            procs[0].send_signal(signal.SIGKILL)
+
+        killer = threading.Thread(target=kill_in_flight)
+        killer.start()
+        results = [(i, post(front, prompt)) for _ in range(3)
+                   for i, prompt in enumerate(prompts)]
+        killer.join()
+        for i, got in results:
+            assert got == baseline[i]
+        deadline = time.monotonic() + 30
+        while plane.replicas[0].state != "dead" \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert plane.replicas[0].state == "dead"
+        assert plane.replicas[1].state == "active"
+    finally:
+        if router is not None:
+            router.stop()
+        for proc in procs:
+            proc.kill()
+            proc.wait()

@@ -58,8 +58,11 @@ ported subcommands (:data:`COMMANDS`): ``parity`` (``parity.main``),
 ``build``, ``inspect``, ``verify``, ``warm-cache``) and ``observe``
 (``observe/trace_export.main``: ``export-trace``, ``blackbox``, ``slo``,
 ``serve-trace``, ``incident``, ``record``, ``replay``, ``capacity`` and
-``regress``). ``--serve-slo`` and ``--serve-history`` are validated
-before the workflow loads and land in ``root.common.observe``;
+``regress``), ``forge`` (``forge/client.main``: the model hub's verbs),
+``route`` (``router.main``: the elastic router over ``GenerateAPI``
+replicas) and ``deploy`` (``deploy_cli.main``: ``deploy rollout`` into
+this process's live api). ``--serve-slo`` and ``--serve-history`` are
+validated before the workflow loads and land in ``root.common.observe``;
 ``--serve-governor`` likewise lands in ``root.common.serve.governor``.
 """
 
@@ -98,8 +101,7 @@ DEFERRED = {
 
 #: the JAX package's subcommands -> the ROADMAP item that brings them
 DEFERRED_COMMANDS = {
-    "analyze": "ROADMAP A9", "route": "ROADMAP A9",
-    "deploy": "ROADMAP A9", "forge": "ROADMAP A9",
+    "analyze": "the analyzer, ROADMAP A9 (d)",
 }
 
 
@@ -630,9 +632,25 @@ def _observe(argv):
     return observe_main(argv)
 
 
+def _forge(argv):
+    from veles_tpu_torch.forge.client import main as forge_main
+    return forge_main(argv)
+
+
+def _route(argv):
+    from veles_tpu_torch.router import main as route_main
+    return route_main(argv)
+
+
+def _deploy(argv):
+    from veles_tpu_torch.deploy_cli import main as deploy_main
+    return deploy_main(argv)
+
+
 #: the JAX package's subcommands the port has -> their entry
 COMMANDS = {"parity": _parity, "autotune": _autotune, "aot": _aot,
-            "observe": _observe}
+            "observe": _observe, "forge": _forge, "route": _route,
+            "deploy": _deploy}
 
 
 def main(argv=None):

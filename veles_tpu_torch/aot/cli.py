@@ -14,18 +14,19 @@ The port of ``veles_tpu/aot/cli.py``:
   beside the bundle (``<bundle>.xcache/``, ``aot/exec_cache.py``) and
   load it, so the next boot on this machine takes verified entries.
 
+``build --forge-dir DIR`` stages the bundle and its sidecar into a forge
+package directory (:func:`stage_into_package`): ``forge upload -d DIR``
+then ships the kernel libraries and the weights together, and the forge
+server verifies the sidecar on receipt (422 on a tampered bundle).
+
 ``--mesh`` on ``build`` raises: a mesh bundle waits for the sharded
 serving mesh (ROADMAP A8 (c)); on ``verify`` and ``warm-cache`` it gives
 the JAX package's verdict (a single-device bundle is not loadable for a
-mesh boot). ``--forge-dir`` exits 2: the forge is ROADMAP A9 (c).
+mesh boot).
 """
 
 import argparse
 import json
-import sys
-
-#: what the JAX package's ``--forge-dir`` waits for in the port
-FORGE_ITEM = "the forge and its packages, ROADMAP A9 (c)"
 
 
 class _AxesMesh:
@@ -52,10 +53,6 @@ def _build(args):
     from veles_tpu_torch.parallel.transformer_step import \
         init_transformer_params
 
-    if args.forge_dir:
-        sys.stderr.write("veles_tpu_torch aot build: --forge-dir is not "
-                         "ported yet: %s\n" % FORGE_ITEM)
-        return 2
     if args.mesh:
         raise NotImplementedError(
             "aot build --mesh: a mesh bundle waits for the sharded "
@@ -81,8 +78,40 @@ def _build(args):
         tile=args.tile, paged=args.paged, page_size=args.page_size,
         pool_pages=args.pool_pages, progress=progress,
         device=args.device)
+    if args.forge_dir:
+        stage_into_package(path, args.forge_dir)
     print(json.dumps(inspect_bundle(path), indent=1))
     return 0
+
+
+def stage_into_package(bundle_path, directory):
+    """Stage a bundle (+ its sidecar) into a forge package directory
+    and list it under the manifest's ``artifacts`` member
+    (``veles_tpu/aot/cli.py:61-86``): ``forge upload -d DIR`` then ships
+    the kernel libraries and the weights together, and the server
+    verifies the sidecar on receipt (422 on tamper). The manifest is
+    rewritten as the JAX package writes it (indent 1, sorted keys).
+    Returns the bundle's member name."""
+    import os
+    import shutil
+
+    from veles_tpu_torch.forge.package import MANIFEST
+
+    name = os.path.basename(bundle_path)
+    shutil.copy(bundle_path, os.path.join(directory, name))
+    shutil.copy(bundle_path + ".sha256",
+                os.path.join(directory, name + ".sha256"))
+    manifest_path = os.path.join(directory, MANIFEST)
+    with open(manifest_path) as fin:
+        manifest = json.load(fin)
+    artifacts = manifest.setdefault("artifacts", [])
+    if name not in artifacts:
+        artifacts.append(name)
+    tmp = manifest_path + ".tmp"
+    with open(tmp, "w") as fout:
+        json.dump(manifest, fout, indent=1, sort_keys=True)
+    os.replace(tmp, manifest_path)
+    return name
 
 
 def _inspect(args):
@@ -187,7 +216,9 @@ def main(argv=None):
                        help="not ported yet: the sharded serving mesh, "
                             "ROADMAP A8 (c)")
     build.add_argument("--forge-dir", default=None, metavar="DIR",
-                       help="not ported yet: %s (exits 2)" % FORGE_ITEM)
+                       help="stage the bundle into this forge package "
+                            "directory (listed under the manifest's "
+                            "artifacts)")
     build.add_argument("--seed", type=int, default=0,
                        help="params init seed (shapes only: serve real "
                             "weights apart)")

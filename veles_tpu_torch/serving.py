@@ -1109,6 +1109,19 @@ class ContinuousDecoder:
         raise RuntimeError("decoder did not drain in %d steps" % max_steps)
 
 
+#: a weak reference to the newest started GenerateAPI (the deploy CLI's
+#: target)
+_CURRENT_API = None
+
+
+def get_current_api():
+    """This process's live serving api (the newest
+    ``GenerateAPI.start()``), or None (``veles_tpu/serving.py:229-237``):
+    ``deploy_cli.rollout_package`` targets it when no api is
+    injected."""
+    return _CURRENT_API() if _CURRENT_API is not None else None
+
+
 class ServingHealth:
     """Thread-safe health and counter registry of a serving front
     (``serving.py:240-521``); :meth:`snapshot` backs ``/healthz``.
@@ -2552,6 +2565,11 @@ class GenerateAPI:
                                                 start_server)
 
         api = self
+        # the deploy CLI's seam (deploy_cli.py): the newest started front
+        # is the process's deploy target, weakly referenced so a stopped
+        # and collected api drops out on its own
+        global _CURRENT_API
+        _CURRENT_API = weakref.ref(self)
         # /metrics: the health counters and the decoder's dispatch and
         # timing state through weak scrape-time bridges; the decoder is
         # read THROUGH the api, so a breaker rebuild swaps the source.

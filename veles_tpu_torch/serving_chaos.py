@@ -55,7 +55,8 @@ advances a stream, and ``before_step`` rolls ``slow_step`` before
 ``step_fail``.
 
 :class:`ReplicaChaosMonkey` is a pure, tick-indexed planner of replica
-faults; the router that runs it arrives with the fleet (ROADMAP A9).
+faults; a harness applies its actions to the replicas behind the
+elastic router (``router.py``), whose serve plane names the victim.
 :class:`RecordedTrafficProfile` replays a recorded trace as a traffic
 profile (``observe/replay.py``).
 
@@ -70,6 +71,7 @@ import torch
 from veles_tpu_torch.core.logger import Logger
 from veles_tpu_torch.device import tree_leaves_with_path, tree_replace
 from veles_tpu_torch.fleet.chaos import ChaosConfigBase, roll
+from veles_tpu_torch.fleet.serve_plane import REPLICA_GOODPUT_SERIES
 
 #: chaos config keys that are fault probabilities
 PROBABILITY_KEYS = ("step_fail", "slow_step", "disconnect",
@@ -504,9 +506,9 @@ class ServingChaosMonkey(Logger):
 REPLICA_PROFILES = ("replica_kill", "replica_slow", "replica_flap",
                     "poison_healthz")
 
-#: the per-replica goodput control series every replica profile leads
-#: with (``veles_tpu/fleet/serve_plane.py``; the router is ROADMAP A9)
-REPLICA_GOODPUT_SERIES = "veles_ctrl_replica_goodput"
+# every replica profile leads with the serve plane's per-replica goodput
+# control series (REPLICA_GOODPUT_SERIES, ``fleet/serve_plane.py``),
+# which the router (``router.py``) records on its poller
 
 
 class ReplicaChaosConfig:
