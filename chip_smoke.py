@@ -371,6 +371,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    child starts before phase 23 and runs beside phases 23 and 24; the
    int8-KV tiers' children and the tick's run together.
 
+27. (run after phase 26, rank 1 started beside it) sharded serving: the
+   serving model at full width on a serving mesh of two ranks sharing
+   the card over gloo (``model=2``: 8 heads, 2048 FFN columns and 16384
+   vocab columns a rank; rank 0 this process, rank 1 a child that builds
+   the same seeded weights and follows): K2 at every shard shape and K1,
+   K3, K4 in 8 heads against their plain versions; (a) phase 4's
+   shared-prompt traffic and six distinct prompts through rank 0's
+   GenerateAPI over HTTP in the paged float tier on f32 weights, every
+   stream and the prefix counters equal one process's, each rank's K1 4
+   a decode step; (b) paged int8 (K1 + K2), paged int8-KV (K3 + K2) and
+   dense int8-KV (K4 + K2) on bf16 weights through
+   ContinuousDecoder(mesh=) against one process stepping a token at a
+   time: the logits after the prefill within TP_BF16_LOGIT_RTOL of the
+   largest, a stream leaving one process's only where its top-2 logits
+   lie within two bf16 steps (each case printed), each rank's attend 4
+   and K2 at least 17 a step; (c) seed-1 weights swapped onto the mesh
+   from the host: a 0-byte receipt, the streams a fresh process's; (d)
+   make_tp_generate at full width equal to generate's tokens on both
+   ranks; (e) rank 1 SIGKILLed under six clients: 503 within the world's
+   30 s timeout, nothing hangs. Printed: tokens/s of the world and of
+   one process, alternated, the collectives' share of rank 0's dispatch
+   time, the bytes handed on a dispatch, the phase's seconds. Both
+   ranks' launches join the kernels line.
+
 Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
 8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
 bound.
@@ -421,6 +445,7 @@ from veles_tpu_torch.core.config import root
 from veles_tpu_torch.core.logger import (enable_event_recording,
                                          get_event_recorder)
 from veles_tpu_torch.core.units import Unit
+from veles_tpu_torch.device import tree_to
 from veles_tpu_torch.dummy import DummyLauncher, DummyWorkflow
 from veles_tpu_torch.inference import NativeWorkflow, build_native
 from veles_tpu_torch.loader.base import TRAIN, VALID, Loader
@@ -1816,7 +1841,8 @@ def burst(port, prompts, n_tokens=N_TOKENS, trace_ids=None):
 
 
 def serve(params, table, waves, quantize, device, paged=True, heads=HEADS,
-          max_len=MAX_LEN, slots=SLOTS, n_tokens=N_TOKENS, on_zero=None):
+          max_len=MAX_LEN, slots=SLOTS, n_tokens=N_TOKENS, on_zero=None,
+          mesh=None):
     """Answer ``waves`` of prompts through a fresh GenerateAPI over HTTP
     (on the paged pool, or with ``paged=False`` the dense slab), each
     wave posted at once after the previous one completed. A short
@@ -1825,10 +1851,11 @@ def serve(params, table, waves, quantize, device, paged=True, heads=HEADS,
     the launches, the chunks, the host-blocking seconds (dispatch +
     collect, and admission), /healthz before and after the waves and the
     (stopped) API, by name. ``on_zero`` is called right after the
-    counters are zeroed."""
+    counters are zeroed. ``mesh`` serves over a serving mesh (phase
+    27), rank 0's side."""
     api = GenerateAPI(params, table, heads, slots=slots, max_len=max_len,
                       n_tokens=n_tokens, chunk=CHUNK, paged=paged,
-                      page_size=PAGE, quantize=quantize,
+                      page_size=PAGE, quantize=quantize, mesh=mesh,
                       device=device).start()
     try:
         # shorter than a page: never published to the prefix cache
@@ -1918,9 +1945,10 @@ def prefix_waves(rng):
     return [[system], tails, [system], [system]]
 
 
-def check_prefix_counts(health0, health):
+def check_prefix_counts(health0, health, distinct=0):
     """One cold admission (the system prompt), eight tails and two
-    hits: 10 prefix hits and 1 miss between the two /healthz reads."""
+    hits: 10 prefix hits and 1 miss between the two /healthz reads, and a
+    miss for each of ``distinct`` prompts served beside them."""
     def delta(section, key):
         return health[section][key] - health0[section][key]
 
@@ -1928,11 +1956,11 @@ def check_prefix_counts(health0, health):
            "prefix_misses": delta("pool", "prefix_misses"),
            "admit_tail": delta("dispatch_counts", "admit_tail"),
            "admit_hit": delta("dispatch_counts", "admit_hit")}
-    if got["prefix_hits"] != 10 or got["prefix_misses"] != 1 \
+    if got["prefix_hits"] != 10 or got["prefix_misses"] != 1 + distinct \
             or got["admit_tail"] < 1 or got["admit_hit"] < 1:
         raise AssertionError("prefix traffic admitted %s, expected 10 "
-                             "hits, 1 miss, >= 1 tail and >= 1 hit "
-                             "dispatch" % got)
+                             "hits, %d miss(es), >= 1 tail and >= 1 hit "
+                             "dispatch" % (got, 1 + distinct))
     return got
 
 
@@ -9486,6 +9514,544 @@ def serve_fleet_phase(device, state):
     return launches
 
 
+# -- phase 27: sharded serving, two ranks sharing the card ------------------
+
+#: the serving mesh's size and rank 0's world timeout (seconds: each of
+#: its collectives and its rendezvous)
+TP_RANKS, TP_TIMEOUT = 2, 30
+#: seconds the follower child may live
+TP_DEADLINE = 600
+#: the decode step's K2 shapes on a rank of the model=2 mesh: qkv of its
+#: 8 heads, the out-projection's rows of them, its FFN columns and rows,
+#: its vocab columns of the head
+TP_K2_SHAPES = ((EMBED, 3 * EMBED // TP_RANKS),
+                (EMBED // TP_RANKS, EMBED),
+                (EMBED, 4 * EMBED // TP_RANKS),
+                (4 * EMBED // TP_RANKS, EMBED),
+                (EMBED, VOCAB // TP_RANKS))
+#: (b)'s bf16 tiers: (label, quantize, paged, its attend's counter)
+TP_TIERS = (("paged int8", "int8", True, "paged_attend"),
+            ("paged int8-KV", "int8-kv", True, "paged_attend_int8"),
+            ("dense int8-KV", "int8-kv", False, "int8_cache_attend"))
+#: (b): the logits after a prefill against the single process's, as a
+#: share of the largest: the ranks' partial products reduce in f32 and
+#: round once to bf16, where one process rounds its whole product once;
+#: a bf16 step is 2^-8 of a value and four blocks compound it
+TP_BF16_LOGIT_RTOL = 5e-2
+#: (b): a stream may leave the single process's only at a step where the
+#: single process's top-2 logits lie within this many bf16 steps
+TP_BF16_STEPS = 2
+#: (d): make_tp_generate's prompt (rows, positions) and tokens
+TP_GEN_SHAPE, TP_GEN_TOKENS = (2, 64), 16
+
+#: rank 1 of phase 27: a fresh process on the same card that builds the
+#: same seeded weights and follows rank 0 (this process) through every
+#: stream of the phase, writing its launches and hand-off stats after
+#: each; it is SIGKILLed in (e)
+TP_FOLLOWER = r'''
+import json, sys
+import numpy, torch
+import chip_smoke as cs
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.parallel import tp_engine
+from veles_tpu_torch.parallel.decode import make_tp_generate
+from veles_tpu_torch.parallel.mesh import build_mesh, initialize_distributed
+from veles_tpu_torch.serving import GenerateAPI
+coordinator, out, cache = sys.argv[1:4]
+root.common.engine.pallas_autotune_cache = cache
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+f32 = cs.tp_model(dev, torch.float32)
+bf16 = cs.tp_bf16(f32)
+# rank 1 waits for rank 0 across its single-process runs: its own
+# timeout is the child's deadline, rank 0's the world's TP_TIMEOUT
+initialize_distributed(coordinator, cs.TP_RANKS, 1, device="cuda",
+                       backend="gloo", timeout=cs.TP_DEADLINE)
+mesh = build_mesh(data=1, model=cs.TP_RANKS)
+reports = []
+def report(label, stats, before):
+    after = cs.counts()
+    reports.append({"label": label, "steps": stats.get("steps", 0),
+                    "launches": {k: after[k] - before[k] for k in after},
+                    "calls": stats.get("calls", {}),
+                    "bytes": stats.get("bytes", {}),
+                    "wait_s": stats.get("wait_s", 0.0),
+                    "apply_s": stats.get("apply_s", 0.0)})
+    with open(out, "w") as fout:
+        json.dump(reports, fout)
+def api_stream(label, params, table):
+    before = cs.counts()
+    api = GenerateAPI(params, table, cs.HEADS, device=dev, mesh=mesh).start()
+    report(label, api.follow_stats, before)
+def follow_stream(label, params, table):
+    before = cs.counts()
+    report(label, tp_engine.follow(mesh, params, table, cs.HEADS,
+                                   device=dev), before)
+api_stream("a", *f32)
+api_stream("a-timed", *f32)
+for tier in cs.TP_TIERS:
+    follow_stream(tier[0], *bf16)
+follow_stream("swap", *f32)
+before = cs.counts()
+run = make_tp_generate(mesh, cs.HEADS, cs.TP_GEN_TOKENS, device=dev)
+tokens = run(f32[0], f32[1], cs.tp_gen_prompt())
+report("generate", {"tokens": tokens.tolist()}, before)
+reports[-1]["tokens"] = tokens.tolist()
+with open(out, "w") as fout:
+    json.dump(reports, fout)
+api_stream("kill", *f32)
+'''
+
+
+def tp_model(device, dtype, seed=0):
+    """The serving model at full width from ``seed`` in ``dtype``, the
+    table drawn after the weights as ``bf16_model`` draws it."""
+    rng = numpy.random.RandomState(seed)
+    params = init_transformer_params(rng, BLOCKS, EMBED, HEADS, VOCAB,
+                                     dtype=dtype, device=device)
+    table = torch.from_numpy(
+        rng.randn(VOCAB, EMBED).astype(numpy.float32) * 0.02).to(
+            device=device, dtype=dtype)
+    return params, table
+
+
+def tp_bf16(model):
+    """``bf16_model``'s weights cast from ``tp_model``'s f32 ones: the same
+    draws, the same values, one draw fewer."""
+    params, table = model
+    return tree_to(params, table.device, dtype=torch.bfloat16), \
+        table.to(torch.bfloat16)
+
+
+def tp_gen_prompt():
+    return numpy.random.RandomState(11).randint(0, VOCAB, TP_GEN_SHAPE)
+
+
+def tp_distinct():
+    """The six distinct prompts of (a) and (b): 60 to 700 tokens."""
+    rng = numpy.random.RandomState(12)
+    return [rng.randint(0, VOCAB, n).tolist()
+            for n in numpy.linspace(60, 700, 6).astype(int)]
+
+
+def tp_kernel_checks(device, gen):
+    """The kernels at a rank's shapes: K2 at every shard shape of the
+    decode step (M = 8, bf16 x), K1, K3 and K4 in 8 heads of 64, each
+    against its plain version. Returns the largest error by kernel."""
+    errs = {}
+    worst = 0.0
+    for k, n in TP_K2_SHAPES:
+        w = torch.randn((k, n), generator=gen, device=device) / math.sqrt(k)
+        q, scale = quantize_int8(w)
+        x = torch.randn((SLOTS, k), generator=gen,
+                        device=device).to(torch.bfloat16)
+        out = int8_matmul(x, q, scale)
+        ref = _int8_matmul_plain(x, q, scale)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs().max().item()
+        rel = diff / ref.float().abs().max().item()
+        if not rel <= K2_RTOL:
+            raise AssertionError("K2 at the shard shape (%d, %d): relative "
+                                 "error %.3g" % (k, n, rel))
+        worst = max(worst, diff)
+    errs["int8_matmul"] = worst
+    heads = HEADS // TP_RANKS
+    errs["paged_attend"] = k1_check(k1_problem(device, gen, heads=heads,
+                                               head_dim=EMBED // HEADS),
+                                    " (a rank's 8 heads)")
+    errs["paged_attend_int8"] = k3_check("a rank's 8 heads", k3_problem(
+        device, gen, torch.bfloat16, heads=heads,
+        head_dim=EMBED // HEADS))
+    q, slab = k4_problem(device, gen, torch.bfloat16, heads=heads,
+                         head_dim=EMBED // HEADS)
+    mask = k4_masks(device, K4_WIDTH)["per-row"]
+    out = int8_cache_attend(q, *slab, mask, use_pallas=True)
+    ref = _cache_attend_plain(q, *slab, mask)
+    torch.cuda.synchronize()
+    errs["int8_cache_attend"] = (out - ref).abs().max().item()
+    if not errs["int8_cache_attend"] <= K4_ATOL:
+        raise AssertionError("K4 in a rank's 8 heads disagrees")
+    print("phase 27 kernels at a rank's shapes: K2 at %s, max_abs_err "
+          "%.3g; K1 %.3g, K3 %.3g, K4 %.3g in 8 heads of 64"
+          % (list(TP_K2_SHAPES), errs["int8_matmul"],
+             errs["paged_attend"], errs["paged_attend_int8"],
+             errs["int8_cache_attend"]))
+    return errs
+
+
+def bf16_step(value):
+    """One bf16 step at ``value``: 2^-7 of its binade's base."""
+    return 2.0 ** (math.floor(math.log2(max(abs(value), 1e-30))) - 7)
+
+
+def tp_divergence(label, prompt, single, mesh, logits_at, gap_ok):
+    """Where ``mesh`` leaves ``single`` (one request's streams): None when
+    they are equal; else the first differing step i, which must be one
+    where the single process's top-2 logits lie within ``gap_ok(top1,
+    gap)``. ``logits_at(i)`` gives ``(logits of step i, own)``: ``own`` is
+    False where a reference decode's logits stand in and its stream left
+    the single process's before step i (then nothing is checked). Prints
+    every case."""
+    if mesh == single:
+        return None
+    i = next(j for j, (a, b) in enumerate(zip(mesh, single)) if a != b)
+    logits, own = logits_at(i)
+    top2 = torch.topk(logits.float(), 2).values.tolist()
+    gap = top2[0] - top2[1]
+    print("  %s: a %d-token prompt leaves the single process at step %d: "
+          "its top-2 logits %.6g and %.6g (gap %.3g)%s"
+          % (label, len(prompt), i, top2[0], top2[1], gap,
+             "" if own else "; the reference decode left it earlier"))
+    if own and not gap_ok(top2[0], gap):
+        raise AssertionError("%s: the stream diverged at step %d where the "
+                             "single process's top-2 gap is %.3g"
+                             % (label, i, gap))
+    return i
+
+
+def tp_reference(params, table, prompt, single, device):
+    """``logits_at`` of :func:`tp_divergence` from an f32 ``generate`` of
+    ``prompt`` in one process (run only where a stream diverged), its own
+    where its stream is the single process's ``single`` so far."""
+    def at(i):
+        tokens, _, logits = generate(params, table, numpy.asarray(
+            prompt)[None], HEADS, N_TOKENS, return_logits=True,
+            device=device)
+        return logits[0, i], tokens[0, :i].tolist() == single[:i]
+    return at
+
+
+def tp_start_follower():
+    """Start rank 1 (TP_FOLLOWER) on a fresh rendezvous, in a directory of
+    its own; returns the directory, the process, its log, its report path
+    and the coordinator."""
+    directory = tempfile.mkdtemp(prefix="tp_phase_")
+    script = os.path.join(directory, "tp_follower.py")
+    with open(script, "w") as fout:
+        fout.write(TP_FOLLOWER)
+    coordinator = "127.0.0.1:%d" % free_port()
+    report = os.path.join(directory, "tp_follower.json")
+    log = open(os.path.join(directory, "tp_follower.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, script, coordinator, report,
+         str(root.common.engine.pallas_autotune_cache)],
+        cwd=REPO_DIR, env=port_env(), stdout=log, stderr=subprocess.STDOUT)
+    return directory, proc, log, report, coordinator
+
+
+def tp_reports(path, label, proc=None):
+    """Rank 1's report of stream ``label``, once it wrote it (after the
+    stream's end event); fails when rank 1 died first."""
+    deadline = time.monotonic() + TP_TIMEOUT
+    while True:
+        try:
+            with open(path) as fin:
+                got = [r for r in json.load(fin) if r["label"] == label]
+            if got:
+                return got[0]
+        except (OSError, ValueError):
+            pass
+        if time.monotonic() > deadline or (proc is not None
+                                           and proc.poll() is not None):
+            raise AssertionError("rank 1 reported no %r stream" % label)
+        time.sleep(0.05)
+
+
+def tp_rank_launches(label, rank0, steps0, rank1, attend, quantized):
+    """Each rank's launches in one stream: its attend kernel 4 a decode
+    step (BLOCKS), K2 at least 17 a step in an int8 tier."""
+    for rank, got, steps in ((0, rank0, steps0),
+                             (1, rank1["launches"], rank1["steps"])):
+        if steps < 1 or got[attend] != BLOCKS * steps:
+            raise AssertionError(
+                "%s rank %d: %s launched %d in %d decode steps, not %d a "
+                "step" % (label, rank, attend, got[attend], steps, BLOCKS))
+        if quantized and got["int8_matmul"] < sum(K2_PER_STEP) * steps:
+            raise AssertionError("%s rank %d: K2 %d < %d a step"
+                                 % (label, rank, got["int8_matmul"],
+                                    sum(K2_PER_STEP)))
+    print("  %s launches: rank 0 %s %d and K2 %d in %d steps, rank 1 %s %d "
+          "and K2 %d in %d steps" % (
+              label, attend, rank0[attend], rank0["int8_matmul"], steps0,
+              attend, rank1["launches"][attend],
+              rank1["launches"]["int8_matmul"], rank1["steps"]))
+
+
+def tp_steps(decoder):
+    """The decode steps a decoder dispatched: its chunks' and single
+    steps'."""
+    return decoder.dispatch_counts["chunk"] * CHUNK \
+        + decoder.dispatch_counts["step"]
+
+
+def tp_cost_line(label, dec, wall, tokens):
+    """The hand-off and collective costs of a mesh decoder's stream."""
+    stats = dec.tp_stats()
+    calls, nbytes = stats["handoff"]["calls"], stats["handoff"]["bytes"]
+    dispatches = sum(calls.get(op, 0) for op in ("dispatch",
+                                                 "paged.dispatch"))
+    handed = sum(nbytes.get(op, 0) for op in ("dispatch",
+                                              "paged.dispatch"))
+    collective_s = sum(row[2] for row in stats["collectives"].values())
+    device_s = sum(dec.timings.values())
+    print("  %s: %.1f tokens/s over the world, %.0f bytes handed on a "
+          "dispatch, collectives %.3f s of rank 0's %.3f s of dispatch, "
+          "admission and readback (%.1f%%)"
+          % (label, tokens / wall, handed / max(dispatches, 1),
+             collective_s, device_s, 100 * collective_s / max(device_s,
+                                                               1e-9)))
+
+
+def tp_phase(device, gen, early=None):
+    """Phase 27: the serving model at full width on a serving mesh of two
+    ranks sharing the card over gloo (model=2: 8 heads, 2048 FFN columns
+    and 16384 vocab columns a rank), rank 0 this process, rank 1 a child.
+    (a) the paged float tier on f32 weights through rank 0's GenerateAPI
+    over HTTP, phase 4's shared-prompt traffic and six distinct prompts;
+    (b) the bf16 tiers through ContinuousDecoder(mesh=); (c) a hot swap of
+    seed-1 weights; (d) make_tp_generate; (e) rank 1 SIGKILLed under
+    traffic. ``early`` is rank 1 as :func:`tp_start_follower` started it
+    beside an earlier phase (None: started here). Returns both ranks'
+    launches on the main paths."""
+    t0 = time.perf_counter()
+    if early is None:
+        early = tp_start_follower()
+    directory, proc, log, report, coordinator = early
+    try:
+        launches = _tp_phase(device, gen, proc, report, coordinator, t0)
+    except BaseException:
+        log.seek(0)
+        print("rank 1's log:\n%s" % log.read()[-4000:])
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+        from veles_tpu_torch.parallel.mesh import finalize_distributed
+        finalize_distributed()
+        shutil.rmtree(directory, ignore_errors=True)
+    print("phase 27 (sharded serving, %d ranks on the card): %.1f s"
+          % (TP_RANKS, time.perf_counter() - t0))
+    return launches
+
+
+def _tp_phase(device, gen, proc, report, coordinator, t0):
+    from veles_tpu_torch.parallel.decode import make_tp_generate
+    from veles_tpu_torch.parallel.mesh import (build_mesh,
+                                               initialize_distributed)
+
+    def clock(label):
+        print("  phase 27 clock: %.1f s after %s"
+              % (time.perf_counter() - t0, label))
+    launches = collections.Counter()
+    errs = tp_kernel_checks(device, gen)
+    f32 = tp_model(device, torch.float32)
+    waves = prefix_waves(numpy.random.RandomState(2)) + [tp_distinct()]
+    requests = sum(len(wave) for wave in waves)
+    # the single process's runs first, while rank 1 starts
+    single = serve(*f32, waves, None, device)
+    clock("the kernel checks and (a)'s single process")
+    initialize_distributed(coordinator, TP_RANKS, 0, device="cuda",
+                           backend="gloo", timeout=TP_TIMEOUT)
+    mesh = build_mesh(data=1, model=TP_RANKS)
+    clock("the rendezvous")
+    # (a) the paged float tier over HTTP
+    meshed = serve(*f32, waves, None, device, mesh=mesh)
+    steps = meshed["chunks"] * CHUNK + (
+        meshed["health"]["dispatch_counts"]["step"]
+        - meshed["health0"]["dispatch_counts"]["step"])
+    prompts = [p for wave in waves for p in wave]
+    for prompt, one, two in zip(prompts, single["streams"],
+                                meshed["streams"]):
+        tp_divergence("(a) f32", prompt, one, two,
+                      tp_reference(*f32, prompt, one, device),
+                      lambda top, gap: gap < TOP2_GAP)
+    counted = tuple(check_prefix_counts(run["health0"], run["health"],
+                                        len(waves[-1]))
+                    for run in (single, meshed))
+    if counted[0] != counted[1]:
+        raise AssertionError("(a) prefix counters %s on the mesh, %s on "
+                             "one process" % counted)
+    rank1 = tp_reports(report, "a", proc)
+    tp_rank_launches("(a)", meshed["launches"], steps, rank1,
+                     "paged_attend", False)
+    for name, n in meshed["launches"].items():
+        launches[name] += n + rank1["launches"][name]
+    tp_cost_line("(a) paged f32 over HTTP", meshed["api"].decoder,
+                 meshed["wall"], requests * N_TOKENS)
+    # tokens/s alternated on the distinct prompts: the world, then one
+    # process (after (a)'s one process, then the world)
+    timed = serve(*f32, [tp_distinct()], None, device, mesh=mesh)
+    again = serve(*f32, [tp_distinct()], None, device)
+    print("  tokens/s alternated: (a)'s %d requests x %d one process %.1f, "
+          "the world %.1f; six distinct prompts the world %.1f, one "
+          "process %.1f (prefix counts %s on both)" % (
+              requests, N_TOKENS, requests * N_TOKENS / single["wall"],
+              requests * N_TOKENS / meshed["wall"],
+              6 * N_TOKENS / timed["wall"], 6 * N_TOKENS / again["wall"],
+              counted[0]))
+    del single, meshed, timed, again
+    clock("(a)")
+    # (b) the bf16 tiers through ContinuousDecoder(mesh=)
+    bf16 = tp_bf16(f32)
+    distinct = tp_distinct() + [p[:300] for p in tp_distinct()[-2:]]
+    for label, quantize, paged, attend in TP_TIERS:
+        kw = dict(slots=SLOTS, max_len=MAX_LEN, n_tokens=N_TOKENS,
+                  quantize=quantize, paged=paged, page_size=PAGE,
+                  device=device)
+        results = []
+        for m in (None, mesh):
+            dec = ContinuousDecoder(*bf16, HEADS, mesh=m, **kw)
+            for prompt in distinct:
+                dec.submit(prompt)
+            dec._admit_pending()
+            logits = dec.state["logits"].clone()
+            slot_of = {rid: slot for slot, rid in dec._slot_req.items()}
+            for fn in COUNTERS.values():
+                fn.launches = 0
+            started = time.perf_counter()
+            if m is None:
+                # one process steps a token at a time and keeps the
+                # logits each token is picked from (every request was
+                # admitted at once: token i of each at step i)
+                seen = []
+                while dec.busy:
+                    seen.append(dec.state["logits"].clone())
+                    dec.step()
+            else:
+                dec.run_until_drained(chunk=CHUNK)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - started
+            results.append((logits, dict(dec.results), counts(),
+                            tp_steps(dec)))
+            if m is not None:
+                tp_cost_line("(b) %s" % label, dec, wall,
+                             len(distinct) * N_TOKENS)
+                dec.close()
+            else:
+                single_slot = slot_of
+                print("  (b) %s: %.1f tokens/s in one process, a step at "
+                      "a time" % (label, len(distinct) * N_TOKENS / wall))
+            del dec
+        (l1, one, _, _), (l2, two, got, steps) = results
+        rel = ((l2 - l1).abs().max() / l1.abs().max()).item()
+        print("  (b) %s: logits after the prefill within %.3g of the "
+              "largest (tolerance %.0e)" % (label, rel, TP_BF16_LOGIT_RTOL))
+        if not rel <= TP_BF16_LOGIT_RTOL:
+            raise AssertionError("(b) %s: the prefill's logits differ by "
+                                 "%.3g" % (label, rel))
+        for rid, prompt in enumerate(distinct):
+            tp_divergence("(b) %s" % label, prompt, one[rid], two[rid],
+                          lambda i, s=single_slot[rid]: (seen[i][s], True),
+                          lambda top, gap: gap <= TP_BF16_STEPS
+                          * bf16_step(top))
+        rank1 = tp_reports(report, label, proc)
+        tp_rank_launches("(b) %s" % label, got, steps, rank1, attend, True)
+        for name, n in got.items():
+            launches[name] += n + rank1["launches"][name]
+    del bf16
+    clock("(b)")
+    # (c) a hot swap of seed-1 weights onto the mesh: slice-only
+    new = tp_model(device, torch.float32, seed=1)
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, n_tokens=N_TOKENS, paged=True,
+              page_size=PAGE, device=device)
+    dec = ContinuousDecoder(*f32, HEADS, mesh=mesh, **kw)
+    dec.swap_params(new[0])
+    receipt = dec.last_swap_stats
+    if receipt["bytes"] != 0 or not set(receipt["counts"]) <= {"slice",
+                                                                "keep"}:
+        raise AssertionError("(c) the swap onto the mesh moved %s"
+                             % receipt)
+    fresh = ContinuousDecoder(new[0], f32[1], HEADS, **kw)
+    for d in (dec, fresh):
+        for prompt in tp_distinct():
+            d.submit(prompt)
+        d.run_until_drained(chunk=CHUNK)
+    for rid, prompt in enumerate(tp_distinct()):
+        tp_divergence("(c) swap", prompt, fresh.results[rid],
+                      dec.results[rid],
+                      tp_reference(new[0], f32[1], prompt,
+                                   fresh.results[rid], device),
+                      lambda top, gap: gap < TOP2_GAP)
+    print("  (c) swap onto the mesh: receipt %d bytes, %s, %.4f s; the "
+          "streams a fresh process's on the new weights"
+          % (receipt["bytes"], receipt["counts"], receipt["seconds"]))
+    dec.close()
+    del dec, fresh, new
+    clock("(c)")
+    # (d) make_tp_generate at full width, f32
+    run = make_tp_generate(mesh, HEADS, TP_GEN_TOKENS, device=device)
+    got = run(f32[0], f32[1], tp_gen_prompt()).tolist()
+    want, _, logits = generate(*f32, tp_gen_prompt(), HEADS, TP_GEN_TOKENS,
+                               return_logits=True, device=device)
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1])
+    for row, (mine, theirs) in enumerate(zip(got, want.tolist())):
+        if mine != theirs:
+            i = next(j for j, (a, b) in enumerate(zip(mine, theirs))
+                     if a != b)
+            if gaps[row, i] >= TOP2_GAP:
+                raise AssertionError("(d) make_tp_generate left generate "
+                                     "at step %d of row %d" % (i, row))
+    if tp_reports(report, "generate", proc)["tokens"] != got:
+        raise AssertionError("(d) the ranks' tokens differ")
+    print("  (d) make_tp_generate (%d x %d prompt, %d tokens): generate's "
+          "tokens on both ranks" % (TP_GEN_SHAPE + (TP_GEN_TOKENS,)))
+    clock("(d)")
+    # (e) rank 1 SIGKILLed under traffic: 503 within the world's timeout
+    api = GenerateAPI(*f32, HEADS, slots=SLOTS, max_len=MAX_LEN,
+                      n_tokens=N_TOKENS, chunk=CHUNK, paged=True,
+                      page_size=PAGE, device=device, mesh=mesh).start()
+    answers = []
+    try:
+        post(api.port, tp_distinct()[0], CHUNK)
+
+        def client(prompt):
+            try:
+                post(api.port, prompt, N_TOKENS, timeout=3 * TP_TIMEOUT)
+                answers.append((200, time.perf_counter()))
+            except urllib.error.HTTPError as exc:
+                answers.append((exc.code, time.perf_counter()))
+        threads = [threading.Thread(target=client, args=(p,))
+                   for p in tp_distinct()]
+        for thread in threads:
+            thread.start()
+        # under traffic: the burst's first chunks dispatched
+        while api.decoder.dispatch_counts["chunk"] < 3 and len(answers) \
+                < len(threads):
+            time.sleep(0.01)
+        killed = time.perf_counter()
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+        for thread in threads:
+            thread.join(timeout=3 * TP_TIMEOUT)
+        after = None
+        try:
+            post(api.port, tp_distinct()[1], CHUNK, timeout=TP_TIMEOUT)
+        except urllib.error.HTTPError as exc:
+            after = exc.code
+        seconds = time.perf_counter() - killed
+    finally:
+        api.stop()
+    early = [code for code, at in answers if at < killed and code != 200]
+    shed = [at - killed for code, at in answers if code == 503]
+    print("  (e) rank 1 SIGKILLed under traffic: answers %s, %s after the "
+          "kill, a new request %s, %.2f s from the kill to its answer "
+          "(world timeout %d s)"
+          % (sorted(code for code, _ in answers),
+             "503 %.2f s" % min(shed) if shed else "no 503", after,
+             seconds, TP_TIMEOUT))
+    if any(thread.is_alive() for thread in threads) or early \
+            or after != 503 or seconds > TP_TIMEOUT:
+        raise AssertionError("(e) after rank 1's SIGKILL: answers %s (%s "
+                             "before it), a new request %s, %.1f s"
+                             % (answers, early, after, seconds))
+    print("  phase 27 launches (both ranks): %s; kernel errors %s"
+          % (dict(launches), errs))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -9678,7 +10244,7 @@ def main():
     # phase 25's cold-live replica starts here: its nvcc builds run
     # beside phases 23 and 24
     early = aot_cold_start(device)
-    serve_fleet = None
+    serve_fleet = tp_early = None
     try:
         # phase 26's bundle and forge server; its packages pack on a
         # thread beside phases 23-25
@@ -9703,10 +10269,18 @@ def main():
         for name, n in aot_phase(device, early).items():
             launches[name] += n
         clock("the AOT phase")
+        # phase 27's rank 1 starts beside phase 26: its imports and its
+        # weights take as long as that phase
+        tp_early = tp_start_follower()
         # the serving fleet and deploys: the surviving replicas' K1 and
         # the rolled-out api's K1 and K2 are a main path
         for name, n in serve_fleet_phase(device, serve_fleet).items():
             launches[name] += n
+    except BaseException:
+        if tp_early is not None:
+            tp_early[1].kill()
+            shutil.rmtree(tp_early[0], ignore_errors=True)
+        raise
     finally:
         if serve_fleet is not None:
             for child in serve_fleet.get("replicas", []) \
@@ -9714,6 +10288,10 @@ def main():
                 child.kill()
         early[2].kill()
         shutil.rmtree(early[0], ignore_errors=True)
+    clock("the serving fleet phase")
+    # sharded serving: both ranks' K1, K2, K3 and K4 are a main path
+    for name, n in tp_phase(device, gen, tp_early).items():
+        launches[name] += n
     isolated.cleanup()
     print("the smoke's phases and build: %.1f s" % (time.perf_counter()
                                                      - t0))

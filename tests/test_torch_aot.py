@@ -639,11 +639,26 @@ def test_cli_exit_codes_match_jax(tmp_path, capsys):
 
 
 def test_cli_refusals_name_their_roadmap_items(tmp_path, capsys):
+    """``aot build --mesh`` records a bundle for that serving mesh (its
+    ``mesh`` field JAX's shape); ``verify`` gives the JAX package's
+    verdicts: loadable for that mesh, refused for another or for none;
+    a mesh the weights cannot split is refused with JAX's error."""
     out = str(tmp_path / "b.aot.tar")
-    base = ["build", "--out", out, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A8 \(c\)"):
-        tcli.main(base + ["--mesh", "model=8"])
-    assert not os.path.exists(out)
+    base = ["build", "--out", out, "--device", "cpu", "--blocks", "1",
+            "--embed", "16", "--heads", "8", "--vocab", "32"]
+    assert tcli.main(base + ["--mesh", "model=8"]) == 0
+    manifest, _ = read_bundle(out)
+    assert manifest["mesh"]["devices"] == 8
+    assert manifest["mesh"]["axes"]["model"] == 8
+    assert manifest["geometry"]["mesh_axis"] == "model"
+    capsys.readouterr()
+    assert tcli.main(["verify", out]) == 0
+    assert tcli.main(["verify", out, "--mesh", "model=4"]) == 1
+    assert "REFUSED: mesh" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="divisible"):
+        tcli.main(base + ["--out", str(tmp_path / "c.aot.tar"),
+                          "--mesh", "model=3"])
+    assert not os.path.exists(str(tmp_path / "c.aot.tar"))
 
 
 def _package_dir(directory):

@@ -84,7 +84,9 @@ for name in ("__main__", "launcher", "cli", "snapshotter", "export",
              "samples.mnist784", "samples.mnist_conv", "aot.artifact",
              "aot.loader", "aot.exec_cache", "aot.cli", "forge",
              "forge.package", "forge.server", "forge.client",
-             "fleet.serve_plane", "router", "deploy_cli"):
+             "fleet.serve_plane", "router", "deploy_cli",
+             "parallel.tp_engine", "parallel.reshard", "parallel.decode",
+             "parallel.kv_pool", "parallel.mesh"):
     importlib.import_module("veles_tpu_torch." + name)
 from veles_tpu_torch.__main__ import main
 tiny, link = sys.argv[1:3]

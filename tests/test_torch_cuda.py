@@ -53,7 +53,9 @@ tick launching K6 on every minibatch and K5 on every train one, its
 frames holding numpy arrays only; and the AOT bundle: a process booted
 from a bundle of this card's libraries, from a copy of the package with
 an empty build directory, building no kernel and streaming the live
-decoder's tokens.
+decoder's tokens; and the sharded serving mesh: two ranks sharing the
+card over gloo behind rank 0's GenerateAPI, one process's tokens and
+each rank's K1 and K2 launches a decode step.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -2488,6 +2490,115 @@ print(json.dumps({"port": api.port}), flush=True)
 sys.stdin.read()
 os._exit(0)
 """
+
+
+_TP_RANK = r'''
+import json, sys
+import numpy, torch
+from veles_tpu_torch.ops.paged_attention import paged_attend
+from veles_tpu_torch.ops.quant import int8_matmul
+from veles_tpu_torch.parallel.mesh import (build_mesh, finalize_distributed,
+                                           initialize_distributed)
+from veles_tpu_torch.parallel.transformer_step import init_transformer_params
+from veles_tpu_torch.serving import GenerateAPI
+cfg = json.load(open(sys.argv[1]))
+rank = int(sys.argv[2])
+torch.backends.cuda.matmul.allow_tf32 = False
+initialize_distributed(cfg["coordinator"], 2, rank, device="cuda",
+                       backend="gloo", timeout=120)
+mesh = build_mesh(data=1, model=2)
+out = {}
+for dtype, quantize in (("float32", None), ("bfloat16", "int8")):
+    rng = numpy.random.RandomState(0)
+    params = init_transformer_params(rng, 2, 128, 4, 256,
+                                     dtype=getattr(torch, dtype),
+                                     device="cuda")
+    table = torch.from_numpy(rng.randn(256, 128).astype(numpy.float32)
+                             * 0.3).to(device="cuda",
+                                        dtype=getattr(torch, dtype))
+    paged_attend.launches = int8_matmul.launches = 0
+    api = GenerateAPI(params, table, 4, slots=4, max_len=128, n_tokens=8,
+                      chunk=4, paged=True, page_size=16, quantize=quantize,
+                      device="cuda", mesh=mesh)
+    if rank:
+        api.start()
+        steps = api.follow_stats["steps"]
+        tokens = None
+    else:
+        import urllib.request
+        api.start()
+        tokens = []
+        for prompt in cfg["prompts"]:
+            req = urllib.request.Request(
+                "http://127.0.0.1:%d/generate" % api.port,
+                data=json.dumps({"tokens": prompt}).encode())
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                tokens.append(json.loads(resp.read().decode())["tokens"])
+        counts = api.decoder.dispatch_counts
+        steps = counts["chunk"] * 4 + counts["step"]
+        api.stop()
+    out[dtype] = {"tokens": tokens, "steps": steps,
+                  "k1": paged_attend.launches, "k2": int8_matmul.launches}
+json.dump(out, open(cfg["out"] % rank, "w"))
+finalize_distributed()
+'''
+
+
+def test_two_ranks_share_the_card_tensor_parallel(cuda, tmp_path):
+    """The sharded serving mesh on the card: two ranks over gloo serve a
+    small model (4 heads of 32, 2 ranks of 2) through rank 0's
+    GenerateAPI over HTTP, one request at a time. In the paged float tier
+    on f32 weights its tokens equal one process's; in the paged int8
+    tier on bf16 weights each rank launches K1 twice a decode step (a
+    block each) and K2 at least 9 times (4 projections a block, the
+    head)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    rng = numpy.random.RandomState(1)
+    prompts = [rng.randint(0, 256, n).tolist() for n in (5, 16, 33, 20)]
+    cfg = {"coordinator": "127.0.0.1:%d" % _free_port(),
+           "prompts": prompts, "out": str(tmp_path / "rank%d.json")}
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TP_RANK, str(tmp_path / "cfg.json"),
+         str(rank)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    try:
+        logs = [proc.communicate(timeout=300)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, log in zip(procs, logs):
+        assert proc.returncode == 0, log[-3000:]
+    ranks = [json.load(open(cfg["out"] % rank)) for rank in range(2)]
+    params = init_transformer_params(numpy.random.RandomState(0), 2, 128,
+                                     4, 256, device="cuda")
+    rng = numpy.random.RandomState(0)
+    init_transformer_params(rng, 2, 128, 4, 256, device="cuda")
+    table = torch.from_numpy(rng.randn(256, 128).astype(numpy.float32)
+                             * 0.3).cuda()
+    single = ContinuousDecoder(params, table, 4, slots=4, max_len=128,
+                               n_tokens=8, paged=True, page_size=16,
+                               device="cuda")
+    for prompt in prompts:
+        single.submit(prompt)
+        single.run_until_drained(chunk=4)
+    assert ranks[0]["float32"]["tokens"] == [single.results[i]
+                                             for i in range(len(prompts))]
+    for got in ranks:
+        tier = got["bfloat16"]
+        assert tier["steps"] > 0
+        assert tier["k1"] == 2 * tier["steps"]
+        assert tier["k2"] >= 9 * tier["steps"]
+        assert got["float32"]["k1"] == 2 * got["float32"]["steps"]
 
 
 @pytest.mark.slow

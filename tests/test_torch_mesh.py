@@ -376,12 +376,15 @@ def test_mesh_shape_and_registry_as_jax():
 
 
 def test_axes_other_than_data_raise_naming_a8b():
-    """The model, seq, pipe and expert axes are ROADMAP A8 (b): a mesh
-    that sizes one above 1 raises, from build_mesh and from a workflow
-    handed such a mesh; JAX builds the same mesh."""
-    jmesh.build_mesh(devices=jax.devices()[:4], data=2, model=2)
+    """The model, seq, pipe and expert axes of a TRAINING mesh are
+    ROADMAP A8 (b): build_mesh builds such a mesh as JAX does (serving
+    takes its model axis), and the training paths it reaches raise, a
+    workflow handed it and the fused tick built over it."""
+    want = jmesh.build_mesh(devices=jax.devices()[:4], data=2, model=2)
+    got = mesh.build_mesh(devices=4, data=2, model=2)
+    assert got.shape == dict(want.shape)
     with pytest.raises(NotImplementedError, match=r"ROADMAP A8 \(b\)"):
-        mesh.build_mesh(devices=4, data=2, model=2)
+        fused.build_tick([], mesh=got, cached=False)
     x, y = _digits()
     with pytest.raises(NotImplementedError, match=r"ROADMAP A8 \(b\)"):
         MLPWorkflow(DummyLauncher(), device="cpu",
@@ -519,11 +522,18 @@ def test_cli_mesh_flags_run_a_two_process_world(tmp_path):
     assert not (tmp_path / "r1.json").exists()
 
 
-def test_cli_coordinator_needs_the_world_size(restore_sigterm, capsys):
+def test_cli_coordinator_needs_the_world_size(restore_sigterm, capsys,
+                                              tmp_path):
     from veles_tpu_torch.__main__ import DEFERRED, Main
     assert not {"mesh", "coordinator", "num_processes", "process_id",
                 "fleet_reduce"} & set(DEFERRED)
-    assert "A8 (c)" in DEFERRED["serve_mesh"]
+    assert "serve_mesh" not in DEFERRED
+    wf = tmp_path / "wf.py"
+    wf.write_text("def run(load, main):\n    pass\n")
+    with pytest.raises(SystemExit) as exc:
+        Main().run([str(wf), "-", "--serve-mesh", "bogus=2"])
+    assert exc.value.code == 2
+    assert "--serve-mesh expects AXIS=N" in capsys.readouterr().err
     with pytest.raises(SystemExit) as exc:
         Main().run(["wf.py", "-", "--coordinator", "127.0.0.1:1"])
     assert exc.value.code == 2

@@ -47,7 +47,10 @@ reduce's wire tier (``parallel/mapreduce.py``). With ``-m HOST:PORT`` the
 same flags start a pod slave, a fleet slave over that world
 (``fleet/pod.py``): rank 0 connects to the master, the other ranks follow
 its jobs. ``root.common.mesh.timeout`` (seconds) bounds every wait in the
-world.
+world. ``--serve-mesh model=N`` (validated at once, written to
+``root.common.serve.mesh``) serves tensor-parallel over such a world: the
+workflow's ``GenerateAPI`` on rank 0 serves, on every other rank it
+follows rank 0's decoder (``parallel/tp_engine.py``).
 
 The flags of paths the port does not have yet parse like the JAX
 package's, then exit with code 2 and a message naming the ROADMAP item
@@ -89,7 +92,6 @@ FLEET_FLAGS = ("listen", "master_address", "nodes", "respawn",
 
 #: flag -> the ROADMAP item that brings it (by argparse dest)
 DEFERRED = {
-    "serve_mesh": "the sharded serving mesh, ROADMAP A8 (c)",
     "optimize": _META, "optimize_fleet": _META,
     "optimize_representation": _META, "ensemble_train": _META,
     "ensemble_test": _META,
@@ -233,6 +235,13 @@ class Main(Logger):
                            "a stale or tampered bundle is refused with "
                            "the field named and serving boots live "
                            "(writes root.common.serve.aot)")
+        serve.add_argument("--serve-mesh", default=None,
+                           metavar="AXIS=N[,AXIS=N...]",
+                           help="serve tensor-parallel over a mesh, e.g. "
+                           "model=2: a world of one process per device "
+                           "(--coordinator/--num-processes/--process-id); "
+                           "rank 0 serves, the others follow (writes "
+                           "root.common.serve.mesh)")
         serve.add_argument("--chaos-serve-seed", type=int, default=None,
                            metavar="N", help="serving chaos RNG seed")
         serve.add_argument("--chaos-serve-step-fail", type=float,
@@ -300,7 +309,6 @@ class Main(Logger):
                                                               "gray")}),
                 (("--ensemble-train",), {"metavar": "N:RATIO"}),
                 (("--ensemble-test",), {"metavar": "FILE"}),
-                (("--serve-mesh",), {"metavar": "AXIS=N[,AXIS=N...]"}),
                 (("--serve-paged-kernel",), {"metavar": "on|off"}),
                 (("--manhole",), {"action": "store_true"})):
             kwargs.setdefault("default", None)
@@ -524,9 +532,11 @@ class Main(Logger):
         from veles_tpu_torch.observe.governor import parse_governor_spec
         from veles_tpu_torch.observe.history import parse_history_spec
         from veles_tpu_torch.observe.slo import parse_objectives
+        from veles_tpu_torch.parallel.mesh import parse_axes
         for flag, parse in (("serve_slo", parse_objectives),
                             ("serve_governor", parse_governor_spec),
-                            ("serve_history", parse_history_spec)):
+                            ("serve_history", parse_history_spec),
+                            ("serve_mesh", parse_axes)):
             value = getattr(args, flag)
             if value:
                 try:
@@ -537,6 +547,7 @@ class Main(Logger):
         for flag, node, key in (
                 ("serve_max_queue", root.common.serve, "max_queue"),
                 ("serve_deadline", root.common.serve, "deadline"),
+                ("serve_mesh", root.common.serve, "mesh"),
                 ("serve_paged", root.common.serve, "paged"),
                 ("serve_page_size", root.common.serve, "page_size"),
                 ("serve_pool_pages", root.common.serve, "pool_pages"),

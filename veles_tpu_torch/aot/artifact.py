@@ -20,8 +20,9 @@ in the JAX package's byte format:
   (source stem, source digest, member); and the compatibility fields the
   loader gates on: ``schema``, ``torch``, ``cuda``, ``kernels`` (the
   source digest of every library the rows name), the device
-  ``fingerprint`` and ``mesh`` (always None: the sharded serving mesh is
-  ROADMAP A8 (c));
+  ``fingerprint`` and ``mesh`` (``{"axes", "devices"}`` of the serving
+  mesh a bundle was built for, None for one device: every rank of a mesh
+  loads the same libraries, and a rank's dispatches have rank 0's keys);
 - a ``.sha256`` sidecar beside the tar, hashed through a write-tee.
 
 Bytes are deterministic (epoch-0 mtimes, sorted members, canonical JSON),
@@ -96,7 +97,7 @@ class BundleBuilder:
     (or taken as this process staged it) and packed; with ``"cpu"`` none
     is: the port launches no kernel there."""
 
-    def __init__(self, meta=None, device=None):
+    def __init__(self, meta=None, device=None, mesh=None):
         from veles_tpu_torch.device import resolve_device
 
         self.device = resolve_device(device)
@@ -109,7 +110,7 @@ class BundleBuilder:
             "torch": torch.__version__,
             "cuda": torch.version.cuda,
             "fingerprint": fingerprint_for(self.device),
-            "mesh": None,
+            "mesh": mesh_field(mesh),
             "kernels": {},
         }
         if meta:
@@ -263,8 +264,20 @@ def decoder_geometry(dec):
         "pool_pages": dec.pool_pages,
         "sample": bool(dec.temperature),
         "top_k": int(dec.top_k),
-        "mesh_axis": None,
+        "mesh_axis": (dec.mesh_axis if getattr(dec, "_tp", None)
+                      is not None else None),
     }
+
+
+def mesh_field(mesh):
+    """The manifest's ``mesh`` field (``artifact.py:221-240``): the axes
+    and device count of a serving mesh of more than one device, else
+    None."""
+    if mesh is None or mesh.size <= 1:
+        return None
+    return {"axes": {name: int(size)
+                     for name, size in dict(mesh.shape).items()},
+            "devices": int(mesh.size)}
 
 
 def serving_libraries(dec, name, width=0):
@@ -339,7 +352,7 @@ def build_serving_bundle(params, embed_table, heads, path, *, slots=4,
                          temperature=0.0, top_k=0, quantize=None,
                          tile=None, paged=False, page_size=None,
                          pool_pages=None, buckets=None, progress=None,
-                         device=None):
+                         mesh=None, mesh_axis="model", device=None):
     """Record every program a :class:`~veles_tpu_torch.serving.
     ContinuousDecoder` of this configuration dispatches, with the
     libraries each launches, and write the bundle to ``path``.
@@ -347,8 +360,13 @@ def build_serving_bundle(params, embed_table, heads, path, *, slots=4,
     The geometry comes from a real decoder built with the SAME kwargs
     (then discarded), as in the JAX package, so the recorded keys never
     drift from what serving dispatches: the int8-KV tier's ``max_len``
-    rounding and the pool's sizing defaults included. A bundle for a
-    serving mesh waits for the sharded serving mesh (ROADMAP A8 (c))."""
+    rounding and the pool's sizing defaults included. With a ``mesh``
+    (``mesh_axis`` sharded) the bundle is for every rank of that serving
+    mesh: the mesh is validated against the weights
+    (``decode.validate_slot_mesh``) and recorded, and needs no world to
+    build (a rank's dispatches carry rank 0's keys and launch the same
+    libraries)."""
+    from veles_tpu_torch.parallel.decode import validate_slot_mesh
     from veles_tpu_torch.serving import ContinuousDecoder
 
     dec = ContinuousDecoder(
@@ -356,10 +374,15 @@ def build_serving_bundle(params, embed_table, heads, path, *, slots=4,
         n_tokens=n_tokens, temperature=temperature, top_k=top_k,
         quantize=quantize, tile=tile, paged=paged, page_size=page_size,
         pool_pages=pool_pages, device=device)
+    geometry = decoder_geometry(dec)
+    if mesh_field(mesh) is not None:
+        validate_slot_mesh(mesh, heads, dec.params, dec.embed_table,
+                           axis=mesh_axis)
+        geometry["mesh_axis"] = mesh_axis
     bundle = BundleBuilder(
-        meta={"geometry": decoder_geometry(dec), "chunk": int(chunk),
+        meta={"geometry": geometry, "chunk": int(chunk),
               "n_tokens": int(n_tokens)},
-        device=dec.device)
+        device=dec.device, mesh=mesh)
     for name, key, width in serving_rows(dec, chunk, buckets):
         if progress is not None:
             progress(name, key)

@@ -19,10 +19,11 @@ package directory (:func:`stage_into_package`): ``forge upload -d DIR``
 then ships the kernel libraries and the weights together, and the forge
 server verifies the sidecar on receipt (422 on a tampered bundle).
 
-``--mesh`` on ``build`` raises: a mesh bundle waits for the sharded
-serving mesh (ROADMAP A8 (c)); on ``verify`` and ``warm-cache`` it gives
-the JAX package's verdict (a single-device bundle is not loadable for a
-mesh boot).
+``--mesh`` on ``build`` records the bundle for every rank of that serving
+mesh (the libraries are the same on every rank; the build needs no
+world); on ``verify`` and ``warm-cache`` it gives the JAX package's
+verdict (a single-device bundle is not loadable for a mesh boot, a mesh
+bundle for another mesh neither).
 """
 
 import argparse
@@ -30,8 +31,8 @@ import json
 
 
 class _AxesMesh:
-    """A requested mesh's axes (all the gate reads of a mesh): the port
-    builds no serving mesh yet (ROADMAP A8 (c))."""
+    """A requested mesh's axes: all the gate reads of a mesh, and all a
+    verdict given outside the mesh's world can know of it."""
 
     def __init__(self, spec):
         axes = {}
@@ -53,10 +54,10 @@ def _build(args):
     from veles_tpu_torch.parallel.transformer_step import \
         init_transformer_params
 
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(
-            "aot build --mesh: a mesh bundle waits for the sharded "
-            "serving mesh, ROADMAP A8 (c)")
+        from veles_tpu_torch.parallel.mesh import Mesh, parse_axes
+        mesh = Mesh(parse_axes(args.mesh, flag="--mesh"))
     rng = numpy.random.RandomState(args.seed)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     params = init_transformer_params(rng, args.blocks, args.embed,
@@ -76,7 +77,7 @@ def _build(args):
         temperature=args.temperature, top_k=args.top_k,
         quantize=args.quantize if args.quantize != "none" else None,
         tile=args.tile, paged=args.paged, page_size=args.page_size,
-        pool_pages=args.pool_pages, progress=progress,
+        pool_pages=args.pool_pages, progress=progress, mesh=mesh,
         device=args.device)
     if args.forge_dir:
         stage_into_package(path, args.forge_dir)
@@ -213,8 +214,8 @@ def main(argv=None):
     build.add_argument("--page-size", type=int, default=None)
     build.add_argument("--pool-pages", type=int, default=None)
     build.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N...]",
-                       help="not ported yet: the sharded serving mesh, "
-                            "ROADMAP A8 (c)")
+                       help="build for every rank of this serving mesh "
+                            "(--serve-mesh), e.g. model=2")
     build.add_argument("--forge-dir", default=None, metavar="DIR",
                        help="stage the bundle into this forge package "
                             "directory (listed under the manifest's "

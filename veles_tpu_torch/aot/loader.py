@@ -136,18 +136,26 @@ def check_compat(manifest, mesh=None, device=None):
     if bundle_mesh is None:
         if mesh is not None:
             raise AotCompatError(
-                "mesh", "bundle holds single-device programs but a mesh "
-                "%r was requested - a mesh bundle needs the sharded "
-                "serving mesh, ROADMAP A8 (c)" % (dict(mesh.shape),))
+                "mesh", "bundle holds single-chip programs but a mesh "
+                "%r was requested — rebuild with --mesh"
+                % dict(mesh.shape))
     else:
         if mesh is None:
             raise AotCompatError(
                 "mesh", "bundle holds programs for mesh axes %r but no "
-                "serving mesh was configured" % bundle_mesh.get("axes"))
-        if dict(bundle_mesh.get("axes") or {}) != dict(mesh.shape):
+                "serving mesh was configured (--serve-mesh)"
+                % bundle_mesh.get("axes"))
+        if _wide(bundle_mesh.get("axes")) != _wide(mesh.shape):
             raise AotCompatError(
                 "mesh", "bundle mesh axes %r != serving mesh %r"
                 % (bundle_mesh.get("axes"), dict(mesh.shape)))
+
+
+def _wide(axes):
+    """The axes of a mesh sized above 1 (a mesh names its size-1 axes or
+    leaves them out: the same layout)."""
+    return {name: int(size) for name, size in dict(axes or {}).items()
+            if int(size) != 1}
 
 
 class _Library:

@@ -70,6 +70,16 @@ def tree_structure(tree):
     return "*"
 
 
+def tree_rebuild(tree, leaves):
+    """``tree`` with its leaves replaced, in ``tree_leaves_with_path``
+    order, from the iterator ``leaves``."""
+    if isinstance(tree, dict):
+        return {key: tree_rebuild(tree[key], leaves) for key in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_rebuild(val, leaves) for val in tree)
+    return next(leaves)
+
+
 def tree_replace(tree, path, leaf):
     """A copy of ``tree`` (containers only; leaves shared) with the leaf
     at ``path`` replaced by ``leaf``."""

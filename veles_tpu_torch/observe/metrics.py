@@ -509,6 +509,41 @@ def publish_decoder(registry, decoder):
     pool = getattr(decoder, "pool", None)
     if pool is not None:
         publish_kv_pool(registry, pool)
+    tp_stats = getattr(decoder, "tp_stats", None)
+    stats = tp_stats() if tp_stats is not None else None
+    if stats is not None:
+        publish_tp(registry, stats)
+
+
+def publish_tp(registry, stats):
+    """A serving mesh's costs on rank 0 (``ContinuousDecoder.tp_stats``)
+    -> ``veles_tp_*``: the hand-offs to the other ranks by op (calls,
+    pickled bytes) with their seconds, and the collectives that complete
+    the sharded products by kind (calls, operand bytes, wall seconds)."""
+    handoff = stats["handoff"]
+    for op, calls in handoff["calls"].items():
+        registry.counter_set("veles_tp_handoff_calls_total", calls,
+                             labels={"op": op},
+                             help="device calls and events handed on to "
+                             "the serving mesh's other ranks")
+        registry.counter_set("veles_tp_handoff_bytes_total",
+                             handoff["bytes"].get(op, 0), labels={"op": op},
+                             help="bytes handed on to the serving mesh's "
+                             "other ranks")
+    registry.counter_set("veles_tp_handoff_seconds_total",
+                         handoff["seconds"],
+                         help="wall seconds rank 0 spent handing calls on")
+    for kind, (calls, nbytes, seconds) in stats["collectives"].items():
+        labels = {"kind": kind}
+        registry.counter_set("veles_tp_collective_calls_total", calls,
+                             labels=labels,
+                             help="tensor-parallel collectives on rank 0")
+        registry.counter_set("veles_tp_collective_bytes_total", nbytes,
+                             labels=labels,
+                             help="operand bytes of rank 0's collectives")
+        registry.counter_set("veles_tp_collective_seconds_total", seconds,
+                             labels=labels,
+                             help="wall seconds of rank 0's collectives")
 
 
 def publish_kv_pool(registry, pool):

@@ -50,8 +50,9 @@ maps each JAX name to the port's, None where the port has none):
 ``veles_kernel_build_seconds_total``, ``veles_xla_cache_hits_total`` is
 ``veles_kernel_loads_total``, ``veles_xla_recompile_storms_total`` is
 ``veles_kernel_rebuild_storms_total``, ``veles_xla_program_flops`` is
-``veles_program_flops``; the port adds ``veles_program_calls_total`` and
-``veles_program_seconds_total`` (:data:`PORT_FAMILIES`). Kept as in
+``veles_program_flops``; the port adds ``veles_program_calls_total``,
+``veles_program_seconds_total`` and a serving mesh's ``veles_tp_*``
+(:data:`PORT_FAMILIES`). Kept as in
 JAX: ``veles_device_memory_bytes{device,kind}``,
 ``veles_device_memory_limit_bytes{device}``,
 ``veles_device_peak_bf16_tflops``,
@@ -98,9 +99,18 @@ DIFFERING_FAMILIES = {
     "veles_xla_program_flops": "veles_program_flops",
 }
 
-#: families the port publishes that the JAX package has no counterpart of
+#: families the port publishes that the JAX package has no counterpart of:
+#: the programs' calls and seconds, and a serving mesh's hand-offs and
+#: collectives (``observe/metrics.publish_tp``; the JAX package's mesh is
+#: one SPMD program and hands nothing on)
 PORT_FAMILIES = ("veles_program_calls_total",
-                 "veles_program_seconds_total")
+                 "veles_program_seconds_total",
+                 "veles_tp_handoff_calls_total",
+                 "veles_tp_handoff_bytes_total",
+                 "veles_tp_handoff_seconds_total",
+                 "veles_tp_collective_calls_total",
+                 "veles_tp_collective_bytes_total",
+                 "veles_tp_collective_seconds_total")
 
 
 def peak_tflops(device_name=None):

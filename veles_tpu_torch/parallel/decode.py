@@ -29,12 +29,14 @@ count their FLOPs from shapes for the online MFU gauge (torch has no
 import numpy
 import torch
 
-from veles_tpu_torch.device import resolve_device, tree_to
+from veles_tpu_torch.device import (resolve_device, tree_leaves_with_path,
+                                    tree_rebuild, tree_to)
 from veles_tpu_torch.observe.xla_stats import instrument
 from veles_tpu_torch.ops.attention import attention
-from veles_tpu_torch.ops.quant import (int8_cache_attend, matmul_any,
-                                       quantize_int8)
-from veles_tpu_torch.parallel.transformer_step import (_block_qkv, _head,
+from veles_tpu_torch.ops.quant import int8_cache_attend, quantize_int8
+from veles_tpu_torch.parallel.mesh import PartitionSpec
+from veles_tpu_torch.parallel.transformer_step import (_attn_out,
+                                                       _block_qkv, _head,
                                                        _mlp)
 
 #: the attended-span tile of the slot engine (positions): each dispatch
@@ -78,7 +80,22 @@ def _quantize_kv(x):
     return q.to(torch.int8), scale[..., 0]
 
 
-def _prefill_forward(params, x, heads, length=None):
+def _reduce_of(tp):
+    """The all-reduce that completes a head-sharded product on a rank of
+    the tensor-parallel engine (``tp``: ``parallel/tp_engine.
+    TensorParallel``), or None on one rank."""
+    return None if tp is None else tp.reduce
+
+
+def _logits(params, x, tp=None):
+    """The vocabulary head: ``_head``'s logits, all-gathered to the whole
+    vocabulary on a rank of the tensor-parallel engine (each rank holds a
+    vocab slice of ``head``), so every rank picks from the same logits."""
+    logits = _head(params, x)
+    return logits if tp is None else tp.gather(logits)
+
+
+def _prefill_forward(params, x, heads, length=None, tp=None):
     """The prompt forward pass shared by every prefill surface: run
     ``x`` (B, T, E) through all blocks once and return ``(last_logits,
     k_all, v_all, cache_len)`` with ``k_all``/``v_all`` stacked
@@ -87,17 +104,19 @@ def _prefill_forward(params, x, heads, length=None):
     ``length`` may be None (use T) or a (B,) integer tensor of per-row
     true lengths (ragged admission); the logits read from each row's
     position ``length - 1``. Causality keeps pad positions out of every
-    real position's activations."""
-    batch, t, embed = x.shape
+    real position's activations. ``tp`` runs the pass on one rank's
+    shard of the tensor-parallel engine: ``heads`` are the rank's own,
+    K/V hold those heads, and the logits are the whole vocabulary's."""
+    batch, t, _ = x.shape
+    reduce = _reduce_of(tp)
     ks, vs = [], []
     for blk in params["blocks"]:
         q, k, v = _block_qkv(blk, x, heads)
         ks.append(k)
         vs.append(v)
         att = attention(q, k, v, causal=True)
-        x = x + matmul_any(att.reshape(batch, t, embed),
-                           blk["wout"]) + blk["bout"]
-        x = _mlp(blk, x)
+        x = _attn_out(blk, x, att, reduce)
+        x = _mlp(blk, x, reduce)
     if length is None:
         last = x[:, -1]
         cache_len = t
@@ -105,14 +124,14 @@ def _prefill_forward(params, x, heads, length=None):
         rows = torch.arange(batch, device=x.device)
         last = x[rows, length.long() - 1]
         cache_len = length
-    logits = _head(params, last)
+    logits = _logits(params, last, tp)
     return logits, torch.stack(ks), torch.stack(vs), cache_len
 
 
-def prefill(params, x, heads, cache):
+def prefill(params, x, heads, cache, tp=None):
     """Run the prompt (B, T, E) once, writing ``cache`` positions
     [0, T) in place; returns ``(last_logits, cache)``."""
-    logits, k_all, v_all, t = _prefill_forward(params, x, heads)
+    logits, k_all, v_all, t = _prefill_forward(params, x, heads, tp=tp)
     if "k_scale" in cache:
         # the prompt attended exact K/V; only the cached copies round
         for name, val in (("k", k_all), ("v", v_all)):
@@ -145,7 +164,7 @@ def _cache_attend(q, k_all, v_all, mask=None):
                         v_all.to(q.dtype).float())
 
 
-def decode_step(params, x_tok, heads, cache):
+def decode_step(params, x_tok, heads, cache, tp=None):
     """One token (B, 1, E) through every block against the cache; the
     token's K/V are appended in place at ``cache["length"]``, and the
     attend reads positions [0, length] (the JAX package masks the rest
@@ -153,20 +172,21 @@ def decode_step(params, x_tok, heads, cache):
     quantizes the append and attends the whole cache under that mask
     through the torch formulation of :func:`ops.quant.int8_cache_attend`
     (``use_pallas=False``: JAX's XLA numerics, no kernel, on any
-    device), q pre-scaled by 1/sqrt(D) in q's type. Returns ``(logits,
-    cache)``."""
-    batch, _, embed = x_tok.shape
+    device), q pre-scaled by 1/sqrt(D) in q's type. ``tp``: one rank's
+    shard of the tensor-parallel engine (:func:`make_tp_generate`).
+    Returns ``(logits, cache)``."""
     length = cache["length"]
     quantized = "k_scale" in cache
+    reduce = _reduce_of(tp)
     if quantized:
         max_len = cache["k"].shape[-1]
         mask_addend = torch.where(
             torch.arange(max_len, device=x_tok.device) <= length,
             0.0, -1e30).float()
-        inv_sqrt = (embed // heads) ** -0.5
     x = x_tok
     for i, blk in enumerate(params["blocks"]):
         q, k, v = _block_qkv(blk, x, heads)
+        inv_sqrt = q.shape[-1] ** -0.5
         if quantized:
             for name, val in (("k", k), ("v", v)):
                 q8, scale = _quantize_kv(val[:, 0])   # (B,H,D), (B,H)
@@ -181,11 +201,9 @@ def decode_step(params, x_tok, heads, cache):
             cache["v"][i, :, length] = v[:, 0].to(cache["v"].dtype)
             att = _cache_attend(q, cache["k"][i, :, :length + 1],
                                 cache["v"][i, :, :length + 1])
-        att = att.to(x.dtype)
-        x = x + matmul_any(att.reshape(batch, 1, embed),
-                           blk["wout"]) + blk["bout"]
-        x = _mlp(blk, x)
-    logits = _head(params, x[:, 0])
+        x = _attn_out(blk, x, att.to(x.dtype), reduce)
+        x = _mlp(blk, x, reduce)
+    logits = _logits(params, x[:, 0], tp)
     cache["length"] = length + 1
     return logits, cache
 
@@ -420,7 +438,7 @@ def slot_state_bytes(state):
 
 
 def slot_admit_many(params, heads, state, slots, prompt_x, lengths,
-                    req_keys=None):
+                    req_keys=None, tp=None):
     """Admit one group in one prefill (``decode.py:461-507``): run
     ``prompt_x`` (B, T, E) — rows right-padded to the group's bucket T —
     and write positions [0, T) of the lanes ``slots`` (B,), quantized
@@ -428,11 +446,12 @@ def slot_admit_many(params, heads, state, slots, prompt_x, lengths,
     rows; ``lengths`` (B,) are the true prompt lengths, ``req_keys``
     (B,) the rows' sampling keys (:func:`request_key`). Positions past T
     keep a retired occupant's values, which this sequence's own appends
-    rewrite before its mask shows them. Updates ``state`` in place and
-    returns it."""
+    rewrite before its mask shows them. ``tp``: one rank's shard of the
+    tensor-parallel engine (``parallel/tp_engine.py``). Updates ``state``
+    in place and returns it."""
     t = prompt_x.shape[1]
     logits, k_all, v_all, lengths = _prefill_forward(params, prompt_x,
-                                                     heads, lengths)
+                                                     heads, lengths, tp)
     write_control(state, slots, lengths, logits, req_keys)
     idx = slots.long()
     for name, val in (("k", k_all), ("v", v_all)):
@@ -466,7 +485,7 @@ def slot_admit(params, heads, state, slot, prompt_x, req_key=None,
 
 
 def slot_step(params, embed_table, heads, state, active, temperature=1.0,
-              sample=False, top_k=0, span=None):
+              sample=False, top_k=0, span=None, tp=None):
     """One decode step across all slots (``decode.py:529-642``);
     ``active`` (S,) bool gates which lanes advance (inactive lanes are
     computed, their lengths, logits and step stay, and the host discards
@@ -483,10 +502,13 @@ def slot_step(params, embed_table, heads, state, active, temperature=1.0,
     position p of slot s visible iff p <= lengths[s]: the float tier
     through :func:`_cache_attend`, the int8-KV tier through
     :func:`ops.quant.int8_cache_attend` on the slab view (K4 on the
-    card) with q pre-scaled by 1/sqrt(D) in q's type. Updates ``state``
-    in place; returns ``(state, emitted (S,))`` without a host sync."""
+    card) with q pre-scaled by 1/sqrt(D) in q's type. ``tp``: one rank's
+    shard of the tensor-parallel engine; every rank picks from the same
+    all-gathered logits. Updates ``state`` in place; returns ``(state,
+    emitted (S,))`` without a host sync."""
     slots = state["lengths"].shape[0]
     quantized = "k_scale" in state
+    reduce = _reduce_of(tp)
     max_len = state["k"].shape[-1] if quantized else state["k"].shape[2]
     if span is None or span > max_len:
         span = max_len
@@ -497,12 +519,10 @@ def slot_step(params, embed_table, heads, state, active, temperature=1.0,
     tok_in = _pick_token(state["logits"], keys, steps, temperature, sample,
                          top_k)
     x = embed_table[tok_in][:, None, :]
-    embed = x.shape[-1]
     visible = (torch.arange(span, device=x.device)[None, :]
                <= lengths[:, None])
     if quantized:
         mask_addend = torch.where(visible, 0.0, -1e30).float()
-        inv_sqrt = (embed // heads) ** -0.5
     rows = torch.arange(slots, device=x.device)
     pos = torch.clamp(lengths, max=max_len - 1).long()
     for i, blk in enumerate(params["blocks"]):
@@ -515,7 +535,7 @@ def slot_step(params, embed_table, heads, state, active, temperature=1.0,
                 state[name][i, rows, :, :, pos] = q8
                 state[name + "_scale"][i, rows, :, pos] = scale
             att = int8_cache_attend(
-                q * inv_sqrt, state["k"][i, ..., :span],
+                q * q.shape[-1] ** -0.5, state["k"][i, ..., :span],
                 state["k_scale"][i, ..., :span], state["v"][i, ..., :span],
                 state["v_scale"][i, ..., :span], mask_addend)
         else:
@@ -524,25 +544,258 @@ def slot_step(params, embed_table, heads, state, active, temperature=1.0,
             att = _cache_attend(q, state["k"][i, :, :span],
                                 state["v"][i, :, :span],
                                 visible[:, None, None, :])
-        att = att.to(x.dtype)
-        x = x + matmul_any(att.reshape(slots, 1, embed),
-                           blk["wout"]) + blk["bout"]
-        x = _mlp(blk, x)
-    advance_control(state, active, _head(params, x[:, 0]).float())
+        x = _attn_out(blk, x, att.to(x.dtype), reduce)
+        x = _mlp(blk, x, reduce)
+    advance_control(state, active, _logits(params, x[:, 0], tp).float())
     return state, tok_in
 
 
 def slot_step_many(params, embed_table, heads, state, active, n,
-                   temperature=1.0, sample=False, top_k=0, span=None):
+                   temperature=1.0, sample=False, top_k=0, span=None,
+                   tp=None):
     """``n`` lockstep :func:`slot_step`s (``decode.py:645-664``); ``span``
     must cover the longest live sequence plus the whole chunk. Returns
     ``(state, emitted (n, S))``, still on the device."""
     emitted = []
     for _ in range(n):
         state, tok = slot_step(params, embed_table, heads, state, active,
-                               temperature, sample, top_k, span=span)
+                               temperature, sample, top_k, span=span,
+                               tp=tp)
         emitted.append(tok)
     return state, torch.stack(emitted)
+
+
+# -- tensor-parallel decode and the sharded slot layout ---------------------
+#
+# The port of decode.py:766-1161. The JAX package goes multi-chip by
+# layout: one SPMD program, the params tensor-parallel over the mesh's
+# ``model`` axis, the slot slab sharded over its heads, and XLA's
+# partitioner inserting the collectives. The port's mesh is a
+# torch.distributed world, one process per device, so the partition is
+# written out: every rank holds whole heads of every attention block, a
+# column/row slice of every FFN and a vocab slice of the head, and runs the
+# same slot math on them (``tp=`` of the functions above), two all-reduces
+# a block (after ``wout`` and after ``w2``) and one all-gather of the logits
+# completing the products (``parallel/tp_engine.TensorParallel``). The
+# JAX slab shards the fused qkv by flat columns and lets the partitioner
+# reshard around the per-head split (decode.py:970-982); the port repacks
+# head-major first (:func:`_repack_block`), as JAX's own
+# ``make_tp_generate`` does, so each rank's columns are [q | k | v] of its
+# heads. The math of a head is the same either way.
+
+
+def _repack_block(blk, heads):
+    """Host-side repack of one block into head-major layouts a head shard
+    can slice: qkv (E, 3E) to (E, 3, H, D), its bias (3E,) to (3, H, D),
+    out-proj (E, E) to (H, D, E) (``decode.py:768-781``). The int8 tier's
+    ``{"q8", "scale"}`` leaves repack the codes like the float matrix, and
+    the qkv's per-column scales like its bias; the out-proj's scales (per
+    output column) stay whole."""
+    def mat(leaf, shape, scale_shape=None):
+        if isinstance(leaf, dict):
+            scale = leaf["scale"]
+            return {"q8": leaf["q8"].reshape(shape),
+                    "scale": (scale.reshape(scale_shape)
+                              if scale_shape is not None else scale)}
+        return leaf.reshape(shape)
+
+    wqkv = blk["wqkv"]["q8"] if isinstance(blk["wqkv"], dict) \
+        else blk["wqkv"]
+    embed = wqkv.shape[0]
+    head_dim = embed // heads
+    return dict(
+        blk,
+        wqkv=mat(blk["wqkv"], (embed, 3, heads, head_dim),
+                 (3, heads, head_dim)),
+        bqkv=blk["bqkv"].reshape(3, heads, head_dim),
+        wout=mat(blk["wout"], (heads, head_dim, embed)),
+    )
+
+
+def repack_slot_params(params, heads):
+    """The serving parameters with every block repacked head-major
+    (:func:`_repack_block`): the tree :func:`slot_param_specs`
+    describes."""
+    return dict(params, blocks=[_repack_block(blk, heads)
+                                for blk in params["blocks"]])
+
+
+def _flatten_block(blk):
+    """A rank's slice of a repacked block back in the engine's layout:
+    qkv (E, 3, h, D) to (E, 3 h D), its bias to (3 h D,), out-proj
+    (h, D, E) to (h D, E), every leaf contiguous (K2 reads whole
+    rows)."""
+    def flat(leaf, cols):
+        if isinstance(leaf, dict):
+            return {"q8": flat(leaf["q8"], cols),
+                    "scale": leaf["scale"].reshape(-1).contiguous()}
+        if cols:
+            return leaf.reshape(leaf.shape[0], -1).contiguous()
+        return leaf.reshape(-1, leaf.shape[-1]).contiguous()
+
+    return dict(blk, wqkv=flat(blk["wqkv"], True),
+                bqkv=blk["bqkv"].reshape(-1).contiguous(),
+                wout=flat(blk["wout"], False))
+
+
+def local_from_packed(local):
+    """A rank's slice of the repacked tree (:func:`repack_slot_params`
+    under :func:`slot_param_specs`) in the engine's layout."""
+    return dict(local, blocks=[_flatten_block(blk)
+                               for blk in local["blocks"]])
+
+
+def validate_slot_mesh(mesh, heads, params, embed_table, axis="model"):
+    """Fail a bad serving mesh at build time with an error naming the
+    offending dimension (``decode.py:985-1003``); returns the axis
+    size."""
+    n = dict(mesh.shape).get(axis, 1)
+    if n <= 1:
+        return n
+    blk = params["blocks"][0]
+    w1 = blk["w1"]["q8"] if isinstance(blk["w1"], dict) else blk["w1"]
+    ffn_hidden = w1.shape[1]
+    vocab = embed_table.shape[0]
+    if heads % n or ffn_hidden % n or vocab % n:
+        raise ValueError(
+            "sharded slot serving needs heads (%d), ffn hidden (%d) "
+            "and vocab (%d) divisible by the %r axis size %d"
+            % (heads, ffn_hidden, vocab, axis, n))
+    return n
+
+
+def slot_param_specs(params, axis="model"):
+    """The :class:`~veles_tpu_torch.parallel.mesh.PartitionSpec` tree of
+    the tensor-parallel serving layout, for the HEAD-MAJOR tree
+    :func:`repack_slot_params` gives (``decode.py:1006-1043``, whose flat
+    qkv columns the port replaces by whole heads): qkv (E, 3, H, D), its
+    bias and out-proj (H, D, E) shard over heads, FFN-up columns and the
+    vocab head over ``axis``, FFN-down rows over ``axis``; norms and the
+    biases added after a reduce stay whole. int8 leaves (``{"q8",
+    "scale"}``) shard the codes like the float matrix; per-output-column
+    scales follow their columns and stay whole under a row shard, which
+    is exact: a column's scale commutes with the sum over rows."""
+    P = PartitionSpec
+
+    def mat(leaf, spec, scale_spec):
+        if isinstance(leaf, dict):
+            return {"q8": spec, "scale": scale_spec}
+        return spec
+
+    blocks = []
+    for blk in params["blocks"]:
+        blocks.append({
+            "ln1_w": P(), "ln1_b": P(),
+            "wqkv": mat(blk["wqkv"], P(None, None, axis, None),
+                        P(None, axis, None)),
+            "bqkv": P(None, axis, None),
+            "wout": mat(blk["wout"], P(axis, None, None), P()),
+            "bout": P(),
+            "ln2_w": P(), "ln2_b": P(),
+            "w1": mat(blk["w1"], P(None, axis), P(axis)),
+            "b1": P(axis),
+            "w2": mat(blk["w2"], P(axis, None), P()),
+            "b2": P(),
+        })
+    return {"blocks": blocks, "lnf_w": P(), "lnf_b": P(),
+            "head": mat(params["head"], P(None, axis), P(axis))}
+
+
+def slot_state_specs(quantized=False, axis="model"):
+    """The slot state's layout (``decode.py:1046-1061``): the KV slab
+    (and the int8 tier's scales) shard over their HEADS dim, the control
+    rows (lengths, logits, req_key, step) are whole on every rank."""
+    P = PartitionSpec
+    if quantized:
+        kv = P(None, None, axis, None, None)   # (L, S, H, D, T)
+        scale = P(None, None, axis, None)      # (L, S, H, T)
+        extra = {"k_scale": scale, "v_scale": scale}
+    else:
+        kv = P(None, None, None, axis, None)   # (L, S, T, H, D)
+        extra = {}
+    return dict({"k": kv, "v": kv, "lengths": P(), "logits": P(),
+                 "req_key": P(), "step": P()}, **extra)
+
+
+def shard_slot_params(params, embed_table, heads, mesh, axis="model"):
+    """This rank's shard of the serving parameters and the (whole)
+    embedding table: ``(params, embed_table)`` (``decode.py:1078-1087``).
+    Validates divisibility first, repacks head-major, slices this rank's
+    part by :func:`slot_param_specs` (a whole tree to the serving layout
+    is slice-only: nothing crosses the wire) and flattens it back to the
+    engine's layout, every leaf contiguous: the qkv columns [q | k | v] of
+    this rank's heads, the ``wout`` rows of those heads, its ``w1``
+    columns with ``b1``, its ``w2`` rows and its vocab columns of
+    ``head``. Quantize first (:func:`quantize_params`): a shard's codes
+    are then the single device's."""
+    from veles_tpu_torch.parallel.reshard import apply_plan, plan_reshard
+
+    validate_slot_mesh(mesh, heads, params, embed_table, axis=axis)
+    packed = repack_slot_params(params, heads)
+    plan = plan_reshard(packed, mesh, slot_param_specs(packed, axis),
+                        PartitionSpec())
+    leaves = iter([apply_plan(leaf, leaf_plan, mesh)
+                   for (_, leaf), leaf_plan in zip(
+                       tree_leaves_with_path(packed), plan.leaves)])
+    return local_from_packed(tree_rebuild(packed, leaves)), embed_table
+
+
+def make_tp_generate(mesh, heads, n_tokens, axis="model", device=None):
+    """Tensor-parallel greedy decoding over ``mesh``'s ``axis``
+    (``decode.py:784-982``): every rank holds a head slice of each
+    attention block, a column/row slice of each FFN and a vocab slice of
+    the head; activations are whole on every rank, and the two per-block
+    products complete by an all-reduce over the axis's group (the
+    Megatron inference recipe). The KV cache holds the rank's heads, so a
+    rank's cache is 1/n of the whole.
+
+    Returns ``run(params, embed_table, prompt_tokens) -> tokens (B,
+    n_tokens)``, which EVERY rank of the world calls with the same
+    inputs; ``params`` is the standard ``init_transformer_params`` tree
+    (repacked and sliced inside). Requires ``heads``, the FFN hidden
+    width and the vocabulary divisible by the axis size, and unquantized
+    params, with the JAX package's errors. Every rank picks from the
+    all-gathered logits, so every rank returns the same tokens."""
+    from veles_tpu_torch.parallel.tp_engine import TensorParallel
+
+    n = mesh.shape[axis]
+    held = {}
+
+    def run(params, embed_table, prompt_tokens):
+        if isinstance(params["head"], dict):
+            raise ValueError(
+                "tensor-parallel decode takes unquantized params (the "
+                "int8 tier is single-device serving; TP shards bf16)")
+        embed = embed_table.shape[1]
+        ffn = params["blocks"][0]["w1"].shape[1]
+        if heads % n or ffn % n or embed_table.shape[0] % n:
+            raise ValueError(
+                "tensor-parallel decode needs heads (%d), ffn hidden "
+                "(%d) and vocab (%d) divisible by the %r axis size %d"
+                % (heads, ffn, embed_table.shape[0], axis, n))
+        dev = resolve_device(device)
+        if "tp" not in held:
+            held["tp"] = TensorParallel(mesh, axis)
+        tp = held["tp"]
+        local, table = shard_slot_params(tree_to(params, dev),
+                                         embed_table.to(dev), heads, mesh,
+                                         axis=axis)
+        prompt = torch.as_tensor(prompt_tokens, dtype=torch.long).to(dev)
+        batch, t = prompt.shape
+        cache = init_kv_cache(len(local["blocks"]), batch, t + n_tokens,
+                              heads // n, embed // heads,
+                              dtype=table.dtype, device=dev)
+        logits, cache = prefill(local, table[prompt], heads // n, cache,
+                                tp=tp)
+        toks = []
+        for _ in range(n_tokens):
+            tok = torch.argmax(logits, dim=-1)
+            toks.append(tok)
+            logits, cache = decode_step(local, table[tok][:, None, :],
+                                        heads // n, cache, tp=tp)
+        return torch.stack(toks, dim=1)
+
+    return run
 
 
 # -- program names and FLOPs (observe/xla_stats.py) ---------------------------

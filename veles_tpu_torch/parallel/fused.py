@@ -84,6 +84,7 @@ from veles_tpu_torch.ops.attention import attention_block, ffn_block
 from veles_tpu_torch.ops.augment import TRANSFORMS
 from veles_tpu_torch.ops.gather import gather_minibatch
 from veles_tpu_torch.ops.gemm import conv2d, dense_layer
+from veles_tpu_torch.parallel.mesh import check_ported
 from veles_tpu_torch.parallel.segments import chain_of
 
 _DENSE = "dense"
@@ -387,7 +388,10 @@ def build_tick(specs, norm_type="none", with_confusion=True,
     and the confusion matrix through ``mapreduce.reduce_sum`` over the
     mesh's group before the update: the gradients at ``grad_reduce``, the
     metrics exact. At a data axis of 1 the steps are the unsharded
-    ones."""
+    ones. A mesh that sizes another axis above 1 raises
+    ``NotImplementedError`` (ROADMAP A8 (b), ``mesh.check_ported``)."""
+    if mesh is not None:
+        check_ported(mesh)
     if cached:
         installed = _TICK_CACHE.get(_tick_key(
             specs, norm_type, with_confusion, augment, loss_kind,

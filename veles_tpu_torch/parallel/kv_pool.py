@@ -34,7 +34,9 @@ programs carry the JAX package's names (``paged.admit``,
 ``paged.admit_tail``, ``paged.admit_hit``, ``paged.step``,
 ``paged.dispatch``, ``paged.restore``; ``observe/xla_stats.
 instrument``), under which an AOT bundle's rows name them
-(``aot/artifact.serving_rows``). The mesh functions are a later slice.
+(``aot/artifact.serving_rows``). On a serving mesh each rank holds a
+pool of its own heads (:func:`paged_state_specs`) and the functions run
+with ``tp=``; the host side stays on rank 0 (``parallel/tp_engine.py``).
 """
 
 import collections
@@ -52,12 +54,13 @@ from veles_tpu_torch.ops.attention import plain_attention
 from veles_tpu_torch.ops.paged_attention import (gather_pages,
                                                  paged_attend,
                                                  paged_attend_int8)
-from veles_tpu_torch.ops.quant import matmul_any
-from veles_tpu_torch.parallel.decode import (_pick_token, _prefill_forward,
-                                             _quantize_kv, advance_control,
+from veles_tpu_torch.parallel.decode import (_logits, _pick_token,
+                                             _prefill_forward, _quantize_kv,
+                                             _reduce_of, advance_control,
                                              control_state, write_control)
-from veles_tpu_torch.parallel.transformer_step import (_block_qkv, _head,
-                                                       _mlp)
+from veles_tpu_torch.parallel.mesh import PartitionSpec
+from veles_tpu_torch.parallel.transformer_step import (_attn_out,
+                                                       _block_qkv, _mlp)
 
 #: page 0 is the SCRATCH page: never allocated; padding page-table
 #: entries and retired lanes point at it, and it is always masked
@@ -100,6 +103,24 @@ def init_paged_state(n_blocks, pages, page_size, heads, head_dim, vocab,
         for name in ("k", "v"):
             state[name] = torch.zeros(shape, dtype=dtype, device=device)
     return state
+
+
+def paged_state_specs(quantized=False, axis="model"):
+    """The page pool's layout (``kv_pool.py:107-122``), as the
+    tensor-parallel engine holds it (``parallel/tp_engine.py``): the
+    pages hold every rank's own heads (float ``(L, P, ps, H, D)``, int8
+    ``(L, P, H, D, ps)`` with scales ``(L, P, H, ps)``); the control rows
+    are whole."""
+    P = PartitionSpec
+    if quantized:
+        kv = P(None, None, axis, None, None)
+        scale = P(None, None, axis, None)
+        extra = {"k_scale": scale, "v_scale": scale}
+    else:
+        kv = P(None, None, None, axis, None)
+        extra = {}
+    return dict({"k": kv, "v": kv, "lengths": P(), "logits": P(),
+                 "req_key": P(), "step": P()}, **extra)
 
 
 def _page_size_of(state):
@@ -149,22 +170,23 @@ def _scatter_pages(state, page_ids, k_all, v_all):
 
 
 def paged_admit_many(params, heads, state, slots, page_ids, prompt_x,
-                     lengths, req_keys=None):
+                     lengths, req_keys=None, tp=None):
     """Cold paged admission of one ragged group: prefill ``prompt_x``
     (B, T, E) — rows right-padded to the group's page-rounded width —
     scatter the K/V into ``page_ids`` (B, NP) and write the control rows
     of ``slots`` (B,). ``lengths`` (B,) are the true prompt lengths,
-    ``req_keys`` (B,) the rows' sampling keys. Updates ``state`` in
-    place and returns it."""
+    ``req_keys`` (B,) the rows' sampling keys. ``tp``: one rank's shard
+    of the tensor-parallel engine (its pool holds its heads). Updates
+    ``state`` in place and returns it."""
     logits, k_all, v_all, lengths = _prefill_forward(params, prompt_x,
-                                                     heads, lengths)
+                                                     heads, lengths, tp)
     write_control(state, slots, lengths, logits, req_keys)
     _scatter_pages(state, page_ids, k_all, v_all)
     return state
 
 
 def paged_admit_tail(params, heads, state, slots, prefix_pages,
-                     tail_pages, tail_x, lengths, req_keys=None):
+                     tail_pages, tail_x, lengths, req_keys=None, tp=None):
     """Prefix-hit admission, float tier: prefill ONLY the unique tail.
     The shared prefix (``prefix_pages`` (B, PP), whole pages) is
     gathered from the pool as attention context; the tail tokens
@@ -179,8 +201,9 @@ def paged_admit_tail(params, heads, state, slots, prefix_pages,
     if "k_scale" in state:
         raise ValueError("the int8-KV pool takes exact-prompt hits only; "
                          "tail admissions are float tier")
-    batch, t_tail, embed = tail_x.shape
+    batch = tail_x.shape[0]
     shared = prefix_pages.shape[1] * _page_size_of(state)
+    reduce = _reduce_of(tp)
     x = tail_x
     ks, vs = [], []
     for i, blk in enumerate(params["blocks"]):
@@ -191,12 +214,12 @@ def paged_admit_tail(params, heads, state, slots, prefix_pages,
         vp = gather_pages(state["v"][i], prefix_pages).to(q.dtype)
         att = plain_attention(q, torch.cat([kp, k], dim=1),
                               torch.cat([vp, v], dim=1), causal=True)
-        x = x + matmul_any(att.reshape(batch, t_tail, embed),
-                           blk["wout"]) + blk["bout"]
-        x = _mlp(blk, x)
+        x = _attn_out(blk, x, att, reduce)
+        x = _mlp(blk, x, reduce)
     rows = torch.arange(batch, device=x.device)
     last = x[rows, torch.clamp(lengths.long() - shared - 1, min=0)]
-    write_control(state, slots, lengths, _head(params, last), req_keys)
+    write_control(state, slots, lengths, _logits(params, last, tp),
+                  req_keys)
     _scatter_pages(state, tail_pages, torch.stack(ks), torch.stack(vs))
     return state
 
@@ -212,7 +235,7 @@ def paged_admit_hit(state, slots, lengths, logits, req_keys=None):
 
 
 def paged_slot_step(params, embed_table, heads, state, page_table, active,
-                    temperature=1.0, sample=False, top_k=0):
+                    temperature=1.0, sample=False, top_k=0, tp=None):
     """One decode step across all slots. ``page_table`` (S, PB) int32
     lists each slot's pages in logical order (padding and retired rows
     point at scratch); ``active`` (S,) bool gates which slots advance.
@@ -223,10 +246,12 @@ def paged_slot_step(params, embed_table, heads, state, page_table, active,
     ``page_table[s, min(pos // ps, PB - 1)]``, offset ``pos % ps`` —
     before the attend, which sees it. The int8-KV tier quantizes the
     append per (slot, head) and attends through ``paged_attend_int8``
-    with q pre-scaled by 1/sqrt(D) in q's type. Updates ``state`` in
+    with q pre-scaled by 1/sqrt(D) in q's type. ``tp``: one rank's shard
+    of the tensor-parallel engine, which attends its own heads; every
+    rank picks from the same all-gathered logits. Updates ``state`` in
     place; returns ``(state, emitted (S,))`` without a host sync."""
-    slots = state["lengths"].shape[0]
     quantized = "k_scale" in state
+    reduce = _reduce_of(tp)
     ps = _page_size_of(state)
     pb = page_table.shape[1]
     lengths = state["lengths"]
@@ -236,13 +261,12 @@ def paged_slot_step(params, embed_table, heads, state, page_table, active,
     tok_in = _pick_token(state["logits"], keys, steps, temperature, sample,
                          top_k)
     x = embed_table[tok_in][:, None, :]
-    embed = x.shape[-1]
-    inv_sqrt = (embed // heads) ** -0.5
     logical = torch.clamp(lengths // ps, max=pb - 1).long()
     page = page_table.gather(1, logical[:, None])[:, 0].long()
     off = (lengths % ps).long()
     for i, blk in enumerate(params["blocks"]):
         q, k, v = _block_qkv(blk, x, heads)
+        inv_sqrt = q.shape[-1] ** -0.5
         if quantized:
             # the int index and the two index tensors around the slices
             # put the slot axis first: the target is (S, H, D)
@@ -260,17 +284,15 @@ def paged_slot_step(params, embed_table, heads, state, page_table, active,
             att = paged_attend(q[:, 0].contiguous(), state["k"][i],
                                state["v"][i], page_table, lengths,
                                page_size=ps)
-        att = att.to(x.dtype)
-        x = x + matmul_any(att.reshape(slots, 1, embed),
-                           blk["wout"]) + blk["bout"]
-        x = _mlp(blk, x)
-    advance_control(state, active, _head(params, x[:, 0]).float())
+        x = _attn_out(blk, x, att.to(x.dtype)[:, None], reduce)
+        x = _mlp(blk, x, reduce)
+    advance_control(state, active, _logits(params, x[:, 0], tp).float())
     return state, tok_in
 
 
 def paged_slot_step_many(params, embed_table, heads, state, page_table,
                          active, n, temperature=1.0, sample=False,
-                         top_k=0):
+                         top_k=0, tp=None):
     """``n`` lockstep paged steps; the page table is constant across the
     chunk (the host pre-maps every page its appends can touch). Returns
     ``(state, emitted (n, S))``, still on the device."""
@@ -278,7 +300,7 @@ def paged_slot_step_many(params, embed_table, heads, state, page_table,
     for _ in range(n):
         state, tok = paged_slot_step(params, embed_table, heads, state,
                                      page_table, active, temperature,
-                                     sample, top_k)
+                                     sample, top_k, tp=tp)
         emitted.append(tok)
     return state, torch.stack(emitted)
 
@@ -576,20 +598,22 @@ class PagePool:
             while len(self.cache.entries) > self.cache.max_entries:
                 self._evict_lru()
 
-    def capture_shadows(self, state):
+    def capture_shadows(self, state, shadow=None):
         """Copy every cached page that has no shadow yet to the host, from
         ``state`` (the dying decoder's, on a breaker trip): cached pages
         are read-only (appends land past a prompt, a divergence takes
         fresh pages), so the bytes at the trip are the bytes published.
         The copy runs outside the lock (entry refs pin the pages); a page
         evicted meanwhile is not shadowed, since it may already hold
-        another prefix."""
+        another prefix. ``shadow(state, pages)`` makes the copies
+        (default :func:`_shadow_pages`; a serving mesh gathers every
+        rank's heads of each page)."""
         with self._lock:
             named = {page for entry in self.cache.entries.values()
                      for page in entry["pages"]}
             missing = sorted(page for page in named
                              if page not in self.cache.page_shadow)
-        shadows = _shadow_pages(state, missing)
+        shadows = (shadow or _shadow_pages)(state, missing)
         with self._lock:
             still = {page for entry in self.cache.entries.values()
                      for page in entry["pages"]}

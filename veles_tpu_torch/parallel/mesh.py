@@ -5,9 +5,17 @@ The port of ``veles_tpu/parallel/mesh.py``. Axes, sized from
 
 - ``data``  — batch (data parallel): each rank takes its rows of the
   minibatch and the gradients merge by ``parallel/mapreduce.reduce_sum``;
-- ``model``, ``seq``, ``pipe``, ``expert`` — tensor, sequence, pipeline
-  and expert parallelism: not ported (ROADMAP A8 (b)); a mesh that sizes
-  any of them above 1 raises ``NotImplementedError``.
+- ``model`` — tensor parallelism: the sharded serving engine
+  (``parallel/tp_engine.py``, ``serving.build_serve_mesh``) splits every
+  block's heads, FFN columns and the vocab head over it;
+- ``seq``, ``pipe``, ``expert`` — sequence, pipeline and expert
+  parallelism.
+
+:func:`build_mesh` builds any axes whose sizes multiply to the world's
+size. The training paths take the ``data`` axis only: a workflow, the
+fused tick and a fleet pod slave handed a mesh that sizes another axis
+above 1 raise ``NotImplementedError`` naming ROADMAP A8 (b)
+(:func:`check_ported`).
 
 The JAX package's mesh is one SPMD process over every device. The port's
 is a ``torch.distributed`` world, one process per device: the mesh's
@@ -36,9 +44,9 @@ AXIS_ORDER = ("pipe", "data", "expert", "seq", "model")
 #: waits this long at most for rank 0's next event (``fleet/pod.py``)
 DEFAULT_TIMEOUT = 300.0
 
-#: the refusal of every axis but ``data``
-_LATER = ("only the data axis of the mesh is ported; the pipe, expert, "
-          "seq and model axes wait for ROADMAP A8 (b)")
+#: the training paths' refusal of every axis but ``data``
+_LATER = ("only the data axis of the mesh trains; the pipe, expert, "
+          "seq and model axes of a training mesh wait for ROADMAP A8 (b)")
 
 
 def _distributed():
@@ -132,6 +140,25 @@ def parse_axes(spec, flag="--mesh"):
     return overrides
 
 
+class PartitionSpec(tuple):
+    """How a tensor lies over a mesh: one entry a dimension, the mesh
+    axis that shards it (a name, a tuple of names for a dimension sharded
+    by several axes, major first) or None where it is whole; missing
+    trailing entries are None. The port's counterpart of
+    ``jax.sharding.PartitionSpec``, printed as that is."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self):
+        return "PartitionSpec(%s)" % ", ".join(repr(e) for e in self)
+
+    __str__ = __repr__
+
+
 class Mesh:
     """A device mesh over the world: ``shape`` maps each axis of
     :data:`AXIS_ORDER` to its size (as the JAX mesh's ``shape``),
@@ -158,6 +185,27 @@ class Mesh:
         coords = numpy.unravel_index(self.rank, tuple(self.shape.values()))
         return int(coords[AXIS_ORDER.index(axis_name)])
 
+    def axis_group(self, axis_name):
+        """The process group of this rank's line along ``axis_name``: the
+        ranks whose coordinates differ on that axis alone, in axis order
+        (the world's group when the axis spans the world; None outside a
+        world). Every rank of the world must ask for the same axes in the
+        same order: ``torch.distributed.new_group`` is collective."""
+        if self.group is None:
+            return None
+        if self.shape[axis_name] == self.size:
+            return self.group
+        groups = self.__dict__.setdefault("_axis_groups", {})
+        if axis_name not in groups:
+            lines = numpy.moveaxis(self.devices,
+                                   AXIS_ORDER.index(axis_name), -1)
+            for line in lines.reshape(-1, self.shape[axis_name]):
+                group = torch.distributed.new_group(
+                    [int(r) for r in line])
+                if self.rank in line:
+                    groups[axis_name] = group
+        return groups[axis_name]
+
     def __repr__(self):
         return "Mesh(%s, rank=%d)" % (
             ", ".join("%s=%d" % kv for kv in self.shape.items()), self.rank)
@@ -165,7 +213,9 @@ class Mesh:
 
 def check_ported(mesh):
     """Raise ``NotImplementedError`` naming ROADMAP A8 (b) when ``mesh``
-    sizes an axis other than ``data`` above 1."""
+    sizes an axis other than ``data`` above 1: the training paths (a
+    workflow, ``fused.build_tick``, a fleet pod slave) call it; serving
+    takes the ``model`` axis."""
     wide = {name: size for name, size in dict(mesh.shape).items()
             if name != "data" and size != 1}
     if wide:
@@ -178,9 +228,7 @@ def build_mesh(devices=None, flag="root.common.mesh.axes / --mesh",
     default the world's size, 1 outside a world) with the configured
     axis sizes, validated with the JAX package's errors naming ``flag``:
     the sizes multiply to the device count, and a single -1 axis absorbs
-    the remainder. A mesh that sizes an axis other than ``data`` above 1
-    raises ``NotImplementedError`` (ROADMAP A8 (b)). Inside a world the
-    mesh must span it."""
+    the remainder. Inside a world the mesh must span it."""
     if devices is None:
         n = torch.distributed.get_world_size() if _distributed() else 1
     elif isinstance(devices, int):
@@ -222,7 +270,6 @@ def build_mesh(devices=None, flag="root.common.mesh.axes / --mesh",
             "mesh axes %s multiply to %d but %d devices present — "
             "check %s" % (sizes, fixed, n, flag))
     mesh = Mesh(sizes)
-    check_ported(mesh)
     if _distributed():
         world = torch.distributed.get_world_size()
         if world != n:

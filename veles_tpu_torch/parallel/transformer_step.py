@@ -55,22 +55,47 @@ def _ln(x, w, b, eps=1e-5):
 
 
 def _block_qkv(blk, x, heads):
-    """Pre-LN qkv projection: (B, T, E) -> three (B, T, H, D)."""
-    batch, t, embed = x.shape
+    """Pre-LN qkv projection: (B, T, E) -> three (B, T, H, D). The split
+    is by the projection's own width, a third of its columns each: on a
+    rank of the tensor-parallel engine (``parallel/tp_engine.py``) the
+    projection holds [q | k | v] of that rank's ``heads`` alone
+    (``decode.shard_slot_params``), and splitting by the embedding width
+    would mix q, k and v across heads."""
+    batch, t, _ = x.shape
     h = _ln(x, blk["ln1_w"], blk["ln1_b"])
     qkv = matmul_any(h, blk["wqkv"]) + blk["bqkv"]
-    q, k, v = torch.split(qkv, embed, dim=-1)
-    shape = (batch, t, heads, embed // heads)
+    width = qkv.shape[-1] // 3
+    q, k, v = torch.split(qkv, width, dim=-1)
+    shape = (batch, t, heads, width // heads)
     return q.reshape(shape), k.reshape(shape), v.reshape(shape)
 
 
-def _mlp(blk, x):
+def _attn_out(blk, x, att, reduce=None):
+    """The attention sublayer's residual: ``x + att @ wout + bout`` with
+    ``att`` (B, T, H, D) flattened over its heads. ``reduce`` completes a
+    head-sharded out-projection (the rows of this rank's heads; the
+    tensor-parallel engine passes its all-reduce), and ``bout`` is added
+    after it, as ``_mlp`` adds ``b2``."""
+    y = matmul_any(att.reshape(att.shape[0], att.shape[1], -1),
+                   blk["wout"])
+    if reduce is not None:
+        y = reduce(y)
+    return x + y + blk["bout"]
+
+
+def _mlp(blk, x, reduce=None):
     """Pre-LN residual MLP with the tanh GELU (``jax.nn.gelu``'s
-    default)."""
+    default). ``reduce`` completes a sharded contraction (the
+    tensor-parallel engine's all-reduce over ``w1``'s column and ``w2``'s
+    row shards); ``b2`` is added after it, so it stays whole — one copy
+    of the math for one rank or many, as the JAX package's ``_mlp``
+    (``veles_tpu/parallel/transformer_step.py:74-86``)."""
     h = _ln(x, blk["ln2_w"], blk["ln2_b"])
     y = matmul_any(
         F.gelu(matmul_any(h, blk["w1"]) + blk["b1"], approximate="tanh"),
         blk["w2"])
+    if reduce is not None:
+        y = reduce(y)
     return x + y + blk["b2"]
 
 

@@ -70,8 +70,21 @@ fixed hash point, promoted or rolled back by the rollout predicate). The
 AOT bundle (``aot/``, ``--serve-aot`` / ``root.common.serve.aot``) boots
 a replica whose kernel libraries load from the bundle instead of
 ``nvcc``; every dispatch is looked up in it and booked as an AOT hit or
-miss. The sharded serving mesh (``build_serve_mesh``, ``--serve-mesh``)
-waits for ROADMAP A8 (c).
+miss.
+
+The sharded serving mesh (``build_serve_mesh``, ``--serve-mesh`` /
+``root.common.serve.mesh``, ``serving.py:729-760``): ``ContinuousDecoder(
+mesh=)`` and ``GenerateAPI(mesh=)`` serve the slab and the pool in every
+tier tensor-parallel over the mesh's ``model`` axis, a world of one
+process per device (``parallel/tp_engine.py``). Every rank holds its
+heads of the weights and of the KV, rank 0 runs the host side (HTTP,
+admission, page table, prefix cache) and hands each device call on; the
+same program runs on every rank, and a rank above 0's ``GenerateAPI.
+start()`` follows rank 0 until its end. A swap onto the mesh goes through
+``parallel/reshard.reshard`` (slice-only from a host checkpoint) and keeps
+its receipt; a breaker rebuild rebuilds every rank and restores the
+prefix pages on each. The governor's tier ladder and the blue-green
+rollout do not run on a mesh yet (ROADMAP A8 (c')): they raise.
 """
 
 import base64
@@ -157,6 +170,45 @@ def _dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
 
+#: the refusal of what the sharded serving mesh does not run yet
+MESH_LATER = "ROADMAP A8 (c'), the mesh's governor and rollout"
+
+
+def build_serve_mesh(spec):
+    """Build the SERVING mesh from ``--serve-mesh`` /
+    ``root.common.serve.mesh`` (``serving.py:729-760``): an
+    ``AXIS=N[,AXIS=N...]`` string (the ``--mesh`` parser; -1 absorbs the
+    remaining devices), a dict of axis sizes, or None/"" (no mesh: one
+    device serves, the default). Errors name the flag; ``build_mesh``
+    validates the sizes against the world's (outside a world: 1 device).
+
+    The serve mesh is built from all-1 axes plus exactly what the spec
+    names, never seeded from the TRAINING config
+    (``root.common.mesh.axes``): a pod-training ``data=2`` must not leak
+    into ``--serve-mesh model=2``."""
+    if not spec:
+        return None
+    from veles_tpu_torch.parallel.mesh import (AXIS_ORDER, build_mesh,
+                                               parse_axes)
+
+    if isinstance(spec, str):
+        spec = parse_axes(spec, flag="--serve-mesh")
+    elif hasattr(spec, "__content__"):
+        spec = spec.__content__()
+    spec = dict(spec)
+    if not spec:
+        return None
+    axes = {name: 1 for name in AXIS_ORDER}
+    axes.update(spec)
+    return build_mesh(flag="root.common.serve.mesh / --serve-mesh",
+                      **axes)
+
+
+def _sharded(mesh):
+    """True when ``mesh`` spreads serving over more than one device."""
+    return mesh is not None and mesh.size > 1
+
+
 class ContinuousDecoder:
     """Continuous batching over the dense slot slab (the default) or,
     with ``paged=True``, the paged KV pool. Single-threaded host driver:
@@ -189,6 +241,15 @@ class ContinuousDecoder:
     round-off — the same sublayers, with the kernels attending in f32;
     near-tied argmaxes may break differently.
 
+    ``mesh`` serves tensor-parallel over the mesh's ``mesh_axis``
+    (``serving.py:801-960``): the decoder is rank 0 of the world, holds
+    its shard of the weights and a slab or pool of its heads
+    (``parallel/tp_engine.ShardEngine``), and hands every device call on
+    to the other ranks (:func:`~veles_tpu_torch.parallel.tp_engine.follow`).
+    Heads, FFN width and vocabulary must divide by the axis size
+    (``decode.validate_slot_mesh``). :meth:`close` ends the world's
+    stream.
+
     Observability (``observe/``): each admission, dispatch and collect
     opens a span parented to the first traced request it serves (the
     ``trace=`` of :meth:`submit`), observes its
@@ -213,7 +274,7 @@ class ContinuousDecoder:
                  n_tokens=32, eos=None, temperature=0.0, top_k=0, seed=0,
                  quantize=None, tile=None, paged=False, page_size=None,
                  pool_pages=None, prefix_cache=None, aot=None, ledger=None,
-                 device=None):
+                 mesh=None, mesh_axis="model", device=None):
         if quantize not in (None, "none", "int8", "int8-kv"):
             raise ValueError("quantize must be None, 'int8' or 'int8-kv', "
                              "got %r" % (quantize,))
@@ -243,6 +304,16 @@ class ContinuousDecoder:
         n_blocks = len(params["blocks"])
         embed = self.embed_table.shape[1]
         vocab = self.embed_table.shape[0]
+        #: the serving mesh, its rank-0 shard and the world link, or None
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self._tp = self._link = None
+        #: the last hot swap's reshard receipt ({"bytes", "seconds",
+        #: "counts"}, ``parallel/reshard.py``), None off a mesh
+        self.last_swap_stats = None
+        #: the whole weights a mesh decoder serves (its shard is
+        #: ``params``): what a swap compares with and hands back
+        self._whole = None
         #: the pool (paged) or None (the slab)
         self.pool = None
         self.page_size = self.pool_pages = None
@@ -264,17 +335,27 @@ class ContinuousDecoder:
                                                        chunk=n_tokens))
             self.pool = PagePool(self.pool_pages, self.page_size,
                                  cache=prefix_cache)
+        if _sharded(mesh):
+            self._build_shard(vocab)
+        elif self.paged:
             self.state = init_paged_state(
                 n_blocks, self.pool_pages, self.page_size, heads,
                 embed // heads, vocab, slots, dtype=self.embed_table.dtype,
                 quantized=self.quantize == "int8-kv", device=self.device)
+        else:
+            self.state = init_slot_state(
+                n_blocks, slots, max_len, heads, embed // heads, vocab,
+                dtype=self.embed_table.dtype,
+                quantized=self.quantize == "int8-kv", device=self.device)
+        if self.paged:
             if prefix_cache is not None and len(prefix_cache):
                 # the breaker's rebuild: the previous decoder's prefix
                 # cache restores into this pool by page copy, never by a
                 # prefill of every cached prompt
                 started = time.perf_counter()
-                self.state = self.pool.restore_entries(self.state,
-                                                       _paged_restore)
+                self.state = self.pool.restore_entries(
+                    self.state, _paged_restore if self._tp is None
+                    else self._restore_pages)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 self.restore_stats = {
@@ -282,11 +363,6 @@ class ContinuousDecoder:
                     "entries": len(self.pool.cache),
                     "bytes": self.pool.shadow_bytes(),
                     "seconds": time.perf_counter() - started}
-        else:
-            self.state = init_slot_state(
-                n_blocks, slots, max_len, heads, embed // heads, vocab,
-                dtype=self.embed_table.dtype,
-                quantized=self.quantize == "int8-kv", device=self.device)
         self._slot_pages = {}    # slot -> [page id, ...] in logical order
         self._queue = collections.deque()
         self._free = list(range(slots))
@@ -360,6 +436,88 @@ class ContinuousDecoder:
         self.scope = get_serve_scope()
         self._register_memscope()
 
+    def _build_shard(self, vocab):
+        """Rank 0's side of a mesh decoder's build: validate the mesh,
+        hand the geometry on (every follower builds its shard from the
+        weights it holds) and build rank 0's shard; ``params`` and
+        ``state`` are then this rank's."""
+        from veles_tpu_torch.parallel.decode import validate_slot_mesh
+        from veles_tpu_torch.parallel.tp_engine import (BUILD, ShardEngine,
+                                                        world_link)
+
+        mesh, axis = self.mesh, self.mesh_axis
+        if mesh.rank != 0:
+            raise ValueError(
+                "rank %d of a serving mesh follows rank 0: run "
+                "parallel.tp_engine.follow (GenerateAPI.start does)"
+                % mesh.rank)
+        if mesh.shape.get(axis, 1) != mesh.size:
+            raise ValueError(
+                "a serving mesh shards the %r axis alone, got %s"
+                % (axis, dict(mesh.shape)))
+        validate_slot_mesh(mesh, self.heads, self.params,
+                           self.embed_table, axis=axis)
+        config = {"slots": self.slots, "max_len": self.max_len,
+                  "vocab": int(vocab), "paged": self.paged,
+                  "page_size": self.page_size,
+                  "pool_pages": self.pool_pages,
+                  "quantize": self.quantize}
+        self._link = world_link(mesh)
+        self._link.hand_on(BUILD, config)
+        self._whole = (self.params, self.embed_table)
+        self._tp = ShardEngine(mesh, self.params, self.embed_table,
+                               self.heads, config, axis=axis,
+                               device=self.device)
+        self.params = self._tp.params
+        self.state = self._tp.state
+
+    def _lead(self, op, args):
+        """Rank 0's device call on a mesh: hand it on, then run it on
+        this rank's shard; returns what it emits."""
+        return self._link.run(self._tp, op, args)
+
+    def _restore_pages(self, state, page_ids, values):
+        """The prefix restore on a mesh: every rank copies its heads of
+        the whole-head shadows into the fresh pool."""
+        self._lead("restore", {"pages": list(page_ids), "values": values})
+        return state
+
+    def capture_prefix_shadows(self):
+        """Copy the prefix cache's pages to the host from this decoder's
+        state (a breaker rebuild's capture): on a mesh, every rank's heads
+        of each page, gathered to rank 0."""
+        shadow = None
+        if self._tp is not None:
+            def shadow(_state, pages):
+                return self._lead("capture", {"pages": list(pages)})
+        self.pool.capture_shadows(self.state, shadow=shadow)
+
+    def heartbeat(self):
+        """Keep an idle mesh's followers inside the world's timeout (a
+        no-op off a mesh)."""
+        if self._link is not None:
+            self._link.heartbeat()
+
+    def close(self):
+        """End the serving mesh's stream: its followers return from
+        :func:`~veles_tpu_torch.parallel.tp_engine.follow` (a no-op off a
+        mesh, and after the first call)."""
+        if self._link is not None:
+            self._link.end()
+
+    def tp_stats(self):
+        """What the mesh's hand-offs and collectives cost on rank 0:
+        ``{"handoff": {"calls", "bytes" by op, "seconds"}, "collectives":
+        {kind: [calls, operand bytes, seconds]}}``, None off a mesh."""
+        if self._tp is None:
+            return None
+        link = self._link.stats
+        return {"handoff": {"calls": dict(link["calls"]),
+                            "bytes": dict(link["bytes"]),
+                            "seconds": link["seconds"]},
+                "collectives": {kind: list(row) for kind, row
+                                in self._tp.tp.stats.items()}}
+
     def _register_memscope(self):
         """memscope's owners (``serving.py:1059-1095``): the weights, the
         pool's pages and shadows, and the rest of the state. The pool's
@@ -408,15 +566,20 @@ class ContinuousDecoder:
         flushed: its pages and logits were computed under the old
         weights. The caller (``GenerateAPI._apply_swap``) swaps on an
         idle decoder and keeps the returned ``(old_params,
-        old_embed_table)`` as its rollback stash. The JAX package's
-        mesh reshard waits for the sharded serving mesh (ROADMAP A8
-        (c))."""
+        old_embed_table)`` as its rollback stash. On a mesh the new whole
+        weights are handed on to every rank and each takes its slice
+        through ``parallel/reshard.reshard`` (a host checkpoint onto the
+        serving layout: slice-only, 0 bytes on the wire); the receipt is
+        :attr:`last_swap_stats`, and the stash is the whole old
+        weights."""
+        sent = new_params
         new_params = tree_to(new_params, self.device)
         if self.quantize and not isinstance(new_params["head"], dict):
             new_params = quantize_params(new_params)
         new_table = (new_embed_table.to(self.device)
                      if new_embed_table is not None else self.embed_table)
-        old = (self.params, self.embed_table)
+        old = (self._whole if self._tp is not None
+               else (self.params, self.embed_table))
         old_tree = tree_structure(old)
         new_tree = tree_structure((new_params, new_table))
         if old_tree != new_tree:
@@ -436,6 +599,16 @@ class ContinuousDecoder:
                     % (keystr(path), _dtype_name(new_leaf.dtype),
                        tuple(new_leaf.shape), _dtype_name(old_leaf.dtype),
                        tuple(old_leaf.shape)))
+        if self._tp is not None:
+            from veles_tpu_torch.parallel.tp_engine import SWAP
+            self._link.hand_on(SWAP, {
+                "params": tree_to(sent, "cpu"),
+                "embed_table": (None if new_embed_table is None
+                                else new_embed_table.cpu())})
+            self._tp.set_params(new_params, new_table, label="swap")
+            self.last_swap_stats = self._tp.last_reshard
+            self._whole = (new_params, new_table)
+            new_params = self._tp.params
         self.params = new_params
         self.embed_table = new_table
         if self.pool is not None:
@@ -574,21 +747,28 @@ class ContinuousDecoder:
             # the host time booked is the inputs' upload and the call,
             # as before the spans; the span's own writes stay outside it
             t0 = time.perf_counter()
-            slots = self._upload(numpy.asarray([r[2] for r in group],
-                                               numpy.int64))
-            x = self.embed_table[self._padded([r[1] for r in group],
-                                              bucket)]
-            lengths = self._upload(numpy.asarray(
-                [len(r[1]) for r in group], numpy.int64))
-            keys = self._req_keys(group)
+            host = {"slots": numpy.asarray([r[2] for r in group],
+                                           numpy.int64),
+                    "tokens": self._pad([r[1] for r in group], bucket),
+                    "lengths": numpy.asarray([len(r[1]) for r in group],
+                                             numpy.int64),
+                    "keys": self._host_keys(group)}
+            if self._tp is None:
+                slots = self._upload(host["slots"])
+                x = self.embed_table[self._upload(host["tokens"])]
+                lengths = self._upload(host["lengths"])
+                keys = self._upload(host["keys"])
             elapsed = time.perf_counter() - t0
             self._aot_dispatch("decode.admit", ("admit", bucket))
             with self._span("decode.admit", [r[0] for r in group],
                             bucket=bucket, group=len(group)):
                 t0 = time.perf_counter()
-                self.state = slot_admit_many(self.params, self.heads,
-                                             self.state, slots, x,
-                                             lengths, keys)
+                if self._tp is not None:
+                    self._lead("admit", host)
+                else:
+                    self.state = slot_admit_many(self.params, self.heads,
+                                                 self.state, slots, x,
+                                                 lengths, keys)
                 elapsed += time.perf_counter() - t0
             self._book_admit("admit", elapsed, group, bucket,
                              [len(r[1]) for r in group])
@@ -642,11 +822,15 @@ class ContinuousDecoder:
         if hits:
             self._admit_hits(hits)
 
-    def _req_keys(self, group):
+    def _host_keys(self, group):
         """The sampling keys of an admission group's requests (each
-        row's first field is its request id), on the device."""
-        return self._upload(request_key(
-            self.seed, numpy.asarray([r[0] for r in group])).numpy())
+        row's first field is its request id), on the host."""
+        return request_key(self.seed,
+                           numpy.asarray([r[0] for r in group])).numpy()
+
+    def _req_keys(self, group):
+        """:meth:`_host_keys` on the device."""
+        return self._upload(self._host_keys(group))
 
     def _book_admit(self, kind, elapsed, group, bucket, lens=()):
         """The bookkeeping of one admission: timings, the dispatch tally,
@@ -715,12 +899,13 @@ class ContinuousDecoder:
                   if len(prompt) % self.page_size == 0 else None)
         self.pool.insert(prompt, pages, logits=logits)
 
-    def _padded(self, rows, width, fill=0, dtype=numpy.int64):
-        """Rows of unequal length right-padded into one array."""
+    @staticmethod
+    def _pad(rows, width, fill=0, dtype=numpy.int64):
+        """Rows of unequal length right-padded into one host array."""
         out = numpy.full((len(rows), width), fill, dtype)
         for j, row in enumerate(rows):
             out[j, :len(row)] = row
-        return self._upload(out)
+        return out
 
     def _admit_cold(self, group):
         """One ragged prefill at the group's page-rounded max width,
@@ -729,23 +914,29 @@ class ContinuousDecoder:
         ps = self.page_size
         width = pages_for(max(len(r[1]) for r in group), ps) * ps
         t0 = time.perf_counter()
-        args = (self._upload(numpy.asarray([r[2] for r in group],
-                                           numpy.int64)),
-                self._padded([r[3] for r in group],
-                             max(len(r[3]) for r in group), SCRATCH_PAGE,
-                             numpy.int32),
-                self.embed_table[self._padded([r[1] for r in group],
-                                              width)],
-                self._upload(numpy.asarray([len(r[1]) for r in group],
-                                           numpy.int64)),
-                self._req_keys(group))
+        host = {"slots": numpy.asarray([r[2] for r in group], numpy.int64),
+                "pages": self._pad([r[3] for r in group],
+                                   max(len(r[3]) for r in group),
+                                   SCRATCH_PAGE, numpy.int32),
+                "tokens": self._pad([r[1] for r in group], width),
+                "lengths": numpy.asarray([len(r[1]) for r in group],
+                                         numpy.int64),
+                "keys": self._host_keys(group)}
+        if self._tp is None:
+            args = (self._upload(host["slots"]), self._upload(host["pages"]),
+                    self.embed_table[self._upload(host["tokens"])],
+                    self._upload(host["lengths"]),
+                    self._upload(host["keys"]))
         elapsed = time.perf_counter() - t0
         self._aot_dispatch("paged.admit", ("paged_admit", width))
         with self._span("paged.admit", [r[0] for r in group],
                         bucket=width, group=len(group)):
             t0 = time.perf_counter()
-            self.state = paged_admit_many(self.params, self.heads,
-                                          self.state, *args)
+            if self._tp is not None:
+                self._lead("paged.admit", host)
+            else:
+                self.state = paged_admit_many(self.params, self.heads,
+                                              self.state, *args)
             elapsed += time.perf_counter() - t0
         self._book_admit("cold", elapsed, group, width,
                          [len(r[1]) for r in group])
@@ -764,17 +955,23 @@ class ContinuousDecoder:
         tails = [r[1][r[4]:] for r in group]
         width = pages_for(max(len(t) for t in tails), ps) * ps
         t0 = time.perf_counter()
-        args = (self._upload(numpy.asarray([r[2] for r in group],
-                                           numpy.int64)),
-                self._upload(numpy.asarray([r[3]["pages"] for r in group],
-                                           numpy.int32)),
-                self._padded([r[5] for r in group],
-                             max(len(r[5]) for r in group), SCRATCH_PAGE,
-                             numpy.int32),
-                self.embed_table[self._padded(tails, width)],
-                self._upload(numpy.asarray([len(r[1]) for r in group],
-                                           numpy.int64)),
-                self._req_keys(group))
+        host = {"slots": numpy.asarray([r[2] for r in group], numpy.int64),
+                "prefix_pages": numpy.asarray([r[3]["pages"]
+                                               for r in group], numpy.int32),
+                "pages": self._pad([r[5] for r in group],
+                                   max(len(r[5]) for r in group),
+                                   SCRATCH_PAGE, numpy.int32),
+                "tokens": self._pad(tails, width),
+                "lengths": numpy.asarray([len(r[1]) for r in group],
+                                         numpy.int64),
+                "keys": self._host_keys(group)}
+        if self._tp is None:
+            args = (self._upload(host["slots"]),
+                    self._upload(host["prefix_pages"]),
+                    self._upload(host["pages"]),
+                    self.embed_table[self._upload(host["tokens"])],
+                    self._upload(host["lengths"]),
+                    self._upload(host["keys"]))
         elapsed = time.perf_counter() - t0
         self._aot_dispatch("paged.admit_tail", (
             "paged_tail", width, len(group[0][3]["pages"])))
@@ -782,8 +979,11 @@ class ContinuousDecoder:
                         bucket=width, group=len(group),
                         prefix_pages=len(group[0][3]["pages"])):
             t0 = time.perf_counter()
-            self.state = paged_admit_tail(self.params, self.heads,
-                                          self.state, *args)
+            if self._tp is not None:
+                self._lead("paged.admit_tail", host)
+            else:
+                self.state = paged_admit_tail(self.params, self.heads,
+                                              self.state, *args)
             elapsed += time.perf_counter() - t0
         self._book_admit("tail", elapsed, group, width,
                          [len(t) for t in tails])
@@ -807,7 +1007,13 @@ class ContinuousDecoder:
         with self._span("paged.admit_hit", [r[0] for r in group],
                         group=len(group)):
             t0 = time.perf_counter()
-            self.state = paged_admit_hit(self.state, *args)
+            if self._tp is not None:
+                self._lead("paged.admit_hit", {
+                    "slots": args[0].cpu().numpy(),
+                    "lengths": args[1].cpu().numpy(),
+                    "logits": args[2].cpu(), "keys": self._host_keys(group)})
+            else:
+                self.state = paged_admit_hit(self.state, *args)
             elapsed += time.perf_counter() - t0
         self._book_admit("hit", elapsed, group, 0)
         now = time.monotonic()
@@ -849,6 +1055,10 @@ class ContinuousDecoder:
         """The (slots, PB) int32 page table for the next dispatch, on the
         device: PB pages cover the longest live sequence plus ``extra``
         appends; rows of free slots stay scratch."""
+        return self._upload(self._page_table_host(extra))
+
+    def _page_table_host(self, extra):
+        """:meth:`_page_table_array` on the host."""
         self._ensure_tail_pages(extra)
         ps = self.page_size
         pb = max(pages_for(self._slot_len[s] + extra, ps)
@@ -857,7 +1067,7 @@ class ContinuousDecoder:
         for slot in self._slot_req:
             pages = self._slot_pages[slot][:pb]
             table[slot, :len(pages)] = pages
-        return self._upload(table)
+        return table
 
     def worst_case_pages(self, prompt_len, budget, chunk=1):
         """Upper bound on the pages one request can hold at once: its
@@ -867,11 +1077,14 @@ class ContinuousDecoder:
         pages plus exactly its tail's, a hit the prompt's pages."""
         return pages_for(prompt_len + budget + 2 * chunk, self.page_size)
 
-    def _active(self):
+    def _active_host(self):
         active = numpy.zeros(self.slots, bool)
         for slot in self._slot_req:
             active[slot] = True
-        return self._upload(active)
+        return active
+
+    def _active(self):
+        return self._upload(self._active_host())
 
     def _retire(self, slot, rid):
         del self._budget[rid]
@@ -898,6 +1111,19 @@ class ContinuousDecoder:
         on the device, and whether the bundle served the dispatch."""
         sampling = (self.temperature or 1.0, bool(self.temperature),
                     self.top_k)
+        if self._tp is not None:
+            host = {"active": self._active_host(), "n": n,
+                    "sampling": sampling}
+            if self.paged:
+                host["table"] = self._page_table_host(n)
+                served = self._aot_dispatch(
+                    "paged.dispatch",
+                    ("paged_dispatch", n, host["table"].shape[1]))
+                return self._lead("paged.dispatch", host), served
+            host["span"] = self._attended_span(n)
+            served = self._aot_dispatch("decode.dispatch",
+                                        ("dispatch", n, host["span"]))
+            return self._lead("dispatch", host), served
         if self.paged:
             table = self._page_table_array(n)
             served = self._aot_dispatch(
@@ -1453,7 +1679,17 @@ class GenerateAPI:
     primary, routes each staged request by its tenant's hash point, and
     promotes it or rolls it back as the rollout's predicate says. The
     prefix cache never crosses a tier: its pages hold the tier's KV
-    bytes."""
+    bytes.
+
+    ``mesh`` (default: :func:`build_serve_mesh` of
+    ``root.common.serve.mesh``, never the training mesh) serves
+    tensor-parallel over its ``mesh_axis``: every decoder this front
+    builds, a breaker rebuild's too, is a mesh decoder over the same
+    mesh (``serving.py:2188-2215``). The same program runs on every rank
+    of the world: on rank 0 this front serves; on a rank above 0 it opens
+    no socket, and :meth:`start` follows rank 0's decoders until rank 0's
+    :meth:`stop` ends the stream. The governor and the blue-green rollout
+    raise ``NotImplementedError`` on a mesh (:data:`MESH_LATER`)."""
 
     #: extra handler-side wait beyond a request's deadline before the
     #: handler gives up on the driver (a wedged driver's backstop)
@@ -1466,10 +1702,23 @@ class GenerateAPI:
                  rebuild_backoff=None, rebuild_backoff_max=None,
                  chaos=None, quantize=None, tile=None, paged=None,
                  page_size=None, pool_pages=None, slo=None, ledger=None,
-                 governor=None, aot=None, device=None):
+                 governor=None, aot=None, mesh=None, mesh_axis="model",
+                 device=None):
         import queue
 
         serve_cfg = root.common.serve
+        #: the serving mesh (``serving.py:2196-2214``), built here so every
+        #: rebuild reuses it; a raw attribute read, since ``get()`` drops a
+        #: dict-style ``root.common.serve.mesh.model = 2`` subtree
+        if mesh is None:
+            try:
+                mesh_spec = object.__getattribute__(serve_cfg, "mesh")
+            except AttributeError:
+                mesh_spec = None
+            mesh = build_serve_mesh(mesh_spec)
+        self.mesh = mesh
+        #: True on a rank above 0 of a serving mesh: start() follows
+        self.follower = _sharded(mesh) and mesh.rank != 0
         # validated before the (expensive) decoder build, so a server
         # misconfiguration fails at startup, never as a 400 blaming a
         # field the client did not send
@@ -1500,7 +1749,7 @@ class GenerateAPI:
                 from veles_tpu_torch.aot.loader import (AotCompatError,
                                                         load_bundle)
                 try:
-                    aot = load_bundle(aot_path, device=device)
+                    aot = load_bundle(aot_path, mesh=mesh, device=device)
                 except (AotCompatError, ValueError, OSError) as exc:
                     import logging
                     logging.getLogger("GenerateAPI").warning(
@@ -1535,7 +1784,18 @@ class GenerateAPI:
             temperature=temperature, top_k=top_k, eos=eos, seed=seed,
             quantize=quantize, tile=tile, paged=bool(paged),
             page_size=page_size, pool_pages=pool_pages, aot=aot,
-            ledger=self.ledger, device=device)
+            ledger=self.ledger, mesh=mesh, mesh_axis=mesh_axis,
+            device=device)
+        if _sharded(mesh) and (governor is not None
+                               or serve_cfg.get("governor")):
+            raise NotImplementedError(
+                "the serving governor over a mesh: %s" % MESH_LATER)
+        if self.follower:
+            # a rank above 0 holds the weights and follows: no decoder,
+            # no socket (start() runs the follower loop)
+            self.port = port
+            self.decoder = None
+            return
         self.decoder = ContinuousDecoder(**self._decoder_kwargs)
         self.vocab = embed_table.shape[0]
         self.port = port
@@ -1875,7 +2135,7 @@ class GenerateAPI:
                     and tier == (self.decoder.quantize or "bf16"):
                 started = time.perf_counter()
                 try:
-                    self.decoder.pool.capture_shadows(self.decoder.state)
+                    self.decoder.capture_prefix_shadows()
                 except Exception:   # noqa: BLE001 - a sick device
                     # can refuse the reads: unshadowed entries are
                     # dropped by the restore and prefilled again later
@@ -1997,6 +2257,9 @@ class GenerateAPI:
         slice's burn or TTFT against blue's (``rollout.py``). Blocks until
         the green engine passed (or failed) its probe; returns the
         :class:`~veles_tpu_torch.rollout.BlueGreenRollout`."""
+        if _sharded(self.mesh):
+            raise NotImplementedError(
+                "a blue-green rollout over a mesh: %s" % MESH_LATER)
         if self._swap_request is not None:
             raise RuntimeError("refused: a weight hot-swap is pending")
         holder = {"event": threading.Event(), "params": new_params,
@@ -2026,6 +2289,8 @@ class GenerateAPI:
         memscope = get_memscope()
         memscope.edge_begin("swap_params")
         started = time.perf_counter()
+        #: the last swap's reshard receipt on a mesh (None off one)
+        self.last_swap_stats = None
         new_params = holder["params"]
         new_table = holder.get("embed_table")
         if self.chaos is not None:
@@ -2080,6 +2345,7 @@ class GenerateAPI:
         self.last_swap = {"drain_s": started - holder["requested_at"],
                           "swap_s": swapped - started,
                           "probe_s": done - swapped}
+        self.last_swap_stats = self.decoder.last_swap_stats
         # the new checkpoint is what every later rebuild builds from; the
         # replaced raw weights become the rollback stash
         self._param_stash = (self._decoder_kwargs["params"],
@@ -2357,6 +2623,12 @@ class GenerateAPI:
                             self._swap_request, None
                         self._apply_swap(holder)
                         continue
+                    try:
+                        self.decoder.heartbeat()
+                    except Exception as exc:   # noqa: BLE001 - lost rank
+                        traceback.print_exc()
+                        self._trip(exc, waiting)
+                        continue
                     idle_from = time.monotonic()
                     woke = self._wake.wait(timeout=0.05)
                     # the queue-empty wall is the scope's idle, not host
@@ -2550,7 +2822,17 @@ class GenerateAPI:
 
     def start(self):
         """Start the HTTP server and the driver thread; returns self
-        (``self.port`` holds the bound port)."""
+        (``self.port`` holds the bound port). On a rank above 0 of a
+        serving mesh: follow rank 0 until its end event (no socket),
+        then return self; ``follow_stats`` holds what came."""
+        if self.follower:
+            from veles_tpu_torch.parallel.tp_engine import follow
+            kwargs = self._decoder_kwargs
+            self.follow_stats = follow(
+                self.mesh, kwargs["params"], kwargs["embed_table"],
+                kwargs["heads"], axis=kwargs["mesh_axis"],
+                device=kwargs["device"])
+            return self
         from http.server import BaseHTTPRequestHandler
 
         from veles_tpu_torch.core.httpd import (BodyTooLarge,
@@ -2636,7 +2918,9 @@ class GenerateAPI:
 
     def stop(self):
         """Stop the driver (answering what is in flight with 503) and the
-        HTTP server."""
+        HTTP server; on a serving mesh, end the followers' stream."""
+        if self.follower:
+            return
         self.health.set_ready(False)
         self._stop.set()
         self._wake.set()
@@ -2651,6 +2935,8 @@ class GenerateAPI:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
+        if self.decoder is not None:
+            self.decoder.close()
         release_history_sampler(self)
 
 
