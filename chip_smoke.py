@@ -395,6 +395,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    time, the bytes handed on a dispatch, the phase's seconds. Both
    ranks' launches join the kernels line.
 
+28. (run after phase 27, rank 1 started beside it) the model, seq, pipe
+   and expert axes of a training mesh on two ranks sharing the card over
+   gloo in one world, the mesh rebuilt for each part (rank 0 this
+   process, rank 1 a child that builds the same seeded problems): K7, K8
+   and K9 at a rank's Ulysses shape (1, 8192, 4, 128) and a stage's
+   microbatch (1, 4096, 8, 128) and K5 at (b)'s shard shapes against
+   their plain versions; (a) the main path, the sequence-parallel
+   transformer step at full width (the serving stack in longctx_device's
+   8 heads of 128, 8192 positions, batch 1, bf16 from RandomState(0)): 2
+   steps over seq=2 with Ulysses, each rank K7, K8 and K9 4 a step, then
+   2 with ring attention, none, then the same 2 steps in one process:
+   both ranks' parameters bit-equal, the loss within 1e-2 relative,
+   n_err within 1% of the tokens and every leaf within 1e-2 of its
+   largest against one process, and ring against Ulysses alike; (b) the
+   wide MLP's model-axis step over model=2 (784 -> 4096 tanh -> 10,
+   minibatch 4096, use_pallas on, precision level 2, 3 steps): K5 2 a
+   step on each rank, n_err equal to one process's and the leaves within
+   phase 8's limit; (c) the pipeline over pipe=2, two of (a)'s blocks a
+   stage at 4096 positions, 4 microbatches, MSE, remat, two steps: K7
+   20, K8 and K9 10 a stage a step, the first step against
+   sequential_reference's within (a)'s limits; (d) the experts over expert=2 (8 experts of 1024 x 4096, 8192
+   tokens, f32): at capacity 8 nothing dropped and the forward and one
+   train step against reference_moe within 2e-4 of the largest, the drop
+   fraction at 2.0 printed. Printed: tokens/s of each run, the
+   collectives' share of each rank's steps, the phase's seconds. Both
+   ranks' launches join the kernels line.
+
 Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
 8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
 bound.
@@ -10052,6 +10079,619 @@ def _tp_phase(device, gen, proc, report, coordinator, t0):
     return launches
 
 
+# -- phase 28: the model, seq, pipe and expert axes of a training mesh ------
+
+#: two ranks sharing the card over gloo in one world, rank 0 this process
+#: and rank 1 a child started beside phase 27; rank 0's collectives time
+#: out after SP_TIMEOUT, rank 1's (it waits across phase 27 and rank 0's
+#: single-process references) after SP_DEADLINE, the child's life
+SP_RANKS, SP_TIMEOUT, SP_DEADLINE = 2, 120, 900
+#: (a) the sequence-parallel transformer step at full width: the serving
+#: model's stack (BLOCKS, EMBED, VOCAB) in longctx_device's head layout
+#: (LONG_HEADS of 128), SP_T positions, batch 1, bf16, SP_STEPS SGD steps
+SP_T, SP_STEPS, SP_LR = 8192, 2, 0.1
+#: (a)'s and (c)'s limits against one process (bf16 steps whose sums
+#: split over two ranks): the loss relative, n_err as a share of the
+#: tokens, every leaf against its largest element (phase 12's limit)
+SP_LOSS_RTOL, SP_N_ERR_SHARE, SP_LEAF_RTOL = 1e-2, 1e-2, 1e-2
+#: a bf16 leaf may also lie this many bf16 steps (bf16_step, at its
+#: largest element) an SGD step from the reference, as phase 27's
+#: TP_BF16_STEPS: its gradient rounds to bf16, and a last-bit difference
+#: there tips the update's own rounding. A step is 2^-8 to 2^-7 of the
+#: element, so two steps' worth can pass SP_LEAF_RTOL on a bias that
+#: started at zero (all update): the CPU rehearsal at cut widths read 2
+#: steps (1.04e-2) against one process and 3 (1.52e-2) ring against one
+#: process after (a)'s two steps
+SP_BF16_STEPS = 2
+#: (b) the model-axis step: the wide MLP (784 -> 4096 tanh -> 10,
+#: minibatch 4096) at precision level 2, phase 8's, whose limits hold it
+#: (n_err equal, leaves within AGREE_WEIGHT_ATOL), MP_STEPS steps
+MP_STEPS = 3
+MP_SPEC = [dict(activation="tanh", learning_rate=TRAIN_LR,
+                learning_rate_bias=TRAIN_LR, weights_decay=5e-4,
+                l1_vs_l2=0.0, gradient_moment=0.9),
+           dict(activation="linear", learning_rate=TRAIN_LR,
+                learning_rate_bias=TRAIN_LR, weights_decay=5e-4,
+                l1_vs_l2=0.0, gradient_moment=0.9)]
+#: (b)'s K5 launches a rank a step, from gemm._kernel_eligible (CUDA
+#: operands, m, k and n >= 512): the hidden layer's forward x (4096, 784)
+#: @ w (784, 2048) and its weight gradient x.T (784, 4096) @ err (4096,
+#: 2048); the head's forward and weight gradient (n = 5) and its input
+#: error (k = 5) are plain, and the first layer has no input error
+MP_K5_PER_STEP = 2
+#: (c) the pipeline over pipe=2: two of (a)'s blocks a stage at PP_T
+#: positions, PP_MICRO microbatches of one sequence, bf16, MSE against
+#: RandomState targets, remat; two steps, the first held against the
+#: sequential step, the second timed without the first's one-time cost
+#: (torch.utils.checkpoint imports torch._dynamo at its first call: 7.5 s
+#: of the first step on the card's host, 2.7 s on a CPU box)
+PP_T, PP_MICRO, PP_LR, PP_RUNS = 4096, 4, 1.0, 2
+#: (c)'s flash launches a stage: the forward runs its two blocks at each
+#: of the n_micro + n_stages - 1 steps (the bubbles too, as the JAX
+#: package does) and remat runs them again in the backward: K7 twice a
+#: block a step, K8 and K9 once
+PP_STEPS = PP_MICRO + SP_RANKS - 1
+PP_FLASH = {"flash_attention_fwd": 2 * 2 * PP_STEPS,
+            "flash_attention_dkv": 2 * PP_STEPS,
+            "flash_attention_dq": 2 * PP_STEPS}
+#: (d) the experts over expert=2: 8 experts of (EMBED, MOE_HIDDEN),
+#: MOE_TOKENS tokens (half a rank), f32; capacity factor 8 drops none
+MOE_EXPERTS, MOE_HIDDEN, MOE_TOKENS, MOE_LR = 8, 4096, 8192, 0.05
+#: (d) against reference_moe, relative to each output's and leaf's
+#: largest element (the JAX test's tolerance); a row may leave the
+#: reference only where its top-2 gate probabilities lie within
+#: MOE_TIE_GAP (a routing flip from the product's rounding)
+MOE_RTOL, MOE_TIE_GAP = 2e-4, 1e-5
+
+#: rank 1 of phase 28: a fresh process on the same card that builds the
+#: same seeded problems, joins the world and runs every part beside rank 0
+SP_FOLLOWER = r'''
+import json, sys
+import torch
+import chip_smoke as cs
+from veles_tpu_torch.parallel.mesh import initialize_distributed
+coordinator, out, cache, device = sys.argv[1:5]
+cs.root.common.engine.pallas_autotune_cache = cache
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device(device)
+problems = cs.sp_problems(dev)
+initialize_distributed(coordinator, cs.SP_RANKS, 1, device=device,
+                       backend="gloo", timeout=cs.SP_DEADLINE)
+report, _ = cs.sp_world(dev, 1, problems)
+with open(out, "w") as fout:
+    json.dump(report, fout)
+'''
+
+
+def sp_digest(tree):
+    """A SHA-1 over a tree's tensors' bytes, in tree order."""
+    from veles_tpu_torch.device import tree_leaves_with_path
+    sha = hashlib.sha1()
+    for _, leaf in tree_leaves_with_path(tree):
+        sha.update(leaf.detach().contiguous().cpu().view(
+            torch.uint8).numpy().tobytes())
+    return sha.hexdigest()
+
+
+def sp_problems(device):
+    """Every part's seeded inputs, the same on both ranks: (a) the model
+    (bf16 from RandomState(0)) and one sequence of SP_T tokens with its
+    labels; (b) the wide MLP's weights (phase 8's rule) and a minibatch
+    of the bench's data; (c) (a)'s blocks as two stages of two, four
+    sequences of PP_T and MSE targets; (d) the experts and their tokens."""
+    from veles_tpu_torch.parallel.expert import init_moe_params
+    params = init_transformer_params(numpy.random.RandomState(0), BLOCKS,
+                                     EMBED, LONG_HEADS, VOCAB,
+                                     dtype=torch.bfloat16, device=device)
+    rng = numpy.random.RandomState(1)
+
+    def bf16(a):
+        return torch.from_numpy(a.astype(numpy.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    x = bf16(rng.randn(1, SP_T, EMBED) * 0.3)
+    labels = torch.from_numpy(rng.randint(0, VOCAB, (1, SP_T))).to(device)
+    data, digits = bench_dataset(n=WIDE_MINIBATCH, n_valid=0)
+    mlp = {"w": [], "b": []}
+    for layer in dp_weights(numpy.random.RandomState(5)):
+        mlp["w"].append(torch.from_numpy(layer["weights"]).float().to(
+            device))
+        mlp["b"].append(torch.from_numpy(layer["bias"]).float().to(device))
+    mlp["vw"] = [torch.zeros_like(w) for w in mlp["w"]]
+    mlp["vb"] = [torch.zeros_like(b) for b in mlp["b"]]
+    batch = (torch.from_numpy(data).to(device),
+             torch.from_numpy(digits).to(device),
+             torch.ones(WIDE_MINIBATCH, device=device))
+    blocks = params["blocks"]
+    stages = {"blocks": [{name: torch.stack([blocks[2 * s + j][name]
+                                             for s in range(SP_RANKS)])
+                          for name in blocks[0]} for j in range(2)]}
+    rng = numpy.random.RandomState(2)
+    pp = (bf16(rng.randn(PP_MICRO, PP_T, EMBED) * 0.3),
+          bf16(rng.randn(PP_MICRO, PP_T, EMBED) * 0.3))
+    moe = init_moe_params(numpy.random.RandomState(3), MOE_EXPERTS, EMBED,
+                          MOE_HIDDEN, device=device)
+    rng = numpy.random.RandomState(4)
+    tokens = torch.from_numpy(rng.randn(MOE_TOKENS, EMBED).astype(
+        numpy.float32)).to(device)
+    targets = torch.from_numpy((rng.randn(MOE_TOKENS, EMBED) * 0.1).astype(
+        numpy.float32)).to(device)
+    return {"sp": (params, x, labels), "mp": (mlp, batch),
+            "pp": (stages,) + pp, "moe": (moe, tokens, targets)}
+
+
+def pp_stage(w, x):
+    """(c)'s stage: two of (a)'s pre-LN blocks, causal attention (K7 at
+    PP_T positions)."""
+    from veles_tpu_torch.parallel.transformer_step import (_attn_out,
+                                                           _block_qkv, _mlp)
+    for blk in w["blocks"]:
+        q, k, v = _block_qkv(blk, x, LONG_HEADS)
+        x = _mlp(blk, _attn_out(blk, x, attention(q, k, v, causal=True)))
+    return x
+
+
+def pp_loss(outputs, targets):
+    return ((outputs.float() - targets.float()) ** 2).mean()
+
+
+def sp_timed(device, mesh, fn):
+    """``fn()`` with every kernel count set to 0 just before and read just
+    after, its wall (synchronized) and its collectives' seconds."""
+    from veles_tpu_torch.parallel.collectives import collective_seconds
+    torch.cuda.synchronize(device)
+    for counter in COUNTERS.values():
+        counter.launches = 0
+    before = collective_seconds(mesh) if mesh is not None else 0.0
+    started = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - started
+    return out, {"wall": wall, "launches": counts(),
+                 "collective_s": (collective_seconds(mesh) - before
+                                  if mesh is not None else 0.0)}
+
+
+def sp_world(device, rank, problems):
+    """Both ranks' side of phase 28, part by part, the mesh rebuilt for
+    each: (a) the transformer step over seq=2, Ulysses then ring; (b) the
+    model-axis step over model=2; (c) the pipeline step over pipe=2; (d)
+    the experts over expert=2. Returns a JSON-able report (per step: the
+    wall, the collectives' seconds, the launches; losses, n_err, digests)
+    and, for rank 0's checks, the gathered results."""
+    from veles_tpu_torch.device import tree_leaves_with_path, tree_rebuild
+    from veles_tpu_torch.parallel import collectives, expert, pipeline
+    from veles_tpu_torch.parallel.mesh import build_mesh
+    from veles_tpu_torch.parallel.step import (build_train_step,
+                                               shard_batch, shard_params)
+    from veles_tpu_torch.parallel.transformer_step import (
+        build_transformer_train_step, shard_tokens)
+    report, kept = {"rank": rank}, {}
+    # (a)
+    params, x, labels = problems["sp"]
+    mesh = build_mesh(data=1, seq=SP_RANKS)
+    xs, ls = shard_tokens([x, labels], mesh)
+    for strategy in ("ulysses", "ring"):
+        step = build_transformer_train_step(LONG_HEADS, mesh=mesh,
+                                            learning_rate=SP_LR,
+                                            sp_strategy=strategy)
+        p, rows = params, []
+        for _ in range(SP_STEPS):
+            (p, (loss, n_err)), row = sp_timed(
+                device, mesh, lambda p=p: step(p, xs, ls))
+            row.update(loss=float(loss), n_err=int(n_err))
+            rows.append(row)
+        report["a_" + strategy] = {"steps": rows, "digest": sp_digest(p)}
+        kept["a_" + strategy] = p
+        del p, step
+    del xs, ls
+    # (b) the knobs on, precision level 2
+    mlp, batch = problems["mp"]
+    mesh = build_mesh(data=1, model=SP_RANKS)
+    engine = root.common.engine
+    knobs = (engine.get("use_pallas", "tuned"),
+             engine.get("precision_level", 0))
+    engine.use_pallas, engine.precision_level = True, 2
+    try:
+        step = build_train_step(MP_SPEC, mesh=mesh)
+        p, rows = shard_params(mlp, mesh), []
+        local = shard_batch(list(batch), mesh)
+        for _ in range(MP_STEPS):
+            (p, (loss, n_err)), row = sp_timed(
+                device, mesh, lambda p=p: step(p, *local))
+            row.update(loss=float(loss), n_err=int(n_err))
+            rows.append(row)
+    finally:
+        engine.use_pallas, engine.precision_level = knobs
+    report["b"] = {"steps": rows}
+    kept["b"] = {key: [collectives.all_gather(
+        t, mesh, "model", 1 if key in ("w", "vw") else 0) for t in leaves]
+        for key, leaves in p.items()}
+    # (c)
+    stages, batch, targets = problems["pp"]
+    mesh = build_mesh(pipe=SP_RANKS)
+    step = pipeline.make_pipeline_train_step(
+        mesh, pp_stage, PP_MICRO, pp_loss, learning_rate=PP_LR, remat=True)
+    w, rows = pipeline.shard_stage_weights(stages, mesh), []
+    for i in range(PP_RUNS):
+        (w, loss), row = sp_timed(device, mesh,
+                                  lambda w=w: step(w, batch, targets))
+        row.update(loss=float(loss))
+        rows.append(row)
+        if i == 0:
+            kept["c"] = tree_rebuild(w, iter([
+                collectives.all_gather(t, mesh, "pipe", 0)
+                for _, t in tree_leaves_with_path(w)]))
+    report["c"] = {"steps": rows}
+    del w, step
+    # (d)
+    moe, tokens, targets = problems["moe"]
+    mesh = build_mesh(expert=SP_RANKS)
+    t = MOE_TOKENS // SP_RANKS
+    x_local = tokens[rank * t:(rank + 1) * t]
+    t_local = targets[rank * t:(rank + 1) * t]
+    local = expert.shard_moe_params(moe, mesh)
+    rows = {}
+    for cf in (8.0, 2.0):
+        ffn = expert.make_moe_ffn(mesh, MOE_EXPERTS, capacity_factor=cf)
+        (y, dropped), rows[cf] = sp_timed(device, mesh,
+                                          lambda: ffn(local, x_local))
+        rows[cf]["dropped"] = float(dropped)
+        if cf == 8.0:
+            kept["d_y"] = collectives.all_gather(y, mesh, "expert", 0)
+    step = expert.make_moe_train_step(mesh, MOE_EXPERTS, capacity_factor=8.0,
+                                      learning_rate=MOE_LR)
+    (new, loss), row = sp_timed(device, mesh,
+                                lambda: step(local, x_local, t_local))
+    row.update(loss=float(loss))
+    kept["d_step"] = {k: v if k == "gate" else collectives.all_gather(
+        v, mesh, "expert", 0) for k, v in new.items()}
+    report["d"] = {"forward": rows[8.0], "forward_cf2": rows[2.0],
+                   "steps": [row], "gate": sp_digest(new["gate"])}
+    return report, kept
+
+
+def sp_references(device, problems):
+    """Rank 0's one-process runs of every part, on the card, before the
+    world: (a) the same SP_STEPS steps without a mesh, timed; (b)
+    build_train_step without a mesh (the knobs as in the world); (c)
+    sequential_reference's SGD step through autograd; (d) reference_moe
+    and its SGD step through autograd."""
+    from veles_tpu_torch.device import tree_leaves_with_path, tree_rebuild
+    from veles_tpu_torch.parallel import expert, pipeline
+    from veles_tpu_torch.parallel.step import build_train_step
+    from veles_tpu_torch.parallel.transformer_step import (
+        build_transformer_train_step)
+    refs = {}
+    params, x, labels = problems["sp"]
+    step = build_transformer_train_step(LONG_HEADS, learning_rate=SP_LR)
+    p, rows = params, []
+    for _ in range(SP_STEPS):
+        (p, (loss, n_err)), row = sp_timed(device, None,
+                                           lambda p=p: step(p, x, labels))
+        row.update(loss=float(loss), n_err=int(n_err))
+        rows.append(row)
+    refs["a"] = (p, rows)
+    del p
+    mlp, batch = problems["mp"]
+    engine = root.common.engine
+    knobs = (engine.get("use_pallas", "tuned"),
+             engine.get("precision_level", 0))
+    engine.use_pallas, engine.precision_level = True, 2
+    try:
+        step = build_train_step(MP_SPEC)
+        p, rows = mlp, []
+        for _ in range(MP_STEPS):
+            p, (loss, n_err) = step(p, *batch)
+            rows.append({"loss": float(loss), "n_err": int(n_err)})
+    finally:
+        engine.use_pallas, engine.precision_level = knobs
+    refs["b"] = (p, rows)
+    stages, batch, targets = problems["pp"]
+    leaves = [t.detach().requires_grad_(True)
+              for _, t in tree_leaves_with_path(stages)]
+    loss = pp_loss(pipeline.sequential_reference(
+        pp_stage, tree_rebuild(stages, iter(leaves)), batch), targets)
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        refs["c"] = (tree_rebuild(stages, iter(
+            [w - PP_LR * g for w, g in zip(leaves, grads)])), float(loss))
+    del leaves, grads
+    moe, tokens, targets = problems["moe"]
+    with torch.no_grad():
+        y = expert.reference_moe(moe, tokens)
+        probs = torch.softmax(tokens @ moe["gate"], dim=1)
+        top2 = torch.topk(probs, 2, dim=1).values
+        gaps = top2[:, 0] - top2[:, 1]
+    leaves = {k: v.detach().requires_grad_(True) for k, v in moe.items()}
+    loss = ((expert.reference_moe(leaves, tokens) - targets) ** 2).mean()
+    grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    with torch.no_grad():
+        new = {k: moe[k] - MOE_LR * grads[k] for k in moe}
+    refs["d"] = (y, gaps, new, float(loss.detach()))
+    return refs
+
+
+def sp_kernel_checks(device, gen):
+    """K7, K8 and K9 at the shapes this phase gives them (a rank's
+    Ulysses heads, (1, 8192, 4, 128), and a pipeline stage's microbatch,
+    (1, 4096, 8, 128), bf16, causal) and K5 at (b)'s shard shapes (the
+    hidden layer's forward (4096, 784, 2048) and weight gradient (784,
+    4096, 2048), f32 operands), each against its plain version. Returns
+    the largest error by kernel."""
+    errs = {name: 0.0 for name in FLASH + ("blocked_matmul",)}
+    for shape in ((1, SP_T, LONG_HEADS // SP_RANKS, 128),
+                  (1, PP_T, LONG_HEADS, 128)):
+        q, k, v, do = flash_problem(gen, device, shape, torch.bfloat16)
+        label = "x".join(map(str, shape)) + " bf16 (phase 28)"
+        out, lse = flash_attention_fwd(q, k, v, True)
+        ref, _ = _flash_attention_fwd_plain(q, k, v, True)
+        torch.cuda.synchronize()
+        errs["flash_attention_fwd"] = max(
+            errs["flash_attention_fwd"],
+            flash_error("K7 flash_attention_fwd " + label, out, ref,
+                        K7_RTOL))
+        dkv, dq, _ = check_backward(label, q, k, v, do, out, lse)
+        errs["flash_attention_dkv"] = max(errs["flash_attention_dkv"], dkv)
+        errs["flash_attention_dq"] = max(errs["flash_attention_dq"], dq)
+        del q, k, v, do, out, lse, ref
+    m, k, n = WIDE_MINIBATCH, 784, WIDE_LAYERS[0] // SP_RANKS
+    for layout, shape in (("forward", (m, k, n)),
+                          ("weight_grad", (k, m, n))):
+        a, b = gemm_operands(gen, device, shape, torch.float32, layout)
+        out = blocked_matmul(a, b, out_dtype=torch.float32)
+        ref = _blocked_matmul_plain(a, b, torch.float32)
+        torch.cuda.synchronize()
+        err, rel = gemm_error(out, ref, GEMM_F32_RTOL)
+        errs["blocked_matmul"] = max(errs["blocked_matmul"], err)
+        print("K5 blocked_matmul %s %s f32 (phase 28's shard shape): "
+              "max_abs_err %.3g (%.3g relative)" % (layout, shape, err, rel))
+    return errs
+
+
+def sp_start_follower(device="cuda"):
+    """Start rank 1 (SP_FOLLOWER) on a fresh rendezvous, in a directory of
+    its own; returns the directory, the process, its log, its report path
+    and the coordinator."""
+    directory = tempfile.mkdtemp(prefix="sp_phase_")
+    script = os.path.join(directory, "sp_follower.py")
+    with open(script, "w") as fout:
+        fout.write(SP_FOLLOWER)
+    coordinator = "127.0.0.1:%d" % free_port()
+    report = os.path.join(directory, "sp_follower.json")
+    log = open(os.path.join(directory, "sp_follower.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, script, coordinator, report,
+         str(root.common.engine.pallas_autotune_cache), str(device)],
+        cwd=REPO_DIR, env=port_env(), stdout=log, stderr=subprocess.STDOUT)
+    return directory, proc, log, report, coordinator
+
+
+def sp_leaves_close(label, got, want, rtol, steps=0):
+    """Every leaf of ``got`` within ``rtol`` of its ``want`` leaf's largest
+    element or, for a bf16 leaf, within ``steps`` bf16 steps there (one
+    an SGD step, :data:`SP_BF16_STEPS`). Returns the worst share of the
+    largest element."""
+    from veles_tpu_torch.device import tree_leaves_with_path
+    worst = 0.0
+    for (path, a), (_, b) in zip(tree_leaves_with_path(got),
+                                 tree_leaves_with_path(want)):
+        largest = b.float().abs().max().item()
+        diff = (a.float() - b.float()).abs().max().item()
+        limit = rtol * largest
+        if b.dtype == torch.bfloat16:
+            limit = max(limit, steps * bf16_step(largest))
+        worst = max(worst, diff / max(largest, 1e-30))
+        if not diff <= limit:
+            raise AssertionError("%s: leaf %s differs by %.3g, %.3g of its "
+                                 "largest element (limit %.3g)"
+                                 % (label, path, diff, diff / largest,
+                                    limit))
+    return worst
+
+
+def sp_share(report):
+    """The collectives' share of each step of one rank's run."""
+    return ", ".join("%.3f of %.3f s (%.1f%%)" % (
+        row["collective_s"], row["wall"],
+        100 * row["collective_s"] / max(row["wall"], 1e-9))
+        for row in report["steps"])
+
+
+def sp_phase(device, gen, early=None):
+    """Phase 28: the training mesh's model, seq, pipe and expert axes on
+    two ranks sharing the card over gloo in one world (rank 0 this
+    process, rank 1 a child started beside phase 27). Returns both ranks'
+    launches on the main paths."""
+    t0 = time.perf_counter()
+    if early is None:
+        early = sp_start_follower(device)
+    directory, proc, log, report_path, coordinator = early
+    try:
+        launches = _sp_phase(device, gen, proc, report_path, coordinator,
+                             t0)
+    except BaseException:
+        log.seek(0)
+        print("phase 28 rank 1's log:\n%s" % log.read()[-4000:])
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+        from veles_tpu_torch.parallel.mesh import finalize_distributed
+        finalize_distributed()
+        shutil.rmtree(directory, ignore_errors=True)
+    print("phase 28 (the training mesh's axes, %d ranks on the card): %.1f s"
+          % (SP_RANKS, time.perf_counter() - t0))
+    return launches
+
+
+def _sp_phase(device, gen, proc, report_path, coordinator, t0):
+    from veles_tpu_torch.parallel.mesh import initialize_distributed
+
+    def clock(label):
+        print("  phase 28 clock: %.1f s after %s"
+              % (time.perf_counter() - t0, label))
+    errs = sp_kernel_checks(device, gen)
+    problems = sp_problems(device)
+    refs = sp_references(device, problems)
+    clock("the kernel checks and the one-process references")
+    initialize_distributed(coordinator, SP_RANKS, 0, device=device.type,
+                           backend="gloo", timeout=SP_TIMEOUT)
+    mine, kept = sp_world(device, 0, problems)
+    clock("the world's parts")
+    proc.wait(timeout=SP_TIMEOUT)
+    with open(report_path) as fin:
+        theirs = json.load(fin)
+    ranks = (mine, theirs)
+    launches = collections.Counter()
+    # (a) the main path: K7, K8 and K9 exactly BLOCKS a Ulysses step on
+    # each rank, none in the ring; both ranks' parameters the same bits
+    ref_params, ref_rows = refs["a"]
+    for strategy in ("ulysses", "ring"):
+        for rank, report in enumerate(ranks):
+            for i, row in enumerate(report["a_" + strategy]["steps"]):
+                want = BLOCKS if strategy == "ulysses" else 0
+                got = {name: row["launches"][name] for name in FLASH}
+                if any(n != want for n in got.values()):
+                    raise AssertionError(
+                        "(a) %s step %d rank %d: flash launches %s, not %d "
+                        "each" % (strategy, i, rank, got, want))
+                for name, n in got.items():
+                    launches[name] += n
+        if mine["a_" + strategy]["digest"] != \
+                theirs["a_" + strategy]["digest"]:
+            raise AssertionError("(a) %s: the ranks' parameters differ"
+                                 % strategy)
+    for label, (got, rows), (want, want_rows) in (
+            ("ulysses", (kept["a_ulysses"], mine["a_ulysses"]["steps"]),
+             (ref_params, ref_rows)),
+            ("ring", (kept["a_ring"], mine["a_ring"]["steps"]),
+             (ref_params, ref_rows)),
+            ("ring against ulysses", (kept["a_ring"],
+                                      mine["a_ring"]["steps"]),
+             (kept["a_ulysses"], mine["a_ulysses"]["steps"]))):
+        loss_rel = max(abs(r["loss"] - w["loss"]) / abs(w["loss"])
+                       for r, w in zip(rows, want_rows))
+        n_err = max(abs(r["n_err"] - w["n_err"])
+                    for r, w in zip(rows, want_rows))
+        leaf = sp_leaves_close("(a) " + label, got, want, SP_LEAF_RTOL,
+                               SP_BF16_STEPS * SP_STEPS)
+        print("  (a) %s: losses %s against %s (%.3g relative), n_err %s "
+              "against %s, leaves within %.3g of their largest"
+              % (label, [r["loss"] for r in rows],
+                 [w["loss"] for w in want_rows], loss_rel,
+                 [r["n_err"] for r in rows],
+                 [w["n_err"] for w in want_rows], leaf))
+        if not (loss_rel <= SP_LOSS_RTOL
+                and n_err <= SP_N_ERR_SHARE * SP_T):
+            raise AssertionError("(a) %s disagrees with the reference"
+                                 % label)
+    for label, rows in (("one process", ref_rows),
+                        ("ulysses", mine["a_ulysses"]["steps"]),
+                        ("ring", mine["a_ring"]["steps"])):
+        print("  (a) %s: %s tokens/s a step" % (label, ", ".join(
+            "%.1f" % (SP_T / r["wall"]) for r in rows)))
+    for strategy in ("ulysses", "ring"):
+        print("  (a) %s collectives: rank 0 %s; rank 1 %s" % (
+            strategy, sp_share(mine["a_" + strategy]),
+            sp_share(theirs["a_" + strategy])))
+    clock("(a)")
+    # (b) K5 MP_K5_PER_STEP a step on each rank; n_err equal to one
+    # process's, the leaves within phase 8's limit
+    want_params, want_rows = refs["b"]
+    for rank, report in enumerate(ranks):
+        for i, row in enumerate(report["b"]["steps"]):
+            if row["launches"]["blocked_matmul"] != MP_K5_PER_STEP:
+                raise AssertionError("(b) step %d rank %d: K5 launched %d, "
+                                     "not %d" % (i, rank,
+                                                 row["launches"][
+                                                     "blocked_matmul"],
+                                                 MP_K5_PER_STEP))
+            launches["blocked_matmul"] += row["launches"]["blocked_matmul"]
+    rows = mine["b"]["steps"]
+    w_diff = max((a - b).abs().max().item() for key in kept["b"]
+                 for a, b in zip(kept["b"][key], want_params[key]))
+    print("  (b) model=2 wide MLP, %d steps: n_err %s against one process's "
+          "%s, losses %s against %s, leaves within %.3g (limit %.0e); "
+          "collectives rank 0 %s; rank 1 %s" % (
+              MP_STEPS, [r["n_err"] for r in rows],
+              [r["n_err"] for r in want_rows], [r["loss"] for r in rows],
+              [r["loss"] for r in want_rows], w_diff, AGREE_WEIGHT_ATOL,
+              sp_share(mine["b"]), sp_share(theirs["b"])))
+    if [r["n_err"] for r in rows] != [r["n_err"] for r in want_rows] \
+            or [r["n_err"] for r in theirs["b"]["steps"]] \
+            != [r["n_err"] for r in rows] or not w_diff <= AGREE_WEIGHT_ATOL:
+        raise AssertionError("(b) the model-axis step disagrees")
+    clock("(b)")
+    # (c) the flash kernels PP_FLASH a stage; the step against the
+    # sequential reference's
+    for rank, report in enumerate(ranks):
+        for row in report["c"]["steps"]:
+            got = {name: row["launches"][name] for name in FLASH}
+            if got != PP_FLASH:
+                raise AssertionError("(c) stage %d: flash launches %s a "
+                                     "step, not %s" % (rank, got, PP_FLASH))
+            for name, n in got.items():
+                launches[name] += n
+    want_w, want_loss = refs["c"]
+    loss = mine["c"]["steps"][0]["loss"]
+    leaf = sp_leaves_close("(c)", kept["c"], want_w, SP_LEAF_RTOL,
+                           SP_BF16_STEPS)
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    print("  (c) pipe=2, %d microbatches of %d positions: the first step's "
+          "loss %.6g against the sequential step's %.6g (%.3g relative), "
+          "leaves within %.3g of their largest; flash launches a stage a "
+          "step %s; %s tokens/s a step (the first with torch._dynamo's "
+          "import); collectives stage 0 %s; stage 1 %s"
+          % (PP_MICRO, PP_T, loss, want_loss, loss_rel, leaf, PP_FLASH,
+             ", ".join("%.1f" % (PP_MICRO * PP_T / r["wall"])
+                       for r in mine["c"]["steps"]),
+             sp_share(mine["c"]), sp_share(theirs["c"])))
+    if not loss_rel <= SP_LOSS_RTOL \
+            or theirs["c"]["steps"][0]["loss"] != loss:
+        raise AssertionError("(c) the pipelined step disagrees")
+    clock("(c)")
+    # (d) the experts against reference_moe
+    y_ref, gaps, new_ref, loss_ref = refs["d"]
+    rows = (kept["d_y"] - y_ref).abs().amax(dim=1)
+    scale = y_ref.abs().max().item()
+    off = torch.nonzero(rows > MOE_RTOL * scale).flatten().tolist()
+    on = rows.clone()
+    on[off] = 0.0
+    for row in off:
+        print("  (d) token %d leaves the reference by %.3g: its top-2 gate "
+              "probabilities' gap %.3g" % (row, rows[row].item(),
+                                           gaps[row].item()))
+        if not gaps[row].item() < MOE_TIE_GAP:
+            raise AssertionError("(d) token %d's output differs where its "
+                                 "routing is no near-tie" % row)
+    leaf = sp_leaves_close("(d) step", kept["d_step"], new_ref, MOE_RTOL)
+    update = max(((kept["d_step"][k] - problems["moe"][0][k])
+                  - (new_ref[k] - problems["moe"][0][k])).abs().max().item()
+                 / (new_ref[k] - problems["moe"][0][k]).abs().max().item()
+                 for k in new_ref)
+    loss = mine["d"]["steps"][0]["loss"]
+    print("  (d) expert=2, %d experts, %d tokens: outputs within %.3g of "
+          "the largest (%d tokens off at near-ties), dropped %.3g at "
+          "capacity 8 and %.4f at 2.0; the step's loss %.6g against %.6g, "
+          "leaves within %.3g of their largest, updates within %.3g of the "
+          "largest update; collectives rank 0 %s; rank 1 %s" % (
+              MOE_EXPERTS, MOE_TOKENS, (on.max() / scale).item(), len(off),
+              mine["d"]["forward"]["dropped"],
+              mine["d"]["forward_cf2"]["dropped"], loss, loss_ref, leaf,
+              update, sp_share(mine["d"]), sp_share(theirs["d"])))
+    if mine["d"]["forward"]["dropped"] != 0.0 \
+            or abs(loss - loss_ref) > MOE_RTOL * abs(loss_ref) \
+            or mine["d"]["gate"] != theirs["d"]["gate"]:
+        raise AssertionError("(d) the experts disagree")
+    clock("(d)")
+    print("  phase 28 launches (both ranks): %s; kernel errors %s"
+          % (dict(launches), errs))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -10289,8 +10929,22 @@ def main():
         early[2].kill()
         shutil.rmtree(early[0], ignore_errors=True)
     clock("the serving fleet phase")
-    # sharded serving: both ranks' K1, K2, K3 and K4 are a main path
-    for name, n in tp_phase(device, gen, tp_early).items():
+    # phase 28's rank 1 starts beside phase 27: its imports and its
+    # problems take about as long as that phase
+    sp_early = sp_start_follower(device)
+    try:
+        # sharded serving: both ranks' K1, K2, K3 and K4 are a main path
+        for name, n in tp_phase(device, gen, tp_early).items():
+            launches[name] += n
+    except BaseException:
+        sp_early[1].kill()
+        shutil.rmtree(sp_early[0], ignore_errors=True)
+        raise
+    clock("the sharded serving phase")
+    # the training mesh's model, seq, pipe and expert axes: both ranks'
+    # K5 (the model-axis step) and K7-K9 (the Ulysses step and the
+    # pipeline's stages) are a main path
+    for name, n in sp_phase(device, gen, sp_early).items():
         launches[name] += n
     isolated.cleanup()
     print("the smoke's phases and build: %.1f s" % (time.perf_counter()

@@ -86,7 +86,9 @@ for name in ("__main__", "launcher", "cli", "snapshotter", "export",
              "forge.package", "forge.server", "forge.client",
              "fleet.serve_plane", "router", "deploy_cli",
              "parallel.tp_engine", "parallel.reshard", "parallel.decode",
-             "parallel.kv_pool", "parallel.mesh"):
+             "parallel.kv_pool", "parallel.mesh", "parallel.collectives",
+             "parallel.step", "parallel.pipeline", "parallel.expert",
+             "parallel.transformer_step", "ops.attention"):
     importlib.import_module("veles_tpu_torch." + name)
 from veles_tpu_torch.__main__ import main
 tiny, link = sys.argv[1:3]

@@ -55,7 +55,10 @@ from a bundle of this card's libraries, from a copy of the package with
 an empty build directory, building no kernel and streaming the live
 decoder's tokens; and the sharded serving mesh: two ranks sharing the
 card over gloo behind rank 0's GenerateAPI, one process's tokens and
-each rank's K1 and K2 launches a decode step.
+each rank's K1 and K2 launches a decode step; and the training mesh's
+seq axis: two ranks sharing the card through a Ulysses step, each
+launching K7, K8 and K9, and C11, an f32 step at flash shapes raising
+K8's TypeError.
 
 Needs a CUDA card and nvcc; everywhere else every test skips. Run on
 the card without the JAX package's conftest (the card's machine has no
@@ -2675,3 +2678,111 @@ def test_router_kill9_failover_on_the_card(cuda):
         for proc in procs:
             proc.kill()
             proc.wait()
+
+
+_SP_RANK = r'''
+import hashlib, json, sys
+import numpy, torch
+from veles_tpu_torch.ops.attention import (flash_attention_dkv,
+                                           flash_attention_dq,
+                                           flash_attention_fwd)
+from veles_tpu_torch.parallel.mesh import build_mesh, initialize_distributed
+from veles_tpu_torch.parallel.transformer_step import (
+    build_transformer_train_step, init_transformer_params, shard_tokens)
+cfg = json.load(open(sys.argv[1]))
+rank = int(sys.argv[2])
+torch.backends.cuda.matmul.allow_tf32 = False
+initialize_distributed(cfg["coordinator"], 2, rank, device="cuda",
+                       backend="gloo", timeout=120)
+mesh = build_mesh(data=1, seq=2)
+params = init_transformer_params(numpy.random.RandomState(0), 1, 256, 2,
+                                 256, dtype=torch.bfloat16, device="cuda")
+rng = numpy.random.RandomState(1)
+x = torch.from_numpy(rng.randn(1, 4096, 256).astype(numpy.float32)
+                     * 0.3).to(device="cuda", dtype=torch.bfloat16)
+labels = torch.from_numpy(rng.randint(0, 256, (1, 4096))).cuda()
+step = build_transformer_train_step(2, mesh=mesh)
+for fn in (flash_attention_fwd, flash_attention_dkv, flash_attention_dq):
+    fn.launches = 0
+new, (loss, n_err) = step(params, *shard_tokens([x, labels], mesh))
+torch.cuda.synchronize()
+sha = hashlib.sha1()
+for blk in new["blocks"]:
+    for name in sorted(blk):
+        sha.update(blk[name].float().cpu().numpy().tobytes())
+json.dump({"loss": float(loss), "n_err": int(n_err), "digest":
+           sha.hexdigest(), "head": new["head"].float().cpu().tolist(),
+           "launches": [fn.launches for fn in (
+               flash_attention_fwd, flash_attention_dkv,
+               flash_attention_dq)]}, open(cfg["out"] % rank, "w"))
+'''
+
+
+def test_two_ranks_share_the_card_ulysses_step(cuda, tmp_path):
+    """The sequence-parallel transformer step on the card: two ranks over
+    gloo, seq=2, one block of 2 heads of 128 at 4096 positions in bf16.
+    Ulysses hands each rank the whole sequence of its head, so each
+    launches K7, K8 and K9 once (the flash rule holds); both ranks hold
+    the same parameter bits, and the loss, n_err and the head agree with
+    one process's step."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from veles_tpu_torch.parallel.transformer_step import (
+        build_transformer_train_step)
+
+    cfg = {"coordinator": "127.0.0.1:%d" % _free_port(),
+           "out": str(tmp_path / "rank%d.json")}
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SP_RANK, str(tmp_path / "cfg.json"),
+         str(rank)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    try:
+        logs = [proc.communicate(timeout=300)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, log in zip(procs, logs):
+        assert proc.returncode == 0, log[-3000:]
+    ranks = [json.load(open(cfg["out"] % rank)) for rank in range(2)]
+    params = init_transformer_params(numpy.random.RandomState(0), 1, 256,
+                                     2, 256, dtype=torch.bfloat16,
+                                     device="cuda")
+    rng = numpy.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(1, 4096, 256).astype(numpy.float32)
+                         * 0.3).to(device="cuda", dtype=torch.bfloat16)
+    labels = torch.from_numpy(rng.randint(0, 256, (1, 4096))).cuda()
+    new, (loss, n_err) = build_transformer_train_step(2)(params, x, labels)
+    for got in ranks:
+        assert got["launches"] == [1, 1, 1]
+        assert got["digest"] == ranks[0]["digest"]
+        assert got["loss"] == pytest.approx(float(loss), rel=1e-2)
+        assert abs(got["n_err"] - int(n_err)) <= 0.01 * 4096
+    head = torch.tensor(ranks[0]["head"])
+    want = new["head"].float().cpu()
+    assert (head - want).abs().max() <= 1e-2 * want.abs().max()
+
+
+def test_f32_transformer_step_at_flash_shapes_raises_c11(cuda):
+    """C11: K8 and K9 take bf16 only, so an f32 transformer step at flash
+    shapes (4096 positions, heads of 128) raises K8's TypeError in its
+    backward on the card, where the JAX package would train; no other
+    path takes its place."""
+    from veles_tpu_torch.parallel.transformer_step import (
+        build_transformer_train_step)
+
+    params = init_transformer_params(numpy.random.RandomState(0), 1, 256,
+                                     2, 64, device="cuda")
+    x = torch.randn((1, 4096, 256), generator=cuda, device="cuda") * 0.3
+    labels = torch.randint(0, 64, (1, 4096), generator=cuda, device="cuda")
+    flash_attention_fwd.launches = 0
+    with pytest.raises(TypeError, match="bfloat16"):
+        build_transformer_train_step(2)(params, x, labels)
+    assert flash_attention_fwd.launches == 1

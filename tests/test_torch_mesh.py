@@ -376,20 +376,37 @@ def test_mesh_shape_and_registry_as_jax():
 
 
 def test_axes_other_than_data_raise_naming_a8b():
-    """The model, seq, pipe and expert axes of a TRAINING mesh are
-    ROADMAP A8 (b): build_mesh builds such a mesh as JAX does (serving
-    takes its model axis), and the training paths it reaches raise, a
-    workflow handed it and the fused tick built over it."""
+    """The model, seq, pipe and expert axes of a TRAINING mesh replicate
+    the fused tick, as the JAX package's shard_map over data does:
+    build_mesh builds such a mesh as JAX does, the fused tick builds over
+    it, and a workflow handed data=1 x seq=2 trains as with no mesh, every
+    epoch's n_err and the weights bit for bit (data=2 x model=2 against
+    data=2 in worlds of ranks: tests/test_torch_step.py)."""
     want = jmesh.build_mesh(devices=jax.devices()[:4], data=2, model=2)
     got = mesh.build_mesh(devices=4, data=2, model=2)
     assert got.shape == dict(want.shape)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A8 \(b\)"):
-        fused.build_tick([], mesh=got, cached=False)
+    assert len(fused.build_tick([], mesh=mesh.Mesh({"model": 2}),
+                                cached=False)) == 4
     x, y = _digits()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A8 \(b\)"):
-        MLPWorkflow(DummyLauncher(), device="cpu",
-                    mesh=mesh.Mesh({"data": 2, "seq": 2}),
-                    **_case_kwargs("wide", True, x, y))
+    rng = numpy.random.RandomState(2)
+    layers = [{"weights": (rng.randn(64, 256) * 0.1).astype(numpy.float32),
+               "bias": numpy.zeros(256, numpy.float32)},
+              {"weights": (rng.randn(256, 10) * 0.1).astype(numpy.float32),
+               "bias": numpy.zeros(10, numpy.float32)}]
+    runs = []
+    for m in (None, mesh.Mesh({"data": 1, "seq": 2})):
+        prng.get("loader").seed(8765)
+        wf = MLPWorkflow(DummyLauncher(), device="cpu", mesh=m,
+                         **dict(_case_kwargs("wide", True, x, y),
+                                max_epochs=2))
+        unit_params_from_jax(wf, layers)
+        wf.initialize()
+        seen = _record_epochs(wf)
+        wf.run()
+        runs.append((seen, [f.weights.data for f in wf.forwards]))
+    assert runs[1][0] == runs[0][0]
+    for a, b in zip(runs[1][1], runs[0][1]):
+        assert torch.equal(a, b)
 
 
 def _non_dividing_pair(jax_mesh, port_mesh, on_tick=False):

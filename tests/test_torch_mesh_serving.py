@@ -186,6 +186,49 @@ else:
                       "metrics": metrics}
     finally:
         api.stop()
+# 6. train -> serve: the transformer step over the model=n mesh (which
+# replicates it), the reshard into the serving layout and back, and the
+# trained weights served over the mesh
+from veles_tpu_torch.parallel import decode as tdecode, reshard as trs
+from veles_tpu_torch.parallel.mesh import PartitionSpec
+from veles_tpu_torch.parallel.transformer_step import (
+    build_transformer_train_step)
+from veles_tpu_torch.device import tree_leaves_with_path
+trans = inputs["transition"]
+step = build_transformer_train_step(HEADS, mesh=mesh, learning_rate=0.05)
+trained, losses = as_torch(trans["params"]), []
+for _ in range(3):
+    trained, (loss, _) = step(trained, torch.from_numpy(trans["x"]),
+                              torch.from_numpy(trans["labels"]))
+    losses.append(float(loss))
+packed = tdecode.repack_slot_params(trained, HEADS)
+specs = tdecode.slot_param_specs(packed)
+served, to_serve = trs.reshard(packed, mesh, specs, label="train_to_serve")
+back, to_train = trs.reshard(served, mesh, PartitionSpec(), specs,
+                             label="serve_to_train")
+gathered = tdecode.local_from_packed(back)
+out["transition"] = {
+    "losses": losses, "to_serve": to_serve["bytes"],
+    "to_train": to_train["bytes"],
+    "exact": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree_leaves_with_path(packed), tree_leaves_with_path(back))),
+    "params": [t.numpy() for _, t in tree_leaves_with_path(gathered)]}
+table2 = torch.from_numpy(trans["table"])
+kw = dict(slots=2, max_len=64, n_tokens=5)
+if rank:
+    got = tp_engine.follow(mesh, trained, table2, HEADS, device="cpu")
+    out["transition"]["followed"] = got["calls"]
+else:
+    dec = ContinuousDecoder(trained, table2, HEADS, mesh=mesh, device="cpu",
+                            **kw)
+    one = ContinuousDecoder(gathered, table2, HEADS, device="cpu", **kw)
+    for d in (dec, one):
+        for p in trans["prompts"]:
+            d.submit(p)
+        d.run_until_drained(chunk=4)
+    out["transition"].update(mesh_streams=dict(dec.results),
+                             single_streams=dict(one.results))
+    dec.close()
 # 5. the serve mesh ignores a training mesh config
 root.common.mesh.axes.data = 2
 serve = build_serve_mesh("model=%d" % n)
@@ -202,13 +245,50 @@ def _model(seed):
     return jax.tree.map(numpy.asarray, params), table
 
 
+def _transition_inputs():
+    """test_mesh_serving.py:253-304's draws: the model, its table, the
+    tokens it trains on and the prompts it then serves."""
+    rng = numpy.random.RandomState(7)
+    params = jax.tree.map(numpy.asarray, jinit(rng, BLOCKS, EMBED, HEADS,
+                                               VOCAB))
+    table = rng.randn(VOCAB, EMBED).astype(numpy.float32) * 0.3
+    x = rng.randn(4, 8, EMBED).astype(numpy.float32)
+    labels = rng.randint(0, VOCAB, (4, 8))
+    prompts = [rng.randint(0, VOCAB, n) for n in (5, 8, 3)]
+    return {"params": params, "table": table, "x": x, "labels": labels,
+            "prompts": prompts}
+
+
+def _jax_transition(trans, n):
+    """The JAX package's side: three steps of its transformer step over a
+    mesh of model=n (which its shard_map replicates), then its
+    single-device decoder's streams of the prompts."""
+    from veles_tpu.parallel.transformer_step import \
+        build_transformer_train_step as jstep
+    mesh = jbuild_mesh(devices=jax.devices()[:n], data=1, model=n)
+    step = jstep(HEADS, mesh=mesh, learning_rate=0.05)
+    params, losses = jax.tree.map(jnp.asarray, trans["params"]), []
+    for _ in range(3):
+        params, (loss, _) = step(params, jnp.asarray(trans["x"]),
+                                 jnp.asarray(trans["labels"]))
+        losses.append(float(loss))
+    dec = JDecoder(params, jnp.asarray(trans["table"]), HEADS, slots=2,
+                   max_len=64, n_tokens=5)
+    for p in trans["prompts"]:
+        dec.submit(p)
+    dec.run_until_drained(chunk=4)
+    return {"losses": losses, "streams": dict(dec.results),
+            "params": [numpy.asarray(a) for a in jax.tree.leaves(params)]}
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Both worlds, started at once; the JAX package's sharded drives run
     here meanwhile. Returns (jax streams and logits, results by size)."""
     params, table = _model(0)
     params2, _ = _model(99)
-    inputs = {"params": params, "table": table, "params2": params2}
+    inputs = {"params": params, "table": table, "params2": params2,
+              "transition": _transition_inputs()}
     started = {}
     for n in (2, 4):
         directory = str(tmp_path_factory.mktemp("serve%d" % n))
@@ -230,6 +310,7 @@ def worlds(tmp_path_factory):
             pre._admit_pending()
             theirs[tier, n]["prefill"] = numpy.asarray(
                 pre.state["logits"])
+        theirs["transition", n] = _jax_transition(inputs["transition"], n)
     results = {n: join_world(s, DEADLINE)[0] for n, s in started.items()}
     return theirs, results
 
@@ -367,6 +448,33 @@ def test_serve_mesh_ignores_training_mesh_config(worlds, n):
     for got in results[n]:
         assert got["serve_mesh"]["model"] == n
         assert got["serve_mesh"]["data"] == 1
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_train_reshard_serve_transition(worlds, n):
+    """TestTrainServeTransition: the transformer step trains over the
+    model=n mesh (replicated, the JAX package's three steps within its
+    tolerances and every rank's weights the same bits), reshards into
+    the serving layout moving 0 bytes, serves over the mesh with the
+    streams of one process's decoder fed the gathered weights (and of the
+    JAX package's), and reshards back bit-equal."""
+    theirs, results = worlds
+    want = theirs["transition", n]
+    lead = results[n][0]["transition"]
+    assert lead["losses"] == pytest.approx(want["losses"], rel=1e-5)
+    for rank in range(n):
+        got = results[n][rank]["transition"]
+        assert got["to_serve"] == 0 and got["to_train"] > 0
+        assert got["exact"]
+        for a, b in zip(got["params"], lead["params"]):
+            numpy.testing.assert_array_equal(a, b)
+    for a, b in zip(lead["params"], want["params"]):
+        numpy.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+    assert lead["mesh_streams"] == lead["single_streams"]
+    assert lead["mesh_streams"] == {int(k): list(map(int, v))
+                                    for k, v in want["streams"].items()}
+    for rank in range(1, n):
+        assert results[n][rank]["transition"]["followed"]["build"] == 1
 
 
 def test_serve_mesh_config_string():

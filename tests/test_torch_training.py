@@ -252,34 +252,61 @@ def test_device_none_means_the_card(monkeypatch):
         MLPWorkflow(DummyLauncher(), **_kwargs())
 
 
-def _fleet_pod_slave():
-    """A fleet slave whose own mesh sizes the model axis, initialized."""
+def _seeded_weights():
+    rng = numpy.random.RandomState(6)
+    return [{"weights": (rng.randn(64, 32) * 0.1).astype(numpy.float32),
+             "bias": numpy.zeros(32, numpy.float32)},
+            {"weights": (rng.randn(32, 10) * 0.1).astype(numpy.float32),
+             "bias": numpy.zeros(10, numpy.float32)}]
+
+
+def _standalone_run(mesh):
+    """A standalone run's final weights, its fused tick over ``mesh``."""
+    prng.get("loader").seed(3)
+    wf = MLPWorkflow(DummyLauncher(), device="cpu",
+                     **_kwargs(mesh=mesh, max_epochs=2))
+    unit_params_from_jax(wf, _seeded_weights())
+    wf.initialize()
+    wf.run()
+    assert wf.fused_tick.mesh is mesh
+    return [f.weights.data for f in wf.forwards]
+
+
+def _fleet_pod_slave(mesh):
+    """A fleet slave whose own mesh is ``mesh``, initialized: its fused
+    slave tick's train step on the first 100 training rows."""
     from veles_tpu_torch.launcher import Launcher
+    from veles_tpu_torch.parallel.fused import get_hypers, get_params
     slave = Launcher(master_address="127.0.0.1:1")
     try:
-        MLPWorkflow(slave, device="cpu",
-                    **_kwargs(mesh=Mesh({"data": 2, "model": 2}))
-                    ).initialize()
+        wf = MLPWorkflow(slave, device="cpu", **_kwargs(mesh=mesh))
+        unit_params_from_jax(wf, _seeded_weights())
+        wf.initialize()
+        tick = wf.fused_tick
+        assert tick.mesh is mesh
+        loader = wf.loader
+        params, _ = tick._steps_[0](
+            get_params(wf, tick._specs_), get_hypers(wf), tick._norm_,
+            loader.original_data.data, loader.labels_for_gather(),
+            torch.arange(297, 397), 100.0, 0)
+        return [layer["p"]["w"] for layer in params]
     finally:
         slave.stop()
 
 
-@pytest.mark.parametrize("build,item", [
-    (lambda: MLPWorkflow(DummyLauncher(), device="cpu",
-                         **_kwargs(mesh=Mesh({"data": 2, "model": 2}))),
-     r"ROADMAP A8 \(b\)"),
-    (_fleet_pod_slave, r"ROADMAP A8 \(b\)"),
-], ids=["mesh", "fleet-pod"])
-def test_later_slices_raise(build, item):
-    """A mesh axis other than data (ROADMAP A8 (b)) is a later slice, on a
-    standalone run and on a fleet slave alike: it raises, it never runs
-    another path (the data axis is ported, tests/test_torch_mesh.py, and
-    a fleet slave over it, the fleet x pod composition,
-    tests/test_torch_fleet_pod.py; so are the fleet,
-    tests/test_torch_fleet.py, the MSE evaluator and the loader class:
-    tests/test_torch_mse.py, test_torch_loaders.py)."""
-    with pytest.raises(NotImplementedError, match=item):
-        build()
+@pytest.mark.parametrize("build", [_standalone_run, _fleet_pod_slave],
+                         ids=["mesh", "fleet-pod"])
+def test_later_slices_raise(build):
+    """A mesh axis other than data replicates the fused tick, as the JAX
+    package's shard_map over data does, on a standalone run and on a
+    fleet slave alike: over data=1 x model=2 the result is the run with
+    no mesh, bit for bit (the data axis and a fleet slave over it are
+    tests/test_torch_mesh.py and tests/test_torch_fleet_pod.py; data=2 x
+    model=2 against data=2 is tests/test_torch_step.py)."""
+    want = build(None)
+    got = build(Mesh({"data": 1, "model": 2}))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_unit_params_from_jax_fills_before_initialize():

@@ -172,8 +172,8 @@ root.common.update({
     },
     # the logical mesh's axes (parallel/mesh.py): all ones is one
     # process on one device; any other size (--mesh data=2) makes the
-    # launcher build the mesh into the workflow. Only the data axis is
-    # ported (ROADMAP A8 (b) brings the others). The world's backend:
+    # launcher build the mesh into the workflow (whose tick shards over
+    # the data axis and replicates over the others). The world's backend:
     # None is NCCL on a card and gloo on the CPU; ranks that share one
     # card name "gloo" (NCCL takes one rank per device)
     "mesh": {

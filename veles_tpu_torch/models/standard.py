@@ -63,9 +63,9 @@ the topology cannot run the meshed tick it warns, as the JAX package
 does, and takes the per-unit graph on one device.
 
 ``device=None`` means "cuda" and raises without a card unless the caller
-passes ``device="cpu"``. A later slice, which raises
-``NotImplementedError`` here rather than run another path: a mesh axis
-other than ``data`` (ROADMAP A8 (b)).
+passes ``device="cpu"``. A mesh shards the fused tick over its ``data``
+axis; every other axis replicates it, as the JAX package's ``shard_map``
+over ``data`` does.
 """
 
 from veles_tpu_torch.core.plumbing import Repeater
@@ -88,7 +88,6 @@ from veles_tpu_torch.nn.gd import (
     GDRELU, GDSigmoid, GDSoftmax, GDStrictRELU, GDTanh, GradientDescent)
 from veles_tpu_torch.nn.pooling import (
     AvgPooling, GDPooling, MaxAbsPooling, MaxPooling)
-from veles_tpu_torch.parallel.mesh import check_ported
 
 FORWARD_TYPES = {
     "all2all": (All2All, GradientDescent),
@@ -135,8 +134,6 @@ class StandardWorkflow(Workflow):
         #: the data-parallel mesh; the trailing underscore keeps it out
         #: of snapshots (the launcher builds it again on resume)
         self.mesh_ = kwargs.pop("mesh", None)
-        if self.mesh_ is not None:
-            check_ported(self.mesh_)
         #: "softmax" (classification) or "mse" (regression): selects the
         #: evaluator/decision pair and the default loader
         self.evaluator_kind = kwargs.pop("evaluator", "softmax")

@@ -37,9 +37,18 @@ raises, and counts its launches in ``launches``. The kernels read q, k,
 v and dO in place through their strides (the qkv projection's split
 views), so nothing is transposed or copied.
 
-Later slices: ring and Ulysses attention (``attention.py:154-277``,
-plain JAX over a ``seq`` mesh axis) with the mesh; the units' own
-computes and their vjp backward (graph mode); conv and pooling.
+Sequence parallelism over the mesh's ``seq`` axis (``attention.py:
+156-277``), on this rank's block of the sequence:
+
+- :func:`ring_attention`: the K/V blocks rotate around the axis by
+  ``collectives.ppermute`` while an online-softmax accumulator absorbs
+  each, in plain torch ops in f32 (the JAX package's einsums, no
+  kernel), and autograd differentiates the loop through the reverse
+  ``ppermute``;
+- :func:`ulysses_attention`: one ``all_to_all`` trades the sequence
+  blocks for head blocks, :func:`attention` runs on the whole sequence
+  of this rank's heads (K7, and K8 and K9 backward, where the flash rule
+  holds), and the inverse ``all_to_all`` restores the sequence blocks.
 """
 
 import ctypes
@@ -452,3 +461,110 @@ def flash_attention(q, k, v, causal=False):
     by 1/sqrt(D), in q's type: K7 forward, K8 and K9 backward on CUDA
     tensors, their plain versions on CPU tensors."""
     return _FlashAttention.apply(q, k, v, causal)
+
+
+# -- sequence parallelism (attention.py:156-277) -----------------------------
+
+def _block_attend(q, k, v, scale, mask_value, causal, q_pos, kv_pos):
+    """One (q-block x kv-block) pass returning the unnormalized ``(o, m,
+    l)``: o = exp(s - m) @ v, m the row max, l the row sum
+    (``attention.py:156-168``), in f32 as :func:`plain_attention`
+    computes (the JAX package's einsums keep bf16 operands' scores in
+    bf16)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        keep = kv_pos[None, :] <= q_pos[:, None]
+        s = torch.where(keep[None, None], s,
+                        torch.full((), mask_value, device=s.device))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return o, m, l
+
+
+def ring_attention(q, k, v, mesh, axis_name="seq", causal=False, scale=None,
+                   mask_value=-1e30):
+    """Sequence-parallel attention over ``mesh``'s ``axis_name``
+    (``attention.py:171-218``): ``q``, ``k``, ``v`` are this rank's
+    blocks (B, T_local, H, D) of a sequence ``T_local * axis size`` long,
+    laid out in axis order; returns this rank's block of the output.
+    Step i attends the K/V block of the axis's rank ``index - i`` and
+    passes the visiting block on to ``index + 1``; the last step passes
+    nothing on (the JAX scan's last ``ppermute`` feeds no step). The
+    running max starts at ``mask_value``, not -inf (a -inf start gives
+    NaN gradients for a fully masked first block), and the row sum is
+    floored at 1e-20."""
+    from veles_tpu_torch.parallel import collectives
+
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    n = collectives.axis_size(mesh, axis_name)
+    index = mesh.axis_index(axis_name) if n > 1 else 0
+    batch, t_local, heads, _ = q.shape
+    steps = torch.arange(t_local, device=q.device)
+    q_pos = index * t_local + steps
+    o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.full((batch, heads, t_local), mask_value, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((batch, heads, t_local), dtype=torch.float32,
+                    device=q.device)
+    k_blk, v_blk = k, v
+    for step in range(n):
+        kv_pos = ((index - step) % n) * t_local + steps
+        o_i, m_i, l_i = _block_attend(q, k_blk, v_blk, scale, mask_value,
+                                      causal, q_pos, kv_pos)
+        m_new = torch.maximum(m, m_i)
+        alpha = torch.exp(m - m_new)
+        beta = torch.exp(m_i - m_new)
+        l = l * alpha + l_i * beta
+        o = (o * alpha.transpose(1, 2)[..., None]
+             + o_i * beta.transpose(1, 2)[..., None])
+        m = m_new
+        if step < n - 1:
+            k_blk, v_blk = collectives.ppermute((k_blk, v_blk), mesh,
+                                                axis_name)
+    l = torch.clamp(l, min=1e-20)
+    return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def make_ring_attention(mesh, axis_name="seq", causal=False):
+    """:func:`ring_attention` over ``mesh`` (``attention.py:221-233``):
+    takes and returns this rank's sequence blocks (B, T_local, H, D)."""
+    def ring(q, k, v):
+        return ring_attention(q, k, v, mesh, axis_name, causal=causal)
+    return ring
+
+
+def ulysses_attention(q, k, v, mesh, axis_name="seq", causal=False):
+    """All-to-all sequence parallelism (DeepSpeed-Ulysses,
+    ``attention.py:238-264``): ``q``, ``k``, ``v`` are this rank's
+    sequence blocks (B, T_local, H, D); one ``all_to_all`` gives this
+    rank the whole sequence of its ``H / n`` heads, :func:`attention`
+    runs on it (on a CUDA tensor where :func:`uses_flash` holds: K7
+    forward, K8 and K9 backward), and the inverse ``all_to_all``
+    restores the sequence blocks. Needs ``heads % n == 0``."""
+    from veles_tpu_torch.parallel import collectives
+
+    n = collectives.axis_size(mesh, axis_name)
+    heads = q.shape[2]
+    if heads % n:
+        raise ValueError("ulysses needs heads (%d) divisible by the "
+                         "%r axis size (%d)" % (heads, axis_name, n))
+
+    def seq_to_heads(x):  # (B, T/n, H, D) -> (B, T, H/n, D)
+        return collectives.all_to_all(x, mesh, axis_name, split_axis=2,
+                                      concat_axis=1)
+
+    out = attention(seq_to_heads(q), seq_to_heads(k), seq_to_heads(v),
+                    causal=causal)
+    return collectives.all_to_all(out, mesh, axis_name, split_axis=1,
+                                  concat_axis=2)
+
+
+def make_ulysses_attention(mesh, axis_name="seq", causal=False):
+    """:func:`ulysses_attention` over ``mesh`` (``attention.py:267-277``),
+    the same contract as :func:`make_ring_attention`."""
+    def ulysses(q, k, v):
+        return ulysses_attention(q, k, v, mesh, axis_name, causal=causal)
+    return ulysses

@@ -53,9 +53,12 @@ runs data-parallel: every rank of the ``torch.distributed`` world holds
 the whole dataset and the same weights, steps on its block of each
 minibatch, and merges gradients and metrics through
 ``parallel/mapreduce.reduce_sum`` (:func:`build_tick`), so every rank
-applies the same update. Left out (a later slice): the mesh's other axes
-(ROADMAP A8 (b): the model axis, ring and Ulysses attention over a
-``seq`` axis).
+applies the same update. The tick shards over the ``data`` axis alone:
+over a mesh that also sizes another axis (``model``, ``seq``, ``pipe``,
+``expert``) each rank takes the block of its data coordinate and merges
+over its line along ``data`` (``Mesh.axis_group``), so the ranks of the
+other axes compute the same values, as the JAX package's ``shard_map``
+over ``data`` does (``fused.py:529-545``).
 
 On a fleet slave (``fused.py:29-38``, ``:720-790``) the tick runs one
 step per job. Data plane: it reads the parameters the master's job
@@ -84,7 +87,6 @@ from veles_tpu_torch.ops.attention import attention_block, ffn_block
 from veles_tpu_torch.ops.augment import TRANSFORMS
 from veles_tpu_torch.ops.gather import gather_minibatch
 from veles_tpu_torch.ops.gemm import conv2d, dense_layer
-from veles_tpu_torch.parallel.mesh import check_ported
 from veles_tpu_torch.parallel.segments import chain_of
 
 _DENSE = "dense"
@@ -386,12 +388,10 @@ def build_tick(specs, norm_type="none", with_confusion=True,
     JAX's ``P("data")`` gives its device (``fused.py:529-545``), masks by
     the global position, and merges gradients, ``loss_sum``, ``n_err``
     and the confusion matrix through ``mapreduce.reduce_sum`` over the
-    mesh's group before the update: the gradients at ``grad_reduce``, the
-    metrics exact. At a data axis of 1 the steps are the unsharded
-    ones. A mesh that sizes another axis above 1 raises
-    ``NotImplementedError`` (ROADMAP A8 (b), ``mesh.check_ported``)."""
-    if mesh is not None:
-        check_ported(mesh)
+    group of this rank's line along ``data`` (``Mesh.axis_group``) before
+    the update: the gradients at ``grad_reduce``, the metrics exact. Every
+    other axis of the mesh replicates the step. At a data axis of 1 the
+    steps are the unsharded ones."""
     if cached:
         installed = _TICK_CACHE.get(_tick_key(
             specs, norm_type, with_confusion, augment, loss_kind,
@@ -404,7 +404,7 @@ def build_tick(specs, norm_type="none", with_confusion=True,
     data_ax = int(mesh.shape.get("data", 1)) if mesh is not None else 1
     if data_ax > 1:
         from veles_tpu_torch.parallel.mapreduce import reduce_sum
-        shard, group = mesh.axis_index("data"), mesh.group
+        shard, group = mesh.axis_index("data"), mesh.axis_group("data")
 
     def local_rows(indices):
         """This rank's block of a minibatch's indices and the global

@@ -7,15 +7,18 @@ The port of ``veles_tpu/parallel/mesh.py``. Axes, sized from
   minibatch and the gradients merge by ``parallel/mapreduce.reduce_sum``;
 - ``model`` — tensor parallelism: the sharded serving engine
   (``parallel/tp_engine.py``, ``serving.build_serve_mesh``) splits every
-  block's heads, FFN columns and the vocab head over it;
-- ``seq``, ``pipe``, ``expert`` — sequence, pipeline and expert
-  parallelism.
+  block's heads, FFN columns and the vocab head over it,
+  and the model-axis train step (``parallel/step.py``) splits every
+  layer's columns over it;
+- ``seq``, ``pipe``, ``expert`` — sequence (``parallel/
+  transformer_step.py``, ring and Ulysses attention), pipeline
+  (``parallel/pipeline.py``) and expert (``parallel/expert.py``)
+  parallelism, their collectives in ``parallel/collectives.py``.
 
 :func:`build_mesh` builds any axes whose sizes multiply to the world's
-size. The training paths take the ``data`` axis only: a workflow, the
-fused tick and a fleet pod slave handed a mesh that sizes another axis
-above 1 raise ``NotImplementedError`` naming ROADMAP A8 (b)
-(:func:`check_ported`).
+size. A workflow, the fused tick and a fleet pod slave shard over the
+``data`` axis alone and replicate the step over every other axis, as
+the JAX package's ``shard_map`` over ``data`` does.
 
 The JAX package's mesh is one SPMD process over every device. The port's
 is a ``torch.distributed`` world, one process per device: the mesh's
@@ -43,10 +46,6 @@ AXIS_ORDER = ("pipe", "data", "expert", "seq", "model")
 #: must not wait out gloo's 30-minute default; a fleet pod's follower
 #: waits this long at most for rank 0's next event (``fleet/pod.py``)
 DEFAULT_TIMEOUT = 300.0
-
-#: the training paths' refusal of every axis but ``data``
-_LATER = ("only the data axis of the mesh trains; the pipe, expert, "
-          "seq and model axes of a training mesh wait for ROADMAP A8 (b)")
 
 
 def _distributed():
@@ -209,17 +208,6 @@ class Mesh:
     def __repr__(self):
         return "Mesh(%s, rank=%d)" % (
             ", ".join("%s=%d" % kv for kv in self.shape.items()), self.rank)
-
-
-def check_ported(mesh):
-    """Raise ``NotImplementedError`` naming ROADMAP A8 (b) when ``mesh``
-    sizes an axis other than ``data`` above 1: the training paths (a
-    workflow, ``fused.build_tick``, a fleet pod slave) call it; serving
-    takes the ``model`` axis."""
-    wide = {name: size for name, size in dict(mesh.shape).items()
-            if name != "data" and size != 1}
-    if wide:
-        raise NotImplementedError("mesh axes %s: %s" % (wide, _LATER))
 
 
 def build_mesh(devices=None, flag="root.common.mesh.axes / --mesh",
