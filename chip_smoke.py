@@ -31,7 +31,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and at the long-context training shape (1, 8192, 8, 128) bf16, K8 and
    K9 its dK/dV and dQ backward at both (bf16); K7, K8 and K9 also at the
    wider heads the flash rule admits, (1, 4096, 4, 256) and (1, 4096, 2,
-   384) causal bf16, and f32 K7 at 256) against its plain PyTorch version
+   384) causal bf16, and f32 K7 at 256; K8 and K9's f32 route (C11) at
+   (1, 8192, 4, 128) and (1, 4096, 8, 256) causal, within 1e-4 row by
+   row, its time at the first shape beside SDPA's f32 backward and the
+   bound at 67 TFLOP/s f32) against its plain PyTorch version
    at the path's shapes, and time kernel, plain version and the nearest
    PyTorch library call with CUDA events (L2 flushed before every timed
    launch, median of 25); then one attention() call at 4096 positions
@@ -389,8 +392,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and K2 at least 17 a step; (c) seed-1 weights swapped onto the mesh
    from the host: a 0-byte receipt, the streams a fresh process's; (d)
    make_tp_generate at full width equal to generate's tokens on both
-   ranks; (e) rank 1 SIGKILLed under six clients: 503 within the world's
-   30 s timeout, nothing hangs. Printed: tokens/s of the world and of
+   ranks; (e) the governor over the mesh (rank 0's GenerateAPI on f32
+   weights, its burn scripted) walks bf16 -> int8 -> int8-kv -> int8 ->
+   bf16, a tier swap a move: each rung's streams equal one process's at
+   that tier (the float rungs bit for bit, the int8 rungs but at near
+   ties), K1 or K3 4 and K2 17 a step on both ranks (rank 1's by
+   engine); (f) a blue-green rollout to seed-1 weights promoted, its
+   streams one process's on them, memscope's promote edge no leak on
+   either rank; (g) a rollout whose green probe is planted to fail
+   refused, blue serving on unchanged; rank 1 builds an engine a swap and
+   a green, discards each one replaced or refused and ends holding one;
+   (h) rank 1 SIGKILLed under six clients: 503 within the world's 30 s
+   timeout, nothing hangs. Printed: tokens/s of the world and of
    one process, alternated, the collectives' share of rank 0's dispatch
    time, the bytes handed on a dispatch, the phase's seconds. Both
    ranks' launches join the kernels line.
@@ -418,9 +431,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    sequential_reference's within (a)'s limits; (d) the experts over expert=2 (8 experts of 1024 x 4096, 8192
    tokens, f32): at capacity 8 nothing dropped and the forward and one
    train step against reference_moe within 2e-4 of the largest, the drop
-   fraction at 2.0 printed. Printed: tokens/s of each run, the
+   fraction at 2.0 printed; (e) (a)'s step in f32 over seq=2 with
+   Ulysses (C11's shape: a rank attends (1, 8192, 4, 128)), each rank K7,
+   K8 and K9 4 a step, K8 and K9 all on their f32 route, both ranks'
+   parameters bit-equal, the loss and every leaf within 1e-4 of one
+   process's f32 step. Printed: tokens/s of each run, the
    collectives' share of each rank's steps, the phase's seconds. Both
    ranks' launches join the kernels line.
+
+29. (its children started beside phases 27 and 28) the meta-workflows on
+   the card: MNIST-shaped idx files gzipped by the phase and read through
+   MNISTLoader(url_base="file://...") (the downloader: the first read
+   fetches and leaves an .ok marker a file, no later read fetches); (a)
+   phase 22's wide MLP (784 -> 4096 -> 10, the knobs on) with its
+   learning rate and momentum Range genes through ``python -m
+   veles_tpu_torch ... --optimize 4:2`` (max_parallel 2, every
+   evaluation a child on the card): the generations equal the port's
+   Population replayed here from the same seed and fitnesses, the best
+   fitness its child's -best_validation_errors, each child K6 on every
+   minibatch and K5 on every train one; (b) ``--ensemble-train 3:0.8``
+   then ``--ensemble-test`` of it: ensemble.json lists three instances,
+   and each test child's dumped validation outputs read back through
+   EnsembleLoader bit for bit. The GA's and the ensemble's training
+   children's launches join the kernels line.
 
 Phase 2's K1, K3 and K4 checks include C6: head widths 8200 to 16384 (K4
 8224 to 16384) on the wide path, each timed at D = 16384 beside its byte
@@ -689,6 +722,13 @@ FLASH_TILE, FLASH_FAULT = 64, 0.9
 #: K7 at 256 (batch, T, heads, head_dim)
 FLASH_WIDE_SHAPES = ((1, 4096, 4, 256), (1, 4096, 2, 384))
 FLASH_WIDE_F32_SHAPE = (1, 4096, 4, 256)
+#: K8 and K9's f32 route (C11): a rank's Ulysses attention in phase 28's
+#: f32 step, (1, 8192, 4, 128) causal (timed), and (1, 4096, 8, 256); the
+#: limit row by row: the f32 route sums up to 8192 terms a row in another
+#: order than the plain version and dS takes the difference dP - di,
+#: whose cancellation lifts a small row's relative error past K7's 1e-5
+FLASH_F32_BWD_SHAPES = ((1, 8192, 4, 128), (1, 4096, 8, 256))
+FLASH_F32_BWD_RTOL = 1e-4
 #: the sampled serving phase: 8 requests at the serving model's width,
 #: float32 weights: a request's prefill runs in a group of another size
 #: alone than in the burst, so its logits differ by the products'
@@ -3337,6 +3377,85 @@ def flash_wide_phase(timer, device, gen):
         map(str, FLASH_WIDE_F32_SHAPE)), out,
         _flash_attention_fwd_plain(q, k, v, True)[0], K7_RTOL)
     return worst
+
+
+def flash_f32_phase(timer, device, gen):
+    """K8 and K9's f32 route (C11) against their plain versions at
+    FLASH_F32_BWD_SHAPES, causal, under the row-wise rule with its planted
+    fault (FLASH_F32_BWD_RTOL), on the f32 forward's out and lse; timed at
+    the first shape beside the plain version, SDPA's f32 autograd
+    backward (one call for dQ, dK and dV) and the bound at the f32 rate
+    without the tensor cores (F32_OPS_PER_S). Returns {"dkv": ..., "dq":
+    ...}: each the f32 route's readings for the kernels line."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst = {"dkv": 0.0, "dq": 0.0}
+    got = {}
+    for shape in FLASH_F32_BWD_SHAPES:
+        label = "x".join(map(str, shape)) + " f32"
+        q, k, v, do = flash_problem(gen, device, shape, torch.float32)
+        out, lse = flash_attention_fwd(q, k, v, True)
+        di = _row_dot(out, do)
+        dk, dv = flash_attention_dkv(q, k, v, do, lse, di, True)
+        ref_dk, ref_dv = _flash_attention_dkv_plain(q, k, v, do, lse, di,
+                                                    True)
+        torch.cuda.synchronize()
+        worst["dkv"] = max(
+            worst["dkv"],
+            flash_error("K8 flash_attention_dkv dK " + label, dk, ref_dk,
+                        FLASH_F32_BWD_RTOL),
+            flash_error("K8 flash_attention_dkv dV " + label, dv, ref_dv,
+                        FLASH_F32_BWD_RTOL))
+        del dk, dv, ref_dk, ref_dv
+        dq = flash_attention_dq(q, k, v, do, lse, di, True)
+        ref_dq = _flash_attention_dq_plain(q, k, v, do, lse, di, True)
+        torch.cuda.synchronize()
+        worst["dq"] = max(worst["dq"], flash_error(
+            "K9 flash_attention_dq dQ " + label, dq, ref_dq,
+            FLASH_F32_BWD_RTOL))
+        del dq, ref_dq
+        if shape != FLASH_F32_BWD_SHAPES[0]:
+            continue
+        heads_first = [t.transpose(1, 2) for t in (q, k, v)]
+        leaves = [t.detach().requires_grad_(True) for t in heads_first]
+        lib_out = sdpa(*leaves, is_causal=True)
+        lib_do = do.transpose(1, 2)
+        library_ms = timer(lambda: torch.autograd.grad(
+            lib_out, leaves, lib_do, retain_graph=True))
+        del lib_out, leaves
+        operand = q.numel() * q.element_size()
+        row_stats = lse.numel() * 4
+        for key, products, nbytes, fn, plain in (
+                ("dkv", 4, 6 * operand + 2 * row_stats,
+                 lambda: flash_attention_dkv(q, k, v, do, lse, di, True),
+                 lambda: _flash_attention_dkv_plain(q, k, v, do, lse, di,
+                                                    True)),
+                ("dq", 3, 5 * operand + 2 * row_stats,
+                 lambda: flash_attention_dq(q, k, v, do, lse, di, True),
+                 lambda: _flash_attention_dq_plain(q, k, v, do, lse, di,
+                                                   True))):
+            ms, plain_ms = timer(fn), timer(plain)
+            bytes_s = nbytes / HBM_BYTES_PER_S
+            ops_s = flash_ops(shape, products) / F32_OPS_PER_S
+            bound_ms = 1e3 * max(bytes_s, ops_s)
+            got[key] = {"shape": list(shape), "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": ("bytes" if bytes_s >= ops_s
+                                     else "operations"),
+                        "library_ms": library_ms,
+                        "library": "scaled_dot_product_attention's f32 "
+                                   "autograd backward (dQ, dK and dV in "
+                                   "one call)"}
+            print("%s flash_attention_%s %s causal (the f32 route): ms %.4f "
+                  "(%.1f TFLOP/s) plain_ms %.4f sdpa_bwd_f32_ms %.4f "
+                  "bound_ms %.4f (%s, %.0f TFLOP/s f32 without the tensor "
+                  "cores)" % ("K8" if key == "dkv" else "K9", key, label,
+                              ms, flash_ops(shape, products) / ms / 1e9,
+                              plain_ms, library_ms, bound_ms,
+                              got[key]["bound_by"], F32_OPS_PER_S / 1e12))
+        del q, k, v, do, out, lse, di
+    for key in got:
+        got[key]["max_abs_err"] = worst[key]
+    return got
 
 
 def long_serving_phase(device, rng):
@@ -9570,6 +9689,60 @@ TP_BF16_LOGIT_RTOL = 5e-2
 TP_BF16_STEPS = 2
 #: (d): make_tp_generate's prompt (rows, positions) and tokens
 TP_GEN_SHAPE, TP_GEN_TOKENS = (2, 64), 16
+#: (e): the governor's walk over the mesh, the burn each move is driven
+#: by and the tier it lands on (phase 21's ladder: demote at a burn of 2,
+#: promote at 1, one move a cooldown); over gloo a mesh request's TTFT
+#: sits well past phase 21's ttft objective, so the burn is scripted
+#: (TpBurnSLO) rather than raised by a latency ramp
+TP_LADDER = ((3.0, "int8"), (3.0, "int8-kv"), (0.5, "int8"),
+             (0.5, "bf16"))
+TP_LADDER_COOLDOWN_S = 1.0
+#: (e)-(g): each rung's traffic, three of the distinct prompts one at a
+#: time; (f) the rollout to seed-1 weights at one rung (every request
+#: green's), promoted at its first verdict; (g) a rollout to seed-2
+#: weights whose green probe is planted to fail; with every request
+#: green's there is no blue TTFT to hold green's against, so the TTFT
+#: predicate's floor sits past any mesh request's (a mesh TTFT over gloo
+#: reads 0.1-1 s, past the default floor's 3 x 20 ms)
+TP_GOV_PROMPTS = 3
+TP_ROLLOUT = RolloutConfig(steps=(1.0,), hold_s=0.0, cooldown_s=0.0,
+                           min_requests=1, interval_s=0.05,
+                           ttft_floor_s=60.0)
+
+
+class TpBurnSLO:
+    """(e)'s SLO engine: the burn the governor reads, set by the phase
+    (None: no signal, the tier holds)."""
+    burn = None
+
+    def summary(self):
+        if self.burn is None:
+            return None
+        return {"burn_rate": self.burn, "objective": "ttft_p95_ms",
+                "window": "scripted"}
+
+    def record(self, **kwargs):
+        pass
+
+    def publish(self, registry):
+        pass
+
+    def version_burn(self, version, now=None):
+        return None
+
+
+class TpProbeFault:
+    """(g)'s chaos hook: once armed, the next probe decode (a probe passes
+    no decoder) raises before its first dispatch is handed on."""
+    armed = False
+
+    def before_step(self, decoder=None):
+        if decoder is None and self.armed:
+            self.armed = False
+            raise RuntimeError("planted green probe fault")
+
+    def maybe_poison_swap(self, params):
+        return params
 
 #: rank 1 of phase 27: a fresh process on the same card that builds the
 #: same seeded weights and follows rank 0 (this process) through every
@@ -9596,14 +9769,38 @@ initialize_distributed(coordinator, cs.TP_RANKS, 1, device="cuda",
                        backend="gloo", timeout=cs.TP_DEADLINE)
 mesh = build_mesh(data=1, model=cs.TP_RANKS)
 reports = []
+# each engine's launches and decode steps (the governor's stream holds
+# one engine a rung)
+per_engine = {}
+_apply = tp_engine.ShardEngine.apply
+def counted(self, op, args):
+    before = cs.counts()
+    try:
+        return _apply(self, op, args)
+    finally:
+        after = cs.counts()
+        row = per_engine.setdefault(str(self.engine_id), {
+            "quantize": self.config.get("quantize"), "steps": 0,
+            "launches": dict.fromkeys(after, 0)})
+        for k in after:
+            row["launches"][k] += after[k] - before[k]
+        if op in ("dispatch", "paged.dispatch"):
+            row["steps"] += args["n"]
+tp_engine.ShardEngine.apply = counted
 def report(label, stats, before):
     after = cs.counts()
+    engine = stats.get("engine")
     reports.append({"label": label, "steps": stats.get("steps", 0),
                     "launches": {k: after[k] - before[k] for k in after},
                     "calls": stats.get("calls", {}),
                     "bytes": stats.get("bytes", {}),
                     "wait_s": stats.get("wait_s", 0.0),
-                    "apply_s": stats.get("apply_s", 0.0)})
+                    "apply_s": stats.get("apply_s", 0.0),
+                    "engines": stats.get("engines", []),
+                    "in_service": getattr(engine, "engine_id", None),
+                    "edges": stats.get("edges", []),
+                    "per_engine": dict(per_engine)})
+    per_engine.clear()
     with open(out, "w") as fout:
         json.dump(reports, fout)
 def api_stream(label, params, table):
@@ -9626,6 +9823,7 @@ report("generate", {"tokens": tokens.tolist()}, before)
 reports[-1]["tokens"] = tokens.tolist()
 with open(out, "w") as fout:
     json.dump(reports, fout)
+api_stream("governor", *f32)
 api_stream("kill", *f32)
 '''
 
@@ -9829,6 +10027,198 @@ def tp_cost_line(label, dec, wall, tokens):
                                                                1e-9)))
 
 
+def tp_alone_logits(params, table, prompts, quantize, device):
+    """Each prompt alone through one process's decoder at ``quantize``,
+    stepped a token at a time: the logits each token is picked from (the
+    near-tie check's reading); the launches are not counted."""
+    before = counts()
+    dec = ContinuousDecoder(params, table, HEADS, slots=SLOTS,
+                            max_len=MAX_LEN, n_tokens=N_TOKENS,
+                            quantize=quantize, paged=True, page_size=PAGE,
+                            device=device)
+    logits = []
+    for prompt in prompts:
+        rid = dec.submit(prompt)
+        dec._admit_pending()
+        slot = {r: s for s, r in dec._slot_req.items()}[rid]
+        seen = []
+        while dec.busy:
+            seen.append(dec.state["logits"][slot].clone())
+            dec.step()
+        dec.results.pop(rid)
+        logits.append(seen)
+    for name, fn in COUNTERS.items():
+        fn.launches = before[name]
+    return logits
+
+
+def tp_rung(api, tier, prompts):
+    """One rung's traffic: ``prompts`` posted one at a time; returns the
+    streams, rank 0's launches and decode steps over them and the engine
+    that served them."""
+    before, counts0 = counts(), dict(api.decoder.dispatch_counts)
+    streams = []
+    for prompt in prompts:
+        code, tokens, _ = act_post(api.port, prompt)
+        if code != 200:
+            raise AssertionError("(e) a %s request answered %d"
+                                 % (tier, code))
+        streams.append(tokens)
+    after, now = counts(), api.decoder.dispatch_counts
+    return {"tier": tier, "streams": streams,
+            "launches": {k: after[k] - before[k] for k in after},
+            "steps": (now["chunk"] - counts0["chunk"]) * CHUNK
+            + now["step"] - counts0["step"],
+            "engine": api.decoder.engine_id}
+
+
+def tp_governor(device, mesh, f32, report, proc, clock):
+    """Phase 27 (e)-(g) through one GenerateAPI(mesh=, governor=) on f32
+    weights, the paged float tier: (e) the governor walks TP_LADDER (bf16
+    -> int8 -> int8-kv -> int8 -> bf16), a tier swap a move: each rung's
+    streams equal one process's decoder at that tier (the float rungs bit
+    for bit, the int8 rungs but at near ties, ROADMAP C), K1 or K3 BLOCKS
+    a step and K2 17 a step in the int8 rungs on both ranks (rank 1's by
+    engine); (f) a rollout to seed-1 weights (carried by green's build)
+    promoted, its streams one process's on them, memscope's promote edge
+    no leak on either rank; (g) a rollout whose green probe is planted to
+    fail refused, blue's streams unchanged. Rank 1 builds an engine a swap
+    and a green, discards each one replaced or refused, and ends with one.
+    Returns both ranks' launches."""
+    prompts = tp_distinct()[:TP_GOV_PROMPTS]
+    slo, chaos = TpBurnSLO(), TpProbeFault()
+    governor = ServingGovernor(GovernorConfig(
+        demote_burn=2.0, recover_burn=1.0, cooldown_s=TP_LADDER_COOLDOWN_S,
+        interval_s=0.05, ladder=("int8", "int8-kv"), breaker_guard=False,
+        prewarm=False))
+    api = GenerateAPI(*f32, HEADS, slots=SLOTS, max_len=MAX_LEN,
+                      n_tokens=N_TOKENS, chunk=CHUNK, paged=True,
+                      page_size=PAGE, device=device, mesh=mesh,
+                      governor=governor, slo=slo, chaos=chaos).start()
+    new = tp_model(device, torch.float32, seed=1)
+    try:
+        rungs = [tp_rung(api, "bf16", prompts)]
+        for burn, tier in TP_LADDER:
+            level = governor.level
+            slo.burn = burn
+            wait_for(lambda: governor.level != level, 60,
+                     "the governor's move to " + tier)
+            slo.burn = None
+            wait_for(lambda: (api.decoder.quantize or "bf16") == tier
+                     and api._tier_request is None, 120,
+                     "the swap to " + tier)
+            rungs.append(tp_rung(api, tier, prompts))
+        clock("(e)")
+        started, t_begin = time.perf_counter(), time.time()
+        rollout = api.begin_rollout(new[0], version="seed-1",
+                                    config=TP_ROLLOUT)
+        deadline = time.monotonic() + 120
+        while rollout.state != "promoted":
+            if time.monotonic() > deadline:
+                raise AssertionError("(f) the rollout stayed %s"
+                                     % rollout.state)
+            act_post(api.port, prompts[-1])
+        promote_s = time.perf_counter() - started
+        # this promote's edge (phase 21's are in the same scope)
+        wait_for(lambda: any(v["edge"] == "rollout_promote"
+                             and v["t"] >= t_begin
+                             for v in get_memscope().edges), 30,
+                 "the rollout_promote edge")
+        verdict = [v for v in get_memscope().edges
+                   if v["edge"] == "rollout_promote"][-1]
+        promoted = tp_rung(api, "promoted", prompts)
+        clock("(f)")
+        chaos.armed = True
+        try:
+            api.begin_rollout(tp_model(device, torch.float32, seed=2)[0],
+                              version="seed-2")
+            refused = None
+        except RuntimeError as exc:
+            refused = str(exc)
+        after = tp_rung(api, "after", prompts)
+        state = (api.version, api._green is not None, rollout.state)
+        swaps = list(api.tier_swaps)
+    finally:
+        api.stop()
+    rank1 = tp_reports(report, "governor", proc)
+    launches = collections.Counter()
+    moves = [(t["action"], t["tier"]) for t in governor.transitions
+             if t["action"] in ("demote", "promote")]
+    want_moves = [("demote" if burn > 2.0 else "promote", tier)
+                  for burn, tier in TP_LADDER]
+    if moves != want_moves:
+        raise AssertionError("(e) the governor moved %s, not %s"
+                             % (moves, want_moves))
+    for rung in rungs:
+        tier = rung["tier"]
+        quantize = None if tier == "bf16" else tier
+        one = fixed_tier_streams(*f32, prompts, quantize, True, device)
+        if quantize is None:
+            if rung["streams"] != one:
+                raise AssertionError("(e) the %s rung's f32 streams left "
+                                     "one process's" % tier)
+        else:
+            logits = tp_alone_logits(*f32, prompts, quantize, device)
+            for i, prompt in enumerate(prompts):
+                tp_divergence("(e) %s" % tier, prompt, one[i],
+                              rung["streams"][i],
+                              lambda j, i=i: (logits[i][j], True),
+                              lambda top, gap: gap <= TP_BF16_STEPS
+                              * bf16_step(top))
+        attend = "paged_attend_int8" if tier == "int8-kv" else "paged_attend"
+        engine = rank1["per_engine"][str(rung["engine"])]
+        if engine["quantize"] != quantize:
+            raise AssertionError("(e) rank 1's engine %s serves %s, not %s"
+                                 % (rung["engine"], engine["quantize"],
+                                    quantize))
+        tp_rank_launches("(e) %s" % tier, rung["launches"], rung["steps"],
+                         engine, attend, quantize is not None)
+        for name, n in rung["launches"].items():
+            launches[name] += n
+    for engine in rank1["per_engine"].values():
+        for name, n in engine["launches"].items():
+            launches[name] += n
+    want = fixed_tier_streams(new[0], f32[1], prompts, None, True, device)
+    calls = rank1["calls"]
+    edges = rank1["edges"]
+    print("  (e) the governor over the mesh: moves %s; tier swaps %s"
+          % (moves, "; ".join(
+              "%s: build %.3f s, probe %.3f s, swap %.3f s" % (
+                  swap["tier"], swap["build_s"], swap["probe_s"],
+                  swap["swap_s"]) for swap in swaps)))
+    print("  (f) rollout to seed-1 weights promoted in %.3f s, memscope's "
+          "promote edge on rank 0 %s, on rank 1 %s; (g) the planted green "
+          "probe fault refused: %r; rank 1's engine events %s, engines "
+          "held at the end %s (in service %s)"
+          % (promote_s, "a leak" if verdict["leak"] else "no leak",
+             [(e["edge"], e["leak"]) for e in edges], refused,
+             {k: calls.get(k, 0) for k in ("build", "install", "discard")},
+             rank1["engines"], rank1["in_service"]))
+    if promoted["streams"] != want or state[2] != "promoted" \
+            or verdict["leak"] or [e["edge"] for e in edges] \
+            != ["rollout_promote"] or any(e["leak"] for e in edges):
+        raise AssertionError("(f) the promote: streams %s against %s, "
+                             "state %s, verdicts %s, %s"
+                             % (promoted["streams"], want, state, verdict,
+                                edges))
+    if refused is None or "planted green probe fault" not in refused \
+            or after["streams"] != promoted["streams"] \
+            or state[:2] != ("seed-1", False):
+        raise AssertionError("(g) the refused rollout: %r, blue's streams "
+                             "%s, state %s" % (refused, after["streams"],
+                                               state))
+    n_swaps = len(TP_LADDER)
+    if (calls.get("build"), calls.get("install"), calls.get("discard")) \
+            != (1 + n_swaps + 2, n_swaps + 1, n_swaps + 2) \
+            or rank1["engines"] != [rank1["in_service"]]:
+        raise AssertionError("(e)-(g) rank 1's engine events %s, engines "
+                             "%s" % (calls, rank1["engines"]))
+    for rung in (promoted, after):
+        for name, n in rung["launches"].items():
+            launches[name] += n
+    return launches
+
+
 def tp_phase(device, gen, early=None):
     """Phase 27: the serving model at full width on a serving mesh of two
     ranks sharing the card over gloo (model=2: 8 heads, 2048 FFN columns
@@ -9836,8 +10226,10 @@ def tp_phase(device, gen, early=None):
     (a) the paged float tier on f32 weights through rank 0's GenerateAPI
     over HTTP, phase 4's shared-prompt traffic and six distinct prompts;
     (b) the bf16 tiers through ContinuousDecoder(mesh=); (c) a hot swap of
-    seed-1 weights; (d) make_tp_generate; (e) rank 1 SIGKILLed under
-    traffic. ``early`` is rank 1 as :func:`tp_start_follower` started it
+    seed-1 weights; (d) make_tp_generate; (e) the governor's ladder over
+    the mesh, (f) a blue-green rollout promoted and (g) one whose green
+    probe fails, all through one GenerateAPI (:func:`tp_governor`); (h)
+    rank 1 SIGKILLed under traffic. ``early`` is rank 1 as :func:`tp_start_follower` started it
     beside an earlier phase (None: started here). Returns both ranks'
     launches on the main paths."""
     t0 = time.perf_counter()
@@ -10026,7 +10418,10 @@ def _tp_phase(device, gen, proc, report, coordinator, t0):
     print("  (d) make_tp_generate (%d x %d prompt, %d tokens): generate's "
           "tokens on both ranks" % (TP_GEN_SHAPE + (TP_GEN_TOKENS,)))
     clock("(d)")
-    # (e) rank 1 SIGKILLed under traffic: 503 within the world's timeout
+    for name, n in tp_governor(device, mesh, f32, report, proc,
+                               clock).items():
+        launches[name] += n
+    # (h) rank 1 SIGKILLed under traffic: 503 within the world's timeout
     api = GenerateAPI(*f32, HEADS, slots=SLOTS, max_len=MAX_LEN,
                       n_tokens=N_TOKENS, chunk=CHUNK, paged=True,
                       page_size=PAGE, device=device, mesh=mesh).start()
@@ -10063,7 +10458,7 @@ def _tp_phase(device, gen, proc, report, coordinator, t0):
         api.stop()
     early = [code for code, at in answers if at < killed and code != 200]
     shed = [at - killed for code, at in answers if code == 503]
-    print("  (e) rank 1 SIGKILLed under traffic: answers %s, %s after the "
+    print("  (h) rank 1 SIGKILLed under traffic: answers %s, %s after the "
           "kill, a new request %s, %.2f s from the kill to its answer "
           "(world timeout %d s)"
           % (sorted(code for code, _ in answers),
@@ -10071,7 +10466,7 @@ def _tp_phase(device, gen, proc, report, coordinator, t0):
              seconds, TP_TIMEOUT))
     if any(thread.is_alive() for thread in threads) or early \
             or after != 503 or seconds > TP_TIMEOUT:
-        raise AssertionError("(e) after rank 1's SIGKILL: answers %s (%s "
+        raise AssertionError("(h) after rank 1's SIGKILL: answers %s (%s "
                              "before it), a new request %s, %.1f s"
                              % (answers, early, after, seconds))
     print("  phase 27 launches (both ranks): %s; kernel errors %s"
@@ -10142,6 +10537,12 @@ MOE_EXPERTS, MOE_HIDDEN, MOE_TOKENS, MOE_LR = 8, 4096, 8192, 0.05
 #: reference only where its top-2 gate probabilities lie within
 #: MOE_TIE_GAP (a routing flip from the product's rounding)
 MOE_RTOL, MOE_TIE_GAP = 2e-4, 1e-5
+#: (e) the f32 Ulysses step at C11's shape: (a)'s model and sequence in
+#: f32 (a rank attends (1, SP_T, LONG_HEADS / 2, 128): K8 and K9's f32
+#: route), one step against one process's; f32 sums split over two ranks
+#: and reassociated: the loss and every leaf within this share of the
+#: reference's (largest element), n_err within (a)'s share
+SP_F32_RTOL = 1e-4
 
 #: rank 1 of phase 28: a fresh process on the same card that builds the
 #: same seeded problems, joins the world and runs every part beside rank 0
@@ -10215,8 +10616,12 @@ def sp_problems(device):
         numpy.float32)).to(device)
     targets = torch.from_numpy((rng.randn(MOE_TOKENS, EMBED) * 0.1).astype(
         numpy.float32)).to(device)
+    params32 = init_transformer_params(numpy.random.RandomState(0), BLOCKS,
+                                       EMBED, LONG_HEADS, VOCAB,
+                                       device=device)
     return {"sp": (params, x, labels), "mp": (mlp, batch),
-            "pp": (stages,) + pp, "moe": (moe, tokens, targets)}
+            "pp": (stages,) + pp, "moe": (moe, tokens, targets),
+            "sp32": (params32, x.float(), labels)}
 
 
 def pp_stage(w, x):
@@ -10241,12 +10646,16 @@ def sp_timed(device, mesh, fn):
     torch.cuda.synchronize(device)
     for counter in COUNTERS.values():
         counter.launches = 0
+    flash_attention_dkv.launches_f32 = flash_attention_dq.launches_f32 = 0
     before = collective_seconds(mesh) if mesh is not None else 0.0
     started = time.perf_counter()
     out = fn()
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - started
-    return out, {"wall": wall, "launches": counts(),
+    launches = counts()
+    launches.update(flash_attention_dkv_f32=flash_attention_dkv.launches_f32,
+                    flash_attention_dq_f32=flash_attention_dq.launches_f32)
+    return out, {"wall": wall, "launches": launches,
                  "collective_s": (collective_seconds(mesh) - before
                                   if mesh is not None else 0.0)}
 
@@ -10347,6 +10756,18 @@ def sp_world(device, rank, problems):
         v, mesh, "expert", 0) for k, v in new.items()}
     report["d"] = {"forward": rows[8.0], "forward_cf2": rows[2.0],
                    "steps": [row], "gate": sp_digest(new["gate"])}
+    del new, local
+    # (e) the f32 Ulysses step at C11's shape
+    params32, x32, labels = problems["sp32"]
+    mesh = build_mesh(data=1, seq=SP_RANKS)
+    xs, ls = shard_tokens([x32, labels], mesh)
+    step = build_transformer_train_step(LONG_HEADS, mesh=mesh,
+                                        learning_rate=SP_LR)
+    (p, (loss, n_err)), row = sp_timed(device, mesh,
+                                       lambda: step(params32, xs, ls))
+    row.update(loss=float(loss), n_err=int(n_err))
+    report["e"] = {"steps": [row], "digest": sp_digest(p)}
+    kept["e"] = p
     return report, kept
 
 
@@ -10409,6 +10830,13 @@ def sp_references(device, problems):
     with torch.no_grad():
         new = {k: moe[k] - MOE_LR * grads[k] for k in moe}
     refs["d"] = (y, gaps, new, float(loss.detach()))
+    del new, leaves, grads
+    params32, x32, labels = problems["sp32"]
+    step = build_transformer_train_step(LONG_HEADS, learning_rate=SP_LR)
+    (p, (loss, n_err)), row = sp_timed(device, None,
+                                       lambda: step(params32, x32, labels))
+    row.update(loss=float(loss), n_err=int(n_err))
+    refs["e"] = (p, row)
     return refs
 
 
@@ -10687,9 +11115,378 @@ def _sp_phase(device, gen, proc, report_path, coordinator, t0):
             or mine["d"]["gate"] != theirs["d"]["gate"]:
         raise AssertionError("(d) the experts disagree")
     clock("(d)")
+    # (e) the f32 Ulysses step (C11's repair): K7, K8 and K9 BLOCKS a step
+    # on each rank, K8 and K9 all on their f32 route; the ranks' parameters
+    # the same bits, and the step within SP_F32_RTOL of one process's
+    want_p, want_row = refs["e"]
+    for rank, report in enumerate(ranks):
+        got = report["e"]["steps"][0]["launches"]
+        flash = {name: got[name] for name in FLASH + (
+            "flash_attention_dkv_f32", "flash_attention_dq_f32")}
+        if any(n != BLOCKS for n in flash.values()):
+            raise AssertionError("(e) rank %d: flash launches %s, not %d "
+                                 "each" % (rank, flash, BLOCKS))
+        for name, n in flash.items():
+            launches[name] += n
+    if mine["e"]["digest"] != theirs["e"]["digest"]:
+        raise AssertionError("(e) the ranks' parameters differ")
+    row = mine["e"]["steps"][0]
+    loss_rel = abs(row["loss"] - want_row["loss"]) / abs(want_row["loss"])
+    leaf = sp_leaves_close("(e) f32", kept["e"], want_p, SP_F32_RTOL)
+    print("  (e) the f32 Ulysses step at a rank's (1, %d, %d, 128): loss "
+          "%.8g against one process's %.8g (%.3g relative), n_err %d "
+          "against %d, leaves within %.3g of their largest (limit %.0e); "
+          "K8 and K9 f32 %d each a rank; %.1f tokens/s (one process %.1f), "
+          "collectives rank 0 %s; rank 1 %s"
+          % (SP_T, LONG_HEADS // SP_RANKS, row["loss"], want_row["loss"],
+             loss_rel, row["n_err"], want_row["n_err"], leaf, SP_F32_RTOL,
+             BLOCKS, SP_T / row["wall"], SP_T / want_row["wall"],
+             sp_share(mine["e"]), sp_share(theirs["e"])))
+    if not (loss_rel <= SP_F32_RTOL
+            and abs(row["n_err"] - want_row["n_err"])
+            <= SP_N_ERR_SHARE * SP_T):
+        raise AssertionError("(e) the f32 Ulysses step disagrees")
+    clock("(e)")
     print("  phase 28 launches (both ranks): %s; kernel errors %s"
           % (dict(launches), errs))
     return launches
+
+
+# -- phase 29: the meta-workflows on the card -------------------------------
+
+#: the GA (--optimize SIZE:GENERATIONS, max_parallel 2: the optimizer's
+#: default) and its stream's seed; the ensemble (--ensemble-train N:RATIO)
+META_OPTIMIZE, META_SEED, META_ENSEMBLE = "4:2", 29, "3:0.8"
+#: epochs of each child's wide MLP; the genes' ranges (learning rate and
+#: momentum around phase 22's 0.03 and 0.9)
+META_EPOCHS = 2
+META_GENES = (("root.meta.learning_rate", (0.03, 0.005, 0.1)),
+              ("root.meta.gradient_moment", (0.9, 0.5, 0.95)))
+#: a child's deadline (seconds)
+META_DEADLINE = 900
+META_WORKFLOW = '''"""The wide MLP of the meta-workflows (chip_smoke.py phase 29)."""
+
+import json
+import os
+
+import numpy
+
+from veles_tpu_torch.core.config import root
+from veles_tpu_torch.dummy import DummyWorkflow
+from veles_tpu_torch.ensemble import OutputDumper
+from veles_tpu_torch.loader.base import TEST, VALID
+from veles_tpu_torch.loader.mnist import MNISTLoader
+from veles_tpu_torch.models.mlp import MLPWorkflow
+from veles_tpu_torch.ops import gemm
+from veles_tpu_torch.snapshotter import Snapshotter
+
+root.meta.update({"layers": [4096, 10], "minibatch_size": 4096,
+                  "learning_rate": 0.03, "gradient_moment": 0.9,
+                  "epochs": 2, "directory": None, "url": None, "out": None,
+                  "snapshot": False})
+
+
+def dump(wf, path):
+    """The validation outputs of the snapshot's weights: each minibatch
+    filled by the loader, run through the forward units' compute, fed to
+    an OutputDumper; its models-JSON entry written to ``path``."""
+    loader = wf.loader
+    dumper = OutputDumper(DummyWorkflow(), model_id=path, klass=VALID)
+    start = loader.class_lengths[TEST]
+    stop = start + loader.class_lengths[VALID]
+    loader.minibatch_class = VALID
+    for first in range(start, stop, loader.max_minibatch_size):
+        index = numpy.arange(first, min(first + loader.max_minibatch_size,
+                                        stop))
+        loader.fill_minibatch(index, len(index))
+        x = loader.minibatch_data.data
+        for unit in wf.forwards:
+            x = unit.compute(x, unit.weights.data, unit.bias.data)
+            x = x[0] if isinstance(x, tuple) else x
+        dumper.output, dumper.minibatch_indices = x, index
+        dumper.minibatch_valid_size = len(index)
+        dumper.minibatch_class = VALID
+        dumper.run()
+    with open(path, "w") as fout:
+        json.dump(dumper.entry(), fout)
+
+
+def run(load, main):
+    cfg = root.meta
+    wf, resumed = load(
+        MLPWorkflow, name="meta-wide", layers=tuple(cfg.layers),
+        loader_cls=MNISTLoader,
+        loader_kwargs=dict(directory=cfg.directory, url_base=cfg.url,
+                           minibatch_size=cfg.minibatch_size,
+                           normalization_type="linear"),
+        learning_rate=cfg.learning_rate,
+        gradient_moment=cfg.gradient_moment, max_epochs=cfg.epochs)
+    tag = "%d" % os.getpid()
+    if resumed:
+        dump(wf, os.path.join(cfg.out, "outputs-%s.json" % tag))
+        wf.decision.complete.unset()
+        wf.decision.train_ended.unset()
+    elif cfg.snapshot:
+        snap = Snapshotter(wf, directory=cfg.out, prefix="meta-" + tag,
+                           compression="", interval=1, time_interval=0)
+        snap.link_from(wf.decision)
+        snap.gate_skip = ~wf.decision.improved
+        wf.end_point.unlink_from(wf.decision)
+        wf.end_point.link_from(snap)
+        wf.snapshotter = snap
+    before = list(getattr(wf.fused_tick, "minibatch_counts", [0, 0, 0]))
+    k6, k5 = gemm.dense_epilogue.launches, gemm.blocked_matmul.launches
+    main()
+    with open(os.path.join(cfg.out, "counters-%s.json" % tag), "w") as fout:
+        json.dump({"dense_epilogue": gemm.dense_epilogue.launches - k6,
+                   "blocked_matmul": gemm.blocked_matmul.launches - k5,
+                   "minibatches": [a - b for a, b in zip(
+                       wf.fused_tick.minibatch_counts, before)],
+                   "values": [cfg.learning_rate, cfg.gradient_moment],
+                   "best_validation_errors": wf.decision.best_n_err[VALID],
+                   "resumed": resumed, "device": str(wf.device)}, fout)
+'''
+
+
+def meta_argv(directory, flags, overrides=()):
+    """``python -m veles_tpu_torch`` of META_WORKFLOW with its config of
+    Range genes, the kernel knobs on, on the card, in ``directory``."""
+    return [sys.executable, "-m", "veles_tpu_torch", "meta_wf.py",
+            "meta_config.py"] + list(overrides) + [
+            "root.meta.epochs=%d" % META_EPOCHS,
+            "root.meta.directory=%r" % os.path.join(directory, "mnist"),
+            "root.meta.url=%r" % ("file://" + os.path.join(directory,
+                                                           "src")),
+            "root.meta.out=%r" % directory,
+            "root.common.engine.use_pallas=True",
+            "root.common.engine.pallas_epilogue=True",
+            "root.common.engine.pallas_autotune_cache=%r"
+            % root.common.engine.pallas_autotune_cache,
+            "--device", "cuda"] + flags
+
+
+def meta_tree(directory):
+    """The fetched directory's files and their mtimes."""
+    return {name: os.stat(os.path.join(directory, name)).st_mtime_ns
+            for name in sorted(os.listdir(directory))}
+
+
+def meta_start(device):
+    """Phase 29's set-up and its children, on a thread: MNIST-shaped idx
+    files gzipped into ``src``; the first read of them through
+    MNISTLoader(url_base="file://src") into ``mnist`` on the card (a
+    fetch, an .ok marker a file); then, on the thread, the GA
+    (--optimize), the ensemble's training and its test, each a child
+    process of children on the card. Returns the state meta_finish
+    checks."""
+    from veles_tpu_torch.dummy import DummyWorkflow as PortDummyWorkflow
+    t0 = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="meta_phase_")
+    src = os.path.join(directory, "src")
+    os.makedirs(src)
+    data, labels = bench_dataset(n=MNIST_ROWS, n_valid=MNIST_TEST)
+    pixels = numpy.rint(data * 255).astype(numpy.uint8).reshape(-1, 28, 28)
+    for prefix, rows in (("t10k", slice(0, MNIST_TEST)),
+                         ("train", slice(MNIST_TEST, None))):
+        for kind, array in (("images-idx3", pixels[rows]),
+                            ("labels-idx1", labels[rows])):
+            write_idx(os.path.join(src, "%s-%s-ubyte.gz" % (prefix, kind)),
+                      array)
+    wf = PortDummyWorkflow()
+    wf.device = device
+    loader = MNISTLoader(wf, directory=os.path.join(directory, "mnist"),
+                         url_base="file://" + src, minibatch_size=4096)
+    loader.initialize()
+    same = numpy.array_equal(loader.original_data.data.cpu().numpy(),
+                             pixels.reshape(len(pixels), -1).astype(
+                                 numpy.float32))
+    fetched = meta_tree(os.path.join(directory, "mnist"))
+    del loader, wf
+    with open(os.path.join(directory, "meta_wf.py"), "w") as fout:
+        fout.write(META_WORKFLOW)
+    with open(os.path.join(directory, "meta_config.py"), "w") as fout:
+        fout.write("from veles_tpu_torch.genetics import Range\n\n")
+        for path, (default, low, high) in META_GENES:
+            fout.write("%s = Range(%r, %r, %r)\n"
+                       % (path, default, low, high))
+    state = {"directory": directory, "fetched": fetched, "same": same,
+             "runs": {}, "t0": t0, "stop": False}
+
+    def child(name, flags, overrides=()):
+        # a session of its own: a stop (an earlier phase failed) or the
+        # deadline kills the child and the children it started
+        started = time.perf_counter()
+        outs = [tempfile.TemporaryFile("w+") for _ in range(2)]
+        proc = subprocess.Popen(meta_argv(directory, flags, overrides),
+                                cwd=directory, env=port_env(),
+                                stdout=outs[0], stderr=outs[1], text=True,
+                                start_new_session=True)
+        while proc.poll() is None:
+            if state["stop"] or time.perf_counter() - started \
+                    > META_DEADLINE:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+                raise AssertionError("phase 29 %s stopped after %.1f s"
+                                     % (name, time.perf_counter() - started))
+            time.sleep(0.2)
+        for out in outs:
+            out.seek(0)
+        stdout, stderr = (out.read() for out in outs)
+        state["runs"][name] = (proc.returncode, stdout, stderr,
+                               time.perf_counter() - started)
+        if proc.returncode:
+            raise AssertionError("phase 29 %s exited %d:\n%s"
+                                 % (name, proc.returncode, stderr[-4000:]))
+
+    def drive():
+        try:
+            child("optimize", ["--optimize", META_OPTIMIZE, "--seed",
+                               "genetics=%d,default=1,loader=2"
+                               % META_SEED])
+            state["ga"] = set(meta_counters(directory))
+            # the ensemble's instances snapshot their best epoch: the
+            # test re-runs each snapshot
+            child("ensemble_train", ["--ensemble-train", META_ENSEMBLE,
+                                     "--seed", "ensemble=%d" % META_SEED],
+                  ["root.meta.snapshot=True"])
+            child("ensemble_test", ["--ensemble-test", "ensemble.json"],
+                  ["root.meta.snapshot=True"])
+        except BaseException as exc:   # noqa: BLE001 - meta_finish raises
+            state["error"] = exc
+    state["thread"] = threading.Thread(target=drive, name="meta-phase")
+    state["thread"].start()
+    print("phase 29 set-up (idx files written, first read through the "
+          "downloader): %.1f s" % (time.perf_counter() - t0))
+    return state
+
+
+def meta_counters(directory):
+    """Every child's counters file, by its pid."""
+    out = {}
+    for name in os.listdir(directory):
+        if name.startswith("counters-"):
+            with open(os.path.join(directory, name)) as fin:
+                out[name[9:-5]] = json.load(fin)
+    return out
+
+
+def meta_finish(state):
+    """Phase 29's checks, after its thread: (a) the GA's generations equal
+    the port's Population replayed here (on the host) from the same seed
+    and fitnesses, the best fitness is -best_validation_errors of its
+    child, and every child trained on the card with K6 on each minibatch
+    and K5 on each train one; (b) ensemble.json lists three instances, and
+    each test child's dumped outputs read back through EnsembleLoader
+    equal the dumped values bit for bit; the children's reads fetched
+    nothing (the .ok markers). Returns the GA's and the ensemble's
+    training children's launches."""
+    from veles_tpu_torch.dummy import DummyWorkflow as PortDummyWorkflow
+    from veles_tpu_torch.ensemble import EnsembleLoader, build_combiner_file
+    from veles_tpu_torch.genetics import Range
+    from veles_tpu_torch.genetics.core import Population
+    state["thread"].join()
+    directory = state["directory"]
+    try:
+        if "error" in state:
+            raise state["error"]
+        runs = state["runs"]
+        counters = meta_counters(directory)
+        got = json.loads(runs["optimize"][1])
+        pops = got["populations"]
+        prng.get("genetics").seed(META_SEED)
+        replay = Population([(path, Range(*bounds))
+                             for path, bounds in META_GENES],
+                            size=int(META_OPTIMIZE.split(":")[0]))
+        for generation, pop in enumerate(pops):
+            if [m.values for m in replay.members] != [v for v, _ in pop]:
+                raise AssertionError("(a) generation %d: %s, the replay %s"
+                                     % (generation, pop,
+                                        [m.values for m in replay.members]))
+            for member, (_, fitness) in zip(replay.members, pop):
+                member.fitness = fitness
+            if generation + 1 < len(pops):
+                replay.evolve()
+        fresh = {pid: c for pid, c in counters.items() if not c["resumed"]}
+        best = [c for pid, c in fresh.items() if pid in state["ga"]
+                and c["values"] == list(got["best_values"].values())]
+        launches = collections.Counter()
+        for c in fresh.values():
+            test, valid, train_mb = c["minibatches"]
+            want = {"dense_epilogue": test + valid + train_mb,
+                    "blocked_matmul": train_mb}
+            if {k: c[k] for k in want} != want or c["device"] != "cuda" \
+                    or train_mb < 1:
+                raise AssertionError("(a)/(b) a child's launches %s, its "
+                                     "minibatches require %s, on %s"
+                                     % ({k: c[k] for k in want}, want,
+                                        c["device"]))
+            for name, n in want.items():
+                launches[name] += n
+        n_ga = sum(len(pop) for pop in pops)
+        print("phase 29 (a) --optimize %s: %d children in %.1f s; "
+              "generations %s; best fitness %s at %s (its child's best "
+              "validation errors %s); the replay on the host equal"
+              % (META_OPTIMIZE, n_ga, runs["optimize"][3],
+                 [[f for _, f in pop] for pop in pops],
+                 got["best_fitness"], got["best_values"],
+                 [c["best_validation_errors"] for c in best]))
+        if not best or any(got["best_fitness"]
+                           != -c["best_validation_errors"] for c in best):
+            raise AssertionError("(a) the best fitness %s is no child's "
+                                 "-best_validation_errors" % got)
+        with open(os.path.join(directory, "ensemble.json")) as fin:
+            ensemble = json.load(fin)
+        instances = ensemble["instances"]
+        tests = json.loads(runs["ensemble_test"][1])["tests"]
+        entries = []
+        for name in sorted(os.listdir(directory)):
+            if name.startswith("outputs-"):
+                with open(os.path.join(directory, name)) as fin:
+                    entries.append(json.load(fin))
+        if [e["returncode"] for e in instances] != [0, 0, 0] \
+                or [t["returncode"] for t in tests] != [0, 0, 0] \
+                or len(entries) != 3:
+            raise AssertionError("(b) instances %s, tests %s, %d dumps"
+                                 % (instances, tests, len(entries)))
+        path = build_combiner_file(entries, [0] * MNIST_TEST,
+                                   os.path.join(directory, "models.json"))
+        wf = PortDummyWorkflow()
+        wf.device = torch.device("cpu")
+        loader = EnsembleLoader(wf, file=path, minibatch_size=4096)
+        loader.initialize()
+        want = numpy.stack([numpy.asarray(e["Output"], numpy.float32)
+                            for e in entries], axis=1)
+        read = loader.original_data.data.numpy()
+        print("phase 29 (b) --ensemble-train %s in %.1f s (seeds %s, best "
+              "validation errors %s), --ensemble-test in %.1f s: %d dumps "
+              "of %s outputs, read back through EnsembleLoader %s"
+              % (META_ENSEMBLE, runs["ensemble_train"][3],
+                 [e["seed"] for e in instances],
+                 [e["results"]["best_validation_errors"]
+                  for e in instances], runs["ensemble_test"][3],
+                 len(entries), list(want.shape[::2]),
+                 "bit for bit" if numpy.array_equal(read, want)
+                 else "DIFFERENT"))
+        if not numpy.array_equal(read, want) or len(fresh) != n_ga + 3:
+            raise AssertionError("(b) the dumped outputs do not read back, "
+                                 "or %d fresh children (want %d)"
+                                 % (len(fresh), n_ga + 3))
+        after = meta_tree(os.path.join(directory, "mnist"))
+        markers = sorted(n for n in after if n.endswith(".ok"))
+        print("phase 29 (a)+(b) reads: the first through the downloader "
+              "(arrays equal the written bytes: %s) left %d .ok markers; "
+              "the children's %d reads fetched nothing (the directory "
+              "unchanged: %s); phase 29 %.1f s; %s"
+              % (state["same"], len(markers), len(counters),
+                 after == state["fetched"],
+                 time.perf_counter() - state["t0"], card_line()))
+        if not state["same"] or len(markers) != 4 \
+                or after != state["fetched"]:
+            raise AssertionError("(a)+(b) the idx files' reads: %s then %s"
+                                 % (state["fetched"], after))
+        return launches
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
 
 
 def main():
@@ -10742,6 +11539,8 @@ def main():
                k5_phase(timer, device, gen), k6_phase(timer, device, gen),
                *flash_phase(timer, device, gen)]
     wide = flash_wide_phase(timer, device, gen)
+    # K8 and K9's f32 route (C11), reported beside their bf16 readings
+    flash_f32 = flash_f32_phase(timer, device, gen)
 
     def clock(label):
         # where the smoke's time goes: seconds since its start
@@ -10752,10 +11551,14 @@ def main():
         key = entry["name"].replace("flash_attention_", "")
         if key in wide:
             entry["max_abs_err"] = max(entry["max_abs_err"], wide[key])
+        if key in flash_f32:
+            entry["f32"] = flash_f32[key]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       flash_f32[key]["max_abs_err"])
     prng = numpy.random.RandomState(1)
     prompts = [prng.randint(0, VOCAB, n).tolist()
                for n in numpy.linspace(60, 700, SLOTS).astype(int)]
-    launches = serving_phase(device, prompts)
+    launches = collections.Counter(serving_phase(device, prompts))
     for phase in (prefix_phase(device, prng), dense_phase(device)):
         for name, n in phase.items():
             launches[name] += n
@@ -10929,28 +11732,49 @@ def main():
         early[2].kill()
         shutil.rmtree(early[0], ignore_errors=True)
     clock("the serving fleet phase")
-    # phase 28's rank 1 starts beside phase 27: its imports and its
-    # problems take about as long as that phase
-    sp_early = sp_start_follower(device)
+    # phase 29's children (the GA's and the ensemble's) run beside
+    # phases 27 and 28
+    meta = meta_start(device)
     try:
-        # sharded serving: both ranks' K1, K2, K3 and K4 are a main path
-        for name, n in tp_phase(device, gen, tp_early).items():
+        # phase 28's rank 1 starts beside phase 27: its imports and its
+        # problems take about as long as that phase
+        sp_early = sp_start_follower(device)
+        try:
+            # sharded serving: both ranks' K1, K2, K3 and K4 are a main
+            # path, the governor's rungs too
+            for name, n in tp_phase(device, gen, tp_early).items():
+                launches[name] += n
+        except BaseException:
+            sp_early[1].kill()
+            shutil.rmtree(sp_early[0], ignore_errors=True)
+            raise
+        clock("the sharded serving phase")
+        # the training mesh's model, seq, pipe and expert axes: both
+        # ranks' K5 (the model-axis step) and K7-K9 (the Ulysses steps,
+        # the f32 one on K8 and K9's f32 route, and the pipeline's
+        # stages) are a main path
+        for name, n in sp_phase(device, gen, sp_early).items():
             launches[name] += n
+        clock("the training mesh phase")
     except BaseException:
-        sp_early[1].kill()
-        shutil.rmtree(sp_early[0], ignore_errors=True)
+        meta["stop"] = True
+        meta["thread"].join()
+        shutil.rmtree(meta["directory"], ignore_errors=True)
         raise
-    clock("the sharded serving phase")
-    # the training mesh's model, seq, pipe and expert axes: both ranks'
-    # K5 (the model-axis step) and K7-K9 (the Ulysses step and the
-    # pipeline's stages) are a main path
-    for name, n in sp_phase(device, gen, sp_early).items():
+    # the meta-workflows: every GA and ensemble-training child's K6 and
+    # K5 are a main path
+    for name, n in meta_finish(meta).items():
         launches[name] += n
+    clock("the meta-workflow phase")
     isolated.cleanup()
     print("the smoke's phases and build: %.1f s" % (time.perf_counter()
                                                      - t0))
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
+        if "f32" in entry:
+            # the f32 route's launches on its main path: phase 28's f32
+            # Ulysses step on both ranks (among "launches" too)
+            entry["f32"]["launches"] = launches[entry["name"] + "_f32"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

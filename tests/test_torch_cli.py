@@ -88,7 +88,11 @@ for name in ("__main__", "launcher", "cli", "snapshotter", "export",
              "parallel.tp_engine", "parallel.reshard", "parallel.decode",
              "parallel.kv_pool", "parallel.mesh", "parallel.collectives",
              "parallel.step", "parallel.pipeline", "parallel.expert",
-             "parallel.transformer_step", "ops.attention"):
+             "parallel.transformer_step", "ops.attention", "genetics",
+             "genetics.config", "genetics.core", "genetics.optimizer",
+             "ensemble", "ensemble.combiner", "ensemble.runner",
+             "samples.genetic_example", "downloader", "loader.hdfs",
+             "loader.mnist"):
     importlib.import_module("veles_tpu_torch." + name)
 from veles_tpu_torch.__main__ import main
 tiny, link = sys.argv[1:3]
@@ -386,6 +390,77 @@ def test_deferred_flag_exits_2_naming_its_roadmap_item(dest, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and DEFERRED[dest] in err
+
+
+#: the meta-workflow flags -> (the flags given, the runner that must be
+#: built, what it must be built with)
+META_CASES = {
+    "optimize": (["--optimize", "6:3"], "GeneticsOptimizer",
+                 {"population_size": 6, "generations": 3,
+                  "representation": "numeric", "fleet": None}),
+    "optimize_fleet": (["--optimize", "4:2", "--optimize-fleet",
+                        "127.0.0.1:0"], "GeneticsOptimizer",
+                       {"fleet": "127.0.0.1:0"}),
+    "optimize_representation": (["--optimize", "4:2",
+                                 "--optimize-representation", "gray"],
+                                "GeneticsOptimizer",
+                                {"representation": "gray"}),
+    "ensemble_train": (["--ensemble-train", "3:0.7"], "EnsembleTrainer",
+                       {"instances": 3, "train_ratio": 0.7}),
+    "ensemble_test": (["--ensemble-test", "ens.json"], "EnsembleTester",
+                      {"ensemble_file": "ens.json"}),
+}
+
+
+@pytest.mark.parametrize("dest", sorted(META_CASES))
+def test_meta_flag_reaches_its_runner(dest, tmp_path, monkeypatch, capsys):
+    """Each of the five meta-workflow flags parses, is refused by nothing,
+    and builds its runner (``_run_optimize``, ``_run_ensemble_train``,
+    ``_run_ensemble_test``) with its value, the workflow, the config, the
+    command line's overrides and ``--device`` passed through, the config's
+    Range genes for the GA."""
+    from veles_tpu_torch import ensemble, genetics
+
+    assert dest not in DEFERRED
+    flags, runner, want = META_CASES[dest]
+    built = []
+
+    class Runner:
+        best_fitness_history = [1.0]
+        populations = [[([0.1], 1.0)]]
+
+        def __init__(self, *args, **kwargs):
+            built.append((args, kwargs))
+
+        def run(self):
+            best = genetics.Chromosome([], [])
+            best.fitness = 1.0
+            return best if runner == "GeneticsOptimizer" else {}
+
+    Runner.__name__ = runner
+    module = genetics if runner == "GeneticsOptimizer" else ensemble
+    monkeypatch.setattr(module, runner, Runner)
+    config = tmp_path / "cfg.py"
+    config.write_text("from veles_tpu_torch.genetics import Range\n"
+                      "root.meta_cli.lr = Range(0.1, 0.01, 1.0)\n")
+    tiny = tmp_path / "tiny_wf.py"
+    tiny.write_text(TINY_WF)
+    code = Main().run([str(tiny), str(config), "root.tiny.epochs=3",
+                       "--device", "cpu"] + flags)
+    assert code == 0 and len(built) == 1
+    args, kwargs = built[0]
+    assert kwargs["device"] == "cpu"
+    assert kwargs["overrides"] == ["root.tiny.epochs=3"]
+    if runner == "EnsembleTester":
+        assert args == ("ens.json", str(tiny), str(config))
+    else:
+        assert args == (str(tiny), str(config))
+    if runner == "GeneticsOptimizer":
+        assert [path for path, _ in kwargs["genes"]] == ["root.meta_cli.lr"]
+        assert json.loads(capsys.readouterr().out)["best_fitness"] == 1.0
+    for key, value in want.items():
+        got = args[0] if key == "ensemble_file" else kwargs[key]
+        assert got == value, (key, got)
 
 
 #: the fleet's flags -> the mode each is given with and what it must set

@@ -36,7 +36,7 @@ from veles_tpu_torch.dummy import DummyLauncher, DummyWorkflow
 from veles_tpu_torch.loader import file_loader
 from veles_tpu_torch.loader.base import loader_registry
 from veles_tpu_torch.loader.fullbatch import FullBatchLoader
-from veles_tpu_torch.loader.mnist import MNISTLoader, read_idx
+from veles_tpu_torch.loader.mnist import FILES, MNISTLoader, read_idx
 from veles_tpu_torch.loader.pickles import PicklesLoader
 from veles_tpu_torch.loader.saver import (MinibatchesLoader,
                                           MinibatchesSaver)
@@ -150,10 +150,28 @@ def test_mnist_loader_raises_without_files(tmp_path):
     loader = MNISTLoader(_cpu_workflow(), directory=str(tmp_path / "none"))
     with pytest.raises(FileNotFoundError, match="no url_base"):
         loader.initialize()
-    loader = MNISTLoader(_cpu_workflow(), directory=str(tmp_path / "none"),
-                         url_base="https://example.invalid/mnist")
-    with pytest.raises(FileNotFoundError, match="later slice"):
+    # a file:// url_base fetches the missing files (``<stem>.gz``) into
+    # the directory through the downloader and loads them, as the JAX
+    # package's loader does from the same url
+    arrays = mnist_dir(str(tmp_path / "src"), gz=tuple(FILES.values()))
+    loaders = []
+    for cls, wf, name in ((MNISTLoader, _cpu_workflow(), "port"),
+                          (JMNISTLoader, JDummyWorkflow(), "jax")):
+        loader = cls(wf, directory=str(tmp_path / name),
+                     url_base="file://" + str(tmp_path / "src"),
+                     minibatch_size=20)
         loader.initialize()
+        loaders.append(loader)
+    for stem in FILES.values():
+        assert os.path.exists(str(tmp_path / "port" / (stem + ".gz.ok")))
+    numpy.testing.assert_array_equal(
+        _np(loaders[0].original_labels.data),
+        numpy.asarray(loaders[1].original_labels.data))
+    assert loaders[0].class_lengths == [0, 40, 120]
+    assert _np(loaders[0].original_data.data).shape == (160, 784)
+    numpy.testing.assert_array_equal(
+        _np(loaders[0].original_data.data)[:40].reshape(40, 28, 28),
+        arrays["t10k-images-idx3-ubyte"])
     assert loader_registry["mnist"] is MNISTLoader
 
 

@@ -38,8 +38,8 @@ from veles_tpu.serving import ContinuousDecoder as JDecoder
 from veles_tpu_torch.parallel.mesh import Mesh
 from veles_tpu_torch.parallel.transformer_step import \
     init_transformer_params as tinit
-from veles_tpu_torch.serving import (MESH_LATER, ContinuousDecoder,
-                                     GenerateAPI, build_serve_mesh)
+from veles_tpu_torch.serving import (ContinuousDecoder, GenerateAPI,
+                                     build_serve_mesh)
 
 from torch_world import (BLOCKS, EMBED, HEADS, REPO, TIERS, VOCAB,
                          _prompts, as_torch, drive, free_port, join_world,
@@ -159,17 +159,19 @@ if rank:
                       chunk=4, rebuild_backoff=0.01, **PAGED).start()
     out["api_follow"] = {k: v for k, v in api.follow_stats.items()
                          if k != "engine"}
+    out["api_follow"]["in_service"] = api.follow_stats["engine"].engine_id
 else:
     api = GenerateAPI(params, table, HEADS, device="cpu", mesh=mesh,
                       chunk=4, rebuild_backoff=0.01, **PAGED).start()
     try:
         prompts = [p.tolist() for p in _prompts("paged")]
         first = [post(api.port, p) for p in prompts]
-        try:
-            api.begin_rollout(params2)
-            out["rollout_refusal"] = None
-        except NotImplementedError as exc:
-            out["rollout_refusal"] = str(exc)
+        # a rollout over the mesh: green (params2, carried by its build)
+        # passes its probe on every rank; blue's breaker trip then aborts
+        # it, and every rank drops green's engine
+        rollout = api.begin_rollout(params2)
+        out["rollout"] = {"started": rollout.state,
+                          "green": api._green is not None}
         api.request_trip("test trip")
         deadline = time.monotonic() + 60
         while api.health.counter("rebuilds") < 1 \
@@ -179,6 +181,8 @@ else:
         with urllib.request.urlopen("http://127.0.0.1:%d/metrics"
                                     % api.port, timeout=30) as resp:
             metrics = resp.read().decode()
+        out["rollout"].update(state=rollout.state,
+                              green_after=api._green is not None)
         out["api"] = {"first": first, "again": again,
                       "rebuild": dict(api.last_rebuild or {}),
                       "rebuilds": api.health.counter("rebuilds"),
@@ -418,9 +422,11 @@ def test_generate_api_and_breaker_over_the_mesh(worlds, n):
     """GenerateAPI(mesh=) answers over HTTP with the single device's
     tokens; a breaker trip rebuilds every rank's engine, restores the
     prefix pages by copy, and streams as the fault-free run; /metrics
-    carries the hand-off and collective counters; a rollout is refused
-    naming its ROADMAP item; the follower's GenerateAPI ran until rank
-    0's end."""
+    carries the hand-off and collective counters; a blue-green rollout
+    runs over the mesh (green built from the weights its build carries
+    and probed on every rank) until the trip aborts it; the follower's
+    GenerateAPI ran until rank 0's end, holding the rebuilt engine
+    alone."""
     _, results = worlds
     api = results[n][0]["api"]
     single = results[n][0]["paged"]["single"]
@@ -433,11 +439,20 @@ def test_generate_api_and_breaker_over_the_mesh(worlds, n):
                  "veles_tp_collective_seconds_total",
                  "veles_tp_handoff_calls_total"):
         assert name in api["metrics"]
-    assert MESH_LATER in results[n][0]["rollout_refusal"]
+    assert results[n][0]["rollout"] == {
+        "started": "shifting", "green": True, "state": "rolled_back",
+        "green_after": False}
     for rank in range(1, n):
-        calls = results[n][rank]["api_follow"]["calls"]
-        assert calls["build"] == 2 and calls["end"] == 1
+        follow = results[n][rank]["api_follow"]
+        calls = follow["calls"]
+        # the first engine, green and the rebuild; green and the first
+        # dropped, the rebuild installed
+        assert calls["build"] == 3 and calls["end"] == 1
+        assert calls["discard"] == 2 and calls["install"] == 1
         assert calls["capture"] == 1 and calls["restore"] == 1
+        assert follow["engines"] == [follow["in_service"]]
+        assert [e["edge"] for e in follow["edges"]] == ["breaker_rebuild"]
+        assert not any(e["leak"] for e in follow["edges"])
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -494,13 +509,15 @@ def test_serve_mesh_config_string():
 
 def test_rejects_indivisible_heads_and_later_paths():
     """A 3-way model axis cannot split 8 heads: the JAX package's error;
-    the governor over a mesh raises naming its ROADMAP item."""
+    a governor over a mesh is refused no more: the constructor goes on to
+    the mesh decoder's build, which wants the mesh's world (the governor
+    over a world: tests/test_torch_mesh_governor.py)."""
     params = as_torch(_model(0)[0])
     table = torch.from_numpy(_model(0)[1])
     with pytest.raises(ValueError, match="divisible"):
         ContinuousDecoder(params, table, HEADS, mesh=Mesh({"model": 3}),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match=r"A8 \(c'\)"):
+    with pytest.raises(ValueError, match="process group"):
         GenerateAPI(params, table, HEADS, mesh=Mesh({"model": 2}),
                     governor=object(), device="cpu")
 

@@ -55,6 +55,20 @@ def quiet_history(monkeypatch):
     stop_history_sampler()
 
 
+@pytest.fixture
+def process_ledger(monkeypatch):
+    """A fresh process-wide request ledger for one test, the one before it
+    put back afterwards (tier-1 hygiene, C12): ``--dist loadfile`` runs
+    other files first in the same worker, and their resolved rows and
+    requests in flight would share ``get_request_ledger()`` with the
+    test, pushing its one row out of ``/debug/requests``'s slowest."""
+    from veles_tpu_torch.observe import reqledger
+
+    fresh = RequestLedger()
+    monkeypatch.setattr(reqledger, "_ledger", fresh)
+    return fresh
+
+
 def _weights():
     from veles_tpu.parallel.transformer_step import (
         init_transformer_params as jax_init)
@@ -285,10 +299,10 @@ def test_rejected_requests_leave_rows():
     assert row["outcome"] == "rejected" and row["error"] == "unready"
 
 
-def test_restful_api_writes_ledger_rows(monkeypatch):
+def test_restful_api_writes_ledger_rows(monkeypatch, process_ledger):
     """``RESTfulAPI`` opens a row per POST (staged -> resolved, the
     outcome, the trace of its ``restful.request`` span) and serves
-    ``/debug/requests``."""
+    ``/debug/requests``, from the process ledger (set up fresh here)."""
     from veles_tpu_torch.dummy import DummyWorkflow
     from veles_tpu_torch.observe.reqledger import get_request_ledger
     from veles_tpu_torch.observe.tracing import get_tracer
@@ -304,6 +318,7 @@ def test_restful_api_writes_ledger_rows(monkeypatch):
     api.feed = feed
     api.requests = []
     ledger = get_request_ledger()
+    assert ledger is process_ledger
     before = ledger.resolved_total
     api.initialize()
     try:

@@ -52,6 +52,12 @@ world. ``--serve-mesh model=N`` (validated at once, written to
 workflow's ``GenerateAPI`` on rank 0 serves, on every other rank it
 follows rank 0's decoder (``parallel/tp_engine.py``).
 
+``--optimize SIZE:GENERATIONS`` (with ``--optimize-fleet`` and
+``--optimize-representation``), ``--ensemble-train N:RATIO`` and
+``--ensemble-test FILE`` run the meta-workflows (``genetics/``,
+``ensemble/``): each evaluation or instance a child run of this command
+with its overrides and ``--device``.
+
 The flags of paths the port does not have yet parse like the JAX
 package's, then exit with code 2 and a message naming the ROADMAP item
 that brings them (:data:`DEFERRED`); so do the JAX package's
@@ -82,8 +88,6 @@ from veles_tpu_torch.core.config import root
 from veles_tpu_torch.core.logger import Logger, setup_logging
 from veles_tpu_torch.launcher import Launcher
 
-_META = "genetics and ensembles, ROADMAP A9"
-
 #: the fleet's flags (by argparse dest), ported with the fleet
 FLEET_FLAGS = ("listen", "master_address", "nodes", "respawn",
                "slave_death_probability", "async_slave", "fleet_plane",
@@ -92,9 +96,6 @@ FLEET_FLAGS = ("listen", "master_address", "nodes", "respawn",
 
 #: flag -> the ROADMAP item that brings it (by argparse dest)
 DEFERRED = {
-    "optimize": _META, "optimize_fleet": _META,
-    "optimize_representation": _META, "ensemble_train": _META,
-    "ensemble_test": _META,
     "serve_paged_kernel": "not ported, on purpose (ROADMAP A2): on the "
                           "card the paged pool always attends through "
                           "its kernels",
@@ -299,16 +300,30 @@ class Main(Logger):
         parser.add_argument("-b", "--background", action="store_true",
                             help="daemonize: re-run this command detached, "
                                  "its output in <cache>/daemon.log")
+        meta = parser.add_argument_group(
+            "meta-workflows", "the GA search and the ensembles: every "
+            "evaluation or instance a child run of this command, with "
+            "--device passed through")
+        meta.add_argument("--optimize", default=None,
+                          metavar="SIZE:GENERATIONS",
+                          help="GA over the config's Range() values")
+        meta.add_argument("--optimize-fleet", default=None,
+                          metavar="HOST:PORT",
+                          help="serve --optimize's evaluations to fleet "
+                               "slaves from a task farm at this address")
+        meta.add_argument("--optimize-representation", default="numeric",
+                          choices=("numeric", "gray"),
+                          help="chromosome representation for --optimize")
+        meta.add_argument("--ensemble-train", default=None,
+                          metavar="N:RATIO",
+                          help="train N instances on RATIO of the train "
+                               "set into ensemble.json")
+        meta.add_argument("--ensemble-test", default=None, metavar="FILE",
+                          help="evaluate an ensemble file's snapshots")
         deferred = parser.add_argument_group(
             "not ported yet", "these parse as in the JAX package, then "
             "exit with code 2 naming the ROADMAP item that brings them")
         for flags, kwargs in (
-                (("--optimize",), {"metavar": "SIZE:GENERATIONS"}),
-                (("--optimize-fleet",), {"metavar": "HOST:PORT"}),
-                (("--optimize-representation",), {"choices": ("numeric",
-                                                              "gray")}),
-                (("--ensemble-train",), {"metavar": "N:RATIO"}),
-                (("--ensemble-test",), {"metavar": "FILE"}),
                 (("--serve-paged-kernel",), {"metavar": "on|off"}),
                 (("--manhole",), {"action": "store_true"})):
             kwargs.setdefault("default", None)
@@ -590,6 +605,18 @@ class Main(Logger):
         if args.train_ratio is not None:
             root.common.train_ratio = args.train_ratio
         self.seed_random(args.seed)
+        # the meta-workflows (reference _run_core, __main__.py:716-734),
+        # after the seeding: the GA's and the ensemble's host streams
+        # replay from --seed (key=N names them), where the JAX package
+        # draws them unseeded
+        if args.optimize:
+            return self._run_optimize(args)
+        if args.ensemble_train:
+            return self._run_ensemble_train(args)
+        if args.ensemble_test:
+            return self._run_ensemble_test(args)
+        from veles_tpu_torch.genetics.config import fix_config
+        fix_config(root)  # a normal run serves every Range's default
         self.launcher = Launcher(
             listen_address=args.listen,
             master_address=args.master_address,
@@ -600,6 +627,54 @@ class Main(Logger):
                    for h in spec.split(",") if h],
             slave_death_probability=args.slave_death_probability or 0.0)
         module.run(self._load, self._main)
+        return 0
+
+    # -- the meta-workflows (veles_tpu/__main__.py:651-690) -----------------
+    def _run_optimize(self, args):
+        from veles_tpu_torch.genetics import (GeneticsOptimizer,
+                                              process_config)
+        size, _, gens = args.optimize.partition(":")
+        genes = process_config(root)
+        if not genes:
+            self.error("no Range() values found in the config: nothing "
+                       "to optimize")
+            return 1
+        self.info("optimizing %d genes: %s", len(genes),
+                  [path for path, _ in genes])
+        optimizer = GeneticsOptimizer(
+            args.workflow, args.config, genes=genes,
+            population_size=int(size or 12),
+            generations=int(gens or 5), seed=args.seed,
+            overrides=args.overrides, fleet=args.optimize_fleet,
+            representation=args.optimize_representation,
+            device=args.device)
+        best = optimizer.run()
+        if best is None:
+            return 1
+        print(json.dumps({
+            "best_fitness": best.fitness,
+            "best_values": {path: value for (path, _), value in
+                            zip(best.genes, best.values)},
+            "history": optimizer.best_fitness_history,
+            "populations": optimizer.populations}, indent=1))
+        return 0
+
+    def _run_ensemble_train(self, args):
+        from veles_tpu_torch.ensemble import EnsembleTrainer
+        count, _, ratio = args.ensemble_train.partition(":")
+        trainer = EnsembleTrainer(
+            args.workflow, args.config, instances=int(count),
+            train_ratio=float(ratio or 0.8), overrides=args.overrides,
+            device=args.device)
+        trainer.run()
+        return 0
+
+    def _run_ensemble_test(self, args):
+        from veles_tpu_torch.ensemble import EnsembleTester
+        tester = EnsembleTester(args.ensemble_test, args.workflow,
+                                args.config, overrides=args.overrides,
+                                device=args.device)
+        print(json.dumps(tester.run(), indent=1, default=str))
         return 0
 
     def _daemonize(self):

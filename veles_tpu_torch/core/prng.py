@@ -105,6 +105,25 @@ class RandomGenerator(Logger):
         with self._lock:
             return self._numpy.normal(loc, scale, size)
 
+    def permutation(self, n):
+        """A permutation of ``range(n)`` (or of an array) from the host
+        stream."""
+        with self._lock:
+            return self._numpy.permutation(n)
+
+    def random_sample(self, size=None):
+        """Uniform draws in [0, 1) from the host stream (numpy's
+        ``Generator.random``, as the JAX package draws them: the GA's
+        members, crossovers and mutations)."""
+        with self._lock:
+            return self._numpy.random(size)
+
+    def fill(self, arr, vmin=-1.0, vmax=1.0):
+        """Fill the numpy array ``arr`` in place with uniform draws in
+        [vmin, vmax) (reference ``random_generator.py`` fill)."""
+        with self._lock:
+            arr[...] = self._numpy.uniform(vmin, vmax, arr.shape)
+
     # -- snapshot support -------------------------------------------------------
     def __getstate__(self):
         with self._lock:

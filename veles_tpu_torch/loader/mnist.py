@@ -7,10 +7,12 @@ VALIDATION and the 60k train set as TRAIN (class lengths [0, 10000,
 60000]). ``flat=True`` serves (N, 784) rows, ``flat=False`` (N, 28, 28, 1)
 NHWC.
 
-The port reads files from ``directory`` only (default: ``mnist`` under
-``root.common.dirs.datasets`` where that is set): fetching them from
-``url_base`` is the downloader's, a later slice of the port, and a
-loader whose files are missing raises.
+Files are read from ``directory`` (default: ``mnist`` under
+``root.common.dirs.datasets`` where that is set). Missing ones are
+fetched from ``url_base`` + ``<name>.gz`` through
+:func:`veles_tpu_torch.downloader.fetch` (``http(s)://``, ``file://`` or a
+local path); without a ``url_base`` a loader whose files are missing
+raises.
 """
 
 import gzip
@@ -78,11 +80,15 @@ class MNISTLoader(FullBatchLoader):
                 raise FileNotFoundError(
                     "%s: idx files not found in %s and no url_base given"
                     % (self.name, self.directory))
-            raise FileNotFoundError(
-                "%s: %s missing from %s; fetching them from %s needs the "
-                "downloader, a later slice of the port (ROADMAP A9): put "
-                "the idx files there" % (self.name, ", ".join(missing),
-                                         self.directory, self.url_base))
+            if self.directory is None:
+                raise FileNotFoundError(
+                    "%s: fetching from %s needs a directory (directory= "
+                    "or root.common.dirs.datasets)"
+                    % (self.name, self.url_base))
+            from veles_tpu_torch.downloader import fetch
+            for stem in missing:
+                fetch(self.url_base.rstrip("/") + "/" + stem + ".gz",
+                      self.directory, logger=self)
         train_x = read_idx(self._resolve(FILES["train_images"]))
         train_y = read_idx(self._resolve(FILES["train_labels"]))
         test_x = read_idx(self._resolve(FILES["test_images"]))

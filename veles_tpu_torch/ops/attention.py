@@ -357,10 +357,6 @@ def _check_backward(name, q, k, v, do, lse, di, causal):
                             tuple(do.shape)))
     _check_stats(name, q, lse, di)
     if q.device.type == "cuda":
-        if q.dtype != torch.bfloat16:
-            raise TypeError("%s's kernel takes bfloat16 operands (level 0, "
-                            "the only training caller), got %s"
-                            % (name, q.dtype))
         _check_rows(name, q, k, v, do)
 
 
@@ -368,23 +364,33 @@ def _backward_args(q, k, v, do, lse, di, causal):
     (batch, t_q, heads, dim), t_k = q.shape, k.shape[1]
     return ([q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), di.data_ptr()],
-            [batch, heads, t_q, t_k, dim, int(causal), 1.0 / math.sqrt(dim),
-             *_strides(q), *_strides(k), *_strides(v), *_strides(do),
-             _stream(q)])
+            [batch, heads, t_q, t_k, dim, int(causal), _DTYPES[q.dtype],
+             1.0 / math.sqrt(dim), *_strides(q), *_strides(k),
+             *_strides(v), *_strides(do), _stream(q)])
 
 
-_BACKWARD_ARGTYPES = ([ctypes.c_int] * 6 + [ctypes.c_float]
+_BACKWARD_ARGTYPES = ([ctypes.c_int] * 7 + [ctypes.c_float]
                       + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
+
+
+def _count_backward(fn, q):
+    """Book a K8 or K9 launch: every launch in ``launches``, the f32
+    route's also in ``launches_f32``."""
+    fn.launches += 1
+    if q.dtype == torch.float32:
+        fn.launches_f32 += 1
 
 
 def flash_attention_dkv(q, k, v, do, lse, di, causal=False):
     """K8: ``(dk, dv)`` of the flash forward, from q, k, v, the output
     gradient ``do`` (like q), the forward's ``lse`` and ``di`` = rowsum(O
-    * dO), both f32 (B, H, Tq) contiguous. On a CUDA tensor (bfloat16
-    only) the kernel launches (:attr:`flash_attention_dkv.launches`
-    counts it) and reads q, k, v and dO in place: at head width 128
-    through TMA and wgmma, at other multiples of 128 with a grid axis over
-    128-wide output chunks (``csrc/flash_attention_bwd.cu``). On a CPU
+    * dO), both f32 (B, H, Tq) contiguous. On a CUDA tensor the kernel
+    launches (:attr:`flash_attention_dkv.launches` counts it, and the f32
+    route's launches also :attr:`flash_attention_dkv.launches_f32`) and
+    reads q, k, v and dO in place: bfloat16 at head width 128 through TMA
+    and wgmma, at other multiples of 128 with a grid axis over 128-wide
+    output chunks; float32 at every multiple of 128 in f32 FMA on the CUDA
+    cores, P and dS unrounded (``csrc/flash_attention_bwd.cu``). On a CPU
     tensor the plain version runs."""
     _check_backward("flash_attention_dkv", q, k, v, do, lse, di, causal)
     if q.device.type == "cpu":
@@ -399,19 +405,20 @@ def flash_attention_dkv(q, k, v, do, lse, di, causal=False):
         raise RuntimeError("flash_attention_dkv kernel launch failed: CUDA "
                            "error %d (negative: a CUresult of a tensor map)"
                            % err)
-    flash_attention_dkv.launches += 1
+    _count_backward(flash_attention_dkv, q)
     return dk, dv
 
 
-#: kernel launches since the last reset
-flash_attention_dkv.launches = 0
+#: kernel launches since the last reset (every type, and float32's)
+flash_attention_dkv.launches = flash_attention_dkv.launches_f32 = 0
 
 
 def flash_attention_dq(q, k, v, do, lse, di, causal=False):
     """K9: ``dq`` of the flash forward, from the arguments K8 takes. On
-    a CUDA tensor (bfloat16 only) the kernel launches
-    (:attr:`flash_attention_dq.launches` counts it), routed by head width
-    as K8's; on a CPU tensor the plain version runs."""
+    a CUDA tensor the kernel launches (:attr:`flash_attention_dq.launches`
+    counts it, the f32 route's also
+    :attr:`flash_attention_dq.launches_f32`), routed by type and head
+    width as K8's; on a CPU tensor the plain version runs."""
     _check_backward("flash_attention_dq", q, k, v, do, lse, di, causal)
     if q.device.type == "cpu":
         return _flash_attention_dq_plain(q, k, v, do, lse, di, causal)
@@ -424,12 +431,12 @@ def flash_attention_dq(q, k, v, do, lse, di, causal=False):
         raise RuntimeError("flash_attention_dq kernel launch failed: CUDA "
                            "error %d (negative: a CUresult of a tensor map)"
                            % err)
-    flash_attention_dq.launches += 1
+    _count_backward(flash_attention_dq, q)
     return dq
 
 
-#: kernel launches since the last reset
-flash_attention_dq.launches = 0
+#: kernel launches since the last reset (every type, and float32's)
+flash_attention_dq.launches = flash_attention_dq.launches_f32 = 0
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -65,6 +65,21 @@
 // each block summing S and dP over the full width in 128-wide steps
 // through shared memory (the operand tiles reloaded a chunk at a time) and
 // accumulating only its chunk of dK and dV, or of dQ.
+//
+// f32 operands (a training caller whose parameters are f32: the
+// sequence-parallel transformer step's Ulysses attention) run dkv_f32 /
+// dq_f32 at every multiple of 128: true f32 FMA on the CUDA cores with
+// K7's fwd_f32 chunk axis over 128-wide output columns, the same lse and
+// di, no atomics (every output element summed by one block in a fixed
+// order), and P and dS kept in f32, as the f32 plain versions keep them.
+// 256 threads a block, eight to a row: a block owns 32 keys (K8) or 32
+// query rows (K9) and walks the other axis in tiles of 32, each thread
+// summing S and dP for four of the tile's columns over the head width
+// (128-wide steps through shared memory), then 16 columns of its chunk of
+// dK and dV (or dQ) from the tile's P and dS rows in shared memory. What
+// bounds them: operations on the CUDA cores (67 TFLOP/s f32 on an H100
+// SXM), K8 4 and K9 3 products of 2 D a visible pair: at (1, 8192, 4, 128)
+// causal 137 and 103 GFLOP, 2.05 and 1.54 ms. They are simple, not fast.
 
 #include "flash_tiles.cuh"
 #include "sm90.cuh"
@@ -701,6 +716,205 @@ __global__ void __launch_bounds__(kThreads)
   store_chunk<kChunk>(dq, dqa, b, h, H, Tq, D, oc * kChunk, w0, 1.f, 1.f);
 }
 
+// ---- f32, any multiple of 128: FMA, a chunk axis ---------------------------
+
+constexpr int kF32Threads = 256;
+constexpr int kF32Own = 32;   // K8: keys a block; K9: query rows a block
+constexpr int kF32Walk = 32;  // the walked tile: K8 queries, K9 keys
+// rows padded by 4 floats: the eight rows a warp reads at one column fall
+// on eight bank quads
+constexpr int kF32LD = kChunk + 4;
+constexpr int kF32PLD = kF32Walk + 1;
+
+// s[j] += own row r . walk row (c8 + 8 j) over one 128-wide chunk, and the
+// same for a second pair of tiles (S and dP share their loop)
+__device__ __forceinline__ void f32_scores(float (&s)[kF32Walk / 8],
+                                           float (&t)[kF32Walk / 8],
+                                           const float* a, const float* b,
+                                           const float* c, const float* d,
+                                           int r, int c8) {
+#pragma unroll 8
+  for (int x = 0; x < kChunk; ++x) {
+    const float ax = a[r * kF32LD + x], cx = c[r * kF32LD + x];
+#pragma unroll
+    for (int j = 0; j < kF32Walk / 8; ++j) {
+      s[j] = fmaf(ax, b[(c8 + 8 * j) * kF32LD + x], s[j]);
+      t[j] = fmaf(cx, d[(c8 + 8 * j) * kF32LD + x], t[j]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+    dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ di,
+            float* __restrict__ dk, float* __restrict__ dv, int H, int Tq,
+            int Tk, int D, int causal, float scale, Strides qs, Strides ks,
+            Strides vs, Strides dos) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sk = reinterpret_cast<float*>(smem_raw);  // [kF32Own][LD], a chunk
+  float* sv = sk + kF32Own * kF32LD;                // [kF32Own][LD], a chunk
+  float* sq = sv + kF32Own * kF32LD;                // [kF32Walk][LD], a chunk
+  float* sdo = sq + kF32Walk * kF32LD;              // [kF32Walk][LD], a chunk
+  float* sqo = sdo + kF32Walk * kF32LD;             // [kF32Walk][LD], chunk oc
+  float* sdoo = sqo + kF32Walk * kF32LD;            // [kF32Walk][LD], chunk oc
+  float* sp = sdoo + kF32Walk * kF32LD;             // P^T [kF32Own][PLD]
+  float* sds = sp + kF32Own * kF32PLD;              // dS^T [kF32Own][PLD]
+  float* slse = sds + kF32Own * kF32PLD;            // [kF32Walk], log2
+  float* sdi = slse + kF32Walk;                     // [kF32Walk]
+
+  const int chunks = D / kChunk;
+  const int oc = blockIdx.x % chunks, k0 = blockIdx.x / chunks * kF32Own;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r = threadIdx.x >> 3, c8 = threadIdx.x & 7;
+  const int key = k0 + r;
+  const float scale_log2 = scale * kLog2e;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* dob = dout + b * dos.b + h * dos.h;
+  const float* lse_b = lse + ((long long)b * H + h) * Tq;
+  const float* di_b = di + ((long long)b * H + h) * Tq;
+
+  float dka[kChunk / 8], dva[kChunk / 8];
+#pragma unroll
+  for (int i = 0; i < kChunk / 8; ++i) dka[i] = dva[i] = 0.f;
+
+  const int q_begin = causal ? k0 : 0;
+  for (int q0 = q_begin; q0 < Tq; q0 += kF32Walk) {
+    float st[kF32Walk / 8] = {0.f, 0.f, 0.f, 0.f};   // S^T: keys x queries
+    float dpt[kF32Walk / 8] = {0.f, 0.f, 0.f, 0.f};  // dP^T
+    for (int dc = 0; dc < chunks; ++dc) {
+      __syncthreads();  // the previous chunk (and tile) has been read
+      load_rows<float, kChunk, kF32Own, kF32LD, kF32Threads>(
+          sk, kb + dc * kChunk, ks.t, k0, Tk);
+      load_rows<float, kChunk, kF32Own, kF32LD, kF32Threads>(
+          sv, vb + dc * kChunk, vs.t, k0, Tk);
+      load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
+          sq, qb + dc * kChunk, qs.t, q0, Tq);
+      load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
+          sdo, dob + dc * kChunk, dos.t, q0, Tq);
+      if (dc == 0) {
+        load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
+            sqo, qb + oc * kChunk, qs.t, q0, Tq);
+        load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
+            sdoo, dob + oc * kChunk, dos.t, q0, Tq);
+        if (threadIdx.x < kF32Walk) {
+          const int i = threadIdx.x;
+          const bool in = q0 + i < Tq;
+          slse[i] = in ? lse_b[q0 + i] * kLog2e : 0.f;
+          sdi[i] = in ? di_b[q0 + i] : 0.f;
+        }
+      }
+      __syncthreads();
+      f32_scores(st, dpt, sk, sq, sv, sdo, r, c8);
+    }
+#pragma unroll
+    for (int j = 0; j < kF32Walk / 8; ++j) {
+      const int qi = c8 + 8 * j, qry = q0 + qi;
+      const bool on = qry < Tq && key < Tk && (!causal || key <= qry);
+      const float p = on ? exp2f(st[j] * scale_log2 - slse[qi]) : 0.f;
+      sp[r * kF32PLD + qi] = p;
+      sds[r * kF32PLD + qi] = p * (dpt[j] - sdi[qi]) * scale;
+    }
+    __syncwarp();  // a key's eight threads share one warp
+#pragma unroll 4
+    for (int qi = 0; qi < kF32Walk; ++qi) {
+      const float p = sp[r * kF32PLD + qi], ds = sds[r * kF32PLD + qi];
+#pragma unroll
+      for (int i = 0; i < kChunk / 8; ++i) {
+        dva[i] = fmaf(p, sdoo[qi * kF32LD + c8 + 8 * i], dva[i]);
+        dka[i] = fmaf(ds, sqo[qi * kF32LD + c8 + 8 * i], dka[i]);
+      }
+    }
+  }
+  if (key < Tk) {
+    const long long at = (((long long)b * Tk + key) * H + h) * D
+                         + oc * kChunk;
+#pragma unroll
+    for (int i = 0; i < kChunk / 8; ++i) {
+      dk[at + c8 + 8 * i] = dka[i];
+      dv[at + c8 + 8 * i] = dva[i];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+    dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ di,
+           float* __restrict__ dq, int H, int Tq, int Tk, int D, int causal,
+           float scale, Strides qs, Strides ks, Strides vs, Strides dos) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sq = reinterpret_cast<float*>(smem_raw);  // [kF32Own][LD], a chunk
+  float* sdo = sq + kF32Own * kF32LD;               // [kF32Own][LD], a chunk
+  float* sk = sdo + kF32Own * kF32LD;               // [kF32Walk][LD], a chunk
+  float* sv = sk + kF32Walk * kF32LD;               // [kF32Walk][LD], a chunk
+  float* sko = sv + kF32Walk * kF32LD;              // [kF32Walk][LD], chunk oc
+  float* sds = sko + kF32Walk * kF32LD;             // dS [kF32Own][PLD]
+
+  const int chunks = D / kChunk;
+  const int oc = blockIdx.x % chunks;
+  const int q0 = (gridDim.x / chunks - 1 - blockIdx.x / chunks) * kF32Own;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r = threadIdx.x >> 3, c8 = threadIdx.x & 7;
+  const int row = q0 + r;
+  const float scale_log2 = scale * kLog2e;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* dob = dout + b * dos.b + h * dos.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  const float* lse_b = lse + ((long long)b * H + h) * Tq;
+  const float* di_b = di + ((long long)b * H + h) * Tq;
+  const float lse_r = row < Tq ? lse_b[row] * kLog2e : 0.f;
+  const float di_r = row < Tq ? di_b[row] : 0.f;
+  float dqa[kChunk / 8];
+#pragma unroll
+  for (int i = 0; i < kChunk / 8; ++i) dqa[i] = 0.f;
+
+  const int k_end = causal ? min(Tk, q0 + kF32Own) : Tk;
+  for (int k0 = 0; k0 < k_end; k0 += kF32Walk) {
+    float s[kF32Walk / 8] = {0.f, 0.f, 0.f, 0.f};   // queries x keys
+    float dp[kF32Walk / 8] = {0.f, 0.f, 0.f, 0.f};
+    for (int dc = 0; dc < chunks; ++dc) {
+      __syncthreads();  // the previous chunk (and tile) has been read
+      load_rows<float, kChunk, kF32Own, kF32LD, kF32Threads>(
+          sq, qb + dc * kChunk, qs.t, q0, Tq);
+      load_rows<float, kChunk, kF32Own, kF32LD, kF32Threads>(
+          sdo, dob + dc * kChunk, dos.t, q0, Tq);
+      load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
+          sk, kb + dc * kChunk, ks.t, k0, Tk);
+      load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
+          sv, vb + dc * kChunk, vs.t, k0, Tk);
+      if (dc == 0)
+        load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
+            sko, kb + oc * kChunk, ks.t, k0, Tk);
+      __syncthreads();
+      f32_scores(s, dp, sq, sk, sdo, sv, r, c8);
+    }
+#pragma unroll
+    for (int j = 0; j < kF32Walk / 8; ++j) {
+      const int ki = c8 + 8 * j, col = k0 + ki;
+      const bool on = row < Tq && col < Tk && (!causal || col <= row);
+      const float p = on ? exp2f(s[j] * scale_log2 - lse_r) : 0.f;
+      sds[r * kF32PLD + ki] = p * (dp[j] - di_r) * scale;
+    }
+    __syncwarp();  // a row's eight threads share one warp
+#pragma unroll 4
+    for (int ki = 0; ki < kF32Walk; ++ki) {
+      const float ds = sds[r * kF32PLD + ki];
+#pragma unroll
+      for (int i = 0; i < kChunk / 8; ++i)
+        dqa[i] = fmaf(ds, sko[ki * kF32LD + c8 + 8 * i], dqa[i]);
+    }
+  }
+  if (row < Tq) {
+    float* out = dq + (((long long)b * Tq + row) * H + h) * D + oc * kChunk;
+#pragma unroll
+    for (int i = 0; i < kChunk / 8; ++i) out[c8 + 8 * i] = dqa[i];
+  }
+}
+
 int run_dkv_sm90(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* di,
                  void* dk, void* dv, int B, int H, int Tq, int Tk, int causal,
@@ -739,17 +953,19 @@ int run_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// bf16 q (B, Tq, H, D), k and v (B, Tk, H, D) and dout (like q) through
-// their element strides (sb, st, sh; the head axis contiguous, every stride
-// and pointer 16-byte aligned); lse and di (B, H, Tq) f32; dk, dv (K8) and
-// dq (K9) contiguous bf16 in their operand's shape. D: a multiple of 128.
-// Each returns the cudaError_t of its launch (cudaErrorInvalidValue for
-// another D), or minus a CUresult when a tensor map is refused.
+// q (B, Tq, H, D), k and v (B, Tk, H, D) and dout (like q), all of one
+// type (dtype: 0 float32, 1 bfloat16), through their element strides (sb,
+// st, sh; the head axis contiguous, every stride and pointer 16-byte
+// aligned); lse and di (B, H, Tq) f32; dk, dv (K8) and dq (K9) contiguous
+// in their operand's shape and type. D: a multiple of 128. Each returns
+// the cudaError_t of its launch (cudaErrorInvalidValue for another D or
+// type), or minus a CUresult when a tensor map is refused.
 extern "C" int veles_flash_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
                                const float* di, void* dk, void* dv, int B,
                                int H, int Tq, int Tk, int D, int causal,
-                               float scale, long long qsb, long long qst,
+                               int dtype, float scale, long long qsb,
+                               long long qst,
                                long long qsh, long long ksb, long long kst,
                                long long ksh, long long vsb, long long vst,
                                long long vsh, long long dsb, long long dst,
@@ -757,7 +973,22 @@ extern "C" int veles_flash_dkv(const void* q, const void* k, const void* v,
   Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh},
       dos{dsb, dst, dsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 0 || D % kChunk) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 0 || D % kChunk || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    const size_t smem =
+        ((size_t)(2 * kF32Own + 4 * kF32Walk) * kF32LD +
+         2 * kF32Own * kF32PLD + 2 * kF32Walk) * sizeof(float);
+    cudaError_t err = allow_smem(dkv_f32, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid((Tk + kF32Own - 1) / kF32Own * (D / kChunk), H, B);
+    dkv_f32<<<grid, kF32Threads, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        di, static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, D,
+        causal, scale, qs, ks, vs, dos);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (D == kD)
     return run_dkv_sm90(q, k, v, dout, lse, di, dk, dv, B, H, Tq, Tk, causal,
                         scale, qs, ks, vs, dos, s);
@@ -777,8 +1008,9 @@ extern "C" int veles_flash_dkv(const void* q, const void* k, const void* v,
 extern "C" int veles_flash_dq(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
                               const float* di, void* dq, int B, int H,
-                              int Tq, int Tk, int D, int causal, float scale,
-                              long long qsb, long long qst, long long qsh,
+                              int Tq, int Tk, int D, int causal, int dtype,
+                              float scale, long long qsb, long long qst,
+                              long long qsh,
                               long long ksb, long long kst, long long ksh,
                               long long vsb, long long vst, long long vsh,
                               long long dsb, long long dst, long long dsh,
@@ -786,7 +1018,21 @@ extern "C" int veles_flash_dq(const void* q, const void* k, const void* v,
   Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh},
       dos{dsb, dst, dsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 0 || D % kChunk) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 0 || D % kChunk || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    const size_t smem = ((size_t)(2 * kF32Own + 3 * kF32Walk) * kF32LD +
+                         kF32Own * kF32PLD) * sizeof(float);
+    cudaError_t err = allow_smem(dq_f32, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid((Tq + kF32Own - 1) / kF32Own * (D / kChunk), H, B);
+    dq_f32<<<grid, kF32Threads, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        di, static_cast<float*>(dq), H, Tq, Tk, D, causal, scale, qs, ks,
+        vs, dos);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (D == kD)
     return run_dq_sm90(q, k, v, dout, lse, di, dq, B, H, Tq, Tk, causal,
                        scale, qs, ks, vs, dos, s);

@@ -30,8 +30,21 @@ The port's mesh is a ``torch.distributed`` world, one process per device
   applies the call itself; every other rank runs :func:`follow`, which
   applies the same calls in the same order. The reduces inside the math
   keep the ranks in step. Lifecycle events ride the same channel: the
-  build of a decoder's state (a breaker rebuild's too), a swap, a
-  heartbeat while the server idles, and the end.
+  build of a decoder's state (a breaker rebuild's too), its install, its
+  discard, a swap, a heartbeat while the server idles, and the end.
+- Rank 0 may hold more than one decoder at a time: the breaker's rebuild
+  and the governor's tier swap build and probe a new decoder while the
+  old one still serves, and a blue-green rollout runs blue and green side
+  by side. So every hand-off names the engine it is for (an id the link
+  numbers), and a follower holds its engines by that id: ``BUILD`` makes
+  one (from the weights the follower holds, or from the weights the build
+  carries: a rollout's green engine), ``INSTALL`` makes one the engine in
+  service (later weightless builds take its weights), and ``DISCARD``
+  drops one and frees its pool (a failed probe, a rollback, the engine a
+  rebuild, a tier swap or a promote retired). A discard may name
+  rank 0's memscope edge (``rollout_promote``, ``breaker_rebuild``): the
+  follower then brackets it in an edge of its own memscope, whose
+  engines it registers as rank 0 registers its decoders.
 
 No hang: rank 0 sends the end on every exit path of its server
 (``GenerateAPI.stop``; ``ContinuousDecoder.close``). A follower whose
@@ -63,7 +76,8 @@ from veles_tpu_torch.parallel.reshard import (apply_plan, plan_reshard,
                                               reshard)
 
 #: lifecycle events rank 0 hands on beside the device calls
-BUILD, SWAP, BEAT, END = "build", "swap", "beat", "end"
+BUILD, INSTALL, DISCARD, SWAP, BEAT, END = ("build", "install", "discard",
+                                           "swap", "beat", "end")
 
 
 class TensorParallel:
@@ -126,10 +140,17 @@ class WorldLink:
         self.last_sent = time.monotonic()
         self.stats = {"calls": {}, "bytes": {}, "seconds": 0.0}
         self._lock = threading.Lock()
+        self._engines = 0
 
-    def hand_on(self, op, payload=None):
-        """Broadcast ``(op, payload)`` to the followers; returns the
-        bytes sent."""
+    def new_engine(self):
+        """The id of a new engine on this link (every build takes one)."""
+        with self._lock:
+            self._engines += 1
+            return self._engines
+
+    def hand_on(self, op, payload=None, engine=None):
+        """Broadcast ``(op, engine, payload)`` to the followers; returns
+        the bytes sent."""
         with self._lock:
             if self.broken is not None:
                 raise RuntimeError("the serving mesh is out of step (%s); "
@@ -143,7 +164,7 @@ class WorldLink:
                 self.ended = False
             started = time.perf_counter()
             try:
-                size = self.channel.send((op, payload))
+                size = self.channel.send((op, engine, payload))
             except Exception as exc:
                 self.broken = "hand-off of %r failed: %s" % (op, exc)
                 raise
@@ -155,11 +176,11 @@ class WorldLink:
             return size
 
     def run(self, engine, op, args):
-        """Rank 0's device call: hand ``(op, args)`` on, then apply it to
-        rank 0's shard ``engine``. A call that fails here after the
-        followers took it leaves the world out of step: the link is
-        broken from then on."""
-        self.hand_on(op, args)
+        """Rank 0's device call: hand ``(op, args)`` on for ``engine``'s
+        id, then apply it to rank 0's shard ``engine``. A call that fails
+        here after the followers took it leaves the world out of step:
+        the link is broken from then on."""
+        self.hand_on(op, args, engine=engine.engine_id)
         try:
             return engine.apply(op, args)
         except Exception as exc:
@@ -206,8 +227,10 @@ class ShardEngine:
     whole table and a state of this rank's heads (:attr:`state`)."""
 
     def __init__(self, mesh, params, embed_table, heads, config,
-                 axis="model", device=None):
+                 axis="model", device=None, engine_id=None):
         self.mesh = mesh
+        #: the id the hand-offs name this engine by
+        self.engine_id = engine_id
         self.axis = axis
         self.device = resolve_device(device)
         self.config = dict(config)
@@ -359,41 +382,94 @@ class ShardEngine:
 
 
 
+def _register_engine(engine):
+    """memscope's owners of a follower's engine, as rank 0's decoder
+    registers them (weakly: a dropped engine leaves the next sample)."""
+    from veles_tpu_torch.observe.memscope import get_memscope
+
+    scope = get_memscope()
+    scope.register("params", engine, lambda e: 0 if e.params is None
+                   else decode.param_tree_bytes(e.params, e.embed_table))
+    scope.register("decode_state", engine, lambda e: 0 if e.state is None
+                   else decode.slot_state_bytes(e.state))
+
+
 def follow(mesh, params, embed_table, heads, axis="model", device=None):
     """The side of a rank above 0: apply rank 0's hand-offs to this
-    rank's shard, in order, until its end event. ``params`` and
+    rank's engines, in order, until its end event. ``params`` and
     ``embed_table`` are the whole serving weights the world started from
-    (every rank loads the same checkpoint); a swap replaces them.
-    Returns the
-    follower's stats: events and bytes by op, seconds waiting and
-    applying, the decode steps its dispatches ran, and ``engine``, the
-    last :class:`ShardEngine` (its state as the stream left it). Raises when the world is lost (rank 0 died: the
-    closed connection, or the world's timeout)."""
+    (every rank loads the same checkpoint): a build that carries no
+    weights takes the weights of the engine in service (these at first;
+    an install or a swap of that engine replaces them).
+
+    Returns the follower's stats: events and bytes by op, seconds
+    waiting and applying, the decode steps its dispatches ran,
+    ``engine``, the engine in service at the end (its state as the
+    stream left it), ``engines``, the ids of the engines still held, and
+    ``edges``, the memscope verdicts of the discards that named an edge.
+    Raises when the world is lost (rank 0 died: the closed connection,
+    or the world's timeout)."""
+    from veles_tpu_torch.observe.memscope import get_memscope
+
     channel = _Channel(mesh.group)
-    engine = None
+    engines, weights = {}, {}
+    held = (params, embed_table)
+    current = None
     stats = {"calls": {}, "bytes": {}, "wait_s": 0.0, "apply_s": 0.0,
-             "steps": 0}
+             "steps": 0, "edges": []}
     while True:
         started = time.perf_counter()
-        (op, payload), size = channel.receive()
+        (op, eid, payload), size = channel.receive()
         received = time.perf_counter()
         stats["wait_s"] += received - started
         stats["calls"][op] = stats["calls"].get(op, 0) + 1
         stats["bytes"][op] = stats["bytes"].get(op, 0) + size
         if op == END:
-            stats["engine"] = engine
+            stats["engine"] = engines.get(current)
+            stats["engines"] = sorted(engines)
             return stats
         if op == BUILD:
-            engine = None
-            engine = ShardEngine(mesh, params, embed_table, heads, payload,
-                                 axis=axis, device=device)
+            built = payload.get("weights") or held
+            engines[eid] = ShardEngine(mesh, built[0], built[1], heads,
+                                       payload["config"], axis=axis,
+                                       device=device, engine_id=eid)
+            weights[eid] = built
+            _register_engine(engines[eid])
+            if current is None:
+                # the stream's first engine serves until an install
+                current = eid
+        elif op == INSTALL:
+            current = eid
+            held = weights[eid]
+        elif op == DISCARD:
+            edge = payload["edge"]
+            scope = get_memscope()
+            if edge:
+                scope.edge_begin(edge)
+            engine = engines.pop(eid)
+            weights.pop(eid)
+            # the pool and the shard go now, whoever holds the engine
+            engine.state = engine.params = engine.embed_table = None
+            del engine
+            if current == eid:
+                current = None
+            if edge:
+                verdict = scope.edge_end(edge, gc_collect=True)
+                if verdict is not None:
+                    stats["edges"].append(
+                        {"edge": edge, "leak": verdict["leak"],
+                         "owner": verdict["owner"],
+                         "grown": dict(verdict["grown"])})
         elif op == SWAP:
-            params = payload["params"]
-            if payload.get("embed_table") is not None:
-                embed_table = payload["embed_table"]
-            engine.set_params(params, embed_table, label="swap")
+            table = payload["embed_table"]
+            new = (payload["params"],
+                   weights[eid][1] if table is None else table)
+            engines[eid].set_params(new[0], new[1], label="swap")
+            weights[eid] = new
+            if eid == current:
+                held = new
         elif op != BEAT:
-            engine.apply(op, payload)
+            engines[eid].apply(op, payload)
             if op in ("dispatch", "paged.dispatch"):
                 stats["steps"] += payload["n"]
         stats["apply_s"] += time.perf_counter() - received

@@ -10,8 +10,10 @@ Run:  python -m veles_tpu_torch veles_tpu_torch/samples/mnist784.py \
 The port's copy of ``samples/mnist784.py``; the repository's
 ``samples/mnist784_config.py`` configures it unchanged. Data: the 4
 idx(.gz) files are read from ``root.mnist784.directory`` (default
-``mnist`` under ``root.common.dirs.datasets``). The port never fetches
-them: ``MNISTLoader`` raises when they are missing.
+``mnist`` under ``root.common.dirs.datasets``). Missing files are
+fetched only from a ``root.mnist784.url_base`` the user sets (the
+downloader: ``file://`` or ``http(s)://``); without one ``MNISTLoader``
+raises, where the JAX package's sample defaults to a public mirror.
 """
 
 from veles_tpu_torch.core.config import root
@@ -26,7 +28,10 @@ root.mnist784.update({
     "max_epochs": 50,
     "fail_iterations": 25,
     "directory": None,
-    "url_base": "https://storage.googleapis.com/cvdf-datasets/mnist",
+    # None: the idx files must be in the directory. A url (file://,
+    # http(s)://) fetches the missing ones through the downloader; the
+    # port leaves the choice of host to the user (root.mnist784.url_base=URL)
+    "url_base": None,
 })
 
 

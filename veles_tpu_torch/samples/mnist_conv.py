@@ -20,8 +20,9 @@ Pick the topology with ``root.mnist_conv.topology=caffe`` (or ``conv``).
 Both fuse into the fused tick (conv and pooling layers are fusible).
 The port's copy of ``samples/mnist_conv.py``; the repository's config
 file configures it unchanged. The idx files are read from
-``root.mnist_conv.directory``, never fetched: ``MNISTLoader`` raises
-when they are missing.
+``root.mnist_conv.directory``; missing ones are fetched only from a
+``root.mnist_conv.url_base`` the user sets (the downloader), and without
+one ``MNISTLoader`` raises.
 """
 
 from veles_tpu_torch.core.config import root
@@ -60,7 +61,10 @@ root.mnist_conv.update({
     "max_epochs": 50,
     "fail_iterations": 25,
     "directory": None,
-    "url_base": "https://storage.googleapis.com/cvdf-datasets/mnist",
+    # None: the idx files must be in the directory. A url (file://,
+    # http(s)://) fetches the missing ones through the downloader; the
+    # port leaves the choice of host to the user (root.mnist_conv.url_base=URL)
+    "url_base": None,
 })
 
 

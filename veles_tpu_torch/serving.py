@@ -83,8 +83,11 @@ same program runs on every rank, and a rank above 0's ``GenerateAPI.
 start()`` follows rank 0 until its end. A swap onto the mesh goes through
 ``parallel/reshard.reshard`` (slice-only from a host checkpoint) and keeps
 its receipt; a breaker rebuild rebuilds every rank and restores the
-prefix pages on each. The governor's tier ladder and the blue-green
-rollout do not run on a mesh yet (ROADMAP A8 (c')): they raise.
+prefix pages on each. The governor's tier swap and the blue-green
+rollout build their decoders from the same kwargs, mesh included (``serving.
+py:3035-3058``): each decoder is an engine of its own on every rank, named
+in every hand-off, so a probe that fails, a rollback or a promote drops
+one engine while the other serves (``tp_engine.follow``).
 """
 
 import base64
@@ -170,10 +173,6 @@ def _dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
 
-#: the refusal of what the sharded serving mesh does not run yet
-MESH_LATER = "ROADMAP A8 (c'), the mesh's governor and rollout"
-
-
 def build_serve_mesh(spec):
     """Build the SERVING mesh from ``--serve-mesh`` /
     ``root.common.serve.mesh`` (``serving.py:729-760``): an
@@ -247,8 +246,12 @@ class ContinuousDecoder:
     (``parallel/tp_engine.ShardEngine``), and hands every device call on
     to the other ranks (:func:`~veles_tpu_torch.parallel.tp_engine.follow`).
     Heads, FFN width and vocabulary must divide by the axis size
-    (``decode.validate_slot_mesh``). :meth:`close` ends the world's
-    stream.
+    (``decode.validate_slot_mesh``). Each mesh decoder is an engine of
+    its own on every rank: the hand-offs name it, :meth:`install` puts it
+    in service on the followers and :meth:`discard` drops its shards
+    there; ``ship_weights`` hands its whole weights on with its build (a
+    rollout's green decoder, whose weights the followers do not hold).
+    :meth:`close` ends the world's stream.
 
     Observability (``observe/``): each admission, dispatch and collect
     opens a span parented to the first traced request it serves (the
@@ -274,10 +277,15 @@ class ContinuousDecoder:
                  n_tokens=32, eos=None, temperature=0.0, top_k=0, seed=0,
                  quantize=None, tile=None, paged=False, page_size=None,
                  pool_pages=None, prefix_cache=None, aot=None, ledger=None,
-                 mesh=None, mesh_axis="model", device=None):
+                 mesh=None, mesh_axis="model", device=None,
+                 ship_weights=False):
         if quantize not in (None, "none", "int8", "int8-kv"):
             raise ValueError("quantize must be None, 'int8' or 'int8-kv', "
                              "got %r" % (quantize,))
+        #: the whole weights a mesh build hands on (None: the followers
+        #: build from the weights they hold)
+        self._shipped = ((tree_to(params, "cpu"), embed_table.cpu())
+                         if ship_weights and _sharded(mesh) else None)
         self.device = resolve_device(device)
         self.quantize = quantize if quantize != "none" else None
         params = tree_to(params, self.device)
@@ -308,6 +316,10 @@ class ContinuousDecoder:
         self.mesh = mesh
         self.mesh_axis = mesh_axis
         self._tp = self._link = None
+        #: this decoder's engine id on the mesh's link (None off a mesh)
+        #: and whether its shards were discarded on the followers
+        self.engine_id = None
+        self._discarded = False
         #: the last hot swap's reshard receipt ({"bytes", "seconds",
         #: "counts"}, ``parallel/reshard.py``), None off a mesh
         self.last_swap_stats = None
@@ -463,11 +475,21 @@ class ContinuousDecoder:
                   "pool_pages": self.pool_pages,
                   "quantize": self.quantize}
         self._link = world_link(mesh)
-        self._link.hand_on(BUILD, config)
+        self.engine_id = self._link.new_engine()
+        self._link.hand_on(BUILD, {"config": config,
+                                   "weights": self._shipped},
+                           engine=self.engine_id)
+        self._shipped = None
         self._whole = (self.params, self.embed_table)
-        self._tp = ShardEngine(mesh, self.params, self.embed_table,
-                               self.heads, config, axis=axis,
-                               device=self.device)
+        try:
+            self._tp = ShardEngine(mesh, self.params, self.embed_table,
+                                   self.heads, config, axis=axis,
+                                   device=self.device,
+                                   engine_id=self.engine_id)
+        except BaseException:
+            # the followers built theirs: drop it before raising
+            self.discard()
+            raise
         self.params = self._tp.params
         self.state = self._tp.state
 
@@ -497,6 +519,28 @@ class ContinuousDecoder:
         no-op off a mesh)."""
         if self._link is not None:
             self._link.heartbeat()
+
+    def install(self):
+        """Put this decoder's engine in service on the followers: their
+        builds without weights take its weights from now on (a no-op off
+        a mesh)."""
+        if self._link is not None:
+            from veles_tpu_torch.parallel.tp_engine import INSTALL
+            self._link.hand_on(INSTALL, engine=self.engine_id)
+
+    def discard(self, edge=None):
+        """Drop this decoder's engine on the followers, which free its
+        pool (a failed probe, a rollback, a replaced decoder). ``edge``
+        names rank 0's memscope lifecycle edge, which each follower
+        brackets the drop in. A no-op off a mesh, after the first call,
+        and on a link that ended or is out of step."""
+        link = self._link
+        if link is None or self._discarded:
+            return
+        self._discarded = True
+        if link.broken is None and not link.ended:
+            from veles_tpu_torch.parallel.tp_engine import DISCARD
+            link.hand_on(DISCARD, {"edge": edge}, engine=self.engine_id)
 
     def close(self):
         """End the serving mesh's stream: its followers return from
@@ -604,7 +648,8 @@ class ContinuousDecoder:
             self._link.hand_on(SWAP, {
                 "params": tree_to(sent, "cpu"),
                 "embed_table": (None if new_embed_table is None
-                                else new_embed_table.cpu())})
+                                else new_embed_table.cpu())},
+                engine=self.engine_id)
             self._tp.set_params(new_params, new_table, label="swap")
             self.last_swap_stats = self._tp.last_reshard
             self._whole = (new_params, new_table)
@@ -1688,8 +1733,11 @@ class GenerateAPI:
     mesh (``serving.py:2188-2215``). The same program runs on every rank
     of the world: on rank 0 this front serves; on a rank above 0 it opens
     no socket, and :meth:`start` follows rank 0's decoders until rank 0's
-    :meth:`stop` ends the stream. The governor and the blue-green rollout
-    raise ``NotImplementedError`` on a mesh (:data:`MESH_LATER`)."""
+    :meth:`stop` ends the stream. The governor's tier swap and the
+    blue-green rollout build their decoders over the same mesh: every
+    rank holds each of rank 0's decoders as an engine of its own until
+    rank 0 discards it (a failed probe, a rollback, a replaced or
+    retired decoder)."""
 
     #: extra handler-side wait beyond a request's deadline before the
     #: handler gives up on the driver (a wedged driver's backstop)
@@ -1786,10 +1834,6 @@ class GenerateAPI:
             page_size=page_size, pool_pages=pool_pages, aot=aot,
             ledger=self.ledger, mesh=mesh, mesh_axis=mesh_axis,
             device=device)
-        if _sharded(mesh) and (governor is not None
-                               or serve_cfg.get("governor")):
-            raise NotImplementedError(
-                "the serving governor over a mesh: %s" % MESH_LATER)
         if self.follower:
             # a rank above 0 holds the weights and follows: no decoder,
             # no socket (start() runs the follower loop)
@@ -2091,13 +2135,18 @@ class GenerateAPI:
         decoder = ContinuousDecoder(**kwargs)
         built = time.perf_counter()
         decoder._next_id = self.decoder._next_id
-        probe = decoder.submit([0], 1)
-        before = (self.chaos.before_step if self.chaos is not None
-                  else None)
-        decoder.run_until_drained(max_steps=8, chunk=self.chunk,
-                                  before_step=before)
-        if not decoder.done(probe):
-            raise RuntimeError("probe decode did not finish")
+        try:
+            probe = decoder.submit([0], 1)
+            before = (self.chaos.before_step if self.chaos is not None
+                      else None)
+            decoder.run_until_drained(max_steps=8, chunk=self.chunk,
+                                      before_step=before)
+            if not decoder.done(probe):
+                raise RuntimeError("probe decode did not finish")
+        except BaseException:
+            # a mesh's followers drop the engine that failed its probe
+            decoder.discard()
+            raise
         decoder.results.pop(probe, None)
         restore = decoder.restore_stats or {}
         self.last_rebuild = {
@@ -2108,12 +2157,17 @@ class GenerateAPI:
             "restored_bytes": restore.get("bytes", 0)}
         return decoder
 
-    def _install_decoder(self, decoder):
+    def _install_decoder(self, decoder, edge=None):
         """Put the probed decoder in service and point the health
-        snapshot's pool mirror at its pool."""
-        self.decoder = decoder
+        snapshot's pool mirror at its pool. On a mesh the followers put
+        its engine in service and drop the replaced decoder's (inside
+        their memscope ``edge`` where one is named)."""
+        old, self.decoder = self.decoder, decoder
         if decoder.pool is not None:
             self.health.attach_pool(decoder.pool)
+        if old is not None and old is not decoder:
+            decoder.install()
+            old.discard(edge)
 
     def _rebuild(self):
         """Build a fresh decoder from the held weights and probe it
@@ -2149,7 +2203,7 @@ class GenerateAPI:
             memscope.edge_end("breaker_rebuild", gc_collect=True)
             return False
         self.last_rebuild["capture_s"] = capture_s
-        self._install_decoder(decoder)
+        self._install_decoder(decoder, edge="breaker_rebuild")
         # the old decoder is unbound now; the seam already pays a build,
         # so a collection before the diff costs nothing that matters
         verdict = memscope.edge_end("breaker_rebuild", gc_collect=True)
@@ -2257,9 +2311,6 @@ class GenerateAPI:
         slice's burn or TTFT against blue's (``rollout.py``). Blocks until
         the green engine passed (or failed) its probe; returns the
         :class:`~veles_tpu_torch.rollout.BlueGreenRollout`."""
-        if _sharded(self.mesh):
-            raise NotImplementedError(
-                "a blue-green rollout over a mesh: %s" % MESH_LATER)
         if self._swap_request is not None:
             raise RuntimeError("refused: a weight hot-swap is pending")
         holder = {"event": threading.Event(), "params": new_params,
@@ -2380,6 +2431,8 @@ class GenerateAPI:
         kwargs["params"] = holder["params"]
         if holder.get("embed_table") is not None:
             kwargs["embed_table"] = holder["embed_table"]
+        # a mesh's followers hold blue's weights: green's ride its build
+        kwargs["ship_weights"] = True
         try:
             bad = _non_finite_leaf((kwargs["params"],
                                     kwargs["embed_table"]))
@@ -2417,6 +2470,7 @@ class GenerateAPI:
         green, self._green = self._green, None
         if green is None:
             return
+        green["decoder"].discard()
         for holder in list(green["waiting"].values()):
             self._resolve(holder, "shed", error=str(reason), code=503)
         green["waiting"].clear()
@@ -2441,6 +2495,7 @@ class GenerateAPI:
             if not gdec.busy and green["pending"] is None \
                     and not green["waiting"]:
                 self._green = None
+                gdec.discard()
                 rollout.finish_rollback(api=self)
                 self.health.incr("rollbacks")
             return
@@ -2457,7 +2512,7 @@ class GenerateAPI:
         if green["embed_table"] is not None:
             self._decoder_kwargs["embed_table"] = green["embed_table"]
         gdec.rollout_role = None
-        self._install_decoder(gdec)
+        self._install_decoder(gdec, edge="rollout_promote")
         self.version = rollout.version
         # green's work in flight rides over: its waiting map and lag-1
         # chunk belong to the (new) primary now
