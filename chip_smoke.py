@@ -201,7 +201,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the card, exit 0 and each family within its bound (3.0% / 0.7% /
    0.7%), its error, epochs, best epoch, seconds and images/s printed;
    beside it, digits_mlp, transformer_digits and som_digits through the
-   CLI at once, each exit 0; ``python -m veles_tpu_torch autotune`` for the wide
+   CLI at once, each exit 0 (parity and the samples start before phase
+   16 and run beside phases 16 and 17, whose checks read no clock; their
+   seconds and images/s are read under that load); ``python -m
+   veles_tpu_torch autotune`` for the wide
    MLP's K6 and K5 products and AlexNet's head (GEMM), the serving
    model's qkv prefill at M = 256 and its five decode products at M = 8
    (``--int8``) and its page size and head width (``--paged-attention``)
@@ -650,6 +653,9 @@ TOP2_GAP = 1e-3
 #: the dense float32 rate outside the tensor cores (NVIDIA data sheet),
 #: operations/s: the peak for K5's and K6's f32-operand runs
 F32_OPS_PER_S = 67e12
+#: f32 products in 3xTF32 on the tensor cores (three TF32 products an f32
+#: product, 495 TFLOP/s TF32 dense): the ceiling of K8 and K9's f32 route
+F32_TF32X3_OPS_PER_S = 495e12 / 3
 #: K5 and K6 at the training path's shapes (the wide MLP, bench.py:306:
 #: 784 -> 4096 (tanh) -> 10 at minibatch 4096): (m, k, n) of the hidden
 #: layer's forward (K6), its weight gradient x.T @ err (K5) and the input
@@ -3380,20 +3386,30 @@ def flash_wide_phase(timer, device, gen):
 
 
 def flash_f32_phase(timer, device, gen):
-    """K8 and K9's f32 route (C11) against their plain versions at
-    FLASH_F32_BWD_SHAPES, causal, under the row-wise rule with its planted
-    fault (FLASH_F32_BWD_RTOL), on the f32 forward's out and lse; timed at
-    the first shape beside the plain version, SDPA's f32 autograd
-    backward (one call for dQ, dK and dV) and the bound at the f32 rate
-    without the tensor cores (F32_OPS_PER_S). Returns {"dkv": ..., "dq":
-    ...}: each the f32 route's readings for the kernels line."""
+    """K8 and K9's f32 route (C11; 3xTF32 on the tensor cores) against
+    their plain versions at FLASH_F32_BWD_SHAPES, causal, under the
+    row-wise rule with its planted fault (FLASH_F32_BWD_RTOL), on the f32
+    forward's out and lse; timed at the first shape beside the plain
+    version, SDPA's f32 autograd backward (one call for dQ, dK and dV),
+    and K7's f32 route beside SDPA's f32 forward, each with its TFLOP/s
+    and its bounds at the f32 rate without the tensor cores
+    (F32_OPS_PER_S, "bound_fma_ms") and at the 3xTF32 rate
+    (F32_TF32X3_OPS_PER_S, "bound_3xtf32_ms"). "bound_ms" is the bound at
+    the rate of the kernel's own route: 3xTF32 for K8 and K9, f32 FMA for
+    K7. Returns {"fwd": ..., "dkv": ..., "dq": ...}: each the f32 route's
+    readings for the kernels line."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    worst = {"dkv": 0.0, "dq": 0.0}
+    worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
     got = {}
     for shape in FLASH_F32_BWD_SHAPES:
         label = "x".join(map(str, shape)) + " f32"
         q, k, v, do = flash_problem(gen, device, shape, torch.float32)
         out, lse = flash_attention_fwd(q, k, v, True)
+        ref, _ = _flash_attention_fwd_plain(q, k, v, True)
+        torch.cuda.synchronize()
+        worst["fwd"] = max(worst["fwd"], flash_error(
+            "K7 flash_attention_fwd " + label, out, ref, K7_F32_RTOL))
+        del ref
         di = _row_dot(out, do)
         dk, dv = flash_attention_dkv(q, k, v, do, lse, di, True)
         ref_dk, ref_dv = _flash_attention_dkv_plain(q, k, v, do, lse, di,
@@ -3419,39 +3435,60 @@ def flash_f32_phase(timer, device, gen):
         leaves = [t.detach().requires_grad_(True) for t in heads_first]
         lib_out = sdpa(*leaves, is_causal=True)
         lib_do = do.transpose(1, 2)
-        library_ms = timer(lambda: torch.autograd.grad(
+        library_bwd_ms = timer(lambda: torch.autograd.grad(
             lib_out, leaves, lib_do, retain_graph=True))
         del lib_out, leaves
+        library_fwd_ms = timer(lambda: sdpa(*heads_first, is_causal=True))
         operand = q.numel() * q.element_size()
         row_stats = lse.numel() * 4
-        for key, products, nbytes, fn, plain in (
-                ("dkv", 4, 6 * operand + 2 * row_stats,
-                 lambda: flash_attention_dkv(q, k, v, do, lse, di, True),
-                 lambda: _flash_attention_dkv_plain(q, k, v, do, lse, di,
-                                                    True)),
-                ("dq", 3, 5 * operand + 2 * row_stats,
-                 lambda: flash_attention_dq(q, k, v, do, lse, di, True),
-                 lambda: _flash_attention_dq_plain(q, k, v, do, lse, di,
-                                                   True))):
+        bwd_library = ("scaled_dot_product_attention's f32 autograd "
+                       "backward (dQ, dK and dV in one call)")
+        for key, number, products, nbytes, fn, plain, library_ms, library \
+                in (("fwd", "K7", 2, 4 * operand + row_stats,
+                     lambda: flash_attention_fwd(q, k, v, True),
+                     lambda: _flash_attention_fwd_plain(q, k, v, True),
+                     library_fwd_ms,
+                     "scaled_dot_product_attention's f32 forward"),
+                    ("dkv", "K8", 4, 6 * operand + 2 * row_stats,
+                     lambda: flash_attention_dkv(q, k, v, do, lse, di, True),
+                     lambda: _flash_attention_dkv_plain(q, k, v, do, lse, di,
+                                                        True),
+                     library_bwd_ms, bwd_library),
+                    ("dq", "K9", 3, 5 * operand + 2 * row_stats,
+                     lambda: flash_attention_dq(q, k, v, do, lse, di, True),
+                     lambda: _flash_attention_dq_plain(q, k, v, do, lse, di,
+                                                       True),
+                     library_bwd_ms, bwd_library)):
             ms, plain_ms = timer(fn), timer(plain)
+            ops = flash_ops(shape, products)
             bytes_s = nbytes / HBM_BYTES_PER_S
-            ops_s = flash_ops(shape, products) / F32_OPS_PER_S
+            fma_ms = 1e3 * max(bytes_s, ops / F32_OPS_PER_S)
+            tf32x3_ms = 1e3 * max(bytes_s, ops / F32_TF32X3_OPS_PER_S)
+            rate = F32_OPS_PER_S if key == "fwd" else F32_TF32X3_OPS_PER_S
+            ops_s = ops / rate
             bound_ms = 1e3 * max(bytes_s, ops_s)
             got[key] = {"shape": list(shape), "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": ("bytes" if bytes_s >= ops_s
                                      else "operations"),
-                        "library_ms": library_ms,
-                        "library": "scaled_dot_product_attention's f32 "
-                                   "autograd backward (dQ, dK and dV in "
-                                   "one call)"}
-            print("%s flash_attention_%s %s causal (the f32 route): ms %.4f "
-                  "(%.1f TFLOP/s) plain_ms %.4f sdpa_bwd_f32_ms %.4f "
-                  "bound_ms %.4f (%s, %.0f TFLOP/s f32 without the tensor "
-                  "cores)" % ("K8" if key == "dkv" else "K9", key, label,
-                              ms, flash_ops(shape, products) / ms / 1e9,
-                              plain_ms, library_ms, bound_ms,
-                              got[key]["bound_by"], F32_OPS_PER_S / 1e12))
+                        "bound_fma_ms": fma_ms, "bound_3xtf32_ms": tf32x3_ms,
+                        "library_ms": library_ms, "library": library}
+            print("%s flash_attention_%s %s causal (the f32 route, %s): ms "
+                  "%.4f (%.1f TFLOP/s) plain_ms %.4f sdpa_%s_f32_ms %.4f "
+                  "bound_ms %.4f (%s, at the route's %.0f TFLOP/s); bounds "
+                  "%.4f at %.0f TFLOP/s f32 FMA and %.4f at %.0f TFLOP/s "
+                  "3xTF32; %.2fx the first, %.2fx the second"
+                  % (number, key, label,
+                     "f32 FMA" if key == "fwd" else "3xTF32", ms,
+                     ops / ms / 1e9, plain_ms,
+                     "fwd" if key == "fwd" else "bwd", library_ms, bound_ms,
+                     got[key]["bound_by"], rate / 1e12, fma_ms,
+                     F32_OPS_PER_S / 1e12, tf32x3_ms,
+                     F32_TF32X3_OPS_PER_S / 1e12, ms / fma_ms,
+                     ms / tf32x3_ms))
+        print("K8 + K9 f32 %.4f ms against sdpa_bwd_f32_ms %.4f (%.2fx)"
+              % (got["dkv"]["ms"] + got["dq"]["ms"], library_bwd_ms,
+                 (got["dkv"]["ms"] + got["dq"]["ms"]) / library_bwd_ms))
         del q, k, v, do, out, lse, di
     for key in got:
         got[key]["max_abs_err"] = worst[key]
@@ -5029,29 +5066,55 @@ def digits_phase():
                                  "canonical split")
 
 
-def parity_phase(out):
-    """``python -m veles_tpu_torch parity`` on the card: exit 0 and every
-    family within its bound; beside it, the three digits samples through
-    the CLI, all at once: each exits 0."""
+def parity_start(out):
+    """Start ``python -m veles_tpu_torch parity`` on the card and, beside
+    it, the three digits samples through the CLI, all at once, each
+    writing its log into ``out``; returns the state parity_finish reads.
+    They run beside the phases between the two calls."""
     samples = {"digits_mlp": ["samples/digits_config.py"],
                "transformer_digits": ["-"], "som_digits": ["-"]}
-    running = {}
-    t0 = time.perf_counter()
-    for name, config in samples.items():
-        log = open(os.path.join(out, name + ".log"), "w+")
-        result = os.path.join(out, name + ".json")
-        running[name] = (subprocess.Popen(
-            [sys.executable, "-m", "veles_tpu_torch",
-             os.path.join(REPO_DIR, "veles_tpu_torch", "samples",
-                          name + ".py"), *config, "--result-file", result],
-            cwd=REPO_DIR, env=port_env(), stdout=log,
-            stderr=subprocess.STDOUT),
-            log, result)
+    state = {"out": out, "t0": time.perf_counter(), "samples": {}}
     try:
-        parity_run(out)
+        for name, config in samples.items():
+            log = open(os.path.join(out, name + ".log"), "w+")
+            result = os.path.join(out, name + ".json")
+            state["samples"][name] = (subprocess.Popen(
+                [sys.executable, "-m", "veles_tpu_torch",
+                 os.path.join(REPO_DIR, "veles_tpu_torch", "samples",
+                              name + ".py"), *config, "--result-file",
+                 result],
+                cwd=REPO_DIR, env=port_env(), stdout=log,
+                stderr=subprocess.STDOUT), log, result)
+        log = open(os.path.join(out, "parity.log"), "w+")
+        state["parity"] = (subprocess.Popen(
+            [sys.executable, "-m", "veles_tpu_torch", "parity", "--out",
+             os.path.join(out, "PARITY.json")],
+            cwd=REPO_DIR, env=port_env(), stdout=log,
+            stderr=subprocess.STDOUT), log)
+    except BaseException:
+        parity_kill(state)
+        raise
+    return state
+
+
+def parity_kill(state):
+    """Stop whatever parity_start started (a phase between failed)."""
+    for proc, log, *_ in list(state["samples"].values()) + [
+            state.get("parity", (None, None))]:
+        if proc is not None:
+            proc.kill()
+            proc.wait()
+            log.close()
+
+
+def parity_finish(state):
+    """Wait for parity_start's children: parity exits 0 with every family
+    within its bound, and each digits sample exits 0."""
+    failed = []
+    try:
+        parity_run(state)
     finally:
-        failed = []
-        for name, (proc, log, result) in running.items():
+        for name, (proc, log, result) in state["samples"].items():
             try:
                 code = proc.wait(timeout=600)
             except subprocess.TimeoutExpired:
@@ -5067,20 +5130,30 @@ def parity_phase(out):
             if code:
                 failed.append("%s (exit %d):\n%s" % (name, code,
                                                       text[-3000:]))
-    print("the three digits samples, run at once beside parity: %.1f s"
-          % (time.perf_counter() - t0))
+    print("the three digits samples, run at once beside parity: %.1f s "
+          "from their start" % (time.perf_counter() - state["t0"]))
     if failed:
         raise AssertionError("samples failed: " + "\n".join(failed))
 
 
-def parity_run(out):
-    """``python -m veles_tpu_torch parity`` and its verdict's checks."""
-    path = os.path.join(out, "PARITY.json")
-    proc, wall = run_port(["parity", "--out", path])
+def parity_run(state):
+    """Wait for the parity run (at most 900 s from its start) and check
+    its verdict."""
+    proc, log = state["parity"]
+    try:
+        proc.wait(timeout=max(1.0, 900 - (time.perf_counter()
+                                          - state["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    wall = time.perf_counter() - state["t0"]
+    log.seek(0)
+    text = log.read()
+    log.close()
     if proc.returncode:
         raise AssertionError("parity exited %d:\n%s"
-                             % (proc.returncode, proc.stderr[-4000:]))
-    verdict = json.load(open(path))
+                             % (proc.returncode, text[-4000:]))
+    verdict = json.load(open(os.path.join(state["out"], "PARITY.json")))
     for entry in verdict["results"]:
         print("parity %s: validation error %.3f%% (bound %.1f%%), %d "
               "epochs, best epoch %d, %.1f s, %.1f images/s"
@@ -5089,7 +5162,7 @@ def parity_run(out):
                  entry["epochs"] * DIGITS_EPOCH_IMAGES / entry["seconds"]))
         if not entry["pass"] or entry["val_error_pct"] > entry["bound_pct"]:
             raise AssertionError("%s missed its bound" % entry["name"])
-    print("parity: %s (mode %s), exit 0 in %.1f s"
+    print("parity: %s (mode %s), exit 0 in %.1f s from its start"
           % ("PASS" if verdict["pass"] else "FAIL", verdict["mode"], wall))
     if not verdict["pass"] or len(verdict["results"]) != 3:
         raise AssertionError("the parity verdict failed")
@@ -11539,7 +11612,7 @@ def main():
                k5_phase(timer, device, gen), k6_phase(timer, device, gen),
                *flash_phase(timer, device, gen)]
     wide = flash_wide_phase(timer, device, gen)
-    # K8 and K9's f32 route (C11), reported beside their bf16 readings
+    # K7-K9's f32 routes, reported beside their bf16 readings
     flash_f32 = flash_f32_phase(timer, device, gen)
 
     def clock(label):
@@ -11613,50 +11686,64 @@ def main():
                           + long_graph[name])
     som_phase(device)
     clock("the long-context and SOM phases")
-    # the rest of the training surface: MNIST784 through its idx loader,
-    # the regression family (its knobs-on wide MLP a main path of K5 and
-    # K6), the normalizers and the file loaders
-    t_a4 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as directory:
-        mnist_phase(device, directory)
-        mse = mse_phase(device)
-        for name in ("blocked_matmul", "dense_epilogue"):
-            launches[name] += mse[name]
-        mse_tiers_phase(device)
-        mse_agreement_phase(device)
-        normalizers_phase(device)
-        loader_files_phase(device, directory)
-        print("training-surface phases (MNIST784 loader, MSE, normalizers, "
-              "file loaders): %.1f s" % (time.perf_counter() - t_a4))
-        # snapshots, the CLI, the native export and per-tick REST
-        # serving: the CLI runs (K6 and K5, counted in the subprocess)
-        # and the served ticks (K6) are main paths
-        t_a5 = time.perf_counter()
-        out = os.path.join(directory, "a5")
-        os.makedirs(out)
-        for name, n in a5_cli_phase(device, directory, out).items():
-            launches[name] += n
-        a5_agreement_phase(device, out)
-        native_build.join()
-        if native_done:
-            # whether the g++ build overlapped any phase after the build
-            print("native runtime built with g++ in %.1f s, %.1f s %s the "
-                  "kernels' build ended" % (
-                      native_done[0] - t0, abs(built - native_done[0]),
-                      "before" if native_done[0] <= built else "after"))
-        restored = a5_native_phase(device, out)
-        for name, n in a5_rest_phase(device, restored).items():
-            launches[name] += n
-        del restored
-        print("snapshot, CLI, export and REST phases: %.1f s"
-              % (time.perf_counter() - t_a5))
+    # phase 18's parity run and the three digits samples start here and
+    # run beside the training-surface, snapshot, CLI, export and REST
+    # phases (their checks read no clock)
+    parity_dir = tempfile.TemporaryDirectory()
+    parity = parity_start(parity_dir.name)
+    try:
+        # the rest of the training surface: MNIST784 through its idx loader,
+        # the regression family (its knobs-on wide MLP a main path of K5 and
+        # K6), the normalizers and the file loaders
+        t_a4 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as directory:
+            mnist_phase(device, directory)
+            mse = mse_phase(device)
+            for name in ("blocked_matmul", "dense_epilogue"):
+                launches[name] += mse[name]
+            mse_tiers_phase(device)
+            mse_agreement_phase(device)
+            normalizers_phase(device)
+            loader_files_phase(device, directory)
+            print("training-surface phases (MNIST784 loader, MSE, "
+                  "normalizers, file loaders): %.1f s"
+                  % (time.perf_counter() - t_a4))
+            # snapshots, the CLI, the native export and per-tick REST
+            # serving: the CLI runs (K6 and K5, counted in the subprocess)
+            # and the served ticks (K6) are main paths
+            t_a5 = time.perf_counter()
+            out = os.path.join(directory, "a5")
+            os.makedirs(out)
+            for name, n in a5_cli_phase(device, directory, out).items():
+                launches[name] += n
+            a5_agreement_phase(device, out)
+            native_build.join()
+            if native_done:
+                # whether the g++ build overlapped any phase after the build
+                print("native runtime built with g++ in %.1f s, %.1f s %s the "
+                      "kernels' build ended" % (
+                          native_done[0] - t0, abs(built - native_done[0]),
+                          "before" if native_done[0] <= built else "after"))
+            restored = a5_native_phase(device, out)
+            for name, n in a5_rest_phase(device, restored).items():
+                launches[name] += n
+            del restored
+            print("snapshot, CLI, export and REST phases: %.1f s"
+                  % (time.perf_counter() - t_a5))
+    except BaseException:
+        parity_kill(parity)
+        parity_dir.cleanup()
+        raise
     # parity on the card, the digits samples, the autotune and the
     # routes its verdicts choose: the tuned wide MLP (K6, and K5 where the
     # verdict says) and the tuned int8 burst (K2) are main paths
     t_a6 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
         digits_phase()
-        parity_phase(out)
+        try:
+            parity_finish(parity)
+        finally:
+            parity_dir.cleanup()
         cache, stored = autotune_phase(device, out)
         for name, n in tuned_mlp_phase(device, cache, stored).items():
             launches[name] += n
@@ -11771,9 +11858,9 @@ def main():
                                                      - t0))
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
-        if "f32" in entry:
-            # the f32 route's launches on its main path: phase 28's f32
-            # Ulysses step on both ranks (among "launches" too)
+        if entry["name"] + "_f32" in launches:
+            # K8 and K9's f32 route's launches on its main path: phase
+            # 28's f32 Ulysses step on both ranks (among "launches" too)
             entry["f32"]["launches"] = launches[entry["name"] + "_f32"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

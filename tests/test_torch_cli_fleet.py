@@ -4,10 +4,11 @@
 
 The master and its slaves are real processes: a CLI slave serves jobs
 until the MASTER is done, and ``-n localhost`` makes the master spawn its
-own slave. Every process has a deadline that kills it; the slaves give
-up reconnecting after one attempt, so none outlives its master for
-long. The master-to-slave argv transform of ``--nodes`` gives the JAX
-package's command for every edge form."""
+own slave. Every process has a deadline that kills it; a slave starts
+only once its master's log says it listens, and gives up reconnecting
+after one attempt, so none outlives its master for long. The
+master-to-slave argv transform of ``--nodes`` gives the JAX package's
+command for every edge form."""
 
 import json
 import os
@@ -65,8 +66,24 @@ def _argv(wf_file, *flags):
             "--device", "cpu"] + list(flags)
 
 
-def _wait_all(procs):
-    deadline = time.monotonic() + DEADLINE
+def _start(argv, log):
+    """A process of ``argv`` with its output in the file ``log``."""
+    with open(log, "w") as out:
+        return subprocess.Popen(argv, env=_env(), stdout=out,
+                                stderr=subprocess.STDOUT)
+
+
+def _wait_listening(master, log, deadline):
+    """Wait until the master's log says it listens ("master listening
+    on HOST:PORT", written once its socket is bound), it has exited, or
+    ``deadline`` has passed: its slaves connect only then, within their
+    reconnect budget of one attempt."""
+    while time.monotonic() < deadline and master.poll() is None \
+            and "master listening on" not in log.read_text():
+        time.sleep(0.05)
+
+
+def _wait_all(procs, deadline):
     try:
         return [proc.wait(timeout=max(deadline - time.monotonic(), 1))
                 for proc in procs]
@@ -89,14 +106,14 @@ def test_cli_master_slave_roundtrip(tmp_path, wf_file):
     the master writes the results."""
     result_file = tmp_path / "res.json"
     port = _free_port()
-    master = subprocess.Popen(
-        _argv(wf_file, "-l", "127.0.0.1:%d" % port, "--result-file",
-              str(result_file)),
-        env=_env(), stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
-    slave = subprocess.Popen(
-        _argv(wf_file, "-m", "127.0.0.1:%d" % port),
-        env=_env(), stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
-    assert _wait_all([master, slave]) == [0, 0]
+    deadline = time.monotonic() + DEADLINE
+    log = tmp_path / "master.log"
+    master = _start(_argv(wf_file, "-l", "127.0.0.1:%d" % port,
+                          "--result-file", str(result_file)), log)
+    _wait_listening(master, log, deadline)
+    slave = _start(_argv(wf_file, "-m", "127.0.0.1:%d" % port),
+                   tmp_path / "slave.log")
+    assert _wait_all([master, slave], deadline) == [0, 0]
     results = json.loads(result_file.read_text())
     assert results["epochs"] == 2
     assert results["best_validation_errors"] is not None
@@ -107,12 +124,13 @@ def test_cli_nodes_spawns_local_slave(tmp_path, wf_file):
     process running ``python -m veles_tpu_torch``) and training ends
     without any manual slave."""
     result_file = tmp_path / "res.json"
+    deadline = time.monotonic() + DEADLINE
     master = subprocess.Popen(
         _argv(wf_file, "-l", "127.0.0.1:%d" % _free_port(), "-n",
               "localhost", "--result-file", str(result_file)),
         env=_env(), stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT,
         cwd=str(tmp_path))
-    assert _wait_all([master]) == [0]
+    assert _wait_all([master], deadline) == [0]
     assert json.loads(result_file.read_text())["epochs"] == 2
 
 
@@ -180,13 +198,12 @@ def test_cli_pod_slave(tmp_path, wf_file, plane):
     argvs += [_argv(wf_file, "-m", "127.0.0.1:%d" % port, *flags,
                     "--coordinator", coordinator, "--num-processes", "2",
                     "--process-id", str(rank)) for rank in range(2)]
-    procs = []
-    for argv, log in zip(argvs, logs):
-        with open(log, "w") as out:
-            procs.append(subprocess.Popen(argv, env=_env(), stdout=out,
-                                          stderr=subprocess.STDOUT))
-    assert _wait_all(procs) == [0, 0, 0], [log.read_text()[-2000:]
-                                           for log in logs]
+    deadline = time.monotonic() + DEADLINE
+    procs = [_start(argvs[0], logs[0])]
+    _wait_listening(procs[0], logs[0], deadline)
+    procs += [_start(argv, log) for argv, log in zip(argvs[1:], logs[1:])]
+    assert _wait_all(procs, deadline) == [0, 0, 0], [log.read_text()[-2000:]
+                                                     for log in logs]
     results = json.loads(result_file.read_text())
     assert results["epochs"] == 2
     master, rank0, rank1 = (log.read_text() for log in logs)

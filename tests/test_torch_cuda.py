@@ -966,9 +966,10 @@ def test_flash_backward_kernels_match_plain(cuda, case):
                          ids=lambda c: "b%d_q%d_k%d_h%d_d%d_%s" % (
                              *c[:5], "causal" if c[5] else "full"))
 def test_flash_backward_f32_kernels_match_plain(cuda, case):
-    """K8 and K9's f32 route (C11): f32 FMA with a chunk axis, P and dS
-    unrounded, against the f32 plain versions at every case; each call
-    counts one launch in ``launches`` and in ``launches_f32``."""
+    """K8 and K9's f32 route (C11): 3xTF32 on the tensor cores with a
+    chunk axis, P and dS unrounded, against the f32 plain versions at
+    every case; each call counts one launch in ``launches`` and in
+    ``launches_f32``."""
     batch, t_q, t_k, heads, dim, causal = case
     q, k, v = _flash_inputs(cuda, batch, t_q, t_k, heads, dim,
                             torch.float32)
@@ -1023,6 +1024,32 @@ def test_flash_backward_f32_at_the_step_shapes(cuda, shape):
     torch.cuda.synchronize()
     assert (flash_attention_dkv.launches_f32,
             flash_attention_dq.launches_f32) == f32
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_backward_f32_ragged_wide_heads(cuda, causal):
+    """K8 and K9's f32 route at (2, 5000, 5000, 2, 384): 5000 positions
+    fill no whole block of 128 rows and no whole walked tile of 32, so the
+    ring's last tiles and the last block's rows are masked, and 384-wide
+    heads walk three score chunks and a value item a tile. Within 1e-4 of
+    the plain versions row by row, and a planted fault (the last 64
+    positions' rows x 0.9) reads past the limit."""
+    q, k, v = _flash_inputs(cuda, 2, 5000, 5000, 2, 384, torch.float32)
+    do = torch.randn(q.shape, generator=cuda, device="cuda")
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    di = attn._row_dot(out, do)
+    got = (*flash_attention_dkv(q, k, v, do, lse, di, causal),
+           flash_attention_dq(q, k, v, do, lse, di, causal))
+    refs = (*_flash_attention_dkv_plain(q, k, v, do, lse, di, causal),
+            _flash_attention_dq_plain(q, k, v, do, lse, di, causal))
+    torch.cuda.synchronize()
+    for grad, ref in zip(got, refs):
+        assert grad.dtype == torch.float32 and grad.shape == ref.shape
+        _flash_close(grad, ref, grad=True)
+        planted = grad.clone()
+        planted[:, -64:] *= 0.9
+        with pytest.raises(AssertionError):
+            _flash_close(planted, ref, grad=True)
 
 
 @pytest.mark.parametrize("dim", [128, 256, 384])

@@ -389,9 +389,9 @@ def flash_attention_dkv(q, k, v, do, lse, di, causal=False):
     route's launches also :attr:`flash_attention_dkv.launches_f32`) and
     reads q, k, v and dO in place: bfloat16 at head width 128 through TMA
     and wgmma, at other multiples of 128 with a grid axis over 128-wide
-    output chunks; float32 at every multiple of 128 in f32 FMA on the CUDA
-    cores, P and dS unrounded (``csrc/flash_attention_bwd.cu``). On a CPU
-    tensor the plain version runs."""
+    output chunks; float32 at every multiple of 128 in 3xTF32 on the
+    tensor cores, P and dS unrounded (``csrc/flash_attention_bwd.cu``). On
+    a CPU tensor the plain version runs."""
     _check_backward("flash_attention_dkv", q, k, v, do, lse, di, causal)
     if q.device.type == "cpu":
         return _flash_attention_dkv_plain(q, k, v, do, lse, di, causal)

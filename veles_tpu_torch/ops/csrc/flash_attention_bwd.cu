@@ -66,22 +66,65 @@
 // through shared memory (the operand tiles reloaded a chunk at a time) and
 // accumulating only its chunk of dK and dV, or of dQ.
 //
-// f32 operands (a training caller whose parameters are f32: the
-// sequence-parallel transformer step's Ulysses attention) run dkv_f32 /
-// dq_f32 at every multiple of 128: true f32 FMA on the CUDA cores with
-// K7's fwd_f32 chunk axis over 128-wide output columns, the same lse and
-// di, no atomics (every output element summed by one block in a fixed
-// order), and P and dS kept in f32, as the f32 plain versions keep them.
-// 256 threads a block, eight to a row: a block owns 32 keys (K8) or 32
-// query rows (K9) and walks the other axis in tiles of 32, each thread
-// summing S and dP for four of the tile's columns over the head width
-// (128-wide steps through shared memory), then 16 columns of its chunk of
-// dK and dV (or dQ) from the tile's P and dS rows in shared memory. What
-// bounds them: operations on the CUDA cores (67 TFLOP/s f32 on an H100
-// SXM), K8 4 and K9 3 products of 2 D a visible pair: at (1, 8192, 4, 128)
-// causal 137 and 103 GFLOP, 2.05 and 1.54 ms. They are simple, not fast.
+// f32 operands (a training caller whose parameters are f32: the default
+// precision of the transformer step, on one process and in each rank's
+// Ulysses attention, once T >= 4096) run dkv_tf32 / dq_tf32 at every
+// multiple of 128, with the same lse and di and P and dS kept in f32, as
+// the f32 plain versions keep them. They replace C11's f32 FMA kernels.
+//
+// What bounds them: operations, 4 (K8) and 3 (K9) products of 2 D a
+// visible pair, at (1, 8192, 4, 128) causal 137 and 103 GFLOP: 2.05 and
+// 1.54 ms at the 67 TFLOP/s of f32 FMA on the CUDA cores, 0.83 and 0.62 ms
+// at 165 TFLOP/s, a third of the tensor cores' 495 TFLOP/s in TF32.
+//
+// Design: every product runs 3xTF32 on the tensor cores (mma.sync m16n8k8,
+// TF32 operands, f32 accumulators): each f32 operand splits into hi and
+// lo in registers, and a product sums lo * hi, hi * lo and hi * hi,
+// 2^-22 (dP, rounded to nearest) or 2^-20 (the others, truncated) of
+// relative error where one TF32 product alone keeps 2^-11
+// (tests/test_torch_flash_f32_split.py shows that one misses the 1e-4 row
+// rule and three meet it, either way). wgmma takes TF32
+// operands from shared memory K-major only, and three of the five
+// products read their B operand MN-major, so all five run on mma.sync,
+// whose fragments load from padded shared memory by 32-bit loads.
+// - The tensor cores round their own sums toward zero, so no sum is
+//   carried in an mma's accumulator for long: a score product sums each
+//   8-deep step from zero, a value product each walked tile, and those
+//   parts are added in f32, rounding to nearest (rows within 4.4e-6 of
+//   the f32 plain versions at (1, 8192, 4, 128) causal on an H100, where
+//   carrying the sums in the mma drifted to 1.1e-4).
+// - The causal first query's dS is P (dP - di) with dP = di in exact
+//   arithmetic: the row holds only rounding, and the 1e-4 row rule
+//   against the plain version compares two roundings of zero there. K9
+//   takes that one dP as a sequential f32 FMA dot, the order in which
+//   cuBLAS's f32 product summed it on the H100 the design was read on,
+//   so the row is the plain version's. No API promises cuBLAS's order:
+//   another cuBLAS can move the plain version's row, and the card tests
+//   with it. Against float64 the row reads 4.3e-4, 7.3e-4 and 3.1e-4
+//   under the row rule with this dot at (1, 8192, 4, 128), (2, 333, 2,
+//   128) and (1, 4096, 2, 256), and 7.7e-4, 1.2e-4 and 1.1e-4 with the
+//   3xTF32 product (tools/flash_f32_ab.py's no_first_dot).
+// - One block of eight warps owns 128 keys (K8) or query rows (K9), 16 a
+//   warp, and walks the other axis in tiles of 32. At head width 128 the
+//   own K and V (or Q and dO, 128 KB f32) stay in shared memory for the
+//   walk; the walked tiles (K8: Q, dO, their lse and di; K9: K and V) come
+//   through a two-stage cp.async ring, the next tile's copies in flight
+//   while the block computes on this one. 203 KB a block.
+// - A warp's S^T and dP^T (K8) or S and dP (K9), 16 x 32, stay in
+//   registers; P and dS are built there and feed the value products
+//   (dV += P^T dO, dK += dS^T Q; dQ += dS K) as A fragments, the k order
+//   inside each 8-wide step permuted to match the accumulator's layout
+//   and the walked tile's B rows read in the same order.
+// - Wider heads keep a chunk axis over 128-wide output columns: a walked
+//   tile is one item per 128-wide chunk of S and dP, each reloading the
+//   block's own chunk, then one item holding the tile's output chunk.
+// - Causal walks start (K8) or stop (K9) at the block's diagonal tile, a
+//   warp with no visible pair in a tile skips it, and the grids run the
+//   longest walks first. No atomics: every output element is summed by
+//   one warp in a fixed order, so two runs agree bit for bit.
 
 #include "flash_tiles.cuh"
+#include "int8_tile.cuh"  // cp_async
 #include "sm90.cuh"
 
 using namespace flash_tiles;
@@ -716,203 +759,461 @@ __global__ void __launch_bounds__(kThreads)
   store_chunk<kChunk>(dq, dqa, b, h, H, Tq, D, oc * kChunk, w0, 1.f, 1.f);
 }
 
-// ---- f32, any multiple of 128: FMA, a chunk axis ---------------------------
+// ---- f32, any multiple of 128: 3xTF32 on the tensor cores ----------------
 
-constexpr int kF32Threads = 256;
-constexpr int kF32Own = 32;   // K8: keys a block; K9: query rows a block
-constexpr int kF32Walk = 32;  // the walked tile: K8 queries, K9 keys
-// rows padded by 4 floats: the eight rows a warp reads at one column fall
-// on eight bank quads
-constexpr int kF32LD = kChunk + 4;
-constexpr int kF32PLD = kF32Walk + 1;
+constexpr int kT32Threads = 256;  // eight warps, 16 of the block's rows each
+constexpr int kT32Own = 128;      // K8: keys a block; K9: query rows a block
+constexpr int kT32Walk = 32;      // the walked tile: K8 queries, K9 keys
+constexpr int kT32N = kT32Walk / 8;  // the walked tile's 8-wide n-tiles
+// rows padded by 4 floats (a row stride of 4 mod 32 banks): every
+// fragment load of a warp, eight rows by four columns or four row pairs
+// by eight columns, falls on 32 distinct banks
+constexpr int kT32LD = kChunk + 4;
+constexpr int kT32Tile = kT32Walk * kT32LD;  // a walked tile's floats
+// a ring stage: two walked tiles (K8: Q and dO, K9: K and V) and K8's 32
+// lse and 32 di values
+constexpr int kT32Stage = 2 * kT32Tile + 2 * kT32Walk;
+constexpr size_t kT32Smem =
+    (2 * kT32Own * kT32LD + 2 * kT32Stage) * sizeof(float);
 
-// s[j] += own row r . walk row (c8 + 8 j) over one 128-wide chunk, and the
-// same for a second pair of tiles (S and dP share their loop)
-__device__ __forceinline__ void f32_scores(float (&s)[kF32Walk / 8],
-                                           float (&t)[kF32Walk / 8],
-                                           const float* a, const float* b,
-                                           const float* c, const float* d,
-                                           int r, int c8) {
-#pragma unroll 8
-  for (int x = 0; x < kChunk; ++x) {
-    const float ax = a[r * kF32LD + x], cx = c[r * kF32LD + x];
+// Copy rows [r0, r0 + R) of one 128-wide column chunk (`g` points at its
+// first column; rows `st` floats apart) into a shared tile [R][kT32LD]
+// by cp.async; rows at or past `rows` are stored as zeros.
+template <int R>
+__device__ __forceinline__ void rows_async(float* s, const float* g,
+                                           long long st, int r0, int rows) {
+  constexpr int kVecs = kChunk / 4;  // 16-byte vectors a row
+  for (int i = threadIdx.x; i < R * kVecs; i += kT32Threads) {
+    const int r = i / kVecs, c = (i % kVecs) * 4;
+    float* dst = s + r * kT32LD + c;
+    if (r0 + r < rows)
+      int8_tile::cp_async<16>(dst, g + (r0 + r) * st + c);
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// x rounded to TF32 (round to nearest, ties away from zero: f32 bits are
+// sign and magnitude, so adding half of the lowest kept bit rounds the
+// magnitude), the low 13 bits zero: cvt.rna.tf32.f32 in integer form,
+// which stays off the slower conversion pipe (with the conversion K8 3.26
+// ms and K9 2.43 against 3.05 and 2.28 at (1, 8192, 4, 128) causal on an
+// H100, tools/flash_f32_ab.py)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo for the 3xTF32 products; the mma reads the top 19 bits of
+// each (sign, exponent, 10 bits of mantissa) and ignores the rest.
+// Rounded to nearest (kNearest), hi = tf32(x) and lo = tf32(x - hi) keep
+// 22 significant bits: lo * hi + hi * lo + hi * hi misses x * y by about
+// 2^-22 of it, where hi * hi alone misses by 2^-11. Truncated, hi = x's
+// top bits and lo = x - hi as the mma reads it: one operation less on
+// each side and 2^-20 of error, biased toward zero. dP takes the nearest
+// split: dS = P (dP - di) nearly cancels in a row with one dominant key
+// (the causal first rows), so dP's error is the one such a row shows;
+// S's error is damped by 1/sqrt(D) in the exponent and the value
+// products' spreads over their rows (tools/flash_f32_ab.py on an H100:
+// K8 + K9 at (1, 8192, 4, 128) causal 6.06 ms nearest everywhere, 5.33
+// this way; the worst row, a causal second query, 1.7e-5 of its norm
+// either way and 4.5e-5 with dP truncated too).
+template <bool kNearest>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if (kNearest) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
+  }
+}
+
+constexpr bool kNearestS = false, kNearestDP = true, kNearestV = false;
+
+// c += a * b on the tensor cores, m16n8k8 with TF32 operands: A (16 x 8)
+// a0 = A[g][t], a1 = A[g + 8][t], a2 = A[g][t + 4], a3 = A[g + 8][t + 4];
+// B (8 x 8) b0 = B[t][g], b1 = B[t + 4][g]; C as for the bf16 mma (g =
+// lane / 4, t = lane % 4)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b in 3xTF32: the two small cross terms first, then the large
+// one (CUTLASS's OpMultiplyAddFastF32). The tensor cores round their sums
+// toward zero: a sum carried in c across many calls drifts (1.1e-4 of a
+// dK row over a walk of 8192 queries against 4.0e-6 summed as here,
+// tools/flash_f32_ab.py on an H100), so the callers sum short runs
+// from zero and add them up in f32, rounding to nearest.
+template <bool kNearest>
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t h0, l0, h1, l1;
+  split<kNearest>(b0, h0, l0);
+  split<kNearest>(b1, h1, l1);
+  mma_tf32(c, al, h0, h1);
+  mma_tf32(c, ah, l0, l1);
+  mma_tf32(c, ah, h0, h1);
+}
+
+// the A fragment of rows [r0, r0 + 16) x columns [c0, c0 + 8) of a shared
+// [.][kT32LD] tile, split
+template <bool kNearest>
+__device__ __forceinline__ void load_a_split(uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4],
+                                             const float* s, int r0, int c0) {
+  const int lane = threadIdx.x & 31;
+  const float* p = s + (r0 + (lane >> 2)) * kT32LD + c0 + (lane & 3);
+  split<kNearest>(p[0], hi[0], lo[0]);
+  split<kNearest>(p[8 * kT32LD], hi[1], lo[1]);
+  split<kNearest>(p[4], hi[2], lo[2]);
+  split<kNearest>(p[8 * kT32LD + 4], hi[3], lo[3]);
+}
+
+// x (16 x kT32Walk) += own rows [r0, r0 + 16) of `a` times the walked
+// tile `b` transposed, and y likewise from `c` and `d`, over one 128-wide
+// chunk: S and dP (K9), S^T and dP^T (K8), both operands K-major. Each
+// 8-deep step sums from zero and adds to x and y in f32: dS takes dP -
+// di, and a few ulps of drift in dP are a large error where the two
+// nearly cancel (a causal row with a key or two).
+__device__ __forceinline__ void score_tiles(float (&x)[kT32N][4],
+                                            float (&y)[kT32N][4],
+                                            const float* a, const float* b,
+                                            const float* c, const float* d,
+                                            int r0) {
+  const int lane = threadIdx.x & 31;
+  const int row = (lane >> 2) * kT32LD + (lane & 3);
 #pragma unroll
-    for (int j = 0; j < kF32Walk / 8; ++j) {
-      s[j] = fmaf(ax, b[(c8 + 8 * j) * kF32LD + x], s[j]);
-      t[j] = fmaf(cx, d[(c8 + 8 * j) * kF32LD + x], t[j]);
+  for (int kk = 0; kk < kChunk / 8; ++kk) {
+    uint32_t ah[4], al[4], ch[4], cl[4];
+    load_a_split<kNearestS>(ah, al, a, r0, 8 * kk);
+    load_a_split<kNearestDP>(ch, cl, c, r0, 8 * kk);
+#pragma unroll
+    for (int n = 0; n < kT32N; ++n) {
+      const float* pb = b + 8 * n * kT32LD + row + 8 * kk;
+      const float* pd = d + 8 * n * kT32LD + row + 8 * kk;
+      float t[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
+      mma3<kNearestS>(t, ah, al, pb[0], pb[4]);
+      mma3<kNearestDP>(u, ch, cl, pd[0], pd[4]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[n][e] += t[e];
+        y[n][e] += u[e];
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(kF32Threads)
-    dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+// acc (16 x 128) += P (16 x kT32Walk, C fragments in registers) times the
+// walked tile `w` (kT32Walk x 128, rows as the product's k). A C fragment
+// holds columns 2t and 2t + 1 where an A fragment holds t and t + 4, so
+// the k order inside each 8-wide step is permuted: A position t takes
+// column 2t, position t + 4 column 2t + 1, and B's rows follow. Each
+// 8-wide column block sums the tile's products from zero and adds them
+// to acc in f32.
+__device__ __forceinline__ void value_tile(float (&acc)[kChunk / 8][4],
+                                           const float (&p)[kT32N][4],
+                                           const float* w) {
+  const int lane = threadIdx.x & 31;
+  const float* col = w + 2 * (lane & 3) * kT32LD + (lane >> 2);
+  uint32_t ah[kT32N][4], al[kT32N][4];
+#pragma unroll
+  for (int j = 0; j < kT32N; ++j) {
+    split<kNearestV>(p[j][0], ah[j][0], al[j][0]);
+    split<kNearestV>(p[j][2], ah[j][1], al[j][1]);
+    split<kNearestV>(p[j][1], ah[j][2], al[j][2]);
+    split<kNearestV>(p[j][3], ah[j][3], al[j][3]);
+  }
+  // four column blocks at a time: four independent chains of mmas (one
+  // chain of 12 left the tensor cores waiting: K8 3.16 ms against 3.05 at
+  // (1, 8192, 4, 128) causal on an H100, tools/flash_f32_ab.py)
+#pragma unroll
+  for (int n0 = 0; n0 < kChunk / 8; n0 += 4) {
+    float t[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[i][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kT32N; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* pw = col + 8 * j * kT32LD + 8 * (n0 + i);
+        mma3<kNearestV>(t[i], ah[j], al[j], pw[0], pw[kT32LD]);
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + i][e] += t[i][e];
+  }
+}
+
+// store a warp's 16 x 128 f32 accumulator as columns [col0, col0 + 128)
+// of rows r0 .. r0 + 15 of a contiguous (B, T, H, D) output; rows at or
+// past T are skipped
+__device__ __forceinline__ void store_f32(float* __restrict__ out,
+                                          const float (&acc)[kChunk / 8][4],
+                                          int b, int h, int H, int T, int D,
+                                          int col0, int r0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + (lane >> 2) + 8 * half;
+    if (row >= T) continue;
+    float* p = out + (((long long)b * T + row) * H + h) * D + col0 +
+               2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < kChunk / 8; ++n)
+      *reinterpret_cast<float2*>(p + 8 * n) =
+          make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+  }
+}
+
+// The walk of dkv_tf32 and dq_tf32: each walked tile is one item at head
+// width 128 (scores and values from one stage); at wider heads it is one
+// item a 128-wide chunk of the scores, each reloading the block's own
+// chunk, then one value item holding the walked tile's output chunk.
+__device__ __forceinline__ int items_a_tile(int chunks) {
+  return chunks == 1 ? 1 : chunks + 1;
+}
+
+__global__ void __launch_bounds__(kT32Threads, 1)
+    dkv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ di,
+             float* __restrict__ dk, float* __restrict__ dv, int H, int Tq,
+             int Tk, int D, int causal, float scale, Strides qs, Strides ks,
+             Strides vs, Strides dos) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sk = reinterpret_cast<float*>(smem_raw);  // [kT32Own][LD], a chunk
+  float* sv = sk + kT32Own * kT32LD;               // [kT32Own][LD], a chunk
+  float* ring = sv + kT32Own * kT32LD;  // 2 x {Q, dO tiles; lse, di}
+
+  const int chunks = D / kChunk, per_tile = items_a_tile(chunks);
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int oc = blockIdx.y % chunks, k0 = blockIdx.y / chunks * kT32Own;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c4 = lane & 3;
+  const int wk = 16 * warp;  // the warp's first key in the block
+  const int key0 = k0 + wk + (lane >> 2), key1 = key0 + 8;
+  const float scale_log2 = scale * kLog2e;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* dob = dout + b * dos.b + h * dos.h;
+  const float* lse_b = lse + ((long long)b * H + h) * Tq;
+  const float* di_b = di + ((long long)b * H + h) * Tq;
+
+  const int q_begin = causal ? k0 : 0;  // the block's diagonal tile
+  const int items = (Tq - q_begin + kT32Walk - 1) / kT32Walk * per_tile;
+  // item i into stage i % 2: the walked queries' chunk of Q and dO (the
+  // output chunk on a value item) and, on a value item, lse and di
+  auto issue = [&](int i) {
+    float* st = ring + (i % 2) * kT32Stage;
+    const int q0 = q_begin + i / per_tile * kT32Walk, part = i % per_tile;
+    const bool values = chunks == 1 || part == chunks;
+    const int col = (values ? oc : part) * kChunk;
+    rows_async<kT32Walk>(st, qb + col, qs.t, q0, Tq);
+    rows_async<kT32Walk>(st + kT32Tile, dob + col, dos.t, q0, Tq);
+    if (values && threadIdx.x < 2 * kT32Walk) {
+      const int r = threadIdx.x % kT32Walk;
+      const float* src = threadIdx.x < kT32Walk ? lse_b : di_b;
+      float* dst = st + 2 * kT32Tile + threadIdx.x;
+      if (q0 + r < Tq)
+        int8_tile::cp_async<4>(dst, src + q0 + r);
+      else
+        *dst = 0.f;
+    }
+  };
+
+  float dka[kChunk / 8][4], dva[kChunk / 8][4];
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  float st[kT32N][4], dpt[kT32N][4];  // S^T, dP^T: keys x queries
+
+  if (chunks == 1) {  // the block's keys stay for the whole walk
+    rows_async<kT32Own>(sk, kb, ks.t, k0, Tk);
+    rows_async<kT32Own>(sv, vb, vs.t, k0, Tk);
+  }
+  issue(0);
+  int8_tile::cp_async_commit();
+  if (items > 1) issue(1);
+  int8_tile::cp_async_commit();
+  for (int i = 0; i < items; ++i) {
+    const float* stage = ring + (i % 2) * kT32Stage;
+    const int q0 = q_begin + i / per_tile * kT32Walk, part = i % per_tile;
+    const bool values = chunks == 1 || part == chunks;
+    if (chunks > 1 && part < chunks) {  // the own keys' chunk `part`
+      rows_async<kT32Own>(sk, kb + part * kChunk, ks.t, k0, Tk);
+      rows_async<kT32Own>(sv, vb + part * kChunk, vs.t, k0, Tk);
+      int8_tile::cp_async_commit();
+      int8_tile::cp_async_wait<0>();
+    } else {
+      int8_tile::cp_async_wait<1>();
+    }
+    __syncthreads();  // item i (and the own chunk) has landed everywhere
+    // a warp whose keys all lie past the tile's queries skips it
+    if (!(causal && q0 + kT32Walk - 1 < k0 + wk)) {
+      if (part == 0) {
+#pragma unroll
+        for (int n = 0; n < kT32N; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+      }
+      if (part < chunks)  // S^T = K Q^T, dP^T = V dO^T
+        score_tiles(st, dpt, sk, stage, sv, stage + kT32Tile, wk);
+      if (values) {
+        // P^T = exp(s / sqrt(D) - lse), dS^T = P^T (dP^T - di) / sqrt(D),
+        // zero past T and above the diagonal (key > query)
+        const float* tlse = stage + 2 * kT32Tile;
+        const float* tdi = tlse + kT32Walk;
+#pragma unroll
+        for (int n = 0; n < kT32N; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = 8 * n + 2 * c4 + (e & 1), query = q0 + qi;
+            const int key = e < 2 ? key0 : key1;
+            const bool on = query < Tq && key < Tk &&
+                            !(causal && key > query);
+            const float p =
+                on ? exp2f(st[n][e] * scale_log2 - tlse[qi] * kLog2e) : 0.f;
+            st[n][e] = p;
+            dpt[n][e] = p * (dpt[n][e] - tdi[qi]) * scale;
+          }
+        value_tile(dva, st, stage + kT32Tile);  // dV += P^T dO
+        value_tile(dka, dpt, stage);            // dK += dS^T Q
+      }
+    }
+    __syncthreads();  // every warp is done with item i's stage
+    if (i + 2 < items) issue(i + 2);
+    int8_tile::cp_async_commit();
+  }
+  store_f32(dk, dka, b, h, H, Tk, D, oc * kChunk, k0 + wk);
+  store_f32(dv, dva, b, h, H, Tk, D, oc * kChunk, k0 + wk);
+}
+
+__global__ void __launch_bounds__(kT32Threads, 1)
+    dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ di,
-            float* __restrict__ dk, float* __restrict__ dv, int H, int Tq,
-            int Tk, int D, int causal, float scale, Strides qs, Strides ks,
-            Strides vs, Strides dos) {
+            float* __restrict__ dq, int H, int Tq, int Tk, int D, int causal,
+            float scale, Strides qs, Strides ks, Strides vs, Strides dos) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sk = reinterpret_cast<float*>(smem_raw);  // [kF32Own][LD], a chunk
-  float* sv = sk + kF32Own * kF32LD;                // [kF32Own][LD], a chunk
-  float* sq = sv + kF32Own * kF32LD;                // [kF32Walk][LD], a chunk
-  float* sdo = sq + kF32Walk * kF32LD;              // [kF32Walk][LD], a chunk
-  float* sqo = sdo + kF32Walk * kF32LD;             // [kF32Walk][LD], chunk oc
-  float* sdoo = sqo + kF32Walk * kF32LD;            // [kF32Walk][LD], chunk oc
-  float* sp = sdoo + kF32Walk * kF32LD;             // P^T [kF32Own][PLD]
-  float* sds = sp + kF32Own * kF32PLD;              // dS^T [kF32Own][PLD]
-  float* slse = sds + kF32Own * kF32PLD;            // [kF32Walk], log2
-  float* sdi = slse + kF32Walk;                     // [kF32Walk]
+  float* sq = reinterpret_cast<float*>(smem_raw);  // [kT32Own][LD], a chunk
+  float* sdo = sq + kT32Own * kT32LD;              // [kT32Own][LD], a chunk
+  float* ring = sdo + kT32Own * kT32LD;  // 2 x {K, V tiles}
 
-  const int chunks = D / kChunk;
-  const int oc = blockIdx.x % chunks, k0 = blockIdx.x / chunks * kF32Own;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int r = threadIdx.x >> 3, c8 = threadIdx.x & 7;
-  const int key = k0 + r;
+  const int chunks = D / kChunk, per_tile = items_a_tile(chunks);
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int oc = blockIdx.y % chunks;
+  // longest walk first
+  const int q0 = (gridDim.y / chunks - 1 - blockIdx.y / chunks) * kT32Own;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c4 = lane & 3;
+  const int wq = 16 * warp;  // the warp's first row in the block
+  const int row0 = q0 + wq + (lane >> 2), row1 = row0 + 8;
   const float scale_log2 = scale * kLog2e;
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
   const float* qb = q + b * qs.b + h * qs.h;
   const float* dob = dout + b * dos.b + h * dos.h;
-  const float* lse_b = lse + ((long long)b * H + h) * Tq;
-  const float* di_b = di + ((long long)b * H + h) * Tq;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  const long long rows = ((long long)b * H + h) * Tq;
+  const float lse0 = row0 < Tq ? lse[rows + row0] * kLog2e : 0.f;
+  const float lse1 = row1 < Tq ? lse[rows + row1] * kLog2e : 0.f;
+  const float di0 = row0 < Tq ? di[rows + row0] : 0.f;
+  const float di1 = row1 < Tq ? di[rows + row1] : 0.f;
 
-  float dka[kChunk / 8], dva[kChunk / 8];
+  const int k_end = causal ? min(Tk, q0 + kT32Own) : Tk;
+  const int items = (k_end + kT32Walk - 1) / kT32Walk * per_tile;
+  // item i into stage i % 2: the walked keys' chunk of K and V, or on a
+  // value item of a wide head K's output chunk alone
+  auto issue = [&](int i) {
+    float* st = ring + (i % 2) * kT32Stage;
+    const int k0 = i / per_tile * kT32Walk, part = i % per_tile;
+    const int col = (part == chunks ? oc : part) * kChunk;
+    rows_async<kT32Walk>(st, kb + col, ks.t, k0, Tk);
+    if (part < chunks)
+      rows_async<kT32Walk>(st + kT32Tile, vb + col, vs.t, k0, Tk);
+  };
+
+  float dqa[kChunk / 8][4];
 #pragma unroll
-  for (int i = 0; i < kChunk / 8; ++i) dka[i] = dva[i] = 0.f;
+  for (int n = 0; n < kChunk / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+  float s[kT32N][4], dp[kT32N][4];  // queries x keys
 
-  const int q_begin = causal ? k0 : 0;
-  for (int q0 = q_begin; q0 < Tq; q0 += kF32Walk) {
-    float st[kF32Walk / 8] = {0.f, 0.f, 0.f, 0.f};   // S^T: keys x queries
-    float dpt[kF32Walk / 8] = {0.f, 0.f, 0.f, 0.f};  // dP^T
-    for (int dc = 0; dc < chunks; ++dc) {
-      __syncthreads();  // the previous chunk (and tile) has been read
-      load_rows<float, kChunk, kF32Own, kF32LD, kF32Threads>(
-          sk, kb + dc * kChunk, ks.t, k0, Tk);
-      load_rows<float, kChunk, kF32Own, kF32LD, kF32Threads>(
-          sv, vb + dc * kChunk, vs.t, k0, Tk);
-      load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
-          sq, qb + dc * kChunk, qs.t, q0, Tq);
-      load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
-          sdo, dob + dc * kChunk, dos.t, q0, Tq);
-      if (dc == 0) {
-        load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
-            sqo, qb + oc * kChunk, qs.t, q0, Tq);
-        load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
-            sdoo, dob + oc * kChunk, dos.t, q0, Tq);
-        if (threadIdx.x < kF32Walk) {
-          const int i = threadIdx.x;
-          const bool in = q0 + i < Tq;
-          slse[i] = in ? lse_b[q0 + i] * kLog2e : 0.f;
-          sdi[i] = in ? di_b[q0 + i] : 0.f;
+  if (chunks == 1) {  // the block's rows stay for the whole walk
+    rows_async<kT32Own>(sq, qb, qs.t, q0, Tq);
+    rows_async<kT32Own>(sdo, dob, dos.t, q0, Tq);
+  }
+  issue(0);
+  int8_tile::cp_async_commit();
+  if (items > 1) issue(1);
+  int8_tile::cp_async_commit();
+  for (int i = 0; i < items; ++i) {
+    const float* stage = ring + (i % 2) * kT32Stage;
+    const int k0 = i / per_tile * kT32Walk, part = i % per_tile;
+    if (chunks > 1 && part < chunks) {  // the own rows' chunk `part`
+      rows_async<kT32Own>(sq, qb + part * kChunk, qs.t, q0, Tq);
+      rows_async<kT32Own>(sdo, dob + part * kChunk, dos.t, q0, Tq);
+      int8_tile::cp_async_commit();
+      int8_tile::cp_async_wait<0>();
+    } else {
+      int8_tile::cp_async_wait<1>();
+    }
+    __syncthreads();  // item i (and the own chunk) has landed everywhere
+    // a warp whose rows all lie before the tile's keys skips it
+    if (!(causal && k0 > q0 + wq + 15)) {
+      if (part == 0) {
+#pragma unroll
+        for (int n = 0; n < kT32N; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      }
+      if (part < chunks)  // S = Q K^T, dP = dO V^T
+        score_tiles(s, dp, sq, stage, sdo, stage + kT32Tile, wq);
+      if (chunks == 1 || part == chunks) {
+        // The causal first query sees one key, itself: its dS is P (dP -
+        // di) with dP = di in exact arithmetic, so the row holds nothing
+        // but the rounding of that difference, and its dQ that rounding
+        // times K. That one dot product is taken here in f32 FMA, d in
+        // order, as cuBLAS's f32 product took it on the H100 (see the
+        // note at the top), so the row is the plain version's and not a
+        // second rounding of zero.
+        if (causal && q0 == 0 && k0 == 0 && threadIdx.x == 0) {
+          float dot = 0.f;
+          for (int x = 0; x < D; ++x) dot = fmaf(dob[x], vb[x], dot);
+          dp[0][0] = dot;
         }
-      }
-      __syncthreads();
-      f32_scores(st, dpt, sk, sq, sv, sdo, r, c8);
-    }
+        // dS = P (dP - di) / sqrt(D), P = exp(s / sqrt(D) - lse), zero
+        // past Tk and above the diagonal
 #pragma unroll
-    for (int j = 0; j < kF32Walk / 8; ++j) {
-      const int qi = c8 + 8 * j, qry = q0 + qi;
-      const bool on = qry < Tq && key < Tk && (!causal || key <= qry);
-      const float p = on ? exp2f(st[j] * scale_log2 - slse[qi]) : 0.f;
-      sp[r * kF32PLD + qi] = p;
-      sds[r * kF32PLD + qi] = p * (dpt[j] - sdi[qi]) * scale;
-    }
-    __syncwarp();  // a key's eight threads share one warp
-#pragma unroll 4
-    for (int qi = 0; qi < kF32Walk; ++qi) {
-      const float p = sp[r * kF32PLD + qi], ds = sds[r * kF32PLD + qi];
+        for (int n = 0; n < kT32N; ++n)
 #pragma unroll
-      for (int i = 0; i < kChunk / 8; ++i) {
-        dva[i] = fmaf(p, sdoo[qi * kF32LD + c8 + 8 * i], dva[i]);
-        dka[i] = fmaf(ds, sqo[qi * kF32LD + c8 + 8 * i], dka[i]);
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * n + 2 * c4 + (e & 1);
+            const int row = e < 2 ? row0 : row1;
+            const bool on = key < Tk && !(causal && key > row);
+            const float p =
+                on ? exp2f(s[n][e] * scale_log2 - (e < 2 ? lse0 : lse1))
+                   : 0.f;
+            s[n][e] = p * (dp[n][e] - (e < 2 ? di0 : di1)) * scale;
+          }
+        value_tile(dqa, s, stage);  // dQ += dS K
       }
     }
+    __syncthreads();  // every warp is done with item i's stage
+    if (i + 2 < items) issue(i + 2);
+    int8_tile::cp_async_commit();
   }
-  if (key < Tk) {
-    const long long at = (((long long)b * Tk + key) * H + h) * D
-                         + oc * kChunk;
-#pragma unroll
-    for (int i = 0; i < kChunk / 8; ++i) {
-      dk[at + c8 + 8 * i] = dka[i];
-      dv[at + c8 + 8 * i] = dva[i];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kF32Threads)
-    dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ di,
-           float* __restrict__ dq, int H, int Tq, int Tk, int D, int causal,
-           float scale, Strides qs, Strides ks, Strides vs, Strides dos) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sq = reinterpret_cast<float*>(smem_raw);  // [kF32Own][LD], a chunk
-  float* sdo = sq + kF32Own * kF32LD;               // [kF32Own][LD], a chunk
-  float* sk = sdo + kF32Own * kF32LD;               // [kF32Walk][LD], a chunk
-  float* sv = sk + kF32Walk * kF32LD;               // [kF32Walk][LD], a chunk
-  float* sko = sv + kF32Walk * kF32LD;              // [kF32Walk][LD], chunk oc
-  float* sds = sko + kF32Walk * kF32LD;             // dS [kF32Own][PLD]
-
-  const int chunks = D / kChunk;
-  const int oc = blockIdx.x % chunks;
-  const int q0 = (gridDim.x / chunks - 1 - blockIdx.x / chunks) * kF32Own;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int r = threadIdx.x >> 3, c8 = threadIdx.x & 7;
-  const int row = q0 + r;
-  const float scale_log2 = scale * kLog2e;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* dob = dout + b * dos.b + h * dos.h;
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-  const float* lse_b = lse + ((long long)b * H + h) * Tq;
-  const float* di_b = di + ((long long)b * H + h) * Tq;
-  const float lse_r = row < Tq ? lse_b[row] * kLog2e : 0.f;
-  const float di_r = row < Tq ? di_b[row] : 0.f;
-  float dqa[kChunk / 8];
-#pragma unroll
-  for (int i = 0; i < kChunk / 8; ++i) dqa[i] = 0.f;
-
-  const int k_end = causal ? min(Tk, q0 + kF32Own) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kF32Walk) {
-    float s[kF32Walk / 8] = {0.f, 0.f, 0.f, 0.f};   // queries x keys
-    float dp[kF32Walk / 8] = {0.f, 0.f, 0.f, 0.f};
-    for (int dc = 0; dc < chunks; ++dc) {
-      __syncthreads();  // the previous chunk (and tile) has been read
-      load_rows<float, kChunk, kF32Own, kF32LD, kF32Threads>(
-          sq, qb + dc * kChunk, qs.t, q0, Tq);
-      load_rows<float, kChunk, kF32Own, kF32LD, kF32Threads>(
-          sdo, dob + dc * kChunk, dos.t, q0, Tq);
-      load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
-          sk, kb + dc * kChunk, ks.t, k0, Tk);
-      load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
-          sv, vb + dc * kChunk, vs.t, k0, Tk);
-      if (dc == 0)
-        load_rows<float, kChunk, kF32Walk, kF32LD, kF32Threads>(
-            sko, kb + oc * kChunk, ks.t, k0, Tk);
-      __syncthreads();
-      f32_scores(s, dp, sq, sk, sdo, sv, r, c8);
-    }
-#pragma unroll
-    for (int j = 0; j < kF32Walk / 8; ++j) {
-      const int ki = c8 + 8 * j, col = k0 + ki;
-      const bool on = row < Tq && col < Tk && (!causal || col <= row);
-      const float p = on ? exp2f(s[j] * scale_log2 - lse_r) : 0.f;
-      sds[r * kF32PLD + ki] = p * (dp[j] - di_r) * scale;
-    }
-    __syncwarp();  // a row's eight threads share one warp
-#pragma unroll 4
-    for (int ki = 0; ki < kF32Walk; ++ki) {
-      const float ds = sds[r * kF32PLD + ki];
-#pragma unroll
-      for (int i = 0; i < kChunk / 8; ++i)
-        dqa[i] = fmaf(ds, sko[ki * kF32LD + c8 + 8 * i], dqa[i]);
-    }
-  }
-  if (row < Tq) {
-    float* out = dq + (((long long)b * Tq + row) * H + h) * D + oc * kChunk;
-#pragma unroll
-    for (int i = 0; i < kChunk / 8; ++i) out[c8 + 8 * i] = dqa[i];
-  }
+  store_f32(dq, dqa, b, h, H, Tq, D, oc * kChunk, q0 + wq);
 }
 
 int run_dkv_sm90(const void* q, const void* k, const void* v,
@@ -976,13 +1277,10 @@ extern "C" int veles_flash_dkv(const void* q, const void* k, const void* v,
   if (D <= 0 || D % kChunk || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
-    const size_t smem =
-        ((size_t)(2 * kF32Own + 4 * kF32Walk) * kF32LD +
-         2 * kF32Own * kF32PLD + 2 * kF32Walk) * sizeof(float);
-    cudaError_t err = allow_smem(dkv_f32, smem);
+    cudaError_t err = allow_smem(dkv_tf32, kT32Smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((Tk + kF32Own - 1) / kF32Own * (D / kChunk), H, B);
-    dkv_f32<<<grid, kF32Threads, smem, s>>>(
+    dim3 grid(H, (Tk + kT32Own - 1) / kT32Own * (D / kChunk), B);
+    dkv_tf32<<<grid, kT32Threads, kT32Smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         di, static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, D,
@@ -1021,12 +1319,10 @@ extern "C" int veles_flash_dq(const void* q, const void* k, const void* v,
   if (D <= 0 || D % kChunk || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
-    const size_t smem = ((size_t)(2 * kF32Own + 3 * kF32Walk) * kF32LD +
-                         kF32Own * kF32PLD) * sizeof(float);
-    cudaError_t err = allow_smem(dq_f32, smem);
+    cudaError_t err = allow_smem(dq_tf32, kT32Smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((Tq + kF32Own - 1) / kF32Own * (D / kChunk), H, B);
-    dq_f32<<<grid, kF32Threads, smem, s>>>(
+    dim3 grid(H, (Tq + kT32Own - 1) / kT32Own * (D / kChunk), B);
+    dq_tf32<<<grid, kT32Threads, kT32Smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         di, static_cast<float*>(dq), H, Tq, Tk, D, causal, scale, qs, ks,
