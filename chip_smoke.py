@@ -31,10 +31,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and at the long-context training shape (1, 8192, 8, 128) bf16, K8 and
    K9 its dK/dV and dQ backward at both (bf16); K7, K8 and K9 also at the
    wider heads the flash rule admits, (1, 4096, 4, 256) and (1, 4096, 2,
-   384) causal bf16, and f32 K7 at 256; K8 and K9's f32 route (C11) at
-   (1, 8192, 4, 128) and (1, 4096, 8, 256) causal, within 1e-4 row by
-   row, its time at the first shape beside SDPA's f32 backward and the
-   bound at 67 TFLOP/s f32) against its plain PyTorch version
+   384) causal bf16, and f32 K7 at 256; K7, K8 and K9's f32 route
+   (3xTF32) at (1, 8192, 4, 128) and (1, 4096, 8, 256) causal, within
+   1e-5 (K7) and 1e-4 row by row, its time at the first shape beside
+   SDPA's f32 forward and backward and the bounds at 67 TFLOP/s f32 and
+   165 TFLOP/s 3xTF32) against its plain PyTorch version
    at the path's shapes, and time kernel, plain version and the nearest
    PyTorch library call with CUDA events (L2 flushed before every timed
    launch, median of 25); then one attention() call at 4096 positions
@@ -436,9 +437,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    train step against reference_moe within 2e-4 of the largest, the drop
    fraction at 2.0 printed; (e) (a)'s step in f32 over seq=2 with
    Ulysses (C11's shape: a rank attends (1, 8192, 4, 128)), each rank K7,
-   K8 and K9 4 a step, K8 and K9 all on their f32 route, both ranks'
-   parameters bit-equal, the loss and every leaf within 1e-4 of one
-   process's f32 step. Printed: tokens/s of each run, the
+   K8 and K9 4 a step, all on their f32 route, and so one process's
+   step, both ranks' parameters bit-equal, the loss and every leaf
+   within 1e-4 of one process's f32 step. Printed: tokens/s of each run, the
    collectives' share of each rank's steps, the phase's seconds. Both
    ranks' launches join the kernels line.
 
@@ -654,7 +655,8 @@ TOP2_GAP = 1e-3
 #: operations/s: the peak for K5's and K6's f32-operand runs
 F32_OPS_PER_S = 67e12
 #: f32 products in 3xTF32 on the tensor cores (three TF32 products an f32
-#: product, 495 TFLOP/s TF32 dense): the ceiling of K8 and K9's f32 route
+#: product, 495 TFLOP/s TF32 dense): the ceiling of K7, K8 and K9's f32
+#: route
 F32_TF32X3_OPS_PER_S = 495e12 / 3
 #: K5 and K6 at the training path's shapes (the wide MLP, bench.py:306:
 #: 784 -> 4096 (tanh) -> 10 at minibatch 4096): (m, k, n) of the hidden
@@ -728,7 +730,7 @@ FLASH_TILE, FLASH_FAULT = 64, 0.9
 #: K7 at 256 (batch, T, heads, head_dim)
 FLASH_WIDE_SHAPES = ((1, 4096, 4, 256), (1, 4096, 2, 384))
 FLASH_WIDE_F32_SHAPE = (1, 4096, 4, 256)
-#: K8 and K9's f32 route (C11): a rank's Ulysses attention in phase 28's
+#: K7, K8 and K9's f32 route: a rank's Ulysses attention in phase 28's
 #: f32 step, (1, 8192, 4, 128) causal (timed), and (1, 4096, 8, 256); the
 #: limit row by row: the f32 route sums up to 8192 terms a row in another
 #: order than the plain version and dS takes the difference dP - di,
@@ -1086,14 +1088,22 @@ class Timer:
         from torch.profiler import ProfilerActivity, profile
         for _ in range(self.warmup):
             fn()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(self.reps):
-                self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        times = [e.device_time for e in prof.events()
-                 if e.device_type.name == "CUDA" and name in e.name]
-        return 1e-3 * statistics.median(times)
+        # a profiling session on the H100 has come back without a single
+        # device event; such a session is taken again, twice at most
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(self.reps):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            times = [e.device_time for e in prof.events()
+                     if e.device_type.name == "CUDA" and name in e.name]
+            if times:
+                return 1e-3 * statistics.median(times)
+            print("kernel_ms: the profiler saw no %s kernel (session %d)"
+                  % (name, attempt + 1))
+        raise RuntimeError("kernel_ms: the profiler saw no %s kernel in "
+                           "three sessions" % name)
 
 
 def k1_problem(device, gen, lengths=K1_LENGTHS, heads=HEADS, head_dim=None,
@@ -3386,18 +3396,18 @@ def flash_wide_phase(timer, device, gen):
 
 
 def flash_f32_phase(timer, device, gen):
-    """K8 and K9's f32 route (C11; 3xTF32 on the tensor cores) against
+    """K7, K8 and K9's f32 route (3xTF32 on the tensor cores) against
     their plain versions at FLASH_F32_BWD_SHAPES, causal, under the
-    row-wise rule with its planted fault (FLASH_F32_BWD_RTOL), on the f32
-    forward's out and lse; timed at the first shape beside the plain
-    version, SDPA's f32 autograd backward (one call for dQ, dK and dV),
-    and K7's f32 route beside SDPA's f32 forward, each with its TFLOP/s
-    and its bounds at the f32 rate without the tensor cores
-    (F32_OPS_PER_S, "bound_fma_ms") and at the 3xTF32 rate
-    (F32_TF32X3_OPS_PER_S, "bound_3xtf32_ms"). "bound_ms" is the bound at
-    the rate of the kernel's own route: 3xTF32 for K8 and K9, f32 FMA for
-    K7. Returns {"fwd": ..., "dkv": ..., "dq": ...}: each the f32 route's
-    readings for the kernels line."""
+    row-wise rule with its planted fault (K7_F32_RTOL for the forward,
+    FLASH_F32_BWD_RTOL for the gradients, taken on the f32 forward's out
+    and lse); timed at the first shape beside the plain version, SDPA's
+    f32 autograd backward (one call for dQ, dK and dV) and SDPA's f32
+    forward, each with its TFLOP/s and its bounds at the f32 rate without
+    the tensor cores (F32_OPS_PER_S, "bound_fma_ms") and at the 3xTF32
+    rate (F32_TF32X3_OPS_PER_S, "bound_3xtf32_ms"). "bound_ms" is the
+    bound at the rate of the kernels' own route, 3xTF32. Returns {"fwd":
+    ..., "dkv": ..., "dq": ...}: each the f32 route's readings for the
+    kernels line."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
     got = {}
@@ -3463,29 +3473,24 @@ def flash_f32_phase(timer, device, gen):
             ops = flash_ops(shape, products)
             bytes_s = nbytes / HBM_BYTES_PER_S
             fma_ms = 1e3 * max(bytes_s, ops / F32_OPS_PER_S)
-            tf32x3_ms = 1e3 * max(bytes_s, ops / F32_TF32X3_OPS_PER_S)
-            rate = F32_OPS_PER_S if key == "fwd" else F32_TF32X3_OPS_PER_S
-            ops_s = ops / rate
+            ops_s = ops / F32_TF32X3_OPS_PER_S
             bound_ms = 1e3 * max(bytes_s, ops_s)
             got[key] = {"shape": list(shape), "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": ("bytes" if bytes_s >= ops_s
                                      else "operations"),
-                        "bound_fma_ms": fma_ms, "bound_3xtf32_ms": tf32x3_ms,
+                        "bound_fma_ms": fma_ms, "bound_3xtf32_ms": bound_ms,
                         "library_ms": library_ms, "library": library}
-            print("%s flash_attention_%s %s causal (the f32 route, %s): ms "
-                  "%.4f (%.1f TFLOP/s) plain_ms %.4f sdpa_%s_f32_ms %.4f "
-                  "bound_ms %.4f (%s, at the route's %.0f TFLOP/s); bounds "
-                  "%.4f at %.0f TFLOP/s f32 FMA and %.4f at %.0f TFLOP/s "
-                  "3xTF32; %.2fx the first, %.2fx the second"
-                  % (number, key, label,
-                     "f32 FMA" if key == "fwd" else "3xTF32", ms,
-                     ops / ms / 1e9, plain_ms,
+            print("%s flash_attention_%s %s causal (the f32 route, 3xTF32): "
+                  "ms %.4f (%.1f TFLOP/s) plain_ms %.4f sdpa_%s_f32_ms %.4f "
+                  "bound_ms %.4f (%s, at the route's %.0f TFLOP/s 3xTF32), "
+                  "%.2fx it; bound_fma_ms %.4f (%.0f TFLOP/s f32 FMA), "
+                  "%.2fx it"
+                  % (number, key, label, ms, ops / ms / 1e9, plain_ms,
                      "fwd" if key == "fwd" else "bwd", library_ms, bound_ms,
-                     got[key]["bound_by"], rate / 1e12, fma_ms,
-                     F32_OPS_PER_S / 1e12, tf32x3_ms,
-                     F32_TF32X3_OPS_PER_S / 1e12, ms / fma_ms,
-                     ms / tf32x3_ms))
+                     got[key]["bound_by"], F32_TF32X3_OPS_PER_S / 1e12,
+                     ms / bound_ms, fma_ms, F32_OPS_PER_S / 1e12,
+                     ms / fma_ms))
         print("K8 + K9 f32 %.4f ms against sdpa_bwd_f32_ms %.4f (%.2fx)"
               % (got["dkv"]["ms"] + got["dq"]["ms"], library_bwd_ms,
                  (got["dkv"]["ms"] + got["dq"]["ms"]) / library_bwd_ms))
@@ -10611,9 +10616,9 @@ MOE_EXPERTS, MOE_HIDDEN, MOE_TOKENS, MOE_LR = 8, 4096, 8192, 0.05
 #: MOE_TIE_GAP (a routing flip from the product's rounding)
 MOE_RTOL, MOE_TIE_GAP = 2e-4, 1e-5
 #: (e) the f32 Ulysses step at C11's shape: (a)'s model and sequence in
-#: f32 (a rank attends (1, SP_T, LONG_HEADS / 2, 128): K8 and K9's f32
-#: route), one step against one process's; f32 sums split over two ranks
-#: and reassociated: the loss and every leaf within this share of the
+#: f32 (a rank attends (1, SP_T, LONG_HEADS / 2, 128): K7, K8 and K9's
+#: f32 route), one step against one process's; f32 sums split over two
+#: ranks and reassociated: the loss and every leaf within this share of the
 #: reference's (largest element), n_err within (a)'s share
 SP_F32_RTOL = 1e-4
 
@@ -10719,6 +10724,7 @@ def sp_timed(device, mesh, fn):
     torch.cuda.synchronize(device)
     for counter in COUNTERS.values():
         counter.launches = 0
+    flash_attention_fwd.launches_f32 = 0
     flash_attention_dkv.launches_f32 = flash_attention_dq.launches_f32 = 0
     before = collective_seconds(mesh) if mesh is not None else 0.0
     started = time.perf_counter()
@@ -10726,7 +10732,8 @@ def sp_timed(device, mesh, fn):
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - started
     launches = counts()
-    launches.update(flash_attention_dkv_f32=flash_attention_dkv.launches_f32,
+    launches.update(flash_attention_fwd_f32=flash_attention_fwd.launches_f32,
+                    flash_attention_dkv_f32=flash_attention_dkv.launches_f32,
                     flash_attention_dq_f32=flash_attention_dq.launches_f32)
     return out, {"wall": wall, "launches": launches,
                  "collective_s": (collective_seconds(mesh) - before
@@ -11189,18 +11196,21 @@ def _sp_phase(device, gen, proc, report_path, coordinator, t0):
         raise AssertionError("(d) the experts disagree")
     clock("(d)")
     # (e) the f32 Ulysses step (C11's repair): K7, K8 and K9 BLOCKS a step
-    # on each rank, K8 and K9 all on their f32 route; the ranks' parameters
-    # the same bits, and the step within SP_F32_RTOL of one process's
+    # on each rank and in one process's step, all on their f32 route; the
+    # ranks' parameters the same bits, and the step within SP_F32_RTOL of
+    # one process's
     want_p, want_row = refs["e"]
-    for rank, report in enumerate(ranks):
-        got = report["e"]["steps"][0]["launches"]
-        flash = {name: got[name] for name in FLASH + (
-            "flash_attention_dkv_f32", "flash_attention_dq_f32")}
+    f32_flash = FLASH + tuple(name + "_f32" for name in FLASH)
+    for who, got in [("rank %d" % rank, report["e"]["steps"][0]["launches"])
+                     for rank, report in enumerate(ranks)] \
+            + [("one process", want_row["launches"])]:
+        flash = {name: got[name] for name in f32_flash}
         if any(n != BLOCKS for n in flash.values()):
-            raise AssertionError("(e) rank %d: flash launches %s, not %d "
-                                 "each" % (rank, flash, BLOCKS))
-        for name, n in flash.items():
-            launches[name] += n
+            raise AssertionError("(e) %s: flash launches %s, not %d each"
+                                 % (who, flash, BLOCKS))
+        if who != "one process":
+            for name, n in flash.items():
+                launches[name] += n
     if mine["e"]["digest"] != theirs["e"]["digest"]:
         raise AssertionError("(e) the ranks' parameters differ")
     row = mine["e"]["steps"][0]
@@ -11209,8 +11219,8 @@ def _sp_phase(device, gen, proc, report_path, coordinator, t0):
     print("  (e) the f32 Ulysses step at a rank's (1, %d, %d, 128): loss "
           "%.8g against one process's %.8g (%.3g relative), n_err %d "
           "against %d, leaves within %.3g of their largest (limit %.0e); "
-          "K8 and K9 f32 %d each a rank; %.1f tokens/s (one process %.1f), "
-          "collectives rank 0 %s; rank 1 %s"
+          "K7, K8 and K9 f32 %d each a rank; %.1f tokens/s (one process "
+          "%.1f), collectives rank 0 %s; rank 1 %s"
           % (SP_T, LONG_HEADS // SP_RANKS, row["loss"], want_row["loss"],
              loss_rel, row["n_err"], want_row["n_err"], leaf, SP_F32_RTOL,
              BLOCKS, SP_T / row["wall"], SP_T / want_row["wall"],
@@ -11838,7 +11848,7 @@ def main():
         clock("the sharded serving phase")
         # the training mesh's model, seq, pipe and expert axes: both
         # ranks' K5 (the model-axis step) and K7-K9 (the Ulysses steps,
-        # the f32 one on K8 and K9's f32 route, and the pipeline's
+        # the f32 one on K7, K8 and K9's f32 route, and the pipeline's
         # stages) are a main path
         for name, n in sp_phase(device, gen, sp_early).items():
             launches[name] += n
@@ -11859,7 +11869,7 @@ def main():
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         if entry["name"] + "_f32" in launches:
-            # K8 and K9's f32 route's launches on its main path: phase
+            # K7, K8 and K9's f32 route's launches on its main path: phase
             # 28's f32 Ulysses step on both ranks (among "launches" too)
             entry["f32"]["launches"] = launches[entry["name"] + "_f32"]
     print(json.dumps({"kernels": kernels}))

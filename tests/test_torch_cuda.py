@@ -1052,6 +1052,40 @@ def test_flash_backward_f32_ragged_wide_heads(cuda, causal):
             _flash_close(planted, ref, grad=True)
 
 
+@pytest.mark.parametrize("shape", [(1, 8192, 4, 128), (1, 4096, 4, 256)],
+                         ids=["8192x4x128", "4096x4x256"])
+def test_flash_forward_f32_at_the_step_shapes(cuda, shape):
+    """K7's f32 route (fwd_tf32: 3xTF32 on the tensor cores, P
+    unrounded) at the f32 step's shape (1, 8192, 4, 128) causal and at
+    256-wide heads: within 1e-5 of the plain version row by row and the
+    lse within 1e-4, a planted fault (the last 64 positions' rows x 0.9)
+    reads past the limit, two runs agree bit for bit, and each call
+    counts one launch in ``launches`` and in ``launches_f32``; bf16
+    operands leave ``launches_f32`` where it was."""
+    q, k, v = _flash_inputs(cuda, *shape[:2], shape[1], *shape[2:],
+                            torch.float32)
+    counts = (flash_attention_fwd.launches, flash_attention_fwd.launches_f32)
+    runs = [flash_attention_fwd(q, k, v, True) for _ in range(2)]
+    ref, ref_lse = _flash_attention_fwd_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches,
+            flash_attention_fwd.launches_f32) == (counts[0] + 2,
+                                                  counts[1] + 2)
+    out, lse = runs[0]
+    assert torch.equal(out, runs[1][0]) and torch.equal(lse, runs[1][1])
+    _flash_close(out, ref)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    planted = out.clone()
+    planted[:, -64:] *= 0.9
+    with pytest.raises(AssertionError):
+        _flash_close(planted, ref)
+    flash_attention_fwd(*(t.to(torch.bfloat16) for t in (q, k, v)), True)
+    torch.cuda.synchronize()
+    assert (flash_attention_fwd.launches,
+            flash_attention_fwd.launches_f32) == (counts[0] + 3,
+                                                  counts[1] + 2)
+
+
 @pytest.mark.parametrize("dim", [128, 256, 384])
 def test_flash_reads_split_views_in_place(cuda, dim):
     """The kernels read the qkv projection's split views through their

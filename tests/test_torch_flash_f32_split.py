@@ -1,6 +1,7 @@
-"""Why K8 and K9's f32 route takes three TF32 products for each f32
-product (``veles_tpu_torch/ops/csrc/flash_attention_bwd.cu``: dkv_tf32,
-dq_tf32), shown on the CPU.
+"""Why the flash kernels' f32 route takes three TF32 products for each
+f32 product (``veles_tpu_torch/ops/csrc/flash_attention.cu``: fwd_tf32,
+K7; ``flash_attention_bwd.cu``: dkv_tf32 and dq_tf32, K8 and K9; the
+shared arithmetic in ``tf32x3.cuh``), shown on the CPU.
 
 The tensor cores multiply TF32 values: the top 19 bits of an f32 (10 bits
 of mantissa). The route splits each f32 operand into hi and lo and sums
@@ -13,7 +14,8 @@ split's error shows: the flash backward's five products (S = Q K^T, dP =
 dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K) at a small causal shape, run
 as the kernels split them, as 3xTF32 rounded to nearest throughout, as
 one TF32 product and in float64, are held against the float64 run under
-chip_smoke.py's row rule."""
+chip_smoke.py's row rule; the forward's two (S = Q K^T, O = P V with P
+unrounded) likewise under the forward's tighter rule."""
 
 import math
 
@@ -28,6 +30,8 @@ torch.set_num_threads(1)
 #: norm, a row below FLASH_ROW_FLOOR of the median row's norm held
 #: against that floor
 FLASH_F32_BWD_RTOL = 1e-4
+#: chip_smoke.py's K7_F32_RTOL: the same rule for the f32 forward's O
+K7_F32_RTOL = 1e-5
 FLASH_ROW_FLOOR = 1e-2
 #: (batch, heads, T, head_dim), causal and full
 SHAPE = (1, 2, 256, 128)
@@ -163,3 +167,47 @@ def test_truncating_dp_misses_the_first_row():
         assert errors.max().item() <= FLASH_F32_BWD_RTOL / 20
     assert rows[2][..., 0].max().item() > 2 * FLASH_F32_BWD_RTOL
 
+
+#: the forward's products as fwd_tf32 splits them (kNearestS, kNearestV:
+#: both truncated)
+FORWARD_KERNELS = ("trunc", "trunc")
+
+
+def forward(s_mode, v_mode, causal=True):
+    """O of the f32 route's forward with S = Q K^T taken as ``s_mode``
+    and P V as ``v_mode`` say (``product``'s modes): the softmax off the
+    float64 sums, P kept in f32 (unrounded, as the f32 plain version
+    keeps it) unless both products are "f64"."""
+    q, k, v, _, _, _, mask, scale = _problem(causal)
+    s = (product(q, k.transpose(-1, -2), s_mode) * scale).masked_fill(
+        ~mask, -math.inf)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    if (s_mode, v_mode) != ("f64", "f64"):
+        p = p.float()
+    return product(p, v, v_mode) / l
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("modes", [FORWARD_KERNELS, ("nearest", "nearest")],
+                         ids=["kernels", "nearest"])
+def test_three_tf32_products_meet_the_forward_row_rule(modes, causal):
+    """3xTF32 as fwd_tf32 splits both products (truncated), and rounded
+    to nearest throughout, holds every row of O within K7_F32_RTOL of
+    float64 with room to spare: within a fifth of it, so that the card's
+    f32 sums and the plain version's own rounding fit beside it."""
+    rows = row_errors(forward(*modes, causal=causal),
+                      forward("f64", "f64", causal))
+    assert rows.max().item() <= K7_F32_RTOL / 5
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("single", ["S", "PV"])
+def test_one_tf32_product_misses_the_forward_row_rule(single, causal):
+    """One TF32 product for S = Q K^T alone, or for P V alone, the other
+    exact, misses the forward's rule by more than 10x: why the route
+    takes three for each."""
+    modes = ("tf32", "f64") if single == "S" else ("f64", "tf32")
+    rows = row_errors(forward(*modes, causal=causal),
+                      forward("f64", "f64", causal))
+    assert rows.max().item() > 10 * K7_F32_RTOL

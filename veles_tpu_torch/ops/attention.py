@@ -309,17 +309,33 @@ def plain_flash_backward(q, k, v, o, lse, do, causal=False):
     return _flash_attention_dq_plain(q, k, v, do, lse, di, causal), dk, dv
 
 
+_FORWARD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                     + [ctypes.c_float] + [ctypes.c_longlong] * 9
+                     + [ctypes.c_void_p])
+
+
+def _count_launch(fn, q):
+    """Book a K7, K8 or K9 launch: every launch in ``launches``, the f32
+    route's also in ``launches_f32``."""
+    fn.launches += 1
+    if q.dtype == torch.float32:
+        fn.launches_f32 += 1
+
+
 def flash_attention_fwd(q, k, v, causal=False):
     """K7: ``(out, lse)`` of attention over q (B, Tq, H, D) and k, v
     (B, Tk, H, D), float32 or bfloat16, scaled by 1/sqrt(D); ``causal``
     is key <= query and wants Tq == Tk. ``out`` is in q's type,
     contiguous; ``lse`` the f32 logsumexp of each row's scaled scores,
     (B, H, Tq). On a CUDA tensor the kernel launches
-    (:attr:`flash_attention_fwd.launches` counts it) and reads q, k, v in
-    place: bf16 at head width 128 or 256 through TMA and wgmma, other
-    multiples of 128 and float32 with a grid axis over 128-wide output
-    chunks (``csrc/flash_attention.cu``). On a CPU tensor the plain
-    version runs."""
+    (:attr:`flash_attention_fwd.launches` counts it, and the f32 route's
+    launches also :attr:`flash_attention_fwd.launches_f32`) and reads q,
+    k, v in place: bf16 at head width 128 or 256 through TMA and wgmma,
+    at other multiples of 128 with a grid axis over 128-wide output
+    chunks; float32 at every multiple of 128 in 3xTF32 on the tensor
+    cores, P unrounded, with the same chunk axis
+    (``csrc/flash_attention.cu``). On a CPU tensor the plain version
+    runs."""
     _check_flash("flash_attention_fwd", q, k, v, causal)
     if q.device.type == "cpu":
         return _flash_attention_fwd_plain(q, k, v, causal)
@@ -329,10 +345,8 @@ def flash_attention_fwd(q, k, v, causal=False):
                       device=q.device)
     lse = torch.empty((batch, heads, t_q), dtype=torch.float32,
                       device=q.device)
-    fn = _build.function(
-        "flash_attention", "veles_flash_fwd",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
-        + [ctypes.c_longlong] * 9 + [ctypes.c_void_p])
+    fn = _build.function("flash_attention", "veles_flash_fwd",
+                         _FORWARD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), batch, heads, t_q, t_k, dim, int(causal),
              _DTYPES[q.dtype], 1.0 / math.sqrt(dim), *_strides(q),
@@ -341,12 +355,12 @@ def flash_attention_fwd(q, k, v, causal=False):
         raise RuntimeError("flash_attention_fwd kernel launch failed: CUDA "
                            "error %d (negative: a CUresult of a tensor map)"
                            % err)
-    flash_attention_fwd.launches += 1
+    _count_launch(flash_attention_fwd, q)
     return out, lse
 
 
-#: kernel launches since the last reset
-flash_attention_fwd.launches = 0
+#: kernel launches since the last reset (every type, and float32's)
+flash_attention_fwd.launches = flash_attention_fwd.launches_f32 = 0
 
 
 def _check_backward(name, q, k, v, do, lse, di, causal):
@@ -373,14 +387,6 @@ _BACKWARD_ARGTYPES = ([ctypes.c_int] * 7 + [ctypes.c_float]
                       + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
 
 
-def _count_backward(fn, q):
-    """Book a K8 or K9 launch: every launch in ``launches``, the f32
-    route's also in ``launches_f32``."""
-    fn.launches += 1
-    if q.dtype == torch.float32:
-        fn.launches_f32 += 1
-
-
 def flash_attention_dkv(q, k, v, do, lse, di, causal=False):
     """K8: ``(dk, dv)`` of the flash forward, from q, k, v, the output
     gradient ``do`` (like q), the forward's ``lse`` and ``di`` = rowsum(O
@@ -405,7 +411,7 @@ def flash_attention_dkv(q, k, v, do, lse, di, causal=False):
         raise RuntimeError("flash_attention_dkv kernel launch failed: CUDA "
                            "error %d (negative: a CUresult of a tensor map)"
                            % err)
-    _count_backward(flash_attention_dkv, q)
+    _count_launch(flash_attention_dkv, q)
     return dk, dv
 
 
@@ -431,7 +437,7 @@ def flash_attention_dq(q, k, v, do, lse, di, causal=False):
         raise RuntimeError("flash_attention_dq kernel launch failed: CUDA "
                            "error %d (negative: a CUresult of a tensor map)"
                            % err)
-    _count_backward(flash_attention_dq, q)
+    _count_launch(flash_attention_dq, q)
     return dq
 
 

@@ -43,13 +43,54 @@
 //
 // Other head widths that are multiples of 128 (384, ...) run fwd_wide,
 // the mma.sync kernel of flash_tiles.cuh with a grid axis over 128-wide
-// output chunks; f32 operands (the agreement runs) run fwd_f32, true f32
-// FMA on the CUDA cores with the same chunk axis.
+// output chunks.
+//
+// f32 operands (a training caller whose parameters are f32: the default
+// precision of the transformer step, on one process and in each rank's
+// Ulysses attention, once T >= 4096; the agreement runs) run fwd_tf32 at
+// every multiple of 128, P unrounded as the f32 plain version keeps it.
+// It replaces an f32 FMA kernel on the CUDA cores (5.81 ms at (1, 8192,
+// 4, 128) causal on an H100, 11.8 TFLOP/s: each FMA read an operand from
+// shared memory, and 32-row query tiles re-read K and V 256 times).
+//
+// What bounds it: operations, two products of 2 D a visible pair, 68.7
+// GFLOP at (1, 8192, 4, 128) causal: 1.03 ms at the 67 TFLOP/s of f32
+// FMA, 0.42 ms at 165 TFLOP/s, a third of the tensor cores' 495 TFLOP/s
+// in TF32.
+//
+// Design: both products run 3xTF32 on the tensor cores (mma.sync
+// m16n8k8, tf32x3.cuh, K8 and K9's f32 arithmetic): each f32 operand
+// splits into hi and lo in registers and a product sums lo * hi, hi * lo
+// and hi * hi (tests/test_torch_flash_f32_split.py: one TF32 product
+// misses the 1e-5 row rule, three meet it).
+// - The tensor cores round their own sums toward zero, so no sum stays in
+//   an mma accumulator for long: each 8-deep step of S = Q K^T and each
+//   walked tile's P V sum from zero and are added in f32 registers
+//   (carried in the mma, the rows drifted to 7.4e-5 of the plain
+//   version at (1, 8192, 4, 128) causal on an H100, past the 1e-5 rule).
+// - One block of eight warps owns 128 query rows, 16 a warp, and walks
+//   the keys in tiles of 64: each K and V tile is read once per 128
+//   queries. At head width 128 the Q tile stays in shared memory; the K
+//   and V tiles come through a two-stage cp.async ring (203 KB a block;
+//   tiles of 32 keys, 135 KB, ran 1.43 ms against 1.35 at (1, 8192, 4,
+//   128) causal on an H100, tools/flash_f32_ab.py).
+// - A warp's S (16 x 64) stays in registers; the online softmax (log2
+//   units, running max and sum per row, O rescaled when the max grows)
+//   runs on its C fragments, and P feeds O += P V from registers as A
+//   fragments (tf32x3.cuh's value_tile): nothing of P reaches memory.
+// - Wider heads keep a grid axis over 128-wide output chunks: a walked
+//   tile is one item per 128-wide chunk of S, each reloading the block's
+//   own Q chunk, then one item holding V's output chunk.
+// - The causal walk stops at the block's diagonal tile, a warp with no
+//   visible key in a tile skips it, and the grid runs the longest walks
+//   first.
 
 #include "flash_tiles.cuh"
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 using namespace flash_tiles;
+using namespace tf32x3;
 
 namespace {
 
@@ -427,109 +468,188 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- f32 (the agreement runs), any multiple of 128: FMA, a chunk axis -------
+// ---- f32, any multiple of 128: 3xTF32 on the tensor cores ----------------
+// (the splits, mma3, value_tile, rows_async and store_f32: tf32x3.cuh)
 
-constexpr int kF32Threads = 256;
-constexpr int kF32BQ = 32;  // query rows a block, eight threads a row
-constexpr int kF32BK = 32;  // keys a tile, four a thread
+constexpr int kT32BQ = 128;  // query rows a block, 16 a warp
+constexpr int kT32BK = 64;   // keys a walked tile
+constexpr int kT32N = kT32BK / 8;  // the walked tile's 8-wide n-tiles
+constexpr int kT32Tile = kT32BK * kT32LD;  // a walked tile's floats
+// a ring stage: the walked keys' K and V tiles (at wider heads K's chunk
+// or V's output chunk)
+constexpr int kT32Stage = 2 * kT32Tile;
+constexpr size_t kT32Smem = (kT32BQ * kT32LD + 2 * kT32Stage) * sizeof(float);
 
-__global__ void __launch_bounds__(kF32Threads)
-    fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, float* __restrict__ o,
-            float* __restrict__ lse, int H, int Tq, int Tk, int D,
-            int causal, float scale_log2, Strides qs, Strides ks,
-            Strides vs) {
-  // rows padded by 4 floats: the eight keys a warp reads at one d fall on
-  // eight bank quads
-  constexpr int LD = kChunk + 4;
+// each product's split (tf32x3.cuh's split): both truncated, rows within
+// 3.1e-6 of the plain version at (1, 8192, 4, 128) causal on an H100,
+// where both rounded to nearest read 2.7e-6 at 1.60 ms against 1.43
+// (tools/flash_f32_ab.py, 32-key tiles)
+constexpr bool kNearestS = false, kNearestV = false;
+
+// x (16 x kT32BK) += rows [r0, r0 + 16) of the query tile `a` times the
+// walked key tile `b` transposed, over one 128-wide chunk, both K-major.
+// Each 8-deep step sums from zero in the mma and is added to x in f32.
+__device__ __forceinline__ void score_tile(float (&x)[kT32N][4],
+                                          const float* a, const float* b,
+                                          int r0) {
+  const int lane = threadIdx.x & 31;
+  const int row = (lane >> 2) * kT32LD + (lane & 3);
+#pragma unroll
+  for (int kk = 0; kk < kChunk / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    load_a_split<kNearestS>(ah, al, a, r0, 8 * kk);
+#pragma unroll
+    for (int n = 0; n < kT32N; ++n) {
+      const float* pb = b + 8 * n * kT32LD + row + 8 * kk;
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+      mma3<kNearestS>(t, ah, al, pb[0], pb[4]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[n][e] += t[e];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kT32Threads, 1)
+    fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int H, int Tq, int Tk, int D,
+             int causal, float scale_log2, Strides qs, Strides ks,
+             Strides vs) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sq = reinterpret_cast<float*>(smem_raw);  // [kF32BQ][LD], a chunk
-  float* sk = sq + kF32BQ * LD;                    // [kF32BK][LD], a chunk
-  float* sv = sk + kF32BK * LD;                    // [kF32BK][LD], chunk oc
-  float* sp = sv + kF32BK * LD;                    // [kF32BQ][kF32BK + 1]
+  float* sq = reinterpret_cast<float*>(smem_raw);  // [kT32BQ][LD], a chunk
+  float* ring = sq + kT32BQ * kT32LD;              // 2 x {K, V tiles}
 
-  const int chunks = D / kChunk;
-  const int oc = blockIdx.x % chunks;
-  const int q0 = (gridDim.x / chunks - 1 - blockIdx.x / chunks) * kF32BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int r = threadIdx.x >> 3, c8 = threadIdx.x & 7;
-  const int row = q0 + r;
+  const int chunks = D / kChunk, per_tile = items_a_tile(chunks);
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int oc = blockIdx.y % chunks;
+  // longest walk first
+  const int q0 = (gridDim.y / chunks - 1 - blockIdx.y / chunks) * kT32BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c4 = lane & 3;
+  const int wq = 16 * warp;  // the warp's first row in the block
+  const int row0 = q0 + wq + (lane >> 2), row1 = row0 + 8;
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
 
-  // one chunk: the query tile stays in shared memory for the whole walk
-  if (chunks == 1)
-    load_rows<float, kChunk, kF32BQ, LD, kF32Threads>(sq, qb, qs.t, q0, Tq);
-  float acc[kChunk / 8];
-#pragma unroll
-  for (int i = 0; i < kChunk / 8; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
+  const int k_end = causal ? min(Tk, q0 + kT32BQ) : Tk;
+  const int items = (k_end + kT32BK - 1) / kT32BK * per_tile;
+  // item i into stage i % 2: the walked keys' chunk of K, and on a value
+  // item V's output chunk (both on the one item of a 128-wide head)
+  auto issue = [&](int i) {
+    float* st = ring + (i % 2) * kT32Stage;
+    const int k0 = i / per_tile * kT32BK, part = i % per_tile;
+    if (part < chunks)
+      rows_async<kT32BK>(st, kb + part * kChunk, ks.t, k0, Tk);
+    if (chunks == 1 || part == chunks)
+      rows_async<kT32BK>(st + kT32Tile, vb + oc * kChunk, vs.t, k0, Tk);
+  };
 
-  const int k_end = causal ? min(Tk, q0 + kF32BQ) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kF32BK) {
-    float s[kF32BK / 8] = {0.f, 0.f, 0.f, 0.f};
-    for (int dc = 0; dc < chunks; ++dc) {
-      __syncthreads();  // the previous chunk (and tile) has been read
-      if (chunks > 1)
-        load_rows<float, kChunk, kF32BQ, LD, kF32Threads>(
-            sq, qb + dc * kChunk, qs.t, q0, Tq);
-      load_rows<float, kChunk, kF32BK, LD, kF32Threads>(
-          sk, kb + dc * kChunk, ks.t, k0, Tk);
-      if (dc == 0)
-        load_rows<float, kChunk, kF32BK, LD, kF32Threads>(
-            sv, vb + oc * kChunk, vs.t, k0, Tk);
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < kChunk; ++d) {
-        const float qd = sq[r * LD + d];
+  float acc[kChunk / 8][4];
 #pragma unroll
-        for (int j = 0; j < kF32BK / 8; ++j)
-          s[j] = fmaf(qd, sk[(c8 + 8 * j) * LD + d], s[j]);
+  for (int n = 0; n < kChunk / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float s[kT32N][4];  // queries x keys: S, then P
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  if (chunks == 1)  // the block's rows stay for the whole walk
+    rows_async<kT32BQ>(sq, qb, qs.t, q0, Tq);
+  issue(0);
+  int8_tile::cp_async_commit();
+  if (items > 1) issue(1);
+  int8_tile::cp_async_commit();
+  for (int i = 0; i < items; ++i) {
+    const float* stage = ring + (i % 2) * kT32Stage;
+    const int k0 = i / per_tile * kT32BK, part = i % per_tile;
+    if (chunks > 1 && part < chunks) {  // the own rows' chunk `part`
+      rows_async<kT32BQ>(sq, qb + part * kChunk, qs.t, q0, Tq);
+      int8_tile::cp_async_commit();
+      int8_tile::cp_async_wait<0>();
+    } else {
+      int8_tile::cp_async_wait<1>();
+    }
+    __syncthreads();  // item i (and the own chunk) has landed everywhere
+    // a warp whose rows all lie before the tile's keys skips it
+    if (!(causal && k0 > q0 + wq + 15)) {
+      if (part == 0) {
+#pragma unroll
+        for (int n = 0; n < kT32N; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      }
+      if (part < chunks) score_tile(s, sq, stage, wq);  // S = Q K^T
+      if (chunks == 1 || part == chunks) {
+        // the online softmax in log2 units on the C fragments: -inf past
+        // Tk and above the diagonal, the running max and sum of each row,
+        // O rescaled when the max grows
+        const bool edge = k0 + kT32BK > Tk ||
+                          (causal && k0 + kT32BK - 1 > q0 + wq);
+        float mx0 = m0, mx1 = m1;
+#pragma unroll
+        for (int n = 0; n < kT32N; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[n][e] * scale_log2;
+            if (edge) {
+              const int key = k0 + 8 * n + 2 * c4 + (e & 1);
+              const int row = e < 2 ? row0 : row1;
+              if (key >= Tk || (causal && key > row)) x = -INFINITY;
+            }
+            s[n][e] = x;
+          }
+          mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+        }
+        mx0 = quad_max(mx0);
+        mx1 = quad_max(mx1);
+        // a row with no visible key yet keeps exp2(-inf) = 0 everywhere
+        const float base0 = mx0 == -INFINITY ? 0.f : mx0;
+        const float base1 = mx1 == -INFINITY ? 0.f : mx1;
+        const float alpha0 = exp2f(m0 - base0), alpha1 = exp2f(m1 - base1);
+        m0 = mx0;
+        m1 = mx1;
+        l0 *= alpha0;
+        l1 *= alpha1;
+#pragma unroll
+        for (int n = 0; n < kChunk / 8; ++n) {
+          acc[n][0] *= alpha0;
+          acc[n][1] *= alpha0;
+          acc[n][2] *= alpha1;
+          acc[n][3] *= alpha1;
+        }
+        // P = exp2(s - max), unrounded, as the f32 plain version keeps it
+#pragma unroll
+        for (int n = 0; n < kT32N; ++n) {
+          s[n][0] = exp2f(s[n][0] - base0);
+          s[n][1] = exp2f(s[n][1] - base0);
+          s[n][2] = exp2f(s[n][2] - base1);
+          s[n][3] = exp2f(s[n][3] - base1);
+          l0 += s[n][0] + s[n][1];
+          l1 += s[n][2] + s[n][3];
+        }
+        value_tile<kNearestV>(acc, s, stage + kT32Tile);  // O += P V
       }
     }
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < kF32BK / 8; ++j) {
-      const int col = k0 + c8 + 8 * j;
-      s[j] = (col >= Tk || (causal && col > row)) ? -INFINITY
-                                                  : s[j] * scale_log2;
-      mx = fmaxf(mx, s[j]);
-    }
-#pragma unroll
-    for (int o8 = 1; o8 < 8; o8 <<= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o8));
-    const float base = mx == -INFINITY ? 0.f : mx;
-    const float alpha = exp2f(m - base);
-    m = mx;
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < kChunk / 8; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kF32BK / 8; ++j) {
-      const float p = exp2f(s[j] - base);
-      l += p;
-      sp[r * (kF32BK + 1) + c8 + 8 * j] = p;
-    }
-    __syncwarp();  // a row's eight threads share one warp
-#pragma unroll 4
-    for (int key = 0; key < kF32BK; ++key) {
-      const float p = sp[r * (kF32BK + 1) + key];
-#pragma unroll
-      for (int i = 0; i < kChunk / 8; ++i)
-        acc[i] = fmaf(p, sv[key * LD + c8 + 8 * i], acc[i]);
-    }
+    __syncthreads();  // every warp is done with item i's stage
+    if (i + 2 < items) issue(i + 2);
+    int8_tile::cp_async_commit();
   }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float f0 = l0 > 0.f ? 1.f / l0 : 0.f, f1 = l1 > 0.f ? 1.f / l1 : 0.f;
 #pragma unroll
-  for (int o8 = 1; o8 < 8; o8 <<= 1)
-    l += __shfl_xor_sync(0xffffffffu, l, o8);
-  if (row < Tq) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    float* out = o + (((long long)b * Tq + row) * H + h) * D + oc * kChunk;
-#pragma unroll
-    for (int i = 0; i < kChunk / 8; ++i) out[c8 + 8 * i] = acc[i] * inv;
-    if (c8 == 0 && oc == 0)
-      lse[((long long)b * H + h) * Tq + row] = (m + log2f(l)) * kLn2;
+  for (int n = 0; n < kChunk / 8; ++n) {
+    acc[n][0] *= f0;
+    acc[n][1] *= f0;
+    acc[n][2] *= f1;
+    acc[n][3] *= f1;
+  }
+  store_f32(o, acc, b, h, H, Tq, D, oc * kChunk, q0 + wq);
+  if (c4 == 0 && oc == 0) {
+    float* lrow = lse + ((long long)b * H + h) * Tq;
+    if (row0 < Tq) lrow[row0] = (m0 + log2f(l0)) * kLn2;
+    if (row1 < Tq) lrow[row1] = (m1 + log2f(l1)) * kLn2;
   }
 }
 
@@ -557,12 +677,10 @@ int run(const void* q, const void* k, const void* v, void* o, float* lse,
         static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, Tq, Tk,
         D, causal, scale_log2, qs, ks, vs);
   } else {
-    const size_t smem = ((size_t)(kF32BQ + 2 * kF32BK) * (kChunk + 4)
-                         + kF32BQ * (kF32BK + 1)) * sizeof(float);
-    err = allow_smem(fwd_f32, smem);
+    err = allow_smem(fwd_tf32, kT32Smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((Tq + kF32BQ - 1) / kF32BQ * chunks, H, B);
-    fwd_f32<<<grid, kF32Threads, smem, stream>>>(
+    dim3 grid(H, (Tq + kT32BQ - 1) / kT32BQ * chunks, B);
+    fwd_tf32<<<grid, kT32Threads, kT32Smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, H, Tq, Tk,
         D, causal, scale_log2, qs, ks, vs);

@@ -1,5 +1,5 @@
-// Tile helpers shared by the flash-attention kernels: the mma.sync and FMA
-// kernels of K7 (forward, flash_attention.cu: fwd_wide, fwd_f32), K8 and
+// Tile helpers shared by the flash-attention kernels: the mma.sync kernels
+// of K7 (forward, flash_attention.cu: fwd_wide), K8 and
 // K9 (backward, flash_attention_bwd.cu: dkv_wide, dq_wide), and the
 // constants and small helpers (Strides, pack, allow_smem) that the wgmma
 // kernels of both files take from here.
